@@ -1,0 +1,341 @@
+// Hand-written Hopper (sm_90a) kernels for the chunked sparse convolutions
+// of the pretraining step: the same-level 3x3x3 conv, the k2s2 down conv and
+// the k2s2 transposed conv, forward and backward (see
+// pointcontrast_tpu_torch/sparse/kernels.py for the Python wrappers, their
+// plain-torch twins and which JAX op each one replaces).
+//
+// Layout (chunked): a feature table is [B, S, C] row-major f32 with each
+// chunk's last row a pad row whose features are exactly zero.  A gather map
+// is [K, B, S_out] int32 holding frame-LOCAL row indices, already checked to
+// lie inside their chunk on the host (PairBatch.to).
+//
+// A gathered operand names its rows in one of two ways:
+//   map != nullptr : row(j, b, s) = map[taps.idx[j]][b][s]
+//   map == nullptr : row(j, b, s) = j * tap_stride + s   (stacked table)
+//
+// All four kernels are simple tiled SIMT f32 kernels: each block stages its
+// rows (gathered through the index tile) and a weight tile in shared memory
+// and accumulates a 4x4 micro-tile per thread in registers, in f32.  They
+// use no tensor cores (the port runs f32 with TF32 off); wgmma/TMA pipelines
+// are later work.  Each C entry returns cudaGetLastError() of its launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_TAPS 32
+
+struct TapList {
+  int idx[MAX_TAPS];
+};
+
+namespace {
+
+constexpr int BM = 64;   // rows (or Cin channels for wgrad) per block tile
+constexpr int BN = 64;   // output channels per block tile
+constexpr int BK = 16;   // reduction depth per shared-memory stage
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+__device__ __forceinline__ int row_of(const int* __restrict__ map,
+                                      const TapList& taps, int tap_stride,
+                                      int j, int b, int s, int B, int S) {
+  if (map != nullptr) {
+    return __ldg(map + ((int64_t)taps.idx[j] * B + b) * S + s);
+  }
+  return j * tap_stride + s;
+}
+
+// (a) out[b,s,:] = [X[b,s,:] . Wc] + sum_j X[b, row(j,b,s), :] . W[j]
+// grid (ceil(S_out/BM), ceil(Cout/BN), B)
+__global__ void __launch_bounds__(THREADS)
+gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
+                   TapList taps, int tap_stride, int G,
+                   const float* __restrict__ W, const float* __restrict__ Wc,
+                   float* __restrict__ out, int B, int S_in, int S_out,
+                   int Cin, int Cout) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Bs[BK][BN];
+  __shared__ int rows[BM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const float* Xb = X + (int64_t)b * S_in * Cin;
+
+  float acc[4][4] = {};
+  const int first = (Wc != nullptr) ? -1 : 0;
+  for (int j = first; j < G; ++j) {
+    if (tid < BM) {
+      const int s = s0 + tid;
+      int r = -1;
+      if (s < S_out) r = (j < 0) ? s : row_of(map, taps, tap_stride, j, b, s, B, S_out);
+      rows[tid] = r;
+    }
+    const float* Wj = (j < 0) ? Wc : W + (int64_t)j * Cin * Cout;
+    __syncthreads();
+    for (int k0 = 0; k0 < Cin; k0 += BK) {
+#pragma unroll
+      for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+        const int e = tid + i * THREADS;
+        const int m = e / BK, kk = e % BK;
+        const int r = rows[m];
+        As[kk][m] = (r >= 0 && k0 + kk < Cin)
+                        ? __ldg(Xb + (int64_t)r * Cin + k0 + kk) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
+        const int e = tid + i * THREADS;
+        const int kk = e / BN, n = e % BN;
+        Bs[kk][n] = (k0 + kk < Cin && n0 + n < Cout)
+                        ? __ldg(Wj + (int64_t)(k0 + kk) * Cout + n0 + n) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) w[q] = Bs[kk][tx * 4 + q];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + ty * 4 + i;
+    if (s >= S_out) continue;
+    float* o = out + ((int64_t)b * S_out + s) * Cout;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (n < Cout) o[n] = acc[i][q];
+    }
+  }
+}
+
+// (b) dW[k] += sum_{b,s} A[b, rowA(k,b,s)]^T . G[b, rowG(k,b,s)] over this
+// block's slice of the B*S rows; f32 atomics combine the slices.
+// grid (ceil(Ca/BM) * ceil(Cg/BN), K, row splits)
+__global__ void __launch_bounds__(THREADS)
+gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
+                    TapList a_taps, int a_stride, int Sa, int Ca,
+                    const float* __restrict__ Gm, const int* __restrict__ g_map,
+                    TapList g_taps, int g_stride, int Sg, int Cg,
+                    float* __restrict__ dW, int B, int S, int rows_per_block) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Gs[BK][BN + 4];
+  __shared__ int64_t ra[BK], rg[BK];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int tiles_n = (Cg + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int k = blockIdx.y;
+  const int64_t total = (int64_t)B * S;
+  const int64_t r_begin = (int64_t)blockIdx.z * rows_per_block;
+  const int64_t r_stop = r_begin + rows_per_block;
+  const int64_t r_end = r_stop < total ? r_stop : total;
+
+  float acc[4][4] = {};
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += BK) {
+    if (tid < 2 * BK) {
+      const int kk = tid % BK;
+      const int64_t r = r0 + kk;
+      int64_t v = -1;
+      if (r < r_end) {
+        const int b = (int)(r / S), s = (int)(r % S);
+        if (tid < BK) {
+          v = (int64_t)b * Sa + row_of(a_map, a_taps, a_stride, k, b, s, B, S);
+        } else {
+          v = (int64_t)b * Sg + row_of(g_map, g_taps, g_stride, k, b, s, B, S);
+        }
+      }
+      if (tid < BK) ra[kk] = v; else rg[kk] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int kk = e / BM, m = e % BM;
+      const int64_t r = ra[kk];
+      As[kk][m] = (r >= 0 && m0 + m < Ca) ? __ldg(A + r * Ca + m0 + m) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * BK) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int kk = e / BN, n = e % BN;
+      const int64_t r = rg[kk];
+      Gs[kk][n] = (r >= 0 && n0 + n < Cg) ? __ldg(Gm + r * Cg + n0 + n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g[q] = Gs[kk][tx * 4 + q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], g[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+  float* dWk = dW + (int64_t)k * Ca * Cg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= Ca) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (n < Cg) atomicAdd(dWk + (int64_t)m * Cg + n, acc[i][q]);
+    }
+  }
+}
+
+constexpr int KO = 8;    // offsets of a k2s2 kernel (2^3)
+constexpr int PBK = 8;   // reduction depth of parent_gemm (8 weight tiles staged)
+
+// (c) out[b,i,:] = X[b, parent[b,i], :] . W[off[b,i]]
+// grid (ceil(S_f/BM), ceil(Cout/BN), B)
+__global__ void __launch_bounds__(THREADS)
+parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
+                   const int* __restrict__ off, const float* __restrict__ W,
+                   float* __restrict__ out, int S_c, int S_f, int Cin, int Cout) {
+  __shared__ float As[PBK][BM + 4];
+  __shared__ float Ws[KO][PBK][BN];
+  __shared__ int prow[BM], poff[BM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const float* Xb = X + (int64_t)b * S_c * Cin;
+  if (tid < BM) {
+    const int s = s0 + tid;
+    const bool in = s < S_f;
+    prow[tid] = in ? __ldg(parent + (int64_t)b * S_f + s) : -1;
+    poff[tid] = in ? __ldg(off + (int64_t)b * S_f + s) : 0;
+  }
+  __syncthreads();
+
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < Cin; k0 += PBK) {
+#pragma unroll
+    for (int i = 0; i < (BM * PBK) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int m = e / PBK, kk = e % PBK;
+      const int r = prow[m];
+      As[kk][m] = (r >= 0 && k0 + kk < Cin)
+                      ? __ldg(Xb + (int64_t)r * Cin + k0 + kk) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < (KO * PBK * BN) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int o = e / (PBK * BN), kk = (e / BN) % PBK, n = e % BN;
+      Ws[o][kk][n] = (k0 + kk < Cin && n0 + n < Cout)
+                         ? __ldg(W + ((int64_t)o * Cin + k0 + kk) * Cout + n0 + n)
+                         : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = poff[ty * 4 + i];
+#pragma unroll
+      for (int kk = 0; kk < PBK; ++kk) {
+        const float a = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[i][q] = fmaf(a, Ws[o][kk][tx * 4 + q], acc[i][q]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = s0 + ty * 4 + i;
+    if (s >= S_f) continue;
+    float* o = out + ((int64_t)b * S_f + s) * Cout;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (n < Cout) o[n] = acc[i][q];
+    }
+  }
+}
+
+// (d) dy[b, off[b,i] * S_c + parent[b,i], :] += ct[b, i, :]
+__global__ void scatter_parent_kernel(const float* __restrict__ ct,
+                                      const int* __restrict__ parent,
+                                      const int* __restrict__ off,
+                                      float* __restrict__ dy, int B, int S_f,
+                                      int S_c, int C) {
+  const int64_t total = (int64_t)B * S_f * C;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = e / C;  // b * S_f + fine row
+    const int c = (int)(e % C);
+    const int64_t b = i / S_f;
+    const int64_t row = (int64_t)__ldg(off + i) * S_c + __ldg(parent + i);
+    atomicAdd(dy + (b * KO * S_c + row) * C + c, __ldg(ct + e));
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
+                   int G, const void* W, const void* Wc, void* out, int B,
+                   int S_in, int S_out, int Cin, int Cout, void* stream) {
+  dim3 grid((S_out + BM - 1) / BM, (Cout + BN - 1) / BN, B);
+  gather_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const int*)map, taps, tap_stride, G, (const float*)W,
+      (const float*)Wc, (float*)out, B, S_in, S_out, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps,
+                    int a_stride, int Sa, int Ca, const void* Gm,
+                    const void* g_map, TapList g_taps, int g_stride, int Sg,
+                    int Cg, void* dW, int K, int B, int S, int rows_per_block,
+                    void* stream) {
+  const int64_t total = (int64_t)B * S;
+  const int splits = (int)((total + rows_per_block - 1) / rows_per_block);
+  dim3 grid(((Ca + BM - 1) / BM) * ((Cg + BN - 1) / BN), K, splits);
+  gather_wgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)A, (const int*)a_map, a_taps, a_stride, Sa, Ca,
+      (const float*)Gm, (const int*)g_map, g_taps, g_stride, Sg, Cg,
+      (float*)dW, B, S, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+int pc_parent_gemm(const void* X, const void* parent, const void* off,
+                   const void* W, void* out, int B, int S_c, int S_f, int Cin,
+                   int Cout, void* stream) {
+  dim3 grid((S_f + BM - 1) / BM, (Cout + BN - 1) / BN, B);
+  parent_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const int*)parent, (const int*)off, (const float*)W,
+      (float*)out, S_c, S_f, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+int pc_scatter_parent(const void* ct, const void* parent, const void* off,
+                      void* dy, int B, int S_f, int S_c, int C, void* stream) {
+  const int64_t total = (int64_t)B * S_f * C;
+  const int threads = 256;
+  int blocks = (int)((total + threads - 1) / threads);
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  if (blocks < 1) blocks = 1;
+  scatter_parent_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, B,
+      S_f, S_c, C);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,331 @@
+"""Fixed-shape pair collation (host side, numpy only) + the move to torch.
+
+Jax-free port of ``pointcontrast_tpu/data/collate.py`` for the pretraining
+path: ``collate_pair`` with fused frames, the chunked layout and PointInfoNCE
+sampling.  From the same samples and ``RandomState`` it gives the JAX
+package's arrays byte for byte.  ``PairBatch`` is a plain dataclass whose
+``to(device)`` checks every index against its chunk before any kernel can
+read it through a raw pointer, then widens the uint16 maps to int32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
+from pointcontrast_tpu_torch.sparse.topology import LevelTopo, Pyramid
+
+
+@dataclasses.dataclass(frozen=True)
+class PadScheme:
+    """Static padded sizes for a batch's coordinate pyramid.
+
+    ``npads[l]`` must exceed the true voxel count at level ``l``.  With
+    ``level_ratios`` unset, level 1 keeps the level-0 budget and deeper
+    levels shrink by ``shrink`` per stride."""
+
+    npad0: int
+    num_levels: int = 5
+    shrink: float = 2.0
+    min_pad: int = 256
+    level_ratios: tuple | None = None
+
+    @property
+    def npads(self) -> list[int]:
+        n_levels = self.num_levels
+        if self.level_ratios is not None:
+            if len(self.level_ratios) < n_levels:
+                raise ValueError(
+                    f"level_ratios has {len(self.level_ratios)} entries but "
+                    f"num_levels={n_levels}"
+                )
+            return [
+                max(int(self.npad0 * r) + 1, self.min_pad)
+                for r in self.level_ratios[:n_levels]
+            ]
+        return [
+            max(int(self.npad0 / self.shrink ** max(lvl - 1, 0)) + 1, self.min_pad)
+            for lvl in range(n_levels)
+        ]
+
+    @staticmethod
+    def scannet(npad0: int, num_levels: int = 5) -> "PadScheme":
+        """Tight pads for ScanNet-density scenes (2-2.5cm voxels): level
+        counts shrink ~(1, 0.29, 0.073, 0.019, 0.005) per stride on saturated
+        surface scans; the ratios carry ~30-40% headroom on top."""
+        return PadScheme(
+            npad0, num_levels,
+            level_ratios=(1.0, 0.38, 0.105, 0.03, 0.011, 0.004),
+        )
+
+
+def _to_index(a, device) -> torch.Tensor | None:
+    """uint16/int32 numpy map -> int32 tensor (few torch ops take uint16)."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def _check_below(name: str, a: np.ndarray, bound: int) -> None:
+    if a.size and (int(a.min()) < 0 or int(a.max()) >= bound):
+        raise ValueError(
+            f"{name}: index range [{int(a.min())}, {int(a.max())}] "
+            f"outside [0, {bound})"
+        )
+
+
+def check_bounds(batch: "PairBatch") -> None:
+    """Layout-aware bounds check of a host chunked batch, per chunk:
+    ``nbr < S_l``, ``down_nbr < S_l``, ``up_parent < S_{l+1}``,
+    ``up_offset < 2^D`` and the loss indices below the row count.  Raises
+    ``ValueError`` naming the first map out of range."""
+    levels = batch.pyramid0.levels
+    nb = batch.pyramid0.num_batch
+    sizes = [lv.valid.shape[0] // nb for lv in levels]
+    rows = batch.feats0.shape[0]
+    if rows != nb * sizes[0]:
+        raise ValueError(f"feats0 has {rows} rows, expected {nb} x {sizes[0]}")
+    for l, lv in enumerate(levels):
+        s = sizes[l]
+        for name in ("nbr", "nbr0"):
+            m = getattr(lv, name)
+            if m is not None:
+                if m.shape[1:] != (nb, s):
+                    raise ValueError(f"level {l} {name}: shape {m.shape}")
+                _check_below(f"level {l} {name}", m, s)
+        if lv.down_nbr is None:
+            continue
+        s_next = sizes[l + 1]
+        k_up = lv.down_nbr.shape[0]
+        if lv.down_nbr.shape[1:] != (nb, s_next):
+            raise ValueError(f"level {l} down_nbr: shape {lv.down_nbr.shape}")
+        if lv.up_parent.shape != (nb, s) or lv.up_offset.shape != (nb, s):
+            raise ValueError(f"level {l} up maps: shape {lv.up_parent.shape}")
+        _check_below(f"level {l} down_nbr", lv.down_nbr, s)
+        _check_below(f"level {l} up_parent", lv.up_parent, s_next)
+        _check_below(f"level {l} up_offset", lv.up_offset, k_up)
+    _check_below("q_idx", batch.q_idx, rows)
+    _check_below("k_idx", batch.k_idx, rows)
+
+
+@dataclasses.dataclass
+class PairBatch:
+    """One fused-frame batch: numpy on the host, torch after ``to``."""
+
+    feats0: Any  # [B * S_0, C] padded rows zero (both frames fused)
+    pyramid0: Any  # sparse.topology.Pyramid over all 2 * num_pairs frames
+    q_idx: Optional[Any] = None  # [npos] anchor rows (frame 0)
+    k_idx: Optional[Any] = None  # [npos] positive rows (frame 1)
+    pair_valid: Optional[Any] = None  # [npos] float 1/0
+    # voxels dropped by graceful truncation (scalar)
+    truncated_voxels: Optional[Any] = None
+    num_pairs: int = 0
+
+    def to(self, device) -> "PairBatch":
+        """Bounds-check the host batch, then move it to ``device`` with the
+        maps widened to int32 and the loss indices to int64."""
+        check_bounds(self)
+
+        def level_to(lv: LevelTopo) -> LevelTopo:
+            return LevelTopo(
+                nbr=_to_index(lv.nbr, device),
+                valid=torch.from_numpy(lv.valid).to(device),
+                batch=_to_index(lv.batch, device),
+                down_nbr=_to_index(lv.down_nbr, device),
+                up_parent=_to_index(lv.up_parent, device),
+                up_offset=_to_index(lv.up_offset, device),
+                nbr0=_to_index(lv.nbr0, device),
+                rev=lv.rev,
+                rev0=lv.rev0,
+            )
+
+        pyr = self.pyramid0
+        return PairBatch(
+            feats0=torch.from_numpy(self.feats0).to(device),
+            pyramid0=Pyramid(
+                levels=tuple(level_to(lv) for lv in pyr.levels),
+                num_batch=pyr.num_batch,
+            ),
+            q_idx=torch.from_numpy(self.q_idx.astype(np.int64)).to(device),
+            k_idx=torch.from_numpy(self.k_idx.astype(np.int64)).to(device),
+            pair_valid=torch.from_numpy(self.pair_valid).to(device),
+            truncated_voxels=torch.as_tensor(self.truncated_voxels).to(device),
+            num_pairs=self.num_pairs,
+        )
+
+
+def _concat_with_batch_index(coords_list, feats_list):
+    rows = []
+    for b, c in enumerate(coords_list):
+        bc = np.concatenate(
+            [np.full((len(c), 1), b, dtype=np.int32), c.astype(np.int32)], axis=1
+        )
+        rows.append(bc)
+    return np.concatenate(rows, 0), np.concatenate(feats_list, 0).astype(np.float32)
+
+
+def _offset_matches(matches_list, len0, len1):
+    out = []
+    o0 = o1 = 0
+    for m, n0, n1 in zip(matches_list, len0, len1):
+        if len(m) == 0:
+            m = np.zeros((1, 2), dtype=np.int64)  # dummy (0,0), as the reference
+        out.append(m + np.array([o0, o1], dtype=np.int64))
+        o0 += n0
+        o1 += n1
+    return np.concatenate(out, 0)
+
+
+def _layout_feats(feats: np.ndarray, rows: np.ndarray, orphan: np.ndarray,
+                  nrows: int) -> np.ndarray:
+    """Scatter voxel features to their chunked rows (orphans dropped so the
+    zero-row invariant holds for every absent voxel)."""
+    out = np.zeros((nrows, feats.shape[1]), dtype=np.float32)
+    keep = ~orphan
+    out[rows[keep]] = feats[keep]
+    return out
+
+
+def _remap_idx(idx, valid, rows: np.ndarray, orphan: np.ndarray):
+    """Map loss indices from voxel ids to layout rows; entries pointing at
+    orphaned (truncation-dropped) voxels are invalidated."""
+    idx = np.asarray(idx, dtype=np.int64)
+    ok = ~orphan[idx]
+    out = rows[idx].astype(np.int32)
+    out[~ok] = 0
+    v = ok.astype(np.float32) if valid is None else (valid * ok).astype(np.float32)
+    return out, v
+
+
+def _subsample_frame(coords, feats, keep_n, rng):
+    """Random voxel subset preserving order (overflow safety valve)."""
+    sel = np.sort(rng.choice(len(coords), keep_n, replace=False))
+    remap = np.full(len(coords), -1, dtype=np.int64)
+    remap[sel] = np.arange(keep_n)
+    return coords[sel], feats[sel], remap
+
+
+def _subsample_lists(coords, feats, matches, col, ratio, rng):
+    """Subsample every sample of one frame by ``ratio``, dropping the
+    matches whose ``col`` end was removed (in place on the lists)."""
+    for b in range(len(coords)):
+        keep = max(1, int(len(coords[b]) * ratio))
+        coords[b], feats[b], remap = _subsample_frame(coords[b], feats[b], keep, rng)
+        m = matches[b]
+        m = m[remap[m[:, col]] >= 0]
+        m[:, col] = remap[m[:, col]]
+        matches[b] = m
+
+
+def sample_nce_pairs(
+    matches: np.ndarray, npos: int, rng: np.random.RandomState
+):
+    """PointInfoNCE anchor sampling: one random positive per unique frame-0
+    anchor, then subsample to ``npos`` anchors; padded with zeros + validity
+    mask."""
+    q_idx = np.zeros(npos, dtype=np.int32)
+    k_idx = np.zeros(npos, dtype=np.int32)
+    valid = np.zeros(npos, dtype=np.float32)
+    if len(matches):
+        src = matches[:, 0]
+        if np.any(src[1:] < src[:-1]):
+            matches = matches[np.argsort(src, kind="stable")]
+        uniq, counts = np.unique(matches[:, 0], return_counts=True)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        off = np.floor(rng.rand(len(counts)) * counts).astype(np.int64)
+        # matches are sorted by source index, so runs are contiguous
+        k_sel = matches[starts + off, 1]
+        if npos < len(uniq):
+            pick = rng.choice(len(uniq), npos, replace=False)
+            uniq, k_sel = uniq[pick], k_sel[pick]
+        n = len(uniq)
+        q_idx[:n] = uniq
+        k_idx[:n] = k_sel
+        valid[:n] = 1.0
+    return q_idx, k_idx, valid
+
+
+def collate_pair(
+    samples: list,
+    scheme: PadScheme,
+    mode: str = "nce",
+    npos: int = 4096,
+    rng: np.random.RandomState | None = None,
+    max_fit_attempts: int = 6,
+    fuse_frames: bool = True,
+    conv0_kernel_size: int = 3,
+    layout: str = "chunked",
+) -> PairBatch:
+    """Collate ``__getitem__`` tuples into one static-shaped ``PairBatch``.
+
+    Frame 1's clouds become extra sparse-batch samples (ids B..2B-1) and ONE
+    chunked pyramid is built over all 2B frames; the NCE indices point into
+    that combined table.  The JAX package's other modes (hardest, separate
+    frames, voxel and brick layouts) are not ported yet and raise."""
+    if mode != "nce" or not fuse_frames or layout != "chunked":
+        raise ValueError(
+            f"collate_pair supports mode='nce', fuse_frames=True, "
+            f"layout='chunked' (got {mode!r}, {fuse_frames}, {layout!r})"
+        )
+    rng = rng or np.random.RandomState()
+    _, _, coords0, coords1, feats0, feats1, matches, _ = zip(*samples)
+    coords0, feats0, coords1, feats1 = (
+        list(coords0), list(feats0), list(coords1), list(feats1),
+    )
+    matches = [np.asarray(m, dtype=np.int64).reshape(-1, 2) for m in matches]
+    nb = len(samples)
+
+    for _ in range(max_fit_attempts):
+        len0 = [len(c) for c in coords0]
+        len1 = [len(c) for c in coords1]
+        c0, f0 = _concat_with_batch_index(coords0, feats0)
+        c1, f1 = _concat_with_batch_index(coords1, feats1)
+        budget = (scheme.npads[0] - 1) // 2
+        if len(c0) > budget or len(c1) > budget:
+            # Too many voxels for the static shape: evenly subsample frames.
+            for cl, fl, col in ((coords0, feats0, 0), (coords1, feats1, 1)):
+                total = sum(len(c) for c in cl)
+                if total > budget:
+                    _subsample_lists(cl, fl, matches, col,
+                                     budget / total * 0.999, rng)
+            continue
+        try:
+            c1f = c1.copy()
+            c1f[:, 0] += nb  # frame-1 clouds as extra batch samples
+            pyr0, meta0, rows0, orph0 = build_chunked_pyramid(
+                np.concatenate([c0, c1f]),
+                num_levels=scheme.num_levels,
+                npads=scheme.npads,
+                num_batch=2 * nb,
+                conv0_kernel_size=conv0_kernel_size,
+            )
+        except ValueError:
+            # deeper-level overflow: shrink level 0 and retry
+            _subsample_lists(coords0, feats0, matches, 0, 0.8, rng)
+            _subsample_lists(coords1, feats1, matches, 1, 0.8, rng)
+            continue
+        break
+    else:
+        raise ValueError(
+            f"batch does not fit PadScheme {scheme} after {max_fit_attempts} attempts"
+        )
+
+    all_matches = _offset_matches(matches, len0, len1)
+    truncated = sum(n for _, n in meta0.truncated) + int(orph0.sum())
+    off1 = len(c0)  # frame-1 rows start here in the combined table
+    q, k, v = sample_nce_pairs(all_matches, npos, rng)
+    q, v = _remap_idx(q, v, rows0, orph0)
+    k, v = _remap_idx(k + off1, v, rows0, orph0)
+    return PairBatch(
+        feats0=_layout_feats(np.concatenate([f0, f1]), rows0, orph0,
+                             pyr0.levels[0].valid.shape[0]),
+        pyramid0=pyr0,
+        q_idx=q,
+        k_idx=k,
+        pair_valid=v,
+        truncated_voxels=np.asarray(truncated, np.float32),
+        num_pairs=nb,
+    )

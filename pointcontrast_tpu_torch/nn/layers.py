@@ -1,0 +1,124 @@
+"""Core sparse layers as torch ``nn.Module``s (port of
+``pointcontrast_tpu/nn/layers.py``).
+
+Conventions, as in the JAX package:
+  - features are [Npad, C]; padded rows are kept at exactly zero (ops that
+    break this -- bias, norm -- re-mask their output);
+  - weights keep the JAX layout: conv kernels [K, Cin, Cout] in the
+    ``kernel_offsets`` order, linear kernels [Cin, Cout];
+  - BatchNorm follows torch semantics: running = (1-m)*running + m*batch,
+    with the unbiased batch variance entering the running average
+    (momentum 0.05, the reference pretrain config).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pointcontrast_tpu_torch.sparse import ops
+
+
+def kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None):
+    """He/fan-in normal over the full receptive field (K * Cin)."""
+    fan_in = w.shape[0] * w.shape[1] if w.dim() == 3 else w.shape[0]
+    with torch.no_grad():
+        w.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+    return w
+
+
+class SparseConv(nn.Module):
+    """Sparse convolution: ``nbr`` decides the geometry (a same-level map
+    gives a stride-1 conv, a down map a strided conv onto the coarser
+    level)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
+                 bias: bool = False, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            kernel_init_(torch.empty(kernel_volume, in_channels, out_channels),
+                         generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, features, nbr, valid_out, rev=None, up=None):
+        return ops.sparse_conv(features, nbr, self.weight, bias=self.bias,
+                               valid_out=valid_out, rev=rev, up=up)
+
+
+class SparseConvTranspose(nn.Module):
+    """Stride-2 kernel-2 transposed conv onto the reused finer level."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_volume: int = 8, bias: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            kernel_init_(torch.empty(kernel_volume, in_channels, out_channels),
+                         generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, features, up_parent, up_offset, valid_out):
+        return ops.sparse_conv_transpose(features, up_parent, up_offset,
+                                         self.weight, bias=self.bias,
+                                         valid_out=valid_out)
+
+
+class SparseLinear(nn.Module):
+    """1x1 conv == per-voxel linear map (no gather)."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            kernel_init_(torch.empty(in_channels, out_channels), generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, features, valid):
+        out = features @ self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return ops.mask_rows(out, valid)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Padding-aware BatchNorm with torch running-stat semantics: moments
+    over valid rows only; the running variance takes the unbiased batch
+    variance."""
+
+    def __init__(self, num_features: int, momentum: float = 0.05,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, features, valid):
+        if self.training:
+            mean, var, n = ops.masked_moments(features, valid)
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1.0).clamp(min=1.0))
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        out = (features.float() - mean) * inv * self.weight + self.bias
+        return ops.mask_rows(out.to(features.dtype), valid)
+
+
+def relu(features):
+    """ReLU preserves the zero-padding invariant; no re-mask needed."""
+    return torch.relu(features)
+
+
+def l2_normalize_rows(features, valid, eps: float = 1e-12):
+    """Row-wise L2 normalization, x * rsqrt(max(sum x^2, eps)): the clamp
+    sits inside the rsqrt, so all-zero pad rows stay zero with a finite
+    gradient (sqrt's gradient at zero is NaN, and 0 * NaN poisons the
+    backward)."""
+    sq = features.float().square().sum(dim=1, keepdim=True)
+    inv = torch.rsqrt(sq.clamp(min=eps))
+    return ops.mask_rows(features * inv.to(features.dtype), valid)

@@ -1,0 +1,138 @@
+"""Res16UNet family: 8-stage sparse U-Net over a 5-level chunked pyramid
+(port of ``pointcontrast_tpu/nn/res16unet.py``).
+
+stem conv -> 4x [stride-2 conv + BN + ReLU + residual stage] encoder ->
+4x [transpose conv + BN + ReLU + skip-concat + residual stage] decoder ->
+1x1 head, optional L2-normalized output.  Submodules carry the flax names
+(``conv0p1s1``, ``bn0``, ``block1_0``, ``convtr4p16s2``, ``final``, ...),
+so ``tools.from_jax`` is a rename.  Unlike flax, torch fixes channel counts
+at construction, so the constructor tracks them the way the reference's
+``inplanes`` does.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pointcontrast_tpu_torch.nn.layers import (
+    MaskedBatchNorm,
+    SparseConv,
+    SparseConvTranspose,
+    SparseLinear,
+    l2_normalize_rows,
+    relu,
+)
+from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock
+
+NUM_LEVELS = 5  # strides 1, 2, 4, 8, 16
+
+
+class Res16UNetBase(nn.Module):
+    """Base 8-stage sparse U-Net (see the class attributes of subclasses)."""
+
+    BLOCK = None
+    PLANES = (32, 64, 128, 256, 256, 256, 256, 256)
+    LAYERS = (2, 2, 2, 2, 2, 2, 2, 2)
+    INIT_DIM = 32
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
+                 normalize_feature: bool = False, dimension: int = 3,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.normalize_feature = normalize_feature
+        k3, k_up = 3 ** dimension, 2 ** dimension
+        g = generator
+
+        def bn(name, c):
+            self.add_module(name, MaskedBatchNorm(c, bn_momentum))
+
+        # the stem reads the pyramid's nbr0 map when conv1_kernel_size != 3
+        self.conv0p1s1 = SparseConv(in_channels, self.INIT_DIM,
+                                    conv1_kernel_size ** dimension, generator=g)
+        bn("bn0", self.INIT_DIM)
+        c = self.INIT_DIM
+        skip_channels = [c]
+        for s in range(4):
+            self.add_module(f"conv{s + 1}p{2 ** s}s2",
+                            SparseConv(c, c, k_up, generator=g))
+            bn(f"bn{s + 1}", c)
+            c = self._add_stage(f"block{s + 1}", c, self.PLANES[s],
+                                self.LAYERS[s], k3, bn_momentum, g)
+            skip_channels.append(c)
+        for d in range(4):
+            planes = self.PLANES[4 + d]
+            self.add_module(f"convtr{4 + d}p{2 ** (4 - d)}s2",
+                            SparseConvTranspose(c, planes, k_up, generator=g))
+            bn(f"bntr{4 + d}", planes)
+            c = self._add_stage(f"block{5 + d}", planes + skip_channels[3 - d],
+                                planes, self.LAYERS[4 + d], k3, bn_momentum, g)
+        self.final = SparseLinear(c, out_channels, bias=True, generator=g)
+
+    def _add_stage(self, name, inplanes, planes, blocks, kernel_volume,
+                   bn_momentum, generator) -> int:
+        for i in range(blocks):
+            self.add_module(
+                f"{name}_{i}",
+                self.BLOCK(inplanes, planes, kernel_volume, bn_momentum,
+                           generator=generator),
+            )
+            inplanes = planes * self.BLOCK.expansion
+        return inplanes
+
+    def _stage(self, x, lv, name, blocks):
+        for i in range(blocks):
+            x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev)
+        return x
+
+    def forward(self, features, pyramid):
+        """features: [B*S_0, in_channels] (padded rows zero); pyramid: a
+        chunked ``Pyramid`` with NUM_LEVELS levels of torch tensors."""
+        lv = pyramid.levels
+        if len(lv) < NUM_LEVELS:
+            raise ValueError("Res16UNet needs a 5-level pyramid")
+        nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
+        rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
+        out = self.conv0p1s1(features, nbr0, lv[0].valid, rev0)
+        out = relu(self.bn0(out, lv[0].valid))
+
+        skips = [out]
+        for s in range(4):
+            out = getattr(self, f"conv{s + 1}p{2 ** s}s2")(
+                out, lv[s].down_nbr, lv[s + 1].valid,
+                up=(lv[s].up_parent, lv[s].up_offset))
+            out = relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].valid))
+            out = self._stage(out, lv[s + 1], f"block{s + 1}", self.LAYERS[s])
+            if s < 3:
+                skips.append(out)
+
+        for d in range(4):
+            lvl = 3 - d  # producing level index
+            out = getattr(self, f"convtr{4 + d}p{2 ** (4 - d)}s2")(
+                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid)
+            out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
+            out = torch.cat([out, skips[lvl]], dim=1)
+            out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d])
+
+        out = self.final(out, lv[0].valid)
+        if self.normalize_feature:
+            out = l2_normalize_rows(out, lv[0].valid)
+        return out
+
+
+class Res16UNet14(Res16UNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (1, 1, 1, 1, 1, 1, 1, 1)
+
+
+class Res16UNet34(Res16UNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
+
+
+class Res16UNet14A(Res16UNet14):
+    PLANES = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class Res16UNet34C(Res16UNet34):
+    PLANES = (32, 64, 128, 256, 256, 128, 96, 96)

@@ -1,0 +1,369 @@
+"""The four device kernels behind the chunked sparse convolutions.
+
+Each kernel has three things side by side here:
+  - ``<name>_plain``: the same function in plain torch (``gather``,
+    ``matmul``, ``scatter_add_``).  The CPU tests use it, and it is the
+    reference the CUDA kernel is compared with on the card;
+  - ``<name>``: the wrapper.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the hand-written kernel from ``csrc/sparse_conv.cu``
+    (built with nvcc for sm_90a into ``_build/`` at first use) or raises;
+  - ``<name>.launches``: a plain int, +1 per kernel launch (not per plain
+    call), so a run can show that its main path went through the kernel.
+
+Operand convention (chunked layout): tables are [B, S, C] f32; a gathered
+operand names its rows either through a frame-local map [K, B, S_out] int32
+read at tap ``taps[j]`` (``map_ is not None``) or, for a stacked table,
+as ``j * tap_stride + s``.  ``row_index`` spells that out.
+
+Which JAX op each kernel replaces (all in ``pointcontrast_tpu/sparse/ops.py``,
+custom-VJP XLA programs; the package has no Pallas kernel on this path):
+  gather_gemm    K1 ``_conv_chunk_fused`` fwd and dF, K2 ``_conv_chunk_down2``
+                 fwd, K3 ``_conv_tr_chunk`` dF (stacked table)
+  gather_wgrad   K1/K2/K3 dW
+  parent_gemm    K3 fwd, K2 dF (with W_k^T)
+  scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table
+What bounds them on an H100: the gather kernels read every gathered row once
+per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
+slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
+peak without tensor cores), not by the 3.35 TB/s of HBM; the design stages
+rows and weights in shared memory and keeps a 4x4 register tile per thread.
+scatter_parent is bound by atomics on HBM; its valid rows never collide.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "sparse_conv.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+_SO = os.path.join(BUILD_DIR, "sparse_conv_sm90a.so")
+MAX_TAPS = 32
+WGRAD_ROWS_PER_BLOCK = 2048
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+class TapList(ctypes.Structure):
+    _fields_ = [("idx", ctypes.c_int * MAX_TAPS)]
+
+
+def _taps_struct(taps) -> TapList:
+    t = TapList()
+    for i, v in enumerate(taps or ()):
+        t.idx[i] = int(v)
+    return t
+
+
+# --------------------------------------------------------------------------
+# build + load
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (needed to build csrc/sparse_conv.cu)")
+
+
+def build_kernels() -> dict:
+    """Compile ``csrc/sparse_conv.cu`` for sm_90a unless the library is newer
+    than the source.  Returns {"seconds", "ptxas"} (ptxas: the compiler's
+    register/shared-memory report, empty when not rebuilt)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return {"seconds": 0.0, "ptxas": ""}
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", tmp, _SRC,
+    ]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, _SO)
+    return {"seconds": time.perf_counter() - t0, "ptxas": res.stderr}
+
+
+def _lib():
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            build_kernels()
+            lib = ctypes.CDLL(_SO)
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.pc_gather_gemm.argtypes = [
+                vp, vp, TapList, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            lib.pc_gather_wgrad.argtypes = [
+                vp, vp, TapList, ci, ci, ci, vp, vp, TapList, ci, ci, ci,
+                vp, ci, ci, ci, ci, vp]
+            lib.pc_parent_gemm.argtypes = [
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            lib.pc_scatter_parent.argtypes = [
+                vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            for fn in (lib.pc_gather_gemm, lib.pc_gather_wgrad,
+                       lib.pc_parent_gemm, lib.pc_scatter_parent):
+                fn.restype = ci
+            _LIB = lib
+    return _LIB
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _require(t, name, dtype, ndim):
+    if t is None:
+        return
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {ndim}-d tensor, got "
+            f"{tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )
+
+
+def _check_rows(name, map_, taps, tap_stride, n, b_, s_rows, s_table):
+    """Raise unless n blocks of a gathered operand stay inside its
+    [B, s_table] table: a map is [K, B, s_rows] and read at n listed taps,
+    a stacked table holds n blocks of ``tap_stride`` rows.  (The map's
+    values are checked against their chunk by ``PairBatch.to``.)"""
+    if map_ is not None:
+        if tuple(map_.shape[1:]) != (b_, s_rows):
+            raise ValueError(f"{name}: map of shape {tuple(map_.shape)}, "
+                             f"expected [K, {b_}, {s_rows}]")
+        if len(taps) < n or not all(0 <= int(t) < map_.shape[0] for t in taps[:n]):
+            raise ValueError(f"{name}: need {n} taps in [0, {map_.shape[0]}), "
+                             f"got {list(taps)}")
+    elif (n - 1) * tap_stride + s_rows > s_table:
+        raise ValueError(f"{name}: {n} blocks of stride {tap_stride} and "
+                         f"{s_rows} rows overrun a table of {s_table} rows")
+
+
+def _check_shape(name, t, shape):
+    if t is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _use_plain(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+# --------------------------------------------------------------------------
+# plain-torch helpers
+
+
+def row_index(map_, taps, tap_stride: int, j: int, b_: int, s_out: int,
+              device) -> torch.Tensor:
+    """[B, S_out] int64 rows of tap j (see the module docstring)."""
+    if map_ is not None:
+        return map_[int(taps[j])].long()
+    return (j * tap_stride + torch.arange(s_out, device=device)).expand(b_, s_out)
+
+
+def take_rows(x3: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-chunk row gather: x3 [B, S, C], idx [B, S_out] -> [B, S_out, C]."""
+    return torch.gather(x3, 1, idx.unsqueeze(-1).expand(-1, -1, x3.shape[-1]))
+
+
+# --------------------------------------------------------------------------
+# (a) gather_gemm
+
+
+def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out):
+    b_, s_in, _ = x3.shape
+    out = (x3[:, :s_out] @ wc if wc is not None
+           else x3.new_zeros(b_, s_out, w.shape[-1]))
+    for j in range(w.shape[0]):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
+        out = out + take_rows(x3, idx) @ w[j]
+    return out
+
+
+def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out):
+    """out[b,s] = [x3[b,s] @ wc] + sum_j x3[b, row(j,b,s)] @ w[j].
+
+    x3 [B, S_in, Cin]; w [G, Cin, Cout] (one block per gathered tap);
+    wc [Cin, Cout] or None: the ungathered centre tap (needs S_in == S_out);
+    returns [B, s_out, Cout]."""
+    b_, s_in, cin = x3.shape
+    g, _, cout = w.shape
+    if wc is not None and s_in != s_out:
+        raise ValueError("the centre tap needs S_in == S_out")
+    _check_shape("w", w, (g, cin, cout))
+    _check_shape("wc", wc, (cin, cout))
+    _check_rows("gather_gemm", map_, taps, tap_stride, g, b_, s_out, s_in)
+    if _use_plain(x3):
+        return gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out)
+    _require(x3, "x3", torch.float32, 3)
+    _require(w, "w", torch.float32, 3)
+    _require(wc, "wc", torch.float32, 2)
+    _require(map_, "map", torch.int32, 3)
+    if g > MAX_TAPS:
+        raise ValueError(f"{g} taps > {MAX_TAPS}")
+    out = torch.empty(b_, s_out, cout, device=x3.device, dtype=torch.float32)
+    rc = _lib().pc_gather_gemm(
+        _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
+        _ptr(wc), _ptr(out), b_, s_in, s_out, cin, cout, _stream())
+    _check(rc, "gather_gemm")
+    gather_gemm.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# (b) gather_wgrad
+
+
+def gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map, g_taps,
+                       g_stride, k, s_rows):
+    b_ = a3.shape[0]
+    dw = []
+    for j in range(k):
+        ia = row_index(a_map, a_taps, a_stride, j, b_, s_rows, a3.device)
+        ig = row_index(g_map, g_taps, g_stride, j, b_, s_rows, a3.device)
+        dw.append(torch.einsum("bsc,bsd->cd", take_rows(a3, ia),
+                               take_rows(g3, ig)))
+    return torch.stack(dw)
+
+
+def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                 k, s_rows):
+    """dW[j] = sum_{b, s < s_rows} a3[b, rowA(j,b,s)]^T @ g3[b, rowG(j,b,s)].
+
+    Returns [k, Ca, Cg] f32.  On the card, row slices of
+    ``WGRAD_ROWS_PER_BLOCK`` are reduced in registers and combined with f32
+    atomics, so the summation order differs from run to run."""
+    b_, sa, ca = a3.shape
+    _, sg, cg = g3.shape
+    _check_shape("g3", g3, (b_, sg, cg))
+    _check_rows("gather_wgrad a", a_map, a_taps, a_stride, k, b_, s_rows, sa)
+    _check_rows("gather_wgrad g", g_map, g_taps, g_stride, k, b_, s_rows, sg)
+    if _use_plain(a3):
+        return gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map,
+                                  g_taps, g_stride, k, s_rows)
+    _require(a3, "a3", torch.float32, 3)
+    _require(g3, "g3", torch.float32, 3)
+    _require(a_map, "a_map", torch.int32, 3)
+    _require(g_map, "g_map", torch.int32, 3)
+    if k > MAX_TAPS:
+        raise ValueError(f"{k} taps > {MAX_TAPS}")
+    dw = torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32)
+    rc = _lib().pc_gather_wgrad(
+        _ptr(a3), _ptr(a_map), _taps_struct(a_taps), a_stride, sa, ca,
+        _ptr(g3), _ptr(g_map), _taps_struct(g_taps), g_stride, sg, cg,
+        _ptr(dw), k, b_, s_rows, WGRAD_ROWS_PER_BLOCK, _stream())
+    _check(rc, "gather_wgrad")
+    gather_wgrad.launches += 1
+    return dw
+
+
+# --------------------------------------------------------------------------
+# (c) parent_gemm
+
+
+def parent_gemm_plain(x3, parent, off, w):
+    b_, s_c, _ = x3.shape
+    k, _, cout = w.shape
+    table = torch.einsum("bsc,kcd->bksd", x3, w).reshape(b_, k * s_c, cout)
+    return take_rows(table, off.long() * s_c + parent.long())
+
+
+def parent_gemm(x3, parent, off, w):
+    """out[b,i] = x3[b, parent[b,i]] @ w[off[b,i]].
+
+    x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout]."""
+    b_, s_c, cin = x3.shape
+    k, _, cout = w.shape
+    s_f = parent.shape[1]
+    _check_shape("w", w, (k, cin, cout))
+    _check_shape("parent", parent, (b_, s_f))
+    _check_shape("off", off, (b_, s_f))
+    if _use_plain(x3):
+        return parent_gemm_plain(x3, parent, off, w)
+    _require(x3, "x3", torch.float32, 3)
+    _require(w, "w", torch.float32, 3)
+    _require(parent, "parent", torch.int32, 2)
+    _require(off, "off", torch.int32, 2)
+    if k != 8:
+        raise ValueError(f"parent_gemm takes 8 offsets (k2s2), got {k}")
+    out = torch.empty(b_, s_f, cout, device=x3.device, dtype=torch.float32)
+    rc = _lib().pc_parent_gemm(
+        _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(out), b_, s_c, s_f,
+        cin, cout, _stream())
+    _check(rc, "parent_gemm")
+    parent_gemm.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# (d) scatter_parent
+
+
+def scatter_parent_plain(ct3, parent, off, k, s_c):
+    b_, _, c = ct3.shape
+    idx = off.long() * s_c + parent.long()
+    dy = ct3.new_zeros(b_, k * s_c, c)
+    return dy.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), ct3)
+
+
+def scatter_parent(ct3, parent, off, k, s_c):
+    """dy[b, off[b,i] * s_c + parent[b,i]] += ct3[b, i] -> [B, k * s_c, C].
+
+    Valid rows hit distinct slots; pad rows all alias (0, pad) and carry a
+    zero cotangent, so the f32 atomics give the same sums in any order."""
+    b_, s_f, c = ct3.shape
+    _check_shape("parent", parent, (b_, s_f))
+    _check_shape("off", off, (b_, s_f))
+    if _use_plain(ct3):
+        return scatter_parent_plain(ct3, parent, off, k, s_c)
+    _require(ct3, "ct3", torch.float32, 3)
+    _require(parent, "parent", torch.int32, 2)
+    _require(off, "off", torch.int32, 2)
+    if k != 8:
+        raise ValueError(f"scatter_parent takes 8 offsets (k2s2), got {k}")
+    dy = torch.zeros(b_, k * s_c, c, device=ct3.device, dtype=torch.float32)
+    rc = _lib().pc_scatter_parent(
+        _ptr(ct3), _ptr(parent), _ptr(off), _ptr(dy), b_, s_f, s_c, c,
+        _stream())
+    _check(rc, "scatter_parent")
+    scatter_parent.launches += 1
+    return dy
+
+
+KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent)
+reset_launches()

@@ -1,0 +1,259 @@
+"""Batch coordinate pyramid + kernel maps (host side, numpy only).
+
+Jax-free port of ``pointcontrast_tpu/sparse/topology.py``: ``LevelTopo`` and
+``Pyramid`` are plain dataclasses instead of ``flax.struct`` pytrees, and only
+what ``chunk.build_chunked_pyramid`` needs is kept (same-level ``nbr``, the
+stem's ``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``,
+``valid`` and ``batch``).  The maps are byte-identical to the JAX package's.
+
+Structural facts that make every map gather-only:
+  - stride-1 conv: output coords == input coords; for each kernel offset an
+    output voxel has at most ONE input neighbour -> nbr[K, N].
+  - stride-2 k=2 conv: output coords = unique(floor(in/2)); the input child
+    at 2c+off exists at most once per offset -> down_nbr[2^D, N_out].
+  - stride-2 k=2 transpose conv: each fine voxel has exactly one coarse
+    parent and one kernel offset -> up_parent/up_offset[N_fine].
+
+Missing neighbours point at the last padded row, whose features the device
+ops keep at exactly zero.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+
+from pointcontrast_tpu_torch.sparse.hashing import HashSpec
+from pointcontrast_tpu_torch.sparse.kernel_map import (
+    kernel_offsets,
+    reversal_permutation,
+)
+
+_BUCKET_BASE = 256
+
+
+def _shrink_idx(arr: np.ndarray, index_space: int) -> np.ndarray:
+    """Downcast gather maps to uint16 when every index fits (halves the
+    host->device bytes; the torch side widens them to int32)."""
+    if arr is not None and index_space <= 65536:
+        return arr.astype(np.uint16)
+    return arr
+
+
+def bucket_size(n: int, base: int = _BUCKET_BASE) -> int:
+    """Smallest bucket strictly greater than n on a geometric {1, 1.5}*2^k
+    grid."""
+    b = base
+    while b <= n:
+        b = b * 3 // 2 if (b & (b - 1)) == 0 else (b // 3) * 4
+    return b
+
+
+@dataclasses.dataclass
+class LevelTopo:
+    """Static-shaped per-level gather maps (numpy on the host, torch tensors
+    after ``PairBatch.to``)."""
+
+    nbr: Any = None  # [K, Npad] same-level map (chunked: [K, B, S])
+    valid: Any = None  # [Npad] float32 mask
+    batch: Any = None  # [Npad] int32 sample id
+    down_nbr: Optional[Any] = None  # [2^D, Npad_next]: level l -> l+1
+    up_parent: Optional[Any] = None  # [Npad]: idx into level l+1
+    up_offset: Optional[Any] = None  # [Npad]: kernel offset id in [0, 2^D)
+    nbr0: Optional[Any] = None  # level-0 only: stem map when k != 3
+    # static offset-reversal permutations for nbr/nbr0: enable the
+    # scatter-free conv backward
+    rev: Optional[tuple] = None
+    rev0: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class Pyramid:
+    levels: tuple
+    num_batch: int = 1
+
+
+@dataclasses.dataclass
+class PyramidMeta:
+    """Host-only metadata."""
+
+    coords: list  # [Nl, 1+D] int32 level coords, padded rows excluded
+    counts: list  # true voxel count per level
+    npads: list  # padded size per level
+    dimension: int
+    truncated: list  # (level, n_dropped) pairs when allow_truncate kicked in
+
+
+def _key_join(keys: np.ndarray, base: np.ndarray, off_keys: np.ndarray,
+              pad: int) -> np.ndarray:
+    """[K, len(base)] indices into ``keys``'s row order for every query
+    ``base[i] + off_keys[k]``; misses map to ``pad`` (native hash table when
+    available, sorted-key searchsorted otherwise)."""
+    from pointcontrast_tpu_torch.sparse import native
+
+    if native.get_lib() is not None:
+        return native.query_map(keys, base, off_keys, pad)
+
+    n = len(keys)
+    qkeys = base[None, :].astype(np.int64) + off_keys[:, None]  # [K, M]
+    if n == 0:
+        return np.full(qkeys.shape, pad, dtype=np.int32)
+    order = np.argsort(keys)
+    skeys = keys[order]
+    pos = np.searchsorted(skeys, qkeys.ravel()).reshape(qkeys.shape)
+    pos_c = np.minimum(pos, n - 1)
+    found = skeys[pos_c] == qkeys
+    return np.where(found, order[pos_c], pad).astype(np.int32)
+
+
+def _same_level_map(coords: np.ndarray, offsets: np.ndarray,
+                    npad: int) -> np.ndarray:
+    """nbr[K, npad]: index of the voxel at coords[j] + offsets[k], else the
+    pad row (npad-1)."""
+    n = len(coords)
+    pad = npad - 1
+    max_off = int(np.abs(offsets).max()) if len(offsets) else 0
+    spec = HashSpec.from_coords(coords, margin=max_off + 1)
+    keys = spec.encode(coords)  # [N]
+    off_keys = offsets.astype(np.int64) @ spec.stride[1:]  # [K]
+
+    out = np.full((len(offsets), npad), pad, dtype=np.int32)
+    out[:, :n] = _key_join(keys, keys, off_keys, pad)
+    return out
+
+
+def _downsample(coords: np.ndarray):
+    """Unique floor(c/2) coarse coords + per-fine parent index & offset."""
+    coarse_of_fine = coords.copy()
+    coarse_of_fine[:, 1:] = np.floor_divide(coords[:, 1:], 2)
+    spec = HashSpec.from_coords(coarse_of_fine)
+    child_off = (coords[:, 1:] - 2 * coarse_of_fine[:, 1:]).astype(np.int32)
+
+    if coords.shape[1] == 4:
+        from pointcontrast_tpu_torch.sparse import native
+
+        if native.get_lib() is not None:
+            coarse, parent = native.downsample(coords, spec.lo, spec.stride)
+            return coarse, parent, child_off
+
+    keys = spec.encode(coarse_of_fine)
+    _, first_idx, inverse = np.unique(keys, return_index=True,
+                                      return_inverse=True)
+    # Keep coarse voxels in first-occurrence (input) order for determinism.
+    perm = np.argsort(first_idx, kind="stable")  # rank -> slot order
+    slot_of_rank = np.empty_like(perm)
+    slot_of_rank[perm] = np.arange(len(perm))
+    coarse = coarse_of_fine[np.sort(first_idx)]
+    parent = slot_of_rank[inverse].astype(np.int32)  # fine -> coarse slot
+    return coarse, parent, child_off
+
+
+def build_pyramid(
+    coords: np.ndarray,
+    num_levels: int,
+    dimension: int = 3,
+    conv0_kernel_size: int = 3,
+    block_kernel_size: int = 3,
+    npads: list | None = None,
+    num_batch: int | None = None,
+    allow_truncate: bool = True,
+):
+    """Build the full coordinate pyramid for a sparse U-Net.
+
+    coords: [N, 1+dimension] unique batched voxel coords (batch index first).
+    npads: padded sizes per level (default: bucket_size).
+    allow_truncate: drop coarse voxels beyond a level's pad instead of
+      raising (meta.truncated records (level, n_dropped)).
+
+    Returns (Pyramid, PyramidMeta)."""
+    coords = np.asarray(coords)
+    if coords.ndim != 2 or coords.shape[1] != dimension + 1:
+        raise ValueError(f"coords must be [N, {dimension + 1}], got {coords.shape}")
+    coords = coords.astype(np.int32)
+    if num_batch is None:
+        num_batch = int(coords[:, 0].max()) + 1 if len(coords) else 1
+
+    offs3 = kernel_offsets(block_kernel_size, dimension, "hypercube")
+    offs2 = kernel_offsets(2, dimension, "hypercube")
+
+    levels = []
+    meta_coords, meta_counts, meta_npads, truncated = [], [], [], []
+    cur = coords
+    for lvl in range(num_levels):
+        n = len(cur)
+        npad = npads[lvl] if npads is not None else bucket_size(n)
+        if npad <= n:
+            raise ValueError(f"level {lvl}: npad {npad} must exceed count {n}")
+
+        nbr = _same_level_map(cur, offs3, npad)
+        valid = np.zeros(npad, dtype=np.float32)
+        valid[:n] = 1.0
+        batch = np.full(npad, num_batch, dtype=np.int32)
+        batch[:n] = cur[:, 0]
+
+        nbr0 = None
+        rev0 = None
+        if lvl == 0 and conv0_kernel_size != block_kernel_size:
+            offs0 = kernel_offsets(conv0_kernel_size, dimension, "hypercube")
+            nbr0 = _same_level_map(cur, offs0, npad)
+            rev0 = reversal_permutation(offs0)
+
+        level = dict(
+            nbr=_shrink_idx(nbr, npad), valid=valid, batch=batch,
+            nbr0=_shrink_idx(nbr0, npad),
+            rev=reversal_permutation(offs3), rev0=rev0,
+        )
+        meta_coords.append(cur)
+        meta_counts.append(n)
+        meta_npads.append(npad)
+
+        if lvl < num_levels - 1:
+            coarse, parent, child_off = _downsample(cur)
+            nc = len(coarse)
+            npad_next = npads[lvl + 1] if npads is not None else bucket_size(nc)
+            if npad_next <= nc:
+                if not allow_truncate:
+                    raise ValueError(
+                        f"level {lvl + 1}: npad {npad_next} must exceed count {nc}"
+                    )
+                # Graceful truncation: keep the first npad-1 coarse voxels;
+                # orphaned fine voxels point at the coarse pad row.
+                limit = npad_next - 1
+                coarse = coarse[:limit]
+                dropped = parent >= limit
+                parent = np.where(dropped, limit, parent).astype(np.int32)
+                child_off = np.where(dropped[:, None], 0, child_off).astype(np.int32)
+                truncated.append((lvl + 1, nc - limit))
+                nc = limit
+            up_parent = np.full(npad, npad_next - 1, dtype=np.int32)
+            up_parent[:n] = parent
+            up_offset = np.zeros(npad, dtype=np.int32)
+            pow2 = 1 << np.arange(dimension)
+            lut = np.full(1 << dimension, -1, dtype=np.int32)
+            lut[offs2 @ pow2] = np.arange(len(offs2), dtype=np.int32)
+            up_offset[:n] = lut[child_off @ pow2]
+            # down_nbr built from the coarse (output) side: child at 2c + off.
+            down_nbr = np.full((len(offs2), npad_next), npad - 1, dtype=np.int32)
+            fine_spec = HashSpec.from_coords(cur, margin=2)
+            fine_keys = fine_spec.encode(cur)
+            doubled = coarse.astype(np.int64).copy()
+            doubled[:, 1:] *= 2
+            base = fine_spec.encode(doubled)  # [nc]
+            off_keys = offs2.astype(np.int64) @ fine_spec.stride[1:]
+            down_nbr[:, :nc] = _key_join(fine_keys, base, off_keys, npad - 1)
+
+            level.update(
+                down_nbr=_shrink_idx(down_nbr, npad),
+                up_parent=_shrink_idx(up_parent, npad_next),
+                up_offset=up_offset.astype(np.uint16),
+            )
+            cur = coarse
+        levels.append(LevelTopo(**level))
+
+    pyramid = Pyramid(levels=tuple(levels), num_batch=num_batch)
+    meta = PyramidMeta(
+        coords=meta_coords, counts=meta_counts, npads=meta_npads,
+        dimension=dimension, truncated=truncated,
+    )
+    return pyramid, meta

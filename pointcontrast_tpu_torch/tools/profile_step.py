@@ -1,0 +1,182 @@
+"""Where the pretraining step's time goes on one GPU.
+
+    python -m pointcontrast_tpu_torch.tools.profile_step [--steps 10]
+
+On the ``tools.workload`` step (Res16UNet34C, 4 fused pairs, f32, TF32 off):
+  1. ms/step of the kernel path and of the plain-torch twins
+     (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
+     plain), each from the same seeded weights after two warm-up steps, host
+     clock around ``torch.cuda.synchronize()``;
+  2. ms/step of each phase of the kernel path (forward, loss, backward,
+     optimizer), host clock with a synchronise after each phase;
+  3. one ``torch.profiler`` window over the kernel path: the device's busy
+     time (union of its kernel and copy intervals) against the window's wall
+     time, and device time by kernel name.
+Prints one JSON summary as its last line.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
+from pointcontrast_tpu_torch.tools.workload import (
+    PAIRS,
+    plain_ops,
+    pretrain_batches,
+    pretrain_model,
+)
+from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step
+from pointcontrast_tpu_torch.train import optim
+
+PHASES = ("forward", "loss", "backward", "optimizer")
+
+
+def _fresh(model, cfg):
+    m = copy.deepcopy(model).cuda()
+    opt = optim.make_optimizer(m, cfg)
+    return m, opt, optim.make_scheduler(opt, cfg)
+
+
+def _timed_steps(model, batches, cfg, steps, plain):
+    m, opt, sched = _fresh(model, cfg)
+    step = make_train_step(cfg)
+    with plain_ops() if plain else contextlib.nullcontext():
+        for i in range(2):
+            step(m, opt, sched, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(m, opt, sched, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _phase_ms(model, batches, cfg, steps):
+    """Mean ms/step of each phase, synchronising after each one."""
+    m, opt, sched = _fresh(model, cfg)
+    step = make_train_step(cfg)
+    for i in range(2):
+        step(m, opt, sched, batches[i % len(batches)])
+    total = dict.fromkeys(PHASES, 0.0)
+    m.train()
+    for i in range(steps):
+        b = batches[i % len(batches)]
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        f = m(b.feats0, b.pyramid0)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss = point_info_nce_loss(f, f, b.q_idx, b.k_idx, b.pair_valid,
+                                   cfg.nce_t)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.step()
+        sched.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for name, a, z in zip(PHASES, marks, marks[1:]):
+            total[name] += 1e3 * (z - a)
+    return {k: v / steps for k, v in total.items()}
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals, in their unit."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _profile(model, batches, cfg, steps):
+    """(window wall us, device busy us, {kernel name: (us, count)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m, opt, sched = _fresh(model, cfg)
+    step = make_train_step(cfg)
+    for i in range(2):
+        step(m, opt, sched, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(m, opt, sched, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]  # optimizer step ranges, not work
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    return wall_us, busy, dict(by_name)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    batches = pretrain_batches("cuda")
+    model = pretrain_model(seed=0)
+    cfg = PretrainConfig(lr=0.1)
+    steps = args.steps
+
+    times = {"plain": [], "kernels": []}
+    for mode in ("plain", "kernels", "kernels", "plain"):
+        ms = _timed_steps(model, batches, cfg, steps, plain=mode == "plain")
+        times[mode].append(ms)
+        print(f"[time] {mode} ms_per_step={ms:.3f}", flush=True)
+
+    phases = _phase_ms(model, batches, cfg, steps)
+    print("[phase] ms/step " + " ".join(f"{k}={v:.3f}" for k, v in phases.items()),
+          flush=True)
+
+    wall_us, busy_us, by_name = _profile(model, batches, cfg, steps)
+    if busy_us == 0:
+        raise RuntimeError("the profiler recorded no device activity")
+    print(f"[profile] steps={steps} wall_ms_per_step={wall_us / steps / 1e3:.3f} "
+          f"device_busy_ms_per_step={busy_us / steps / 1e3:.3f} "
+          f"idle_share={1 - busy_us / wall_us:.4f}", flush=True)
+    total = sum(us for us, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, count) in ranked[:25]:
+        print(f"[kernel] {us / steps / 1e3:9.3f} ms/step {100 * us / total:6.2f}% "
+              f"launches/step={count / steps:g} {name[:110]}", flush=True)
+    summary = {
+        "card": card,
+        "ms_per_step": times,
+        "pairs_per_s_kernels": PAIRS / (min(times["kernels"]) / 1e3),
+        "phase_ms_per_step": phases,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "idle_share": 1 - busy_us / wall_us,
+    }
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
