@@ -1,0 +1,141 @@
+"""Build and load the port's hand-written CUDA sources (``csrc/<name>.cu``),
+and the helpers their Python wrappers share.
+
+Each source has a plain C interface: ``nvcc`` compiles it for sm_90a into a
+shared library in the git-ignored ``_build/`` at first use (rebuilt when the
+source is newer), and ``ctypes`` loads it.  ``build`` starts one ``nvcc``
+per stale source, all at once, so a cold start costs the slowest compile,
+not their sum.  Nothing here runs at import time: the CPU tests import every
+module on a host with no ``nvcc``."""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(PKG, "csrc")
+BUILD_DIR = os.path.join(PKG, "_build")
+SOURCES = ("sparse_conv", "detect_ops")
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (needed to build the csrc/*.cu kernels)")
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}_sm90a.so")
+
+
+def _stale(name: str) -> bool:
+    so = library_path(name)
+    return not os.path.exists(so) or (
+        os.path.getmtime(so) < os.path.getmtime(source_path(name)))
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every stale source of ``names``, one ``nvcc`` each, started
+    together.  Returns {name: {"seconds", "ptxas"}} (ptxas: the compiler's
+    register/shared-memory report, empty when the library was up to date).
+    Raises if any compile fails, after stopping the others."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = {n: {"seconds": 0.0, "ptxas": ""} for n in names}
+    running = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = f"{library_path(name)}.{os.getpid()}.tmp"
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", tmp, source_path(name),
+        ]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    try:
+        for name, (proc, tmp, t0) in running.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on csrc/{name}.cu ({proc.returncode}):\n{err}")
+            os.replace(tmp, library_path(name))
+            out[name] = {"seconds": time.perf_counter() - t0, "ptxas": err}
+    finally:
+        for proc, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` (built first if stale), with each
+    C entry's argtypes set from ``signatures`` and an int return code."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn_name, argtypes in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a launch's ``cudaGetLastError()`` code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def use_plain(x: torch.Tensor) -> bool:
+    """A wrapper takes its plain-torch twin for a CPU tensor, and only then;
+    on a CUDA tensor it launches its kernel or raises."""
+    return x.device.type == "cpu"
+
+
+def require(t, name, dtype, ndim):
+    """Raise unless ``t`` (None passes) is a contiguous ``ndim``-d CUDA
+    tensor of ``dtype``: what a kernel that reads raw pointers takes."""
+    if t is None:
+        return
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {ndim}-d tensor, got "
+            f"{tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )

@@ -5,7 +5,9 @@ from pointcontrast_tpu_torch.data.collate import (
     PadScheme,
     PairBatch,
     check_bounds,
+    check_pyramid_bounds,
     collate_pair,
+    pyramid_to,
     sample_nce_pairs,
 )
 from pointcontrast_tpu_torch.data.matching import radius_matches

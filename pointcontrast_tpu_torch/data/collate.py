@@ -77,17 +77,14 @@ def _check_below(name: str, a: np.ndarray, bound: int) -> None:
         )
 
 
-def check_bounds(batch: "PairBatch") -> None:
-    """Layout-aware bounds check of a host chunked batch, per chunk:
-    ``nbr < S_l``, ``down_nbr < S_l``, ``up_parent < S_{l+1}``,
-    ``up_offset < 2^D`` and the loss indices below the row count.  Raises
-    ``ValueError`` naming the first map out of range."""
-    levels = batch.pyramid0.levels
-    nb = batch.pyramid0.num_batch
+def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
+    """Layout-aware bounds check of a host chunked pyramid, per chunk:
+    ``nbr < S_l``, ``down_nbr < S_l``, ``up_parent < S_{l+1}`` and
+    ``up_offset < 2^D``.  Returns the chunk rows ``S_l`` of every level;
+    raises ``ValueError`` naming the first map out of range."""
+    levels = pyr.levels
+    nb = pyr.num_batch
     sizes = [lv.valid.shape[0] // nb for lv in levels]
-    rows = batch.feats0.shape[0]
-    if rows != nb * sizes[0]:
-        raise ValueError(f"feats0 has {rows} rows, expected {nb} x {sizes[0]}")
     for l, lv in enumerate(levels):
         s = sizes[l]
         for name in ("nbr", "nbr0"):
@@ -107,6 +104,39 @@ def check_bounds(batch: "PairBatch") -> None:
         _check_below(f"level {l} down_nbr", lv.down_nbr, s)
         _check_below(f"level {l} up_parent", lv.up_parent, s_next)
         _check_below(f"level {l} up_offset", lv.up_offset, k_up)
+    return sizes
+
+
+def pyramid_to(pyr: Pyramid, device) -> Pyramid:
+    """The host pyramid on ``device``, maps widened to int32 (check it with
+    ``check_pyramid_bounds`` first: the kernels read through raw pointers)."""
+
+    def level_to(lv: LevelTopo) -> LevelTopo:
+        return LevelTopo(
+            nbr=_to_index(lv.nbr, device),
+            valid=torch.from_numpy(lv.valid).to(device),
+            batch=_to_index(lv.batch, device),
+            down_nbr=_to_index(lv.down_nbr, device),
+            up_parent=_to_index(lv.up_parent, device),
+            up_offset=_to_index(lv.up_offset, device),
+            nbr0=_to_index(lv.nbr0, device),
+            rev=lv.rev,
+            rev0=lv.rev0,
+        )
+
+    return Pyramid(levels=tuple(level_to(lv) for lv in pyr.levels),
+                   num_batch=pyr.num_batch)
+
+
+def check_bounds(batch: "PairBatch") -> None:
+    """Bounds check of a host ``PairBatch``: its pyramid per chunk
+    (``check_pyramid_bounds``), the feature rows and the loss indices below
+    the row count.  Raises ``ValueError`` naming the first map out of range."""
+    sizes = check_pyramid_bounds(batch.pyramid0)
+    nb = batch.pyramid0.num_batch
+    rows = batch.feats0.shape[0]
+    if rows != nb * sizes[0]:
+        raise ValueError(f"feats0 has {rows} rows, expected {nb} x {sizes[0]}")
     _check_below("q_idx", batch.q_idx, rows)
     _check_below("k_idx", batch.k_idx, rows)
 
@@ -128,27 +158,9 @@ class PairBatch:
         """Bounds-check the host batch, then move it to ``device`` with the
         maps widened to int32 and the loss indices to int64."""
         check_bounds(self)
-
-        def level_to(lv: LevelTopo) -> LevelTopo:
-            return LevelTopo(
-                nbr=_to_index(lv.nbr, device),
-                valid=torch.from_numpy(lv.valid).to(device),
-                batch=_to_index(lv.batch, device),
-                down_nbr=_to_index(lv.down_nbr, device),
-                up_parent=_to_index(lv.up_parent, device),
-                up_offset=_to_index(lv.up_offset, device),
-                nbr0=_to_index(lv.nbr0, device),
-                rev=lv.rev,
-                rev0=lv.rev0,
-            )
-
-        pyr = self.pyramid0
         return PairBatch(
             feats0=torch.from_numpy(self.feats0).to(device),
-            pyramid0=Pyramid(
-                levels=tuple(level_to(lv) for lv in pyr.levels),
-                num_batch=pyr.num_batch,
-            ),
+            pyramid0=pyramid_to(self.pyramid0, device),
             q_idx=torch.from_numpy(self.q_idx.astype(np.int64)).to(device),
             k_idx=torch.from_numpy(self.k_idx.astype(np.int64)).to(device),
             pair_valid=torch.from_numpy(self.pair_valid).to(device),

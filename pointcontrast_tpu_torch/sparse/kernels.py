@@ -32,23 +32,18 @@ scatter_parent is bound by atomics on HBM; its valid rows never collide.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "sparse_conv.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-_SO = os.path.join(BUILD_DIR, "sparse_conv_sm90a.so")
+from pointcontrast_tpu_torch import cuda_build
+from pointcontrast_tpu_torch.cuda_build import check as _check
+from pointcontrast_tpu_torch.cuda_build import ptr as _ptr
+from pointcontrast_tpu_torch.cuda_build import require as _require
+from pointcontrast_tpu_torch.cuda_build import stream as _stream
+from pointcontrast_tpu_torch.cuda_build import use_plain as _use_plain
+
 MAX_TAPS = 32
 WGRAD_ROWS_PER_BLOCK = 2048
-
-_LOCK = threading.Lock()
-_LIB = None
 
 
 class TapList(ctypes.Structure):
@@ -62,91 +57,16 @@ def _taps_struct(taps) -> TapList:
     return t
 
 
-# --------------------------------------------------------------------------
-# build + load
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (needed to build csrc/sparse_conv.cu)")
-
-
-def build_kernels() -> dict:
-    """Compile ``csrc/sparse_conv.cu`` for sm_90a unless the library is newer
-    than the source.  Returns {"seconds", "ptxas"} (ptxas: the compiler's
-    register/shared-memory report, empty when not rebuilt)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return {"seconds": 0.0, "ptxas": ""}
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, _SRC,
-    ]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, _SO)
-    return {"seconds": time.perf_counter() - t0, "ptxas": res.stderr}
-
-
 def _lib():
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LOCK:
-        if _LIB is None:
-            build_kernels()
-            lib = ctypes.CDLL(_SO)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.pc_gather_gemm.argtypes = [
-                vp, vp, TapList, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            lib.pc_gather_wgrad.argtypes = [
-                vp, vp, TapList, ci, ci, ci, vp, vp, TapList, ci, ci, ci,
-                vp, ci, ci, ci, ci, vp]
-            lib.pc_parent_gemm.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            lib.pc_scatter_parent.argtypes = [
-                vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            for fn in (lib.pc_gather_gemm, lib.pc_gather_wgrad,
-                       lib.pc_parent_gemm, lib.pc_scatter_parent):
-                fn.restype = ci
-            _LIB = lib
-    return _LIB
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-def _require(t, name, dtype, ndim):
-    if t is None:
-        return
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be a contiguous {ndim}-d tensor, got "
-            f"{tuple(t.shape)} contiguous={t.is_contiguous()}"
-        )
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load("sparse_conv", {
+        "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, ci, ci, ci,
+                           ci, ci, vp],
+        "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, vp, vp, TapList, ci,
+                            ci, ci, vp, ci, ci, ci, ci, vp],
+        "pc_parent_gemm": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
+    })
 
 
 def _check_rows(name, map_, taps, tap_stride, n, b_, s_rows, s_table):
@@ -169,10 +89,6 @@ def _check_rows(name, map_, taps, tap_stride, n, b_, s_rows, s_table):
 def _check_shape(name, t, shape):
     if t is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _use_plain(x: torch.Tensor) -> bool:
-    return x.device.type == "cpu"
 
 
 def reset_launches() -> None:

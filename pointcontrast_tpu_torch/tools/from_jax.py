@@ -1,8 +1,12 @@
-"""Weight bridge: JAX-package (flax) params and batch stats -> the port.
+"""Weight bridge: JAX-package (flax) params, batch stats and optax Adam
+moments -> the port.
 
 A rename only: conv kernels keep their [K, Cin, Cout] layout in the shared
 ``kernel_offsets`` order, linear kernels [Cin, Cout]; BN ``scale``/``bias``/
-``mean``/``var`` map to ``weight``/``bias``/``running_mean``/``running_var``.
+``mean``/``var`` map to ``weight``/``bias``/``running_mean``/``running_var``,
+Dense kernels stay [Cin, Cout].  Whole trees load strictly: a VoteNet's
+``backbone_net.net`` (the Res16UNet), ``vgen.conv1``/``bn1``,
+``pnet.vote_aggregation.mlp.layer0``/``bn0``, ``pnet.conv3``, ...
 The trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables); this module imports no JAX."""
 from __future__ import annotations
@@ -56,3 +60,27 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     must match by name and shape)."""
     model.load_state_dict(jax_state_dict(params, batch_stats), strict=True)
     return model
+
+
+def load_optax_adam(opt: torch.optim.Adam, model: torch.nn.Module, mu: Mapping,
+                    nu: Mapping, count) -> torch.optim.Adam:
+    """Set ``opt``'s per-parameter state from optax's ``ScaleByAdamState``
+    (``mu``/``nu`` trees shaped like the params, ``count`` the update
+    count), so a torch step and a JAX step start from the same state.
+    Strict: every parameter needs both moments, of its shape."""
+    params = dict(model.named_parameters())
+    mus, nus = jax_state_dict(mu, {}), jax_state_dict(nu, {})
+    if set(mus) != set(params) or set(nus) != set(params):
+        raise KeyError(f"Adam moments do not cover the parameters: "
+                       f"{sorted(set(params) ^ set(mus))}")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    for name, p in params.items():
+        if mus[name].shape != p.shape or nus[name].shape != p.shape:
+            raise ValueError(f"{name}: moments {tuple(mus[name].shape)} for "
+                             f"a parameter {tuple(p.shape)}")
+        opt.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mus[name].to(p.device).clone(),
+            "exp_avg_sq": nus[name].to(p.device).clone(),
+        }
+    return opt

@@ -1,8 +1,12 @@
-"""Where the pretraining step's time goes on one GPU.
+"""Where a training step's time goes on one GPU.
 
-    python -m pointcontrast_tpu_torch.tools.profile_step [--steps 10]
+    python -m pointcontrast_tpu_torch.tools.profile_step [--app pretrain|votenet]
+        [--steps 10]
 
-On the ``tools.workload`` step (Res16UNet34C, 4 fused pairs, f32, TF32 off):
+On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
+Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
+shipped VoteNet config (sparse-conv Res16UNet34C 3 -> 256, 8 scenes x 40000
+points, 256 proposals) + its loss + Adam.
   1. ms/step of the kernel path and of the plain-torch twins
      (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
      plain), each from the same seeded weights after two warm-up steps, host
@@ -22,70 +26,130 @@ import copy
 import json
 import subprocess
 import time
+import types
 from collections import defaultdict
 
 import torch
 
-from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
-from pointcontrast_tpu_torch.tools.workload import (
-    PAIRS,
-    plain_ops,
-    pretrain_batches,
-    pretrain_model,
-)
-from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step
-from pointcontrast_tpu_torch.train import optim
+from pointcontrast_tpu_torch.tools import workload
 
 PHASES = ("forward", "loss", "backward", "optimizer")
 
 
-def _fresh(model, cfg):
-    m = copy.deepcopy(model).cuda()
-    opt = optim.make_optimizer(m, cfg)
-    return m, opt, optim.make_scheduler(opt, cfg)
+def _pretrain_app():
+    from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
+    from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step
+    from pointcontrast_tpu_torch.train import optim
+
+    cfg = PretrainConfig(lr=0.1)
+    train_step = make_train_step(cfg)
+
+    def fresh(model):
+        m = copy.deepcopy(model).cuda()
+        opt = optim.make_optimizer(m, cfg)
+        return m, (opt, optim.make_scheduler(opt, cfg))
+
+    def step(m, state, batch):
+        train_step(m, state[0], state[1], batch)
+
+    def phases(m, state, batch, mark):
+        opt, sched = state
+        opt.zero_grad(set_to_none=True)
+        mark()
+        f = m(batch.feats0, batch.pyramid0)
+        mark()
+        loss = point_info_nce_loss(f, f, batch.q_idx, batch.k_idx,
+                                   batch.pair_valid, cfg.nce_t)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        sched.step()
+        mark()
+
+    return types.SimpleNamespace(
+        batches=workload.pretrain_batches("cuda"),
+        model=workload.pretrain_model(seed=0), unit="pairs",
+        per_step=workload.PAIRS, fresh=fresh, step=step, phases=phases)
 
 
-def _timed_steps(model, batches, cfg, steps, plain):
-    m, opt, sched = _fresh(model, cfg)
-    step = make_train_step(cfg)
-    with plain_ops() if plain else contextlib.nullcontext():
-        for i in range(2):
-            step(m, opt, sched, batches[i % len(batches)])
-        torch.cuda.synchronize()
+def _votenet_app():
+    from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
+    from pointcontrast_tpu_torch.detect.loss import get_loss
+    from pointcontrast_tpu_torch.detect.train import (
+        DetectConfig,
+        DetectTrainer,
+        batch_to_inputs,
+        batch_to_labels,
+        get_bn_momentum,
+        make_detect_train_step,
+    )
+
+    dc, cfg = ScannetDatasetConfig(), DetectConfig(checkpoint_dir="")
+    train_step = make_detect_train_step(dc)
+
+    def fresh(model):
+        trainer = DetectTrainer(copy.deepcopy(model), dc, cfg, "cuda")
+        trainer.set_bn_momentum(get_bn_momentum(0, cfg))
+        return trainer.model, trainer.opt
+
+    def step(m, opt, batch):
+        train_step(m, opt, batch)
+
+    def phases(m, opt, batch, mark):
+        m.train()
+        opt.zero_grad(set_to_none=True)
+        mark()
+        end_points = m(batch_to_inputs(batch))
+        mark()
+        end_points.update(batch_to_labels(batch))
+        loss, _ = get_loss(end_points, dc)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        mark()
+
+    return types.SimpleNamespace(
+        batches=workload.votenet_batches("cuda"),
+        model=workload.votenet_model(seed=0), unit="scenes",
+        per_step=workload.VOTENET_SCENES, fresh=fresh, step=step,
+        phases=phases)
+
+
+APPS = {"pretrain": _pretrain_app, "votenet": _votenet_app}
+
+
+def _warm(app, steps=2):
+    m, state = app.fresh(app.model)
+    for i in range(steps):
+        app.step(m, state, app.batches[i % len(app.batches)])
+    torch.cuda.synchronize()
+    return m, state
+
+
+def _timed_steps(app, steps, plain):
+    with workload.plain_ops() if plain else contextlib.nullcontext():
+        m, state = _warm(app)
         t0 = time.perf_counter()
         for i in range(steps):
-            step(m, opt, sched, batches[i % len(batches)])
+            app.step(m, state, app.batches[i % len(app.batches)])
         torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / steps
 
 
-def _phase_ms(model, batches, cfg, steps):
+def _phase_ms(app, steps):
     """Mean ms/step of each phase, synchronising after each one."""
-    m, opt, sched = _fresh(model, cfg)
-    step = make_train_step(cfg)
-    for i in range(2):
-        step(m, opt, sched, batches[i % len(batches)])
+    m, state = _warm(app)
     total = dict.fromkeys(PHASES, 0.0)
-    m.train()
     for i in range(steps):
-        b = batches[i % len(batches)]
-        opt.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        marks = [time.perf_counter()]
-        f = m(b.feats0, b.pyramid0)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        loss = point_info_nce_loss(f, f, b.q_idx, b.k_idx, b.pair_valid,
-                                   cfg.nce_t)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        loss.backward()
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        opt.step()
-        sched.step()
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        app.phases(m, state, app.batches[i % len(app.batches)], mark)
         for name, a, z in zip(PHASES, marks, marks[1:]):
             total[name] += 1e3 * (z - a)
     return {k: v / steps for k, v in total.items()}
@@ -101,20 +165,16 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profile(model, batches, cfg, steps):
+def _profile(app, steps):
     """(window wall us, device busy us, {kernel name: (us, count)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    m, opt, sched = _fresh(model, cfg)
-    step = make_train_step(cfg)
-    for i in range(2):
-        step(m, opt, sched, batches[i % len(batches)])
-    torch.cuda.synchronize()
+    m, state = _warm(app)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            step(m, opt, sched, batches[i % len(batches)])
+            app.step(m, state, app.batches[i % len(app.batches)])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -129,6 +189,7 @@ def _profile(model, batches, cfg, steps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--app", choices=sorted(APPS), default="pretrain")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -140,22 +201,20 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    batches = pretrain_batches("cuda")
-    model = pretrain_model(seed=0)
-    cfg = PretrainConfig(lr=0.1)
+    app = APPS[args.app]()
     steps = args.steps
 
     times = {"plain": [], "kernels": []}
     for mode in ("plain", "kernels", "kernels", "plain"):
-        ms = _timed_steps(model, batches, cfg, steps, plain=mode == "plain")
+        ms = _timed_steps(app, steps, plain=mode == "plain")
         times[mode].append(ms)
-        print(f"[time] {mode} ms_per_step={ms:.3f}", flush=True)
+        print(f"[time] {args.app} {mode} ms_per_step={ms:.3f}", flush=True)
 
-    phases = _phase_ms(model, batches, cfg, steps)
+    phases = _phase_ms(app, steps)
     print("[phase] ms/step " + " ".join(f"{k}={v:.3f}" for k, v in phases.items()),
           flush=True)
 
-    wall_us, busy_us, by_name = _profile(model, batches, cfg, steps)
+    wall_us, busy_us, by_name = _profile(app, steps)
     if busy_us == 0:
         raise RuntimeError("the profiler recorded no device activity")
     print(f"[profile] steps={steps} wall_ms_per_step={wall_us / steps / 1e3:.3f} "
@@ -167,9 +226,10 @@ def main(argv=None) -> int:
         print(f"[kernel] {us / steps / 1e3:9.3f} ms/step {100 * us / total:6.2f}% "
               f"launches/step={count / steps:g} {name[:110]}", flush=True)
     summary = {
+        "app": args.app,
         "card": card,
         "ms_per_step": times,
-        "pairs_per_s_kernels": PAIRS / (min(times["kernels"]) / 1e3),
+        f"{app.unit}_per_s_kernels": app.per_step / (min(times["kernels"]) / 1e3),
         "phase_ms_per_step": phases,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,

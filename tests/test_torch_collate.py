@@ -136,7 +136,7 @@ def test_unsupported_collate_modes_raise():
 
 def test_imports_without_jax():
     """The port and its host pipeline import with jax/flax/optax and the JAX
-    package unavailable, and build a batch."""
+    package unavailable, and build a pretraining and a detection batch."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'pointcontrast_tpu'):\n"
@@ -146,10 +146,16 @@ def test_imports_without_jax():
         "from pointcontrast_tpu_torch.data import PadScheme, SyntheticPairDataset, collate_pair\n"
         "import pointcontrast_tpu_torch.nn, pointcontrast_tpu_torch.train\n"
         "import pointcontrast_tpu_torch.tools.from_jax\n"
+        "import pointcontrast_tpu_torch.detect.train\n"
+        "from pointcontrast_tpu_torch.detect.datasets import (\n"
+        "    SyntheticDetectionDataset, collate_detection)\n"
         "ds = SyntheticPairDataset(num_pairs=1, points_per_frame=200, seed=0)\n"
         "b = collate_pair([ds[0]], PadScheme(npad0=2048), npos=16,\n"
         "                 rng=np.random.RandomState(0)).to('cpu')\n"
-        "print('ok', b.feats0.shape[0])\n"
+        "dd = SyntheticDetectionDataset(num_scenes=1, num_points=1500, seed=0)\n"
+        "d = collate_detection([dd[0]], voxel_size=0.05,\n"
+        "                      scheme=PadScheme(npad0=4096)).to('cpu')\n"
+        "print('ok', b.feats0.shape[0], d.point_voxel_idx.shape[1])\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
