@@ -23,15 +23,37 @@ Phases, each printed on its own line:
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
-  7. kernels: FPS, ball query, gather and scatter-add against their twins
-     at the path's shapes from one real batch, with times;
+  7. kernels: the sparse-conv kernels at the VoteNet pyramid's shapes, and
+     FPS, ball query, gather and scatter-add, against their twins at the
+     path's shapes from one real batch, with times;
   8. parity: one VoteNet step through the kernels against the same step
      through the plain twins, from the same weights and batch;
   9. slice: 5 DetectTrainer.train_epoch steps (Res16UNet34C 3 -> 256, Adam)
-     with finite losses and the expected launch count of all eight
-     kernels, then one evaluate pass (mAP in [0, 1]) and the shapes and
-     finiteness of the eval outputs.
-Then one JSON line with the per-kernel results, and as the last line
+     with finite losses and the expected launch count of every kernel,
+     then one evaluate pass (mAP in [0, 1]) and the shapes and finiteness
+     of the eval outputs;
+  the VoteNet path over PointNet++ (the same YAML with
+  net.backbone=pointnet2: no voxels, no colour, no height):
+  10. data: two batches of the same 8 x 40000-point scenes, labels
+     bounds-checked;
+  11. kernels: every set-abstraction module's FPS, ball query, gathers and
+     scatter-adds (SA1-SA4 and the proposal module's vote FPS), three_nn
+     (index and distance equal), three_interpolate and its backward at
+     FP1's and FP2's shapes, all from one real forward, with times;
+  12. parity: one step through the kernels against the plain twins;
+  13. slice: 5 DetectTrainer steps with the expected launch count of every
+     kernel (0 for the sparse-conv ones), one evaluate, the eval outputs;
+  14. boxnet: one BoxNet step (seed FPS, get_loss_boxnet), vote_loss 0;
+  15. cli: apps.votenet.main on 8 synthetic scenes: one epoch (one step),
+     one evaluation, a checkpoint, then a second call that resumes from it
+     with nothing left to train.
+Every kernel check also times the one PyTorch call computing the same
+function where there is one, and the card's bound for the work (bytes over
+3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  Then
+one JSON line with the per-kernel results: under ``paths``, each main path's
+own launches and its checks' times, bounds and errors; at the top level,
+the launches of all paths and the numbers of all their checks together.  As
+the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit, no
 result line.
 """
@@ -74,7 +96,14 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "ball_query": (DETECT_SRC, "pointcontrast_tpu/detect/ops.py:64"),
     "gather_rows": (DETECT_SRC, "pointcontrast_tpu/detect/ops.py:59"),
     "scatter_add_rows": (DETECT_SRC, "pointcontrast_tpu/detect/ops.py:112"),
+    "three_nn": (DETECT_SRC, "pointcontrast_tpu/detect/ops.py:121"),
+    "three_interpolate": (DETECT_SRC, "pointcontrast_tpu/detect/modules.py:116"),
+    "three_interpolate_grad": (DETECT_SRC, "pointcontrast_tpu/detect/modules.py:116"),
 }
+# the H100 SXM's published peaks: HBM bytes/s, and f32 FLOP/s outside the
+# tensor cores (every kernel here is f32 SIMT)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def say(phase: str, **kw):
@@ -142,15 +171,17 @@ def _masked_randn(shape, valid, gen):
     return x * valid.reshape(shape[0], shape[1], 1)
 
 
-def kernel_checks(batch):
-    """[(kernel, label, fn, args)] at the main path's shapes of one batch."""
+def kernel_checks(pyramid):
+    """[(kernel, label, fn, args)] at the shapes one chunked voxel pyramid
+    gives the Res16UNet34C convs: the pretraining batch's or the sparse-conv
+    VoteNet's."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
 
-    lv = batch.pyramid0.levels
-    nb = batch.pyramid0.num_batch
-    dev = batch.feats0.device
+    lv = pyramid.levels
+    nb = pyramid.num_batch
+    dev = lv[0].valid.device
     gen = torch.Generator(device=dev).manual_seed(0)
     s = [int(l.valid.shape[0]) // nb for l in lv]
     rev = lv[0].rev
@@ -225,15 +256,182 @@ def _time_ms(fn, args, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(checks, module, exact=()):
-    """Each check's kernel vs its plain twin; kernels named in ``exact`` must
-    equal it bit for bit, the others agree to ATOL + RTOL * max|ref|.
-    Returns {kernel: {max_abs_err, ms, plain_ms}} with the times summed over
-    the kernel's checked shapes."""
+def _nbytes(*ts) -> int:
     import torch
 
-    results = {fn.__name__: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for fn in module.KERNELS}
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def _live_rows(x3):
+    """[B, S] bool: rows of a [B, S, C] table with a non-zero entry."""
+    return (x3 != 0).any(-1)
+
+
+def _map_bytes(map_, n, b_, s_out) -> int:
+    return 0 if map_ is None else 4 * n * b_ * s_out
+
+
+def work(name, args, out) -> tuple:
+    """(bytes, f32 operations) the function needs on these inputs: each
+    input read once and each output written once; data-dependent work
+    counted on this data (the conv products whose source rows are non-zero,
+    ball query's scan up to its last needed hit)."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse.kernels import row_index
+
+    outs = out if isinstance(out, tuple) else (out,)
+    if name == "gather_gemm":
+        x3, map_, taps, stride, w, wc, s_out = args
+        b_, _, cin = x3.shape
+        live = _live_rows(x3)
+        pairs = sum(int(torch.gather(live, 1, row_index(map_, taps, stride, j, b_, s_out,
+                                                        x3.device)).sum())
+                    for j in range(w.shape[0]))
+        pairs += int(live[:, :s_out].sum()) if wc is not None else 0
+        return (_nbytes(x3, w, wc, *outs) + _map_bytes(map_, w.shape[0], b_, s_out),
+                2 * cin * w.shape[2] * pairs)
+    if name == "gather_wgrad":
+        a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows = args
+        b_ = a3.shape[0]
+        la, lg = _live_rows(a3), _live_rows(g3)
+        pairs = 0
+        for j in range(k):
+            ia = row_index(a_map, a_taps, a_stride, j, b_, s_rows, a3.device)
+            ig = row_index(g_map, g_taps, g_stride, j, b_, s_rows, a3.device)
+            pairs += int((torch.gather(la, 1, ia) & torch.gather(lg, 1, ig)).sum())
+        return (_nbytes(a3, g3, *outs) + _map_bytes(a_map, k, b_, s_rows)
+                + _map_bytes(g_map, k, b_, s_rows), 2 * a3.shape[2] * g3.shape[2] * pairs)
+    if name == "parent_gemm":
+        x3, parent, off, w = args
+        pairs = int(torch.gather(_live_rows(x3), 1, parent.long()).sum())
+        return _nbytes(x3, parent, off, w, *outs), 2 * w.shape[1] * w.shape[2] * pairs
+    if name == "scatter_parent":
+        ct3, parent, off, _, _ = args
+        return _nbytes(ct3, parent, off, *outs), int(_live_rows(ct3).sum()) * ct3.shape[2]
+    if name == "furthest_point_sample":
+        xyz, npoint = args
+        # per step and point: 3 subtractions, a multiply and two FMAs, a min
+        # and a compare
+        return _nbytes(xyz, *outs), 9 * (npoint - 1) * xyz.shape[0] * xyz.shape[1]
+    if name == "ball_query":
+        centres, xyz, _, nsample = args
+        o = outs[0]
+        full = (o[..., -1] != o[..., 0] if nsample > 1
+                else torch.ones_like(o[..., 0], dtype=torch.bool))
+        scanned = torch.where(full, o[..., -1].long() + 1,
+                              torch.full_like(o[..., 0], xyz.shape[1]).long())
+        # per point scanned: |b|^2 and a.b (a multiply and two FMAs each),
+        # an add, a multiply, a subtract, a max and a compare
+        return _nbytes(centres, xyz, *outs), 15 * int(scanned.sum())
+    if name == "gather_rows":
+        table, idx = args
+        b_, n, c = table.shape
+        rows = (idx.reshape(b_, -1).long()
+                + n * torch.arange(b_, device=idx.device)[:, None]).unique().numel()
+        return 4 * rows * c + _nbytes(idx, *outs), 0
+    if name == "scatter_add_rows":
+        grad, idx, _ = args
+        return _nbytes(grad, idx, *outs), grad.numel()
+    if name == "three_nn":
+        unknown, known = args
+        b_, n, _ = unknown.shape
+        # per pair: a.k (a multiply and two FMAs), an add, a multiply, a
+        # subtract, a max and up to three compares
+        return _nbytes(unknown, known, *outs), 13 * b_ * n * known.shape[1]
+    if name == "three_interpolate":
+        feats, idx, weight = args
+        return _nbytes(feats, idx, weight, *outs), 5 * outs[0].numel()
+    if name == "three_interpolate_grad":
+        grad, idx, weight, _ = args
+        return _nbytes(grad, idx, weight, *outs), 6 * grad.numel()
+    raise KeyError(name)
+
+
+def library_call(name, args):
+    """One PyTorch call that computes the same function on the same inputs,
+    as a closure (its operands built beforehand), or None where there is
+    none: a row gather (``torch.gather``), a scatter-add (``scatter_add_``),
+    the interpolation and its backward as one sparse product
+    (``torch.sparse.mm`` with the [B*N, B*M] weight matrix in CSR).  The
+    convs are a gather and a matmul, FPS, ball query and three_nn a loop or
+    a sort after a distance matrix: two calls or more."""
+    import torch
+
+    if name == "gather_rows":
+        table, idx = args
+        flat = idx.reshape(idx.shape[0], -1, 1).long().expand(-1, -1, table.shape[2])
+        return lambda: torch.gather(table, 1, flat)
+    if name in ("scatter_add_rows", "scatter_parent"):
+        if name == "scatter_add_rows":
+            grad, idx, n = args
+            rows = idx.reshape(idx.shape[0], -1).long()
+        else:
+            grad, parent, off, k, s_c = args
+            rows, n = off.long() * s_c + parent.long(), k * s_c
+        g = grad.reshape(rows.shape[0], rows.shape[1], -1)
+        flat = rows.unsqueeze(-1).expand(-1, -1, g.shape[2])
+        buf = g.new_zeros(g.shape[0], n, g.shape[2])
+        return lambda: buf.zero_().scatter_add_(1, flat, g)
+    if name in ("three_interpolate", "three_interpolate_grad"):
+        src, idx, weight = args[:3]
+        b_, n = idx.shape[:2]
+        m = src.shape[1] if name == "three_interpolate" else args[3]
+        cols = (idx.long() + m * torch.arange(b_, device=idx.device)[:, None, None]).reshape(-1)
+        rows = torch.arange(b_ * n, device=idx.device).repeat_interleave(3)
+        if name == "three_interpolate":
+            mat = torch.sparse_coo_tensor(torch.stack([rows, cols]), weight.reshape(-1),
+                                          (b_ * n, b_ * m)).coalesce().to_sparse_csr()
+            dense = src.reshape(b_ * m, -1)
+        else:
+            mat = torch.sparse_coo_tensor(torch.stack([cols, rows]), weight.reshape(-1),
+                                          (b_ * m, b_ * n)).coalesce().to_sparse_csr()
+            dense = src.reshape(b_ * n, -1)
+        return lambda: torch.sparse.mm(mat, dense)
+    return None
+
+
+def _max_err(got, want) -> tuple:
+    """(max abs error, max abs reference) over a result or a tuple of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    ref = max(float(w.double().abs().max()) for w in want)
+    return err, ref
+
+
+def _equal(got, want) -> bool:
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def add_numbers(into: dict, name: str, r: dict) -> None:
+    """Add one check's (or one path's) numbers for kernel ``name`` into
+    ``into``: times and bounds summed, the larger error kept, library_ms
+    None unless every part has one."""
+    q = into.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                               "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                               "library_ms": 0.0})
+    q["max_abs_err"] = max(q["max_abs_err"], r["max_abs_err"])
+    for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"):
+        q[k] += r[k]
+    q["library_ms"] = (None if q["library_ms"] is None or r["library_ms"] is None
+                       else q["library_ms"] + r["library_ms"])
+
+
+def phase_kernels(checks, module, exact=()):
+    """Each check's kernel vs its plain twin; kernels named in ``exact`` must
+    equal it bit for bit, the others agree to ATOL + RTOL * max|ref|.  Also
+    times the one PyTorch call computing the same function, where there is
+    one, and the card's bound for the work.  Returns {kernel: {max_abs_err,
+    ms, plain_ms, bound_ms, bytes_ms, ops_ms, library_ms}} summed over the
+    kernel's checked shapes (``add_numbers``)."""
+    import torch
+
+    results = {}
     failures = []
     for name, label, fn, args in checks:
         plain = getattr(module, name + "_plain")
@@ -242,20 +440,33 @@ def phase_kernels(checks, module, exact=()):
         torch.cuda.synchronize()
         plain_ms = _time_ms(plain, args)
         ms = _time_ms(fn, args)
-        err = float((got.double() - want.double()).abs().max())
-        ref = float(want.double().abs().max())
+        err, ref = _max_err(got, want)
         if name in exact:
-            ok = got.dtype == want.dtype and torch.equal(got, want)
+            ok = _equal(got, want)
         else:
-            ok = bool(torch.isfinite(got).all()) and err <= ATOL + RTOL * ref
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        say("kernel", name=name, check=repr(label), shape=tuple(got.shape),
+            ok = all(bool(torch.isfinite(g).all()) for g in
+                     (got if isinstance(got, tuple) else (got,))) and err <= ATOL + RTOL * ref
+        nbytes, ops = work(name, args, got)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+        call = library_call(name, args)
+        lib_ms = None
+        if call is not None:
+            lib_err, _ = _max_err(call().reshape(want.shape), want)
+            if lib_err > ATOL + RTOL * ref:
+                raise AssertionError(f"{label}: the library call disagrees ({lib_err:.3e})")
+            lib_ms = _time_ms(call, ())
+        add_numbers(results, name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms})
+        shape = tuple(tuple(g.shape) for g in got) if isinstance(got, tuple) else tuple(got.shape)
+        say("kernel", name=name, check=repr(label), shape=shape,
             max_abs_err=f"{err:.3e}", max_abs_ref=f"{ref:.3e}",
             rel=f"{err / max(ref, 1e-30):.2e}", exact=name in exact,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", ok=ok)
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
+            bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            share_of_bound=f"{max(bytes_ms, ops_ms) / ms:.3f}", ok=ok)
         if not ok:
             failures.append(label)
     if failures:
@@ -426,25 +637,47 @@ def detect_kernel_checks(batch):
 
 
 def expected_detect_launches(model) -> dict:
-    """Detect-kernel launches of one VoteNet training step, from the model:
-    FPS in the backbone and in the proposal module (vote or seed FPS); a
-    ball query per set-abstraction module; gathers of the backbone's seed
-    xyz and seed features and of each SA module's centres and one group;
-    a scatter-add for each gather whose table needs a gradient (all but the
-    seed xyz, which reads the input cloud)."""
-    from pointcontrast_tpu_torch.detect.modules import PointnetSAModuleVotes
+    """Detect-kernel launches of one VoteNet (or BoxNet) training step, from
+    the model.  Each set-abstraction module: FPS unless given its centres,
+    a ball query, a gather of its centres and one of its group, and a
+    scatter-add for each of the two whose table carries a gradient (the
+    group, once the module has input features; the centres, when they are
+    votes).  The sparse-conv backbone: FPS and the gathers of the seed xyz
+    and seed features (the latter with a scatter-add).  The proposal
+    module: FPS of the votes (inside its SA module) or of the seeds.  Each
+    FP module: three_nn, three_interpolate and, since the known features
+    carry a gradient, three_interpolate_grad."""
+    from pointcontrast_tpu_torch.detect.modules import PointnetFPModule
+    from pointcontrast_tpu_torch.detect.votenet import Pointnet2Backbone
 
-    n_sa = sum(isinstance(m, PointnetSAModuleVotes) for m in model.modules())
-    fps = 1 + (model.pnet.sampling in ("vote_fps", "seed_fps"))
-    return {"furthest_point_sample": fps, "ball_query": n_sa,
-            "gather_rows": 2 + 2 * n_sa, "scatter_add_rows": 1 + 2 * n_sa}
+    n = dict.fromkeys(("furthest_point_sample", "ball_query", "gather_rows",
+                       "scatter_add_rows", "three_nn", "three_interpolate",
+                       "three_interpolate_grad"), 0)
+    if isinstance(model.backbone_net, Pointnet2Backbone):
+        n["furthest_point_sample"] += 4
+        n["ball_query"] += 4
+        n["gather_rows"] += 8
+        n["scatter_add_rows"] += 3  # SA1 groups the input cloud: no gradient
+    else:
+        n["furthest_point_sample"] += 1
+        n["gather_rows"] += 2
+        n["scatter_add_rows"] += 1
+    n["furthest_point_sample"] += model.pnet.sampling != "random"
+    n["ball_query"] += 1
+    n["gather_rows"] += 2
+    n["scatter_add_rows"] += 1 + model.use_voting
+    n_fp = sum(isinstance(m, PointnetFPModule) for m in model.modules())
+    for k in ("three_nn", "three_interpolate", "three_interpolate_grad"):
+        n[k] = n_fp
+    return n
 
 
 def _votenet_step_outputs(model, dc, cfg, batch, device, plain):
     """One DetectTrainer.train_epoch step of a copy of ``model``, through the
     plain twins or the kernels; returns its loss, backbone output, seed
     features and integer outputs (the ball query recomputed from the step's
-    votes and centres, in the same mode)."""
+    votes and centres, in the same mode).  The backbone output is the
+    sparse-conv net's voxel features, or PointNet++'s SA4 features."""
     import torch
 
     from pointcontrast_tpu_torch.detect import ops as dops
@@ -453,9 +686,11 @@ def _votenet_step_outputs(model, dc, cfg, batch, device, plain):
 
     m = copy.deepcopy(model)
     seen = {}
+    pointnet2 = model.backbone == "pointnet2"
     hooks = [
-        m.backbone_net.net.register_forward_hook(
-            lambda mod, inp, out: seen.__setitem__("vout", out.detach())),
+        (m.backbone_net.sa4 if pointnet2 else m.backbone_net.net).register_forward_hook(
+            lambda mod, inp, out: seen.__setitem__(
+                "vout", (out[1] if pointnet2 else out).detach())),
         m.register_forward_hook(lambda mod, inp, out: seen.__setitem__("ep", out)),
     ]
     with plain_ops() if plain else contextlib.nullcontext():
@@ -467,16 +702,43 @@ def _votenet_step_outputs(model, dc, cfg, batch, device, plain):
     for h in hooks:
         h.remove()
     torch.cuda.synchronize()
-    return {
-        "loss": loss, "vout": seen["vout"],
-        "seed_features": ep["seed_features"].detach(),
-        "ints": {"fps_seeds": ep["seed_inds"],
-                 "fps_proposals": ep["aggregated_vote_inds"],
-                 "ball_query": bq, "object_assignment": ep["object_assignment"]},
-    }
+    ints = {"fps_seeds": ep["seed_inds"], "fps_proposals": ep["aggregated_vote_inds"],
+            "ball_query": bq, "object_assignment": ep["object_assignment"]}
+    if pointnet2:
+        ints["fps_sa1"] = ep["sa1_inds"]
+    return {"loss": loss, "vout": seen["vout"],
+            "seed_features": ep["seed_features"].detach(), "ints": ints}
 
 
-def phase_votenet(batches, device, card):
+def check_parity(model, dc, cfg, batch, device, app):
+    """One step through the kernels against the same step through the plain
+    twins, from the same weights and batch: backbone output and seed
+    features to RTOL; the loss to LOSS_RTOL while every integer output
+    agrees, else to LOSS_RTOL_FLIPPED with at most MAX_FLIPPED of any
+    integer set differing."""
+    res = {mode: _votenet_step_outputs(model, dc, cfg, batch, device,
+                                       plain=mode == "plain")
+           for mode in ("plain", "kernels")}
+    p, k = res["plain"], res["kernels"]
+    rel = {name: float((k[name] - p[name]).abs().max() / p[name].abs().max())
+           for name in ("vout", "seed_features")}
+    flipped = {name: int((k["ints"][name] != v).sum())
+               for name, v in p["ints"].items()}
+    frac = max(flipped[n] / p["ints"][n].numel() for n in flipped)
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    loss_rtol = LOSS_RTOL if not any(flipped.values()) else LOSS_RTOL_FLIPPED
+    say("parity", app=app, loss_kernels=f"{k['loss']:.8f}",
+        loss_plain=f"{p['loss']:.8f}", loss_rel=f"{loss_rel:.2e}",
+        loss_rtol=loss_rtol, backbone_rel=f"{rel['vout']:.2e}",
+        seed_features_rel=f"{rel['seed_features']:.2e}", flipped=flipped)
+    if not (max(rel.values()) <= RTOL and loss_rel <= loss_rtol
+            and frac <= MAX_FLIPPED):
+        raise AssertionError(f"{app} kernel step differs from the plain step")
+
+
+def phase_votenet(batches, device, card, model, app):
+    """A detection main path: the kernels-vs-plain step, then STEPS counted
+    DetectTrainer steps, one evaluate and the eval-mode outputs."""
     import torch
 
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
@@ -488,38 +750,21 @@ def phase_votenet(batches, device, card):
         batch_to_inputs,
     )
     from pointcontrast_tpu_torch.sparse import kernels as K
-    from pointcontrast_tpu_torch.tools.workload import votenet_model
 
-    model = votenet_model(seed=0)
     dc = ScannetDatasetConfig()
-    expect = {**expected_launches(model.backbone_net.net),
-              **expected_detect_launches(model)}
-    say("model", app="votenet",
-        name=f"VoteNet(sparseconv {type(model.backbone_net.net).__name__} 3->256)",
+    if model.backbone == "sparseconv":
+        expect = expected_launches(model.backbone_net.net)
+        name = f"VoteNet(sparseconv {type(model.backbone_net.net).__name__} 3->256)"
+    else:
+        expect = {fn.__name__: 0 for fn in K.KERNELS}
+        name = "VoteNet(pointnet2 SA1-SA4 + FP1-FP2)"
+    expect.update(expected_detect_launches(model))
+    say("model", app=app, name=name,
         params=sum(p.numel() for p in model.parameters()), per_step=expect)
     cfg = DetectConfig(checkpoint_dir=os.path.join(BUILD_DIR, "smoke_votenet"))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
 
-    # one step through the kernels vs the plain twins, same weights + batch
-    res = {mode: _votenet_step_outputs(model, dc, cfg, batches[0], device,
-                                       plain=mode == "plain")
-           for mode in ("plain", "kernels")}
-    p, k = res["plain"], res["kernels"]
-    rel = {name: float((k[name] - p[name]).abs().max() / p[name].abs().max())
-           for name in ("vout", "seed_features")}
-    flipped = {name: int((k["ints"][name] != v).sum())
-               for name, v in p["ints"].items()}
-    frac = max(flipped[n] / p["ints"][n].numel() for n in flipped)
-    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    loss_rtol = LOSS_RTOL if not any(flipped.values()) else LOSS_RTOL_FLIPPED
-    say("parity", app="votenet", loss_kernels=f"{k['loss']:.8f}",
-        loss_plain=f"{p['loss']:.8f}", loss_rel=f"{loss_rel:.2e}",
-        loss_rtol=loss_rtol, backbone_rel=f"{rel['vout']:.2e}",
-        seed_features_rel=f"{rel['seed_features']:.2e}", flipped=flipped)
-    if not (max(rel.values()) <= RTOL and loss_rel <= loss_rtol
-            and frac <= MAX_FLIPPED):
-        raise AssertionError("VoteNet kernel step differs from the plain step")
-    del res, p, k
+    check_parity(model, dc, cfg, batches[0], device, app)
 
     # the main path: DetectTrainer.train_epoch, STEPS steps, counted launches
     trainer = DetectTrainer(model, dc, cfg, device)
@@ -533,7 +778,7 @@ def phase_votenet(batches, device, card):
         t0 = time.perf_counter()
         losses.append(trainer.train_epoch(loader, 1))  # syncs on its loss
         step_ms.append(1e3 * (time.perf_counter() - t0))
-        say("step", app="votenet", iter=i + 1, loss=f"{losses[-1]:.6f}",
+        say("step", app=app, iter=i + 1, loss=f"{losses[-1]:.6f}",
             step_ms=f"{step_ms[-1]:.1f}")
     torch.cuda.synchronize()
     counts = {**K.launch_counts(), **D.launch_counts()}
@@ -545,7 +790,7 @@ def phase_votenet(batches, device, card):
         raise AssertionError(f"launch counts {counts} != expected {want}")
     steady = statistics.median(step_ms[1:])
     scenes = int(batches[0].point_clouds.shape[0])
-    say("slice", app="votenet", steps=STEPS, launches=counts,
+    say("slice", app=app, steps=STEPS, launches=counts,
         ms_per_step=f"{steady:.1f}", scenes_per_s=f"{scenes / (steady / 1e3):.2f}",
         first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
         card=repr(card))
@@ -554,7 +799,7 @@ def phase_votenet(batches, device, card):
     t0 = time.perf_counter()
     metrics = trainer.evaluate(iter(batches), None)
     maps = {t: float(m["mAP"]) for t, m in metrics.items()}
-    say("eval", app="votenet", batches=len(batches), mAP=maps,
+    say("eval", app=app, batches=len(batches), mAP=maps,
         seconds=f"{time.perf_counter() - t0:.1f}")
     if not all(0.0 <= v <= 1.0 for v in maps.values()):
         raise AssertionError(f"mAP outside [0, 1]: {maps}")
@@ -570,9 +815,208 @@ def phase_votenet(batches, device, card):
         t = ep[name]
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
             raise AssertionError(f"bad {name}: {tuple(t.shape)} (want {shape})")
-    say("output", app="votenet", fields=len(shapes), proposals=npr)
+    say("output", app=app, fields=len(shapes), proposals=npr)
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
     return counts
+
+
+def make_pointnet2_batches(device):
+    """Two batches of the PointNet++ path: the same scenes, no voxels; the
+    integer labels checked against the dataset config's ranges."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
+    from pointcontrast_tpu_torch.tools.workload import votenet_batches
+
+    dc = ScannetDatasetConfig()
+    t0 = time.perf_counter()
+    dev = votenet_batches(device, voxel=None)
+    limits = {"heading_class_label": dc.num_heading_bin,
+              "size_class_label": dc.num_size_cluster, "sem_cls_label": dc.num_class}
+    for b in dev:
+        if b.voxel_feats is not None or b.point_clouds.shape[1:] != (40000, 3):
+            raise AssertionError(f"bad batch: {tuple(b.point_clouds.shape)}")
+        if not (torch.isfinite(b.point_clouds).all() and torch.isfinite(b.vote_label).all()):
+            raise AssertionError("non-finite points or vote labels")
+        for k, n in limits.items():
+            v = getattr(b, k)
+            if int(v.min()) < 0 or int(v.max()) >= n:
+                raise AssertionError(f"{k} outside [0, {n})")
+    say("data", app="votenet pointnet2", seconds=f"{time.perf_counter() - t0:.1f}",
+        scenes=int(dev[0].point_clouds.shape[0]),
+        points=int(dev[0].point_clouds.shape[1]),
+        objects=[int(b.box_label_mask.sum()) for b in dev])
+    return dev
+
+
+def pointnet2_kernel_checks(model, batch):
+    """[(kernel, label, fn, args)] at the PointNet++ step's shapes, from one
+    forward of a copy of ``model`` through the kernels.  For each
+    set-abstraction module (SA1-SA4 and the proposal module's, whose FPS
+    runs over the 1024 votes): its FPS, ball query, the gathers of its
+    centres and of its group, and the scatter-adds of those whose table
+    carries a gradient (the group once the module has input features, the
+    centres when they are votes), with random cotangents.  Then K9 at FP1
+    (512 unknown over 256 known points) and FP2 (1024 over 512)."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.detect import ops as dops
+    from pointcontrast_tpu_torch.detect.train import batch_to_inputs
+
+    dev = batch.point_clouds.device
+    m = copy.deepcopy(model).to(dev)
+    net = m.backbone_net
+    sa = {"SA1": net.sa1, "SA2": net.sa2, "SA3": net.sa3, "SA4": net.sa4,
+          "votes": m.pnet.vote_aggregation}
+    seen = {}
+    hooks = [mod.register_forward_hook(
+        lambda mod, i, o, name=name: seen.__setitem__(name, (i, o)))
+        for name, mod in sa.items()]
+    for name in ("fp1", "fp2"):
+        hooks.append(getattr(net, name).register_forward_pre_hook(
+            lambda mod, args, name=name: seen.__setitem__(name, args)))
+    with torch.no_grad():
+        m.train()(batch_to_inputs(batch))
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    checks = []
+    for name, mod in sa.items():
+        (xyz, feats), (new_xyz, _, inds) = seen[name]
+        xyz = xyz.contiguous()
+        b_, n, _ = xyz.shape
+        r, ns, k = mod.radius, mod.nsample, new_xyz.shape[1]
+        group = D.ball_query_plain(new_xyz, xyz, r, ns)
+        table = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
+        c = table.shape[2]
+        checks += [
+            ("furthest_point_sample", f"K6 FPS {name} {n}->{k}",
+             D.furthest_point_sample, (xyz, k)),
+            ("ball_query", f"K7 {name} {k} centres over {n} points r{r} ns{ns}",
+             D.ball_query, (new_xyz, xyz, r, ns)),
+            ("gather_rows", f"K8 {name} centres", D.gather_rows, (xyz, inds)),
+            ("gather_rows", f"K8 {name} group {c}", D.gather_rows, (table, group)),
+        ]
+        if feats is not None:
+            checks.append(("scatter_add_rows", f"K8 bwd {name} group {c}",
+                           D.scatter_add_rows,
+                           (torch.randn(b_, k, ns, c, device=dev, generator=gen),
+                            group, n)))
+        if name == "votes":
+            checks.append(("scatter_add_rows", "K8 bwd votes centres",
+                           D.scatter_add_rows,
+                           (torch.randn(b_, k, 3, device=dev, generator=gen), inds, n)))
+    del m
+    xyz3, xyz4, _, feat4 = (t.contiguous() for t in seen["fp1"])
+    xyz2, _, _, f3 = (t.contiguous() for t in seen["fp2"])
+    d1, i1 = D.three_nn_plain(xyz3, xyz4)
+    d2, i2 = D.three_nn_plain(xyz2, xyz3)
+    w1, w2 = dops.interpolation_weights(d1), dops.interpolation_weights(d2)
+    ct1 = torch.randn(*xyz3.shape[:2], feat4.shape[2], device=dev, generator=gen)
+    ct2 = torch.randn(*xyz2.shape[:2], f3.shape[2], device=dev, generator=gen)
+    return checks + [
+        ("three_nn", "K9 FP1 512 over 256", D.three_nn, (xyz3, xyz4)),
+        ("three_nn", "K9 FP2 1024 over 512", D.three_nn, (xyz2, xyz3)),
+        ("three_interpolate", "K9 FP1 256 ch", D.three_interpolate, (feat4, i1, w1)),
+        ("three_interpolate", "K9 FP2 256 ch", D.three_interpolate, (f3, i2, w2)),
+        ("three_interpolate_grad", "K9 bwd FP1 256 ch", D.three_interpolate_grad,
+         (ct1, i1, w1, xyz4.shape[1])),
+        ("three_interpolate_grad", "K9 bwd FP2 256 ch", D.three_interpolate_grad,
+         (ct2, i2, w2, xyz3.shape[1])),
+    ]
+
+
+def phase_boxnet(batches, device):
+    """One BoxNet step (PointNet++ backbone, seed FPS, get_loss_boxnet)."""
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
+    from pointcontrast_tpu_torch.detect.train import (
+        DetectConfig,
+        DetectTrainer,
+        get_bn_momentum,
+    )
+    from pointcontrast_tpu_torch.tools.workload import votenet_model
+
+    cfg = DetectConfig(checkpoint_dir=os.path.join(BUILD_DIR, "smoke_boxnet"))
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    model = votenet_model(seed=1, backbone="pointnet2", use_voting=False)
+    trainer = DetectTrainer(model, ScannetDatasetConfig(), cfg, device)
+    trainer.set_bn_momentum(get_bn_momentum(0, cfg))
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in
+               trainer._step(trainer.model, trainer.opt, batches[0]).items()}
+    say("boxnet", loss=f"{metrics['loss']:.6f}", vote_loss=metrics["vote_loss"],
+        objectness_loss=f"{metrics['objectness_loss']:.6f}",
+        step_ms=f"{1e3 * (time.perf_counter() - t0):.1f}")
+    if not math.isfinite(metrics["loss"]) or metrics["vote_loss"] != 0.0:
+        raise AssertionError(f"bad BoxNet step: {metrics}")
+
+
+def phase_cli():
+    """``apps.votenet.main`` on the card with the shipped config and
+    ``net.backbone=pointnet2``: one epoch of 8 synthetic scenes (one step),
+    one evaluation, a checkpoint; a second call resumes from it and has
+    nothing left to train."""
+    import torch
+
+    from pointcontrast_tpu_torch.apps import votenet as app
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.detect import kernels as D
+
+    out = os.path.join(BUILD_DIR, "smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    args = ["net.backbone=pointnet2", "data.dataset=synthetic", "data.num_scenes=8",
+            "optimizer.max_epoch=1", "eval.eval_every=1", f"misc.out_dir={out}",
+            "distributed.num_devices=1"]
+    t0 = time.perf_counter()
+    D.reset_launches()
+    trainer = app.main(args)
+    torch.cuda.synchronize()
+    first = D.launch_counts()
+    seconds = time.perf_counter() - t0
+    ckpt = os.path.join(out, "weights", "checkpoint_1.pth")
+    if trainer.epoch != 1 or not os.path.exists(ckpt) or trainer.device.type != "cuda":
+        raise AssertionError("the CLI run did not train, save and stay on the card")
+    if not all(first.values()):
+        raise AssertionError(f"the CLI run missed a kernel: {first}")
+    D.reset_launches()
+    resumed = app.main(args)
+    if resumed.epoch != 1 or any(D.launch_counts().values()):
+        raise AssertionError("the resumed CLI run trained again")
+    say("cli", seconds=f"{seconds:.1f}", epoch=trainer.epoch, launches=first,
+        checkpoint=os.path.relpath(ckpt, ROOT), resumed_epoch=resumed.epoch)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def kernels_line(paths: dict) -> list:
+    """The kernels line's entries from {main path: (its kernel checks'
+    numbers, its launch counts)}: each path's own launches and numbers
+    under ``paths``; at the top level all paths' launches and all their
+    checks' numbers together.  A kernel launched on a path but not checked
+    at that path's shapes fails."""
+    def numbers(r):
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+                "library_ms": r["library_ms"]}
+
+    total = {}
+    for path, (res, counts) in paths.items():
+        unchecked = [n for n, c in counts.items() if c and n not in res]
+        if unchecked:
+            raise AssertionError(f"{path}: launched but not checked: {unchecked}")
+        for name, r in res.items():
+            add_numbers(total, name, r)
+    return [
+        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+         "replaces": KERNEL_INFO[name][1],
+         "launches": sum(counts.get(name, 0) for _, counts in paths.values()),
+         **numbers(r),
+         "paths": {path: {"launches": counts.get(name, 0), **numbers(res[name])}
+                   for path, (res, counts) in paths.items() if name in res}}
+        for name, r in total.items()
+    ]
 
 
 def main() -> int:
@@ -583,26 +1027,34 @@ def main() -> int:
 
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import votenet_model
 
     phase_build()
     device = torch.device("cuda", 0)
+    paths = {}  # main path -> (its kernel checks' numbers, its launch counts)
     batches = make_batches(device)
-    results = phase_kernels(kernel_checks(batches[0]), K)
-    counts = phase_slice(batches, device, card)
+    res = phase_kernels(kernel_checks(batches[0].pyramid0), K)
+    paths["pretrain"] = (res, phase_slice(batches, device, card))
     del batches
     vbatches = make_votenet_batches(device)
-    results.update(phase_kernels(
+    res = phase_kernels(kernel_checks(vbatches[0].voxel_pyramid), K)
+    res.update(phase_kernels(
         detect_kernel_checks(vbatches[0]), D,
         exact=("furthest_point_sample", "ball_query", "gather_rows")))
-    vcounts = phase_votenet(vbatches, device, card)
-    kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
-         "replaces": KERNEL_INFO[name][1],
-         "launches": (counts if name in counts else vcounts)[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
-        for name, r in results.items()
-    ]
+    paths["votenet"] = (res, phase_votenet(vbatches, device, card,
+                                           votenet_model(seed=0), "votenet"))
+    del vbatches
+    pbatches = make_pointnet2_batches(device)
+    pmodel = votenet_model(seed=0, backbone="pointnet2")
+    res = phase_kernels(
+        pointnet2_kernel_checks(pmodel, pbatches[0]), D,
+        exact=("furthest_point_sample", "ball_query", "gather_rows", "three_nn"))
+    paths["votenet pointnet2"] = (res, phase_votenet(pbatches, device, card, pmodel,
+                                                     "votenet pointnet2"))
+    phase_boxnet(pbatches, device)
+    del pbatches
+    phase_cli()
+    kernels = kernels_line(paths)
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,17 +5,23 @@
 //   K7 ball_query_kernel      first nsample in-radius points per centre
 //   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :]
 //      scatter_add_rows_kernel  its backward, f32 atomics
+//   K9 three_nn_kernel        the 3 nearest known points of each unknown one
+//      three_interpolate_kernel       out[b, n, :] = sum_j w_j f[b, idx_j, :]
+//      three_interpolate_grad_kernel  its backward to f, f32 atomics
 //
 // Layout: clouds are [B, N, 3] row-major f32, feature tables [B, N, C]
 // row-major f32, indices int32.  No kernel tests bounds: the indices come
-// from fps_kernel / ball_query_kernel (in range by construction) or were
-// checked per sample on the host (DetectionBatch.to).
+// from fps_kernel / ball_query_kernel / three_nn_kernel (in range by
+// construction) or were checked per sample on the host (DetectionBatch.to).
 //
 // Bit-exact agreement with the plain twins and the JAX ops: every distance
-// is spelt out with __fmul_rn/__fadd_rn/__fsub_rn in the twins' order.
-// nvcc would otherwise contract a*b + c into one FMA, which rounds once
-// instead of twice; on 40000-point clouds in which 3/4 of the points are
-// duplicates, one such rounding difference flips an argmax.
+// and weighted sum is spelt out with __fmaf_rn/__fmul_rn/__fadd_rn/__fsub_rn
+// in the order XLA's CPU code computes the JAX ops, which contracts each
+// 3-term sum of products into a chain of FMAs (dot3_fma).  nvcc would
+// otherwise choose for itself where to contract a*b + c into one FMA, which
+// rounds once instead of twice; on 40000-point clouds in which 3/4 of the
+// points are duplicates, one such rounding difference flips an argmax, and
+// at the ball-query radius one decides membership.
 //
 // Each C entry returns cudaGetLastError() of its launch.
 
@@ -29,9 +35,10 @@ constexpr int FPS_MAX_THREADS = 1024;
 constexpr int BQ_THREADS = 128;
 constexpr int ROW_THREADS = 256;
 
-// (x^2 + y^2) + z^2, each product and sum rounded on its own
-__device__ __forceinline__ float sq3(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+// fma(a2, b2, fma(a1, b1, a0 b0)): XLA's CPU spelling of a 3-term dot
+__device__ __forceinline__ float dot3_fma(float ax, float ay, float az,
+                                          float bx, float by, float bz) {
+  return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
 }
 
 // (value, index) pair order of an argmax that keeps the FIRST maximum
@@ -66,8 +73,9 @@ fps_kernel(const float* __restrict__ xyz, float* __restrict__ dist,
     float best = -1.0f;  // below every distance
     int besti = 0x7fffffff;
     for (int i = tid; i < N; i += blockDim.x) {
-      const float di = sq3(__fsub_rn(p[3 * i], lx), __fsub_rn(p[3 * i + 1], ly),
-                           __fsub_rn(p[3 * i + 2], lz));
+      const float dx = __fsub_rn(p[3 * i], lx), dy = __fsub_rn(p[3 * i + 1], ly),
+                  dz = __fsub_rn(p[3 * i + 2], lz);
+      const float di = dot3_fma(dx, dy, dz, dx, dy, dz);
       const float m = fminf(d[i], di);
       d[i] = m;
       if (m > best) {
@@ -125,14 +133,14 @@ ball_query_kernel(const float* __restrict__ centres,
   const float* p = xyz + b * N * 3;
   int* o = out + c * nsample;
   const float ax = centres[3 * c], ay = centres[3 * c + 1], az = centres[3 * c + 2];
-  const float a2 = sq3(ax, ay, az);
+  const float a2 = dot3_fma(ax, ay, az, ax, ay, az);
   int cnt = 0;
   for (int j = 0; j < N && cnt < nsample; ++j) {
     const float bx = p[3 * j], by = p[3 * j + 1], bz = p[3 * j + 2];
-    const float ab = __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                               __fmul_rn(az, bz));
-    const float d2 = fmaxf(
-        __fsub_rn(__fadd_rn(a2, sq3(bx, by, bz)), __fmul_rn(2.0f, ab)), 0.0f);
+    const float ab = dot3_fma(ax, ay, az, bx, by, bz);
+    const float d2 = fmaxf(__fsub_rn(__fadd_rn(a2, dot3_fma(bx, by, bz, bx, by, bz)),
+                                     __fmul_rn(2.0f, ab)),
+                           0.0f);
     if (d2 < r2) {
       if (cnt == 0)
         for (int k = 1; k < nsample; ++k) o[k] = j;
@@ -172,6 +180,169 @@ scatter_add_rows_kernel(const float* __restrict__ grad,
     const int64_t b = row / M;
     atomicAdd(dtable + (b * N + __ldg(idx + row)) * C + c, __ldg(grad + e));
   }
+}
+
+constexpr int NN_THREADS = 64;
+constexpr int NN_TILE = 1024;  // known points staged per pass (16 KB)
+
+// K9: for unknown point (b, n), the three known points of least
+// d2 = max((|u|^2 + |k|^2) - 2 u.k, 0), ascending, ties to the lower index
+// (a running top-3 with strict < over increasing index), and their exact
+// distances sqrt(|u - k|^2).  One thread per unknown point; the block stages
+// the known cloud (with each point's |k|^2) in shared memory, a tile at a
+// time, and every thread of the block scans it in the same order, so the
+// reads are broadcasts.  Bound by launch latency at the FP layers' sizes.
+__global__ void __launch_bounds__(NN_THREADS)
+three_nn_kernel(const float* __restrict__ unknown,
+                const float* __restrict__ known, float* __restrict__ dist,
+                int* __restrict__ idx, int N, int M) {
+  __shared__ float kx[NN_TILE], ky[NN_TILE], kz[NN_TILE], kk[NN_TILE];
+  const int64_t b = blockIdx.y;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = n < N;
+  const float* kp = known + b * M * 3;
+  float ux = 0.0f, uy = 0.0f, uz = 0.0f;
+  if (active) {
+    const float* up = unknown + (b * N + n) * 3;
+    ux = up[0];
+    uy = up[1];
+    uz = up[2];
+  }
+  const float uu = dot3_fma(ux, uy, uz, ux, uy, uz);
+  float d0 = INFINITY, d1 = INFINITY, d2 = INFINITY;
+  int i0 = 0, i1 = 0, i2 = 0;
+  for (int base = 0; base < M; base += NN_TILE) {
+    const int cnt = min(NN_TILE, M - base);
+    __syncthreads();  // the previous tile is consumed
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+      const float x = kp[3 * (base + j)], y = kp[3 * (base + j) + 1],
+                  z = kp[3 * (base + j) + 2];
+      kx[j] = x;
+      ky[j] = y;
+      kz[j] = z;
+      kk[j] = dot3_fma(x, y, z, x, y, z);
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int j = 0; j < cnt; ++j) {
+      const float ab = dot3_fma(ux, uy, uz, kx[j], ky[j], kz[j]);
+      const float d =
+          fmaxf(__fsub_rn(__fadd_rn(uu, kk[j]), __fmul_rn(2.0f, ab)), 0.0f);
+      if (d < d2) {
+        const int i = base + j;
+        if (d < d1) {
+          d2 = d1;
+          i2 = i1;
+          if (d < d0) {
+            d1 = d0;
+            i1 = i0;
+            d0 = d;
+            i0 = i;
+          } else {
+            d1 = d;
+            i1 = i;
+          }
+        } else {
+          d2 = d;
+          i2 = i;
+        }
+      }
+    }
+  }
+  if (!active) return;
+  const int win[3] = {i0, i1, i2};
+  float* dout = dist + (b * N + n) * 3;
+  int* iout = idx + (b * N + n) * 3;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float dx = __fsub_rn(ux, kp[3 * win[j]]);
+    const float dy = __fsub_rn(uy, kp[3 * win[j] + 1]);
+    const float dz = __fsub_rn(uz, kp[3 * win[j] + 2]);
+    dout[j] = __fsqrt_rn(fmaxf(dot3_fma(dx, dy, dz, dx, dy, dz), 0.0f));
+    iout[j] = win[j];
+  }
+}
+
+// K9: out[b, n, c] = fma(f[i2, c], w2, fma(f[i1, c], w1, f[i0, c] w0)) with
+// f = feats[b].  One thread per (n, VEC channels): float4 loads and stores
+// when C % 4 == 0 and the pointers are 16-byte aligned (C = 256 on the
+// path).  Bound by device-memory bandwidth.
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS)
+three_interpolate_kernel(const float* __restrict__ feats,
+                         const int* __restrict__ idx,
+                         const float* __restrict__ weight,
+                         float* __restrict__ out, int M, int N, int C,
+                         int64_t total) {
+  const int CV = C / VEC;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = e / CV;  // b * N + n
+    const int c = (int)(e - row * CV) * VEC;
+    const int64_t b = row / N;
+    const int* ip = idx + row * 3;
+    const float* wp = weight + row * 3;
+    const float w0 = __ldg(wp), w1 = __ldg(wp + 1), w2 = __ldg(wp + 2);
+    const float* f0 = feats + (b * M + __ldg(ip)) * C + c;
+    const float* f1 = feats + (b * M + __ldg(ip + 1)) * C + c;
+    const float* f2 = feats + (b * M + __ldg(ip + 2)) * C + c;
+    float* o = out + row * C + c;
+    if constexpr (VEC == 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(f0));
+      const float4 p = __ldg(reinterpret_cast<const float4*>(f1));
+      const float4 q = __ldg(reinterpret_cast<const float4*>(f2));
+      float4 r;
+      r.x = __fmaf_rn(q.x, w2, __fmaf_rn(p.x, w1, __fmul_rn(a.x, w0)));
+      r.y = __fmaf_rn(q.y, w2, __fmaf_rn(p.y, w1, __fmul_rn(a.y, w0)));
+      r.z = __fmaf_rn(q.z, w2, __fmaf_rn(p.z, w1, __fmul_rn(a.z, w0)));
+      r.w = __fmaf_rn(q.w, w2, __fmaf_rn(p.w, w1, __fmul_rn(a.w, w0)));
+      *reinterpret_cast<float4*>(o) = r;
+    } else {
+      *o = __fmaf_rn(__ldg(f2), w2,
+                     __fmaf_rn(__ldg(f1), w1, __fmul_rn(__ldg(f0), w0)));
+    }
+  }
+}
+
+// K9 backward: dfeats[b, idx[b, n, j], c] += grad[b, n, c] * w[b, n, j].
+// One thread per (n, VEC channels); the product is rounded before the f32
+// atomic, as the twin's scatter-add of rounded products.  Rows collide
+// (unknown points share known neighbours), so the sums' order is not fixed.
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS)
+three_interpolate_grad_kernel(const float* __restrict__ grad,
+                              const int* __restrict__ idx,
+                              const float* __restrict__ weight,
+                              float* __restrict__ dfeats, int M, int N, int C,
+                              int64_t total) {
+  const int CV = C / VEC;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = e / CV;
+    const int c = (int)(e - row * CV) * VEC;
+    const int64_t b = row / N;
+    float g[VEC];
+    if constexpr (VEC == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(grad + row * C + c));
+      g[0] = v.x;
+      g[1] = v.y;
+      g[2] = v.z;
+      g[3] = v.w;
+    } else {
+      g[0] = __ldg(grad + row * C + c);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float w = __ldg(weight + row * 3 + j);
+      float* d = dfeats + (b * M + __ldg(idx + row * 3 + j)) * C + c;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) atomicAdd(d + v, __fmul_rn(g[v], w));
+    }
+  }
+}
+
+bool vec4_ok(int C, const void* a, const void* b) {
+  return C % 4 == 0 && ((uintptr_t)a & 15) == 0 && ((uintptr_t)b & 15) == 0;
 }
 
 int grid_for(int64_t total, int threads) {
@@ -217,6 +388,51 @@ int pc_scatter_add_rows(const void* grad, const void* idx, void* dtable, int B,
   scatter_add_rows_kernel<<<grid_for(total, ROW_THREADS), ROW_THREADS, 0,
                             (cudaStream_t)stream>>>(
       (const float*)grad, (const int*)idx, (float*)dtable, N, M, C, total);
+  return (int)cudaGetLastError();
+}
+
+int pc_three_nn(const void* unknown, const void* known, void* dist, void* idx,
+                int B, int N, int M, void* stream) {
+  const dim3 grid((N + NN_THREADS - 1) / NN_THREADS, B);
+  three_nn_kernel<<<grid, NN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)unknown, (const float*)known, (float*)dist, (int*)idx, N, M);
+  return (int)cudaGetLastError();
+}
+
+int pc_three_interpolate(const void* feats, const void* idx, const void* weight,
+                         void* out, int B, int M, int N, int C, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec4_ok(C, feats, out)) {
+    const int64_t total = (int64_t)B * N * (C / 4);
+    three_interpolate_kernel<4><<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
+        (const float*)feats, (const int*)idx, (const float*)weight, (float*)out,
+        M, N, C, total);
+  } else {
+    const int64_t total = (int64_t)B * N * C;
+    three_interpolate_kernel<1><<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
+        (const float*)feats, (const int*)idx, (const float*)weight, (float*)out,
+        M, N, C, total);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pc_three_interpolate_grad(const void* grad, const void* idx,
+                              const void* weight, void* dfeats, int B, int M,
+                              int N, int C, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec4_ok(C, grad, dfeats)) {
+    const int64_t total = (int64_t)B * N * (C / 4);
+    three_interpolate_grad_kernel<4>
+        <<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
+            (const float*)grad, (const int*)idx, (const float*)weight,
+            (float*)dfeats, M, N, C, total);
+  } else {
+    const int64_t total = (int64_t)B * N * C;
+    three_interpolate_grad_kernel<1>
+        <<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
+            (const float*)grad, (const int*)idx, (const float*)weight,
+            (float*)dfeats, M, N, C, total);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""The four device kernels behind the VoteNet step's PointNet++ ops.
+"""The seven device kernels behind the VoteNet step's PointNet++ ops.
 
 Each kernel has three things side by side here, as in ``sparse.kernels``:
   - ``<name>_plain``: the same function in plain torch.  The CPU tests use
@@ -18,6 +18,10 @@ programs; the package has no Pallas kernel on this path):
                          inline ``take_along_axis`` gathers of
                          ``detect/votenet.py`` and ``detect/modules.py``
   scatter_add_rows       K8's backward (XLA's gather transpose)
+  three_nn               K9 ``three_nn`` (pairwise distances + top_k 3)
+  three_interpolate      K9 ``three_interpolate``, in the channels-last form
+                         inline at ``detect/modules.py:113-120``
+  three_interpolate_grad K9's backward with respect to the features
 What bounds them on an H100: FPS is a chain of ``npoint`` dependent steps,
 each a pass over one cloud and a block-wide argmax, so it is latency-bound
 on one SM per cloud (8 of 132 SMs at batch 8); the design keeps a cloud in
@@ -26,15 +30,25 @@ and leaves the [B, N] running distances in L2.  Ball query reads each
 cloud once per centre (256 x 1024 points x 12 B per cloud, L2-resident) and
 stops at ``nsample`` hits.  The gather and scatter move rows of 4*C bytes
 and are bound by device-memory bandwidth; the scatter's atomics collide.
+K9 works on the FP layers' few hundred points: ``three_nn`` reads under
+0.4 MB and is bound by launch latency; ``three_interpolate`` and its
+backward move [B, N, C] rows and are bound by bandwidth (~12.6 MB at FP2).
 
-Distances are spelt out in one order, (x^2 + y^2) + z^2 with every product
-and sum rounded on its own, in the kernels (``__fmul_rn``/``__fadd_rn``)
-and in the twins (separate torch ops, never ``.sum(-1)`` or a matmul), so
-the two agree bit for bit and pick the same indices.
+Every distance (K6, K7, K9) and K9's weighted sum is spelt out in one
+order in the kernels and in the twins, so that the two agree bit for bit
+and pick the same indices: the order in which XLA computes the JAX ops on
+the CPU, which contracts each 3-term sum of products into a chain of fused
+multiply-adds, ``fma(z, z', fma(y, y', x x'))``.  The JAX values agree with
+that chain bit for bit, and with the unfused sum ``(x x' + y y') + z z'``
+only in part of the entries; on near-duplicate points, and at the
+ball-query radius, the two spellings pick different indices.  The kernels call
+``__fmaf_rn``; the twins call ``fma_plain``, an exact single-rounding FMA in
+float64 (never ``.sum(-1)``, ``cdist`` or a matmul).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -54,6 +68,9 @@ def _lib():
         "pc_ball_query": [vp, vp, vp, ci, ci, ci, cf, ci, vp],
         "pc_gather_rows": [vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_scatter_add_rows": [vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_three_nn": [vp, vp, vp, vp, ci, ci, ci, vp],
+        "pc_three_interpolate": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_three_interpolate_grad": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
     })
 
 
@@ -82,14 +99,36 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-def sq3(x, y, z):
-    """(x^2 + y^2) + z^2 as three rounded products and two rounded sums."""
-    return (x * x + y * y) + z * z
+def _round_sum(p, c):
+    """float32 of the exact ``p + c`` (float64 operands: an exact product and
+    a float32 value), rounded once: the sum is rounded to odd in float64
+    (the TwoSum error term says which way), and the cast to float32 then
+    rounds correctly, since float64 carries more than 24 + 1 bits (Boldo and
+    Melquiond)."""
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even_inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(even_inexact, torch.nextafter(s, err * math.inf), s).float()
 
 
-def sq3_dot(a, b):
-    """(a0 b0 + a1 b1) + a2 b2 over the last axis, unfused."""
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+def fma_plain(a, b, c):
+    """float32 ``a * b + c`` rounded once, as ``__fmaf_rn``.  On float64
+    operands (reference runs in float64) it is ``a * b + c``."""
+    if a.dtype == torch.float64:
+        return a * b + c
+    return _round_sum(a.double() * b.double(), c.double())
+
+
+def dot3_fma(a, b):
+    """fma(a2, b2, fma(a1, b1, a0 b0)) over the last axis: XLA's CPU code for
+    ``jnp.sum(a * b, -1)`` and for the 3-deep einsum of ``_sqdist``.  On
+    float64 operands (reference runs in float64) the plain sum."""
+    if a.dtype == torch.float64:
+        return (a * b).sum(-1)
+    p = a.double() * b.double()
+    acc = _round_sum(p[..., 1], (a[..., 0] * b[..., 0]).double())
+    return _round_sum(p[..., 2], acc.double())
 
 
 # --------------------------------------------------------------------------
@@ -99,12 +138,12 @@ def sq3_dot(a, b):
 def furthest_point_sample_plain(xyz, npoint: int):
     b_, n, _ = xyz.shape
     out = torch.zeros(b_, npoint, dtype=torch.int32, device=xyz.device)
-    dists = torch.full((b_, n), float("inf"), device=xyz.device)
+    dists = torch.full((b_, n), float("inf"), dtype=xyz.dtype, device=xyz.device)
     rows = torch.arange(b_, device=xyz.device)
     last = torch.zeros(b_, dtype=torch.long, device=xyz.device)
     for i in range(1, npoint):
         d = xyz - xyz[rows, last][:, None, :]
-        dists = torch.minimum(dists, sq3(d[..., 0], d[..., 1], d[..., 2]))
+        dists = torch.minimum(dists, dot3_fma(d, d))
         last = torch.argmax(dists, dim=1)
         out[:, i] = last.to(torch.int32)
     return out
@@ -112,10 +151,12 @@ def furthest_point_sample_plain(xyz, npoint: int):
 
 def furthest_point_sample(xyz, npoint: int):
     """[B, N, 3] f32 -> [B, npoint] int32: index 0 first, then each step the
-    point furthest from those chosen (ties to the lowest index)."""
+    point furthest from those chosen (ties to the lowest index).  With more
+    samples than distinct points every distance ends at 0 and the rest are
+    index 0, as in the JAX op (``npoint`` may exceed N)."""
     _check_cloud("furthest_point_sample", xyz)
     b_, n, _ = xyz.shape
-    if not 0 < npoint <= n:
+    if npoint <= 0 or n == 0:
         raise ValueError(f"furthest_point_sample: npoint {npoint} of {n} points")
     if _use_plain(xyz):
         return furthest_point_sample_plain(xyz, npoint)
@@ -139,16 +180,26 @@ def _radius2(radius: float) -> np.float32:
     return np.float32(radius * radius)
 
 
+# centres per block of the plain ball query, as the JAX op's ``chunk=512``
+# blocks: the [B, 256, N] float64 temporaries of a 40000-point cloud fit on
+# the card
+_BQ_PLAIN_CHUNK = 256
+
+
 def ball_query_plain(new_xyz, xyz, radius: float, nsample: int):
     n = xyz.shape[1]
-    a, p = new_xyz[:, :, None, :], xyz[:, None, :, :]
-    ab = sq3_dot(a, p)
-    d2 = torch.clamp_min((sq3(a[..., 0], a[..., 1], a[..., 2])
-                          + sq3(p[..., 0], p[..., 1], p[..., 2])) - 2.0 * ab, 0.0)
-    inside = d2 < torch.tensor(_radius2(radius), device=d2.device)
+    p = xyz[:, None, :, :]
+    pp = dot3_fma(p, p)
+    r2 = torch.tensor(_radius2(radius), device=xyz.device)
     col = torch.arange(n, device=xyz.device, dtype=torch.int32)
-    key = torch.where(inside, col, torch.full_like(col, n))
-    out = torch.topk(key, nsample, dim=-1, largest=False, sorted=True).values
+    outs = []
+    for lo in range(0, new_xyz.shape[1], _BQ_PLAIN_CHUNK):
+        a = new_xyz[:, lo:lo + _BQ_PLAIN_CHUNK, None, :]
+        d2 = torch.clamp_min((dot3_fma(a, a) + pp) - 2.0 * dot3_fma(a, p), 0.0)
+        key = torch.where(d2 < r2, col, torch.full_like(col, n))
+        outs.append(torch.topk(key, nsample, dim=-1, largest=False,
+                               sorted=True).values)
+    out = torch.cat(outs, dim=1)
     first = out[..., :1]
     first = torch.where(first == n, torch.zeros_like(first), first)
     return torch.where(out == n, first, out).to(torch.int32)
@@ -239,5 +290,102 @@ def scatter_add_rows(grad, idx, n: int):
     return out
 
 
-KERNELS = (furthest_point_sample, ball_query, gather_rows, scatter_add_rows)
+# --------------------------------------------------------------------------
+# K9 three_nn / three_interpolate / three_interpolate_grad
+
+
+def three_nn_plain(unknown, known):
+    u, k = unknown[:, :, None, :], known[:, None, :, :]
+    d2 = torch.clamp_min((dot3_fma(u, u) + dot3_fma(k, k)) - 2.0 * dot3_fma(u, k),
+                         0.0)
+    idx = torch.sort(d2, dim=-1, stable=True).indices[..., :3]
+    d = unknown[:, :, None, :] - gather_rows_plain(known, idx)
+    return torch.sqrt(torch.clamp_min(dot3_fma(d, d), 0.0)), idx.to(torch.int32)
+
+
+def three_nn(unknown, known):
+    """[B, N, 3] unknown, [B, M, 3] known (M >= 3) f32 -> (dist [B, N, 3]
+    f32, idx [B, N, 3] int32): per unknown point the three known points of
+    least ``max(|u|^2 + |k|^2 - 2 u.k, 0)`` in ascending order, ties to the
+    lower index (``lax.top_k``), and their distances recomputed as
+    ``sqrt(|u - k|^2)``."""
+    _check_cloud("three_nn unknown", unknown)
+    _check_cloud("three_nn known", known)
+    b_, n, _ = unknown.shape
+    m = known.shape[1]
+    if known.shape[0] != b_ or m < 3:
+        raise ValueError(f"three_nn: {tuple(unknown.shape)} unknown over "
+                         f"{tuple(known.shape)} known points")
+    if _use_plain(known):
+        return three_nn_plain(unknown, known)
+    _require(unknown, "unknown", torch.float32, 3)
+    _require(known, "known", torch.float32, 3)
+    dist = torch.empty(b_, n, 3, dtype=torch.float32, device=known.device)
+    idx = torch.empty(b_, n, 3, dtype=torch.int32, device=known.device)
+    rc = _lib().pc_three_nn(_ptr(unknown), _ptr(known), _ptr(dist), _ptr(idx),
+                            b_, n, m, _stream())
+    _check(rc, "three_nn")
+    three_nn.launches += 1
+    return dist, idx
+
+
+def _check_interp(name, idx, weight, b_, n=None):
+    if idx.dim() != 3 or idx.shape[0] != b_ or idx.shape[2] != 3 or (
+            n is not None and idx.shape[1] != n) or weight.shape != idx.shape:
+        raise ValueError(f"{name}: index {tuple(idx.shape)} and weight "
+                         f"{tuple(weight.shape)} for a batch of {b_}")
+
+
+def three_interpolate_plain(feats, idx, weight):
+    g = gather_rows_plain(feats, idx)  # [B, N, 3, C]
+    w = weight[..., None]
+    return fma_plain(g[:, :, 2], w[:, :, 2],
+                     fma_plain(g[:, :, 1], w[:, :, 1], g[:, :, 0] * w[:, :, 0]))
+
+
+def three_interpolate(feats, idx, weight):
+    """feats [B, M, C] f32, idx [B, N, 3] int32, weight [B, N, 3] f32 ->
+    [B, N, C]: ``fma(f[i2], w2, fma(f[i1], w1, f[i0] w0))`` per channel."""
+    b_, m, c = feats.shape
+    _check_interp("three_interpolate", idx, weight, b_)
+    if _use_plain(feats):
+        return three_interpolate_plain(feats, idx, weight)
+    _require(feats, "feats", torch.float32, 3)
+    _require(idx, "idx", torch.int32, 3)
+    _require(weight, "weight", torch.float32, 3)
+    n = idx.shape[1]
+    out = torch.empty(b_, n, c, dtype=torch.float32, device=feats.device)
+    rc = _lib().pc_three_interpolate(_ptr(feats), _ptr(idx), _ptr(weight),
+                                     _ptr(out), b_, m, n, c, _stream())
+    _check(rc, "three_interpolate")
+    three_interpolate.launches += 1
+    return out
+
+
+def three_interpolate_grad_plain(grad, idx, weight, m: int):
+    return scatter_add_rows_plain(grad[:, :, None, :] * weight[..., None], idx, m)
+
+
+def three_interpolate_grad(grad, idx, weight, m: int):
+    """The backward of ``three_interpolate`` with respect to the features:
+    grad [B, N, C] -> [B, m, C] with ``out[b, idx[b, n, j]] += grad[b, n] *
+    weight[b, n, j]``.  Unknown points share known neighbours, so rows
+    collide, and on the card the f32 atomics add them in no fixed order."""
+    b_, n, c = grad.shape
+    _check_interp("three_interpolate_grad", idx, weight, b_, n)
+    if _use_plain(grad):
+        return three_interpolate_grad_plain(grad, idx, weight, m)
+    _require(grad, "grad", torch.float32, 3)
+    _require(idx, "idx", torch.int32, 3)
+    _require(weight, "weight", torch.float32, 3)
+    out = torch.zeros(b_, m, c, dtype=torch.float32, device=grad.device)
+    rc = _lib().pc_three_interpolate_grad(_ptr(grad), _ptr(idx), _ptr(weight),
+                                          _ptr(out), b_, m, n, c, _stream())
+    _check(rc, "three_interpolate_grad")
+    three_interpolate_grad.launches += 1
+    return out
+
+
+KERNELS = (furthest_point_sample, ball_query, gather_rows, scatter_add_rows,
+           three_nn, three_interpolate, three_interpolate_grad)
 reset_launches()

@@ -4,8 +4,9 @@ Total = (vote + 0.5 objectness + box + 0.1 sem_cls) x 10, box = center +
 0.1 heading_cls + heading_reg + 0.1 size_cls + size_reg.  Plain torch: the
 label gathers and the [B, num_proposal, MAX_NUM_OBJ] distances are
 label-side work that the JAX package, too, computes outside its detect ops.
-All masked sums, no boolean indexing, as in JAX.  ``get_loss_boxnet`` is not
-ported yet (ROADMAP Queue 1 item 10).
+All masked sums, no boolean indexing, as in JAX.  BoxNet (no voting) trains
+with ``get_loss_boxnet``: no vote loss, and the objectness label is the
+proposal's seed's vote mask.
 """
 from __future__ import annotations
 
@@ -142,13 +143,42 @@ def compute_box_and_sem_cls_loss(end_points, config):
             size_class_loss, size_reg_loss, sem_cls_loss)
 
 
+def compute_objectness_loss_boxnet(end_points):
+    """BoxNet: the objectness label is the proposal's seed point's vote mask
+    (no near/far grey zone, so the mask is all ones); the assignment is still
+    the nearest ground-truth centre."""
+    _d1, ind1, _d2, _i2 = nn_distance(end_points["aggregated_vote_xyz"],
+                                      end_points["center_label"][:, :, 0:3])
+    seed_labels = _take(end_points["vote_label_mask"], end_points["seed_inds"])
+    end_points["seed_labels"] = seed_labels
+    objectness_label = _take(seed_labels,
+                             end_points["aggregated_vote_inds"]).long()
+    objectness_mask = torch.ones(objectness_label.shape,
+                                 device=objectness_label.device)
+    scores = end_points["objectness_scores"]
+    w = torch.tensor(OBJECTNESS_CLS_WEIGHTS, device=scores.device)
+    ce = _ce(scores, objectness_label) * w[objectness_label]
+    objectness_loss = _masked_sum_mean(ce, objectness_mask)
+    return objectness_loss, objectness_label, objectness_mask, ind1
+
+
 def get_loss(end_points, config):
     """-> (loss, end_points with every term and metric added)."""
-    vote_loss = compute_vote_loss(end_points)
-    end_points["vote_loss"] = vote_loss
+    end_points["vote_loss"] = compute_vote_loss(end_points)
+    return _finish_loss(end_points, config, compute_objectness_loss)
 
+
+def get_loss_boxnet(end_points, config):
+    """BoxNet's total, (0.5 objectness + box + 0.1 sem_cls) x 10, with
+    ``vote_loss`` reported as 0."""
+    end_points["vote_loss"] = torch.zeros((), device=end_points["center"].device)
+    return _finish_loss(end_points, config, compute_objectness_loss_boxnet)
+
+
+def _finish_loss(end_points, config, objectness_loss_of):
+    vote_loss = end_points["vote_loss"]
     objectness_loss, objectness_label, objectness_mask, assignment = (
-        compute_objectness_loss(end_points))
+        objectness_loss_of(end_points))
     end_points["objectness_loss"] = objectness_loss
     end_points["objectness_label"] = objectness_label
     end_points["objectness_mask"] = objectness_mask

@@ -7,6 +7,8 @@
   - ``query_and_group``: ball query + one gather of [xyz, features] rows
     with centred, optionally radius-normalised xyz;
   - ``PointnetSAModuleVotes``: FPS (or given inds) -> group -> MLP -> max;
+  - ``PointnetFPModule``: three_nn inverse-distance interpolation of the
+    known features onto the unknown points + skip concat + MLP;
   - ``VotingModule`` and ``ProposalModule`` with ``decode_scores``.
 Layouts: xyz [B, N, 3], features [B, N, C].  Submodules carry the flax names
 (``conv1``, ``bn1``, ``mlp.layer0``, ``mlp.bn0``, ...), parameters the flax
@@ -147,6 +149,27 @@ class PointnetSAModuleVotes(nn.Module):
         # amax splits the gradient evenly among tied maxima, as jnp.max does
         out = torch.amax(self.mlp(grouped), dim=2)
         return new_xyz, out, inds
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation: interpolate known -> unknown, concatenate the
+    unknown points' own features, SharedMLP.  ``in_channels`` is the known
+    features' width plus the unknown ones'."""
+
+    def __init__(self, mlp: Sequence[int], in_channels: int,
+                 bn_momentum: float = 0.1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp, bn_momentum=bn_momentum,
+                             generator=generator)
+
+    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats):
+        dist, idx = ops.three_nn(unknown_xyz, known_xyz)
+        interp = ops.three_interpolate(known_feats, idx,
+                                       ops.interpolation_weights(dist))
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(interp)
 
 
 class VotingModule(nn.Module):

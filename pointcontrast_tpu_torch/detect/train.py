@@ -6,7 +6,10 @@ Adam (``torch.optim.Adam``: optax.adam's defaults b1 0.9, b2 0.999, eps
 ``optax.chain(add_decayed_weights(wd), adam)`` does), the LR decayed at
 epoch milestones, the BN momentum decayed every ``bn_decay_step`` epochs
 (0.5 halved, floored at 0.001) on EVERY BatchNorm, the backbone's included,
-and AP at IoU 0.25 / 0.5 from the host-numpy NMS and AP code.
+and AP at IoU 0.25 / 0.5 from the host-numpy NMS and AP code.  BoxNet
+(``use_voting=False``) trains with ``get_loss_boxnet``, chosen from the
+model.  A ``PreemptionGuard`` set on the trainer is polled after every step:
+once it fires, the trainer saves and raises ``Preempted``.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ from pointcontrast_tpu_torch.detect.ap_helper import (
     parse_predictions,
 )
 from pointcontrast_tpu_torch.detect.datasets import LABEL_FIELDS
-from pointcontrast_tpu_torch.detect.loss import get_loss
+from pointcontrast_tpu_torch.detect.loss import get_loss, get_loss_boxnet
 from pointcontrast_tpu_torch.detect.modules import DenseBatchNorm
 from pointcontrast_tpu_torch.nn.layers import MaskedBatchNorm
 from pointcontrast_tpu_torch.train.pretrain import latest_checkpoint
+from pointcontrast_tpu_torch.utils.preemption import Preempted
 
 log = logging.getLogger(__name__)
 
@@ -85,17 +89,22 @@ def batch_to_labels(batch) -> dict:
     return {k: getattr(batch, k) for k in LABEL_FIELDS}
 
 
+def loss_of(model):
+    """``get_loss``, or ``get_loss_boxnet`` for a model without voting."""
+    return get_loss if getattr(model, "use_voting", True) else get_loss_boxnet
+
+
 def make_detect_train_step(dataset_config):
     """``step(model, opt, batch) -> metrics`` for a batch already on the
-    model's device: forward, ``get_loss``, backward, ``opt.step()``.  The
-    returned tensors are not synchronised."""
+    model's device: forward, the model's loss (``loss_of``), backward,
+    ``opt.step()``.  The returned tensors are not synchronised."""
 
     def step(model, opt, batch) -> dict:
         model.train()
         opt.zero_grad(set_to_none=True)
         end_points = model(batch_to_inputs(batch))
         end_points.update(batch_to_labels(batch))
-        loss, end_points = get_loss(end_points, dataset_config)
+        loss, end_points = loss_of(model)(end_points, dataset_config)
         loss.backward()
         opt.step()
         return {k: end_points[k].detach() for k in METRIC_KEYS}
@@ -120,6 +129,7 @@ class DetectTrainer:
                                     weight_decay=config.weight_decay)
         self._step = make_detect_train_step(dataset_config)
         self.epoch = 0
+        self.preemption_guard = None  # a utils.preemption.PreemptionGuard
         ckpt = latest_checkpoint(config.checkpoint_dir)
         if ckpt is not None:
             payload = torch.load(ckpt, map_location=self.device)
@@ -155,6 +165,9 @@ class DetectTrainer:
         for _ in range(num_batches):
             batch = self._on_device(next(loader))
             losses.append(self._step(self.model, self.opt, batch)["loss"])
+            if self.preemption_guard is not None and self.preemption_guard.preempted:
+                self.save(self.epoch)
+                raise Preempted(self.epoch)
         self.epoch += 1
         return float(torch.stack(losses).mean())
 

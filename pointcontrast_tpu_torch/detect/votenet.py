@@ -1,17 +1,22 @@
-"""VoteNet, deep Hough voting detector, over the sparse-conv backbone (port
-of ``pointcontrast_tpu/detect/votenet.py``).
+"""VoteNet, deep Hough voting detector (port of
+``pointcontrast_tpu/detect/votenet.py``), over either backbone:
 
-``SparseConvBackbone`` runs a Res16UNet over the voxel pyramid, samples
-``num_seed`` seeds per cloud with FPS (K6) and gathers the seeds' voxel
-features (K8).  The JAX module gathers all N point features
-(``vout[point_voxel_idx]``, [B, N, C]) and then the seed rows; here the two
-index maps are composed first, ``point_voxel_idx[b, seed_inds[b]]``, so
-only the B * num_seed seed rows are gathered.  Values and gradients are the
-same (``tests/test_torch_votenet.py`` checks it); the [8, 40000, 256]
-intermediate (328 MB at the shipped shapes) never exists.
+  - ``Pointnet2Backbone`` ('pointnet2', the default, as in the reference):
+    four set-abstraction layers (2048/1024/512/256 points; FPS K6, ball
+    query K7, grouping K8) and two feature-propagation layers (three_nn and
+    three_interpolate, K9) -> 1024 seeds x 256 features;
+  - ``SparseConvBackbone`` ('sparseconv'): a Res16UNet over the voxel
+    pyramid, ``num_seed`` FPS seeds (K6) and their voxel features (K8).  The
+    JAX module gathers all N point features (``vout[point_voxel_idx]``,
+    [B, N, C]) and then the seed rows; here the two index maps are composed
+    first, ``point_voxel_idx[b, seed_inds[b]]``, so only the B * num_seed
+    seed rows are gathered.  Values and gradients are the same
+    (``tests/test_torch_detect_ops.py`` checks it); the [8, 40000, 256]
+    intermediate (328 MB at the shipped shapes) never exists.
 
-Not ported yet (ROADMAP Queue 1 item 10): the PointNet++ backbone, which
-needs three_nn / three_interpolate (K9), and BoxNet (``use_voting=False``).
+BoxNet, the ablation without voting (reference ``models/boxnet.py``), is
+``VoteNet(use_voting=False)``: no ``vgen``, proposals from seed FPS, and
+``detect.loss.get_loss_boxnet``.
 """
 from __future__ import annotations
 
@@ -19,8 +24,52 @@ import torch
 from torch import nn
 
 from pointcontrast_tpu_torch.detect import ops
-from pointcontrast_tpu_torch.detect.modules import ProposalModule, VotingModule
+from pointcontrast_tpu_torch.detect.modules import (
+    PointnetFPModule,
+    PointnetSAModuleVotes,
+    ProposalModule,
+    VotingModule,
+)
 from pointcontrast_tpu_torch.nn.registry import load_model
+
+
+class Pointnet2Backbone(nn.Module):
+    """SSG PointNet++ (reference backbone_module.py:19-131)."""
+
+    def __init__(self, input_feature_dim: int = 0, bn_momentum: float = 0.1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(bn_momentum=bn_momentum, generator=generator)
+        self.sa1 = PointnetSAModuleVotes(2048, 0.2, 64, [64, 64, 128],
+                                         in_channels=input_feature_dim, **kw)
+        self.sa2 = PointnetSAModuleVotes(1024, 0.4, 32, [128, 128, 256],
+                                         in_channels=128, **kw)
+        self.sa3 = PointnetSAModuleVotes(512, 0.8, 16, [128, 128, 256],
+                                         in_channels=256, **kw)
+        self.sa4 = PointnetSAModuleVotes(256, 1.2, 16, [128, 128, 256],
+                                         in_channels=256, **kw)
+        self.fp1 = PointnetFPModule([256, 256], in_channels=256 + 256, **kw)
+        self.fp2 = PointnetFPModule([256, 256], in_channels=256 + 256, **kw)
+
+    def forward(self, pointcloud, end_points):
+        xyz = pointcloud[..., 0:3].contiguous()
+        features = (pointcloud[..., 3:].contiguous()
+                    if pointcloud.shape[-1] > 3 else None)
+        xyz1, feat1, inds1 = self.sa1(xyz, features)
+        end_points["sa1_inds"], end_points["sa1_xyz"] = inds1, xyz1
+        xyz2, feat2, _ = self.sa2(xyz1, feat1)
+        end_points["sa2_xyz"] = xyz2
+        xyz3, feat3, _ = self.sa3(xyz2, feat2)
+        xyz4, feat4, _ = self.sa4(xyz3, feat3)
+        f3 = self.fp1(xyz3, xyz4, feat3, feat4)
+        f2 = self.fp2(xyz2, xyz3, feat2, f3)
+        end_points["fp2_features"] = f2
+        end_points["fp2_xyz"] = xyz2
+        # the seeds' indices into the input cloud are the first 1024 of SA1's
+        # FPS picks, not SA2's: the reference's own choice, kept (the vote
+        # loss reads its labels through them)
+        end_points["fp2_inds"] = inds1[:, : xyz2.shape[1]]
+        return end_points
 
 
 class SparseConvBackbone(nn.Module):
@@ -54,11 +103,11 @@ class SparseConvBackbone(nn.Module):
 
 
 class VoteNet(nn.Module):
-    """Backbone -> voting (``vgen``) -> vote clustering + proposals
-    (``pnet``).  ``forward(inputs)`` takes the dict the JAX module takes:
-    ``point_clouds`` and, for the sparse-conv backbone, ``voxel_feats``,
-    ``voxel_pyramid`` and ``point_voxel_idx``; train/eval is the module's
-    mode."""
+    """Backbone -> voting (``vgen``, unless ``use_voting=False``) -> vote
+    clustering + proposals (``pnet``).  ``forward(inputs)`` takes the dict
+    the JAX module takes: ``point_clouds`` and, for the sparse-conv
+    backbone, ``voxel_feats``, ``voxel_pyramid`` and ``point_voxel_idx``;
+    train/eval is the module's mode."""
 
     def __init__(self, num_class: int, num_heading_bin: int,
                  num_size_cluster: int, mean_size_arr, input_feature_dim: int = 0,
@@ -68,41 +117,57 @@ class VoteNet(nn.Module):
                  bn_momentum: float = 0.1,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if backbone != "sparseconv":
-            raise NotImplementedError(
-                f"VoteNet backbone={backbone!r}: only 'sparseconv' is ported; "
-                "the PointNet++ backbone needs three_nn/three_interpolate (K9), "
-                "ROADMAP Queue 1 item 10")
-        if not use_voting:
-            raise NotImplementedError(
-                "BoxNet (use_voting=False) and get_loss_boxnet are not ported "
-                "yet (ROADMAP Queue 1 item 10)")
         g = generator
-        self.backbone_net = SparseConvBackbone(
-            input_feature_dim=input_feature_dim + 3, output_feature_dim=256,
-            num_seed=1024, model_name=backbone_model, bn_momentum=bn_momentum,
-            generator=g)
-        self.vgen = VotingModule(vote_factor, 256, bn_momentum=bn_momentum,
-                                 generator=g)
+        self.backbone = backbone
+        self.use_voting = use_voting
+        if backbone == "pointnet2":
+            self.backbone_net = Pointnet2Backbone(
+                input_feature_dim=input_feature_dim, bn_momentum=bn_momentum,
+                generator=g)
+        elif backbone == "sparseconv":
+            self.backbone_net = SparseConvBackbone(
+                input_feature_dim=input_feature_dim + 3, output_feature_dim=256,
+                num_seed=1024, model_name=backbone_model,
+                bn_momentum=bn_momentum, generator=g)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        if use_voting:
+            self.vgen = VotingModule(vote_factor, 256, bn_momentum=bn_momentum,
+                                     generator=g)
         self.pnet = ProposalModule(
             num_class, num_heading_bin, num_size_cluster, mean_size_arr,
-            num_proposal, sampling, bn_momentum=bn_momentum, generator=g)
+            num_proposal, sampling if use_voting else "seed_fps",
+            bn_momentum=bn_momentum, generator=g)
 
     def forward(self, inputs: dict, generator: torch.Generator | None = None):
         """``generator`` feeds ``sampling="random"`` only."""
-        end_points = self.backbone_net(
-            inputs["point_clouds"], inputs["voxel_feats"],
-            inputs["voxel_pyramid"], inputs["point_voxel_idx"], {})
+        if self.backbone == "pointnet2":
+            end_points = self.backbone_net(inputs["point_clouds"], {})
+        else:
+            end_points = self.backbone_net(
+                inputs["point_clouds"], inputs["voxel_feats"],
+                inputs["voxel_pyramid"], inputs["point_voxel_idx"], {})
         xyz = end_points["fp2_xyz"]
         features = end_points["fp2_features"]
         end_points["seed_inds"] = end_points["fp2_inds"]
         end_points["seed_xyz"] = xyz
         end_points["seed_features"] = features
 
-        xyz, features = self.vgen(xyz, features)
-        # L2-normalize the vote features
-        features = features / torch.clamp_min(
-            torch.linalg.vector_norm(features, dim=-1, keepdim=True), 1e-8)
-        end_points["vote_xyz"] = xyz
-        end_points["vote_features"] = features
+        if self.use_voting:
+            xyz, features = self.vgen(xyz, features)
+            # L2-normalize the vote features
+            features = features / torch.clamp_min(
+                torch.linalg.vector_norm(features, dim=-1, keepdim=True), 1e-8)
+            end_points["vote_xyz"] = xyz
+            end_points["vote_features"] = features
         return self.pnet(xyz, features, end_points, generator=generator)
+
+
+class BoxNet(VoteNet):
+    """The ablation without Hough voting (reference models/boxnet.py):
+    proposals aggregate the seed features directly, by seed FPS; trains with
+    ``detect.loss.get_loss_boxnet``."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("use_voting", False)
+        super().__init__(*args, **kwargs)

@@ -46,30 +46,32 @@ def torch_name(flax_path: tuple) -> str:
     return ".".join([_MODULE_RENAME.get(m, m) for m in mods] + [_PARAM_RENAME[leaf]])
 
 
-def jax_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
+def jax_state_dict(params: Mapping, batch_stats: Mapping,
+                   dtype=np.float32) -> dict:
     return {
-        torch_name(path): torch.from_numpy(np.array(leaf, dtype=np.float32))
+        torch_name(path): torch.from_numpy(np.array(leaf, dtype=dtype))
         for tree in (params, batch_stats)
         for path, leaf in _flatten(tree)
     }
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping,
-                    batch_stats: Mapping) -> torch.nn.Module:
+                    batch_stats: Mapping, dtype=np.float32) -> torch.nn.Module:
     """Fill ``model`` from the flax trees (strict: every tensor on both sides
-    must match by name and shape)."""
-    model.load_state_dict(jax_state_dict(params, batch_stats), strict=True)
+    must match by name and shape).  ``dtype=np.float64`` keeps float64 trees
+    exact in a model already cast with ``.double()``."""
+    model.load_state_dict(jax_state_dict(params, batch_stats, dtype), strict=True)
     return model
 
 
 def load_optax_adam(opt: torch.optim.Adam, model: torch.nn.Module, mu: Mapping,
-                    nu: Mapping, count) -> torch.optim.Adam:
+                    nu: Mapping, count, dtype=np.float32) -> torch.optim.Adam:
     """Set ``opt``'s per-parameter state from optax's ``ScaleByAdamState``
     (``mu``/``nu`` trees shaped like the params, ``count`` the update
     count), so a torch step and a JAX step start from the same state.
     Strict: every parameter needs both moments, of its shape."""
     params = dict(model.named_parameters())
-    mus, nus = jax_state_dict(mu, {}), jax_state_dict(nu, {})
+    mus, nus = jax_state_dict(mu, {}, dtype), jax_state_dict(nu, {}, dtype)
     if set(mus) != set(params) or set(nus) != set(params):
         raise KeyError(f"Adam moments do not cover the parameters: "
                        f"{sorted(set(params) ^ set(mus))}")

@@ -1,12 +1,13 @@
 """Where a training step's time goes on one GPU.
 
     python -m pointcontrast_tpu_torch.tools.profile_step [--app pretrain|votenet]
-        [--steps 10]
+        [--backbone sparseconv|pointnet2] [--steps 10]
 
 On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
 Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
-shipped VoteNet config (sparse-conv Res16UNet34C 3 -> 256, 8 scenes x 40000
-points, 256 proposals) + its loss + Adam.
+shipped VoteNet config (8 scenes x 40000 points, 256 proposals) over the
+sparse-conv Res16UNet34C 3 -> 256 (``--backbone sparseconv``, the YAML's
+default) or PointNet++ (``--backbone pointnet2``) + its loss + Adam.
   1. ms/step of the kernel path and of the plain-torch twins
      (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
      plain), each from the same seeded weights after two warm-up steps, host
@@ -73,15 +74,15 @@ def _pretrain_app():
         per_step=workload.PAIRS, fresh=fresh, step=step, phases=phases)
 
 
-def _votenet_app():
+def _votenet_app(backbone="sparseconv"):
     from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
-    from pointcontrast_tpu_torch.detect.loss import get_loss
     from pointcontrast_tpu_torch.detect.train import (
         DetectConfig,
         DetectTrainer,
         batch_to_inputs,
         batch_to_labels,
         get_bn_momentum,
+        loss_of,
         make_detect_train_step,
     )
 
@@ -103,16 +104,17 @@ def _votenet_app():
         end_points = m(batch_to_inputs(batch))
         mark()
         end_points.update(batch_to_labels(batch))
-        loss, _ = get_loss(end_points, dc)
+        loss, _ = loss_of(m)(end_points, dc)
         mark()
         loss.backward()
         mark()
         opt.step()
         mark()
 
+    voxel = workload.VOTENET_VOXEL if backbone == "sparseconv" else None
     return types.SimpleNamespace(
-        batches=workload.votenet_batches("cuda"),
-        model=workload.votenet_model(seed=0), unit="scenes",
+        batches=workload.votenet_batches("cuda", voxel=voxel),
+        model=workload.votenet_model(seed=0, backbone=backbone), unit="scenes",
         per_step=workload.VOTENET_SCENES, fresh=fresh, step=step,
         phases=phases)
 
@@ -190,6 +192,8 @@ def _profile(app, steps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--app", choices=sorted(APPS), default="pretrain")
+    ap.add_argument("--backbone", choices=("sparseconv", "pointnet2"),
+                    default="sparseconv", help="votenet only")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -201,7 +205,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    app = APPS[args.app]()
+    app = APPS[args.app](**({"backbone": args.backbone} if args.app == "votenet" else {}))
     steps = args.steps
 
     times = {"plain": [], "kernels": []}
@@ -227,6 +231,7 @@ def main(argv=None) -> int:
               f"launches/step={count / steps:g} {name[:110]}", flush=True)
     summary = {
         "app": args.app,
+        "backbone": args.backbone if args.app == "votenet" else None,
         "card": card,
         "ms_per_step": times,
         f"{app.unit}_per_s_kernels": app.per_step / (min(times["kernels"]) / 1e3),

@@ -5,11 +5,13 @@ frame pairs per step fused into one sparse batch of 8 chunks,
 saturated-surface synthetic frames (~15.5k voxels each at 2.5 cm),
 ``PadScheme.scannet(npad0=131072)``, 4096 PointInfoNCE pairs.
 
-VoteNet, at the shipped ``configs/votenet_default.yaml``: the sparse-conv
-backbone (Res16UNet34C, 3 -> 256), 8 scenes x 40000 points, 2.5 cm voxels,
-``npad0`` 262144 with the YAML's ``pad_ratios``, chunked layout, 256
-proposals by vote FPS; ``SyntheticDetectionDataset`` scenes, since no
-ScanNet detection data ships with the repo."""
+VoteNet, at the shipped ``configs/votenet_default.yaml``: 8 scenes x 40000
+points (no colour, no height), 256 proposals by vote FPS, over either
+backbone: ``sparseconv`` (the YAML's default; Res16UNet34C 3 -> 256, 2.5 cm
+voxels, ``npad0`` 262144 with the YAML's ``pad_ratios``, chunked layout) or
+``pointnet2`` (``net.backbone=pointnet2``; no voxels).
+``SyntheticDetectionDataset`` scenes, since no ScanNet detection data ships
+with the repo."""
 from __future__ import annotations
 
 import contextlib
@@ -54,12 +56,14 @@ def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
 
 
 def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
-                    points: int = VOTENET_POINTS, voxel: float = VOTENET_VOXEL,
+                    points: int = VOTENET_POINTS,
+                    voxel: float | None = VOTENET_VOXEL,
                     npad0: int = VOTENET_NPAD0,
                     pad_ratios: tuple = VOTENET_PAD_RATIOS,
                     seed: int = 0) -> list:
     """``n_batches`` collated VoteNet batches of ``scenes`` distinct scenes
-    each, moved (bounds-checked) to ``device``."""
+    each, moved (bounds-checked) to ``device``; ``voxel=None`` collates
+    without voxels, for the PointNet++ backbone."""
     from pointcontrast_tpu_torch.data import PadScheme
     from pointcontrast_tpu_torch.detect.datasets import (
         SyntheticDetectionDataset,
@@ -68,7 +72,8 @@ def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
 
     ds = SyntheticDetectionDataset(num_scenes=n_batches * scenes,
                                    num_points=points, seed=seed)
-    scheme = PadScheme(npad0=npad0, level_ratios=tuple(pad_ratios))
+    scheme = (None if voxel is None
+              else PadScheme(npad0=npad0, level_ratios=tuple(pad_ratios)))
     return [
         collate_detection([ds[b * scenes + i] for i in range(scenes)],
                           voxel_size=voxel, scheme=scheme,
@@ -78,9 +83,12 @@ def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
 
 
 def votenet_model(seed: int = 0, backbone_model: str = "Res16UNet34C",
-                  num_proposal: int = VOTENET_PROPOSALS) -> torch.nn.Module:
-    """VoteNet over the sparse-conv backbone for the ScanNet classes, random
-    weights from ``seed``, on the CPU."""
+                  num_proposal: int = VOTENET_PROPOSALS,
+                  backbone: str = "sparseconv",
+                  use_voting: bool = True) -> torch.nn.Module:
+    """VoteNet (or, with ``use_voting=False``, BoxNet) over ``backbone`` for
+    the ScanNet classes, random weights from ``seed``, on the CPU;
+    ``backbone_model`` names the sparse-conv backbone's net."""
     from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
     from pointcontrast_tpu_torch.detect.votenet import VoteNet
 
@@ -88,8 +96,9 @@ def votenet_model(seed: int = 0, backbone_model: str = "Res16UNet34C",
     return VoteNet(
         num_class=dc.num_class, num_heading_bin=dc.num_heading_bin,
         num_size_cluster=dc.num_size_cluster, mean_size_arr=dc.mean_size_arr,
-        num_proposal=num_proposal, sampling="vote_fps", backbone="sparseconv",
-        backbone_model=backbone_model,
+        num_proposal=num_proposal,
+        sampling="vote_fps", backbone=backbone,
+        backbone_model=backbone_model, use_voting=use_voting,
         generator=torch.Generator().manual_seed(seed))
 
 

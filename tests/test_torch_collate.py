@@ -135,7 +135,8 @@ def test_unsupported_collate_modes_raise():
 
 
 def test_imports_without_jax():
-    """The port and its host pipeline import with jax/flax/optax and the JAX
+    """The port, its host pipeline, the votenet app and its config, sampler,
+    checkpoint and preemption modules import with jax/flax/optax and the JAX
     package unavailable, and build a pretraining and a detection batch."""
     code = (
         "import sys\n"
@@ -147,6 +148,14 @@ def test_imports_without_jax():
         "import pointcontrast_tpu_torch.nn, pointcontrast_tpu_torch.train\n"
         "import pointcontrast_tpu_torch.tools.from_jax\n"
         "import pointcontrast_tpu_torch.detect.train\n"
+        "import pointcontrast_tpu_torch.detect.votenet\n"
+        "import pointcontrast_tpu_torch.apps.votenet as app\n"
+        "import pointcontrast_tpu_torch.data.sampler\n"
+        "import pointcontrast_tpu_torch.train.checkpoint\n"
+        "import pointcontrast_tpu_torch.utils.preemption\n"
+        "import pointcontrast_tpu_torch.tools.profile_step\n"
+        "from pointcontrast_tpu_torch.config import load_config\n"
+        "assert load_config(app.DEFAULT_CONFIG).net.num_proposal == 256\n"
         "from pointcontrast_tpu_torch.detect.datasets import (\n"
         "    SyntheticDetectionDataset, collate_detection)\n"
         "ds = SyntheticPairDataset(num_pairs=1, points_per_frame=200, seed=0)\n"

@@ -4,9 +4,9 @@ their kernel wrappers, and (``cuda``-marked) each CUDA kernel against its
 plain twin on a card.
 
 Tolerances: FPS and ball-query indices equal exactly (the twins spell out
-the JAX distance sums unfused, and the ball-query inputs are drawn so that
-no squared distance lies within 1e-5 of r^2, where XLA's and torch's
-roundings could disagree); gathered values equal exactly; gradients rtol
+the JAX distance sums as XLA's CPU code does, in chains of FMAs, and the
+ball-query inputs are drawn so that no squared distance lies within 1e-5 of
+r^2, where XLA's roundings differ from one fusion to another); gathered values equal exactly; gradients rtol
 1e-6 (scatter-adds of a few colliding rows, summed in another order).
 
 JAX is imported inside the fixture, so the card's machine, which has none,
@@ -155,7 +155,8 @@ def test_cpu_wrappers_run_plain_twins_without_counting():
         torch.testing.assert_close(fn(*args), want, rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "furthest_point_sample": 0, "ball_query": 0, "gather_rows": 0,
-        "scatter_add_rows": 0}
+        "scatter_add_rows": 0, "three_nn": 0, "three_interpolate": 0,
+        "three_interpolate_grad": 0}
 
 
 @pytest.mark.parametrize("case", ["fps_shape", "fps_npoint", "bq_batch",
@@ -164,7 +165,7 @@ def test_wrappers_reject_bad_operands(case):
     xyz = torch.zeros(2, 10, 3)
     calls = {
         "fps_shape": lambda: kernels.furthest_point_sample(torch.zeros(2, 10, 4), 3),
-        "fps_npoint": lambda: kernels.furthest_point_sample(xyz, 11),
+        "fps_npoint": lambda: kernels.furthest_point_sample(xyz, 0),
         "bq_batch": lambda: kernels.ball_query(xyz[:1], xyz, 0.1, 4),
         "gather_batch": lambda: kernels.gather_rows(
             torch.zeros(2, 10, 4), torch.zeros(3, 5, dtype=torch.int32)),
@@ -207,4 +208,5 @@ def test_detect_kernels_match_plain_twins_on_card():
     assert float((got - want).abs().max()) <= 1e-5 + 1e-4 * float(want.abs().max())
     assert kernels.launch_counts() == {
         "furthest_point_sample": 1, "ball_query": 2, "gather_rows": 2,
-        "scatter_add_rows": 1}
+        "scatter_add_rows": 1, "three_nn": 0, "three_interpolate": 0,
+        "three_interpolate_grad": 0}
