@@ -46,7 +46,25 @@ Phases, each printed on its own line:
   14. boxnet: one BoxNet step (seed FPS, get_loss_boxnet), vote_loss 0;
   15. cli: apps.votenet.main on 8 synthetic scenes: one epoch (one step),
      one evaluation, a checkpoint, then a second call that resumes from it
-     with nothing left to train.
+     with nothing left to train;
+  the semseg finetuning paths (tools/workload.py: the JAX benchmark's 6
+  synthetic 2 cm scenes, ~250k voxels, random colours and 20 labels,
+  PadScheme.scannet(npad0=262144), 6 chunks, f32; SGD lr 0.1, momentum 0.9,
+  wd 1e-4, PolyLR to 60000, BN momentum 0.02):
+  16. data: the batch with its CRF map (hypercross, k 3), bounds-checked;
+  17. for each path -- ``semseg`` (Res16UNet34C 3 -> 20), ``semseg inbn``
+     (ResUNet18INBN: segment_sum and the broadcast gather at every
+     InstanceBatchNorm's shapes) and ``semseg crf`` (BilateralCRF of 10
+     mean-field iterations over Res16UNet34C, filter LR 0.1: the flat conv's
+     gather_gemm at B = 1, scatter_gemm and gather_wgrad on the real CRF
+     map) -- every kernel it launches against its twin at the shapes of one
+     real forward, one step through the kernels against the plain twins, 5
+     SemsegTrainer steps with the expected launch count of every kernel
+     (the CRF's by the trainer's coin), one evaluate_dataset pass (mIoU in
+     [0, 100]) and the eval outputs;
+  18. cli semseg: apps.semseg.main on SyntheticSemsegDataset
+     (net.dtype=float32): 3 steps, whole-split validation, a checkpoint,
+     then a second call that resumes with nothing left to train.
 Every kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  Then
@@ -99,6 +117,8 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "three_nn": (DETECT_SRC, "pointcontrast_tpu/detect/ops.py:121"),
     "three_interpolate": (DETECT_SRC, "pointcontrast_tpu/detect/modules.py:116"),
     "three_interpolate_grad": (DETECT_SRC, "pointcontrast_tpu/detect/modules.py:116"),
+    "scatter_gemm": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:74"),
+    "segment_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:967"),
 }
 # the H100 SXM's published peaks: HBM bytes/s, and f32 FLOP/s outside the
 # tensor cores (every kernel here is f32 SIMT)
@@ -345,6 +365,15 @@ def work(name, args, out) -> tuple:
     if name == "three_interpolate_grad":
         grad, idx, weight, _ = args
         return _nbytes(grad, idx, weight, *outs), 6 * grad.numel()
+    if name == "scatter_gemm":
+        g3, map_, taps, w, _, skip = args
+        live = _live_rows(g3)
+        pairs = sum(int((live & (map_[int(t)] != skip)).sum()) for t in taps)
+        return (_nbytes(g3, w, *outs) + _map_bytes(map_, len(taps), *g3.shape[:2]),
+                2 * w.shape[1] * w.shape[2] * pairs)
+    if name == "segment_sum":
+        x, seg, n_seg = args
+        return _nbytes(x, seg, *outs), int(((seg >= 0) & (seg < n_seg)).sum()) * x.shape[1]
     raise KeyError(name)
 
 
@@ -352,10 +381,11 @@ def library_call(name, args):
     """One PyTorch call that computes the same function on the same inputs,
     as a closure (its operands built beforehand), or None where there is
     none: a row gather (``torch.gather``), a scatter-add (``scatter_add_``),
-    the interpolation and its backward as one sparse product
-    (``torch.sparse.mm`` with the [B*N, B*M] weight matrix in CSR).  The
-    convs are a gather and a matmul, FPS, ball query and three_nn a loop or
-    a sort after a distance matrix: two calls or more."""
+    a segment sum (``index_add_``), the interpolation and its backward as
+    one sparse product (``torch.sparse.mm`` with the [B*N, B*M] weight matrix
+    in CSR).  The convs (scatter_gemm too) are a gather or scatter and a
+    matmul, FPS, ball query and three_nn a loop or a sort after a distance
+    matrix: two calls or more."""
     import torch
 
     if name == "gather_rows":
@@ -373,6 +403,11 @@ def library_call(name, args):
         flat = rows.unsqueeze(-1).expand(-1, -1, g.shape[2])
         buf = g.new_zeros(g.shape[0], n, g.shape[2])
         return lambda: buf.zero_().scatter_add_(1, flat, g)
+    if name == "segment_sum":
+        x, seg, n_seg = args
+        rows = seg.long()
+        buf = x.new_zeros(n_seg, x.shape[1])
+        return lambda: buf.zero_().index_add_(0, rows, x)
     if name in ("three_interpolate", "three_interpolate_grad"):
         src, idx, weight = args[:3]
         b_, n = idx.shape[:2]
@@ -475,9 +510,10 @@ def phase_kernels(checks, module, exact=()):
 
 
 def expected_launches(model) -> dict:
-    """Kernel launches of one training step, from the model's conv layout:
-    K1 fwd + dF (not for the stem, whose input needs no gradient) + dW;
-    K2 fwd + dF + dW; K3 fwd + scatter + dF + dW."""
+    """Sparse-kernel launches of one training step, from the model's conv
+    layout: K1 fwd + dF (not for the stem, whose input needs no gradient) +
+    dW; K2 fwd + dF + dW; K3 fwd + scatter + dF + dW; no flat conv and no
+    global pooling."""
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
 
     convs = [m for m in model.modules() if isinstance(m, SparseConv)]
@@ -489,6 +525,8 @@ def expected_launches(model) -> dict:
         "gather_wgrad": n_same + n_down + n_tr,
         "parent_gemm": n_tr + n_down,
         "scatter_parent": n_tr,
+        "scatter_gemm": 0,
+        "segment_sum": 0,
     }
 
 
@@ -989,6 +1027,380 @@ def phase_cli():
     shutil.rmtree(out, ignore_errors=True)
 
 
+def make_semseg_batch(device):
+    """The semseg workload's scenes and its one batch (with the CRF map)
+    on the card, bounds-checked."""
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    t0 = time.perf_counter()
+    scenes = W.SemsegScenes()
+    host = W.semseg_batch(scenes, crf=W.SEMSEG_CRF)
+    batch = host.to(device)
+    pyr = batch.pyramid
+    nb, rows = pyr.num_batch, int(batch.feats.shape[0])
+    found = int((host.crf_nbr[:, host.pyramid.levels[0].valid > 0] != rows - 1).sum())
+    say("data", app="semseg", seconds=f"{time.perf_counter() - t0:.1f}", chunks=nb,
+        voxels=[len(c) for c, _, _ in scenes.samples],
+        chunk_rows=[int(l.valid.shape[0]) // nb for l in pyr.levels],
+        valid_rows=[int(l.valid.sum()) for l in pyr.levels],
+        truncated=float(host.truncated_voxels), crf_taps=host.crf_nbr.shape[0],
+        crf_neighbours_found=found)
+    return scenes, batch
+
+
+def conv_checks(model, batch):
+    """[(kernel, label, fn, args)] for every conv of ``model``'s forward on
+    ``batch`` of a distinct shape, on the forward's own input features (of
+    a copy, under no_grad) and random cotangents masked as the outputs: K1
+    (fwd, dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF,
+    dW), and the CRF filter's flat conv at B = 1 (fwd, scatter_gemm dF, dW,
+    per group of MAX_TAPS taps, on its first mean-field input)."""
+    import torch
+
+    from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
+    from pointcontrast_tpu_torch.semseg.crf import MeanFieldCRF
+    from pointcontrast_tpu_torch.semseg.train import forward
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.sparse import ops
+
+    m = copy.deepcopy(model).to(batch.feats.device)
+    seen = {}
+
+    def record(kind, name, mod, args, kwargs):
+        f = args[0]
+        key = (kind, tuple(f.shape), tuple(mod.weight.shape),
+               tuple(args[1].shape))
+        if key not in seen:
+            seen[key] = (name, mod.weight.detach(), args, kwargs)
+
+    hooks = []
+    for name, mod in m.named_modules():
+        kind = {SparseConv: "conv", SparseConvTranspose: "tr",
+                MeanFieldCRF: "crf"}.get(type(mod))
+        if kind:
+            hooks.append(mod.register_forward_hook(
+                lambda mod, a, kw, out, kind=kind, name=name: record(kind, name, mod, a, kw),
+                with_kwargs=True))
+    with torch.no_grad():
+        m.train()
+        forward(m, batch)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device=batch.feats.device).manual_seed(3)
+    nb = batch.pyramid.num_batch
+    checks = []
+    for (kind, fshape, wshape, _), (name, w, args, kw) in seen.items():
+        k, cin, cout = wshape
+        wt = w.transpose(1, 2)
+        if kind == "crf":
+            unary, nbr, valid = args
+            x = ops.mask_rows(torch.softmax(unary, dim=1), valid)[None].contiguous()
+            n = x.shape[1]
+            m3 = nbr[:, None]
+            ct = _masked_randn((1, n, cout), valid, gen)
+            for taps in ops._tap_groups(k):
+                wg = w[taps.start:taps.stop]
+                tag = f"{name} taps {taps.start}-{taps.stop - 1} of {k} N{n} {cin}->{cout}"
+                checks += [
+                    ("gather_gemm", f"flat fwd {tag}", K.gather_gemm,
+                     (x, m3, taps, 0, wg, None, n)),
+                    ("scatter_gemm", f"flat dF {tag}", K.scatter_gemm,
+                     (ct, m3, taps, wg, n, n - 1)),
+                    ("gather_wgrad", f"flat dW {tag}", K.gather_wgrad,
+                     (x, m3, taps, 0, ct, None, None, 0, len(taps), n)),
+                ]
+            continue
+        f3 = args[0].reshape(nb, -1, cin).contiguous()
+        s_in = f3.shape[1]
+        if kind == "conv" and kw.get("up") is None:  # K1
+            nbr, valid, rev = args[1], args[2], args[3] if len(args) > 3 else kw.get("rev")
+            center = next(i for i, r in enumerate(rev) if r == i)
+            taps = [i for i in range(k) if i != center]
+            ct = _masked_randn((nb, s_in, cout), valid, gen)
+            tag = f"{name} S{s_in} {cin}->{cout}"
+            checks.append(("gather_gemm", f"K1 fwd {tag}", K.gather_gemm,
+                           (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in)))
+            if cin != 3:  # the stem's input needs no gradient
+                checks.append(("gather_gemm", f"K1 dF {tag}", K.gather_gemm,
+                               (ct, nbr, [rev[i] for i in taps], 0,
+                                wt[taps].contiguous(), wt[center].contiguous(), s_in)))
+            checks.append(("gather_wgrad", f"K1 dW {tag}", K.gather_wgrad,
+                           (f3, None, None, 0, ct, nbr, list(rev), 0, k, s_in)))
+        elif kind == "conv":  # K2
+            down, valid = args[1], args[2]
+            parent, off = kw["up"]
+            s_out = down.shape[2]
+            ct = _masked_randn((nb, s_out, cout), valid, gen)
+            tag = f"{name} S{s_in}->S{s_out} {cin}->{cout}"
+            checks += [
+                ("gather_gemm", f"K2 fwd {tag}", K.gather_gemm,
+                 (f3, down, list(range(k)), 0, w, None, s_out)),
+                ("parent_gemm", f"K2 dF {tag}", K.parent_gemm,
+                 (ct, parent, off, wt.contiguous())),
+                ("gather_wgrad", f"K2 dW {tag}", K.gather_wgrad,
+                 (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out)),
+            ]
+        else:  # K3
+            parent, off, valid = args[1], args[2], args[3]
+            s_f = parent.shape[1]
+            ct = _masked_randn((nb, s_f, cout), valid, gen)
+            dy = K.scatter_parent_plain(ct, parent, off, k, s_in)
+            tag = f"{name} S{s_in}->S{s_f} {cin}->{cout}"
+            checks += [
+                ("parent_gemm", f"K3 fwd {tag}", K.parent_gemm, (f3, parent, off, w)),
+                ("scatter_parent", f"K3 bwd scatter {tag}", K.scatter_parent,
+                 (ct, parent, off, k, s_in)),
+                ("gather_gemm", f"K3 dF {tag}", K.gather_gemm,
+                 (dy, None, None, s_in, wt.contiguous(), None, s_in)),
+                ("gather_wgrad", f"K3 dW {tag}", K.gather_wgrad,
+                 (f3, None, None, 0, dy, None, None, s_in, k, s_in)),
+            ]
+    return checks
+
+
+def inbn_checks(model, batch):
+    """(sparse-kernel checks, detect-kernel checks) at every
+    InstanceBatchNorm's shapes in one forward of a copy of ``model``: the
+    pooling's segment_sums over its real input and over ones (the counts),
+    the broadcast's backward segment_sum and both row gathers (the
+    broadcast's and the pooling's backward), with random per-sample tables
+    and cotangents."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.nn.resnet_block import InstanceBatchNorm
+    from pointcontrast_tpu_torch.semseg.train import forward
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    m = copy.deepcopy(model).to(batch.feats.device)
+    seen = {}
+    hooks = [mod.register_forward_hook(
+        lambda mod, a, out: seen.setdefault(tuple(a[0].shape), a) and None)
+        for mod in m.modules() if isinstance(mod, InstanceBatchNorm)]
+    with torch.no_grad():
+        m.train()
+        forward(m, batch)
+    for h in hooks:
+        h.remove()
+    dev = batch.feats.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sparse, detect = [], []
+    for (n, c), (x, _, ids, nb) in seen.items():
+        idx = ids.clamp(max=nb - 1)
+        tag = f"N{n} C{c}"
+        sparse += [
+            ("segment_sum", f"pool fwd {tag}", K.segment_sum,
+             (x.float().contiguous(), ids, nb + 1)),
+            ("segment_sum", f"pool counts N{n}", K.segment_sum,
+             (torch.ones(n, 1, device=dev), ids, nb + 1)),
+            ("segment_sum", f"broadcast bwd {tag}", K.segment_sum,
+             (torch.randn(n, c, device=dev, generator=gen), idx, nb)),
+        ]
+        detect += [
+            ("gather_rows", f"broadcast fwd {tag}", D.gather_rows,
+             (torch.randn(1, nb, c, device=dev, generator=gen), idx[None])),
+            ("gather_rows", f"pool bwd {tag}", D.gather_rows,
+             (torch.randn(1, nb + 1, c, device=dev, generator=gen), ids[None])),
+        ]
+    return sparse, detect
+
+
+def expected_semseg_launches(model) -> tuple:
+    """(launches of every kernel in one semseg training step without the
+    CRF filter, the filter's extra launches when it runs).  The backbone's
+    convs as ``expected_launches``; each InstanceBatchNorm two global pools
+    (two segment_sums forward, the sums and the counts, and a row gather
+    backward) and two broadcasts (a row gather forward, a segment_sum
+    backward); each mean-field iteration one flat conv per group of
+    MAX_TAPS taps: gather_gemm, scatter_gemm and gather_wgrad."""
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.nn.resnet_block import InstanceBatchNorm
+    from pointcontrast_tpu_torch.semseg.crf import Wrapper
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.sparse import ops
+
+    n = {fn.__name__: 0 for fn in K.KERNELS + D.KERNELS}
+    n.update(expected_launches(model))
+    inbn = sum(isinstance(m, InstanceBatchNorm) for m in model.modules())
+    n["segment_sum"] += 6 * inbn
+    n["gather_rows"] += 4 * inbn
+    crf = dict.fromkeys(n, 0)
+    if isinstance(model, Wrapper):
+        groups = len(ops._tap_groups(model.filter.weight.shape[0]))
+        for name in ("gather_gemm", "scatter_gemm", "gather_wgrad"):
+            crf[name] = model.filter.meanfield_iterations * groups
+    return n, crf
+
+
+def phase_semseg(app, model, batch, scenes, device, card, crf):
+    """A semseg main path: the kernels-vs-plain step, STEPS counted
+    SemsegTrainer steps, one evaluate_dataset pass and the eval outputs."""
+    import numpy as np
+    import torch
+
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.semseg.train import (
+        SemsegConfig,
+        SemsegTrainer,
+        evaluate_dataset,
+        forward,
+        make_semseg_train_step,
+    )
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+    from pointcontrast_tpu_torch.train import optim
+
+    base, extra = expected_semseg_launches(model)
+    net = model.net if crf else model
+    say("model", app=app, name=type(net).__name__ + (" + BilateralCRF" if crf else ""),
+        params=sum(p.numel() for p in model.parameters()), per_step=base,
+        filter_per_step=extra)
+    cfg = SemsegConfig(lr=0.1, momentum=0.9, weight_decay=1e-4, max_iter=60000,
+                       stat_freq=1, save_freq=10 ** 9, wrapper_lr=0.1 if crf else None,
+                       checkpoint_dir=os.path.join(BUILD_DIR, "smoke_semseg"))
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    scales = {"filter": cfg.wrapper_lr / cfg.lr} if crf else None
+
+    losses = {}
+    for mode in ("plain", "kernels"):
+        m = copy.deepcopy(model).to(device)
+        opt = optim.make_optimizer(m, cfg, scales)
+        sched = optim.make_scheduler(opt, cfg, cfg.scheduler)
+        step = make_semseg_train_step(cfg)
+        with W.plain_ops() if mode == "plain" else contextlib.nullcontext():
+            losses[mode] = float(step(m, opt, sched, [batch])["loss"])
+        del m, opt, sched
+    rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
+        loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=LOSS_RTOL)
+    if not (rel <= LOSS_RTOL):
+        raise AssertionError(f"{app}: kernel step loss differs from plain: rel {rel:.2e}")
+
+    # the main path: SemsegTrainer, STEPS steps, counted launches
+    trainer = SemsegTrainer(model, itertools.repeat(batch), None, cfg,
+                            W.SEMSEG_CLASSES, device, crf=crf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    D.reset_launches()
+    history = trainer.train(STEPS)
+    torch.cuda.synchronize()
+    counts = {**K.launch_counts(), **D.launch_counts()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    coin = np.random.RandomState(0)  # the trainer's filter coin, replayed
+    filtered = sum(coin.rand() < 0.5 for _ in range(STEPS)) if crf else 0
+    want = {k: v * STEPS + extra[k] * filtered for k, v in base.items()}
+    step_ms = [1e3 * m["step_time"] for _, m in history]
+    for i, (_, m) in enumerate(history):
+        say("step", app=app, iter=i + 1, loss=f"{m['loss']:.6f}", acc=f"{m['acc']:.4f}",
+            lr=m["lr"], step_ms=f"{step_ms[i]:.1f}")
+    loss_list = [m["loss"] for _, m in history]
+    if len(loss_list) != STEPS or not all(map(math.isfinite, loss_list)):
+        raise AssertionError(f"{app}: non-finite or missing losses: {loss_list}")
+    if counts != want:
+        raise AssertionError(f"{app}: launch counts {counts} != expected {want}")
+    steady = statistics.median(step_ms[1:])
+    say("slice", app=app, steps=STEPS, filtered_steps=filtered, launches=counts,
+        ms_per_step=f"{steady:.1f}",
+        scenes_per_s=f"{batch.pyramid.num_batch / (steady / 1e3):.2f}",
+        first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
+        card=repr(card))
+
+    t0 = time.perf_counter()
+    miou, ious, acc, n = evaluate_dataset(trainer.model, scenes, W.semseg_scheme(),
+                                          W.SEMSEG_CLASSES, device,
+                                          batch_size=len(scenes), crf=crf)
+    say("eval", app=app, scenes=n, miou=f"{miou:.4f}", acc=f"{acc:.4f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if n != len(scenes) or not 0.0 <= miou <= 100.0:
+        raise AssertionError(f"{app}: evaluate_dataset gave mIoU {miou} over {n} scenes")
+    trainer.model.eval()
+    with torch.no_grad():
+        out = forward(trainer.model, batch)
+    valid = batch.pyramid.levels[0].valid > 0
+    if (tuple(out.shape) != (batch.feats.shape[0], W.SEMSEG_CLASSES)
+            or not bool(torch.isfinite(out).all()) or bool(out[~valid].any())):
+        raise AssertionError(f"{app}: bad logits {tuple(out.shape)}")
+    say("output", app=app, shape=tuple(out.shape), valid_rows=int(valid.sum()))
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    return counts
+
+
+def semseg_paths(device, card, paths):
+    """The three semseg main paths on one batch; adds each one's (kernel
+    checks' numbers, launch counts) to ``paths``."""
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    scenes, batch = make_semseg_batch(device)
+    model = W.semseg_model(seed=0)
+    backbone = phase_kernels(conv_checks(model, batch), K)
+    paths["semseg"] = (backbone, phase_semseg("semseg", model, batch, scenes, device,
+                                              card, None))
+    del model
+    model = W.semseg_model(seed=0, model="ResUNet18INBN")
+    res = phase_kernels(conv_checks(model, batch), K)
+    sparse, detect = inbn_checks(model, batch)
+    for name, r in phase_kernels(sparse, K).items():
+        add_numbers(res, name, r)
+    res.update(phase_kernels(detect, D, exact=("gather_rows",)))
+    paths["semseg inbn"] = (res, phase_semseg("semseg inbn", model, batch, scenes,
+                                              device, card, None))
+    del model
+    model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF)
+    res = {}
+    for name, r in backbone.items():  # the same Res16UNet34C at the same shapes
+        add_numbers(res, name, r)
+    crf_checks = [c for c in conv_checks(model, batch) if c[1].startswith("flat")]
+    for name, r in phase_kernels(crf_checks, K).items():
+        add_numbers(res, name, r)
+    paths["semseg crf"] = (res, phase_semseg("semseg crf", model, batch, scenes,
+                                             device, card, W.SEMSEG_CRF))
+
+
+def phase_cli_semseg():
+    """``apps.semseg.main`` on the card with the shipped config on
+    ``SyntheticSemsegDataset`` and ``net.dtype=float32``: 3 steps, one
+    whole-split validation, a checkpoint; a second call resumes from it and
+    has nothing left to train."""
+    import torch
+
+    from pointcontrast_tpu_torch.apps import semseg as app
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    out = os.path.join(BUILD_DIR, "smoke_cli_semseg")
+    shutil.rmtree(out, ignore_errors=True)
+    args = ["data.dataset=SyntheticSemsegDataset", "net.dtype=float32",
+            "optimizer.max_iter=3", "train.stat_freq=1", "train.val_freq=3",
+            "train.save_freq=1000", f"train.out_dir={out}",
+            "distributed.num_devices=1"]
+    t0 = time.perf_counter()
+    K.reset_launches()
+    trainer, history = app.main(args)
+    torch.cuda.synchronize()
+    first = K.launch_counts()
+    seconds = time.perf_counter() - t0
+    ckpt = os.path.join(out, "weights", "checkpoint_3.pth")
+    if (trainer.curr_iter != 3 or len(history) != 3 or not os.path.exists(ckpt)
+            or trainer.device.type != "cuda" or not 0.0 <= trainer.best_miou <= 100.0):
+        raise AssertionError("the semseg CLI run did not train, validate, save "
+                             "and stay on the card")
+    if not all(first[k] for k in ("gather_gemm", "gather_wgrad", "parent_gemm",
+                                  "scatter_parent")):
+        raise AssertionError(f"the semseg CLI run missed a kernel: {first}")
+    K.reset_launches()
+    resumed, again = app.main(args)
+    if resumed.curr_iter != 3 or again or any(K.launch_counts().values()):
+        raise AssertionError("the resumed semseg CLI run trained again")
+    say("cli", app="semseg", seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
+        best_miou=f"{trainer.best_miou:.4f}", launches=first,
+        checkpoint=os.path.relpath(ckpt, ROOT), resumed_iter=resumed.curr_iter)
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def kernels_line(paths: dict) -> list:
     """The kernels line's entries from {main path: (its kernel checks'
     numbers, its launch counts)}: each path's own launches and numbers
@@ -1054,6 +1466,8 @@ def main() -> int:
     phase_boxnet(pbatches, device)
     del pbatches
     phase_cli()
+    semseg_paths(device, card, paths)
+    phase_cli_semseg()
     kernels = kernels_line(paths)
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,194 @@
+"""Semseg finetune entry point (port of ``pointcontrast_tpu/apps/semseg.py``).
+
+Usage: python -m pointcontrast_tpu_torch.apps.semseg [config.yaml] [k=v ...]
+
+The dataset and its augmentations, the model (any registry net, optionally
+wrapped in ``BilateralCRF``), lenient transfer of a pretraining checkpoint
+(``net.weights``), CE training with PolyLR and whole-split mIoU validation,
+checkpoints and resume from the run directory, and a requeueable exit on
+preemption.  ``main(argv, device)`` runs on ``cuda`` unless the caller
+passes another device (the tests pass ``"cpu"``); a missing card is an
+error, never a fall-back.  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item, before any work starts.
+``main`` returns the trainer and its logged history.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+import torch
+
+from pointcontrast_tpu_torch.config import (
+    load_config,
+    maybe_resume_config,
+    save_config,
+)
+
+log = logging.getLogger(__name__)
+
+DEFAULT_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "configs", "semseg_default.yaml",
+)
+
+
+def check_supported(cfg, device: torch.device) -> None:
+    """Raise on what the port does not run yet, so that a run never does
+    something other than what its config asks for."""
+    from pointcontrast_tpu_torch.semseg.datasets import load_dataset
+
+    load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
+    dtype = str(cfg.net.get("dtype", "float32"))
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"net.dtype={dtype}: the port runs semseg in float32 only (bf16 is "
+            "ROADMAP Queue 1 item 5); pass net.dtype=float32")
+    requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    if (requested or visible) > 1:
+        raise NotImplementedError(
+            f"distributed.num_devices={requested} ({visible} visible): data "
+            "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
+            "distributed.num_devices=1")
+    layout = cfg.data.get("layout", "voxel")
+    if layout != "chunked":
+        raise NotImplementedError(
+            f"data.layout={layout}: only the chunked layout is ported (the "
+            "voxel and brick layouts are ROADMAP Queue 1 item 2)")
+    wrapper = cfg.net.get("wrapper_type", "") or ""
+    if wrapper == "TrilateralCRF":
+        # the 7-D (space + colour + time) grid needs per-point timestamps,
+        # which the 3-D semseg datasets do not carry
+        raise ValueError("TrilateralCRF requires 4D spatio-temporal inputs; the "
+                         "semseg app's datasets are 3D — use BilateralCRF")
+    if wrapper not in ("", "BilateralCRF"):
+        raise ValueError(f"unknown net.wrapper_type {wrapper!r}")
+
+
+def build_datasets(cfg):
+    from pointcontrast_tpu_torch.semseg import transforms as t
+    from pointcontrast_tpu_torch.semseg.datasets import load_dataset
+
+    cls = load_dataset(cfg.data.dataset)
+    prevoxel = t.Compose([t.ElasticDistortion(cls.ELASTIC_DISTORT_PARAMS)])
+    input_tf = t.Compose([
+        t.RandomDropout(0.2),
+        t.RandomHorizontalFlip(cls.ROTATION_AXIS, cls.IS_TEMPORAL),
+        t.ChromaticAutoContrast(),
+        t.ChromaticTranslation(cfg.augmentation.data_aug_color_trans_ratio),
+        t.ChromaticJitter(cfg.augmentation.data_aug_color_jitter_std),
+    ]) if cfg.augmentation.use_feat_aug else None
+    train_ds = cls(cfg.data.path, phase=cfg.train.train_phase, augment_data=True,
+                   prevoxel_transform=prevoxel, input_transform=input_tf,
+                   ignore_label=cfg.data.ignore_label)
+    val_ds = cls(cfg.data.path, phase=cfg.train.val_phase, augment_data=False,
+                 ignore_label=cfg.data.ignore_label)
+    return train_ds, val_ds
+
+
+def _pretrained(weights: str) -> dict:
+    """The model state of a pretraining checkpoint (``PretrainTrainer``'s
+    ``.pth``, or the newest in a directory)."""
+    from pointcontrast_tpu_torch.train.pretrain import latest_checkpoint
+
+    ckpt = latest_checkpoint(weights) if os.path.isdir(weights) else weights
+    if not ckpt:
+        raise FileNotFoundError(f"net.weights={weights}: no checkpoint")
+    log.info("loading pretrain weights from %s", ckpt)
+    return torch.load(ckpt, map_location="cpu")["model"]
+
+
+def main(argv: list[str] | None = None, device=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    logging.basicConfig(level=logging.INFO)
+    path = DEFAULT_CONFIG
+    if argv and "=" not in argv[0]:
+        path = argv.pop(0)
+    cfg = load_config(path, argv)
+    cfg = maybe_resume_config(cfg.train.out_dir, cfg)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the semseg app runs on the GPU "
+                           "(call main(argv, device='cpu') for the CPU)")
+    check_supported(cfg, device)
+    os.makedirs(cfg.train.out_dir, exist_ok=True)
+    save_config(cfg, os.path.join(cfg.train.out_dir, "config.yaml"))
+
+    from pointcontrast_tpu_torch.data.collate import PadScheme
+    from pointcontrast_tpu_torch.nn.registry import load_model
+    from pointcontrast_tpu_torch.semseg.crf import BilateralCRF
+    from pointcontrast_tpu_torch.semseg.dataset import SemsegBatches
+    from pointcontrast_tpu_torch.semseg.train import SemsegConfig, SemsegTrainer
+    from pointcontrast_tpu_torch.sparse.kernel_map import kernel_offsets
+    from pointcontrast_tpu_torch.utils import preemption
+
+    train_ds, val_ds = build_datasets(cfg)
+    scheme = PadScheme(npad0=cfg.data.npad0,
+                       level_ratios=tuple(cfg.data.pad_ratios)
+                       if cfg.data.get("pad_ratios") else None)
+    crf = None
+    if cfg.net.get("wrapper_type", ""):
+        crf = dict(
+            kernel_size=int(cfg.net.get("wrapper_kernel_size", 3)),
+            region={0: "hypercube", 1: "hypercross"}[
+                int(cfg.net.get("wrapper_region_type", 1))],
+            spatial_sigma=float(cfg.net.get("wrapper_spatial_sigma", 1.0)),
+            chromatic_sigma=float(cfg.net.get("wrapper_chromatic_sigma", 12.0)),
+        )
+    train_loader = SemsegBatches(
+        train_ds, cfg.data.batch_size, scheme,
+        augment_shift=cfg.augmentation.shift_coords,
+        limit_numpoints=cfg.data.limit_numpoints,
+        conv0_kernel_size=cfg.net.conv1_kernel_size, layout="chunked", crf=crf)
+
+    gen = torch.Generator().manual_seed(0)
+    model = load_model(cfg.net.model)(
+        in_channels=3, out_channels=train_ds.num_classes,
+        conv1_kernel_size=cfg.net.conv1_kernel_size,
+        bn_momentum=cfg.optimizer.bn_momentum, generator=gen)
+    if crf is not None:
+        kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
+        model = BilateralCRF(model, train_ds.num_classes, kv,
+                             int(cfg.net.get("wrapper_iterations", 10)),
+                             generator=gen)
+    tcfg = SemsegConfig(
+        optimizer=cfg.optimizer.optimizer.lower(),
+        lr=cfg.optimizer.lr,
+        momentum=cfg.optimizer.sgd_momentum,
+        weight_decay=cfg.optimizer.weight_decay,
+        scheduler=cfg.optimizer.scheduler.lower(),
+        poly_power=cfg.optimizer.poly_power,
+        max_iter=cfg.optimizer.max_iter,
+        iter_size=cfg.train.iter_size,
+        ignore_label=cfg.data.ignore_label,
+        stat_freq=cfg.train.stat_freq,
+        val_freq=cfg.train.val_freq,
+        save_freq=cfg.train.save_freq,
+        checkpoint_dir=os.path.join(cfg.train.out_dir, "weights"),
+        wrapper_lr=float(cfg.net.get("wrapper_lr", 0) or 0) or None,
+    )
+    guard = preemption.PreemptionGuard()
+    try:
+        trainer = SemsegTrainer(
+            model, train_loader, None, tcfg, num_classes=train_ds.num_classes,
+            device=device,
+            pretrained=_pretrained(cfg.net.weights) if cfg.net.weights else None,
+            val_dataset=val_ds, val_scheme=scheme,
+            val_batch_size=cfg.data.batch_size,
+            conv0_kernel_size=cfg.net.conv1_kernel_size, layout="chunked",
+            crf=crf, preemption_guard=guard)
+        history = trainer.train()
+    except preemption.Preempted as p:
+        preemption.write_requeue_marker(cfg.train.out_dir, p.step)
+        log.warning("exiting requeueable (iter %d); restart resumes", p.step)
+        sys.exit(preemption.REQUEUE_EXIT_CODE)
+    finally:
+        guard.uninstall()
+    preemption.clear_requeue_marker(cfg.train.out_dir)
+    return trainer, history
+
+
+if __name__ == "__main__":
+    main()

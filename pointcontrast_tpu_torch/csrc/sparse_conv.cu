@@ -1,8 +1,9 @@
-// Hand-written Hopper (sm_90a) kernels for the chunked sparse convolutions
-// of the pretraining step: the same-level 3x3x3 conv, the k2s2 down conv and
-// the k2s2 transposed conv, forward and backward (see
-// pointcontrast_tpu_torch/sparse/kernels.py for the Python wrappers, their
-// plain-torch twins and which JAX op each one replaces).
+// Hand-written Hopper (sm_90a) kernels for the sparse convolutions and the
+// per-sample pooling: the same-level 3x3x3 conv, the k2s2 down conv, the
+// k2s2 transposed conv and the flat-map conv, forward and backward, and the
+// segment sum under global pooling (see pointcontrast_tpu_torch/sparse/
+// kernels.py for the Python wrappers, their plain-torch twins and which JAX
+// op each one replaces).
 //
 // Layout (chunked): a feature table is [B, S, C] row-major f32 with each
 // chunk's last row a pad row whose features are exactly zero.  A gather map
@@ -13,7 +14,7 @@
 //   map != nullptr : row(j, b, s) = map[taps.idx[j]][b][s]
 //   map == nullptr : row(j, b, s) = j * tap_stride + s   (stacked table)
 //
-// All four kernels are simple tiled SIMT f32 kernels: each block stages its
+// The GEMM kernels are simple tiled SIMT f32 kernels: each block stages its
 // rows (gathered through the index tile) and a weight tile in shared memory
 // and accumulates a 4x4 micro-tile per thread in registers, in f32.  They
 // use no tensor cores (the port runs f32 with TF32 off); wgmma/TMA pipelines
@@ -286,6 +287,142 @@ __global__ void scatter_parent_kernel(const float* __restrict__ ct,
   }
 }
 
+// (e) dF[b, map[taps[j]][b][s], :] += G[b, s, :] . W[j]^T for every listed
+// tap j (W[j] is [Cin, Cout]), destination rows equal to `skip` left out:
+// the flat-map conv's feature gradient, a scatter because several output
+// rows may read one input row.  f32 atomics add the products.
+// grid (ceil(S_out/BM), ceil(Cin/BN), B)
+__global__ void __launch_bounds__(THREADS)
+scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
+                    TapList taps, int T, const float* __restrict__ W,
+                    float* __restrict__ dF, int B, int S_out, int S_in, int Cin,
+                    int Cout, int skip) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Bs[BK][BN + 4];
+  __shared__ int rows[BM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const float* Gb = G + (int64_t)b * S_out * Cout;
+  float* dFb = dF + (int64_t)b * S_in * Cin;
+
+  for (int j = 0; j < T; ++j) {
+    if (tid < BM) {
+      const int s = s0 + tid;
+      int r = -1;
+      if (s < S_out) {
+        r = __ldg(map + ((int64_t)taps.idx[j] * B + b) * S_out + s);
+        if (r == skip || r < 0 || r >= S_in) r = -1;
+      }
+      rows[tid] = r;
+    }
+    const float* Wj = W + (int64_t)j * Cin * Cout;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < Cout; k0 += BK) {
+#pragma unroll
+      for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+        const int e = tid + i * THREADS;
+        const int m = e / BK, kk = e % BK;
+        As[kk][m] = (s0 + m < S_out && k0 + kk < Cout)
+                        ? __ldg(Gb + (int64_t)(s0 + m) * Cout + k0 + kk) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
+        const int e = tid + i * THREADS;
+        const int n = e / BK, kk = e % BK;  // W^T[kk][n] = W[n][kk]
+        Bs[kk][n] = (k0 + kk < Cout && n0 + n < Cin)
+                        ? __ldg(Wj + (int64_t)(n0 + n) * Cout + k0 + kk) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) w[q] = Bs[kk][tx * 4 + q];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rows[ty * 4 + i];
+      if (r < 0) continue;
+      float* o = dFb + (int64_t)r * Cin;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = n0 + tx * 4 + q;
+        if (n < Cin) atomicAdd(o + n, acc[i][q]);
+      }
+    }
+    __syncthreads();  // rows[] is rewritten for the next tap
+  }
+}
+
+constexpr int SEG_SMEM = 64;   // segments a block reduces in shared memory
+constexpr int SEG_ROWS = 512;  // rows per block
+constexpr int SEG_Y = 8;       // row runs per block, SEG_ROWS / SEG_Y rows each
+
+// (f) out[seg[i], :] += X[i, :] over N rows of C channels.  A block takes
+// SEG_ROWS consecutive rows and 32 channels; each of its SEG_Y row runs sums
+// its consecutive rows in a register and adds the sum into a per-segment
+// partial in shared memory whenever the segment id changes; then the block
+// adds each touched (segment, channel) partial to `out` with one atomic.
+// With more than SEG_SMEM segments the run sums go straight to `out`.  Rows
+// with an id outside [0, S) are left out.
+// grid (ceil(N/SEG_ROWS), ceil(C/32)), block (32, SEG_Y)
+__global__ void __launch_bounds__(32 * SEG_Y)
+segment_sum_kernel(const float* __restrict__ X, const int* __restrict__ seg,
+                   float* __restrict__ out, int N, int C, int S) {
+  __shared__ float part[SEG_SMEM][32];
+  __shared__ int touched[SEG_SMEM];
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int c = blockIdx.y * 32 + threadIdx.x;
+  const bool in_smem = S <= SEG_SMEM;
+  if (in_smem) {
+    for (int i = tid; i < S * 32; i += 32 * SEG_Y) part[i / 32][i % 32] = 0.f;
+    for (int i = tid; i < S; i += 32 * SEG_Y) touched[i] = 0;
+  }
+  __syncthreads();
+
+  const int64_t r0 = (int64_t)blockIdx.x * SEG_ROWS + threadIdx.y * (SEG_ROWS / SEG_Y);
+  const int64_t stop = r0 + SEG_ROWS / SEG_Y;
+  const int64_t r1 = stop < N ? stop : N;
+  int cur = -1;
+  float acc = 0.f;
+  auto flush = [&]() {
+    if (cur < 0 || cur >= S) return;
+    if (in_smem) {
+      atomicAdd(&part[cur][threadIdx.x], acc);
+      touched[cur] = 1;
+    } else if (c < C) {
+      atomicAdd(out + (int64_t)cur * C + c, acc);
+    }
+  };
+  for (int64_t r = r0; r < r1; ++r) {
+    const int s = __ldg(seg + r);
+    if (s != cur) {
+      flush();
+      cur = s;
+      acc = 0.f;
+    }
+    if (c < C) acc += __ldg(X + r * C + c);
+  }
+  flush();
+  __syncthreads();
+  if (in_smem) {
+    for (int i = tid; i < S * 32; i += 32 * SEG_Y) {
+      const int sg = i / 32, cc = blockIdx.y * 32 + i % 32;
+      if (touched[sg] && cc < C) atomicAdd(out + (int64_t)sg * C + cc, part[sg][i % 32]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,6 +472,24 @@ int pc_scatter_parent(const void* ct, const void* parent, const void* off,
   scatter_parent_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, B,
       S_f, S_c, C);
+  return (int)cudaGetLastError();
+}
+
+int pc_scatter_gemm(const void* G, const void* map, TapList taps, int T,
+                    const void* W, void* dF, int B, int S_out, int S_in,
+                    int Cin, int Cout, int skip, void* stream) {
+  dim3 grid((S_out + BM - 1) / BM, (Cin + BN - 1) / BN, B);
+  scatter_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)G, (const int*)map, taps, T, (const float*)W, (float*)dF,
+      B, S_out, S_in, Cin, Cout, skip);
+  return (int)cudaGetLastError();
+}
+
+int pc_segment_sum(const void* X, const void* seg, void* out, int N, int C,
+                   int S, void* stream) {
+  dim3 grid((N + SEG_ROWS - 1) / SEG_ROWS, (C + 31) / 32);
+  segment_sum_kernel<<<grid, dim3(32, SEG_Y), 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const int*)seg, (float*)out, N, C, S);
   return (int)cudaGetLastError();
 }
 

@@ -80,13 +80,15 @@ def _check_below(name: str, a: np.ndarray, bound: int) -> None:
 def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     """Layout-aware bounds check of a host chunked pyramid, per chunk:
     ``nbr < S_l``, ``down_nbr < S_l``, ``up_parent < S_{l+1}`` and
-    ``up_offset < 2^D``.  Returns the chunk rows ``S_l`` of every level;
-    raises ``ValueError`` naming the first map out of range."""
+    ``up_offset < 2^D``, and the sample ids ``batch <= B`` (``B``: pad
+    rows) that global pooling reads.  Returns the chunk rows ``S_l`` of
+    every level; raises ``ValueError`` naming the first map out of range."""
     levels = pyr.levels
     nb = pyr.num_batch
     sizes = [lv.valid.shape[0] // nb for lv in levels]
     for l, lv in enumerate(levels):
         s = sizes[l]
+        _check_below(f"level {l} batch", lv.batch, nb + 1)
         for name in ("nbr", "nbr0"):
             m = getattr(lv, name)
             if m is not None:

@@ -109,6 +109,51 @@ class MaskedBatchNorm(nn.Module):
         return ops.mask_rows(out.to(features.dtype), valid)
 
 
+class SparseInstanceNorm(nn.Module):
+    """Per-sample (per point cloud) normalisation from global pooling and
+    broadcast, as the reference's MinkowskiInstanceNorm: per-channel mean
+    and biased variance over each sample's rows, statistics in float32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, features, valid, batch, num_batch: int):
+        f = features.float()
+        mean = ops.global_pool(f, batch, num_batch)
+        centered = ops.mask_rows(f - ops.broadcast_to_points(mean, batch), valid)
+        var = ops.global_pool(centered.square(), batch, num_batch)
+        inv = ops.broadcast_to_points(torch.rsqrt(var + self.eps), batch)
+        out = centered * inv * self.weight + self.bias
+        return ops.mask_rows(out.to(features.dtype), valid)
+
+
+class SparseLayerNorm(nn.Module):
+    """Per-sample layer norm as the reference's MinkowskiLayerNorm: SCALAR
+    moments per sample, over all its rows and channels jointly."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, features, valid, batch, num_batch: int):
+        c = features.shape[-1]
+        f = features.float()
+        mean = ops.global_pool(f, batch, num_batch).mean(-1, keepdim=True)
+        centered = ops.mask_rows(
+            f - ops.broadcast_to_points(mean.expand(num_batch, c), batch), valid)
+        var = ops.global_pool(centered * centered, batch, num_batch).mean(
+            -1, keepdim=True)
+        instd = 1.0 / torch.sqrt(var + self.eps)
+        out = (centered * ops.broadcast_to_points(instd.expand(num_batch, c), batch)
+               * self.weight + self.bias)
+        return ops.mask_rows(out.to(features.dtype), valid)
+
+
 def relu(features):
     """ReLU preserves the zero-padding invariant; no re-mask needed."""
     return torch.relu(features)

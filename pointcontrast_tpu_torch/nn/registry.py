@@ -1,14 +1,16 @@
 """Model registry: name -> module class (every ``*Net*`` class with a
-block type, as in ``pointcontrast_tpu/nn/registry.py``)."""
+block type, as in ``pointcontrast_tpu/nn/registry.py``): the Res16UNet and
+the ResUNet families."""
 from __future__ import annotations
 
 import inspect
 
-from pointcontrast_tpu_torch.nn import res16unet
+from pointcontrast_tpu_torch.nn import res16unet, resunet
 
 MODELS: dict = {
     name: obj
-    for name, obj in inspect.getmembers(res16unet, inspect.isclass)
+    for module in (res16unet, resunet)
+    for name, obj in inspect.getmembers(module, inspect.isclass)
     if "Net" in name and getattr(obj, "BLOCK", None) is not None
 }
 

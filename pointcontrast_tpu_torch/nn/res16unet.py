@@ -22,7 +22,7 @@ from pointcontrast_tpu_torch.nn.layers import (
     l2_normalize_rows,
     relu,
 )
-from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock
+from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock, Bottleneck
 
 NUM_LEVELS = 5  # strides 1, 2, 4, 8, 16
 
@@ -80,15 +80,17 @@ class Res16UNetBase(nn.Module):
             inplanes = planes * self.BLOCK.expansion
         return inplanes
 
-    def _stage(self, x, lv, name, blocks):
+    def _stage(self, x, lv, name, blocks, num_batch):
         for i in range(blocks):
-            x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev)
+            x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev,
+                                              lv.batch, num_batch)
         return x
 
     def forward(self, features, pyramid):
         """features: [B*S_0, in_channels] (padded rows zero); pyramid: a
         chunked ``Pyramid`` with NUM_LEVELS levels of torch tensors."""
         lv = pyramid.levels
+        nb = pyramid.num_batch
         if len(lv) < NUM_LEVELS:
             raise ValueError("Res16UNet needs a 5-level pyramid")
         nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
@@ -102,7 +104,7 @@ class Res16UNetBase(nn.Module):
                 out, lv[s].down_nbr, lv[s + 1].valid,
                 up=(lv[s].up_parent, lv[s].up_offset))
             out = relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].valid))
-            out = self._stage(out, lv[s + 1], f"block{s + 1}", self.LAYERS[s])
+            out = self._stage(out, lv[s + 1], f"block{s + 1}", self.LAYERS[s], nb)
             if s < 3:
                 skips.append(out)
 
@@ -112,7 +114,7 @@ class Res16UNetBase(nn.Module):
                 out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid)
             out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
             out = torch.cat([out, skips[lvl]], dim=1)
-            out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d])
+            out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d], nb)
 
         out = self.final(out, lv[0].valid)
         if self.normalize_feature:
@@ -125,13 +127,72 @@ class Res16UNet14(Res16UNetBase):
     LAYERS = (1, 1, 1, 1, 1, 1, 1, 1)
 
 
+class Res16UNet18(Res16UNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (2, 2, 2, 2, 2, 2, 2, 2)
+
+
 class Res16UNet34(Res16UNetBase):
     BLOCK = BasicBlock
     LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
 
 
+class Res16UNet50(Res16UNetBase):
+    BLOCK = Bottleneck
+    LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
+
+
+class Res16UNet101(Res16UNetBase):
+    BLOCK = Bottleneck
+    LAYERS = (2, 3, 4, 23, 2, 2, 2, 2)
+
+
 class Res16UNet14A(Res16UNet14):
     PLANES = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class Res16UNet14A2(Res16UNet14A):
+    LAYERS = (1, 1, 1, 1, 2, 2, 2, 2)
+
+
+class Res16UNet14B(Res16UNet14):
+    PLANES = (32, 64, 128, 256, 128, 128, 128, 128)
+
+
+class Res16UNet14B2(Res16UNet14B):
+    LAYERS = (1, 1, 1, 1, 2, 2, 2, 2)
+
+
+class Res16UNet14B3(Res16UNet14B):
+    LAYERS = (2, 2, 2, 2, 1, 1, 1, 1)
+
+
+class Res16UNet14C(Res16UNet14):
+    PLANES = (32, 64, 128, 256, 192, 192, 128, 128)
+
+
+class Res16UNet14D(Res16UNet14):
+    PLANES = (32, 64, 128, 256, 384, 384, 384, 384)
+
+
+class Res16UNet18A(Res16UNet18):
+    PLANES = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class Res16UNet18B(Res16UNet18):
+    PLANES = (32, 64, 128, 256, 128, 128, 128, 128)
+
+
+class Res16UNet18D(Res16UNet18):
+    PLANES = (32, 64, 128, 256, 384, 384, 384, 384)
+
+
+class Res16UNet34A(Res16UNet34):
+    PLANES = (32, 64, 128, 256, 256, 128, 64, 64)
+
+
+class Res16UNet34B(Res16UNet34):
+    PLANES = (32, 64, 128, 256, 256, 128, 64, 32)
 
 
 class Res16UNet34C(Res16UNet34):

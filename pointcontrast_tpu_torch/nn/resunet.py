@@ -1,0 +1,163 @@
+"""MinkUNet / ResUNet family: 6-stage sparse U-Net over a 4-level pyramid
+(port of ``pointcontrast_tpu/nn/resunet.py``, the 3-D classes).
+
+stem conv -> residual stage on level 0 -> 3x [k2s2 conv + BN + ReLU +
+residual stage] encoder -> 3x [k2s2 transpose conv + BN + ReLU + skip
+concat (+ stage for the first two)] decoder -> 1x1 to 512, BN (momentum
+0.1), ReLU -> 1x1 head.  As in the reference, block5/6 run before the next
+transpose conv and the last skip concat feeds the final MLP directly.
+Submodules carry the flax names (``conv1p1s1``, ``bn1``, ``block1_0``,
+``convtr4p8s2``, ``final_fc``, ``final_bn``, ``final``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pointcontrast_tpu_torch.nn.layers import (
+    MaskedBatchNorm,
+    SparseConv,
+    SparseConvTranspose,
+    SparseLinear,
+    relu,
+)
+from pointcontrast_tpu_torch.nn.resnet_block import (
+    BasicBlock,
+    BasicBlockINBN,
+    Bottleneck,
+)
+
+NUM_LEVELS = 4  # strides 1, 2, 4, 8
+
+
+class MinkUNetBase(nn.Module):
+    BLOCK = None
+    PLANES = (64, 128, 256, 512, 256, 128, 128)
+    LAYERS = (2, 2, 2, 2, 2, 2)
+    INIT_DIM = 64
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
+                 dimension: int = 3, generator: torch.Generator | None = None):
+        super().__init__()
+        k3, k_up = 3 ** dimension, 2 ** dimension
+        g = generator
+
+        def stage(name, inplanes, planes, blocks):
+            for i in range(blocks):
+                self.add_module(f"{name}_{i}", self.BLOCK(
+                    inplanes, planes, k3, bn_momentum, generator=g))
+                inplanes = planes * self.BLOCK.expansion
+            return inplanes
+
+        self.conv1p1s1 = SparseConv(in_channels, self.INIT_DIM,
+                                    conv1_kernel_size ** dimension, generator=g)
+        self.bn1 = MaskedBatchNorm(self.INIT_DIM, bn_momentum)
+        c = stage("block1", self.INIT_DIM, self.PLANES[0], self.LAYERS[0])
+        skip_channels = [c]
+        for s in range(3):
+            self.add_module(f"conv{s + 2}p{2 ** s}s2",
+                            SparseConv(c, c, k_up, generator=g))
+            self.add_module(f"bn{s + 2}", MaskedBatchNorm(c, bn_momentum))
+            c = stage(f"block{s + 2}", c, self.PLANES[s + 1], self.LAYERS[s + 1])
+            skip_channels.append(c)
+        for d in range(3):
+            planes = self.PLANES[4 + d]
+            self.add_module(f"convtr{4 + d}p{2 ** (3 - d)}s2",
+                            SparseConvTranspose(c, planes, k_up, generator=g))
+            self.add_module(f"bntr{4 + d}", MaskedBatchNorm(planes, bn_momentum))
+            c = planes + skip_channels[2 - d]
+            if d < 2:
+                c = stage(f"block{5 + d}", c, planes, self.LAYERS[4 + d])
+        self.final_fc = SparseLinear(c, 512, bias=False, generator=g)
+        self.final_bn = MaskedBatchNorm(512, 0.1)
+        self.final = SparseLinear(512, out_channels, bias=True, generator=g)
+
+    def _stage(self, x, lv, name, blocks, num_batch):
+        for i in range(blocks):
+            x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev,
+                                              lv.batch, num_batch)
+        return x
+
+    def forward(self, features, pyramid):
+        """features: [B*S_0, in_channels] (padded rows zero); pyramid: a
+        chunked ``Pyramid`` with at least NUM_LEVELS levels of tensors."""
+        lv = pyramid.levels
+        nb = pyramid.num_batch
+        if len(lv) < NUM_LEVELS:
+            raise ValueError("MinkUNet needs a 4-level pyramid")
+        nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
+        rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
+        out = relu(self.bn1(self.conv1p1s1(features, nbr0, lv[0].valid, rev0),
+                            lv[0].valid))
+        out = self._stage(out, lv[0], "block1", self.LAYERS[0], nb)
+        skips = [out]
+        for s in range(3):
+            out = getattr(self, f"conv{s + 2}p{2 ** s}s2")(
+                out, lv[s].down_nbr, lv[s + 1].valid,
+                up=(lv[s].up_parent, lv[s].up_offset))
+            out = relu(getattr(self, f"bn{s + 2}")(out, lv[s + 1].valid))
+            out = self._stage(out, lv[s + 1], f"block{s + 2}", self.LAYERS[s + 1], nb)
+            if s < 2:
+                skips.append(out)
+        for d in range(3):
+            lvl = 2 - d
+            out = getattr(self, f"convtr{4 + d}p{2 ** (3 - d)}s2")(
+                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid)
+            out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
+            out = torch.cat([out, skips[lvl]], dim=1)
+            if d < 2:
+                out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d], nb)
+        out = relu(self.final_bn(self.final_fc(out, lv[0].valid), lv[0].valid))
+        return self.final(out, lv[0].valid)
+
+
+class ResUNet14(MinkUNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (1, 1, 1, 1, 1, 1)
+
+
+class ResUNet18(MinkUNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (2, 2, 2, 2, 2, 2)
+
+
+class ResUNet34(MinkUNetBase):
+    BLOCK = BasicBlock
+    LAYERS = (3, 4, 6, 3, 2, 2)
+
+
+class ResUNet50(MinkUNetBase):
+    BLOCK = Bottleneck
+    LAYERS = (3, 4, 6, 3, 2, 2)
+
+
+class ResUNet101(MinkUNetBase):
+    BLOCK = Bottleneck
+    LAYERS = (3, 4, 23, 3, 2, 2)
+
+
+class ResUNet14D(ResUNet14):
+    PLANES = (64, 128, 256, 512, 512, 512, 512)
+
+
+class ResUNet18D(ResUNet18):
+    PLANES = (64, 128, 256, 512, 512, 512, 512)
+
+
+class ResUNet34D(ResUNet34):
+    PLANES = (64, 128, 256, 512, 512, 512, 512)
+
+
+class ResUNet34E(ResUNet34):
+    INIT_DIM = 32
+    PLANES = (32, 64, 128, 256, 128, 64, 64)
+
+
+class ResUNet34F(ResUNet34):
+    INIT_DIM = 32
+    PLANES = (32, 64, 128, 256, 128, 64, 32)
+
+
+class ResUNet18INBN(ResUNet18):
+    BLOCK = BasicBlockINBN

@@ -1,4 +1,4 @@
-"""The four device kernels behind the chunked sparse convolutions.
+"""The device kernels behind the sparse convolutions and global pooling.
 
 Each kernel has three things side by side here:
   - ``<name>_plain``: the same function in plain torch (``gather``,
@@ -22,12 +22,20 @@ custom-VJP XLA programs; the package has no Pallas kernel on this path):
   gather_wgrad   K1/K2/K3 dW
   parent_gemm    K3 fwd, K2 dF (with W_k^T)
   scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table
+  scatter_gemm   the flat-map conv ``_conv_core``'s dF (its autodiff: a
+                 scatter of ct W_k^T at the map's rows); its forward is
+                 gather_gemm and its dW gather_wgrad, at B = 1
+  segment_sum    ``global_pool``'s segment sum and ``broadcast_to_points``'
+                 backward (the adjoint of its row gather)
 What bounds them on an H100: the gather kernels read every gathered row once
 per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
 peak without tensor cores), not by the 3.35 TB/s of HBM; the design stages
 rows and weights in shared memory and keeps a 4x4 register tile per thread.
 scatter_parent is bound by atomics on HBM; its valid rows never collide.
+scatter_gemm adds every product with an f32 atomic; segment_sum reads each
+row once (bound by HBM bytes) and adds one atomic per block, segment and
+channel.
 """
 from __future__ import annotations
 
@@ -66,6 +74,9 @@ def _lib():
                             ci, ci, vp, ci, ci, ci, ci, vp],
         "pc_parent_gemm": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, ci, ci, ci, ci, ci,
+                            ci, vp],
+        "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
     })
 
 
@@ -281,5 +292,80 @@ def scatter_parent(ct3, parent, off, k, s_c):
     return dy
 
 
-KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent)
+# --------------------------------------------------------------------------
+# (e) scatter_gemm
+
+
+def scatter_gemm_plain(g3, map_, taps, w, s_in, skip):
+    b_, cin = g3.shape[0], w.shape[1]
+    out = g3.new_zeros(b_, s_in, cin)
+    for j in range(w.shape[0]):
+        idx = map_[int(taps[j])].long()
+        y = torch.where((idx != skip)[..., None], g3 @ w[j].transpose(0, 1), 0.0)
+        out.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, cin), y)
+    return out
+
+
+def scatter_gemm(g3, map_, taps, w, s_in, skip):
+    """out[b, map[taps[j], b, s]] += g3[b, s] @ w[j]^T for every listed tap
+    j and row s, except where the map names row ``skip`` (-1: none).
+
+    g3 [B, S_out, Cout]; map [K, B, S_out] int32 frame-local rows into
+    [B, s_in]; w [G, Cin, Cout] (one block per listed tap); returns
+    [B, s_in, Cin].  The map may name a row many times: the card adds the
+    products with f32 atomics, in an order that differs from run to run."""
+    b_, s_out, cout = g3.shape
+    g, cin, _ = w.shape
+    _check_shape("w", w, (g, cin, cout))
+    _check_rows("scatter_gemm", map_, taps, 0, g, b_, s_out, s_in)
+    if _use_plain(g3):
+        return scatter_gemm_plain(g3, map_, taps, w, s_in, skip)
+    _require(g3, "g3", torch.float32, 3)
+    _require(w, "w", torch.float32, 3)
+    _require(map_, "map", torch.int32, 3)
+    if g > MAX_TAPS:
+        raise ValueError(f"{g} taps > {MAX_TAPS}")
+    out = torch.zeros(b_, s_in, cin, device=g3.device, dtype=torch.float32)
+    rc = _lib().pc_scatter_gemm(
+        _ptr(g3), _ptr(map_), _taps_struct(taps), g, _ptr(w), _ptr(out), b_,
+        s_out, s_in, cin, cout, int(skip), _stream())
+    _check(rc, "scatter_gemm")
+    scatter_gemm.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# (f) segment_sum
+
+
+def segment_sum_plain(x, seg, num_segments):
+    return x.new_zeros(num_segments, x.shape[1]).index_add_(0, seg.long(), x)
+
+
+def segment_sum(x, seg, num_segments: int):
+    """out[seg[i]] += x[i]: x [N, C] f32, seg [N] int32 ids in
+    [0, num_segments) -> [num_segments, C].
+
+    On the card each block sums a run of consecutive rows per segment in
+    shared memory and adds one f32 atomic per (segment, channel), so the
+    order of the sums differs from run to run; ids outside the range are
+    left out there (``SemsegBatch.to`` checks them before any kernel)."""
+    n, c = x.shape
+    _check_shape("seg", seg, (n,))
+    if _use_plain(x):
+        return segment_sum_plain(x, seg, num_segments)
+    _require(x, "x", torch.float32, 2)
+    _require(seg, "seg", torch.int32, 1)
+    out = torch.zeros(num_segments, c, device=x.device, dtype=torch.float32)
+    if n == 0:
+        return out
+    rc = _lib().pc_segment_sum(_ptr(x), _ptr(seg), _ptr(out), n, c,
+                               num_segments, _stream())
+    _check(rc, "segment_sum")
+    segment_sum.launches += 1
+    return out
+
+
+KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
+           scatter_gemm, segment_sum)
 reset_launches()

@@ -1,15 +1,22 @@
-"""Sparse ops on the chunked layout: convolutions, masking, masked moments.
+"""Sparse ops: convolutions, global pooling, masking, masked moments.
 
-Port of the chunked branches of ``pointcontrast_tpu/sparse/ops.py``.  Each
-convolution is a ``torch.autograd.Function`` carrying the JAX op's
-hand-derived backward, built from the four kernels in ``sparse.kernels``:
+Port of the chunked branches of ``pointcontrast_tpu/sparse/ops.py``, its
+flat-map conv and its per-sample pooling.  Each convolution is a
+``torch.autograd.Function`` carrying the JAX op's backward, built from the
+kernels in ``sparse.kernels``:
 
   K1 ``_ConvChunkFused`` (JAX ``_conv_chunk_fused``): same-level conv,
      scatter-free backward through the offset-reversal permutation;
   K2 ``_ConvChunkDown2`` (JAX ``_conv_chunk_down2``): k2s2 down conv whose
      dF is a gather through the functional child -> (parent, offset) map;
   K3 ``_ConvTrChunk`` (JAX ``_conv_tr_chunk``): k2s2 transposed conv, one
-     scatter-add of the cotangent into the stacked [8*S_c, Cout] table.
+     scatter-add of the cotangent into the stacked [8*S_c, Cout] table;
+  ``_ConvFlat`` (JAX ``_conv_core`` on a flat [K, N] map, e.g. the CRF's
+     bilateral grid): gather_gemm at B = 1, and JAX's autodiff backward,
+     dF by scatter_gemm and dW by gather_wgrad, in groups of MAX_TAPS taps.
+``global_pool`` and ``broadcast_to_points`` are Functions over the
+``segment_sum`` kernel and the K8 row gather (``detect.kernels.gather_rows``),
+each the other's adjoint.
 
 Zero-padding invariant: callers keep features of padded rows at exactly zero
 (``mask_rows``) and missing neighbours point at a pad row, so gathered pad
@@ -20,11 +27,15 @@ from __future__ import annotations
 
 import torch
 
+from pointcontrast_tpu_torch.detect import kernels as detect_kernels
 from pointcontrast_tpu_torch.sparse.kernels import (
+    MAX_TAPS,
     gather_gemm,
     gather_wgrad,
     parent_gemm,
+    scatter_gemm,
     scatter_parent,
+    segment_sum,
 )
 
 
@@ -159,22 +170,74 @@ class _ConvTrChunk(torch.autograd.Function):
         return df, None, None, dw
 
 
+def _tap_groups(k: int):
+    """Consecutive tap ranges of at most MAX_TAPS taps (one launch each)."""
+    return [range(lo, min(lo + MAX_TAPS, k)) for lo in range(0, k, MAX_TAPS)]
+
+
+class _ConvFlat(torch.autograd.Function):
+    """Flat map: out[s] = sum_k F[nbr[k,s]] W_k, any K, no centre skip (JAX
+    ``_conv_core`` as ``sparse_conv`` runs it on a flat map without ``rev``).
+
+    Backward, JAX's autodiff of that scan: dF[nbr[k,s]] += ct[s] W_k^T (a
+    scatter: a row may be read by many outputs) and dW_k = sum_s
+    F[nbr[k,s]]^T ct[s].  The pad row N_in - 1, where missing neighbours
+    point, gets no dF: its features are zero and every producer masks pad
+    rows, so that sum would be thrown away (pad-row dF is garbage by design
+    in every form)."""
+
+    @staticmethod
+    def forward(ctx, features, nbr, weights):
+        n_out = nbr.shape[1]
+        x3, m3 = features[None], nbr[:, None]
+        out = None
+        for taps in _tap_groups(nbr.shape[0]):
+            part = gather_gemm(x3, m3, taps, 0, weights[taps.start:taps.stop],
+                               None, n_out)
+            out = part if out is None else out + part
+        ctx.save_for_backward(features, nbr, weights)
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        features, nbr, weights = ctx.saved_tensors
+        n_in, n_out = features.shape[0], nbr.shape[1]
+        x3, m3, ct3 = features[None], nbr[:, None], ct.contiguous()[None]
+        groups = _tap_groups(nbr.shape[0])
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            for taps in groups:
+                part = scatter_gemm(ct3, m3, taps, weights[taps.start:taps.stop],
+                                    n_in, n_in - 1)
+                df = part if df is None else df + part
+            df = df[0]
+        if ctx.needs_input_grad[2]:
+            dw = torch.cat([gather_wgrad(x3, m3, taps, 0, ct3, None, None, 0,
+                                         len(taps), n_out) for taps in groups])
+        return df, None, dw
+
+
 def sparse_conv(
-    features: torch.Tensor,  # [B*S_in, Cin], padded rows zero
-    nbr: torch.Tensor,  # [K, B, S_out] frame-local gather map (int32)
+    features: torch.Tensor,  # [B*S_in, Cin] (flat: [N_in, Cin]), pad rows zero
+    nbr: torch.Tensor,  # [K, B, S_out] frame-local gather map, or flat [K, N_out]
     weights: torch.Tensor,  # [K, Cin, Cout]
     bias: torch.Tensor | None = None,  # [Cout]
     valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
     rev: tuple | None = None,  # offset-reversal perm (same-level maps only)
     up: tuple | None = None,  # (up_parent, up_offset) for k2s2 down maps
 ) -> torch.Tensor:
-    """Chunked sparse convolution: a same-level map with ``rev`` runs K1, a
-    k2s2 down map with ``up`` runs K2."""
-    if nbr.dim() != 3:
-        raise ValueError(f"chunked [K, B, S] maps only, got {tuple(nbr.shape)}")
-    k, b_, s_out = nbr.shape
+    """Sparse convolution.  Chunked maps: a same-level map with ``rev`` runs
+    K1, a k2s2 down map with ``up`` runs K2.  A flat [K, N_out] map runs
+    ``_ConvFlat`` whatever ``rev`` and ``up`` say: its backward is exact for
+    any map (JAX's gather-form flat backward with ``rev`` computes the same
+    gradient on valid rows)."""
     features = features.contiguous()
-    if rev is not None and b_ * s_out == features.shape[0] and valid_out is not None:
+    if nbr.dim() == 2:
+        out = _ConvFlat.apply(features, nbr.contiguous(), weights.contiguous())
+    elif nbr.dim() != 3:
+        raise ValueError(f"[K, B, S] or [K, N] maps only, got {tuple(nbr.shape)}")
+    elif (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
+          and valid_out is not None):
         out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev))
     elif up is not None:
         out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights)
@@ -205,4 +268,86 @@ def sparse_conv_transpose(
         out = out + bias
     if valid_out is not None:
         out = mask_rows(out, valid_out)
+    return out
+
+
+def _pool_counts(batch: torch.Tensor, num_batch: int) -> torch.Tensor:
+    """Rows per sample, the count of ``batch == b`` for b < num_batch: a
+    segment sum of ones (``index_add_`` of ones into num_batch + 1 slots
+    spends its time on atomics to the same few addresses)."""
+    ones = torch.ones(batch.shape[0], 1, device=batch.device)
+    return segment_sum(ones, batch, num_batch + 1)[:num_batch, 0]
+
+
+class _GlobalPool(torch.autograd.Function):
+    """sums[b] = sum of the rows with batch == b (b < num_batch; the pad
+    segment num_batch is dropped), over max(count, 1) when averaging (the
+    counts a second segment_sum).
+    Backward: row i gets ct[batch[i]] (/ count) and pad rows 0, a row gather
+    from [ct (/ count); 0]."""
+
+    @staticmethod
+    def forward(ctx, features, batch, num_batch, average):
+        sums = segment_sum(features, batch, num_batch + 1)[:num_batch]
+        counts = None
+        if average:
+            counts = _pool_counts(batch, num_batch).clamp(min=1.0)
+            sums = sums / counts[:, None]
+        ctx.save_for_backward(batch, counts)
+        return sums
+
+    @staticmethod
+    def backward(ctx, ct):
+        batch, counts = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        if counts is not None:
+            ct = ct / counts[:, None]
+        table = torch.cat([ct, ct.new_zeros(1, ct.shape[1])])
+        df = detect_kernels.gather_rows(table[None], batch[None])[0]
+        return df, None, None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    """out[i] = per_sample[min(batch[i], num_batch - 1)], a row gather; its
+    backward is the segment sum of ct over those ids, so pad rows' ct lands
+    in the last sample, as JAX's adjoint of the clamped take does."""
+
+    @staticmethod
+    def forward(ctx, per_sample, batch):
+        idx = batch.clamp(max=per_sample.shape[0] - 1)
+        out = detect_kernels.gather_rows(per_sample.contiguous()[None], idx[None])[0]
+        ctx.save_for_backward(idx)
+        ctx.num_batch = per_sample.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return segment_sum(ct.contiguous(), idx, ctx.num_batch), None
+
+
+def global_pool(
+    features: torch.Tensor,  # [N, C]
+    batch: torch.Tensor,  # [N] int32 sample ids (pad rows -> num_batch)
+    num_batch: int,
+    average: bool = True,
+) -> torch.Tensor:
+    """Per-sample global pooling (ME.MinkowskiGlobalPooling): [num_batch, C]
+    sums or means over each sample's rows; the pad segment is dropped."""
+    return _GlobalPool.apply(features.contiguous(), batch, num_batch, average)
+
+
+def broadcast_to_points(
+    per_sample: torch.Tensor,  # [num_batch, C]
+    batch: torch.Tensor,  # [N] int32
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-sample values back to the rows (ME.MinkowskiBroadcast*); pad rows
+    read the last sample unless ``valid`` masks them."""
+    out = _Broadcast.apply(per_sample, batch)
+    if valid is not None:
+        out = mask_rows(out, valid)
     return out

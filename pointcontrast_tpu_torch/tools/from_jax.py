@@ -2,13 +2,19 @@
 moments -> the port.
 
 A rename only: conv kernels keep their [K, Cin, Cout] layout in the shared
-``kernel_offsets`` order, linear kernels [Cin, Cout]; BN ``scale``/``bias``/
-``mean``/``var`` map to ``weight``/``bias``/``running_mean``/``running_var``,
-Dense kernels stay [Cin, Cout].  Whole trees load strictly: a VoteNet's
+``kernel_offsets`` order, linear kernels [Cin, Cout]; BN and instance-norm
+``scale``/``bias``/``mean``/``var`` map to ``weight``/``bias``/
+``running_mean``/``running_var``, Dense kernels and the CRF filter's
+``kernel`` to ``weight``.  A flax auto-name inside a residual block
+(``SparseConv_0``, ``MaskedBatchNorm_1``, ``SparseLinear_0``, ...) is
+renamed by the ``FLAX_NAMES`` of the port's block class found at that path
+of the model: ``SparseConv_0`` is a BasicBlock's ``conv1`` but a
+Bottleneck's ``conv2``.  Whole trees load strictly: a VoteNet's
 ``backbone_net.net`` (the Res16UNet), ``vgen.conv1``/``bn1``,
-``pnet.vote_aggregation.mlp.layer0``/``bn0``, ``pnet.conv3``, ...
-The trees are nested dicts of numpy arrays (``jax.device_get`` of the flax
-variables); this module imports no JAX."""
+``pnet.vote_aggregation.mlp.layer0``/``bn0``, a CRF wrapper's ``net`` and
+``filter``, the INBN norms' ``inorm``/``bnorm``, ...  The trees are nested
+dicts of numpy arrays (``jax.device_get`` of the flax variables); this
+module imports no JAX."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -16,13 +22,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-# flax auto-names inside a BasicBlock -> the port's submodule names
-_MODULE_RENAME = {
-    "SparseConv_0": "conv1",
-    "MaskedBatchNorm_0": "norm1",
-    "SparseConv_1": "conv2",
-    "MaskedBatchNorm_1": "norm2",
-}
+from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock
+
 _PARAM_RENAME = {
     "kernel": "weight",
     "scale": "weight",
@@ -40,16 +41,31 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def torch_name(flax_path: tuple) -> str:
-    """('block1_0', 'SparseConv_0', 'kernel') -> 'block1_0.conv1.weight'."""
+def torch_name(flax_path: tuple, model: torch.nn.Module | None = None) -> str:
+    """('block1_0', 'SparseConv_0', 'kernel') -> 'block1_0.conv1.weight'.
+
+    With ``model``, each flax module name is renamed by the ``FLAX_NAMES``
+    of the port's module it sits in, walking down the model; a path the
+    model does not have raises ``KeyError``.  Without one, every module is
+    taken for a BasicBlock (the Res16UNet and VoteNet models)."""
     *mods, leaf = flax_path
-    return ".".join([_MODULE_RENAME.get(m, m) for m in mods] + [_PARAM_RENAME[leaf]])
+    names, module = [], model
+    for flax_mod in mods:
+        table = (BasicBlock.FLAX_NAMES if model is None
+                 else getattr(type(module), "FLAX_NAMES", {}))
+        names.append(table.get(flax_mod, flax_mod))
+        if model is not None:
+            module = getattr(module, names[-1], None)
+            if not isinstance(module, torch.nn.Module):
+                raise KeyError(f"{'/'.join(flax_path)}: the model has no module "
+                               f"{'.'.join(names)}")
+    return ".".join(names + [_PARAM_RENAME[leaf]])
 
 
-def jax_state_dict(params: Mapping, batch_stats: Mapping,
-                   dtype=np.float32) -> dict:
+def jax_state_dict(params: Mapping, batch_stats: Mapping, dtype=np.float32,
+                   model: torch.nn.Module | None = None) -> dict:
     return {
-        torch_name(path): torch.from_numpy(np.array(leaf, dtype=dtype))
+        torch_name(path, model): torch.from_numpy(np.array(leaf, dtype=dtype))
         for tree in (params, batch_stats)
         for path, leaf in _flatten(tree)
     }
@@ -60,7 +76,8 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     """Fill ``model`` from the flax trees (strict: every tensor on both sides
     must match by name and shape).  ``dtype=np.float64`` keeps float64 trees
     exact in a model already cast with ``.double()``."""
-    model.load_state_dict(jax_state_dict(params, batch_stats, dtype), strict=True)
+    model.load_state_dict(jax_state_dict(params, batch_stats, dtype, model),
+                          strict=True)
     return model
 
 
@@ -71,7 +88,8 @@ def load_optax_adam(opt: torch.optim.Adam, model: torch.nn.Module, mu: Mapping,
     count), so a torch step and a JAX step start from the same state.
     Strict: every parameter needs both moments, of its shape."""
     params = dict(model.named_parameters())
-    mus, nus = jax_state_dict(mu, {}, dtype), jax_state_dict(nu, {}, dtype)
+    mus = jax_state_dict(mu, {}, dtype, model)
+    nus = jax_state_dict(nu, {}, dtype, model)
     if set(mus) != set(params) or set(nus) != set(params):
         raise KeyError(f"Adam moments do not cover the parameters: "
                        f"{sorted(set(params) ^ set(mus))}")

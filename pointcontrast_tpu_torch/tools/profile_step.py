@@ -1,13 +1,18 @@
 """Where a training step's time goes on one GPU.
 
-    python -m pointcontrast_tpu_torch.tools.profile_step [--app pretrain|votenet]
-        [--backbone sparseconv|pointnet2] [--steps 10]
+    python -m pointcontrast_tpu_torch.tools.profile_step
+        [--app pretrain|votenet|semseg] [--backbone sparseconv|pointnet2]
+        [--model Res16UNet34C|ResUNet18INBN|...] [--crf] [--steps 10]
 
 On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
 Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
 shipped VoteNet config (8 scenes x 40000 points, 256 proposals) over the
 sparse-conv Res16UNet34C 3 -> 256 (``--backbone sparseconv``, the YAML's
-default) or PointNet++ (``--backbone pointnet2``) + its loss + Adam.
+default) or PointNet++ (``--backbone pointnet2``) + its loss + Adam;
+``semseg`` is the JAX benchmark's semseg step (6 scenes, ~250k voxels at
+2 cm, 20 classes) through ``--model`` (Res16UNet34C by default), in a
+BilateralCRF with ``--crf`` (the filter applied on every step) + the CE
+loss + SGD and PolyLR.
   1. ms/step of the kernel path and of the plain-torch twins
      (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
      plain), each from the same seeded weights after two warm-up steps, host
@@ -119,7 +124,52 @@ def _votenet_app(backbone="sparseconv"):
         phases=phases)
 
 
-APPS = {"pretrain": _pretrain_app, "votenet": _votenet_app}
+def _semseg_app(model="Res16UNet34C", crf=False):
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+    from pointcontrast_tpu_torch.semseg.train import (
+        SemsegConfig,
+        forward,
+        make_semseg_train_step,
+    )
+    from pointcontrast_tpu_torch.train import optim
+
+    cfg = SemsegConfig(lr=0.1, max_iter=60000, wrapper_lr=0.1 if crf else None)
+    train_step = make_semseg_train_step(cfg)
+    scenes = workload.SemsegScenes()
+    batch = workload.semseg_batch(scenes, crf=workload.SEMSEG_CRF).to("cuda")
+
+    def fresh(model):
+        m = copy.deepcopy(model).cuda()
+        opt = optim.make_optimizer(m, cfg, {"filter": 1.0} if crf else None)
+        return m, (opt, optim.make_scheduler(opt, cfg, cfg.scheduler))
+
+    def step(m, state, batch):
+        train_step(m, state[0], state[1], [batch])
+
+    def phases(m, state, batch, mark):
+        opt, sched = state
+        m.train()
+        opt.zero_grad(set_to_none=True)
+        mark()
+        logits = forward(m, batch)
+        mark()
+        loss = cross_entropy_ignore(logits, batch.labels, cfg.ignore_label)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        sched.step()
+        mark()
+
+    return types.SimpleNamespace(
+        batches=[batch],
+        model=workload.semseg_model(seed=0, model=model,
+                                    crf=workload.SEMSEG_CRF if crf else None),
+        unit="scenes", per_step=len(scenes), fresh=fresh, step=step,
+        phases=phases)
+
+
+APPS = {"pretrain": _pretrain_app, "votenet": _votenet_app, "semseg": _semseg_app}
 
 
 def _warm(app, steps=2):
@@ -194,6 +244,8 @@ def main(argv=None) -> int:
     ap.add_argument("--app", choices=sorted(APPS), default="pretrain")
     ap.add_argument("--backbone", choices=("sparseconv", "pointnet2"),
                     default="sparseconv", help="votenet only")
+    ap.add_argument("--model", default="Res16UNet34C", help="semseg only")
+    ap.add_argument("--crf", action="store_true", help="semseg only")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -205,7 +257,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    app = APPS[args.app](**({"backbone": args.backbone} if args.app == "votenet" else {}))
+    kw = {"votenet": {"backbone": args.backbone},
+          "semseg": {"model": args.model, "crf": args.crf}}.get(args.app, {})
+    app = APPS[args.app](**kw)
     steps = args.steps
 
     times = {"plain": [], "kernels": []}
@@ -232,6 +286,8 @@ def main(argv=None) -> int:
     summary = {
         "app": args.app,
         "backbone": args.backbone if args.app == "votenet" else None,
+        "model": args.model if args.app == "semseg" else None,
+        "crf": args.crf if args.app == "semseg" else None,
         "card": card,
         "ms_per_step": times,
         f"{app.unit}_per_s_kernels": app.per_step / (min(times["kernels"]) / 1e3),

@@ -11,7 +11,16 @@ backbone: ``sparseconv`` (the YAML's default; Res16UNet34C 3 -> 256, 2.5 cm
 voxels, ``npad0`` 262144 with the YAML's ``pad_ratios``, chunked layout) or
 ``pointnet2`` (``net.backbone=pointnet2``; no voxels).
 ``SyntheticDetectionDataset`` scenes, since no ScanNet detection data ships
-with the repo."""
+with the repo.
+
+Semseg, as the JAX package's ``bench.py`` semseg step: 6 saturated-surface
+scenes (frame 0 of ``SyntheticPairDataset(num_pairs=6, points_per_frame=
+90000, room_size=2.4, voxel_size=0.02, seed=0)``, ~250k voxels at 2 cm),
+random colours and labels (20 classes) from ``RandomState(0)``,
+``PadScheme.scannet(npad0=262144)`` (the YAML's ``pad_ratios``), chunked
+layout with 6 chunks.  The frames' voxel coords are used: the JAX bench
+casts the frames' metric xyz to int (``ds[i][0]``), which leaves ~10
+distinct voxels per scene."""
 from __future__ import annotations
 
 import contextlib
@@ -31,6 +40,16 @@ VOTENET_VOXEL = 0.025
 VOTENET_NPAD0 = 262144
 VOTENET_PAD_RATIOS = (1.0, 0.8, 0.35, 0.11, 0.04)
 VOTENET_PROPOSALS = 256
+
+SEMSEG_SCENES = 6
+SEMSEG_POINTS = 90000
+SEMSEG_ROOM = 2.4
+SEMSEG_VOXEL = 0.02
+SEMSEG_NPAD0 = 262144
+SEMSEG_CLASSES = 20
+# the shipped BilateralCRF settings (configs/semseg_default.yaml)
+SEMSEG_CRF = dict(kernel_size=3, region="hypercross", spatial_sigma=1.0,
+                  chromatic_sigma=12.0)
 
 
 def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
@@ -100,6 +119,74 @@ def votenet_model(seed: int = 0, backbone_model: str = "Res16UNet34C",
         sampling="vote_fps", backbone=backbone,
         backbone_model=backbone_model, use_voting=use_voting,
         generator=torch.Generator().manual_seed(seed))
+
+
+class SemsegScenes:
+    """The semseg workload's scenes as a dataset: ``__getitem__(i, rng)``
+    gives (voxel coords, colours 0-254, labels), as ``evaluate_dataset`` and
+    ``collate_semseg`` take them; no augmentation."""
+
+    ignore_mask = 255
+
+    def __init__(self, scenes: int = SEMSEG_SCENES, points: int = SEMSEG_POINTS,
+                 room: float = SEMSEG_ROOM, voxel: float = SEMSEG_VOXEL,
+                 classes: int = SEMSEG_CLASSES, seed: int = 0):
+        from pointcontrast_tpu_torch.data import SyntheticPairDataset
+
+        ds = SyntheticPairDataset(num_pairs=scenes, points_per_frame=points,
+                                  room_size=room, voxel_size=voxel, seed=seed)
+        rng = np.random.RandomState(seed)
+        self.samples = []
+        for i in range(scenes):
+            c = np.asarray(ds[i][2], np.int32)  # frame 0's voxel coords
+            self.samples.append((
+                c,
+                rng.randint(0, 255, (len(c), 3)).astype(np.float32),
+                rng.randint(0, classes, len(c)).astype(np.int32),
+            ))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, index: int, rng=None):
+        return self.samples[index]
+
+
+def semseg_scheme(npad0: int = SEMSEG_NPAD0):
+    from pointcontrast_tpu_torch.data import PadScheme
+
+    return PadScheme.scannet(npad0=npad0)
+
+
+def semseg_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
+                 crf: dict | None = None):
+    """The one host batch of all ``scenes``, chunked (one chunk a scene),
+    with the CRF's bilateral map when ``crf`` is given."""
+    from pointcontrast_tpu_torch.semseg.dataset import collate_semseg
+
+    return collate_semseg(list(scenes.samples), semseg_scheme(npad0),
+                          ignore_label=255, shift_coords=False,
+                          rng=np.random.RandomState(1), crf=crf,
+                          num_chunks=len(scenes))
+
+
+def semseg_model(seed: int = 0, model: str = "Res16UNet34C",
+                 classes: int = SEMSEG_CLASSES, bn_momentum: float = 0.02,
+                 crf: dict | None = None, iterations: int = 10) -> torch.nn.Module:
+    """A registry net 3 -> ``classes`` (BN momentum 0.02, the YAML's), in a
+    ``BilateralCRF`` of ``iterations`` mean-field steps when ``crf`` is
+    given; random weights from ``seed``, on the CPU."""
+    from pointcontrast_tpu_torch.nn.registry import load_model
+    from pointcontrast_tpu_torch.semseg.crf import BilateralCRF
+    from pointcontrast_tpu_torch.sparse.kernel_map import kernel_offsets
+
+    gen = torch.Generator().manual_seed(seed)
+    net = load_model(model)(in_channels=3, out_channels=classes,
+                            bn_momentum=bn_momentum, generator=gen)
+    if crf is None:
+        return net
+    kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
+    return BilateralCRF(net, classes, kv, iterations, generator=gen)
 
 
 @contextlib.contextmanager

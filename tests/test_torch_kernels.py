@@ -61,13 +61,17 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
         (kernels.parent_gemm, kernels.parent_gemm_plain, (x1, upp, upo, w[:8])),
         (kernels.scatter_parent, kernels.scatter_parent_plain,
          (g3, upp, upo, 8, s1)),
+        (kernels.scatter_gemm, kernels.scatter_gemm_plain,
+         (g3, nbr, taps, w, s, s - 1)),
+        (kernels.segment_sum, kernels.segment_sum_plain,
+         (x3.reshape(-1, 4), _idx(lv.batch), b_ + 1)),
     ]
     kernels.reset_launches()
     for fn, plain, args in calls:
         torch.testing.assert_close(fn(*args), plain(*args), rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "gather_gemm": 0, "gather_wgrad": 0, "parent_gemm": 0,
-        "scatter_parent": 0}
+        "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",
@@ -121,6 +125,33 @@ def test_plain_twins_agree_with_dense_definitions(pyr):
     torch.testing.assert_close(stacked, want)
 
 
+def test_scatter_twins_agree_with_dense_definitions(pyr):
+    """scatter_gemm adds ct W^T into the rows the map names (skipping one
+    row), the adjoint of gather_gemm; segment_sum adds rows by id."""
+    rng = np.random.RandomState(7)
+    lv = pyr.levels[3]
+    b_, s = 3, lv.valid.shape[0] // 3
+    nbr = _idx(lv.nbr)
+    g = torch.from_numpy(rng.randn(b_, s, 3).astype(np.float32))
+    w = torch.from_numpy(rng.randn(2, 2, 3).astype(np.float32))
+    got = kernels.scatter_gemm_plain(g, nbr, [5, 9], w, s, s - 1)
+    want = torch.zeros(b_, s, 2)
+    for b in range(b_):
+        for r in range(s):
+            for j, t in enumerate([5, 9]):
+                if nbr[t, b, r] != s - 1:
+                    want[b, nbr[t, b, r]] += g[b, r] @ w[j].T
+    torch.testing.assert_close(got, want)
+    x = torch.from_numpy(rng.randn(b_, s, 2).astype(np.float32))
+    fwd = kernels.gather_gemm_plain(x, nbr, [5, 9], 0, w, None, s)
+    adj = kernels.scatter_gemm_plain(g, nbr, [5, 9], w, s, -1)
+    torch.testing.assert_close((fwd * g).sum(), (x * adj).sum())
+    seg = _idx(lv.batch)
+    rows = torch.from_numpy(rng.randn(b_ * s, 2).astype(np.float32))
+    want = torch.stack([rows[seg == i].sum(0) for i in range(b_ + 1)])
+    torch.testing.assert_close(kernels.segment_sum_plain(rows, seg, b_ + 1), want)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_twins_on_card(pyr):
     """Each CUDA kernel against its plain twin on the card (f32, TF32 off),
@@ -155,6 +186,11 @@ def test_kernels_match_plain_twins_on_card(pyr):
         (kernels.gather_gemm, (x0, down, list(range(8)), 0,
                                torch.randn(8, 3, 4, device=dev, generator=gen),
                                None, s1)),
+        (kernels.scatter_gemm, (torch.randn(b_, s0, 8, device=dev, generator=gen),
+                                nbr, list(range(27)), w27, s0, s0 - 1)),
+        (kernels.segment_sum, (x0.reshape(-1, 3), _idx(lv.batch).to(dev), b_ + 1)),
+        (kernels.segment_sum, (torch.randn(b_ * s0, 70, device=dev, generator=gen),
+                               _idx(lv.batch).to(dev), b_ + 1)),
     ]
     kernels.reset_launches()
     for fn, args in calls:

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
 from pointcontrast_tpu.nn.registry import load_model as j_load_model
 from pointcontrast_tpu.sparse.chunk import build_chunked_pyramid
 from pointcontrast_tpu_torch.data.collate import PairBatch

@@ -40,6 +40,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
 from pointcontrast_tpu_torch.detect import kernels, ops
 from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
 from pointcontrast_tpu_torch.detect.datasets import (

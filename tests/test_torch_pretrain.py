@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
 from pointcontrast_tpu.data import PadScheme as JPadScheme
 from pointcontrast_tpu.data import SyntheticPairDataset as JDataset
 from pointcontrast_tpu.data import collate_pair as j_collate
