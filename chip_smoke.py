@@ -62,9 +62,34 @@ Phases, each printed on its own line:
      SemsegTrainer steps with the expected launch count of every kernel
      (the CRF's by the trainer's coin), one evaluate_dataset pass (mIoU in
      [0, 100]) and the eval outputs;
+     The fourth path, ``semseg hyper`` (MinkUNetHyper14INBN 3 -> 20 at full
+     width), also checks gather_sum and scatter_sum at its three average
+     unpools (block5's output from level 2 to 1 and 1 to 0, block6's from
+     level 1 to 0);
   18. cli semseg: apps.semseg.main on SyntheticSemsegDataset
      (net.dtype=float32): 3 steps, whole-split validation, a checkpoint,
-     then a second call that resumes with nothing left to train.
+     then a second call that resumes with nothing left to train; then the
+     same with net.model=MinkUNetHyper14INBN;
+  the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
+  chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
+  random label per level-5 voxel):
+  19. data: the ResNet batch, bounds-checked (down_nbr3 included);
+  20. for ``resnet18`` and ``resnet50`` (ResNet18 / ResNet50 3 -> 20 at the
+     published widths): K1 at the stem and the stride-1 blocks, the K4 trio
+     (gather_gemm, scatter_gemm, gather_wgrad) at every strided block's k3s2
+     and 1-tap downsample shapes and gather_sum / scatter_sum at the sum
+     pool, against their twins; one forward + backward with a seeded
+     cotangent through the kernels against the plain twins (output and every
+     parameter gradient within RTOL of its largest magnitude); the spread
+     of the plain twins alone between the same input twice and an input one
+     ulp away, with the ReLU gates that flipped (a reading, not a check);
+     3 SGD steps with the expected launch count of every kernel; the eval
+     logits;
+  21. se: SEBasicBlock and SEBottleneck at level 1, 128 channels, kernels
+     against plain twins (forward + backward);
+  22. probes: gather_sum at the Pallas gather probes' shapes
+     (experiments/pallas_gather_probe*.py: K 1 and 27 over a [65536, 32]
+     table, K 27 over [65536, 16]), exact against its twin.
 Every kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  Then
@@ -91,6 +116,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
+RESNET_STEPS = 3
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
 # (the sums run in different orders; gather_wgrad adds row slices with
 # unordered f32 atomics)
@@ -119,7 +145,19 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "three_interpolate_grad": (DETECT_SRC, "pointcontrast_tpu/detect/modules.py:116"),
     "scatter_gemm": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:74"),
     "segment_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:967"),
+    # K5's k2s2 pooling ops (and the function of the nine Pallas gather
+    # probes, experiments/pallas_gather_probe*.py)
+    "gather_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
+    "scatter_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
 }
+# the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
+# (taps K, table rows N, channels C, gathered rows M)
+PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
+          "probes 2, 3 (4 kernels) K27 C32": (27, 65536, 32, 65536),
+          "probe 4 K27 C16": (27, 65536, 16, 65536)}
+# MinkUNetHyper's average unpools: block5's output from level 2 (two), block6's
+# from level 1 (one)
+HYPER_UNPOOLS = 3
 # the H100 SXM's published peaks: HBM bytes/s, and f32 FLOP/s outside the
 # tensor cores (every kernel here is f32 SIMT)
 HBM_BYTES_PER_S = 3.35e12
@@ -374,14 +412,40 @@ def work(name, args, out) -> tuple:
     if name == "segment_sum":
         x, seg, n_seg = args
         return _nbytes(x, seg, *outs), int(((seg >= 0) & (seg < n_seg)).sum()) * x.shape[1]
+    if name == "gather_sum":
+        x3, map_, taps, stride, s_out = args
+        b_, s_in, c = x3.shape
+        rows = _flat_rows(map_, taps, stride, b_, s_out, s_in, x3.device)
+        return (4 * c * rows.unique().numel() + 4 * rows.numel() + _nbytes(*outs),
+                rows.numel() * c)
+    if name == "scatter_sum":
+        g3, map_, taps, stride, s_in, skip = args
+        b_, s_g, c = g3.shape
+        rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
+        kept = int((rows % s_in != skip).sum()) if skip >= 0 else rows.numel()
+        return _nbytes(g3, *outs) + 4 * rows.numel(), kept * c
     raise KeyError(name)
+
+
+def _flat_rows(map_, taps, stride, b_, s_rows, s_table, dev):
+    """[K, B * s_rows] int64 rows of a [B * s_table] table that the listed
+    taps read (frame-local rows offset by their chunk)."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse.kernels import row_index
+
+    base = s_table * torch.arange(b_, device=dev)[:, None]
+    return torch.stack([(row_index(map_, taps, stride, j, b_, s_rows, dev) + base)
+                        .reshape(-1) for j in range(len(taps))])
 
 
 def library_call(name, args):
     """One PyTorch call that computes the same function on the same inputs,
     as a closure (its operands built beforehand), or None where there is
     none: a row gather (``torch.gather``), a scatter-add (``scatter_add_``),
-    a segment sum (``index_add_``), the interpolation and its backward as
+    a segment sum (``index_add_``), the gather-sum (``embedding_bag`` in sum
+    mode, ``index_select`` at one tap) and its adjoint (``index_add_``), the
+    interpolation and its backward as
     one sparse product (``torch.sparse.mm`` with the [B*N, B*M] weight matrix
     in CSR).  The convs (scatter_gemm too) are a gather or scatter and a
     matmul, FPS, ball query and three_nn a loop or a sort after a distance
@@ -408,6 +472,25 @@ def library_call(name, args):
         rows = seg.long()
         buf = x.new_zeros(n_seg, x.shape[1])
         return lambda: buf.zero_().index_add_(0, rows, x)
+    if name == "gather_sum" and args[1] is not None:
+        x3, map_, taps, stride, s_out = args
+        b_, s_in, c = x3.shape
+        table = x3.reshape(b_ * s_in, c)
+        rows = _flat_rows(map_, taps, stride, b_, s_out, s_in, x3.device)
+        if len(taps) == 1:
+            return lambda: torch.index_select(table, 0, rows[0])
+        bags = rows.t().contiguous()  # [B * s_out, K]: one bag per output row
+        return lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum")
+    if name == "scatter_sum" and args[1] is not None:
+        g3, map_, taps, stride, s_in, skip = args
+        b_, s_g, c = g3.shape
+        rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
+        if skip >= 0:  # skipped rows land in a spare row past the table
+            rows = torch.where(rows % s_in == skip, b_ * s_in, rows)
+        rows = rows.reshape(-1)
+        src = g3.reshape(b_ * s_g, c).repeat(len(taps), 1)
+        buf = g3.new_zeros(b_ * s_in + 1, c)
+        return lambda: buf.zero_().index_add_(0, rows, src)[:-1]
     if name in ("three_interpolate", "three_interpolate_grad"):
         src, idx, weight = args[:3]
         b_, n = idx.shape[:2]
@@ -512,21 +595,34 @@ def phase_kernels(checks, module, exact=()):
 def expected_launches(model) -> dict:
     """Sparse-kernel launches of one training step, from the model's conv
     layout: K1 fwd + dF (not for the stem, whose input needs no gradient) +
-    dW; K2 fwd + dF + dW; K3 fwd + scatter + dF + dW; no flat conv and no
-    global pooling."""
+    dW; K2 fwd + dF + dW; K3 fwd + scatter + dF + dW; K4 (a ResNet strided
+    block's k3s2 conv, its 1-tap downsample and, BasicBlock-shaped, its
+    second conv, to which JAX passes no ``rev``) fwd + scatter_gemm dF + dW;
+    the ResNets' k2s2 sum pool and each of MinkUNetHyper's average unpools
+    a gather_sum and its scatter_sum; no flat conv and no global pooling."""
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
+    from pointcontrast_tpu_torch.nn.resnet import ResNetBase, _StridedBlock
+    from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
 
-    convs = [m for m in model.modules() if isinstance(m, SparseConv)]
+    k4 = set()
+    for b in model.modules():
+        if isinstance(b, _StridedBlock):
+            k4 |= {b.conv2, b.downsample_conv} | (set() if b.bottleneck else {b.conv1})
+    convs = [m for m in model.modules() if isinstance(m, SparseConv) and m not in k4]
     n_same = sum(1 for m in convs if m.weight.shape[0] == 27)
     n_down = sum(1 for m in convs if m.weight.shape[0] == 8)
     n_tr = sum(1 for m in model.modules() if isinstance(m, SparseConvTranspose))
+    pools = (isinstance(model, ResNetBase)
+             + HYPER_UNPOOLS * isinstance(model, MinkUNetHyper))
     return {
-        "gather_gemm": n_same + (n_same - 1) + n_down + n_tr,
-        "gather_wgrad": n_same + n_down + n_tr,
+        "gather_gemm": n_same + (n_same - 1) + n_down + n_tr + len(k4),
+        "gather_wgrad": n_same + n_down + n_tr + len(k4),
         "parent_gemm": n_tr + n_down,
         "scatter_parent": n_tr,
-        "scatter_gemm": 0,
+        "scatter_gemm": len(k4),
         "segment_sum": 0,
+        "gather_sum": pools,
+        "scatter_sum": pools,
     }
 
 
@@ -1053,8 +1149,10 @@ def conv_checks(model, batch):
     ``batch`` of a distinct shape, on the forward's own input features (of
     a copy, under no_grad) and random cotangents masked as the outputs: K1
     (fwd, dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF,
-    dW), and the CRF filter's flat conv at B = 1 (fwd, scatter_gemm dF, dW,
-    per group of MAX_TAPS taps, on its first mean-field input)."""
+    dW), K4 (a chunked map with neither ``rev`` nor ``up``: fwd,
+    scatter_gemm dF, dW), and the CRF filter's flat conv at B = 1 (fwd,
+    scatter_gemm dF, dW, per group of MAX_TAPS taps, on its first
+    mean-field input)."""
     import torch
 
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
@@ -1068,6 +1166,9 @@ def conv_checks(model, batch):
 
     def record(kind, name, mod, args, kwargs):
         f = args[0]
+        if kind == "conv" and kwargs.get("up") is None:
+            rev = args[3] if len(args) > 3 else kwargs.get("rev")
+            kind = "k4" if rev is None else "conv"
         key = (kind, tuple(f.shape), tuple(mod.weight.shape),
                tuple(args[1].shape))
         if key not in seen:
@@ -1112,7 +1213,21 @@ def conv_checks(model, batch):
             continue
         f3 = args[0].reshape(nb, -1, cin).contiguous()
         s_in = f3.shape[1]
-        if kind == "conv" and kw.get("up") is None:  # K1
+        if kind == "k4":
+            nbr, valid = args[1], args[2]
+            s_out = nbr.shape[2]
+            ct = _masked_randn((nb, s_out, cout), valid, gen)
+            taps = list(range(k))
+            tag = f"{name} S{s_in}->S{s_out} {k} taps {cin}->{cout}"
+            checks += [
+                ("gather_gemm", f"K4 fwd {tag}", K.gather_gemm,
+                 (f3, nbr, taps, 0, w.contiguous(), None, s_out)),
+                ("scatter_gemm", f"K4 dF {tag}", K.scatter_gemm,
+                 (ct, nbr, taps, w.contiguous(), s_in, s_in - 1)),
+                ("gather_wgrad", f"K4 dW {tag}", K.gather_wgrad,
+                 (f3, nbr, taps, 0, ct, None, None, 0, k, s_out)),
+            ]
+        elif kind == "conv" and kw.get("up") is None:  # K1
             nbr, valid, rev = args[1], args[2], args[3] if len(args) > 3 else kw.get("rev")
             center = next(i for i, r in enumerate(rev) if r == i)
             taps = [i for i in range(k) if i != center]
@@ -1328,8 +1443,8 @@ def phase_semseg(app, model, batch, scenes, device, card, crf):
 
 
 def semseg_paths(device, card, paths):
-    """The three semseg main paths on one batch; adds each one's (kernel
-    checks' numbers, launch counts) to ``paths``."""
+    """The four semseg main paths on one batch; adds each one's (kernel
+    checks' numbers, launch counts) to ``paths``.  Returns the scenes."""
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools import workload as W
@@ -1358,13 +1473,312 @@ def semseg_paths(device, card, paths):
         add_numbers(res, name, r)
     paths["semseg crf"] = (res, phase_semseg("semseg crf", model, batch, scenes,
                                              device, card, W.SEMSEG_CRF))
+    del model
+    model = W.semseg_model(seed=0, model="MinkUNetHyper14INBN")
+    res = phase_kernels(conv_checks(model, batch), K)
+    sparse, detect = inbn_checks(model, batch)
+    exp = model.BLOCK.expansion  # block5's output unpooled twice, block6's once
+    sparse += pool_checks(batch.pyramid, [("unpool", 1, model.PLANES[4] * exp),
+                                          ("unpool", 0, model.PLANES[4] * exp),
+                                          ("unpool", 0, model.PLANES[5] * exp)])
+    for name, r in phase_kernels(sparse, K, exact=("gather_sum",)).items():
+        add_numbers(res, name, r)
+    res.update(phase_kernels(detect, D, exact=("gather_rows",)))
+    paths["semseg hyper"] = (res, phase_semseg("semseg hyper", model, batch, scenes,
+                                               device, card, None))
+    return scenes
 
 
-def phase_cli_semseg():
+def pool_checks(pyramid, specs):
+    """[(kernel, label, fn, args)]: gather_sum and its adjoint scatter_sum
+    at each of ``specs``, (op, level, channels): "sum pool" is the k2s2 sum
+    pool from ``level`` to ``level + 1`` through ``down_nbr`` (8 taps),
+    "unpool" the average unpool from ``level + 1`` to ``level`` through
+    ``up_parent`` (1 tap); random features and cotangents masked as the rows
+    they stand for, the source's pad row left out of the scatter as the ops
+    leave it."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    lv, nb = pyramid.levels, pyramid.num_batch
+    gen = torch.Generator(device=lv[0].valid.device).manual_seed(5)
+    s = [int(l.valid.shape[0]) // nb for l in lv]
+    checks = []
+    for op, l, c in specs:
+        if op == "sum pool":
+            src, dst, m, taps = l, l + 1, lv[l].down_nbr, list(range(8))
+        else:
+            src, dst, m, taps = l + 1, l, lv[l].up_parent[None], [0]
+        f = _masked_randn((nb, s[src], c), lv[src].valid, gen)
+        ct = _masked_randn((nb, s[dst], c), lv[dst].valid, gen)
+        tag = f"{op} L{src}->L{dst} S{s[src]}->S{s[dst]} C{c}"
+        checks += [
+            ("gather_sum", f"{tag} fwd", K.gather_sum, (f, m, taps, 0, s[dst])),
+            ("scatter_sum", f"{tag} bwd", K.scatter_sum,
+             (ct, m, taps, 0, s[src], s[src] - 1)),
+        ]
+    return checks
+
+
+def probe_checks(device):
+    """gather_sum at the Pallas gather probes' own shapes (``PROBES``): a
+    random [1, N, C] table and a random [K, 1, M] index."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    checks = []
+    for label, (k, n, c, m) in PROBES.items():
+        table = torch.randn(1, n, c, device=device, generator=gen)
+        idx = torch.randint(0, n, (k, 1, m), device=device, generator=gen,
+                            dtype=torch.int32)
+        checks.append(("gather_sum", label, K.gather_sum,
+                       (table, idx, list(range(k)), 0, m)))
+    return checks
+
+
+def _compare_runs(app, got):
+    """Hold the kernel run's tensors to the plain run's: each one's max
+    error within RTOL of its largest magnitude.  Returns the worst ratio."""
+    worst, failures = 0.0, []
+    for name, want in got["plain"].items():
+        err = float((got["kernels"][name] - want).abs().max())
+        ref = float(want.abs().max())
+        if not err <= RTOL * ref:
+            failures.append((name, err, ref))
+        worst = max(worst, err / ref if ref else 0.0)
+    if failures:
+        raise AssertionError(f"{app}: kernels differ from the plain twins: "
+                             f"{failures[:5]}")
+    return worst
+
+
+def _kernels_vs_plain(model, x, ct, run, device):
+    """{"kernels": tensors, "plain": tensors} of ``run(model, x)`` in train
+    mode: the output (a forward through the kernels, and one through the
+    plain twins), and the gradients of the input and every parameter from
+    ``ct``, backpropagated twice through one forward of the kernels: once
+    through the kernels, once through the twins.  Both backward passes see
+    the same ReLU gates: two forwards that differ in the last bit open or
+    shut the few gates whose inputs sit within rounding of zero, and each
+    such gate moves the parameter gradients by ~1e-3 of their largest
+    magnitude, whichever forward is right.  ``_ulp_spread`` reads that
+    spread on the card from the plain twins alone."""
+    import torch
+
+    from pointcontrast_tpu_torch.tools.workload import plain_ops
+
+    m = copy.deepcopy(model).to(device).train()
+    x = x.detach().clone().requires_grad_(x.is_floating_point())
+    with plain_ops(), torch.no_grad():
+        out_plain = run(m, x)
+    out = run(m, x)
+    got = {}
+    for mode in ("kernels", "plain"):
+        m.zero_grad(set_to_none=True)
+        x.grad = None
+        with plain_ops() if mode == "plain" else contextlib.nullcontext():
+            out.backward(ct, retain_graph=mode == "kernels")
+        torch.cuda.synchronize()
+        got[mode] = {n: p.grad.clone() for n, p in m.named_parameters()}
+        if x.grad is not None:
+            got[mode]["input"] = x.grad.clone()
+    got["kernels"]["output"], got["plain"]["output"] = out.detach(), out_plain
+    return got
+
+
+def _ulp_spread(model, x, ct, run, device):
+    """The witness for ``_kernels_vs_plain``'s form: three train-mode
+    forward + backward passes through the plain twins alone, from the same
+    weights and cotangent, on ``x``, on ``x`` again, and on ``x`` moved one
+    ulp up at every nonzero entry.  Returns {"same": r, "ulp": r} for the
+    second and third pass against the first, r = (the output's max error
+    over its largest magnitude, the worst such ratio over the parameter
+    gradients, ReLU gates that flipped, ReLU gates in all)."""
+    import torch
+
+    from pointcontrast_tpu_torch.nn import resnet, resnet_block
+    from pointcontrast_tpu_torch.tools.workload import plain_ops
+
+    gates = []
+
+    def relu(f):
+        gates[-1].append(f > 0)
+        return torch.relu(f)
+
+    mods = (resnet, resnet_block)
+    saved = [mod.relu for mod in mods]
+    up = torch.where(x != 0, torch.nextafter(x, torch.full_like(x, math.inf)), x)
+    runs = []
+    try:
+        for mod in mods:
+            mod.relu = relu
+        for xi in (x, x, up):
+            m = copy.deepcopy(model).to(device).train()
+            gates.append([])
+            with plain_ops():
+                out = run(m, xi)
+                out.backward(ct)
+            runs.append({"output": out.detach(),
+                         **{n: p.grad for n, p in m.named_parameters()}})
+            del m, out
+    finally:
+        for mod, fn in zip(mods, saved):
+            mod.relu = fn
+
+    def rel(a, b):
+        ref = float(a.abs().max())
+        return float((b - a).abs().max()) / ref if ref else 0.0
+
+    spread = {}
+    for key, i in (("same", 1), ("ulp", 2)):
+        grads = max(rel(runs[0][n], runs[i][n]) for n in runs[0] if n != "output")
+        flipped = sum(int((a != b).sum()) for a, b in zip(gates[0], gates[i]))
+        spread[key] = (rel(runs[0]["output"], runs[i]["output"]), grads, flipped,
+                       sum(g.numel() for g in gates[0]))
+    return spread
+
+
+def phase_resnet(app, model, batch, device, card):
+    """A ResNet main path on the ResNet workload: one forward + backward
+    with a fixed seeded cotangent through the kernels against the plain
+    twins (``_kernels_vs_plain``: the output and every parameter gradient
+    within RTOL of its largest magnitude; scatter_gemm and gather_wgrad add
+    with atomics),
+    then RESNET_STEPS SGD steps with finite losses and the expected launch
+    count of every kernel, and the eval logits."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.semseg.train import SemsegConfig
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+    from pointcontrast_tpu_torch.train import optim
+
+    expect = expected_launches(model)
+    say("model", app=app, name=type(model).__name__,
+        params=sum(p.numel() for p in model.parameters()), per_step=expect)
+    valid = batch.pyramid.levels[-1].valid
+    gen = torch.Generator(device=device).manual_seed(6)
+    ct = torch.randn(valid.shape[0], W.SEMSEG_CLASSES, device=device,
+                     generator=gen) * valid[:, None]
+
+    def run(m, x):
+        return m(x, batch.pyramid)
+
+    got = _kernels_vs_plain(model, batch.feats, ct, run, device)
+    worst = _compare_runs(app, got)
+    say("parity", app=app, tensors=len(got["plain"]), worst_rel=f"{worst:.2e}",
+        rtol=RTOL)
+    del got
+    for key, (out_rel, grad_rel, flipped, gates) in _ulp_spread(
+            model, batch.feats, ct, run, device).items():
+        say("spread", app=app, input=key, output_rel=f"{out_rel:.2e}",
+            worst_grad_rel=f"{grad_rel:.2e}", relu_flipped=flipped, relu_gates=gates)
+
+    cfg = SemsegConfig(lr=0.1, momentum=0.9, weight_decay=1e-4, max_iter=60000)
+    m = copy.deepcopy(model).to(device)
+    opt = optim.make_optimizer(m, cfg)
+    sched = optim.make_scheduler(opt, cfg, cfg.scheduler)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    D.reset_launches()
+    losses, step_ms = [], []
+    for i in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(W.resnet_step(m, opt, sched, batch)))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        say("step", app=app, iter=i + 1, loss=f"{losses[-1]:.6f}",
+            step_ms=f"{step_ms[-1]:.1f}")
+    torch.cuda.synchronize()
+    counts = {**K.launch_counts(), **D.launch_counts()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * RESNET_STEPS for k, v in expect.items()})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{app}: non-finite losses: {losses}")
+    if counts != want:
+        raise AssertionError(f"{app}: launch counts {counts} != expected {want}")
+    steady = statistics.median(step_ms[1:])
+    say("slice", app=app, steps=RESNET_STEPS, launches=counts,
+        ms_per_step=f"{steady:.1f}",
+        scenes_per_s=f"{batch.num_samples / (steady / 1e3):.2f}",
+        first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
+        card=repr(card))
+    m.eval()
+    with torch.no_grad():
+        out = m(batch.feats, batch.pyramid)
+    if (tuple(out.shape) != (valid.shape[0], W.SEMSEG_CLASSES)
+            or not bool(torch.isfinite(out).all()) or bool(out[valid == 0].any())):
+        raise AssertionError(f"{app}: bad logits {tuple(out.shape)}")
+    say("output", app=app, shape=tuple(out.shape), valid_rows=int(valid.sum()))
+    return counts
+
+
+def phase_se_blocks(batch, device):
+    """SEBasicBlock(128 -> 128) and SEBottleneck(128 -> 32 x 4) at level 1
+    of ``batch``: one forward + backward with a seeded cotangent through
+    the kernels against the plain twins (``_kernels_vs_plain``: output,
+    input gradient and every parameter gradient within RTOL of its largest
+    magnitude)."""
+    import torch
+
+    from pointcontrast_tpu_torch.nn.senet_block import SEBasicBlock, SEBottleneck
+
+    lv, nb = batch.pyramid.levels[1], batch.pyramid.num_batch
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(lv.valid.shape[0], 128, device=device, generator=gen) * lv.valid[:, None]
+    ct = torch.randn(x.shape, device=device, generator=gen) * lv.valid[:, None]
+
+    def run(block, x):
+        return block(x, lv.nbr, lv.valid, lv.rev, lv.batch, nb)
+
+    for cls, planes in ((SEBasicBlock, 128), (SEBottleneck, 32)):
+        block = cls(128, planes, 27, 0.02, generator=torch.Generator().manual_seed(0))
+        got = _kernels_vs_plain(block, x, ct, run, device)
+        worst = _compare_runs(cls.__name__, got)
+        say("se", block=cls.__name__, rows=int(lv.valid.sum()), channels=128,
+            tensors=len(got["plain"]), worst_rel=f"{worst:.2e}", rtol=RTOL)
+
+
+def resnet_paths(device, card, paths, scenes):
+    """The ResNet18 and ResNet50 main paths on the ResNet workload's batch
+    (the semseg workload's ``scenes``); adds each one's (kernel checks'
+    numbers, launch counts) to ``paths``; then the SE blocks."""
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    t0 = time.perf_counter()
+    host = W.resnet_batch(scenes)
+    batch = host.to(device)
+    pyr = batch.pyramid
+    nb = pyr.num_batch
+    say("data", app="resnet", seconds=f"{time.perf_counter() - t0:.1f}", chunks=nb,
+        chunk_rows=[int(l.valid.shape[0]) // nb for l in pyr.levels],
+        valid_rows=[int(l.valid.sum()) for l in pyr.levels],
+        truncated=host.truncated_voxels,
+        labelled_rows=int((batch.labels != 255).sum()))
+    for name in ("ResNet18", "ResNet50"):
+        model = W.resnet_model(seed=0, model=name)
+        res = phase_kernels(conv_checks(model, batch), K)
+        pools = pool_checks(pyr, [("sum pool", 0, model.INIT_DIM)])
+        for kernel, r in phase_kernels(pools, K, exact=("gather_sum",)).items():
+            add_numbers(res, kernel, r)
+        paths[name.lower()] = (res, phase_resnet(name.lower(), model, batch, device,
+                                                 card))
+        del model
+    phase_se_blocks(batch, device)
+
+
+def phase_cli_semseg(model=None):
     """``apps.semseg.main`` on the card with the shipped config on
-    ``SyntheticSemsegDataset`` and ``net.dtype=float32``: 3 steps, one
-    whole-split validation, a checkpoint; a second call resumes from it and
-    has nothing left to train."""
+    ``SyntheticSemsegDataset`` and ``net.dtype=float32`` (and
+    ``net.model=<model>`` when given): 3 steps, one whole-split validation,
+    a checkpoint; a second call resumes from it and has nothing left to
+    train."""
     import torch
 
     from pointcontrast_tpu_torch.apps import semseg as app
@@ -1376,7 +1790,10 @@ def phase_cli_semseg():
     args = ["data.dataset=SyntheticSemsegDataset", "net.dtype=float32",
             "optimizer.max_iter=3", "train.stat_freq=1", "train.val_freq=3",
             "train.save_freq=1000", f"train.out_dir={out}",
-            "distributed.num_devices=1"]
+            "distributed.num_devices=1"] + ([f"net.model={model}"] if model else [])
+    needed = ["gather_gemm", "gather_wgrad", "parent_gemm", "scatter_parent"]
+    if model == "MinkUNetHyper14INBN":
+        needed += ["gather_sum", "scatter_sum", "segment_sum"]
     t0 = time.perf_counter()
     K.reset_launches()
     trainer, history = app.main(args)
@@ -1388,14 +1805,16 @@ def phase_cli_semseg():
             or trainer.device.type != "cuda" or not 0.0 <= trainer.best_miou <= 100.0):
         raise AssertionError("the semseg CLI run did not train, validate, save "
                              "and stay on the card")
-    if not all(first[k] for k in ("gather_gemm", "gather_wgrad", "parent_gemm",
-                                  "scatter_parent")):
+    if model and type(trainer.model).__name__ != model:
+        raise AssertionError(f"the semseg CLI trained {type(trainer.model).__name__}")
+    if not all(first[k] for k in needed):
         raise AssertionError(f"the semseg CLI run missed a kernel: {first}")
     K.reset_launches()
     resumed, again = app.main(args)
     if resumed.curr_iter != 3 or again or any(K.launch_counts().values()):
         raise AssertionError("the resumed semseg CLI run trained again")
-    say("cli", app="semseg", seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
+    say("cli", app="semseg", model=type(trainer.model).__name__,
+        seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
         best_miou=f"{trainer.best_miou:.4f}", launches=first,
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_iter=resumed.curr_iter)
     shutil.rmtree(out, ignore_errors=True)
@@ -1466,8 +1885,13 @@ def main() -> int:
     phase_boxnet(pbatches, device)
     del pbatches
     phase_cli()
-    semseg_paths(device, card, paths)
+    scenes = semseg_paths(device, card, paths)
     phase_cli_semseg()
+    phase_cli_semseg("MinkUNetHyper14INBN")
+    resnet_paths(device, card, paths, scenes)
+    del scenes
+    res = phase_kernels(probe_checks(device), K, exact=("gather_sum",))
+    paths["pallas probes"] = (res, {})  # no main path: checked at their shapes
     kernels = kernels_line(paths)
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,9 +37,17 @@ DEFAULT_CONFIG = os.path.join(
 def check_supported(cfg, device: torch.device) -> None:
     """Raise on what the port does not run yet, so that a run never does
     something other than what its config asks for."""
+    from pointcontrast_tpu_torch.nn.registry import load_model
+    from pointcontrast_tpu_torch.nn.resnet import ResNetBase
     from pointcontrast_tpu_torch.semseg.datasets import load_dataset
 
     load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
+    if issubclass(load_model(cfg.net.model), ResNetBase):
+        raise ValueError(
+            f"net.model={cfg.net.model}: a ResNet's logits sit at level 5 "
+            "(stride 32), not at the labelled level-0 rows, so it cannot "
+            "train semantic segmentation; pick a U-Net (Res16UNet*, ResUNet*, "
+            "MinkUNetHyper14INBN)")
     dtype = str(cfg.net.get("dtype", "float32"))
     if dtype != "float32":
         raise NotImplementedError(

@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the sparse convolutions and the
 // per-sample pooling: the same-level 3x3x3 conv, the k2s2 down conv, the
-// k2s2 transposed conv and the flat-map conv, forward and backward, and the
-// segment sum under global pooling (see pointcontrast_tpu_torch/sparse/
-// kernels.py for the Python wrappers, their plain-torch twins and which JAX
-// op each one replaces).
+// k2s2 transposed conv, the k3s2 down conv and the flat-map conv, forward
+// and backward, the segment sum under global pooling, and the gather-sum
+// under the k2s2 sum / average pooling and unpooling, with its adjoint (see
+// pointcontrast_tpu_torch/sparse/kernels.py for the Python wrappers, their
+// plain-torch twins and which JAX op each one replaces).
 //
 // Layout (chunked): a feature table is [B, S, C] row-major f32 with each
 // chunk's last row a pad row whose features are exactly zero.  A gather map
@@ -423,6 +424,95 @@ segment_sum_kernel(const float* __restrict__ X, const int* __restrict__ seg,
   }
 }
 
+// (g) out[b,s,:] = sum_j X[b, row(j,b,s), :] over the T listed taps, added
+// in tap order from zero, as JAX's sum(...) of row gathers adds them (so the
+// result equals the plain twin bit for bit).  No multiply: the work is one
+// read of each gathered row and one write of each output row, so the kernel
+// is bound by HBM bytes; each thread owns V consecutive channels of one
+// output row (V = 4: float4 loads and stores, when C % 4 == 0 and both
+// tables are 16-byte aligned; else V = 1), and neighbouring threads take
+// neighbouring channels, so a warp reads whole gathered rows.  Rows outside
+// [0, S_in) add nothing.
+// grid-stride over B * S_out * C / V threads
+template <int V>
+__global__ void __launch_bounds__(256)
+gather_sum_kernel(const float* __restrict__ X, const int* __restrict__ map,
+                  TapList taps, int tap_stride, int T, float* __restrict__ out,
+                  int B, int S_in, int S_out, int C) {
+  const int CV = C / V;
+  const int64_t total = (int64_t)B * S_out * CV;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = e / CV;  // b * S_out + s
+    const int cv = (int)(e % CV);
+    const int b = (int)(i / S_out), s = (int)(i % S_out);
+    const float* Xb = X + (int64_t)b * S_in * C + (int64_t)cv * V;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int j = 0; j < T; ++j) {
+      const int r = row_of(map, taps, tap_stride, j, b, s, B, S_out);
+      if (r < 0 || r >= S_in) continue;
+      if constexpr (V == 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(Xb + (int64_t)r * C));
+        acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+      } else {
+        acc[0] += __ldg(Xb + (int64_t)r * C);
+      }
+    }
+    float* o = out + i * C + (int64_t)cv * V;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      o[0] = acc[0];
+    }
+  }
+}
+
+// (h) out[b, row(j,b,s), :] += G[b,s,:] for every listed tap j, rows equal
+// to `skip` (or outside [0, S_out)) left out: the adjoint of (g).  Each
+// thread reads its V channels of one G row once and adds them to the T
+// destination rows with f32 atomics (bound by the atomics: pooling's valid
+// children are unique and meet only at the pad row, which `skip` leaves
+// out; unpooling's adjoint adds up to 8 children into one parent).
+// grid-stride over B * S_g * C / V threads
+template <int V>
+__global__ void __launch_bounds__(256)
+scatter_sum_kernel(const float* __restrict__ G, const int* __restrict__ map,
+                   TapList taps, int tap_stride, int T, float* __restrict__ out,
+                   int B, int S_g, int S_out, int C, int skip) {
+  const int CV = C / V;
+  const int64_t total = (int64_t)B * S_g * CV;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = e / CV;  // b * S_g + s
+    const int cv = (int)(e % CV);
+    const int b = (int)(i / S_g), s = (int)(i % S_g);
+    float g[V];
+    if constexpr (V == 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(G + i * C) + cv);
+      g[0] = x.x; g[1] = x.y; g[2] = x.z; g[3] = x.w;
+    } else {
+      g[0] = __ldg(G + i * C + cv);
+    }
+    float* ob = out + (int64_t)b * S_out * C + (int64_t)cv * V;
+    for (int j = 0; j < T; ++j) {
+      const int r = row_of(map, taps, tap_stride, j, b, s, B, S_g);
+      if (r == skip || r < 0 || r >= S_out) continue;
+#pragma unroll
+      for (int v = 0; v < V; ++v) atomicAdd(ob + (int64_t)r * C + v, g[v]);
+    }
+  }
+}
+
+int grid_stride_blocks(int64_t total) {
+  int64_t blocks = (total + 255) / 256;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -490,6 +580,42 @@ int pc_segment_sum(const void* X, const void* seg, void* out, int N, int C,
   dim3 grid((N + SEG_ROWS - 1) / SEG_ROWS, (C + 31) / 32);
   segment_sum_kernel<<<grid, dim3(32, SEG_Y), 0, (cudaStream_t)stream>>>(
       (const float*)X, (const int*)seg, (float*)out, N, C, S);
+  return (int)cudaGetLastError();
+}
+
+int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,
+                  int T, void* out, int B, int S_in, int S_out, int C,
+                  void* stream) {
+  const bool vec = C % 4 == 0 && aligned16(X) && aligned16(out);
+  const int64_t total = (int64_t)B * S_out * (vec ? C / 4 : C);
+  const int blocks = grid_stride_blocks(total);
+  if (vec) {
+    gather_sum_kernel<4><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)map, taps, tap_stride, T, (float*)out, B,
+        S_in, S_out, C);
+  } else {
+    gather_sum_kernel<1><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)map, taps, tap_stride, T, (float*)out, B,
+        S_in, S_out, C);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
+                   int T, void* out, int B, int S_g, int S_out, int C, int skip,
+                   void* stream) {
+  const bool vec = C % 4 == 0 && aligned16(G);
+  const int64_t total = (int64_t)B * S_g * (vec ? C / 4 : C);
+  const int blocks = grid_stride_blocks(total);
+  if (vec) {
+    scatter_sum_kernel<4><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B,
+        S_g, S_out, C, skip);
+  } else {
+    scatter_sum_kernel<1><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B,
+        S_g, S_out, C, skip);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,8 @@ def _check_below(name: str, a: np.ndarray, bound: int) -> None:
 
 def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     """Layout-aware bounds check of a host chunked pyramid, per chunk:
-    ``nbr < S_l``, ``down_nbr < S_l``, ``up_parent < S_{l+1}`` and
+    ``nbr < S_l``, ``down_nbr < S_l`` (and ``down_nbr3``, where built),
+    ``up_parent < S_{l+1}`` and
     ``up_offset < 2^D``, and the sample ids ``batch <= B`` (``B``: pad
     rows) that global pooling reads.  Returns the chunk rows ``S_l`` of
     every level; raises ``ValueError`` naming the first map out of range."""
@@ -104,6 +105,10 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
         if lv.up_parent.shape != (nb, s) or lv.up_offset.shape != (nb, s):
             raise ValueError(f"level {l} up maps: shape {lv.up_parent.shape}")
         _check_below(f"level {l} down_nbr", lv.down_nbr, s)
+        if lv.down_nbr3 is not None:
+            if lv.down_nbr3.shape[1:] != (nb, s_next):
+                raise ValueError(f"level {l} down_nbr3: shape {lv.down_nbr3.shape}")
+            _check_below(f"level {l} down_nbr3", lv.down_nbr3, s)
         _check_below(f"level {l} up_parent", lv.up_parent, s_next)
         _check_below(f"level {l} up_offset", lv.up_offset, k_up)
     return sizes
@@ -122,6 +127,7 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
             up_parent=_to_index(lv.up_parent, device),
             up_offset=_to_index(lv.up_offset, device),
             nbr0=_to_index(lv.nbr0, device),
+            down_nbr3=_to_index(lv.down_nbr3, device),
             rev=lv.rev,
             rev0=lv.rev0,
         )

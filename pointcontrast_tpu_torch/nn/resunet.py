@@ -7,7 +7,9 @@ concat (+ stage for the first two)] decoder -> 1x1 to 512, BN (momentum
 0.1), ReLU -> 1x1 head.  As in the reference, block5/6 run before the next
 transpose conv and the last skip concat feeds the final MLP directly.
 Submodules carry the flax names (``conv1p1s1``, ``bn1``, ``block1_0``,
-``convtr4p8s2``, ``final_fc``, ``final_bn``, ``final``).
+``convtr4p8s2``, ``final_fc``, ``final_bn``, ``final``).  ``MinkUNetHyper``
+adds the hypercolumn: block5's and block6's outputs are average-unpooled
+to level 0 and concatenated after the last skip concat.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from pointcontrast_tpu_torch.nn.resnet_block import (
     BasicBlockINBN,
     Bottleneck,
 )
+from pointcontrast_tpu_torch.sparse import ops
 
 NUM_LEVELS = 4  # strides 1, 2, 4, 8
 
@@ -69,9 +72,14 @@ class MinkUNetBase(nn.Module):
             c = planes + skip_channels[2 - d]
             if d < 2:
                 c = stage(f"block{5 + d}", c, planes, self.LAYERS[4 + d])
-        self.final_fc = SparseLinear(c, 512, bias=False, generator=g)
+        self.final_fc = SparseLinear(c + self._head_extra(), 512, bias=False,
+                                     generator=g)
         self.final_bn = MaskedBatchNorm(512, 0.1)
         self.final = SparseLinear(512, out_channels, bias=True, generator=g)
+
+    def _head_extra(self) -> int:
+        """Channels the head takes beyond the last skip concat's."""
+        return 0
 
     def _stage(self, x, lv, name, blocks, num_batch):
         for i in range(blocks):
@@ -79,13 +87,13 @@ class MinkUNetBase(nn.Module):
                                               lv.batch, num_batch)
         return x
 
-    def forward(self, features, pyramid):
-        """features: [B*S_0, in_channels] (padded rows zero); pyramid: a
-        chunked ``Pyramid`` with at least NUM_LEVELS levels of tensors."""
+    def _trunk(self, features, pyramid):
+        """(the last skip concat at level 0, [block5's output at level 2,
+        block6's at level 1])."""
         lv = pyramid.levels
         nb = pyramid.num_batch
         if len(lv) < NUM_LEVELS:
-            raise ValueError("MinkUNet needs a 4-level pyramid")
+            raise ValueError(f"{type(self).__name__} needs a 4-level pyramid")
         nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
         rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
         out = relu(self.bn1(self.conv1p1s1(features, nbr0, lv[0].valid, rev0),
@@ -100,6 +108,7 @@ class MinkUNetBase(nn.Module):
             out = self._stage(out, lv[s + 1], f"block{s + 2}", self.LAYERS[s + 1], nb)
             if s < 2:
                 skips.append(out)
+        stages = []
         for d in range(3):
             lvl = 2 - d
             out = getattr(self, f"convtr{4 + d}p{2 ** (3 - d)}s2")(
@@ -108,8 +117,18 @@ class MinkUNetBase(nn.Module):
             out = torch.cat([out, skips[lvl]], dim=1)
             if d < 2:
                 out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d], nb)
-        out = relu(self.final_bn(self.final_fc(out, lv[0].valid), lv[0].valid))
-        return self.final(out, lv[0].valid)
+                stages.append(out)
+        return out, stages
+
+    def _head(self, out, valid):
+        out = relu(self.final_bn(self.final_fc(out, valid), valid))
+        return self.final(out, valid)
+
+    def forward(self, features, pyramid):
+        """features: [B*S_0, in_channels] (padded rows zero); pyramid: a
+        chunked ``Pyramid`` with at least NUM_LEVELS levels of tensors."""
+        out, _ = self._trunk(features, pyramid)
+        return self._head(out, pyramid.levels[0].valid)
 
 
 class ResUNet14(MinkUNetBase):
@@ -161,3 +180,28 @@ class ResUNet34F(ResUNet34):
 
 class ResUNet18INBN(ResUNet18):
     BLOCK = BasicBlockINBN
+
+
+class MinkUNetHyper(MinkUNetBase):
+    """Hypercolumn variant: block5's output (level 2) and block6's (level 1)
+    are average-unpooled to level 0, one parent gather per level, and the
+    head takes the concatenation [out, up(block6), up(block5)]."""
+
+    def _head_extra(self) -> int:
+        return (self.PLANES[4] + self.PLANES[5]) * self.BLOCK.expansion
+
+    def forward(self, features, pyramid):
+        lv = pyramid.levels
+        out, stages = self._trunk(features, pyramid)
+        hyper = []
+        for x, lvl in zip(stages, (2, 1)):
+            for l in range(lvl - 1, -1, -1):
+                x = ops.sparse_avg_unpool(x, lv[l].up_parent, lv[l].valid)
+            hyper.append(x)
+        out = torch.cat([out] + hyper[::-1], dim=1)
+        return self._head(out, lv[0].valid)
+
+
+class MinkUNetHyper14INBN(MinkUNetHyper):
+    BLOCK = BasicBlockINBN
+    LAYERS = (1, 1, 1, 1, 1, 1)

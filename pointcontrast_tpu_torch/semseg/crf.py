@@ -5,8 +5,9 @@ The segmentation logits are refined by mean-field iterations of softmax ->
 pairwise sparse conv in a bilateral grid -> + unary.  The grid lives in 6-D,
 floor(xyz / sigma_s) (+) floor(rgb / sigma_c) (7-D with time); its
 neighbour map is built on the host with the pyramid's own hash join, so the
-filter is a flat-map ``sparse_conv`` (``ops._ConvFlat``: gather_gemm
-forward, scatter_gemm / gather_wgrad backward, any number of taps).
+filter is a flat-map ``sparse_conv`` (``ops._ConvChunkDownFused`` at
+B = 1: gather_gemm forward, scatter_gemm / gather_wgrad backward, any
+number of taps).
 
 The reference skips the filter with p = 0.5 during training to keep the
 backbone filter-invariant; callers choose with ``apply_filter``.

@@ -30,6 +30,7 @@ def build_chunked_pyramid(
     npads: list[int],
     num_batch: int | None = None,
     conv0_kernel_size: int = 3,
+    build_down3: bool = False,
     allow_truncate: bool = True,
 ):
     """Build per-sample pyramids and stack them into chunked-level arrays.
@@ -77,6 +78,7 @@ def build_chunked_pyramid(
             npads=s_lvls,
             num_batch=1,
             allow_truncate=allow_truncate,
+            build_down3=build_down3,
         )
         sample_levels.append(pyr_b.levels)
         sample_metas.append(meta_b)
@@ -107,6 +109,7 @@ def build_chunked_pyramid(
                 valid=valid,
                 batch=batch,
                 down_nbr=stacked("down_nbr"),
+                down_nbr3=stacked("down_nbr3"),
                 up_parent=stacked("up_parent", axis=0),
                 up_offset=stacked("up_offset", axis=0),
                 nbr0=stacked("nbr0"),

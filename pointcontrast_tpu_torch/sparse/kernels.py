@@ -16,17 +16,26 @@ read at tap ``taps[j]`` (``map_ is not None``) or, for a stacked table,
 as ``j * tap_stride + s``.  ``row_index`` spells that out.
 
 Which JAX op each kernel replaces (all in ``pointcontrast_tpu/sparse/ops.py``,
-custom-VJP XLA programs; the package has no Pallas kernel on this path):
+custom-VJP XLA programs, except the Pallas probes):
   gather_gemm    K1 ``_conv_chunk_fused`` fwd and dF, K2 ``_conv_chunk_down2``
-                 fwd, K3 ``_conv_tr_chunk`` dF (stacked table)
-  gather_wgrad   K1/K2/K3 dW
+                 fwd, K3 ``_conv_tr_chunk`` dF (stacked table), K4
+                 ``_conv_chunk_down_fused`` fwd
+  gather_wgrad   K1/K2/K3/K4 dW
   parent_gemm    K3 fwd, K2 dF (with W_k^T)
   scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table
   scatter_gemm   the flat-map conv ``_conv_core``'s dF (its autodiff: a
-                 scatter of ct W_k^T at the map's rows); its forward is
-                 gather_gemm and its dW gather_wgrad, at B = 1
+                 scatter of ct W_k^T at the map's rows; its forward is
+                 gather_gemm and its dW gather_wgrad, at B = 1), and K4's dF
+                 (children of overlapping k3s2 windows have many parents)
   segment_sum    ``global_pool``'s segment sum and ``broadcast_to_points``'
                  backward (the adjoint of its row gather)
+  gather_sum     K5 ``sparse_sum_pool``, ``sparse_avg_pool`` (and its count
+                 of present children, at C = 1) and ``sparse_avg_unpool``
+                 (K = 1, the parent gather); also the function of the nine
+                 Pallas gather probes (``experiments/pallas_gather_probe*.py``:
+                 ``table[idx]`` and ``sum_k table[nbr[k]]``, as [1, N, C]
+                 tables and [K, 1, M] maps)
+  scatter_sum    the pooling ops' backward, the adjoint of gather_sum
 What bounds them on an H100: the gather kernels read every gathered row once
 per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
@@ -35,7 +44,10 @@ rows and weights in shared memory and keeps a 4x4 register tile per thread.
 scatter_parent is bound by atomics on HBM; its valid rows never collide.
 scatter_gemm adds every product with an f32 atomic; segment_sum reads each
 row once (bound by HBM bytes) and adds one atomic per block, segment and
-channel.
+channel.  gather_sum does no multiply: it reads each gathered row once and
+writes each output row once (bound by HBM bytes), float4 along C; its
+adjoint scatter_sum reads each cotangent row once and adds it with f32
+atomics.
 """
 from __future__ import annotations
 
@@ -77,6 +89,8 @@ def _lib():
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, ci, ci, ci, ci, ci,
                             ci, vp],
         "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
+        "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
+        "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
     })
 
 
@@ -366,6 +380,84 @@ def segment_sum(x, seg, num_segments: int):
     return out
 
 
+# --------------------------------------------------------------------------
+# (g) gather_sum
+
+
+def gather_sum_plain(x3, map_, taps, tap_stride, s_out):
+    b_, _, c = x3.shape
+    out = x3.new_zeros(b_, s_out, c)
+    for j in range(len(taps)):
+        out = out + take_rows(x3, row_index(map_, taps, tap_stride, j, b_, s_out,
+                                            x3.device))
+    return out
+
+
+def gather_sum(x3, map_, taps, tap_stride, s_out):
+    """out[b,s] = sum_j x3[b, row(j,b,s)] over the listed taps, added in tap
+    order from zero (as JAX's ``sum`` of row gathers; the card's result
+    equals the twin's bit for bit).
+
+    x3 [B, S_in, C]; map [K, B, s_out] read at ``taps`` (or, with no map,
+    len(taps) stacked blocks of ``tap_stride`` rows); returns [B, s_out, C].
+    One tap is a row gather."""
+    b_, s_in, c = x3.shape
+    _check_rows("gather_sum", map_, taps, tap_stride, len(taps), b_, s_out, s_in)
+    if _use_plain(x3):
+        return gather_sum_plain(x3, map_, taps, tap_stride, s_out)
+    _require(x3, "x3", torch.float32, 3)
+    _require(map_, "map", torch.int32, 3)
+    if not 0 < len(taps) <= MAX_TAPS:
+        raise ValueError(f"{len(taps)} taps: 1 to {MAX_TAPS}")
+    out = torch.empty(b_, s_out, c, device=x3.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    rc = _lib().pc_gather_sum(
+        _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
+        _ptr(out), b_, s_in, s_out, c, _stream())
+    _check(rc, "gather_sum")
+    gather_sum.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# (h) scatter_sum
+
+
+def scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip):
+    b_, s_g, c = g3.shape
+    out = g3.new_zeros(b_, s_in, c)
+    for j in range(len(taps)):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_g, g3.device)
+        y = torch.where((idx != skip)[..., None], g3, 0.0)
+        out.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), y)
+    return out
+
+
+def scatter_sum(g3, map_, taps, tap_stride, s_in, skip):
+    """out[b, row(j,b,s)] += g3[b,s] for every listed tap, except where the
+    row is ``skip`` (-1: none): the adjoint of ``gather_sum`` into a
+    [B, s_in, C] table.  A row named many times gets f32 atomics on the
+    card, in an order that differs from run to run."""
+    b_, s_g, c = g3.shape
+    _check_rows("scatter_sum", map_, taps, tap_stride, len(taps), b_, s_g, s_in)
+    if _use_plain(g3):
+        return scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip)
+    _require(g3, "g3", torch.float32, 3)
+    _require(map_, "map", torch.int32, 3)
+    if not 0 < len(taps) <= MAX_TAPS:
+        raise ValueError(f"{len(taps)} taps: 1 to {MAX_TAPS}")
+    out = torch.zeros(b_, s_in, c, device=g3.device, dtype=torch.float32)
+    if g3.numel() == 0:
+        return out
+    rc = _lib().pc_scatter_sum(
+        _ptr(g3), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
+        _ptr(out), b_, s_g, s_in, c, int(skip), _stream())
+    _check(rc, "scatter_sum")
+    scatter_sum.launches += 1
+    return out
+
+
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
-           scatter_gemm, segment_sum)
+           scatter_gemm, segment_sum, gather_sum, scatter_sum)
 reset_launches()

@@ -1,7 +1,7 @@
-"""Sparse ops: convolutions, global pooling, masking, masked moments.
+"""Sparse ops: convolutions, pooling, masking, masked moments.
 
 Port of the chunked branches of ``pointcontrast_tpu/sparse/ops.py``, its
-flat-map conv and its per-sample pooling.  Each convolution is a
+flat-map conv and its per-sample and k2s2 pooling.  Each convolution is a
 ``torch.autograd.Function`` carrying the JAX op's backward, built from the
 kernels in ``sparse.kernels``:
 
@@ -11,12 +11,15 @@ kernels in ``sparse.kernels``:
      dF is a gather through the functional child -> (parent, offset) map;
   K3 ``_ConvTrChunk`` (JAX ``_conv_tr_chunk``): k2s2 transposed conv, one
      scatter-add of the cotangent into the stacked [8*S_c, Cout] table;
-  ``_ConvFlat`` (JAX ``_conv_core`` on a flat [K, N] map, e.g. the CRF's
-     bilateral grid): gather_gemm at B = 1, and JAX's autodiff backward,
-     dF by scatter_gemm and dW by gather_wgrad, in groups of MAX_TAPS taps.
+  K4 ``_ConvChunkDownFused`` (JAX ``_conv_chunk_down_fused``, and JAX
+     ``_conv_core`` on a flat [K, N] map such as the CRF's bilateral grid,
+     run as a [K, 1, N] map): any other map, gather-GEMM forward,
+     scatter_gemm dF, gather_wgrad dW, in groups of MAX_TAPS taps.
 ``global_pool`` and ``broadcast_to_points`` are Functions over the
 ``segment_sum`` kernel and the K8 row gather (``detect.kernels.gather_rows``),
-each the other's adjoint.
+each the other's adjoint.  The K5 k2s2 pooling ops (``sparse_sum_pool``,
+``sparse_avg_pool``, ``sparse_avg_unpool``) are one Function, ``_GatherSum``,
+over the ``gather_sum`` kernel with ``scatter_sum`` as its backward.
 
 Zero-padding invariant: callers keep features of padded rows at exactly zero
 (``mask_rows``) and missing neighbours point at a pad row, so gathered pad
@@ -31,10 +34,12 @@ from pointcontrast_tpu_torch.detect import kernels as detect_kernels
 from pointcontrast_tpu_torch.sparse.kernels import (
     MAX_TAPS,
     gather_gemm,
+    gather_sum,
     gather_wgrad,
     parent_gemm,
     scatter_gemm,
     scatter_parent,
+    scatter_sum,
     segment_sum,
 )
 
@@ -175,45 +180,49 @@ def _tap_groups(k: int):
     return [range(lo, min(lo + MAX_TAPS, k)) for lo in range(0, k, MAX_TAPS)]
 
 
-class _ConvFlat(torch.autograd.Function):
-    """Flat map: out[s] = sum_k F[nbr[k,s]] W_k, any K, no centre skip (JAX
-    ``_conv_core`` as ``sparse_conv`` runs it on a flat map without ``rev``).
+class _ConvChunkDownFused(torch.autograd.Function):
+    """K4: out[b,s] = sum_k F[b, nbr[k,b,s]] W_k for any chunked map without
+    ``rev`` or ``up`` (the k3s2 ``down_nbr3`` map, a 1-tap downsample map,
+    or a same-level map passed without ``rev``) and for a flat [K, N] map
+    taken as [K, 1, N] (JAX ``_conv_core`` without ``rev``, any K, no centre
+    skip), in groups of MAX_TAPS taps.
 
-    Backward, JAX's autodiff of that scan: dF[nbr[k,s]] += ct[s] W_k^T (a
-    scatter: a row may be read by many outputs) and dW_k = sum_s
-    F[nbr[k,s]]^T ct[s].  The pad row N_in - 1, where missing neighbours
-    point, gets no dF: its features are zero and every producer masks pad
-    rows, so that sum would be thrown away (pad-row dF is garbage by design
-    in every form)."""
+    Backward, JAX's: dF[b, nbr[k,b,s]] += ct[b,s] W_k^T, a scatter (k3s2
+    windows overlap: up to 8 coarse rows read one fine row), and
+    dW_k = sum_s F[b, nbr[k,b,s]]^T ct[b,s].  JAX also scatters into the
+    pad row S_in - 1, where missing neighbours point; that sum is left out
+    here (pad-row dF is garbage by design, every producer masks it)."""
 
     @staticmethod
     def forward(ctx, features, nbr, weights):
-        n_out = nbr.shape[1]
-        x3, m3 = features[None], nbr[:, None]
+        k, b_, s_out = nbr.shape
+        f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = None
-        for taps in _tap_groups(nbr.shape[0]):
-            part = gather_gemm(x3, m3, taps, 0, weights[taps.start:taps.stop],
-                               None, n_out)
+        for taps in _tap_groups(k):
+            part = gather_gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop],
+                               None, s_out)
             out = part if out is None else out + part
         ctx.save_for_backward(features, nbr, weights)
-        return out[0]
+        return out.reshape(b_ * s_out, -1)
 
     @staticmethod
     def backward(ctx, ct):
         features, nbr, weights = ctx.saved_tensors
-        n_in, n_out = features.shape[0], nbr.shape[1]
-        x3, m3, ct3 = features[None], nbr[:, None], ct.contiguous()[None]
-        groups = _tap_groups(nbr.shape[0])
+        k, b_, s_out = nbr.shape
+        s_in = features.shape[0] // b_
+        f3 = features.reshape(b_, s_in, -1)
+        ct3 = ct.contiguous().reshape(b_, s_out, -1)
+        groups = _tap_groups(k)
         df = dw = None
         if ctx.needs_input_grad[0]:
             for taps in groups:
-                part = scatter_gemm(ct3, m3, taps, weights[taps.start:taps.stop],
-                                    n_in, n_in - 1)
+                part = scatter_gemm(ct3, nbr, taps, weights[taps.start:taps.stop],
+                                    s_in, s_in - 1)
                 df = part if df is None else df + part
-            df = df[0]
+            df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
-            dw = torch.cat([gather_wgrad(x3, m3, taps, 0, ct3, None, None, 0,
-                                         len(taps), n_out) for taps in groups])
+            dw = torch.cat([gather_wgrad(f3, nbr, taps, 0, ct3, None, None, 0,
+                                         len(taps), s_out) for taps in groups])
         return df, None, dw
 
 
@@ -226,14 +235,16 @@ def sparse_conv(
     rev: tuple | None = None,  # offset-reversal perm (same-level maps only)
     up: tuple | None = None,  # (up_parent, up_offset) for k2s2 down maps
 ) -> torch.Tensor:
-    """Sparse convolution.  Chunked maps: a same-level map with ``rev`` runs
-    K1, a k2s2 down map with ``up`` runs K2.  A flat [K, N_out] map runs
-    ``_ConvFlat`` whatever ``rev`` and ``up`` say: its backward is exact for
-    any map (JAX's gather-form flat backward with ``rev`` computes the same
-    gradient on valid rows)."""
+    """Sparse convolution.  Chunked maps: a same-level map with ``rev`` (and
+    ``valid_out``) runs K1, a k2s2 down map with ``up`` runs K2, any other
+    map K4, as JAX's dispatch does.  A flat [K, N_out] map runs K4 at B = 1
+    whatever ``rev`` and ``up`` say: its backward is exact for any map (JAX's
+    gather-form flat backward with ``rev`` computes the same gradient on
+    valid rows)."""
     features = features.contiguous()
     if nbr.dim() == 2:
-        out = _ConvFlat.apply(features, nbr.contiguous(), weights.contiguous())
+        out = _ConvChunkDownFused.apply(features, nbr[:, None].contiguous(),
+                                        weights.contiguous())
     elif nbr.dim() != 3:
         raise ValueError(f"[K, B, S] or [K, N] maps only, got {tuple(nbr.shape)}")
     elif (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
@@ -242,9 +253,7 @@ def sparse_conv(
     elif up is not None:
         out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights)
     else:
-        raise NotImplementedError(
-            "k3s2 down conv (JAX _conv_chunk_down_fused) is not ported yet"
-        )
+        out = _ConvChunkDownFused.apply(features, nbr, weights.contiguous())
     if bias is not None:
         out = out + bias
     if valid_out is not None:
@@ -269,6 +278,84 @@ def sparse_conv_transpose(
     if valid_out is not None:
         out = mask_rows(out, valid_out)
     return out
+
+
+class _GatherSum(torch.autograd.Function):
+    """out[b,s] = sum_k F[b, map[k,b,s]] (over every row of a [K, B, S_out]
+    map), divided by ``divisor`` [B*S_out, 1] when one is given (it carries
+    no gradient).  Backward, the adjoint: scatter_sum of ct (/ divisor)
+    through the same map, the source's pad row S_in - 1 left out (missing
+    children point there; pad-row gradients are garbage by design)."""
+
+    @staticmethod
+    def forward(ctx, features, map_, divisor):
+        k, b_, s_out = map_.shape
+        f3 = features.reshape(b_, features.shape[0] // b_, -1)
+        out = gather_sum(f3, map_, range(k), 0, s_out).reshape(b_ * s_out, -1)
+        if divisor is not None:
+            out = out / divisor
+        ctx.save_for_backward(map_, divisor)
+        ctx.s_in = f3.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        map_, divisor = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        k, b_, s_out = map_.shape
+        if divisor is not None:
+            ct = ct / divisor
+        df = scatter_sum(ct.contiguous().reshape(b_, s_out, -1), map_, range(k),
+                         0, ctx.s_in, ctx.s_in - 1)
+        return df.reshape(b_ * ctx.s_in, -1), None, None
+
+
+def _chunked(name, m, ndim):
+    if m.dim() != ndim:
+        raise ValueError(f"{name}: chunked maps only, got {tuple(m.shape)}")
+
+
+def sparse_sum_pool(
+    features: torch.Tensor,  # [B*S_in, C], padded rows zero
+    down_nbr: torch.Tensor,  # [K, B, S_out] children of each coarse row
+    valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
+) -> torch.Tensor:
+    """Kernel-2 stride-2 sum pooling (ME.MinkowskiSumPooling)."""
+    _chunked("sparse_sum_pool", down_nbr, 3)
+    out = _GatherSum.apply(features.contiguous(), down_nbr, None)
+    return out if valid_out is None else mask_rows(out, valid_out)
+
+
+def sparse_avg_pool(
+    features: torch.Tensor,  # [B*S_in, C], padded rows zero
+    down_nbr: torch.Tensor,  # [K, B, S_out]
+    valid_in: torch.Tensor,  # [B*S_in] float mask
+    valid_out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Kernel-2 stride-2 average pooling over the children present
+    (ME.MinkowskiAvgPooling): the sum over max(count, 1), the count a
+    gather_sum of ``valid_in`` at C = 1."""
+    _chunked("sparse_avg_pool", down_nbr, 3)
+    k, b_, s_out = down_nbr.shape
+    with torch.no_grad():
+        v3 = valid_in.to(features.dtype).reshape(b_, -1, 1).contiguous()
+        count = gather_sum(v3, down_nbr, range(k), 0, s_out).reshape(-1, 1)
+    out = _GatherSum.apply(features.contiguous(), down_nbr, count.clamp(min=1.0))
+    return out if valid_out is None else mask_rows(out, valid_out)
+
+
+def sparse_avg_unpool(
+    features: torch.Tensor,  # [B*S_coarse, C]
+    up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent
+    valid_out: torch.Tensor | None = None,  # [B*S_fine] float mask
+) -> torch.Tensor:
+    """Kernel-2 stride-2 average unpooling: each fine row reads its parent
+    (ME.MinkowskiAvgUnpooling onto the reused finer coords), a 1-tap
+    gather_sum; its backward adds up to 8 children into each parent."""
+    _chunked("sparse_avg_unpool", up_parent, 2)
+    out = _GatherSum.apply(features.contiguous(), up_parent[None], None)
+    return out if valid_out is None else mask_rows(out, valid_out)
 
 
 def _pool_counts(batch: torch.Tensor, num_batch: int) -> torch.Tensor:

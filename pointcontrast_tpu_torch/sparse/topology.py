@@ -3,8 +3,9 @@
 Jax-free port of ``pointcontrast_tpu/sparse/topology.py``: ``LevelTopo`` and
 ``Pyramid`` are plain dataclasses instead of ``flax.struct`` pytrees, and only
 what ``chunk.build_chunked_pyramid`` needs is kept (same-level ``nbr``, the
-stem's ``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``,
-``valid`` and ``batch``).  The maps are byte-identical to the JAX package's.
+stem's ``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``, the
+ResNets' k3s2 ``down_nbr3``, ``valid`` and ``batch``).  The maps are
+byte-identical to the JAX package's.
 
 Structural facts that make every map gather-only:
   - stride-1 conv: output coords == input coords; for each kernel offset an
@@ -13,6 +14,9 @@ Structural facts that make every map gather-only:
     at 2c+off exists at most once per offset -> down_nbr[2^D, N_out].
   - stride-2 k=2 transpose conv: each fine voxel has exactly one coarse
     parent and one kernel offset -> up_parent/up_offset[N_fine].
+  - stride-2 k=3 conv: the input at 2c+off for off in {-1, 0, 1}^D exists
+    at most once per offset -> down_nbr3[3^D, N_out] (windows overlap: a
+    fine voxel has up to 2^D parents, so its adjoint is a scatter).
 
 Missing neighbours point at the last padded row, whose features the device
 ops keep at exactly zero.
@@ -62,6 +66,7 @@ class LevelTopo:
     up_parent: Optional[Any] = None  # [Npad]: idx into level l+1
     up_offset: Optional[Any] = None  # [Npad]: kernel offset id in [0, 2^D)
     nbr0: Optional[Any] = None  # level-0 only: stem map when k != 3
+    down_nbr3: Optional[Any] = None  # [3^D, Npad_next]: k3s2, build_down3
     # static offset-reversal permutations for nbr/nbr0: enable the
     # scatter-free conv backward
     rev: Optional[tuple] = None
@@ -158,6 +163,7 @@ def build_pyramid(
     npads: list | None = None,
     num_batch: int | None = None,
     allow_truncate: bool = True,
+    build_down3: bool = False,
 ):
     """Build the full coordinate pyramid for a sparse U-Net.
 
@@ -165,6 +171,8 @@ def build_pyramid(
     npads: padded sizes per level (default: bucket_size).
     allow_truncate: drop coarse voxels beyond a level's pad instead of
       raising (meta.truncated records (level, n_dropped)).
+    build_down3: also build the kernel-3 stride-2 maps ``down_nbr3`` of the
+      ResNet family's strided blocks.
 
     Returns (Pyramid, PyramidMeta)."""
     coords = np.asarray(coords)
@@ -248,6 +256,12 @@ def build_pyramid(
                 up_parent=_shrink_idx(up_parent, npad_next),
                 up_offset=up_offset.astype(np.uint16),
             )
+            if build_down3:
+                offs3s = kernel_offsets(3, dimension, "hypercube")
+                off3_keys = offs3s.astype(np.int64) @ fine_spec.stride[1:]
+                down_nbr3 = np.full((len(offs3s), npad_next), npad - 1, dtype=np.int32)
+                down_nbr3[:, :nc] = _key_join(fine_keys, base, off3_keys, npad - 1)
+                level.update(down_nbr3=_shrink_idx(down_nbr3, npad))
             cur = coarse
         levels.append(LevelTopo(**level))
 

@@ -1,15 +1,19 @@
 """Weight bridge: JAX-package (flax) params, batch stats and optax Adam
 moments -> the port.
 
-A rename only: conv kernels keep their [K, Cin, Cout] layout in the shared
-``kernel_offsets`` order, linear kernels [Cin, Cout]; BN and instance-norm
-``scale``/``bias``/``mean``/``var`` map to ``weight``/``bias``/
+A rename, and one transpose: conv kernels keep their [K, Cin, Cout] layout
+in the shared ``kernel_offsets`` order, linear kernels [Cin, Cout]; BN and
+instance-norm ``scale``/``bias``/``mean``/``var`` map to ``weight``/``bias``/
 ``running_mean``/``running_var``, Dense kernels and the CRF filter's
-``kernel`` to ``weight``.  A flax auto-name inside a residual block
-(``SparseConv_0``, ``MaskedBatchNorm_1``, ``SparseLinear_0``, ...) is
-renamed by the ``FLAX_NAMES`` of the port's block class found at that path
-of the model: ``SparseConv_0`` is a BasicBlock's ``conv1`` but a
-Bottleneck's ``conv2``.  Whole trees load strictly: a VoteNet's
+``kernel`` to ``weight``; a Dense kernel [in, out] that lands in a
+``torch.nn.Linear`` (the SE layers' FCs) is transposed to its [out, in].
+A flax auto-name inside a residual block (``SparseConv_0``,
+``MaskedBatchNorm_1``, ``SparseLinear_0``, ...) is renamed by the
+``FLAX_NAMES`` of the port's block class found at that path of the model:
+``SparseConv_0`` is a BasicBlock's ``conv1`` but a Bottleneck's ``conv2``
+(the SE blocks, the ResNets' ``_StridedBlock`` and the ResNet and
+MinkUNetHyper top levels go the same way).  Whole trees load strictly: a
+VoteNet's
 ``backbone_net.net`` (the Res16UNet), ``vgen.conv1``/``bn1``,
 ``pnet.vote_aggregation.mlp.layer0``/``bn0``, a CRF wrapper's ``net`` and
 ``filter``, the INBN norms' ``inorm``/``bnorm``, ...  The trees are nested
@@ -62,13 +66,23 @@ def torch_name(flax_path: tuple, model: torch.nn.Module | None = None) -> str:
     return ".".join(names + [_PARAM_RENAME[leaf]])
 
 
+def _tensor(path: tuple, name: str, leaf, dtype, model) -> torch.Tensor:
+    a = np.array(leaf, dtype=dtype)
+    if (model is not None and path[-1] == "kernel" and a.ndim == 2
+            and isinstance(model.get_submodule(name.rpartition(".")[0]),
+                           torch.nn.Linear)):
+        a = np.ascontiguousarray(a.T)
+    return torch.from_numpy(a)
+
+
 def jax_state_dict(params: Mapping, batch_stats: Mapping, dtype=np.float32,
                    model: torch.nn.Module | None = None) -> dict:
-    return {
-        torch_name(path, model): torch.from_numpy(np.array(leaf, dtype=dtype))
-        for tree in (params, batch_stats)
-        for path, leaf in _flatten(tree)
-    }
+    out = {}
+    for tree in (params, batch_stats):
+        for path, leaf in _flatten(tree):
+            name = torch_name(path, model)
+            out[name] = _tensor(path, name, leaf, dtype, model)
+    return out
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping,

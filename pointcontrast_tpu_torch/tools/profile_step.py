@@ -1,8 +1,9 @@
 """Where a training step's time goes on one GPU.
 
     python -m pointcontrast_tpu_torch.tools.profile_step
-        [--app pretrain|votenet|semseg] [--backbone sparseconv|pointnet2]
-        [--model Res16UNet34C|ResUNet18INBN|...] [--crf] [--steps 10]
+        [--app pretrain|votenet|semseg|resnet] [--backbone sparseconv|pointnet2]
+        [--model Res16UNet34C|ResUNet18INBN|MinkUNetHyper14INBN|ResNet18|...]
+        [--crf] [--steps 10]
 
 On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
 Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
@@ -12,7 +13,9 @@ default) or PointNet++ (``--backbone pointnet2``) + its loss + Adam;
 ``semseg`` is the JAX benchmark's semseg step (6 scenes, ~250k voxels at
 2 cm, 20 classes) through ``--model`` (Res16UNet34C by default), in a
 BilateralCRF with ``--crf`` (the filter applied on every step) + the CE
-loss + SGD and PolyLR.
+loss + SGD and PolyLR; ``resnet`` is the same scenes through a ResNet
+(``--model``, ResNet18 by default) on its 6-level pyramid, CE at the
+level-5 rows, the same optimizer.
   1. ms/step of the kernel path and of the plain-torch twins
      (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
      plain), each from the same seeded weights after two warm-up steps, host
@@ -169,7 +172,46 @@ def _semseg_app(model="Res16UNet34C", crf=False):
         phases=phases)
 
 
-APPS = {"pretrain": _pretrain_app, "votenet": _votenet_app, "semseg": _semseg_app}
+def _resnet_app(model="ResNet18"):
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+    from pointcontrast_tpu_torch.semseg.train import SemsegConfig
+    from pointcontrast_tpu_torch.train import optim
+
+    cfg = SemsegConfig(lr=0.1, max_iter=60000)
+    scenes = workload.SemsegScenes()
+    batch = workload.resnet_batch(scenes).to("cuda")
+
+    def fresh(model):
+        m = copy.deepcopy(model).cuda()
+        opt = optim.make_optimizer(m, cfg)
+        return m, (opt, optim.make_scheduler(opt, cfg, cfg.scheduler))
+
+    def step(m, state, batch):
+        workload.resnet_step(m, state[0], state[1], batch)
+
+    def phases(m, state, batch, mark):
+        opt, sched = state
+        m.train()
+        opt.zero_grad(set_to_none=True)
+        mark()
+        logits = m(batch.feats, batch.pyramid)
+        mark()
+        loss = cross_entropy_ignore(logits, batch.labels, 255)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        sched.step()
+        mark()
+
+    return types.SimpleNamespace(
+        batches=[batch], model=workload.resnet_model(seed=0, model=model),
+        unit="scenes", per_step=len(scenes), fresh=fresh, step=step,
+        phases=phases)
+
+
+APPS = {"pretrain": _pretrain_app, "votenet": _votenet_app, "semseg": _semseg_app,
+        "resnet": _resnet_app}
 
 
 def _warm(app, steps=2):
@@ -244,7 +286,8 @@ def main(argv=None) -> int:
     ap.add_argument("--app", choices=sorted(APPS), default="pretrain")
     ap.add_argument("--backbone", choices=("sparseconv", "pointnet2"),
                     default="sparseconv", help="votenet only")
-    ap.add_argument("--model", default="Res16UNet34C", help="semseg only")
+    ap.add_argument("--model", help="semseg (default Res16UNet34C) and resnet "
+                    "(default ResNet18)")
     ap.add_argument("--crf", action="store_true", help="semseg only")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -257,8 +300,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(card, flush=True)
+    model = {"semseg": args.model or "Res16UNet34C",
+             "resnet": args.model or "ResNet18"}.get(args.app)
     kw = {"votenet": {"backbone": args.backbone},
-          "semseg": {"model": args.model, "crf": args.crf}}.get(args.app, {})
+          "semseg": {"model": model, "crf": args.crf},
+          "resnet": {"model": model}}.get(args.app, {})
     app = APPS[args.app](**kw)
     steps = args.steps
 
@@ -286,7 +332,7 @@ def main(argv=None) -> int:
     summary = {
         "app": args.app,
         "backbone": args.backbone if args.app == "votenet" else None,
-        "model": args.model if args.app == "semseg" else None,
+        "model": model,
         "crf": args.crf if args.app == "semseg" else None,
         "card": card,
         "ms_per_step": times,

@@ -20,10 +20,19 @@ random colours and labels (20 classes) from ``RandomState(0)``,
 ``PadScheme.scannet(npad0=262144)`` (the YAML's ``pad_ratios``), chunked
 layout with 6 chunks.  The frames' voxel coords are used: the JAX bench
 casts the frames' metric xyz to int (``ds[i][0]``), which leaves ~10
-distinct voxels per scene."""
+distinct voxels per scene.
+
+ResNet (ResNet14-101 at the published widths, 3 -> 20): the semseg
+workload's 6 scenes through a 6-level chunked pyramid with the k3s2 maps
+(``build_chunked_pyramid(num_levels=6, npads=PadScheme.scannet(262144,
+6).npads, build_down3=True)``, 6 chunks), normalised colours, and one
+random label (20 classes, ``RandomState(0)``) per level-5 voxel, where the
+ResNet's logits sit; cross-entropy and the semseg SGD + PolyLR recipe."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -187,6 +196,91 @@ def semseg_model(seed: int = 0, model: str = "Res16UNet34C",
         return net
     kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
     return BilateralCRF(net, classes, kv, iterations, generator=gen)
+
+
+RESNET_LEVELS = 6
+
+
+@dataclasses.dataclass
+class ResNetBatch:
+    """One chunked ResNet batch: numpy on the host, torch after ``to``."""
+
+    feats: Any  # [B * S_0, 3], padded rows zero
+    labels: Any  # [B * S_5] int, padding = 255 (the logits' level)
+    pyramid: Any  # chunked Pyramid, 6 levels, with down_nbr3
+    truncated_voxels: float = 0.0
+    num_samples: int = 0
+
+    def to(self, device) -> "ResNetBatch":
+        """Bounds-check the host batch (every map per chunk, ``down_nbr3``
+        included), then move it to ``device``."""
+        from pointcontrast_tpu_torch.data.collate import (
+            check_pyramid_bounds,
+            pyramid_to,
+        )
+
+        sizes = check_pyramid_bounds(self.pyramid)
+        nb = self.pyramid.num_batch
+        if (self.feats.shape[0] != nb * sizes[0]
+                or self.labels.shape != (nb * sizes[RESNET_LEVELS - 1],)):
+            raise ValueError(f"feats {self.feats.shape} / labels {self.labels.shape} "
+                             f"do not fit chunks of {sizes}")
+        return ResNetBatch(
+            feats=torch.from_numpy(self.feats).to(device),
+            labels=torch.from_numpy(self.labels.astype(np.int64)).to(device),
+            pyramid=pyramid_to(self.pyramid, device),
+            truncated_voxels=self.truncated_voxels, num_samples=self.num_samples)
+
+
+def resnet_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
+                 classes: int = SEMSEG_CLASSES, seed: int = 0) -> ResNetBatch:
+    """The host ResNet batch of all ``scenes`` (one chunk a scene)."""
+    from pointcontrast_tpu_torch.data import PadScheme
+    from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
+
+    nb = len(scenes)
+    coords = np.concatenate([
+        np.concatenate([np.full((len(c), 1), b, np.int32), c], axis=1)
+        for b, (c, _, _) in enumerate(scenes.samples)]).astype(np.int32)
+    colours = np.concatenate([f for _, f, _ in scenes.samples]) / 255.0 - 0.5
+    npads = PadScheme.scannet(npad0, RESNET_LEVELS).npads
+    pyr, meta, rows, orphan = build_chunked_pyramid(
+        coords, RESNET_LEVELS, npads, num_batch=nb, build_down3=True)
+    feats = np.zeros((pyr.levels[0].valid.shape[0], 3), np.float32)
+    feats[rows[~orphan]] = colours[~orphan]
+    valid5 = pyr.levels[-1].valid > 0
+    labels = np.full(valid5.shape[0], 255, np.int32)
+    labels[valid5] = np.random.RandomState(seed).randint(0, classes, int(valid5.sum()))
+    truncated = sum(n for _, n in meta.truncated) + int(orphan.sum())
+    return ResNetBatch(feats=feats, labels=labels, pyramid=pyr,
+                       truncated_voxels=float(truncated), num_samples=nb)
+
+
+def resnet_model(seed: int = 0, model: str = "ResNet18",
+                 classes: int = SEMSEG_CLASSES,
+                 bn_momentum: float = 0.02) -> torch.nn.Module:
+    """A registry ResNet 3 -> ``classes`` at the published widths, random
+    weights from ``seed``, on the CPU."""
+    from pointcontrast_tpu_torch.nn.registry import load_model
+
+    return load_model(model)(in_channels=3, out_channels=classes,
+                             bn_momentum=bn_momentum,
+                             generator=torch.Generator().manual_seed(seed))
+
+
+def resnet_step(model, opt, sched, batch) -> torch.Tensor:
+    """One training step: forward, cross-entropy at the level-5 rows
+    (ignore 255), backward, SGD and PolyLR.  Returns the loss (not
+    synchronised)."""
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    loss = cross_entropy_ignore(model(batch.feats, batch.pyramid), batch.labels, 255)
+    loss.backward()
+    opt.step()
+    sched.step()
+    return loss.detach()
 
 
 @contextlib.contextmanager

@@ -65,13 +65,18 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
          (g3, nbr, taps, w, s, s - 1)),
         (kernels.segment_sum, kernels.segment_sum_plain,
          (x3.reshape(-1, 4), _idx(lv.batch), b_ + 1)),
+        (kernels.gather_sum, kernels.gather_sum_plain,
+         (x3, _idx(lv.down_nbr), range(8), 0, s1)),
+        (kernels.scatter_sum, kernels.scatter_sum_plain,
+         (x3, upp[None], [0], 0, s1, s1 - 1)),
     ]
     kernels.reset_launches()
     for fn, plain, args in calls:
         torch.testing.assert_close(fn(*args), plain(*args), rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "gather_gemm": 0, "gather_wgrad": 0, "parent_gemm": 0,
-        "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0}
+        "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0,
+        "gather_sum": 0, "scatter_sum": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",
@@ -191,11 +196,22 @@ def test_kernels_match_plain_twins_on_card(pyr):
         (kernels.segment_sum, (x0.reshape(-1, 3), _idx(lv.batch).to(dev), b_ + 1)),
         (kernels.segment_sum, (torch.randn(b_ * s0, 70, device=dev, generator=gen),
                                _idx(lv.batch).to(dev), b_ + 1)),
+        # float4 rows (C % 4 == 0), scalar rows (C = 3) and the counts (C = 1)
+        (kernels.gather_sum, (torch.randn(b_, s0, 8, device=dev, generator=gen),
+                              down, range(8), 0, s1)),
+        (kernels.gather_sum, (x0, down, range(8), 0, s1)),
+        (kernels.gather_sum, (x0[..., :1].contiguous(), down, [2, 5], 0, s1)),
+        (kernels.gather_sum, (x1, upp[None], [0], 0, s0)),
+        (kernels.scatter_sum, (torch.randn(b_, s0, 8, device=dev, generator=gen),
+                               upp[None], [0], 0, s1, s1 - 1)),
+        (kernels.scatter_sum, (x1, down, range(8), 0, s0, -1)),
     ]
     kernels.reset_launches()
     for fn, args in calls:
         got = fn(*args)
         want = getattr(kernels, fn.__name__ + "_plain")(*args)
         torch.cuda.synchronize()
+        if fn is kernels.gather_sum:  # the same additions in the same order
+            assert torch.equal(got, want)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert sum(kernels.launch_counts().values()) == len(calls)

@@ -143,9 +143,29 @@ def test_masked_moments_match_jax(pyr):
 
 
 def test_unported_down_conv_raises(pyr):
-    lv = pyr.levels[0]
-    f = torch.zeros(lv.valid.shape[0], 2)
-    with pytest.raises(NotImplementedError):
-        tops.sparse_conv(f, _idx(lv.down_nbr), torch.zeros(8, 2, 2),
-                         valid_out=torch.from_numpy(pyr.levels[1].valid))
+    """A chunked down map passed without ``up`` once raised here (K4,
+    JAX's ``_conv_chunk_down_fused``, was not ported).  It now runs K4, as
+    JAX's dispatch does: JAX's values and gradients, and the values of the
+    same map through K2 (with ``up``)."""
+    lv, lv1 = pyr.levels[0], pyr.levels[1]
+    rng = np.random.RandomState(9)
+    f = _feats(rng, lv.valid, 2)
+    w = rng.randn(8, 2, 3).astype(np.float32)
+    ct = _feats(rng, lv1.valid, 3)
+    jout, vjp = jax.vjp(
+        lambda x, wt: jops.sparse_conv(x, jnp.asarray(np.asarray(lv.down_nbr, np.int32)),
+                                       wt, valid_out=jnp.asarray(lv1.valid)),
+        jnp.asarray(f), jnp.asarray(w))
+    jdf, jdw = vjp(jnp.asarray(ct))
+    x, wt = torch.from_numpy(f).requires_grad_(True), torch.from_numpy(w).requires_grad_(True)
+    out = tops.sparse_conv(x, _idx(lv.down_nbr), wt, valid_out=torch.from_numpy(lv1.valid))
+    out.backward(torch.from_numpy(ct))
+    vin = lv.valid > 0
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy()[vin], np.asarray(jdf)[vin], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw), rtol=1e-5, atol=1e-5)
+    k2 = tops.sparse_conv(torch.from_numpy(f), _idx(lv.down_nbr), torch.from_numpy(w),
+                          valid_out=torch.from_numpy(lv1.valid),
+                          up=(_idx(lv.up_parent), _idx(lv.up_offset)))
+    np.testing.assert_allclose(out.detach().numpy(), k2.numpy(), rtol=1e-6, atol=1e-6)
 
