@@ -14,18 +14,26 @@ Phases, each printed on its own line:
      per step, PadScheme.scannet(npad0=131072), 4096 NCE pairs, fused
      frames, chunked layout) and moves them to the card, bounds-checked;
   4. kernels: every sparse-conv kernel against its plain-torch twin on the
-     card at the path's shapes taken from one real batch (f32, TF32 off),
+     card at the shapes of every conv of one real forward (f32, TF32 off),
      with times;
   5. slice: Res16UNet34C (3 -> 32, L2-normalised) -- one step through the
      kernels against the same step through the plain twins from the same
      weights and batch, then 5 SGD steps under PretrainTrainer with finite
      losses and the expected launch count of every kernel;
+  5a. ``pretrain voxel`` and ``pretrain brick:2``: the same batches
+     collated in the voxel (flat) and brick:2 layouts, bounds-checked,
+     every kernel at the shapes of one real forward against its twin (the
+     flat K1-K3 at B = 1; brick_gemm, brick_wgrad and the K = 1
+     gather_sum / scatter_sum of the brick levels), the kernels-vs-plain
+     step and 5 counted steps (the voxel path's counts must equal the
+     chunked path's: 0 scatter_gemm);
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
-  7. kernels: the sparse-conv kernels at the VoteNet pyramid's shapes, and
-     FPS, ball query, gather and scatter-add, against their twins at the
-     path's shapes from one real batch, with times;
+  7. kernels: the sparse-conv kernels at the shapes of every conv of the
+     backbone's forward, and FPS, ball query, gather and scatter-add,
+     against their twins at the path's shapes from one real batch, with
+     times;
   8. parity: one VoteNet step through the kernels against the same step
      through the plain twins, from the same weights and batch;
   9. slice: 5 DetectTrainer.train_epoch steps (Res16UNet34C 3 -> 256, Adam)
@@ -43,6 +51,9 @@ Phases, each printed on its own line:
   12. parity: one step through the kernels against the plain twins;
   13. slice: 5 DetectTrainer steps with the expected launch count of every
      kernel (0 for the sparse-conv ones), one evaluate, the eval outputs;
+  13a. ``votenet voxel``: the sparse-conv VoteNet on batches collated with
+     ``layout="voxel"``: the backbone's kernels at one real forward's
+     shapes, K6-K8, the kernels-vs-plain step, 3 counted steps, evaluate;
   14. boxnet: one BoxNet step (seed FPS, get_loss_boxnet), vote_loss 0;
   15. cli: apps.votenet.main on 8 synthetic scenes: one epoch (one step),
      one evaluation, a checkpoint, then a second call that resumes from it
@@ -66,10 +77,16 @@ Phases, each printed on its own line:
      width), also checks gather_sum and scatter_sum at its three average
      unpools (block5's output from level 2 to 1 and 1 to 0, block6's from
      level 1 to 0);
+  17a. ``semseg voxel`` (Res16UNet34C in the BilateralCRF, flat backbone
+     and filter, 5 counted steps) and ``semseg brick`` (Res16UNet34C on
+     brick:2, 3 counted steps): the batch in the layout, every kernel at
+     one real forward's shapes, kernels-vs-plain step, evaluate_dataset in
+     the layout;
   18. cli semseg: apps.semseg.main on SyntheticSemsegDataset
      (net.dtype=float32): 3 steps, whole-split validation, a checkpoint,
      then a second call that resumes with nothing left to train; then the
-     same with net.model=MinkUNetHyper14INBN;
+     same with net.model=MinkUNetHyper14INBN, with data.layout=voxel and
+     with data.layout=brick;
   the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
   chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
   random label per level-5 voxel):
@@ -90,7 +107,8 @@ Phases, each printed on its own line:
   22. probes: gather_sum at the Pallas gather probes' shapes
      (experiments/pallas_gather_probe*.py: K 1 and 27 over a [65536, 32]
      table, K 27 over [65536, 16]), exact against its twin.
-Every kernel check also times the one PyTorch call computing the same
+Every path prints its peak device memory on its ``slice`` line.  Every
+kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
@@ -117,6 +135,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
 RESNET_STEPS = 3
+LAYOUT_STEPS = 3  # counted steps of the semseg and VoteNet layout paths
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
 # (the sums run in different orders; gather_wgrad adds row slices with
 # unordered f32 atomics)
@@ -149,6 +168,10 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     # probes, experiments/pallas_gather_probe*.py)
     "gather_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
     "scatter_sum": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
+    # the brick layout's same-level conv: _brick_core (forward, and dF with
+    # W[rev]^T) and _brick_sym_bwd's dW
+    "brick_gemm": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:400"),
+    "brick_wgrad": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:360"),
 }
 # the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
 # (taps K, table rows N, channels C, gathered rows M)
@@ -214,8 +237,9 @@ def make_batches(device, **kw):
     dev = pretrain_batches(device, **kw)
     lv = dev[0].pyramid0.levels
     nb = dev[0].pyramid0.num_batch
-    say("data", seconds=f"{time.perf_counter() - t0:.1f}", chunks=nb,
-        chunk_rows=[int(l.valid.shape[0]) // nb for l in lv],
+    say("data", layout=kw.get("layout", "chunked"),
+        seconds=f"{time.perf_counter() - t0:.1f}", samples=nb,
+        rows=[int(l.valid.shape[0]) for l in lv],
         valid_rows=[int(l.valid.sum()) for l in lv],
         truncated=[float(b.truncated_voxels) for b in dev],
         pairs=[int(b.pair_valid.sum()) for b in dev])
@@ -227,77 +251,6 @@ def _masked_randn(shape, valid, gen):
 
     x = torch.randn(shape, device=valid.device, generator=gen)
     return x * valid.reshape(shape[0], shape[1], 1)
-
-
-def kernel_checks(pyramid):
-    """[(kernel, label, fn, args)] at the shapes one chunked voxel pyramid
-    gives the Res16UNet34C convs: the pretraining batch's or the sparse-conv
-    VoteNet's."""
-    import torch
-
-    from pointcontrast_tpu_torch.sparse import kernels as K
-
-    lv = pyramid.levels
-    nb = pyramid.num_batch
-    dev = lv[0].valid.device
-    gen = torch.Generator(device=dev).manual_seed(0)
-    s = [int(l.valid.shape[0]) // nb for l in lv]
-    rev = lv[0].rev
-    center = next(i for i, r in enumerate(rev) if r == i)
-    taps = [i for i in range(27) if i != center]
-    rtaps = [rev[i] for i in taps]
-
-    def feats(level, c):
-        return _masked_randn((nb, s[level], c), lv[level].valid, gen)
-
-    def w(k, cin, cout):
-        return torch.randn(k, cin, cout, device=dev, generator=gen) * (2.0 / (k * cin)) ** 0.5
-
-    def k1(level, cin, cout, name):
-        f, ct, wt = feats(level, cin), feats(level, cout), w(27, cin, cout)
-        wtt = wt.transpose(1, 2)
-        out = [
-            ("gather_gemm", f"K1 fwd {name} L{level} {cin}->{cout}", K.gather_gemm,
-             (f, lv[level].nbr, taps, 0, wt[taps], wt[center], s[level])),
-            ("gather_wgrad", f"K1 dW {name} L{level} {cin}x{cout}", K.gather_wgrad,
-             (f, None, None, 0, ct, lv[level].nbr, list(rev), 0, 27, s[level])),
-        ]
-        if cin != 3:  # the stem's input needs no gradient
-            out.append(("gather_gemm", f"K1 dF {name} L{level} {cout}->{cin}",
-                        K.gather_gemm,
-                        (ct, lv[level].nbr, rtaps, 0, wtt[taps].contiguous(),
-                         wtt[center].contiguous(), s[level])))
-        return out
-
-    checks = []
-    checks += k1(0, 3, 32, "stem")
-    checks += k1(0, 128, 96, "block8_0.conv1")
-    checks += k1(4, 256, 256, "block4")
-    checks += k1(3, 384, 256, "block5_0.conv1")
-    # K2 conv1p1s2 (L0 -> L1, 32 -> 32)
-    f0, ct1, w2 = feats(0, 32), feats(1, 32), w(8, 32, 32)
-    checks += [
-        ("gather_gemm", "K2 fwd L0->L1 32->32", K.gather_gemm,
-         (f0, lv[0].down_nbr, list(range(8)), 0, w2, None, s[1])),
-        ("parent_gemm", "K2 dF L1->L0 32->32", K.parent_gemm,
-         (ct1, lv[0].up_parent, lv[0].up_offset, w2.transpose(1, 2).contiguous())),
-        ("gather_wgrad", "K2 dW 32x32", K.gather_wgrad,
-         (f0, lv[0].down_nbr, list(range(8)), 0, ct1, None, None, 0, 8, s[1])),
-    ]
-    # K3 convtr7p2s2 (L1 -> L0, 96 -> 96)
-    f1, ct0, w3 = feats(1, 96), feats(0, 96), w(8, 96, 96)
-    dy = K.scatter_parent_plain(ct0, lv[0].up_parent, lv[0].up_offset, 8, s[1])
-    checks += [
-        ("parent_gemm", "K3 fwd L1->L0 96->96", K.parent_gemm,
-         (f1, lv[0].up_parent, lv[0].up_offset, w3)),
-        ("scatter_parent", "K3 bwd scatter L0->L1 96", K.scatter_parent,
-         (ct0, lv[0].up_parent, lv[0].up_offset, 8, s[1])),
-        ("gather_gemm", "K3 dF stacked 96->96", K.gather_gemm,
-         (dy, None, None, s[1], w3.transpose(1, 2).contiguous(), None, s[1])),
-        ("gather_wgrad", "K3 dW 96x96", K.gather_wgrad,
-         (f1, None, None, 0, dy, None, None, s[1], 8, s[1])),
-    ]
-    return checks
 
 
 def _time_ms(fn, args, iters=10):
@@ -424,6 +377,25 @@ def work(name, args, out) -> tuple:
         rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
         kept = int((rows % s_in != skip).sum()) if skip >= 0 else rows.numel()
         return _nbytes(g3, *outs) + 4 * rows.numel(), kept * c
+    if name in ("brick_gemm", "brick_wgrad"):
+        x, nbr, steps = args[:3]
+        nb = nbr.shape[1]
+        live = _live_rows(x.reshape(1, -1, x.shape[1]))[0].reshape(nb, 8)
+        live_ct = (_live_rows(args[3].reshape(1, -1, args[3].shape[1]))[0].reshape(nb, 8)
+                   if name == "brick_wgrad" else None)
+        pairs = 0
+        for d, center, tm in steps:
+            src = live if center else live[nbr[d].long()]
+            for s_ in range(8):
+                ps = [p for p in range(8) if tm[s_][p] >= 0]
+                if not ps:
+                    continue
+                if live_ct is None:
+                    pairs += int(src[:, s_].sum()) * len(ps)
+                else:
+                    pairs += int((src[:, s_, None] & live_ct[:, ps]).sum())
+        cout = args[3].shape[2] if name == "brick_gemm" else args[3].shape[1]
+        return _nbytes(x, nbr, args[3], *outs), 2 * x.shape[1] * cout * pairs
     raise KeyError(name)
 
 
@@ -623,10 +595,15 @@ def expected_launches(model) -> dict:
         "segment_sum": 0,
         "gather_sum": pools,
         "scatter_sum": pools,
+        "brick_gemm": 0,
+        "brick_wgrad": 0,
     }
 
 
-def phase_slice(batches, device, card):
+def phase_slice(batches, device, card, app, expect):
+    """A pretraining main path: one step through the kernels against the
+    plain twins, then STEPS PretrainTrainer steps with ``expect`` launches
+    of every kernel a step, and the output."""
     import torch
 
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
@@ -645,8 +622,7 @@ def phase_slice(batches, device, card):
 
     model = pretrain_model(seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    expect = expected_launches(model)
-    say("model", name="Res16UNet34C", params=n_params, per_step=expect)
+    say("model", app=app, name="Res16UNet34C", params=n_params, per_step=expect)
     cfg = PretrainConfig(lr=0.1, stat_freq=1, save_freq=10 ** 9,
                          checkpoint_dir=os.path.join(BUILD_DIR, "smoke_ckpt"))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
@@ -662,10 +638,10 @@ def phase_slice(batches, device, card):
             losses[mode] = float(step(m, opt, sched, batches[0])["loss"])
         del m, opt, sched
     rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
-    say("parity", loss_kernels=f"{losses['kernels']:.8f}",
+    say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
         loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=LOSS_RTOL)
     if not (rel <= LOSS_RTOL):
-        raise AssertionError(f"kernel step loss differs from plain: rel {rel:.2e}")
+        raise AssertionError(f"{app}: kernel step loss differs from plain: rel {rel:.2e}")
 
     # the main path: PretrainTrainer, STEPS steps, counted launches
     trainer = PretrainTrainer(model, itertools.cycle(batches), cfg, device)
@@ -679,15 +655,15 @@ def phase_slice(batches, device, card):
     loss_list = [m["loss"] for _, m in history]
     step_ms = [1e3 * m["step_time"] for _, m in history]
     for i, (_, m) in enumerate(history):
-        say("step", iter=i + 1, loss=f"{m['loss']:.6f}", lr=m["lr"],
+        say("step", app=app, iter=i + 1, loss=f"{m['loss']:.6f}", lr=m["lr"],
             step_ms=f"{1e3 * m['step_time']:.1f}")
     if len(loss_list) != STEPS or not all(map(math.isfinite, loss_list)):
-        raise AssertionError(f"non-finite or missing losses: {loss_list}")
+        raise AssertionError(f"{app}: non-finite or missing losses: {loss_list}")
     want = {k: v * STEPS for k, v in expect.items()}
     if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
+        raise AssertionError(f"{app}: launch counts {counts} != expected {want}")
     steady = statistics.median(step_ms[1:])
-    say("slice", steps=STEPS, launches=counts, ms_per_step=f"{steady:.1f}",
+    say("slice", app=app, steps=STEPS, launches=counts, ms_per_step=f"{steady:.1f}",
         pairs_per_s=f"{PAIRS / (steady / 1e3):.2f}",
         first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
         card=repr(card))
@@ -701,22 +677,21 @@ def phase_slice(batches, device, card):
     if out.shape != (batches[0].feats0.shape[0], 32) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
     if float((norms[valid] - 1).abs().max()) > 1e-4 or bool(out[~valid].any()):
-        raise AssertionError("output rows are not unit-norm / pad rows not zero")
-    say("output", shape=tuple(out.shape), valid_rows=int(valid.sum()))
+        raise AssertionError(f"{app}: output rows are not unit-norm / pad rows not zero")
+    say("output", app=app, shape=tuple(out.shape), valid_rows=int(valid.sum()))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
     return counts
 
 
-def make_votenet_batches(device):
+def make_votenet_batches(device, layout):
     from pointcontrast_tpu_torch.tools.workload import votenet_batches
 
     t0 = time.perf_counter()
-    dev = votenet_batches(device)
+    dev = votenet_batches(device, layout=layout)
     pyr = dev[0].voxel_pyramid
-    nb = pyr.num_batch
-    say("data", app="votenet", seconds=f"{time.perf_counter() - t0:.1f}",
-        scenes=nb, points=int(dev[0].point_clouds.shape[1]),
-        chunk_rows=[int(l.valid.shape[0]) // nb for l in pyr.levels],
+    say("data", app="votenet", layout=layout, seconds=f"{time.perf_counter() - t0:.1f}",
+        scenes=int(dev[0].point_clouds.shape[0]), points=int(dev[0].point_clouds.shape[1]),
+        rows=[int(l.valid.shape[0]) for l in pyr.levels],
         valid_rows=[[int(l.valid.sum()) for l in b.voxel_pyramid.levels]
                     for b in dev])
     return dev
@@ -737,7 +712,7 @@ def detect_kernel_checks(batch):
     gen = torch.Generator(device=dev).manual_seed(1)
     xyz = batch.point_clouds[..., 0:3].contiguous()
     b_ = xyz.shape[0]
-    s0 = batch.voxel_feats.shape[0] // b_
+    n_rows = batch.voxel_feats.shape[0]
     seeds = D.furthest_point_sample_plain(xyz, 1024)
     seed_xyz = D.gather_rows_plain(xyz, seeds)
     votes = seed_xyz + 0.05 * torch.randn(seed_xyz.shape, device=dev, generator=gen)
@@ -745,7 +720,7 @@ def detect_kernel_checks(batch):
     centres = D.gather_rows_plain(votes, props)
     group = D.ball_query_plain(centres, votes, 0.3, 16)
     rows = torch.gather(batch.point_voxel_idx, 1, seeds.long()).reshape(1, -1)
-    vout = torch.randn(1, b_ * s0, 256, device=dev, generator=gen)
+    vout = torch.randn(1, n_rows, 256, device=dev, generator=gen)
     table = torch.randn(b_, 1024, 259, device=dev, generator=gen)
     return [
         ("furthest_point_sample", f"K6 FPS points {xyz.shape[1]}->1024",
@@ -761,7 +736,7 @@ def detect_kernel_checks(batch):
          (table, group)),
         ("scatter_add_rows", "K8 bwd seed features 256", D.scatter_add_rows,
          (torch.randn(1, b_ * 1024, 256, device=dev, generator=gen), rows,
-          b_ * s0)),
+          n_rows)),
         ("scatter_add_rows", "K8 bwd proposal centres", D.scatter_add_rows,
          (torch.randn(b_, 256, 3, device=dev, generator=gen), props, 1024)),
         ("scatter_add_rows", "K8 bwd group 259", D.scatter_add_rows,
@@ -870,9 +845,9 @@ def check_parity(model, dc, cfg, batch, device, app):
         raise AssertionError(f"{app} kernel step differs from the plain step")
 
 
-def phase_votenet(batches, device, card, model, app):
-    """A detection main path: the kernels-vs-plain step, then STEPS counted
-    DetectTrainer steps, one evaluate and the eval-mode outputs."""
+def phase_votenet(batches, device, card, model, app, steps=STEPS):
+    """A detection main path: the kernels-vs-plain step, then ``steps``
+    counted DetectTrainer steps, one evaluate and the eval-mode outputs."""
     import torch
 
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
@@ -900,7 +875,7 @@ def phase_votenet(batches, device, card, model, app):
 
     check_parity(model, dc, cfg, batches[0], device, app)
 
-    # the main path: DetectTrainer.train_epoch, STEPS steps, counted launches
+    # the main path: DetectTrainer.train_epoch, counted launches
     trainer = DetectTrainer(model, dc, cfg, device)
     loader = itertools.cycle(batches)
     torch.cuda.synchronize()
@@ -908,7 +883,7 @@ def phase_votenet(batches, device, card, model, app):
     K.reset_launches()
     D.reset_launches()
     losses, step_ms = [], []
-    for i in range(STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         losses.append(trainer.train_epoch(loader, 1))  # syncs on its loss
         step_ms.append(1e3 * (time.perf_counter() - t0))
@@ -919,12 +894,12 @@ def phase_votenet(batches, device, card, model, app):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite losses: {losses}")
-    want = {name: v * STEPS for name, v in expect.items()}
+    want = {name: v * steps for name, v in expect.items()}
     if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
+        raise AssertionError(f"{app}: launch counts {counts} != expected {want}")
     steady = statistics.median(step_ms[1:])
     scenes = int(batches[0].point_clouds.shape[0])
-    say("slice", app=app, steps=STEPS, launches=counts,
+    say("slice", app=app, steps=steps, launches=counts,
         ms_per_step=f"{steady:.1f}", scenes_per_s=f"{scenes / (steady / 1e3):.2f}",
         first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
         card=repr(card))
@@ -1123,56 +1098,70 @@ def phase_cli():
     shutil.rmtree(out, ignore_errors=True)
 
 
-def make_semseg_batch(device):
-    """The semseg workload's scenes and its one batch (with the CRF map)
-    on the card, bounds-checked."""
+def make_semseg_batch(device, scenes=None, layout="chunked", crf=True):
+    """The semseg workload's scenes and its one batch in ``layout`` (with
+    the CRF map unless ``crf`` is False) on the card, bounds-checked."""
     from pointcontrast_tpu_torch.tools import workload as W
 
     t0 = time.perf_counter()
-    scenes = W.SemsegScenes()
-    host = W.semseg_batch(scenes, crf=W.SEMSEG_CRF)
+    scenes = scenes or W.SemsegScenes()
+    host = W.semseg_batch(scenes, crf=W.SEMSEG_CRF if crf else None, layout=layout)
     batch = host.to(device)
     pyr = batch.pyramid
-    nb, rows = pyr.num_batch, int(batch.feats.shape[0])
-    found = int((host.crf_nbr[:, host.pyramid.levels[0].valid > 0] != rows - 1).sum())
-    say("data", app="semseg", seconds=f"{time.perf_counter() - t0:.1f}", chunks=nb,
-        voxels=[len(c) for c, _, _ in scenes.samples],
-        chunk_rows=[int(l.valid.shape[0]) // nb for l in pyr.levels],
+    rows = int(batch.feats.shape[0])
+    found = (None if host.crf_nbr is None else
+             int((host.crf_nbr[:, host.pyramid.levels[0].valid > 0] != rows - 1).sum()))
+    say("data", app="semseg", layout=layout, seconds=f"{time.perf_counter() - t0:.1f}",
+        samples=pyr.num_batch, voxels=[len(c) for c, _, _ in scenes.samples],
+        rows=[int(l.valid.shape[0]) for l in pyr.levels],
         valid_rows=[int(l.valid.sum()) for l in pyr.levels],
-        truncated=float(host.truncated_voxels), crf_taps=host.crf_nbr.shape[0],
+        truncated=float(host.truncated_voxels),
+        crf_taps=None if host.crf_nbr is None else host.crf_nbr.shape[0],
         crf_neighbours_found=found)
     return scenes, batch
 
 
-def conv_checks(model, batch):
-    """[(kernel, label, fn, args)] for every conv of ``model``'s forward on
-    ``batch`` of a distinct shape, on the forward's own input features (of
-    a copy, under no_grad) and random cotangents masked as the outputs: K1
-    (fwd, dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF,
-    dW), K4 (a chunked map with neither ``rev`` nor ``up``: fwd,
-    scatter_gemm dF, dW), and the CRF filter's flat conv at B = 1 (fwd,
-    scatter_gemm dF, dW, per group of MAX_TAPS taps, on its first
-    mean-field input)."""
+def conv_calls(model, feats, run):
+    """[(kind, name, weight, args, kwargs, stem)] for every conv call of one
+    train-mode forward ``run(m)`` of a copy ``m`` of ``model`` (under
+    no_grad) on the input features ``feats``.  Kinds: "conv"
+    (a same-level map with ``rev``: K1; with ``up``: K2), "k4" (any other
+    map), "tr" (K3), "crf" (the CRF filter's flat map), "brick" (a
+    BrickMap), "bdown" (a BrickDownMap) and "bup" (a brick up conv).  Flat
+    (voxel) maps come as the kernels take them, one [K, 1, N] chunk.
+    ``stem``: the call reads the batch's input features, whose gradient no
+    one needs."""
     import torch
 
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
     from pointcontrast_tpu_torch.semseg.crf import MeanFieldCRF
-    from pointcontrast_tpu_torch.semseg.train import forward
-    from pointcontrast_tpu_torch.sparse import kernels as K
-    from pointcontrast_tpu_torch.sparse import ops
+    from pointcontrast_tpu_torch.sparse.brick import BrickDownMap, BrickMap
 
-    m = copy.deepcopy(model).to(batch.feats.device)
-    seen = {}
+    m = copy.deepcopy(model).to(feats.device)
+    calls = []
 
     def record(kind, name, mod, args, kwargs):
-        f = args[0]
-        if kind == "conv" and kwargs.get("up") is None:
+        args = list(args)
+        kwargs = dict(kwargs)
+        if kind == "conv":
             rev = args[3] if len(args) > 3 else kwargs.get("rev")
-            kind = "k4" if rev is None else "conv"
-        key = (kind, tuple(f.shape), tuple(mod.weight.shape),
-               tuple(args[1].shape))
-        if key not in seen:
-            seen[key] = (name, mod.weight.detach(), args, kwargs)
+            if isinstance(args[1], BrickMap):
+                kind = "brick"
+            elif isinstance(args[1], BrickDownMap):
+                kind = "bdown"
+            elif kwargs.get("up") is None and rev is None:
+                kind = "k4"
+            if kind in ("conv", "k4") and args[1].dim() == 2:  # voxel: one chunk
+                args[1] = args[1][:, None]
+                if kwargs.get("up") is not None:
+                    kwargs["up"] = tuple(u[None] for u in kwargs["up"])
+        elif kind == "tr":
+            if args[2] is None:
+                kind = "bup"
+            elif args[1].dim() == 1:
+                args[1], args[2] = args[1][None], args[2][None]
+        calls.append((kind, name, mod.weight.detach(), tuple(args), kwargs,
+                      args[0] is feats))
 
     hooks = []
     for name, mod in m.named_modules():
@@ -1184,13 +1173,84 @@ def conv_checks(model, batch):
                 with_kwargs=True))
     with torch.no_grad():
         m.train()
-        forward(m, batch)
+        run(m)
     for h in hooks:
         h.remove()
-    gen = torch.Generator(device=batch.feats.device).manual_seed(3)
-    nb = batch.pyramid.num_batch
+    return calls
+
+
+def expected_from_calls(calls) -> dict:
+    """Sparse-kernel launches of one training step from its conv calls:
+    K1 fwd + dF (not for the stem) + dW; K2 fwd + dF + dW; K3 fwd +
+    scatter + dF + dW; K4 per group of MAX_TAPS taps fwd + scatter_gemm dF
+    (not for the stem) + dW; a brick conv brick_gemm fwd + dF (not for the
+    stem) + brick_wgrad; a brick down conv's placement and a brick up
+    conv's parent gather a gather_sum and its scatter_sum each, none at the
+    hybrid boundary (the matmuls are torch.matmul).  The CRF's filter is
+    counted by ``expected_semseg_launches``."""
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.sparse import ops
+
+    n = {fn.__name__: 0 for fn in K.KERNELS}
+    for kind, _, w, args, kw, stem in calls:
+        if kind == "conv" and kw.get("up") is None:
+            n["gather_gemm"] += 1 + (not stem)
+            n["gather_wgrad"] += 1
+        elif kind == "conv":
+            n["gather_gemm"] += 1
+            n["parent_gemm"] += 1
+            n["gather_wgrad"] += 1
+        elif kind == "tr":
+            for name in ("parent_gemm", "scatter_parent", "gather_gemm", "gather_wgrad"):
+                n[name] += 1
+        elif kind == "k4":
+            groups = len(ops._tap_groups(w.shape[0]))
+            n["gather_gemm"] += groups
+            n["scatter_gemm"] += groups * (not stem)
+            n["gather_wgrad"] += groups
+        elif kind == "brick":
+            n["brick_gemm"] += 1 + (not stem)
+            n["brick_wgrad"] += 1
+        elif (kind == "bdown" and args[1].place is not None) or (
+                kind == "bup" and args[1] is not None):
+            n["gather_sum"] += 1
+            n["scatter_sum"] += 1
+    return n
+
+
+def conv_checks(model, batch, calls=None):
+    """[(kernel, label, fn, args)] for every conv of ``model``'s semseg
+    forward on ``batch`` (or of ``calls``, from ``conv_calls``) of a
+    distinct shape, on the forward's own
+    input features and random cotangents masked as the outputs: K1 (fwd,
+    dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF, dW),
+    K4 (a chunked map with neither ``rev`` nor ``up``: fwd, scatter_gemm
+    dF, dW), the CRF filter's flat conv at B = 1 (fwd, scatter_gemm dF,
+    dW, per group of MAX_TAPS taps, on its first mean-field input), a
+    brick conv (brick_gemm fwd, brick_gemm dF with W[rev]^T unless the
+    stem, brick_wgrad dW), a brick down conv's placement gather and a brick
+    up conv's parent gather (gather_sum at one tap, scatter_sum its
+    adjoint)."""
+    import torch
+
+    from pointcontrast_tpu_torch.semseg.train import forward
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.sparse import ops
+    from pointcontrast_tpu_torch.sparse.brick import _tap_reversal, slot_steps
+
+    if calls is None:
+        calls = conv_calls(model, batch.feats, lambda m: forward(m, batch))
+    seen = {}
+    for kind, name, w, args, kw, stem in calls:
+        m1 = args[1]
+        shape = (tuple(m1.shape) if torch.is_tensor(m1)
+                 else (type(m1).__name__, getattr(m1, "place", m1) is None))
+        seen.setdefault((kind, tuple(args[0].shape), tuple(w.shape), shape, stem),
+                        (name, w, args, kw))
+    dev = next(iter(seen.values()))[2][0].device
+    gen = torch.Generator(device=dev).manual_seed(3)
     checks = []
-    for (kind, fshape, wshape, _), (name, w, args, kw) in seen.items():
+    for (kind, fshape, wshape, _, stem), (name, w, args, kw) in seen.items():
         k, cin, cout = wshape
         wt = w.transpose(1, 2)
         if kind == "crf":
@@ -1211,6 +1271,46 @@ def conv_checks(model, batch):
                      (x, m3, taps, 0, ct, None, None, 0, len(taps), n)),
                 ]
             continue
+        if kind == "brick":
+            bm, valid = args[1], args[2]
+            steps = slot_steps(bm.plan)
+            rev = _tap_reversal(bm.plan)
+            f = args[0].contiguous()
+            ct = _masked_randn((1, f.shape[0], cout), valid, gen)[0]
+            tag = f"{name} NB{bm.nbr.shape[1]} {k} taps {cin}->{cout}"
+            checks.append(("brick_gemm", f"brick fwd {tag}", K.brick_gemm,
+                           (f, bm.nbr, steps, w.contiguous())))
+            if not stem:
+                checks.append(("brick_gemm", f"brick dF {tag}", K.brick_gemm,
+                               (ct, bm.nbr, steps,
+                                w[list(rev)].transpose(1, 2).contiguous())))
+            checks.append(("brick_wgrad", f"brick dW {tag}", K.brick_wgrad,
+                           (f, bm.nbr, steps, ct, k)))
+            continue
+        if kind in ("bdown", "bup"):
+            if kind == "bdown":
+                if args[1].place is None:
+                    continue  # the hybrid boundary: no gather
+                src_rows, c = args[0].shape[0] // k, cout
+                rows = args[1].place.transpose(0, 1).reshape(1, 1, -1).contiguous()
+                valid = args[2]
+            else:
+                if args[1] is None:
+                    continue
+                src_rows, c = args[0].shape[0], cin
+                rows = args[1].reshape(1, 1, -1)
+                valid = torch.ones(rows.shape[2], device=dev)
+            n_out = rows.shape[2]
+            f = torch.randn(1, src_rows, c, device=dev, generator=gen)
+            ct = torch.randn(1, n_out, c, device=dev, generator=gen)
+            tag = f"{name} {kind} {src_rows}->{n_out} C{c}"
+            checks += [
+                ("gather_sum", f"{tag} fwd", K.gather_sum, (f, rows, [0], 0, n_out)),
+                ("scatter_sum", f"{tag} bwd", K.scatter_sum,
+                 (ct, rows, [0], 0, src_rows, src_rows - 1)),
+            ]
+            continue
+        nb = (args[1].shape[1] if kind in ("conv", "k4") else args[1].shape[0])
         f3 = args[0].reshape(nb, -1, cin).contiguous()
         s_in = f3.shape[1]
         if kind == "k4":
@@ -1232,10 +1332,10 @@ def conv_checks(model, batch):
             center = next(i for i, r in enumerate(rev) if r == i)
             taps = [i for i in range(k) if i != center]
             ct = _masked_randn((nb, s_in, cout), valid, gen)
-            tag = f"{name} S{s_in} {cin}->{cout}"
+            tag = f"{name} B{nb} S{s_in} {cin}->{cout}"
             checks.append(("gather_gemm", f"K1 fwd {tag}", K.gather_gemm,
                            (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in)))
-            if cin != 3:  # the stem's input needs no gradient
+            if not stem:
                 checks.append(("gather_gemm", f"K1 dF {tag}", K.gather_gemm,
                                (ct, nbr, [rev[i] for i in taps], 0,
                                 wt[taps].contiguous(), wt[center].contiguous(), s_in)))
@@ -1246,7 +1346,7 @@ def conv_checks(model, batch):
             parent, off = kw["up"]
             s_out = down.shape[2]
             ct = _masked_randn((nb, s_out, cout), valid, gen)
-            tag = f"{name} S{s_in}->S{s_out} {cin}->{cout}"
+            tag = f"{name} B{nb} S{s_in}->S{s_out} {cin}->{cout}"
             checks += [
                 ("gather_gemm", f"K2 fwd {tag}", K.gather_gemm,
                  (f3, down, list(range(k)), 0, w, None, s_out)),
@@ -1260,7 +1360,7 @@ def conv_checks(model, batch):
             s_f = parent.shape[1]
             ct = _masked_randn((nb, s_f, cout), valid, gen)
             dy = K.scatter_parent_plain(ct, parent, off, k, s_in)
-            tag = f"{name} S{s_in}->S{s_f} {cin}->{cout}"
+            tag = f"{name} B{nb} S{s_in}->S{s_f} {cin}->{cout}"
             checks += [
                 ("parent_gemm", f"K3 fwd {tag}", K.parent_gemm, (f3, parent, off, w)),
                 ("scatter_parent", f"K3 bwd scatter {tag}", K.scatter_parent,
@@ -1347,9 +1447,12 @@ def expected_semseg_launches(model) -> tuple:
     return n, crf
 
 
-def phase_semseg(app, model, batch, scenes, device, card, crf):
-    """A semseg main path: the kernels-vs-plain step, STEPS counted
-    SemsegTrainer steps, one evaluate_dataset pass and the eval outputs."""
+def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
+                 layout="chunked", base=None):
+    """A semseg main path: the kernels-vs-plain step, ``steps`` counted
+    SemsegTrainer steps (launches per step ``base``, by default
+    ``expected_semseg_launches``), one evaluate_dataset pass in ``layout``
+    and the eval outputs."""
     import numpy as np
     import torch
 
@@ -1366,7 +1469,8 @@ def phase_semseg(app, model, batch, scenes, device, card, crf):
     from pointcontrast_tpu_torch.tools import workload as W
     from pointcontrast_tpu_torch.train import optim
 
-    base, extra = expected_semseg_launches(model)
+    static, extra = expected_semseg_launches(model)
+    base = static if base is None else {**dict.fromkeys(static, 0), **base}
     net = model.net if crf else model
     say("model", app=app, name=type(net).__name__ + (" + BilateralCRF" if crf else ""),
         params=sum(p.numel() for p in model.parameters()), per_step=base,
@@ -1392,31 +1496,31 @@ def phase_semseg(app, model, batch, scenes, device, card, crf):
     if not (rel <= LOSS_RTOL):
         raise AssertionError(f"{app}: kernel step loss differs from plain: rel {rel:.2e}")
 
-    # the main path: SemsegTrainer, STEPS steps, counted launches
+    # the main path: SemsegTrainer, counted launches
     trainer = SemsegTrainer(model, itertools.repeat(batch), None, cfg,
                             W.SEMSEG_CLASSES, device, crf=crf)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     D.reset_launches()
-    history = trainer.train(STEPS)
+    history = trainer.train(steps)
     torch.cuda.synchronize()
     counts = {**K.launch_counts(), **D.launch_counts()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     coin = np.random.RandomState(0)  # the trainer's filter coin, replayed
-    filtered = sum(coin.rand() < 0.5 for _ in range(STEPS)) if crf else 0
-    want = {k: v * STEPS + extra[k] * filtered for k, v in base.items()}
+    filtered = sum(coin.rand() < 0.5 for _ in range(steps)) if crf else 0
+    want = {k: v * steps + extra[k] * filtered for k, v in base.items()}
     step_ms = [1e3 * m["step_time"] for _, m in history]
     for i, (_, m) in enumerate(history):
         say("step", app=app, iter=i + 1, loss=f"{m['loss']:.6f}", acc=f"{m['acc']:.4f}",
             lr=m["lr"], step_ms=f"{step_ms[i]:.1f}")
     loss_list = [m["loss"] for _, m in history]
-    if len(loss_list) != STEPS or not all(map(math.isfinite, loss_list)):
+    if len(loss_list) != steps or not all(map(math.isfinite, loss_list)):
         raise AssertionError(f"{app}: non-finite or missing losses: {loss_list}")
     if counts != want:
         raise AssertionError(f"{app}: launch counts {counts} != expected {want}")
     steady = statistics.median(step_ms[1:])
-    say("slice", app=app, steps=STEPS, filtered_steps=filtered, launches=counts,
+    say("slice", app=app, steps=steps, filtered_steps=filtered, launches=counts,
         ms_per_step=f"{steady:.1f}",
         scenes_per_s=f"{batch.pyramid.num_batch / (steady / 1e3):.2f}",
         first_step_ms=f"{step_ms[0]:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
@@ -1425,7 +1529,8 @@ def phase_semseg(app, model, batch, scenes, device, card, crf):
     t0 = time.perf_counter()
     miou, ious, acc, n = evaluate_dataset(trainer.model, scenes, W.semseg_scheme(),
                                           W.SEMSEG_CLASSES, device,
-                                          batch_size=len(scenes), crf=crf)
+                                          batch_size=len(scenes), crf=crf,
+                                          layout=layout)
     say("eval", app=app, scenes=n, miou=f"{miou:.4f}", acc=f"{acc:.4f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
     if n != len(scenes) or not 0.0 <= miou <= 100.0:
@@ -1496,20 +1601,24 @@ def pool_checks(pyramid, specs):
     "unpool" the average unpool from ``level + 1`` to ``level`` through
     ``up_parent`` (1 tap); random features and cotangents masked as the rows
     they stand for, the source's pad row left out of the scatter as the ops
-    leave it."""
+    leave it.  A flat (voxel) pyramid is one chunk, as the ops take it."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
 
-    lv, nb = pyramid.levels, pyramid.num_batch
+    lv = pyramid.levels
+    flat = lv[0].up_parent.dim() == 1
+    nb = 1 if flat else pyramid.num_batch
     gen = torch.Generator(device=lv[0].valid.device).manual_seed(5)
     s = [int(l.valid.shape[0]) // nb for l in lv]
     checks = []
     for op, l, c in specs:
         if op == "sum pool":
-            src, dst, m, taps = l, l + 1, lv[l].down_nbr, list(range(8))
+            m = lv[l].down_nbr[:, None] if flat else lv[l].down_nbr
+            src, dst, taps = l, l + 1, list(range(8))
         else:
-            src, dst, m, taps = l + 1, l, lv[l].up_parent[None], [0]
+            m = lv[l].up_parent.reshape(1, nb, -1)
+            src, dst, taps = l + 1, l, [0]
         f = _masked_randn((nb, s[src], c), lv[src].valid, gen)
         ct = _masked_randn((nb, s[dst], c), lv[dst].valid, gen)
         tag = f"{op} L{src}->L{dst} S{s[src]}->S{s[dst]} C{c}"
@@ -1773,12 +1882,12 @@ def resnet_paths(device, card, paths, scenes):
     phase_se_blocks(batch, device)
 
 
-def phase_cli_semseg(model=None):
+def phase_cli_semseg(model=None, layout=None):
     """``apps.semseg.main`` on the card with the shipped config on
     ``SyntheticSemsegDataset`` and ``net.dtype=float32`` (and
-    ``net.model=<model>`` when given): 3 steps, one whole-split validation,
-    a checkpoint; a second call resumes from it and has nothing left to
-    train."""
+    ``net.model=<model>``, ``data.layout=<layout>`` when given): 3 steps,
+    one whole-split validation, a checkpoint; a second call resumes from it
+    and has nothing left to train."""
     import torch
 
     from pointcontrast_tpu_torch.apps import semseg as app
@@ -1791,9 +1900,12 @@ def phase_cli_semseg(model=None):
             "optimizer.max_iter=3", "train.stat_freq=1", "train.val_freq=3",
             "train.save_freq=1000", f"train.out_dir={out}",
             "distributed.num_devices=1"] + ([f"net.model={model}"] if model else [])
+    args += [f"data.layout={layout}"] if layout else []
     needed = ["gather_gemm", "gather_wgrad", "parent_gemm", "scatter_parent"]
     if model == "MinkUNetHyper14INBN":
         needed += ["gather_sum", "scatter_sum", "segment_sum"]
+    if layout and layout.startswith("brick"):
+        needed += ["brick_gemm", "brick_wgrad", "gather_sum", "scatter_sum"]
     t0 = time.perf_counter()
     K.reset_launches()
     trainer, history = app.main(args)
@@ -1807,17 +1919,96 @@ def phase_cli_semseg(model=None):
                              "and stay on the card")
     if model and type(trainer.model).__name__ != model:
         raise AssertionError(f"the semseg CLI trained {type(trainer.model).__name__}")
+    if layout and trainer.layout != layout:
+        raise AssertionError(f"the semseg CLI ran layout {trainer.layout}")
     if not all(first[k] for k in needed):
         raise AssertionError(f"the semseg CLI run missed a kernel: {first}")
     K.reset_launches()
     resumed, again = app.main(args)
     if resumed.curr_iter != 3 or again or any(K.launch_counts().values()):
         raise AssertionError("the resumed semseg CLI run trained again")
-    say("cli", app="semseg", model=type(trainer.model).__name__,
+    say("cli", app="semseg", model=type(trainer.model).__name__, layout=trainer.layout,
         seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
         best_miou=f"{trainer.best_miou:.4f}", launches=first,
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_iter=resumed.curr_iter)
     shutil.rmtree(out, ignore_errors=True)
+
+
+def pretrain_path(layout, device, card, paths):
+    """The pretraining main path in ``layout`` ('chunked', 'voxel' or
+    'brick:2'): its batches, every kernel at the shapes of one real
+    forward against its twin, the kernels-vs-plain step and STEPS counted
+    PretrainTrainer steps (launches from the forward's conv calls; the
+    chunked and voxel layouts' must equal the model's ``expected_launches``:
+    the same kernels, 0 scatter_gemm)."""
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+
+    batches = make_batches(device, layout=layout)
+    model = pretrain_model(seed=0)
+    b = batches[0]
+    calls = conv_calls(model, b.feats0, lambda m: m(b.feats0, b.pyramid0))
+    expect = expected_from_calls(calls)
+    if layout in ("chunked", "voxel") and expect != expected_launches(model):
+        raise AssertionError(f"pretrain {layout}: {expect} != the model's "
+                             f"{expected_launches(model)}")
+    res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=("gather_sum",))
+    del calls  # the forward's activations: out of the path's peak memory
+    app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
+    paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect))
+
+
+def semseg_layout_paths(device, card, paths, scenes):
+    """The semseg main paths in the voxel layout (Res16UNet34C 3 -> 20 in
+    the BilateralCRF wrapper: the backbone's flat K1-K3 and the filter's
+    flat conv) and in the brick layout (Res16UNet34C on ``brick``: two
+    brick levels, then flat), on the workload's scenes: every kernel at
+    the shapes of one real forward (and, on voxel, the flat pools' at a
+    sum pool and two unpools), the kernels-vs-plain step and counted
+    steps (STEPS with the CRF, whose coin first applies the filter at the
+    fifth; LAYOUT_STEPS without), evaluate_dataset in the layout."""
+    from pointcontrast_tpu_torch.semseg.train import forward
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    for layout, crf in (("voxel", W.SEMSEG_CRF), ("brick", None)):
+        _, batch = make_semseg_batch(device, scenes, layout, crf=crf is not None)
+        model = W.semseg_model(seed=0, crf=crf)
+        calls = conv_calls(model, batch.feats, lambda m: forward(m, batch))
+        checks = conv_checks(model, batch, calls=calls)
+        if layout == "voxel":  # the flat pools, which no counted path runs
+            checks += pool_checks(batch.pyramid, [("sum pool", 0, 64),
+                                                  ("unpool", 1, 128), ("unpool", 0, 96)])
+        res = phase_kernels(checks, K, exact=("gather_sum",))
+        base = None if crf else expected_from_calls(calls)
+        del calls, checks
+        paths[f"semseg {layout}"] = (res, phase_semseg(
+            f"semseg {layout}", model, batch, scenes, device, card, crf,
+            steps=STEPS if crf else LAYOUT_STEPS, layout=layout, base=base))
+        del model, batch
+
+
+def votenet_path(layout, device, card, paths, steps):
+    """The sparse-conv VoteNet at the YAML's shapes on batches collated in
+    ``layout`` ('chunked' or 'voxel'): the backbone's kernels at the shapes
+    of one real forward and K6-K8 against their twins, the kernels-vs-plain
+    step, ``steps`` counted steps and one evaluate."""
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import votenet_model
+
+    vb = make_votenet_batches(device, layout)
+    model = votenet_model(seed=0)
+    b = vb[0]
+    calls = conv_calls(model.backbone_net.net, b.voxel_feats,
+                       lambda m: m(b.voxel_feats, b.voxel_pyramid))
+    res = phase_kernels(conv_checks(None, None, calls=calls), K)
+    del calls
+    res.update(phase_kernels(
+        detect_kernel_checks(b), D,
+        exact=("furthest_point_sample", "ball_query", "gather_rows")))
+    app = "votenet" if layout == "chunked" else f"votenet {layout}"
+    paths[app] = (res, phase_votenet(vb, device, card, model, app, steps=steps))
 
 
 def kernels_line(paths: dict) -> list:
@@ -1863,18 +2054,10 @@ def main() -> int:
     phase_build()
     device = torch.device("cuda", 0)
     paths = {}  # main path -> (its kernel checks' numbers, its launch counts)
-    batches = make_batches(device)
-    res = phase_kernels(kernel_checks(batches[0].pyramid0), K)
-    paths["pretrain"] = (res, phase_slice(batches, device, card))
-    del batches
-    vbatches = make_votenet_batches(device)
-    res = phase_kernels(kernel_checks(vbatches[0].voxel_pyramid), K)
-    res.update(phase_kernels(
-        detect_kernel_checks(vbatches[0]), D,
-        exact=("furthest_point_sample", "ball_query", "gather_rows")))
-    paths["votenet"] = (res, phase_votenet(vbatches, device, card,
-                                           votenet_model(seed=0), "votenet"))
-    del vbatches
+    for layout in ("chunked", "voxel", "brick:2"):
+        pretrain_path(layout, device, card, paths)
+    votenet_path("chunked", device, card, paths, STEPS)
+    votenet_path("voxel", device, card, paths, LAYOUT_STEPS)
     pbatches = make_pointnet2_batches(device)
     pmodel = votenet_model(seed=0, backbone="pointnet2")
     res = phase_kernels(
@@ -1886,8 +2069,11 @@ def main() -> int:
     del pbatches
     phase_cli()
     scenes = semseg_paths(device, card, paths)
+    semseg_layout_paths(device, card, paths, scenes)
     phase_cli_semseg()
     phase_cli_semseg("MinkUNetHyper14INBN")
+    phase_cli_semseg(layout="voxel")
+    phase_cli_semseg(layout="brick")
     resnet_paths(device, card, paths, scenes)
     del scenes
     res = phase_kernels(probe_checks(device), K, exact=("gather_sum",))

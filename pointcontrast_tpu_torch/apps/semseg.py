@@ -4,7 +4,9 @@ Usage: python -m pointcontrast_tpu_torch.apps.semseg [config.yaml] [k=v ...]
 
 The dataset and its augmentations, the model (any registry net, optionally
 wrapped in ``BilateralCRF``), lenient transfer of a pretraining checkpoint
-(``net.weights``), CE training with PolyLR and whole-split mIoU validation,
+(``net.weights``), CE training with PolyLR and whole-split mIoU validation
+in the configured ``data.layout`` (chunked, voxel, brick[:N]; voxel when
+unset, as the JAX app),
 checkpoints and resume from the run directory, and a requeueable exit on
 preemption.  ``main(argv, device)`` runs on ``cuda`` unless the caller
 passes another device (the tests pass ``"cpu"``); a missing card is an
@@ -37,8 +39,10 @@ DEFAULT_CONFIG = os.path.join(
 def check_supported(cfg, device: torch.device) -> None:
     """Raise on what the port does not run yet, so that a run never does
     something other than what its config asks for."""
+    from pointcontrast_tpu_torch.data.collate import parse_layout
     from pointcontrast_tpu_torch.nn.registry import load_model
     from pointcontrast_tpu_torch.nn.resnet import ResNetBase
+    from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
     from pointcontrast_tpu_torch.semseg.datasets import load_dataset
 
     load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
@@ -61,10 +65,12 @@ def check_supported(cfg, device: torch.device) -> None:
             "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
             "distributed.num_devices=1")
     layout = cfg.data.get("layout", "voxel")
-    if layout != "chunked":
-        raise NotImplementedError(
-            f"data.layout={layout}: only the chunked layout is ported (the "
-            "voxel and brick layouts are ROADMAP Queue 1 item 2)")
+    kind, _ = parse_layout(layout)  # unknown layouts raise ValueError
+    if kind == "brick" and issubclass(load_model(cfg.net.model), MinkUNetHyper):
+        raise ValueError(
+            f"net.model={cfg.net.model} data.layout={layout}: MinkUNetHyper's "
+            "chained pooling-transposes need per-fine-row up_parent maps, which "
+            "brick levels don't carry; use data.layout=voxel or chunked")
     wrapper = cfg.net.get("wrapper_type", "") or ""
     if wrapper == "TrilateralCRF":
         # the 7-D (space + colour + time) grid needs per-point timestamps,
@@ -133,6 +139,7 @@ def main(argv: list[str] | None = None, device=None):
     from pointcontrast_tpu_torch.utils import preemption
 
     train_ds, val_ds = build_datasets(cfg)
+    layout = cfg.data.get("layout", "voxel")  # the JAX app's default
     scheme = PadScheme(npad0=cfg.data.npad0,
                        level_ratios=tuple(cfg.data.pad_ratios)
                        if cfg.data.get("pad_ratios") else None)
@@ -149,7 +156,7 @@ def main(argv: list[str] | None = None, device=None):
         train_ds, cfg.data.batch_size, scheme,
         augment_shift=cfg.augmentation.shift_coords,
         limit_numpoints=cfg.data.limit_numpoints,
-        conv0_kernel_size=cfg.net.conv1_kernel_size, layout="chunked", crf=crf)
+        conv0_kernel_size=cfg.net.conv1_kernel_size, layout=layout, crf=crf)
 
     gen = torch.Generator().manual_seed(0)
     model = load_model(cfg.net.model)(
@@ -185,7 +192,7 @@ def main(argv: list[str] | None = None, device=None):
             pretrained=_pretrained(cfg.net.weights) if cfg.net.weights else None,
             val_dataset=val_ds, val_scheme=scheme,
             val_batch_size=cfg.data.batch_size,
-            conv0_kernel_size=cfg.net.conv1_kernel_size, layout="chunked",
+            conv0_kernel_size=cfg.net.conv1_kernel_size, layout=layout,
             crf=crf, preemption_guard=guard)
         history = trainer.train()
     except preemption.Preempted as p:

@@ -3,7 +3,8 @@
 Usage: python -m pointcontrast_tpu_torch.apps.votenet [config.yaml] [k=v ...]
 
 Datasets ``scannet`` and ``synthetic``; either backbone (``net.backbone``
-``pointnet2`` or ``sparseconv``, the latter voxelised in the chunked layout);
+``pointnet2`` or ``sparseconv``, the latter voxelised in the configured
+``data.layout``, ``chunked`` or ``voxel``, the JAX app's default);
 Adam with epoch-milestone decay, an AP evaluation at IoU 0.25 / 0.5 and a
 checkpoint every ``eval.eval_every`` epochs, resume from the run directory,
 pretrained-backbone transfer (``net.weights``), and a requeueable exit on
@@ -39,13 +40,14 @@ class _BatchLoader:
     the host (``DetectTrainer`` moves them to its device)."""
 
     def __init__(self, dataset, batch_size, voxel_size=None, scheme=None,
-                 shuffle=True, seed=0):
+                 shuffle=True, seed=0, layout="voxel"):
         from pointcontrast_tpu_torch.data.sampler import DistributedInfSampler
 
         self.dataset = dataset
         self.batch_size = batch_size
         self.voxel_size = voxel_size
         self.scheme = scheme
+        self.layout = layout
         # one shard, as the JAX app: its order differs from InfSampler's
         self.sampler = DistributedInfSampler(len(dataset), shuffle=shuffle,
                                              seed=seed)
@@ -54,7 +56,8 @@ class _BatchLoader:
         from pointcontrast_tpu_torch.detect.datasets import collate_detection
 
         return collate_detection([self.dataset[i] for i in idxs],
-                                 voxel_size=self.voxel_size, scheme=self.scheme)
+                                 voxel_size=self.voxel_size, scheme=self.scheme,
+                                 layout=self.layout)
 
     def __next__(self):
         return self._collate([next(self.sampler) for _ in range(self.batch_size)])
@@ -86,11 +89,12 @@ def check_supported(cfg, device: torch.device) -> None:
             raise NotImplementedError(
                 f"net.dtype={dtype}: the sparse-conv backbone runs in float32 "
                 "only (bf16 is ROADMAP Queue 1 item 5); pass net.dtype=float32")
-        layout = cfg.data.get("layout", "chunked")
-        if layout != "chunked":
+        layout = cfg.data.get("layout", "voxel")
+        if layout not in ("chunked", "voxel"):
             raise NotImplementedError(
-                f"data.layout={layout}: only the chunked layout is ported "
-                "(flat maps are ROADMAP Queue 1 item 2)")
+                f"data.layout={layout}: the sparse-conv backbone runs the "
+                "chunked and voxel layouts (the JAX app runs any other "
+                "layout as voxel)")
     elif cfg.net.weights:
         raise ValueError("net.weights loads a pretrained sparse-conv backbone; "
                          f"net.backbone={cfg.net.backbone} has none to load")
@@ -166,15 +170,17 @@ def main(argv: list[str] | None = None, device=None):
 
     dc, train_ds, val_ds = _datasets(cfg)
     voxel_size = scheme = None
+    layout = "voxel"
     if cfg.net.backbone == "sparseconv":
         voxel_size = cfg.data.voxel_size
         scheme = PadScheme(npad0=cfg.data.npad0,
                            level_ratios=tuple(cfg.data.pad_ratios)
                            if cfg.data.get("pad_ratios") else None)
+        layout = cfg.data.get("layout", "voxel")
     train_loader = _BatchLoader(train_ds, cfg.data.batch_size, voxel_size,
-                                scheme, seed=cfg.misc.seed)
+                                scheme, seed=cfg.misc.seed, layout=layout)
     val_loader = _BatchLoader(val_ds, cfg.data.batch_size, voxel_size, scheme,
-                              shuffle=False, seed=cfg.misc.seed)
+                              shuffle=False, seed=cfg.misc.seed, layout=layout)
 
     model = VoteNet(
         num_class=dc.num_class, num_heading_bin=dc.num_heading_bin,

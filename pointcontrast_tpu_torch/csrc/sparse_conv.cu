@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the sparse convolutions and the
 // per-sample pooling: the same-level 3x3x3 conv, the k2s2 down conv, the
 // k2s2 transposed conv, the k3s2 down conv and the flat-map conv, forward
-// and backward, the segment sum under global pooling, and the gather-sum
-// under the k2s2 sum / average pooling and unpooling, with its adjoint (see
+// and backward, the segment sum under global pooling, the gather-sum under
+// the k2s2 sum / average pooling and unpooling, with its adjoint, and the
+// same-level conv of the brick layout, forward and weight gradient (see
 // pointcontrast_tpu_torch/sparse/kernels.py for the Python wrappers, their
 // plain-torch twins and which JAX op each one replaces).
 //
@@ -505,6 +506,210 @@ scatter_sum_kernel(const float* __restrict__ G, const int* __restrict__ map,
   }
 }
 
+// The brick layout (pointcontrast_tpu/sparse/brick.py): a level's features
+// are [NB * 8, C] with voxel (brick b, slot s) at row b * 8 + s, slot id
+// s = s_x + 2 s_y + 4 s_z; empty slots and pad bricks hold zeros.  A
+// same-level conv reads, per plan step, the neighbour brick src_d(b) of
+// every brick (nbr[d][b], or b itself at the centre step) and adds
+// F[src_d(b) * 8 + s] . W[tap] into out[b * 8 + p] for every (s, p) whose
+// offset 2d + s - p lies in the kernel.  The step table, one row of
+// BRICK_STEP_INTS ints per step:
+//   [0] d (row of nbr), [1] 1 at the centre step, [2] ntaps (distinct taps
+//   of the step, <= 27), [3, 30) those taps' ids, [30, 94) for s * 8 + p
+//   the index of its tap in [3, 30), or -1 when (s, p) adds nothing.
+constexpr int NS = 8;             // slots of a brick (2^3)
+constexpr int STEP_TAPS = 27;     // distinct taps of one step, at most
+constexpr int BRICK_STEP_INTS = 3 + STEP_TAPS + NS * NS;
+constexpr int GB = 64;            // output bricks per block
+constexpr int GN = 32;            // output channels per block
+constexpr int GK = 8;             // input channels per shared-memory stage
+constexpr int GRB = 2;            // bricks per thread
+constexpr int GQ = 4;             // output channels per thread
+static_assert((GB / GRB) * (GN / GQ) == THREADS, "one thread per brick pair and channel quad");
+
+// (i) out[b*8+p, :] = sum_steps sum_s X[src_d(b)*8+s, :] . W[tap(d, s, p)]
+// (JAX _brick_core; also its dF with W'[t] = W[rev[t]]^T).  A block owns
+// GB output bricks x GN output channels and all 8 slots of each brick.  Per
+// step it loads one index per brick, stages the gathered brick rows (all 8
+// slots, GK channels at a time: each slot's GK floats are contiguous, and a
+// brick's slots are 8 neighbouring rows) and the step's taps' weight tiles
+// in shared memory, and applies every (s, p, tap) product of the step from
+// there; each thread keeps GRB bricks x 8 slots x GQ channels in registers.
+// The (s, p) loops are unrolled over a table every thread reads alike, so
+// they branch without divergence and skip the pairs outside the kernel.
+// grid (ceil(NB/GB), ceil(Cout/GN))
+__global__ void __launch_bounds__(THREADS)
+brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
+                  const int* __restrict__ steps, int nsteps,
+                  const float* __restrict__ W, float* __restrict__ out,
+                  int NB, int Cin, int Cout) {
+  __shared__ __align__(16) float As[GB][NS * GK + 4];
+  __shared__ __align__(16) float Ws[STEP_TAPS][GK][GN];
+  __shared__ int src[GB];
+  __shared__ int step[BRICK_STEP_INTS];
+
+  const int tid = threadIdx.x;
+  const int cq = tid % (GN / GQ), bp = tid / (GN / GQ);
+  const int b0 = blockIdx.x * GB, n0 = blockIdx.y * GN;
+  float acc[GRB][NS][GQ];
+#pragma unroll
+  for (int r = 0; r < GRB; ++r)
+#pragma unroll
+    for (int p = 0; p < NS; ++p)
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) acc[r][p][q] = 0.f;
+
+  for (int st = 0; st < nsteps; ++st) {
+    for (int i = tid; i < BRICK_STEP_INTS; i += THREADS)
+      step[i] = __ldg(steps + (int64_t)st * BRICK_STEP_INTS + i);
+    __syncthreads();
+    if (tid < GB) {
+      const int b = b0 + tid;
+      src[tid] = b >= NB ? -1 : (step[1] ? b : __ldg(nbr + (int64_t)step[0] * NB + b));
+    }
+    const int nt = step[2];
+    __syncthreads();
+    for (int k0 = 0; k0 < Cin; k0 += GK) {
+      for (int e = tid; e < GB * NS * GK; e += THREADS) {
+        const int kk = e % GK, s = (e / GK) % NS, bl = e / (GK * NS);
+        const int r = src[bl];
+        As[bl][s * GK + kk] = (r >= 0 && k0 + kk < Cin)
+            ? __ldg(X + ((int64_t)r * NS + s) * Cin + k0 + kk) : 0.f;
+      }
+      for (int e = tid; e < nt * GK * GN; e += THREADS) {
+        const int n = e % GN, kk = (e / GN) % GK, j = e / (GK * GN);
+        const int t = step[3 + j];
+        Ws[j][kk][n] = (k0 + kk < Cin && n0 + n < Cout)
+            ? __ldg(W + ((int64_t)t * Cin + k0 + kk) * Cout + n0 + n) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        float a[GRB][GK];
+#pragma unroll
+        for (int r = 0; r < GRB; ++r)
+#pragma unroll
+          for (int kk = 0; kk < GK; ++kk) a[r][kk] = As[bp * GRB + r][s * GK + kk];
+#pragma unroll
+        for (int p = 0; p < NS; ++p) {
+          const int j = step[3 + STEP_TAPS + s * NS + p];
+          if (j < 0) continue;
+#pragma unroll
+          for (int kk = 0; kk < GK; ++kk) {
+            const float4 w = *reinterpret_cast<const float4*>(&Ws[j][kk][cq * GQ]);
+#pragma unroll
+            for (int r = 0; r < GRB; ++r) {
+              acc[r][p][0] = fmaf(a[r][kk], w.x, acc[r][p][0]);
+              acc[r][p][1] = fmaf(a[r][kk], w.y, acc[r][p][1]);
+              acc[r][p][2] = fmaf(a[r][kk], w.z, acc[r][p][2]);
+              acc[r][p][3] = fmaf(a[r][kk], w.w, acc[r][p][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < GRB; ++r) {
+    const int b = b0 + bp * GRB + r;
+    if (b >= NB) continue;
+#pragma unroll
+    for (int p = 0; p < NS; ++p) {
+      float* o = out + ((int64_t)b * NS + p) * Cout;
+#pragma unroll
+      for (int q = 0; q < GQ; ++q) {
+        const int n = n0 + cq * GQ + q;
+        if (n < Cout) o[n] = acc[r][p][q];
+      }
+    }
+  }
+}
+
+// (j) dW[t] += sum_b X[src_d(b)*8+s, :]^T . G[b*8+p, :] for the block's
+// (d, s, p, t) triple (a row of `triples`: d, centre, s, p, t), over its
+// slice of bricks: JAX _brick_sym_bwd's gs^T @ cp blocks, one (s, p) block
+// at a time.  Each tap has 8 triples (one per slot-axis combination), so
+// 8 x 27 blocks add into the 27 taps, and the brick slices of one triple
+// add into the same tile: f32 atomics combine them (as gather_wgrad's row
+// slices), in an order that differs from run to run.
+// grid (ceil(Cin/BM) * ceil(Cout/BN), triples, brick slices)
+__global__ void __launch_bounds__(THREADS)
+brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
+                   const int* __restrict__ triples,
+                   const float* __restrict__ Gm, float* __restrict__ dW,
+                   int NB, int Cin, int Cout, int bricks_per_block) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Gs[BK][BN + 4];
+  __shared__ int64_t ra[BK], rg[BK];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int* tri = triples + (int64_t)blockIdx.y * 5;
+  const int d = __ldg(tri), center = __ldg(tri + 1), s = __ldg(tri + 2);
+  const int p = __ldg(tri + 3), t = __ldg(tri + 4);
+  const int64_t b_begin = (int64_t)blockIdx.z * bricks_per_block;
+  const int64_t b_stop = b_begin + bricks_per_block;
+  const int64_t b_end = b_stop < NB ? b_stop : NB;
+
+  float acc[4][4] = {};
+  for (int64_t b0 = b_begin; b0 < b_end; b0 += BK) {
+    if (tid < BK) {
+      const int64_t b = b0 + tid;
+      int64_t va = -1, vg = -1;
+      if (b < b_end) {
+        const int64_t from = center ? b : __ldg(nbr + (int64_t)d * NB + b);
+        va = from * NS + s;
+        vg = b * NS + p;
+      }
+      ra[tid] = va;
+      rg[tid] = vg;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int kk = e / BM, m = e % BM;
+      const int64_t r = ra[kk];
+      As[kk][m] = (r >= 0 && m0 + m < Cin) ? __ldg(X + r * Cin + m0 + m) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * BK) / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int kk = e / BN, n = e % BN;
+      const int64_t r = rg[kk];
+      Gs[kk][n] = (r >= 0 && n0 + n < Cout) ? __ldg(Gm + r * Cout + n0 + n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g[q] = Gs[kk][tx * 4 + q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], g[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+  float* dWt = dW + (int64_t)t * Cin * Cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= Cin) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (n < Cout) atomicAdd(dWt + (int64_t)m * Cout + n, acc[i][q]);
+    }
+  }
+}
+
 int grid_stride_blocks(int64_t total) {
   int64_t blocks = (total + 255) / 256;
   if (blocks > 132 * 32) blocks = 132 * 32;
@@ -616,6 +821,27 @@ int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
         (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B,
         S_g, S_out, C, skip);
   }
+  return (int)cudaGetLastError();
+}
+
+int pc_brick_gemm(const void* X, const void* nbr, const void* steps, int nsteps,
+                  const void* W, void* out, int NB, int Cin, int Cout,
+                  void* stream) {
+  dim3 grid((NB + GB - 1) / GB, (Cout + GN - 1) / GN);
+  brick_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const int*)nbr, (const int*)steps, nsteps,
+      (const float*)W, (float*)out, NB, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+int pc_brick_wgrad(const void* X, const void* nbr, const void* triples,
+                   int ntriples, const void* G, void* dW, int NB, int Cin,
+                   int Cout, int bricks_per_block, void* stream) {
+  const int splits = (NB + bricks_per_block - 1) / bricks_per_block;
+  dim3 grid(((Cin + BM - 1) / BM) * ((Cout + BN - 1) / BN), ntriples, splits);
+  brick_wgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)X, (const int*)nbr, (const int*)triples, (const float*)G,
+      (float*)dW, NB, Cin, Cout, bricks_per_block);
   return (int)cudaGetLastError();
 }
 

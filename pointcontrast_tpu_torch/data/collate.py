@@ -1,11 +1,13 @@
 """Fixed-shape pair collation (host side, numpy only) + the move to torch.
 
 Jax-free port of ``pointcontrast_tpu/data/collate.py`` for the pretraining
-path: ``collate_pair`` with fused frames, the chunked layout and PointInfoNCE
-sampling.  From the same samples and ``RandomState`` it gives the JAX
-package's arrays byte for byte.  ``PairBatch`` is a plain dataclass whose
-``to(device)`` checks every index against its chunk before any kernel can
-read it through a raw pointer, then widens the uint16 maps to int32.
+path: ``collate_pair`` with fused frames, PointInfoNCE sampling and the
+three layouts (chunked, voxel, brick[:N]).  From the same samples and
+``RandomState`` it gives the JAX package's arrays byte for byte.
+``PairBatch`` is a plain dataclass whose ``to(device)`` checks every index
+against the table it reads (per chunk, per level, per brick level) before
+any kernel can read it through a raw pointer, then widens the uint16 maps
+to int32.
 """
 from __future__ import annotations
 
@@ -15,8 +17,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from pointcontrast_tpu_torch.sparse.brick import (
+    BrickDownMap,
+    BrickMap,
+    build_brick_pyramid,
+)
 from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
-from pointcontrast_tpu_torch.sparse.topology import LevelTopo, Pyramid
+from pointcontrast_tpu_torch.sparse.topology import LevelTopo, Pyramid, build_pyramid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,17 +42,24 @@ class PadScheme:
 
     @property
     def npads(self) -> list[int]:
-        n_levels = self.num_levels
+        return self.npads_for(self.num_levels)
+
+    def npads_for(self, n_levels: int) -> list[int]:
+        """Padded sizes for ``n_levels`` levels (the brick layout needs
+        ``num_levels + 1``: level l's bricks are level l+1's coordinates).
+        Levels beyond the ratios extrapolate with the last shrink factor."""
         if self.level_ratios is not None:
-            if len(self.level_ratios) < n_levels:
+            if len(self.level_ratios) < self.num_levels:
                 raise ValueError(
                     f"level_ratios has {len(self.level_ratios)} entries but "
-                    f"num_levels={n_levels}"
+                    f"num_levels={self.num_levels}"
                 )
-            return [
-                max(int(self.npad0 * r) + 1, self.min_pad)
-                for r in self.level_ratios[:n_levels]
-            ]
+            ratios = list(self.level_ratios[:n_levels])
+            while len(ratios) < n_levels:
+                shrink = (ratios[-1] / ratios[-2]
+                          if len(ratios) >= 2 and ratios[-2] else 0.5)
+                ratios.append(ratios[-1] * min(shrink, 1.0))
+            return [max(int(self.npad0 * r) + 1, self.min_pad) for r in ratios]
         return [
             max(int(self.npad0 / self.shrink ** max(lvl - 1, 0)) + 1, self.min_pad)
             for lvl in range(n_levels)
@@ -77,13 +91,20 @@ def _check_below(name: str, a: np.ndarray, bound: int) -> None:
         )
 
 
-def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
-    """Layout-aware bounds check of a host chunked pyramid, per chunk:
-    ``nbr < S_l``, ``down_nbr < S_l`` (and ``down_nbr3``, where built),
-    ``up_parent < S_{l+1}`` and
-    ``up_offset < 2^D``, and the sample ids ``batch <= B`` (``B``: pad
-    rows) that global pooling reads.  Returns the chunk rows ``S_l`` of
-    every level; raises ``ValueError`` naming the first map out of range."""
+def _level_kind(lv: LevelTopo) -> str:
+    """'chunked' ([K, B, S] maps), 'flat' ([K, N]) or 'brick' (BrickMap)."""
+    m = lv.nbr if lv.nbr is not None else lv.nbr0
+    if isinstance(m, BrickMap):
+        return "brick"
+    return "chunked" if m.ndim == 3 else "flat"
+
+
+def _check_shape(name: str, a, shape) -> None:
+    if a.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
+
+
+def _check_chunked(pyr: Pyramid) -> list[int]:
     levels = pyr.levels
     nb = pyr.num_batch
     sizes = [lv.valid.shape[0] // nb for lv in levels]
@@ -111,7 +132,97 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
             _check_below(f"level {l} down_nbr3", lv.down_nbr3, s)
         _check_below(f"level {l} up_parent", lv.up_parent, s_next)
         _check_below(f"level {l} up_offset", lv.up_offset, k_up)
-    return sizes
+    return [nb * s for s in sizes]
+
+
+def _check_flat_level(l: int, lv: LevelTopo, rows: list) -> None:
+    """A flat level: maps into its own [npad_l] table, the k2s2 maps
+    between it and level l+1's [npad_{l+1}]."""
+    n = rows[l]
+    for name in ("nbr", "nbr0"):
+        m = getattr(lv, name)
+        if m is not None:
+            _check_shape(f"level {l} {name}", m, (m.shape[0], n))
+            _check_below(f"level {l} {name}", m, n)
+    if lv.down_nbr is None:
+        return
+    n_next = rows[l + 1]
+    k_up = lv.down_nbr.shape[0]
+    for name in ("down_nbr", "down_nbr3"):
+        m = getattr(lv, name)
+        if m is not None:
+            _check_shape(f"level {l} {name}", m, (m.shape[0], n_next))
+            _check_below(f"level {l} {name}", m, n)
+    _check_shape(f"level {l} up_parent", lv.up_parent, (n,))
+    _check_shape(f"level {l} up_offset", lv.up_offset, (n,))
+    _check_below(f"level {l} up_parent", lv.up_parent, n_next)
+    _check_below(f"level {l} up_offset", lv.up_offset, k_up)
+
+
+def _check_brick_level(l: int, lv: LevelTopo, rows: list, kinds: list) -> None:
+    """A brick level of NB bricks ([NB * 8] slot rows): its BrickMaps
+    index the NB bricks, the down conv's placement indexes the NB rows of
+    its matmul output, and the up-gather the next level's rows; at a
+    brick -> flat boundary (``place`` / ``up_parent`` None) the flat next
+    level must have exactly NB rows."""
+    ns = lv.down_nbr.num_slots
+    if rows[l] % ns:
+        raise ValueError(f"level {l}: {rows[l]} rows are not whole bricks of {ns}")
+    nb = rows[l] // ns
+    for name in ("nbr", "nbr0"):
+        m = getattr(lv, name)
+        if m is not None:
+            _check_shape(f"level {l} {name}", m.nbr, (m.nbr.shape[0], nb))
+            _check_below(f"level {l} {name}", m.nbr, nb)
+    if l + 1 == len(rows):
+        return
+    place, upg = lv.down_nbr.place, lv.up_parent
+    if place is None or upg is None:
+        if kinds[l + 1] != "flat" or rows[l + 1] != nb or (place is None) != (upg is None):
+            raise ValueError(f"level {l}: a brick -> flat boundary needs a flat "
+                             f"level {l + 1} of {nb} rows")
+        return
+    if kinds[l + 1] != "brick":
+        raise ValueError(f"level {l} place: level {l + 1} is not bricked")
+    _check_shape(f"level {l} place", place, (ns, rows[l + 1] // ns))
+    _check_below(f"level {l} place", place, nb)
+    _check_shape(f"level {l} up_parent", upg, (nb,))
+    _check_below(f"level {l} up_parent", upg, rows[l + 1])
+
+
+def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
+    """Layout-aware bounds check of a host pyramid against the table each
+    map indexes.  Chunked, per chunk: ``nbr < S_l``, ``down_nbr < S_l``
+    (and ``down_nbr3``), ``up_parent < S_{l+1}``, ``up_offset < 2^D``.
+    Voxel (flat), per level: the same against ``npad_l`` and
+    ``npad_{l+1}``.  Brick levels: ``BrickMap.nbr < NB``, ``place < NB``,
+    ``up_parent`` (the up-gather) below the next level's rows, the
+    boundary's row counts.  Every layout: the sample ids ``batch <= B``
+    (``B``: pad rows) that global pooling reads, at the level's rows.
+    Returns the rows of every level's feature table; raises ``ValueError``
+    naming the first map out of range."""
+    kinds = [_level_kind(lv) for lv in pyr.levels]
+    if "chunked" in kinds:
+        if set(kinds) != {"chunked"}:
+            raise ValueError(f"a chunked pyramid mixed with other layouts: {kinds}")
+        return _check_chunked(pyr)
+    rows = [lv.valid.shape[0] for lv in pyr.levels]
+    for l, lv in enumerate(pyr.levels):
+        _check_shape(f"level {l} batch", lv.batch, (rows[l],))
+        _check_below(f"level {l} batch", lv.batch, pyr.num_batch + 1)
+        if kinds[l] == "brick":
+            _check_brick_level(l, lv, rows, kinds)
+        else:
+            _check_flat_level(l, lv, rows)
+    return rows
+
+
+def _map_to(m, device):
+    if isinstance(m, BrickMap):
+        return BrickMap(_to_index(m.nbr, device), m.plan)
+    if isinstance(m, BrickDownMap):
+        return BrickDownMap(_to_index(m.place, device), m.num_slots)
+    return _to_index(m, device)
 
 
 def pyramid_to(pyr: Pyramid, device) -> Pyramid:
@@ -120,13 +231,13 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
 
     def level_to(lv: LevelTopo) -> LevelTopo:
         return LevelTopo(
-            nbr=_to_index(lv.nbr, device),
+            nbr=_map_to(lv.nbr, device),
             valid=torch.from_numpy(lv.valid).to(device),
             batch=_to_index(lv.batch, device),
-            down_nbr=_to_index(lv.down_nbr, device),
+            down_nbr=_map_to(lv.down_nbr, device),
             up_parent=_to_index(lv.up_parent, device),
             up_offset=_to_index(lv.up_offset, device),
-            nbr0=_to_index(lv.nbr0, device),
+            nbr0=_map_to(lv.nbr0, device),
             down_nbr3=_to_index(lv.down_nbr3, device),
             rev=lv.rev,
             rev0=lv.rev0,
@@ -137,14 +248,12 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
 
 
 def check_bounds(batch: "PairBatch") -> None:
-    """Bounds check of a host ``PairBatch``: its pyramid per chunk
+    """Bounds check of a host ``PairBatch``: its pyramid
     (``check_pyramid_bounds``), the feature rows and the loss indices below
     the row count.  Raises ``ValueError`` naming the first map out of range."""
-    sizes = check_pyramid_bounds(batch.pyramid0)
-    nb = batch.pyramid0.num_batch
-    rows = batch.feats0.shape[0]
-    if rows != nb * sizes[0]:
-        raise ValueError(f"feats0 has {rows} rows, expected {nb} x {sizes[0]}")
+    rows = check_pyramid_bounds(batch.pyramid0)[0]
+    if batch.feats0.shape[0] != rows:
+        raise ValueError(f"feats0 has {batch.feats0.shape[0]} rows, expected {rows}")
     _check_below("q_idx", batch.q_idx, rows)
     _check_below("k_idx", batch.k_idx, rows)
 
@@ -199,10 +308,53 @@ def _offset_matches(matches_list, len0, len1):
     return np.concatenate(out, 0)
 
 
+def parse_layout(layout: str):
+    """'voxel' | 'chunked' | 'brick' (2 brick levels) | 'brick:N'
+    -> (kind, N)."""
+    if layout == "voxel":
+        return "voxel", 0
+    if layout == "chunked":
+        return "chunked", 0
+    if layout == "brick":
+        return "brick", 2
+    if layout.startswith("brick:"):
+        return "brick", int(layout.split(":", 1)[1])
+    raise ValueError(f"unknown layout {layout!r}")
+
+
+def _build_padded_pyramid(coords, scheme: PadScheme, num_batch: int,
+                          conv0_kernel_size: int = 3, layout: str = "voxel",
+                          num_levels: int | None = None):
+    """Returns (pyramid, meta, rows, orphan) of ``num_levels`` levels (the
+    scheme's by default); rows/orphan are None for the flat voxel layout,
+    the layout rows of the input voxels otherwise."""
+    kind, brick_levels = parse_layout(layout)
+    n_levels = num_levels or scheme.num_levels
+    if kind == "brick":
+        return build_brick_pyramid(
+            coords, num_levels=n_levels, npads=scheme.npads_for(n_levels + 1),
+            num_batch=num_batch, conv0_kernel_size=conv0_kernel_size,
+            brick_levels=brick_levels)
+    if kind == "chunked":
+        return build_chunked_pyramid(
+            coords, num_levels=n_levels, npads=scheme.npads,
+            num_batch=num_batch, conv0_kernel_size=conv0_kernel_size)
+    pyr, meta = build_pyramid(
+        coords, num_levels=n_levels, npads=scheme.npads, num_batch=num_batch,
+        conv0_kernel_size=conv0_kernel_size)
+    return pyr, meta, None, None
+
+
+def _pad_feats(feats: np.ndarray, npad: int) -> np.ndarray:
+    out = np.zeros((npad, feats.shape[1]), dtype=np.float32)
+    out[: len(feats)] = feats
+    return out
+
+
 def _layout_feats(feats: np.ndarray, rows: np.ndarray, orphan: np.ndarray,
                   nrows: int) -> np.ndarray:
-    """Scatter voxel features to their chunked rows (orphans dropped so the
-    zero-row invariant holds for every absent voxel)."""
+    """Scatter voxel features to their chunked or brick rows (orphans
+    dropped so the zero-row invariant holds for every absent voxel)."""
     out = np.zeros((nrows, feats.shape[1]), dtype=np.float32)
     keep = ~orphan
     out[rows[keep]] = feats[keep]
@@ -282,13 +434,16 @@ def collate_pair(
     """Collate ``__getitem__`` tuples into one static-shaped ``PairBatch``.
 
     Frame 1's clouds become extra sparse-batch samples (ids B..2B-1) and ONE
-    chunked pyramid is built over all 2B frames; the NCE indices point into
-    that combined table.  The JAX package's other modes (hardest, separate
-    frames, voxel and brick layouts) are not ported yet and raise."""
-    if mode != "nce" or not fuse_frames or layout != "chunked":
+    pyramid is built over all 2B frames, in ``layout`` ('chunked', 'voxel',
+    'brick' or 'brick:N'); the NCE indices point into that combined table
+    (remapped to the layout's rows, orphans of truncation invalidated and
+    counted).  The JAX package's other modes (hardest, separate frames) are
+    not ported yet and raise."""
+    parse_layout(layout)  # unknown layouts raise
+    if mode != "nce" or not fuse_frames:
         raise ValueError(
-            f"collate_pair supports mode='nce', fuse_frames=True, "
-            f"layout='chunked' (got {mode!r}, {fuse_frames}, {layout!r})"
+            f"collate_pair supports mode='nce', fuse_frames=True "
+            f"(got {mode!r}, {fuse_frames})"
         )
     rng = rng or np.random.RandomState()
     _, _, coords0, coords1, feats0, feats1, matches, _ = zip(*samples)
@@ -315,13 +470,9 @@ def collate_pair(
         try:
             c1f = c1.copy()
             c1f[:, 0] += nb  # frame-1 clouds as extra batch samples
-            pyr0, meta0, rows0, orph0 = build_chunked_pyramid(
-                np.concatenate([c0, c1f]),
-                num_levels=scheme.num_levels,
-                npads=scheme.npads,
-                num_batch=2 * nb,
-                conv0_kernel_size=conv0_kernel_size,
-            )
+            pyr0, meta0, rows0, orph0 = _build_padded_pyramid(
+                np.concatenate([c0, c1f]), scheme, 2 * nb, conv0_kernel_size,
+                layout)
         except ValueError:
             # deeper-level overflow: shrink level 0 and retry
             _subsample_lists(coords0, feats0, matches, 0, 0.8, rng)
@@ -334,14 +485,20 @@ def collate_pair(
         )
 
     all_matches = _offset_matches(matches, len0, len1)
-    truncated = sum(n for _, n in meta0.truncated) + int(orph0.sum())
+    truncated = sum(n for _, n in meta0.truncated)
     off1 = len(c0)  # frame-1 rows start here in the combined table
     q, k, v = sample_nce_pairs(all_matches, npos, rng)
-    q, v = _remap_idx(q, v, rows0, orph0)
-    k, v = _remap_idx(k + off1, v, rows0, orph0)
+    feats = np.concatenate([f0, f1])
+    if rows0 is None:  # voxel: input voxel i is row i
+        k = k + off1
+        feats0 = _pad_feats(feats, scheme.npads[0])
+    else:
+        truncated += int(orph0.sum())
+        q, v = _remap_idx(q, v, rows0, orph0)
+        k, v = _remap_idx(k + off1, v, rows0, orph0)
+        feats0 = _layout_feats(feats, rows0, orph0, pyr0.levels[0].valid.shape[0])
     return PairBatch(
-        feats0=_layout_feats(np.concatenate([f0, f1]), rows0, orph0,
-                             pyr0.levels[0].valid.shape[0]),
+        feats0=feats0,
         pyramid0=pyr0,
         q_idx=q,
         k_idx=k,

@@ -7,10 +7,10 @@ The scene loaders are numpy copies of the JAX package's:
 ``num_points`` and builds the vote labels; ``SyntheticDetectionDataset``
 makes random rooms with box objects under the same sample contract.
 ``collate_detection`` stacks samples and, for the sparse-conv backbone,
-voxelizes them into a chunked pyramid with a point -> voxel-row index; from
-the same samples it gives the JAX package's arrays byte for byte.
-``DetectionBatch.to`` checks every index against its chunk before any
-kernel can read it through a raw pointer.
+voxelizes them into a chunked or voxel (flat) pyramid with a point ->
+voxel-row index; from the same samples it gives the JAX package's arrays
+byte for byte.  ``DetectionBatch.to`` checks every index against its chunk
+(or, flat, its level) before any kernel can read it through a raw pointer.
 """
 from __future__ import annotations
 
@@ -23,11 +23,13 @@ import torch
 
 from pointcontrast_tpu_torch.data.collate import (
     PadScheme,
+    _level_kind,
     check_pyramid_bounds,
     pyramid_to,
 )
 from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
 from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
+from pointcontrast_tpu_torch.sparse.topology import build_pyramid
 from pointcontrast_tpu_torch.sparse.hashing import HashSpec
 from pointcontrast_tpu_torch.sparse.quantize import sparse_quantize
 
@@ -270,31 +272,35 @@ class DetectionBatch:
     vote_label: Any  # [B, N, 9]
     vote_label_mask: Any  # [B, N]
     # sparse-conv backbone extras (None for pointnet2)
-    voxel_feats: Optional[Any] = None  # [B * S_0, 3]
-    voxel_pyramid: Optional[Any] = None  # chunked Pyramid
+    voxel_feats: Optional[Any] = None  # [R_0, 3] level-0 rows
+    voxel_pyramid: Optional[Any] = None  # chunked or voxel (flat) Pyramid
     point_voxel_idx: Optional[Any] = None  # [B, N] rows of voxel_feats
 
     def to(self, device) -> "DetectionBatch":
-        """Bounds-check the host batch (the pyramid per chunk, and each
-        sample's ``point_voxel_idx`` inside its own slice
-        ``[b * S_0, (b + 1) * S_0)``), then move it to ``device``: maps as
-        int32, ``point_voxel_idx`` int32, integer labels int64."""
+        """Bounds-check the host batch (the pyramid, and each sample's
+        ``point_voxel_idx``: chunked, inside its own slice
+        ``[b * S_0, (b + 1) * S_0)``; flat, below the level-0 rows), then
+        move it to ``device``: maps as int32, ``point_voxel_idx`` int32,
+        integer labels int64."""
         out = {k: _tensor(getattr(self, k), device)
                for k in ("point_clouds",) + LABEL_FIELDS}
         if self.voxel_pyramid is not None:
-            s0 = check_pyramid_bounds(self.voxel_pyramid)[0]
+            rows = check_pyramid_bounds(self.voxel_pyramid)[0]
+            flat = _level_kind(self.voxel_pyramid.levels[0]) == "flat"
             nb = self.voxel_pyramid.num_batch
             pvi = np.asarray(self.point_voxel_idx)
-            if self.voxel_feats.shape[0] != nb * s0 or pvi.shape[0] != nb:
+            if self.voxel_feats.shape[0] != rows or pvi.shape[0] != nb:
                 raise ValueError(
                     f"voxel_feats {self.voxel_feats.shape} / point_voxel_idx "
-                    f"{pvi.shape} do not fit {nb} chunks of {s0} rows")
+                    f"{pvi.shape} do not fit {nb} samples and {rows} rows")
+            s0 = rows if flat else rows // nb
             for b in range(nb):
                 lo, hi = int(pvi[b].min()), int(pvi[b].max())
-                if lo < b * s0 or hi >= (b + 1) * s0:
+                first = 0 if flat else b * s0
+                if lo < first or hi >= first + s0:
                     raise ValueError(
                         f"point_voxel_idx: sample {b} rows [{lo}, {hi}] "
-                        f"outside its slice [{b * s0}, {(b + 1) * s0})")
+                        f"outside [{first}, {first + s0})")
             out.update(
                 voxel_feats=torch.from_numpy(self.voxel_feats).to(device),
                 voxel_pyramid=pyramid_to(self.voxel_pyramid, device),
@@ -330,15 +336,17 @@ def collate_detection(
     layout: str = "chunked",
 ) -> DetectionBatch:
     """Stack samples; with ``voxel_size``, voxelize them for the sparse-conv
-    backbone into a per-sample chunked pyramid (features all ones, as the
-    reference's voxelized dataset) and remap each point to its voxel's
-    chunked row; points whose voxel was dropped or orphaned point at their
-    own slice's zero pad row.  Only ``layout="chunked"`` is ported: the flat
-    ``"voxel"`` layout needs flat [K, N] maps (ROADMAP Queue 1 item 2)."""
-    if voxel_size is not None and layout != "chunked":
-        raise NotImplementedError(
-            f"collate_detection layout={layout!r}: only 'chunked' is ported "
-            "(flat [K, N] maps are ROADMAP Queue 1 item 2)")
+    backbone (features all ones, as the reference's voxelized dataset) into
+    a per-sample chunked pyramid, each point remapped to its voxel's chunked
+    row (points whose voxel was dropped or orphaned point at their own
+    slice's zero pad row), or into one flat pyramid (``layout="voxel"``),
+    each point at its voxel's global row (dropped ones at the pad row
+    ``npad0 - 1``).  Any other layout raises ``ValueError``: the JAX
+    package sends "brick" down the flat branch, with flat maps under a
+    name that promises bricks."""
+    if voxel_size is not None and layout not in ("chunked", "voxel"):
+        raise ValueError(f"collate_detection layout={layout!r}: the detection "
+                         "path runs the 'chunked' and 'voxel' layouts")
     out = {
         k: np.stack([s[k] for s in samples])
         for k in samples[0]
@@ -371,6 +379,16 @@ def collate_detection(
          for b, c in enumerate(coords_l)]
     )
     nb = len(samples)
+    if layout == "voxel":
+        pyr, _meta = build_pyramid(coords, num_levels=scheme.num_levels,
+                                   npads=scheme.npads, num_batch=nb)
+        npad0 = scheme.npads[0]
+        feats = np.zeros((npad0, 3), np.float32)
+        feats[: len(coords)] = 1.0
+        pvi = np.stack([np.where(pvi_l[b] >= 0, pvi_l[b] + offs[b], npad0 - 1)
+                        for b in range(nb)]).astype(np.int32)
+        batch.update(voxel_feats=feats, voxel_pyramid=pyr, point_voxel_idx=pvi)
+        return DetectionBatch(**batch)
     pyr, _meta, rows, orphan = build_chunked_pyramid(
         coords, num_levels=scheme.num_levels, npads=scheme.npads, num_batch=nb,
     )

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.sparse import brick, ops
 
 
 def kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None):
@@ -29,7 +29,8 @@ def kernel_init_(w: torch.Tensor, generator: torch.Generator | None = None):
 class SparseConv(nn.Module):
     """Sparse convolution: ``nbr`` decides the geometry (a same-level map
     gives a stride-1 conv, a down map a strided conv onto the coarser
-    level)."""
+    level) and the layout (a ``BrickMap`` or ``BrickDownMap`` runs the
+    brick convs)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
                  bias: bool = False, generator: torch.Generator | None = None):
@@ -40,6 +41,13 @@ class SparseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, features, nbr, valid_out, rev=None, up=None):
+        # the map object decides the layout: same weights, same semantics
+        if isinstance(nbr, brick.BrickMap):
+            return brick.brick_conv(features, nbr.nbr, self.weight, nbr.plan,
+                                    bias=self.bias, valid_out=valid_out)
+        if isinstance(nbr, brick.BrickDownMap):
+            return brick.brick_down_conv(features, nbr.place, self.weight,
+                                         bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv(features, nbr, self.weight, bias=self.bias,
                                valid_out=valid_out, rev=rev, up=up)
 
@@ -57,6 +65,9 @@ class SparseConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, features, up_parent, up_offset, valid_out):
+        if up_offset is None:  # brick layout: up_parent is the up-gather
+            return brick.brick_up_conv(features, up_parent, self.weight,
+                                       bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv_transpose(features, up_parent, up_offset,
                                          self.weight, bias=self.bias,
                                          valid_out=valid_out)

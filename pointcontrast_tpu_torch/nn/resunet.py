@@ -29,6 +29,7 @@ from pointcontrast_tpu_torch.nn.resnet_block import (
     Bottleneck,
 )
 from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.sparse.brick import BrickMap
 
 NUM_LEVELS = 4  # strides 1, 2, 4, 8
 
@@ -192,6 +193,11 @@ class MinkUNetHyper(MinkUNetBase):
 
     def forward(self, features, pyramid):
         lv = pyramid.levels
+        if any(isinstance(l.nbr, BrickMap) for l in lv):
+            raise ValueError(
+                "MinkUNetHyper's chained pooling-transposes need per-fine-row "
+                "up_parent maps, which brick levels don't carry — build the "
+                "pyramid with layout='voxel'")
         out, stages = self._trunk(features, pyramid)
         hyper = []
         for x, lvl in zip(stages, (2, 1)):

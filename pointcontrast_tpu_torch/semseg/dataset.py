@@ -1,15 +1,15 @@
 """Voxelization datasets and fixed-shape semseg batches (host side, numpy,
 plus the move to torch).
 
-Jax-free port of ``pointcontrast_tpu/semseg/dataset.py`` for the chunked
-layout: the voxelization dataset base (prevoxel / input / target
-transforms, label remap to ``ignore_label``, coords-as-feats), the collator
-(concatenate, optional random translation before the kernel maps, colour
-normalisation, the chunked pyramid at PadScheme sizes, labels padded with
-``ignore_label``, and the CRF's bilateral map over the slice rows), and a
-synchronous loader that draws samples, seeds and shifts in the JAX
-loader's order.  From the same samples and ``RandomState`` the batches are
-the JAX package's, byte for byte.
+Jax-free port of ``pointcontrast_tpu/semseg/dataset.py``: the voxelization
+dataset base (prevoxel / input / target transforms, label remap to
+``ignore_label``, coords-as-feats), the collator (concatenate, optional
+random translation before the kernel maps, colour normalisation, the
+pyramid at PadScheme sizes in the chunked, voxel or brick[:N] layout,
+labels padded with ``ignore_label``, and the CRF's bilateral map over the
+layout's rows), and a synchronous loader that draws samples, seeds and
+shifts in the JAX loader's order.  From the same samples and
+``RandomState`` the batches are the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
@@ -21,35 +21,35 @@ import torch
 
 from pointcontrast_tpu_torch.data.collate import (
     PadScheme,
+    _build_padded_pyramid,
     _check_below,
     _concat_with_batch_index,
     check_pyramid_bounds,
+    parse_layout,
     pyramid_to,
 )
 from pointcontrast_tpu_torch.data.sampler import DistributedInfSampler
 from pointcontrast_tpu_torch.semseg.voxelizer import Voxelizer
-from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
 from pointcontrast_tpu_torch.sparse.quantize import sparse_quantize
 
 
 @dataclasses.dataclass
 class SemsegBatch:
-    """One chunked batch: numpy on the host, torch after ``to``."""
+    """One batch: numpy on the host, torch after ``to``."""
 
-    feats: Any  # [B * S_0, C], padded rows zero
-    labels: Any  # [B * S_0] int, padding = ignore_label
-    pyramid: Any  # chunked sparse.topology.Pyramid
+    feats: Any  # [R_0, C] level-0 rows of the layout, padded rows zero
+    labels: Any  # [R_0] int, padding = ignore_label
+    pyramid: Any  # sparse.topology.Pyramid (chunked, voxel or brick)
     # voxels dropped by graceful truncation (scalar)
     truncated_voxels: Optional[Any] = None
-    # [K, B * S_0] flat bilateral-grid map over the slice rows (CRF wrappers)
+    # [K, R_0] flat bilateral-grid map over the level-0 rows (CRF wrappers)
     crf_nbr: Optional[Any] = None
     num_samples: int = 0
 
     def to(self, device) -> "SemsegBatch":
         """Bounds-check the host batch, then move it to ``device``: maps
         widened to int32, labels to int64."""
-        sizes = check_pyramid_bounds(self.pyramid)
-        rows = self.pyramid.num_batch * sizes[0]
+        rows = check_pyramid_bounds(self.pyramid)[0]
         if self.feats.shape[0] != rows or self.labels.shape != (rows,):
             raise ValueError(f"feats {self.feats.shape} / labels {self.labels.shape}: "
                              f"expected {rows} rows")
@@ -184,21 +184,19 @@ def collate_semseg(
     crf: dict | None = None,
     num_chunks: int | None = None,
 ) -> SemsegBatch:
-    """Concatenate, pad to static shapes and build the chunked pyramid.
+    """Concatenate, pad to static shapes and build the pyramid in
+    ``layout`` ('chunked', 'voxel', 'brick' or 'brick:N').
 
     crf: when set (keys kernel_size, region, spatial_sigma,
     chromatic_sigma), also build the CRF's bilateral-grid map from the
-    batch's coords and raw colours, over the slice rows.  shift_coords: a
-    random [0, 100) translation of all coords (it changes the voxel
-    lattice, so it precedes the kernel maps).  normalize_color: RGB / 255 -
-    0.5 on the first three channels.  limit_numpoints: whole samples past
-    the budget are left out.  num_chunks: the number of per-sample slices
-    (missing samples become empty, fully masked chunks).  The JAX package's
-    ``voxel`` and ``brick`` layouts raise ``NotImplementedError``."""
-    if layout != "chunked":
-        raise NotImplementedError(
-            f"layout={layout!r}: only the chunked layout is ported (the voxel "
-            "layout's flat maps and the brick layout are ROADMAP Queue 1 item 2)")
+    batch's coords and raw colours, over the layout's level-0 rows.
+    shift_coords: a random [0, 100) translation of all coords (it changes
+    the voxel lattice, so it precedes the kernel maps).  normalize_color:
+    RGB / 255 - 0.5 on the first three channels.  limit_numpoints: whole
+    samples past the budget are left out.  num_chunks: the chunked
+    layout's number of per-sample slices (missing samples become empty,
+    fully masked chunks)."""
+    kind, _ = parse_layout(layout)
     rng = rng or np.random.RandomState()
     coords_l, feats_l, labels_l = [], [], []
     total = 0
@@ -229,27 +227,37 @@ def collate_semseg(
         feats = feats.astype(np.float32).copy()
         feats[:, :3] = feats[:, :3] / 255.0 - 0.5
 
-    pyr, meta, rows, orphan = build_chunked_pyramid(
-        coords, num_levels=num_levels or scheme.num_levels, npads=scheme.npads,
-        num_batch=num_chunks or nb, conv0_kernel_size=conv0_kernel_size)
-    nrows = pyr.levels[0].valid.shape[0]
-    keep = ~orphan
-    fpad = np.zeros((nrows, feats.shape[1]), np.float32)
-    fpad[rows[keep]] = feats[keep]
-    lpad = np.full(nrows, ignore_label, np.int32)
-    lpad[rows[keep]] = labels[keep]
-    crf_nbr = None
-    if crf is not None:
+    def crf_map(keep, rows, nrows):
         from pointcontrast_tpu_torch.semseg.crf import build_bilateral_map
 
-        crf_nbr = build_bilateral_map(
-            coords[keep], raw_rgb[keep], nrows,
+        sel = slice(None) if keep is None else keep
+        return build_bilateral_map(
+            coords[sel], raw_rgb[sel], nrows,
             spatial_sigma=crf.get("spatial_sigma", 1.0),
             chromatic_sigma=crf.get("chromatic_sigma", 12.0),
             kernel_size=crf.get("kernel_size", 3),
             region=crf.get("region", "hypercross"),
-            rows=rows[keep])
-    truncated = sum(n for _, n in meta.truncated) + int(orphan.sum())
+            rows=rows)
+
+    pyr, meta, rows, orphan = _build_padded_pyramid(
+        coords, scheme, num_chunks or nb if kind == "chunked" else nb,
+        conv0_kernel_size, layout, num_levels)
+    truncated = sum(n for _, n in meta.truncated)
+    nrows = pyr.levels[0].valid.shape[0]
+    if rows is None:  # voxel: input voxel i is row i
+        fpad = np.zeros((nrows, feats.shape[1]), np.float32)
+        fpad[: len(feats)] = feats
+        lpad = np.full(nrows, ignore_label, np.int32)
+        lpad[: len(labels)] = labels
+        crf_nbr = None if crf is None else crf_map(None, None, nrows)
+    else:
+        keep = ~orphan
+        fpad = np.zeros((nrows, feats.shape[1]), np.float32)
+        fpad[rows[keep]] = feats[keep]
+        lpad = np.full(nrows, ignore_label, np.int32)
+        lpad[rows[keep]] = labels[keep]
+        crf_nbr = None if crf is None else crf_map(keep, rows[keep], nrows)
+        truncated += int(orphan.sum())
     return SemsegBatch(feats=fpad, labels=lpad, pyramid=pyr,
                        truncated_voxels=np.asarray(truncated, np.float32),
                        crf_nbr=crf_nbr, num_samples=nb)

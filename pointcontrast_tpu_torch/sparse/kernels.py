@@ -36,6 +36,15 @@ custom-VJP XLA programs, except the Pallas probes):
                  ``table[idx]`` and ``sum_k table[nbr[k]]``, as [1, N, C]
                  tables and [K, 1, M] maps)
   scatter_sum    the pooling ops' backward, the adjoint of gather_sum
+The same kernels run the voxel (flat) layout at B = 1, a flat [K, N] map
+taken as [K, 1, N]: JAX ``_conv_sym`` (K1's three), the flat k2s2 down
+conv (K2's), the flat transposed conv (K3's) and the flat pooling ops
+(gather_sum, scatter_sum); gather_sum and scatter_sum at K = 1 are also
+the brick layout's placement and up gathers.  Two kernels serve the brick
+layout's same-level conv (``pointcontrast_tpu/sparse/brick.py``):
+  brick_gemm     ``_brick_core``: the forward of ``brick_conv`` and, with
+                 W'[t] = W[rev[t]]^T, its dF (``_brick_sym_bwd``)
+  brick_wgrad    ``_brick_sym_bwd``'s dW (the gs^T @ cp blocks)
 What bounds them on an H100: the gather kernels read every gathered row once
 per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
@@ -47,12 +56,19 @@ row once (bound by HBM bytes) and adds one atomic per block, segment and
 channel.  gather_sum does no multiply: it reads each gathered row once and
 writes each output row once (bound by HBM bytes), float4 along C; its
 adjoint scatter_sum reads each cotangent row once and adds it with f32
+atomics.  brick_gemm does 2*Cin*Cout flop per (output slot, tap) pair of
+every brick, occupied or not (8 slots x 27 taps a brick at k = 3), so it is
+bound by f32 arithmetic; it loads one index per (brick, plan step) and
+reads whole brick rows.  brick_wgrad does the same products as a reduction
+over bricks (f32 arithmetic too), 216 (step, s, p) blocks combined with
 atomics.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from pointcontrast_tpu_torch import cuda_build
@@ -91,6 +107,8 @@ def _lib():
         "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
         "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
+        "pc_brick_gemm": [vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
+        "pc_brick_wgrad": [vp, vp, vp, ci, vp, vp, ci, ci, ci, ci, vp],
     })
 
 
@@ -458,6 +476,159 @@ def scatter_sum(g3, map_, taps, tap_stride, s_in, skip):
     return out
 
 
+# --------------------------------------------------------------------------
+# (i) brick_gemm and (j) brick_wgrad: the brick layout's same-level conv.
+#
+# ``steps`` is a brick plan in slot form (``sparse.brick.slot_steps``): one
+# (d, centre, T) per plan step, T[s][p] the tap that adds source slot s of
+# neighbour brick d into output slot p, -1 where none does.
+
+
+BRICK_SLOTS = 8
+STEP_TAPS = 27  # distinct taps of one step, at most (2d + s - p per axis)
+# enough blocks of brick_wgrad in flight to fill the card (132 SMs)
+WGRAD_TARGET_BLOCKS = 4 * 132
+
+
+@functools.lru_cache(maxsize=None)
+def _step_blocks(steps):
+    """Per step (d, centre, source slots, output slots, taps [n_s][n_p]):
+    the slots that take part and the block matrix of taps between them."""
+    out = []
+    for d, center, tm in steps:
+        s_idx = [s for s in range(BRICK_SLOTS) if any(t >= 0 for t in tm[s])]
+        p_idx = [p for p in range(BRICK_SLOTS) if any(tm[s][p] >= 0 for s in s_idx)]
+        out.append((d, center, s_idx, p_idx,
+                    [[tm[s][p] for p in p_idx] for s in s_idx]))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _brick_tables(steps):
+    """(step table [n_steps, 94], triples [n, 5]) int32: the kernels' form
+    of ``steps`` (csrc/sparse_conv.cu spells out the columns)."""
+    table = np.full((len(steps), 3 + STEP_TAPS + BRICK_SLOTS ** 2), -1, np.int32)
+    triples = []
+    for i, (d, center, tm) in enumerate(steps):
+        taps = sorted({t for row in tm for t in row if t >= 0})
+        if len(taps) > STEP_TAPS:
+            raise ValueError(f"plan step {i} has {len(taps)} taps > {STEP_TAPS}")
+        table[i, :3] = d, int(center), len(taps)
+        table[i, 3:3 + len(taps)] = taps
+        for s in range(BRICK_SLOTS):
+            for p in range(BRICK_SLOTS):
+                t = tm[s][p]
+                if t >= 0:
+                    table[i, 3 + STEP_TAPS + s * BRICK_SLOTS + p] = taps.index(t)
+                    triples.append((d, int(center), s, p, t))
+    return table, np.asarray(triples, np.int32).reshape(-1, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _brick_tables_on(steps, device):
+    return tuple(torch.from_numpy(a).to(device) for a in _brick_tables(steps))
+
+
+def _brick_source(x3, nbr, d, center):
+    """[NB, 8, C] brick rows of neighbour d of every brick."""
+    return x3 if center else x3[nbr[d].long()]
+
+
+def _check_brick(name, x, nbr, steps, w_taps=None):
+    nb = nbr.shape[1]
+    if x.dim() != 2 or x.shape[0] != BRICK_SLOTS * nb:
+        raise ValueError(f"{name}: brick rows of shape {tuple(x.shape)}, expected "
+                         f"[{BRICK_SLOTS * nb}, C] for {nb} bricks")
+    if any(not 0 <= d < nbr.shape[0] for d, _, _ in steps):
+        raise ValueError(f"{name}: plan reads a neighbour row outside [0, {nbr.shape[0]})")
+    if w_taps is not None and any(t >= w_taps for _, _, tm in steps
+                                  for row in tm for t in row):
+        raise ValueError(f"{name}: plan names a tap outside [0, {w_taps})")
+
+
+def brick_gemm_plain(x, nbr, steps, w):
+    nb = nbr.shape[1]
+    cin, cout = w.shape[1], w.shape[2]
+    x3 = x.reshape(nb, BRICK_SLOTS, cin)
+    out = x.new_zeros(nb, BRICK_SLOTS, cout)
+    for d, center, s_idx, p_idx, taps in _step_blocks(steps):
+        gs = _brick_source(x3, nbr, d, center)[:, s_idx].reshape(nb, -1)
+        tm = torch.tensor(taps, device=w.device)
+        wd = w[tm.clamp(min=0)] * (tm >= 0)[..., None, None].to(w.dtype)
+        wd = wd.permute(0, 2, 1, 3).reshape(len(s_idx) * cin, len(p_idx) * cout)
+        out[:, p_idx] += (gs @ wd).reshape(nb, len(p_idx), cout)
+    return out.reshape(nb * BRICK_SLOTS, cout)
+
+
+def brick_gemm(x, nbr, steps, w):
+    """out[b*8+p] = sum over the plan's steps (d, T) and source slots s of
+    x[src_d(b)*8+s] @ w[T[s][p]], src_d(b) = nbr[d, b] (b itself at the
+    centre step).  x [NB*8, Cin]; nbr [K3, NB] int32 neighbour bricks;
+    w [K_taps, Cin, Cout] -> [NB*8, Cout].  Empty slots get what their
+    neighbours give (the caller masks them); pad bricks, whose neighbours
+    are all the zero pad brick, get exactly zero."""
+    _check_brick("brick_gemm", x, nbr, steps, w.shape[0])
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"brick_gemm: {x.shape[1]} channels, weights take {w.shape[1]}")
+    if _use_plain(x):
+        return brick_gemm_plain(x, nbr, steps, w)
+    _require(x, "x", torch.float32, 2)
+    _require(nbr, "nbr", torch.int32, 2)
+    _require(w, "w", torch.float32, 3)
+    nb, (cin, cout) = nbr.shape[1], w.shape[1:]
+    table, _ = _brick_tables_on(steps, x.device)
+    out = torch.empty(nb * BRICK_SLOTS, cout, device=x.device, dtype=torch.float32)
+    rc = _lib().pc_brick_gemm(_ptr(x), _ptr(nbr), _ptr(table), len(steps),
+                              _ptr(w), _ptr(out), nb, cin, cout, _stream())
+    _check(rc, "brick_gemm")
+    brick_gemm.launches += 1
+    return out
+
+
+def brick_wgrad_plain(x, nbr, steps, ct, num_taps):
+    nb = nbr.shape[1]
+    cin, cout = x.shape[1], ct.shape[1]
+    x3 = x.reshape(nb, BRICK_SLOTS, cin)
+    ct3 = ct.reshape(nb, BRICK_SLOTS, cout)
+    dw = x.new_zeros(num_taps, cin, cout)
+    for d, center, s_idx, p_idx, taps in _step_blocks(steps):
+        gs = _brick_source(x3, nbr, d, center)[:, s_idx].reshape(nb, -1)
+        cp = ct3[:, p_idx].reshape(nb, -1)
+        m = (gs.transpose(0, 1) @ cp).reshape(len(s_idx), cin, len(p_idx), cout)
+        tm = torch.tensor(taps, device=x.device)
+        keep = tm >= 0
+        dw.index_add_(0, tm[keep], m.permute(0, 2, 1, 3)[keep])
+    return dw
+
+
+def brick_wgrad(x, nbr, steps, ct, num_taps):
+    """dW[t] = sum over the (d, s, p) with T_d[s][p] = t of
+    sum_b x[src_d(b)*8+s]^T @ ct[b*8+p] -> [num_taps, Cin, Cout] f32.  On
+    the card each (d, s, p) block over a slice of bricks is reduced in
+    registers and added with f32 atomics, so the summation order differs
+    from run to run."""
+    _check_brick("brick_wgrad", x, nbr, steps, num_taps)
+    _check_brick("brick_wgrad ct", ct, nbr, steps)
+    if _use_plain(x):
+        return brick_wgrad_plain(x, nbr, steps, ct, num_taps)
+    _require(x, "x", torch.float32, 2)
+    _require(ct, "ct", torch.float32, 2)
+    _require(nbr, "nbr", torch.int32, 2)
+    nb, cin, cout = nbr.shape[1], x.shape[1], ct.shape[1]
+    _, triples = _brick_tables_on(steps, x.device)
+    tiles = -(-cin // 64) * -(-cout // 64)  # the kernel's 64 x 64 tiles
+    splits = max(1, -(-WGRAD_TARGET_BLOCKS // (tiles * triples.shape[0])))
+    per_block = -(-nb // splits)
+    dw = torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32)
+    rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(triples), triples.shape[0],
+                               _ptr(ct), _ptr(dw), nb, cin, cout, per_block,
+                               _stream())
+    _check(rc, "brick_wgrad")
+    brick_wgrad.launches += 1
+    return dw
+
+
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
-           scatter_gemm, segment_sum, gather_sum, scatter_sum)
+           scatter_gemm, segment_sum, gather_sum, scatter_sum, brick_gemm,
+           brick_wgrad)
 reset_launches()

@@ -1,9 +1,9 @@
 """Sparse ops: convolutions, pooling, masking, masked moments.
 
-Port of the chunked branches of ``pointcontrast_tpu/sparse/ops.py``, its
-flat-map conv and its per-sample and k2s2 pooling.  Each convolution is a
-``torch.autograd.Function`` carrying the JAX op's backward, built from the
-kernels in ``sparse.kernels``:
+Port of ``pointcontrast_tpu/sparse/ops.py``: the chunked layout's ops, the
+voxel (flat) layout's, and the per-sample and k2s2 pooling.  Each
+convolution is a ``torch.autograd.Function`` carrying the JAX op's
+backward, built from the kernels in ``sparse.kernels``:
 
   K1 ``_ConvChunkFused`` (JAX ``_conv_chunk_fused``): same-level conv,
      scatter-free backward through the offset-reversal permutation;
@@ -15,6 +15,15 @@ kernels in ``sparse.kernels``:
      ``_conv_core`` on a flat [K, N] map such as the CRF's bilateral grid,
      run as a [K, 1, N] map): any other map, gather-GEMM forward,
      scatter_gemm dF, gather_wgrad dW, in groups of MAX_TAPS taps.
+The voxel layout runs the same Functions at B = 1, a flat [K, N] map taken
+as [K, 1, N] and a flat [N] parent map as [1, N]: a same-level map with
+``rev`` and ``valid_out`` is K1 (JAX ``_conv_sym``: the scatter-free
+backward of ``_ConvChunkFused``), a k2s2 down map with ``up`` is K2 (JAX
+differentiates ``_conv_core`` there; the gradient agrees on valid rows),
+any other flat map K4, the flat transposed conv K3 and the flat pools
+``_GatherSum``.  Missing neighbours point at the one pad row ``N - 1`` of
+the whole batch, which is then the "last row of the slice" that the
+scatters leave out.
 ``global_pool`` and ``broadcast_to_points`` are Functions over the
 ``segment_sum`` kernel and the K8 row gather (``detect.kernels.gather_rows``),
 each the other's adjoint.  The K5 k2s2 pooling ops (``sparse_sum_pool``,
@@ -235,25 +244,24 @@ def sparse_conv(
     rev: tuple | None = None,  # offset-reversal perm (same-level maps only)
     up: tuple | None = None,  # (up_parent, up_offset) for k2s2 down maps
 ) -> torch.Tensor:
-    """Sparse convolution.  Chunked maps: a same-level map with ``rev`` (and
-    ``valid_out``) runs K1, a k2s2 down map with ``up`` runs K2, any other
-    map K4, as JAX's dispatch does.  A flat [K, N_out] map runs K4 at B = 1
-    whatever ``rev`` and ``up`` say: its backward is exact for any map (JAX's
-    gather-form flat backward with ``rev`` computes the same gradient on
-    valid rows)."""
+    """Sparse convolution, as JAX's dispatch: a same-level map with ``rev``
+    (and ``valid_out``) runs K1, a k2s2 down map with ``up`` K2, any other
+    map K4; a flat [K, N_out] map runs the same at B = 1."""
     features = features.contiguous()
-    if nbr.dim() == 2:
-        out = _ConvChunkDownFused.apply(features, nbr[:, None].contiguous(),
-                                        weights.contiguous())
+    if nbr.dim() == 2:  # voxel layout: one batch-wide slice
+        nbr = nbr[:, None]
+        if up is not None:
+            up = (up[0][None], up[1][None])
     elif nbr.dim() != 3:
         raise ValueError(f"[K, B, S] or [K, N] maps only, got {tuple(nbr.shape)}")
-    elif (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
-          and valid_out is not None):
+    if (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
+            and valid_out is not None):
         out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev))
     elif up is not None:
         out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights)
     else:
-        out = _ConvChunkDownFused.apply(features, nbr, weights.contiguous())
+        out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
+                                        weights.contiguous())
     if bias is not None:
         out = out + bias
     if valid_out is not None:
@@ -262,16 +270,19 @@ def sparse_conv(
 
 
 def sparse_conv_transpose(
-    features: torch.Tensor,  # [B*S_coarse, Cin], padded rows zero
-    up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent
-    up_offset: torch.Tensor,  # [B, S_fine] kernel offset id in [0, 8)
+    features: torch.Tensor,  # [B*S_coarse, Cin] (flat: [N_coarse, Cin])
+    up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent, or [N_fine]
+    up_offset: torch.Tensor,  # [B, S_fine] (or [N_fine]) offset id in [0, 8)
     weights: torch.Tensor,  # [8, Cin, Cout]
     bias: torch.Tensor | None = None,
     valid_out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """k2s2 transposed conv onto the reused finer level (K3)."""
-    if up_parent.dim() != 2:
-        raise ValueError("chunked [B, S] parent maps only")
+    """k2s2 transposed conv onto the reused finer level (K3; a flat parent
+    map at B = 1)."""
+    if up_parent.dim() == 1:
+        up_parent, up_offset = up_parent[None], up_offset[None]
+    elif up_parent.dim() != 2:
+        raise ValueError(f"[B, S] or [N] parent maps only, got {tuple(up_parent.shape)}")
     out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights)
     if bias is not None:
         out = out + bias
@@ -311,32 +322,37 @@ class _GatherSum(torch.autograd.Function):
         return df.reshape(b_ * ctx.s_in, -1), None, None
 
 
-def _chunked(name, m, ndim):
-    if m.dim() != ndim:
-        raise ValueError(f"{name}: chunked maps only, got {tuple(m.shape)}")
+def _down_map(name, m):
+    """A k2s2 pooling map in the chunked form [K, B, S_out] (a flat
+    [K, N_out] map as [K, 1, N_out])."""
+    if m.dim() == 2:
+        return m[:, None]
+    if m.dim() != 3:
+        raise ValueError(f"{name}: map of shape {tuple(m.shape)}")
+    return m
 
 
 def sparse_sum_pool(
     features: torch.Tensor,  # [B*S_in, C], padded rows zero
-    down_nbr: torch.Tensor,  # [K, B, S_out] children of each coarse row
+    down_nbr: torch.Tensor,  # [K, B, S_out] children of each coarse row (flat [K, N_out])
     valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
 ) -> torch.Tensor:
     """Kernel-2 stride-2 sum pooling (ME.MinkowskiSumPooling)."""
-    _chunked("sparse_sum_pool", down_nbr, 3)
+    down_nbr = _down_map("sparse_sum_pool", down_nbr)
     out = _GatherSum.apply(features.contiguous(), down_nbr, None)
     return out if valid_out is None else mask_rows(out, valid_out)
 
 
 def sparse_avg_pool(
     features: torch.Tensor,  # [B*S_in, C], padded rows zero
-    down_nbr: torch.Tensor,  # [K, B, S_out]
+    down_nbr: torch.Tensor,  # [K, B, S_out] (flat [K, N_out])
     valid_in: torch.Tensor,  # [B*S_in] float mask
     valid_out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Kernel-2 stride-2 average pooling over the children present
     (ME.MinkowskiAvgPooling): the sum over max(count, 1), the count a
     gather_sum of ``valid_in`` at C = 1."""
-    _chunked("sparse_avg_pool", down_nbr, 3)
+    down_nbr = _down_map("sparse_avg_pool", down_nbr)
     k, b_, s_out = down_nbr.shape
     with torch.no_grad():
         v3 = valid_in.to(features.dtype).reshape(b_, -1, 1).contiguous()
@@ -347,13 +363,16 @@ def sparse_avg_pool(
 
 def sparse_avg_unpool(
     features: torch.Tensor,  # [B*S_coarse, C]
-    up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent
+    up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent (flat [N_fine])
     valid_out: torch.Tensor | None = None,  # [B*S_fine] float mask
 ) -> torch.Tensor:
     """Kernel-2 stride-2 average unpooling: each fine row reads its parent
     (ME.MinkowskiAvgUnpooling onto the reused finer coords), a 1-tap
     gather_sum; its backward adds up to 8 children into each parent."""
-    _chunked("sparse_avg_unpool", up_parent, 2)
+    if up_parent.dim() == 1:
+        up_parent = up_parent[None]
+    elif up_parent.dim() != 2:
+        raise ValueError(f"sparse_avg_unpool: map of shape {tuple(up_parent.shape)}")
     out = _GatherSum.apply(features.contiguous(), up_parent[None], None)
     return out if valid_out is None else mask_rows(out, valid_out)
 

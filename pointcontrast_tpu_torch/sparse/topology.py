@@ -2,10 +2,11 @@
 
 Jax-free port of ``pointcontrast_tpu/sparse/topology.py``: ``LevelTopo`` and
 ``Pyramid`` are plain dataclasses instead of ``flax.struct`` pytrees, and only
-what ``chunk.build_chunked_pyramid`` needs is kept (same-level ``nbr``, the
-stem's ``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``, the
-ResNets' k3s2 ``down_nbr3``, ``valid`` and ``batch``).  The maps are
-byte-identical to the JAX package's.
+what the voxel layout, ``chunk.build_chunked_pyramid`` and
+``brick.build_brick_pyramid`` need is kept (same-level ``nbr``, the stem's
+``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``, the
+ResNets' k3s2 ``down_nbr3``, ``valid``, ``batch`` and the brick layout's
+``first_nbr_level``).  The maps are byte-identical to the JAX package's.
 
 Structural facts that make every map gather-only:
   - stride-1 conv: output coords == input coords; for each kernel offset an
@@ -164,6 +165,7 @@ def build_pyramid(
     num_batch: int | None = None,
     allow_truncate: bool = True,
     build_down3: bool = False,
+    first_nbr_level: int = 0,
 ):
     """Build the full coordinate pyramid for a sparse U-Net.
 
@@ -173,6 +175,9 @@ def build_pyramid(
       raising (meta.truncated records (level, n_dropped)).
     build_down3: also build the kernel-3 stride-2 maps ``down_nbr3`` of the
       ResNet family's strided blocks.
+    first_nbr_level: build no same-level maps below this level (the brick
+      layout reads level l's conv geometry from level l+1's map, so it
+      never needs level 0's, the largest).
 
     Returns (Pyramid, PyramidMeta)."""
     coords = np.asarray(coords)
@@ -194,7 +199,8 @@ def build_pyramid(
         if npad <= n:
             raise ValueError(f"level {lvl}: npad {npad} must exceed count {n}")
 
-        nbr = _same_level_map(cur, offs3, npad)
+        nbr = (_same_level_map(cur, offs3, npad)
+               if lvl >= first_nbr_level else None)
         valid = np.zeros(npad, dtype=np.float32)
         valid[:n] = 1.0
         batch = np.full(npad, num_batch, dtype=np.int32)
@@ -202,7 +208,8 @@ def build_pyramid(
 
         nbr0 = None
         rev0 = None
-        if lvl == 0 and conv0_kernel_size != block_kernel_size:
+        if (lvl == 0 and first_nbr_level == 0
+                and conv0_kernel_size != block_kernel_size):
             offs0 = kernel_offsets(conv0_kernel_size, dimension, "hypercube")
             nbr0 = _same_level_map(cur, offs0, npad)
             rev0 = reversal_permutation(offs0)
@@ -210,7 +217,8 @@ def build_pyramid(
         level = dict(
             nbr=_shrink_idx(nbr, npad), valid=valid, batch=batch,
             nbr0=_shrink_idx(nbr0, npad),
-            rev=reversal_permutation(offs3), rev0=rev0,
+            rev=reversal_permutation(offs3) if nbr is not None else None,
+            rev0=rev0,
         )
         meta_coords.append(cur)
         meta_counts.append(n)

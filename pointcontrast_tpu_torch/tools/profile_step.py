@@ -3,7 +3,7 @@
     python -m pointcontrast_tpu_torch.tools.profile_step
         [--app pretrain|votenet|semseg|resnet] [--backbone sparseconv|pointnet2]
         [--model Res16UNet34C|ResUNet18INBN|MinkUNetHyper14INBN|ResNet18|...]
-        [--crf] [--steps 10]
+        [--crf] [--layout chunked|voxel|brick|brick:N] [--steps 10]
 
 On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
 Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
@@ -15,7 +15,8 @@ default) or PointNet++ (``--backbone pointnet2``) + its loss + Adam;
 BilateralCRF with ``--crf`` (the filter applied on every step) + the CE
 loss + SGD and PolyLR; ``resnet`` is the same scenes through a ResNet
 (``--model``, ResNet18 by default) on its 6-level pyramid, CE at the
-level-5 rows, the same optimizer.
+level-5 rows, the same optimizer.  ``--layout`` collates the pretraining
+and semseg batches in the chunked (default), voxel or brick[:N] layout.
   1. ms/step of the kernel path and of the plain-torch twins
      (``workload.plain_ops``), timed in turns (plain, kernels, kernels,
      plain), each from the same seeded weights after two warm-up steps, host
@@ -45,7 +46,7 @@ from pointcontrast_tpu_torch.tools import workload
 PHASES = ("forward", "loss", "backward", "optimizer")
 
 
-def _pretrain_app():
+def _pretrain_app(layout="chunked"):
     from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
     from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step
     from pointcontrast_tpu_torch.train import optim
@@ -77,7 +78,7 @@ def _pretrain_app():
         mark()
 
     return types.SimpleNamespace(
-        batches=workload.pretrain_batches("cuda"),
+        batches=workload.pretrain_batches("cuda", layout=layout),
         model=workload.pretrain_model(seed=0), unit="pairs",
         per_step=workload.PAIRS, fresh=fresh, step=step, phases=phases)
 
@@ -127,7 +128,7 @@ def _votenet_app(backbone="sparseconv"):
         phases=phases)
 
 
-def _semseg_app(model="Res16UNet34C", crf=False):
+def _semseg_app(model="Res16UNet34C", crf=False, layout="chunked"):
     from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
     from pointcontrast_tpu_torch.semseg.train import (
         SemsegConfig,
@@ -139,7 +140,8 @@ def _semseg_app(model="Res16UNet34C", crf=False):
     cfg = SemsegConfig(lr=0.1, max_iter=60000, wrapper_lr=0.1 if crf else None)
     train_step = make_semseg_train_step(cfg)
     scenes = workload.SemsegScenes()
-    batch = workload.semseg_batch(scenes, crf=workload.SEMSEG_CRF).to("cuda")
+    batch = workload.semseg_batch(scenes, crf=workload.SEMSEG_CRF,
+                                  layout=layout).to("cuda")
 
     def fresh(model):
         m = copy.deepcopy(model).cuda()
@@ -289,6 +291,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", help="semseg (default Res16UNet34C) and resnet "
                     "(default ResNet18)")
     ap.add_argument("--crf", action="store_true", help="semseg only")
+    ap.add_argument("--layout", default="chunked",
+                    help="pretrain and semseg: chunked, voxel, brick or brick:N")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -302,8 +306,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     model = {"semseg": args.model or "Res16UNet34C",
              "resnet": args.model or "ResNet18"}.get(args.app)
-    kw = {"votenet": {"backbone": args.backbone},
-          "semseg": {"model": model, "crf": args.crf},
+    kw = {"pretrain": {"layout": args.layout},
+          "votenet": {"backbone": args.backbone},
+          "semseg": {"model": model, "crf": args.crf, "layout": args.layout},
           "resnet": {"model": model}}.get(args.app, {})
     app = APPS[args.app](**kw)
     steps = args.steps
@@ -334,6 +339,7 @@ def main(argv=None) -> int:
         "backbone": args.backbone if args.app == "votenet" else None,
         "model": model,
         "crf": args.crf if args.app == "semseg" else None,
+        "layout": args.layout if args.app in ("pretrain", "semseg") else None,
         "card": card,
         "ms_per_step": times,
         f"{app.unit}_per_s_kernels": app.per_step / (min(times["kernels"]) / 1e3),

@@ -64,8 +64,9 @@ SEMSEG_CRF = dict(kernel_size=3, region="hypercross", spatial_sigma=1.0,
 def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
                      npad0: int = NPAD0, points: int = POINTS_PER_FRAME,
                      room: float = ROOM_SIZE, npos: int = NPOS,
-                     seed: int = 0) -> list:
-    """``n_batches`` collated batches moved (bounds-checked) to ``device``."""
+                     seed: int = 0, layout: str = "chunked") -> list:
+    """``n_batches`` collated batches in ``layout`` moved (bounds-checked)
+    to ``device``."""
     from pointcontrast_tpu_torch.data import (
         PadScheme,
         SyntheticPairDataset,
@@ -78,7 +79,7 @@ def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
     rng = np.random.RandomState(seed)
     return [
         collate_pair([ds[(b * pairs + i) % len(ds)] for i in range(pairs)],
-                     scheme, npos=npos, rng=rng).to(device)
+                     scheme, npos=npos, rng=rng, layout=layout).to(device)
         for b in range(n_batches)
     ]
 
@@ -88,10 +89,11 @@ def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
                     voxel: float | None = VOTENET_VOXEL,
                     npad0: int = VOTENET_NPAD0,
                     pad_ratios: tuple = VOTENET_PAD_RATIOS,
-                    seed: int = 0) -> list:
+                    seed: int = 0, layout: str = "chunked") -> list:
     """``n_batches`` collated VoteNet batches of ``scenes`` distinct scenes
-    each, moved (bounds-checked) to ``device``; ``voxel=None`` collates
-    without voxels, for the PointNet++ backbone."""
+    each, voxelised in ``layout`` ('chunked' or 'voxel'), moved
+    (bounds-checked) to ``device``; ``voxel=None`` collates without voxels,
+    for the PointNet++ backbone."""
     from pointcontrast_tpu_torch.data import PadScheme
     from pointcontrast_tpu_torch.detect.datasets import (
         SyntheticDetectionDataset,
@@ -105,7 +107,7 @@ def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
     return [
         collate_detection([ds[b * scenes + i] for i in range(scenes)],
                           voxel_size=voxel, scheme=scheme,
-                          layout="chunked").to(device)
+                          layout=layout).to(device)
         for b in range(n_batches)
     ]
 
@@ -168,15 +170,15 @@ def semseg_scheme(npad0: int = SEMSEG_NPAD0):
 
 
 def semseg_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
-                 crf: dict | None = None):
-    """The one host batch of all ``scenes``, chunked (one chunk a scene),
-    with the CRF's bilateral map when ``crf`` is given."""
+                 crf: dict | None = None, layout: str = "chunked"):
+    """The one host batch of all ``scenes`` in ``layout`` (chunked: one
+    chunk a scene), with the CRF's bilateral map when ``crf`` is given."""
     from pointcontrast_tpu_torch.semseg.dataset import collate_semseg
 
     return collate_semseg(list(scenes.samples), semseg_scheme(npad0),
                           ignore_label=255, shift_coords=False,
                           rng=np.random.RandomState(1), crf=crf,
-                          num_chunks=len(scenes))
+                          num_chunks=len(scenes), layout=layout)
 
 
 def semseg_model(seed: int = 0, model: str = "Res16UNet34C",
@@ -219,12 +221,11 @@ class ResNetBatch:
             pyramid_to,
         )
 
-        sizes = check_pyramid_bounds(self.pyramid)
-        nb = self.pyramid.num_batch
-        if (self.feats.shape[0] != nb * sizes[0]
-                or self.labels.shape != (nb * sizes[RESNET_LEVELS - 1],)):
+        rows = check_pyramid_bounds(self.pyramid)
+        if (self.feats.shape[0] != rows[0]
+                or self.labels.shape != (rows[RESNET_LEVELS - 1],)):
             raise ValueError(f"feats {self.feats.shape} / labels {self.labels.shape} "
-                             f"do not fit chunks of {sizes}")
+                             f"do not fit levels of {rows} rows")
         return ResNetBatch(
             feats=torch.from_numpy(self.feats).to(device),
             labels=torch.from_numpy(self.labels.astype(np.int64)).to(device),
@@ -285,8 +286,8 @@ def resnet_step(model, opt, sched, batch) -> torch.Tensor:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route ``sparse.ops`` and ``detect.ops`` through the kernels'
-    plain-torch twins while the block runs, on any device: the reference
+    """Route ``sparse.ops``, ``sparse.brick`` and ``detect.ops`` through the
+    kernels' plain-torch twins while the block runs, on any device: the reference
     side of a kernels-vs-plain comparison of a whole step on the card.  The
     wrappers themselves never fall back; this swaps what the ops call,
     process-wide (autograd runs CUDA backward functions on its own
@@ -295,10 +296,12 @@ def plain_ops():
     from pointcontrast_tpu_torch.sparse import kernels as sk
     from pointcontrast_tpu_torch.sparse import ops
 
-    # sparse.ops imported the wrappers by name; detect.ops calls them
-    # through the detect.kernels module
+    # sparse.ops imported the wrappers by name; sparse.brick and detect.ops
+    # call them through their kernels module
     swaps = [(ops, fn.__name__, getattr(sk, fn.__name__ + "_plain"))
-             for fn in sk.KERNELS]
+             for fn in sk.KERNELS if hasattr(ops, fn.__name__)]
+    swaps += [(sk, fn.__name__, getattr(sk, fn.__name__ + "_plain"))
+              for fn in sk.KERNELS if not hasattr(ops, fn.__name__)]
     swaps += [(dk, fn.__name__, getattr(dk, fn.__name__ + "_plain"))
               for fn in dk.KERNELS]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]

@@ -129,15 +129,16 @@ def test_unsupported_collate_modes_raise():
     samples = _samples(SyntheticPairDataset)
     scheme = SCHEMES["fits"](PadScheme)
     for kw in (dict(mode="hardest"), dict(fuse_frames=False),
-               dict(layout="voxel")):
+               dict(layout="voxl")):
         with pytest.raises(ValueError):
             collate_pair(samples, scheme, **kw)
 
 
 def test_imports_without_jax():
-    """The port, its host pipeline, the votenet app and its config, sampler,
-    checkpoint and preemption modules import with jax/flax/optax and the JAX
-    package unavailable, and build a pretraining and a detection batch."""
+    """The port, its host pipeline, the brick module, the votenet app and
+    its config, sampler, checkpoint and preemption modules import with
+    jax/flax/optax and the JAX package unavailable, and build a pretraining
+    batch in each layout and a detection batch in both of its own."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'pointcontrast_tpu'):\n"
@@ -154,16 +155,20 @@ def test_imports_without_jax():
         "import pointcontrast_tpu_torch.train.checkpoint\n"
         "import pointcontrast_tpu_torch.utils.preemption\n"
         "import pointcontrast_tpu_torch.tools.profile_step\n"
+        "import pointcontrast_tpu_torch.sparse.brick\n"
+        "import pointcontrast_tpu_torch.semseg.dataset\n"
         "from pointcontrast_tpu_torch.config import load_config\n"
         "assert load_config(app.DEFAULT_CONFIG).net.num_proposal == 256\n"
         "from pointcontrast_tpu_torch.detect.datasets import (\n"
         "    SyntheticDetectionDataset, collate_detection)\n"
         "ds = SyntheticPairDataset(num_pairs=1, points_per_frame=200, seed=0)\n"
-        "b = collate_pair([ds[0]], PadScheme(npad0=2048), npos=16,\n"
-        "                 rng=np.random.RandomState(0)).to('cpu')\n"
+        "for layout in ('chunked', 'voxel', 'brick:2'):\n"
+        "    b = collate_pair([ds[0]], PadScheme(npad0=2048), npos=16,\n"
+        "                     rng=np.random.RandomState(0), layout=layout).to('cpu')\n"
         "dd = SyntheticDetectionDataset(num_scenes=1, num_points=1500, seed=0)\n"
-        "d = collate_detection([dd[0]], voxel_size=0.05,\n"
-        "                      scheme=PadScheme(npad0=4096)).to('cpu')\n"
+        "for layout in ('voxel', 'chunked'):\n"
+        "    d = collate_detection([dd[0]], voxel_size=0.05, layout=layout,\n"
+        "                          scheme=PadScheme(npad0=4096)).to('cpu')\n"
         "print('ok', b.feats0.shape[0], d.point_voxel_idx.shape[1])\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -76,7 +76,7 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
     assert kernels.launch_counts() == {
         "gather_gemm": 0, "gather_wgrad": 0, "parent_gemm": 0,
         "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0,
-        "gather_sum": 0, "scatter_sum": 0}
+        "gather_sum": 0, "scatter_sum": 0, "brick_gemm": 0, "brick_wgrad": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",
@@ -215,3 +215,42 @@ def test_kernels_match_plain_twins_on_card(pyr):
             assert torch.equal(got, want)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert sum(kernels.launch_counts().values()) == len(calls)
+
+
+@pytest.mark.cuda
+def test_brick_kernels_match_plain_twins_on_card():
+    """brick_gemm (plans of kernel 3 and 5, Cin 3 and 37, Cout 20 and 40:
+    ragged channel tiles) and brick_wgrad against their plain twins on the
+    card, one launch a call.  chip_smoke.py repeats this at the brick
+    paths' full shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from pointcontrast_tpu_torch.sparse import brick
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    pyr = brick.build_brick_pyramid(_coords(np.random.RandomState(1)), 3,
+                                    [512, 480, 200, 60], num_batch=3,
+                                    brick_levels=2)[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calls = []
+    for level, k, cin, cout in ((0, 3, 3, 20), (0, 5, 37, 40), (1, 3, 32, 32)):
+        lv = pyr.levels[level]
+        valid = torch.from_numpy(lv.valid).to(dev)[:, None]
+        nbr = _idx(lv.nbr.nbr).to(dev)
+        steps = brick.slot_steps(brick.build_plan(k))
+        taps = brick.build_plan(k).num_taps
+        x = torch.randn(valid.shape[0], cin, device=dev, generator=gen) * valid
+        ct = torch.randn(valid.shape[0], cout, device=dev, generator=gen) * valid
+        w = torch.randn(taps, cin, cout, device=dev, generator=gen)
+        calls += [(kernels.brick_gemm, (x, nbr, steps, w)),
+                  (kernels.brick_wgrad, (x, nbr, steps, ct, taps))]
+    kernels.reset_launches()
+    for fn, args in calls:
+        got = fn(*args)
+        want = getattr(kernels, fn.__name__ + "_plain")(*args)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    assert kernels.launch_counts()["brick_gemm"] == 3
+    assert kernels.launch_counts()["brick_wgrad"] == 3

@@ -53,7 +53,7 @@ def test_cli_trains_validates_saves_and_resumes(tmp_path):
 @pytest.mark.parametrize("override,error", [
     (["net.dtype=bfloat16"], NotImplementedError),  # the shipped YAML's
     (["data.dataset=ScannetVoxelization2cmDataset"], NotImplementedError),
-    (["data.layout=voxel"], NotImplementedError),
+    (["net.model=MinkUNetHyper14INBN", "data.layout=brick"], ValueError),
     (["distributed.num_devices=2"], NotImplementedError),
     (["net.wrapper_type=TrilateralCRF"], ValueError),
 ])

@@ -222,8 +222,8 @@ def test_semseg_batch_to_checks_and_refuses_other_layouts():
     bad[0, 0] = bad.shape[1]
     with pytest.raises(ValueError, match="crf_nbr"):
         SemsegBatch(**{**tb.__dict__, "crf_nbr": bad}).to("cpu")
-    for layout in ("voxel", "brick"):
-        with pytest.raises(NotImplementedError):
+    for layout in ("voxl", "bricks"):
+        with pytest.raises(ValueError, match="layout"):
             collate_semseg(_samples(), PadScheme(npad0=4096), layout=layout)
 
 

@@ -169,3 +169,32 @@ def test_unported_down_conv_raises(pyr):
                           up=(_idx(lv.up_parent), _idx(lv.up_offset)))
     np.testing.assert_allclose(out.detach().numpy(), k2.numpy(), rtol=1e-6, atol=1e-6)
 
+
+
+@pytest.mark.parametrize("form", ["same_level", "down"])
+def test_fused_group_zero_forms_are_k1_and_k4(pyr, form):
+    """``PC_TPU_CONV_FUSED_GROUP=0`` (a TPU tuning switch) sends JAX's
+    chunked convs to its scan forms: ``_conv_chunk_sym`` for a same-level
+    map with ``rev``, ``_conv_chunk_core`` for any other map.  They compute
+    the functions of K1 (``_ConvChunkFused``) and K4
+    (``_ConvChunkDownFused``): values and gradients here."""
+    rng = np.random.RandomState(31 if form == "down" else 32)
+    lv, lv1 = pyr.levels[0], pyr.levels[1]
+    if form == "same_level":
+        m, k, out_valid = np.asarray(lv.nbr, np.int32), 27, lv.valid
+        f = _feats(rng, lv.valid, 4)
+        w = rng.randn(k, 4, 6).astype(np.float32) * 0.3
+        jfn = lambda f, w: jops._conv_chunk_sym(f, jnp.asarray(m), w, lv.rev)  # noqa: E731
+        tfn = lambda f, w: tops._ConvChunkFused.apply(f, _idx(m), w, lv.rev)  # noqa: E731
+    else:
+        m, k, out_valid = np.asarray(lv.down_nbr, np.int32), 8, lv1.valid
+        f = _feats(rng, lv.valid, 4)
+        w = rng.randn(k, 4, 6).astype(np.float32) * 0.3
+        jfn = lambda f, w: jops._conv_chunk_core(f, jnp.asarray(m), w)  # noqa: E731
+        tfn = lambda f, w: tops._ConvChunkDownFused.apply(f, _idx(m), w)  # noqa: E731
+    proj = rng.randn(6).astype(np.float32)
+    valid = jnp.asarray(out_valid)
+    j = _jax_grads(lambda f, w: jops.mask_rows(jfn(f, w), valid), f, w, proj)
+    tvalid = torch.from_numpy(out_valid)
+    t = _torch_grads(lambda f, w: tops.mask_rows(tfn(f, w), tvalid), f, w, proj)
+    _compare(j, t, lv.valid, out_valid)

@@ -63,10 +63,10 @@ def test_detection_batch_to_rejects_foreign_rows(run):
     bad[1, 7] = s0 - 1  # sample 1 pointing into sample 0's slice
     with pytest.raises(ValueError, match="point_voxel_idx"):
         type(tb)(**{**tb.__dict__, "point_voxel_idx": bad}).to("cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="layout"):
         collate_detection([{"point_clouds": np.zeros((4, 3), np.float32)}],
                           voxel_size=0.05, scheme=PadScheme(npad0=512),
-                          layout="voxel")
+                          layout="brick")
 
 
 def test_strict_weight_load(run):

@@ -41,7 +41,7 @@ def test_cli_trains_evaluates_saves_and_resumes(tmp_path):
     (["net.backbone=sparseconv"], "net.dtype=float32"),
     (["data.dataset=sunrgbd"], "SUN RGB-D"),
     (["distributed.num_devices=2"], "item 7"),
-    (["net.backbone=sparseconv", "net.dtype=float32", "data.layout=voxel"], "chunked"),
+    (["net.backbone=sparseconv", "net.dtype=float32", "data.layout=brick"], "chunked"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
     from pointcontrast_tpu_torch.apps import votenet as app
