@@ -110,7 +110,12 @@ Phases, each printed on its own line:
 Every path prints its peak device memory on its ``slice`` line.  Every
 kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
-3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  Then
+3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  The
+times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``);
+for gather_rows and scatter_sum, the kernel's and the library call's
+device-only times too (``device_ms``, ``library_device_ms``: the same 10
+calls replayed as one CUDA graph, the median of 5 replays, so the host's
+cost of a call is left out; ``ms - device_ms`` is that cost).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -185,6 +190,11 @@ HYPER_UNPOOLS = 3
 # tensor cores (every kernel here is f32 SIMT)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# times a check has only where one PyTorch call computes the same function:
+# that call's events time and, for the kernels of DEVICE_TIMED, the
+# device-only times of the kernel and of that call (``_device_ms``)
+OPTIONAL_MS = ("library_ms", "device_ms", "library_device_ms")
+DEVICE_TIMED = ("gather_rows", "scatter_sum")
 
 
 def say(phase: str, **kw):
@@ -265,6 +275,43 @@ def _time_ms(fn, args, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, args, iters=10, replays=5):
+    """The device's own time for one call of ``fn``: ``iters`` calls
+    captured in one CUDA graph, each replay timed with CUDA events, the
+    median of ``replays`` over ``iters``.  Unlike ``_time_ms`` it leaves out
+    the host's cost of each call, which the events measure whenever the
+    device finishes a call before the host has issued the next; the device
+    is kept busy while the host enqueues a replay, so the events open on
+    work, not on a wait.  (``torch.profiler``, the first choice, dropped
+    most kernels of some 10-call traces on the card, and all of one.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the allocator warms up off the capture
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(*args)
+    graph.replay()
+    busy = torch.empty(64 * 2 ** 20, device="cuda")  # 256 MB: ~80 us to fill
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        busy.fill_(1.0)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph, busy
+    return statistics.median(times)
 
 
 def _nbytes(*ts) -> int:
@@ -372,11 +419,13 @@ def work(name, args, out) -> tuple:
         return (4 * c * rows.unique().numel() + 4 * rows.numel() + _nbytes(*outs),
                 rows.numel() * c)
     if name == "scatter_sum":
-        g3, map_, taps, stride, s_in, skip = args
+        g3, map_, taps, stride, s_in, skip_from = args
         b_, s_g, c = g3.shape
         rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
-        kept = int((rows % s_in != skip).sum()) if skip >= 0 else rows.numel()
-        return _nbytes(g3, *outs) + 4 * rows.numel(), kept * c
+        kept = _scatter_kept(rows, s_in, skip_from)
+        # the cotangent rows with a destination kept, every index, the output
+        needed = int(kept.any(0).sum())
+        return 4 * c * needed + 4 * rows.numel() + _nbytes(*outs), int(kept.sum()) * c
     if name in ("brick_gemm", "brick_wgrad"):
         x, nbr, steps = args[:3]
         nb = nbr.shape[1]
@@ -409,6 +458,16 @@ def _flat_rows(map_, taps, stride, b_, s_rows, s_table, dev):
     base = s_table * torch.arange(b_, device=dev)[:, None]
     return torch.stack([(row_index(map_, taps, stride, j, b_, s_rows, dev) + base)
                         .reshape(-1) for j in range(len(taps))])
+
+
+def _scatter_kept(rows, s_in, skip_from):
+    """Which entries of ``_flat_rows`` scatter_sum adds: those whose
+    frame-local row lies below ``skip_from`` (all of them when it is < 0)."""
+    import torch
+
+    if skip_from < 0:
+        return torch.ones_like(rows, dtype=torch.bool)
+    return rows % s_in < skip_from
 
 
 def library_call(name, args):
@@ -454,15 +513,16 @@ def library_call(name, args):
         bags = rows.t().contiguous()  # [B * s_out, K]: one bag per output row
         return lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum")
     if name == "scatter_sum" and args[1] is not None:
-        g3, map_, taps, stride, s_in, skip = args
+        g3, map_, taps, stride, s_in, skip_from = args
         b_, s_g, c = g3.shape
         rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
-        if skip >= 0:  # skipped rows land in a spare row past the table
-            rows = torch.where(rows % s_in == skip, b_ * s_in, rows)
-        rows = rows.reshape(-1)
-        src = g3.reshape(b_ * s_g, c).repeat(len(taps), 1)
-        buf = g3.new_zeros(b_ * s_in + 1, c)
-        return lambda: buf.zero_().index_add_(0, rows, src)[:-1]
+        # only the entries the function adds: a skipped entry sent to a spare
+        # row would make index_add_ pay for contention the function has not
+        kept = _scatter_kept(rows, s_in, skip_from)
+        src = g3.reshape(1, b_ * s_g, c).expand(len(taps), -1, -1)[kept]
+        rows = rows[kept]
+        buf = g3.new_zeros(b_ * s_in, c)
+        return lambda: buf.zero_().index_add_(0, rows, src)
     if name in ("three_interpolate", "three_interpolate_grad"):
         src, idx, weight = args[:3]
         b_, n = idx.shape[:2]
@@ -500,25 +560,29 @@ def _equal(got, want) -> bool:
 
 def add_numbers(into: dict, name: str, r: dict) -> None:
     """Add one check's (or one path's) numbers for kernel ``name`` into
-    ``into``: times and bounds summed, the larger error kept, library_ms
-    None unless every part has one."""
+    ``into``: times and bounds summed, the larger error kept, each of
+    ``OPTIONAL_MS`` None unless every part has one."""
     q = into.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                               "library_ms": 0.0})
+                               **dict.fromkeys(OPTIONAL_MS, 0.0)})
     q["max_abs_err"] = max(q["max_abs_err"], r["max_abs_err"])
     for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"):
         q[k] += r[k]
-    q["library_ms"] = (None if q["library_ms"] is None or r["library_ms"] is None
-                       else q["library_ms"] + r["library_ms"])
+    for k in OPTIONAL_MS:
+        q[k] = None if q[k] is None or r[k] is None else q[k] + r[k]
 
 
 def phase_kernels(checks, module, exact=()):
     """Each check's kernel vs its plain twin; kernels named in ``exact`` must
     equal it bit for bit, the others agree to ATOL + RTOL * max|ref|.  Also
     times the one PyTorch call computing the same function, where there is
-    one, and the card's bound for the work.  Returns {kernel: {max_abs_err,
-    ms, plain_ms, bound_ms, bytes_ms, ops_ms, library_ms}} summed over the
-    kernel's checked shapes (``add_numbers``)."""
+    one, and the card's bound for the work; for the kernels of
+    ``DEVICE_TIMED``, the device-only time of the kernel and of the call too
+    (``_device_ms``: ``ms`` minus ``device_ms`` is what the host adds).
+    Returns {kernel:
+    {max_abs_err, ms, plain_ms, bound_ms, bytes_ms, ops_ms, library_ms,
+    device_ms, library_device_ms}} summed over the kernel's checked shapes
+    (``add_numbers``)."""
     import torch
 
     results = {}
@@ -539,21 +603,26 @@ def phase_kernels(checks, module, exact=()):
         nbytes, ops = work(name, args, got)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
         call = library_call(name, args)
-        lib_ms = None
+        lib_ms = dev_ms = lib_dev_ms = None
         if call is not None:
             lib_err, _ = _max_err(call().reshape(want.shape), want)
             if lib_err > ATOL + RTOL * ref:
                 raise AssertionError(f"{label}: the library call disagrees ({lib_err:.3e})")
             lib_ms = _time_ms(call, ())
+            if name in DEVICE_TIMED:
+                dev_ms, lib_dev_ms = _device_ms(fn, args), _device_ms(call, ())
         add_numbers(results, name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms})
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
         shape = tuple(tuple(g.shape) for g in got) if isinstance(got, tuple) else tuple(got.shape)
         say("kernel", name=name, check=repr(label), shape=shape,
             max_abs_err=f"{err:.3e}", max_abs_ref=f"{ref:.3e}",
             rel=f"{err / max(ref, 1e-30):.2e}", exact=name in exact,
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
+            device_ms="null" if dev_ms is None else f"{dev_ms:.4f}",
+            library_device_ms="null" if lib_dev_ms is None else f"{lib_dev_ms:.4f}",
             bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             share_of_bound=f"{max(bytes_ms, ops_ms) / ms:.3f}", ok=ok)
@@ -1288,18 +1357,21 @@ def conv_checks(model, batch, calls=None):
                            (f, bm.nbr, steps, ct, k)))
             continue
         if kind in ("bdown", "bup"):
+            # the adjoint leaves out the source's pad rows, as the ops do:
+            # the flat next level's last row (placement), the coarse pad
+            # brick's k slots (up gather)
             if kind == "bdown":
                 if args[1].place is None:
                     continue  # the hybrid boundary: no gather
                 src_rows, c = args[0].shape[0] // k, cout
                 rows = args[1].place.transpose(0, 1).reshape(1, 1, -1).contiguous()
-                valid = args[2]
+                skip_from = src_rows - 1
             else:
                 if args[1] is None:
                     continue
                 src_rows, c = args[0].shape[0], cin
                 rows = args[1].reshape(1, 1, -1)
-                valid = torch.ones(rows.shape[2], device=dev)
+                skip_from = src_rows - k
             n_out = rows.shape[2]
             f = torch.randn(1, src_rows, c, device=dev, generator=gen)
             ct = torch.randn(1, n_out, c, device=dev, generator=gen)
@@ -1307,7 +1379,7 @@ def conv_checks(model, batch, calls=None):
             checks += [
                 ("gather_sum", f"{tag} fwd", K.gather_sum, (f, rows, [0], 0, n_out)),
                 ("scatter_sum", f"{tag} bwd", K.scatter_sum,
-                 (ct, rows, [0], 0, src_rows, src_rows - 1)),
+                 (ct, rows, [0], 0, src_rows, skip_from)),
             ]
             continue
         nb = (args[1].shape[1] if kind in ("conv", "k4") else args[1].shape[0])
@@ -1952,7 +2024,9 @@ def pretrain_path(layout, device, card, paths):
     if layout in ("chunked", "voxel") and expect != expected_launches(model):
         raise AssertionError(f"pretrain {layout}: {expect} != the model's "
                              f"{expected_launches(model)}")
-    res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=("gather_sum",))
+    # the brick adjoints name each kept row once: exact, as the gathers
+    exact = ("gather_sum", "scatter_sum") if layout.startswith("brick") else ("gather_sum",)
+    res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=exact)
     del calls  # the forward's activations: out of the path's peak memory
     app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
     paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect))
@@ -1979,7 +2053,9 @@ def semseg_layout_paths(device, card, paths, scenes):
         if layout == "voxel":  # the flat pools, which no counted path runs
             checks += pool_checks(batch.pyramid, [("sum pool", 0, 64),
                                                   ("unpool", 1, 128), ("unpool", 0, 96)])
-        res = phase_kernels(checks, K, exact=("gather_sum",))
+        # the brick adjoints name each kept row once; the flat unpools' do not
+        res = phase_kernels(checks, K, exact=("gather_sum",) + (("scatter_sum",)
+                                                                if layout == "brick" else ()))
         base = None if crf else expected_from_calls(calls)
         del calls, checks
         paths[f"semseg {layout}"] = (res, phase_semseg(
@@ -2021,7 +2097,7 @@ def kernels_line(paths: dict) -> list:
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-                "library_ms": r["library_ms"]}
+                **{k: r[k] for k in OPTIONAL_MS}}
 
     total = {}
     for path, (res, counts) in paths.items():

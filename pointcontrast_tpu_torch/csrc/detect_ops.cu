@@ -3,7 +3,8 @@
 // Python wrappers, their plain-torch twins and which JAX op each replaces):
 //   K6 fps_kernel             furthest point sampling, one block per cloud
 //   K7 ball_query_kernel      first nsample in-radius points per centre
-//   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :]
+//   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :], a lane
+//                             group a row (row_groups.cuh), HBM-bound
 //      scatter_add_rows_kernel  its backward, f32 atomics
 //   K9 three_nn_kernel        the 3 nearest known points of each unknown one
 //      three_interpolate_kernel       out[b, n, :] = sum_j w_j f[b, idx_j, :]
@@ -28,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "row_groups.cuh"
 
 namespace {
 
@@ -151,18 +154,84 @@ ball_query_kernel(const float* __restrict__ centres,
     for (int k = 0; k < nsample; ++k) o[k] = 0;
 }
 
-// K8 forward: out[b, m, c] = table[b, idx[b, m], c], one thread per output
-// element (neighbouring threads copy neighbouring channels of one row).
+// K8 forward: out[b, m, :] = table[b, idx[b, m], :], the copy under JAX's
+// gather_points / group_points.  It moves 4 C bytes of each row in and out
+// and computes nothing, so the card's HBM bandwidth bounds it.  A group of
+// G lanes (row_groups::size_for, 4 to 32 by C) owns one output row: lane 0
+// loads the row's index once and a shuffle hands it to the group, and the
+// lanes copy neighbouring float4s (C % 4 == 0, both tables 16-byte aligned)
+// or neighbouring floats, so each 128-byte line is read once.  No division:
+// the grid's y is the sample.  All offsets are 32-bit (the wrapper refuses
+// B N C or B M C of 2^31 or more).  grid (ceil(M / (ROW_THREADS / G)), B),
+// one row a group, as many groups as rows: no cap.
+template <int G, bool VEC>
 __global__ void __launch_bounds__(ROW_THREADS)
 gather_rows_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                   float* __restrict__ out, int N, int M, int C,
-                   int64_t total) {
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = e / C;  // b * M + m
-    const int c = (int)(e - row * C);
-    const int64_t b = row / M;
-    out[e] = __ldg(table + (b * N + __ldg(idx + row)) * C + c);
+                   float* __restrict__ out, int N, int M, int C) {
+  const int m = blockIdx.x * (ROW_THREADS / G) + threadIdx.x / G;
+  if (m >= M) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  const int row = b * M + m;
+  int r = 0;
+  if (lane == 0) r = __ldg(idx + row);
+  r = row_groups::shfl<G>(r, 0);
+  const float* src = table + (b * N + r) * C;
+  float* dst = out + row * C;
+  if constexpr (VEC) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+    for (int u = lane; u < C / 4; u += G) d4[u] = __ldg(s4 + u);
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < C; c += G) dst[c] = __ldg(src + c);
+  }
+}
+
+// K8 forward for C <= 8 (the clouds' xyz): one lane owns each row and reads
+// its index, and a warp copies its 32 rows together.  Their 32 C output
+// floats are contiguous, so lane l writes floats l, l + 32, ... of them,
+// taking each one's row index from the lane that owns it: every store is a
+// whole 128-byte line (a thread writing its own row of 3 would spread each
+// store over 384 bytes).  grid (ceil(M / ROW_THREADS), B).
+__global__ void __launch_bounds__(ROW_THREADS)
+gather_narrow_rows_kernel(const float* __restrict__ table,
+                          const int* __restrict__ idx, float* __restrict__ out,
+                          int N, int M, int C) {
+  const int m0 = blockIdx.x * ROW_THREADS + (threadIdx.x & ~31);  // warp's first
+  if (m0 >= M) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int rows = min(32, M - m0);
+  const int r = lane < rows ? __ldg(idx + b * M + m0 + lane) : 0;
+  const float* tb = table + b * N * C;
+  float* dst = out + (b * M + m0) * C;
+  for (int f = lane; f < 32 * C; f += 32) {  // C passes for every lane
+    const int i = f / C;
+    const int src = __shfl_sync(0xffffffffu, r, i);
+    if (i < rows) dst[f] = __ldg(tb + src * C + (f - i * C));
+  }
+}
+
+template <int G, bool VEC>
+void launch_gather_rows(const float* table, const int* idx, float* out, int B,
+                        int N, int M, int C, cudaStream_t stream) {
+  constexpr int rows_per_block = ROW_THREADS / G;
+  const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
+  gather_rows_kernel<G, VEC><<<grid, ROW_THREADS, 0, stream>>>(table, idx, out,
+                                                             N, M, C);
+}
+
+template <bool VEC>
+void launch_gather_rows_groups_of(int g, const float* table, const int* idx,
+                                  float* out, int B, int N, int M, int C,
+                                  cudaStream_t stream) {
+  switch (g) {
+    case 4: return launch_gather_rows<4, VEC>(table, idx, out, B, N, M, C, stream);
+    case 8: return launch_gather_rows<8, VEC>(table, idx, out, B, N, M, C, stream);
+    case 16: return launch_gather_rows<16, VEC>(table, idx, out, B, N, M, C, stream);
+    default: return launch_gather_rows<32, VEC>(table, idx, out, B, N, M, C, stream);
   }
 }
 
@@ -375,10 +444,19 @@ int pc_ball_query(const void* centres, const void* xyz, void* out, int B, int M,
 
 int pc_gather_rows(const void* table, const void* idx, void* out, int B, int N,
                    int M, int C, void* stream) {
-  const int64_t total = (int64_t)B * M * C;
-  gather_rows_kernel<<<grid_for(total, ROW_THREADS), ROW_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, (float*)out, N, M, C, total);
+  const bool vec = vec4_ok(C, table, out);
+  const int g = row_groups::size_for(C, vec);
+  if (g == 1) {
+    const dim3 grid((M + ROW_THREADS - 1) / ROW_THREADS, B);
+    gather_narrow_rows_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const int*)idx, (float*)out, N, M, C);
+  } else if (vec) {
+    launch_gather_rows_groups_of<true>(g, (const float*)table, (const int*)idx,
+                                       (float*)out, B, N, M, C, (cudaStream_t)stream);
+  } else {
+    launch_gather_rows_groups_of<false>(g, (const float*)table, (const int*)idx,
+                                        (float*)out, B, N, M, C, (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,22 @@
 // rows (gathered through the index tile) and a weight tile in shared memory
 // and accumulates a 4x4 micro-tile per thread in registers, in f32.  They
 // use no tensor cores (the port runs f32 with TF32 off); wgmma/TMA pipelines
-// are later work.  Each C entry returns cudaGetLastError() of its launch.
+// are later work.  gather_sum and its adjoint scatter_sum (the pooling ops,
+// and JAX's jnp.take and its autodiff in the brick layout's placement and
+// up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
+// so HBM bytes bound them.  scatter_sum gives each cotangent row a lane
+// group (row_groups.cuh) that reads the row's destinations before its data
+// and adds 16 bytes an atomic; it leaves out every destination at or past a
+// bound, the source's pad rows, because each map sends its missing sources
+// to one pad row: on a brick table (slot 0 of the pad brick) 17k adds of a
+// batch landed on one row and ran one after another.  A new map kind must
+// check where its pad sources point.  Each C entry returns
+// cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_groups.cuh"
 
 #define MAX_TAPS 32
 
@@ -43,6 +55,17 @@ __device__ __forceinline__ int row_of(const int* __restrict__ map,
                                       int j, int b, int s, int B, int S) {
   if (map != nullptr) {
     return __ldg(map + ((int64_t)taps.idx[j] * B + b) * S + s);
+  }
+  return j * tap_stride + s;
+}
+
+// row_of in 32-bit arithmetic, for maps of fewer than 2^31 entries (the
+// row kernels' wrappers check that)
+__device__ __forceinline__ int row_of32(const int* __restrict__ map,
+                                        const TapList& taps, int tap_stride,
+                                        int j, int b, int s, int B, int S) {
+  if (map != nullptr) {
+    return __ldg(map + (taps.idx[j] * B + b) * S + s);
   }
   return j * tap_stride + s;
 }
@@ -470,39 +493,109 @@ gather_sum_kernel(const float* __restrict__ X, const int* __restrict__ map,
   }
 }
 
-// (h) out[b, row(j,b,s), :] += G[b,s,:] for every listed tap j, rows equal
-// to `skip` (or outside [0, S_out)) left out: the adjoint of (g).  Each
-// thread reads its V channels of one G row once and adds them to the T
-// destination rows with f32 atomics (bound by the atomics: pooling's valid
-// children are unique and meet only at the pad row, which `skip` leaves
-// out; unpooling's adjoint adds up to 8 children into one parent).
-// grid-stride over B * S_g * C / V threads
-template <int V>
+// (h) out[b, row(j,b,s), :] += G[b,s,:] for every listed tap j, rows at or
+// past `limit` (and below 0) left out: the adjoint of (g), under JAX's
+// autodiff of the pooling ops' and the brick layout's row gathers.  It reads
+// each kept cotangent row once and adds it into out, so HBM bytes bound it,
+// as long as the adds do not pile onto a few rows: f32 atomics on one
+// address run one after another.  Every map that feeds it sends its missing
+// sources to one pad row (the chunk's last row; on a brick table slot 0 of
+// the pad brick), which is why the skip is a bound and not a row: a brick
+// table's caller passes (NB - 1) * 8, so the pad brick's 8 slots are left
+// out, and a new map kind has to check where its pad sources point before
+// it passes a limit.  The design:
+//  - a group of G lanes (row_groups::size_for) owns one G row; its lanes
+//    first read the row's T destinations (tap l, l + G, ... for lane l) and
+//    a ballot keeps a bit per destination below the limit.  A row with no
+//    kept destination leaves without reading G;
+//  - the lanes then read neighbouring float4s (or floats) of the row once
+//    and add them to each kept destination, one 16-byte atomicAdd a float4
+//    (sm_90 has it for global memory), the destination coming from the
+//    lane that read it through a shuffle (T <= G) or from L1 (T > G);
+//  - no division, 32-bit offsets (the wrapper refuses index spaces of 2^31
+//    or more): the grid's y is the sample;
+//  - the tap list is a __grid_constant__ parameter: a lane's own tap is read
+//    from the parameter bank, where a plain by-value struct indexed by a
+//    lane-dependent tap would be copied to each thread's local memory
+//    (128 bytes a thread, more traffic than the rows themselves).
+// With the pad rows left out, the brick adjoints name every destination at
+// most once and the result equals the plain twin bit for bit; the unpools'
+// adjoint adds up to 8 children into one parent in no fixed order.
+// grid (ceil(S_g / (256 / G)), B), one G row a group: no cap.
+template <int G, bool VEC>
 __global__ void __launch_bounds__(256)
-scatter_sum_kernel(const float* __restrict__ G, const int* __restrict__ map,
-                   TapList taps, int tap_stride, int T, float* __restrict__ out,
-                   int B, int S_g, int S_out, int C, int skip) {
-  const int CV = C / V;
-  const int64_t total = (int64_t)B * S_g * CV;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = e / CV;  // b * S_g + s
-    const int cv = (int)(e % CV);
-    const int b = (int)(i / S_g), s = (int)(i % S_g);
-    float g[V];
-    if constexpr (V == 4) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(G + i * C) + cv);
-      g[0] = x.x; g[1] = x.y; g[2] = x.z; g[3] = x.w;
-    } else {
-      g[0] = __ldg(G + i * C + cv);
+scatter_sum_kernel(const float* __restrict__ Gr, const int* __restrict__ map,
+                   const __grid_constant__ TapList taps, int tap_stride, int T,
+                   float* __restrict__ out,
+                   int B, int S_g, int S_out, int C, int limit) {
+  const int s = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (s >= S_g) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  unsigned kept = 0;  // bit j: tap j's destination is added
+  int mine = -1;      // the destination of tap `lane` (T <= G)
+  for (int j0 = 0; j0 < T; j0 += G) {
+    const int j = j0 + lane;
+    const int r = j < T ? row_of32(map, taps, tap_stride, j, b, s, B, S_g) : -1;
+    if (j0 == 0) mine = r;
+    kept |= row_groups::ballot<G>(r >= 0 && r < limit) << j0;
+  }
+  if (kept == 0) return;
+  const float* g = Gr + (b * S_g + s) * C;
+  float* ob = out + b * S_out * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u0 = 0; u0 < units; u0 += G) {  // the same trip count for every lane
+    const int u = u0 + lane;
+    const bool live = u < units;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) {
+      if constexpr (VEC) {
+        v = __ldg(reinterpret_cast<const float4*>(g) + u);
+      } else {
+        v.x = __ldg(g + u);
+      }
     }
-    float* ob = out + (int64_t)b * S_out * C + (int64_t)cv * V;
-    for (int j = 0; j < T; ++j) {
-      const int r = row_of(map, taps, tap_stride, j, b, s, B, S_g);
-      if (r == skip || r < 0 || r >= S_out) continue;
-#pragma unroll
-      for (int v = 0; v < V; ++v) atomicAdd(ob + (int64_t)r * C + v, g[v]);
+    for (unsigned k = kept; k != 0; k &= k - 1) {
+      const int j = __ffs(k) - 1;
+      const int r = T <= G ? row_groups::shfl<G>(mine, j)
+                           : row_of32(map, taps, tap_stride, j, b, s, B, S_g);
+      if (!live) continue;
+      float* o = ob + r * C + u * V;
+      if constexpr (VEC) {  // one 16-byte atomic (sm_90, global memory)
+        atomicAdd(reinterpret_cast<float4*>(o), v);
+      } else {
+        atomicAdd(o, v.x);
+      }
     }
+  }
+}
+
+template <int G, bool VEC>
+void launch_scatter_sum(const float* Gr, const int* map, TapList taps,
+                        int tap_stride, int T, float* out, int B, int S_g,
+                        int S_out, int C, int limit, cudaStream_t stream) {
+  constexpr int rows_per_block = 256 / G;
+  const dim3 grid((S_g + rows_per_block - 1) / rows_per_block, B);
+  scatter_sum_kernel<G, VEC><<<grid, 256, 0, stream>>>(
+      Gr, map, taps, tap_stride, T, out, B, S_g, S_out, C, limit);
+}
+
+template <bool VEC>
+void launch_scatter_sum_groups_of(int g, const float* Gr, const int* map, TapList taps,
+                        int tap_stride, int T, float* out, int B, int S_g,
+                        int S_out, int C, int limit, cudaStream_t stream) {
+  switch (g) {
+    case 1: return launch_scatter_sum<1, VEC>(Gr, map, taps, tap_stride, T, out, B,
+                                              S_g, S_out, C, limit, stream);
+    case 4: return launch_scatter_sum<4, VEC>(Gr, map, taps, tap_stride, T, out, B,
+                                              S_g, S_out, C, limit, stream);
+    case 8: return launch_scatter_sum<8, VEC>(Gr, map, taps, tap_stride, T, out, B,
+                                              S_g, S_out, C, limit, stream);
+    case 16: return launch_scatter_sum<16, VEC>(Gr, map, taps, tap_stride, T, out, B,
+                                                S_g, S_out, C, limit, stream);
+    default: return launch_scatter_sum<32, VEC>(Gr, map, taps, tap_stride, T, out, B,
+                                                S_g, S_out, C, limit, stream);
   }
 }
 
@@ -807,19 +900,19 @@ int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,
 }
 
 int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
-                   int T, void* out, int B, int S_g, int S_out, int C, int skip,
-                   void* stream) {
-  const bool vec = C % 4 == 0 && aligned16(G);
-  const int64_t total = (int64_t)B * S_g * (vec ? C / 4 : C);
-  const int blocks = grid_stride_blocks(total);
+                   int T, void* out, int B, int S_g, int S_out, int C,
+                   int skip_from, void* stream) {
+  const int limit = skip_from < 0 || skip_from > S_out ? S_out : skip_from;
+  const bool vec = C % 4 == 0 && aligned16(G) && aligned16(out);
+  const int g = row_groups::size_for(C, vec);
   if (vec) {
-    scatter_sum_kernel<4><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B,
-        S_g, S_out, C, skip);
+    launch_scatter_sum_groups_of<true>(g, (const float*)G, (const int*)map, taps, tap_stride,
+                             T, (float*)out, B, S_g, S_out, C, limit,
+                             (cudaStream_t)stream);
   } else {
-    scatter_sum_kernel<1><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B,
-        S_g, S_out, C, skip);
+    launch_scatter_sum_groups_of<false>(g, (const float*)G, (const int*)map, taps, tap_stride,
+                              T, (float*)out, B, S_g, S_out, C, limit,
+                              (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

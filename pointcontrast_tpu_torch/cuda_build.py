@@ -46,9 +46,13 @@ def library_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     so = library_path(name)
-    return not os.path.exists(so) or (
-        os.path.getmtime(so) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(so):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(p)
+                                      for p in [source_path(name), *headers])
 
 
 def build(names=SOURCES) -> dict:
@@ -111,25 +115,46 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(t=None) -> int:
+    """The current CUDA stream (of ``t``'s device, else of the current
+    device) as the int a ``c_void_p`` argument takes (ints and None pass
+    straight through ctypes, with no object to build).
+    ``torch._C._cuda_getCurrentRawStream`` is the getter torch's own
+    compiled kernels launch with: ``torch.cuda.current_stream()`` would
+    build a ``Stream`` object first, several µs of a launch's host cost."""
+    device = torch.cuda.current_device() if t is None else t.get_device()
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    return None if t is None else t.data_ptr()
+
+
+INDEX_LIMIT = 2 ** 31
+
+
+def check_index_space(name: str, **sizes) -> None:
+    """Raise unless every index space (the element count of a table or a
+    map the kernel addresses) is below 2^31: the row kernels compute their
+    offsets in 32-bit ints."""
+    for what, n in sizes.items():
+        if n >= INDEX_LIMIT:
+            raise ValueError(f"{name}: {what} spans {n} elements, 2^31 or more "
+                             "(the kernel's offsets are 32-bit)")
 
 
 def use_plain(x: torch.Tensor) -> bool:
     """A wrapper takes its plain-torch twin for a CPU tensor, and only then;
     on a CUDA tensor it launches its kernel or raises."""
-    return x.device.type == "cpu"
+    return x.is_cpu
 
 
 def require(t, name, dtype, ndim):
     """Raise unless ``t`` (None passes) is a contiguous ``ndim``-d CUDA
     tensor of ``dtype``: what a kernel that reads raw pointers takes."""
-    if t is None:
-        return
+    if t is None or (t.is_cuda and t.dtype == dtype and t.dim() == ndim
+                     and t.is_contiguous()):
+        return  # the common case first: a launch's host cost
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

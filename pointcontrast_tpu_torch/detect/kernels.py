@@ -30,6 +30,12 @@ and leaves the [B, N] running distances in L2.  Ball query reads each
 cloud once per centre (256 x 1024 points x 12 B per cloud, L2-resident) and
 stops at ``nsample`` hits.  The gather and scatter move rows of 4*C bytes
 and are bound by device-memory bandwidth; the scatter's atomics collide.
+The gather gives each output row a group of 1 to 32 lanes, by C: one lane
+reads the row's index and a shuffle hands it on, the lanes copy the row
+with float4 (or neighbouring scalar) loads, in 32-bit offsets, one group a
+row with no cap on the grid.  Its wrapper does the least it can on the
+host (the library, the stream and pointers as plain ints, one allocation):
+at the path's small shapes the launch costs more than the copy.
 K9 works on the FP layers' few hundred points: ``three_nn`` reads under
 0.4 MB and is bound by launch latency; ``three_interpolate`` and its
 backward move [B, N, C] rows and are bound by bandwidth (~12.6 MB at FP2).
@@ -48,6 +54,7 @@ float64 (never ``.sum(-1)``, ``cdist`` or a matmul).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -55,12 +62,14 @@ import torch
 
 from pointcontrast_tpu_torch import cuda_build
 from pointcontrast_tpu_torch.cuda_build import check as _check
+from pointcontrast_tpu_torch.cuda_build import check_index_space
 from pointcontrast_tpu_torch.cuda_build import ptr as _ptr
 from pointcontrast_tpu_torch.cuda_build import require as _require
 from pointcontrast_tpu_torch.cuda_build import stream as _stream
 from pointcontrast_tpu_torch.cuda_build import use_plain as _use_plain
 
 
+@functools.cache
 def _lib():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load("detect_ops", {
@@ -242,21 +251,24 @@ def gather_rows_plain(table, idx):
 
 def gather_rows(table, idx):
     """table [B, N, C] f32, idx [B, ...] int -> [B, ..., C]: row
-    ``idx[b, ...]`` of sample b's table."""
+    ``idx[b, ...]`` of sample b's table.  B N C and B M C (M indices a
+    sample) must stay below 2^31, on either device."""
     b_, n, c = table.shape
     _check_index("gather_rows", idx, b_)
+    m = idx.numel() // b_ if b_ else 0
+    check_index_space("gather_rows", table=b_ * n * c, out=b_ * m * c)
     if _use_plain(table):
         return gather_rows_plain(table, idx)
     _require(table, "table", torch.float32, 3)
-    flat = idx.reshape(b_, -1)
-    _require(flat, "idx", torch.int32, 2)
-    m = flat.shape[1]
-    out = torch.empty(b_, m, c, dtype=torch.float32, device=table.device)
-    rc = _lib().pc_gather_rows(_ptr(table), _ptr(flat), _ptr(out), b_, n, m, c,
-                               _stream())
+    _require(idx, "idx", torch.int32, idx.dim())  # read as [B, M]: no reshape
+    out = torch.empty(*idx.shape, c, dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    rc = _lib().pc_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                               b_, n, m, c, _stream(table))
     _check(rc, "gather_rows")
     gather_rows.launches += 1
-    return out.reshape(*idx.shape, c)
+    return out
 
 
 def scatter_add_rows_plain(grad, idx, n: int):

@@ -325,12 +325,15 @@ def brick_up_conv(features: torch.Tensor,  # [NB_coarse*2^D, Cin] level-(l+1) ro
     brick's id IS its coarse parent voxel and a fine voxel's slot IS its
     kernel offset, so this is one row gather (``gather_sum`` at one tap)
     and one [NB, Cin] @ [Cin, 2^D*Cout] matmul.  ``up_gather=None``: the
-    coarse level is flat, and its rows already are the fine bricks'."""
+    coarse level is flat, and its rows already are the fine bricks'.  The
+    gather's adjoint leaves out the coarse pad brick's 2^D slots: every
+    pad source of the fine level points at its slot 0."""
     ns, cin, cout = weights.shape
     if up_gather is None:
         g = features
     else:
-        g = _GatherSum.apply(features.contiguous(), up_gather.reshape(1, 1, -1), None)
+        g = _GatherSum.apply(features.contiguous(), up_gather.reshape(1, 1, -1), None,
+                             features.shape[0] - ns)
     nb = g.shape[0]
     out = (g @ weights.transpose(0, 1).reshape(cin, ns * cout)).reshape(nb * ns, cout)
     if bias is not None:

@@ -35,7 +35,9 @@ custom-VJP XLA programs, except the Pallas probes):
                  Pallas gather probes (``experiments/pallas_gather_probe*.py``:
                  ``table[idx]`` and ``sum_k table[nbr[k]]``, as [1, N, C]
                  tables and [K, 1, M] maps)
-  scatter_sum    the pooling ops' backward, the adjoint of gather_sum
+  scatter_sum    the pooling ops' backward, the adjoint of gather_sum (and
+                 of ``jnp.take`` in the brick layout's placement and up
+                 gathers, ``pointcontrast_tpu/sparse/brick.py:465``, ``:491``)
 The same kernels run the voxel (flat) layout at B = 1, a flat [K, N] map
 taken as [K, 1, N]: JAX ``_conv_sym`` (K1's three), the flat k2s2 down
 conv (K2's), the flat transposed conv (K3's) and the flat pooling ops
@@ -55,8 +57,12 @@ scatter_gemm adds every product with an f32 atomic; segment_sum reads each
 row once (bound by HBM bytes) and adds one atomic per block, segment and
 channel.  gather_sum does no multiply: it reads each gathered row once and
 writes each output row once (bound by HBM bytes), float4 along C; its
-adjoint scatter_sum reads each cotangent row once and adds it with f32
-atomics.  brick_gemm does 2*Cin*Cout flop per (output slot, tap) pair of
+adjoint scatter_sum reads each kept cotangent row once and adds it with
+16-byte f32 atomics (HBM bytes too): a group of lanes a row reads the
+row's destinations first and reads nothing for a row whose destinations
+all lie at or past ``skip_from``, the source's pad rows, where every
+missing child of a map points (on a brick table the pad brick's 8 slots:
+left in, they turned 17k adds onto one row).  brick_gemm does 2*Cin*Cout flop per (output slot, tap) pair of
 every brick, occupied or not (8 slots x 27 taps a brick at k = 3), so it is
 bound by f32 arithmetic; it loads one index per (brick, plan step) and
 reads whole brick rows.  brick_wgrad does the same products as a reduction
@@ -73,6 +79,7 @@ import torch
 
 from pointcontrast_tpu_torch import cuda_build
 from pointcontrast_tpu_torch.cuda_build import check as _check
+from pointcontrast_tpu_torch.cuda_build import check_index_space
 from pointcontrast_tpu_torch.cuda_build import ptr as _ptr
 from pointcontrast_tpu_torch.cuda_build import require as _require
 from pointcontrast_tpu_torch.cuda_build import stream as _stream
@@ -87,12 +94,19 @@ class TapList(ctypes.Structure):
 
 
 def _taps_struct(taps) -> TapList:
+    return _tap_list(tuple(taps or ()))
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_list(taps: tuple) -> TapList:
+    # ctypes passes the struct by value: one cached instance per tap list
     t = TapList()
-    for i, v in enumerate(taps or ()):
-        t.idx[i] = int(v)
+    for i, v in enumerate(taps):
+        t.idx[i] = v
     return t
 
 
+@functools.cache
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("sparse_conv", {
@@ -117,12 +131,13 @@ def _check_rows(name, map_, taps, tap_stride, n, b_, s_rows, s_table):
     [B, s_table] table: a map is [K, B, s_rows] and read at n listed taps,
     a stacked table holds n blocks of ``tap_stride`` rows.  (The map's
     values are checked against their chunk by ``PairBatch.to``.)"""
-    if map_ is not None:
-        if tuple(map_.shape[1:]) != (b_, s_rows):
-            raise ValueError(f"{name}: map of shape {tuple(map_.shape)}, "
+    if map_ is not None:  # spelt for a launch's host cost: a few µs a call
+        shape = map_.shape
+        if len(shape) != 3 or shape[1] != b_ or shape[2] != s_rows:
+            raise ValueError(f"{name}: map of shape {tuple(shape)}, "
                              f"expected [K, {b_}, {s_rows}]")
-        if len(taps) < n or not all(0 <= int(t) < map_.shape[0] for t in taps[:n]):
-            raise ValueError(f"{name}: need {n} taps in [0, {map_.shape[0]}), "
+        if len(taps) < n or (n > 0 and not 0 <= min(taps[:n]) <= max(taps[:n]) < shape[0]):
+            raise ValueError(f"{name}: need {n} taps in [0, {shape[0]}), "
                              f"got {list(taps)}")
     elif (n - 1) * tap_stride + s_rows > s_table:
         raise ValueError(f"{name}: {n} blocks of stride {tap_stride} and "
@@ -442,25 +457,33 @@ def gather_sum(x3, map_, taps, tap_stride, s_out):
 # (h) scatter_sum
 
 
-def scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip):
+def scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip_from):
     b_, s_g, c = g3.shape
     out = g3.new_zeros(b_, s_in, c)
     for j in range(len(taps)):
         idx = row_index(map_, taps, tap_stride, j, b_, s_g, g3.device)
-        y = torch.where((idx != skip)[..., None], g3, 0.0)
+        y = g3 if skip_from < 0 else torch.where((idx < skip_from)[..., None], g3, 0.0)
         out.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), y)
     return out
 
 
-def scatter_sum(g3, map_, taps, tap_stride, s_in, skip):
+def scatter_sum(g3, map_, taps, tap_stride, s_in, skip_from):
     """out[b, row(j,b,s)] += g3[b,s] for every listed tap, except where the
-    row is ``skip`` (-1: none): the adjoint of ``gather_sum`` into a
-    [B, s_in, C] table.  A row named many times gets f32 atomics on the
-    card, in an order that differs from run to run."""
+    row is ``skip_from`` or past it (-1: none): the adjoint of
+    ``gather_sum`` into a [B, s_in, C] table.  The pooling maps send
+    missing children to the chunk's last row (``s_in - 1``), a brick
+    table's gathers to the pad brick's slots (``s_in - 8`` on); leaving
+    those rows out leaves out the adds that would pile onto them.  A row
+    named many times gets f32 atomics on the card, in an order that differs
+    from run to run; where no kept row repeats, the card's result equals
+    the twin's bit for bit.  B s_g C, B s_in C and the map's size must stay
+    below 2^31, on either device."""
     b_, s_g, c = g3.shape
     _check_rows("scatter_sum", map_, taps, tap_stride, len(taps), b_, s_g, s_in)
+    check_index_space("scatter_sum", g3=b_ * s_g * c, out=b_ * s_in * c,
+                      map=0 if map_ is None else map_.numel())
     if _use_plain(g3):
-        return scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip)
+        return scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip_from)
     _require(g3, "g3", torch.float32, 3)
     _require(map_, "map", torch.int32, 3)
     if not 0 < len(taps) <= MAX_TAPS:
@@ -469,8 +492,8 @@ def scatter_sum(g3, map_, taps, tap_stride, s_in, skip):
     if g3.numel() == 0:
         return out
     rc = _lib().pc_scatter_sum(
-        _ptr(g3), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
-        _ptr(out), b_, s_g, s_in, c, int(skip), _stream())
+        g3.data_ptr(), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
+        out.data_ptr(), b_, s_g, s_in, c, int(skip_from), _stream(g3))
     _check(rc, "scatter_sum")
     scatter_sum.launches += 1
     return out

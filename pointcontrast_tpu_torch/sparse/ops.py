@@ -295,11 +295,12 @@ class _GatherSum(torch.autograd.Function):
     """out[b,s] = sum_k F[b, map[k,b,s]] (over every row of a [K, B, S_out]
     map), divided by ``divisor`` [B*S_out, 1] when one is given (it carries
     no gradient).  Backward, the adjoint: scatter_sum of ct (/ divisor)
-    through the same map, the source's pad row S_in - 1 left out (missing
-    children point there; pad-row gradients are garbage by design)."""
+    through the same map, the source's pad rows left out: rows
+    ``skip_from`` on, by default the last row S_in - 1, where missing
+    children point (pad-row gradients are garbage by design)."""
 
     @staticmethod
-    def forward(ctx, features, map_, divisor):
+    def forward(ctx, features, map_, divisor, skip_from=None):
         k, b_, s_out = map_.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = gather_sum(f3, map_, range(k), 0, s_out).reshape(b_ * s_out, -1)
@@ -307,19 +308,20 @@ class _GatherSum(torch.autograd.Function):
             out = out / divisor
         ctx.save_for_backward(map_, divisor)
         ctx.s_in = f3.shape[1]
+        ctx.skip_from = f3.shape[1] - 1 if skip_from is None else skip_from
         return out
 
     @staticmethod
     def backward(ctx, ct):
         map_, divisor = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         k, b_, s_out = map_.shape
         if divisor is not None:
             ct = ct / divisor
         df = scatter_sum(ct.contiguous().reshape(b_, s_out, -1), map_, range(k),
-                         0, ctx.s_in, ctx.s_in - 1)
-        return df.reshape(b_ * ctx.s_in, -1), None, None
+                         0, ctx.s_in, ctx.skip_from)
+        return df.reshape(b_ * ctx.s_in, -1), None, None, None
 
 
 def _down_map(name, m):
