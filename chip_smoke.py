@@ -33,7 +33,8 @@ Phases, each printed on its own line:
   7. kernels: the sparse-conv kernels at the shapes of every conv of the
      backbone's forward, and FPS, ball query, gather and scatter-add,
      against their twins at the path's shapes from one real batch, with
-     times;
+     times, and the group's scatter-add over a ball query where most balls
+     hold 1-2 hits (the heavy tail);
   8. parity: one VoteNet step through the kernels against the same step
      through the plain twins, from the same weights and batch;
   9. slice: 5 DetectTrainer.train_epoch steps (Res16UNet34C 3 -> 256, Adam)
@@ -47,7 +48,9 @@ Phases, each printed on its own line:
   11. kernels: every set-abstraction module's FPS, ball query, gathers and
      scatter-adds (SA1-SA4 and the proposal module's vote FPS), three_nn
      (index and distance equal), three_interpolate and its backward at
-     FP1's and FP2's shapes, all from one real forward, with times;
+     FP1's and FP2's shapes, all from one real forward, with times, and the
+     votes' group scatter-add over a ball query where most balls hold 1-2
+     hits (the heavy tail);
   12. parity: one step through the kernels against the plain twins;
   13. slice: 5 DetectTrainer steps with the expected launch count of every
      kernel (0 for the sparse-conv ones), one evaluate, the eval outputs;
@@ -112,10 +115,12 @@ kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  The
 times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``);
-for gather_rows and scatter_sum, the kernel's and the library call's
-device-only times too (``device_ms``, ``library_device_ms``: the same 10
-calls replayed as one CUDA graph, the median of 5 replays, so the host's
-cost of a call is left out; ``ms - device_ms`` is that cost).  Then
+for the row kernels of ``DEVICE_TIMED`` (gather_rows, scatter_add_rows,
+gather_sum, scatter_sum, three_interpolate_grad, scatter_parent), the
+kernel's and the library call's device-only times too (``device_ms``,
+``library_device_ms``: the same 10 calls replayed as one CUDA graph, the
+median of 5 replays, so the host's cost of a call is left out;
+``ms - device_ms`` is that cost).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -194,7 +199,13 @@ F32_FLOP_PER_S = 67e12
 # that call's events time and, for the kernels of DEVICE_TIMED, the
 # device-only times of the kernel and of that call (``_device_ms``)
 OPTIONAL_MS = ("library_ms", "device_ms", "library_device_ms")
-DEVICE_TIMED = ("gather_rows", "scatter_sum")
+DEVICE_TIMED = ("gather_rows", "scatter_add_rows", "gather_sum", "scatter_sum",
+                "three_interpolate_grad", "scatter_parent")
+# radii tried, largest first, for the heavy-tail scatter-add check: the
+# first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
+# query's repeats of the first hit fill most of the group's rows
+HEAVY_TAIL_RADII = (0.3, 0.2, 0.15, 0.1, 0.05, 0.02)
+HEAVY_TAIL_SHARE = 0.75
 
 
 def say(phase: str, **kw):
@@ -766,13 +777,39 @@ def make_votenet_batches(device, layout):
     return dev
 
 
+def heavy_tail_check(label, centres, xyz, nsample, c, gen):
+    """A scatter-add check (kernel, label, fn, args) over a ball query of
+    ``centres`` in ``xyz`` at the first of ``HEAVY_TAIL_RADII`` where
+    ``HEAVY_TAIL_SHARE`` of the balls hold 1 or 2 hits: each ball's slots
+    past its hits repeat its first hit, so most of the [B, M, nsample]
+    rows name the same table row as their neighbours.  A random [.., c]
+    cotangent.  Raises if no radius gets there."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+
+    for r in HEAVY_TAIL_RADII:
+        group = D.ball_query_plain(centres, xyz, r, nsample)
+        hits = 1 + (group[..., 1:] != group[..., :1]).sum(-1)
+        share = float((hits <= 2).float().mean())
+        if share >= HEAVY_TAIL_SHARE:
+            grad = torch.randn(*group.shape, c, device=xyz.device, generator=gen)
+            return ("scatter_add_rows",
+                    f"{label} heavy tail r{r} ({share:.2f} of balls 1-2 hits)",
+                    D.scatter_add_rows, (grad, group, xyz.shape[1]))
+    raise AssertionError(f"{label}: no radius of {HEAVY_TAIL_RADII} leaves "
+                         f"{HEAVY_TAIL_SHARE} of the balls with 1-2 hits")
+
+
 def detect_kernel_checks(batch):
     """[(kernel, label, fn, args)] for K6-K8 at the VoteNet step's shapes,
     from one real batch: the backbone's FPS over the 40000-point clouds and
     its seed gathers, then the proposal module's FPS, ball query (r 0.3,
     16 samples) and [xyz, feature] group over a 1024-vote cloud (the seeds
     moved by offsets of the voting module's scale), with the backward
-    scatter-adds of the gathers that carry a gradient."""
+    scatter-adds of the gathers that carry a gradient, and the group's
+    scatter-add once more over a ball query at a radius where most balls
+    hold 1-2 hits (``heavy_tail_check``)."""
     import torch
 
     from pointcontrast_tpu_torch.detect import kernels as D
@@ -811,6 +848,7 @@ def detect_kernel_checks(batch):
         ("scatter_add_rows", "K8 bwd group 259", D.scatter_add_rows,
          (torch.randn(b_, 256, 16, 259, device=dev, generator=gen), group,
           1024)),
+        heavy_tail_check("K8 bwd group 259", centres, votes, 16, 259, gen),
     ]
 
 
@@ -1034,8 +1072,10 @@ def pointnet2_kernel_checks(model, batch):
     runs over the 1024 votes): its FPS, ball query, the gathers of its
     centres and of its group, and the scatter-adds of those whose table
     carries a gradient (the group once the module has input features, the
-    centres when they are votes), with random cotangents.  Then K9 at FP1
-    (512 unknown over 256 known points) and FP2 (1024 over 512)."""
+    centres when they are votes), with random cotangents, and the votes'
+    group scatter-add once more at a heavy tail (``heavy_tail_check``).
+    Then K9 at FP1 (512 unknown over 256 known points) and FP2 (1024 over
+    512)."""
     import torch
 
     from pointcontrast_tpu_torch.detect import kernels as D
@@ -1085,6 +1125,8 @@ def pointnet2_kernel_checks(model, batch):
             checks.append(("scatter_add_rows", "K8 bwd votes centres",
                            D.scatter_add_rows,
                            (torch.randn(b_, k, 3, device=dev, generator=gen), inds, n)))
+            checks.append(heavy_tail_check(f"K8 bwd {name} group {c}", new_xyz, xyz,
+                                           ns, c, gen))
     del m
     xyz3, xyz4, _, feat4 = (t.contiguous() for t in seen["fp1"])
     xyz2, _, _, f3 = (t.contiguous() for t in seen["fp2"])

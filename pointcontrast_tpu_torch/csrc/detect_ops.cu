@@ -5,7 +5,9 @@
 //   K7 ball_query_kernel      first nsample in-radius points per centre
 //   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :], a lane
 //                             group a row (row_groups.cuh), HBM-bound
-//      scatter_add_rows_kernel  its backward, f32 atomics
+//      scatter_add_rows_kernel  its backward, a lane group a run of rows
+//                             that merges repeats of one index before its
+//                             f32 atomics (16 bytes a float4)
 //   K9 three_nn_kernel        the 3 nearest known points of each unknown one
 //      three_interpolate_kernel       out[b, n, :] = sum_j w_j f[b, idx_j, :]
 //      three_interpolate_grad_kernel  its backward to f, f32 atomics
@@ -214,40 +216,122 @@ gather_narrow_rows_kernel(const float* __restrict__ table,
   }
 }
 
-template <int G, bool VEC>
-void launch_gather_rows(const float* table, const int* idx, float* out, int B,
-                        int N, int M, int C, cudaStream_t stream) {
-  constexpr int rows_per_block = ROW_THREADS / G;
-  const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
-  gather_rows_kernel<G, VEC><<<grid, ROW_THREADS, 0, stream>>>(table, idx, out,
-                                                             N, M, C);
-}
+// K8 backward: dtable[b, idx[b, m], :] += grad[b, m, :], the transpose of
+// gather_rows (JAX's autodiff of group_points / gather_points).  It reads
+// each grad row once and adds it into the table, so HBM bytes bound it as
+// long as the adds do not pile onto a few rows: f32 atomics on one address
+// run one after another.  They do pile up on the path: ball query fills
+// every slot past a ball's hit count with its first hit, so in a sparse
+// ball up to nsample - 1 consecutive grad rows name one table row.  The
+// design:
+//  - a group of G lanes (row_groups::size_for, 4 to 32 by C) owns a run of
+//    SCATTER_RUN consecutive rows of one sample.  Lane i (< SCATTER_RUN)
+//    loads row i's index once and shuffles hand the run's indices to the
+//    group;
+//  - run merge: the lanes read neighbouring float4s (C % 4 == 0, both
+//    pointers 16-byte aligned; else neighbouring floats) of all the run's
+//    rows first, then walk the run keeping the sum in registers while the
+//    index repeats, and add it with one atomic (16 bytes a float4, sm_90)
+//    when the index changes and at the run's end.  Correct for any index
+//    sequence (the same sum up to f32 order); for ball query's tail it
+//    turns 16 atomics on a 1-hit ball's row into 2;
+//  - no division, 32-bit offsets (the wrapper refuses B M C or B N C of
+//    2^31 or more): the grid's y is the sample.
+// SCATTER_RUN = 8: half a ball of nsample 16 (the aligned runs of a ball's
+// rows add its tail with one atomic each), 8 float4s in flight a lane, and
+// enough groups to fill the card at the path's 32k rows.
+// grid (ceil(M / (ROW_THREADS / G * SCATTER_RUN)), B).
+constexpr int SCATTER_RUN = 8;
 
+// d[0:4] += v (one 16-byte atomic, sm_90, global memory) or d[0] += v.x
 template <bool VEC>
-void launch_gather_rows_groups_of(int g, const float* table, const int* idx,
-                                  float* out, int B, int N, int M, int C,
-                                  cudaStream_t stream) {
-  switch (g) {
-    case 4: return launch_gather_rows<4, VEC>(table, idx, out, B, N, M, C, stream);
-    case 8: return launch_gather_rows<8, VEC>(table, idx, out, B, N, M, C, stream);
-    case 16: return launch_gather_rows<16, VEC>(table, idx, out, B, N, M, C, stream);
-    default: return launch_gather_rows<32, VEC>(table, idx, out, B, N, M, C, stream);
+__device__ __forceinline__ void add_unit(float* d, float4 v) {
+  if constexpr (VEC) {
+    atomicAdd(reinterpret_cast<float4*>(d), v);
+  } else {
+    atomicAdd(d, v.x);
   }
 }
 
-// K8 backward: dtable[b, idx[b, m], c] += grad[b, m, c].  Rows collide (one
-// vote sits in many groups, several points share a voxel), so the f32
-// atomics add in no fixed order.
+template <int G, bool VEC>
 __global__ void __launch_bounds__(ROW_THREADS)
 scatter_add_rows_kernel(const float* __restrict__ grad,
                         const int* __restrict__ idx, float* __restrict__ dtable,
-                        int N, int M, int C, int64_t total) {
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = e / C;
-    const int c = (int)(e - row * C);
-    const int64_t b = row / M;
-    atomicAdd(dtable + (b * N + __ldg(idx + row)) * C + c, __ldg(grad + e));
+                        int N, int M, int C) {
+  const int m0 = (blockIdx.x * (ROW_THREADS / G) + threadIdx.x / G) * SCATTER_RUN;
+  if (m0 >= M) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  const int rows = min(SCATTER_RUN, M - m0);
+  constexpr int HELD = (SCATTER_RUN + G - 1) / G;  // indices a lane loads
+  int held[HELD];
+#pragma unroll
+  for (int q = 0; q < HELD; ++q) {
+    const int i = q * G + lane;
+    held[q] = i < rows ? __ldg(idx + b * M + m0 + i) : -1;
+  }
+  int r[SCATTER_RUN];  // the run's indices, in every lane of the group
+#pragma unroll
+  for (int i = 0; i < SCATTER_RUN; ++i) r[i] = row_groups::shfl<G>(held[i / G], i % G);
+  const float* g = grad + (b * M + m0) * C;
+  float* dt = dtable + b * N * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u = lane; u < units; u += G) {  // no shuffle below: lanes may leave
+    float4 v[SCATTER_RUN];
+#pragma unroll
+    for (int i = 0; i < SCATTER_RUN; ++i) {
+      v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < rows) {
+        if constexpr (VEC) {
+          v[i] = __ldg(reinterpret_cast<const float4*>(g + i * C) + u);
+        } else {
+          v[i].x = __ldg(g + i * C + u);
+        }
+      }
+    }
+    float4 acc = v[0];
+    int cur = r[0];
+#pragma unroll
+    for (int i = 1; i < SCATTER_RUN; ++i) {
+      if (i >= rows) break;
+      if (r[i] == cur) {
+        acc.x += v[i].x;
+        acc.y += v[i].y;
+        acc.z += v[i].z;
+        acc.w += v[i].w;
+      } else {
+        add_unit<VEC>(dt + cur * C + u * V, acc);
+        cur = r[i];
+        acc = v[i];
+      }
+    }
+    add_unit<VEC>(dt + cur * C + u * V, acc);
+  }
+}
+
+// K8 backward for C <= 8 (the centres' xyz): the mirror of
+// gather_narrow_rows_kernel.  One lane owns each row and loads its index;
+// a warp reads its 32 rows' 32 C contiguous floats together, lane l taking
+// floats l, l + 32, ..., and adds each into the row the owning lane's
+// index names.  No merge: these maps (FPS picks) name each row once.
+// grid (ceil(M / ROW_THREADS), B).
+__global__ void __launch_bounds__(ROW_THREADS)
+scatter_add_narrow_rows_kernel(const float* __restrict__ grad,
+                               const int* __restrict__ idx,
+                               float* __restrict__ dtable, int N, int M, int C) {
+  const int m0 = blockIdx.x * ROW_THREADS + (threadIdx.x & ~31);  // warp's first
+  if (m0 >= M) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int rows = min(32, M - m0);
+  const int r = lane < rows ? __ldg(idx + b * M + m0 + lane) : 0;
+  const float* g = grad + (b * M + m0) * C;
+  float* dt = dtable + b * N * C;
+  for (int f = lane; f < 32 * C; f += 32) {  // C passes for every lane
+    const int i = f / C;
+    const int dst = __shfl_sync(0xffffffffu, r, i);
+    if (i < rows) atomicAdd(dt + dst * C + (f - i * C), __ldg(g + f));
   }
 }
 
@@ -445,27 +529,39 @@ int pc_ball_query(const void* centres, const void* xyz, void* out, int B, int M,
 int pc_gather_rows(const void* table, const void* idx, void* out, int B, int N,
                    int M, int C, void* stream) {
   const bool vec = vec4_ok(C, table, out);
-  const int g = row_groups::size_for(C, vec);
-  if (g == 1) {
-    const dim3 grid((M + ROW_THREADS - 1) / ROW_THREADS, B);
-    gather_narrow_rows_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)table, (const int*)idx, (float*)out, N, M, C);
-  } else if (vec) {
-    launch_gather_rows_groups_of<true>(g, (const float*)table, (const int*)idx,
-                                       (float*)out, B, N, M, C, (cudaStream_t)stream);
-  } else {
-    launch_gather_rows_groups_of<false>(g, (const float*)table, (const int*)idx,
-                                        (float*)out, B, N, M, C, (cudaStream_t)stream);
-  }
+  row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
+    constexpr int G = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    const int rows_per_block = ROW_THREADS / G;
+    const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
+    if constexpr (G == 1) {
+      gather_narrow_rows_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)table, (const int*)idx, (float*)out, N, M, C);
+    } else {
+      gather_rows_kernel<G, VEC><<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)table, (const int*)idx, (float*)out, N, M, C);
+    }
+  });
   return (int)cudaGetLastError();
 }
 
 int pc_scatter_add_rows(const void* grad, const void* idx, void* dtable, int B,
                         int N, int M, int C, void* stream) {
-  const int64_t total = (int64_t)B * M * C;
-  scatter_add_rows_kernel<<<grid_for(total, ROW_THREADS), ROW_THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)grad, (const int*)idx, (float*)dtable, N, M, C, total);
+  const bool vec = vec4_ok(C, grad, dtable);
+  row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
+    constexpr int G = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    if constexpr (G == 1) {
+      const dim3 grid((M + ROW_THREADS - 1) / ROW_THREADS, B);
+      scatter_add_narrow_rows_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)grad, (const int*)idx, (float*)dtable, N, M, C);
+    } else {
+      const int rows_per_block = ROW_THREADS / G * SCATTER_RUN;
+      const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
+      scatter_add_rows_kernel<G, VEC><<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)grad, (const int*)idx, (float*)dtable, N, M, C);
+    }
+  });
   return (int)cudaGetLastError();
 }
 

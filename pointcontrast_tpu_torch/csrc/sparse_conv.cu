@@ -23,14 +23,16 @@
 // are later work.  gather_sum and its adjoint scatter_sum (the pooling ops,
 // and JAX's jnp.take and its autodiff in the brick layout's placement and
 // up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
-// so HBM bytes bound them.  scatter_sum gives each cotangent row a lane
-// group (row_groups.cuh) that reads the row's destinations before its data
-// and adds 16 bytes an atomic; it leaves out every destination at or past a
-// bound, the source's pad rows, because each map sends its missing sources
-// to one pad row: on a brick table (slot 0 of the pad brick) 17k adds of a
-// batch landed on one row and ran one after another.  A new map kind must
-// check where its pad sources point.  Each C entry returns
-// cudaGetLastError() of its launch.
+// so HBM bytes bound them.  Both give each row a lane group
+// (row_groups.cuh) that reads the row's indices before its data.
+// gather_sum adds the kept rows in tap order (bit-equal to the twin) with
+// float4 loads, and at one tap is a row copy.  scatter_sum adds 16 bytes an
+// atomic and leaves out every destination at or past a bound, the
+// source's pad rows, because each map sends its missing sources to one pad
+// row: on a brick table (slot 0 of the pad brick) 17k adds of a batch
+// landed on one row and ran one after another.  A new map kind must check
+// where its pad sources point.  Each C entry returns cudaGetLastError() of
+// its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -450,46 +452,104 @@ segment_sum_kernel(const float* __restrict__ X, const int* __restrict__ seg,
 
 // (g) out[b,s,:] = sum_j X[b, row(j,b,s), :] over the T listed taps, added
 // in tap order from zero, as JAX's sum(...) of row gathers adds them (so the
-// result equals the plain twin bit for bit).  No multiply: the work is one
-// read of each gathered row and one write of each output row, so the kernel
-// is bound by HBM bytes; each thread owns V consecutive channels of one
-// output row (V = 4: float4 loads and stores, when C % 4 == 0 and both
-// tables are 16-byte aligned; else V = 1), and neighbouring threads take
-// neighbouring channels, so a warp reads whole gathered rows.  Rows outside
-// [0, S_in) add nothing.
-// grid-stride over B * S_out * C / V threads
-template <int V>
+// result equals the plain twin bit for bit).  Rows outside [0, S_in) add
+// nothing.  It runs the K5 pools (K = 8; the average's count at C = 1), the
+// unpools and the brick placement and up gathers (K = 1), and is the port
+// of the nine Pallas gather probes (K = 1 and 27).  No multiply: the work is
+// one read of each gathered row and one write of each output row, so HBM
+// bytes bound it.  The design:
+//  - a group of G lanes (row_groups::size_for) owns one output row.  Its
+//    lanes first read the row's T indices once (tap l, l + G, ... for lane
+//    l) and a ballot keeps a bit per tap whose row lies in [0, S_in);
+//  - the lanes then read neighbouring float4s (C % 4 == 0, both tables
+//    16-byte aligned; else neighbouring floats) of each kept row, in tap
+//    order, the row coming from the lane that read it through a shuffle
+//    (T <= G) or again from L1 (T > G), and write the sum once;
+//  - the tap list is a __grid_constant__ parameter, read in place: a plain
+//    by-value struct indexed by a lane's tap is copied to each thread's
+//    stack (ptxas: 128 bytes a thread);
+//  - no division, 32-bit offsets (the wrapper refuses index spaces of 2^31
+//    or more): the grid's y is the chunk b.
+// K = 1 takes gather_one_kernel below.
+// grid (ceil(S_out / (256 / G)), B), one output row a group: no cap.
+template <int G, bool VEC>
 __global__ void __launch_bounds__(256)
 gather_sum_kernel(const float* __restrict__ X, const int* __restrict__ map,
-                  TapList taps, int tap_stride, int T, float* __restrict__ out,
-                  int B, int S_in, int S_out, int C) {
-  const int CV = C / V;
-  const int64_t total = (int64_t)B * S_out * CV;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = e / CV;  // b * S_out + s
-    const int cv = (int)(e % CV);
-    const int b = (int)(i / S_out), s = (int)(i % S_out);
-    const float* Xb = X + (int64_t)b * S_in * C + (int64_t)cv * V;
-    float acc[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+                  const __grid_constant__ TapList taps, int tap_stride, int T,
+                  float* __restrict__ out, int B, int S_in, int S_out, int C) {
+  const int s = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (s >= S_out) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  unsigned kept = 0;  // bit j: tap j's row lies in [0, S_in)
+  int mine = -1;      // the row of tap `lane` (T <= G)
+  for (int j0 = 0; j0 < T; j0 += G) {
+    const int j = j0 + lane;
+    const int r = j < T ? row_of32(map, taps, tap_stride, j, b, s, B, S_out) : -1;
+    if (j0 == 0) mine = r;
+    kept |= row_groups::ballot<G>(r >= 0 && r < S_in) << j0;
+  }
+  const float* xb = X + b * S_in * C;
+  float* o = out + (b * S_out + s) * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u0 = 0; u0 < units; u0 += G) {  // the same trip count for every lane
+    const int u = u0 + lane;
+    const bool live = u < units;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
     for (int j = 0; j < T; ++j) {
-      const int r = row_of(map, taps, tap_stride, j, b, s, B, S_out);
-      if (r < 0 || r >= S_in) continue;
-      if constexpr (V == 4) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(Xb + (int64_t)r * C));
-        acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+      int r = T <= G ? row_groups::shfl<G>(mine, j) : 0;  // every lane shuffles
+      if (!live || !((kept >> j) & 1u)) continue;
+      if (T > G) r = row_of32(map, taps, tap_stride, j, b, s, B, S_out);
+      if constexpr (VEC) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(xb + r * C) + u);
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
       } else {
-        acc[0] += __ldg(Xb + (int64_t)r * C);
+        acc.x += __ldg(xb + r * C + u);
       }
     }
-    float* o = out + i * C + (int64_t)cv * V;
-    if constexpr (V == 4) {
-      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (!live) continue;
+    if constexpr (VEC) {
+      reinterpret_cast<float4*>(o)[u] = acc;
     } else {
-      o[0] = acc[0];
+      o[u] = acc.x;
     }
+  }
+}
+
+// (g) at one tap, a row gather: out[b,s,:] = X[b, row(0,b,s), :], or zeros
+// where that row lies outside [0, S_in).  Lane 0 of the group loads the
+// row's index and a shuffle hands it on; the lanes copy the row as
+// gather_rows_kernel does (detect_ops.cu), with no accumulator.
+// grid (ceil(S_out / (256 / G)), B).
+template <int G, bool VEC>
+__global__ void __launch_bounds__(256)
+gather_one_kernel(const float* __restrict__ X, const int* __restrict__ map,
+                  int tap, float* __restrict__ out, int B, int S_in, int S_out,
+                  int C) {
+  const int s = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (s >= S_out) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  int r = 0;
+  if (lane == 0) r = map != nullptr ? __ldg(map + (tap * B + b) * S_out + s) : s;
+  r = row_groups::shfl<G>(r, 0);
+  const bool in = r >= 0 && r < S_in;
+  const float* src = X + (b * S_in + (in ? r : 0)) * C;
+  float* dst = out + (b * S_out + s) * C;
+  if constexpr (VEC) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+    for (int u = lane; u < C / 4; u += G)
+      d4[u] = in ? __ldg(s4 + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < C; c += G) dst[c] = in ? __ldg(src + c) : 0.f;
   }
 }
 
@@ -568,34 +628,6 @@ scatter_sum_kernel(const float* __restrict__ Gr, const int* __restrict__ map,
         atomicAdd(o, v.x);
       }
     }
-  }
-}
-
-template <int G, bool VEC>
-void launch_scatter_sum(const float* Gr, const int* map, TapList taps,
-                        int tap_stride, int T, float* out, int B, int S_g,
-                        int S_out, int C, int limit, cudaStream_t stream) {
-  constexpr int rows_per_block = 256 / G;
-  const dim3 grid((S_g + rows_per_block - 1) / rows_per_block, B);
-  scatter_sum_kernel<G, VEC><<<grid, 256, 0, stream>>>(
-      Gr, map, taps, tap_stride, T, out, B, S_g, S_out, C, limit);
-}
-
-template <bool VEC>
-void launch_scatter_sum_groups_of(int g, const float* Gr, const int* map, TapList taps,
-                        int tap_stride, int T, float* out, int B, int S_g,
-                        int S_out, int C, int limit, cudaStream_t stream) {
-  switch (g) {
-    case 1: return launch_scatter_sum<1, VEC>(Gr, map, taps, tap_stride, T, out, B,
-                                              S_g, S_out, C, limit, stream);
-    case 4: return launch_scatter_sum<4, VEC>(Gr, map, taps, tap_stride, T, out, B,
-                                              S_g, S_out, C, limit, stream);
-    case 8: return launch_scatter_sum<8, VEC>(Gr, map, taps, tap_stride, T, out, B,
-                                              S_g, S_out, C, limit, stream);
-    case 16: return launch_scatter_sum<16, VEC>(Gr, map, taps, tap_stride, T, out, B,
-                                                S_g, S_out, C, limit, stream);
-    default: return launch_scatter_sum<32, VEC>(Gr, map, taps, tap_stride, T, out, B,
-                                                S_g, S_out, C, limit, stream);
   }
 }
 
@@ -803,12 +835,6 @@ brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
   }
 }
 
-int grid_stride_blocks(int64_t total) {
-  int64_t blocks = (total + 255) / 256;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
@@ -885,17 +911,19 @@ int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,
                   int T, void* out, int B, int S_in, int S_out, int C,
                   void* stream) {
   const bool vec = C % 4 == 0 && aligned16(X) && aligned16(out);
-  const int64_t total = (int64_t)B * S_out * (vec ? C / 4 : C);
-  const int blocks = grid_stride_blocks(total);
-  if (vec) {
-    gather_sum_kernel<4><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)map, taps, tap_stride, T, (float*)out, B,
-        S_in, S_out, C);
-  } else {
-    gather_sum_kernel<1><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)map, taps, tap_stride, T, (float*)out, B,
-        S_in, S_out, C);
-  }
+  row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
+    constexpr int G = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    const dim3 grid((S_out + 256 / G - 1) / (256 / G), B);
+    if (T == 1) {
+      gather_one_kernel<G, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const float*)X, (const int*)map, taps.idx[0], (float*)out, B, S_in, S_out, C);
+    } else {
+      gather_sum_kernel<G, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const float*)X, (const int*)map, taps, tap_stride, T, (float*)out, B, S_in,
+          S_out, C);
+    }
+  });
   return (int)cudaGetLastError();
 }
 
@@ -904,16 +932,14 @@ int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
                    int skip_from, void* stream) {
   const int limit = skip_from < 0 || skip_from > S_out ? S_out : skip_from;
   const bool vec = C % 4 == 0 && aligned16(G) && aligned16(out);
-  const int g = row_groups::size_for(C, vec);
-  if (vec) {
-    launch_scatter_sum_groups_of<true>(g, (const float*)G, (const int*)map, taps, tap_stride,
-                             T, (float*)out, B, S_g, S_out, C, limit,
-                             (cudaStream_t)stream);
-  } else {
-    launch_scatter_sum_groups_of<false>(g, (const float*)G, (const int*)map, taps, tap_stride,
-                              T, (float*)out, B, S_g, S_out, C, limit,
-                              (cudaStream_t)stream);
-  }
+  row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
+    constexpr int GS = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    const dim3 grid((S_g + 256 / GS - 1) / (256 / GS), B);
+    scatter_sum_kernel<GS, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B, S_g,
+        S_out, C, limit);
+  });
   return (int)cudaGetLastError();
 }
 

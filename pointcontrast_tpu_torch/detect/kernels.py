@@ -33,9 +33,13 @@ and are bound by device-memory bandwidth; the scatter's atomics collide.
 The gather gives each output row a group of 1 to 32 lanes, by C: one lane
 reads the row's index and a shuffle hands it on, the lanes copy the row
 with float4 (or neighbouring scalar) loads, in 32-bit offsets, one group a
-row with no cap on the grid.  Its wrapper does the least it can on the
-host (the library, the stream and pointers as plain ints, one allocation):
-at the path's small shapes the launch costs more than the copy.
+row with no cap on the grid.  The scatter gives each group a run of 8
+consecutive rows and adds a row's sum once for each stretch of the run
+that names it (ball query repeats a ball's first hit in every slot past
+its hits), with 16-byte atomics where C allows.  Their wrappers do the
+least they can on the host (the library, the stream and pointers as plain
+ints, one allocation): at the path's small shapes the launch costs more
+than the copy.
 K9 works on the FP layers' few hundred points: ``three_nn`` reads under
 0.4 MB and is bound by launch latency; ``three_interpolate`` and its
 backward move [B, N, C] rows and are bound by bandwidth (~12.6 MB at FP2).
@@ -282,21 +286,24 @@ def scatter_add_rows_plain(grad, idx, n: int):
 def scatter_add_rows(grad, idx, n: int):
     """The backward of ``gather_rows``: grad [B, ..., C], idx [B, ...] ->
     [B, n, C] with ``out[b, idx[b, j]] += grad[b, j]``.  Rows collide, and on
-    the card the f32 atomics add them in no fixed order."""
+    the card the f32 atomics add them in no fixed order.  B M C (M indices a
+    sample) and B n C must stay below 2^31, on either device."""
     b_, c = idx.shape[0], grad.shape[-1]
     _check_index("scatter_add_rows", idx, b_)
     if tuple(grad.shape) != (*idx.shape, c):
         raise ValueError(f"scatter_add_rows: grad {tuple(grad.shape)} for "
                          f"index {tuple(idx.shape)}")
+    m = idx.numel() // b_ if b_ else 0
+    check_index_space("scatter_add_rows", grad=b_ * m * c, out=b_ * n * c)
     if _use_plain(grad):
         return scatter_add_rows_plain(grad, idx, n)
-    g = grad.reshape(b_, -1, c)
-    flat = idx.reshape(b_, -1)
-    _require(g, "grad", torch.float32, 3)
-    _require(flat, "idx", torch.int32, 2)
+    _require(grad, "grad", torch.float32, grad.dim())  # read as [B, M, C]
+    _require(idx, "idx", torch.int32, idx.dim())  # read as [B, M]: no reshape
     out = torch.zeros(b_, n, c, dtype=torch.float32, device=grad.device)
-    rc = _lib().pc_scatter_add_rows(_ptr(g), _ptr(flat), _ptr(out), b_, n,
-                                    flat.shape[1], c, _stream())
+    if grad.numel() == 0:
+        return out
+    rc = _lib().pc_scatter_add_rows(grad.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                    b_, n, m, c, _stream(grad))
     _check(rc, "scatter_add_rows")
     scatter_add_rows.launches += 1
     return out

@@ -56,7 +56,9 @@ scatter_parent is bound by atomics on HBM; its valid rows never collide.
 scatter_gemm adds every product with an f32 atomic; segment_sum reads each
 row once (bound by HBM bytes) and adds one atomic per block, segment and
 channel.  gather_sum does no multiply: it reads each gathered row once and
-writes each output row once (bound by HBM bytes), float4 along C; its
+writes each output row once (bound by HBM bytes), float4 along C, a group
+of lanes a row that reads the row's indices once and adds the kept rows
+in tap order (a row copy at one tap); its
 adjoint scatter_sum reads each kept cotangent row once and adds it with
 16-byte f32 atomics (HBM bytes too): a group of lanes a row reads the
 row's destinations first and reads nothing for a row whose destinations
@@ -433,9 +435,12 @@ def gather_sum(x3, map_, taps, tap_stride, s_out):
 
     x3 [B, S_in, C]; map [K, B, s_out] read at ``taps`` (or, with no map,
     len(taps) stacked blocks of ``tap_stride`` rows); returns [B, s_out, C].
-    One tap is a row gather."""
+    One tap is a row gather.  B S_in C, B s_out C and the map's size must
+    stay below 2^31, on either device."""
     b_, s_in, c = x3.shape
     _check_rows("gather_sum", map_, taps, tap_stride, len(taps), b_, s_out, s_in)
+    check_index_space("gather_sum", x3=b_ * s_in * c, out=b_ * s_out * c,
+                      map=0 if map_ is None else map_.numel())
     if _use_plain(x3):
         return gather_sum_plain(x3, map_, taps, tap_stride, s_out)
     _require(x3, "x3", torch.float32, 3)
@@ -446,8 +451,8 @@ def gather_sum(x3, map_, taps, tap_stride, s_out):
     if out.numel() == 0:
         return out
     rc = _lib().pc_gather_sum(
-        _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
-        _ptr(out), b_, s_in, s_out, c, _stream())
+        x3.data_ptr(), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
+        out.data_ptr(), b_, s_in, s_out, c, _stream(x3))
     _check(rc, "gather_sum")
     gather_sum.launches += 1
     return out
