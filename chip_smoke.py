@@ -115,8 +115,9 @@ kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  The
 times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``);
-for the row kernels of ``DEVICE_TIMED`` (gather_rows, scatter_add_rows,
-gather_sum, scatter_sum, three_interpolate_grad, scatter_parent), the
+for the kernels of ``DEVICE_TIMED`` (gather_rows, scatter_add_rows,
+gather_sum, scatter_sum, three_interpolate_grad, scatter_parent,
+three_interpolate, segment_sum), the
 kernel's and the library call's device-only times too (``device_ms``,
 ``library_device_ms``: the same 10 calls replayed as one CUDA graph, the
 median of 5 replays, so the host's cost of a call is left out;
@@ -200,7 +201,11 @@ F32_FLOP_PER_S = 67e12
 # device-only times of the kernel and of that call (``_device_ms``)
 OPTIONAL_MS = ("library_ms", "device_ms", "library_device_ms")
 DEVICE_TIMED = ("gather_rows", "scatter_add_rows", "gather_sum", "scatter_sum",
-                "three_interpolate_grad", "scatter_parent")
+                "three_interpolate_grad", "scatter_parent", "three_interpolate",
+                "segment_sum")
+# kernels held to their twins bit for bit in every phase: scatter_parent
+# stores each kept row once (the pad slot left out, as its twin does)
+ALWAYS_EXACT = ("scatter_parent",)
 # radii tried, largest first, for the heavy-tail scatter-add check: the
 # first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
 # query's repeats of the first hit fill most of the group's rows
@@ -376,8 +381,10 @@ def work(name, args, out) -> tuple:
         pairs = int(torch.gather(_live_rows(x3), 1, parent.long()).sum())
         return _nbytes(x3, parent, off, w, *outs), 2 * w.shape[1] * w.shape[2] * pairs
     if name == "scatter_parent":
-        ct3, parent, off, _, _ = args
-        return _nbytes(ct3, parent, off, *outs), int(_live_rows(ct3).sum()) * ct3.shape[2]
+        # only the cotangent rows whose parent is not the coarse pad row
+        ct3, parent, off, _, s_c = args
+        kept = int((parent < s_c - 1).sum())
+        return 4 * ct3.shape[2] * kept + _nbytes(parent, off, *outs), kept * ct3.shape[2]
     if name == "furthest_point_sample":
         xyz, npoint = args
         # per step and point: 3 subtractions, a multiply and two FMAs, a min
@@ -498,17 +505,24 @@ def library_call(name, args):
         table, idx = args
         flat = idx.reshape(idx.shape[0], -1, 1).long().expand(-1, -1, table.shape[2])
         return lambda: torch.gather(table, 1, flat)
-    if name in ("scatter_add_rows", "scatter_parent"):
-        if name == "scatter_add_rows":
-            grad, idx, n = args
-            rows = idx.reshape(idx.shape[0], -1).long()
-        else:
-            grad, parent, off, k, s_c = args
-            rows, n = off.long() * s_c + parent.long(), k * s_c
+    if name == "scatter_add_rows":
+        grad, idx, n = args
+        rows = idx.reshape(idx.shape[0], -1).long()
         g = grad.reshape(rows.shape[0], rows.shape[1], -1)
         flat = rows.unsqueeze(-1).expand(-1, -1, g.shape[2])
         buf = g.new_zeros(g.shape[0], n, g.shape[2])
         return lambda: buf.zero_().scatter_add_(1, flat, g)
+    if name == "scatter_parent":
+        # only the rows the function adds (the pad slot left out), as for
+        # scatter_sum: the others would make the call pay for contention
+        grad, parent, off, k, s_c = args
+        kept = parent < s_c - 1
+        rows = (off.long() * s_c + parent.long() + k * s_c
+                * torch.arange(parent.shape[0], device=parent.device)[:, None])[kept]
+        src = grad[kept]
+        flat = rows.unsqueeze(-1).expand(-1, src.shape[1])
+        buf = grad.new_zeros(parent.shape[0] * k * s_c, grad.shape[2])
+        return lambda: buf.zero_().scatter_add_(0, flat, src)
     if name == "segment_sum":
         x, seg, n_seg = args
         rows = seg.long()
@@ -606,7 +620,8 @@ def phase_kernels(checks, module, exact=()):
         plain_ms = _time_ms(plain, args)
         ms = _time_ms(fn, args)
         err, ref = _max_err(got, want)
-        if name in exact:
+        bitwise = name in exact or name in ALWAYS_EXACT
+        if bitwise:
             ok = _equal(got, want)
         else:
             ok = all(bool(torch.isfinite(g).all()) for g in
@@ -629,7 +644,7 @@ def phase_kernels(checks, module, exact=()):
         shape = tuple(tuple(g.shape) for g in got) if isinstance(got, tuple) else tuple(got.shape)
         say("kernel", name=name, check=repr(label), shape=shape,
             max_abs_err=f"{err:.3e}", max_abs_ref=f"{ref:.3e}",
-            rel=f"{err / max(ref, 1e-30):.2e}", exact=name in exact,
+            rel=f"{err / max(ref, 1e-30):.2e}", exact=bitwise,
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
             device_ms="null" if dev_ms is None else f"{dev_ms:.4f}",

@@ -10,7 +10,9 @@
 //                             f32 atomics (16 bytes a float4)
 //   K9 three_nn_kernel        the 3 nearest known points of each unknown one
 //      three_interpolate_kernel       out[b, n, :] = sum_j w_j f[b, idx_j, :]
-//      three_interpolate_grad_kernel  its backward to f, f32 atomics
+//      three_interpolate_grad_kernel  its backward to f: a warp sums each
+//                             known row in registers, in entry order, and
+//                             stores it once
 //
 // Layout: clouds are [B, N, 3] row-major f32, feature tables [B, N, C]
 // row-major f32, indices int32.  No kernel tests bounds: the indices come
@@ -457,39 +459,174 @@ three_interpolate_kernel(const float* __restrict__ feats,
   }
 }
 
-// K9 backward: dfeats[b, idx[b, n, j], c] += grad[b, n, c] * w[b, n, j].
-// One thread per (n, VEC channels); the product is rounded before the f32
-// atomic, as the twin's scatter-add of rounded products.  Rows collide
-// (unknown points share known neighbours), so the sums' order is not fixed.
-template <int VEC>
+// K9 backward: dfeats[b, m, c] = the sum of grad[b, n, c] * w[b, n, j]
+// over every entry e = 3 n + j of sample b with idx[b, n, j] = m, the
+// transpose of the interpolation (JAX's autodiff of the inline gather at
+// detect/modules.py:113-120).  The unknown points outnumber the known ones
+// (FP1 512 over 256, FP2 1024 over 512), so each known row takes ~6
+// products; as f32 atomics on device memory (the first design, 12 a
+// float4) they ran one after another in L2, and shared-memory f32 atomics
+// are no cure on sm_90 (a compare-and-swap loop).  So each output row is
+// summed by one warp in registers, in entry order, and written once:
+//  - a block owns INTERP_ROWS consecutive known rows of sample b, a warp
+//    each.  Phase 1: warp w reads the entries [w L, (w + 1) L) of the
+//    sample's index (coalesced, INTERP_SCAN loads of 32 in flight) and
+//    keeps those that name one of the block's rows, packed as
+//    (e << 3) | row, in shared memory in entry order (a ballot and a prefix
+//    count: no atomic);
+//  - phase 2, after one __syncthreads: the warp of row m reads the kept
+//    entries of all warps in order, 32 at a time, and queues its own (a
+//    ballot) in shared memory; a full queue (or the end) is flushed: the
+//    grad rows n = e / 3 of INTERP_BATCH entries are loaded at once (one
+//    round trip for the ~6 entries of a row on the path) and the rounded
+//    products (__fmul_rn, as the twin's scatter-add of rounded products)
+//    with the entries' weights are added in entry order into up to
+//    INTERP_ACC float4s (C % 4 == 0 and both tables 16-byte aligned; else
+//    floats) a lane, lanes on neighbouring channels; then it stores the
+//    row.  A known row that no entry names comes out as exact zeros,
+//    so the wrapper allocates with torch.empty; the sums run in entry
+//    order from +0, the order of the twin's scatter-add on the CPU (a
+//    batch's missing entries add +0 products, which change no sum);
+//  - every block reads the sample's 3 N indices (12 KB at FP2, from L2);
+//    grad rows are read once per entry that names them, from L2 (8 MB at
+//    FP2); shared memory holds 3 N packed entries (the wrapper refuses an
+//    N past a block's 227 KB: three_interp_entries);
+//  - no division by a variable, 32-bit offsets (the wrapper refuses B N C
+//    or B M C of 2^31 or more): the grid's y is the sample.
+// grid (ceil(M / INTERP_ROWS), B), ROW_THREADS threads, INTERP_ROWS L ints
+// of dynamic shared memory.
+constexpr int INTERP_ROWS = ROW_THREADS / 32;  // known rows a block, a warp each
+constexpr int INTERP_ACC = 2;    // units a lane sums in one walk: C 256 in one
+constexpr int INTERP_SCAN = 8;   // index loads a lane has in flight in phase 1
+constexpr int INTERP_BATCH = 8;  // entries whose grad rows a warp loads together
+
+// acc[a] += x * w for the INTERP_ACC units of a lane
+template <bool VEC>
+__device__ __forceinline__ void add_products(float4 (&acc)[INTERP_ACC],
+                                             const float4 (&x)[INTERP_ACC], float w) {
+#pragma unroll
+  for (int a = 0; a < INTERP_ACC; ++a) {
+    acc[a].x += __fmul_rn(x[a].x, w);
+    if constexpr (VEC) {
+      acc[a].y += __fmul_rn(x[a].y, w);
+      acc[a].z += __fmul_rn(x[a].z, w);
+      acc[a].w += __fmul_rn(x[a].w, w);
+    }
+  }
+}
+
+// acc += the products of a warp's `pending` queued entries e (in order):
+// grad row e / 3 at the lane's units u0, u0 + 32, ... times weight e, the
+// grad rows of INTERP_BATCH entries loaded at once
+template <bool VEC>
+__device__ __forceinline__ void flush_queue(float4 (&acc)[INTERP_ACC],
+                                            const int* queue, int pending,
+                                            const float* __restrict__ gb,
+                                            const float* __restrict__ wb,
+                                            int C, int units, int u0) {
+  __syncwarp();  // the queue's writes, before any lane reads them
+  for (int j0 = 0; j0 < pending; j0 += INTERP_BATCH) {
+    float w[INTERP_BATCH];
+    float4 x[INTERP_BATCH][INTERP_ACC];
+#pragma unroll
+    for (int q = 0; q < INTERP_BATCH; ++q) {
+      const bool have = j0 + q < pending;
+      const int e = have ? queue[j0 + q] : 0;
+      w[q] = have ? __ldg(wb + e) : 0.f;  // past the entries: + (+0)
+      const float* g = gb + (e / 3) * C;
+#pragma unroll
+      for (int a = 0; a < INTERP_ACC; ++a) {
+        const int u = u0 + 32 * a;
+        x[q][a] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!have || u >= units) continue;
+        if constexpr (VEC) {
+          x[q][a] = __ldg(reinterpret_cast<const float4*>(g) + u);
+        } else {
+          x[q][a].x = __ldg(g + u);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < INTERP_BATCH; ++q) add_products<VEC>(acc, x[q], w[q]);
+  }
+  __syncwarp();  // every read, before the queue is written again
+}
+
+template <bool VEC>
 __global__ void __launch_bounds__(ROW_THREADS)
 three_interpolate_grad_kernel(const float* __restrict__ grad,
                               const int* __restrict__ idx,
                               const float* __restrict__ weight,
                               float* __restrict__ dfeats, int M, int N, int C,
-                              int64_t total) {
-  const int CV = C / VEC;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = e / CV;
-    const int c = (int)(e - row * CV) * VEC;
-    const int64_t b = row / N;
-    float g[VEC];
-    if constexpr (VEC == 4) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(grad + row * C + c));
-      g[0] = v.x;
-      g[1] = v.y;
-      g[2] = v.z;
-      g[3] = v.w;
-    } else {
-      g[0] = __ldg(grad + row * C + c);
+                              int L) {
+  extern __shared__ int kept[];  // [INTERP_ROWS][L]: warp w's (e << 3) | row
+  __shared__ int counts[INTERP_ROWS];
+  __shared__ int queues[INTERP_ROWS][2 * 32];  // a warp's entries to load
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * INTERP_ROWS;
+  const int E = 3 * N;
+  const int* ib = idx + b * E;
+  int* mine = kept + warp * L;
+  int cnt = 0;
+  const int end = min(E, (warp + 1) * L);
+  for (int e0 = warp * L; e0 < end; e0 += 32 * INTERP_SCAN) {  // warp-uniform
+    unsigned r[INTERP_SCAN];
+#pragma unroll
+    for (int q = 0; q < INTERP_SCAN; ++q) {
+      const int e = e0 + 32 * q + lane;
+      r[q] = e < end ? (unsigned)(__ldg(ib + e) - m0) : INTERP_ROWS;
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float w = __ldg(weight + row * 3 + j);
-      float* d = dfeats + (b * M + __ldg(idx + row * 3 + j)) * C + c;
+    for (int q = 0; q < INTERP_SCAN; ++q) {
+      const bool hit = r[q] < INTERP_ROWS;
+      const unsigned bal = __ballot_sync(0xffffffffu, hit);
+      if (hit) mine[cnt + __popc(bal & below)] = ((e0 + 32 * q + lane) << 3) | (int)r[q];
+      cnt += __popc(bal);
+    }
+  }
+  if (lane == 0) counts[warp] = cnt;
+  __syncthreads();
+  const int m = m0 + warp;
+  if (m >= M) return;  // no barrier below
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  const float* gb = grad + b * N * C;
+  const float* wb = weight + b * E;
+  float* o = dfeats + (b * M + m) * C;
+  int* queue = queues[warp];
+  for (int c0 = 0; c0 < units; c0 += 32 * INTERP_ACC) {  // warp-uniform
+    float4 acc[INTERP_ACC];
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) atomicAdd(d + v, __fmul_rn(g[v], w));
+    for (int a = 0; a < INTERP_ACC; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int pending = 0;
+    for (int v = 0; v < INTERP_ROWS; ++v) {  // the lists in entry order
+      const int* list = kept + v * L;
+      const int n_kept = counts[v];
+      for (int k0 = 0; k0 < n_kept; k0 += 32) {
+        const bool in = k0 + lane < n_kept;
+        const int h = in ? list[k0 + lane] : 0;
+        const bool own = in && (h & (INTERP_ROWS - 1)) == warp;
+        const unsigned bal = __ballot_sync(0xffffffffu, own);
+        if (own) queue[pending + __popc(bal & below)] = h >> 3;
+        pending += __popc(bal);
+        if (pending >= 32) {  // at most 63 queued
+          flush_queue<VEC>(acc, queue, pending, gb, wb, C, units, c0 + lane);
+          pending = 0;
+        }
+      }
+    }
+    flush_queue<VEC>(acc, queue, pending, gb, wb, C, units, c0 + lane);
+#pragma unroll
+    for (int a = 0; a < INTERP_ACC; ++a) {
+      const int u = c0 + 32 * a + lane;
+      if (u >= units) break;
+      if constexpr (VEC) {
+        reinterpret_cast<float4*>(o)[u] = acc[a];
+      } else {
+        o[u] = acc[a].x;
+      }
     }
   }
 }
@@ -592,22 +729,22 @@ int pc_three_interpolate(const void* feats, const void* idx, const void* weight,
 
 int pc_three_interpolate_grad(const void* grad, const void* idx,
                               const void* weight, void* dfeats, int B, int M,
-                              int N, int C, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (vec4_ok(C, grad, dfeats)) {
-    const int64_t total = (int64_t)B * N * (C / 4);
-    three_interpolate_grad_kernel<4>
-        <<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
-            (const float*)grad, (const int*)idx, (const float*)weight,
-            (float*)dfeats, M, N, C, total);
-  } else {
-    const int64_t total = (int64_t)B * N * C;
-    three_interpolate_grad_kernel<1>
-        <<<grid_for(total, ROW_THREADS), ROW_THREADS, 0, s>>>(
-            (const float*)grad, (const int*)idx, (const float*)weight,
-            (float*)dfeats, M, N, C, total);
-  }
-  return (int)cudaGetLastError();
+                              int N, int C, int L, void* stream) {
+  const size_t smem = (size_t)INTERP_ROWS * L * sizeof(int);
+  const dim3 grid((M + INTERP_ROWS - 1) / INTERP_ROWS, B);
+  auto launch = [&](auto kernel) {
+    if (smem > 48 * 1024) {  // dynamic shared memory past the default cap
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, ROW_THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)grad, (const int*)idx, (const float*)weight,
+        (float*)dfeats, M, N, C, L);
+    return (int)cudaGetLastError();
+  };
+  return vec4_ok(C, grad, dfeats) ? launch(three_interpolate_grad_kernel<true>)
+                                  : launch(three_interpolate_grad_kernel<false>);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 // Lane groups for the row kernels (gather_rows and scatter_add_rows in
-// detect_ops.cu, gather_sum and scatter_sum in sparse_conv.cu): a group of
-// G lanes (G a power of two up to 32, so a group never straddles a warp)
-// owns one table row at a time, or, in scatter_add_rows, a run of
-// consecutive rows whose repeats of one index it merges in registers
-// before its atomics.  The lanes share the rows' indices through the
+// detect_ops.cu; gather_sum, scatter_sum and scatter_parent in
+// sparse_conv.cu): a group of G lanes (G a power of two up to 32, so a
+// group never straddles a warp) owns one table row at a time, or, in
+// scatter_add_rows, a run of consecutive rows whose repeats of one index it
+// merges in registers before its atomics.  The lanes share the rows' indices through the
 // warp's shuffles instead of each loading them, and copy or add the rows'
 // channels side by side.
 #pragma once

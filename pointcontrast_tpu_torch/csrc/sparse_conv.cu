@@ -31,8 +31,11 @@
 // source's pad rows, because each map sends its missing sources to one pad
 // row: on a brick table (slot 0 of the pad brick) 17k adds of a batch
 // landed on one row and ran one after another.  A new map kind must check
-// where its pad sources point.  Each C entry returns cudaGetLastError() of
-// its launch.
+// where its pad sources point.  scatter_parent, K3's backward scatter, is
+// a row store in the same lane groups: it leaves out the coarse pad slot,
+// the one destination many fine rows name, and stores every other row
+// once, with no atomic.  Each C entry returns cudaGetLastError() of its
+// launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -297,20 +300,53 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
   }
 }
 
-// (d) dy[b, off[b,i] * S_c + parent[b,i], :] += ct[b, i, :]
-__global__ void scatter_parent_kernel(const float* __restrict__ ct,
-                                      const int* __restrict__ parent,
-                                      const int* __restrict__ off,
-                                      float* __restrict__ dy, int B, int S_f,
-                                      int S_c, int C) {
-  const int64_t total = (int64_t)B * S_f * C;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = e / C;  // b * S_f + fine row
-    const int c = (int)(e % C);
-    const int64_t b = i / S_f;
-    const int64_t row = (int64_t)__ldg(off + i) * S_c + __ldg(parent + i);
-    atomicAdd(dy + (b * KO * S_c + row) * C + c, __ldg(ct + e));
+// (d) dy[b, off[b,i] * S_c + parent[b,i], :] = ct[b, i, :] for every fine
+// row i whose parent is not the coarse pad row S_c - 1 (dy zero-filled by
+// the wrapper): the scatter in K3's backward (JAX _conv_tr_chunk_bwd).  The
+// (offset, parent) pairs of a chunk's valid fine voxels are distinct
+// (pointcontrast_tpu/sparse/topology.py:320-324); only the pad slot (0,
+// S_c - 1) is named many times, by every pad fine row and every fine voxel
+// that truncation orphaned.  Its sum reaches nothing valid (dF's row c
+// reads only dy[k S_c + c], so only dF's pad row, and dW multiplies it by
+// the zero pad features), so the kernel leaves those rows out, as
+// scatter_sum leaves out the source's pad rows; every other destination is
+// named once, so the rows are stored, with no atomic, and the result
+// equals the twin's bit for bit.  A group of G lanes (row_groups) owns one
+// fine row: lane 0 loads its parent and offset and a shuffle hands them on,
+// and the lanes copy neighbouring float4s (C % 4 == 0, both tables 16-byte
+// aligned) or floats.  HBM bytes bound it: the zero fill of dy, one read
+// and one write of each kept row.  No division, 32-bit offsets (the
+// wrapper refuses B S_f C or B 8 S_c C of 2^31 or more).
+// grid (ceil(S_f / (256 / G)), B), one fine row a group: no cap.
+template <int G, bool VEC>
+__global__ void __launch_bounds__(256)
+scatter_parent_kernel(const float* __restrict__ ct,
+                      const int* __restrict__ parent,
+                      const int* __restrict__ off, float* __restrict__ dy,
+                      int S_f, int S_c, int C) {
+  const int i = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (i >= S_f) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  const int row = b * S_f + i;
+  int p = 0, o = 0;
+  if (lane == 0) {
+    p = __ldg(parent + row);
+    o = __ldg(off + row);
+  }
+  p = row_groups::shfl<G>(p, 0);
+  o = row_groups::shfl<G>(o, 0);
+  if (p == S_c - 1) return;  // the pad slot: left out
+  const float* src = ct + row * C;
+  float* dst = dy + ((b * KO + o) * S_c + p) * C;
+  if constexpr (VEC) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+    for (int u = lane; u < C / 4; u += G) d4[u] = __ldg(s4 + u);
+  } else {
+#pragma unroll 4
+    for (int c = lane; c < C; c += G) dst[c] = __ldg(src + c);
   }
 }
 
@@ -878,14 +914,15 @@ int pc_parent_gemm(const void* X, const void* parent, const void* off,
 
 int pc_scatter_parent(const void* ct, const void* parent, const void* off,
                       void* dy, int B, int S_f, int S_c, int C, void* stream) {
-  const int64_t total = (int64_t)B * S_f * C;
-  const int threads = 256;
-  int blocks = (int)((total + threads - 1) / threads);
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (blocks < 1) blocks = 1;
-  scatter_parent_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, B,
-      S_f, S_c, C);
+  const bool vec = C % 4 == 0 && aligned16(ct) && aligned16(dy);
+  row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
+    constexpr int G = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    const dim3 grid((S_f + 256 / G - 1) / (256 / G), B);
+    scatter_parent_kernel<G, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, S_f,
+        S_c, C);
+  });
   return (int)cudaGetLastError();
 }
 

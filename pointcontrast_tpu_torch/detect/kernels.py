@@ -43,6 +43,11 @@ than the copy.
 K9 works on the FP layers' few hundred points: ``three_nn`` reads under
 0.4 MB and is bound by launch latency; ``three_interpolate`` and its
 backward move [B, N, C] rows and are bound by bandwidth (~12.6 MB at FP2).
+The backward adds ~6 products into each known row (more unknown points
+than known ones): a block picks out the index entries that name its 8
+known rows, in order, and a warp sums each row's products in registers
+and writes it once, where device-memory atomics on the same rows ran one
+after another.
 
 Every distance (K6, K7, K9) and K9's weighted sum is spelt out in one
 order in the kernels and in the twins, so that the two agree bit for bit
@@ -83,7 +88,7 @@ def _lib():
         "pc_scatter_add_rows": [vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_three_nn": [vp, vp, vp, vp, ci, ci, ci, vp],
         "pc_three_interpolate": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
-        "pc_three_interpolate_grad": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_three_interpolate_grad": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
     })
 
 
@@ -385,21 +390,51 @@ def three_interpolate_grad_plain(grad, idx, weight, m: int):
     return scatter_add_rows_plain(grad[:, :, None, :] * weight[..., None], idx, m)
 
 
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may hold (sm_90)
+INTERP_ROWS = 8  # known rows a block of three_interpolate_grad sums, a warp each
+# unknown points a sample at most: the block keeps up to 3 N packed entries
+# in shared memory, INTERP_ROWS lists of a 32-multiple each, beside a count
+# and a 64-entry queue a warp
+INTERP_MAX_N = ((SMEM_PER_BLOCK // 4 - 65 * INTERP_ROWS) // INTERP_ROWS // 32 * 32
+                * INTERP_ROWS // 3)
+
+
+def three_interp_entries(n: int) -> int:
+    """The entries of a sample's [N, 3] index that each warp of a
+    ``three_interpolate_grad`` block scans (a multiple of 32): the block's
+    shared list holds ``INTERP_ROWS`` times as many.  Raises past
+    ``INTERP_MAX_N`` unknown points."""
+    if n > INTERP_MAX_N:
+        raise ValueError(
+            f"three_interpolate_grad: {n} unknown points a sample, over the "
+            f"{INTERP_MAX_N} whose entries a block's {SMEM_PER_BLOCK} bytes "
+            "of shared memory hold")
+    return -(-3 * n // (32 * INTERP_ROWS)) * 32
+
+
 def three_interpolate_grad(grad, idx, weight, m: int):
     """The backward of ``three_interpolate`` with respect to the features:
     grad [B, N, C] -> [B, m, C] with ``out[b, idx[b, n, j]] += grad[b, n] *
-    weight[b, n, j]``.  Unknown points share known neighbours, so rows
-    collide, and on the card the f32 atomics add them in no fixed order."""
+    weight[b, n, j]``.  Unknown points share known neighbours; on the card
+    a warp sums each known row's products in registers in (n, j) order, as
+    the twin's scatter-add does on the CPU, and writes the row once.  B N C
+    and B m C must stay below 2^31, and N at most ``INTERP_MAX_N``, on
+    either device."""
     b_, n, c = grad.shape
     _check_interp("three_interpolate_grad", idx, weight, b_, n)
+    check_index_space("three_interpolate_grad", grad=b_ * n * c, out=b_ * m * c)
+    entries = three_interp_entries(n)
     if _use_plain(grad):
         return three_interpolate_grad_plain(grad, idx, weight, m)
     _require(grad, "grad", torch.float32, 3)
     _require(idx, "idx", torch.int32, 3)
     _require(weight, "weight", torch.float32, 3)
-    out = torch.zeros(b_, m, c, dtype=torch.float32, device=grad.device)
-    rc = _lib().pc_three_interpolate_grad(_ptr(grad), _ptr(idx), _ptr(weight),
-                                          _ptr(out), b_, m, n, c, _stream())
+    out = torch.empty(b_, m, c, dtype=torch.float32, device=grad.device)
+    if out.numel() == 0:
+        return out
+    rc = _lib().pc_three_interpolate_grad(
+        grad.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), b_, m,
+        n, c, entries, _stream(grad))
     _check(rc, "three_interpolate_grad")
     three_interpolate_grad.launches += 1
     return out

@@ -22,7 +22,8 @@ custom-VJP XLA programs, except the Pallas probes):
                  ``_conv_chunk_down_fused`` fwd
   gather_wgrad   K1/K2/K3/K4 dW
   parent_gemm    K3 fwd, K2 dF (with W_k^T)
-  scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table
+  scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table,
+                 the coarse pad slot left out (a row store)
   scatter_gemm   the flat-map conv ``_conv_core``'s dF (its autodiff: a
                  scatter of ct W_k^T at the map's rows; its forward is
                  gather_gemm and its dW gather_wgrad, at B = 1), and K4's dF
@@ -52,7 +53,9 @@ per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
 peak without tensor cores), not by the 3.35 TB/s of HBM; the design stages
 rows and weights in shared memory and keeps a 4x4 register tile per thread.
-scatter_parent is bound by atomics on HBM; its valid rows never collide.
+scatter_parent stores rows (HBM bytes bound it): its valid rows never
+collide, and the coarse pad slot, which pad and orphaned fine rows all
+name, is left out, so no atomic remains.
 scatter_gemm adds every product with an f32 atomic; segment_sum reads each
 row once (bound by HBM bytes) and adds one atomic per block, segment and
 channel.  gather_sum does no multiply: it reads each gathered row once and
@@ -313,18 +316,24 @@ def parent_gemm(x3, parent, off, w):
 def scatter_parent_plain(ct3, parent, off, k, s_c):
     b_, _, c = ct3.shape
     idx = off.long() * s_c + parent.long()
+    kept = torch.where((parent < s_c - 1)[..., None], ct3, 0.0)
     dy = ct3.new_zeros(b_, k * s_c, c)
-    return dy.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), ct3)
+    return dy.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), kept)
 
 
 def scatter_parent(ct3, parent, off, k, s_c):
-    """dy[b, off[b,i] * s_c + parent[b,i]] += ct3[b, i] -> [B, k * s_c, C].
-
-    Valid rows hit distinct slots; pad rows all alias (0, pad) and carry a
-    zero cotangent, so the f32 atomics give the same sums in any order."""
+    """dy[b, off[b,i] * s_c + parent[b,i]] = ct3[b, i] for every fine row i
+    whose parent is not the coarse pad row ``s_c - 1`` -> [B, k * s_c, C],
+    zeros elsewhere: K3's backward scatter with the pad slot left out.
+    Pad fine rows and the fine voxels truncation orphaned all name that
+    slot; its sum reached only dF's pad row (dW multiplies it by the zero
+    pad features), and every other destination is named once, so the card
+    stores rows and equals the twin bit for bit.  B S_f C and B k s_c C
+    must stay below 2^31, on either device."""
     b_, s_f, c = ct3.shape
     _check_shape("parent", parent, (b_, s_f))
     _check_shape("off", off, (b_, s_f))
+    check_index_space("scatter_parent", ct3=b_ * s_f * c, out=b_ * k * s_c * c)
     if _use_plain(ct3):
         return scatter_parent_plain(ct3, parent, off, k, s_c)
     _require(ct3, "ct3", torch.float32, 3)
@@ -333,9 +342,10 @@ def scatter_parent(ct3, parent, off, k, s_c):
     if k != 8:
         raise ValueError(f"scatter_parent takes 8 offsets (k2s2), got {k}")
     dy = torch.zeros(b_, k * s_c, c, device=ct3.device, dtype=torch.float32)
-    rc = _lib().pc_scatter_parent(
-        _ptr(ct3), _ptr(parent), _ptr(off), _ptr(dy), b_, s_f, s_c, c,
-        _stream())
+    if ct3.numel() == 0:
+        return dy
+    rc = _lib().pc_scatter_parent(ct3.data_ptr(), parent.data_ptr(), off.data_ptr(),
+                                  dy.data_ptr(), b_, s_f, s_c, c, _stream(ct3))
     _check(rc, "scatter_parent")
     scatter_parent.launches += 1
     return dy

@@ -154,8 +154,10 @@ class _ConvTrChunk(torch.autograd.Function):
     """K3: out[b,i] = F[b, up_parent[b,i]] W_{up_offset[b,i]}.
 
     Backward: dy = scatter of ct into the stacked [8*S_c, Cout] table (valid
-    (offset, parent) pairs are unique; pad rows alias (0, pad) with zero
-    cotangent), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k."""
+    (offset, parent) pairs are unique; pad rows and the fine voxels
+    truncation orphaned all name the coarse pad slot, which the scatter
+    leaves out: JAX's dy holds their sum there, which reaches only dF's pad
+    row), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k."""
 
     @staticmethod
     def forward(ctx, features, up_parent, up_offset, weights):
