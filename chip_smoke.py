@@ -114,14 +114,15 @@ Every path prints its peak device memory on its ``slice`` line.  Every
 kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  The
-times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``);
-for the kernels of ``DEVICE_TIMED`` (gather_rows, scatter_add_rows,
-gather_sum, scatter_sum, three_interpolate_grad, scatter_parent,
-three_interpolate, segment_sum), the
-kernel's and the library call's device-only times too (``device_ms``,
+times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``),
+and the kernel's and the library call's device-only times (``device_ms``,
 ``library_device_ms``: the same 10 calls replayed as one CUDA graph, the
 median of 5 replays, so the host's cost of a call is left out;
-``ms - device_ms`` is that cost).  Then
+``ms - device_ms`` is that cost).  The gather GEMMs' checks pass the pad
+row as ``skip`` and the pyramid's live orders, as the sparse ops do, and
+their lines give the live and the computed share of the (row, tap) pairs;
+gather_wgrad's lines whether two launches on one input are bit-equal;
+``[ptxas]`` lines give both kernels' registers, stack and spills.  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -148,7 +149,7 @@ STEPS = 5
 RESNET_STEPS = 3
 LAYOUT_STEPS = 3  # counted steps of the semseg and VoteNet layout paths
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
-# (the sums run in different orders; gather_wgrad adds row slices with
+# (the sums run in different orders; scatter_gemm and brick_wgrad add with
 # unordered f32 atomics)
 RTOL, ATOL = 1e-4, 1e-5
 # one step's loss, kernels vs plain twins (55 convs + train-mode BN deep);
@@ -197,12 +198,8 @@ HYPER_UNPOOLS = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # times a check has only where one PyTorch call computes the same function:
-# that call's events time and, for the kernels of DEVICE_TIMED, the
-# device-only times of the kernel and of that call (``_device_ms``)
-OPTIONAL_MS = ("library_ms", "device_ms", "library_device_ms")
-DEVICE_TIMED = ("gather_rows", "scatter_add_rows", "gather_sum", "scatter_sum",
-                "three_interpolate_grad", "scatter_parent", "three_interpolate",
-                "segment_sum")
+# that call's events time and device-only time (``_device_ms``)
+OPTIONAL_MS = ("library_ms", "library_device_ms")
 # kernels held to their twins bit for bit in every phase: scatter_parent
 # stores each kept row once (the pad slot left out, as its twin does)
 ALWAYS_EXACT = ("scatter_parent",)
@@ -248,12 +245,44 @@ def phase_build():
         for line in r["ptxas"].splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
+    for entry, regs, stack, spills in ptxas_entries(info["sparse_conv"]["ptxas"]):
+        if entry.startswith(("gather_gemm_kernel", "gather_wgrad_kernel")):
+            say("ptxas", kernel=entry, registers=regs, stack_bytes=stack,
+                spill_bytes=spills)
     t0 = time.perf_counter()
     if native.get_lib() is None:
         raise RuntimeError("native kernel-map library failed to build")
     say("build", nvcc_wall_s=f"{wall:.1f}",
         nvcc_s={n: round(r["seconds"], 1) for n, r in info.items()},
         gxx_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def ptxas_entries(text):
+    """[(entry, registers, stack bytes, spill store + load bytes)] from
+    ``nvcc -Xptxas -v`` output; a template instance's entry reads like
+    ``gather_gemm_kernel<2>`` (Itanium-mangled int arguments)."""
+    import re
+
+    out, entry, stack, spills = [], None, 0, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            entry = m.group(1) if name is None else name.group(1) + (
+                "<" + ",".join(re.findall(r"Li(\d+)E", name.group(2) or "")) + ">"
+                if name.group(2) else "")
+            stack = spills = 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack, spills = int(m.group(1)), int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1)), stack, spills))
+            entry = None
+    return out
 
 
 def make_batches(device, **kw):
@@ -356,7 +385,7 @@ def work(name, args, out) -> tuple:
 
     outs = out if isinstance(out, tuple) else (out,)
     if name == "gather_gemm":
-        x3, map_, taps, stride, w, wc, s_out = args
+        x3, map_, taps, stride, w, wc, s_out = args[:7]
         b_, _, cin = x3.shape
         live = _live_rows(x3)
         pairs = sum(int(torch.gather(live, 1, row_index(map_, taps, stride, j, b_, s_out,
@@ -366,7 +395,7 @@ def work(name, args, out) -> tuple:
         return (_nbytes(x3, w, wc, *outs) + _map_bytes(map_, w.shape[0], b_, s_out),
                 2 * cin * w.shape[2] * pairs)
     if name == "gather_wgrad":
-        a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows = args
+        a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows = args[:10]
         b_ = a3.shape[0]
         la, lg = _live_rows(a3), _live_rows(g3)
         pairs = 0
@@ -488,6 +517,55 @@ def _scatter_kept(rows, s_in, skip_from):
     return rows % s_in < skip_from
 
 
+def gather_shares(name, args) -> dict:
+    """For gather_gemm and gather_wgrad: ``live``, the share of all (row,
+    tap) pairs whose source rows are non-zero (what ``work`` counts), and
+    ``computed``, the share of the pairs the kernel computes: gather_gemm
+    every row of a 16-row fragment (in its 128-row tile of the row order it
+    is given, the pyramid's live order) with a row that is not ``skip`` at
+    that tap, and ``unordered`` the same in the rows' own order;
+    gather_wgrad the pairs whose rows are not their ``skip``.  None for
+    other kernels."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse.kernels import GEMM_ROWS, row_index
+
+    if name == "gather_gemm":
+        x3, map_, taps, stride, w, wc, s_out, skip = args[:8]
+        order = args[8] if len(args) > 8 else None
+        b_ = x3.shape[0]
+        dev = x3.device
+        idx = [row_index(map_, taps, stride, j, b_, s_out, dev) for j in range(w.shape[0])]
+        if wc is not None:
+            idx.append(torch.arange(s_out, device=dev).expand(b_, s_out))
+        idx = torch.stack(idx)  # [T, B, s_out]
+        nz = _live_rows(x3)
+        live = torch.stack([torch.gather(nz, 1, i) for i in idx])
+        kept = idx != skip
+
+        def computed(k):
+            frag = torch.nn.functional.pad(k, (0, -s_out % GEMM_ROWS))
+            return 16 * int(frag.reshape(*k.shape[:2], -1, 16).any(-1).sum()) / k.numel()
+
+        ordered = kept
+        if order is not None:
+            ordered = torch.gather(kept, 2, order.long().expand_as(kept))
+        return {"live": float(live.float().mean()), "computed": computed(ordered),
+                "unordered": computed(kept)}
+    if name == "gather_wgrad":
+        a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows, sk_a, sk_g = args
+        b_, dev = a3.shape[0], a3.device
+        la, lg = _live_rows(a3), _live_rows(g3)
+        live = kept = 0
+        for j in range(k):
+            ia = row_index(a_map, a_taps, a_stride, j, b_, s_rows, dev)
+            ig = row_index(g_map, g_taps, g_stride, j, b_, s_rows, dev)
+            live += int((torch.gather(la, 1, ia) & torch.gather(lg, 1, ig)).sum())
+            kept += int(((ia != sk_a) & (ig != sk_g)).sum())
+        return {"live": live / (k * b_ * s_rows), "computed": kept / (k * b_ * s_rows)}
+    return None
+
+
 def library_call(name, args):
     """One PyTorch call that computes the same function on the same inputs,
     as a closure (its operands built beforehand), or None where there is
@@ -587,11 +665,11 @@ def add_numbers(into: dict, name: str, r: dict) -> None:
     """Add one check's (or one path's) numbers for kernel ``name`` into
     ``into``: times and bounds summed, the larger error kept, each of
     ``OPTIONAL_MS`` None unless every part has one."""
-    q = into.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                               "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                               **dict.fromkeys(OPTIONAL_MS, 0.0)})
+    q = into.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+                               "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                               "bound_ms": 0.0, **dict.fromkeys(OPTIONAL_MS, 0.0)})
     q["max_abs_err"] = max(q["max_abs_err"], r["max_abs_err"])
-    for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"):
+    for k in ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"):
         q[k] += r[k]
     for k in OPTIONAL_MS:
         q[k] = None if q[k] is None or r[k] is None else q[k] + r[k]
@@ -601,13 +679,16 @@ def phase_kernels(checks, module, exact=()):
     """Each check's kernel vs its plain twin; kernels named in ``exact`` must
     equal it bit for bit, the others agree to ATOL + RTOL * max|ref|.  Also
     times the one PyTorch call computing the same function, where there is
-    one, and the card's bound for the work; for the kernels of
-    ``DEVICE_TIMED``, the device-only time of the kernel and of the call too
-    (``_device_ms``: ``ms`` minus ``device_ms`` is what the host adds).
+    one, and the card's bound for the work, and the device-only time of
+    the kernel and of the call (``_device_ms``: ``ms`` minus ``device_ms``
+    is what the host adds).  For gather_gemm and gather_wgrad it prints the
+    live and computed shares of the (row, tap) pairs (``gather_shares``)
+    and, for gather_wgrad, whether two launches on one input are bit-equal
+    (a reading, not a check).
     Returns {kernel:
-    {max_abs_err, ms, plain_ms, bound_ms, bytes_ms, ops_ms, library_ms,
-    device_ms, library_device_ms}} summed over the kernel's checked shapes
-    (``add_numbers``)."""
+    {max_abs_err, ms, device_ms, plain_ms, bound_ms, bytes_ms, ops_ms,
+    library_ms, library_device_ms}} summed over the kernel's checked
+    shapes (``add_numbers``)."""
     import torch
 
     results = {}
@@ -629,14 +710,23 @@ def phase_kernels(checks, module, exact=()):
         nbytes, ops = work(name, args, got)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
         call = library_call(name, args)
-        lib_ms = dev_ms = lib_dev_ms = None
+        lib_ms = lib_dev_ms = None
         if call is not None:
             lib_err, _ = _max_err(call().reshape(want.shape), want)
             if lib_err > ATOL + RTOL * ref:
                 raise AssertionError(f"{label}: the library call disagrees ({lib_err:.3e})")
             lib_ms = _time_ms(call, ())
-            if name in DEVICE_TIMED:
-                dev_ms, lib_dev_ms = _device_ms(fn, args), _device_ms(call, ())
+            lib_dev_ms = _device_ms(call, ())
+        dev_ms = _device_ms(fn, args)
+        extra = {}
+        shares = gather_shares(name, args)
+        if shares is not None:
+            extra = {"live_share": f"{shares['live']:.3f}",
+                     "computed_share": f"{shares['computed']:.3f}"}
+            if "unordered" in shares:
+                extra["unordered_share"] = f"{shares['unordered']:.3f}"
+        if name == "gather_wgrad":
+            extra["repeat_bit_equal"] = bool(torch.equal(fn(*args), fn(*args)))
         add_numbers(results, name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms,
@@ -647,11 +737,11 @@ def phase_kernels(checks, module, exact=()):
             rel=f"{err / max(ref, 1e-30):.2e}", exact=bitwise,
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
-            device_ms="null" if dev_ms is None else f"{dev_ms:.4f}",
+            device_ms=f"{dev_ms:.4f}",
             library_device_ms="null" if lib_dev_ms is None else f"{lib_dev_ms:.4f}",
             bound_ms=f"{max(bytes_ms, ops_ms):.4f}",
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            share_of_bound=f"{max(bytes_ms, ops_ms) / ms:.3f}", ok=ok)
+            share_of_bound=f"{max(bytes_ms, ops_ms) / ms:.3f}", **extra, ok=ok)
         if not ok:
             failures.append(label)
     if failures:
@@ -1281,6 +1371,8 @@ def conv_calls(model, feats, run):
                 args[1] = args[1][:, None]
                 if kwargs.get("up") is not None:
                     kwargs["up"] = tuple(u[None] for u in kwargs["up"])
+                if kwargs.get("order") is not None:
+                    kwargs["order"] = kwargs["order"][None]
         elif kind == "tr":
             if args[2] is None:
                 kind = "bup"
@@ -1390,11 +1482,11 @@ def conv_checks(model, batch, calls=None):
                 tag = f"{name} taps {taps.start}-{taps.stop - 1} of {k} N{n} {cin}->{cout}"
                 checks += [
                     ("gather_gemm", f"flat fwd {tag}", K.gather_gemm,
-                     (x, m3, taps, 0, wg, None, n)),
+                     (x, m3, taps, 0, wg, None, n, n - 1)),
                     ("scatter_gemm", f"flat dF {tag}", K.scatter_gemm,
                      (ct, m3, taps, wg, n, n - 1)),
                     ("gather_wgrad", f"flat dW {tag}", K.gather_wgrad,
-                     (x, m3, taps, 0, ct, None, None, 0, len(taps), n)),
+                     (x, m3, taps, 0, ct, None, None, 0, len(taps), n, n - 1, -1)),
                 ]
             continue
         if kind == "brick":
@@ -1450,11 +1542,11 @@ def conv_checks(model, batch, calls=None):
             tag = f"{name} S{s_in}->S{s_out} {k} taps {cin}->{cout}"
             checks += [
                 ("gather_gemm", f"K4 fwd {tag}", K.gather_gemm,
-                 (f3, nbr, taps, 0, w.contiguous(), None, s_out)),
+                 (f3, nbr, taps, 0, w.contiguous(), None, s_out, s_in - 1, kw.get("order"))),
                 ("scatter_gemm", f"K4 dF {tag}", K.scatter_gemm,
                  (ct, nbr, taps, w.contiguous(), s_in, s_in - 1)),
                 ("gather_wgrad", f"K4 dW {tag}", K.gather_wgrad,
-                 (f3, nbr, taps, 0, ct, None, None, 0, k, s_out)),
+                 (f3, nbr, taps, 0, ct, None, None, 0, k, s_out, s_in - 1, -1)),
             ]
         elif kind == "conv" and kw.get("up") is None:  # K1
             nbr, valid, rev = args[1], args[2], args[3] if len(args) > 3 else kw.get("rev")
@@ -1463,13 +1555,16 @@ def conv_checks(model, batch, calls=None):
             ct = _masked_randn((nb, s_in, cout), valid, gen)
             tag = f"{name} B{nb} S{s_in} {cin}->{cout}"
             checks.append(("gather_gemm", f"K1 fwd {tag}", K.gather_gemm,
-                           (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in)))
+                           (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in,
+                            s_in - 1, kw.get("order"))))
             if not stem:
                 checks.append(("gather_gemm", f"K1 dF {tag}", K.gather_gemm,
                                (ct, nbr, [rev[i] for i in taps], 0,
-                                wt[taps].contiguous(), wt[center].contiguous(), s_in)))
+                                wt[taps].contiguous(), wt[center].contiguous(), s_in,
+                                s_in - 1, kw.get("order"))))
             checks.append(("gather_wgrad", f"K1 dW {tag}", K.gather_wgrad,
-                           (f3, None, None, 0, ct, nbr, list(rev), 0, k, s_in)))
+                           (f3, None, None, 0, ct, nbr, list(rev), 0, k, s_in, -1,
+                            s_in - 1)))
         elif kind == "conv":  # K2
             down, valid = args[1], args[2]
             parent, off = kw["up"]
@@ -1478,11 +1573,12 @@ def conv_checks(model, batch, calls=None):
             tag = f"{name} B{nb} S{s_in}->S{s_out} {cin}->{cout}"
             checks += [
                 ("gather_gemm", f"K2 fwd {tag}", K.gather_gemm,
-                 (f3, down, list(range(k)), 0, w, None, s_out)),
+                 (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"))),
                 ("parent_gemm", f"K2 dF {tag}", K.parent_gemm,
                  (ct, parent, off, wt.contiguous())),
                 ("gather_wgrad", f"K2 dW {tag}", K.gather_wgrad,
-                 (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out)),
+                 (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out, s_in - 1,
+                  -1)),
             ]
         else:  # K3
             parent, off, valid = args[1], args[2], args[3]
@@ -1495,9 +1591,9 @@ def conv_checks(model, batch, calls=None):
                 ("scatter_parent", f"K3 bwd scatter {tag}", K.scatter_parent,
                  (ct, parent, off, k, s_in)),
                 ("gather_gemm", f"K3 dF {tag}", K.gather_gemm,
-                 (dy, None, None, s_in, wt.contiguous(), None, s_in)),
+                 (dy, None, None, s_in, wt.contiguous(), None, s_in, -1)),
                 ("gather_wgrad", f"K3 dW {tag}", K.gather_wgrad,
-                 (f3, None, None, 0, dy, None, None, s_in, k, s_in)),
+                 (f3, None, None, 0, dy, None, None, s_in, k, s_in, -1, -1)),
             ]
     return checks
 
@@ -1883,8 +1979,7 @@ def phase_resnet(app, model, batch, device, card):
     """A ResNet main path on the ResNet workload: one forward + backward
     with a fixed seeded cotangent through the kernels against the plain
     twins (``_kernels_vs_plain``: the output and every parameter gradient
-    within RTOL of its largest magnitude; scatter_gemm and gather_wgrad add
-    with atomics),
+    within RTOL of its largest magnitude; scatter_gemm adds with atomics),
     then RESNET_STEPS SGD steps with finite losses and the expected launch
     count of every kernel, and the eval logits."""
     import torch
@@ -2152,7 +2247,8 @@ def kernels_line(paths: dict) -> list:
     at that path's shapes fails."""
     def numbers(r):
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
                 "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                 **{k: r[k] for k in OPTIONAL_MS}}
 

@@ -16,11 +16,22 @@
 //   map != nullptr : row(j, b, s) = map[taps.idx[j]][b][s]
 //   map == nullptr : row(j, b, s) = j * tap_stride + s   (stacked table)
 //
-// The GEMM kernels are simple tiled SIMT f32 kernels: each block stages its
-// rows (gathered through the index tile) and a weight tile in shared memory
-// and accumulates a 4x4 micro-tile per thread in registers, in f32.  They
-// use no tensor cores (the port runs f32 with TF32 off); wgmma/TMA pipelines
-// are later work.  gather_sum and its adjoint scatter_sum (the pooling ops,
+// The two gather GEMMs, gather_gemm (a) and gather_wgrad (b), take 65-84%
+// of a sparse-conv step's device time.  Both are bound by f32 operations on
+// the (row, tap) pairs whose gathered rows are live, and a map sends every
+// missing neighbour to the chunk's pad row, whose features and cotangent
+// are zero: 48-82% of the pairs of a pretraining batch.  So the caller names
+// that row (`skip`), and gather_gemm skips (16-row fragment, tap) pairs with
+// no live row while gather_wgrad compacts its live pairs and computes only
+// those; both stage rows and weights with cp.async in a 3-stage ring, one
+// barrier a step, and fit their tiles to the channels (their notes below
+// give the designs).  They stay f32 on the SIMT pipes: the port's twins,
+// CPU tests and step checks rest on f32 products, TF32 keeps ~3 digits and
+// 3xTF32 on mma.sync costs about what SIMT f32 does; the tensor-core route
+// (wgmma) comes with bf16 operands.  The other GEMM kernels (parent_gemm,
+// scatter_gemm, brick_*) are simple tiled SIMT f32 kernels: each block
+// stages its rows and a weight tile in shared memory and accumulates a 4x4
+// micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
 // and JAX's jnp.take and its autodiff in the brick layout's placement and
 // up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
 // so HBM bytes bound them.  Both give each row a lane group
@@ -75,158 +86,609 @@ __device__ __forceinline__ int row_of32(const int* __restrict__ map,
   return j * tap_stride + s;
 }
 
-// (a) out[b,s,:] = [X[b,s,:] . Wc] + sum_j X[b, row(j,b,s), :] . W[j]
-// grid (ceil(S_out/BM), ceil(Cout/BN), B)
-__global__ void __launch_bounds__(THREADS)
-gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
-                   TapList taps, int tap_stride, int G,
-                   const float* __restrict__ W, const float* __restrict__ Wc,
-                   float* __restrict__ out, int B, int S_in, int S_out,
-                   int Cin, int Cout) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-  __shared__ int rows[BM];
+// 16- and 4-byte asynchronous copies from global to shared memory (sm_80
+// on), zero-filled where `full` is false: the source is then not read.  The
+// 16-byte copies bypass L1 (.cg), the 4-byte ones cannot (.ca).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
-  const float* Xb = X + (int64_t)b * S_in * Cin;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0) : "memory");
+}
 
-  float acc[4][4] = {};
-  const int first = (Wc != nullptr) ? -1 : 0;
-  for (int j = first; j < G; ++j) {
-    if (tid < BM) {
-      const int s = s0 + tid;
-      int r = -1;
-      if (s < S_out) r = (j < 0) ? s : row_of(map, taps, tap_stride, j, b, s, B, S_out);
-      rows[tid] = r;
-    }
-    const float* Wj = (j < 0) ? Wc : W + (int64_t)j * Cin * Cout;
-    __syncthreads();
-    for (int k0 = 0; k0 < Cin; k0 += BK) {
-#pragma unroll
-      for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int m = e / BK, kk = e % BK;
-        const int r = rows[m];
-        As[kk][m] = (r >= 0 && k0 + kk < Cin)
-                        ? __ldg(Xb + (int64_t)r * Cin + k0 + kk) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int kk = e / BN, n = e % BN;
-        Bs[kk][n] = (k0 + kk < Cin && n0 + n < Cout)
-                        ? __ldg(Wj + (int64_t)(k0 + kk) * Cout + n0 + n) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) w[q] = Bs[kk][tx * 4 + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
-      }
-      __syncthreads();
-    }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
+  acc.x = fmaf(a, w.x, acc.x);
+  acc.y = fmaf(a, w.y, acc.y);
+  acc.z = fmaf(a, w.z, acc.z);
+  acc.w = fmaf(a, w.w, acc.w);
+}
+
+__device__ __forceinline__ void add4(float4& acc, const float4& v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// Store the 4 columns n..n+3 of a row (float4 when `vec`: C % 4 == 0),
+// those at or past C left out.
+__device__ __forceinline__ void store4(float* row, int n, int C, bool vec, const float4& v) {
+  if (vec) {
+    if (n < C) *reinterpret_cast<float4*>(row + n) = v;
+    return;
   }
+  if (n < C) row[n] = v.x;
+  if (n + 1 < C) row[n + 1] = v.y;
+  if (n + 2 < C) row[n + 2] = v.z;
+  if (n + 3 < C) row[n + 3] = v.w;
+}
+
+__device__ __forceinline__ float4 load4_cg(const float* row, int n, int C, bool vec) {
+  if (vec) return __ldcg(reinterpret_cast<const float4*>(row + n));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n < C) v.x = __ldcg(row + n);
+  if (n + 1 < C) v.y = __ldcg(row + n + 1);
+  if (n + 2 < C) v.z = __ldcg(row + n + 2);
+  if (n + 3 < C) v.w = __ldcg(row + n + 3);
+  return v;
+}
+
+// (a) gather_gemm: out[b,s,:] = [X[b,s,:] . Wc] + sum_j X[b, row(j,b,s), :] . W[j],
+// every product whose gathered row is `skip` (or outside [0, S_in)) left
+// out; the centre tap Wc reads row s.  JAX K1 _conv_chunk_fused (forward and
+// dF), K2 _conv_chunk_down2 and K4 _conv_chunk_down_fused (forward), K3
+// _conv_tr_chunk's dF (a stacked table), the flat _conv_core / _conv_sym at
+// B = 1.  What bounds it: 2 Cin Cout f32 operations per (row, tap) pair
+// whose gathered row is live (f32 SIMT: 67 TFLOP/s on an H100), so the
+// design spends FMAs on live pairs only, as far as tiles allow, and keeps
+// the FMA pipes fed:
+//  - a block owns BM = 128 output rows of one chunk and a Cout tile of
+//    32 Q channels (Q = 1..3: 32, 64 or 96, fitted to Cout); 8 warps,
+//    warp w the 16-row fragment [16w, 16w + 16), each thread 4 rows x 4Q
+//    columns (tx*4 + 32q) in registers;
+//  - the tile's rows are 128 consecutive entries of `order` (the map's
+//    live order, built with the pyramid: each chunk's rows sorted by the
+//    set of taps at which they gather a live row, topology.live_order) or,
+//    without it, 128 consecutive rows; either way
+//    each output row is written once, so the order changes no result.  It
+//    matters at the large levels, whose rows lie in first-occurrence order:
+//    there nearly every 16 consecutive rows hold a live row at every tap
+//    (chip_smoke.py prints the computed share with and without the order);
+//  - prologue: the block reads its rows' indices for all its taps into
+//    shared memory once and a ballot per 32 rows marks the live ones.  A tap
+//    with no live row in the tile is dropped from the block's step list; a
+//    warp whose fragment has no live row at a tap skips that tap's FMAs;
+//  - main loop over (live tap, 32-deep Cin chunk) steps through a 3-stage
+//    ring in dynamic shared memory (2 blocks an SM): the gathered rows
+//    arrive by 16-byte cp.async (4-byte where Cin % 4 != 0 or X is
+//    unaligned), zero-filled for skipped rows and past Cin, and the tap's
+//    weight tile by cp.async too;
+//    one wait + __syncthreads a step, the copies of step i + 2 in flight
+//    while step i computes.  Row tiles are stored with the 16-byte chunk
+//    index XOR (row / 4) % 8, so a warp's 4 distinct rows read 4 banks
+//    groups apart;
+//  - few blocks (deep levels): the wrapper splits the taps over `splits`
+//    blocks per tile; each writes its partial tile to `ws` [splits, B,
+//    S_out, Cout], and the block that takes the last of the tile's integer
+//    tickets adds the partials in split order (no float atomics: the result
+//    is the same from run to run).
+namespace gg {
+constexpr int BM = 128;      // output rows a block
+constexpr int BK = 32;       // Cin depth of a pipeline step
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;
+constexpr int TM = 4;        // rows a thread: 4 * (tid / 8) + i
+constexpr int BALLOTS = BM / 32;
+static_assert((THREADS / 8) * TM == BM, "8 threads a row group");
+
+// Q of a Cout: the Cout tile is 32 Q channels, Q in 1..3 (at Q = 4 the
+// 64 accumulators spill past 128 registers), the one that pads Cout least,
+// the larger on a tie: 32 -> 1, 64, 128, 256 -> 2, 96, 192, 384 -> 3.
+inline int q_for(int Cout) {
+  int best = 1;
+  for (int q = 2; q <= 3; ++q) {
+    const int pad = (Cout + 32 * q - 1) / (32 * q) * 32 * q;
+    if (pad <= (Cout + 32 * best - 1) / (32 * best) * 32 * best) best = q;
+  }
+  return best;
+}
+
+inline size_t smem_bytes(int Q, int per) {
+  return sizeof(float) * STAGES * (BM * BK + BK * 32 * Q) +
+         sizeof(int) * (per * BM + per * BALLOTS + per + 1 + BM);
+}
+}  // namespace gg
+
+// One step's products: the thread's 4 rows (shared-memory row tile `as`,
+// 16-byte chunks swizzled by `sw`) times its 4Q columns of the weight tile
+// `bs`, over the 32-deep chunk.  The zero-filled depth past a ragged Cin is
+// multiplied too, so the unrolled loop holds no branch.
+template <int Q>
+__device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const float* as,
+                                       const float* bs, int sw) {
+  constexpr int BK = gg::BK, BN = 32 * Q;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + ty * 4 + i;
-    if (s >= S_out) continue;
-    float* o = out + ((int64_t)b * S_out + s) * Cout;
+  for (int k4 = 0; k4 < BK / 4; ++k4) {
+    float4 a[gg::TM];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < Cout) o[n] = acc[i][q];
+    for (int i = 0; i < gg::TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(as + i * BK + ((k4 ^ sw) << 2));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 w = *reinterpret_cast<const float4*>(bs + (4 * k4 + kk) * BN + 32 * q);
+#pragma unroll
+        for (int i = 0; i < gg::TM; ++i) fma4(acc[i][q], lane_of(a[i], kk), w);
+      }
     }
   }
 }
 
-// (b) dW[k] += sum_{b,s} A[b, rowA(k,b,s)]^T . G[b, rowG(k,b,s)] over this
-// block's slice of the B*S rows; f32 atomics combine the slices.
-// grid (ceil(Ca/BM) * ceil(Cg/BN), K, row splits)
-__global__ void __launch_bounds__(THREADS)
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
+                   const __grid_constant__ TapList taps, int tap_stride, int G,
+                   const float* __restrict__ W, const float* __restrict__ Wc,
+                   const int* __restrict__ order, float* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
+                   int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BK][BN]
+  const int ntap = G + (Wc != nullptr ? 1 : 0);       // tap G: the centre
+  const int per = (ntap + splits - 1) / splits;
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + per * BM);  // [per][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + per * BALLOTS);  // count, then taps
+  int* srow = live + per + 1;  // [BM] the tile's output rows, -1 past S_out
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
+  const float* Xb = X + (int64_t)b * S_in * Cin;
+
+  // prologue: the tile's rows, every row of every tap of this split, and
+  // which are live
+  if (tid < BM) {
+    const int s = s0 + tid;
+    srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
+  }
+  __syncthreads();
+  for (int e = tid; e < nt * BM; e += THREADS) {  // whole warps: nt * BM % 32 == 0
+    const int j = t_lo + e / BM, s = srow[e % BM];
+    int r = -1;
+    if (s >= 0) {
+      r = j == G ? s : row_of(map, taps, tap_stride, j, b, s, B, S_out);
+      if (r == skip || r < 0 || r >= S_in) r = -1;
+    }
+    rows[e] = r;
+    const unsigned bits = __ballot_sync(0xffffffffu, r >= 0);
+    if (lane == 0) ball[e >> 5] = bits;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int t = 0; t < nt; ++t) {
+      unsigned any = 0;
+#pragma unroll
+      for (int c = 0; c < BALLOTS; ++c) any |= ball[t * BALLOTS + c];
+      if (any) live[1 + n++] = t;
+    }
+    live[0] = n;
+  }
+  __syncthreads();
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = live[0] * kchunks;
+
+  auto load = [&](int step, int buf) {
+    const int t = live[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    const int* rt = rows + t * BM;
+    float* as = As + buf * BM * BK;
+    float* bs = Bs + buf * BK * BN;
+    if (vec_x) {
+#pragma unroll
+      for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        const int m = e >> 3, c = e & 7;
+        const int r = rt[m];
+        const bool ok = r >= 0 && k0 + 4 * c < Cin;
+        cp_async16(as + m * BK + ((c ^ ((m >> 2) & 7)) << 2),
+                      ok ? Xb + (int64_t)r * Cin + k0 + 4 * c : Xb, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < BM * BK / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        const int m = e >> 5, k = e & 31;
+        const int r = rt[m];
+        const bool ok = r >= 0 && k0 + k < Cin;
+        cp_async4(as + m * BK + ((((k >> 2) ^ ((m >> 2) & 7))) << 2) + (k & 3),
+                  ok ? Xb + (int64_t)r * Cin + k0 + k : Xb, ok);
+      }
+    }
+    const int j = t_lo + t;
+    const float* Wt = j == G ? Wc : W + (int64_t)j * Cin * Cout;
+    if (vec_w) {
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {  // BK * BN / 4 / THREADS
+        const int e = tid + u * THREADS;
+        const int kk = e / (BN / 4), c = e % (BN / 4);
+        const int n = n0 + 4 * c;
+        const bool ok = k0 + kk < Cin && n < Cout;
+        cp_async16(bs + kk * BN + 4 * c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < 4 * Q; ++u) {
+        const int e = tid + u * THREADS;
+        const int kk = e / BN, c = e % BN;
+        const int n = n0 + c;
+        const bool ok = k0 + kk < Cin && n < Cout;
+        cp_async4(bs + kk * BN + c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+      }
+    }
+  };
+
+  float4 acc[TM][Q];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  const int sw = ty & 7;  // the swizzle of this thread's rows: (4 ty + i) / 4 % 8
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    const int t = live[1 + step / kchunks];
+    if (((ball[t * BALLOTS + (warp >> 1)] >> (16 * (warp & 1))) & 0xffffu) == 0)
+      continue;  // this warp's 16 rows gather nothing at this tap
+    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+  }
+  cp_async_wait<0>();
+
+  const bool vec_o = Cout % 4 == 0;
+  float* dst = splits == 1 ? out : ws + (int64_t)sp * B * S_out * Cout;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int s = srow[4 * ty + i];
+    if (s < 0) continue;
+    float* row = dst + ((int64_t)b * S_out + s) * Cout;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
+  }
+  if (splits == 1) return;
+  // the tile's last block adds the splits' partials in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    live[0] = atomicAdd(tickets + tile, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!live[0]) return;
+  __threadfence();
+  const int64_t plane = (int64_t)B * S_out * Cout;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int s = srow[4 * ty + i];
+    if (s < 0) continue;
+    const int64_t off = ((int64_t)b * S_out + s) * Cout;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int n = n0 + 4 * tx + 32 * q;
+      if (n >= Cout) continue;
+      float4 v = load4_cg(ws + off, n, Cout, vec_o);
+      for (int p = 1; p < splits; ++p) add4(v, load4_cg(ws + p * plane + off, n, Cout, vec_o));
+      store4(out + off, n, Cout, vec_o, v);
+    }
+  }
+}
+
+// (b) gather_wgrad: dW[k] = sum over the rows r = (b, s) of the block's
+// slice of A[b, rowA(k,b,s)]^T . G[b, rowG(k,b,s)], every pair in which
+// rowA is `skip_a` or rowG is `skip_g` (or either lies outside its table)
+// left out.  JAX K1-K4's dW and the flat _conv_core's.  What bounds it: 2 Ca
+// Cg f32 operations per live (row, tap) pair (f32 SIMT), and at narrow
+// channels (32 x 32 at pretraining's level 0: 1024 FMAs per 256 bytes of
+// two rows) the rows' bytes from L2.  The design:
+//  - a block owns one tap k, one output tile of 32 QA x 32 QG channels
+//    fitted to Ca x Cg (QA, QG in 1..3, QA QG <= 4) and a slice of the B * S
+//    rows;
+//  - compaction: the block takes its slice CHUNK rows at a time; each thread
+//    reads one row's two indices, a ballot and the warps' counts give every
+//    live pair its place, and the compacted pairs (table rows of A and G)
+//    land in shared memory in row order.  The FMAs then run on live pairs
+//    only: the work equals what chip_smoke.py's work() counts, up to the
+//    last stage's 32-row rounding;
+//  - the pairs' A and G row tiles arrive by 16-byte cp.async (4-byte where
+//    a width is not a multiple of 4), 32 pairs a stage in a 3-stage ring,
+//    one wait + __syncthreads a stage;
+//  - 4 row groups of 64 threads each take every 4th pair of a stage; a
+//    thread keeps 4 QA x 4 QG outputs in registers, and at the end the
+//    groups' tiles are added in group order in shared memory;
+//  - the slices of one (tap, tile) are combined by the tile's last block
+//    (integer tickets), which adds the partials the slices left in `ws`
+//    [slices, K, Ca, Cg] in slice order, so dW is the same from run to run
+//    (f32 atomics into a zeroed dW were 3-4% faster on the pretraining and
+//    semseg checks, PERF.md, and give a sum whose order changes).
+namespace gw {
+constexpr int THREADS = 256;
+constexpr int ROWS = 32;     // pairs a pipeline stage
+constexpr int STAGES = 3;
+constexpr int CHUNK = 2048;  // rows compacted at a time
+constexpr int GROUPS = 4;    // row groups of 64 threads (8 x 8 a tile)
+
+inline int q_for(int C) { return C <= 32 ? 1 : (C % 96 == 0 && C % 64 != 0) ? 3 : 2; }
+
+// (QA, QG): each fitted to its width, their product at most 4 (the
+// registers of a thread's tile)
+inline void qs_for(int Ca, int Cg, int* qa, int* qg) {
+  *qa = q_for(Ca);
+  *qg = q_for(Cg);
+  if (*qa * *qg > 4) {
+    if (*qa == 3) *qa = 1; else *qg = 1;
+  }
+}
+
+inline size_t smem_bytes(int qa, int qg) {
+  return sizeof(float) * STAGES * ROWS * 32 * (qa + qg) + sizeof(int) * (2 * CHUNK + 32);
+}
+}  // namespace gw
+
+template <int QA, int QG>
+__global__ void __launch_bounds__(gw::THREADS, 2)
 gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
-                    TapList a_taps, int a_stride, int Sa, int Ca,
-                    const float* __restrict__ Gm, const int* __restrict__ g_map,
-                    TapList g_taps, int g_stride, int Sg, int Cg,
-                    float* __restrict__ dW, int B, int S, int rows_per_block) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Gs[BK][BN + 4];
-  __shared__ int64_t ra[BK], rg[BK];
+                    const __grid_constant__ TapList a_taps, int a_stride, int Sa,
+                    int Ca, int skip_a, const float* __restrict__ Gm,
+                    const int* __restrict__ g_map, const __grid_constant__ TapList g_taps,
+                    int g_stride, int Sg, int Cg, int skip_g, float* __restrict__ dW,
+                    float* __restrict__ ws, int* __restrict__ tickets, int B, int S,
+                    int rows_per_block, int vec_a, int vec_g) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int CHUNK = gw::CHUNK, GROUPS = gw::GROUPS;
+  constexpr int TA = 32 * QA, TG = 32 * QG;
+  constexpr int NACC = 16 * QA * QG;  // outputs a thread
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                   // [STAGES][ROWS][TA]
+  float* Gs = As + STAGES * ROWS * TA;                // [STAGES][ROWS][TG]
+  int* pa = reinterpret_cast<int*>(Gs + STAGES * ROWS * TG);  // [CHUNK] A rows
+  int* pg = pa + CHUNK;                                       // [CHUNK] G rows
+  int* wcount = pg + CHUNK;                                   // [2][8], flag
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int tiles_n = (Cg + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid >> 6, gt = tid & 63;
+  const int ta = gt >> 3, tg = gt & 7;
+  const int tiles_g = (Cg + TG - 1) / TG;
+  const int a0 = (blockIdx.x / tiles_g) * TA, g0 = (blockIdx.x % tiles_g) * TG;
   const int k = blockIdx.y;
-  const int64_t total = (int64_t)B * S;
-  const int64_t r_begin = (int64_t)blockIdx.z * rows_per_block;
-  const int64_t r_stop = r_begin + rows_per_block;
-  const int64_t r_end = r_stop < total ? r_stop : total;
+  const int total = B * S;
+  const int r_begin = blockIdx.z * rows_per_block;
+  const int r_end = min(r_begin + rows_per_block, total);
 
-  float acc[4][4] = {};
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += BK) {
-    if (tid < 2 * BK) {
-      const int kk = tid % BK;
-      const int64_t r = r0 + kk;
-      int64_t v = -1;
+  float4 acc[QA][4][QG];  // A channel ta*4 + 32p + c, G channels tg*4 + 32q + 0..3
+#pragma unroll
+  for (int p = 0; p < QA; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
+    // compaction of rows [c0, c0 + CHUNK): live pairs in row order
+    int n = 0;
+#pragma unroll 1
+    for (int it = 0; it < CHUNK / THREADS; ++it) {
+      const int r = c0 + it * THREADS + tid;
+      bool ok = false;
+      int ra = 0, rg = 0;
       if (r < r_end) {
-        const int b = (int)(r / S), s = (int)(r % S);
-        if (tid < BK) {
-          v = (int64_t)b * Sa + row_of(a_map, a_taps, a_stride, k, b, s, B, S);
-        } else {
-          v = (int64_t)b * Sg + row_of(g_map, g_taps, g_stride, k, b, s, B, S);
+        const int bb = r / S, s = r - bb * S;
+        ra = row_of(a_map, a_taps, a_stride, k, bb, s, B, S);
+        rg = row_of(g_map, g_taps, g_stride, k, bb, s, B, S);
+        ok = ra != skip_a && rg != skip_g && ra >= 0 && ra < Sa && rg >= 0 && rg < Sg;
+        ra += bb * Sa;
+        rg += bb * Sg;
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, ok);
+      int* cnt = wcount + 8 * (it & 1);
+      if (lane == 0) cnt[warp] = __popc(bits);
+      __syncthreads();
+      int base = n, all = 0;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        base += w < warp ? cnt[w] : 0;
+        all += cnt[w];
+      }
+      if (ok) {
+        const int at = base + __popc(bits & ((1u << lane) - 1u));
+        pa[at] = ra;
+        pg[at] = rg;
+      }
+      n += all;
+    }
+    __syncthreads();
+
+    const int nst = (n + ROWS - 1) / ROWS;
+    auto load = [&](int st, int buf) {
+      float* as = As + buf * ROWS * TA;
+      float* gs = Gs + buf * ROWS * TG;
+      if (vec_a) {
+#pragma unroll
+        for (int u = 0; u < QA; ++u) {  // ROWS * TA / 4 / THREADS
+          const int e = tid + u * THREADS;
+          const int i = e / (TA / 4), c = e % (TA / 4);
+          const int p = st * ROWS + i;
+          const bool ok = p < n && a0 + 4 * c < Ca;
+          cp_async16(as + i * TA + 4 * c, ok ? A + (int64_t)pa[p] * Ca + a0 + 4 * c : A, ok);
+        }
+      } else {
+#pragma unroll 4
+        for (int u = 0; u < 4 * QA; ++u) {
+          const int e = tid + u * THREADS;
+          const int i = e / TA, c = e % TA;
+          const int p = st * ROWS + i;
+          const bool ok = p < n && a0 + c < Ca;
+          cp_async4(as + i * TA + c, ok ? A + (int64_t)pa[p] * Ca + a0 + c : A, ok);
         }
       }
-      if (tid < BK) ra[kk] = v; else rg[kk] = v;
+      if (vec_g) {
+#pragma unroll
+        for (int u = 0; u < QG; ++u) {
+          const int e = tid + u * THREADS;
+          const int i = e / (TG / 4), c = e % (TG / 4);
+          const int p = st * ROWS + i;
+          const bool ok = p < n && g0 + 4 * c < Cg;
+          cp_async16(gs + i * TG + 4 * c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + 4 * c : Gm, ok);
+        }
+      } else {
+#pragma unroll 4
+        for (int u = 0; u < 4 * QG; ++u) {
+          const int e = tid + u * THREADS;
+          const int i = e / TG, c = e % TG;
+          const int p = st * ROWS + i;
+          const bool ok = p < n && g0 + c < Cg;
+          cp_async4(gs + i * TG + c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + c : Gm, ok);
+        }
+      }
+    };
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < nst) load(st, st);
+      cp_async_commit();
     }
-    __syncthreads();
+    for (int st = 0; st < nst; ++st) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage st has landed; stage st - 1's buffer is free
+      {
+        const int next = st + STAGES - 1;
+        if (next < nst) load(next, next % STAGES);
+        cp_async_commit();
+      }
+      const int here = min(ROWS, n - st * ROWS);
+      const float* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
+      const float* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
 #pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = e / BM, m = e % BM;
-      const int64_t r = ra[kk];
-      As[kk][m] = (r >= 0 && m0 + m < Ca) ? __ldg(A + r * Ca + m0 + m) : 0.f;
+      for (int u = 0; u < ROWS / GROUPS; ++u) {
+        const int i = grp + GROUPS * u;
+        if (i >= here) break;
+        float4 av[QA], gv[QG];
+#pragma unroll
+        for (int p = 0; p < QA; ++p)
+          av[p] = *reinterpret_cast<const float4*>(as + i * TA + 32 * p);
+#pragma unroll
+        for (int q = 0; q < QG; ++q)
+          gv[q] = *reinterpret_cast<const float4*>(gs + i * TG + 32 * q);
+#pragma unroll
+        for (int p = 0; p < QA; ++p)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int q = 0; q < QG; ++q) fma4(acc[p][c][q], lane_of(av[p], c), gv[q]);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < (BN * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = e / BN, n = e % BN;
-      const int64_t r = rg[kk];
-      Gs[kk][n] = (r >= 0 && n0 + n < Cg) ? __ldg(Gm + r * Cg + n0 + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) g[q] = Gs[kk][tx * 4 + q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], g[q], acc[i][q]);
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the pair list are rewritten by the next chunk
   }
-  float* dWk = dW + (int64_t)k * Ca * Cg;
+
+  // the row groups' tiles, added in group order (the stage ring is free)
+  float* red = smem;  // [GROUPS - 1][NACC][64]
+  if (grp > 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= Ca) continue;
+    for (int p = 0; p < QA; ++p)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < Cg) atomicAdd(dWk + (int64_t)m * Cg + n, acc[i][q]);
-    }
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < QG; ++q) {
+          const int idx = ((p * 4 + c) * QG + q) * 4;
+          float* d = red + ((grp - 1) * NACC + idx) * 64 + gt;
+          d[0] = acc[p][c][q].x;
+          d[64] = acc[p][c][q].y;
+          d[128] = acc[p][c][q].z;
+          d[192] = acc[p][c][q].w;
+        }
+  }
+  __syncthreads();
+  const bool vec_o = Cg % 4 == 0;
+  const int slices = gridDim.z;
+  const int64_t tap_off = (int64_t)k * Ca * Cg;
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 1; g < GROUPS; ++g)
+#pragma unroll
+      for (int p = 0; p < QA; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int q = 0; q < QG; ++q) {
+            const int idx = ((p * 4 + c) * QG + q) * 4;
+            const float* s_ = red + ((g - 1) * NACC + idx) * 64 + gt;
+            add4(acc[p][c][q], make_float4(s_[0], s_[64], s_[128], s_[192]));
+          }
+    float* dst = slices == 1 ? dW : ws + (int64_t)blockIdx.z * gridDim.y * Ca * Cg;
+#pragma unroll
+    for (int p = 0; p < QA; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = a0 + 4 * ta + 32 * p + c;
+        if (m >= Ca) continue;
+        float* row = dst + tap_off + (int64_t)m * Cg;
+#pragma unroll
+        for (int q = 0; q < QG; ++q) store4(row, g0 + 4 * tg + 32 * q, Cg, vec_o, acc[p][c][q]);
+      }
+  }
+  if (slices == 1) return;
+  // the (tap, tile)'s last block adds the slices' partials in slice order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) wcount[16] = atomicAdd(tickets + k * gridDim.x + blockIdx.x, 1) == slices - 1;
+  __syncthreads();
+  if (!wcount[16]) return;
+  __threadfence();
+  const int64_t plane = (int64_t)gridDim.y * Ca * Cg;
+  for (int e = tid; e < TA * TG; e += THREADS) {
+    const int m = a0 + e / TG, nn = g0 + e % TG;
+    if (m >= Ca || nn >= Cg) continue;
+    const int64_t off = tap_off + (int64_t)m * Cg + nn;
+    float v = __ldcg(ws + off);
+    for (int z = 1; z < slices; ++z) v += __ldcg(ws + z * plane + off);
+    dW[off] = v;
   }
 }
 
@@ -792,8 +1254,8 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
 // slice of bricks: JAX _brick_sym_bwd's gs^T @ cp blocks, one (s, p) block
 // at a time.  Each tap has 8 triples (one per slot-axis combination), so
 // 8 x 27 blocks add into the 27 taps, and the brick slices of one triple
-// add into the same tile: f32 atomics combine them (as gather_wgrad's row
-// slices), in an order that differs from run to run.
+// add into the same tile: f32 atomics combine them, in an order that
+// differs from run to run.
 // grid (ceil(Cin/BM) * ceil(Cout/BN), triples, brick slices)
 __global__ void __launch_bounds__(THREADS)
 brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
@@ -878,28 +1340,79 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 extern "C" {
 
 int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
-                   int G, const void* W, const void* Wc, void* out, int B,
-                   int S_in, int S_out, int Cin, int Cout, void* stream) {
-  dim3 grid((S_out + BM - 1) / BM, (Cout + BN - 1) / BN, B);
-  gather_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const int*)map, taps, tap_stride, G, (const float*)W,
-      (const float*)Wc, (float*)out, B, S_in, S_out, Cin, Cout);
+                   int G, const void* W, const void* Wc, const void* order, void* out, void* ws,
+                   void* tickets, int splits, int B, int S_in, int S_out, int Cin,
+                   int Cout, int skip, void* stream) {
+  const int q = gg::q_for(Cout);
+  const int ntap = G + (Wc != nullptr ? 1 : 0);
+  const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits);
+  const int vec_x = Cin % 4 == 0 && aligned16(X);
+  const int vec_w = Cout % 4 == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
+  const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
+  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[q]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[q] = smem;
+    }
+    kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)map, taps, tap_stride, G, (const float*)W,
+        (const float*)Wc, (const int*)order, (float*)out, (float*)ws, (int*)tickets, splits,
+        B, S_in, S_out,
+        Cin, Cout, skip, vec_x, vec_w);
+  };
+  switch (q) {
+    case 1: go(gather_gemm_kernel<1>); break;
+    case 2: go(gather_gemm_kernel<2>); break;
+    default: go(gather_gemm_kernel<3>); break;
+  }
   return (int)cudaGetLastError();
 }
 
-int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps,
-                    int a_stride, int Sa, int Ca, const void* Gm,
-                    const void* g_map, TapList g_taps, int g_stride, int Sg,
-                    int Cg, void* dW, int K, int B, int S, int rows_per_block,
+// gather_gemm's Cout tile for Cout channels (the wrapper sizes its split)
+int pc_gather_gemm_tile_n(int Cout) { return 32 * gg::q_for(Cout); }
+
+int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stride,
+                    int Sa, int Ca, int skip_a, const void* Gm, const void* g_map,
+                    TapList g_taps, int g_stride, int Sg, int Cg, int skip_g, void* dW,
+                    void* ws, void* tickets, int K, int B, int S, int rows_per_block,
                     void* stream) {
-  const int64_t total = (int64_t)B * S;
-  const int splits = (int)((total + rows_per_block - 1) / rows_per_block);
-  dim3 grid(((Ca + BM - 1) / BM) * ((Cg + BN - 1) / BN), K, splits);
-  gather_wgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)A, (const int*)a_map, a_taps, a_stride, Sa, Ca,
-      (const float*)Gm, (const int*)g_map, g_taps, g_stride, Sg, Cg,
-      (float*)dW, B, S, rows_per_block);
+  int qa, qg;
+  gw::qs_for(Ca, Cg, &qa, &qg);
+  const int tiles = ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
+  const int slices = (int)(((int64_t)B * S + rows_per_block - 1) / rows_per_block);
+  const size_t smem = gw::smem_bytes(qa, qg);
+  const int vec_a = Ca % 4 == 0 && aligned16(A);
+  const int vec_g = Cg % 4 == 0 && aligned16(Gm);
+  const dim3 grid(tiles, K, slices);
+  static size_t granted[16] = {};  // by 4 qa + qg
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[4 * qa + qg]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[4 * qa + qg] = smem;
+    }
+    kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)A, (const int*)a_map, a_taps, a_stride, Sa, Ca, skip_a,
+        (const float*)Gm, (const int*)g_map, g_taps, g_stride, Sg, Cg, skip_g,
+        (float*)dW, (float*)ws, (int*)tickets, B, S, rows_per_block, vec_a, vec_g);
+  };
+  switch (4 * qa + qg) {
+    case 5: go(gather_wgrad_kernel<1, 1>); break;
+    case 6: go(gather_wgrad_kernel<1, 2>); break;
+    case 7: go(gather_wgrad_kernel<1, 3>); break;
+    case 9: go(gather_wgrad_kernel<2, 1>); break;
+    case 10: go(gather_wgrad_kernel<2, 2>); break;
+    default: go(gather_wgrad_kernel<3, 1>); break;
+  }
   return (int)cudaGetLastError();
+}
+
+// gather_wgrad's output tiles for Ca x Cg channels (the wrapper sizes its
+// row slices)
+int pc_gather_wgrad_tiles(int Ca, int Cg) {
+  int qa, qg;
+  gw::qs_for(Ca, Cg, &qa, &qg);
+  return ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
 }
 
 int pc_parent_gemm(const void* X, const void* parent, const void* off,

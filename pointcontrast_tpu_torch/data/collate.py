@@ -23,7 +23,12 @@ from pointcontrast_tpu_torch.sparse.brick import (
     build_brick_pyramid,
 )
 from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
-from pointcontrast_tpu_torch.sparse.topology import LevelTopo, Pyramid, build_pyramid
+from pointcontrast_tpu_torch.sparse.topology import (
+    ORDERED_MAPS,
+    LevelTopo,
+    Pyramid,
+    build_pyramid,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +109,21 @@ def _check_shape(name: str, a, shape) -> None:
         raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
 
 
+def _check_orders(l: int, lv: LevelTopo) -> None:
+    """Each live order present is, per chunk (flat: of the one table), a
+    permutation of its map's output rows: the gather GEMM writes the row
+    each entry names."""
+    for name, oname in ORDERED_MAPS:
+        m, o = getattr(lv, name), getattr(lv, oname)
+        if o is None:
+            continue
+        if m is None or isinstance(m, (BrickMap, BrickDownMap)):
+            raise ValueError(f"level {l} {oname}: no gather map {name} to order")
+        _check_shape(f"level {l} {oname}", o, m.shape[1:])
+        if not (np.sort(o, axis=-1) == np.arange(o.shape[-1])).all():
+            raise ValueError(f"level {l} {oname}: not a permutation of its rows")
+
+
 def _check_chunked(pyr: Pyramid) -> list[int]:
     levels = pyr.levels
     nb = pyr.num_batch
@@ -132,6 +152,8 @@ def _check_chunked(pyr: Pyramid) -> list[int]:
             _check_below(f"level {l} down_nbr3", lv.down_nbr3, s)
         _check_below(f"level {l} up_parent", lv.up_parent, s_next)
         _check_below(f"level {l} up_offset", lv.up_offset, k_up)
+    for l, lv in enumerate(levels):
+        _check_orders(l, lv)
     return [nb * s for s in sizes]
 
 
@@ -139,6 +161,7 @@ def _check_flat_level(l: int, lv: LevelTopo, rows: list) -> None:
     """A flat level: maps into its own [npad_l] table, the k2s2 maps
     between it and level l+1's [npad_{l+1}]."""
     n = rows[l]
+    _check_orders(l, lv)
     for name in ("nbr", "nbr0"):
         m = getattr(lv, name)
         if m is not None:
@@ -197,7 +220,8 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     Voxel (flat), per level: the same against ``npad_l`` and
     ``npad_{l+1}``.  Brick levels: ``BrickMap.nbr < NB``, ``place < NB``,
     ``up_parent`` (the up-gather) below the next level's rows, the
-    boundary's row counts.  Every layout: the sample ids ``batch <= B``
+    boundary's row counts.  Chunked and flat: each live order a
+    permutation of its map's output rows.  Every layout: the sample ids ``batch <= B``
     (``B``: pad rows) that global pooling reads, at the level's rows.
     Returns the rows of every level's feature table; raises ``ValueError``
     naming the first map out of range."""
@@ -241,6 +265,7 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
             down_nbr3=_to_index(lv.down_nbr3, device),
             rev=lv.rev,
             rev0=lv.rev0,
+            **{o: _to_index(getattr(lv, o), device) for _, o in ORDERED_MAPS},
         )
 
     return Pyramid(levels=tuple(level_to(lv) for lv in pyr.levels),

@@ -30,7 +30,8 @@ class SparseConv(nn.Module):
     """Sparse convolution: ``nbr`` decides the geometry (a same-level map
     gives a stride-1 conv, a down map a strided conv onto the coarser
     level) and the layout (a ``BrickMap`` or ``BrickDownMap`` runs the
-    brick convs)."""
+    brick convs); ``order``, the map's live order from the pyramid, only
+    orders the gather GEMM's output tiles."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
                  bias: bool = False, generator: torch.Generator | None = None):
@@ -40,7 +41,7 @@ class SparseConv(nn.Module):
                          generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
-    def forward(self, features, nbr, valid_out, rev=None, up=None):
+    def forward(self, features, nbr, valid_out, rev=None, up=None, order=None):
         # the map object decides the layout: same weights, same semantics
         if isinstance(nbr, brick.BrickMap):
             return brick.brick_conv(features, nbr.nbr, self.weight, nbr.plan,
@@ -49,7 +50,7 @@ class SparseConv(nn.Module):
             return brick.brick_down_conv(features, nbr.place, self.weight,
                                          bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv(features, nbr, self.weight, bias=self.bias,
-                               valid_out=valid_out, rev=rev, up=up)
+                               valid_out=valid_out, rev=rev, up=up, order=order)
 
 
 class SparseConvTranspose(nn.Module):

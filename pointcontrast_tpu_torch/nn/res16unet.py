@@ -83,7 +83,7 @@ class Res16UNetBase(nn.Module):
     def _stage(self, x, lv, name, blocks, num_batch):
         for i in range(blocks):
             x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev,
-                                              lv.batch, num_batch)
+                                              lv.batch, num_batch, order=lv.nbr_order)
         return x
 
     def forward(self, features, pyramid):
@@ -93,16 +93,17 @@ class Res16UNetBase(nn.Module):
         nb = pyramid.num_batch
         if len(lv) < NUM_LEVELS:
             raise ValueError("Res16UNet needs a 5-level pyramid")
-        nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
-        rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
-        out = self.conv0p1s1(features, nbr0, lv[0].valid, rev0)
+        nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
+                              if lv[0].nbr0 is not None
+                              else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))
+        out = self.conv0p1s1(features, nbr0, lv[0].valid, rev0, order=order0)
         out = relu(self.bn0(out, lv[0].valid))
 
         skips = [out]
         for s in range(4):
             out = getattr(self, f"conv{s + 1}p{2 ** s}s2")(
                 out, lv[s].down_nbr, lv[s + 1].valid,
-                up=(lv[s].up_parent, lv[s].up_offset))
+                up=(lv[s].up_parent, lv[s].up_offset), order=lv[s].down_order)
             out = relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].valid))
             out = self._stage(out, lv[s + 1], f"block{s + 1}", self.LAYERS[s], nb)
             if s < 3:

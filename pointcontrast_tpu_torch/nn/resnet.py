@@ -57,16 +57,23 @@ class _StridedBlock(nn.Module):
         self.downsample_conv = SparseConv(inplanes, out, 1, generator=g)
         self.downsample_norm = MaskedBatchNorm(out, bn_momentum)
 
-    def forward(self, x, down_nbr3, down_center, nbr_out, valid_in, valid_out):
+    def forward(self, x, down_nbr3, down_center, nbr_out, valid_in, valid_out,
+                orders=(None, None, None)):
+        """``orders``: the live orders of down_nbr3, down_center and
+        nbr_out."""
+        order3, order_c, order_out = orders
         if self.bottleneck:
             out = relu(self.norm1(self.conv1(x, valid_in), valid_in))
-            out = relu(self.norm2(self.conv2(out, down_nbr3, valid_out), valid_out))
+            out = relu(self.norm2(self.conv2(out, down_nbr3, valid_out, order=order3),
+                                  valid_out))
             out = self.norm3(self.conv3(out, valid_out), valid_out)
         else:
-            out = relu(self.norm1(self.conv1(x, down_nbr3, valid_out), valid_out))
-            out = self.norm2(self.conv2(out, nbr_out, valid_out), valid_out)
+            out = relu(self.norm1(self.conv1(x, down_nbr3, valid_out, order=order3),
+                                  valid_out))
+            out = self.norm2(self.conv2(out, nbr_out, valid_out, order=order_out),
+                             valid_out)
         residual = self.downsample_norm(
-            self.downsample_conv(x, down_center, valid_out), valid_out)
+            self.downsample_conv(x, down_center, valid_out, order=order_c), valid_out)
         return relu(out + residual)
 
 
@@ -105,20 +112,21 @@ class ResNetBase(nn.Module):
         if len(lv) < NUM_LEVELS or any(l.down_nbr3 is None for l in lv[1:5]):
             raise ValueError("ResNet needs a 6-level pyramid built with "
                              "build_down3=True")
-        nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
-        rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
-        out = relu(self.bn1(self.conv1(features, nbr0, lv[0].valid, rev0),
-                            lv[0].valid))
+        nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
+                              if lv[0].nbr0 is not None
+                              else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))
+        out = relu(self.bn1(self.conv1(features, nbr0, lv[0].valid, rev0,
+                                       order=order0), lv[0].valid))
         # k2s2 sum pool to level 1
         out = ops.sparse_sum_pool(out, lv[0].down_nbr, lv[1].valid)
         for i in range(len(self.PLANES)):
             src, dst = lv[1 + i], lv[2 + i]
             out = getattr(self, f"layer{i + 1}_0")(
                 out, src.down_nbr3, src.down_nbr[0:1], dst.nbr, src.valid,
-                dst.valid)
+                dst.valid, (src.down3_order, src.down_order, dst.nbr_order))
             for b in range(1, self.LAYERS[i]):
                 out = getattr(self, f"layer{i + 1}_{b}")(out, dst.nbr, dst.valid,
-                                                         dst.rev)
+                                                         dst.rev, order=dst.nbr_order)
         return self.final(out, lv[5].valid)
 
 

@@ -60,9 +60,10 @@ class BasicBlock(nn.Module):
         self.norm2 = MaskedBatchNorm(planes, bn_momentum)
         _shortcut(self, inplanes, planes * self.expansion, bn_momentum, generator)
 
-    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1):
-        out = relu(self.norm1(self.conv1(x, nbr, valid, rev), valid))
-        out = self.norm2(self.conv2(out, nbr, valid, rev), valid)
+    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1,
+                order=None):
+        out = relu(self.norm1(self.conv1(x, nbr, valid, rev, order=order), valid))
+        out = self.norm2(self.conv2(out, nbr, valid, rev, order=order), valid)
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x, valid), valid)
         else:
@@ -89,9 +90,10 @@ class Bottleneck(nn.Module):
         self.norm3 = MaskedBatchNorm(out, bn_momentum)
         _shortcut(self, inplanes, out, bn_momentum, generator)
 
-    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1):
+    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1,
+                order=None):
         out = relu(self.norm1(self.conv1(x, valid), valid))
-        out = relu(self.norm2(self.conv2(out, nbr, valid, rev), valid))
+        out = relu(self.norm2(self.conv2(out, nbr, valid, rev, order=order), valid))
         out = self.norm3(self.conv3(out, valid), valid)
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x, valid), valid)
@@ -117,10 +119,11 @@ class BasicBlockINBN(nn.Module):
         _shortcut(self, inplanes, planes * self.expansion, bn_momentum, generator,
                   norm=InstanceBatchNorm)
 
-    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1):
-        out = self.conv1(x, nbr, valid, rev)
+    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1,
+                order=None):
+        out = self.conv1(x, nbr, valid, rev, order=order)
         out = relu(self.norm1(out, valid, batch, num_batch))
-        out = self.norm2(self.conv2(out, nbr, valid, rev), valid, batch, num_batch)
+        out = self.norm2(self.conv2(out, nbr, valid, rev, order=order), valid, batch, num_batch)
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x, valid), valid,
                                             batch, num_batch)

@@ -85,7 +85,7 @@ class MinkUNetBase(nn.Module):
     def _stage(self, x, lv, name, blocks, num_batch):
         for i in range(blocks):
             x = getattr(self, f"{name}_{i}")(x, lv.nbr, lv.valid, lv.rev,
-                                              lv.batch, num_batch)
+                                              lv.batch, num_batch, order=lv.nbr_order)
         return x
 
     def _trunk(self, features, pyramid):
@@ -95,16 +95,17 @@ class MinkUNetBase(nn.Module):
         nb = pyramid.num_batch
         if len(lv) < NUM_LEVELS:
             raise ValueError(f"{type(self).__name__} needs a 4-level pyramid")
-        nbr0 = lv[0].nbr0 if lv[0].nbr0 is not None else lv[0].nbr
-        rev0 = lv[0].rev0 if lv[0].nbr0 is not None else lv[0].rev
-        out = relu(self.bn1(self.conv1p1s1(features, nbr0, lv[0].valid, rev0),
-                            lv[0].valid))
+        nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
+                              if lv[0].nbr0 is not None
+                              else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))
+        out = relu(self.bn1(self.conv1p1s1(features, nbr0, lv[0].valid, rev0,
+                                           order=order0), lv[0].valid))
         out = self._stage(out, lv[0], "block1", self.LAYERS[0], nb)
         skips = [out]
         for s in range(3):
             out = getattr(self, f"conv{s + 2}p{2 ** s}s2")(
                 out, lv[s].down_nbr, lv[s + 1].valid,
-                up=(lv[s].up_parent, lv[s].up_offset))
+                up=(lv[s].up_parent, lv[s].up_offset), order=lv[s].down_order)
             out = relu(getattr(self, f"bn{s + 2}")(out, lv[s + 1].valid))
             out = self._stage(out, lv[s + 1], f"block{s + 2}", self.LAYERS[s + 1], nb)
             if s < 2:

@@ -67,9 +67,10 @@ class SEBasicBlock(nn.Module):
         self.se = SELayer(planes, reduction, generator=generator)
         _shortcut(self, inplanes, planes * self.expansion, bn_momentum, generator)
 
-    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1):
-        out = relu(self.norm1(self.conv1(x, nbr, valid, rev), valid))
-        out = self.norm2(self.conv2(out, nbr, valid, rev), valid)
+    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1,
+                order=None):
+        out = relu(self.norm1(self.conv1(x, nbr, valid, rev, order=order), valid))
+        out = self.norm2(self.conv2(out, nbr, valid, rev, order=order), valid)
         out = self.se(out, valid, batch, num_batch)
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x, valid), valid)
@@ -97,9 +98,10 @@ class SEBottleneck(nn.Module):
         self.se = SELayer(out, reduction, generator=generator)
         _shortcut(self, inplanes, out, bn_momentum, generator)
 
-    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1):
+    def forward(self, x, nbr, valid, rev=None, batch=None, num_batch: int = 1,
+                order=None):
         out = relu(self.norm1(self.conv1(x, valid), valid))
-        out = relu(self.norm2(self.conv2(out, nbr, valid, rev), valid))
+        out = relu(self.norm2(self.conv2(out, nbr, valid, rev, order=order), valid))
         out = self.norm3(self.conv3(out, valid), valid)
         out = self.se(out, valid, batch, num_batch)
         if self.downsample_conv is not None:

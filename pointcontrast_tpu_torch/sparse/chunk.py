@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from pointcontrast_tpu_torch.sparse.topology import (
+    ORDERED_MAPS,
     LevelTopo,
     Pyramid,
     PyramidMeta,
@@ -90,7 +91,8 @@ def build_chunked_pyramid(
 
         def stacked(attr, axis=1):
             """Maps with a leading K axis stack on axis 1 -> [K, B, S];
-            per-row vectors (up_parent/up_offset) on axis 0 -> [B, S]."""
+            per-row vectors (up_parent/up_offset, the live orders) on axis
+            0 -> [B, S]."""
             if getattr(per[0], attr) is None:
                 return None
             return np.stack([getattr(x, attr) for x in per], axis=axis)
@@ -115,6 +117,8 @@ def build_chunked_pyramid(
                 nbr0=stacked("nbr0"),
                 rev=per[0].rev,
                 rev0=per[0].rev0,
+                # each chunk's rows in its own live order
+                **{o: stacked(o, axis=0) for _, o in ORDERED_MAPS},
             )
         )
         lvl_coords = []

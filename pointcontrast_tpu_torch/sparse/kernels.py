@@ -51,8 +51,11 @@ layout's same-level conv (``pointcontrast_tpu/sparse/brick.py``):
 What bounds them on an H100: the gather kernels read every gathered row once
 per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
-peak without tensor cores), not by the 3.35 TB/s of HBM; the design stages
-rows and weights in shared memory and keeps a 4x4 register tile per thread.
+peak without tensor cores), not by the 3.35 TB/s of HBM, on the pairs whose
+gathered rows are live: the sparse ops name the chunk's zero pad row as
+``skip``; gather_gemm skips (16-row fragment, tap) pairs without a live
+row, gather_wgrad compacts its live pairs, both pipeline their copies with
+cp.async (csrc/sparse_conv.cu spells out the designs).
 scatter_parent stores rows (HBM bytes bound it): its valid rows never
 collide, and the coarse pad slot, which pad and orphaned fine rows all
 name, is left out, so no atomic remains.
@@ -91,7 +94,13 @@ from pointcontrast_tpu_torch.cuda_build import stream as _stream
 from pointcontrast_tpu_torch.cuda_build import use_plain as _use_plain
 
 MAX_TAPS = 32
-WGRAD_ROWS_PER_BLOCK = 2048
+# gather_gemm: output rows of a block tile, and the blocks below which it
+# splits a tile's taps over several blocks (two waves of 132 SMs)
+GEMM_ROWS = 128
+GEMM_BLOCKS = 2 * 132
+# gather_wgrad: blocks to aim at (eight waves of 132 SMs, for balance: a
+# block's work is its slice's live pairs)
+WGRAD_BLOCKS = 8 * 132
 
 
 class TapList(ctypes.Structure):
@@ -115,10 +124,12 @@ def _tap_list(taps: tuple) -> TapList:
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("sparse_conv", {
-        "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, ci, ci, ci,
-                           ci, ci, vp],
-        "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, vp, vp, TapList, ci,
-                            ci, ci, vp, ci, ci, ci, ci, vp],
+        "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, vp, vp, vp,
+                           ci, ci, ci, ci, ci, ci, ci, vp],
+        "pc_gather_gemm_tile_n": [ci],
+        "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
+                            ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_gather_wgrad_tiles": [ci, ci],
         "pc_parent_gemm": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, ci, ci, ci, ci, ci,
@@ -184,22 +195,61 @@ def take_rows(x3: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # (a) gather_gemm
 
 
-def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out):
+def _kept(rows, skip):
+    """[..., 1] bool: the gathered rows that are not ``skip``."""
+    return (rows != skip)[..., None]
+
+
+def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+    # ``order`` only orders the kernel's tiles: every row's sum is the same
     b_, s_in, _ = x3.shape
-    out = (x3[:, :s_out] @ wc if wc is not None
-           else x3.new_zeros(b_, s_out, w.shape[-1]))
+    if wc is None:
+        out = x3.new_zeros(b_, s_out, w.shape[-1])
+    else:
+        xc = x3[:, :s_out]
+        if 0 <= skip < s_out:
+            xc = torch.where(_kept(torch.arange(s_out, device=x3.device), skip), xc, 0.0)
+        out = xc @ wc
     for j in range(w.shape[0]):
         idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
-        out = out + take_rows(x3, idx) @ w[j]
+        rows = take_rows(x3, idx)
+        if skip >= 0:
+            rows = torch.where(_kept(idx, skip), rows, 0.0)
+        out = out + rows @ w[j]
     return out
 
 
-def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out):
-    """out[b,s] = [x3[b,s] @ wc] + sum_j x3[b, row(j,b,s)] @ w[j].
+def _gemm_splits(b_, s_out, cout, ntap) -> int:
+    """Blocks over which gather_gemm spreads one tile's taps: one, unless
+    its tiles (128 rows x the kernel's Cout tile, per chunk) come to fewer
+    than GEMM_BLOCKS; then enough to get there, with 3 taps a split at
+    least."""
+    blocks = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+    if blocks >= GEMM_BLOCKS or ntap < 6:
+        return 1
+    return min(ntap // 3, -(-GEMM_BLOCKS // blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_tile_n(cout: int) -> int:
+    return _lib().pc_gather_gemm_tile_n(cout)
+
+
+def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+    """out[b,s] = [x3[b,s] @ wc] + sum_j x3[b, row(j,b,s)] @ w[j], every
+    product whose gathered row is ``skip`` left out (-1: none; the centre
+    tap's row is s).  The sparse ops pass a chunk's pad row, whose features
+    or cotangent are zero by contract, so leaving it out changes nothing but
+    the work.  ``order`` [B, s_out] int32, optional: each chunk's output
+    rows in the order the kernel tiles them (the map's live order, built
+    with the pyramid, ``topology.live_order``), so that rows which gather
+    at the same taps share 16-row fragments; any order gives the same sum.
 
     x3 [B, S_in, Cin]; w [G, Cin, Cout] (one block per gathered tap);
     wc [Cin, Cout] or None: the ungathered centre tap (needs S_in == S_out);
-    returns [B, s_out, Cout]."""
+    returns [B, s_out, Cout].  On the card the sum is the same from run to
+    run: where the taps are split over blocks (``_gemm_splits``), the
+    partial sums are added in split order."""
     b_, s_in, cin = x3.shape
     g, _, cout = w.shape
     if wc is not None and s_in != s_out:
@@ -207,18 +257,31 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out):
     _check_shape("w", w, (g, cin, cout))
     _check_shape("wc", wc, (cin, cout))
     _check_rows("gather_gemm", map_, taps, tap_stride, g, b_, s_out, s_in)
+    _check_shape("order", order, (b_, s_out))
+    check_index_space("gather_gemm", x3_rows=b_ * s_in, out_rows=b_ * s_out)
     if _use_plain(x3):
-        return gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out)
+        return gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
     _require(x3, "x3", torch.float32, 3)
     _require(w, "w", torch.float32, 3)
     _require(wc, "wc", torch.float32, 2)
+    _require(order, "order", torch.int32, 2)
     _require(map_, "map", torch.int32, 3)
     if g > MAX_TAPS:
         raise ValueError(f"{g} taps > {MAX_TAPS}")
     out = torch.empty(b_, s_out, cout, device=x3.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    ntap = g + (wc is not None)
+    splits = _gemm_splits(b_, s_out, cout, ntap)
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(splits, b_, s_out, cout, device=x3.device, dtype=torch.float32)
+        tiles = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+        tickets = torch.zeros(tiles, device=x3.device, dtype=torch.int32)
     rc = _lib().pc_gather_gemm(
         _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
-        _ptr(wc), _ptr(out), b_, s_in, s_out, cin, cout, _stream())
+        _ptr(wc), _ptr(order), _ptr(out), _ptr(ws), _ptr(tickets), splits, b_,
+        s_in, s_out, cin, cout, int(skip), _stream())
     _check(rc, "gather_gemm")
     gather_gemm.launches += 1
     return out
@@ -229,43 +292,65 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out):
 
 
 def gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map, g_taps,
-                       g_stride, k, s_rows):
+                       g_stride, k, s_rows, skip_a=-1, skip_g=-1):
     b_ = a3.shape[0]
     dw = []
     for j in range(k):
         ia = row_index(a_map, a_taps, a_stride, j, b_, s_rows, a3.device)
         ig = row_index(g_map, g_taps, g_stride, j, b_, s_rows, a3.device)
-        dw.append(torch.einsum("bsc,bsd->cd", take_rows(a3, ia),
-                               take_rows(g3, ig)))
+        ra, rg = take_rows(a3, ia), take_rows(g3, ig)
+        if skip_a >= 0 or skip_g >= 0:
+            ra = torch.where(_kept(ia, skip_a) & _kept(ig, skip_g), ra, 0.0)
+        dw.append(torch.einsum("bsc,bsd->cd", ra, rg))
     return torch.stack(dw)
 
 
-def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
-                 k, s_rows):
-    """dW[j] = sum_{b, s < s_rows} a3[b, rowA(j,b,s)]^T @ g3[b, rowG(j,b,s)].
+@functools.lru_cache(maxsize=None)
+def _wgrad_tiles(ca: int, cg: int) -> int:
+    return _lib().pc_gather_wgrad_tiles(ca, cg)
 
-    Returns [k, Ca, Cg] f32.  On the card, row slices of
-    ``WGRAD_ROWS_PER_BLOCK`` are reduced in registers and combined with f32
-    atomics, so the summation order differs from run to run."""
+
+def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                 k, s_rows, skip_a=-1, skip_g=-1):
+    """dW[j] = sum_{b, s < s_rows} a3[b, rowA(j,b,s)]^T @ g3[b, rowG(j,b,s)],
+    every pair whose A row is ``skip_a`` or whose G row is ``skip_g`` left
+    out (-1: none).
+
+    Returns [k, Ca, Cg] f32.  On the card each block reduces the live pairs
+    of one tap's row slice (about ``WGRAD_BLOCKS`` blocks in all, slices
+    of 256 rows at least), and the slices' partial sums are added in slice
+    order, so dW is the same from run to run."""
     b_, sa, ca = a3.shape
     _, sg, cg = g3.shape
     _check_shape("g3", g3, (b_, sg, cg))
     _check_rows("gather_wgrad a", a_map, a_taps, a_stride, k, b_, s_rows, sa)
     _check_rows("gather_wgrad g", g_map, g_taps, g_stride, k, b_, s_rows, sg)
+    check_index_space("gather_wgrad", rows=b_ * s_rows, a3_rows=b_ * sa, g3_rows=b_ * sg)
     if _use_plain(a3):
         return gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map,
-                                  g_taps, g_stride, k, s_rows)
+                                  g_taps, g_stride, k, s_rows, skip_a, skip_g)
     _require(a3, "a3", torch.float32, 3)
     _require(g3, "g3", torch.float32, 3)
     _require(a_map, "a_map", torch.int32, 3)
     _require(g_map, "g_map", torch.int32, 3)
     if k > MAX_TAPS:
         raise ValueError(f"{k} taps > {MAX_TAPS}")
-    dw = torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32)
+    rows = b_ * s_rows
+    if rows == 0 or k == 0:
+        return torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32)
+    tiles = _wgrad_tiles(ca, cg)
+    slices = max(1, min(-(-rows // 256), -(-WGRAD_BLOCKS // (tiles * k))))
+    per_block = -(-rows // slices)
+    slices = -(-rows // per_block)
+    ws = tickets = None
+    if slices > 1:
+        ws = torch.empty(slices, k, ca, cg, device=a3.device, dtype=torch.float32)
+        tickets = torch.zeros(tiles * k, device=a3.device, dtype=torch.int32)
+    dw = torch.empty(k, ca, cg, device=a3.device, dtype=torch.float32)
     rc = _lib().pc_gather_wgrad(
-        _ptr(a3), _ptr(a_map), _taps_struct(a_taps), a_stride, sa, ca,
-        _ptr(g3), _ptr(g_map), _taps_struct(g_taps), g_stride, sg, cg,
-        _ptr(dw), k, b_, s_rows, WGRAD_ROWS_PER_BLOCK, _stream())
+        _ptr(a3), _ptr(a_map), _taps_struct(a_taps), a_stride, sa, ca, int(skip_a),
+        _ptr(g3), _ptr(g_map), _taps_struct(g_taps), g_stride, sg, cg, int(skip_g),
+        _ptr(dw), _ptr(ws), _ptr(tickets), k, b_, s_rows, per_block, _stream())
     _check(rc, "gather_wgrad")
     gather_wgrad.launches += 1
     return dw

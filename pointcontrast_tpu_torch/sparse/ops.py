@@ -32,7 +32,11 @@ over the ``gather_sum`` kernel with ``scatter_sum`` as its backward.
 
 Zero-padding invariant: callers keep features of padded rows at exactly zero
 (``mask_rows``) and missing neighbours point at a pad row, so gathered pad
-rows contribute exactly zero.  Feature gradients at pad rows are garbage by
+rows contribute exactly zero.  The gather kernels are told so: every
+forward gather, K2's and K4's dW pass the features' last row ``S_in - 1``
+as ``skip`` (``skip_a``), K1's dF and dW the cotangent's last row (zero: K1
+runs only with ``valid_out``, whose mask zeroes it), so the card spends no
+products on the pad row; K3's stacked ``dy`` passes -1 (no map).  Feature gradients at pad rows are garbage by
 design (they differ between forms) and every producer masks them.
 """
 from __future__ import annotations
@@ -88,20 +92,20 @@ class _ConvChunkFused(torch.autograd.Function):
     valid rows and pad features are zero, so dW takes all K taps gathered."""
 
     @staticmethod
-    def forward(ctx, features, nbr, weights, rev):
+    def forward(ctx, features, nbr, weights, rev, order=None):
         k, b_, s = nbr.shape
         center = _center_of(rev)
         taps = [i for i in range(k) if i != center]
         f3 = features.reshape(b_, s, -1)
         wc = None if center is None else weights[center]
-        out = gather_gemm(f3, nbr, taps, 0, weights[taps], wc, s)
-        ctx.save_for_backward(features, nbr, weights)
+        out = gather_gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
+        ctx.save_for_backward(features, nbr, weights, order)
         ctx.rev, ctx.center, ctx.taps = rev, center, taps
         return out.reshape(b_ * s, -1)
 
     @staticmethod
     def backward(ctx, ct):
-        features, nbr, weights = ctx.saved_tensors
+        features, nbr, weights, order = ctx.saved_tensors
         rev, center, taps = ctx.rev, ctx.center, ctx.taps
         k, b_, s = nbr.shape
         f3 = features.reshape(b_, s, -1)
@@ -111,11 +115,12 @@ class _ConvChunkFused(torch.autograd.Function):
             wt = weights.transpose(1, 2)
             wtc = None if center is None else wt[center].contiguous()
             df = gather_gemm(ct3, nbr, [rev[i] for i in taps], 0,
-                             wt[taps].contiguous(), wtc, s)
+                             wt[taps].contiguous(), wtc, s, s - 1, order)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
-            dw = gather_wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s)
-        return df, None, dw, None
+            dw = gather_wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s,
+                              skip_g=s - 1)
+        return df, None, dw, None, None
 
 
 class _ConvChunkDown2(torch.autograd.Function):
@@ -126,10 +131,11 @@ class _ConvChunkDown2(torch.autograd.Function):
     re-gathers the im2col rows."""
 
     @staticmethod
-    def forward(ctx, features, down_nbr, up_parent, up_offset, weights):
+    def forward(ctx, features, down_nbr, up_parent, up_offset, weights, order=None):
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
-        out = gather_gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out)
+        out = gather_gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out,
+                          f3.shape[1] - 1, order)
         ctx.save_for_backward(features, down_nbr, up_parent, up_offset, weights)
         return out.reshape(b_ * s_out, -1)
 
@@ -146,8 +152,8 @@ class _ConvChunkDown2(torch.autograd.Function):
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[4]:
             dw = gather_wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,
-                              None, 0, k, s_out)
-        return df, None, None, None, dw
+                              None, 0, k, s_out, skip_a=f3.shape[1] - 1)
+        return df, None, None, None, dw, None
 
 
 class _ConvTrChunk(torch.autograd.Function):
@@ -179,10 +185,11 @@ class _ConvTrChunk(torch.autograd.Function):
         df = dw = None
         if ctx.needs_input_grad[0]:
             df = gather_gemm(dy, None, None, s_c,
-                             weights.transpose(1, 2).contiguous(), None, s_c)
+                             weights.transpose(1, 2).contiguous(), None, s_c, -1)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[3]:
-            dw = gather_wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c)
+            dw = gather_wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c,
+                              skip_a=-1, skip_g=-1)
         return df, None, None, dw
 
 
@@ -205,13 +212,13 @@ class _ConvChunkDownFused(torch.autograd.Function):
     here (pad-row dF is garbage by design, every producer masks it)."""
 
     @staticmethod
-    def forward(ctx, features, nbr, weights):
+    def forward(ctx, features, nbr, weights, order=None):
         k, b_, s_out = nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = None
         for taps in _tap_groups(k):
             part = gather_gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop],
-                               None, s_out)
+                               None, s_out, f3.shape[1] - 1, order)
             out = part if out is None else out + part
         ctx.save_for_backward(features, nbr, weights)
         return out.reshape(b_ * s_out, -1)
@@ -233,8 +240,9 @@ class _ConvChunkDownFused(torch.autograd.Function):
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
             dw = torch.cat([gather_wgrad(f3, nbr, taps, 0, ct3, None, None, 0,
-                                         len(taps), s_out) for taps in groups])
-        return df, None, dw
+                                         len(taps), s_out, skip_a=s_in - 1)
+                            for taps in groups])
+        return df, None, dw, None
 
 
 def sparse_conv(
@@ -245,25 +253,30 @@ def sparse_conv(
     valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
     rev: tuple | None = None,  # offset-reversal perm (same-level maps only)
     up: tuple | None = None,  # (up_parent, up_offset) for k2s2 down maps
+    order: torch.Tensor | None = None,  # [B, S_out] (flat [N_out]): the map's live order
 ) -> torch.Tensor:
     """Sparse convolution, as JAX's dispatch: a same-level map with ``rev``
     (and ``valid_out``) runs K1, a k2s2 down map with ``up`` K2, any other
-    map K4; a flat [K, N_out] map runs the same at B = 1."""
+    map K4; a flat [K, N_out] map runs the same at B = 1.  ``order``, the
+    map's live order from the pyramid (``topology.live_order``), changes
+    only the order in which the gather GEMM tiles the output rows."""
     features = features.contiguous()
     if nbr.dim() == 2:  # voxel layout: one batch-wide slice
         nbr = nbr[:, None]
         if up is not None:
             up = (up[0][None], up[1][None])
+        if order is not None:
+            order = order[None]
     elif nbr.dim() != 3:
         raise ValueError(f"[K, B, S] or [K, N] maps only, got {tuple(nbr.shape)}")
     if (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
             and valid_out is not None):
-        out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev))
+        out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev), order)
     elif up is not None:
-        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights)
+        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights, order)
     else:
         out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
-                                        weights.contiguous())
+                                        weights.contiguous(), order)
     if bias is not None:
         out = out + bias
     if valid_out is not None:

@@ -20,7 +20,10 @@ Structural facts that make every map gather-only:
     fine voxel has up to 2^D parents, so its adjoint is a scatter).
 
 Missing neighbours point at the last padded row, whose features the device
-ops keep at exactly zero.
+ops keep at exactly zero.  Each gather map comes with its live order
+(``live_order``): its output rows sorted by the taps at which they name a
+real row, the order in which the gather GEMM tiles them (any order gives
+the same sums; this one lets whole 16-row fragments skip a tap).
 """
 from __future__ import annotations
 
@@ -44,6 +47,13 @@ def _shrink_idx(arr: np.ndarray, index_space: int) -> np.ndarray:
     if arr is not None and index_space <= 65536:
         return arr.astype(np.uint16)
     return arr
+
+
+def _ordered(m, npad_in: int, npad_out: int):
+    """The live order of a map into an [npad_in] table (None for None)."""
+    if m is None:
+        return None
+    return _shrink_idx(live_order(m, npad_in - 1), npad_out)
 
 
 def bucket_size(n: int, base: int = _BUCKET_BASE) -> int:
@@ -72,6 +82,17 @@ class LevelTopo:
     # scatter-free conv backward
     rev: Optional[tuple] = None
     rev0: Optional[tuple] = None
+    # each map's live order (``live_order``; chunked [B, S_out], flat
+    # [Npad_out]): the row order in which the gather GEMM tiles its outputs
+    nbr_order: Optional[Any] = None
+    nbr0_order: Optional[Any] = None
+    down_order: Optional[Any] = None
+    down3_order: Optional[Any] = None
+
+
+# (map, its live order): the LevelTopo fields ``live_order`` pairs
+ORDERED_MAPS = (("nbr", "nbr_order"), ("nbr0", "nbr0_order"),
+                ("down_nbr", "down_order"), ("down_nbr3", "down3_order"))
 
 
 @dataclasses.dataclass
@@ -111,6 +132,18 @@ def _key_join(keys: np.ndarray, base: np.ndarray, off_keys: np.ndarray,
     pos_c = np.minimum(pos, n - 1)
     found = skeys[pos_c] == qkeys
     return np.where(found, order[pos_c], pad).astype(np.int32)
+
+
+def live_order(m: np.ndarray, pad: int) -> np.ndarray:
+    """[N] int32: the output rows of a [K, N] gather map sorted, stably and
+    tap 0 first, by the taps at which they name a row other than the pad
+    row ``pad``.  Rows that gather at the same taps then sit side by side,
+    so the gather GEMM's 16-row fragments skip a tap as a whole where none
+    of their rows is live there (level 0's rows lie in first-occurrence
+    order, where nearly every 16 consecutive rows hold a live row at every
+    tap)."""
+    live = np.packbits(m != pad, axis=0)  # [ceil(K / 8), N], tap 0 the top bit
+    return np.lexsort(live[::-1]).astype(np.int32)
 
 
 def _same_level_map(coords: np.ndarray, offsets: np.ndarray,
@@ -219,6 +252,8 @@ def build_pyramid(
             nbr0=_shrink_idx(nbr0, npad),
             rev=reversal_permutation(offs3) if nbr is not None else None,
             rev0=rev0,
+            nbr_order=_ordered(nbr, npad, npad),
+            nbr0_order=_ordered(nbr0, npad, npad),
         )
         meta_coords.append(cur)
         meta_counts.append(n)
@@ -263,13 +298,15 @@ def build_pyramid(
                 down_nbr=_shrink_idx(down_nbr, npad),
                 up_parent=_shrink_idx(up_parent, npad_next),
                 up_offset=up_offset.astype(np.uint16),
+                down_order=_ordered(down_nbr, npad, npad_next),
             )
             if build_down3:
                 offs3s = kernel_offsets(3, dimension, "hypercube")
                 off3_keys = offs3s.astype(np.int64) @ fine_spec.stride[1:]
                 down_nbr3 = np.full((len(offs3s), npad_next), npad - 1, dtype=np.int32)
                 down_nbr3[:, :nc] = _key_join(fine_keys, base, off3_keys, npad - 1)
-                level.update(down_nbr3=_shrink_idx(down_nbr3, npad))
+                level.update(down_nbr3=_shrink_idx(down_nbr3, npad),
+                             down3_order=_ordered(down_nbr3, npad, npad_next))
             cur = coarse
         levels.append(LevelTopo(**level))
 

@@ -1,0 +1,226 @@
+"""The ``skip`` rows of ``gather_gemm`` and ``gather_wgrad``: the sparse
+ops pass a chunk's pad row (the last), which is zero by contract, so the
+card spends no products on it.  Here, on the CPU:
+
+  (a) the twins honour the argument: on chunked and flat pyramids from the
+      port's collate, with an arbitrary skipped row, the twin with ``skip``
+      equals the twin without it where that row is zero, and differs
+      exactly where it is gathered when it is not;
+  (b) the contract: every gather that passes a skip row sees that row at
+      exactly zero in one forward and backward pass of a narrow
+      Res16UNet34C-shaped net, K1's backward cotangents included;
+  (c) that net's forward and every parameter gradient, with the skips on,
+      match the JAX package's (one compile), at the parity tolerance of
+      ``tests/test_torch_model.py`` (f32, JAX matmuls at "highest")."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
+from pointcontrast_tpu.data.collate import PadScheme as JPadScheme
+from pointcontrast_tpu.data.collate import collate_pair as j_collate_pair
+from pointcontrast_tpu.data.pair_dataset import SyntheticPairDataset
+from pointcontrast_tpu.nn import res16unet as jr16
+from pointcontrast_tpu_torch.data.collate import PadScheme, collate_pair
+from pointcontrast_tpu_torch.nn import res16unet as tr16
+from pointcontrast_tpu_torch.sparse import kernels, ops
+from pointcontrast_tpu_torch.tools.from_jax import load_jax_params, torch_name
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+OUT = 8
+# Res16UNet34C's depth (LAYERS 2, 3, 4, 6, 2, 2, 2, 2) at narrow widths
+_NARROW = dict(INIT_DIM=8, PLANES=(8, 8, 16, 16, 16, 16, 8, 8))
+JNet = type("JNarrow34C", (jr16.Res16UNet34C,), dict(_NARROW))
+TNet = type("TNarrow34C", (tr16.Res16UNet34C,), dict(_NARROW))
+
+
+def _samples():
+    ds = SyntheticPairDataset(num_pairs=2, points_per_frame=1500, room_size=1.2, seed=0)
+    return [ds[i] for i in range(2)]
+
+
+@pytest.fixture(scope="module")
+def batches():
+    """{layout: the port's pair batch on the CPU}."""
+    return {layout: collate_pair(_samples(), PadScheme(npad0=4096), npos=64,
+                                 rng=np.random.RandomState(1), layout=layout).to("cpu")
+            for layout in ("chunked", "voxel")}
+
+
+def _level_maps(batch, level):
+    """(nbr [27, B, S], down_nbr [8, B, S_out], S, S_out) of a level, a
+    flat pyramid's maps taken as one chunk, as the ops take them."""
+    lv, nxt = batch.pyramid0.levels[level], batch.pyramid0.levels[level + 1]
+    nb = batch.pyramid0.num_batch if lv.nbr.dim() == 3 else 1
+    nbr = lv.nbr if lv.nbr.dim() == 3 else lv.nbr[:, None]
+    down = lv.down_nbr if lv.down_nbr.dim() == 3 else lv.down_nbr[:, None]
+    return nbr, down, lv.valid.shape[0] // nb, nxt.valid.shape[0] // nb
+
+
+def _gathered_row(nbr, down):
+    """A row index, not the pad row, that both maps gather in every chunk."""
+    hit = None
+    for b in range(nbr.shape[1]):
+        rows = set(nbr[:, b].reshape(-1).tolist()) & set(down[:, b].reshape(-1).tolist())
+        hit = (rows if hit is None else hit & rows) - {nbr.shape[2] - 1}
+    return min(hit)
+
+
+def _case(case, nbr, down, s, s_out, x3, w, rng):
+    """(twin, its args without skip, the skip keyword, the position in the
+    args of the table the map gathers the skipped row from)."""
+    b_ = x3.shape[0]
+    k = nbr.shape[0]
+    if case == "gemm":
+        return (kernels.gather_gemm_plain, (x3, nbr, range(k), 0, w, None, s), "skip", 0)
+    if case == "gemm centre":
+        taps = [i for i in range(k) if i != k // 2]
+        return (kernels.gather_gemm_plain,
+                (x3, nbr, taps, 0, w[taps], w[k // 2], s), "skip", 0)
+    if case == "gemm down":
+        return (kernels.gather_gemm_plain,
+                (x3, down, range(8), 0, w[:8], None, s_out), "skip", 0)
+    g3 = torch.from_numpy(rng.randn(b_, s, 5).astype(np.float32))
+    if case == "wgrad g":  # K1's dW: the cotangent through the map
+        return (kernels.gather_wgrad_plain,
+                (g3, None, None, 0, x3, nbr, range(k), 0, k, s), "skip_g", 4)
+    # K2's dW: the features through the down map
+    g3 = g3[:, :s_out].contiguous()
+    return (kernels.gather_wgrad_plain,
+            (x3, down, range(8), 0, g3, None, None, 0, 8, s_out), "skip_a", 0)
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+@pytest.mark.parametrize("case", ["gemm", "gemm centre", "gemm down", "wgrad g",
+                                  "wgrad a"])
+def test_twins_leave_out_the_skip_row(batches, layout, case):
+    """With the skipped row zero, skipping it changes nothing (bit for
+    bit); with it non-zero, the result changes, and for the gemm exactly at
+    the output rows that gather it."""
+    rng = np.random.RandomState(2)
+    nbr, down, s, s_out = _level_maps(batches[layout], 0)
+    skip = _gathered_row(nbr, down)
+    b_ = nbr.shape[1]
+    x3 = torch.from_numpy(rng.randn(b_, s, 4).astype(np.float32))
+    w = torch.from_numpy(rng.randn(27, 4, 6).astype(np.float32))
+    fn, args, key, at = _case(case, nbr, down, s, s_out, x3, w, rng)
+    zeroed = x3.clone()
+    zeroed[:, skip] = 0.0
+    args0 = args[:at] + (zeroed,) + args[at + 1:]
+    assert torch.equal(fn(*args0, **{key: skip}), fn(*args0))
+    plain, skipped = fn(*args), fn(*args, **{key: skip})
+    assert not torch.equal(plain, skipped)
+    if case.startswith("gemm"):
+        m, taps = args[1], list(args[2])
+        hits = torch.zeros(plain.shape[:2], dtype=torch.bool)
+        for t in taps:
+            hits |= m[t] == skip
+        if case == "gemm centre":
+            hits[:, skip] = True
+        changed = (plain != skipped).any(-1)
+        assert torch.equal(changed, hits)
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+def test_skipped_rows_are_zero_in_a_training_pass(batches, layout, monkeypatch):
+    """Every gather_gemm / gather_wgrad call of one train-mode forward and
+    backward finds its skip rows exactly zero in every chunk; K1's backward
+    runs and its cotangent's last row is zero in every chunk."""
+    seen = {"gemm": 0, "ordered": 0, "wgrad": 0, "k1 backward": 0}
+
+    def zero_row(t3, row):
+        return row < 0 or not t3[:, row].any()
+
+    def gemm(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
+        assert zero_row(x3, skip), f"gather_gemm: row {skip} is not zero"
+        seen["gemm"] += skip >= 0
+        if map_ is not None:  # every map comes with the pyramid's live order
+            assert order is not None and order.shape == map_.shape[1:]
+            assert torch.equal(order.sort(-1).values,
+                               torch.arange(s_out, dtype=order.dtype).expand_as(order))
+            seen["ordered"] += 1
+        return kernels.gather_gemm(x3, map_, taps, stride, w, wc, s_out, skip, order)
+
+    def wgrad(a3, a_map, a_taps, a_stride, g3, *args, skip_a=-1, skip_g=-1):
+        assert zero_row(a3, skip_a) and zero_row(g3, skip_g)
+        seen["wgrad"] += skip_a >= 0 or skip_g >= 0
+        return kernels.gather_wgrad(a3, a_map, a_taps, a_stride, g3, *args,
+                                    skip_a=skip_a, skip_g=skip_g)
+
+    k1_backward = ops._ConvChunkFused.backward
+
+    def recorded(ctx, ct):
+        _, b_, s = ctx.saved_tensors[1].shape
+        assert not ct.reshape(b_, s, -1)[:, s - 1].any(), "K1 cotangent pad row"
+        seen["k1 backward"] += 1
+        return k1_backward(ctx, ct)
+
+    monkeypatch.setattr(ops, "gather_gemm", gemm)
+    monkeypatch.setattr(ops, "gather_wgrad", wgrad)
+    monkeypatch.setattr(ops._ConvChunkFused, "backward", staticmethod(recorded))
+    batch = batches[layout]
+    net = TNet(in_channels=3, out_channels=OUT, normalize_feature=True,
+               generator=torch.Generator().manual_seed(0))
+    out = net.train()(batch.feats0, batch.pyramid0)
+    proj = torch.from_numpy(np.random.RandomState(3).randn(OUT).astype(np.float32))
+    (torch.sin(3.0 * out) * proj).sum().backward()
+    assert min(seen.values()) > 0, seen
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The narrow net's train-mode output and parameter gradients in JAX, on
+    the JAX collate of the same samples (byte-identical to the port's)."""
+    jax.config.update("jax_default_matmul_precision", "highest")
+    jb = j_collate_pair(_samples(), JPadScheme(npad0=4096), npos=64,
+                        rng=np.random.RandomState(1), fuse_frames=True, layout="chunked")
+    jmodel = JNet(in_channels=3, out_channels=OUT, normalize_feature=True)
+    variables = jax.jit(lambda r: jmodel.init(r, jb.feats0, jb.pyramid0, train=False))(
+        jax.random.PRNGKey(0))
+    proj = np.random.RandomState(3).randn(OUT).astype(np.float32)
+
+    def loss(params):
+        out, _ = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                              jb.feats0, jb.pyramid0, train=True,
+                              mutable=["batch_stats"])
+        return (jnp.sin(3.0 * out) * proj).sum(), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    return dict(params=jax.device_get(variables["params"]),
+                stats=jax.device_get(variables["batch_stats"]), proj=proj,
+                out=np.asarray(out), grads=jax.device_get(grads))
+
+
+def test_narrow_34c_with_skips_matches_jax(batches, jax_run):
+    """Train-mode forward and every parameter gradient of a scalar loss,
+    through the ops that pass the skip rows."""
+    batch = batches["chunked"]
+    net = load_jax_params(TNet(in_channels=3, out_channels=OUT, normalize_feature=True),
+                          jax_run["params"], jax_run["stats"])
+    net.train().zero_grad(set_to_none=True)
+    out = net(batch.feats0, batch.pyramid0)
+    (torch.sin(3.0 * out) * torch.from_numpy(jax_run["proj"])).sum().backward()
+    got = out.detach().numpy()
+    np.testing.assert_allclose(got, jax_run["out"], **TOL)
+    assert not got[batch.pyramid0.levels[0].valid.numpy() == 0].any()
+    named = dict(net.named_parameters())
+    checked = 0
+    for path, g in _flat(jax_run["grads"]):
+        g = np.asarray(g)
+        name = torch_name(path, net)
+        scale = max(float(np.abs(g).max()), 1e-3)
+        np.testing.assert_allclose(named[name].grad.numpy(), g, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale, err_msg=name)
+        checked += 1
+    assert checked == len(named)
