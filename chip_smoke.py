@@ -8,7 +8,10 @@ Phases, each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
-     library from this checkout's sources;
+     library from this checkout's sources; a stack frame or spill in
+     parent_gemm or FPS fails it;
+  2a. fps: one FPS pick's floor by cluster size, on clouds of one point a
+     thread (the serial bound of every FPS check);
   the pretraining path:
   3. data: collates the pretraining batches (SyntheticPairDataset, 4 pairs
      per step, PadScheme.scannet(npad0=131072), 4096 NCE pairs, fused
@@ -35,6 +38,9 @@ Phases, each printed on its own line:
      against their twins at the path's shapes from one real batch, with
      times, and the group's scatter-add over a ball query where most balls
      hold 1-2 hits (the heavy tail);
+  7a. fps shapes: FPS at the cluster sizes the paths do not take (B = 3,
+     a cloud of 4-fold duplicates, 8000 points, 256, 5 -> 16 and the
+     shared-memory form past 98304 points);
   8. parity: one VoteNet step through the kernels against the same step
      through the plain twins, from the same weights and batch;
   9. slice: 5 DetectTrainer.train_epoch steps (Res16UNet34C 3 -> 256, Adam)
@@ -122,7 +128,10 @@ median of 5 replays, so the host's cost of a call is left out;
 row as ``skip`` and the pyramid's live orders, as the sparse ops do, and
 their lines give the live and the computed share of the (row, tap) pairs;
 gather_wgrad's lines whether two launches on one input are bit-equal;
-``[ptxas]`` lines give both kernels' registers, stack and spills.  Then
+parent_gemm's checks pass the up order and the ``skip`` of their path and
+give the share of rows computed; parent_gemm and FPS must give the same
+bits from two launches; ``[ptxas]`` lines give the gather GEMMs',
+parent_gemm's and FPS's registers, stack and spills.  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -185,6 +194,18 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "brick_gemm": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:400"),
     "brick_wgrad": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:360"),
 }
+# the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
+# PTXAS_NO_SPILL fail the build phase with any stack frame or spill
+PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel")
+PTXAS_DETECT = ("fps_kernel",)
+PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel")
+# FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
+# the picks of its clouds of one point a thread
+PICK_FLOOR_MS = {}
+FPS_FLOOR_PICKS = 512
+# kernels whose two launches on one input must give the same bits (no
+# atomics: every output written once, in a fixed order of operations)
+REPEAT_EXACT = ("parent_gemm", "furthest_point_sample")
 # the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
 # (taps K, table rows N, channels C, gathered rows M)
 PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
@@ -245,10 +266,16 @@ def phase_build():
         for line in r["ptxas"].splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip(), flush=True)
-    for entry, regs, stack, spills in ptxas_entries(info["sparse_conv"]["ptxas"]):
-        if entry.startswith(("gather_gemm_kernel", "gather_wgrad_kernel")):
-            say("ptxas", kernel=entry, registers=regs, stack_bytes=stack,
-                spill_bytes=spills)
+    spilled = []
+    for src, entries in (("sparse_conv", PTXAS_SPARSE), ("detect_ops", PTXAS_DETECT)):
+        for entry, regs, stack, spills in ptxas_entries(info[src]["ptxas"]):
+            if entry.startswith(entries):
+                say("ptxas", kernel=entry, registers=regs, stack_bytes=stack,
+                    spill_bytes=spills)
+                if entry.startswith(PTXAS_NO_SPILL) and (stack or spills):
+                    spilled.append(entry)
+    if spilled:
+        raise AssertionError(f"stack or spills in {spilled}")
     t0 = time.perf_counter()
     if native.get_lib() is None:
         raise RuntimeError("native kernel-map library failed to build")
@@ -406,7 +433,7 @@ def work(name, args, out) -> tuple:
         return (_nbytes(a3, g3, *outs) + _map_bytes(a_map, k, b_, s_rows)
                 + _map_bytes(g_map, k, b_, s_rows), 2 * a3.shape[2] * g3.shape[2] * pairs)
     if name == "parent_gemm":
-        x3, parent, off, w = args
+        x3, parent, off, w = args[:4]
         pairs = int(torch.gather(_live_rows(x3), 1, parent.long()).sum())
         return _nbytes(x3, parent, off, w, *outs), 2 * w.shape[1] * w.shape[2] * pairs
     if name == "scatter_parent":
@@ -524,8 +551,12 @@ def gather_shares(name, args) -> dict:
     every row of a 16-row fragment (in its 128-row tile of the row order it
     is given, the pyramid's live order) with a row that is not ``skip`` at
     that tap, and ``unordered`` the same in the rows' own order;
-    gather_wgrad the pairs whose rows are not their ``skip``.  None for
-    other kernels."""
+    gather_wgrad the pairs whose rows are not their ``skip``; parent_gemm
+    (its rows are (fine row, offset) pairs) the rows whose parent row is
+    non-zero (``live``) and, ``computed``, 16 rows for every offset that a
+    16-row fragment of its 128-row tiles of the up order holds among the
+    rows whose parent is not ``skip`` (``unordered``: in the rows' own
+    order).  None for other kernels."""
     import torch
 
     from pointcontrast_tpu_torch.sparse.kernels import GEMM_ROWS, row_index
@@ -563,6 +594,20 @@ def gather_shares(name, args) -> dict:
             live += int((torch.gather(la, 1, ia) & torch.gather(lg, 1, ig)).sum())
             kept += int(((ia != sk_a) & (ig != sk_g)).sum())
         return {"live": live / (k * b_ * s_rows), "computed": kept / (k * b_ * s_rows)}
+    if name == "parent_gemm":
+        x3, parent, off, _, skip, order = args
+        b_, s_f = parent.shape
+        live = torch.gather(_live_rows(x3), 1, parent.long())
+        offs = torch.where(parent != skip, off.long(), 8)  # 8: no offset
+
+        def computed(o):
+            o = torch.nn.functional.pad(o, (0, -s_f % GEMM_ROWS), value=8)
+            hot = torch.nn.functional.one_hot(o.reshape(b_, -1, 16), 9)[..., :8]
+            return 16 * int(hot.any(2).sum()) / (b_ * s_f)
+
+        ordered = offs if order is None else torch.gather(offs, 1, order.long())
+        return {"live": float(live.float().mean()), "computed": computed(ordered),
+                "unordered": computed(offs)}
     return None
 
 
@@ -682,9 +727,12 @@ def phase_kernels(checks, module, exact=()):
     one, and the card's bound for the work, and the device-only time of
     the kernel and of the call (``_device_ms``: ``ms`` minus ``device_ms``
     is what the host adds).  For gather_gemm and gather_wgrad it prints the
-    live and computed shares of the (row, tap) pairs (``gather_shares``)
-    and, for gather_wgrad, whether two launches on one input are bit-equal
-    (a reading, not a check).
+    live and computed shares of the (row, tap) pairs (``gather_shares``;
+    parent_gemm's rows) and, for gather_wgrad, whether two launches on one
+    input are bit-equal (a reading, not a check; for the kernels of
+    REPEAT_EXACT a check).  FPS's lines add the cluster size and the
+    serial bound: npoint - 1 picks at the measured floor of one pick
+    (``fps_pick_floor``).
     Returns {kernel:
     {max_abs_err, ms, device_ms, plain_ms, bound_ms, bytes_ms, ops_ms,
     library_ms, library_device_ms}} summed over the kernel's checked
@@ -725,8 +773,14 @@ def phase_kernels(checks, module, exact=()):
                      "computed_share": f"{shares['computed']:.3f}"}
             if "unordered" in shares:
                 extra["unordered_share"] = f"{shares['unordered']:.3f}"
-        if name == "gather_wgrad":
+        if name in ("gather_wgrad", *REPEAT_EXACT):
             extra["repeat_bit_equal"] = bool(torch.equal(fn(*args), fn(*args)))
+            ok = ok and (extra["repeat_bit_equal"] or name not in REPEAT_EXACT)
+        if name == "furthest_point_sample":
+            xyz, npoint = args
+            extra["cluster"] = fps_cluster_of(xyz)
+            if PICK_FLOOR_MS:
+                extra["serial_bound_ms"] = f"{(npoint - 1) * min(PICK_FLOOR_MS.values()):.4f}"
         add_numbers(results, name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms,
@@ -955,6 +1009,67 @@ def detect_kernel_checks(batch):
           1024)),
         heavy_tail_check("K8 bwd group 259", centres, votes, 16, 259, gen),
     ]
+
+
+def fps_cluster_of(xyz) -> int:
+    """The cluster size furthest_point_sample takes for ``xyz``."""
+    from pointcontrast_tpu_torch.detect import kernels as D
+
+    b_, n, _ = xyz.shape
+    return D.fps_cluster(b_, n, xyz.get_device())
+
+
+def fps_pick_floor(device) -> None:
+    """One FPS pick's floor on the card, by cluster size cs: the device
+    time of FPS_FLOOR_PICKS picks over 8 clouds of cs x 1024 points (one
+    point a thread: cs CTAs of 1024 threads), over the picks less one, into
+    PICK_FLOOR_MS.  The least of them times npoint - 1 is each FPS check's
+    serial bound: the picks are serial, and none can take less."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for cs in (1, 2, 4, 8, 16):
+        xyz = torch.rand(8, cs * 1024, 3, device=device, generator=gen)
+        if fps_cluster_of(xyz) != cs:
+            continue  # not a size the wrapper takes for this cloud on this card
+        got = D.furthest_point_sample(xyz, FPS_FLOOR_PICKS)
+        if not torch.equal(got, D.furthest_point_sample_plain(xyz, FPS_FLOOR_PICKS)):
+            raise AssertionError(f"FPS pick floor: cluster {cs} disagrees with its twin")
+        ms = _device_ms(D.furthest_point_sample, (xyz, FPS_FLOOR_PICKS))
+        PICK_FLOOR_MS[cs] = ms / (FPS_FLOOR_PICKS - 1)
+    say("fps", pick_floor_us={cs: f"{1e3 * v:.3f}" for cs, v in PICK_FLOOR_MS.items()},
+        picks=FPS_FLOOR_PICKS, clouds=8, points="cs x 1024")
+
+
+def fps_checks(clouds):
+    """[(kernel, label, fn, args)] of FPS at shapes beside the main paths',
+    so that every cluster size the wrapper takes is checked: 3 of the
+    VoteNet clouds (B = 3, 40000 -> 1024), 8 clouds of 10000 points each
+    present 4 times (ties everywhere), 8 x 8000 -> 512, 8 x 256 -> 256,
+    2 x 5 -> 16 (npoint > N: the rest index 0), and 2 x 100000 -> 64, past
+    what the registers hold (the shared-memory form)."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+
+    dev = clouds.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    distinct = torch.rand(8, 10000, 3, device=dev, generator=gen) * 6.0
+    dup = distinct.repeat(1, 4, 1)[:, torch.randperm(40000, device=dev, generator=gen)]
+
+    def cloud(b_, n, scale=6.0):
+        return torch.rand(b_, n, 3, device=dev, generator=gen) * scale
+
+    shapes = [("B3 40000->1024", clouds[:3].contiguous(), 1024),
+              ("duplicates x4 40000->1024", dup.contiguous(), 1024),
+              ("8000->512", cloud(8, 8000), 512),
+              ("256->256", cloud(8, 256), 256),
+              ("tiny 5->16", cloud(2, 5), 16),
+              ("shared memory 100000->64", cloud(2, 100000, 20.0), 64)]
+    return [("furthest_point_sample", f"K6 FPS {label} (cluster {fps_cluster_of(x)})",
+             D.furthest_point_sample, (x, k)) for label, x, k in shapes]
 
 
 def expected_detect_launches(model) -> dict:
@@ -1370,7 +1485,7 @@ def conv_calls(model, feats, run):
             if kind in ("conv", "k4") and args[1].dim() == 2:  # voxel: one chunk
                 args[1] = args[1][:, None]
                 if kwargs.get("up") is not None:
-                    kwargs["up"] = tuple(u[None] for u in kwargs["up"])
+                    kwargs["up"] = tuple(None if u is None else u[None] for u in kwargs["up"])
                 if kwargs.get("order") is not None:
                     kwargs["order"] = kwargs["order"][None]
         elif kind == "tr":
@@ -1378,6 +1493,8 @@ def conv_calls(model, feats, run):
                 kind = "bup"
             elif args[1].dim() == 1:
                 args[1], args[2] = args[1][None], args[2][None]
+                if kwargs.get("up_order") is not None:
+                    kwargs["up_order"] = kwargs["up_order"][None]
         calls.append((kind, name, mod.weight.detach(), tuple(args), kwargs,
                       args[0] is feats))
 
@@ -1567,7 +1684,7 @@ def conv_checks(model, batch, calls=None):
                             s_in - 1)))
         elif kind == "conv":  # K2
             down, valid = args[1], args[2]
-            parent, off = kw["up"]
+            parent, off, up_order = (*kw["up"], None)[:3]
             s_out = down.shape[2]
             ct = _masked_randn((nb, s_out, cout), valid, gen)
             tag = f"{name} B{nb} S{s_in}->S{s_out} {cin}->{cout}"
@@ -1575,19 +1692,21 @@ def conv_checks(model, batch, calls=None):
                 ("gather_gemm", f"K2 fwd {tag}", K.gather_gemm,
                  (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"))),
                 ("parent_gemm", f"K2 dF {tag}", K.parent_gemm,
-                 (ct, parent, off, wt.contiguous())),
+                 (ct, parent, off, wt.contiguous(), -1, up_order)),
                 ("gather_wgrad", f"K2 dW {tag}", K.gather_wgrad,
                  (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out, s_in - 1,
                   -1)),
             ]
         else:  # K3
             parent, off, valid = args[1], args[2], args[3]
+            up_order = kw.get("up_order")
             s_f = parent.shape[1]
             ct = _masked_randn((nb, s_f, cout), valid, gen)
             dy = K.scatter_parent_plain(ct, parent, off, k, s_in)
             tag = f"{name} B{nb} S{s_in}->S{s_f} {cin}->{cout}"
             checks += [
-                ("parent_gemm", f"K3 fwd {tag}", K.parent_gemm, (f3, parent, off, w)),
+                ("parent_gemm", f"K3 fwd {tag}", K.parent_gemm,
+                 (f3, parent, off, w, s_in - 1, up_order)),
                 ("scatter_parent", f"K3 bwd scatter {tag}", K.scatter_parent,
                  (ct, parent, off, k, s_in)),
                 ("gather_gemm", f"K3 dF {tag}", K.gather_gemm,
@@ -2220,7 +2339,8 @@ def votenet_path(layout, device, card, paths, steps):
     """The sparse-conv VoteNet at the YAML's shapes on batches collated in
     ``layout`` ('chunked' or 'voxel'): the backbone's kernels at the shapes
     of one real forward and K6-K8 against their twins, the kernels-vs-plain
-    step, ``steps`` counted steps and one evaluate."""
+    step, ``steps`` counted steps and one evaluate.  Returns the first
+    batch's clouds [B, N, 3]."""
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools.workload import votenet_model
@@ -2237,6 +2357,7 @@ def votenet_path(layout, device, card, paths, steps):
         exact=("furthest_point_sample", "ball_query", "gather_rows")))
     app = "votenet" if layout == "chunked" else f"votenet {layout}"
     paths[app] = (res, phase_votenet(vb, device, card, model, app, steps=steps))
+    return b.point_clouds[..., 0:3].contiguous()
 
 
 def kernels_line(paths: dict) -> list:
@@ -2282,10 +2403,14 @@ def main() -> int:
 
     phase_build()
     device = torch.device("cuda", 0)
+    fps_pick_floor(device)
     paths = {}  # main path -> (its kernel checks' numbers, its launch counts)
     for layout in ("chunked", "voxel", "brick:2"):
         pretrain_path(layout, device, card, paths)
-    votenet_path("chunked", device, card, paths, STEPS)
+    clouds = votenet_path("chunked", device, card, paths, STEPS)
+    res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
+    paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes
+    del clouds
     votenet_path("voxel", device, card, paths, LAYOUT_STEPS)
     pbatches = make_pointnet2_batches(device)
     pmodel = votenet_model(seed=0, backbone="pointnet2")

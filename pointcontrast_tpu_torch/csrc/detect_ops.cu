@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the PointNet++ ops of the VoteNet
 // detection step (see pointcontrast_tpu_torch/detect/kernels.py for the
 // Python wrappers, their plain-torch twins and which JAX op each replaces):
-//   K6 fps_kernel             furthest point sampling, one block per cloud
+//   K6 fps_kernel             furthest point sampling, one thread-block
+//                             cluster a cloud, points in registers
 //   K7 ball_query_kernel      first nsample in-radius points per centre
 //   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :], a lane
 //                             group a row (row_groups.cuh), HBM-bound
@@ -30,6 +31,7 @@
 //
 // Each C entry returns cudaGetLastError() of its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -48,82 +50,268 @@ __device__ __forceinline__ float dot3_fma(float ax, float ay, float az,
   return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
 }
 
-// (value, index) pair order of an argmax that keeps the FIRST maximum
-__device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+// K6: idx[b, 0] = 0; idx[b, t] = argmax_i min_{s<t} |p_i - p_idx[b,s]|^2,
+// ties to the lower index (jnp.argmax / torch.argmax).  What bounds it: the
+// npoint - 1 picks are serial, each a pass over the cloud (9 f32
+// operations a point) and an argmax over it, so a pick's latency, not the
+// card's rates: one block a cloud held 8 of 132 SMs at batch 8 and re-read
+// ~40 points and distances a thread from global memory at every pick.  The
+// design:
+//  - one thread-block cluster of cs CTAs a cloud (cudaLaunchKernelEx with
+//    the cluster attribute; cs up to 16, non-portable past 8, chosen by
+//    pc_fps_cluster so that the batch's clusters run at once): CTA r owns
+//    points [r per_cta, (r + 1) per_cta) and thread t points t + j T of
+//    them, j < P, held with their running distances in registers for the
+//    whole launch (P a template parameter, <= FPS_MAX_P at 1024 threads and
+//    64 registers), or in shared memory for a cloud past the registers'
+//    capacity (FPS_SMEM);
+//  - a pick: every thread updates its distances from the last pick with
+//    the twin's spelling (__fsub_rn, dot3_fma, fminf) and keeps its best
+//    (distance, index) and that point's xyz; two warp reductions
+//    (redux.sync: the largest key, a distance's bits, then the lowest
+//    index that holds it: ties to the lower index) give the warp's winner,
+//    which the lane holding it stores with its xyz; after __syncthreads
+//    warp 0 reduces the warps' winners the same way and stores the CTA's,
+//    through DSMEM (mapa, st.shared::cluster), into its slot in every CTA
+//    of the cluster, double-buffered by the pick's parity, then arrives on
+//    that CTA's mbarrier of the parity (release, cluster scope); every
+//    thread waits on its own CTA's mbarrier (acquire) for the cs slots and
+//    every warp reduces them to the same winner, with its xyz; rank 0
+//    writes out[b, t].  A pick costs one __syncthreads and one wait for cs
+//    point-to-point arrivals (a cluster barrier over all the cluster's
+//    threads cost ~0.85 us a pick more than one CTA alone, PERF.md), and no
+//    global memory is touched between the first and the last pick but the
+//    output;
+//  - a slot of parity t & 1 (and its mbarrier) is used again at pick t + 2
+//    by a CTA that has the winner of pick t + 1, so every CTA's
+//    contribution to it, made after its __syncthreads of pick t + 1, after
+//    its threads' reads and waits of pick t: two of each suffice.
+constexpr int FPS_MAX_P = 6;  // points a thread holds in registers at most
+constexpr int FPS_MAX_CLUSTER = 16;
+constexpr int FPS_SMEM = 0;   // the template's P of the shared-memory form
+// dynamic shared memory of the shared-memory form at most: 227 KB a block
+// less the kernel's static slots
+constexpr size_t FPS_SMEM_BYTES = 232448 - 1024;
+
+__device__ __forceinline__ void cluster_barrier() {
+  __syncwarp();  // .aligned: the warp's lanes arrive together
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// K6: idx[b, 0] = 0; idx[b, t] = argmax_i min_{s<t} |p_i - p_idx[b,s]|^2.
-// One block per cloud.  dist [B, N] is scratch holding each point's running
-// min-distance; thread t owns points t, t + blockDim, ... (so its local
-// argmax with a strict > keeps the lowest index), then a warp-shuffle and a
-// shared-memory stage reduce (value, index) with ties to the lower index,
-// as jnp.argmax / torch.argmax do.
-__global__ void __launch_bounds__(FPS_MAX_THREADS)
-fps_kernel(const float* __restrict__ xyz, float* __restrict__ dist,
-           int* __restrict__ out, int N, int npoint) {
-  __shared__ float wval[FPS_MAX_THREADS / 32];
-  __shared__ int widx[FPS_MAX_THREADS / 32];
-  __shared__ int chosen;
-  const int b = blockIdx.x;
-  const float* p = xyz + (int64_t)b * N * 3;
-  float* d = dist + (int64_t)b * N;
-  int* o = out + (int64_t)b * npoint;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
+// Distributed shared memory by hand: the address of a shared variable in
+// CTA `rank` of the cluster, a store there, and an arrival on an mbarrier
+// there whose release orders the thread's stores before it.
+__device__ __forceinline__ unsigned cluster_addr(const void* local, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"((unsigned)__cvta_generic_to_shared(local)), "r"(rank));
+  return r;
+}
 
-  for (int i = tid; i < N; i += blockDim.x) d[i] = INFINITY;
-  if (tid == 0) o[0] = 0;
-  int last = 0;
-  for (int t = 1; t < npoint; ++t) {
-    const float lx = p[3 * last], ly = p[3 * last + 1], lz = p[3 * last + 2];
-    float best = -1.0f;  // below every distance
-    int besti = 0x7fffffff;
-    for (int i = tid; i < N; i += blockDim.x) {
-      const float dx = __fsub_rn(p[3 * i], lx), dy = __fsub_rn(p[3 * i + 1], ly),
-                  dz = __fsub_rn(p[3 * i + 2], lz);
-      const float di = dot3_fma(dx, dy, dz, dx, dy, dz);
-      const float m = fminf(d[i], di);
-      d[i] = m;
-      if (m > best) {
-        best = m;
-        besti = i;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, besti, off);
-      if (beats(ov, oi, best, besti)) {
-        best = ov;
-        besti = oi;
-      }
-    }
-    if (lane == 0) {
-      wval[warp] = best;
-      widx[warp] = besti;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < nwarps ? wval[lane] : -1.0f;
-      besti = lane < nwarps ? widx[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, besti, off);
-        if (beats(ov, oi, best, besti)) {
-          best = ov;
-          besti = oi;
-        }
-      }
-      if (lane == 0) {
-        chosen = besti;
-        o[t] = besti;
-      }
-    }
-    __syncthreads();
-    last = chosen;
+__device__ __forceinline__ void st_cluster(unsigned addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+// Wait until the phase of parity `parity` of this CTA's mbarrier is done,
+// acquiring what the arrivals released.
+__device__ __forceinline__ void mbar_wait(const void* bar, unsigned parity) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   }
+}
+
+// The argmax key of a thread's best distance: a non-negative float's bits
+// order as unsigned ints, and + 1 leaves 0 to a thread with no point (its
+// best -1).
+__device__ __forceinline__ unsigned fps_key(float best) {
+  return best < 0.f ? 0u : __float_as_uint(best) + 1u;
+}
+
+// The warp's winner of (key, index) pairs: the largest key, and the lowest
+// index among the lanes that hold it (ties to the lower index),
+// in two warp reductions (redux.sync); every lane ends with it.
+__device__ __forceinline__ void warp_argmax(unsigned& key, unsigned& idx) {
+  const unsigned k = __reduce_max_sync(0xffffffffu, key);
+  idx = __reduce_min_sync(0xffffffffu, key == k ? idx : 0xffffffffu);
+  key = k;
+}
+
+// The lane that holds the warp's winner (k, i) among the lanes whose own
+// pair (ok, oi) is valid: the first that holds it.
+__device__ __forceinline__ int winner_lane(bool valid, unsigned ok, unsigned oi, unsigned k,
+                                           unsigned i) {
+  return __ffs(__ballot_sync(0xffffffffu, valid && ok == k && oi == i)) - 1;
+}
+
+// One point's update: its distance to the last pick (lx, ly, lz), the
+// running minimum, and the thread's best so far (points visited in
+// increasing index, so a strict > keeps the lowest index of a tie).
+__device__ __forceinline__ void fps_visit(float x, float y, float z, float& d, unsigned i,
+                                          float lx, float ly, float lz, float& best,
+                                          unsigned& besti, float& bx, float& by, float& bz) {
+  const float dx = __fsub_rn(x, lx), dy = __fsub_rn(y, ly), dz = __fsub_rn(z, lz);
+  d = fminf(d, dot3_fma(dx, dy, dz, dx, dy, dz));
+  if (d > best) {
+    best = d;
+    besti = i;
+    bx = x;
+    by = y;
+    bz = z;
+  }
+}
+
+// P > 0: P points a thread in registers; P == FPS_SMEM: `per_thread` points
+// a thread in dynamic shared memory (x, y, z, distance: 4 arrays of
+// per_thread * blockDim.x floats).  Points past the cloud hold distance -1,
+// below every real one, so they never win.  A cluster of one CTA (the
+// small clouds) skips the cluster barrier and DSMEM: every warp reduces the
+// warps' winners itself, one __syncthreads a pick (the warps' slots
+// double-buffered by parity, like the CTAs').
+template <int P>
+__global__ void __launch_bounds__(FPS_MAX_THREADS, 1)
+fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int N, int npoint,
+           int per_cta, int per_thread) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float fps_pts[];
+  __shared__ uint4 wslot[2][FPS_MAX_THREADS / 32];  // warp winners: key, index, x, y
+  __shared__ float wz[2][FPS_MAX_THREADS / 32];
+  // the CTAs' winners by parity and rank (each CTA stores its own into every
+  // CTA of the cluster): key, index, x, y; and z
+  __shared__ uint4 cslot[2][FPS_MAX_CLUSTER];
+  __shared__ float cz[2][FPS_MAX_CLUSTER];
+  // by parity: the pick's cs slots have landed (each CTA arrives once)
+  __shared__ __align__(8) unsigned long long landed[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, nwarps = T >> 5;
+  const float* p = xyz + (int64_t)b * N * 3;
+  int* o = out + (int64_t)b * npoint;
+  const int base = rank * per_cta, end = min(N, base + per_cta);
+
+  constexpr int PR = P > 0 ? P : 1;
+  float px[PR], py[PR], pz[PR], pd[PR];
+  float *sx = fps_pts, *sy = sx + per_thread * T, *sz = sy + per_thread * T,
+        *sd = sz + per_thread * T;
+  if constexpr (P > 0) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int i = base + tid + j * T;
+      const bool in = i < end;
+      px[j] = in ? p[3 * i] : 0.f;
+      py[j] = in ? p[3 * i + 1] : 0.f;
+      pz[j] = in ? p[3 * i + 2] : 0.f;
+      pd[j] = in ? INFINITY : -1.f;
+    }
+  } else {
+    for (int j = 0; j < per_thread; ++j) {
+      const int l = j * T + tid, i = base + l;
+      const bool in = i < end;
+      sx[l] = in ? p[3 * i] : 0.f;
+      sy[l] = in ? p[3 * i + 1] : 0.f;
+      sz[l] = in ? p[3 * i + 2] : 0.f;
+      sd[l] = in ? INFINITY : -1.f;
+    }
+  }
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (rank == 0 && tid == 0) o[0] = 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"((unsigned)__cvta_generic_to_shared(&landed[q])), "r"(cs) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_barrier();  // every CTA runs, its barriers set, before a DSMEM store
+
+  for (int t = 1; t < npoint; ++t) {
+    const int par = t & 1;
+    float best = -1.f, bx = 0.f, by = 0.f, bz = 0.f;
+    unsigned besti = 0xffffffffu;
+    if constexpr (P > 0) {
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        fps_visit(px[j], py[j], pz[j], pd[j], base + tid + j * T, lx, ly, lz, best, besti,
+                  bx, by, bz);
+    } else {
+      for (int j = 0; j < per_thread; ++j) {
+        const int l = j * T + tid;
+        float d = sd[l];
+        fps_visit(sx[l], sy[l], sz[l], d, base + l, lx, ly, lz, best, besti, bx, by, bz);
+        sd[l] = d;
+      }
+    }
+    {  // the warp's winner, stored by the lane that holds it (lane 0: none)
+      const unsigned mk = fps_key(best);
+      unsigned k = mk, i = besti;
+      warp_argmax(k, i);
+      if (lane == winner_lane(true, mk, besti, k, i)) {
+        wslot[par][warp] = make_uint4(k, i, __float_as_uint(bx), __float_as_uint(by));
+        wz[par][warp] = bz;
+      }
+    }
+    __syncthreads();
+    if (cs == 1 || warp == 0) {  // the CTA's winner: every warp, or warp 0
+      unsigned k = 0u, i = 0xffffffffu;
+      if (lane < nwarps) {
+        const uint4 s = wslot[par][lane];
+        k = s.x;
+        i = s.y;
+      }
+      const unsigned mk = k, mi = i;
+      warp_argmax(k, i);
+      const int src = winner_lane(lane < nwarps, mk, mi, k, i);
+      const uint4 s = wslot[par][src];
+      if (cs == 1) {
+        lx = __uint_as_float(s.z);
+        ly = __uint_as_float(s.w);
+        lz = wz[par][src];
+        if (tid == 0) o[t] = (int)i;
+        continue;
+      }
+      if (lane < cs) {  // into every CTA of the cluster, lane r into rank r
+        st_cluster(cluster_addr(&cslot[par][rank], lane), s);
+        st_cluster(cluster_addr(&cz[par][rank], lane), wz[par][src]);
+        mbar_arrive_cluster(cluster_addr(&landed[par], lane));
+      }
+    }
+    mbar_wait(&landed[par], ((t - 1) >> 1) & 1);  // landed[par]'s ((t - 1) / 2)-th phase
+    {  // the cluster's winner: every warp, from its CTA's copies
+      unsigned k = 0u, i = 0xffffffffu;
+      if (lane < cs) {
+        const uint4 s = cslot[par][lane];
+        k = s.x;
+        i = s.y;
+      }
+      const unsigned mk = k, mi = i;
+      warp_argmax(k, i);
+      const int src = winner_lane(lane < cs, mk, mi, k, i);
+      const uint4 s = cslot[par][src];
+      lx = __uint_as_float(s.z);
+      ly = __uint_as_float(s.w);
+      lz = cz[par][src];
+      if (rank == 0 && tid == 0) o[t] = (int)i;
+    }
+  }
+  // no barrier to leave on: a CTA waits for every store into it, and reads
+  // nothing of its peers
 }
 
 // K7: for centre (b, m), the first nsample points j (in point order) with
@@ -641,17 +829,123 @@ int grid_for(int64_t total, int threads) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+// FPS's launch shape for a cluster of cs CTAs over N points: per_cta
+// points a CTA, per_thread a thread, T threads, and P, the template (0: the
+// points in shared memory, smem bytes of them); false when the cloud is past
+// both forms' capacity at this cs.
+bool fps_shape(int N, int cs, int* per_cta, int* per_thread, int* T, int* P, size_t* smem) {
+  *per_cta = (N + cs - 1) / cs;
+  const int per = (*per_cta + FPS_MAX_THREADS - 1) / FPS_MAX_THREADS;  // points a thread
+  const int t = (*per_cta + per - 1) / per;
+  *T = (t + 31) / 32 * 32;
+  *per_thread = per;
+  *P = per <= FPS_MAX_P ? per : FPS_SMEM;
+  *smem = *P == FPS_SMEM ? sizeof(float) * 4 * per * *T : 0;
+  return *smem <= FPS_SMEM_BYTES;
+}
+
+// The kernel instance of P (FPS_SMEM: the shared-memory form).
+void* fps_instance(int P) {
+  switch (P) {
+    case 1: return (void*)fps_kernel<1>;
+    case 2: return (void*)fps_kernel<2>;
+    case 3: return (void*)fps_kernel<3>;
+    case 4: return (void*)fps_kernel<4>;
+    case 5: return (void*)fps_kernel<5>;
+    case 6: return (void*)fps_kernel<6>;
+    default: return (void*)fps_kernel<FPS_SMEM>;
+  }
+}
+
+// The launch configuration of B clouds at cs CTAs a cloud (the cluster
+// attribute set; `attr` holds it), after the kernel's one-time attributes:
+// non-portable cluster sizes, and the dynamic shared memory it needs.
+cudaError_t fps_config(int B, int cs, int T, int P, size_t smem, cudaStream_t stream,
+                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  static bool portable_off[FPS_MAX_P + 1] = {};  // by P
+  static size_t granted[FPS_MAX_P + 1] = {};
+  void* kernel = fps_instance(P);
+  if (!portable_off[P]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    portable_off[P] = true;
+  }
+  if (smem > granted[P]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted[P] = smem;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(B * cs);
+  cfg->blockDim = dim3(T);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-int pc_fps(const void* xyz, void* dist, void* out, int B, int N, int npoint,
-           void* stream) {
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > FPS_MAX_THREADS) threads = FPS_MAX_THREADS;
-  fps_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)xyz, (float*)dist, (int*)out, N, npoint);
-  return (int)cudaGetLastError();
+// FPS: the cluster size for B clouds of N points, at most FPS_MAX_CLUSTER
+// CTAs a cloud (1, 2, 4, 8 or 16).  One CTA while its registers hold the cloud
+// (N <= FPS_MAX_THREADS FPS_MAX_P): a pick across CTAs costs ~0.7 us more
+// than within one (PERF.md), more than a few more points a thread do.
+// Past that, the largest that gives each CTA at least FPS_MAX_THREADS
+// points while the batch's B clusters fit on the card's SMs at once
+// (cudaOccupancyMaxActiveClusters), with the points in registers or shared
+// memory; failing both, the smallest that holds the cloud and fits.
+// Returns cs, -1 when no cluster size holds the cloud, or -(CUDA error)
+// when the card refuses every one that does.
+int pc_fps_cluster(int B, int N) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool one_cta = (N + FPS_MAX_THREADS - 1) / FPS_MAX_THREADS <= FPS_MAX_P;
+  int fallback = -1, err = 0;
+  for (int cs = FPS_MAX_CLUSTER; cs >= 1; cs >>= 1) {
+    int per_cta, per_thread, T, P;
+    size_t smem;
+    if (!fps_shape(N, cs, &per_cta, &per_thread, &T, &P, &smem)) continue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t e = fps_config(B, cs, T, P, smem, nullptr, &cfg, &attr);
+    int clusters = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, fps_instance(P), &cfg);
+    if (e != cudaSuccess || clusters < 1) {
+      cudaGetLastError();  // a refused size is not the caller's error
+      err = e != cudaSuccess ? (int)e : (int)cudaErrorInvalidClusterSize;
+      continue;
+    }
+    fallback = cs;  // the smallest that fits, so far
+    const bool preferred = cs == 1 || (!one_cta && per_cta >= FPS_MAX_THREADS);
+    if (preferred && clusters >= B && B * cs <= sms) return cs;
+  }
+  return fallback > 0 ? fallback : err != 0 ? -err : -1;
+}
+
+int pc_fps(const void* xyz, void* out, int B, int N, int npoint, int cs, void* stream) {
+  int per_cta, per_thread, T, P;
+  size_t smem;
+  if (!fps_shape(N, cs, &per_cta, &per_thread, &T, &P, &smem))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t e = fps_config(B, cs, T, P, smem, (cudaStream_t)stream, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  const float* xp = (const float*)xyz;
+  int* op = (int*)out;
+  void* args[] = {&xp, &op, &N, &npoint, &per_cta, &per_thread};
+  const cudaError_t l = cudaLaunchKernelExC(&cfg, fps_instance(P), args);
+  return (int)(l != cudaSuccess ? l : cudaGetLastError());
 }
 
 int pc_ball_query(const void* centres, const void* xyz, void* out, int B, int M,

@@ -28,10 +28,11 @@
 // give the designs).  They stay f32 on the SIMT pipes: the port's twins,
 // CPU tests and step checks rest on f32 products, TF32 keeps ~3 digits and
 // 3xTF32 on mma.sync costs about what SIMT f32 does; the tensor-core route
-// (wgmma) comes with bf16 operands.  The other GEMM kernels (parent_gemm,
-// scatter_gemm, brick_*) are simple tiled SIMT f32 kernels: each block
-// stages its rows and a weight tile in shared memory and accumulates a 4x4
-// micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
+// (wgmma) comes with bf16 operands.  parent_gemm (c) runs the same
+// pipeline over the fine rows in the pyramid's up order, one offset's
+// weights a step.  The other GEMM kernels (scatter_gemm, brick_*) are
+// simple tiled SIMT f32 kernels: each block stages its rows and a weight
+// tile in shared memory and accumulates a 4x4 micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
 // and JAX's jnp.take and its autodiff in the brick layout's placement and
 // up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
 // so HBM bytes bound them.  Both give each row a lane group
@@ -245,6 +246,64 @@ __device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const float* as
   }
 }
 
+// Stage a step's row tile: row m of `as` [BM][BK] is Xb's row row(m) at
+// depth k0 (zero-filled where row(m) < 0 and past Cin), by 16-byte cp.async
+// (4-byte where Cin % 4 != 0 or Xb is unaligned), the 16-byte chunks of row
+// m at index XOR (m / 4) % 8.
+template <typename RowOf>
+__device__ __forceinline__ void gg_load_rows(float* as, const float* Xb, RowOf row, int k0,
+                                             int Cin, int vec_x, int tid) {
+  constexpr int BM = gg::BM, BK = gg::BK, THREADS = gg::THREADS;
+  if (vec_x) {
+#pragma unroll
+    for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
+      const int e = tid + u * THREADS;
+      const int m = e >> 3, c = e & 7;
+      const int r = row(m);
+      const bool ok = r >= 0 && k0 + 4 * c < Cin;
+      cp_async16(as + m * BK + ((c ^ ((m >> 2) & 7)) << 2),
+                 ok ? Xb + (int64_t)r * Cin + k0 + 4 * c : Xb, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < BM * BK / THREADS; ++u) {
+      const int e = tid + u * THREADS;
+      const int m = e >> 5, k = e & 31;
+      const int r = row(m);
+      const bool ok = r >= 0 && k0 + k < Cin;
+      cp_async4(as + m * BK + ((((k >> 2) ^ ((m >> 2) & 7))) << 2) + (k & 3),
+                ok ? Xb + (int64_t)r * Cin + k0 + k : Xb, ok);
+    }
+  }
+}
+
+// Stage a step's weight tile: `bs` [BK][32 Q] is Wt [Cin][Cout] at (k0, n0),
+// zero-filled past Cin and Cout, by 16-byte cp.async (4-byte unless vec_w).
+template <int Q>
+__device__ __forceinline__ void gg_load_w(float* bs, const float* Wt, int k0, int n0,
+                                          int Cin, int Cout, int vec_w, int tid) {
+  constexpr int BN = 32 * Q, THREADS = gg::THREADS;
+  if (vec_w) {
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {  // BK * BN / 4 / THREADS
+      const int e = tid + u * THREADS;
+      const int kk = e / (BN / 4), c = e % (BN / 4);
+      const int n = n0 + 4 * c;
+      const bool ok = k0 + kk < Cin && n < Cout;
+      cp_async16(bs + kk * BN + 4 * c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < 4 * Q; ++u) {
+      const int e = tid + u * THREADS;
+      const int kk = e / BN, c = e % BN;
+      const int n = n0 + c;
+      const bool ok = k0 + kk < Cin && n < Cout;
+      cp_async4(bs + kk * BN + c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+    }
+  }
+}
+
 template <int Q>
 __global__ void __launch_bounds__(gg::THREADS, 2)
 gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
@@ -309,50 +368,10 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
     const int t = live[1 + step / kchunks];
     const int k0 = (step % kchunks) * BK;
     const int* rt = rows + t * BM;
-    float* as = As + buf * BM * BK;
-    float* bs = Bs + buf * BK * BN;
-    if (vec_x) {
-#pragma unroll
-      for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
-        const int e = tid + u * THREADS;
-        const int m = e >> 3, c = e & 7;
-        const int r = rt[m];
-        const bool ok = r >= 0 && k0 + 4 * c < Cin;
-        cp_async16(as + m * BK + ((c ^ ((m >> 2) & 7)) << 2),
-                      ok ? Xb + (int64_t)r * Cin + k0 + 4 * c : Xb, ok);
-      }
-    } else {
-#pragma unroll 4
-      for (int u = 0; u < BM * BK / THREADS; ++u) {
-        const int e = tid + u * THREADS;
-        const int m = e >> 5, k = e & 31;
-        const int r = rt[m];
-        const bool ok = r >= 0 && k0 + k < Cin;
-        cp_async4(as + m * BK + ((((k >> 2) ^ ((m >> 2) & 7))) << 2) + (k & 3),
-                  ok ? Xb + (int64_t)r * Cin + k0 + k : Xb, ok);
-      }
-    }
+    gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin, vec_x, tid);
     const int j = t_lo + t;
-    const float* Wt = j == G ? Wc : W + (int64_t)j * Cin * Cout;
-    if (vec_w) {
-#pragma unroll
-      for (int u = 0; u < Q; ++u) {  // BK * BN / 4 / THREADS
-        const int e = tid + u * THREADS;
-        const int kk = e / (BN / 4), c = e % (BN / 4);
-        const int n = n0 + 4 * c;
-        const bool ok = k0 + kk < Cin && n < Cout;
-        cp_async16(bs + kk * BN + 4 * c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
-      }
-    } else {
-#pragma unroll 4
-      for (int u = 0; u < 4 * Q; ++u) {
-        const int e = tid + u * THREADS;
-        const int kk = e / BN, c = e % BN;
-        const int n = n0 + c;
-        const bool ok = k0 + kk < Cin && n < Cout;
-        cp_async4(bs + kk * BN + c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
-      }
-    }
+    gg_load_w<Q>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout, k0, n0, Cin,
+                 Cout, vec_w, tid);
   };
 
   float4 acc[TM][Q];
@@ -692,73 +711,155 @@ gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
   }
 }
 
-constexpr int KO = 8;    // offsets of a k2s2 kernel (2^3)
-constexpr int PBK = 8;   // reduction depth of parent_gemm (8 weight tiles staged)
+// (c) parent_gemm: out[b,i,:] = X[b, parent[b,i], :] . W[off[b,i]], zeros
+// where parent[b,i] is `skip` (or outside [0, S_c)).  JAX K3 _conv_tr_chunk's
+// forward (skip: the coarse pad row, whose features are zero) and K2
+// _conv_chunk_down2's dF with W^T (skip -1: an orphaned fine voxel reads the
+// cotangent's pad row, which only the output mask's adjoint zeroes).  What
+// bounds it: 2 Cin Cout f32 operations a fine row whose parent is live
+// (f32 SIMT), and at Cin = Cout = 32 the parents' rows (each read by up to 8
+// children) and the output.  A row multiplies one of 8 weight matrices,
+// chosen by its offset, so the design tiles the rows by offset and runs
+// gather_gemm's pipeline over (offset, Cin chunk) steps:
+//  - a block owns BM = 128 consecutive entries of `order` (the up order,
+//    built with the pyramid: each chunk's fine rows by offset, those whose
+//    parent is the coarse pad row last, topology.up_order) or, without it,
+//    128 consecutive rows, and a Cout tile of 32 Q channels (gg::q_for);
+//    each output row is written once, so the order changes no result.  In
+//    the up order a tile spans one offset, or a few at a run boundary and
+//    at the small levels;
+//  - prologue: the tile's rows, parents and offsets into shared memory,
+//    and per 16-row warp fragment the set of offsets of its live rows;
+//    the block steps over the offsets present in the tile (with `splits`
+//    blocks a tile, at small grids, over every splits-th of them: the rows
+//    of different offsets are disjoint, so each block writes its own rows
+//    and nothing is added across blocks);
+//  - main loop over (offset, 32-deep Cin chunk) steps through gather_gemm's
+//    3-stage cp.async ring: that offset's weight tile and the tile's rows
+//    of that offset, the other rows zero-filled (their products add +-0,
+//    which changes no bit of a row's sum), swizzled as gather_gemm's; a
+//    warp whose fragment holds no row of the offset skips the step's FMAs
+//    (gg_mma), accumulators in registers;
+//  - every row's sum runs over its own offset's Cin in order: the same
+//    bits from run to run, no atomics.
+namespace pg {
+constexpr int KO = 8;  // offsets of a k2s2 kernel (2^3)
+constexpr int FRAGS = gg::BM / 16;
 
-// (c) out[b,i,:] = X[b, parent[b,i], :] . W[off[b,i]]
-// grid (ceil(S_f/BM), ceil(Cout/BN), B)
-__global__ void __launch_bounds__(THREADS)
+inline size_t smem_bytes(int Q) {
+  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+         sizeof(int) * (3 * gg::BM + FRAGS + KO + 2);
+}
+}  // namespace pg
+
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
 parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
                    const int* __restrict__ off, const float* __restrict__ W,
-                   float* __restrict__ out, int S_c, int S_f, int Cin, int Cout) {
-  __shared__ float As[PBK][BM + 4];
-  __shared__ float Ws[KO][PBK][BN];
-  __shared__ int prow[BM], poff[BM];
+                   const int* __restrict__ order, float* __restrict__ out, int splits,
+                   int S_c, int S_f, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
+  constexpr int TM = gg::TM, BN = 32 * Q, KO = pg::KO, FRAGS = pg::FRAGS;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                           // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                          // [STAGES][BK][BN]
+  int* prow = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [BM] parent, -1: none
+  int* poff = prow + BM;                                      // [BM] offset
+  int* srow = poff + BM;                                      // [BM] output row, -1 past S_f
+  unsigned* fmask = reinterpret_cast<unsigned*>(srow + BM);   // [FRAGS] offsets present
+  int* offs = reinterpret_cast<int*>(fmask + FRAGS);  // count, the offsets, own mask
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
   const float* Xb = X + (int64_t)b * S_c * Cin;
-  if (tid < BM) {
-    const int s = s0 + tid;
-    const bool in = s < S_f;
-    prow[tid] = in ? __ldg(parent + (int64_t)b * S_f + s) : -1;
-    poff[tid] = in ? __ldg(off + (int64_t)b * S_f + s) : 0;
+
+  if (tid < BM) {  // whole warps
+    const int e = s0 + tid;
+    int s = -1, r = -1, o = 0;
+    if (e < S_f) {
+      s = order != nullptr ? __ldg(order + (int64_t)b * S_f + e) : e;
+      r = __ldg(parent + (int64_t)b * S_f + s);
+      o = __ldg(off + (int64_t)b * S_f + s);
+      if (r == skip || r < 0 || r >= S_c || o < 0 || o >= KO) r = -1;
+    }
+    srow[tid] = s;
+    prow[tid] = r;
+    poff[tid] = o;
+    unsigned bits = r >= 0 ? 1u << o : 0u;
+#pragma unroll
+    for (int d = 8; d > 0; d >>= 1) bits |= __shfl_xor_sync(0xffffffffu, bits, d);
+    if ((lane & 15) == 0) fmask[tid >> 4] = bits;
   }
   __syncthreads();
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < Cin; k0 += PBK) {
+  if (tid == 0) {
+    unsigned any = 0;
 #pragma unroll
-    for (int i = 0; i < (BM * PBK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int m = e / PBK, kk = e % PBK;
-      const int r = prow[m];
-      As[kk][m] = (r >= 0 && k0 + kk < Cin)
-                      ? __ldg(Xb + (int64_t)r * Cin + k0 + kk) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (KO * PBK * BN) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int o = e / (PBK * BN), kk = (e / BN) % PBK, n = e % BN;
-      Ws[o][kk][n] = (k0 + kk < Cin && n0 + n < Cout)
-                         ? __ldg(W + ((int64_t)o * Cin + k0 + kk) * Cout + n0 + n)
-                         : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = poff[ty * 4 + i];
-#pragma unroll
-      for (int kk = 0; kk < PBK; ++kk) {
-        const float a = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[i][q] = fmaf(a, Ws[o][kk][tx * 4 + q], acc[i][q]);
+    for (int f = 0; f < FRAGS; ++f) any |= fmask[f];
+    int n = 0, seen = 0;
+    unsigned own = 0;
+    for (int o = 0; o < KO; ++o) {
+      if (!((any >> o) & 1u)) continue;
+      if (seen++ % splits == sp) {
+        offs[1 + n++] = o;
+        own |= 1u << o;
       }
     }
-    __syncthreads();
+    offs[0] = n;
+    offs[1 + KO] = (int)own;
   }
+  __syncthreads();
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = offs[0] * kchunks;
+
+  auto load = [&](int step, int buf) {
+    const int o = offs[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return poff[m] == o ? prow[m] : -1; },
+                 k0, Cin, vec_x, tid);
+    gg_load_w<Q>(Bs + buf * BK * BN, W + (int64_t)o * Cin * Cout, k0, n0, Cin, Cout, vec_w,
+                 tid);
+  };
+
+  float4 acc[TM][Q];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + ty * 4 + i;
-    if (s >= S_f) continue;
-    float* o = out + ((int64_t)b * S_f + s) * Cout;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < Cout) o[n] = acc[i][q];
+    for (int q = 0; q < Q; ++q) acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  const int sw = ty & 7;  // the swizzle of this thread's rows: (4 ty + i) / 4 % 8
+  const unsigned mine = fmask[warp];  // warp w's fragment: rows [16 w, 16 w + 16)
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
     }
+    if (!((mine >> offs[1 + step / kchunks]) & 1u)) continue;  // no row of this offset
+    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+  }
+  cp_async_wait<0>();
+
+  // each row by the block that owns its offset; skipped rows (zeros) by split 0
+  const unsigned own = (unsigned)offs[1 + KO];
+  const bool vec_o = Cout % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = 4 * ty + i;
+    const int s = srow[m];
+    if (s < 0 || (prow[m] >= 0 ? !((own >> poff[m]) & 1u) : sp != 0)) continue;
+    float* row = out + ((int64_t)b * S_f + s) * Cout;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
   }
 }
 
@@ -800,7 +901,7 @@ scatter_parent_kernel(const float* __restrict__ ct,
   o = row_groups::shfl<G>(o, 0);
   if (p == S_c - 1) return;  // the pad slot: left out
   const float* src = ct + row * C;
-  float* dst = dy + ((b * KO + o) * S_c + p) * C;
+  float* dst = dy + ((b * pg::KO + o) * S_c + p) * C;
   if constexpr (VEC) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
@@ -1415,13 +1516,29 @@ int pc_gather_wgrad_tiles(int Ca, int Cg) {
   return ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
 }
 
-int pc_parent_gemm(const void* X, const void* parent, const void* off,
-                   const void* W, void* out, int B, int S_c, int S_f, int Cin,
-                   int Cout, void* stream) {
-  dim3 grid((S_f + BM - 1) / BM, (Cout + BN - 1) / BN, B);
-  parent_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const int*)parent, (const int*)off, (const float*)W,
-      (float*)out, S_c, S_f, Cin, Cout);
+int pc_parent_gemm(const void* X, const void* parent, const void* off, const void* W,
+                   const void* order, void* out, int B, int S_c, int S_f, int Cin,
+                   int Cout, int skip, int splits, void* stream) {
+  const int q = gg::q_for(Cout);
+  const size_t smem = pg::smem_bytes(q);
+  const int vec_x = Cin % 4 == 0 && aligned16(X);
+  const int vec_w = Cout % 4 == 0 && aligned16(W);
+  const dim3 grid((S_f + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
+  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[q]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[q] = smem;
+    }
+    kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)parent, (const int*)off, (const float*)W,
+        (const int*)order, (float*)out, splits, S_c, S_f, Cin, Cout, skip, vec_x, vec_w);
+  };
+  switch (q) {
+    case 1: go(parent_gemm_kernel<1>); break;
+    case 2: go(parent_gemm_kernel<2>); break;
+    default: go(parent_gemm_kernel<3>); break;
+  }
   return (int)cudaGetLastError();
 }
 

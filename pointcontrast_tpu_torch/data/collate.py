@@ -109,19 +109,31 @@ def _check_shape(name: str, a, shape) -> None:
         raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
 
 
+def _check_permutation(name: str, o, shape) -> None:
+    """``o`` has ``shape`` and is, along its last axis (per chunk), a
+    permutation of the rows: a kernel writes the row each entry names."""
+    _check_shape(name, o, shape)
+    if not (np.sort(o, axis=-1) == np.arange(o.shape[-1])).all():
+        raise ValueError(f"{name}: not a permutation of its rows")
+
+
 def _check_orders(l: int, lv: LevelTopo) -> None:
     """Each live order present is, per chunk (flat: of the one table), a
-    permutation of its map's output rows: the gather GEMM writes the row
-    each entry names."""
+    permutation of its map's output rows (the gather GEMM writes the row
+    each entry names), and the up order one of the parent map's fine rows
+    (``parent_gemm`` does the same); the parent map is a per-row vector,
+    so the up order has its shape, not a map's ``shape[1:]``."""
     for name, oname in ORDERED_MAPS:
         m, o = getattr(lv, name), getattr(lv, oname)
         if o is None:
             continue
         if m is None or isinstance(m, (BrickMap, BrickDownMap)):
             raise ValueError(f"level {l} {oname}: no gather map {name} to order")
-        _check_shape(f"level {l} {oname}", o, m.shape[1:])
-        if not (np.sort(o, axis=-1) == np.arange(o.shape[-1])).all():
-            raise ValueError(f"level {l} {oname}: not a permutation of its rows")
+        _check_permutation(f"level {l} {oname}", o, m.shape[1:])
+    if lv.up_order is not None:
+        if lv.up_parent is None or lv.up_offset is None:
+            raise ValueError(f"level {l} up_order: no parent map to order")
+        _check_permutation(f"level {l} up_order", lv.up_order, lv.up_parent.shape)
 
 
 def _check_chunked(pyr: Pyramid) -> list[int]:
@@ -221,7 +233,8 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     ``npad_{l+1}``.  Brick levels: ``BrickMap.nbr < NB``, ``place < NB``,
     ``up_parent`` (the up-gather) below the next level's rows, the
     boundary's row counts.  Chunked and flat: each live order a
-    permutation of its map's output rows.  Every layout: the sample ids ``batch <= B``
+    permutation of its map's output rows, the up order one of the parent
+    map's fine rows.  Every layout: the sample ids ``batch <= B``
     (``B``: pad rows) that global pooling reads, at the level's rows.
     Returns the rows of every level's feature table; raises ``ValueError``
     naming the first map out of range."""
@@ -263,6 +276,7 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
             up_offset=_to_index(lv.up_offset, device),
             nbr0=_map_to(lv.nbr0, device),
             down_nbr3=_to_index(lv.down_nbr3, device),
+            up_order=_to_index(lv.up_order, device),
             rev=lv.rev,
             rev0=lv.rev0,
             **{o: _to_index(getattr(lv, o), device) for _, o in ORDERED_MAPS},

@@ -23,10 +23,13 @@ programs; the package has no Pallas kernel on this path):
                          inline at ``detect/modules.py:113-120``
   three_interpolate_grad K9's backward with respect to the features
 What bounds them on an H100: FPS is a chain of ``npoint`` dependent steps,
-each a pass over one cloud and a block-wide argmax, so it is latency-bound
-on one SM per cloud (8 of 132 SMs at batch 8); the design keeps a cloud in
-one block so that a step needs two ``__syncthreads`` and no grid-wide sync,
-and leaves the [B, N] running distances in L2.  Ball query reads each
+each a pass over one cloud and an argmax over it, so a step's latency bounds
+it; the design gives a large cloud a thread-block cluster of up to 16 CTAs
+(64-128 of 132 SMs at batch 8) and a small one a single CTA, holds each
+thread's few points and their running distances in registers for the
+whole launch, and takes a step with one ``__syncthreads`` and, across a
+cluster, stores of the CTAs' winners into each other's shared memory with
+an mbarrier arrival each.  Ball query reads each
 cloud once per centre (256 x 1024 points x 12 B per cloud, L2-resident) and
 stops at ``nsample`` hits.  The gather and scatter move rows of 4*C bytes
 and are bound by device-memory bandwidth; the scatter's atomics collide.
@@ -82,7 +85,8 @@ from pointcontrast_tpu_torch.cuda_build import use_plain as _use_plain
 def _lib():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load("detect_ops", {
-        "pc_fps": [vp, vp, vp, ci, ci, ci, vp],
+        "pc_fps_cluster": [ci, ci],
+        "pc_fps": [vp, vp, ci, ci, ci, ci, vp],
         "pc_ball_query": [vp, vp, vp, ci, ci, ci, cf, ci, vp],
         "pc_gather_rows": [vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_scatter_add_rows": [vp, vp, vp, ci, ci, ci, ci, vp],
@@ -167,11 +171,30 @@ def furthest_point_sample_plain(xyz, npoint: int):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def fps_cluster(b_: int, n: int, device: int) -> int:
+    """CTAs of the cluster that samples each of ``b_`` clouds of ``n``
+    points on the card (``pc_fps_cluster``: the largest, up to 16, whose
+    batch of clusters runs at once, each CTA's points in registers, or in
+    shared memory past their capacity).  Raises when no cluster holds the
+    cloud or the card refuses every one that does."""
+    with torch.cuda.device(device):
+        cs = _lib().pc_fps_cluster(b_, n)
+    if cs == -1:
+        raise ValueError(f"furthest_point_sample: a cloud of {n} points exceeds what the "
+                         f"largest cluster holds in shared memory")
+    if cs < 0:
+        raise RuntimeError(f"furthest_point_sample: no cluster fits on the card for "
+                           f"{b_} clouds of {n} points (CUDA error {-cs})")
+    return cs
+
+
 def furthest_point_sample(xyz, npoint: int):
     """[B, N, 3] f32 -> [B, npoint] int32: index 0 first, then each step the
     point furthest from those chosen (ties to the lowest index).  With more
     samples than distinct points every distance ends at 0 and the rest are
-    index 0, as in the JAX op (``npoint`` may exceed N)."""
+    index 0, as in the JAX op (``npoint`` may exceed N).  On the card one
+    thread-block cluster samples each cloud (``fps_cluster``)."""
     _check_cloud("furthest_point_sample", xyz)
     b_, n, _ = xyz.shape
     if npoint <= 0 or n == 0:
@@ -179,10 +202,10 @@ def furthest_point_sample(xyz, npoint: int):
     if _use_plain(xyz):
         return furthest_point_sample_plain(xyz, npoint)
     _require(xyz, "xyz", torch.float32, 3)
+    check_index_space("furthest_point_sample", xyz=xyz.numel(), out=b_ * npoint)
+    cs = fps_cluster(b_, n, xyz.get_device())
     out = torch.empty(b_, npoint, dtype=torch.int32, device=xyz.device)
-    dist = torch.empty(b_, n, dtype=torch.float32, device=xyz.device)
-    rc = _lib().pc_fps(_ptr(xyz), _ptr(dist), _ptr(out), b_, n, npoint,
-                       _stream())
+    rc = _lib().pc_fps(_ptr(xyz), _ptr(out), b_, n, npoint, cs, _stream())
     _check(rc, "furthest_point_sample")
     furthest_point_sample.launches += 1
     return out

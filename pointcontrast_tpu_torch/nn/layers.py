@@ -65,13 +65,13 @@ class SparseConvTranspose(nn.Module):
                          generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
-    def forward(self, features, up_parent, up_offset, valid_out):
+    def forward(self, features, up_parent, up_offset, valid_out, up_order=None):
         if up_offset is None:  # brick layout: up_parent is the up-gather
             return brick.brick_up_conv(features, up_parent, self.weight,
                                        bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv_transpose(features, up_parent, up_offset,
                                          self.weight, bias=self.bias,
-                                         valid_out=valid_out)
+                                         valid_out=valid_out, up_order=up_order)
 
 
 class SparseLinear(nn.Module):

@@ -103,7 +103,8 @@ class Res16UNetBase(nn.Module):
         for s in range(4):
             out = getattr(self, f"conv{s + 1}p{2 ** s}s2")(
                 out, lv[s].down_nbr, lv[s + 1].valid,
-                up=(lv[s].up_parent, lv[s].up_offset), order=lv[s].down_order)
+                up=(lv[s].up_parent, lv[s].up_offset, lv[s].up_order),
+                order=lv[s].down_order)
             out = relu(getattr(self, f"bn{s + 1}")(out, lv[s + 1].valid))
             out = self._stage(out, lv[s + 1], f"block{s + 1}", self.LAYERS[s], nb)
             if s < 3:
@@ -112,7 +113,8 @@ class Res16UNetBase(nn.Module):
         for d in range(4):
             lvl = 3 - d  # producing level index
             out = getattr(self, f"convtr{4 + d}p{2 ** (4 - d)}s2")(
-                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid)
+                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid,
+                up_order=lv[lvl].up_order)
             out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
             out = torch.cat([out, skips[lvl]], dim=1)
             out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d], nb)

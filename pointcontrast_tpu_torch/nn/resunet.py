@@ -105,7 +105,8 @@ class MinkUNetBase(nn.Module):
         for s in range(3):
             out = getattr(self, f"conv{s + 2}p{2 ** s}s2")(
                 out, lv[s].down_nbr, lv[s + 1].valid,
-                up=(lv[s].up_parent, lv[s].up_offset), order=lv[s].down_order)
+                up=(lv[s].up_parent, lv[s].up_offset, lv[s].up_order),
+                order=lv[s].down_order)
             out = relu(getattr(self, f"bn{s + 2}")(out, lv[s + 1].valid))
             out = self._stage(out, lv[s + 1], f"block{s + 2}", self.LAYERS[s + 1], nb)
             if s < 2:
@@ -114,7 +115,8 @@ class MinkUNetBase(nn.Module):
         for d in range(3):
             lvl = 2 - d
             out = getattr(self, f"convtr{4 + d}p{2 ** (3 - d)}s2")(
-                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid)
+                out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid,
+                up_order=lv[lvl].up_order)
             out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
             out = torch.cat([out, skips[lvl]], dim=1)
             if d < 2:

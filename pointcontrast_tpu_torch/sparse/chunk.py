@@ -91,8 +91,8 @@ def build_chunked_pyramid(
 
         def stacked(attr, axis=1):
             """Maps with a leading K axis stack on axis 1 -> [K, B, S];
-            per-row vectors (up_parent/up_offset, the live orders) on axis
-            0 -> [B, S]."""
+            per-row vectors (up_parent/up_offset, the live and up orders)
+            on axis 0 -> [B, S]."""
             if getattr(per[0], attr) is None:
                 return None
             return np.stack([getattr(x, attr) for x in per], axis=axis)
@@ -114,6 +114,7 @@ def build_chunked_pyramid(
                 down_nbr3=stacked("down_nbr3"),
                 up_parent=stacked("up_parent", axis=0),
                 up_offset=stacked("up_offset", axis=0),
+                up_order=stacked("up_order", axis=0),  # each chunk's own
                 nbr0=stacked("nbr0"),
                 rev=per[0].rev,
                 rev0=per[0].rev0,

@@ -56,6 +56,9 @@ gathered rows are live: the sparse ops name the chunk's zero pad row as
 ``skip``; gather_gemm skips (16-row fragment, tap) pairs without a live
 row, gather_wgrad compacts its live pairs, both pipeline their copies with
 cp.async (csrc/sparse_conv.cu spells out the designs).
+parent_gemm (2 Cin Cout operations a fine row) runs gather_gemm's pipeline
+over the fine rows in the pyramid's up order (``topology.up_order``), one
+offset's weights a step, the parent rows of the other offsets zero-filled.
 scatter_parent stores rows (HBM bytes bound it): its valid rows never
 collide, and the coarse pad slot, which pad and orphaned fine rows all
 name, is left out, so no atomic remains.
@@ -130,7 +133,7 @@ def _lib():
         "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
                             ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_gather_wgrad_tiles": [ci, ci],
-        "pc_parent_gemm": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, ci, ci, ci, ci, ci,
                             ci, vp],
@@ -243,7 +246,8 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
     the work.  ``order`` [B, s_out] int32, optional: each chunk's output
     rows in the order the kernel tiles them (the map's live order, built
     with the pyramid, ``topology.live_order``), so that rows which gather
-    at the same taps share 16-row fragments; any order gives the same sum.
+    at the same taps share 16-row fragments; any permutation of each
+    chunk's rows gives the same sum (a row no entry names is never written).
 
     x3 [B, S_in, Cin]; w [G, Cin, Cout] (one block per gathered tap);
     wc [Cin, Cout] or None: the ungathered centre tap (needs S_in == S_out);
@@ -360,35 +364,68 @@ def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
 # (c) parent_gemm
 
 
-def parent_gemm_plain(x3, parent, off, w):
+def parent_gemm_plain(x3, parent, off, w, skip=-1, order=None):
+    # ``order`` only orders the kernel's tiles: every row is the same
     b_, s_c, _ = x3.shape
     k, _, cout = w.shape
     table = torch.einsum("bsc,kcd->bksd", x3, w).reshape(b_, k * s_c, cout)
-    return take_rows(table, off.long() * s_c + parent.long())
+    out = take_rows(table, off.long() * s_c + parent.long())
+    if skip >= 0:
+        out = torch.where(_kept(parent, skip), out, 0.0)
+    return out
 
 
-def parent_gemm(x3, parent, off, w):
-    """out[b,i] = x3[b, parent[b,i]] @ w[off[b,i]].
+def _parent_splits(b_, s_f, cout) -> int:
+    """Blocks over which parent_gemm spreads one tile's offsets: one,
+    unless its tiles (128 rows x the Cout tile, per chunk) come to fewer
+    than GEMM_BLOCKS; then enough to get there, at most 4 (a tile of the
+    up order spans a few offsets; a block with none of its own leaves at
+    once)."""
+    blocks = -(-s_f // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+    if blocks >= GEMM_BLOCKS:
+        return 1
+    return min(4, -(-GEMM_BLOCKS // blocks))
 
-    x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout]."""
+
+def parent_gemm(x3, parent, off, w, skip=-1, order=None):
+    """out[b,i] = x3[b, parent[b,i]] @ w[off[b,i]], zeros where parent[b,i]
+    is ``skip`` (-1: none).  K3's forward passes the coarse pad row, whose
+    features are zero by contract, so leaving it out changes nothing but
+    the work; K2's dF passes -1.  ``order`` [B, S_f] int32, optional: each
+    chunk's fine rows in the order the kernel tiles them (the pyramid's up
+    order, ``topology.up_order``: by offset, so that a 128-row tile stages
+    one or two offsets' weights); without one the kernel tiles the rows in
+    their own order.  ``order`` must be a permutation of each chunk's rows
+    (``check_pyramid_bounds`` checks the pyramid's): on the card the output
+    is left uninitialised and each block writes only the rows its order
+    entries name, so a row that no entry names is never written.
+
+    x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout].
+    On the card every output row is written once, by one block, in a fixed
+    order of products: the same bits from run to run."""
     b_, s_c, cin = x3.shape
     k, _, cout = w.shape
     s_f = parent.shape[1]
     _check_shape("w", w, (k, cin, cout))
     _check_shape("parent", parent, (b_, s_f))
     _check_shape("off", off, (b_, s_f))
+    _check_shape("order", order, (b_, s_f))
+    check_index_space("parent_gemm", x3_rows=b_ * s_c, out_rows=b_ * s_f)
     if _use_plain(x3):
-        return parent_gemm_plain(x3, parent, off, w)
+        return parent_gemm_plain(x3, parent, off, w, skip)
     _require(x3, "x3", torch.float32, 3)
     _require(w, "w", torch.float32, 3)
     _require(parent, "parent", torch.int32, 2)
     _require(off, "off", torch.int32, 2)
+    _require(order, "order", torch.int32, 2)
     if k != 8:
         raise ValueError(f"parent_gemm takes 8 offsets (k2s2), got {k}")
     out = torch.empty(b_, s_f, cout, device=x3.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
     rc = _lib().pc_parent_gemm(
-        _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(out), b_, s_c, s_f,
-        cin, cout, _stream())
+        _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(order), _ptr(out), b_, s_c,
+        s_f, cin, cout, int(skip), _parent_splits(b_, s_f, cout), _stream())
     _check(rc, "parent_gemm")
     parent_gemm.launches += 1
     return out

@@ -36,8 +36,14 @@ rows contribute exactly zero.  The gather kernels are told so: every
 forward gather, K2's and K4's dW pass the features' last row ``S_in - 1``
 as ``skip`` (``skip_a``), K1's dF and dW the cotangent's last row (zero: K1
 runs only with ``valid_out``, whose mask zeroes it), so the card spends no
-products on the pad row; K3's stacked ``dy`` passes -1 (no map).  Feature gradients at pad rows are garbage by
-design (they differ between forms) and every producer masks them.
+products on the pad row; K3's stacked ``dy`` passes -1 (no map).  K3's
+forward ``parent_gemm`` passes the coarse pad row ``S_c - 1`` (pad
+features are zero), K2's dF passes -1: its cotangent's coarse pad row is
+zero only through the mask of the conv's output, and a fine voxel that
+truncation orphaned reads it (JAX gives that row ``ct[pad] W_0^T``).  Both
+tile the fine rows in the pyramid's up order (``topology.up_order``).
+Feature gradients at pad rows are garbage by design (they differ between
+forms) and every producer masks them.
 """
 from __future__ import annotations
 
@@ -127,33 +133,35 @@ class _ConvChunkDown2(torch.autograd.Function):
     """K2: out[b,s] = sum_{k<8} F[b, down_nbr[k,b,s]] W_k.
 
     Backward: dF[b,i] = ct[b, up_parent[b,i]] W_{up_offset[b,i]}^T (every
-    fine voxel has exactly one (parent, offset), so no scatter) and dW
-    re-gathers the im2col rows."""
+    fine voxel has exactly one (parent, offset), so no scatter; no skipped
+    parent: an orphaned fine voxel reads the cotangent's pad row, as in
+    JAX) and dW re-gathers the im2col rows."""
 
     @staticmethod
-    def forward(ctx, features, down_nbr, up_parent, up_offset, weights, order=None):
+    def forward(ctx, features, down_nbr, up_parent, up_offset, weights, order=None,
+                up_order=None):
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = gather_gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out,
                           f3.shape[1] - 1, order)
-        ctx.save_for_backward(features, down_nbr, up_parent, up_offset, weights)
+        ctx.save_for_backward(features, down_nbr, up_parent, up_offset, weights, up_order)
         return out.reshape(b_ * s_out, -1)
 
     @staticmethod
     def backward(ctx, ct):
-        features, down_nbr, up_parent, up_offset, weights = ctx.saved_tensors
+        features, down_nbr, up_parent, up_offset, weights, up_order = ctx.saved_tensors
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         ct3 = ct.contiguous().reshape(b_, s_out, -1)
         df = dw = None
         if ctx.needs_input_grad[0]:
             df = parent_gemm(ct3, up_parent, up_offset,
-                             weights.transpose(1, 2).contiguous())
+                             weights.transpose(1, 2).contiguous(), -1, up_order)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[4]:
             dw = gather_wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,
                               None, 0, k, s_out, skip_a=f3.shape[1] - 1)
-        return df, None, None, None, dw, None
+        return df, None, None, None, dw, None, None
 
 
 class _ConvTrChunk(torch.autograd.Function):
@@ -166,10 +174,11 @@ class _ConvTrChunk(torch.autograd.Function):
     row), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k."""
 
     @staticmethod
-    def forward(ctx, features, up_parent, up_offset, weights):
+    def forward(ctx, features, up_parent, up_offset, weights, up_order=None):
         b_, s_f = up_parent.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
-        out = parent_gemm(f3, up_parent, up_offset, weights)
+        # the coarse pad row's features are zero: its fine rows get zeros
+        out = parent_gemm(f3, up_parent, up_offset, weights, f3.shape[1] - 1, up_order)
         ctx.save_for_backward(features, up_parent, up_offset, weights)
         return out.reshape(b_ * s_f, -1)
 
@@ -190,7 +199,7 @@ class _ConvTrChunk(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             dw = gather_wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c,
                               skip_a=-1, skip_g=-1)
-        return df, None, None, dw
+        return df, None, None, dw, None
 
 
 def _tap_groups(k: int):
@@ -252,19 +261,25 @@ def sparse_conv(
     bias: torch.Tensor | None = None,  # [Cout]
     valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
     rev: tuple | None = None,  # offset-reversal perm (same-level maps only)
-    up: tuple | None = None,  # (up_parent, up_offset) for k2s2 down maps
+    up: tuple | None = None,  # (up_parent, up_offset[, up_order]) for k2s2 down maps
     order: torch.Tensor | None = None,  # [B, S_out] (flat [N_out]): the map's live order
 ) -> torch.Tensor:
     """Sparse convolution, as JAX's dispatch: a same-level map with ``rev``
     (and ``valid_out``) runs K1, a k2s2 down map with ``up`` K2, any other
     map K4; a flat [K, N_out] map runs the same at B = 1.  ``order``, the
     map's live order from the pyramid (``topology.live_order``), changes
-    only the order in which the gather GEMM tiles the output rows."""
+    only the order in which the gather GEMM tiles the output rows, and
+    ``up``'s optional third entry, the up order (``topology.up_order``),
+    the order in which K2's dF tiles the fine rows.  Either order must be
+    a permutation of each chunk's rows, as ``check_pyramid_bounds`` checks
+    of the pyramid's: a row that no entry names is never written."""
     features = features.contiguous()
+    if up is not None and len(up) == 2:
+        up = (*up, None)
     if nbr.dim() == 2:  # voxel layout: one batch-wide slice
         nbr = nbr[:, None]
         if up is not None:
-            up = (up[0][None], up[1][None])
+            up = tuple(None if u is None else u[None] for u in up)
         if order is not None:
             order = order[None]
     elif nbr.dim() != 3:
@@ -273,7 +288,7 @@ def sparse_conv(
             and valid_out is not None):
         out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev), order)
     elif up is not None:
-        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights, order)
+        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights, order, up[2])
     else:
         out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
                                         weights.contiguous(), order)
@@ -291,14 +306,21 @@ def sparse_conv_transpose(
     weights: torch.Tensor,  # [8, Cin, Cout]
     bias: torch.Tensor | None = None,
     valid_out: torch.Tensor | None = None,
+    up_order: torch.Tensor | None = None,  # [B, S_fine] (or [N_fine]): the up order
 ) -> torch.Tensor:
     """k2s2 transposed conv onto the reused finer level (K3; a flat parent
-    map at B = 1)."""
+    map at B = 1).  ``up_order``, the pyramid's up order
+    (``topology.up_order``), changes only the order in which the kernel
+    tiles the fine rows.  It must be a permutation of each chunk's rows, as
+    ``check_pyramid_bounds`` checks of the pyramid's: a row that no entry
+    names is never written."""
     if up_parent.dim() == 1:
         up_parent, up_offset = up_parent[None], up_offset[None]
+        if up_order is not None:
+            up_order = up_order[None]
     elif up_parent.dim() != 2:
         raise ValueError(f"[B, S] or [N] parent maps only, got {tuple(up_parent.shape)}")
-    out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights)
+    out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights, up_order)
     if bias is not None:
         out = out + bias
     if valid_out is not None:

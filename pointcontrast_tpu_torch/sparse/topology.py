@@ -23,7 +23,11 @@ Missing neighbours point at the last padded row, whose features the device
 ops keep at exactly zero.  Each gather map comes with its live order
 (``live_order``): its output rows sorted by the taps at which they name a
 real row, the order in which the gather GEMM tiles them (any order gives
-the same sums; this one lets whole 16-row fragments skip a tap).
+the same sums; this one lets whole 16-row fragments skip a tap).  The
+parent map comes with its up order (``up_order``): the fine rows sorted by
+their offset, those whose parent is the coarse pad row last, the order in
+which ``parent_gemm`` tiles them (a 128-row tile then spans one or two
+offsets' weights instead of all eight).
 """
 from __future__ import annotations
 
@@ -54,6 +58,15 @@ def _ordered(m, npad_in: int, npad_out: int):
     if m is None:
         return None
     return _shrink_idx(live_order(m, npad_in - 1), npad_out)
+
+
+def up_order(up_parent: np.ndarray, up_offset: np.ndarray, pad: int) -> np.ndarray:
+    """[N] int32: the fine rows of a parent map sorted, stably, by their
+    offset, the rows whose parent is the coarse pad row ``pad`` (pad fine
+    rows and the voxels truncation orphaned) last.  One stable sort of
+    9 small keys (numpy's radix sort on uint8)."""
+    key = np.where(up_parent == pad, 8, up_offset).astype(np.uint8)
+    return np.argsort(key, kind="stable").astype(np.int32)
 
 
 def bucket_size(n: int, base: int = _BUCKET_BASE) -> int:
@@ -88,6 +101,9 @@ class LevelTopo:
     nbr0_order: Optional[Any] = None
     down_order: Optional[Any] = None
     down3_order: Optional[Any] = None
+    # the parent map's up order (``up_order``; chunked [B, S], flat [Npad]):
+    # the row order in which parent_gemm tiles the fine rows
+    up_order: Optional[Any] = None
 
 
 # (map, its live order): the LevelTopo fields ``live_order`` pairs
@@ -299,6 +315,7 @@ def build_pyramid(
                 up_parent=_shrink_idx(up_parent, npad_next),
                 up_offset=up_offset.astype(np.uint16),
                 down_order=_ordered(down_nbr, npad, npad_next),
+                up_order=_shrink_idx(up_order(up_parent, up_offset, npad_next - 1), npad),
             )
             if build_down3:
                 offs3s = kernel_offsets(3, dimension, "hypercube")
