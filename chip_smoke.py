@@ -9,7 +9,7 @@ Phases, each printed on its own line:
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
      library from this checkout's sources; a stack frame or spill in
-     parent_gemm or FPS fails it;
+     parent_gemm, FPS or the brick kernels fails it;
   2a. fps: one FPS pick's floor by cluster size, on clouds of one point a
      thread (the serial bound of every FPS check);
   the pretraining path:
@@ -26,10 +26,12 @@ Phases, each printed on its own line:
   5a. ``pretrain voxel`` and ``pretrain brick:2``: the same batches
      collated in the voxel (flat) and brick:2 layouts, bounds-checked,
      every kernel at the shapes of one real forward against its twin (the
-     flat K1-K3 at B = 1; brick_gemm, brick_wgrad and the K = 1
-     gather_sum / scatter_sum of the brick levels), the kernels-vs-plain
-     step and 5 counted steps (the voxel path's counts must equal the
-     chunked path's: 0 scatter_gemm);
+     flat K1-K3 at B = 1; brick_gemm, brick_wgrad with the levels' valid
+     and slot orders, and the K = 1 gather_sum / scatter_sum of the brick
+     levels), the kernels-vs-plain step and 5 counted steps (the voxel
+     path's counts must equal the chunked path's: 0 scatter_gemm); on
+     brick:2 also ``brick k5 shapes``, the brick kernels with a k = 5
+     plan at level 0 (launches 0: no counted path runs it);
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -129,9 +131,12 @@ row as ``skip`` and the pyramid's live orders, as the sparse ops do, and
 their lines give the live and the computed share of the (row, tap) pairs;
 gather_wgrad's lines whether two launches on one input are bit-equal;
 parent_gemm's checks pass the up order and the ``skip`` of their path and
-give the share of rows computed; parent_gemm and FPS must give the same
-bits from two launches; ``[ptxas]`` lines give the gather GEMMs',
-parent_gemm's and FPS's registers, stack and spills.  Then
+give the share of rows computed; the brick kernels' lines the live and
+computed shares of the (tap, output slot) pairs and the live pairs
+against the count before the kernels skipped empty slots; parent_gemm,
+FPS, brick_gemm and brick_wgrad must give the same bits from two
+launches; ``[ptxas]`` lines give the gather GEMMs', parent_gemm's, the
+brick kernels' and FPS's registers, stack and spills.  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -158,8 +163,8 @@ STEPS = 5
 RESNET_STEPS = 3
 LAYOUT_STEPS = 3  # counted steps of the semseg and VoteNet layout paths
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
-# (the sums run in different orders; scatter_gemm and brick_wgrad add with
-# unordered f32 atomics)
+# (the sums run in different orders; scatter_gemm adds with unordered f32
+# atomics)
 RTOL, ATOL = 1e-4, 1e-5
 # one step's loss, kernels vs plain twins (55 convs + train-mode BN deep);
 # the VoteNet step's backbone output and seed features are held to RTOL
@@ -196,16 +201,19 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
 }
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL fail the build phase with any stack frame or spill
-PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel")
+PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel",
+                "brick_gemm_kernel", "brick_wgrad_kernel")
 PTXAS_DETECT = ("fps_kernel",)
-PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel")
+PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel", "brick_gemm_kernel",
+                  "brick_wgrad_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
 FPS_FLOOR_PICKS = 512
 # kernels whose two launches on one input must give the same bits (no
-# atomics: every output written once, in a fixed order of operations)
-REPEAT_EXACT = ("parent_gemm", "furthest_point_sample")
+# atomics: every output written once, in a fixed order of operations, or
+# partial sums added in a fixed order)
+REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad")
 # the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
 # (taps K, table rows N, channels C, gathered rows M)
 PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
@@ -501,24 +509,15 @@ def work(name, args, out) -> tuple:
         needed = int(kept.any(0).sum())
         return 4 * c * needed + 4 * rows.numel() + _nbytes(*outs), int(kept.sum()) * c
     if name in ("brick_gemm", "brick_wgrad"):
-        x, nbr, steps = args[:3]
-        nb = nbr.shape[1]
-        live = _live_rows(x.reshape(1, -1, x.shape[1]))[0].reshape(nb, 8)
-        live_ct = (_live_rows(args[3].reshape(1, -1, args[3].shape[1]))[0].reshape(nb, 8)
-                   if name == "brick_wgrad" else None)
-        pairs = 0
-        for d, center, tm in steps:
-            src = live if center else live[nbr[d].long()]
-            for s_ in range(8):
-                ps = [p for p in range(8) if tm[s_][p] >= 0]
-                if not ps:
-                    continue
-                if live_ct is None:
-                    pairs += int(src[:, s_].sum()) * len(ps)
-                else:
-                    pairs += int((src[:, s_, None] & live_ct[:, ps]).sum())
-        cout = args[3].shape[2] if name == "brick_gemm" else args[3].shape[1]
-        return _nbytes(x, nbr, args[3], *outs), 2 * x.shape[1] * cout * pairs
+        # the (tap, output slot) pairs whose output slot is occupied and
+        # whose source row is non-zero and occupied (brick_wgrad: whose
+        # cotangent row is non-zero too)
+        live = _brick_pairs(name, args)[0]
+        w_ct = args[3]
+        cout = w_ct.shape[2] if name == "brick_gemm" else w_ct.shape[1]
+        extra = args[4:6] if name == "brick_gemm" else args[5:7]
+        return (_nbytes(args[0], args[1], w_ct, *extra, *outs),
+                2 * args[0].shape[1] * cout * int(live.sum()))
     raise KeyError(name)
 
 
@@ -544,6 +543,34 @@ def _scatter_kept(rows, s_in, skip_from):
     return rows % s_in < skip_from
 
 
+def _brick_pairs(name, args):
+    """([taps, NB * 8] bool masks over the (tap, output slot) pairs of a
+    brick kernel's check, and the check's order): ``live``, what ``work``
+    counts (output slot occupied, source row non-zero and occupied; for
+    brick_wgrad the cotangent row non-zero too); ``kept``, the pairs whose
+    output and source slots are occupied (what the kernels compute on);
+    ``before``, the pairs whose source row is non-zero, whatever the output
+    slot (the count before the kernels skipped empty slots)."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse.kernels import BRICK_SLOTS, _slot_table_on
+
+    x, nbr, steps, w_ct = args[:4]
+    taps, valid, order = (w_ct.shape[0], *args[4:6]) if name == "brick_gemm" else args[4:7]
+    table, centre = _slot_table_on(steps, taps, x.device)
+    rows = torch.arange(x.shape[0], device=x.device)
+    b, ds = rows // BRICK_SLOTS, table.long()[:, rows % BRICK_SLOTS]  # [taps, R]
+    d = ds // BRICK_SLOTS
+    src = torch.where(d == centre, b, nbr.long()[d, b]) * BRICK_SLOTS + ds % BRICK_SLOTS
+    occ = valid != 0
+    before = (x != 0).any(1)[src]
+    kept = occ[src] & occ[None]
+    live = kept & before
+    if name == "brick_wgrad":
+        live &= (w_ct != 0).any(1)[None]
+    return live, kept, before, order
+
+
 def gather_shares(name, args) -> dict:
     """For gather_gemm and gather_wgrad: ``live``, the share of all (row,
     tap) pairs whose source rows are non-zero (what ``work`` counts), and
@@ -556,7 +583,13 @@ def gather_shares(name, args) -> dict:
     non-zero (``live``) and, ``computed``, 16 rows for every offset that a
     16-row fragment of its 128-row tiles of the up order holds among the
     rows whose parent is not ``skip`` (``unordered``: in the rows' own
-    order).  None for other kernels."""
+    order).  brick_gemm and brick_wgrad (their pairs are (tap, output
+    slot)): ``live`` as ``work`` counts them (``_brick_pairs``), ``before``
+    the pairs ``work`` counted before the kernels skipped empty slots
+    (every output slot of a non-zero source) and ``computed``: brick_gemm
+    16 rows for every (tap, 16-row fragment of its 128-row tiles of the
+    slot order) with an occupied pair (``unordered``: in the rows' own
+    order), brick_wgrad its compacted pairs.  None for other kernels."""
     import torch
 
     from pointcontrast_tpu_torch.sparse.kernels import GEMM_ROWS, row_index
@@ -608,6 +641,19 @@ def gather_shares(name, args) -> dict:
         ordered = offs if order is None else torch.gather(offs, 1, order.long())
         return {"live": float(live.float().mean()), "computed": computed(ordered),
                 "unordered": computed(offs)}
+    if name in ("brick_gemm", "brick_wgrad"):
+        live, kept, before, order = _brick_pairs(name, args)
+        out = {"live": float(live.float().mean()), "before": float(before.float().mean()),
+               "live_pairs": int(live.sum()), "before_pairs": int(before.sum())}
+        if name == "brick_wgrad":
+            return {**out, "computed": float(kept.float().mean())}
+
+        def computed(k):
+            frag = torch.nn.functional.pad(k, (0, -k.shape[1] % GEMM_ROWS))
+            return 16 * int(frag.reshape(k.shape[0], -1, 16).any(-1).sum()) / k.numel()
+
+        ordered = kept if order is None else kept[:, order.long()]
+        return {**out, "computed": computed(ordered), "unordered": computed(kept)}
     return None
 
 
@@ -773,6 +819,10 @@ def phase_kernels(checks, module, exact=()):
                      "computed_share": f"{shares['computed']:.3f}"}
             if "unordered" in shares:
                 extra["unordered_share"] = f"{shares['unordered']:.3f}"
+            if "before" in shares:
+                extra.update(before_share=f"{shares['before']:.3f}",
+                             live_pairs=shares["live_pairs"],
+                             before_pairs=shares["before_pairs"])
         if name in ("gather_wgrad", *REPEAT_EXACT):
             extra["repeat_bit_equal"] = bool(torch.equal(fn(*args), fn(*args)))
             ok = ok and (extra["repeat_bit_equal"] or name not in REPEAT_EXACT)
@@ -1614,13 +1664,13 @@ def conv_checks(model, batch, calls=None):
             ct = _masked_randn((1, f.shape[0], cout), valid, gen)[0]
             tag = f"{name} NB{bm.nbr.shape[1]} {k} taps {cin}->{cout}"
             checks.append(("brick_gemm", f"brick fwd {tag}", K.brick_gemm,
-                           (f, bm.nbr, steps, w.contiguous())))
+                           (f, bm.nbr, steps, w.contiguous(), valid, bm.order)))
             if not stem:
                 checks.append(("brick_gemm", f"brick dF {tag}", K.brick_gemm,
                                (ct, bm.nbr, steps,
-                                w[list(rev)].transpose(1, 2).contiguous())))
+                                w[list(rev)].transpose(1, 2).contiguous(), valid, bm.order)))
             checks.append(("brick_wgrad", f"brick dW {tag}", K.brick_wgrad,
-                           (f, bm.nbr, steps, ct, k)))
+                           (f, bm.nbr, steps, ct, k, valid, bm.order)))
             continue
         if kind in ("bdown", "bup"):
             # the adjoint leaves out the source's pad rows, as the ops do:
@@ -2277,6 +2327,33 @@ def phase_cli_semseg(model=None, layout=None):
     shutil.rmtree(out, ignore_errors=True)
 
 
+def brick_k5_checks(pyramid, feats):
+    """The brick conv with a k = 5 plan (125 taps, ``conv1_kernel_size=5``,
+    which no counted path runs) on level 0 of a brick pyramid: brick_gemm
+    on the batch's input features (Cin 3 -> 32) and, with W[rev]^T, on a
+    cotangent masked as the output, and brick_wgrad, random weights."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.sparse.brick import _tap_reversal, build_plan, slot_steps
+
+    bm, valid = pyramid.levels[0].nbr, pyramid.levels[0].valid
+    plan = build_plan(5)
+    steps, rev = slot_steps(plan), list(_tap_reversal(plan))
+    gen = torch.Generator(device=feats.device).manual_seed(5)
+    cin, cout = feats.shape[1], 32
+    w = torch.randn(plan.num_taps, cin, cout, device=feats.device, generator=gen)
+    w *= (2.0 / (plan.num_taps * cin)) ** 0.5
+    ct = _masked_randn((1, feats.shape[0], cout), valid, gen)[0]
+    tag = f"NB{bm.nbr.shape[1]} {plan.num_taps} taps {cin}->{cout}"
+    return [("brick_gemm", f"brick k5 fwd {tag}", K.brick_gemm,
+             (feats, bm.nbr, steps, w, valid, bm.order)),
+            ("brick_gemm", f"brick k5 dF {tag}", K.brick_gemm,
+             (ct, bm.nbr, steps, w[rev].transpose(1, 2).contiguous(), valid, bm.order)),
+            ("brick_wgrad", f"brick k5 dW {tag}", K.brick_wgrad,
+             (feats, bm.nbr, steps, ct, plan.num_taps, valid, bm.order))]
+
+
 def pretrain_path(layout, device, card, paths):
     """The pretraining main path in ``layout`` ('chunked', 'voxel' or
     'brick:2'): its batches, every kernel at the shapes of one real
@@ -2299,6 +2376,9 @@ def pretrain_path(layout, device, card, paths):
     exact = ("gather_sum", "scatter_sum") if layout.startswith("brick") else ("gather_sum",)
     res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=exact)
     del calls  # the forward's activations: out of the path's peak memory
+    if layout.startswith("brick"):  # no main path: the k = 5 stem's plan
+        paths["brick k5 shapes"] = (phase_kernels(brick_k5_checks(b.pyramid0, b.feats0), K),
+                                    {})
     app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
     paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect))
 

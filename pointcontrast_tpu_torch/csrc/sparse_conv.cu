@@ -30,9 +30,12 @@
 // 3xTF32 on mma.sync costs about what SIMT f32 does; the tensor-core route
 // (wgmma) comes with bf16 operands.  parent_gemm (c) runs the same
 // pipeline over the fine rows in the pyramid's up order, one offset's
-// weights a step.  The other GEMM kernels (scatter_gemm, brick_*) are
-// simple tiled SIMT f32 kernels: each block stages its rows and a weight
-// tile in shared memory and accumulates a 4x4 micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
+// weights a step, and the brick layout's brick_gemm (i) and brick_wgrad
+// (j) run the two pipelines over a level's occupied slots, tiled in its
+// slot order (occupied first), their sources from the plan's slot table.
+// scatter_gemm is a simple tiled SIMT f32 kernel: each block stages its
+// rows and a weight tile in shared memory and accumulates a 4x4
+// micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
 // and JAX's jnp.take and its autodiff in the brick layout's placement and
 // up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
 // so HBM bytes bound them.  Both give each row a lane group
@@ -491,162 +494,144 @@ inline size_t smem_bytes(int qa, int qg) {
 }
 }  // namespace gw
 
-template <int QA, int QG>
-__global__ void __launch_bounds__(gw::THREADS, 2)
-gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
-                    const __grid_constant__ TapList a_taps, int a_stride, int Sa,
-                    int Ca, int skip_a, const float* __restrict__ Gm,
-                    const int* __restrict__ g_map, const __grid_constant__ TapList g_taps,
-                    int g_stride, int Sg, int Cg, int skip_g, float* __restrict__ dW,
-                    float* __restrict__ ws, int* __restrict__ tickets, int B, int S,
-                    int rows_per_block, int vec_a, int vec_g) {
-  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
-  constexpr int CHUNK = gw::CHUNK, GROUPS = gw::GROUPS;
-  constexpr int TA = 32 * QA, TG = 32 * QG;
-  constexpr int NACC = 16 * QA * QG;  // outputs a thread
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                   // [STAGES][ROWS][TA]
-  float* Gs = As + STAGES * ROWS * TA;                // [STAGES][ROWS][TG]
-  int* pa = reinterpret_cast<int*>(Gs + STAGES * ROWS * TG);  // [CHUNK] A rows
-  int* pg = pa + CHUNK;                                       // [CHUNK] G rows
-  int* wcount = pg + CHUNK;                                   // [2][8], flag
+// One compaction step of a wgrad kernel: the pair (ra, rg) of each thread
+// whose `ok` holds lands after the n pairs already in pa / pg, in thread
+// order (a ballot and the warps' counts in `cnt` [8], one of two buffers
+// taken in turn, so one barrier a step); returns the pairs the block added.
+__device__ __forceinline__ int gw_append(bool ok, int ra, int rg, int* pa, int* pg, int* cnt,
+                                         int n, int lane, int warp) {
+  const unsigned bits = __ballot_sync(0xffffffffu, ok);
+  if (lane == 0) cnt[warp] = __popc(bits);
+  __syncthreads();
+  int base = n, all = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    base += w < warp ? cnt[w] : 0;
+    all += cnt[w];
+  }
+  if (ok) {
+    const int at = base + __popc(bits & ((1u << lane) - 1u));
+    pa[at] = ra;
+    pg[at] = rg;
+  }
+  return all;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// The products of n compacted pairs: A's row pa[p] (channels a0 + [0, 32
+// QA)) times G's row pg[p] (g0 + [0, 32 QG)), added into each thread's
+// tile.  The rows arrive by cp.async in the 3-stage ring at `smem`, 32
+// pairs a stage; on return the ring and the pair list are free.
+template <int QA, int QG>
+__device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
+                                         const int* pa, const int* pg, int n,
+                                         const float* __restrict__ A, int Ca, int a0,
+                                         const float* __restrict__ Gm, int Cg, int g0,
+                                         int vec_a, int vec_g, int tid) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int GROUPS = gw::GROUPS;
+  constexpr int TA = 32 * QA, TG = 32 * QG;
+  float* As = smem;                     // [STAGES][ROWS][TA]
+  float* Gs = As + STAGES * ROWS * TA;  // [STAGES][ROWS][TG]
   const int grp = tid >> 6, gt = tid & 63;
   const int ta = gt >> 3, tg = gt & 7;
-  const int tiles_g = (Cg + TG - 1) / TG;
-  const int a0 = (blockIdx.x / tiles_g) * TA, g0 = (blockIdx.x % tiles_g) * TG;
-  const int k = blockIdx.y;
-  const int total = B * S;
-  const int r_begin = blockIdx.z * rows_per_block;
-  const int r_end = min(r_begin + rows_per_block, total);
-
-  float4 acc[QA][4][QG];  // A channel ta*4 + 32p + c, G channels tg*4 + 32q + 0..3
+  const int nst = (n + ROWS - 1) / ROWS;
+  auto load = [&](int st, int buf) {
+    float* as = As + buf * ROWS * TA;
+    float* gs = Gs + buf * ROWS * TG;
+    if (vec_a) {
 #pragma unroll
-  for (int p = 0; p < QA; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
-    // compaction of rows [c0, c0 + CHUNK): live pairs in row order
-    int n = 0;
-#pragma unroll 1
-    for (int it = 0; it < CHUNK / THREADS; ++it) {
-      const int r = c0 + it * THREADS + tid;
-      bool ok = false;
-      int ra = 0, rg = 0;
-      if (r < r_end) {
-        const int bb = r / S, s = r - bb * S;
-        ra = row_of(a_map, a_taps, a_stride, k, bb, s, B, S);
-        rg = row_of(g_map, g_taps, g_stride, k, bb, s, B, S);
-        ok = ra != skip_a && rg != skip_g && ra >= 0 && ra < Sa && rg >= 0 && rg < Sg;
-        ra += bb * Sa;
-        rg += bb * Sg;
+      for (int u = 0; u < QA; ++u) {  // ROWS * TA / 4 / THREADS
+        const int e = tid + u * THREADS;
+        const int i = e / (TA / 4), c = e % (TA / 4);
+        const int p = st * ROWS + i;
+        const bool ok = p < n && a0 + 4 * c < Ca;
+        cp_async16(as + i * TA + 4 * c, ok ? A + (int64_t)pa[p] * Ca + a0 + 4 * c : A, ok);
       }
-      const unsigned bits = __ballot_sync(0xffffffffu, ok);
-      int* cnt = wcount + 8 * (it & 1);
-      if (lane == 0) cnt[warp] = __popc(bits);
-      __syncthreads();
-      int base = n, all = 0;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        base += w < warp ? cnt[w] : 0;
-        all += cnt[w];
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < 4 * QA; ++u) {
+        const int e = tid + u * THREADS;
+        const int i = e / TA, c = e % TA;
+        const int p = st * ROWS + i;
+        const bool ok = p < n && a0 + c < Ca;
+        cp_async4(as + i * TA + c, ok ? A + (int64_t)pa[p] * Ca + a0 + c : A, ok);
       }
-      if (ok) {
-        const int at = base + __popc(bits & ((1u << lane) - 1u));
-        pa[at] = ra;
-        pg[at] = rg;
-      }
-      n += all;
     }
-    __syncthreads();
-
-    const int nst = (n + ROWS - 1) / ROWS;
-    auto load = [&](int st, int buf) {
-      float* as = As + buf * ROWS * TA;
-      float* gs = Gs + buf * ROWS * TG;
-      if (vec_a) {
+    if (vec_g) {
 #pragma unroll
-        for (int u = 0; u < QA; ++u) {  // ROWS * TA / 4 / THREADS
-          const int e = tid + u * THREADS;
-          const int i = e / (TA / 4), c = e % (TA / 4);
-          const int p = st * ROWS + i;
-          const bool ok = p < n && a0 + 4 * c < Ca;
-          cp_async16(as + i * TA + 4 * c, ok ? A + (int64_t)pa[p] * Ca + a0 + 4 * c : A, ok);
-        }
-      } else {
-#pragma unroll 4
-        for (int u = 0; u < 4 * QA; ++u) {
-          const int e = tid + u * THREADS;
-          const int i = e / TA, c = e % TA;
-          const int p = st * ROWS + i;
-          const bool ok = p < n && a0 + c < Ca;
-          cp_async4(as + i * TA + c, ok ? A + (int64_t)pa[p] * Ca + a0 + c : A, ok);
-        }
+      for (int u = 0; u < QG; ++u) {
+        const int e = tid + u * THREADS;
+        const int i = e / (TG / 4), c = e % (TG / 4);
+        const int p = st * ROWS + i;
+        const bool ok = p < n && g0 + 4 * c < Cg;
+        cp_async16(gs + i * TG + 4 * c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + 4 * c : Gm, ok);
       }
-      if (vec_g) {
-#pragma unroll
-        for (int u = 0; u < QG; ++u) {
-          const int e = tid + u * THREADS;
-          const int i = e / (TG / 4), c = e % (TG / 4);
-          const int p = st * ROWS + i;
-          const bool ok = p < n && g0 + 4 * c < Cg;
-          cp_async16(gs + i * TG + 4 * c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + 4 * c : Gm, ok);
-        }
-      } else {
+    } else {
 #pragma unroll 4
-        for (int u = 0; u < 4 * QG; ++u) {
-          const int e = tid + u * THREADS;
-          const int i = e / TG, c = e % TG;
-          const int p = st * ROWS + i;
-          const bool ok = p < n && g0 + c < Cg;
-          cp_async4(gs + i * TG + c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + c : Gm, ok);
-        }
+      for (int u = 0; u < 4 * QG; ++u) {
+        const int e = tid + u * THREADS;
+        const int i = e / TG, c = e % TG;
+        const int p = st * ROWS + i;
+        const bool ok = p < n && g0 + c < Cg;
+        cp_async4(gs + i * TG + c, ok ? Gm + (int64_t)pg[p] * Cg + g0 + c : Gm, ok);
       }
-    };
+    }
+  };
 #pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < nst) load(st, st);
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nst) load(st, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage st has landed; stage st - 1's buffer is free
+    {
+      const int next = st + STAGES - 1;
+      if (next < nst) load(next, next % STAGES);
       cp_async_commit();
     }
-    for (int st = 0; st < nst; ++st) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();  // stage st has landed; stage st - 1's buffer is free
-      {
-        const int next = st + STAGES - 1;
-        if (next < nst) load(next, next % STAGES);
-        cp_async_commit();
-      }
-      const int here = min(ROWS, n - st * ROWS);
-      const float* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
-      const float* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
+    const int here = min(ROWS, n - st * ROWS);
+    const float* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
+    const float* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
 #pragma unroll
-      for (int u = 0; u < ROWS / GROUPS; ++u) {
-        const int i = grp + GROUPS * u;
-        if (i >= here) break;
-        float4 av[QA], gv[QG];
+    for (int u = 0; u < ROWS / GROUPS; ++u) {
+      const int i = grp + GROUPS * u;
+      if (i >= here) break;
+      float4 av[QA], gv[QG];
 #pragma unroll
-        for (int p = 0; p < QA; ++p)
-          av[p] = *reinterpret_cast<const float4*>(as + i * TA + 32 * p);
+      for (int p = 0; p < QA; ++p)
+        av[p] = *reinterpret_cast<const float4*>(as + i * TA + 32 * p);
 #pragma unroll
-        for (int q = 0; q < QG; ++q)
-          gv[q] = *reinterpret_cast<const float4*>(gs + i * TG + 32 * q);
+      for (int q = 0; q < QG; ++q)
+        gv[q] = *reinterpret_cast<const float4*>(gs + i * TG + 32 * q);
 #pragma unroll
-        for (int p = 0; p < QA; ++p)
+      for (int p = 0; p < QA; ++p)
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-            for (int q = 0; q < QG; ++q) fma4(acc[p][c][q], lane_of(av[p], c), gv[q]);
-      }
+          for (int q = 0; q < QG; ++q) fma4(acc[p][c][q], lane_of(av[p], c), gv[q]);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring and the pair list are rewritten by the next chunk
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and the pair list are rewritten by the next round
+}
 
-  // the row groups' tiles, added in group order (the stage ring is free)
+// A wgrad block's end, its grid (tiles, taps, slices): the row groups'
+// tiles added in group order in shared memory (the stage ring is free),
+// then dW[tap] (one slice) or the slice's partial in ws [slices, taps, Ca,
+// Cg], of which the (tap, tile)'s last block, by an integer ticket, adds
+// the slices in slice order.  `flag`: one int of shared memory.
+template <int QA, int QG>
+__device__ __forceinline__ void gw_finish(float4 (&acc)[QA][4][QG], float* smem, int* flag,
+                                          float* __restrict__ dW, float* __restrict__ ws,
+                                          int* __restrict__ tickets, int Ca, int Cg, int a0,
+                                          int g0, int tid) {
+  constexpr int THREADS = gw::THREADS, GROUPS = gw::GROUPS;
+  constexpr int TA = 32 * QA, TG = 32 * QG;
+  constexpr int NACC = 16 * QA * QG;  // outputs a thread
+  const int grp = tid >> 6, gt = tid & 63;
+  const int ta = gt >> 3, tg = gt & 7;
+  const int k = blockIdx.y;
   float* red = smem;  // [GROUPS - 1][NACC][64]
   if (grp > 0) {
 #pragma unroll
@@ -696,9 +681,9 @@ gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
   // the (tap, tile)'s last block adds the slices' partials in slice order
   __threadfence();
   __syncthreads();
-  if (tid == 0) wcount[16] = atomicAdd(tickets + k * gridDim.x + blockIdx.x, 1) == slices - 1;
+  if (tid == 0) *flag = atomicAdd(tickets + k * gridDim.x + blockIdx.x, 1) == slices - 1;
   __syncthreads();
-  if (!wcount[16]) return;
+  if (!*flag) return;
   __threadfence();
   const int64_t plane = (int64_t)gridDim.y * Ca * Cg;
   for (int e = tid; e < TA * TG; e += THREADS) {
@@ -709,6 +694,63 @@ gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
     for (int z = 1; z < slices; ++z) v += __ldcg(ws + z * plane + off);
     dW[off] = v;
   }
+}
+
+template <int QA, int QG>
+__global__ void __launch_bounds__(gw::THREADS, 2)
+gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
+                    const __grid_constant__ TapList a_taps, int a_stride, int Sa,
+                    int Ca, int skip_a, const float* __restrict__ Gm,
+                    const int* __restrict__ g_map, const __grid_constant__ TapList g_taps,
+                    int g_stride, int Sg, int Cg, int skip_g, float* __restrict__ dW,
+                    float* __restrict__ ws, int* __restrict__ tickets, int B, int S,
+                    int rows_per_block, int vec_a, int vec_g) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int CHUNK = gw::CHUNK;
+  constexpr int TA = 32 * QA, TG = 32 * QG;
+  extern __shared__ __align__(16) float smem[];
+  int* pa = reinterpret_cast<int*>(smem + STAGES * ROWS * (TA + TG));  // [CHUNK] A rows
+  int* pg = pa + CHUNK;                                                // [CHUNK] G rows
+  int* wcount = pg + CHUNK;                                            // [2][8], flag
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_g = (Cg + TG - 1) / TG;
+  const int a0 = (blockIdx.x / tiles_g) * TA, g0 = (blockIdx.x % tiles_g) * TG;
+  const int k = blockIdx.y;
+  const int total = B * S;
+  const int r_begin = blockIdx.z * rows_per_block;
+  const int r_end = min(r_begin + rows_per_block, total);
+
+  float4 acc[QA][4][QG];  // A channel ta*4 + 32p + c, G channels tg*4 + 32q + 0..3
+#pragma unroll
+  for (int p = 0; p < QA; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
+    // compaction of rows [c0, c0 + CHUNK): live pairs in row order
+    int n = 0;
+#pragma unroll 1
+    for (int it = 0; it < CHUNK / THREADS; ++it) {
+      const int r = c0 + it * THREADS + tid;
+      bool ok = false;
+      int ra = 0, rg = 0;
+      if (r < r_end) {
+        const int bb = r / S, s = r - bb * S;
+        ra = row_of(a_map, a_taps, a_stride, k, bb, s, B, S);
+        rg = row_of(g_map, g_taps, g_stride, k, bb, s, B, S);
+        ok = ra != skip_a && rg != skip_g && ra >= 0 && ra < Sa && rg >= 0 && rg < Sg;
+        ra += bb * Sa;
+        rg += bb * Sg;
+      }
+      n += gw_append(ok, ra, rg, pa, pg, wcount + 8 * (it & 1), n, lane, warp);
+    }
+    __syncthreads();
+    gw_pairs<QA, QG>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g, tid);
+  }
+  gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Ca, Cg, a0, g0, tid);
 }
 
 // (c) parent_gemm: out[b,i,:] = X[b, parent[b,i], :] . W[off[b,i]], zeros
@@ -1233,205 +1275,246 @@ scatter_sum_kernel(const float* __restrict__ Gr, const int* __restrict__ map,
 // The brick layout (pointcontrast_tpu/sparse/brick.py): a level's features
 // are [NB * 8, C] with voxel (brick b, slot s) at row b * 8 + s, slot id
 // s = s_x + 2 s_y + 4 s_z; empty slots and pad bricks hold zeros.  A
-// same-level conv reads, per plan step, the neighbour brick src_d(b) of
-// every brick (nbr[d][b], or b itself at the centre step) and adds
-// F[src_d(b) * 8 + s] . W[tap] into out[b * 8 + p] for every (s, p) whose
-// offset 2d + s - p lies in the kernel.  The step table, one row of
-// BRICK_STEP_INTS ints per step:
-//   [0] d (row of nbr), [1] 1 at the centre step, [2] ntaps (distinct taps
-//   of the step, <= 27), [3, 30) those taps' ids, [30, 94) for s * 8 + p
-//   the index of its tap in [3, 30), or -1 when (s, p) adds nothing.
-constexpr int NS = 8;             // slots of a brick (2^3)
-constexpr int STEP_TAPS = 27;     // distinct taps of one step, at most
-constexpr int BRICK_STEP_INTS = 3 + STEP_TAPS + NS * NS;
-constexpr int GB = 64;            // output bricks per block
-constexpr int GN = 32;            // output channels per block
-constexpr int GK = 8;             // input channels per shared-memory stage
-constexpr int GRB = 2;            // bricks per thread
-constexpr int GQ = 4;             // output channels per thread
-static_assert((GB / GRB) * (GN / GQ) == THREADS, "one thread per brick pair and channel quad");
+// same-level conv adds, for output row b * 8 + p and tap t, the source row
+// src * 8 + s, src = (d == centre ? b : nbr[d][b]): on each axis
+// offset(t) + p = 2 d + s, so (d, s) is one entry of the plan's slot table
+// (`table` [taps][8] = 8 d + s, sparse/kernels.py::brick_slot_table).
+// `valid` [NB * 8] marks the occupied slots (nullptr: every slot); `order`
+// [NB * 8] (nullptr: the rows' own order) is the level's slot order, built
+// with the pyramid: occupied slots first, in brick order, then the empty
+// slots and the pad bricks (sparse/brick.py::slot_order).
+namespace bg {
+constexpr int NS = 8;          // slots of a brick (2^3)
+constexpr int MAX_NBRS = 27;   // rows of a brick map (3^3 neighbour bricks)
 
-// (i) out[b*8+p, :] = sum_steps sum_s X[src_d(b)*8+s, :] . W[tap(d, s, p)]
-// (JAX _brick_core; also its dF with W'[t] = W[rev[t]]^T).  A block owns
-// GB output bricks x GN output channels and all 8 slots of each brick.  Per
-// step it loads one index per brick, stages the gathered brick rows (all 8
-// slots, GK channels at a time: each slot's GK floats are contiguous, and a
-// brick's slots are 8 neighbouring rows) and the step's taps' weight tiles
-// in shared memory, and applies every (s, p, tap) product of the step from
-// there; each thread keeps GRB bricks x 8 slots x GQ channels in registers.
-// The (s, p) loops are unrolled over a table every thread reads alike, so
-// they branch without divergence and skip the pairs outside the kernel.
-// grid (ceil(NB/GB), ceil(Cout/GN))
-__global__ void __launch_bounds__(THREADS)
-brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
-                  const int* __restrict__ steps, int nsteps,
-                  const float* __restrict__ W, float* __restrict__ out,
-                  int NB, int Cin, int Cout) {
-  __shared__ __align__(16) float As[GB][NS * GK + 4];
-  __shared__ __align__(16) float Ws[STEP_TAPS][GK][GN];
-  __shared__ int src[GB];
-  __shared__ int step[BRICK_STEP_INTS];
+inline size_t smem_bytes(int Q, int taps) {
+  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+         sizeof(int) * (MAX_NBRS * gg::BM + taps * NS + 2 * gg::BM);
+}
 
-  const int tid = threadIdx.x;
-  const int cq = tid % (GN / GQ), bp = tid / (GN / GQ);
-  const int b0 = blockIdx.x * GB, n0 = blockIdx.y * GN;
-  float acc[GRB][NS][GQ];
-#pragma unroll
-  for (int r = 0; r < GRB; ++r)
-#pragma unroll
-    for (int p = 0; p < NS; ++p)
-#pragma unroll
-      for (int q = 0; q < GQ; ++q) acc[r][p][q] = 0.f;
+// A brick's occupied slots as 8 bits (slot s: bit s), from its 8 valid
+// entries (two float4s: a brick's slots are 32 aligned bytes)
+__device__ __forceinline__ int occupied(const float* __restrict__ valid, int brick) {
+  if (valid == nullptr) return 0xff;
+  const float4* v = reinterpret_cast<const float4*>(valid) + 2 * brick;
+  const float4 a = __ldg(v), c = __ldg(v + 1);
+  return (a.x != 0.f) | (a.y != 0.f) << 1 | (a.z != 0.f) << 2 | (a.w != 0.f) << 3 |
+         (c.x != 0.f) << 4 | (c.y != 0.f) << 5 | (c.z != 0.f) << 6 | (c.w != 0.f) << 7;
+}
+}  // namespace bg
 
-  for (int st = 0; st < nsteps; ++st) {
-    for (int i = tid; i < BRICK_STEP_INTS; i += THREADS)
-      step[i] = __ldg(steps + (int64_t)st * BRICK_STEP_INTS + i);
-    __syncthreads();
-    if (tid < GB) {
-      const int b = b0 + tid;
-      src[tid] = b >= NB ? -1 : (step[1] ? b : __ldg(nbr + (int64_t)step[0] * NB + b));
+// (i) brick_gemm: out[r, :] = sum_t X[src(t, r), :] . W[t] over the taps
+// whose source slot is occupied, for every occupied output slot r; exact
+// zeros at the empty slots and pad bricks (JAX _brick_core, masked as
+// brick_conv masks it; also its dF with W'[t] = W[rev[t]]^T, the cotangent
+// being zero at empty slots).  What bounds it: 2 Cin Cout f32 operations a
+// (tap, output slot) pair whose source and output slots are both occupied
+// (f32 SIMT).  A brick level holds ~3 slot rows per occupied one (pretrain
+// brick:2, level 0: 398,464 rows, 125,751 occupied) and about half the
+// sources of an occupied slot are empty, so the design spends FMAs on
+// occupied slots only and runs gather_gemm's pipeline over them:
+//  - a block owns BM = 128 consecutive entries of `order` and a Cout tile of
+//    32 Q channels (gg::q_for).  In the slot order the tiles past the
+//    occupied count hold no occupied row: such a block writes zeros and
+//    leaves.  Each output row is written once, so the order changes no
+//    result;
+//  - prologue: the tile's output rows, the slot table, and for each of the
+//    27 neighbour rows d and each tile row the neighbour brick with its
+//    8 occupancy bits (0 for an empty output row);
+//  - main loop over (tap, 32-deep Cin chunk) steps through gather_gemm's
+//    3-stage cp.async ring (gg_load_rows, gg_load_w, gg_mma): tile row m's
+//    source at tap t comes from the table and the prologue's bricks,
+//    zero-filled and not read where its slot is empty; a warp whose 16 rows
+//    have no occupied source at the step's tap skips the step's FMAs.  The
+//    taps come from the table, so the 125 taps of a k = 5 stem run as the
+//    27 of k = 3;
+//  - every row's sum runs over its taps in order: the same bits from run
+//    to run, no atomics.
+// grid (ceil(NB * 8 / BM), ceil(Cout / 32 Q))
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int K3,
+                  const int* __restrict__ table, int taps, int centre,
+                  const float* __restrict__ W, const float* __restrict__ valid,
+                  const int* __restrict__ order, float* __restrict__ out, int NB,
+                  int Cin, int Cout, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int TM = gg::TM, BN = 32 * Q, NS = bg::NS;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                          // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                         // [STAGES][BK][BN]
+  int* nbx = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [K3][BM] brick << 8 | bits
+  int* tab = nbx + bg::MAX_NBRS * BM;                        // [taps][NS] 8 d + s
+  int* srow = tab + taps * NS;                               // [BM] output row, -1 past
+  int* live = srow + BM;                                     // [BM] output slot occupied
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int n0 = blockIdx.y * BN;
+  const int rows = NB * NS;
+
+  int any = 0;
+  if (tid < BM) {
+    const int e = blockIdx.x * BM + tid;
+    int r = -1, ok = 0;
+    if (e < rows) {
+      r = order != nullptr ? __ldg(order + e) : e;
+      ok = valid == nullptr || __ldg(valid + r) != 0.f;
     }
-    const int nt = step[2];
-    __syncthreads();
-    for (int k0 = 0; k0 < Cin; k0 += GK) {
-      for (int e = tid; e < GB * NS * GK; e += THREADS) {
-        const int kk = e % GK, s = (e / GK) % NS, bl = e / (GK * NS);
-        const int r = src[bl];
-        As[bl][s * GK + kk] = (r >= 0 && k0 + kk < Cin)
-            ? __ldg(X + ((int64_t)r * NS + s) * Cin + k0 + kk) : 0.f;
-      }
-      for (int e = tid; e < nt * GK * GN; e += THREADS) {
-        const int n = e % GN, kk = (e / GN) % GK, j = e / (GK * GN);
-        const int t = step[3 + j];
-        Ws[j][kk][n] = (k0 + kk < Cin && n0 + n < Cout)
-            ? __ldg(W + ((int64_t)t * Cin + k0 + kk) * Cout + n0 + n) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        float a[GRB][GK];
-#pragma unroll
-        for (int r = 0; r < GRB; ++r)
-#pragma unroll
-          for (int kk = 0; kk < GK; ++kk) a[r][kk] = As[bp * GRB + r][s * GK + kk];
-#pragma unroll
-        for (int p = 0; p < NS; ++p) {
-          const int j = step[3 + STEP_TAPS + s * NS + p];
-          if (j < 0) continue;
-#pragma unroll
-          for (int kk = 0; kk < GK; ++kk) {
-            const float4 w = *reinterpret_cast<const float4*>(&Ws[j][kk][cq * GQ]);
-#pragma unroll
-            for (int r = 0; r < GRB; ++r) {
-              acc[r][p][0] = fmaf(a[r][kk], w.x, acc[r][p][0]);
-              acc[r][p][1] = fmaf(a[r][kk], w.y, acc[r][p][1]);
-              acc[r][p][2] = fmaf(a[r][kk], w.z, acc[r][p][2]);
-              acc[r][p][3] = fmaf(a[r][kk], w.w, acc[r][p][3]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
+    srow[tid] = r;
+    live[tid] = ok;
+    any = ok;
   }
-#pragma unroll
-  for (int r = 0; r < GRB; ++r) {
-    const int b = b0 + bp * GRB + r;
-    if (b >= NB) continue;
-#pragma unroll
-    for (int p = 0; p < NS; ++p) {
-      float* o = out + ((int64_t)b * NS + p) * Cout;
-#pragma unroll
-      for (int q = 0; q < GQ; ++q) {
-        const int n = n0 + cq * GQ + q;
-        if (n < Cout) o[n] = acc[r][p][q];
+  for (int i = tid; i < taps * NS; i += THREADS) tab[i] = __ldg(table + i);
+  any = __syncthreads_or(any);
+  if (any) {
+    for (int e = tid; e < K3 * BM; e += THREADS) {
+      const int d = e / BM, m = e % BM;
+      int v = 0;
+      if (live[m]) {
+        const int b = srow[m] / NS;
+        const int nb = d == centre ? b : __ldg(nbr + (int64_t)d * NB + b);
+        v = nb << 8 | bg::occupied(valid, nb);
       }
+      nbx[e] = v;
+    }
+    __syncthreads();
+  }
+  // tile row m's source row at tap t, -1 where the source or m is empty
+  auto source = [&](int t, int m) {
+    const int ds = tab[t * NS + (srow[m] & (NS - 1))];
+    const int v = nbx[(ds >> 3) * BM + m];
+    return (v >> (ds & 7)) & 1 ? (v >> 8) * NS + (ds & 7) : -1;
+  };
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = any ? taps * kchunks : 0;
+
+  auto load = [&](int step, int buf) {
+    const int t = step / kchunks, k0 = (step % kchunks) * BK;
+    gg_load_rows(As + buf * BM * BK, X, [&](int m) { return source(t, m); }, k0, Cin, vec_x,
+                 tid);
+    gg_load_w<Q>(Bs + buf * BK * BN, W + (int64_t)t * Cin * Cout, k0, n0, Cin, Cout, vec_w,
+                 tid);
+  };
+
+  float4 acc[TM][Q];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  const int sw = ty & 7;  // the swizzle of this thread's rows: (4 ty + i) / 4 % 8
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    // warp w's fragment: rows [16 w, 16 w + 16), lanes 16-31 repeat 0-15
+    if (!__ballot_sync(0xffffffffu, source(step / kchunks, 16 * warp + (lane & 15)) >= 0))
+      continue;  // no occupied source in this warp's 16 rows at this tap
+    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+  }
+  cp_async_wait<0>();
+
+  const bool vec_o = Cout % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = 4 * ty + i;
+    const int r = srow[m];
+    if (r < 0) continue;
+    const bool ok = live[m];
+    float* row = out + (int64_t)r * Cout;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float4 v = acc[i][q];  // by value: a reference to acc[i][q] or a zero spills acc
+      if (!ok) v = make_float4(0.f, 0.f, 0.f, 0.f);
+      store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, v);
     }
   }
 }
 
-// (j) dW[t] += sum_b X[src_d(b)*8+s, :]^T . G[b*8+p, :] for the block's
-// (d, s, p, t) triple (a row of `triples`: d, centre, s, p, t), over its
-// slice of bricks: JAX _brick_sym_bwd's gs^T @ cp blocks, one (s, p) block
-// at a time.  Each tap has 8 triples (one per slot-axis combination), so
-// 8 x 27 blocks add into the 27 taps, and the brick slices of one triple
-// add into the same tile: f32 atomics combine them, in an order that
-// differs from run to run.
-// grid (ceil(Cin/BM) * ceil(Cout/BN), triples, brick slices)
-__global__ void __launch_bounds__(THREADS)
+// (j) brick_wgrad: dW[t] = sum_r X[src(t, r), :]^T . G[r, :] over the
+// occupied output slots r whose source at tap t is occupied too (JAX
+// _brick_sym_bwd's gs^T @ cp blocks, at the pairs that are not zero).
+// What bounds it: 2 Cin Cout f32 operations a live pair (f32 SIMT).  It is
+// gather_wgrad with its pairs taken from the slot table:
+//  - a block owns one tap t, one output tile (gw::qs_for) and a share of
+//    the rows of `order`: runs of 256 entries, run z, z + slices, ... for
+//    block z, so the occupied rows, first in the slot order, fall to
+//    every block alike;
+//  - compaction: each thread reads one entry's output row r, its
+//    occupancy, its source (the table, nbr) and the source's occupancy; a
+//    ballot and the warps' counts give every live pair its place in
+//    shared memory (gw_append), and the FMAs run on live pairs only
+//    (gw_pairs: the rows by cp.async in a 3-stage ring, G's rows in the
+//    slot order);
+//  - the blocks of a (tap, tile) are combined by its last block (integer
+//    tickets, gw_finish) in block order: dW is the same from run to run,
+//    no f32 atomics.
+// grid (tiles, taps, slices)
+template <int QA, int QG>
+__global__ void __launch_bounds__(gw::THREADS, 2)
 brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
-                   const int* __restrict__ triples,
-                   const float* __restrict__ Gm, float* __restrict__ dW,
-                   int NB, int Cin, int Cout, int bricks_per_block) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Gs[BK][BN + 4];
-  __shared__ int64_t ra[BK], rg[BK];
+                   const int* __restrict__ table, int centre, const float* __restrict__ Gm,
+                   const float* __restrict__ valid, const int* __restrict__ order,
+                   float* __restrict__ dW, float* __restrict__ ws, int* __restrict__ tickets,
+                   int NB, int Cin, int Cout, int vec_a, int vec_g) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int CHUNK = gw::CHUNK, RUNS = CHUNK / THREADS;
+  constexpr int TA = 32 * QA, TG = 32 * QG, NS = bg::NS;
+  extern __shared__ __align__(16) float smem[];
+  int* pa = reinterpret_cast<int*>(smem + STAGES * ROWS * (TA + TG));  // [CHUNK] X rows
+  int* pg = pa + CHUNK;                                                // [CHUNK] G rows
+  int* wcount = pg + CHUNK;                                            // [2][8], flag
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int tiles_n = (Cout + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
-  const int* tri = triples + (int64_t)blockIdx.y * 5;
-  const int d = __ldg(tri), center = __ldg(tri + 1), s = __ldg(tri + 2);
-  const int p = __ldg(tri + 3), t = __ldg(tri + 4);
-  const int64_t b_begin = (int64_t)blockIdx.z * bricks_per_block;
-  const int64_t b_stop = b_begin + bricks_per_block;
-  const int64_t b_end = b_stop < NB ? b_stop : NB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_g = (Cout + TG - 1) / TG;
+  const int a0 = (blockIdx.x / tiles_g) * TA, g0 = (blockIdx.x % tiles_g) * TG;
+  const int t = blockIdx.y, z = blockIdx.z, slices = gridDim.z;
+  const int rows = NB * NS;
+  const int runs = (rows + THREADS - 1) / THREADS;
+  const int mine = runs > z ? (runs - z + slices - 1) / slices : 0;  // runs z, z + slices, ...
 
-  float acc[4][4] = {};
-  for (int64_t b0 = b_begin; b0 < b_end; b0 += BK) {
-    if (tid < BK) {
-      const int64_t b = b0 + tid;
-      int64_t va = -1, vg = -1;
-      if (b < b_end) {
-        const int64_t from = center ? b : __ldg(nbr + (int64_t)d * NB + b);
-        va = from * NS + s;
-        vg = b * NS + p;
+  float4 acc[QA][4][QG];
+#pragma unroll
+  for (int p = 0; p < QA; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int u0 = 0; u0 < mine; u0 += RUNS) {
+    int n = 0;
+#pragma unroll 1
+    for (int it = 0; it < RUNS; ++it) {
+      const int u = u0 + it;
+      const int e = (z + u * slices) * THREADS + tid;
+      bool ok = false;
+      int ra = 0, rg = 0;
+      if (u < mine && e < rows) {
+        rg = order != nullptr ? __ldg(order + e) : e;
+        if (valid == nullptr || __ldg(valid + rg) != 0.f) {
+          const int ds = __ldg(table + t * NS + (rg & (NS - 1)));
+          const int b = rg / NS, d = ds >> 3;
+          ra = (d == centre ? b : __ldg(nbr + (int64_t)d * NB + b)) * NS + (ds & 7);
+          ok = valid == nullptr || __ldg(valid + ra) != 0.f;
+        }
       }
-      ra[tid] = va;
-      rg[tid] = vg;
+      n += gw_append(ok, ra, rg, pa, pg, wcount + 8 * (it & 1), n, lane, warp);
     }
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = e / BM, m = e % BM;
-      const int64_t r = ra[kk];
-      As[kk][m] = (r >= 0 && m0 + m < Cin) ? __ldg(X + r * Cin + m0 + m) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (BN * BK) / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int kk = e / BN, n = e % BN;
-      const int64_t r = rg[kk];
-      Gs[kk][n] = (r >= 0 && n0 + n < Cout) ? __ldg(Gm + r * Cout + n0 + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) g[q] = Gs[kk][tx * 4 + q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], g[q], acc[i][q]);
-    }
-    __syncthreads();
+    gw_pairs<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
   }
-  float* dWt = dW + (int64_t)t * Cin * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= Cin) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < Cout) atomicAdd(dWt + (int64_t)m * Cout + n, acc[i][q]);
-    }
-  }
+  gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -1610,24 +1693,62 @@ int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
   return (int)cudaGetLastError();
 }
 
-int pc_brick_gemm(const void* X, const void* nbr, const void* steps, int nsteps,
-                  const void* W, void* out, int NB, int Cin, int Cout,
-                  void* stream) {
-  dim3 grid((NB + GB - 1) / GB, (Cout + GN - 1) / GN);
-  brick_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const int*)nbr, (const int*)steps, nsteps,
-      (const float*)W, (float*)out, NB, Cin, Cout);
+int pc_brick_gemm(const void* X, const void* nbr, int K3, const void* table, int taps,
+                  int centre, const void* W, const void* valid, const void* order,
+                  void* out, int NB, int Cin, int Cout, void* stream) {
+  const int q = gg::q_for(Cout);
+  const size_t smem = bg::smem_bytes(q, taps);
+  const int vec_x = Cin % 4 == 0 && aligned16(X);
+  const int vec_w = Cout % 4 == 0 && aligned16(W);
+  const dim3 grid((NB * bg::NS + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q));
+  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[q]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[q] = smem;
+    }
+    kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)nbr, K3, (const int*)table, taps, centre,
+        (const float*)W, (const float*)valid, (const int*)order, (float*)out, NB, Cin, Cout,
+        vec_x, vec_w);
+  };
+  switch (q) {
+    case 1: go(brick_gemm_kernel<1>); break;
+    case 2: go(brick_gemm_kernel<2>); break;
+    default: go(brick_gemm_kernel<3>); break;
+  }
   return (int)cudaGetLastError();
 }
 
-int pc_brick_wgrad(const void* X, const void* nbr, const void* triples,
-                   int ntriples, const void* G, void* dW, int NB, int Cin,
-                   int Cout, int bricks_per_block, void* stream) {
-  const int splits = (NB + bricks_per_block - 1) / bricks_per_block;
-  dim3 grid(((Cin + BM - 1) / BM) * ((Cout + BN - 1) / BN), ntriples, splits);
-  brick_wgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const int*)nbr, (const int*)triples, (const float*)G,
-      (float*)dW, NB, Cin, Cout, bricks_per_block);
+int pc_brick_wgrad(const void* X, const void* nbr, const void* table, int taps, int centre,
+                   const void* G, const void* valid, const void* order, void* dW, void* ws,
+                   void* tickets, int NB, int Cin, int Cout, int slices, void* stream) {
+  int qa, qg;
+  gw::qs_for(Cin, Cout, &qa, &qg);
+  const int tiles = ((Cin + 32 * qa - 1) / (32 * qa)) * ((Cout + 32 * qg - 1) / (32 * qg));
+  const size_t smem = gw::smem_bytes(qa, qg);
+  const int vec_a = Cin % 4 == 0 && aligned16(X);
+  const int vec_g = Cout % 4 == 0 && aligned16(G);
+  const dim3 grid(tiles, taps, slices);
+  static size_t granted[16] = {};  // by 4 qa + qg
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[4 * qa + qg]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[4 * qa + qg] = smem;
+    }
+    kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)nbr, (const int*)table, centre, (const float*)G,
+        (const float*)valid, (const int*)order, (float*)dW, (float*)ws, (int*)tickets, NB,
+        Cin, Cout, vec_a, vec_g);
+  };
+  switch (4 * qa + qg) {
+    case 5: go(brick_wgrad_kernel<1, 1>); break;
+    case 6: go(brick_wgrad_kernel<1, 2>); break;
+    case 7: go(brick_wgrad_kernel<1, 3>); break;
+    case 9: go(brick_wgrad_kernel<2, 1>); break;
+    case 10: go(brick_wgrad_kernel<2, 2>); break;
+    default: go(brick_wgrad_kernel<3, 1>); break;
+  }
   return (int)cudaGetLastError();
 }
 

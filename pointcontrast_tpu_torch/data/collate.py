@@ -196,10 +196,12 @@ def _check_flat_level(l: int, lv: LevelTopo, rows: list) -> None:
 
 def _check_brick_level(l: int, lv: LevelTopo, rows: list, kinds: list) -> None:
     """A brick level of NB bricks ([NB * 8] slot rows): its BrickMaps
-    index the NB bricks, the down conv's placement indexes the NB rows of
-    its matmul output, and the up-gather the next level's rows; at a
-    brick -> flat boundary (``place`` / ``up_parent`` None) the flat next
-    level must have exactly NB rows."""
+    index the NB bricks and their slot orders are permutations of the
+    [NB * 8] rows (the brick kernels write the row each entry names), the
+    down conv's placement indexes the NB rows of its matmul output, and
+    the up-gather the next level's rows; at a brick -> flat boundary
+    (``place`` / ``up_parent`` None) the flat next level must have exactly
+    NB rows."""
     ns = lv.down_nbr.num_slots
     if rows[l] % ns:
         raise ValueError(f"level {l}: {rows[l]} rows are not whole bricks of {ns}")
@@ -209,6 +211,8 @@ def _check_brick_level(l: int, lv: LevelTopo, rows: list, kinds: list) -> None:
         if m is not None:
             _check_shape(f"level {l} {name}", m.nbr, (m.nbr.shape[0], nb))
             _check_below(f"level {l} {name}", m.nbr, nb)
+            if m.order is not None:
+                _check_permutation(f"level {l} {name} order", m.order, (rows[l],))
     if l + 1 == len(rows):
         return
     place, upg = lv.down_nbr.place, lv.up_parent
@@ -232,12 +236,13 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     Voxel (flat), per level: the same against ``npad_l`` and
     ``npad_{l+1}``.  Brick levels: ``BrickMap.nbr < NB``, ``place < NB``,
     ``up_parent`` (the up-gather) below the next level's rows, the
-    boundary's row counts.  Chunked and flat: each live order a
-    permutation of its map's output rows, the up order one of the parent
-    map's fine rows.  Every layout: the sample ids ``batch <= B``
-    (``B``: pad rows) that global pooling reads, at the level's rows.
-    Returns the rows of every level's feature table; raises ``ValueError``
-    naming the first map out of range."""
+    boundary's row counts, each slot order a permutation of the level's
+    rows.  Chunked and flat: each live order a permutation of its map's
+    output rows, the up order one of the parent map's fine rows.  Every
+    layout: the sample ids ``batch <= B`` (``B``: pad rows) that global
+    pooling reads, at the level's rows.  Returns the rows of every level's
+    feature table; raises ``ValueError`` naming the first map out of
+    range."""
     kinds = [_level_kind(lv) for lv in pyr.levels]
     if "chunked" in kinds:
         if set(kinds) != {"chunked"}:
@@ -256,7 +261,7 @@ def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
 
 def _map_to(m, device):
     if isinstance(m, BrickMap):
-        return BrickMap(_to_index(m.nbr, device), m.plan)
+        return BrickMap(_to_index(m.nbr, device), m.plan, _to_index(m.order, device))
     if isinstance(m, BrickDownMap):
         return BrickDownMap(_to_index(m.place, device), m.num_slots)
     return _to_index(m, device)

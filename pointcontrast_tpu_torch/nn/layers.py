@@ -31,7 +31,8 @@ class SparseConv(nn.Module):
     gives a stride-1 conv, a down map a strided conv onto the coarser
     level) and the layout (a ``BrickMap`` or ``BrickDownMap`` runs the
     brick convs); ``order``, the map's live order from the pyramid, only
-    orders the gather GEMM's output tiles."""
+    orders the gather GEMM's output tiles (a ``BrickMap`` carries its
+    own, for the brick kernels)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
                  bias: bool = False, generator: torch.Generator | None = None):
@@ -45,7 +46,7 @@ class SparseConv(nn.Module):
         # the map object decides the layout: same weights, same semantics
         if isinstance(nbr, brick.BrickMap):
             return brick.brick_conv(features, nbr.nbr, self.weight, nbr.plan,
-                                    bias=self.bias, valid_out=valid_out)
+                                    bias=self.bias, valid_out=valid_out, order=nbr.order)
         if isinstance(nbr, brick.BrickDownMap):
             return brick.brick_down_conv(features, nbr.place, self.weight,
                                          bias=self.bias, valid_out=valid_out)

@@ -123,11 +123,14 @@ def slot_steps(plan: BrickPlan) -> tuple:
 
 @dataclasses.dataclass
 class BrickMap:
-    """Same-level conv geometry in brick layout: the coarse level's map and
-    the static plan.  ``.shape[0]`` is the kernel volume, as a flat map's."""
+    """Same-level conv geometry in brick layout: the coarse level's map, the
+    static plan and the level's slot order (``slot_order``, built with the
+    pyramid: the brick kernels tile the occupied slots first).
+    ``.shape[0]`` is the kernel volume, as a flat map's."""
 
     nbr: Any  # [K3, NB] coarse same-level map (pad brick NB-1)
     plan: BrickPlan = None
+    order: Any = None  # [NB*2^D] int32 slot rows, occupied first, or None
 
     @property
     def shape(self):
@@ -149,6 +152,16 @@ class BrickDownMap:
         return (self.num_slots,)
 
 
+def slot_order(valid: np.ndarray) -> np.ndarray:
+    """[NB*2^D] int32: a brick level's slot rows, the occupied ones first in
+    brick order (``flatnonzero(valid)``), then the empty slots and every
+    slot of the pad bricks.  The brick kernels tile their output rows in
+    this order, so the 128-row tiles past the occupied count hold no
+    occupied slot and only write zeros; the shape stays the level's."""
+    live = np.asarray(valid) > 0
+    return np.concatenate([np.flatnonzero(live), np.flatnonzero(~live)]).astype(np.int32)
+
+
 def build_brick_pyramid(coords: np.ndarray, num_levels: int, npads: list,
                         num_batch: int, dimension: int = 3,
                         conv0_kernel_size: int = 3, allow_truncate: bool = True,
@@ -164,7 +177,7 @@ def build_brick_pyramid(coords: np.ndarray, num_levels: int, npads: list,
     Brick levels reinterpret ``LevelTopo``'s fields: nbr/nbr0 a
     ``BrickMap``, down_nbr a ``BrickDownMap``, up_parent the flat up-gather
     rows (None at the boundary), up_offset None, valid/batch at slot
-    resolution [NB*2^D]."""
+    resolution [NB*2^D]; the BrickMaps carry the level's ``slot_order``."""
     from pointcontrast_tpu_torch.sparse.topology import LevelTopo, Pyramid, build_pyramid
 
     bl = num_levels if brick_levels is None else max(0, min(brick_levels, num_levels))
@@ -188,18 +201,19 @@ def build_brick_pyramid(coords: np.ndarray, num_levels: int, npads: list,
         valid = (lv[l].down_nbr != pad_l).T.astype(np.float32).reshape(-1)
         batch = np.repeat(lv[l + 1].batch, ns).astype(np.int32)
         batch = np.where(valid > 0, batch, num_batch).astype(np.int32)
+        order = slot_order(valid)
         next_is_brick = (l + 1) < bl
         upg = ((lv[l + 1].up_parent.astype(np.int64) * ns + lv[l + 1].up_offset)
                .astype(np.int32) if next_is_brick else None)
         levels.append(LevelTopo(
-            nbr=BrickMap(lv[l + 1].nbr, plan3),
+            nbr=BrickMap(lv[l + 1].nbr, plan3, order),
             valid=valid,
             batch=batch,
             down_nbr=BrickDownMap(lv[l + 1].down_nbr if next_is_brick else None,
                                   num_slots=ns),
             up_parent=upg,
             up_offset=None,
-            nbr0=BrickMap(lv[l + 1].nbr, plan0) if l == 0 and plan0 else None,
+            nbr0=BrickMap(lv[l + 1].nbr, plan0, order) if l == 0 and plan0 else None,
         ))
     n0 = meta.counts[0]
     if bl >= 1:
@@ -245,30 +259,33 @@ def _tap_reversal(plan: BrickPlan):
 
 
 class _BrickConv(torch.autograd.Function):
-    """out = brick_gemm(F, W).  Backward (JAX ``_brick_sym_bwd``, scatter
-    free): dF is the same brick conv of the cotangent with
-    W'[t] = W[rev[t]]^T (pad and empty-slot cotangents are zero because the
-    forward masks them), dW re-reads the forward's gathers (brick_wgrad)."""
+    """out = brick_gemm(F, W) at the occupied slots (``valid``), zeros at
+    the others.  Backward (JAX ``_brick_sym_bwd``, scatter free): dF is the
+    same brick conv of the cotangent with W'[t] = W[rev[t]]^T (the
+    cotangent is zero at empty slots and pad bricks because the forward
+    masks them), dW re-reads the forward's gathers (brick_wgrad); both
+    leave out the empty slots, as the forward does."""
 
     @staticmethod
-    def forward(ctx, features, nbr, weights, plan, rev):
+    def forward(ctx, features, nbr, weights, plan, rev, valid, order):
         steps = slot_steps(plan)
-        out = kernels.brick_gemm(features, nbr, steps, weights)
-        ctx.save_for_backward(features, nbr, weights)
+        out = kernels.brick_gemm(features, nbr, steps, weights, valid, order)
+        ctx.save_for_backward(features, nbr, weights, valid, order)
         ctx.steps, ctx.rev = steps, rev
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        features, nbr, weights = ctx.saved_tensors
+        features, nbr, weights, valid, order = ctx.saved_tensors
         ct = ct.contiguous()
         df = dw = None
         if ctx.needs_input_grad[0]:
             wrev = weights[list(ctx.rev)].transpose(1, 2).contiguous()
-            df = kernels.brick_gemm(ct, nbr, ctx.steps, wrev)
+            df = kernels.brick_gemm(ct, nbr, ctx.steps, wrev, valid, order)
         if ctx.needs_input_grad[2]:
-            dw = kernels.brick_wgrad(features, nbr, ctx.steps, ct, weights.shape[0])
-        return df, None, dw, None, None
+            dw = kernels.brick_wgrad(features, nbr, ctx.steps, ct, weights.shape[0],
+                                     valid, order)
+        return df, None, dw, None, None, None, None
 
 
 def brick_conv(features: torch.Tensor,  # [NB*2^D, Cin], empty slots zero
@@ -276,18 +293,23 @@ def brick_conv(features: torch.Tensor,  # [NB*2^D, Cin], empty slots zero
                weights: torch.Tensor,  # [K_taps, Cin, Cout]
                plan: BrickPlan,
                bias: torch.Tensor | None = None,
-               valid_out: torch.Tensor | None = None) -> torch.Tensor:
+               valid_out: torch.Tensor | None = None,
+               order: torch.Tensor | None = None) -> torch.Tensor:
     """Same-level sparse conv over brick rows (JAX ``brick_conv``).  Only
     JAX's custom-VJP form is ported: a centrally symmetric tap set with
     ``valid_out``; JAX differentiates the other cases by autodiff of
-    ``_brick_core``, which no model of the port reaches."""
+    ``_brick_core``, which no model of the port reaches.  The kernels
+    compute the occupied slots (``valid_out``: the level's, which is also
+    the source's) from the occupied slots only, tiled in ``order`` (the
+    ``BrickMap``'s ``slot_order``; None: the rows' own order)."""
     rev = _tap_reversal(plan)
     if rev is None or valid_out is None:
         raise NotImplementedError(
             "brick_conv without a centrally symmetric tap set or without "
             "valid_out (JAX differentiates _brick_core by autodiff there): "
             "not ported, ROADMAP Queue 1 item 2b")
-    out = _BrickConv.apply(features.contiguous(), nbr, weights.contiguous(), plan, rev)
+    out = _BrickConv.apply(features.contiguous(), nbr, weights.contiguous(), plan, rev,
+                           valid_out, order)
     if bias is not None:
         out = out + bias
     return mask_rows(out, valid_out)

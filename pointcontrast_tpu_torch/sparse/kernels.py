@@ -73,12 +73,14 @@ adjoint scatter_sum reads each kept cotangent row once and adds it with
 row's destinations first and reads nothing for a row whose destinations
 all lie at or past ``skip_from``, the source's pad rows, where every
 missing child of a map points (on a brick table the pad brick's 8 slots:
-left in, they turned 17k adds onto one row).  brick_gemm does 2*Cin*Cout flop per (output slot, tap) pair of
-every brick, occupied or not (8 slots x 27 taps a brick at k = 3), so it is
-bound by f32 arithmetic; it loads one index per (brick, plan step) and
-reads whole brick rows.  brick_wgrad does the same products as a reduction
-over bricks (f32 arithmetic too), 216 (step, s, p) blocks combined with
-atomics.
+left in, they turned 17k adds onto one row).  brick_gemm and brick_wgrad
+do 2*Cin*Cout flop per (tap, output slot) pair whose output and source slots
+are both occupied (f32 arithmetic bounds them); they take the level's
+``valid`` and slot order (``brick.slot_order``: occupied slots first), run
+gather_gemm's and gather_wgrad's pipelines over the occupied output slots,
+read a row's source at each tap from the plan's slot table
+(``brick_slot_table``) and skip the empty sources, and write exact zeros at
+the empty slots.
 """
 from __future__ import annotations
 
@@ -140,8 +142,9 @@ def _lib():
         "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
         "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
-        "pc_brick_gemm": [vp, vp, vp, ci, vp, vp, ci, ci, ci, vp],
-        "pc_brick_wgrad": [vp, vp, vp, ci, vp, vp, ci, ci, ci, ci, vp],
+        "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp],
+        "pc_brick_wgrad": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                           vp],
     })
 
 
@@ -641,13 +644,15 @@ def scatter_sum(g3, map_, taps, tap_stride, s_in, skip_from):
 #
 # ``steps`` is a brick plan in slot form (``sparse.brick.slot_steps``): one
 # (d, centre, T) per plan step, T[s][p] the tap that adds source slot s of
-# neighbour brick d into output slot p, -1 where none does.
+# neighbour brick d into output slot p, -1 where none does.  ``valid``
+# [NB*8] f32 marks the level's occupied slots (None: every slot counts);
+# ``order`` [NB*8] int32, the level's ``slot_order``, only orders the
+# kernels' tiles.
 
 
 BRICK_SLOTS = 8
-STEP_TAPS = 27  # distinct taps of one step, at most (2d + s - p per axis)
-# enough blocks of brick_wgrad in flight to fill the card (132 SMs)
-WGRAD_TARGET_BLOCKS = 4 * 132
+BRICK_NBRS = 27  # rows of a brick map (3^3 neighbour bricks)
+BRICK_LIMIT = 2 ** 23  # bricks a level: the kernels pack a brick id and its 8 slots' bits
 
 
 @functools.lru_cache(maxsize=None)
@@ -664,29 +669,36 @@ def _step_blocks(steps):
 
 
 @functools.lru_cache(maxsize=None)
-def _brick_tables(steps):
-    """(step table [n_steps, 94], triples [n, 5]) int32: the kernels' form
-    of ``steps`` (csrc/sparse_conv.cu spells out the columns)."""
-    table = np.full((len(steps), 3 + STEP_TAPS + BRICK_SLOTS ** 2), -1, np.int32)
-    triples = []
-    for i, (d, center, tm) in enumerate(steps):
-        taps = sorted({t for row in tm for t in row if t >= 0})
-        if len(taps) > STEP_TAPS:
-            raise ValueError(f"plan step {i} has {len(taps)} taps > {STEP_TAPS}")
-        table[i, :3] = d, int(center), len(taps)
-        table[i, 3:3 + len(taps)] = taps
+def brick_slot_table(steps, num_taps: int):
+    """(table [num_taps, 8] int32, centre): table[t, p] = 8 d + s, the row
+    d of the brick map and the source slot s that tap t reads for output
+    slot p (on each axis, offset + p = 2 d + s, so the pair is unique);
+    ``centre`` is the row d at which a brick reads itself.  The kernels'
+    form of ``steps``: a row's source at tap t is brick (d == centre ? b :
+    nbr[d, b]), slot s."""
+    table = np.full((num_taps, BRICK_SLOTS), -1, np.int32)
+    centre = -1
+    for d, is_centre, tm in steps:
+        if is_centre:
+            centre = d
         for s in range(BRICK_SLOTS):
             for p in range(BRICK_SLOTS):
                 t = tm[s][p]
-                if t >= 0:
-                    table[i, 3 + STEP_TAPS + s * BRICK_SLOTS + p] = taps.index(t)
-                    triples.append((d, int(center), s, p, t))
-    return table, np.asarray(triples, np.int32).reshape(-1, 5)
+                if t < 0:
+                    continue
+                if table[t, p] >= 0:
+                    raise ValueError(f"tap {t} reads two sources for output slot {p}")
+                table[t, p] = BRICK_SLOTS * d + s
+    if centre < 0 or (table < 0).any():
+        raise ValueError("the plan has no centre step or leaves a (tap, output slot) "
+                         "pair without a source")
+    return table, centre
 
 
 @functools.lru_cache(maxsize=None)
-def _brick_tables_on(steps, device):
-    return tuple(torch.from_numpy(a).to(device) for a in _brick_tables(steps))
+def _slot_table_on(steps, num_taps, device):
+    table, centre = brick_slot_table(steps, num_taps)
+    return torch.from_numpy(table).to(device), centre
 
 
 def _brick_source(x3, nbr, d, center):
@@ -694,22 +706,38 @@ def _brick_source(x3, nbr, d, center):
     return x3 if center else x3[nbr[d].long()]
 
 
-def _check_brick(name, x, nbr, steps, w_taps=None):
+@functools.lru_cache(maxsize=None)
+def _plan_reach(steps):
+    """(least, largest + 1) brick-map row and largest tap + 1 that a plan
+    names: its 27 x 64 entries scanned once a plan, not at every launch."""
+    ds = [d for d, _, _ in steps]
+    return min(ds), max(ds) + 1, 1 + max(t for _, _, tm in steps for row in tm for t in row)
+
+
+def _check_brick(name, x, nbr, steps, w_taps=None, valid=None, order=None):
     nb = nbr.shape[1]
     if x.dim() != 2 or x.shape[0] != BRICK_SLOTS * nb:
         raise ValueError(f"{name}: brick rows of shape {tuple(x.shape)}, expected "
                          f"[{BRICK_SLOTS * nb}, C] for {nb} bricks")
-    if any(not 0 <= d < nbr.shape[0] for d, _, _ in steps):
+    d_lo, d_end, t_end = _plan_reach(steps)
+    if d_lo < 0 or d_end > nbr.shape[0]:
         raise ValueError(f"{name}: plan reads a neighbour row outside [0, {nbr.shape[0]})")
-    if w_taps is not None and any(t >= w_taps for _, _, tm in steps
-                                  for row in tm for t in row):
+    if w_taps is not None and t_end > w_taps:
         raise ValueError(f"{name}: plan names a tap outside [0, {w_taps})")
+    _check_shape("valid", valid, (BRICK_SLOTS * nb,))
+    _check_shape("order", order, (BRICK_SLOTS * nb,))
 
 
-def brick_gemm_plain(x, nbr, steps, w):
+def _brick_mask(t, valid):
+    """t's rows at the occupied slots, exact zeros at the others."""
+    return t if valid is None else torch.where((valid != 0)[:, None], t, 0.0)
+
+
+def brick_gemm_plain(x, nbr, steps, w, valid=None, order=None):
+    # ``order`` only orders the kernel's tiles: every row's sum is the same
     nb = nbr.shape[1]
     cin, cout = w.shape[1], w.shape[2]
-    x3 = x.reshape(nb, BRICK_SLOTS, cin)
+    x3 = _brick_mask(x, valid).reshape(nb, BRICK_SLOTS, cin)
     out = x.new_zeros(nb, BRICK_SLOTS, cout)
     for d, center, s_idx, p_idx, taps in _step_blocks(steps):
         gs = _brick_source(x3, nbr, d, center)[:, s_idx].reshape(nb, -1)
@@ -717,39 +745,66 @@ def brick_gemm_plain(x, nbr, steps, w):
         wd = w[tm.clamp(min=0)] * (tm >= 0)[..., None, None].to(w.dtype)
         wd = wd.permute(0, 2, 1, 3).reshape(len(s_idx) * cin, len(p_idx) * cout)
         out[:, p_idx] += (gs @ wd).reshape(nb, len(p_idx), cout)
-    return out.reshape(nb * BRICK_SLOTS, cout)
+    return _brick_mask(out.reshape(nb * BRICK_SLOTS, cout), valid)
 
 
-def brick_gemm(x, nbr, steps, w):
+def _require_brick(x, nbr, valid, order):
+    """The card's operands: what both brick kernels read besides the
+    weights or the cotangent."""
+    _require(x, "x", torch.float32, 2)
+    _require(nbr, "nbr", torch.int32, 2)
+    _require(valid, "valid", torch.float32, 1)
+    _require(order, "order", torch.int32, 1)
+    if nbr.shape[0] > BRICK_NBRS:
+        raise ValueError(f"a brick map of {nbr.shape[0]} rows > {BRICK_NBRS}")
+    if nbr.shape[1] >= BRICK_LIMIT:
+        raise ValueError(f"{nbr.shape[1]} bricks: the kernels hold a brick id in 23 bits")
+    if valid is not None and valid.data_ptr() % 16:
+        raise ValueError("valid: the kernels read a brick's 8 slots as two float4s, "
+                         "so its storage must be 16-byte aligned")
+
+
+def brick_gemm(x, nbr, steps, w, valid=None, order=None):
     """out[b*8+p] = sum over the plan's steps (d, T) and source slots s of
     x[src_d(b)*8+s] @ w[T[s][p]], src_d(b) = nbr[d, b] (b itself at the
     centre step).  x [NB*8, Cin]; nbr [K3, NB] int32 neighbour bricks;
-    w [K_taps, Cin, Cout] -> [NB*8, Cout].  Empty slots get what their
-    neighbours give (the caller masks them); pad bricks, whose neighbours
-    are all the zero pad brick, get exactly zero."""
-    _check_brick("brick_gemm", x, nbr, steps, w.shape[0])
+    w [K_taps, Cin, Cout] -> [NB*8, Cout].  With ``valid`` [NB*8] (the
+    level's occupied slots) the sum runs over the occupied sources only and
+    the empty output slots and pad bricks get exact zeros; without it every
+    slot counts (empty slots get what their neighbours give; pad bricks,
+    whose neighbours are all the zero pad brick, exactly zero).  ``order``
+    [NB*8] int32, optional: the rows in the order the kernel tiles them
+    (the level's ``slot_order``, occupied first); any permutation gives the
+    same result, and a row it does not name is never written.
+
+    On the card every output row is written once, by one block, in a
+    fixed order of products: the same bits from run to run."""
+    _check_brick("brick_gemm", x, nbr, steps, w.shape[0], valid, order)
     if x.shape[1] != w.shape[1]:
         raise ValueError(f"brick_gemm: {x.shape[1]} channels, weights take {w.shape[1]}")
     if _use_plain(x):
-        return brick_gemm_plain(x, nbr, steps, w)
-    _require(x, "x", torch.float32, 2)
-    _require(nbr, "nbr", torch.int32, 2)
+        return brick_gemm_plain(x, nbr, steps, w, valid, order)
+    _require_brick(x, nbr, valid, order)
     _require(w, "w", torch.float32, 3)
-    nb, (cin, cout) = nbr.shape[1], w.shape[1:]
-    table, _ = _brick_tables_on(steps, x.device)
+    nb, (taps, cin, cout) = nbr.shape[1], w.shape
+    table, centre = _slot_table_on(steps, taps, x.device)
     out = torch.empty(nb * BRICK_SLOTS, cout, device=x.device, dtype=torch.float32)
-    rc = _lib().pc_brick_gemm(_ptr(x), _ptr(nbr), _ptr(table), len(steps),
-                              _ptr(w), _ptr(out), nb, cin, cout, _stream())
+    if out.numel() == 0:
+        return out
+    rc = _lib().pc_brick_gemm(_ptr(x), _ptr(nbr), nbr.shape[0], _ptr(table), taps, centre,
+                              _ptr(w), _ptr(valid), _ptr(order), _ptr(out), nb, cin, cout,
+                              _stream())
     _check(rc, "brick_gemm")
     brick_gemm.launches += 1
     return out
 
 
-def brick_wgrad_plain(x, nbr, steps, ct, num_taps):
+def brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid=None, order=None):
+    # ``order`` only orders the kernel's pairs: every tap's sum is the same
     nb = nbr.shape[1]
     cin, cout = x.shape[1], ct.shape[1]
-    x3 = x.reshape(nb, BRICK_SLOTS, cin)
-    ct3 = ct.reshape(nb, BRICK_SLOTS, cout)
+    x3 = _brick_mask(x, valid).reshape(nb, BRICK_SLOTS, cin)
+    ct3 = _brick_mask(ct, valid).reshape(nb, BRICK_SLOTS, cout)
     dw = x.new_zeros(num_taps, cin, cout)
     for d, center, s_idx, p_idx, taps in _step_blocks(steps):
         gs = _brick_source(x3, nbr, d, center)[:, s_idx].reshape(nb, -1)
@@ -761,31 +816,47 @@ def brick_wgrad_plain(x, nbr, steps, ct, num_taps):
     return dw
 
 
-def brick_wgrad(x, nbr, steps, ct, num_taps):
+def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
     """dW[t] = sum over the (d, s, p) with T_d[s][p] = t of
-    sum_b x[src_d(b)*8+s]^T @ ct[b*8+p] -> [num_taps, Cin, Cout] f32.  On
-    the card each (d, s, p) block over a slice of bricks is reduced in
-    registers and added with f32 atomics, so the summation order differs
-    from run to run."""
-    _check_brick("brick_wgrad", x, nbr, steps, num_taps)
+    sum_b x[src_d(b)*8+s]^T @ ct[b*8+p] -> [num_taps, Cin, Cout] f32, with
+    ``valid`` over the pairs whose output slot b*8+p and source slot are
+    both occupied (without it over every pair).  ``order`` (the level's
+    ``slot_order``) only orders the pairs.  On the card each block reduces
+    the live pairs of one tap in its share of the rows, and the shares'
+    partial sums are added in a fixed order: dW is the same from run to
+    run."""
+    _check_brick("brick_wgrad", x, nbr, steps, num_taps, valid, order)
     _check_brick("brick_wgrad ct", ct, nbr, steps)
     if _use_plain(x):
-        return brick_wgrad_plain(x, nbr, steps, ct, num_taps)
-    _require(x, "x", torch.float32, 2)
+        return brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid, order)
+    _require_brick(x, nbr, valid, order)
     _require(ct, "ct", torch.float32, 2)
-    _require(nbr, "nbr", torch.int32, 2)
     nb, cin, cout = nbr.shape[1], x.shape[1], ct.shape[1]
-    _, triples = _brick_tables_on(steps, x.device)
-    tiles = -(-cin // 64) * -(-cout // 64)  # the kernel's 64 x 64 tiles
-    splits = max(1, -(-WGRAD_TARGET_BLOCKS // (tiles * triples.shape[0])))
-    per_block = -(-nb // splits)
-    dw = torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32)
-    rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(triples), triples.shape[0],
-                               _ptr(ct), _ptr(dw), nb, cin, cout, per_block,
-                               _stream())
+    table, centre = _slot_table_on(steps, num_taps, x.device)
+    rows = nb * BRICK_SLOTS
+    if rows == 0 or num_taps == 0:
+        return torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32)
+    tiles = _wgrad_tiles(cin, cout)
+    slices = _brick_wgrad_slices(rows, tiles, num_taps)
+    ws = tickets = None
+    if slices > 1:
+        ws = torch.empty(slices, num_taps, cin, cout, device=x.device, dtype=torch.float32)
+        tickets = torch.zeros(tiles * num_taps, device=x.device, dtype=torch.int32)
+    dw = torch.empty(num_taps, cin, cout, device=x.device, dtype=torch.float32)
+    rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(table), num_taps, centre, _ptr(ct),
+                               _ptr(valid), _ptr(order), _ptr(dw), _ptr(ws), _ptr(tickets),
+                               nb, cin, cout, slices, _stream())
     _check(rc, "brick_wgrad")
     brick_wgrad.launches += 1
     return dw
+
+
+def _brick_wgrad_slices(rows, tiles, taps) -> int:
+    """Blocks a (tap, tile) of brick_wgrad spreads its rows over: about
+    ``WGRAD_BLOCKS`` blocks in all, 256 rows a block at least.  A block
+    takes every slices-th run of 256 rows of the order, so the occupied
+    rows, which the slot order puts first, fall to every block alike."""
+    return max(1, min(-(-rows // 256), -(-WGRAD_BLOCKS // (tiles * taps))))
 
 
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
