@@ -3,13 +3,17 @@
 NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scatter-blocks 1,2,4,8,16
 
-Phases, each printed on its own line:
+The second form only times scatter_gemm at several SCATTER_BLOCKS
+(``scatter_blocks_sweep``).  Phases of the first, each printed on its own
+line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
      library from this checkout's sources; a stack frame or spill in
-     parent_gemm, FPS or the brick kernels fails it;
+     parent_gemm, scatter_gemm, FPS, ball query or the brick kernels fails
+     it;
   2a. fps: one FPS pick's floor by cluster size, on clouds of one point a
      thread (the serial bound of every FPS check);
   the pretraining path:
@@ -126,17 +130,22 @@ times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``),
 and the kernel's and the library call's device-only times (``device_ms``,
 ``library_device_ms``: the same 10 calls replayed as one CUDA graph, the
 median of 5 replays, so the host's cost of a call is left out;
-``ms - device_ms`` is that cost).  The gather GEMMs' checks pass the pad
-row as ``skip`` and the pyramid's live orders, as the sparse ops do, and
-their lines give the live and the computed share of the (row, tap) pairs;
-gather_wgrad's lines whether two launches on one input are bit-equal;
-parent_gemm's checks pass the up order and the ``skip`` of their path and
-give the share of rows computed; the brick kernels' lines the live and
-computed shares of the (tap, output slot) pairs and the live pairs
-against the count before the kernels skipped empty slots; parent_gemm,
-FPS, brick_gemm and brick_wgrad must give the same bits from two
-launches; ``[ptxas]`` lines give the gather GEMMs', parent_gemm's, the
-brick kernels' and FPS's registers, stack and spills.  Then
+``ms - device_ms`` is that cost).  The gather GEMMs' and scatter_gemm's
+checks pass the pad row as ``skip`` and the live orders the step passes
+(the pyramid's; none for the CRF's flat map), as the sparse ops do, and
+their lines give the live and the computed share of the (row, tap) pairs,
+with the order and without it (``unordered_share``); gather_wgrad's lines
+whether two launches on one input are bit-equal; parent_gemm's checks
+pass the up order and the ``skip`` of their path and give the share of
+rows computed; the brick kernels' lines the live and computed shares of
+the (tap, output slot) pairs and the live pairs against the count before
+the kernels skipped empty slots; ball_query's lines the points scanned
+against a full scan of every cloud (``scanned_share``); parent_gemm, FPS,
+ball query, brick_gemm and brick_wgrad must give the same bits from two
+launches; ``[ptxas]`` lines give the gather GEMMs', scatter_gemm's,
+parent_gemm's, the brick kernels', FPS's and ball query's registers,
+stack and spills (any stack or spill fails the build phase, but for the
+gather GEMMs').  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -202,10 +211,10 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel",
-                "brick_gemm_kernel", "brick_wgrad_kernel")
-PTXAS_DETECT = ("fps_kernel",)
+                "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel")
+PTXAS_DETECT = ("fps_kernel", "ball_query_kernel")
 PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel", "brick_gemm_kernel",
-                  "brick_wgrad_kernel")
+                  "brick_wgrad_kernel", "scatter_gemm_kernel", "ball_query_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
@@ -213,7 +222,8 @@ FPS_FLOOR_PICKS = 512
 # kernels whose two launches on one input must give the same bits (no
 # atomics: every output written once, in a fixed order of operations, or
 # partial sums added in a fixed order)
-REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad")
+REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad",
+                "ball_query")
 # the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
 # (taps K, table rows N, channels C, gathered rows M)
 PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
@@ -455,15 +465,12 @@ def work(name, args, out) -> tuple:
         # and a compare
         return _nbytes(xyz, *outs), 9 * (npoint - 1) * xyz.shape[0] * xyz.shape[1]
     if name == "ball_query":
-        centres, xyz, _, nsample = args
-        o = outs[0]
-        full = (o[..., -1] != o[..., 0] if nsample > 1
-                else torch.ones_like(o[..., 0], dtype=torch.bool))
-        scanned = torch.where(full, o[..., -1].long() + 1,
-                              torch.full_like(o[..., 0], xyz.shape[1]).long())
-        # per point scanned: |b|^2 and a.b (a multiply and two FMAs each),
-        # an add, a multiply, a subtract, a max and a compare
-        return _nbytes(centres, xyz, *outs), 15 * int(scanned.sum())
+        # per (centre, point) pair scanned: a.b (a multiply and two FMAs),
+        # an add, a multiply, a subtract, a max and a compare; |a|^2 and
+        # |b|^2 (a multiply and two FMAs) once per centre and per point
+        centres, xyz = args[0], args[1]
+        once = 5 * xyz.shape[0] * (centres.shape[1] + xyz.shape[1])
+        return _nbytes(centres, xyz, *outs), 10 * ball_scanned(args, outs[0]) + once
     if name == "gather_rows":
         table, idx = args
         b_, n, c = table.shape
@@ -486,7 +493,7 @@ def work(name, args, out) -> tuple:
         grad, idx, weight, _ = args
         return _nbytes(grad, idx, weight, *outs), 6 * grad.numel()
     if name == "scatter_gemm":
-        g3, map_, taps, w, _, skip = args
+        g3, map_, taps, w, _, skip = args[:6]
         live = _live_rows(g3)
         pairs = sum(int((live & (map_[int(t)] != skip)).sum()) for t in taps)
         return (_nbytes(g3, w, *outs) + _map_bytes(map_, len(taps), *g3.shape[:2]),
@@ -519,6 +526,18 @@ def work(name, args, out) -> tuple:
         return (_nbytes(args[0], args[1], w_ct, *extra, *outs),
                 2 * args[0].shape[1] * cout * int(live.sum()))
     raise KeyError(name)
+
+
+def ball_scanned(args, out) -> int:
+    """The points a ball query must scan on these inputs: each centre's
+    cloud up to its nsample-th hit, the whole cloud where it has fewer."""
+    import torch
+
+    xyz, nsample = args[1], args[3]
+    full = (out[..., -1] != out[..., 0] if nsample > 1
+            else torch.ones_like(out[..., 0], dtype=torch.bool))
+    return int(torch.where(full, out[..., -1].long() + 1,
+                           torch.full_like(out[..., 0], xyz.shape[1]).long()).sum())
 
 
 def _flat_rows(map_, taps, stride, b_, s_rows, s_table, dev):
@@ -578,6 +597,9 @@ def gather_shares(name, args) -> dict:
     every row of a 16-row fragment (in its 128-row tile of the row order it
     is given, the pyramid's live order) with a row that is not ``skip`` at
     that tap, and ``unordered`` the same in the rows' own order;
+    scatter_gemm the same shares of its (cotangent row, tap) pairs whose
+    destination is kept, computed as each 128-row tile's kept rows a tap
+    rounded up to 16;
     gather_wgrad the pairs whose rows are not their ``skip``; parent_gemm
     (its rows are (fine row, offset) pairs) the rows whose parent row is
     non-zero (``live``) and, ``computed``, 16 rows for every offset that a
@@ -610,6 +632,26 @@ def gather_shares(name, args) -> dict:
         def computed(k):
             frag = torch.nn.functional.pad(k, (0, -s_out % GEMM_ROWS))
             return 16 * int(frag.reshape(*k.shape[:2], -1, 16).any(-1).sum()) / k.numel()
+
+        ordered = kept
+        if order is not None:
+            ordered = torch.gather(kept, 2, order.long().expand_as(kept))
+        return {"live": float(live.float().mean()), "computed": computed(ordered),
+                "unordered": computed(kept)}
+    if name == "scatter_gemm":
+        # the kernel compacts each (128-row tile, tap)'s kept rows and
+        # computes them rounded up to 16
+        g3, map_, taps, w, s_in, skip = args[:6]
+        order = args[6] if len(args) > 6 else None
+        s_out = g3.shape[1]
+        idx = torch.stack([map_[int(t)] for t in taps])  # [T, B, s_out]
+        kept = (idx != skip) & (idx >= 0) & (idx < s_in)
+        live = kept & _live_rows(g3)[None]
+
+        def computed(k):
+            tile = torch.nn.functional.pad(k, (0, -s_out % GEMM_ROWS))
+            n = tile.reshape(*k.shape[:2], -1, GEMM_ROWS).sum(-1)
+            return 16 * int(((n + 15) // 16).sum()) / k.numel()
 
         ordered = kept
         if order is not None:
@@ -823,6 +865,9 @@ def phase_kernels(checks, module, exact=()):
                 extra.update(before_share=f"{shares['before']:.3f}",
                              live_pairs=shares["live_pairs"],
                              before_pairs=shares["before_pairs"])
+        if name == "ball_query":  # against a full scan of every cloud
+            full_scan = args[0].shape[0] * args[0].shape[1] * args[1].shape[1]
+            extra["scanned_share"] = f"{ball_scanned(args, got) / full_scan:.3f}"
         if name in ("gather_wgrad", *REPEAT_EXACT):
             extra["repeat_bit_equal"] = bool(torch.equal(fn(*args), fn(*args)))
             ok = ok and (extra["repeat_bit_equal"] or name not in REPEAT_EXACT)
@@ -1651,7 +1696,7 @@ def conv_checks(model, batch, calls=None):
                     ("gather_gemm", f"flat fwd {tag}", K.gather_gemm,
                      (x, m3, taps, 0, wg, None, n, n - 1)),
                     ("scatter_gemm", f"flat dF {tag}", K.scatter_gemm,
-                     (ct, m3, taps, wg, n, n - 1)),
+                     (ct, m3, taps, wg, n, n - 1, None)),
                     ("gather_wgrad", f"flat dW {tag}", K.gather_wgrad,
                      (x, m3, taps, 0, ct, None, None, 0, len(taps), n, n - 1, -1)),
                 ]
@@ -1711,7 +1756,7 @@ def conv_checks(model, batch, calls=None):
                 ("gather_gemm", f"K4 fwd {tag}", K.gather_gemm,
                  (f3, nbr, taps, 0, w.contiguous(), None, s_out, s_in - 1, kw.get("order"))),
                 ("scatter_gemm", f"K4 dF {tag}", K.scatter_gemm,
-                 (ct, nbr, taps, w.contiguous(), s_in, s_in - 1)),
+                 (ct, nbr, taps, w.contiguous(), s_in, s_in - 1, kw.get("order"))),
                 ("gather_wgrad", f"K4 dW {tag}", K.gather_wgrad,
                  (f3, nbr, taps, 0, ct, None, None, 0, k, s_out, s_in - 1, -1)),
             ]
@@ -2471,8 +2516,59 @@ def kernels_line(paths: dict) -> list:
     ]
 
 
+def scatter_blocks_sweep(multiples) -> int:
+    """scatter_gemm's device ms with ``SCATTER_BLOCKS`` (the blocks below
+    which it splits a tile's steps) at each of ``multiples`` times
+    ``GEMM_BLOCKS``: summed over the ResNet18 and ResNet50 K4 dF checks and
+    the CRF's flat dF (``conv_checks`` on the semseg and ResNet batches),
+    each held to its plain twin at every setting.  Two rounds, the list and
+    then the list reversed; one ``[sweep]`` line a setting, path and round,
+    and a JSON line of {path: {multiple: [device ms of each round]}}."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    phase_device()
+    phase_build()
+    device = torch.device("cuda", 0)
+    scenes, batch = make_semseg_batch(device)
+    model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF)
+    groups = {"semseg crf": [c for c in conv_checks(model, batch)
+                             if c[1].startswith("flat dF")]}
+    del model, batch
+    rbatch = W.resnet_batch(scenes).to(device)
+    for name in ("ResNet18", "ResNet50"):
+        model = W.resnet_model(seed=0, model=name)
+        groups[name.lower()] = [c for c in conv_checks(model, rbatch)
+                                if c[1].startswith("K4 dF")]
+        del model
+    saved = K.SCATTER_BLOCKS
+    table = {path: {m: [] for m in multiples} for path in groups}
+    try:
+        for order in (list(multiples), list(reversed(multiples))):
+            for m in order:
+                K.SCATTER_BLOCKS = m * K.GEMM_BLOCKS
+                for path, checks in groups.items():
+                    total = 0.0
+                    for _, label, fn, args in checks:
+                        err, ref = _max_err(fn(*args), K.scatter_gemm_plain(*args))
+                        if not err <= ATOL + RTOL * ref:
+                            raise AssertionError(f"{label} at {m}x: {err:.3e} of {ref:.3e}")
+                        total += _device_ms(fn, args)
+                    table[path][m].append(total)
+                    say("sweep", path=repr(path), multiple=m, blocks=K.SCATTER_BLOCKS,
+                        checks=len(checks), device_ms=f"{total:.4f}")
+    finally:
+        K.SCATTER_BLOCKS = saved
+    print(json.dumps({"scatter_blocks": table}), flush=True)
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--scatter-blocks"]:
+        return scatter_blocks_sweep([int(m) for m in sys.argv[2].split(",")])
     t0 = time.perf_counter()
     card = phase_device()
     import torch

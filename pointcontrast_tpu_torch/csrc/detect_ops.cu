@@ -3,7 +3,8 @@
 // Python wrappers, their plain-torch twins and which JAX op each replaces):
 //   K6 fps_kernel             furthest point sampling, one thread-block
 //                             cluster a cloud, points in registers
-//   K7 ball_query_kernel      first nsample in-radius points per centre
+//   K7 ball_query_kernel      first nsample in-radius points per centre, a
+//                             warp a centre over point tiles in shared memory
 //   K8 gather_rows_kernel     out[b, m, :] = table[b, idx[b, m], :], a lane
 //                             group a row (row_groups.cuh), HBM-bound
 //      scatter_add_rows_kernel  its backward, a lane group a run of rows
@@ -41,7 +42,10 @@
 namespace {
 
 constexpr int FPS_MAX_THREADS = 1024;
-constexpr int BQ_THREADS = 128;
+constexpr int BQ_WARPS = 8;                      // centres a block, a warp each
+constexpr int BQ_THREADS = 32 * BQ_WARPS;
+constexpr int BQ_TILE = 1024;                    // points a staged tile
+constexpr int BQ_PER = BQ_TILE / BQ_THREADS;     // points a thread stages
 constexpr int ROW_THREADS = 256;
 
 // fma(a2, b2, fma(a1, b1, a0 b0)): XLA's CPU spelling of a 3-term dot
@@ -316,34 +320,98 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int N, int npoi
 
 // K7: for centre (b, m), the first nsample points j (in point order) with
 // max(|a|^2 + |b_j|^2 - 2 a.b_j, 0) < r2; slots past the hit count repeat
-// the first hit, and a centre with no hit gets index 0.  One thread per
-// centre; the threads of a warp read the same point at the same time.
+// the first hit, and a centre with no hit gets index 0.  What bounds it:
+// ~10 f32 operations per (centre, point) pair scanned, up to the
+// nsample-th hit (a.b, then the distance and its test; |b|^2 is once a
+// point), and the scan's latency: with one thread a centre, SA1's
+// 16,384 centres fill 4 warps an SM and a warp waits for its slowest
+// thread's scan.  The design:
+//  - a warp owns a centre; each step its lanes test 32 consecutive points,
+//    __ballot_sync gathers the hits and __popc of the lanes below each hit
+//    gives its slot, so hits land in point order; lanes whose slot is past
+//    nsample (a step that straddles the end) write nothing.  The warp adds
+//    the step's count and leaves together at nsample (a warp-uniform exit),
+//    and its lanes fill the tail (the first hit, or 0);
+//  - a block owns BQ_WARPS consecutive centres of one cloud and streams
+//    the cloud through two shared-memory tiles of BQ_TILE points: each
+//    thread loads its BQ_PER points of tile t + 1 into registers before its
+//    warp scans tile t, and stores them after it, as float4 (x, y, z,
+//    |b|^2), |b|^2 spelt by dot3_fma once per point (the same bits as the
+//    per-pair form), so a pair costs one 16-byte shared load and a.b.  One
+//    __syncthreads_or a tile: the block stops staging once none of its
+//    warps is still short of nsample; a finished warp keeps staging and
+//    arriving at the barrier.
+// grid (ceil(M / BQ_WARPS), B)
 __global__ void __launch_bounds__(BQ_THREADS)
 ball_query_kernel(const float* __restrict__ centres,
-                  const float* __restrict__ xyz, int* __restrict__ out, int B,
-                  int M, int N, float r2, int nsample) {
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= (int64_t)B * M) return;
-  const int64_t b = c / M;
-  const float* p = xyz + b * N * 3;
+                  const float* __restrict__ xyz, int* __restrict__ out, int M,
+                  int N, float r2, int nsample) {
+  __shared__ float4 tile[2][BQ_TILE];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.y, m = blockIdx.x * BQ_WARPS + (tid >> 5);
+  const bool mine = m < M;  // a warp past the last centre only stages
+  const int64_t c = (int64_t)b * M + (mine ? m : 0);
+  const float* p = xyz + (int64_t)b * N * 3;
   int* o = out + c * nsample;
   const float ax = centres[3 * c], ay = centres[3 * c + 1], az = centres[3 * c + 2];
   const float a2 = dot3_fma(ax, ay, az, ax, ay, az);
-  int cnt = 0;
-  for (int j = 0; j < N && cnt < nsample; ++j) {
-    const float bx = p[3 * j], by = p[3 * j + 1], bz = p[3 * j + 2];
-    const float ab = dot3_fma(ax, ay, az, bx, by, bz);
-    const float d2 = fmaxf(__fsub_rn(__fadd_rn(a2, dot3_fma(bx, by, bz, bx, by, bz)),
-                                     __fmul_rn(2.0f, ab)),
-                           0.0f);
-    if (d2 < r2) {
-      if (cnt == 0)
-        for (int k = 1; k < nsample; ++k) o[k] = j;
-      o[cnt++] = j;
+  int cnt = mine ? 0 : nsample, first = 0;
+
+  float px[BQ_PER], py[BQ_PER], pz[BQ_PER];
+  auto fetch = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < BQ_PER; ++u) {
+      const int j = base + tid + u * BQ_THREADS;
+      px[u] = py[u] = pz[u] = 0.0f;
+      if (j < N) {
+        px[u] = __ldg(p + 3 * j);
+        py[u] = __ldg(p + 3 * j + 1);
+        pz[u] = __ldg(p + 3 * j + 2);
+      }
     }
+  };
+  auto stage = [&](float4* dst) {
+#pragma unroll
+    for (int u = 0; u < BQ_PER; ++u)
+      dst[tid + u * BQ_THREADS] =
+          make_float4(px[u], py[u], pz[u], dot3_fma(px[u], py[u], pz[u], px[u], py[u], pz[u]));
+  };
+
+  const int ntiles = (N + BQ_TILE - 1) / BQ_TILE;
+  fetch(0);
+  stage(tile[0]);
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t has landed, and tile t - 1's buffer is read no more
+    if (!__syncthreads_or(cnt < nsample)) break;
+    const bool more = t + 1 < ntiles;
+    if (more) fetch((t + 1) * BQ_TILE);
+    if (cnt < nsample) {  // warp-uniform
+      const float4* tl = tile[t & 1];
+      const int base = t * BQ_TILE, len = min(BQ_TILE, N - base);
+      for (int j0 = 0; j0 < len; j0 += 32) {
+        const int j = j0 + lane;
+        bool hit = false;
+        if (j < len) {
+          const float4 q = tl[j];
+          const float ab = dot3_fma(ax, ay, az, q.x, q.y, q.z);
+          hit = fmaxf(__fsub_rn(__fadd_rn(a2, q.w), __fmul_rn(2.0f, ab)), 0.0f) < r2;
+        }
+        const unsigned bits = __ballot_sync(0xffffffffu, hit);
+        if (bits == 0u) continue;
+        if (cnt == 0) first = base + j0 + __ffs(bits) - 1;
+        if (hit) {
+          const int slot = cnt + __popc(bits & ((1u << lane) - 1u));
+          if (slot < nsample) o[slot] = base + j;
+        }
+        cnt += __popc(bits);
+        if (cnt >= nsample) break;
+      }
+    }
+    if (more) stage(tile[(t + 1) & 1]);
   }
-  if (cnt == 0)
-    for (int k = 0; k < nsample; ++k) o[k] = 0;
+  if (!mine) return;
+  const int fill = cnt == 0 ? 0 : first;
+  for (int k = cnt + lane; k < nsample; k += 32) o[k] = fill;
 }
 
 // K8 forward: out[b, m, :] = table[b, idx[b, m], :], the copy under JAX's
@@ -950,10 +1018,9 @@ int pc_fps(const void* xyz, void* out, int B, int N, int npoint, int cs, void* s
 
 int pc_ball_query(const void* centres, const void* xyz, void* out, int B, int M,
                   int N, float r2, int nsample, void* stream) {
-  const int64_t total = (int64_t)B * M;
-  const int blocks = (int)((total + BQ_THREADS - 1) / BQ_THREADS);
-  ball_query_kernel<<<blocks, BQ_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)centres, (const float*)xyz, (int*)out, B, M, N, r2, nsample);
+  const dim3 grid((M + BQ_WARPS - 1) / BQ_WARPS, B);
+  ball_query_kernel<<<grid, BQ_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)centres, (const float*)xyz, (int*)out, M, N, r2, nsample);
   return (int)cudaGetLastError();
 }
 

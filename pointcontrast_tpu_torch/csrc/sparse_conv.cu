@@ -33,9 +33,10 @@
 // weights a step, and the brick layout's brick_gemm (i) and brick_wgrad
 // (j) run the two pipelines over a level's occupied slots, tiled in its
 // slot order (occupied first), their sources from the plan's slot table.
-// scatter_gemm is a simple tiled SIMT f32 kernel: each block stages its
-// rows and a weight tile in shared memory and accumulates a 4x4
-// micro-tile per thread.  gather_sum and its adjoint scatter_sum (the pooling ops,
+// scatter_gemm (e), K4's and the flat conv's dF, runs gather_gemm's
+// pipeline over the cotangent rows in the map's live order, computing
+// each tile's live rows a tap (compacted), and adds each tap's products
+// with float4 atomics.  gather_sum and its adjoint scatter_sum (the pooling ops,
 // and JAX's jnp.take and its autodiff in the brick layout's placement and
 // up gathers, pointcontrast_tpu/sparse/brick.py:465, :491) only move rows,
 // so HBM bytes bound them.  Both give each row a lane group
@@ -64,11 +65,6 @@ struct TapList {
 };
 
 namespace {
-
-constexpr int BM = 64;   // rows (or Cin channels for wgrad) per block tile
-constexpr int BN = 64;   // output channels per block tile
-constexpr int BK = 16;   // reduction depth per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ int row_of(const int* __restrict__ map,
                                       const TapList& taps, int tap_stride,
@@ -249,14 +245,16 @@ __device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const float* as
   }
 }
 
-// Stage a step's row tile: row m of `as` [BM][BK] is Xb's row row(m) at
+// Stage a step's row tile: row m of `as` [ROWS][BK] is Xb's row row(m) at
 // depth k0 (zero-filled where row(m) < 0 and past Cin), by 16-byte cp.async
 // (4-byte where Cin % 4 != 0 or Xb is unaligned), the 16-byte chunks of row
-// m at index XOR (m / 4) % 8.
-template <typename RowOf>
+// m at index XOR (m / 4) % 8.  scatter_gemm stages its W[j]^T tile this way
+// too, with ROWS = 32 Q rows of W[j].
+template <int ROWS = gg::BM, typename RowOf>
 __device__ __forceinline__ void gg_load_rows(float* as, const float* Xb, RowOf row, int k0,
                                              int Cin, int vec_x, int tid) {
-  constexpr int BM = gg::BM, BK = gg::BK, THREADS = gg::THREADS;
+  constexpr int BM = ROWS, BK = gg::BK, THREADS = gg::THREADS;
+  static_assert(BM * BK % (4 * THREADS) == 0, "whole 16-byte chunks a thread");
   if (vec_x) {
 #pragma unroll
     for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
@@ -955,81 +953,216 @@ scatter_parent_kernel(const float* __restrict__ ct,
   }
 }
 
-// (e) dF[b, map[taps[j]][b][s], :] += G[b, s, :] . W[j]^T for every listed
-// tap j (W[j] is [Cin, Cout]), destination rows equal to `skip` left out:
-// the flat-map conv's feature gradient, a scatter because several output
-// rows may read one input row.  f32 atomics add the products.
-// grid (ceil(S_out/BM), ceil(Cin/BN), B)
-__global__ void __launch_bounds__(THREADS)
-scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
-                    TapList taps, int T, const float* __restrict__ W,
-                    float* __restrict__ dF, int B, int S_out, int S_in, int Cin,
-                    int Cout, int skip) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  __shared__ int rows[BM];
+// (e) scatter_gemm: dF[b, map[taps[j]][b][s], :] += G[b, s, :] . W[j]^T for
+// every listed tap j (W[j] is [Cin, Cout]), destination rows equal to
+// `skip` (or outside [0, S_in)) left out: JAX K4 _conv_chunk_down_fused's
+// dF (k3s2 windows overlap, so up to 8 coarse rows add into one fine row)
+// and the flat _conv_core's, a scatter because a map may name a row many
+// times.  What bounds it: 2 Cin Cout f32 operations per (row, tap) pair
+// whose destination is live (f32 SIMT), and a map sends every missing
+// neighbour to the pad row (a plain tiled kernel that computes every pair
+// runs at 0.03-0.04 of that bound on the ResNets' K4 dF).  The design is
+// gather_gemm's, with the roles turned round:
+//  - a block owns BM = 128 cotangent rows of one chunk (128 consecutive
+//    entries of `order`, the map's live order that K4's forward tiles by,
+//    or 128 consecutive rows without it) and a Cin tile of 32 Q channels
+//    (gg::q_for(Cin)); each thread 4 rows x 4Q columns in registers;
+//  - prologue: the block reads its rows' destinations for all its taps
+//    into shared memory, a ballot per 32 rows marks the live ones and
+//    their counts place them: each tap's live rows are compacted, in row
+//    order, to the front of the tile.  A tap with none leaves the step
+//    list; at a tap, warp w computes compacted rows [16 w, 16 w + 16) and
+//    skips the tap if they are past its live count, so a (tile, tap) costs
+//    its live rows rounded up to 16 (the order still gathers each tap's
+//    live rows into few tiles);
+//  - main loop over (live tap, 32-deep Cout chunk) steps through
+//    gather_gemm's 3-stage cp.async ring: the tap's compacted cotangent
+//    rows (zero-filled past its live count), and W[j]^T's tile staged
+//    as 32 Q rows of W[j] by gg_load_rows (16-byte chunks of row n at
+//    index XOR (n / 4) % 8), so a quarter-warp's 8 row reads in sg_mma hit
+//    8 distinct bank groups.  W is never transposed in memory;
+//  - after a tap's last Cout chunk each thread adds its 4 rows x 4Q
+//    columns into their live destination rows, by float4 atomics where
+//    Cin % 4 == 0 and dF is 16-byte aligned (sm_90 has vector atomics on
+//    global memory), scalar ones otherwise, and clears its accumulators.
+//    The atomics stay because a map may repeat a destination, so the sums'
+//    order, and their last bits, change from run to run;
+//  - few blocks (the deep levels, the 1-tap maps at Cout 1024-2048): the
+//    wrapper splits each tile's step list over `splits` blocks, each adding
+//    its part with the same atomics (no combine).
+namespace sg {
+// the layout scatter_gemm_kernel carves: gather_gemm's ring (As, Bs), then
+// each tap's destinations and ballots, the live tap list (count, then
+// taps), each tap's live count, the tile's cotangent rows, and each tap's
+// compacted rows (one byte each)
+inline size_t smem_bytes(int Q, int T) {
+  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+         sizeof(int) * (T * gg::BM + T * gg::BALLOTS + (T + 1) + T + gg::BM) +
+         (size_t)T * gg::BM;
+}
+}  // namespace sg
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+template <int Q>
+__device__ __forceinline__ void sg_mma(float4 (&acc)[gg::TM][Q], const float* as,
+                                       const float* bs, int sw, int tx) {
+  constexpr int BK = gg::BK;
+#pragma unroll
+  for (int k4 = 0; k4 < BK / 4; ++k4) {
+    float4 a[gg::TM];
+#pragma unroll
+    for (int i = 0; i < gg::TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(as + i * BK + ((k4 ^ sw) << 2));
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float4 w[4];  // rows 4 tx + 32 q + c of W[j], depths 4 k4 .. 4 k4 + 3
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        w[c] = *reinterpret_cast<const float4*>(bs + (4 * tx + 32 * q + c) * BK +
+                                                ((k4 ^ tx) << 2));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 wk = make_float4(lane_of(w[0], kk), lane_of(w[1], kk),
+                                      lane_of(w[2], kk), lane_of(w[3], kk));
+#pragma unroll
+        for (int i = 0; i < gg::TM; ++i) fma4(acc[i][q], lane_of(a[i], kk), wk);
+      }
+    }
+  }
+}
+
+// Add the 4 columns n..n+3 of v into a row (one float4 atomic when `vec`:
+// C % 4 == 0 and the row 16-byte aligned), those at or past C left out.
+__device__ __forceinline__ void atomic_add4(float* row, int n, int C, bool vec,
+                                            const float4& v) {
+  if (vec) {
+    if (n < C) atomicAdd(reinterpret_cast<float4*>(row + n), v);
+    return;
+  }
+  if (n < C) atomicAdd(row + n, v.x);
+  if (n + 1 < C) atomicAdd(row + n + 1, v.y);
+  if (n + 2 < C) atomicAdd(row + n + 2, v.z);
+  if (n + 3 < C) atomicAdd(row + n + 3, v.w);
+}
+
+// grid (ceil(S_out / BM), ceil(Cin / 32 Q), B * splits)
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
+                    const __grid_constant__ TapList taps, int T, const float* __restrict__ W,
+                    const int* __restrict__ order, float* __restrict__ dF, int splits, int B,
+                    int S_out, int S_in, int Cin, int Cout, int skip, int vec_g, int vec_w,
+                    int vec_o) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BN][BK]: W[j] rows
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BN * BK);  // [T][BM] destinations
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + T * BM);  // [T][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + T * BALLOTS);  // count, then taps
+  int* nlive = live + T + 1;  // [T] live rows a tap
+  int* srow = nlive + T;      // [BM] the tile's cotangent rows, -1 past S_out
+  unsigned char* crow = reinterpret_cast<unsigned char*>(srow + BM);  // [T][BM]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
   const float* Gb = G + (int64_t)b * S_out * Cout;
   float* dFb = dF + (int64_t)b * S_in * Cin;
 
-  for (int j = 0; j < T; ++j) {
-    if (tid < BM) {
-      const int s = s0 + tid;
-      int r = -1;
-      if (s < S_out) {
-        r = __ldg(map + ((int64_t)taps.idx[j] * B + b) * S_out + s);
-        if (r == skip || r < 0 || r >= S_in) r = -1;
-      }
-      rows[tid] = r;
-    }
-    const float* Wj = W + (int64_t)j * Cin * Cout;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < Cout; k0 += BK) {
-#pragma unroll
-      for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int m = e / BK, kk = e % BK;
-        As[kk][m] = (s0 + m < S_out && k0 + kk < Cout)
-                        ? __ldg(Gb + (int64_t)(s0 + m) * Cout + k0 + kk) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-        const int e = tid + i * THREADS;
-        const int n = e / BK, kk = e % BK;  // W^T[kk][n] = W[n][kk]
-        Bs[kk][n] = (k0 + kk < Cout && n0 + n < Cin)
-                        ? __ldg(Wj + (int64_t)(n0 + n) * Cout + k0 + kk) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) w[q] = Bs[kk][tx * 4 + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], w[q], acc[i][q]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rows[ty * 4 + i];
-      if (r < 0) continue;
-      float* o = dFb + (int64_t)r * Cin;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + tx * 4 + q;
-        if (n < Cin) atomicAdd(o + n, acc[i][q]);
-      }
-    }
-    __syncthreads();  // rows[] is rewritten for the next tap
+  // prologue: the tile's rows, their destinations at every tap, which are
+  // live, and each tap's live rows compacted in row order
+  if (tid < BM) {
+    const int s = s0 + tid;
+    srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
   }
+  __syncthreads();
+  for (int e = tid; e < T * BM; e += THREADS) {  // whole warps: T * BM % 32 == 0
+    const int s = srow[e % BM];
+    int r = -1;
+    if (s >= 0) {
+      r = row_of(map, taps, 0, e / BM, b, s, B, S_out);
+      if (r == skip || r < 0 || r >= S_in) r = -1;
+    }
+    rows[e] = r;
+    const unsigned bits = __ballot_sync(0xffffffffu, r >= 0);
+    if (lane == 0) ball[e >> 5] = bits;
+  }
+  __syncthreads();
+  for (int e = tid; e < T * BM; e += THREADS) {
+    if (rows[e] < 0) continue;
+    const int t = e / BM, c = (e % BM) >> 5;
+    int at = __popc(ball[e >> 5] & ((1u << lane) - 1u));
+    for (int p = 0; p < c; ++p) at += __popc(ball[t * BALLOTS + p]);
+    crow[t * BM + at] = (unsigned char)(e % BM);
+  }
+  if (tid == 0) {
+    int n = 0;
+    for (int t = 0; t < T; ++t) {
+      int k = 0;
+#pragma unroll
+      for (int c = 0; c < BALLOTS; ++c) k += __popc(ball[t * BALLOTS + c]);
+      nlive[t] = k;
+      if (k) live[1 + n++] = t;
+    }
+    live[0] = n;
+  }
+  __syncthreads();
+  const int kchunks = (Cout + BK - 1) / BK;
+  const int total = live[0] * kchunks;  // this split: steps [lo, hi) of the tile's list
+  const int lo = sp * total / splits, nsteps = (sp + 1) * total / splits - lo;
+
+  auto load = [&](int step, int buf) {
+    const int t = live[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    const unsigned char* ct = crow + t * BM;
+    const int n = nlive[t];
+    gg_load_rows(As + buf * BM * BK, Gb, [&](int m) { return m < n ? srow[ct[m]] : -1; },
+                 k0, Cout, vec_g, tid);
+    gg_load_rows<BN>(Bs + buf * BN * BK, W + (int64_t)t * Cin * Cout,
+                     [&](int n) { return n0 + n < Cin ? n0 + n : -1; }, k0, Cout, vec_w, tid);
+  };
+
+  float4 acc[TM][Q];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(lo + st, st);
+    cp_async_commit();
+  }
+  const int sw = ty & 7;  // the swizzle of this thread's rows: (4 ty + i) / 4 % 8
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(lo + next, next % STAGES);
+      cp_async_commit();
+    }
+    const int gstep = lo + step;
+    const int t = live[1 + gstep / kchunks];
+    if (16 * warp >= nlive[t]) continue;  // this warp's 16 compacted rows are past the tap's
+    sg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK, Bs + (step % STAGES) * BN * BK,
+              sw, tx);
+    if ((gstep + 1) % kchunks != 0 && step != nsteps - 1) continue;
+    // the tap's last chunk (of this split): add into the destinations
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int j = 4 * ty + i;
+      const int r = j < nlive[t] ? rows[t * BM + crow[t * BM + j]] : -1;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (r >= 0) atomic_add4(dFb + (int64_t)r * Cin, n0 + 4 * tx + 32 * q, Cin, vec_o, acc[i][q]);
+        acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 constexpr int SEG_SMEM = 64;   // segments a block reduces in shared memory
@@ -1640,12 +1773,29 @@ int pc_scatter_parent(const void* ct, const void* parent, const void* off,
 }
 
 int pc_scatter_gemm(const void* G, const void* map, TapList taps, int T,
-                    const void* W, void* dF, int B, int S_out, int S_in,
-                    int Cin, int Cout, int skip, void* stream) {
-  dim3 grid((S_out + BM - 1) / BM, (Cin + BN - 1) / BN, B);
-  scatter_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)G, (const int*)map, taps, T, (const float*)W, (float*)dF,
-      B, S_out, S_in, Cin, Cout, skip);
+                    const void* W, const void* order, void* dF, int splits, int B,
+                    int S_out, int S_in, int Cin, int Cout, int skip, void* stream) {
+  const int q = gg::q_for(Cin);
+  const size_t smem = sg::smem_bytes(q, T);
+  const int vec_g = Cout % 4 == 0 && aligned16(G);
+  const int vec_w = Cout % 4 == 0 && aligned16(W);
+  const int vec_o = Cin % 4 == 0 && aligned16(dF);
+  const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cin + 32 * q - 1) / (32 * q), B * splits);
+  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024 && smem > granted[q]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[q] = smem;
+    }
+    kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)G, (const int*)map, taps, T, (const float*)W, (const int*)order,
+        (float*)dF, splits, B, S_out, S_in, Cin, Cout, skip, vec_g, vec_w, vec_o);
+  };
+  switch (q) {
+    case 1: go(scatter_gemm_kernel<1>); break;
+    case 2: go(scatter_gemm_kernel<2>); break;
+    default: go(scatter_gemm_kernel<3>); break;
+  }
   return (int)cudaGetLastError();
 }
 

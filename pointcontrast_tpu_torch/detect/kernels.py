@@ -29,10 +29,14 @@ it; the design gives a large cloud a thread-block cluster of up to 16 CTAs
 thread's few points and their running distances in registers for the
 whole launch, and takes a step with one ``__syncthreads`` and, across a
 cluster, stores of the CTAs' winners into each other's shared memory with
-an mbarrier arrival each.  Ball query reads each
-cloud once per centre (256 x 1024 points x 12 B per cloud, L2-resident) and
-stops at ``nsample`` hits.  The gather and scatter move rows of 4*C bytes
-and are bound by device-memory bandwidth; the scatter's atomics collide.
+an mbarrier arrival each.  Ball query costs ~10 f32 operations per
+(centre, point) pair it scans, up to the ``nsample``-th hit, and |b|^2
+once per point (SA1: 16,384 centres over 40000-point clouds, ~3/4 of each
+cloud scanned); it gives each centre a warp that tests 32 points a step
+and places the hits in point order by ballot, and each block 8 centres of
+one cloud, which it streams through shared memory as (x, y, z, |b|^2)
+tiles.  The gather and scatter move rows of 4*C bytes and are bound by
+device-memory bandwidth; the scatter's atomics collide.
 The gather gives each output row a group of 1 to 32 lanes, by C: one lane
 reads the row's index and a shuffle hands it on, the lanes copy the row
 with float4 (or neighbouring scalar) loads, in 32-bit offsets, one group a

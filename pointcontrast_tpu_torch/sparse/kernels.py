@@ -62,7 +62,11 @@ offset's weights a step, the parent rows of the other offsets zero-filled.
 scatter_parent stores rows (HBM bytes bound it): its valid rows never
 collide, and the coarse pad slot, which pad and orphaned fine rows all
 name, is left out, so no atomic remains.
-scatter_gemm adds every product with an f32 atomic; segment_sum reads each
+scatter_gemm (2*Cin*Cout flop per (row, tap) pair whose destination is
+live) runs gather_gemm's pipeline over the cotangent rows in the map's live
+order, compacts each 128-row tile's live rows a tap (computing them
+rounded up to 16) and adds each tap's products with float4 f32 atomics (a
+map may repeat a destination); segment_sum reads each
 row once (bound by HBM bytes) and adds one atomic per block, segment and
 channel.  gather_sum does no multiply: it reads each gathered row once and
 writes each output row once (bound by HBM bytes), float4 along C, a group
@@ -103,6 +107,12 @@ MAX_TAPS = 32
 # splits a tile's taps over several blocks (two waves of 132 SMs)
 GEMM_ROWS = 128
 GEMM_BLOCKS = 2 * 132
+# scatter_gemm: the blocks below which it splits a tile's steps, four
+# times gather_gemm's: at the deep levels most warps of a tile are past
+# its taps' few live rows, and shorter blocks keep two an SM busy to the
+# end (the fastest of one, two, four, eight and sixteen times on the
+# ResNets' K4 dF: ``chip_smoke.py --scatter-blocks``)
+SCATTER_BLOCKS = 4 * GEMM_BLOCKS
 # gather_wgrad: blocks to aim at (eight waves of 132 SMs, for balance: a
 # block's work is its slice's live pairs)
 WGRAD_BLOCKS = 8 * 132
@@ -137,8 +147,8 @@ def _lib():
         "pc_gather_wgrad_tiles": [ci, ci],
         "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
-        "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, ci, ci, ci, ci, ci,
-                            ci, vp],
+        "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                            ci, ci, vp],
         "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
         "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
@@ -234,6 +244,17 @@ def _gemm_splits(b_, s_out, cout, ntap) -> int:
     if blocks >= GEMM_BLOCKS or ntap < 6:
         return 1
     return min(ntap // 3, -(-GEMM_BLOCKS // blocks))
+
+
+def _scatter_splits(b_, s_out, cin, steps) -> int:
+    """Blocks over which scatter_gemm spreads one tile's ``steps`` (taps x
+    32-deep Cout chunks): one, unless its tiles (128 rows x the kernel's
+    Cin tile, per chunk) come to fewer than SCATTER_BLOCKS, or it has fewer
+    than 6 steps; then enough to get there, with 3 steps a split at least."""
+    blocks = -(-s_out // GEMM_ROWS) * -(-cin // _gemm_tile_n(cin)) * b_
+    if blocks >= SCATTER_BLOCKS or steps < 6:
+        return 1
+    return min(steps // 3, -(-SCATTER_BLOCKS // blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -480,7 +501,9 @@ def scatter_parent(ct3, parent, off, k, s_c):
 # (e) scatter_gemm
 
 
-def scatter_gemm_plain(g3, map_, taps, w, s_in, skip):
+def scatter_gemm_plain(g3, map_, taps, w, s_in, skip, order=None):
+    # ``order`` only orders the kernel's tiles: every destination's sum is
+    # the same
     b_, cin = g3.shape[0], w.shape[1]
     out = g3.new_zeros(b_, s_in, cin)
     for j in range(w.shape[0]):
@@ -490,29 +513,40 @@ def scatter_gemm_plain(g3, map_, taps, w, s_in, skip):
     return out
 
 
-def scatter_gemm(g3, map_, taps, w, s_in, skip):
+def scatter_gemm(g3, map_, taps, w, s_in, skip, order=None):
     """out[b, map[taps[j], b, s]] += g3[b, s] @ w[j]^T for every listed tap
     j and row s, except where the map names row ``skip`` (-1: none).
 
     g3 [B, S_out, Cout]; map [K, B, S_out] int32 frame-local rows into
-    [B, s_in]; w [G, Cin, Cout] (one block per listed tap); returns
-    [B, s_in, Cin].  The map may name a row many times: the card adds the
-    products with f32 atomics, in an order that differs from run to run."""
+    [B, s_in]; w [G, Cin, Cout] (one block per listed tap); ``order``
+    [B, S_out] int32, optional: each chunk's cotangent rows in the order the
+    kernel tiles them, the map's live order (the one K4's forward passes
+    to ``gather_gemm``), so that each tap's live destinations fall in few
+    128-row tiles; any permutation of each chunk's rows gives the same
+    sum.  Returns [B, s_in, Cin].  The map may name a row many
+    times: the card adds the products with f32 atomics, in an order that
+    differs from run to run; where its tiles come to few blocks it splits
+    each tile's (tap, Cout chunk) steps over several (``_scatter_splits``)."""
     b_, s_out, cout = g3.shape
     g, cin, _ = w.shape
     _check_shape("w", w, (g, cin, cout))
     _check_rows("scatter_gemm", map_, taps, 0, g, b_, s_out, s_in)
+    _check_shape("order", order, (b_, s_out))
+    if order is not None and order.dtype != torch.int32:
+        raise TypeError(f"order must be torch.int32, got {order.dtype}")
     if _use_plain(g3):
         return scatter_gemm_plain(g3, map_, taps, w, s_in, skip)
     _require(g3, "g3", torch.float32, 3)
     _require(w, "w", torch.float32, 3)
     _require(map_, "map", torch.int32, 3)
+    _require(order, "order", torch.int32, 2)
     if g > MAX_TAPS:
         raise ValueError(f"{g} taps > {MAX_TAPS}")
     out = torch.zeros(b_, s_in, cin, device=g3.device, dtype=torch.float32)
+    splits = _scatter_splits(b_, s_out, cin, g * -(-cout // 32))
     rc = _lib().pc_scatter_gemm(
-        _ptr(g3), _ptr(map_), _taps_struct(taps), g, _ptr(w), _ptr(out), b_,
-        s_out, s_in, cin, cout, int(skip), _stream())
+        _ptr(g3), _ptr(map_), _taps_struct(taps), g, _ptr(w), _ptr(order), _ptr(out),
+        splits, b_, s_out, s_in, cin, cout, int(skip), _stream())
     _check(rc, "scatter_gemm")
     scatter_gemm.launches += 1
     return out

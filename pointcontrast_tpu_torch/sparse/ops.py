@@ -218,7 +218,10 @@ class _ConvChunkDownFused(torch.autograd.Function):
     windows overlap: up to 8 coarse rows read one fine row), and
     dW_k = sum_s F[b, nbr[k,b,s]]^T ct[b,s].  JAX also scatters into the
     pad row S_in - 1, where missing neighbours point; that sum is left out
-    here (pad-row dF is garbage by design, every producer masks it)."""
+    here (pad-row dF is garbage by design, every producer masks it).  The
+    scatter tiles the cotangent rows in the forward's ``order``: the map is
+    live at (s, k) exactly where the forward gathers a live row, so the
+    map's live order serves both."""
 
     @staticmethod
     def forward(ctx, features, nbr, weights, order=None):
@@ -229,12 +232,12 @@ class _ConvChunkDownFused(torch.autograd.Function):
             part = gather_gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop],
                                None, s_out, f3.shape[1] - 1, order)
             out = part if out is None else out + part
-        ctx.save_for_backward(features, nbr, weights)
+        ctx.save_for_backward(features, nbr, weights, order)
         return out.reshape(b_ * s_out, -1)
 
     @staticmethod
     def backward(ctx, ct):
-        features, nbr, weights = ctx.saved_tensors
+        features, nbr, weights, order = ctx.saved_tensors
         k, b_, s_out = nbr.shape
         s_in = features.shape[0] // b_
         f3 = features.reshape(b_, s_in, -1)
@@ -244,7 +247,7 @@ class _ConvChunkDownFused(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             for taps in groups:
                 part = scatter_gemm(ct3, nbr, taps, weights[taps.start:taps.stop],
-                                    s_in, s_in - 1)
+                                    s_in, s_in - 1, order)
                 df = part if df is None else df + part
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
