@@ -12,8 +12,8 @@ line:
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
      library from this checkout's sources; a stack frame or spill in
-     parent_gemm, scatter_gemm, FPS, ball query or the brick kernels fails
-     it;
+     parent_gemm, scatter_gemm, FPS, ball query, the brick kernels,
+     segment_sum or three_nn fails it;
   2a. fps: one FPS pick's floor by cluster size, on clouds of one point a
      thread (the serial bound of every FPS check);
   the pretraining path:
@@ -80,7 +80,9 @@ line:
   16. data: the batch with its CRF map (hypercross, k 3), bounds-checked;
   17. for each path -- ``semseg`` (Res16UNet34C 3 -> 20), ``semseg inbn``
      (ResUNet18INBN: segment_sum and the broadcast gather at every
-     InstanceBatchNorm's shapes) and ``semseg crf`` (BilateralCRF of 10
+     InstanceBatchNorm's shapes; then ``segment_sum general``, one check
+     of segment_sum's general path, random ids at more than SEG_SMEM
+     segments, launches 0) and ``semseg crf`` (BilateralCRF of 10
      mean-field iterations over Res16UNet34C, filter LR 0.1: the flat conv's
      gather_gemm at B = 1, scatter_gemm and gather_wgrad on the real CRF
      map) -- every kernel it launches against its twin at the shapes of one
@@ -140,12 +142,16 @@ pass the up order and the ``skip`` of their path and give the share of
 rows computed; the brick kernels' lines the live and computed shares of
 the (tap, output slot) pairs and the live pairs against the count before
 the kernels skipped empty slots; ball_query's lines the points scanned
-against a full scan of every cloud (``scanned_share``); parent_gemm, FPS,
-ball query, brick_gemm and brick_wgrad must give the same bits from two
-launches; ``[ptxas]`` lines give the gather GEMMs', scatter_gemm's,
-parent_gemm's, the brick kernels', FPS's and ball query's registers,
-stack and spills (any stack or spill fails the build phase, but for the
-gather GEMMs').  Then
+against a full scan of every cloud (``scanned_share``); segment_sum's
+lines its launch shape (``grid`` blocks x channel tiles, ``span`` rows a
+block, lane ``group``) and the share of its device time that the last
+block's combine takes (``combine_share``: 1 - the device time without the
+combine over the device time); the kernels of REPEAT_EXACT must give the
+same bits from two launches (segment_sum at up to SEG_SMEM segments);
+``[ptxas]`` lines give the gather GEMMs', scatter_gemm's, parent_gemm's,
+the brick kernels', FPS's, ball query's, segment_sum's and three_nn's
+registers, stack and spills (any stack or spill fails the build phase, but
+for the gather GEMMs').  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -211,19 +217,25 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel",
-                "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel")
-PTXAS_DETECT = ("fps_kernel", "ball_query_kernel")
+                "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
+                "segment_sum_kernel")
+PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
 PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel", "brick_gemm_kernel",
-                  "brick_wgrad_kernel", "scatter_gemm_kernel", "ball_query_kernel")
+                  "brick_wgrad_kernel", "scatter_gemm_kernel", "ball_query_kernel",
+                  "segment_sum_kernel", "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
 FPS_FLOOR_PICKS = 512
 # kernels whose two launches on one input must give the same bits (no
 # atomics: every output written once, in a fixed order of operations, or
-# partial sums added in a fixed order)
+# partial sums added in a fixed order); segment_sum at up to SEG_SMEM
+# segments (its general path adds with f32 atomics)
 REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad",
-                "ball_query")
+                "ball_query", "segment_sum", "three_nn")
+# segment_sum's general-path check: random ids at this many segments (past
+# SEG_SMEM), over rows of the widest InstanceBatchNorm level's shape
+SEG_GENERAL = (40, 262144, 64)
 # the Pallas gather probes' shapes (experiments/pallas_gather_probe*.py):
 # (taps K, table rows N, channels C, gathered rows M)
 PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
@@ -305,16 +317,17 @@ def phase_build():
 def ptxas_entries(text):
     """[(entry, registers, stack bytes, spill store + load bytes)] from
     ``nvcc -Xptxas -v`` output; a template instance's entry reads like
-    ``gather_gemm_kernel<2>`` (Itanium-mangled int arguments)."""
+    ``gather_gemm_kernel<2>`` (Itanium-mangled int and bool arguments,
+    ``segment_sum_kernel<32,1>``)."""
     import re
 
     out, entry, stack, spills = [], None, 0, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            name = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
             entry = m.group(1) if name is None else name.group(1) + (
-                "<" + ",".join(re.findall(r"Li(\d+)E", name.group(2) or "")) + ">"
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", name.group(2) or "")) + ">"
                 if name.group(2) else "")
             stack = spills = 0
             continue
@@ -868,9 +881,18 @@ def phase_kernels(checks, module, exact=()):
         if name == "ball_query":  # against a full scan of every cloud
             full_scan = args[0].shape[0] * args[0].shape[1] * args[1].shape[1]
             extra["scanned_share"] = f"{ball_scanned(args, got) / full_scan:.3f}"
+        if name == "segment_sum":
+            plan = module.segment_sum_plan(args[0])
+            extra.update(grid=f"{plan['blocks']}x{plan['tiles']}", span=plan["span"],
+                         group=plan["group"])
+            if args[2] <= module.SEG_SMEM:
+                parts_ms = _device_ms(module._segment_sum_launch, (*args, False))
+                extra["combine_share"] = f"{1 - parts_ms / dev_ms:.3f}"
         if name in ("gather_wgrad", *REPEAT_EXACT):
-            extra["repeat_bit_equal"] = bool(torch.equal(fn(*args), fn(*args)))
-            ok = ok and (extra["repeat_bit_equal"] or name not in REPEAT_EXACT)
+            extra["repeat_bit_equal"] = _equal(fn(*args), fn(*args))
+            required = name in REPEAT_EXACT and not (  # the general path's atomics
+                name == "segment_sum" and args[2] > module.SEG_SMEM)
+            ok = ok and (extra["repeat_bit_equal"] or not required)
         if name == "furthest_point_sample":
             xyz, npoint = args
             extra["cluster"] = fps_cluster_of(xyz)
@@ -1859,6 +1881,22 @@ def inbn_checks(model, batch):
     return sparse, detect
 
 
+def segment_sum_general_check(device):
+    """segment_sum's general path (more than SEG_SMEM segments: run sums
+    added with f32 atomics) against its twin: random ids in [0, S), not in
+    runs, over SEG_GENERAL's rows and channels."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    s, n, c = SEG_GENERAL
+    assert s > K.SEG_SMEM
+    gen = torch.Generator(device=device).manual_seed(5)
+    ids = torch.randint(0, s, (n,), device=device, generator=gen, dtype=torch.int32)
+    return [("segment_sum", f"general S{s} N{n} C{c}", K.segment_sum,
+             (torch.randn(n, c, device=device, generator=gen), ids, s))]
+
+
 def expected_semseg_launches(model) -> tuple:
     """(launches of every kernel in one semseg training step without the
     CRF filter, the filter's extra launches when it runs).  The backbone's
@@ -2008,6 +2046,8 @@ def semseg_paths(device, card, paths):
     paths["semseg inbn"] = (res, phase_semseg("semseg inbn", model, batch, scenes,
                                               device, card, None))
     del model
+    res = phase_kernels(segment_sum_general_check(device), K)
+    paths["segment_sum general"] = (res, {})  # no main path: S past SEG_SMEM
     model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF)
     res = {}
     for name, r in backbone.items():  # the same Res16UNet34C at the same shapes

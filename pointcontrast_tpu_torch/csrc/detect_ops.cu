@@ -10,7 +10,8 @@
 //      scatter_add_rows_kernel  its backward, a lane group a run of rows
 //                             that merges repeats of one index before its
 //                             f32 atomics (16 bytes a float4)
-//   K9 three_nn_kernel        the 3 nearest known points of each unknown one
+//   K9 three_nn_kernel        the 3 nearest known points of each unknown one,
+//                             a lane group a point, merged by shuffles
 //      three_interpolate_kernel       out[b, n, :] = sum_j w_j f[b, idx_j, :]
 //      three_interpolate_grad_kernel  its backward to f: a warp sums each
 //                             known row in registers, in entry order, and
@@ -36,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "row_groups.cuh"
 
@@ -593,85 +596,147 @@ scatter_add_narrow_rows_kernel(const float* __restrict__ grad,
   }
 }
 
-constexpr int NN_THREADS = 64;
-constexpr int NN_TILE = 1024;  // known points staged per pass (16 KB)
+constexpr int NN_THREADS = 256;
+constexpr int NN_TILE = 1024;  // known points a staged tile (16 KB of float4)
+
+// (d, i) before (e, j): the lexicographic order of lax.top_k and of the
+// twin's stable sort on (distance, index)
+__device__ __forceinline__ bool nn_before(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+// The first three of two sorted triples (a: this lane's, b: its partner's)
+// under nn_before, into a.  Indices of two lanes never meet (each known
+// point is one lane's) but for the sentinels, which are equal: so both
+// lanes of a pair end with the same triple.
+__device__ __forceinline__ void nn_merge(float (&a)[3], int (&ia)[3], const float (&b)[3],
+                                         const int (&ib)[3]) {
+  const bool t0 = nn_before(a[0], ia[0], b[0], ib[0]);
+  const float o0 = t0 ? a[0] : b[0];
+  const int j0 = t0 ? ia[0] : ib[0];
+  const float x = t0 ? a[1] : a[0], y = t0 ? b[0] : b[1];  // the heads left
+  const int ix = t0 ? ia[1] : ia[0], iy = t0 ? ib[0] : ib[1];
+  const bool t1 = nn_before(x, ix, y, iy);
+  const float o1 = t1 ? x : y;
+  const int j1 = t1 ? ix : iy;
+  // two taken: both of a (a2 vs b0), one each (a1 vs b1) or both of b (a0 vs b2)
+  const bool aa = t0 && t1, bb = !t0 && !t1;
+  const float xa = aa ? a[2] : bb ? a[0] : a[1], yb = aa ? b[0] : bb ? b[2] : b[1];
+  const int ixa = aa ? ia[2] : bb ? ia[0] : ia[1], iyb = aa ? ib[0] : bb ? ib[2] : ib[1];
+  const bool t2 = nn_before(xa, ixa, yb, iyb);
+  a[0] = o0;
+  ia[0] = j0;
+  a[1] = o1;
+  ia[1] = j1;
+  a[2] = t2 ? xa : yb;
+  ia[2] = t2 ? ixa : iyb;
+}
 
 // K9: for unknown point (b, n), the three known points of least
 // d2 = max((|u|^2 + |k|^2) - 2 u.k, 0), ascending, ties to the lower index
-// (a running top-3 with strict < over increasing index), and their exact
-// distances sqrt(|u - k|^2).  One thread per unknown point; the block stages
-// the known cloud (with each point's |k|^2) in shared memory, a tile at a
-// time, and every thread of the block scans it in the same order, so the
-// reads are broadcasts.  Bound by launch latency at the FP layers' sizes.
+// (lax.top_k, the twin's stable sort), and their exact distances
+// sqrt(|u - k|^2).  What bounds it: ~13 f32 operations a (unknown, known)
+// pair, and, with one thread a point as before, the scan's latency: FP1
+// and FP2 made 64 and 128 blocks of 2 warps, each thread scanning all M
+// known points serially.  The design:
+//  - a group of G lanes (32, or 16 / 8 where M / G falls below 8 points a
+//    lane) owns an unknown point; lane l scans the known points j = l mod
+//    G in increasing j, keeping a running top-3 with strict < (ties keep
+//    the lower index), from (INF, INT_MAX) sentinels, which no real point
+//    follows;
+//  - log2 G butterfly rounds of __shfl_xor_sync merge two sorted triples
+//    under the lexicographic (d, index) order (nn_merge), which gives the
+//    serial scan's answer whichever lane saw which point; a group past the
+//    cloud's last point runs them too (full masks), on point 0;
+//  - a block owns NN_THREADS / G points of one cloud and stages the known
+//    cloud in shared memory, NN_TILE points a tile, as float4 (x, y, z,
+//    |k|^2), |k|^2 spelt by dot3_fma once a point, so a pair costs one
+//    16-byte shared load and u.k;
+//  - lanes 0-2 of the group then recompute one winner's exact distance
+//    each (from the staged tile where it holds the whole cloud) and write
+//    it with its index.
+// grid (ceil(N / (NN_THREADS / G)), B)
+template <int G>
 __global__ void __launch_bounds__(NN_THREADS)
 three_nn_kernel(const float* __restrict__ unknown,
                 const float* __restrict__ known, float* __restrict__ dist,
                 int* __restrict__ idx, int N, int M) {
-  __shared__ float kx[NN_TILE], ky[NN_TILE], kz[NN_TILE], kk[NN_TILE];
+  __shared__ float4 tile[NN_TILE];
+  const int tid = threadIdx.x, lane = tid % G;
   const int64_t b = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = blockIdx.x * (NN_THREADS / G) + tid / G;
   const bool active = n < N;
   const float* kp = known + b * M * 3;
-  float ux = 0.0f, uy = 0.0f, uz = 0.0f;
-  if (active) {
-    const float* up = unknown + (b * N + n) * 3;
-    ux = up[0];
-    uy = up[1];
-    uz = up[2];
-  }
+  const float* up = unknown + (b * N + (active ? n : 0)) * 3;
+  const float ux = up[0], uy = up[1], uz = up[2];
   const float uu = dot3_fma(ux, uy, uz, ux, uy, uz);
-  float d0 = INFINITY, d1 = INFINITY, d2 = INFINITY;
-  int i0 = 0, i1 = 0, i2 = 0;
+  float d[3] = {INFINITY, INFINITY, INFINITY};
+  int i[3] = {INT_MAX, INT_MAX, INT_MAX};
   for (int base = 0; base < M; base += NN_TILE) {
     const int cnt = min(NN_TILE, M - base);
-    __syncthreads();  // the previous tile is consumed
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+    if (base > 0) __syncthreads();  // the previous tile is read no more
+    for (int j = tid; j < cnt; j += NN_THREADS) {
       const float x = kp[3 * (base + j)], y = kp[3 * (base + j) + 1],
                   z = kp[3 * (base + j) + 2];
-      kx[j] = x;
-      ky[j] = y;
-      kz[j] = z;
-      kk[j] = dot3_fma(x, y, z, x, y, z);
+      tile[j] = make_float4(x, y, z, dot3_fma(x, y, z, x, y, z));
     }
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < cnt; ++j) {
-      const float ab = dot3_fma(ux, uy, uz, kx[j], ky[j], kz[j]);
-      const float d =
-          fmaxf(__fsub_rn(__fadd_rn(uu, kk[j]), __fmul_rn(2.0f, ab)), 0.0f);
-      if (d < d2) {
-        const int i = base + j;
-        if (d < d1) {
-          d2 = d1;
-          i2 = i1;
-          if (d < d0) {
-            d1 = d0;
-            i1 = i0;
-            d0 = d;
-            i0 = i;
+#pragma unroll 4
+    for (int j = lane; j < cnt; j += G) {
+      const float4 q = tile[j];
+      const float ab = dot3_fma(ux, uy, uz, q.x, q.y, q.z);
+      const float e = fmaxf(__fsub_rn(__fadd_rn(uu, q.w), __fmul_rn(2.0f, ab)), 0.0f);
+      if (e < d[2]) {
+        const int k = base + j;
+        if (e < d[1]) {
+          d[2] = d[1];
+          i[2] = i[1];
+          if (e < d[0]) {
+            d[1] = d[0];
+            i[1] = i[0];
+            d[0] = e;
+            i[0] = k;
           } else {
-            d1 = d;
-            i1 = i;
+            d[1] = e;
+            i[1] = k;
           }
         } else {
-          d2 = d;
-          i2 = i;
+          d[2] = e;
+          i[2] = k;
         }
       }
     }
   }
-  if (!active) return;
-  const int win[3] = {i0, i1, i2};
-  float* dout = dist + (b * N + n) * 3;
-  int* iout = idx + (b * N + n) * 3;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float dx = __fsub_rn(ux, kp[3 * win[j]]);
-    const float dy = __fsub_rn(uy, kp[3 * win[j] + 1]);
-    const float dz = __fsub_rn(uz, kp[3 * win[j] + 2]);
-    dout[j] = __fsqrt_rn(fmaxf(dot3_fma(dx, dy, dz, dx, dy, dz), 0.0f));
-    iout[j] = win[j];
+  for (int m = G / 2; m >= 1; m >>= 1) {
+    float e[3];
+    int k[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      e[r] = __shfl_xor_sync(0xffffffffu, d[r], m);
+      k[r] = __shfl_xor_sync(0xffffffffu, i[r], m);
+    }
+    nn_merge(d, i, e, k);
   }
+  if (!active || lane >= 3) return;
+  const int w = lane == 0 ? i[0] : lane == 1 ? i[1] : i[2];
+  float kx, ky, kz;
+  if (M <= NN_TILE) {  // the cloud is still staged
+    const float4 q = tile[w];
+    kx = q.x;
+    ky = q.y;
+    kz = q.z;
+  } else {
+    kx = kp[3 * w];
+    ky = kp[3 * w + 1];
+    kz = kp[3 * w + 2];
+  }
+  const float dx = __fsub_rn(ux, kx);
+  const float dy = __fsub_rn(uy, ky);
+  const float dz = __fsub_rn(uz, kz);
+  const int64_t o = (b * N + n) * 3 + lane;
+  dist[o] = __fsqrt_rn(fmaxf(dot3_fma(dx, dy, dz, dx, dy, dz), 0.0f));
+  idx[o] = w;
 }
 
 // K9: out[b, n, c] = fma(f[i2, c], w2, fma(f[i1, c], w1, f[i0, c] w0)) with
@@ -1065,9 +1130,19 @@ int pc_scatter_add_rows(const void* grad, const void* idx, void* dtable, int B,
 
 int pc_three_nn(const void* unknown, const void* known, void* dist, void* idx,
                 int B, int N, int M, void* stream) {
-  const dim3 grid((N + NN_THREADS - 1) / NN_THREADS, B);
-  three_nn_kernel<<<grid, NN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)unknown, (const float*)known, (float*)dist, (int*)idx, N, M);
+  // a group of G lanes a point: 32, or 16 / 8 where M / G falls below 8
+  const int G = M >= 8 * 32 ? 32 : M >= 8 * 16 ? 16 : 8;
+  auto go = [&](auto kernel) {
+    const int per = NN_THREADS / G;
+    const dim3 grid((N + per - 1) / per, B);
+    kernel<<<grid, NN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)unknown, (const float*)known, (float*)dist, (int*)idx, N, M);
+  };
+  switch (G) {
+    case 32: go(three_nn_kernel<32>); break;
+    case 16: go(three_nn_kernel<16>); break;
+    default: go(three_nn_kernel<8>); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "row_groups.cuh"
 
 #define MAX_TAPS 32
@@ -1165,61 +1167,286 @@ scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
   cp_async_wait<0>();
 }
 
-constexpr int SEG_SMEM = 64;   // segments a block reduces in shared memory
-constexpr int SEG_ROWS = 512;  // rows per block
-constexpr int SEG_Y = 8;       // row runs per block, SEG_ROWS / SEG_Y rows each
+namespace seg {
+constexpr int THREADS = 256;
+constexpr int SMEM = 16;               // segments the deterministic path takes
+constexpr int U = 8;                   // rows a group loads before it adds them
+constexpr int STAGE = 80 * 1024;       // bytes of partials a combine round stages
+constexpr int MAX_BLOCKS = 1024;       // blocks a channel tile (the combine's lists)
+constexpr int WARPS = THREADS / 32;
+constexpr int VEC_GROUP = 8;           // lanes a float4 row at most: 32 channels
 
-// (f) out[seg[i], :] += X[i, :] over N rows of C channels.  A block takes
-// SEG_ROWS consecutive rows and 32 channels; each of its SEG_Y row runs sums
-// its consecutive rows in a register and adds the sum into a per-segment
-// partial in shared memory whenever the segment id changes; then the block
-// adds each touched (segment, channel) partial to `out` with one atomic.
-// With more than SEG_SMEM segments the run sums go straight to `out`.  Rows
-// with an id outside [0, S) are left out.
-// grid (ceil(N/SEG_ROWS), ceil(C/32)), block (32, SEG_Y)
-__global__ void __launch_bounds__(32 * SEG_Y)
-segment_sum_kernel(const float* __restrict__ X, const int* __restrict__ seg,
-                   float* __restrict__ out, int N, int C, int S) {
-  __shared__ float part[SEG_SMEM][32];
-  __shared__ int touched[SEG_SMEM];
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int c = blockIdx.y * 32 + threadIdx.x;
-  const bool in_smem = S <= SEG_SMEM;
-  if (in_smem) {
-    for (int i = tid; i < S * 32; i += 32 * SEG_Y) part[i / 32][i % 32] = 0.f;
-    for (int i = tid; i < S; i += 32 * SEG_Y) touched[i] = 0;
+// Floats a lane holds of a row: a float4, or 4 scalars at G = 1 and 32
+// (lane + G k), else one; a channel tile is G of those (a multiple of 4:
+// the combine stages partial rows 16 bytes at a time).
+template <int G, bool VEC>
+__host__ __device__ constexpr int per_lane() {
+  return VEC || G == 1 || G == 32 ? 4 : 1;
+}
+template <int G, bool VEC>
+__host__ __device__ constexpr int tile() {
+  return G * per_lane<G, VEC>();
+}
+// old = *t; *t = old >= last ? 0 : old + 1; returns old.  Release: every
+// write that happens before it (the block's, through __syncthreads) is
+// seen by the block that reads `last` from it (acquire).
+__device__ __forceinline__ unsigned ticket(unsigned* t, unsigned last) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(t), "r"(last) : "memory");
+  return old;
+}
+// The tile channel of a lane's value k.
+template <int G, bool VEC>
+__device__ __forceinline__ int chan(int lane, int k) {
+  return VEC ? 4 * lane + k : lane + G * k;
+}
+}  // namespace seg
+
+// (f) segment_sum: out[ids[i], :] += X[i, :] over N rows of C channels,
+// rows with an id outside [0, S) left out.  JAX K5: jax.ops.segment_sum
+// under global_pool, its counts over ones, and the adjoint of
+// broadcast_to_points (pointcontrast_tpu/sparse/ops.py:967-998).  It reads
+// each row once, so HBM bytes bound it, and at the callers' sizes (0.6-68
+// MB a launch) the latency of a launch's dependent steps weighs as much.
+// Its callers' ids come in long runs (a chunk's valid prefix carries its
+// sample and its pad tail num_batch; flat ids are sorted), at S =
+// num_batch + 1 <= 9.  The design:
+//  - a group of G lanes (row_groups::size_for, at most seg::VEC_GROUP on
+//    float4s) owns a row at a time; lane l holds the channels seg::chan of
+//    the block's channel tile, a float4 where C % 4 == 0 and X is 16-byte
+//    aligned (tiles of 32 channels, a row's 128-byte line), so at C = 1
+//    (the counts) a warp reads 32 rows a step; the tiles are the grid's y;
+//  - a block owns one contiguous span of rows (the wrapper aims at about
+//    one block an SM over all the tiles); its NG groups take rows g,
+//    g + NG, ... of it, each loading seg::U rows (ids with them) before it
+//    adds any: 32 KB in flight a block at float4s;
+//  - a group keeps (cur, acc) in registers and, where the id changes, adds
+//    acc into a shared-memory slot that it alone owns, [group][S][tile], a
+//    plain add in the group's row order; at the span's end a fixed
+//    pairwise tree adds the groups' slots, and the block writes one partial
+//    for each segment it touched, and a bit mask of them, into the
+//    wrapper's workspace;
+//  - the tile's last block, by an integer ticket (seg::ticket, an acq_rel
+//    atomicInc that wraps to 0 for the next launch on the stream), lists
+//    each segment's blocks in block order (ballots over the masks), stages
+//    their partials with cp.async (seg::STAGE bytes a round), adds them in
+//    that order, 256 threads over (segment, channel), and writes every row
+//    of out (zeros for an untouched segment).
+// So for S <= seg::SMEM (det) the sum is the same from launch to launch,
+// with no f32 atomic.  The general path (S > seg::SMEM) runs the same loop
+// and adds each run's sum to out (zeroed by the wrapper) with f32 atomics
+// (16 bytes an atomic on float4 rows), whose order varies.  `combine` = 0 stops before the last block's combine
+// (chip_smoke.py times that to give the combine's share).
+// grid (blocks, tiles), seg::THREADS threads; dynamic shared memory: the
+// slots, or the combine's lists and stage (pc_segment_sum sizes it).
+template <int G, bool VEC>
+__global__ void __launch_bounds__(seg::THREADS)
+segment_sum_kernel(const float* __restrict__ X, const int* __restrict__ ids,
+                   float* __restrict__ out, float* __restrict__ ws,
+                   unsigned* __restrict__ tickets, int N, int C, int S, int span,
+                   int stage_rows, int det, int combine) {
+  constexpr int F = seg::per_lane<G, VEC>(), TW = seg::tile<G, VEC>();
+  constexpr int NG = seg::THREADS / G;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned block_mask;
+  __shared__ int last;
+  __shared__ int start[seg::SMEM + 1];
+  const int tid = threadIdx.x, g = tid / G, lane = tid % G;
+  const int c0 = blockIdx.y * TW;
+  const int tw = min(TW, C - c0);
+  float* slot = smem;  // [NG][S][tw]
+  if (det) {
+    for (int i = tid; i < NG * S * tw; i += seg::THREADS) slot[i] = 0.f;
   }
+  if (tid == 0) block_mask = 0u;
   __syncthreads();
 
-  const int64_t r0 = (int64_t)blockIdx.x * SEG_ROWS + threadIdx.y * (SEG_ROWS / SEG_Y);
-  const int64_t stop = r0 + SEG_ROWS / SEG_Y;
-  const int64_t r1 = stop < N ? stop : N;
+  const int r0 = blockIdx.x * span;
+  const int r1 = min(N, r0 + span);
   int cur = -1;
-  float acc = 0.f;
+  unsigned touched = 0u;  // bit s: this group added a run of segment s
+  float acc[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) acc[k] = 0.f;
   auto flush = [&]() {
     if (cur < 0 || cur >= S) return;
-    if (in_smem) {
-      atomicAdd(&part[cur][threadIdx.x], acc);
-      touched[cur] = 1;
-    } else if (c < C) {
-      atomicAdd(out + (int64_t)cur * C + c, acc);
+    if (det) {
+      float* d = slot + (g * S + cur) * tw;
+      if constexpr (VEC) {
+        if (4 * lane < tw) {
+          float4* p = reinterpret_cast<float4*>(d + 4 * lane);
+          float4 v = *p;
+          v.x += acc[0];
+          v.y += acc[1];
+          v.z += acc[2];
+          v.w += acc[3];
+          *p = v;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < F; ++k) {
+          const int c = seg::chan<G, VEC>(lane, k);
+          if (c < tw) d[c] += acc[k];
+        }
+      }
+      touched |= 1u << cur;
+    } else {  // float4 atomics on float4 rows (out is 16-byte aligned)
+      float* d = out + (int64_t)cur * C + c0;
+      if constexpr (VEC) {
+        atomic_add4(d, 4 * lane, tw, true, make_float4(acc[0], acc[1], acc[2], acc[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < F; ++k) {
+          const int c = seg::chan<G, VEC>(lane, k);
+          if (c < tw) atomicAdd(d + c, acc[k]);
+        }
+      }
     }
   };
-  for (int64_t r = r0; r < r1; ++r) {
-    const int s = __ldg(seg + r);
-    if (s != cur) {
-      flush();
-      cur = s;
-      acc = 0.f;
+  for (int base = r0 + g; base < r1; base += NG * seg::U) {
+    int id[seg::U];
+    float v[seg::U][F];
+#pragma unroll
+    for (int u = 0; u < seg::U; ++u) {
+      const int r = base + u * NG;
+      const bool in = r < r1;
+      id[u] = in ? __ldg(ids + r) : -1;
+      const float* row = X + (in ? r : 0) * C + c0;  // N C < 2^31: the wrapper checks
+      if constexpr (VEC) {
+        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in && 4 * lane < tw) q = __ldg(reinterpret_cast<const float4*>(row + 4 * lane));
+        v[u][0] = q.x;
+        v[u][1] = q.y;
+        v[u][2] = q.z;
+        v[u][3] = q.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < F; ++k) {
+          const int c = seg::chan<G, VEC>(lane, k);
+          v[u][k] = in && c < tw ? __ldg(row + c) : 0.f;
+        }
+      }
     }
-    if (c < C) acc += __ldg(X + r * C + c);
+#pragma unroll
+    for (int u = 0; u < seg::U; ++u) {
+      if (id[u] != cur) {
+        flush();
+        cur = id[u];
+#pragma unroll
+        for (int k = 0; k < F; ++k) acc[k] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < F; ++k) acc[k] += v[u][k];
+    }
   }
   flush();
+  if (!det) return;
+
+  // the block's partial: the groups' slots added by a fixed pairwise tree
+  if (lane == 0 && touched) atomicOr(&block_mask, touched);
   __syncthreads();
-  if (in_smem) {
-    for (int i = tid; i < S * 32; i += 32 * SEG_Y) {
-      const int sg = i / 32, cc = blockIdx.y * 32 + i % 32;
-      if (touched[sg] && cc < C) atomicAdd(out + (int64_t)sg * C + cc, part[sg][i % 32]);
+  const int E = S * tw;  // elements (segment, channel) of a partial
+  for (int h = NG / 2; h >= 1; h >>= 1) {
+    const int n = h * E;
+    for (int e = tid; e < n; e += seg::THREADS) slot[e] += slot[e + n];
+    __syncthreads();
+  }
+  const unsigned mask = block_mask;
+  const int nb = gridDim.x;
+  const int blk = blockIdx.y * nb + blockIdx.x;
+  float* part = ws + (int64_t)blk * S * TW;  // [S][TW]: the rows of touched segments
+  for (int e = tid; e < E; e += seg::THREADS) {
+    const int s = e / tw;
+    if (mask >> s & 1u) part[s * TW + e - s * tw] = slot[e];
+  }
+  unsigned* masks = reinterpret_cast<unsigned*>(ws + (int64_t)nb * gridDim.y * S * TW);
+  if (tid == 0) masks[blk] = mask;
+  __syncthreads();  // the block's writes happen before its ticket's release
+  if (tid == 0) last = seg::ticket(tickets + blockIdx.y, nb - 1) == (unsigned)(nb - 1);
+  __syncthreads();
+  if (!last || !combine) return;
+
+  // the tile's last block: each segment's blocks in block order, as
+  // (s << 16 | b) in list[start[s] ...], then their partials added in it
+  unsigned* bm = reinterpret_cast<unsigned*>(smem);  // [nb]
+  int* list = reinterpret_cast<int*>(bm + nb);        // [nb * S]
+  float* stage = smem + ((nb + nb * S + 3) & ~3);     // [stage_rows][TW]
+  for (int b = tid; b < nb; b += seg::THREADS) bm[b] = __ldcg(masks + blockIdx.y * nb + b);
+  __syncthreads();
+  const int warp = tid >> 5, wl = tid & 31;
+  for (int s = warp; s < S; s += seg::WARPS) {
+    int k = 0;
+    for (int b0 = 0; b0 < nb; b0 += 32) {
+      const int b = b0 + wl;
+      k += __popc(__ballot_sync(0xffffffffu, b < nb && (bm[b] >> s & 1u)));
+    }
+    if (wl == 0) start[s + 1] = k;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    start[0] = 0;
+    for (int s = 0; s < S; ++s) start[s + 1] += start[s];
+  }
+  __syncthreads();
+  for (int s = warp; s < S; s += seg::WARPS) {
+    int k = start[s];
+    for (int b0 = 0; b0 < nb; b0 += 32) {
+      const int b = b0 + wl;
+      const bool hit = b < nb && (bm[b] >> s & 1u);
+      const unsigned bits = __ballot_sync(0xffffffffu, hit);
+      if (hit) list[k + __popc(bits & ((1u << wl) - 1u))] = s << 16 | b;
+      k += __popc(bits);
+    }
+  }
+  __syncthreads();
+  constexpr int OUTS = (seg::SMEM * TW + seg::THREADS - 1) / seg::THREADS;
+  float sum[OUTS];
+#pragma unroll
+  for (int i = 0; i < OUTS; ++i) sum[i] = 0.f;
+  const int pairs = start[S];
+  for (int p0 = 0; p0 < pairs; p0 += stage_rows) {
+    const int len = min(stage_rows, pairs - p0);
+    for (int e = tid; e < len * (TW / 4); e += seg::THREADS) {
+      const int p = e / (TW / 4), q = e % (TW / 4);
+      const int pr = list[p0 + p];
+      const float* src =
+          ws + ((int64_t)(blockIdx.y * nb + (pr & 0xffff)) * S + (pr >> 16)) * TW + 4 * q;
+      cp_async16(stage + p * TW + 4 * q, src, true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < OUTS; ++i) {
+      const int e = tid + i * seg::THREADS;
+      if (e < E) {
+        const int s = e / tw, c = e - s * tw;
+        // the round's rows of segment s: [lo, hi) of the stage
+        const int lo = max(start[s], p0) - p0, hi = min(start[s + 1], p0 + len) - p0;
+        const float* col = stage + c;
+        float v = sum[i];
+        int p = lo;
+        for (; p + 4 <= hi; p += 4) {  // four loads in flight, added in order
+          const float a0 = col[p * TW], a1 = col[(p + 1) * TW], a2 = col[(p + 2) * TW],
+                      a3 = col[(p + 3) * TW];
+          v += a0;
+          v += a1;
+          v += a2;
+          v += a3;
+        }
+        for (; p < hi; ++p) v += col[p * TW];
+        sum[i] = v;
+      }
+    }
+    __syncthreads();  // the stage is refilled next round
+  }
+#pragma unroll
+  for (int i = 0; i < OUTS; ++i) {
+    const int e = tid + i * seg::THREADS;
+    if (e < E) {
+      const int s = e / tw;
+      out[(int64_t)s * C + c0 + e - s * tw] = sum[i];
     }
   }
 }
@@ -1652,6 +1879,35 @@ brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// segment_sum's launch shape for X [N, C] (the C entries below share it):
+// lane group G, channel tile, tiles (grid y), blocks a tile (grid x) and
+// their span of rows, about `blocks` blocks in all.
+struct SegPlan {
+  int G, tile, tiles, nb, span;
+};
+
+SegPlan seg_plan(const void* X, int N, int C, int blocks) {
+  const bool vec = C % 4 == 0 && aligned16(X);
+  // float4 rows: at most seg::VEC_GROUP lanes, a tile of 32 channels (a
+  // row's 128-byte line), so that a tile's combine gathers a quarter of a
+  // 128-channel tile's bytes, and more tiles' last blocks combine at once
+  const int g = row_groups::size_for(C, vec);
+  SegPlan p{};
+  row_groups::dispatch(vec ? std::min(g, seg::VEC_GROUP) : g, vec, [&](auto G_, auto VEC_) {
+    constexpr int G = decltype(G_)::value;
+    constexpr bool VEC = decltype(VEC_)::value;
+    constexpr int TW = seg::tile<G, VEC>();
+    const int rows = seg::THREADS / G * seg::U;  // a block's rows a step
+    p.G = G;
+    p.tile = TW;
+    p.tiles = (C + TW - 1) / TW;
+    const int want = std::max(1, std::min(seg::MAX_BLOCKS, blocks / p.tiles));
+    p.span = ((N + want - 1) / want + rows - 1) / rows * rows;
+    p.nb = (N + p.span - 1) / p.span;
+  });
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1799,12 +2055,51 @@ int pc_scatter_gemm(const void* G, const void* map, TapList taps, int T,
   return (int)cudaGetLastError();
 }
 
-int pc_segment_sum(const void* X, const void* seg, void* out, int N, int C,
-                   int S, void* stream) {
-  dim3 grid((N + SEG_ROWS - 1) / SEG_ROWS, (C + 31) / 32);
-  segment_sum_kernel<<<grid, dim3(32, SEG_Y), 0, (cudaStream_t)stream>>>(
-      (const float*)X, (const int*)seg, (float*)out, N, C, S);
-  return (int)cudaGetLastError();
+// plan: {G, tile, tiles, blocks a tile, span} of pc_segment_sum's launch.
+int pc_segment_sum_plan(const void* X, int N, int C, int blocks, int* plan) {
+  const SegPlan p = seg_plan(X, N, C, blocks);
+  plan[0] = p.G;
+  plan[1] = p.tile;
+  plan[2] = p.tiles;
+  plan[3] = p.nb;
+  plan[4] = p.span;
+  return 0;
+}
+
+// The workspace (ws_floats) pc_segment_sum needs is at most
+// max(blocks, ceil(C / 4)) * (seg::SMEM * 128 + 1) floats: the wrapper
+// allocates that.
+int pc_segment_sum(const void* X, const void* ids, void* out, void* ws, long long ws_floats,
+                   void* tickets, int N, int C, int S, int blocks, int combine,
+                   void* stream) {
+  const bool vec = C % 4 == 0 && aligned16(X);
+  const SegPlan p = seg_plan(X, N, C, blocks);
+  const int det = S <= seg::SMEM;
+  size_t smem = 0;
+  int stage_rows = 0;
+  if (det) {
+    if ((long long)p.tiles * p.nb * (S * p.tile + 1) > ws_floats) return -1;
+    stage_rows = std::max(1, std::min(p.nb * S, seg::STAGE / (p.tile * 4)));
+    const size_t slots = (size_t)(seg::THREADS / p.G) * S * std::min(p.tile, C) * 4;
+    const size_t lists = (size_t)((p.nb + p.nb * S + 3) & ~3) * 4;
+    smem = std::max(slots, lists + (size_t)stage_rows * p.tile * 4);
+  }
+  cudaError_t rc = cudaSuccess;
+  row_groups::dispatch(p.G, vec, [&](auto G_, auto VEC_) {
+    auto kernel = segment_sum_kernel<decltype(G_)::value, decltype(VEC_)::value>;
+    // dynamic shared memory allowed so far, this instance (the default 48 KB
+    // counts the static shared memory too: 48 KB of slots at C 3, S 16)
+    static size_t granted = 0;
+    if (smem > granted) {
+      rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (rc != cudaSuccess) return;
+      granted = smem;
+    }
+    kernel<<<dim3(p.nb, p.tiles), seg::THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)X, (const int*)ids, (float*)out, (float*)ws, (unsigned*)tickets, N, C,
+        S, p.span, stage_rows, det, combine);
+  });
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,

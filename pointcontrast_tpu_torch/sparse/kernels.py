@@ -67,8 +67,10 @@ live) runs gather_gemm's pipeline over the cotangent rows in the map's live
 order, compacts each 128-row tile's live rows a tap (computing them
 rounded up to 16) and adds each tap's products with float4 f32 atomics (a
 map may repeat a destination); segment_sum reads each
-row once (bound by HBM bytes) and adds one atomic per block, segment and
-channel.  gather_sum does no multiply: it reads each gathered row once and
+row once (bound by HBM bytes) in lane groups that sum a run of ids in
+registers, and its last block adds the blocks' partials in block order (no
+f32 atomic at up to SEG_SMEM segments).  gather_sum does no multiply: it
+reads each gathered row once and
 writes each output row once (bound by HBM bytes), float4 along C, a group
 of lanes a row that reads the row's indices once and adds the kept rows
 in tap order (a row copy at one tap); its
@@ -113,6 +115,11 @@ GEMM_BLOCKS = 2 * 132
 # end (the fastest of one, two, four, eight and sixteen times on the
 # ResNets' K4 dF: ``chip_smoke.py --scatter-blocks``)
 SCATTER_BLOCKS = 4 * GEMM_BLOCKS
+# segment_sum: the segments its deterministic path takes (csrc seg::SMEM;
+# the callers' num_batch + 1 <= 9), and the blocks a launch aims at over
+# all its channel tiles (two an SM)
+SEG_SMEM = 16
+SEG_BLOCKS = 264
 # gather_wgrad: blocks to aim at (eight waves of 132 SMs, for balance: a
 # block's work is its slice's live pairs)
 WGRAD_BLOCKS = 8 * 132
@@ -149,7 +156,9 @@ def _lib():
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                             ci, ci, vp],
-        "pc_segment_sum": [vp, vp, vp, ci, ci, ci, vp],
+        "pc_segment_sum": [vp, vp, vp, vp, ctypes.c_longlong, vp, ci, ci, ci, ci, ci,
+                           vp],
+        "pc_segment_sum_plan": [vp, ci, ci, ci, vp],
         "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
         "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp],
@@ -564,24 +573,69 @@ def segment_sum(x, seg, num_segments: int):
     """out[seg[i]] += x[i]: x [N, C] f32, seg [N] int32 ids in
     [0, num_segments) -> [num_segments, C].
 
-    On the card each block sums a run of consecutive rows per segment in
-    shared memory and adds one f32 atomic per (segment, channel), so the
-    order of the sums differs from run to run; ids outside the range are
-    left out there (``SemsegBatch.to`` checks them before any kernel)."""
+    On the card a block sums its span of rows a run at a time, and the
+    last block adds the blocks' partials in block order, so at
+    ``num_segments <= SEG_SMEM`` (every caller) the result is the same
+    from launch to launch; above, run sums go to ``out`` with f32 atomics.
+    Ids outside the range are left out there (``SemsegBatch.to`` checks
+    them before any kernel)."""
     n, c = x.shape
     _check_shape("seg", seg, (n,))
     if _use_plain(x):
         return segment_sum_plain(x, seg, num_segments)
     _require(x, "x", torch.float32, 2)
     _require(seg, "seg", torch.int32, 1)
-    out = torch.zeros(num_segments, c, device=x.device, dtype=torch.float32)
-    if n == 0:
-        return out
-    rc = _lib().pc_segment_sum(_ptr(x), _ptr(seg), _ptr(out), n, c,
-                               num_segments, _stream())
-    _check(rc, "segment_sum")
+    if n == 0 or c == 0 or num_segments == 0:
+        return torch.zeros(num_segments, c, device=x.device, dtype=torch.float32)
+    out = _segment_sum_launch(x, seg, num_segments, combine=True)
     segment_sum.launches += 1
     return out
+
+
+def _segment_sum_launch(x, seg, num_segments, combine):
+    """One launch of the segment-sum kernel.  ``combine=False`` stops
+    before the last block adds the blocks' partials (``out`` is then left
+    unwritten): ``chip_smoke.py`` times it to give the combine's share."""
+    n, c = x.shape
+    check_index_space("segment_sum", x=n * c)
+    det = num_segments <= SEG_SMEM
+    out = (torch.empty if det else torch.zeros)(num_segments, c, device=x.device,
+                                                dtype=torch.float32)
+    ws = tickets = None
+    ws_floats = 0
+    if det:  # pc_segment_sum's bound: blocks of every tile, S * 128 + 1 floats each
+        ws_floats = max(SEG_BLOCKS, -(-c // 4)) * (SEG_SMEM * 128 + 1)
+        ws = torch.empty(ws_floats, device=x.device, dtype=torch.float32)
+        tickets = _seg_tickets(x.device, -(-c // 4))
+    rc = _lib().pc_segment_sum(_ptr(x), _ptr(seg), _ptr(out), _ptr(ws), ws_floats,
+                               _ptr(tickets), n, c, num_segments, SEG_BLOCKS,
+                               int(combine), _stream())
+    _check(rc, "segment_sum")
+    return out
+
+
+def segment_sum_plan(x) -> dict:
+    """The card's launch shape for ``segment_sum`` over x ([N, C] f32 on
+    the card): lane group, channel tile, tiles (grid y), blocks a tile
+    (grid x) and each block's span of rows."""
+    plan = (ctypes.c_int * 5)()
+    _lib().pc_segment_sum_plan(_ptr(x), x.shape[0], x.shape[1], SEG_BLOCKS, plan)
+    return dict(zip(("group", "tile", "tiles", "blocks", "span"), plan))
+
+
+_SEG_TICKETS: dict = {}
+
+
+def _seg_tickets(device, n: int) -> torch.Tensor:
+    """The segment-sum kernel's tickets on ``device``, one a channel tile:
+    zeros, and each launch leaves them at zero (its last block's
+    ``atomicInc`` wraps), so launches on one stream share them."""
+    key = torch.device(device).index
+    t = _SEG_TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), device=device, dtype=torch.int32)
+        _SEG_TICKETS[key] = t
+    return t
 
 
 # --------------------------------------------------------------------------
