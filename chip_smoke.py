@@ -36,6 +36,17 @@ line:
      path's counts must equal the chunked path's: 0 scatter_gemm); on
      brick:2 also ``brick k5 shapes``, the brick kernels with a k = 5
      plan at level 0 (launches 0: no counted path runs it);
+  5b. ``pretrain bf16``: the chunked batches through Res16UNet34C in bf16
+     (the shipped YAMLs' ``net.dtype``): every bf16 form (gather_gemm_bf16,
+     gather_wgrad_bf16, parent_gemm_bf16, scatter_parent_bf16; K3's dF is
+     the f32 gather_gemm on the f32 scatter dy) at the shapes of one real
+     bf16 forward, the Cin = 3 stem's among them, against its bf16 twin to
+     BF16_RTOL and, bit for bit, against its f32 kernel on the widened
+     operands rounded once (``BF16_FORMS``; the tap splits a reading);
+     the kernels-vs-plain step (loss to BF16_LOSS_RTOL, the
+     valid output to cosine BF16_COS_MIN, its rows' cosines a reading);
+     5 counted steps; the
+     L2-normalised bf16 rows to BF16_NORM_TOL;
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -69,10 +80,18 @@ line:
   13a. ``votenet voxel``: the sparse-conv VoteNet on batches collated with
      ``layout="voxel"``: the backbone's kernels at one real forward's
      shapes, K6-K8, the kernels-vs-plain step, 3 counted steps, evaluate;
+  13b. ``votenet bf16``: the chunked path with the backbone in bf16 (the
+     YAML's): the bf16 forms at its forward's shapes, K6-K8, the
+     kernels-vs-plain step (the plain step replays the kernel step's FPS
+     and ball-query picks; backbone output and seed features to cosine
+     BF16_COS_MIN, the loss to BF16_VOTENET_LOSS_RTOL beside the plain
+     twins' own spread under another summation order), 5 counted steps,
+     evaluate;
   14. boxnet: one BoxNet step (seed FPS, get_loss_boxnet), vote_loss 0;
   15. cli: apps.votenet.main on 8 synthetic scenes: one epoch (one step),
      one evaluation, a checkpoint, then a second call that resumes from it
-     with nothing left to train;
+     with nothing left to train; with net.backbone=pointnet2, then on the
+     shipped sparse-conv backbone with its ``net.dtype: bfloat16``;
   the semseg finetuning paths (tools/workload.py: the JAX benchmark's 6
   synthetic 2 cm scenes, ~250k voxels, random colours and 20 labels,
   PadScheme.scannet(npad0=262144), 6 chunks, f32; SGD lr 0.1, momentum 0.9,
@@ -89,7 +108,8 @@ line:
      real forward, one step through the kernels against the plain twins, 5
      SemsegTrainer steps with the expected launch count of every kernel
      (the CRF's by the trainer's coin), one evaluate_dataset pass (mIoU in
-     [0, 100]) and the eval outputs;
+     [0, 100]) and the eval outputs; ``semseg bf16`` is ``semseg`` with the
+     net in bf16 (the bf16 forms, the bf16 parity of 5b);
      The fourth path, ``semseg hyper`` (MinkUNetHyper14INBN 3 -> 20 at full
      width), also checks gather_sum and scatter_sum at its three average
      unpools (block5's output from level 2 to 1 and 1 to 0, block6's from
@@ -102,8 +122,10 @@ line:
   18. cli semseg: apps.semseg.main on SyntheticSemsegDataset
      (net.dtype=float32): 3 steps, whole-split validation, a checkpoint,
      then a second call that resumes with nothing left to train; then the
-     same with net.model=MinkUNetHyper14INBN, with data.layout=voxel and
-     with data.layout=brick;
+     same with the shipped ``net.dtype: bfloat16`` (Res16UNet34C, then
+     ResUNet18INBN: the ResUNet family in bf16), with
+     net.model=MinkUNetHyper14INBN, with data.layout=voxel and with
+     data.layout=brick;
   the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
   chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
   random label per level-5 voxel):
@@ -127,7 +149,8 @@ line:
 Every path prints its peak device memory on its ``slice`` line.  Every
 kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
-3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger).  The
+3.35 TB/s or operations over the peak of their type, whichever is larger:
+67 TFLOP/s f32, 989 TFLOP/s for a bf16 form's bf16 x bf16 products).  The
 times are CUDA events over 10 calls (``ms``, ``plain_ms``, ``library_ms``),
 and the kernel's and the library call's device-only times (``device_ms``,
 ``library_device_ms``: the same 10 calls replayed as one CUDA graph, the
@@ -189,6 +212,26 @@ LOSS_RTOL = 1e-4
 # flipped argmin/argmax outputs, the loss to LOSS_RTOL_FLIPPED and at most
 # MAX_FLIPPED of any integer set differing
 LOSS_RTOL_FLIPPED, MAX_FLIPPED = 1e-3, 0.01
+# the bf16 forms: a bf16 output against its bf16 twin (both round the same
+# f32 sums, added in other orders: at most one bf16 ulp of an element apart,
+# <= 2^-7 max|ref|); one bf16 step kernels vs plain twins: the loss to
+# BF16_LOSS_RTOL, the valid output's cosine to BF16_COS_MIN (its least row
+# cosine a reading: ulp flips of a row that cancels to a small norm); the
+# L2-normalised bf16 rows' norms to BF16_NORM_TOL of 1 (the scale and the
+# product each rounded to bf16, 2^-9 relative each)
+BF16_RTOL = 2.0 ** -7
+BF16_LOSS_RTOL = 1e-2
+# the bf16 VoteNet step's loss, kernels vs plain twins (FPS picks and ball
+# query groups replayed): the heads' objectness thresholds and box
+# assignments make it move with f32 summation order alone.  Over seeds 0-3,
+# two batches each (``--votenet-bf16-spread 0,1,2,3``; NVIDIA H100 80GB
+# HBM3, 700 W), the plain twins with gather_gemm_bf16's tap sums reversed
+# moved it by 6.4e-03 to 4.33e-02, the kernels by 6.3e-03 to 3.91e-02: the
+# limit is 1.8 times the largest.  Its backbone output and seed features are
+# held to BF16_COS_MIN
+BF16_VOTENET_LOSS_RTOL = 0.08
+BF16_COS_MIN = 0.999
+BF16_NORM_TOL = 2.0 ** -7
 SPARSE_SRC = "pointcontrast_tpu_torch/csrc/sparse_conv.cu"
 DETECT_SRC = "pointcontrast_tpu_torch/csrc/detect_ops.cu"
 KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
@@ -213,6 +256,11 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     # W[rev]^T) and _brick_sym_bwd's dW
     "brick_gemm": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:400"),
     "brick_wgrad": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:360"),
+    # the bf16 forms (JAX's bf16 mode of the same ops)
+    "gather_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:376"),
+    "gather_wgrad_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:440"),
+    "parent_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:768"),
+    "scatter_parent_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:803"),
 }
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL fail the build phase with any stack frame or spill
@@ -232,7 +280,7 @@ FPS_FLOOR_PICKS = 512
 # partial sums added in a fixed order); segment_sum at up to SEG_SMEM
 # segments (its general path adds with f32 atomics)
 REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad",
-                "ball_query", "segment_sum", "three_nn")
+                "ball_query", "segment_sum", "three_nn", "parent_gemm_bf16")
 # segment_sum's general-path check: random ids at this many segments (past
 # SEG_SMEM), over rows of the widest InstanceBatchNorm level's shape
 SEG_GENERAL = (40, 262144, 64)
@@ -244,16 +292,25 @@ PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
 # MinkUNetHyper's average unpools: block5's output from level 2 (two), block6's
 # from level 1 (one)
 HYPER_UNPOOLS = 3
-# the H100 SXM's published peaks: HBM bytes/s, and f32 FLOP/s outside the
-# tensor cores (every kernel here is f32 SIMT)
+# the H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the
+# tensor cores (the f32 kernels' products), and the bf16 tensor cores'
+# dense FLOP/s (the bound of a bf16 x bf16 product with f32 sums, whatever
+# pipe the kernel uses: the bf16 forms run SIMT FMAs today)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # times a check has only where one PyTorch call computes the same function:
 # that call's events time and device-only time (``_device_ms``)
 OPTIONAL_MS = ("library_ms", "library_device_ms")
 # kernels held to their twins bit for bit in every phase: scatter_parent
 # stores each kept row once (the pad slot left out, as its twin does)
-ALWAYS_EXACT = ("scatter_parent",)
+ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16")
+# the bf16 forms run their f32 instances' tiles, tap splits and FMA order on
+# operands widened exactly: each equals its f32 kernel on the widened
+# operands, its output rounded once to bf16, bit for bit (a rounding of each
+# split's partial or of each tap's sum would not)
+BF16_FORMS = ("gather_gemm_bf16", "gather_wgrad_bf16", "parent_gemm_bf16",
+              "scatter_parent_bf16")
 # radii tried, largest first, for the heavy-tail scatter-add check: the
 # first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
 # query's repeats of the first hit fill most of the group's rows
@@ -278,6 +335,7 @@ def phase_device():
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
@@ -325,10 +383,11 @@ def ptxas_entries(text):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
-            entry = m.group(1) if name is None else name.group(1) + (
-                "<" + ",".join(re.findall(r"L[ib](\d+)E", name.group(2) or "")) + ">"
-                if name.group(2) else "")
+            name = re.search(
+                r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E|f|\d+__nv_bfloat16|S\d*_)+E)?",
+                m.group(1))
+            entry = m.group(1) if name is None else name.group(1) + template_args(
+                name.group(2) or "")
             stack = spills = 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -341,6 +400,22 @@ def ptxas_entries(text):
             out.append((entry, int(m.group(1)), stack, spills))
             entry = None
     return out
+
+
+def template_args(mangled: str) -> str:
+    """``<2>``, ``<32,1>`` or ``<1,1,bf16,f32>`` from a mangled template
+    argument list (``ILi2EE``, ``ILi32ELb1EfE``; a repeated bf16 is the
+    substitution ``S0_``, ``ILi1ELi1E13__nv_bfloat16S0_E``): int and bool
+    values, and the element types (f, __nv_bfloat16) only where one of them
+    is bf16, so that an f32 instance keeps the name it had before the bf16
+    forms."""
+    import re
+
+    args = re.findall(r"L[ib](\d+)E|(f)|\d+(__nv_bfloat16)|(S\d*_)", mangled)
+    typed = any(bf or sub for _, _, bf, sub in args)
+    names = [v if v else ("bf16" if bf or sub else "f32") for v, f, bf, sub in args
+             if v or typed]
+    return "<" + ",".join(names) + ">" if names else ""
 
 
 def make_batches(device, **kw):
@@ -442,6 +517,7 @@ def work(name, args, out) -> tuple:
     from pointcontrast_tpu_torch.sparse.kernels import row_index
 
     outs = out if isinstance(out, tuple) else (out,)
+    name = name.removesuffix("_bf16")  # a bf16 form: the same work, its own bytes
     if name == "gather_gemm":
         x3, map_, taps, stride, w, wc, s_out = args[:7]
         b_, _, cin = x3.shape
@@ -471,7 +547,8 @@ def work(name, args, out) -> tuple:
         # only the cotangent rows whose parent is not the coarse pad row
         ct3, parent, off, _, s_c = args
         kept = int((parent < s_c - 1).sum())
-        return 4 * ct3.shape[2] * kept + _nbytes(parent, off, *outs), kept * ct3.shape[2]
+        return (ct3.element_size() * ct3.shape[2] * kept + _nbytes(parent, off, *outs),
+                kept * ct3.shape[2])
     if name == "furthest_point_sample":
         xyz, npoint = args
         # per step and point: 3 subtractions, a multiply and two FMAs, a min
@@ -539,6 +616,19 @@ def work(name, args, out) -> tuple:
         return (_nbytes(args[0], args[1], w_ct, *extra, *outs),
                 2 * args[0].shape[1] * cout * int(live.sum()))
     raise KeyError(name)
+
+
+def flop_peak(name, args) -> float:
+    """The peak the operations of a check are held to: a bf16 form whose
+    floating operands are all bf16, the bf16 tensor cores'; any f32
+    operand (the f32 kernels, and K3's dW against the f32 scatter dy,
+    which bf16 tensor cores cannot take exactly), the f32 SIMT peak."""
+    import torch
+
+    floats = [a for a in args if torch.is_tensor(a) and a.is_floating_point()]
+    if name.endswith("_bf16") and all(a.dtype == torch.bfloat16 for a in floats):
+        return BF16_FLOP_PER_S
+    return F32_FLOP_PER_S
 
 
 def ball_scanned(args, out) -> int:
@@ -629,6 +719,7 @@ def gather_shares(name, args) -> dict:
 
     from pointcontrast_tpu_torch.sparse.kernels import GEMM_ROWS, row_index
 
+    name = name.removesuffix("_bf16")
     if name == "gather_gemm":
         x3, map_, taps, stride, w, wc, s_out, skip = args[:8]
         order = args[8] if len(args) > 8 else None
@@ -799,6 +890,27 @@ def _max_err(got, want) -> tuple:
     return err, ref
 
 
+def _widened(a):
+    """A bf16 tensor widened (exactly) to f32; anything else as it is."""
+    import torch
+
+    return a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+
+
+def bf16_splits(module, name, args):
+    """The blocks over which a gather_gemm_bf16 or parent_gemm_bf16 call
+    spreads a tile's taps or offsets (f32 partials, one rounding of their
+    sum); None for the other kernels."""
+    if name == "gather_gemm_bf16":
+        x3, _, _, _, w, wc, s_out = args[:7]
+        return module._gemm_splits(x3.shape[0], s_out, w.shape[2],
+                                   w.shape[0] + (wc is not None))
+    if name == "parent_gemm_bf16":
+        x3, parent, _, w = args[:4]
+        return module._parent_splits(x3.shape[0], parent.shape[1], w.shape[2])
+    return None
+
+
 def _equal(got, want) -> bool:
     import torch
 
@@ -851,13 +963,14 @@ def phase_kernels(checks, module, exact=()):
         ms = _time_ms(fn, args)
         err, ref = _max_err(got, want)
         bitwise = name in exact or name in ALWAYS_EXACT
+        outs = got if isinstance(got, tuple) else (got,)
+        rtol = BF16_RTOL if any(g.dtype == torch.bfloat16 for g in outs) else RTOL
         if bitwise:
             ok = _equal(got, want)
         else:
-            ok = all(bool(torch.isfinite(g).all()) for g in
-                     (got if isinstance(got, tuple) else (got,))) and err <= ATOL + RTOL * ref
+            ok = all(bool(torch.isfinite(g).all()) for g in outs) and err <= ATOL + rtol * ref
         nbytes, ops = work(name, args, got)
-        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / flop_peak(name, args)
         call = library_call(name, args)
         lib_ms = lib_dev_ms = None
         if call is not None:
@@ -888,11 +1001,18 @@ def phase_kernels(checks, module, exact=()):
             if args[2] <= module.SEG_SMEM:
                 parts_ms = _device_ms(module._segment_sum_launch, (*args, False))
                 extra["combine_share"] = f"{1 - parts_ms / dev_ms:.3f}"
-        if name in ("gather_wgrad", *REPEAT_EXACT):
+        if name in ("gather_wgrad", "gather_wgrad_bf16", "gather_gemm_bf16", *REPEAT_EXACT):
             extra["repeat_bit_equal"] = _equal(fn(*args), fn(*args))
             required = name in REPEAT_EXACT and not (  # the general path's atomics
                 name == "segment_sum" and args[2] > module.SEG_SMEM)
             ok = ok and (extra["repeat_bit_equal"] or not required)
+        if name in BF16_FORMS:
+            f32 = getattr(module, name.removesuffix("_bf16"))(*map(_widened, args))
+            extra["f32_instance_bit_equal"] = _equal(got, f32.to(got.dtype))
+            ok = ok and extra["f32_instance_bit_equal"]
+            splits = bf16_splits(module, name, args)
+            if splits is not None:
+                extra["splits"] = splits
         if name == "furthest_point_sample":
             xyz, npoint = args
             extra["cluster"] = fps_cluster_of(xyz)
@@ -927,8 +1047,13 @@ def expected_launches(model) -> dict:
     block's k3s2 conv, its 1-tap downsample and, BasicBlock-shaped, its
     second conv, to which JAX passes no ``rev``) fwd + scatter_gemm dF + dW;
     the ResNets' k2s2 sum pool and each of MinkUNetHyper's average unpools
-    a gather_sum and its scatter_sum; no flat conv and no global pooling."""
+    a gather_sum and its scatter_sum; no flat conv and no global pooling.
+    A bf16 model (``model.dtype``) runs K1-K3 through the bf16 forms, but
+    for K3's dF: the f32 gather_gemm on the f32 scatter dy."""
+    import torch
+
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
+    from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.nn.resnet import ResNetBase, _StridedBlock
     from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
 
@@ -942,24 +1067,101 @@ def expected_launches(model) -> dict:
     n_tr = sum(1 for m in model.modules() if isinstance(m, SparseConvTranspose))
     pools = (isinstance(model, ResNetBase)
              + HYPER_UNPOOLS * isinstance(model, MinkUNetHyper))
-    return {
-        "gather_gemm": n_same + (n_same - 1) + n_down + n_tr + len(k4),
-        "gather_wgrad": n_same + n_down + n_tr + len(k4),
-        "parent_gemm": n_tr + n_down,
-        "scatter_parent": n_tr,
+    n = dict.fromkeys((fn.__name__ for fn in K.KERNELS), 0)
+    sfx = "_bf16" if getattr(model, "dtype", None) == torch.bfloat16 else ""
+    n.update({
+        f"gather_gemm{sfx}": n_same + (n_same - 1) + n_down + len(k4),
+        f"gather_wgrad{sfx}": n_same + n_down + n_tr + len(k4),
+        f"parent_gemm{sfx}": n_tr + n_down,
+        f"scatter_parent{sfx}": n_tr,
         "scatter_gemm": len(k4),
-        "segment_sum": 0,
         "gather_sum": pools,
         "scatter_sum": pools,
-        "brick_gemm": 0,
-        "brick_wgrad": 0,
-    }
+    })
+    n["gather_gemm"] += n_tr  # K3's dF, f32 in both modes
+    return n
 
 
-def phase_slice(batches, device, card, app, expect):
+def _agreement(a, b) -> dict:
+    """How two [N, C] outputs agree, in f64: ``cosine``, the cosine of the
+    two whole outputs (the bf16 parity's check), and, as readings, the
+    least row cosine and the share of rows below BF16_COS_MIN."""
+    a, b = a.double(), b.double()  # the whole output's sums: past f32's reach
+    na, nb = a.norm(dim=1), b.norm(dim=1)
+    live = (na > 0) | (nb > 0)
+    a, b, na, nb = a[live], b[live], na[live], nb[live]
+    rows = (a * b).sum(1) / (na * nb).clamp(min=1e-30)
+    return {"cosine": float((a * b).sum() / (a.norm() * b.norm()).clamp(min=1e-30)),
+            "row_min": float(rows.min()),
+            "rows_below": float((rows < BF16_COS_MIN).float().mean())}
+
+
+def _reversed_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+    """gather_gemm_bf16's twin with a map's taps summed in reverse order:
+    the same function, other f32 roundings (``_forward_agreement``'s
+    spread)."""
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    if map_ is not None:
+        taps, w = list(taps)[::-1], w.flip(0)
+    return K.gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
+
+
+def _forward_agreement(model, run, valid, device) -> tuple:
+    """(``_agreement`` over the ``valid`` rows of a train-mode forward
+    ``run(m)`` of a copy of ``model`` through the kernels against the same
+    through the plain twins, and the same for the plain twins with
+    gather_gemm_bf16's taps summed in reverse order: the spread that f32
+    summation order alone gives the bf16 net, a reading).  No grad; the
+    bf16 paths' parity."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import ops
+    from pointcontrast_tpu_torch.tools.workload import plain_ops
+
+    outs = {}
+    for mode in ("plain", "kernels", "reversed"):
+        m = copy.deepcopy(model).to(device).train()
+        with torch.no_grad(), plain_ops() if mode != "kernels" else contextlib.nullcontext():
+            saved = ops.gather_gemm_bf16
+            if mode == "reversed":
+                ops.gather_gemm_bf16 = _reversed_gemm
+            try:
+                outs[mode] = run(m).float()[valid]
+            finally:
+                ops.gather_gemm_bf16 = saved
+        del m
+    return (_agreement(outs["kernels"], outs["plain"]),
+            _agreement(outs["reversed"], outs["plain"]))
+
+
+def _check_step_parity(app, losses, agree=None):
+    """One step's loss through the kernels against the plain twins': f32
+    paths to LOSS_RTOL; bf16 paths (``agree``: their forward's
+    ``_forward_agreement``) to BF16_LOSS_RTOL, the output's cosine to
+    BF16_COS_MIN, the rows and the summation-order spread as readings."""
+    rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    rtol = LOSS_RTOL if agree is None else BF16_LOSS_RTOL
+    extra = {}
+    if agree is not None:
+        for tag, a in zip(("", "spread_"), agree):
+            extra.update({
+                f"{tag}cosine": f"{a['cosine']:.7f}",
+                f"{tag}row_cosine_min": f"{a['row_min']:.6f}",
+                f"{tag}rows_below_cos_min": f"{a['rows_below']:.2e}"})
+        extra["cos_min"] = BF16_COS_MIN
+    say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
+        loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=rtol, **extra)
+    if not (rel <= rtol) or (agree is not None and not agree[0]["cosine"] >= BF16_COS_MIN):
+        raise AssertionError(f"{app}: the kernel step differs from the plain step")
+
+
+def phase_slice(batches, device, card, app, expect, dtype=None):
     """A pretraining main path: one step through the kernels against the
     plain twins, then STEPS PretrainTrainer steps with ``expect`` launches
-    of every kernel a step, and the output."""
+    of every kernel a step, and the output; ``dtype``: the model's
+    activations (bf16: the step's parity also holds the forward's output to
+    cosine BF16_COS_MIN)."""
     import torch
 
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
@@ -976,9 +1178,11 @@ def phase_slice(batches, device, card, app, expect):
     )
     from pointcontrast_tpu_torch.train import optim
 
-    model = pretrain_model(seed=0)
+    model = pretrain_model(seed=0, dtype=dtype)
+    bf16 = dtype == torch.bfloat16
     n_params = sum(p.numel() for p in model.parameters())
-    say("model", app=app, name="Res16UNet34C", params=n_params, per_step=expect)
+    say("model", app=app, name="Res16UNet34C" + (" bf16" if bf16 else ""),
+        params=n_params, per_step=expect)
     cfg = PretrainConfig(lr=0.1, stat_freq=1, save_freq=10 ** 9,
                          checkpoint_dir=os.path.join(BUILD_DIR, "smoke_ckpt"))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
@@ -993,11 +1197,10 @@ def phase_slice(batches, device, card, app, expect):
         with plain_ops() if mode == "plain" else contextlib.nullcontext():
             losses[mode] = float(step(m, opt, sched, batches[0])["loss"])
         del m, opt, sched
-    rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
-    say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
-        loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=LOSS_RTOL)
-    if not (rel <= LOSS_RTOL):
-        raise AssertionError(f"{app}: kernel step loss differs from plain: rel {rel:.2e}")
+    b0 = batches[0]
+    _check_step_parity(app, losses, _forward_agreement(
+        model, lambda m: m(b0.feats0, b0.pyramid0), b0.pyramid0.levels[0].valid > 0,
+        device) if bf16 else None)
 
     # the main path: PretrainTrainer, STEPS steps, counted launches
     trainer = PretrainTrainer(model, itertools.cycle(batches), cfg, device)
@@ -1032,9 +1235,11 @@ def phase_slice(batches, device, card, app, expect):
     norms = out.norm(dim=1)
     if out.shape != (batches[0].feats0.shape[0], 32) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
-    if float((norms[valid] - 1).abs().max()) > 1e-4 or bool(out[~valid].any()):
+    if (float((norms[valid] - 1).abs().max()) > (BF16_NORM_TOL if bf16 else 1e-4)
+            or bool(out[~valid].any())):
         raise AssertionError(f"{app}: output rows are not unit-norm / pad rows not zero")
-    say("output", app=app, shape=tuple(out.shape), valid_rows=int(valid.sum()))
+    say("output", app=app, shape=tuple(out.shape), dtype=out.dtype,
+        valid_rows=int(valid.sum()))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
     return counts
 
@@ -1225,18 +1430,39 @@ def expected_detect_launches(model) -> dict:
     return n
 
 
-def _votenet_step_outputs(model, dc, cfg, batch, device, plain):
+def _votenet_step_outputs(model, dc, cfg, batch, device, plain, picks=None,
+                          reverse=False):
     """One DetectTrainer.train_epoch step of a copy of ``model``, through the
     plain twins or the kernels; returns its loss, backbone output, seed
     features and integer outputs (the ball query recomputed from the step's
     votes and centres, in the same mode).  The backbone output is the
-    sparse-conv net's voxel features, or PointNet++'s SA4 features."""
+    sparse-conv net's voxel features, or PointNet++'s SA4 features.
+    ``picks`` (a list): the step's FPS picks and ball-query groups, in call
+    order, are appended to it when it is empty and replayed from it when it
+    is not (the recomputed ball query is the mode's own).  ``reverse``: the
+    plain twins with gather_gemm_bf16's taps summed in reverse order
+    (``_reversed_gemm``)."""
     import torch
 
     from pointcontrast_tpu_torch.detect import ops as dops
     from pointcontrast_tpu_torch.detect.train import DetectTrainer
+    from pointcontrast_tpu_torch.sparse import ops
     from pointcontrast_tpu_torch.tools.workload import plain_ops
 
+    integer_ops = {name: getattr(dops, name) for name in ("furthest_point_sample",
+                                                          "ball_query")}
+    if picks is not None:
+        replay = list(picks)
+
+        def recorded(fn):
+            def call(*args):
+                if replay:
+                    return replay.pop(0)
+                picks.append(fn(*args))
+                return picks[-1]
+            return call
+        for name, fn in integer_ops.items():
+            setattr(dops, name, recorded(fn))
     m = copy.deepcopy(model)
     seen = {}
     pointnet2 = model.backbone == "pointnet2"
@@ -1246,14 +1472,24 @@ def _votenet_step_outputs(model, dc, cfg, batch, device, plain):
                 "vout", (out[1] if pointnet2 else out).detach())),
         m.register_forward_hook(lambda mod, inp, out: seen.__setitem__("ep", out)),
     ]
-    with plain_ops() if plain else contextlib.nullcontext():
-        trainer = DetectTrainer(m, dc, cfg, device)
-        loss = trainer.train_epoch(iter([batch]), 1)
-        ep = seen["ep"]
-        bq = dops.ball_query(ep["aggregated_vote_xyz"].detach(),
-                             ep["vote_xyz"].detach(), 0.3, 16)
-    for h in hooks:
-        h.remove()
+    gemm = ops.gather_gemm_bf16
+    try:
+        with plain_ops() if plain else contextlib.nullcontext():
+            if reverse:
+                ops.gather_gemm_bf16 = _reversed_gemm
+            trainer = DetectTrainer(m, dc, cfg, device)
+            loss = trainer.train_epoch(iter([batch]), 1)
+            for name, fn in integer_ops.items():
+                setattr(dops, name, fn)
+            ep = seen["ep"]
+            bq = dops.ball_query(ep["aggregated_vote_xyz"].detach(),
+                                 ep["vote_xyz"].detach(), 0.3, 16)
+    finally:
+        ops.gather_gemm_bf16 = gemm
+        for name, fn in integer_ops.items():
+            setattr(dops, name, fn)
+        for h in hooks:
+            h.remove()
     torch.cuda.synchronize()
     ints = {"fps_seeds": ep["seed_inds"], "fps_proposals": ep["aggregated_vote_inds"],
             "ball_query": bq, "object_assignment": ep["object_assignment"]}
@@ -1268,24 +1504,67 @@ def check_parity(model, dc, cfg, batch, device, app):
     twins, from the same weights and batch: backbone output and seed
     features to RTOL; the loss to LOSS_RTOL while every integer output
     agrees, else to LOSS_RTOL_FLIPPED with at most MAX_FLIPPED of any
-    integer set differing."""
+    integer set differing.  A bf16 backbone: its output and the seed
+    features to cosine BF16_COS_MIN (``_agreement``), the loss to
+    BF16_VOTENET_LOSS_RTOL (the plain twins' own spread under another f32
+    summation order a reading beside it), at most MAX_FLIPPED of the
+    object assignments
+    differing; the plain step replays the kernel step's FPS picks and
+    ball-query groups (both exact against their twins, but the bf16 votes'
+    rounding moves the proposals' farthest points and the points at a
+    ball's radius, and one flipped FPS pick changes the rest of its
+    sequence), and the flips of the ball query recomputed from each step's
+    own votes are a reading, as is the loss of a plain step on its own
+    picks (``no_replay_loss_rel``: the replay is shown, not hidden)."""
+    import torch
+
+    bf16 = (model.backbone == "sparseconv"
+            and model.backbone_net.net.dtype == torch.bfloat16)
+    picks = [] if bf16 else None
     res = {mode: _votenet_step_outputs(model, dc, cfg, batch, device,
-                                       plain=mode == "plain")
-           for mode in ("plain", "kernels")}
+                                       plain=mode == "plain", picks=picks)
+           for mode in (("kernels", "plain") if bf16 else ("plain", "kernels"))}
     p, k = res["plain"], res["kernels"]
-    rel = {name: float((k[name] - p[name]).abs().max() / p[name].abs().max())
+    rel = {name: float((k[name].float() - p[name].float()).abs().max()
+                       / p[name].float().abs().max())
            for name in ("vout", "seed_features")}
     flipped = {name: int((k["ints"][name] != v).sum())
                for name, v in p["ints"].items()}
-    frac = max(flipped[n] / p["ints"][n].numel() for n in flipped)
+    held = [n for n in flipped if not (bf16 and n == "ball_query")]
+    frac = max(flipped[n] / p["ints"][n].numel() for n in held)
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     loss_rtol = LOSS_RTOL if not any(flipped.values()) else LOSS_RTOL_FLIPPED
+    extra = {}
+    if bf16:
+        r = _votenet_step_outputs(model, dc, cfg, batch, device, plain=True,
+                                  picks=picks, reverse=True)
+        extra["spread_loss_rel"] = f"{abs(r['loss'] - p['loss']) / abs(p['loss']):.2e}"
+        # a reading: the plain step on its own FPS picks and groups
+        own = _votenet_step_outputs(model, dc, cfg, batch, device, plain=True)
+        extra["no_replay_loss_rel"] = f"{abs(k['loss'] - own['loss']) / abs(own['loss']):.2e}"
+        extra["no_replay_flipped"] = {name: int((k["ints"][name] != v).sum())
+                                      for name, v in own["ints"].items()}
+        extra["spread_cosine"] = {
+            name: f"{_agreement(*(t[name].reshape(-1, t[name].shape[-1])
+                                  for t in (r, p)))['cosine']:.7f}"
+            for name in ("vout", "seed_features")}
+        loss_rtol = BF16_VOTENET_LOSS_RTOL
+        agree = {name: _agreement(*(t[name].reshape(-1, t[name].shape[-1])
+                                    for t in (k, p)))
+                 for name in ("vout", "seed_features")}
+        extra.update({"cosine": {n: f"{a['cosine']:.7f}" for n, a in agree.items()},
+                 "cos_min": BF16_COS_MIN,
+                 "row_cosine_min": {n: f"{a['row_min']:.6f}" for n, a in agree.items()},
+                 "rows_below_cos_min": {n: f"{a['rows_below']:.2e}"
+                                        for n, a in agree.items()}})
+        close = min(a["cosine"] for a in agree.values()) >= BF16_COS_MIN
+    else:
+        close = max(rel.values()) <= RTOL
     say("parity", app=app, loss_kernels=f"{k['loss']:.8f}",
         loss_plain=f"{p['loss']:.8f}", loss_rel=f"{loss_rel:.2e}",
         loss_rtol=loss_rtol, backbone_rel=f"{rel['vout']:.2e}",
-        seed_features_rel=f"{rel['seed_features']:.2e}", flipped=flipped)
-    if not (max(rel.values()) <= RTOL and loss_rel <= loss_rtol
-            and frac <= MAX_FLIPPED):
+        seed_features_rel=f"{rel['seed_features']:.2e}", flipped=flipped, **extra)
+    if not (close and loss_rel <= loss_rtol and frac <= MAX_FLIPPED):
         raise AssertionError(f"{app} kernel step differs from the plain step")
 
 
@@ -1306,8 +1585,10 @@ def phase_votenet(batches, device, card, model, app, steps=STEPS):
 
     dc = ScannetDatasetConfig()
     if model.backbone == "sparseconv":
-        expect = expected_launches(model.backbone_net.net)
-        name = f"VoteNet(sparseconv {type(model.backbone_net.net).__name__} 3->256)"
+        net = model.backbone_net.net
+        expect = expected_launches(net)
+        name = (f"VoteNet(sparseconv {type(net).__name__} 3->256"
+                f"{' bf16' if net.dtype == torch.bfloat16 else ''})")
     else:
         expect = {fn.__name__: 0 for fn in K.KERNELS}
         name = "VoteNet(pointnet2 SA1-SA4 + FP1-FP2)"
@@ -1510,38 +1791,53 @@ def phase_boxnet(batches, device):
         raise AssertionError(f"bad BoxNet step: {metrics}")
 
 
-def phase_cli():
+def phase_cli(sparse=False):
     """``apps.votenet.main`` on the card with the shipped config and
-    ``net.backbone=pointnet2``: one epoch of 8 synthetic scenes (one step),
-    one evaluation, a checkpoint; a second call resumes from it and has
-    nothing left to train."""
+    ``net.backbone=pointnet2`` (``sparse``: the shipped sparse-conv
+    backbone, chunked, ``net.dtype: bfloat16`` as written): one epoch of 8
+    synthetic scenes (one step), one evaluation, a checkpoint; a second
+    call resumes from it and has nothing left to train."""
     import torch
 
     from pointcontrast_tpu_torch.apps import votenet as app
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
     from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.sparse import kernels as K
 
     out = os.path.join(BUILD_DIR, "smoke_cli")
     shutil.rmtree(out, ignore_errors=True)
-    args = ["net.backbone=pointnet2", "data.dataset=synthetic", "data.num_scenes=8",
-            "optimizer.max_epoch=1", "eval.eval_every=1", f"misc.out_dir={out}",
-            "distributed.num_devices=1"]
+    args = ([] if sparse else ["net.backbone=pointnet2"]) + [
+        "data.dataset=synthetic", "data.num_scenes=8", "optimizer.max_epoch=1",
+        "eval.eval_every=1", f"misc.out_dir={out}", "distributed.num_devices=1"]
+    needed = ([fn.__name__ for fn in K.KERNELS if fn.__name__.endswith("_bf16")]
+              + ["gather_gemm"] if sparse else [])
     t0 = time.perf_counter()
     D.reset_launches()
+    K.reset_launches()
     trainer = app.main(args)
     torch.cuda.synchronize()
     first = D.launch_counts()
+    sparse_counts = K.launch_counts()
     seconds = time.perf_counter() - t0
     ckpt = os.path.join(out, "weights", "checkpoint_1.pth")
     if trainer.epoch != 1 or not os.path.exists(ckpt) or trainer.device.type != "cuda":
         raise AssertionError("the CLI run did not train, save and stay on the card")
-    if not all(first.values()):
-        raise AssertionError(f"the CLI run missed a kernel: {first}")
+    if sparse and trainer.model.backbone_net.net.dtype != torch.bfloat16:
+        raise AssertionError("the CLI did not run the shipped bf16 backbone")
+    # the sparse-conv backbone runs no three_nn / three_interpolate (PointNet++'s FP)
+    detect_needed = [k for k in first if not (sparse and k.startswith("three_"))]
+    if (not all(first[k] for k in detect_needed)
+            or not all(sparse_counts[k] for k in needed)):
+        raise AssertionError(f"the CLI run missed a kernel: {first} {sparse_counts}")
     D.reset_launches()
+    K.reset_launches()
     resumed = app.main(args)
-    if resumed.epoch != 1 or any(D.launch_counts().values()):
+    if (resumed.epoch != 1 or any(D.launch_counts().values())
+            or any(K.launch_counts().values())):
         raise AssertionError("the resumed CLI run trained again")
-    say("cli", seconds=f"{seconds:.1f}", epoch=trainer.epoch, launches=first,
+    say("cli", app="votenet", backbone="sparseconv bf16" if sparse else "pointnet2",
+        seconds=f"{seconds:.1f}", epoch=trainer.epoch,
+        launches={**first, **{k: sparse_counts[k] for k in needed}},
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_epoch=resumed.epoch)
     shutil.rmtree(out, ignore_errors=True)
 
@@ -1577,7 +1873,8 @@ def conv_calls(model, feats, run):
     map), "tr" (K3), "crf" (the CRF filter's flat map), "brick" (a
     BrickMap), "bdown" (a BrickDownMap) and "bup" (a brick up conv).  Flat
     (voxel) maps come as the kernels take them, one [K, 1, N] chunk.
-    ``stem``: the call reads the batch's input features, whose gradient no
+    ``stem``: the call reads the batch's input features (or, in a bf16 net,
+    their bf16 cast: the first call, of their shape), whose gradient no
     one needs."""
     import torch
 
@@ -1612,8 +1909,9 @@ def conv_calls(model, feats, run):
                 args[1], args[2] = args[1][None], args[2][None]
                 if kwargs.get("up_order") is not None:
                     kwargs["up_order"] = kwargs["up_order"][None]
-        calls.append((kind, name, mod.weight.detach(), tuple(args), kwargs,
-                      args[0] is feats))
+        stem = args[0] is feats or (not calls and args[0].shape == feats.shape
+                                    and args[0].dtype != feats.dtype)
+        calls.append((kind, name, mod.weight.detach(), tuple(args), kwargs, stem))
 
     hooks = []
     for name, mod in m.named_modules():
@@ -1639,21 +1937,26 @@ def expected_from_calls(calls) -> dict:
     stem) + brick_wgrad; a brick down conv's placement and a brick up
     conv's parent gather a gather_sum and its scatter_sum each, none at the
     hybrid boundary (the matmuls are torch.matmul).  The CRF's filter is
-    counted by ``expected_semseg_launches``."""
+    counted by ``expected_semseg_launches``.  bf16 features run K1-K3's
+    bf16 forms (K3's dF: the f32 gather_gemm on the f32 scatter dy)."""
+    import torch
+
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.sparse import ops
 
     n = {fn.__name__: 0 for fn in K.KERNELS}
     for kind, _, w, args, kw, stem in calls:
+        sfx = "_bf16" if args[0].dtype == torch.bfloat16 else ""
         if kind == "conv" and kw.get("up") is None:
-            n["gather_gemm"] += 1 + (not stem)
-            n["gather_wgrad"] += 1
+            n[f"gather_gemm{sfx}"] += 1 + (not stem)
+            n[f"gather_wgrad{sfx}"] += 1
         elif kind == "conv":
-            n["gather_gemm"] += 1
-            n["parent_gemm"] += 1
-            n["gather_wgrad"] += 1
+            n[f"gather_gemm{sfx}"] += 1
+            n[f"parent_gemm{sfx}"] += 1
+            n[f"gather_wgrad{sfx}"] += 1
         elif kind == "tr":
-            for name in ("parent_gemm", "scatter_parent", "gather_gemm", "gather_wgrad"):
+            for name in (f"parent_gemm{sfx}", f"scatter_parent{sfx}", "gather_gemm",
+                         f"gather_wgrad{sfx}"):
                 n[name] += 1
         elif kind == "k4":
             groups = len(ops._tap_groups(w.shape[0]))
@@ -1768,6 +2071,14 @@ def conv_checks(model, batch, calls=None):
         nb = (args[1].shape[1] if kind in ("conv", "k4") else args[1].shape[0])
         f3 = args[0].reshape(nb, -1, cin).contiguous()
         s_in = f3.shape[1]
+        # bf16 features: the bf16 forms, on the weights' bf16 cast
+        dt = f3.dtype
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        gemm, wgrad, pgemm = (getattr(K, f"{n}{sfx}")
+                              for n in ("gather_gemm", "gather_wgrad", "parent_gemm"))
+        if sfx:
+            w = w.to(dt)
+            wt = w.transpose(1, 2)
         if kind == "k4":
             nbr, valid = args[1], args[2]
             s_out = nbr.shape[2]
@@ -1786,49 +2097,50 @@ def conv_checks(model, batch, calls=None):
             nbr, valid, rev = args[1], args[2], args[3] if len(args) > 3 else kw.get("rev")
             center = next(i for i, r in enumerate(rev) if r == i)
             taps = [i for i in range(k) if i != center]
-            ct = _masked_randn((nb, s_in, cout), valid, gen)
+            ct = _masked_randn((nb, s_in, cout), valid, gen).to(dt)
             tag = f"{name} B{nb} S{s_in} {cin}->{cout}"
-            checks.append(("gather_gemm", f"K1 fwd {tag}", K.gather_gemm,
+            checks.append((f"gather_gemm{sfx}", f"K1 fwd {tag}", gemm,
                            (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in,
                             s_in - 1, kw.get("order"))))
             if not stem:
-                checks.append(("gather_gemm", f"K1 dF {tag}", K.gather_gemm,
+                checks.append((f"gather_gemm{sfx}", f"K1 dF {tag}", gemm,
                                (ct, nbr, [rev[i] for i in taps], 0,
                                 wt[taps].contiguous(), wt[center].contiguous(), s_in,
                                 s_in - 1, kw.get("order"))))
-            checks.append(("gather_wgrad", f"K1 dW {tag}", K.gather_wgrad,
+            checks.append((f"gather_wgrad{sfx}", f"K1 dW {tag}", wgrad,
                            (f3, None, None, 0, ct, nbr, list(rev), 0, k, s_in, -1,
                             s_in - 1)))
         elif kind == "conv":  # K2
             down, valid = args[1], args[2]
             parent, off, up_order = (*kw["up"], None)[:3]
             s_out = down.shape[2]
-            ct = _masked_randn((nb, s_out, cout), valid, gen)
+            ct = _masked_randn((nb, s_out, cout), valid, gen).to(dt)
             tag = f"{name} B{nb} S{s_in}->S{s_out} {cin}->{cout}"
             checks += [
-                ("gather_gemm", f"K2 fwd {tag}", K.gather_gemm,
+                (f"gather_gemm{sfx}", f"K2 fwd {tag}", gemm,
                  (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"))),
-                ("parent_gemm", f"K2 dF {tag}", K.parent_gemm,
+                (f"parent_gemm{sfx}", f"K2 dF {tag}", pgemm,
                  (ct, parent, off, wt.contiguous(), -1, up_order)),
-                ("gather_wgrad", f"K2 dW {tag}", K.gather_wgrad,
+                (f"gather_wgrad{sfx}", f"K2 dW {tag}", wgrad,
                  (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out, s_in - 1,
                   -1)),
             ]
-        else:  # K3
+        else:  # K3: dF on the f32 scatter dy in both modes (bf16 weights widened)
             parent, off, valid = args[1], args[2], args[3]
             up_order = kw.get("up_order")
             s_f = parent.shape[1]
-            ct = _masked_randn((nb, s_f, cout), valid, gen)
-            dy = K.scatter_parent_plain(ct, parent, off, k, s_in)
+            ct = _masked_randn((nb, s_f, cout), valid, gen).to(dt)
+            scatter = getattr(K, f"scatter_parent{sfx}")
+            dy = getattr(K, f"scatter_parent{sfx}_plain")(ct, parent, off, k, s_in)
             tag = f"{name} B{nb} S{s_in}->S{s_f} {cin}->{cout}"
             checks += [
-                ("parent_gemm", f"K3 fwd {tag}", K.parent_gemm,
+                (f"parent_gemm{sfx}", f"K3 fwd {tag}", pgemm,
                  (f3, parent, off, w, s_in - 1, up_order)),
-                ("scatter_parent", f"K3 bwd scatter {tag}", K.scatter_parent,
+                (f"scatter_parent{sfx}", f"K3 bwd scatter {tag}", scatter,
                  (ct, parent, off, k, s_in)),
                 ("gather_gemm", f"K3 dF {tag}", K.gather_gemm,
-                 (dy, None, None, s_in, wt.contiguous(), None, s_in, -1)),
-                ("gather_wgrad", f"K3 dW {tag}", K.gather_wgrad,
+                 (dy, None, None, s_in, wt.float().contiguous(), None, s_in, -1)),
+                (f"gather_wgrad{sfx}", f"K3 dW {tag}", wgrad,
                  (f3, None, None, 0, dy, None, None, s_in, k, s_in, -1, -1)),
             ]
     return checks
@@ -1967,11 +2279,10 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
         with W.plain_ops() if mode == "plain" else contextlib.nullcontext():
             losses[mode] = float(step(m, opt, sched, [batch])["loss"])
         del m, opt, sched
-    rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
-    say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
-        loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=LOSS_RTOL)
-    if not (rel <= LOSS_RTOL):
-        raise AssertionError(f"{app}: kernel step loss differs from plain: rel {rel:.2e}")
+    bf16 = getattr(net, "dtype", None) == torch.bfloat16
+    _check_step_parity(app, losses, _forward_agreement(
+        model, lambda m: forward(m, batch), batch.pyramid.levels[0].valid > 0,
+        device) if bf16 else None)
 
     # the main path: SemsegTrainer, counted launches
     trainer = SemsegTrainer(model, itertools.repeat(batch), None, cfg,
@@ -2025,8 +2336,11 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
 
 
 def semseg_paths(device, card, paths):
-    """The four semseg main paths on one batch; adds each one's (kernel
-    checks' numbers, launch counts) to ``paths``.  Returns the scenes."""
+    """The five semseg main paths on one batch (``semseg bf16``: the
+    shipped YAML's dtype); adds each one's (kernel checks' numbers, launch
+    counts) to ``paths``.  Returns the scenes."""
+    import torch
+
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools import workload as W
@@ -2036,6 +2350,12 @@ def semseg_paths(device, card, paths):
     backbone = phase_kernels(conv_checks(model, batch), K)
     paths["semseg"] = (backbone, phase_semseg("semseg", model, batch, scenes, device,
                                               card, None))
+    del model
+    # the shipped YAML's net.dtype: the same net in bf16 (the bf16 forms)
+    model = W.semseg_model(seed=0, dtype=torch.bfloat16)
+    paths["semseg bf16"] = (phase_kernels(conv_checks(model, batch), K),
+                            phase_semseg("semseg bf16", model, batch, scenes, device,
+                                         card, None))
     del model
     model = W.semseg_model(seed=0, model="ResUNet18INBN")
     res = phase_kernels(conv_checks(model, batch), K)
@@ -2360,12 +2680,13 @@ def resnet_paths(device, card, paths, scenes):
     phase_se_blocks(batch, device)
 
 
-def phase_cli_semseg(model=None, layout=None):
+def phase_cli_semseg(model=None, layout=None, shipped_dtype=False):
     """``apps.semseg.main`` on the card with the shipped config on
-    ``SyntheticSemsegDataset`` and ``net.dtype=float32`` (and
-    ``net.model=<model>``, ``data.layout=<layout>`` when given): 3 steps,
-    one whole-split validation, a checkpoint; a second call resumes from it
-    and has nothing left to train."""
+    ``SyntheticSemsegDataset`` and ``net.dtype=float32`` (the YAML's
+    ``bfloat16`` with ``shipped_dtype``; and ``net.model=<model>``,
+    ``data.layout=<layout>`` when given): 3 steps, one whole-split
+    validation, a checkpoint; a second call resumes from it and has nothing
+    left to train."""
     import torch
 
     from pointcontrast_tpu_torch.apps import semseg as app
@@ -2374,12 +2695,15 @@ def phase_cli_semseg(model=None, layout=None):
 
     out = os.path.join(BUILD_DIR, "smoke_cli_semseg")
     shutil.rmtree(out, ignore_errors=True)
-    args = ["data.dataset=SyntheticSemsegDataset", "net.dtype=float32",
+    args = ["data.dataset=SyntheticSemsegDataset",
             "optimizer.max_iter=3", "train.stat_freq=1", "train.val_freq=3",
             "train.save_freq=1000", f"train.out_dir={out}",
             "distributed.num_devices=1"] + ([f"net.model={model}"] if model else [])
     args += [f"data.layout={layout}"] if layout else []
-    needed = ["gather_gemm", "gather_wgrad", "parent_gemm", "scatter_parent"]
+    args += [] if shipped_dtype else ["net.dtype=float32"]
+    sfx = "_bf16" if shipped_dtype else ""
+    needed = [f"gather_gemm{sfx}", f"gather_wgrad{sfx}", f"parent_gemm{sfx}",
+              f"scatter_parent{sfx}"]
     if model == "MinkUNetHyper14INBN":
         needed += ["gather_sum", "scatter_sum", "segment_sum"]
     if layout and layout.startswith("brick"):
@@ -2399,6 +2723,8 @@ def phase_cli_semseg(model=None, layout=None):
         raise AssertionError(f"the semseg CLI trained {type(trainer.model).__name__}")
     if layout and trainer.layout != layout:
         raise AssertionError(f"the semseg CLI ran layout {trainer.layout}")
+    if shipped_dtype and trainer.model.dtype != torch.bfloat16:
+        raise AssertionError("the semseg CLI did not run the shipped bf16")
     if not all(first[k] for k in needed):
         raise AssertionError(f"the semseg CLI run missed a kernel: {first}")
     K.reset_launches()
@@ -2406,6 +2732,7 @@ def phase_cli_semseg(model=None, layout=None):
     if resumed.curr_iter != 3 or again or any(K.launch_counts().values()):
         raise AssertionError("the resumed semseg CLI run trained again")
     say("cli", app="semseg", model=type(trainer.model).__name__, layout=trainer.layout,
+        dtype=trainer.model.dtype,
         seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
         best_miou=f"{trainer.best_miou:.4f}", launches=first,
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_iter=resumed.curr_iter)
@@ -2439,18 +2766,20 @@ def brick_k5_checks(pyramid, feats):
              (feats, bm.nbr, steps, ct, plan.num_taps, valid, bm.order))]
 
 
-def pretrain_path(layout, device, card, paths):
+def pretrain_path(layout, device, card, paths, dtype=None):
     """The pretraining main path in ``layout`` ('chunked', 'voxel' or
     'brick:2'): its batches, every kernel at the shapes of one real
     forward against its twin, the kernels-vs-plain step and STEPS counted
     PretrainTrainer steps (launches from the forward's conv calls; the
     chunked and voxel layouts' must equal the model's ``expected_launches``:
-    the same kernels, 0 scatter_gemm)."""
+    the same kernels, 0 scatter_gemm).  ``dtype=torch.bfloat16``: the
+    ``pretrain bf16`` path (chunked), the bf16 forms at the bf16 forward's
+    shapes, the stem's Cin = 3 among them."""
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools.workload import pretrain_model
 
     batches = make_batches(device, layout=layout)
-    model = pretrain_model(seed=0)
+    model = pretrain_model(seed=0, dtype=dtype)
     b = batches[0]
     calls = conv_calls(model, b.feats0, lambda m: m(b.feats0, b.pyramid0))
     expect = expected_from_calls(calls)
@@ -2465,7 +2794,9 @@ def pretrain_path(layout, device, card, paths):
         paths["brick k5 shapes"] = (phase_kernels(brick_k5_checks(b.pyramid0, b.feats0), K),
                                     {})
     app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
-    paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect))
+    app += "" if dtype is None else " bf16"
+    paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect,
+                                   dtype=dtype))
 
 
 def semseg_layout_paths(device, card, paths, scenes):
@@ -2500,18 +2831,20 @@ def semseg_layout_paths(device, card, paths, scenes):
         del model, batch
 
 
-def votenet_path(layout, device, card, paths, steps):
+def votenet_path(layout, device, card, paths, steps, dtype=None):
     """The sparse-conv VoteNet at the YAML's shapes on batches collated in
     ``layout`` ('chunked' or 'voxel'): the backbone's kernels at the shapes
     of one real forward and K6-K8 against their twins, the kernels-vs-plain
-    step, ``steps`` counted steps and one evaluate.  Returns the first
-    batch's clouds [B, N, 3]."""
+    step, ``steps`` counted steps and one evaluate.  ``dtype=bfloat16``:
+    the ``votenet bf16`` path, the backbone in the YAML's bf16 (the bf16
+    forms at its forward's shapes).  Returns the first batch's clouds
+    [B, N, 3]."""
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools.workload import votenet_model
 
     vb = make_votenet_batches(device, layout)
-    model = votenet_model(seed=0)
+    model = votenet_model(seed=0, dtype=dtype)
     b = vb[0]
     calls = conv_calls(model.backbone_net.net, b.voxel_feats,
                        lambda m: m(b.voxel_feats, b.voxel_pyramid))
@@ -2521,6 +2854,7 @@ def votenet_path(layout, device, card, paths, steps):
         detect_kernel_checks(b), D,
         exact=("furthest_point_sample", "ball_query", "gather_rows")))
     app = "votenet" if layout == "chunked" else f"votenet {layout}"
+    app += "" if dtype is None else " bf16"
     paths[app] = (res, phase_votenet(vb, device, card, model, app, steps=steps))
     return b.point_clouds[..., 0:3].contiguous()
 
@@ -2554,6 +2888,53 @@ def kernels_line(paths: dict) -> list:
                    for path, (res, counts) in paths.items() if name in res}}
         for name, r in total.items()
     ]
+
+
+def votenet_bf16_spread(seeds) -> int:
+    """The bf16 VoteNet step's loss under summation order alone, the
+    reading BF16_VOTENET_LOSS_RTOL is set from: for each seed (the weights'
+    and the scenes') and each of its two batches, one step through the
+    kernels (its FPS picks and ball-query groups recorded), the plain twins
+    replaying them, the plain twins with gather_gemm_bf16's taps summed in
+    reverse order replaying them, and the plain twins on their own picks.
+    One ``[spread]`` line a batch (the losses' relative differences to the
+    plain step), then a JSON line of their largest values."""
+    import torch
+
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
+    from pointcontrast_tpu_torch.detect.train import DetectConfig
+    from pointcontrast_tpu_torch.tools.workload import votenet_batches, votenet_model
+
+    card = phase_device()
+    phase_build()
+    device = torch.device("cuda", 0)
+    dc = ScannetDatasetConfig()
+    cfg = DetectConfig(checkpoint_dir=os.path.join(BUILD_DIR, "spread_votenet"))
+    top = {"kernels": 0.0, "reversed": 0.0, "no_replay": 0.0}
+    for seed in seeds:
+        model = votenet_model(seed=seed, dtype=torch.bfloat16)
+        for i, batch in enumerate(votenet_batches(device, seed=seed)):
+            picks = []
+            k = _votenet_step_outputs(model, dc, cfg, batch, device, plain=False,
+                                      picks=picks)
+            p = _votenet_step_outputs(model, dc, cfg, batch, device, plain=True,
+                                      picks=picks)
+            r = _votenet_step_outputs(model, dc, cfg, batch, device, plain=True,
+                                      picks=picks, reverse=True)
+            own = _votenet_step_outputs(model, dc, cfg, batch, device, plain=True)
+            rel = {"kernels": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+                   "reversed": abs(r["loss"] - p["loss"]) / abs(p["loss"]),
+                   "no_replay": abs(k["loss"] - own["loss"]) / abs(own["loss"])}
+            for key, v in rel.items():
+                top[key] = max(top[key], v)
+            say("spread", seed=seed, batch=i, loss_plain=f"{p['loss']:.8f}",
+                **{f"{key}_loss_rel": f"{v:.3e}" for key, v in rel.items()},
+                no_replay_flipped={n: int((k["ints"][n] != v).sum())
+                                   for n, v in own["ints"].items()}, card=card)
+    print(json.dumps({"votenet_bf16_loss_rel_max": top, "seeds": list(seeds),
+                      "rtol": BF16_VOTENET_LOSS_RTOL}), flush=True)
+    return 0
 
 
 def scatter_blocks_sweep(multiples) -> int:
@@ -2609,6 +2990,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--scatter-blocks"]:
         return scatter_blocks_sweep([int(m) for m in sys.argv[2].split(",")])
+    if sys.argv[1:2] == ["--votenet-bf16-spread"]:
+        return votenet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     t0 = time.perf_counter()
     card = phase_device()
     import torch
@@ -2623,11 +3006,13 @@ def main() -> int:
     paths = {}  # main path -> (its kernel checks' numbers, its launch counts)
     for layout in ("chunked", "voxel", "brick:2"):
         pretrain_path(layout, device, card, paths)
+    pretrain_path("chunked", device, card, paths, dtype=torch.bfloat16)
     clouds = votenet_path("chunked", device, card, paths, STEPS)
     res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
     paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes
     del clouds
     votenet_path("voxel", device, card, paths, LAYOUT_STEPS)
+    votenet_path("chunked", device, card, paths, STEPS, dtype=torch.bfloat16)
     pbatches = make_pointnet2_batches(device)
     pmodel = votenet_model(seed=0, backbone="pointnet2")
     res = phase_kernels(
@@ -2638,9 +3023,12 @@ def main() -> int:
     phase_boxnet(pbatches, device)
     del pbatches
     phase_cli()
+    phase_cli(sparse=True)
     scenes = semseg_paths(device, card, paths)
     semseg_layout_paths(device, card, paths, scenes)
     phase_cli_semseg()
+    phase_cli_semseg(shipped_dtype=True)
+    phase_cli_semseg("ResUNet18INBN", shipped_dtype=True)
     phase_cli_semseg("MinkUNetHyper14INBN")
     phase_cli_semseg(layout="voxel")
     phase_cli_semseg(layout="brick")

@@ -25,6 +25,7 @@ import torch
 from pointcontrast_tpu_torch.config import (
     load_config,
     maybe_resume_config,
+    net_dtype,
     save_config,
 )
 
@@ -44,6 +45,7 @@ def check_supported(cfg, device: torch.device) -> None:
     from pointcontrast_tpu_torch.nn.resnet import ResNetBase
     from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
     from pointcontrast_tpu_torch.semseg.datasets import load_dataset
+    from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
     load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
     if issubclass(load_model(cfg.net.model), ResNetBase):
@@ -52,11 +54,7 @@ def check_supported(cfg, device: torch.device) -> None:
             "(stride 32), not at the labelled level-0 rows, so it cannot "
             "train semantic segmentation; pick a U-Net (Res16UNet*, ResUNet*, "
             "MinkUNetHyper14INBN)")
-    dtype = str(cfg.net.get("dtype", "float32"))
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"net.dtype={dtype}: the port runs semseg in float32 only (bf16 is "
-            "ROADMAP Queue 1 item 5); pass net.dtype=float32")
+    dtype = net_dtype(cfg)
     requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
     if (requested or visible) > 1:
@@ -79,6 +77,18 @@ def check_supported(cfg, device: torch.device) -> None:
                          "semseg app's datasets are 3D — use BilateralCRF")
     if wrapper not in ("", "BilateralCRF"):
         raise ValueError(f"unknown net.wrapper_type {wrapper!r}")
+    if dtype == torch.bfloat16:
+        # the kernels these run on have no bf16 form yet; never f32 in their place
+        why = ("MinkUNetHyper's average unpools (gather_sum / scatter_sum)"
+               if issubclass(load_model(cfg.net.model), MinkUNetHyper)
+               else f"the {wrapper} filter's flat conv (scatter_gemm)" if wrapper
+               else "the brick layout's convs (brick_gemm / brick_wgrad)"
+               if kind == "brick" else None)
+        if why:
+            raise NotImplementedError(
+                f"net.dtype=bfloat16 with net.model={cfg.net.model} "
+                f"net.wrapper_type={wrapper!r} data.layout={layout}: {why} in bfloat16 "
+                f"is {ITEM_5B}; pass net.dtype=float32")
 
 
 def build_datasets(cfg):
@@ -162,7 +172,7 @@ def main(argv: list[str] | None = None, device=None):
     model = load_model(cfg.net.model)(
         in_channels=3, out_channels=train_ds.num_classes,
         conv1_kernel_size=cfg.net.conv1_kernel_size,
-        bn_momentum=cfg.optimizer.bn_momentum, generator=gen)
+        bn_momentum=cfg.optimizer.bn_momentum, generator=gen, dtype=net_dtype(cfg))
     if crf is not None:
         kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
         model = BilateralCRF(model, train_ds.num_classes, kv,

@@ -24,6 +24,7 @@ import torch
 from pointcontrast_tpu_torch.config import (
     load_config,
     maybe_resume_config,
+    net_dtype,
     save_config,
 )
 
@@ -84,11 +85,17 @@ def check_supported(cfg, device: torch.device) -> None:
             "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
             "distributed.num_devices=1")
     if cfg.net.backbone == "sparseconv":
-        dtype = str(cfg.net.get("dtype", "float32"))
-        if dtype != "float32":
+        from pointcontrast_tpu_torch.nn.registry import load_model
+        from pointcontrast_tpu_torch.nn.resnet import ResNetBase
+        from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
+        from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
+
+        name = cfg.net.get("backbone_model", "Res16UNet34C")
+        if (net_dtype(cfg) == torch.bfloat16
+                and issubclass(load_model(name), (ResNetBase, MinkUNetHyper))):
             raise NotImplementedError(
-                f"net.dtype={dtype}: the sparse-conv backbone runs in float32 "
-                "only (bf16 is ROADMAP Queue 1 item 5); pass net.dtype=float32")
+                f"net.dtype=bfloat16 with net.backbone_model={name}: its pools "
+                f"and k3s2 convs in bfloat16 are {ITEM_5B}; pass net.dtype=float32")
         layout = cfg.data.get("layout", "voxel")
         if layout not in ("chunked", "voxel"):
             raise NotImplementedError(
@@ -189,7 +196,8 @@ def main(argv: list[str] | None = None, device=None):
         num_proposal=cfg.net.num_proposal, vote_factor=cfg.net.vote_factor,
         sampling=cfg.net.cluster_sampling, backbone=cfg.net.backbone,
         backbone_model=cfg.net.get("backbone_model", "Res16UNet34C"),
-        generator=torch.Generator().manual_seed(int(cfg.misc.seed)))
+        generator=torch.Generator().manual_seed(int(cfg.misc.seed)),
+        dtype=net_dtype(cfg) if cfg.net.backbone == "sparseconv" else None)
     tcfg = DetectConfig(
         learning_rate=cfg.optimizer.learning_rate,
         weight_decay=cfg.optimizer.weight_decay,

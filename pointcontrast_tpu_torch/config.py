@@ -100,3 +100,15 @@ def maybe_resume_config(out_dir: str, cfg: Config) -> Config:
     if os.path.exists(snap):
         return load_config(snap)
     return cfg
+
+
+def net_dtype(cfg: Config):
+    """``net.dtype`` as a torch dtype: float32 (the parity mode) or
+    bfloat16 (the shipped YAMLs' mixed precision: bf16 activations, f32
+    parameters, norm statistics, losses and, in VoteNet, heads)."""
+    import torch
+
+    name = str(cfg.net.get("dtype", "float32"))
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"net.dtype={name}: float32 or bfloat16")
+    return getattr(torch, name)

@@ -52,11 +52,30 @@
 // the one destination many fine rows name, and stores every other row
 // once, with no atomic.  Each C entry returns cudaGetLastError() of its
 // launch.
+//
+// bf16 forms (JAX's bf16 mode, pointcontrast_tpu/sparse/ops.py:376-414,
+// :650-684, :768-840: bf16 x bf16 products with f32 sums, one rounding):
+// gather_gemm, gather_wgrad, parent_gemm and scatter_parent are templated
+// on their element types, the f32 instances as they were.  A bf16 form
+// stages bf16 rows and weights through the same cp.async ring (16-byte
+// copies of 8 values where the width is a multiple of 8 and the table
+// aligned, plain 2-byte loads otherwise: the stem's Cin = 3 rows are only
+// 2-byte aligned), widens them in registers as it reads them (exact) and
+// runs the f32 FMAs on the SIMT pipes; an output is rounded to bf16 once,
+// after its f32 sum (split partials stay f32 in ws; the last block rounds
+// their sum).  gather_wgrad takes a bf16 A with a bf16 or an f32 G (K3's
+// dW against the f32 scatter dy) and writes f32; scatter_parent widens a
+// bf16 cotangent into the f32 dy.  What bounds them is what bounds the
+// f32 forms (f32 SIMT issue on the live pairs; scatter_parent HBM bytes);
+// against the bf16 tensor cores' 989 TFLOP/s they run at a few percent:
+// mma.sync / wgmma bf16 -> f32 is the next redesign.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "row_groups.cuh"
 
@@ -145,6 +164,44 @@ __device__ __forceinline__ void store4(float* row, int n, int C, bool vec, const
   if (n + 3 < C) row[n + 3] = v.w;
 }
 
+// bf16 forms: a row of n bf16 values, and 4 of them to or from float4.
+// bf16 -> f32 is exact (the 16 bits move to the top of the word);
+// f32 -> bf16 rounds to nearest even (__float2bfloat16_rn), once per output.
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float bf_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// 4 consecutive values as f32: one 16-byte load of f32, one 8-byte load of
+// bf16 (shared or global memory, 16- or 8-byte aligned).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+}
+
+__device__ __forceinline__ void store4(bf16* row, int n, int C, bool vec, const float4& v) {
+  if (vec) {  // C % 4 == 0: 8-byte stores
+    if (n < C) {
+      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(row + n);
+      d[0] = __floats2bfloat162_rn(v.x, v.y);
+      d[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+    return;
+  }
+  if (n < C) row[n] = __float2bfloat16_rn(v.x);
+  if (n + 1 < C) row[n + 1] = __float2bfloat16_rn(v.y);
+  if (n + 2 < C) row[n + 2] = __float2bfloat16_rn(v.z);
+  if (n + 3 < C) row[n + 3] = __float2bfloat16_rn(v.w);
+}
+
+__device__ __forceinline__ bf16 bf16_zero() { return __ushort_as_bfloat16((unsigned short)0); }
+
 __device__ __forceinline__ float4 load4_cg(const float* row, int n, int C, bool vec) {
   if (vec) return __ldcg(reinterpret_cast<const float4*>(row + n));
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -215,31 +272,47 @@ inline int q_for(int Cout) {
   return best;
 }
 
-inline size_t smem_bytes(int Q, int per) {
-  return sizeof(float) * STAGES * (BM * BK + BK * 32 * Q) +
+// element size: 4 (f32) or 2 (the bf16 forms: the tiles hold bf16, half
+// the bytes, and the FMAs run in f32 on values widened as they are read)
+inline size_t smem_bytes(int Q, int per, int esize = 4) {
+  return (size_t)esize * STAGES * (BM * BK + BK * 32 * Q) +
          sizeof(int) * (per * BM + per * BALLOTS + per + 1 + BM);
 }
 }  // namespace gg
 
+// The offset (in elements) of the 4 depths 4 k4 .. 4 k4 + 3 of a tile row
+// whose swizzle is `sw`: f32 rows are 8 16-byte chunks, the chunk index
+// XOR sw; bf16 rows are 4 16-byte chunks of 8 values, the chunk XOR sw % 4
+// (a warp's 4 distinct rows then read 4 distinct 8-byte words of one
+// 64-byte span: no bank conflict).
+template <typename T>
+__device__ __forceinline__ int gg_swz(int k4, int sw) {
+  if constexpr (is_bf16<T>) {
+    return (((k4 >> 1) ^ (sw & 3)) << 3) + ((k4 & 1) << 2);
+  } else {
+    return (k4 ^ sw) << 2;
+  }
+}
+
 // One step's products: the thread's 4 rows (shared-memory row tile `as`,
 // 16-byte chunks swizzled by `sw`) times its 4Q columns of the weight tile
-// `bs`, over the 32-deep chunk.  The zero-filled depth past a ragged Cin is
-// multiplied too, so the unrolled loop holds no branch.
-template <int Q>
-__device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const float* as,
-                                       const float* bs, int sw) {
+// `bs`, over the 32-deep chunk, in f32 (bf16 tiles are widened as read:
+// bf16 x bf16 products are exact in f32).  The zero-filled depth past a
+// ragged Cin is multiplied too, so the unrolled loop holds no branch.
+template <int Q, typename T = float>
+__device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const T* as,
+                                       const T* bs, int sw) {
   constexpr int BK = gg::BK, BN = 32 * Q;
 #pragma unroll
   for (int k4 = 0; k4 < BK / 4; ++k4) {
     float4 a[gg::TM];
 #pragma unroll
-    for (int i = 0; i < gg::TM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(as + i * BK + ((k4 ^ sw) << 2));
+    for (int i = 0; i < gg::TM; ++i) a[i] = ld4(as + i * BK + gg_swz<T>(k4, sw));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
-        const float4 w = *reinterpret_cast<const float4*>(bs + (4 * k4 + kk) * BN + 32 * q);
+        const float4 w = ld4(bs + (4 * k4 + kk) * BN + 32 * q);
 #pragma unroll
         for (int i = 0; i < gg::TM; ++i) fma4(acc[i][q], lane_of(a[i], kk), w);
       }
@@ -251,12 +324,41 @@ __device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const float* as
 // depth k0 (zero-filled where row(m) < 0 and past Cin), by 16-byte cp.async
 // (4-byte where Cin % 4 != 0 or Xb is unaligned), the 16-byte chunks of row
 // m at index XOR (m / 4) % 8.  scatter_gemm stages its W[j]^T tile this way
-// too, with ROWS = 32 Q rows of W[j].
-template <int ROWS = gg::BM, typename RowOf>
-__device__ __forceinline__ void gg_load_rows(float* as, const float* Xb, RowOf row, int k0,
+// too, with ROWS = 32 Q rows of W[j].  bf16 rows: 16-byte cp.async of 8
+// values where Cin % 8 == 0 and Xb is aligned, the chunk at index XOR
+// (m / 4) % 4; else plain 2-byte loads and stores (a row of odd Cin, such
+// as the stem's Cin = 3, is only 2-byte aligned), finished before the
+// step's barrier like the copies.
+template <int ROWS = gg::BM, typename T, typename RowOf>
+__device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int k0,
                                              int Cin, int vec_x, int tid) {
   constexpr int BM = ROWS, BK = gg::BK, THREADS = gg::THREADS;
-  static_assert(BM * BK % (4 * THREADS) == 0, "whole 16-byte chunks a thread");
+  static_assert(BM * BK % ((is_bf16<T> ? 8 : 4) * THREADS) == 0,
+                "whole 16-byte chunks a thread");
+  if constexpr (is_bf16<T>) {
+    if (vec_x) {
+#pragma unroll
+      for (int u = 0; u < BM * BK / 8 / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        const int m = e >> 2, c = e & 3;
+        const int r = row(m);
+        const bool ok = r >= 0 && k0 + 8 * c < Cin;
+        cp_async16(as + m * BK + ((c ^ ((m >> 2) & 3)) << 3),
+                   ok ? Xb + (int64_t)r * Cin + k0 + 8 * c : Xb, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < BM * BK / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        const int m = e >> 5, k = e & 31;
+        const int r = row(m);
+        const bool ok = r >= 0 && k0 + k < Cin;
+        as[m * BK + (((k >> 3) ^ ((m >> 2) & 3)) << 3) + (k & 7)] =
+            ok ? Xb[(int64_t)r * Cin + k0 + k] : bf16_zero();
+      }
+    }
+    return;
+  }
   if (vec_x) {
 #pragma unroll
     for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
@@ -281,11 +383,32 @@ __device__ __forceinline__ void gg_load_rows(float* as, const float* Xb, RowOf r
 }
 
 // Stage a step's weight tile: `bs` [BK][32 Q] is Wt [Cin][Cout] at (k0, n0),
-// zero-filled past Cin and Cout, by 16-byte cp.async (4-byte unless vec_w).
-template <int Q>
-__device__ __forceinline__ void gg_load_w(float* bs, const float* Wt, int k0, int n0,
+// zero-filled past Cin and Cout, by 16-byte cp.async (4-byte unless vec_w;
+// bf16: 16-byte copies of 8 values where vec_w, else plain 2-byte loads).
+template <int Q, typename T = float>
+__device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
                                           int Cin, int Cout, int vec_w, int tid) {
   constexpr int BN = 32 * Q, THREADS = gg::THREADS;
+  if constexpr (is_bf16<T>) {
+    if (vec_w) {
+      for (int e = tid; e < gg::BK * BN / 8; e += THREADS) {
+        const int kk = e / (BN / 8), c = e % (BN / 8);
+        const int n = n0 + 8 * c;
+        const bool ok = k0 + kk < Cin && n < Cout;
+        cp_async16(bs + kk * BN + 8 * c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < 4 * Q; ++u) {
+        const int e = tid + u * THREADS;
+        const int kk = e / BN, c = e % BN;
+        const int n = n0 + c;
+        const bool ok = k0 + kk < Cin && n < Cout;
+        bs[kk * BN + c] = ok ? Wt[(int64_t)(k0 + kk) * Cout + n] : bf16_zero();
+      }
+    }
+    return;
+  }
   if (vec_w) {
 #pragma unroll
     for (int u = 0; u < Q; ++u) {  // BK * BN / 4 / THREADS
@@ -307,19 +430,19 @@ __device__ __forceinline__ void gg_load_w(float* bs, const float* Wt, int k0, in
   }
 }
 
-template <int Q>
+template <int Q, typename T>
 __global__ void __launch_bounds__(gg::THREADS, 2)
-gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
+gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
                    const __grid_constant__ TapList taps, int tap_stride, int G,
-                   const float* __restrict__ W, const float* __restrict__ Wc,
-                   const int* __restrict__ order, float* __restrict__ out,
+                   const T* __restrict__ W, const T* __restrict__ Wc,
+                   const int* __restrict__ order, T* __restrict__ out,
                    float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
                    int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
   constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
   constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                   // [STAGES][BM][BK]
-  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BK][BN]
+  T* As = reinterpret_cast<T*>(smem);                 // [STAGES][BM][BK]
+  T* Bs = As + STAGES * BM * BK;                      // [STAGES][BK][BN]
   const int ntap = G + (Wc != nullptr ? 1 : 0);       // tap G: the centre
   const int per = (ntap + splits - 1) / splits;
   int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
@@ -332,7 +455,7 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
   const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
   const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
-  const float* Xb = X + (int64_t)b * S_in * Cin;
+  const T* Xb = X + (int64_t)b * S_in * Cin;
 
   // prologue: the tile's rows, every row of every tap of this split, and
   // which are live
@@ -373,8 +496,8 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
     const int* rt = rows + t * BM;
     gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin, vec_x, tid);
     const int j = t_lo + t;
-    gg_load_w<Q>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout, k0, n0, Cin,
-                 Cout, vec_w, tid);
+    gg_load_w<Q, T>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout, k0, n0, Cin,
+                    Cout, vec_w, tid);
   };
 
   float4 acc[TM][Q];
@@ -400,23 +523,43 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
     const int t = live[1 + step / kchunks];
     if (((ball[t * BALLOTS + (warp >> 1)] >> (16 * (warp & 1))) & 0xffffu) == 0)
       continue;  // this warp's 16 rows gather nothing at this tap
-    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
-              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+    gg_mma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+                 Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
 
+  // one split: the f32 sums (bf16: rounded once); several: f32 partials in ws
   const bool vec_o = Cout % 4 == 0;
-  float* dst = splits == 1 ? out : ws + (int64_t)sp * B * S_out * Cout;
+  if constexpr (is_bf16<T>) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int s = srow[4 * ty + i];
-    if (s < 0) continue;
-    float* row = dst + ((int64_t)b * S_out + s) * Cout;
+    for (int i = 0; i < TM; ++i) {
+      const int s = srow[4 * ty + i];
+      if (s < 0) continue;
+      const int64_t off = ((int64_t)b * S_out + s) * Cout;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
+      for (int q = 0; q < Q; ++q) {
+        if (splits == 1) {
+          store4(out + off, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
+        } else {
+          store4(ws + (int64_t)sp * B * S_out * Cout + off, n0 + 4 * tx + 32 * q, Cout,
+                 vec_o, acc[i][q]);
+        }
+      }
+    }
+  } else {
+    float* dst = splits == 1 ? out : ws + (int64_t)sp * B * S_out * Cout;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int s = srow[4 * ty + i];
+      if (s < 0) continue;
+      float* row = dst + ((int64_t)b * S_out + s) * Cout;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
+    }
   }
   if (splits == 1) return;
-  // the tile's last block adds the splits' partials in split order
+  // the tile's last block adds the splits' partials in split order (f32)
+  // and rounds the sum once
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -489,8 +632,18 @@ inline void qs_for(int Ca, int Cg, int* qa, int* qg) {
   }
 }
 
-inline size_t smem_bytes(int qa, int qg) {
-  return sizeof(float) * STAGES * ROWS * 32 * (qa + qg) + sizeof(int) * (2 * CHUNK + 32);
+// The bytes before the pair lists: the stage ring of A's and G's row tiles
+// (ea, eg: their element sizes, 4 for f32, 2 for bf16), which gw_finish
+// reuses for the row groups' tiles (a bf16 ring can be the smaller).
+__host__ __device__ constexpr size_t tile_bytes(int qa, int qg, int ea = 4, int eg = 4) {
+  return (size_t)STAGES * ROWS * 32 * (qa * ea + qg * eg) >
+                 sizeof(float) * (GROUPS - 1) * 16 * qa * qg * 64
+             ? (size_t)STAGES * ROWS * 32 * (qa * ea + qg * eg)
+             : sizeof(float) * (GROUPS - 1) * 16 * qa * qg * 64;
+}
+
+inline size_t smem_bytes(int qa, int qg, int ea = 4, int eg = 4) {
+  return tile_bytes(qa, qg, ea, eg) + sizeof(int) * (2 * CHUNK + 32);
 }
 }  // namespace gw
 
@@ -521,24 +674,54 @@ __device__ __forceinline__ int gw_append(bool ok, int ra, int rg, int* pa, int* 
 // QA)) times G's row pg[p] (g0 + [0, 32 QG)), added into each thread's
 // tile.  The rows arrive by cp.async in the 3-stage ring at `smem`, 32
 // pairs a stage; on return the ring and the pair list are free.
-template <int QA, int QG>
+// Stage pairs [st ROWS, st ROWS + ROWS) of a bf16 operand's rows: tile row
+// i is row p[st ROWS + i] of M at channels c0 + [0, TW), zero-filled past
+// n and C; 16-byte cp.async of 8 values where `vec` (C % 8 == 0, M
+// aligned), else plain 2-byte loads (odd C rows are only 2-byte aligned).
+template <int TW>
+__device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, int n,
+                                             const bf16* __restrict__ M, int C, int c0,
+                                             int vec, int tid) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS;
+  if (vec) {
+    for (int e = tid; e < ROWS * TW / 8; e += THREADS) {
+      const int i = e / (TW / 8), c = e % (TW / 8);
+      const int q = st * ROWS + i;
+      const bool ok = q < n && c0 + 8 * c < C;
+      cp_async16(tile + i * TW + 8 * c, ok ? M + (int64_t)p[q] * C + c0 + 8 * c : M, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < ROWS * TW / THREADS; ++u) {
+      const int e = tid + u * THREADS;
+      const int i = e / TW, c = e % TW;
+      const int q = st * ROWS + i;
+      const bool ok = q < n && c0 + c < C;
+      tile[i * TW + c] = ok ? M[(int64_t)p[q] * C + c0 + c] : bf16_zero();
+    }
+  }
+}
+
+template <int QA, int QG, typename TA_ = float, typename TG_ = float>
 __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
                                          const int* pa, const int* pg, int n,
-                                         const float* __restrict__ A, int Ca, int a0,
-                                         const float* __restrict__ Gm, int Cg, int g0,
+                                         const TA_* __restrict__ A, int Ca, int a0,
+                                         const TG_* __restrict__ Gm, int Cg, int g0,
                                          int vec_a, int vec_g, int tid) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
   constexpr int GROUPS = gw::GROUPS;
   constexpr int TA = 32 * QA, TG = 32 * QG;
-  float* As = smem;                     // [STAGES][ROWS][TA]
-  float* Gs = As + STAGES * ROWS * TA;  // [STAGES][ROWS][TG]
+  TA_* As = reinterpret_cast<TA_*>(smem);                        // [STAGES][ROWS][TA]
+  TG_* Gs = reinterpret_cast<TG_*>(As + STAGES * ROWS * TA);     // [STAGES][ROWS][TG]
   const int grp = tid >> 6, gt = tid & 63;
   const int ta = gt >> 3, tg = gt & 7;
   const int nst = (n + ROWS - 1) / ROWS;
   auto load = [&](int st, int buf) {
-    float* as = As + buf * ROWS * TA;
-    float* gs = Gs + buf * ROWS * TG;
-    if (vec_a) {
+    TA_* as = As + buf * ROWS * TA;
+    TG_* gs = Gs + buf * ROWS * TG;
+    if constexpr (is_bf16<TA_>) {
+      gw_load_bf16<TA>(as, pa, st, n, A, Ca, a0, vec_a, tid);
+    } else if (vec_a) {
 #pragma unroll
       for (int u = 0; u < QA; ++u) {  // ROWS * TA / 4 / THREADS
         const int e = tid + u * THREADS;
@@ -557,7 +740,9 @@ __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
         cp_async4(as + i * TA + c, ok ? A + (int64_t)pa[p] * Ca + a0 + c : A, ok);
       }
     }
-    if (vec_g) {
+    if constexpr (is_bf16<TG_>) {
+      gw_load_bf16<TG>(gs, pg, st, n, Gm, Cg, g0, vec_g, tid);
+    } else if (vec_g) {
 #pragma unroll
       for (int u = 0; u < QG; ++u) {
         const int e = tid + u * THREADS;
@@ -591,19 +776,17 @@ __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
       cp_async_commit();
     }
     const int here = min(ROWS, n - st * ROWS);
-    const float* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
-    const float* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
+    const TA_* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
+    const TG_* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
 #pragma unroll
     for (int u = 0; u < ROWS / GROUPS; ++u) {
       const int i = grp + GROUPS * u;
       if (i >= here) break;
       float4 av[QA], gv[QG];
 #pragma unroll
-      for (int p = 0; p < QA; ++p)
-        av[p] = *reinterpret_cast<const float4*>(as + i * TA + 32 * p);
+      for (int p = 0; p < QA; ++p) av[p] = ld4(as + i * TA + 32 * p);
 #pragma unroll
-      for (int q = 0; q < QG; ++q)
-        gv[q] = *reinterpret_cast<const float4*>(gs + i * TG + 32 * q);
+      for (int q = 0; q < QG; ++q) gv[q] = ld4(gs + i * TG + 32 * q);
 #pragma unroll
       for (int p = 0; p < QA; ++p)
 #pragma unroll
@@ -696,20 +879,21 @@ __device__ __forceinline__ void gw_finish(float4 (&acc)[QA][4][QG], float* smem,
   }
 }
 
-template <int QA, int QG>
+template <int QA, int QG, typename TA_, typename TG_>
 __global__ void __launch_bounds__(gw::THREADS, 2)
-gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
+gather_wgrad_kernel(const TA_* __restrict__ A, const int* __restrict__ a_map,
                     const __grid_constant__ TapList a_taps, int a_stride, int Sa,
-                    int Ca, int skip_a, const float* __restrict__ Gm,
+                    int Ca, int skip_a, const TG_* __restrict__ Gm,
                     const int* __restrict__ g_map, const __grid_constant__ TapList g_taps,
                     int g_stride, int Sg, int Cg, int skip_g, float* __restrict__ dW,
                     float* __restrict__ ws, int* __restrict__ tickets, int B, int S,
                     int rows_per_block, int vec_a, int vec_g) {
-  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int THREADS = gw::THREADS;
   constexpr int CHUNK = gw::CHUNK;
   constexpr int TA = 32 * QA, TG = 32 * QG;
+  constexpr size_t TILES = gw::tile_bytes(QA, QG, sizeof(TA_), sizeof(TG_));
   extern __shared__ __align__(16) float smem[];
-  int* pa = reinterpret_cast<int*>(smem + STAGES * ROWS * (TA + TG));  // [CHUNK] A rows
+  int* pa = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) + TILES);  // [CHUNK]
   int* pg = pa + CHUNK;                                                // [CHUNK] G rows
   int* wcount = pg + CHUNK;                                            // [2][8], flag
 
@@ -748,7 +932,8 @@ gather_wgrad_kernel(const float* __restrict__ A, const int* __restrict__ a_map,
       n += gw_append(ok, ra, rg, pa, pg, wcount + 8 * (it & 1), n, lane, warp);
     }
     __syncthreads();
-    gw_pairs<QA, QG>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g, tid);
+    gw_pairs<QA, QG, TA_, TG_>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g,
+                               tid);
   }
   gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Ca, Cg, a0, g0, tid);
 }
@@ -788,23 +973,23 @@ namespace pg {
 constexpr int KO = 8;  // offsets of a k2s2 kernel (2^3)
 constexpr int FRAGS = gg::BM / 16;
 
-inline size_t smem_bytes(int Q) {
-  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+inline size_t smem_bytes(int Q, int esize = 4) {
+  return (size_t)esize * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
          sizeof(int) * (3 * gg::BM + FRAGS + KO + 2);
 }
 }  // namespace pg
 
-template <int Q>
+template <int Q, typename T>
 __global__ void __launch_bounds__(gg::THREADS, 2)
-parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
-                   const int* __restrict__ off, const float* __restrict__ W,
-                   const int* __restrict__ order, float* __restrict__ out, int splits,
+parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
+                   const int* __restrict__ off, const T* __restrict__ W,
+                   const int* __restrict__ order, T* __restrict__ out, int splits,
                    int S_c, int S_f, int Cin, int Cout, int skip, int vec_x, int vec_w) {
   constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
   constexpr int TM = gg::TM, BN = 32 * Q, KO = pg::KO, FRAGS = pg::FRAGS;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                           // [STAGES][BM][BK]
-  float* Bs = As + STAGES * BM * BK;                          // [STAGES][BK][BN]
+  T* As = reinterpret_cast<T*>(smem);                         // [STAGES][BM][BK]
+  T* Bs = As + STAGES * BM * BK;                              // [STAGES][BK][BN]
   int* prow = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [BM] parent, -1: none
   int* poff = prow + BM;                                      // [BM] offset
   int* srow = poff + BM;                                      // [BM] output row, -1 past S_f
@@ -815,7 +1000,7 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
   const int tx = tid & 7, ty = tid >> 3;
   const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const float* Xb = X + (int64_t)b * S_c * Cin;
+  const T* Xb = X + (int64_t)b * S_c * Cin;
 
   if (tid < BM) {  // whole warps
     const int e = s0 + tid;
@@ -860,8 +1045,8 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
     const int k0 = (step % kchunks) * BK;
     gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return poff[m] == o ? prow[m] : -1; },
                  k0, Cin, vec_x, tid);
-    gg_load_w<Q>(Bs + buf * BK * BN, W + (int64_t)o * Cin * Cout, k0, n0, Cin, Cout, vec_w,
-                 tid);
+    gg_load_w<Q, T>(Bs + buf * BK * BN, W + (int64_t)o * Cin * Cout, k0, n0, Cin, Cout,
+                    vec_w, tid);
   };
 
   float4 acc[TM][Q];
@@ -886,8 +1071,8 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
       cp_async_commit();
     }
     if (!((mine >> offs[1 + step / kchunks]) & 1u)) continue;  // no row of this offset
-    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
-              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+    gg_mma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+                 Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
 
@@ -899,7 +1084,7 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
     const int m = 4 * ty + i;
     const int s = srow[m];
     if (s < 0 || (prow[m] >= 0 ? !((own >> poff[m]) & 1u) : sp != 0)) continue;
-    float* row = out + ((int64_t)b * S_f + s) * Cout;
+    T* row = out + ((int64_t)b * S_f + s) * Cout;
 #pragma unroll
     for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
   }
@@ -923,9 +1108,9 @@ parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
 // and one write of each kept row.  No division, 32-bit offsets (the
 // wrapper refuses B S_f C or B 8 S_c C of 2^31 or more).
 // grid (ceil(S_f / (256 / G)), B), one fine row a group: no cap.
-template <int G, bool VEC>
+template <int G, bool VEC, typename T>
 __global__ void __launch_bounds__(256)
-scatter_parent_kernel(const float* __restrict__ ct,
+scatter_parent_kernel(const T* __restrict__ ct,
                       const int* __restrict__ parent,
                       const int* __restrict__ off, float* __restrict__ dy,
                       int S_f, int S_c, int C) {
@@ -942,9 +1127,21 @@ scatter_parent_kernel(const float* __restrict__ ct,
   p = row_groups::shfl<G>(p, 0);
   o = row_groups::shfl<G>(o, 0);
   if (p == S_c - 1) return;  // the pad slot: left out
-  const float* src = ct + row * C;
+  const T* src = ct + row * C;
   float* dst = dy + ((b * pg::KO + o) * S_c + p) * C;
-  if constexpr (VEC) {
+  if constexpr (is_bf16<T>) {  // widened to f32 (exact) as it is stored
+    if constexpr (VEC) {
+      float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll 4
+      for (int u = lane; u < C / 4; u += G) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(src) + u);
+        d4[u] = make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+      }
+    } else {
+#pragma unroll 4
+      for (int c = lane; c < C; c += G) dst[c] = __bfloat162float(src[c]);
+    }
+  } else if constexpr (VEC) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
 #pragma unroll 4
@@ -1915,29 +2112,40 @@ extern "C" {
 int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
                    int G, const void* W, const void* Wc, const void* order, void* out, void* ws,
                    void* tickets, int splits, int B, int S_in, int S_out, int Cin,
-                   int Cout, int skip, void* stream) {
+                   int Cout, int skip, int bf16_, void* stream) {
   const int q = gg::q_for(Cout);
   const int ntap = G + (Wc != nullptr ? 1 : 0);
-  const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits);
-  const int vec_x = Cin % 4 == 0 && aligned16(X);
-  const int vec_w = Cout % 4 == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
+  const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits, bf16_ ? 2 : 4);
+  // 16-byte copies: 4 f32 or 8 bf16 a chunk
+  const int vec = bf16_ ? 8 : 4;
+  const int vec_x = Cin % vec == 0 && aligned16(X);
+  const int vec_w = Cout % vec == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
   const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[q]) {
+  static size_t granted[8] = {};  // dynamic shared memory allowed so far, by Q and type
+  auto go = [&](auto kernel, auto t) {
+    using T = decltype(t);
+    if (smem > 48 * 1024 && smem > granted[4 * bf16_ + q]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[q] = smem;
+      granted[4 * bf16_ + q] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)map, taps, tap_stride, G, (const float*)W,
-        (const float*)Wc, (const int*)order, (float*)out, (float*)ws, (int*)tickets, splits,
+        (const T*)X, (const int*)map, taps, tap_stride, G, (const T*)W,
+        (const T*)Wc, (const int*)order, (T*)out, (float*)ws, (int*)tickets, splits,
         B, S_in, S_out,
         Cin, Cout, skip, vec_x, vec_w);
   };
-  switch (q) {
-    case 1: go(gather_gemm_kernel<1>); break;
-    case 2: go(gather_gemm_kernel<2>); break;
-    default: go(gather_gemm_kernel<3>); break;
+  if (bf16_) {
+    switch (q) {
+      case 1: go(gather_gemm_kernel<1, bf16>, bf16()); break;
+      case 2: go(gather_gemm_kernel<2, bf16>, bf16()); break;
+      default: go(gather_gemm_kernel<3, bf16>, bf16()); break;
+    }
+  } else {
+    switch (q) {
+      case 1: go(gather_gemm_kernel<1, float>, 0.f); break;
+      case 2: go(gather_gemm_kernel<2, float>, 0.f); break;
+      default: go(gather_gemm_kernel<3, float>, 0.f); break;
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1945,37 +2153,55 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
 // gather_gemm's Cout tile for Cout channels (the wrapper sizes its split)
 int pc_gather_gemm_tile_n(int Cout) { return 32 * gg::q_for(Cout); }
 
+// a_bf16 / g_bf16: the element type of A and of G (f32 / f32, bf16 / bf16,
+// or bf16 / f32: K3's dW, the features against the f32 scatter dy)
 int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stride,
                     int Sa, int Ca, int skip_a, const void* Gm, const void* g_map,
                     TapList g_taps, int g_stride, int Sg, int Cg, int skip_g, void* dW,
                     void* ws, void* tickets, int K, int B, int S, int rows_per_block,
-                    void* stream) {
+                    int a_bf16, int g_bf16, void* stream) {
   int qa, qg;
   gw::qs_for(Ca, Cg, &qa, &qg);
   const int tiles = ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
   const int slices = (int)(((int64_t)B * S + rows_per_block - 1) / rows_per_block);
-  const size_t smem = gw::smem_bytes(qa, qg);
-  const int vec_a = Ca % 4 == 0 && aligned16(A);
-  const int vec_g = Cg % 4 == 0 && aligned16(Gm);
+  const int types = a_bf16 ? (g_bf16 ? 1 : 2) : 0;  // f32/f32, bf16/bf16, bf16/f32
+  if (!a_bf16 && g_bf16) return (int)cudaErrorInvalidValue;
+  const size_t smem = gw::smem_bytes(qa, qg, a_bf16 ? 2 : 4, g_bf16 ? 2 : 4);
+  const int vec_a = Ca % (a_bf16 ? 8 : 4) == 0 && aligned16(A);
+  const int vec_g = Cg % (g_bf16 ? 8 : 4) == 0 && aligned16(Gm);
   const dim3 grid(tiles, K, slices);
-  static size_t granted[16] = {};  // by 4 qa + qg
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[4 * qa + qg]) {
+  static size_t granted[48] = {};  // by types, 4 qa + qg
+  auto go = [&](auto kernel, auto ta, auto tg) {
+    using TA = decltype(ta);
+    using TG = decltype(tg);
+    const int slot = 16 * types + 4 * qa + qg;
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[4 * qa + qg] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)A, (const int*)a_map, a_taps, a_stride, Sa, Ca, skip_a,
-        (const float*)Gm, (const int*)g_map, g_taps, g_stride, Sg, Cg, skip_g,
+        (const TA*)A, (const int*)a_map, a_taps, a_stride, Sa, Ca, skip_a,
+        (const TG*)Gm, (const int*)g_map, g_taps, g_stride, Sg, Cg, skip_g,
         (float*)dW, (float*)ws, (int*)tickets, B, S, rows_per_block, vec_a, vec_g);
   };
-  switch (4 * qa + qg) {
-    case 5: go(gather_wgrad_kernel<1, 1>); break;
-    case 6: go(gather_wgrad_kernel<1, 2>); break;
-    case 7: go(gather_wgrad_kernel<1, 3>); break;
-    case 9: go(gather_wgrad_kernel<2, 1>); break;
-    case 10: go(gather_wgrad_kernel<2, 2>); break;
-    default: go(gather_wgrad_kernel<3, 1>); break;
+  auto by_q = [&](auto ta, auto tg) {
+    using TA = decltype(ta);
+    using TG = decltype(tg);
+    switch (4 * qa + qg) {
+      case 5: go(gather_wgrad_kernel<1, 1, TA, TG>, ta, tg); break;
+      case 6: go(gather_wgrad_kernel<1, 2, TA, TG>, ta, tg); break;
+      case 7: go(gather_wgrad_kernel<1, 3, TA, TG>, ta, tg); break;
+      case 9: go(gather_wgrad_kernel<2, 1, TA, TG>, ta, tg); break;
+      case 10: go(gather_wgrad_kernel<2, 2, TA, TG>, ta, tg); break;
+      default: go(gather_wgrad_kernel<3, 1, TA, TG>, ta, tg); break;
+    }
+  };
+  if (types == 0) {
+    by_q(0.f, 0.f);
+  } else if (types == 1) {
+    by_q(bf16(), bf16());
+  } else {
+    by_q(bf16(), 0.f);
   }
   return (int)cudaGetLastError();
 }
@@ -1990,40 +2216,56 @@ int pc_gather_wgrad_tiles(int Ca, int Cg) {
 
 int pc_parent_gemm(const void* X, const void* parent, const void* off, const void* W,
                    const void* order, void* out, int B, int S_c, int S_f, int Cin,
-                   int Cout, int skip, int splits, void* stream) {
+                   int Cout, int skip, int splits, int bf16_, void* stream) {
   const int q = gg::q_for(Cout);
-  const size_t smem = pg::smem_bytes(q);
-  const int vec_x = Cin % 4 == 0 && aligned16(X);
-  const int vec_w = Cout % 4 == 0 && aligned16(W);
+  const size_t smem = pg::smem_bytes(q, bf16_ ? 2 : 4);
+  const int vec = bf16_ ? 8 : 4;
+  const int vec_x = Cin % vec == 0 && aligned16(X);
+  const int vec_w = Cout % vec == 0 && aligned16(W);
   const dim3 grid((S_f + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[q]) {
+  static size_t granted[8] = {};  // dynamic shared memory allowed so far, by Q and type
+  auto go = [&](auto kernel, auto t) {
+    using T = decltype(t);
+    if (smem > 48 * 1024 && smem > granted[4 * bf16_ + q]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[q] = smem;
+      granted[4 * bf16_ + q] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)parent, (const int*)off, (const float*)W,
-        (const int*)order, (float*)out, splits, S_c, S_f, Cin, Cout, skip, vec_x, vec_w);
+        (const T*)X, (const int*)parent, (const int*)off, (const T*)W,
+        (const int*)order, (T*)out, splits, S_c, S_f, Cin, Cout, skip, vec_x, vec_w);
   };
-  switch (q) {
-    case 1: go(parent_gemm_kernel<1>); break;
-    case 2: go(parent_gemm_kernel<2>); break;
-    default: go(parent_gemm_kernel<3>); break;
+  if (bf16_) {
+    switch (q) {
+      case 1: go(parent_gemm_kernel<1, bf16>, bf16()); break;
+      case 2: go(parent_gemm_kernel<2, bf16>, bf16()); break;
+      default: go(parent_gemm_kernel<3, bf16>, bf16()); break;
+    }
+  } else {
+    switch (q) {
+      case 1: go(parent_gemm_kernel<1, float>, 0.f); break;
+      case 2: go(parent_gemm_kernel<2, float>, 0.f); break;
+      default: go(parent_gemm_kernel<3, float>, 0.f); break;
+    }
   }
   return (int)cudaGetLastError();
 }
 
+// ct: f32 or (bf16_) bf16 rows; dy f32 either way
 int pc_scatter_parent(const void* ct, const void* parent, const void* off,
-                      void* dy, int B, int S_f, int S_c, int C, void* stream) {
-  const bool vec = C % 4 == 0 && aligned16(ct) && aligned16(dy);
+                      void* dy, int B, int S_f, int S_c, int C, int bf16_, void* stream) {
+  const bool vec = C % 4 == 0 && aligned16(dy) && ((uintptr_t)ct & (bf16_ ? 7 : 15)) == 0;
   row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
     constexpr int G = decltype(G_)::value;
     constexpr bool VEC = decltype(VEC_)::value;
     const dim3 grid((S_f + 256 / G - 1) / (256 / G), B);
-    scatter_parent_kernel<G, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, S_f,
-        S_c, C);
+    if (bf16_) {
+      scatter_parent_kernel<G, VEC, bf16><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const bf16*)ct, (const int*)parent, (const int*)off, (float*)dy, S_f, S_c, C);
+    } else {
+      scatter_parent_kernel<G, VEC, float><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const float*)ct, (const int*)parent, (const int*)off, (float*)dy, S_f,
+          S_c, C);
+    }
   });
   return (int)cudaGetLastError();
 }

@@ -73,23 +73,26 @@ class Pointnet2Backbone(nn.Module):
 
 
 class SparseConvBackbone(nn.Module):
-    """Res16UNet over voxels -> seed features of FPS-sampled points."""
+    """Res16UNet over voxels -> seed features of FPS-sampled points.
+    ``dtype``: the net's activations (bf16: mixed precision, as JAX); the
+    seeds and the heads always take the f32 cast of its output."""
 
     def __init__(self, input_feature_dim: int = 3, output_feature_dim: int = 256,
                  num_seed: int = 1024, model_name: str = "Res16UNet34C",
                  bn_momentum: float = 0.1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_seed = num_seed
         self.net = load_model(model_name)(
             in_channels=input_feature_dim, out_channels=output_feature_dim,
-            bn_momentum=bn_momentum, generator=generator)
+            bn_momentum=bn_momentum, generator=generator, dtype=dtype)
 
     def forward(self, pointcloud, voxel_feats, pyramid, point_voxel_idx,
                 end_points):
         """point_voxel_idx: [B, N] int32 rows of the [B * S_0] voxel table
         (each sample's inside its own slice; checked by DetectionBatch.to)."""
-        vout = self.net(voxel_feats, pyramid)  # [B * S_0, C]
+        vout = self.net(voxel_feats, pyramid).float()  # [B * S_0, C]; heads run f32
         b = point_voxel_idx.shape[0]
         xyz = pointcloud[..., 0:3].contiguous()
         seed_inds = ops.furthest_point_sample(xyz, self.num_seed)
@@ -107,7 +110,8 @@ class VoteNet(nn.Module):
     clustering + proposals (``pnet``).  ``forward(inputs)`` takes the dict
     the JAX module takes: ``point_clouds`` and, for the sparse-conv
     backbone, ``voxel_feats``, ``voxel_pyramid`` and ``point_voxel_idx``;
-    train/eval is the module's mode."""
+    train/eval is the module's mode.  ``dtype`` is the sparse-conv
+    backbone's activation dtype (PointNet++ ignores it, as in JAX)."""
 
     def __init__(self, num_class: int, num_heading_bin: int,
                  num_size_cluster: int, mean_size_arr, input_feature_dim: int = 0,
@@ -115,7 +119,8 @@ class VoteNet(nn.Module):
                  sampling: str = "vote_fps", backbone: str = "pointnet2",
                  backbone_model: str = "Res16UNet34C", use_voting: bool = True,
                  bn_momentum: float = 0.1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         g = generator
         self.backbone = backbone
@@ -128,7 +133,7 @@ class VoteNet(nn.Module):
             self.backbone_net = SparseConvBackbone(
                 input_feature_dim=input_feature_dim + 3, output_feature_dim=256,
                 num_seed=1024, model_name=backbone_model,
-                bn_momentum=bn_momentum, generator=g)
+                bn_momentum=bn_momentum, generator=g, dtype=dtype)
         else:
             raise ValueError(f"unknown backbone {backbone!r}")
         if use_voting:

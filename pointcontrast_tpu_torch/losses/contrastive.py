@@ -25,7 +25,9 @@ def point_info_nce_loss(
     and every other valid sampled key is a negative."""
     q = f0[q_idx]
     k = f1[k_idx]
-    logits = (q @ k.T) / temperature
+    # f32 logits from bf16 features (JAX: preferred_element_type=f32): the
+    # products of the widened rows are exact, the sums f32
+    logits = (q.float() @ k.float().T) / temperature
     # Invalid columns must not act as negatives; invalid rows drop out of the
     # mean. (A padded row's diagonal is also masked, but its row is unused.)
     col_mask = pair_valid[None, :] > 0

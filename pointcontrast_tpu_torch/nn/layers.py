@@ -8,7 +8,12 @@ Conventions, as in the JAX package:
     ``kernel_offsets`` order, linear kernels [Cin, Cout];
   - BatchNorm follows torch semantics: running = (1-m)*running + m*batch,
     with the unbiased batch variance entering the running average
-    (momentum 0.05, the reference pretrain config).
+    (momentum 0.05, the reference pretrain config);
+  - mixed precision, as JAX's ``dtype``: parameters are f32 in every mode,
+    and a layer computes in its input features' dtype (the net's stem
+    casts them), casting its parameters to it at use; the convs and the
+    linear map take bf16 x bf16 products with f32 sums, rounded once; the
+    norms keep their statistics in f32 and cast their output back.
 """
 from __future__ import annotations
 
@@ -43,14 +48,15 @@ class SparseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, features, nbr, valid_out, rev=None, up=None, order=None):
+        w = self.weight.to(features.dtype)
         # the map object decides the layout: same weights, same semantics
         if isinstance(nbr, brick.BrickMap):
-            return brick.brick_conv(features, nbr.nbr, self.weight, nbr.plan,
+            return brick.brick_conv(features, nbr.nbr, w, nbr.plan,
                                     bias=self.bias, valid_out=valid_out, order=nbr.order)
         if isinstance(nbr, brick.BrickDownMap):
-            return brick.brick_down_conv(features, nbr.place, self.weight,
+            return brick.brick_down_conv(features, nbr.place, w,
                                          bias=self.bias, valid_out=valid_out)
-        return ops.sparse_conv(features, nbr, self.weight, bias=self.bias,
+        return ops.sparse_conv(features, nbr, w, bias=self.bias,
                                valid_out=valid_out, rev=rev, up=up, order=order)
 
 
@@ -67,16 +73,20 @@ class SparseConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, features, up_parent, up_offset, valid_out, up_order=None):
+        w = self.weight.to(features.dtype)
         if up_offset is None:  # brick layout: up_parent is the up-gather
-            return brick.brick_up_conv(features, up_parent, self.weight,
+            return brick.brick_up_conv(features, up_parent, w,
                                        bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv_transpose(features, up_parent, up_offset,
-                                         self.weight, bias=self.bias,
+                                         w, bias=self.bias,
                                          valid_out=valid_out, up_order=up_order)
 
 
 class SparseLinear(nn.Module):
-    """1x1 conv == per-voxel linear map (no gather)."""
+    """1x1 conv == per-voxel linear map (no gather).  In bf16, JAX's
+    ``dot(bf16, bf16, preferred_element_type=f32).astype(bf16)``: the
+    product of the widened operands (bf16 x bf16 is exact in f32), one
+    rounding, then the bias in bf16."""
 
     def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
                  generator: torch.Generator | None = None):
@@ -86,9 +96,14 @@ class SparseLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, features, valid):
-        out = features @ self.weight
+        dtype = features.dtype
+        w = self.weight.to(dtype)
+        if dtype == torch.bfloat16:
+            out = (features.float() @ w.float()).to(dtype)
+        else:
+            out = features @ w
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.bias.to(dtype)
         return ops.mask_rows(out, valid)
 
 

@@ -7,7 +7,9 @@ stem conv -> 4x [stride-2 conv + BN + ReLU + residual stage] encoder ->
 (``conv0p1s1``, ``bn0``, ``block1_0``, ``convtr4p16s2``, ``final``, ...),
 so ``tools.from_jax`` is a rename.  Unlike flax, torch fixes channel counts
 at construction, so the constructor tracks them the way the reference's
-``inplanes`` does.
+``inplanes`` does.  ``dtype`` (None: the input features') is the
+activations' dtype, as JAX's: the stem casts the features to it and every
+layer computes in it (bf16: mixed precision; parameters stay f32).
 """
 from __future__ import annotations
 
@@ -38,9 +40,11 @@ class Res16UNetBase(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
                  normalize_feature: bool = False, dimension: int = 3,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.normalize_feature = normalize_feature
+        self.dtype = dtype
         k3, k_up = 3 ** dimension, 2 ** dimension
         g = generator
 
@@ -93,6 +97,7 @@ class Res16UNetBase(nn.Module):
         nb = pyramid.num_batch
         if len(lv) < NUM_LEVELS:
             raise ValueError("Res16UNet needs a 5-level pyramid")
+        features = features.to(self.dtype or features.dtype)
         nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
                               if lv[0].nbr0 is not None
                               else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))

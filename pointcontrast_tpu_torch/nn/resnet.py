@@ -24,6 +24,7 @@ from pointcontrast_tpu_torch.nn.layers import (
 )
 from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock, Bottleneck
 from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
 NUM_LEVELS = 6  # strides 1, 2, 4, 8, 16, 32
 
@@ -86,7 +87,12 @@ class ResNetBase(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
-                 dimension: int = 3, generator: torch.Generator | None = None):
+                 dimension: int = 3, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
+        if dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"{type(self).__name__} in bfloat16: its k3s2 convs (scatter_gemm) and "
+                f"sum pool (gather_sum / scatter_sum) are {ITEM_5B}; run it in float32")
         super().__init__()
         g = generator
         k3 = 3 ** dimension

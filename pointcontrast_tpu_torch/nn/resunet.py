@@ -9,7 +9,10 @@ transpose conv and the last skip concat feeds the final MLP directly.
 Submodules carry the flax names (``conv1p1s1``, ``bn1``, ``block1_0``,
 ``convtr4p8s2``, ``final_fc``, ``final_bn``, ``final``).  ``MinkUNetHyper``
 adds the hypercolumn: block5's and block6's outputs are average-unpooled
-to level 0 and concatenated after the last skip concat.
+to level 0 and concatenated after the last skip concat.  ``dtype`` (None:
+the input features') is the activations' dtype, as in ``res16unet``;
+MinkUNetHyper's unpools have no bf16 kernel yet (ROADMAP Queue 1 item 5b),
+so it refuses bf16.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from pointcontrast_tpu_torch.nn.resnet_block import (
 )
 from pointcontrast_tpu_torch.sparse import ops
 from pointcontrast_tpu_torch.sparse.brick import BrickMap
+from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
 NUM_LEVELS = 4  # strides 1, 2, 4, 8
 
@@ -42,10 +46,12 @@ class MinkUNetBase(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
-                 dimension: int = 3, generator: torch.Generator | None = None):
+                 dimension: int = 3, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         k3, k_up = 3 ** dimension, 2 ** dimension
         g = generator
+        self.dtype = dtype
 
         def stage(name, inplanes, planes, blocks):
             for i in range(blocks):
@@ -98,6 +104,7 @@ class MinkUNetBase(nn.Module):
         nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
                               if lv[0].nbr0 is not None
                               else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))
+        features = features.to(self.dtype or features.dtype)
         out = relu(self.bn1(self.conv1p1s1(features, nbr0, lv[0].valid, rev0,
                                            order=order0), lv[0].valid))
         out = self._stage(out, lv[0], "block1", self.LAYERS[0], nb)
@@ -190,6 +197,13 @@ class MinkUNetHyper(MinkUNetBase):
     """Hypercolumn variant: block5's output (level 2) and block6's (level 1)
     are average-unpooled to level 0, one parent gather per level, and the
     head takes the concatenation [out, up(block6), up(block5)]."""
+
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        if dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"{type(self).__name__} in bfloat16: its average unpools "
+                f"(gather_sum / scatter_sum) are {ITEM_5B}; run it in float32")
+        super().__init__(*args, dtype=dtype, **kwargs)
 
     def _head_extra(self) -> int:
         return (self.PLANES[4] + self.PLANES[5]) * self.BLOCK.expansion

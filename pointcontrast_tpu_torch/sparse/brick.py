@@ -302,6 +302,7 @@ def brick_conv(features: torch.Tensor,  # [NB*2^D, Cin], empty slots zero
     compute the occupied slots (``valid_out``: the level's, which is also
     the source's) from the occupied slots only, tiled in ``order`` (the
     ``BrickMap``'s ``slot_order``; None: the rows' own order)."""
+    kernels.refuse_bf16_5b("brick_conv", features)
     rev = _tap_reversal(plan)
     if rev is None or valid_out is None:
         raise NotImplementedError(
@@ -325,6 +326,7 @@ def brick_down_conv(features: torch.Tensor,  # [NB*2^D, Cin] level-l brick rows
     placement gather re-lays its rows (level-(l+1) voxels) into level
     l+1's bricks, slot-major.  ``place=None``: the rows are the flat next
     level's."""
+    kernels.refuse_bf16_5b("brick_down_conv", features)
     ns, cin, cout = weights.shape
     nb = features.shape[0] // ns
     y = features.reshape(nb, ns * cin) @ weights.reshape(ns * cin, cout)
@@ -350,6 +352,7 @@ def brick_up_conv(features: torch.Tensor,  # [NB_coarse*2^D, Cin] level-(l+1) ro
     coarse level is flat, and its rows already are the fine bricks'.  The
     gather's adjoint leaves out the coarse pad brick's 2^D slots: every
     pad source of the fine level points at its slot 0."""
+    kernels.refuse_bf16_5b("brick_up_conv", features)
     ns, cin, cout = weights.shape
     if up_gather is None:
         g = features

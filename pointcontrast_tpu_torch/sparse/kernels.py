@@ -10,13 +10,24 @@ Each kernel has three things side by side here:
   - ``<name>.launches``: a plain int, +1 per kernel launch (not per plain
     call), so a run can show that its main path went through the kernel.
 
+bf16 forms (``<name>_bf16``, their twins and counters beside the f32
+ones): ``gather_gemm_bf16``, ``gather_wgrad_bf16``, ``parent_gemm_bf16``
+and ``scatter_parent_bf16`` take the bf16 operands of JAX's bf16 mode and
+keep its rounding points: bf16 x bf16 products summed in f32, each output
+rounded once to bf16 (``gather_wgrad_bf16`` writes f32 dW, A bf16 and G
+bf16 or f32; ``scatter_parent_bf16`` an f32 dy).  Their twins gather bf16,
+multiply in f32 and round once.  Every wrapper checks each operand's dtype
+and raises on another (no cast inside a wrapper); the kernels without a
+bf16 form raise ``NotImplementedError`` naming ROADMAP item 5b.
+
 Operand convention (chunked layout): tables are [B, S, C] f32; a gathered
 operand names its rows either through a frame-local map [K, B, S_out] int32
 read at tap ``taps[j]`` (``map_ is not None``) or, for a stacked table,
 as ``j * tap_stride + s``.  ``row_index`` spells that out.
 
 Which JAX op each kernel replaces (all in ``pointcontrast_tpu/sparse/ops.py``,
-custom-VJP XLA programs, except the Pallas probes):
+custom-VJP XLA programs, except the Pallas probes; the bf16 forms the same
+ops in JAX's bf16 mode):
   gather_gemm    K1 ``_conv_chunk_fused`` fwd and dF, K2 ``_conv_chunk_down2``
                  fwd, K3 ``_conv_tr_chunk`` dF (stacked table), K4
                  ``_conv_chunk_down_fused`` fwd
@@ -123,6 +134,16 @@ SEG_BLOCKS = 264
 # gather_wgrad: blocks to aim at (eight waves of 132 SMs, for balance: a
 # block's work is its slice's live pairs)
 WGRAD_BLOCKS = 8 * 132
+BF16 = torch.bfloat16
+# where the bf16 forms of the other kernels stand (the ops refuse bf16 there)
+ITEM_5B = "ROADMAP Queue 1 item 5b"
+
+
+def refuse_bf16_5b(what: str, t) -> None:
+    """Raise NotImplementedError for a bf16 ``t``: ``what`` has no bf16 form
+    yet (ROADMAP Queue 1 item 5b), and never runs one in f32 in its place."""
+    if t is not None and t.dtype == BF16:
+        raise NotImplementedError(f"{what} in bfloat16 is {ITEM_5B}; run it in float32")
 
 
 class TapList(ctypes.Structure):
@@ -147,13 +168,13 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("sparse_conv", {
         "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, vp, vp, vp,
-                           ci, ci, ci, ci, ci, ci, ci, vp],
+                           ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_gather_gemm_tile_n": [ci],
         "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
-                            ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, vp],
+                            ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
         "pc_gather_wgrad_tiles": [ci, ci],
-        "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
-        "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp],
+        "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                             ci, ci, vp],
         "pc_segment_sum": [vp, vp, vp, vp, ctypes.c_longlong, vp, ci, ci, ci, ci, ci,
@@ -225,23 +246,35 @@ def _kept(rows, skip):
     return (rows != skip)[..., None]
 
 
+def _wide(t):
+    """A bf16 operand widened to f32 (exact) for a twin's products; any
+    other tensor, and None, as it is."""
+    return t.float() if t is not None and t.dtype == BF16 else t
+
+
 def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
-    # ``order`` only orders the kernel's tiles: every row's sum is the same
+    # ``order`` only orders the kernel's tiles: every row's sum is the same.
+    # bf16 operands: rows gathered in bf16, products and sums in f32, one
+    # rounding of each sum to bf16
     b_, s_in, _ = x3.shape
     if wc is None:
-        out = x3.new_zeros(b_, s_out, w.shape[-1])
+        out = x3.new_zeros(b_, s_out, w.shape[-1],
+                           dtype=torch.float32 if x3.dtype == BF16 else x3.dtype)
     else:
         xc = x3[:, :s_out]
         if 0 <= skip < s_out:
             xc = torch.where(_kept(torch.arange(s_out, device=x3.device), skip), xc, 0.0)
-        out = xc @ wc
+        out = _wide(xc) @ _wide(wc)
     for j in range(w.shape[0]):
         idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
         rows = take_rows(x3, idx)
         if skip >= 0:
             rows = torch.where(_kept(idx, skip), rows, 0.0)
-        out = out + rows @ w[j]
-    return out
+        out = out + _wide(rows) @ _wide(w[j])
+    return out.to(x3.dtype)
+
+
+gather_gemm_bf16_plain = gather_gemm_plain  # the twin takes both dtypes
 
 
 def _gemm_splits(b_, s_out, cout, ntap) -> int:
@@ -271,6 +304,64 @@ def _gemm_tile_n(cout: int) -> int:
     return _lib().pc_gather_gemm_tile_n(cout)
 
 
+def _refuse_bf16(name, t, form):
+    """An f32 kernel's wrapper refuses a bf16 operand (on either device):
+    its bf16 form is ``form``."""
+    if t is not None and t.dtype == BF16:
+        raise TypeError(f"{name} takes float32; a bfloat16 operand goes to {form}")
+
+
+def _require_dtypes(name, dtype, **operands):
+    """A bf16 form's wrapper: raise unless every operand given (None
+    passes) has ``dtype``, on either device."""
+    for what, t in operands.items():
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+
+
+def _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order):
+    b_, s_in, cin = x3.shape
+    g, _, cout = w.shape
+    if wc is not None and s_in != s_out:
+        raise ValueError("the centre tap needs S_in == S_out")
+    _check_shape("w", w, (g, cin, cout))
+    _check_shape("wc", wc, (cin, cout))
+    _check_rows("gather_gemm", map_, taps, tap_stride, g, b_, s_out, s_in)
+    _check_shape("order", order, (b_, s_out))
+    check_index_space("gather_gemm", x3_rows=b_ * s_in, out_rows=b_ * s_out)
+
+
+def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, order,
+                        dtype):
+    """The gather-GEMM kernel on ``dtype`` (f32 or bf16) operands -> (the
+    output in ``dtype``, launches: 0 or 1); split partials in f32."""
+    b_, s_in, cin = x3.shape
+    g, _, cout = w.shape
+    _require(x3, "x3", dtype, 3)
+    _require(w, "w", dtype, 3)
+    _require(wc, "wc", dtype, 2)
+    _require(order, "order", torch.int32, 2)
+    _require(map_, "map", torch.int32, 3)
+    if g > MAX_TAPS:
+        raise ValueError(f"{g} taps > {MAX_TAPS}")
+    out = torch.empty(b_, s_out, cout, device=x3.device, dtype=dtype)
+    if out.numel() == 0:
+        return out, 0
+    ntap = g + (wc is not None)
+    splits = _gemm_splits(b_, s_out, cout, ntap)
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(splits, b_, s_out, cout, device=x3.device, dtype=torch.float32)
+        tiles = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+        tickets = torch.zeros(tiles, device=x3.device, dtype=torch.int32)
+    rc = _lib().pc_gather_gemm(
+        _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
+        _ptr(wc), _ptr(order), _ptr(out), _ptr(ws), _ptr(tickets), splits, b_,
+        s_in, s_out, cin, cout, int(skip), int(dtype == BF16), _stream())
+    _check(rc, name)
+    return out, 1
+
+
 def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
     """out[b,s] = [x3[b,s] @ wc] + sum_j x3[b, row(j,b,s)] @ w[j], every
     product whose gathered row is ``skip`` left out (-1: none; the centre
@@ -284,43 +375,33 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
 
     x3 [B, S_in, Cin]; w [G, Cin, Cout] (one block per gathered tap);
     wc [Cin, Cout] or None: the ungathered centre tap (needs S_in == S_out);
-    returns [B, s_out, Cout].  On the card the sum is the same from run to
+    returns [B, s_out, Cout], all f32 (bf16 operands go to
+    ``gather_gemm_bf16``).  On the card the sum is the same from run to
     run: where the taps are split over blocks (``_gemm_splits``), the
     partial sums are added in split order."""
-    b_, s_in, cin = x3.shape
-    g, _, cout = w.shape
-    if wc is not None and s_in != s_out:
-        raise ValueError("the centre tap needs S_in == S_out")
-    _check_shape("w", w, (g, cin, cout))
-    _check_shape("wc", wc, (cin, cout))
-    _check_rows("gather_gemm", map_, taps, tap_stride, g, b_, s_out, s_in)
-    _check_shape("order", order, (b_, s_out))
-    check_index_space("gather_gemm", x3_rows=b_ * s_in, out_rows=b_ * s_out)
+    _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order)
+    _refuse_bf16("gather_gemm", x3, "gather_gemm_bf16")
     if _use_plain(x3):
         return gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
-    _require(x3, "x3", torch.float32, 3)
-    _require(w, "w", torch.float32, 3)
-    _require(wc, "wc", torch.float32, 2)
-    _require(order, "order", torch.int32, 2)
-    _require(map_, "map", torch.int32, 3)
-    if g > MAX_TAPS:
-        raise ValueError(f"{g} taps > {MAX_TAPS}")
-    out = torch.empty(b_, s_out, cout, device=x3.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    ntap = g + (wc is not None)
-    splits = _gemm_splits(b_, s_out, cout, ntap)
-    ws = tickets = None
-    if splits > 1:
-        ws = torch.empty(splits, b_, s_out, cout, device=x3.device, dtype=torch.float32)
-        tiles = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
-        tickets = torch.zeros(tiles, device=x3.device, dtype=torch.int32)
-    rc = _lib().pc_gather_gemm(
-        _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
-        _ptr(wc), _ptr(order), _ptr(out), _ptr(ws), _ptr(tickets), splits, b_,
-        s_in, s_out, cin, cout, int(skip), _stream())
-    _check(rc, "gather_gemm")
-    gather_gemm.launches += 1
+    out, n = _gather_gemm_launch("gather_gemm", x3, map_, taps, tap_stride, w, wc, s_out,
+                                 skip, order, torch.float32)
+    gather_gemm.launches += n
+    return out
+
+
+def gather_gemm_bf16(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+    """``gather_gemm`` on bf16 operands (x3, w and wc bf16; JAX's bf16 conv
+    products, ``preferred_element_type=f32``): each output row's products
+    and their sum in f32, rounded once to bf16 -> [B, s_out, Cout] bf16.
+    Where the taps are split over blocks, the f32 partials are added in
+    split order and the sum rounded once: the same bits from run to run."""
+    _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order)
+    _require_dtypes("gather_gemm_bf16", BF16, x3=x3, w=w, wc=wc)
+    if _use_plain(x3):
+        return gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
+    out, n = _gather_gemm_launch("gather_gemm_bf16", x3, map_, taps, tap_stride, w, wc,
+                                 s_out, skip, order, BF16)
+    gather_gemm_bf16.launches += n
     return out
 
 
@@ -330,6 +411,7 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
 
 def gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map, g_taps,
                        g_stride, k, s_rows, skip_a=-1, skip_g=-1):
+    # bf16 operands: rows gathered as they are, products and sums in f32
     b_ = a3.shape[0]
     dw = []
     for j in range(k):
@@ -338,8 +420,11 @@ def gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map, g_taps,
         ra, rg = take_rows(a3, ia), take_rows(g3, ig)
         if skip_a >= 0 or skip_g >= 0:
             ra = torch.where(_kept(ia, skip_a) & _kept(ig, skip_g), ra, 0.0)
-        dw.append(torch.einsum("bsc,bsd->cd", ra, rg))
+        dw.append(torch.einsum("bsc,bsd->cd", _wide(ra), _wide(rg)))
     return torch.stack(dw)
+
+
+gather_wgrad_bf16_plain = gather_wgrad_plain
 
 
 @functools.lru_cache(maxsize=None)
@@ -347,34 +432,30 @@ def _wgrad_tiles(ca: int, cg: int) -> int:
     return _lib().pc_gather_wgrad_tiles(ca, cg)
 
 
-def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
-                 k, s_rows, skip_a=-1, skip_g=-1):
-    """dW[j] = sum_{b, s < s_rows} a3[b, rowA(j,b,s)]^T @ g3[b, rowG(j,b,s)],
-    every pair whose A row is ``skip_a`` or whose G row is ``skip_g`` left
-    out (-1: none).
-
-    Returns [k, Ca, Cg] f32.  On the card each block reduces the live pairs
-    of one tap's row slice (about ``WGRAD_BLOCKS`` blocks in all, slices
-    of 256 rows at least), and the slices' partial sums are added in slice
-    order, so dW is the same from run to run."""
-    b_, sa, ca = a3.shape
+def _wgrad_shapes(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows):
+    b_, sa, _ = a3.shape
     _, sg, cg = g3.shape
     _check_shape("g3", g3, (b_, sg, cg))
     _check_rows("gather_wgrad a", a_map, a_taps, a_stride, k, b_, s_rows, sa)
     _check_rows("gather_wgrad g", g_map, g_taps, g_stride, k, b_, s_rows, sg)
     check_index_space("gather_wgrad", rows=b_ * s_rows, a3_rows=b_ * sa, g3_rows=b_ * sg)
-    if _use_plain(a3):
-        return gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map,
-                                  g_taps, g_stride, k, s_rows, skip_a, skip_g)
-    _require(a3, "a3", torch.float32, 3)
-    _require(g3, "g3", torch.float32, 3)
+
+
+def _gather_wgrad_launch(name, a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                         k, s_rows, skip_a, skip_g, a_dtype, g_dtype):
+    """The wgrad kernel on an ``a_dtype`` a3 and a ``g_dtype`` g3 (f32 or
+    bf16 each) -> (dW [k, Ca, Cg] f32, launches: 0 or 1)."""
+    b_, sa, ca = a3.shape
+    _, sg, cg = g3.shape
+    _require(a3, "a3", a_dtype, 3)
+    _require(g3, "g3", g_dtype, 3)
     _require(a_map, "a_map", torch.int32, 3)
     _require(g_map, "g_map", torch.int32, 3)
     if k > MAX_TAPS:
         raise ValueError(f"{k} taps > {MAX_TAPS}")
     rows = b_ * s_rows
     if rows == 0 or k == 0:
-        return torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32)
+        return torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32), 0
     tiles = _wgrad_tiles(ca, cg)
     slices = max(1, min(-(-rows // 256), -(-WGRAD_BLOCKS // (tiles * k))))
     per_block = -(-rows // slices)
@@ -387,9 +468,55 @@ def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
     rc = _lib().pc_gather_wgrad(
         _ptr(a3), _ptr(a_map), _taps_struct(a_taps), a_stride, sa, ca, int(skip_a),
         _ptr(g3), _ptr(g_map), _taps_struct(g_taps), g_stride, sg, cg, int(skip_g),
-        _ptr(dw), _ptr(ws), _ptr(tickets), k, b_, s_rows, per_block, _stream())
-    _check(rc, "gather_wgrad")
-    gather_wgrad.launches += 1
+        _ptr(dw), _ptr(ws), _ptr(tickets), k, b_, s_rows, per_block,
+        int(a_dtype == BF16), int(g_dtype == BF16), _stream())
+    _check(rc, name)
+    return dw, 1
+
+
+def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                 k, s_rows, skip_a=-1, skip_g=-1):
+    """dW[j] = sum_{b, s < s_rows} a3[b, rowA(j,b,s)]^T @ g3[b, rowG(j,b,s)],
+    every pair whose A row is ``skip_a`` or whose G row is ``skip_g`` left
+    out (-1: none).
+
+    a3 and g3 f32 (a bf16 a3 goes to ``gather_wgrad_bf16``); returns
+    [k, Ca, Cg] f32.  On the card each block reduces the live pairs of one
+    tap's row slice (about ``WGRAD_BLOCKS`` blocks in all, slices of 256
+    rows at least), and the slices' partial sums are added in slice order,
+    so dW is the same from run to run."""
+    _wgrad_shapes(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows)
+    _refuse_bf16("gather_wgrad", a3, "gather_wgrad_bf16")
+    _refuse_bf16("gather_wgrad", g3, "gather_wgrad_bf16")
+    if _use_plain(a3):
+        return gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map,
+                                  g_taps, g_stride, k, s_rows, skip_a, skip_g)
+    dw, n = _gather_wgrad_launch("gather_wgrad", a3, a_map, a_taps, a_stride, g3, g_map,
+                                 g_taps, g_stride, k, s_rows, skip_a, skip_g,
+                                 torch.float32, torch.float32)
+    gather_wgrad.launches += n
+    return dw
+
+
+def gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                      k, s_rows, skip_a=-1, skip_g=-1):
+    """``gather_wgrad`` with a bf16 a3 (the features) and a bf16 or f32 g3
+    (the cotangent; K3's stacked scatter ``dy`` is f32): JAX's
+    ``F.f32^T @ ct.f32``, products and sums in f32 -> [k, Ca, Cg] f32.  The
+    sparse ops round it to the weights' dtype, as JAX's ``dw.astype``.  The
+    same bits from run to run (slices added in slice order)."""
+    _wgrad_shapes(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows)
+    _require_dtypes("gather_wgrad_bf16", BF16, a3=a3)
+    if g3.dtype not in (BF16, torch.float32):
+        raise TypeError(f"gather_wgrad_bf16: g3 must be {BF16} or torch.float32, "
+                        f"got {g3.dtype}")
+    if _use_plain(a3):
+        return gather_wgrad_bf16_plain(a3, a_map, a_taps, a_stride, g3, g_map,
+                                       g_taps, g_stride, k, s_rows, skip_a, skip_g)
+    dw, n = _gather_wgrad_launch("gather_wgrad_bf16", a3, a_map, a_taps, a_stride, g3,
+                                 g_map, g_taps, g_stride, k, s_rows, skip_a, skip_g,
+                                 BF16, g3.dtype)
+    gather_wgrad_bf16.launches += n
     return dw
 
 
@@ -398,14 +525,18 @@ def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
 
 
 def parent_gemm_plain(x3, parent, off, w, skip=-1, order=None):
-    # ``order`` only orders the kernel's tiles: every row is the same
+    # ``order`` only orders the kernel's tiles: every row is the same.
+    # bf16 operands: products and sums in f32, each row rounded once
     b_, s_c, _ = x3.shape
     k, _, cout = w.shape
-    table = torch.einsum("bsc,kcd->bksd", x3, w).reshape(b_, k * s_c, cout)
+    table = torch.einsum("bsc,kcd->bksd", _wide(x3), _wide(w)).reshape(b_, k * s_c, cout)
     out = take_rows(table, off.long() * s_c + parent.long())
     if skip >= 0:
         out = torch.where(_kept(parent, skip), out, 0.0)
-    return out
+    return out.to(x3.dtype)
+
+
+parent_gemm_bf16_plain = parent_gemm_plain
 
 
 def _parent_splits(b_, s_f, cout) -> int:
@@ -418,6 +549,41 @@ def _parent_splits(b_, s_f, cout) -> int:
     if blocks >= GEMM_BLOCKS:
         return 1
     return min(4, -(-GEMM_BLOCKS // blocks))
+
+
+def _parent_shapes(x3, parent, off, w, order):
+    b_, s_c, cin = x3.shape
+    k, _, cout = w.shape
+    s_f = parent.shape[1]
+    _check_shape("w", w, (k, cin, cout))
+    _check_shape("parent", parent, (b_, s_f))
+    _check_shape("off", off, (b_, s_f))
+    _check_shape("order", order, (b_, s_f))
+    check_index_space("parent_gemm", x3_rows=b_ * s_c, out_rows=b_ * s_f)
+
+
+def _parent_gemm_launch(name, x3, parent, off, w, skip, order, dtype):
+    """The parent-GEMM kernel on ``dtype`` operands -> (the output in
+    ``dtype``, launches: 0 or 1)."""
+    b_, s_c, cin = x3.shape
+    k, _, cout = w.shape
+    s_f = parent.shape[1]
+    _require(x3, "x3", dtype, 3)
+    _require(w, "w", dtype, 3)
+    _require(parent, "parent", torch.int32, 2)
+    _require(off, "off", torch.int32, 2)
+    _require(order, "order", torch.int32, 2)
+    if k != 8:
+        raise ValueError(f"parent_gemm takes 8 offsets (k2s2), got {k}")
+    out = torch.empty(b_, s_f, cout, device=x3.device, dtype=dtype)
+    if out.numel() == 0:
+        return out, 0
+    rc = _lib().pc_parent_gemm(
+        _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(order), _ptr(out), b_, s_c,
+        s_f, cin, cout, int(skip), _parent_splits(b_, s_f, cout), int(dtype == BF16),
+        _stream())
+    _check(rc, name)
+    return out, 1
 
 
 def parent_gemm(x3, parent, off, w, skip=-1, order=None):
@@ -433,34 +599,30 @@ def parent_gemm(x3, parent, off, w, skip=-1, order=None):
     is left uninitialised and each block writes only the rows its order
     entries name, so a row that no entry names is never written.
 
-    x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout].
-    On the card every output row is written once, by one block, in a fixed
-    order of products: the same bits from run to run."""
-    b_, s_c, cin = x3.shape
-    k, _, cout = w.shape
-    s_f = parent.shape[1]
-    _check_shape("w", w, (k, cin, cout))
-    _check_shape("parent", parent, (b_, s_f))
-    _check_shape("off", off, (b_, s_f))
-    _check_shape("order", order, (b_, s_f))
-    check_index_space("parent_gemm", x3_rows=b_ * s_c, out_rows=b_ * s_f)
+    x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout],
+    f32 (bf16 operands go to ``parent_gemm_bf16``).  On the card every
+    output row is written once, by one block, in a fixed order of
+    products: the same bits from run to run."""
+    _parent_shapes(x3, parent, off, w, order)
+    _refuse_bf16("parent_gemm", x3, "parent_gemm_bf16")
     if _use_plain(x3):
         return parent_gemm_plain(x3, parent, off, w, skip)
-    _require(x3, "x3", torch.float32, 3)
-    _require(w, "w", torch.float32, 3)
-    _require(parent, "parent", torch.int32, 2)
-    _require(off, "off", torch.int32, 2)
-    _require(order, "order", torch.int32, 2)
-    if k != 8:
-        raise ValueError(f"parent_gemm takes 8 offsets (k2s2), got {k}")
-    out = torch.empty(b_, s_f, cout, device=x3.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    rc = _lib().pc_parent_gemm(
-        _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(order), _ptr(out), b_, s_c,
-        s_f, cin, cout, int(skip), _parent_splits(b_, s_f, cout), _stream())
-    _check(rc, "parent_gemm")
-    parent_gemm.launches += 1
+    out, n = _parent_gemm_launch("parent_gemm", x3, parent, off, w, skip, order,
+                                 torch.float32)
+    parent_gemm.launches += n
+    return out
+
+
+def parent_gemm_bf16(x3, parent, off, w, skip=-1, order=None):
+    """``parent_gemm`` on bf16 x3 and w (JAX K3's forward and K2's dF in
+    bf16: the product in f32, one rounding) -> [B, S_f, Cout] bf16; the
+    same bits from run to run."""
+    _parent_shapes(x3, parent, off, w, order)
+    _require_dtypes("parent_gemm_bf16", BF16, x3=x3, w=w)
+    if _use_plain(x3):
+        return parent_gemm_bf16_plain(x3, parent, off, w, skip)
+    out, n = _parent_gemm_launch("parent_gemm_bf16", x3, parent, off, w, skip, order, BF16)
+    parent_gemm_bf16.launches += n
     return out
 
 
@@ -469,11 +631,42 @@ def parent_gemm(x3, parent, off, w, skip=-1, order=None):
 
 
 def scatter_parent_plain(ct3, parent, off, k, s_c):
+    # a bf16 cotangent lands widened (exactly) in an f32 dy, as JAX's
+    # scatter of ct.astype(f32)
     b_, _, c = ct3.shape
     idx = off.long() * s_c + parent.long()
-    kept = torch.where((parent < s_c - 1)[..., None], ct3, 0.0)
-    dy = ct3.new_zeros(b_, k * s_c, c)
+    kept = torch.where((parent < s_c - 1)[..., None], _wide(ct3), 0.0)
+    dy = kept.new_zeros(b_, k * s_c, c)
     return dy.scatter_add_(1, idx.unsqueeze(-1).expand(-1, -1, c), kept)
+
+
+scatter_parent_bf16_plain = scatter_parent_plain
+
+
+def _scatter_parent_launch(name, ct3, parent, off, k, s_c, dtype):
+    """The scatter kernel on a ``dtype`` cotangent -> (dy f32, launches:
+    0 or 1)."""
+    b_, s_f, c = ct3.shape
+    _require(ct3, "ct3", dtype, 3)
+    _require(parent, "parent", torch.int32, 2)
+    _require(off, "off", torch.int32, 2)
+    if k != 8:
+        raise ValueError(f"{name} takes 8 offsets (k2s2), got {k}")
+    dy = torch.zeros(b_, k * s_c, c, device=ct3.device, dtype=torch.float32)
+    if ct3.numel() == 0:
+        return dy, 0
+    rc = _lib().pc_scatter_parent(ct3.data_ptr(), parent.data_ptr(), off.data_ptr(),
+                                  dy.data_ptr(), b_, s_f, s_c, c, int(dtype == BF16),
+                                  _stream(ct3))
+    _check(rc, name)
+    return dy, 1
+
+
+def _scatter_parent_shapes(name, ct3, parent, off, k, s_c):
+    b_, s_f, c = ct3.shape
+    _check_shape("parent", parent, (b_, s_f))
+    _check_shape("off", off, (b_, s_f))
+    check_index_space(name, ct3=b_ * s_f * c, out=b_ * k * s_c * c)
 
 
 def scatter_parent(ct3, parent, off, k, s_c):
@@ -483,26 +676,29 @@ def scatter_parent(ct3, parent, off, k, s_c):
     Pad fine rows and the fine voxels truncation orphaned all name that
     slot; its sum reached only dF's pad row (dW multiplies it by the zero
     pad features), and every other destination is named once, so the card
-    stores rows and equals the twin bit for bit.  B S_f C and B k s_c C
-    must stay below 2^31, on either device."""
-    b_, s_f, c = ct3.shape
-    _check_shape("parent", parent, (b_, s_f))
-    _check_shape("off", off, (b_, s_f))
-    check_index_space("scatter_parent", ct3=b_ * s_f * c, out=b_ * k * s_c * c)
+    stores rows and equals the twin bit for bit.  ct3 and dy f32 (a bf16
+    ct3 goes to ``scatter_parent_bf16``).  B S_f C and B k s_c C must stay
+    below 2^31, on either device."""
+    _scatter_parent_shapes("scatter_parent", ct3, parent, off, k, s_c)
+    _refuse_bf16("scatter_parent", ct3, "scatter_parent_bf16")
     if _use_plain(ct3):
         return scatter_parent_plain(ct3, parent, off, k, s_c)
-    _require(ct3, "ct3", torch.float32, 3)
-    _require(parent, "parent", torch.int32, 2)
-    _require(off, "off", torch.int32, 2)
-    if k != 8:
-        raise ValueError(f"scatter_parent takes 8 offsets (k2s2), got {k}")
-    dy = torch.zeros(b_, k * s_c, c, device=ct3.device, dtype=torch.float32)
-    if ct3.numel() == 0:
-        return dy
-    rc = _lib().pc_scatter_parent(ct3.data_ptr(), parent.data_ptr(), off.data_ptr(),
-                                  dy.data_ptr(), b_, s_f, s_c, c, _stream(ct3))
-    _check(rc, "scatter_parent")
-    scatter_parent.launches += 1
+    dy, n = _scatter_parent_launch("scatter_parent", ct3, parent, off, k, s_c,
+                                   torch.float32)
+    scatter_parent.launches += n
+    return dy
+
+
+def scatter_parent_bf16(ct3, parent, off, k, s_c):
+    """``scatter_parent`` of a bf16 cotangent into an f32 dy (JAX K3's
+    backward scatters ``ct.astype(f32)``): each kept row widened exactly
+    and stored once, equal to the twin bit for bit."""
+    _scatter_parent_shapes("scatter_parent_bf16", ct3, parent, off, k, s_c)
+    _require_dtypes("scatter_parent_bf16", BF16, ct3=ct3)
+    if _use_plain(ct3):
+        return scatter_parent_bf16_plain(ct3, parent, off, k, s_c)
+    dy, n = _scatter_parent_launch("scatter_parent_bf16", ct3, parent, off, k, s_c, BF16)
+    scatter_parent_bf16.launches += n
     return dy
 
 
@@ -541,6 +737,7 @@ def scatter_gemm(g3, map_, taps, w, s_in, skip, order=None):
     _check_shape("w", w, (g, cin, cout))
     _check_rows("scatter_gemm", map_, taps, 0, g, b_, s_out, s_in)
     _check_shape("order", order, (b_, s_out))
+    refuse_bf16_5b("scatter_gemm", g3)
     if order is not None and order.dtype != torch.int32:
         raise TypeError(f"order must be torch.int32, got {order.dtype}")
     if _use_plain(g3):
@@ -661,6 +858,7 @@ def gather_sum(x3, map_, taps, tap_stride, s_out):
     One tap is a row gather.  B S_in C, B s_out C and the map's size must
     stay below 2^31, on either device."""
     b_, s_in, c = x3.shape
+    refuse_bf16_5b("gather_sum", x3)
     _check_rows("gather_sum", map_, taps, tap_stride, len(taps), b_, s_out, s_in)
     check_index_space("gather_sum", x3=b_ * s_in * c, out=b_ * s_out * c,
                       map=0 if map_ is None else map_.numel())
@@ -707,6 +905,7 @@ def scatter_sum(g3, map_, taps, tap_stride, s_in, skip_from):
     the twin's bit for bit.  B s_g C, B s_in C and the map's size must stay
     below 2^31, on either device."""
     b_, s_g, c = g3.shape
+    refuse_bf16_5b("scatter_sum", g3)
     _check_rows("scatter_sum", map_, taps, tap_stride, len(taps), b_, s_g, s_in)
     check_index_space("scatter_sum", g3=b_ * s_g * c, out=b_ * s_in * c,
                       map=0 if map_ is None else map_.numel())
@@ -867,6 +1066,7 @@ def brick_gemm(x, nbr, steps, w, valid=None, order=None):
 
     On the card every output row is written once, by one block, in a
     fixed order of products: the same bits from run to run."""
+    refuse_bf16_5b("brick_gemm", x)
     _check_brick("brick_gemm", x, nbr, steps, w.shape[0], valid, order)
     if x.shape[1] != w.shape[1]:
         raise ValueError(f"brick_gemm: {x.shape[1]} channels, weights take {w.shape[1]}")
@@ -913,6 +1113,7 @@ def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
     the live pairs of one tap in its share of the rows, and the shares'
     partial sums are added in a fixed order: dW is the same from run to
     run."""
+    refuse_bf16_5b("brick_wgrad", x)
     _check_brick("brick_wgrad", x, nbr, steps, num_taps, valid, order)
     _check_brick("brick_wgrad ct", ct, nbr, steps)
     if _use_plain(x):
@@ -949,5 +1150,6 @@ def _brick_wgrad_slices(rows, tiles, taps) -> int:
 
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
            scatter_gemm, segment_sum, gather_sum, scatter_sum, brick_gemm,
-           brick_wgrad)
+           brick_wgrad, gather_gemm_bf16, gather_wgrad_bf16, parent_gemm_bf16,
+           scatter_parent_bf16)
 reset_launches()

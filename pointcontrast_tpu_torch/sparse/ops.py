@@ -44,6 +44,19 @@ truncation orphaned reads it (JAX gives that row ``ct[pad] W_0^T``).  Both
 tile the fine rows in the pyramid's up order (``topology.up_order``).
 Feature gradients at pad rows are garbage by design (they differ between
 forms) and every producer masks them.
+
+bf16 activations (JAX's mixed precision): K1-K3 take bf16 features and
+weights (the layers' bf16 casts) and run the kernels' bf16 forms, JAX's
+rounding points kept: every conv product is bf16 x bf16 with an f32 sum,
+rounded once to bf16 (forward and dF of K1 and K2, K3's forward); every dW
+is ``F.f32^T ct.f32`` in f32 (``gather_wgrad_bf16``), rounded to the
+weights' bf16 as JAX's ``dw.astype(weights.dtype)``; K3's backward
+scatters the bf16 cotangent into an f32 ``dy`` (``scatter_parent_bf16``),
+takes dF = dy W.f32 with the f32 ``gather_gemm`` and rounds it once, and
+dW against the f32 dy.  K4 (``scatter_gemm``) and the pools (``gather_sum``
+/ ``scatter_sum``) have no bf16 form yet (ROADMAP Queue 1 item 5b): they
+raise ``NotImplementedError`` on bf16 features, and never run in f32 in
+their place.
 """
 from __future__ import annotations
 
@@ -51,13 +64,19 @@ import torch
 
 from pointcontrast_tpu_torch.detect import kernels as detect_kernels
 from pointcontrast_tpu_torch.sparse.kernels import (
+    BF16,
     MAX_TAPS,
     gather_gemm,
+    gather_gemm_bf16,
     gather_sum,
     gather_wgrad,
+    gather_wgrad_bf16,
     parent_gemm,
+    parent_gemm_bf16,
+    refuse_bf16_5b,
     scatter_gemm,
     scatter_parent,
+    scatter_parent_bf16,
     scatter_sum,
     segment_sum,
 )
@@ -78,6 +97,17 @@ def masked_moments(features: torch.Tensor, valid: torch.Tensor):
     mean = (f * v).sum(dim=0) / n
     var = ((f - mean).square() * v).sum(dim=0) / n
     return mean, var, n
+
+
+def _forms(features, weights):
+    """(gather_gemm, gather_wgrad, parent_gemm) for the features' dtype: the
+    f32 kernels, or the bf16 forms for bf16 features (with bf16 weights)."""
+    if features.dtype != BF16:
+        return gather_gemm, gather_wgrad, parent_gemm
+    if weights.dtype != BF16:
+        raise TypeError(f"bf16 features need bf16 weights (the layer's cast), got "
+                        f"{weights.dtype}")
+    return gather_gemm_bf16, gather_wgrad_bf16, parent_gemm_bf16
 
 
 def _center_of(rev) -> int | None:
@@ -104,7 +134,8 @@ class _ConvChunkFused(torch.autograd.Function):
         taps = [i for i in range(k) if i != center]
         f3 = features.reshape(b_, s, -1)
         wc = None if center is None else weights[center]
-        out = gather_gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
+        gemm = _forms(features, weights)[0]
+        out = gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
         ctx.save_for_backward(features, nbr, weights, order)
         ctx.rev, ctx.center, ctx.taps = rev, center, taps
         return out.reshape(b_ * s, -1)
@@ -116,16 +147,17 @@ class _ConvChunkFused(torch.autograd.Function):
         k, b_, s = nbr.shape
         f3 = features.reshape(b_, s, -1)
         ct3 = ct.contiguous().reshape(b_, s, -1)
+        gemm, wgrad, _ = _forms(features, weights)
         df = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.transpose(1, 2)
             wtc = None if center is None else wt[center].contiguous()
-            df = gather_gemm(ct3, nbr, [rev[i] for i in taps], 0,
-                             wt[taps].contiguous(), wtc, s, s - 1, order)
+            df = gemm(ct3, nbr, [rev[i] for i in taps], 0,
+                      wt[taps].contiguous(), wtc, s, s - 1, order)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
-            dw = gather_wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s,
-                              skip_g=s - 1)
+            dw = wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s,
+                       skip_g=s - 1).to(weights.dtype)
         return df, None, dw, None, None
 
 
@@ -142,8 +174,9 @@ class _ConvChunkDown2(torch.autograd.Function):
                 up_order=None):
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
-        out = gather_gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out,
-                          f3.shape[1] - 1, order)
+        gemm = _forms(features, weights)[0]
+        out = gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out,
+                   f3.shape[1] - 1, order)
         ctx.save_for_backward(features, down_nbr, up_parent, up_offset, weights, up_order)
         return out.reshape(b_ * s_out, -1)
 
@@ -153,14 +186,15 @@ class _ConvChunkDown2(torch.autograd.Function):
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         ct3 = ct.contiguous().reshape(b_, s_out, -1)
+        _, wgrad, pgemm = _forms(features, weights)
         df = dw = None
         if ctx.needs_input_grad[0]:
-            df = parent_gemm(ct3, up_parent, up_offset,
-                             weights.transpose(1, 2).contiguous(), -1, up_order)
+            df = pgemm(ct3, up_parent, up_offset,
+                       weights.transpose(1, 2).contiguous(), -1, up_order)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[4]:
-            dw = gather_wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,
-                              None, 0, k, s_out, skip_a=f3.shape[1] - 1)
+            dw = wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,
+                       None, 0, k, s_out, skip_a=f3.shape[1] - 1).to(weights.dtype)
         return df, None, None, None, dw, None, None
 
 
@@ -171,14 +205,17 @@ class _ConvTrChunk(torch.autograd.Function):
     (offset, parent) pairs are unique; pad rows and the fine voxels
     truncation orphaned all name the coarse pad slot, which the scatter
     leaves out: JAX's dy holds their sum there, which reaches only dF's pad
-    row), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k."""
+    row), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k.  In bf16, JAX's
+    rounding points: dy is the f32 scatter of the bf16 cotangent, dF the
+    f32 product dy W.f32 rounded once, dW = F.f32^T dy in f32."""
 
     @staticmethod
     def forward(ctx, features, up_parent, up_offset, weights, up_order=None):
         b_, s_f = up_parent.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         # the coarse pad row's features are zero: its fine rows get zeros
-        out = parent_gemm(f3, up_parent, up_offset, weights, f3.shape[1] - 1, up_order)
+        pgemm = _forms(features, weights)[2]
+        out = pgemm(f3, up_parent, up_offset, weights, f3.shape[1] - 1, up_order)
         ctx.save_for_backward(features, up_parent, up_offset, weights)
         return out.reshape(b_ * s_f, -1)
 
@@ -189,16 +226,18 @@ class _ConvTrChunk(torch.autograd.Function):
         b_, s_f = up_parent.shape
         s_c = features.shape[0] // b_
         f3 = features.reshape(b_, s_c, -1)
-        dy = scatter_parent(ct.contiguous().reshape(b_, s_f, -1), up_parent,
-                            up_offset, k, s_c)
+        _, wgrad, _ = _forms(features, weights)
+        scatter = scatter_parent_bf16 if features.dtype == BF16 else scatter_parent
+        dy = scatter(ct.contiguous().reshape(b_, s_f, -1), up_parent, up_offset, k, s_c)
         df = dw = None
         if ctx.needs_input_grad[0]:
+            # f32 dy against the weights widened to f32, rounded once
             df = gather_gemm(dy, None, None, s_c,
-                             weights.transpose(1, 2).contiguous(), None, s_c, -1)
-            df = df.reshape(features.shape)
+                             weights.float().transpose(1, 2).contiguous(), None, s_c, -1)
+            df = df.reshape(features.shape).to(features.dtype)
         if ctx.needs_input_grad[3]:
-            dw = gather_wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c,
-                              skip_a=-1, skip_g=-1)
+            dw = wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c,
+                       skip_a=-1, skip_g=-1).to(weights.dtype)
         return df, None, None, dw, None
 
 
@@ -225,6 +264,8 @@ class _ConvChunkDownFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, nbr, weights, order=None):
+        refuse_bf16_5b("a conv on a map without rev or up (K4: scatter_gemm; the "
+                       "ResNets' k3s2 convs, the CRF's flat filter)", features)
         k, b_, s_out = nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = None
@@ -295,8 +336,8 @@ def sparse_conv(
     else:
         out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
                                         weights.contiguous(), order)
-    if bias is not None:
-        out = out + bias
+    if bias is not None:  # in the activations' dtype, as JAX's b.astype(dtype)
+        out = out + bias.to(out.dtype)
     if valid_out is not None:
         out = mask_rows(out, valid_out)
     return out
@@ -325,7 +366,7 @@ def sparse_conv_transpose(
         raise ValueError(f"[B, S] or [N] parent maps only, got {tuple(up_parent.shape)}")
     out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights, up_order)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     if valid_out is not None:
         out = mask_rows(out, valid_out)
     return out
@@ -341,6 +382,7 @@ class _GatherSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, map_, divisor, skip_from=None):
+        refuse_bf16_5b("the k2s2 pooling ops (gather_sum / scatter_sum)", features)
         k, b_, s_out = map_.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         out = gather_sum(f3, map_, range(k), 0, s_out).reshape(b_ * s_out, -1)

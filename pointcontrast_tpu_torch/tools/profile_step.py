@@ -3,9 +3,13 @@
     python -m pointcontrast_tpu_torch.tools.profile_step
         [--app pretrain|votenet|semseg|resnet] [--backbone sparseconv|pointnet2]
         [--model Res16UNet34C|ResUNet18INBN|MinkUNetHyper14INBN|ResNet18|...]
-        [--crf] [--layout chunked|voxel|brick|brick:N] [--steps 10]
+        [--crf] [--layout chunked|voxel|brick|brick:N]
+        [--dtype float32|bfloat16] [--steps 10]
 
-On the ``tools.workload`` step of the app (f32, TF32 off): ``pretrain`` is
+On the ``tools.workload`` step of the app (f32, TF32 off, or with ``--dtype
+bfloat16`` the nets' bf16 activations, as the shipped YAMLs' ``net.dtype``,
+with bf16 matmuls reducing in f32; PointNet++ and the ResNets have no bf16
+mode): ``pretrain`` is
 Res16UNet34C + PointInfoNCE + SGD over 4 fused pairs; ``votenet`` is the
 shipped VoteNet config (8 scenes x 40000 points, 256 proposals) over the
 sparse-conv Res16UNet34C 3 -> 256 (``--backbone sparseconv``, the YAML's
@@ -46,7 +50,7 @@ from pointcontrast_tpu_torch.tools import workload
 PHASES = ("forward", "loss", "backward", "optimizer")
 
 
-def _pretrain_app(layout="chunked"):
+def _pretrain_app(layout="chunked", dtype=None):
     from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
     from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step
     from pointcontrast_tpu_torch.train import optim
@@ -79,11 +83,11 @@ def _pretrain_app(layout="chunked"):
 
     return types.SimpleNamespace(
         batches=workload.pretrain_batches("cuda", layout=layout),
-        model=workload.pretrain_model(seed=0), unit="pairs",
+        model=workload.pretrain_model(seed=0, dtype=dtype), unit="pairs",
         per_step=workload.PAIRS, fresh=fresh, step=step, phases=phases)
 
 
-def _votenet_app(backbone="sparseconv"):
+def _votenet_app(backbone="sparseconv", dtype=None):
     from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
     from pointcontrast_tpu_torch.detect.train import (
         DetectConfig,
@@ -123,12 +127,13 @@ def _votenet_app(backbone="sparseconv"):
     voxel = workload.VOTENET_VOXEL if backbone == "sparseconv" else None
     return types.SimpleNamespace(
         batches=workload.votenet_batches("cuda", voxel=voxel),
-        model=workload.votenet_model(seed=0, backbone=backbone), unit="scenes",
+        model=workload.votenet_model(seed=0, backbone=backbone, dtype=dtype),
+        unit="scenes",
         per_step=workload.VOTENET_SCENES, fresh=fresh, step=step,
         phases=phases)
 
 
-def _semseg_app(model="Res16UNet34C", crf=False, layout="chunked"):
+def _semseg_app(model="Res16UNet34C", crf=False, layout="chunked", dtype=None):
     from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
     from pointcontrast_tpu_torch.semseg.train import (
         SemsegConfig,
@@ -169,7 +174,7 @@ def _semseg_app(model="Res16UNet34C", crf=False, layout="chunked"):
     return types.SimpleNamespace(
         batches=[batch],
         model=workload.semseg_model(seed=0, model=model,
-                                    crf=workload.SEMSEG_CRF if crf else None),
+                                    crf=workload.SEMSEG_CRF if crf else None, dtype=dtype),
         unit="scenes", per_step=len(scenes), fresh=fresh, step=step,
         phases=phases)
 
@@ -293,12 +298,15 @@ def main(argv=None) -> int:
     ap.add_argument("--crf", action="store_true", help="semseg only")
     ap.add_argument("--layout", default="chunked",
                     help="pretrain and semseg: chunked, voxel, brick or brick:N")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the nets' activations (pretrain, votenet sparseconv, semseg)")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -310,14 +318,21 @@ def main(argv=None) -> int:
           "votenet": {"backbone": args.backbone},
           "semseg": {"model": model, "crf": args.crf, "layout": args.layout},
           "resnet": {"model": model}}.get(args.app, {})
+    if args.dtype != "float32":
+        kw["dtype"] = getattr(torch, args.dtype)
     app = APPS[args.app](**kw)
     steps = args.steps
 
     times = {"plain": [], "kernels": []}
+    peak = 0
     for mode in ("plain", "kernels", "kernels", "plain"):
+        torch.cuda.reset_peak_memory_stats()
         ms = _timed_steps(app, steps, plain=mode == "plain")
+        if mode == "kernels":
+            peak = max(peak, torch.cuda.max_memory_allocated())
         times[mode].append(ms)
         print(f"[time] {args.app} {mode} ms_per_step={ms:.3f}", flush=True)
+    print(f"[memory] kernels peak_mem_gib={peak / 2 ** 30:.3f}", flush=True)
 
     phases = _phase_ms(app, steps)
     print("[phase] ms/step " + " ".join(f"{k}={v:.3f}" for k, v in phases.items()),
@@ -340,8 +355,10 @@ def main(argv=None) -> int:
         "model": model,
         "crf": args.crf if args.app == "semseg" else None,
         "layout": args.layout if args.app in ("pretrain", "semseg") else None,
+        "dtype": args.dtype,
         "card": card,
         "ms_per_step": times,
+        "peak_mem_gib_kernels": peak / 2 ** 30,
         f"{app.unit}_per_s_kernels": app.per_step / (min(times["kernels"]) / 1e3),
         "phase_ms_per_step": phases,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

@@ -3,11 +3,15 @@
     python -m pointcontrast_tpu_torch.tools.step_turns --base DIR
         [--app pretrain|votenet|semseg|resnet] [--backbone sparseconv|pointnet2]
         [--model NAME] [--crf] [--layout chunked|voxel|brick|brick:N]
+        [--dtype float32|bfloat16] [--base-dtype float32|bfloat16]
         [--pairs 10] [--steps 5]
 
 ``DIR`` is another checkout of the repo, for example the parent commit
-unpacked by ``git archive``.  One worker process runs ``profile_step``'s
-app (the ``tools.workload`` step, f32, TF32 off) on each checkout's
+unpacked by ``git archive``, or this one (``--base .``) to compare two
+dtypes.  One worker process runs ``profile_step``'s app (the
+``tools.workload`` step, f32, TF32 off; ``--dtype bfloat16`` the nets'
+bf16 activations, ``--base-dtype`` the base side's where it differs, and
+then the base checkout must know ``--dtype`` too) on each checkout's
 package, from the same seeded weights; both build their kernels and take
 two warm-up steps.  Then they take turns, one at a time: a turn runs
 ``--steps`` steps of one side and reports its ms/step (host clock around
@@ -48,10 +52,15 @@ BOUND = 0.05
 def _app_kwargs(args):
     model = {"semseg": args.model or "Res16UNet34C",
              "resnet": args.model or "ResNet18"}.get(args.app)
-    return {"pretrain": {"layout": args.layout},
-            "votenet": {"backbone": args.backbone},
-            "semseg": {"model": model, "crf": args.crf, "layout": args.layout},
-            "resnet": {"model": model}}.get(args.app, {})
+    kw = {"pretrain": {"layout": args.layout},
+          "votenet": {"backbone": args.backbone},
+          "semseg": {"model": model, "crf": args.crf, "layout": args.layout},
+          "resnet": {"model": model}}.get(args.app, {})
+    if args.dtype != "float32":  # an older checkout's apps take no dtype
+        import torch
+
+        kw["dtype"] = getattr(torch, args.dtype)
+    return kw
 
 
 def _timed_wrappers():
@@ -102,6 +111,7 @@ def _worker(args) -> int:
         raise RuntimeError(f"imported {profile_step.__file__}, not the package in {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     app = profile_step.APPS[args.app](**_app_kwargs(args))
     m, state = profile_step._warm(app)
     print(_TURN + json.dumps({"ready": True}), flush=True)
@@ -175,6 +185,10 @@ def main(argv=None) -> int:
     ap.add_argument("--crf", action="store_true", help="semseg only")
     ap.add_argument("--layout", default="chunked",
                     help="pretrain and semseg: chunked, voxel, brick or brick:N")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the nets' activations (pretrain, votenet sparseconv, semseg)")
+    ap.add_argument("--base-dtype", choices=("float32", "bfloat16"),
+                    help="the base side's dtype (default: --dtype)")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--steps", type=int, default=5, help="steps a turn")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -200,7 +214,9 @@ def main(argv=None) -> int:
     try:
         for side, root in roots.items():
             env = dict(os.environ, PYTHONPATH=root)
-            procs[side] = subprocess.Popen(cmd, cwd=root, env=env, text=True,
+            side_cmd = cmd + (["--dtype", args.base_dtype]
+                              if side == "base" and args.base_dtype else [])
+            procs[side] = subprocess.Popen(side_cmd, cwd=root, env=env, text=True,
                                            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
         for proc in procs.values():
             _reply(proc)  # built and warmed up
@@ -229,6 +245,7 @@ def main(argv=None) -> int:
                 proc.kill()
                 proc.wait()
     summary = {"app": args.app, "layout": args.layout, "model": args.model,
+               "dtype": args.dtype, "base_dtype": args.base_dtype or args.dtype,
                "backbone": args.backbone if args.app == "votenet" else None,
                "card": card, "steps_per_turn": args.steps, "bound": BOUND,
                "ms_per_step": _compare(ms["this"], ms["base"], BOUND),

@@ -115,10 +115,12 @@ def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,
 def votenet_model(seed: int = 0, backbone_model: str = "Res16UNet34C",
                   num_proposal: int = VOTENET_PROPOSALS,
                   backbone: str = "sparseconv",
-                  use_voting: bool = True) -> torch.nn.Module:
+                  use_voting: bool = True,
+                  dtype: torch.dtype | None = None) -> torch.nn.Module:
     """VoteNet (or, with ``use_voting=False``, BoxNet) over ``backbone`` for
     the ScanNet classes, random weights from ``seed``, on the CPU;
-    ``backbone_model`` names the sparse-conv backbone's net."""
+    ``backbone_model`` names the sparse-conv backbone's net, ``dtype`` its
+    activations' dtype (bf16: the YAML's mixed precision)."""
     from pointcontrast_tpu_torch.detect.configs import ScannetDatasetConfig
     from pointcontrast_tpu_torch.detect.votenet import VoteNet
 
@@ -129,7 +131,7 @@ def votenet_model(seed: int = 0, backbone_model: str = "Res16UNet34C",
         num_proposal=num_proposal,
         sampling="vote_fps", backbone=backbone,
         backbone_model=backbone_model, use_voting=use_voting,
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed), dtype=dtype)
 
 
 class SemsegScenes:
@@ -183,17 +185,19 @@ def semseg_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
 
 def semseg_model(seed: int = 0, model: str = "Res16UNet34C",
                  classes: int = SEMSEG_CLASSES, bn_momentum: float = 0.02,
-                 crf: dict | None = None, iterations: int = 10) -> torch.nn.Module:
+                 crf: dict | None = None, iterations: int = 10,
+                 dtype: torch.dtype | None = None) -> torch.nn.Module:
     """A registry net 3 -> ``classes`` (BN momentum 0.02, the YAML's), in a
     ``BilateralCRF`` of ``iterations`` mean-field steps when ``crf`` is
-    given; random weights from ``seed``, on the CPU."""
+    given; random weights from ``seed``, on the CPU; ``dtype``: the net's
+    activations (bf16: the YAML's ``net.dtype``)."""
     from pointcontrast_tpu_torch.nn.registry import load_model
     from pointcontrast_tpu_torch.semseg.crf import BilateralCRF
     from pointcontrast_tpu_torch.sparse.kernel_map import kernel_offsets
 
     gen = torch.Generator().manual_seed(seed)
     net = load_model(model)(in_channels=3, out_channels=classes,
-                            bn_momentum=bn_momentum, generator=gen)
+                            bn_momentum=bn_momentum, generator=gen, dtype=dtype)
     if crf is None:
         return net
     kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
@@ -314,11 +318,12 @@ def plain_ops():
             setattr(mod, name, fn)
 
 
-def pretrain_model(seed: int = 0) -> torch.nn.Module:
+def pretrain_model(seed: int = 0, dtype: torch.dtype | None = None) -> torch.nn.Module:
     """Res16UNet34C (3 -> 32 channels, L2-normalised), random weights from
-    ``seed``, on the CPU."""
+    ``seed``, on the CPU; ``dtype``: its activations (bf16: the YAML's
+    ``net.dtype``; parameters stay f32)."""
     from pointcontrast_tpu_torch.nn.registry import load_model
 
     return load_model("Res16UNet34C")(
         in_channels=3, out_channels=32, normalize_feature=True,
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed), dtype=dtype)

@@ -253,6 +253,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 

@@ -1,0 +1,406 @@
+"""The port's bf16 mixed precision against the JAX package's, on the CPU:
+activations and gathered tables bf16, parameters, norm statistics and
+losses f32, every conv product bf16 x bf16 with an f32 sum and one
+rounding (``tests/test_mixed_precision.py`` pins JAX's contract).  The
+same numpy inputs go to both packages (the fixtures of that file: one
+500-point pair, ``PadScheme(npad0=2048)``):
+
+  - K1, K2 and K3 alone, forward, dF and dW at valid rows, within
+    2^-7 max|JAX| (two bf16 ulps at the largest magnitude: the two sides
+    round the same f32 sums, added in other orders);
+  - Res16UNet34C in bf16 with JAX's parameters loaded (params are f32 in
+    both modes, so ``tools.from_jax`` carries them as they are): per-row
+    cosine >= 0.999 at valid rows, pad rows exactly zero, every parameter
+    f32, every module's output bf16, the conv and linear weight gradients
+    bf16 values (JAX rounds dW to the bf16 weights' dtype); one NCE loss
+    within rel 1e-2 of JAX's; five bf16 SGD steps that descend;
+  - ResUNet18INBN in bf16 the same way (the instance norm pools in f32,
+    the head's final_fc / final_bn / final run in bf16): per-row cosine,
+    pad rows, parameters and every module's output;
+  - the sparse-conv VoteNet: bf16 backbone output, f32 seed features,
+    finite losses and parameters that move;
+  - the semseg and VoteNet CLIs on the shipped YAMLs' ``net.dtype:
+    bfloat16`` (synthetic data), and the combinations that have no bf16
+    kernel yet (ROADMAP Queue 1 item 5b), which raise."""
+import copy
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+
+from pointcontrast_tpu.data.collate import PadScheme as JPadScheme
+from pointcontrast_tpu.data.collate import collate_pair as j_collate_pair
+from pointcontrast_tpu.data.pair_dataset import SyntheticPairDataset
+from pointcontrast_tpu.losses.contrastive import point_info_nce_loss as j_nce
+from pointcontrast_tpu.nn.registry import load_model as j_load_model
+from pointcontrast_tpu.sparse import ops as jops
+from pointcontrast_tpu_torch.data.collate import PadScheme, collate_pair
+from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
+from pointcontrast_tpu_torch.nn import layers
+from pointcontrast_tpu_torch.nn.registry import load_model
+from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.tools.from_jax import load_jax_params
+from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step, optim
+
+BF, JBF = torch.bfloat16, jnp.bfloat16
+OP_RTOL = 2.0 ** -7
+COS_MIN = 0.999
+LOSS_RTOL = 1e-2
+OUT = 32
+
+
+def _samples():
+    return [SyntheticPairDataset(num_pairs=1, points_per_frame=500, seed=0)[0]]
+
+
+@pytest.fixture(scope="module")
+def batches():
+    """(JAX batch, the port's on the CPU) of the same pair: byte-identical."""
+    j = j_collate_pair(_samples(), JPadScheme(npad0=2048), mode="nce", npos=64,
+                       rng=np.random.RandomState(0), fuse_frames=True, layout="chunked")
+    t = collate_pair(_samples(), PadScheme(npad0=2048), npos=64,
+                     rng=np.random.RandomState(0)).to("cpu")
+    return j, t
+
+
+def _np(t):
+    return t.numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _pair(rng, shape, valid=None):
+    """The same bf16 values on both sides (numpy f32 rounded by each)."""
+    x = rng.randn(*shape).astype(np.float32)
+    if valid is not None:
+        x *= _np(valid)[:, None]
+    return jnp.asarray(x, JBF), torch.from_numpy(x).to(BF)
+
+
+def _close(got, want, what, rows=None):
+    got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    err = float(np.abs(got - want).max())
+    ref = float(np.abs(want).max())
+    assert err <= OP_RTOL * ref, f"{what}: {err:.3e} of {ref:.3e}"
+
+
+def _op_case(case, tb, rng):
+    """(JAX function of (features, weights), the port's, JAX inputs, the
+    port's, cotangent pair, valid input rows, valid output rows)."""
+    lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
+    j = lambda a: jnp.asarray(_np(a))  # noqa: E731
+    if case.startswith("K1"):
+        cin, cout = (3, 32) if case == "K1 stem" else (32, 32)
+        rev = tuple(lv.rev)
+        f, w = _pair(rng, (lv.valid.shape[0], cin), lv.valid), _pair(rng, (27, cin, cout))
+        jf = lambda x, k: jops.sparse_conv(x, j(lv.nbr), k, valid_out=j(lv.valid),  # noqa
+                                           rev=rev)
+        tf = lambda x, k: ops.sparse_conv(x, lv.nbr, k, valid_out=lv.valid, rev=rev,  # noqa
+                                          order=lv.nbr_order)
+        vin, vout = lv.valid, lv.valid
+    elif case == "K2":
+        f, w = _pair(rng, (lv.valid.shape[0], 32), lv.valid), _pair(rng, (8, 32, 64))
+        jf = lambda x, k: jops.sparse_conv(x, j(lv.down_nbr), k,  # noqa: E731
+                                           valid_out=j(lv1.valid),
+                                           up=(j(lv.up_parent), j(lv.up_offset)))
+        tf = lambda x, k: ops.sparse_conv(  # noqa: E731
+            x, lv.down_nbr, k, valid_out=lv1.valid,
+            up=(lv.up_parent, lv.up_offset, lv.up_order), order=lv.down_order)
+        vin, vout = lv.valid, lv1.valid
+    else:  # K3
+        f, w = _pair(rng, (lv1.valid.shape[0], 64), lv1.valid), _pair(rng, (8, 64, 32))
+        jf = lambda x, k: jops.sparse_conv_transpose(  # noqa: E731
+            x, j(lv.up_parent), j(lv.up_offset), k, valid_out=j(lv.valid))
+        tf = lambda x, k: ops.sparse_conv_transpose(  # noqa: E731
+            x, lv.up_parent, lv.up_offset, k, valid_out=lv.valid, up_order=lv.up_order)
+        vin, vout = lv1.valid, lv.valid
+    ct = _pair(rng, (vout.shape[0], w[0].shape[-1]), vout)
+    return jf, tf, f, w, ct, _np(vin) > 0, _np(vout) > 0
+
+
+@pytest.mark.parametrize("case", ["K1 stem", "K1", "K2", "K3"])
+def test_conv_ops_match_jax_bf16(batches, case):
+    """Forward, dF and dW of each conv op in bf16, at valid rows: the
+    port's bf16 kernels' twins against JAX's custom VJPs."""
+    _, tb = batches
+    jf, tf, (fj, ft), (wj, wt), (ctj, ctt), vin, vout = _op_case(
+        case, tb, np.random.RandomState(len(case)))
+    out_j, vjp = jax.vjp(jf, fj, wj)
+    df_j, dw_j = vjp(ctj)
+    ft, wt = ft.requires_grad_(), wt.requires_grad_()
+    out_t = tf(ft, wt)
+    out_t.backward(ctt)
+    assert out_t.dtype == BF and ft.grad.dtype == BF and wt.grad.dtype == BF
+    assert out_j.dtype == JBF and df_j.dtype == JBF and dw_j.dtype == JBF
+    _close(out_t, out_j, f"{case} forward", vout)
+    assert not out_t.detach()[~torch.from_numpy(vout)].float().any()
+    _close(ft.grad, df_j, f"{case} dF", vin)
+    _close(wt.grad, dw_j, f"{case} dW")
+
+
+@pytest.fixture(scope="module")
+def jax_run(batches):
+    """JAX's bf16 Res16UNet34C: its f32 params and stats, and one jitted
+    train-mode forward with the NCE loss on it."""
+    jb, _ = batches
+    model = j_load_model("Res16UNet34C")(in_channels=3, out_channels=OUT,
+                                         normalize_feature=True, dtype=JBF)
+    variables = jax.jit(lambda r: model.init(r, jb.feats0, jb.pyramid0, train=False))(
+        jax.random.PRNGKey(0))
+
+    def run(variables):
+        out, _ = model.apply(variables, jb.feats0, jb.pyramid0, train=True,
+                             mutable=["batch_stats"])
+        return out, j_nce(out, out, jb.q_idx, jb.k_idx, jb.pair_valid, temperature=0.4)
+
+    out, loss = jax.jit(run)(variables)
+    return dict(params=jax.device_get(variables["params"]),
+                stats=jax.device_get(variables["batch_stats"]),
+                out=np.asarray(jnp.asarray(out, jnp.float32)), loss=float(loss),
+                out_dtype=out.dtype)
+
+
+def _net(dtype=BF):
+    return load_model("Res16UNet34C")(in_channels=3, out_channels=OUT,
+                                      normalize_feature=True, dtype=dtype)
+
+
+def _bf16_forward(net, tb, want):
+    """The port's bf16 net (JAX's params loaded) on the pair in train
+    mode: params f32, every module's output bf16, pad rows exactly 0 on
+    both sides, valid rows within cosine 0.999 of JAX's ``want``."""
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, a, o, name=name: seen.__setitem__(name, o.dtype))
+        for name, m in net.named_modules()]
+    out = net(tb.feats0, tb.pyramid0)
+    for h in hooks:
+        h.remove()
+    assert seen and all(d == BF for d in seen.values()), \
+        {k: d for k, d in seen.items() if d != BF}
+    valid = tb.pyramid0.levels[0].valid.numpy() > 0
+    got = out.detach().float().numpy()
+    assert not got[~valid].any() and not want[~valid].any()
+    a, b = got[valid], want[valid]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    assert cos.min() >= COS_MIN, f"min cosine {cos.min():.6f}"
+    return out, seen
+
+
+def test_res16unet34c_bf16_matches_jax(batches, jax_run):
+    """JAX's params in the port's bf16 net: rows within cosine 0.999 of
+    JAX's bf16 output, pad rows 0, params f32, every module's output bf16,
+    and one NCE loss within rel 1e-2 of JAX's, whose weight gradients are
+    bf16 values held in f32."""
+    _, tb = batches
+    assert jax_run["out_dtype"] == JBF
+    net = load_jax_params(_net(), jax_run["params"], jax_run["stats"]).train()
+    out, _ = _bf16_forward(net, tb, jax_run["out"])
+    loss = point_info_nce_loss(out, out, tb.q_idx, tb.k_idx, tb.pair_valid, 0.4)
+    assert loss.dtype == torch.float32
+    rel = abs(loss.item() - jax_run["loss"]) / abs(jax_run["loss"])
+    assert rel <= LOSS_RTOL, f"loss {loss.item():.6f} vs JAX {jax_run['loss']:.6f}"
+    loss.backward()
+    weights = [(n, m.weight) for n, m in net.named_modules()
+               if isinstance(m, (layers.SparseConv, layers.SparseConvTranspose,
+                                 layers.SparseLinear))]
+    assert len(weights) > 50
+    for name, w in weights:
+        assert w.grad.dtype == torch.float32
+        assert torch.equal(w.grad, w.grad.to(BF).float()), name
+
+
+def test_resunet18inbn_bf16_matches_jax(batches):
+    """JAX's bf16 ResUNet18INBN, its params in the port's bf16 net: the
+    instance norms (f32 pooling, bf16 out), the BatchNorms after them and
+    the final_fc / final_bn / final head all give bf16, and the rows agree
+    within cosine 0.999."""
+    jb, tb = batches
+    jmodel = j_load_model("ResUNet18INBN")(in_channels=3, out_channels=OUT, dtype=JBF)
+    variables = jax.jit(lambda r: jmodel.init(r, jb.feats0, jb.pyramid0, train=False))(
+        jax.random.PRNGKey(1))
+    out_j, _ = jax.jit(lambda v: jmodel.apply(v, jb.feats0, jb.pyramid0, train=True,
+                                              mutable=["batch_stats"]))(variables)
+    assert out_j.dtype == JBF
+    net = load_model("ResUNet18INBN")(in_channels=3, out_channels=OUT, dtype=BF)
+    net = load_jax_params(net, jax.device_get(variables["params"]),
+                          jax.device_get(variables["batch_stats"])).train()
+    _, seen = _bf16_forward(net, tb, np.asarray(jnp.asarray(out_j, jnp.float32)))
+    assert {"block1_0.norm1.inorm", "final_fc", "final_bn", "final"} <= set(seen)
+
+
+def test_bf16_train_steps_descend(batches):
+    """Five SGD steps of the bf16 net (lr 0.3, as JAX's bf16 step test):
+    finite losses, the last below the first; params and grads f32."""
+    _, tb = batches
+    torch.manual_seed(0)
+    model = load_model("Res16UNet34C")(in_channels=3, out_channels=OUT,
+                                       normalize_feature=True, dtype=BF,
+                                       generator=torch.Generator().manual_seed(0))
+    cfg = PretrainConfig(lr=0.3)
+    opt = optim.make_optimizer(model, cfg)
+    sched = optim.make_scheduler(opt, cfg)
+    step = make_train_step(cfg)
+    losses = [float(step(model, opt, sched, tb)["loss"]) for _ in range(5)]
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters() if p.grad is not None)
+
+
+def test_votenet_sparseconv_bf16_backbone_trains():
+    """The sparse-conv backbone computes in bf16, the heads take its f32
+    cast; params stay f32; five steps give finite losses and move them."""
+    from pointcontrast_tpu_torch.data import PadScheme as TPadScheme
+    from pointcontrast_tpu_torch.detect.datasets import (
+        SyntheticDetectionDataset,
+        collate_detection,
+    )
+    from pointcontrast_tpu_torch.detect.train import (
+        DetectConfig,
+        DetectTrainer,
+        batch_to_inputs,
+    )
+    from pointcontrast_tpu_torch.detect.votenet import VoteNet
+
+    ds = SyntheticDetectionDataset(num_scenes=1, num_objects=3, num_points=1200, seed=0)
+    dc = ds.dc
+    batch = collate_detection([ds[0]], voxel_size=0.05, scheme=TPadScheme(npad0=2048),
+                              layout="chunked").to("cpu")
+    model = VoteNet(num_class=dc.num_class, num_heading_bin=dc.num_heading_bin,
+                    num_size_cluster=dc.num_size_cluster, mean_size_arr=dc.mean_size_arr,
+                    num_proposal=32, backbone="sparseconv", dtype=BF,
+                    generator=torch.Generator().manual_seed(0))
+    trainer = DetectTrainer(model, dc, DetectConfig(learning_rate=1e-4,
+                                                    checkpoint_dir="/nonexistent"), "cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    seen = {}
+    hook = model.backbone_net.net.register_forward_hook(
+        lambda m, a, o: seen.__setitem__("net", o.dtype))
+    model.eval()
+    with torch.no_grad():
+        end_points = model(batch_to_inputs(batch))
+    hook.remove()
+    assert seen["net"] == BF and end_points["fp2_features"].dtype == torch.float32
+    before = [p.detach().clone() for p in model.parameters()]
+    losses = [float(trainer._step(model, trainer.opt, batch)["loss"]) for _ in range(5)]
+    assert np.all(np.isfinite(losses)), losses
+    moved = sum(float((p.detach() - q).abs().sum())
+                for p, q in zip(model.parameters(), before))
+    assert moved > 0.0
+
+
+SEMSEG_CLI = ["data.dataset=SyntheticSemsegDataset", "net.model=Res16UNet14A",
+              "data.layout=chunked", "data.batch_size=2", "data.npad0=4096",
+              "optimizer.max_iter=2", "train.stat_freq=1", "train.val_freq=2",
+              "train.save_freq=100", "distributed.num_devices=1"]
+VOTENET_CLI = ["data.dataset=synthetic", "data.num_scenes=2", "data.num_points=2000",
+               "data.batch_size=2", "net.backbone_model=Res16UNet14A",
+               "data.voxel_size=0.05", "data.npad0=2048", "net.num_proposal=16",
+               "optimizer.max_epoch=1", "eval.eval_every=1", "distributed.num_devices=1"]
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+def test_semseg_cli_runs_the_shipped_bf16(tmp_path, layout):
+    """The semseg CLI on the shipped YAML, ``net.dtype: bfloat16`` as
+    written: a bf16 net with f32 params trains, validates and saves."""
+    _semseg_cli_trains_in_bf16(tmp_path, [f"data.layout={layout}"])
+
+
+def test_semseg_cli_runs_resunet18inbn_in_bf16(tmp_path):
+    """The ResUNet family, INBN included, through the CLI in bf16."""
+    _semseg_cli_trains_in_bf16(tmp_path, ["net.model=ResUNet18INBN"])
+
+
+def _semseg_cli_trains_in_bf16(tmp_path, overrides):
+    from pointcontrast_tpu_torch.apps import semseg as app
+
+    trainer, history = app.main(SEMSEG_CLI + overrides + [f"train.out_dir={tmp_path}"],
+                                device="cpu")
+    assert trainer.model.dtype == BF
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    assert [i for i, _ in history] == [1, 2]
+    assert all(np.isfinite(m["loss"]) for _, m in history)
+    assert 0.0 <= trainer.best_miou <= 100.0
+    assert (tmp_path / "weights" / "checkpoint_2.pth").exists()
+
+
+def test_votenet_cli_runs_the_shipped_bf16(tmp_path):
+    """The VoteNet CLI on the shipped YAML (sparse-conv backbone, chunked,
+    ``net.dtype: bfloat16``): one epoch, an evaluation, a checkpoint."""
+    from pointcontrast_tpu_torch.apps import votenet as app
+
+    trainer = app.main(VOTENET_CLI + [f"misc.out_dir={tmp_path}"], device="cpu")
+    assert trainer.epoch == 1 and trainer.model.backbone_net.net.dtype == BF
+    assert (tmp_path / "weights" / "checkpoint_1.pth").exists()
+
+
+@pytest.mark.parametrize("override", [
+    ["net.model=MinkUNetHyper14INBN"],
+    ["net.wrapper_type=BilateralCRF"],
+    ["data.layout=brick"],
+])
+def test_semseg_cli_refuses_bf16_without_kernels(tmp_path, override):
+    """MinkUNetHyper, the CRF filter and the brick layout in bf16: item 5b,
+    before any work."""
+    from pointcontrast_tpu_torch.apps import semseg as app
+
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        app.main(SEMSEG_CLI + override + [f"train.out_dir={tmp_path}"], device="cpu")
+    assert not os.path.exists(tmp_path / "weights")
+
+
+def test_votenet_cli_refuses_a_bf16_hyper_backbone(tmp_path):
+    from pointcontrast_tpu_torch.apps import votenet as app
+
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        app.main(VOTENET_CLI + ["net.backbone_model=MinkUNetHyper14INBN",
+                                f"misc.out_dir={tmp_path / 'run'}"], device="cpu")
+    assert not os.path.exists(tmp_path / "run")
+
+
+@pytest.mark.parametrize("what", ["k4", "sum pool", "avg unpool", "brick conv",
+                                  "resnet", "hyper"])
+def test_ops_and_nets_refuse_bf16_without_kernels(batches, what):
+    """K4 (scatter_gemm), the k2s2 pools (gather_sum / scatter_sum), the
+    brick convs and the nets built on them raise NotImplementedError naming
+    item 5b on bf16: none of them runs its f32 kernel in place."""
+    _, tb = batches
+    lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
+    f = torch.zeros(lv.valid.shape[0], 4, dtype=BF)
+    calls = {
+        "k4": lambda: ops.sparse_conv(f, lv.nbr, torch.zeros(27, 4, 4, dtype=BF)),
+        "sum pool": lambda: ops.sparse_sum_pool(f, lv.down_nbr),
+        "avg unpool": lambda: ops.sparse_avg_unpool(f[:lv1.valid.shape[0]], lv.up_parent),
+        "brick conv": lambda: layers.SparseConv(4, 4, 27).forward(
+            f, _brick_map(), lv.valid, order=None),
+        "resnet": lambda: load_model("ResNet18")(in_channels=3, out_channels=4, dtype=BF),
+        "hyper": lambda: load_model("MinkUNetHyper14INBN")(in_channels=3, out_channels=4,
+                                                           dtype=BF),
+    }
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        calls[what]()
+
+
+def _brick_map():
+    from pointcontrast_tpu_torch.sparse.brick import BrickMap, build_plan
+
+    return BrickMap(nbr=torch.zeros(27, 1, dtype=torch.int32), plan=build_plan(3),
+                    order=None)
+
+
+def test_f32_mode_is_unchanged(batches):
+    """dtype=None and dtype=float32 give the f32 net of before, bit for
+    bit: no cast on the f32 path."""
+    _, tb = batches
+    a = _net(dtype=None).train()
+    b = copy.deepcopy(a)
+    b.dtype = torch.float32
+    oa, ob = a(tb.feats0, tb.pyramid0), b(tb.feats0, tb.pyramid0)
+    assert oa.dtype == torch.float32 and torch.equal(oa, ob)

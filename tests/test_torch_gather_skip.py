@@ -224,3 +224,83 @@ def test_narrow_34c_with_skips_matches_jax(batches, jax_run):
                                    atol=TOL["atol"] * scale, err_msg=name)
         checked += 1
     assert checked == len(named)
+
+
+def _bf16_case(case, nbr, down, s, s_out, x3, w, rng):
+    """``_case`` on bf16 tables and weights, through the bf16 forms' twins."""
+    fn, args, key, at = _case(case, nbr, down, s, s_out, x3, w, rng)
+    bf = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else a
+               for a in args)
+    return getattr(kernels, fn.__name__.replace("_plain", "_bf16_plain")), bf, key, at
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+@pytest.mark.parametrize("case", ["gemm", "gemm centre", "gemm down", "wgrad g",
+                                  "wgrad a"])
+def test_bf16_twins_leave_out_the_skip_row(batches, layout, case):
+    """The same for the bf16 forms' twins on bf16 tables: with the skipped
+    row zero, skipping it changes no bit; with it non-zero, the gemm's
+    result changes exactly at the output rows that gather it."""
+    rng = np.random.RandomState(2)
+    nbr, down, s, s_out = _level_maps(batches[layout], 0)
+    skip = _gathered_row(nbr, down)
+    b_ = nbr.shape[1]
+    x3 = torch.from_numpy(rng.randn(b_, s, 4).astype(np.float32))
+    w = torch.from_numpy(rng.randn(27, 4, 6).astype(np.float32))
+    fn, args, key, at = _bf16_case(case, nbr, down, s, s_out, x3, w, rng)
+    zeroed = args[at].clone()
+    zeroed[:, skip] = 0.0
+    args0 = args[:at] + (zeroed,) + args[at + 1:]
+    assert torch.equal(fn(*args0, **{key: skip}), fn(*args0))
+    plain, skipped = fn(*args), fn(*args, **{key: skip})
+    assert not torch.equal(plain, skipped)
+    if case.startswith("gemm"):
+        assert plain.dtype == torch.bfloat16
+        m, taps = args[1], list(args[2])
+        hits = torch.zeros(plain.shape[:2], dtype=torch.bool)
+        for t in taps:
+            hits |= m[t] == skip
+        if case == "gemm centre":
+            hits[:, skip] = True
+        changed = (plain != skipped).any(-1)
+        assert not (changed & ~hits).any()  # bf16 rounding may hide a change
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypatch):
+    """The bf16 net (the layers' bf16 casts, ``dtype=bfloat16``): every
+    gather_gemm_bf16 / gather_wgrad_bf16 call of one train-mode forward and
+    backward finds its skip rows exactly zero, and K3's f32 dF gather_gemm
+    passes none."""
+    seen = {"gemm": 0, "wgrad": 0, "k3 f32 dF": 0}
+
+    def zero_row(t3, row):
+        return row < 0 or not t3[:, row].any()
+
+    def gemm(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
+        assert x3.dtype == torch.bfloat16 and zero_row(x3, skip)
+        seen["gemm"] += skip >= 0
+        return kernels.gather_gemm_bf16(x3, map_, taps, stride, w, wc, s_out, skip, order)
+
+    def gemm_f32(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
+        assert map_ is None and skip == -1  # K3's dF on the f32 scatter dy
+        seen["k3 f32 dF"] += 1
+        return kernels.gather_gemm(x3, map_, taps, stride, w, wc, s_out, skip, order)
+
+    def wgrad(a3, a_map, a_taps, a_stride, g3, *args, skip_a=-1, skip_g=-1):
+        assert a3.dtype == torch.bfloat16 and zero_row(a3, skip_a) and zero_row(g3, skip_g)
+        seen["wgrad"] += skip_a >= 0 or skip_g >= 0
+        return kernels.gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, *args,
+                                         skip_a=skip_a, skip_g=skip_g)
+
+    monkeypatch.setattr(ops, "gather_gemm_bf16", gemm)
+    monkeypatch.setattr(ops, "gather_gemm", gemm_f32)
+    monkeypatch.setattr(ops, "gather_wgrad_bf16", wgrad)
+    batch = batches[layout]
+    net = TNet(in_channels=3, out_channels=OUT, normalize_feature=True,
+               generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    out = net.train()(batch.feats0, batch.pyramid0)
+    assert out.dtype == torch.bfloat16
+    proj = torch.from_numpy(np.random.RandomState(3).randn(OUT).astype(np.float32))
+    (torch.sin(3.0 * out.float()) * proj).sum().backward()
+    assert min(seen.values()) > 0, seen

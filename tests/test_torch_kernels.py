@@ -70,13 +70,27 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
         (kernels.scatter_sum, kernels.scatter_sum_plain,
          (x3, upp[None], [0], 0, s1, s1 - 1)),
     ]
+    bf = torch.bfloat16
+    x3b, x1b, wb, g3b = x3.to(bf), x1.to(bf), w.to(bf), g3.to(bf)
+    calls += [
+        (kernels.gather_gemm_bf16, kernels.gather_gemm_bf16_plain,
+         (x3b, nbr, taps, 0, wb, None, s)),
+        (kernels.gather_wgrad_bf16, kernels.gather_wgrad_bf16_plain,
+         (x3b, None, None, 0, g3b, nbr, taps, 0, 27, s)),
+        (kernels.parent_gemm_bf16, kernels.parent_gemm_bf16_plain,
+         (x1b, upp, upo, wb[:8])),
+        (kernels.scatter_parent_bf16, kernels.scatter_parent_bf16_plain,
+         (g3b, upp, upo, 8, s1)),
+    ]
     kernels.reset_launches()
     for fn, plain, args in calls:
         torch.testing.assert_close(fn(*args), plain(*args), rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "gather_gemm": 0, "gather_wgrad": 0, "parent_gemm": 0,
         "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0,
-        "gather_sum": 0, "scatter_sum": 0, "brick_gemm": 0, "brick_wgrad": 0}
+        "gather_sum": 0, "scatter_sum": 0, "brick_gemm": 0, "brick_wgrad": 0,
+        "gather_gemm_bf16": 0, "gather_wgrad_bf16": 0, "parent_gemm_bf16": 0,
+        "scatter_parent_bf16": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",
@@ -165,6 +179,7 @@ def test_kernels_match_plain_twins_on_card(pyr):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     lv, lv1 = pyr.levels[0], pyr.levels[1]
@@ -228,6 +243,7 @@ def test_brick_kernels_match_plain_twins_on_card():
     from pointcontrast_tpu_torch.sparse import brick
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     pyr = brick.build_brick_pyramid(_coords(np.random.RandomState(1)), 3,
                                     [512, 480, 200, 60], num_batch=3,

@@ -51,7 +51,9 @@ def test_cli_trains_validates_saves_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("override,error", [
-    (["net.dtype=bfloat16"], NotImplementedError),  # the shipped YAML's
+    # the shipped YAML's bf16, with the CRF filter, whose flat conv has no
+    # bf16 kernel yet (ROADMAP item 5b)
+    (["net.dtype=bfloat16", "net.wrapper_type=BilateralCRF"], NotImplementedError),
     (["data.dataset=ScannetVoxelization2cmDataset"], NotImplementedError),
     (["net.model=MinkUNetHyper14INBN", "data.layout=brick"], ValueError),
     (["distributed.num_devices=2"], NotImplementedError),

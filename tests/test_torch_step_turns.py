@@ -60,3 +60,17 @@ def test_timed_wrappers_tally_and_restore():
     finally:
         restore()
     assert ops.parent_gemm is original
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("app", ["pretrain", "votenet", "semseg"])
+def test_app_kwargs_carry_a_bf16_dtype_only(app, dtype):
+    """``--dtype bfloat16`` reaches the app; float32 adds no keyword, so a
+    base checkout whose apps take no dtype still runs."""
+    import types
+
+    args = types.SimpleNamespace(app=app, model=None, crf=False, layout="chunked",
+                                 backbone="sparseconv", dtype=dtype)
+    kw = step_turns._app_kwargs(args)
+    assert kw.get("dtype") == (torch.bfloat16 if dtype == "bfloat16" else None)
+    assert ("dtype" in kw) == (dtype == "bfloat16")

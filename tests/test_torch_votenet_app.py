@@ -38,7 +38,10 @@ def test_cli_trains_evaluates_saves_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (["net.backbone=sparseconv"], "net.dtype=float32"),
+    # the shipped YAML's bf16 on a backbone whose unpools have no bf16 kernel
+    # yet (ROADMAP item 5b)
+    (["net.backbone=sparseconv", "net.backbone_model=MinkUNetHyper14INBN"],
+     "net.dtype=float32"),
     (["data.dataset=sunrgbd"], "SUN RGB-D"),
     (["distributed.num_devices=2"], "item 7"),
     (["net.backbone=sparseconv", "net.dtype=float32", "data.layout=brick"], "chunked"),
