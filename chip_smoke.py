@@ -4,10 +4,10 @@ NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scatter-blocks 1,2,4,8,16
+    python3 chip_smoke.py --wgrad-blocks 1,2,4,8
 
-The second form only times scatter_gemm at several SCATTER_BLOCKS
-(``scatter_blocks_sweep``).  Phases of the first, each printed on its own
-line:
+The other forms only time scatter_gemm at several SCATTER_BLOCKS, or the
+tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phases of the first, each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
@@ -41,12 +41,17 @@ line:
      gather_wgrad_bf16, parent_gemm_bf16, scatter_parent_bf16; K3's dF is
      the f32 gather_gemm on the f32 scatter dy) at the shapes of one real
      bf16 forward, the Cin = 3 stem's among them, against its bf16 twin to
-     BF16_RTOL and, bit for bit, against its f32 kernel on the widened
-     operands rounded once (``BF16_FORMS``; the tap splits a reading);
-     the kernels-vs-plain step (loss to BF16_LOSS_RTOL, the
-     valid output to cosine BF16_COS_MIN, its rows' cosines a reading);
-     5 counted steps; the
-     L2-normalised bf16 rows to BF16_NORM_TOL;
+     BF16_RTOL; the two tensor-core forms (``BOUNDED``) within their
+     derived bound of the exact sum of their products (``bound_ratio`` <=
+     1, gather_gemm_bf16's twin with its taps reversed a reading:
+     ``reversed_spread``), the others bit for bit against their f32
+     kernels on the widened operands rounded once (``BF16_FORMS``; the tap
+     splits a reading); the kernels-vs-plain step (loss to BF16_LOSS_RTOL,
+     the valid output to cosine BF16_COS_MIN, its rows' cosines a reading);
+     5 counted steps; the L2-normalised bf16 rows to BF16_NORM_TOL;
+  5c. ``pretrain voxel bf16``: 5b on the voxel batches, whose K1 and K2
+     forwards round each tap (gather_gemm_bf16's ``round_each_tap``, JAX's
+     flat ``_conv_core``);
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -174,7 +179,9 @@ same bits from two launches (segment_sum at up to SEG_SMEM segments);
 ``[ptxas]`` lines give the gather GEMMs', scatter_gemm's, parent_gemm's,
 the brick kernels', FPS's, ball query's, segment_sum's and three_nn's
 registers, stack and spills (any stack or spill fails the build phase, but
-for the gather GEMMs').  Then
+for the f32 and SIMT bf16 gather GEMMs'); ``[sass]`` lines the gather GEMM
+instances' HMMA counts (only the tensor-core forms may, and must, have
+them).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -263,14 +270,15 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "scatter_parent_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:803"),
 }
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
-# PTXAS_NO_SPILL fail the build phase with any stack frame or spill
-PTXAS_SPARSE = ("gather_gemm_kernel", "gather_wgrad_kernel", "parent_gemm_kernel",
-                "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
-                "segment_sum_kernel")
+# PTXAS_NO_SPILL and the tensor-core gather_wgrad instances (bf16, bf16)
+# fail the build phase with any stack frame or spill
+PTXAS_SPARSE = ("gather_gemm_kernel", "gather_gemm_mma_kernel", "gather_wgrad_kernel",
+                "parent_gemm_kernel", "brick_gemm_kernel", "brick_wgrad_kernel",
+                "scatter_gemm_kernel", "segment_sum_kernel")
 PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
-PTXAS_NO_SPILL = ("parent_gemm_kernel", "fps_kernel", "brick_gemm_kernel",
-                  "brick_wgrad_kernel", "scatter_gemm_kernel", "ball_query_kernel",
-                  "segment_sum_kernel", "three_nn_kernel")
+PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "fps_kernel",
+                  "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
+                  "ball_query_kernel", "segment_sum_kernel", "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
@@ -295,7 +303,8 @@ HYPER_UNPOOLS = 3
 # the H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the
 # tensor cores (the f32 kernels' products), and the bf16 tensor cores'
 # dense FLOP/s (the bound of a bf16 x bf16 product with f32 sums, whatever
-# pipe the kernel uses: the bf16 forms run SIMT FMAs today)
+# pipe the kernel uses: gather_gemm_bf16 and the (bf16, bf16)
+# gather_wgrad_bf16 run mma.sync, parent_gemm_bf16 SIMT FMAs)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -305,12 +314,20 @@ OPTIONAL_MS = ("library_ms", "library_device_ms")
 # kernels held to their twins bit for bit in every phase: scatter_parent
 # stores each kept row once (the pad slot left out, as its twin does)
 ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16")
-# the bf16 forms run their f32 instances' tiles, tap splits and FMA order on
-# operands widened exactly: each equals its f32 kernel on the widened
-# operands, its output rounded once to bf16, bit for bit (a rounding of each
-# split's partial or of each tap's sum would not)
-BF16_FORMS = ("gather_gemm_bf16", "gather_wgrad_bf16", "parent_gemm_bf16",
-              "scatter_parent_bf16")
+# the bf16 forms that run their f32 instances' tiles, tap splits and FMA
+# order on operands widened exactly: each equals its f32 kernel on the
+# widened operands, its output rounded once to bf16, bit for bit (a rounding
+# of each split's partial or of each tap's sum would not); gather_wgrad_bf16
+# with an f32 G (K3's dW) among them
+BF16_FORMS = ("gather_wgrad_bf16", "parent_gemm_bf16", "scatter_parent_bf16")
+# the tensor-core forms (gather_wgrad_bf16 with a bf16 G): their sums run
+# in the mma's order, so each output is held to the exact (f64) sum of its
+# products within the bound derived in sparse/kernels.py
+# (``gather_gemm_bf16_bound``: one bf16 rounding, or one a tap under
+# ``round_each_tap``, plus gamma(n) of the sum of |products| for the f32
+# adds), ``bound_ratio`` <= 1
+BOUNDED = {"gather_gemm_bf16": "gather_gemm_bf16_bound",
+           "gather_wgrad_bf16": "gather_wgrad_bf16_bound"}
 # radii tried, largest first, for the heavy-tail scatter-add check: the
 # first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
 # query's repeats of the first hit fill most of the group's rows
@@ -360,10 +377,13 @@ def phase_build():
             if entry.startswith(entries):
                 say("ptxas", kernel=entry, registers=regs, stack_bytes=stack,
                     spill_bytes=spills)
-                if entry.startswith(PTXAS_NO_SPILL) and (stack or spills):
+                if (entry.startswith(PTXAS_NO_SPILL) or entry.endswith("bf16,bf16>")) and (
+                        stack or spills):
                     spilled.append(entry)
     if spilled:
         raise AssertionError(f"stack or spills in {spilled}")
+    sass_mma_check(cuda_build.library_path("sparse_conv"),
+                   os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump"))
     t0 = time.perf_counter()
     if native.get_lib() is None:
         raise RuntimeError("native kernel-map library failed to build")
@@ -372,22 +392,56 @@ def phase_build():
         gxx_s=f"{time.perf_counter() - t0:.1f}")
 
 
+def sass_mma_check(library, cuobjdump):
+    """The tensor-core forms' machine code: one ``[sass]`` line a gather
+    GEMM instance with its count of HMMA instructions (``cuobjdump
+    -sass``); fails unless every gather_gemm_mma_kernel and (bf16, bf16)
+    gather_wgrad_kernel instance issues them and no other instance does."""
+    import re
+
+    text = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = entry_name(m.group(1))
+            counts[entry] = 0
+        elif entry is not None and "HMMA" in line:
+            counts[entry] += 1
+    wrong = []
+    for entry, n in sorted(counts.items()):
+        if not entry.startswith(("gather_gemm", "gather_wgrad")):
+            continue
+        tensor_cores = entry.startswith("gather_gemm_mma") or entry.endswith("bf16,bf16>")
+        say("sass", kernel=entry, hmma=n)
+        if (n > 0) != tensor_cores:
+            wrong.append(entry)
+    if wrong:
+        raise AssertionError(f"HMMA where it should not be, or missing: {wrong}")
+
+
+def entry_name(mangled: str) -> str:
+    """``gather_gemm_kernel<2>`` from a kernel's mangled name (Itanium-
+    mangled int and bool template arguments, ``segment_sum_kernel<32,1>``);
+    the name as it is where it is not a kernel's."""
+    import re
+
+    name = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E|f|\d+__nv_bfloat16|S\d*_)+E)?",
+                     mangled)
+    return mangled if name is None else name.group(1) + template_args(name.group(2) or "")
+
+
 def ptxas_entries(text):
     """[(entry, registers, stack bytes, spill store + load bytes)] from
-    ``nvcc -Xptxas -v`` output; a template instance's entry reads like
-    ``gather_gemm_kernel<2>`` (Itanium-mangled int and bool arguments,
-    ``segment_sum_kernel<32,1>``)."""
+    ``nvcc -Xptxas -v`` output, entries named by ``entry_name``."""
     import re
 
     out, entry, stack, spills = [], None, 0, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(
-                r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E|f|\d+__nv_bfloat16|S\d*_)+E)?",
-                m.group(1))
-            entry = m.group(1) if name is None else name.group(1) + template_args(
-                name.group(2) or "")
+            entry = entry_name(m.group(1))
             stack = spills = 0
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -903,8 +957,9 @@ def bf16_splits(module, name, args):
     sum); None for the other kernels."""
     if name == "gather_gemm_bf16":
         x3, _, _, _, w, wc, s_out = args[:7]
+        tile = module._gemm_tile_n_bf16(w.shape[2], bool(args[9]) if len(args) > 9 else False)
         return module._gemm_splits(x3.shape[0], s_out, w.shape[2],
-                                   w.shape[0] + (wc is not None))
+                                   w.shape[0] + (wc is not None), tile)
     if name == "parent_gemm_bf16":
         x3, parent, _, w = args[:4]
         return module._parent_splits(x3.shape[0], parent.shape[1], w.shape[2])
@@ -1006,13 +1061,21 @@ def phase_kernels(checks, module, exact=()):
             required = name in REPEAT_EXACT and not (  # the general path's atomics
                 name == "segment_sum" and args[2] > module.SEG_SMEM)
             ok = ok and (extra["repeat_bit_equal"] or not required)
-        if name in BF16_FORMS:
+        tensor_cores = name in BOUNDED and all(
+            a.dtype == torch.bfloat16 for a in args if torch.is_tensor(a) and a.is_floating_point())
+        if tensor_cores:
+            ratio = module.bound_ratio(got, *getattr(module, BOUNDED[name])(*args))
+            extra["bound_ratio"] = f"{ratio:.3e}"
+            ok = ok and ratio <= 1.0
+            if name == "gather_gemm_bf16":  # the twin's own spread under another order
+                extra["reversed_spread"] = f"{_max_err(_reversed_gemm(*args), want)[0]:.3e}"
+        elif name in BF16_FORMS:
             f32 = getattr(module, name.removesuffix("_bf16"))(*map(_widened, args))
             extra["f32_instance_bit_equal"] = _equal(got, f32.to(got.dtype))
             ok = ok and extra["f32_instance_bit_equal"]
-            splits = bf16_splits(module, name, args)
-            if splits is not None:
-                extra["splits"] = splits
+        splits = bf16_splits(module, name, args)
+        if splits is not None:
+            extra["splits"] = splits
         if name == "furthest_point_sample":
             xyz, npoint = args
             extra["cluster"] = fps_cluster_of(xyz)
@@ -1096,15 +1159,33 @@ def _agreement(a, b) -> dict:
             "rows_below": float((rows < BF16_COS_MIN).float().mean())}
 
 
-def _reversed_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
-    """gather_gemm_bf16's twin with a map's taps summed in reverse order:
-    the same function, other f32 roundings (``_forward_agreement``'s
-    spread)."""
-    from pointcontrast_tpu_torch.sparse import kernels as K
+def _reversed_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
+                   round_each_tap=False):
+    """gather_gemm_bf16's function with f32 sums, its taps added in reverse
+    order (the centre first): the roundings of another f32 sum than the
+    kernel's and the exact twin's (``_forward_agreement``'s spread, and
+    each bf16 gemm check's ``reversed_spread``)."""
+    import torch
 
-    if map_ is not None:
-        taps, w = list(taps)[::-1], w.flip(0)
-    return K.gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
+    from pointcontrast_tpu_torch.sparse.kernels import row_index, take_rows
+
+    b_ = x3.shape[0]
+
+    def product(rows, wj):
+        p = rows.float() @ wj.float()
+        return p.to(x3.dtype).float() if round_each_tap else p
+
+    out = x3.new_zeros(b_, s_out, w.shape[-1], dtype=torch.float32)
+    if wc is not None:
+        xc = x3[:, :s_out]
+        if 0 <= skip < s_out:
+            xc = torch.where((torch.arange(s_out, device=x3.device) != skip)[:, None], xc, 0.0)
+        out = out + product(xc, wc)
+    for j in reversed(range(w.shape[0])):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
+        rows = torch.where((idx != skip)[..., None], take_rows(x3, idx), 0.0)
+        out = out + product(rows, w[j])
+    return out.to(x3.dtype)
 
 
 def _forward_agreement(model, run, valid, device) -> tuple:
@@ -1872,7 +1953,8 @@ def conv_calls(model, feats, run):
     (a same-level map with ``rev``: K1; with ``up``: K2), "k4" (any other
     map), "tr" (K3), "crf" (the CRF filter's flat map), "brick" (a
     BrickMap), "bdown" (a BrickDownMap) and "bup" (a brick up conv).  Flat
-    (voxel) maps come as the kernels take them, one [K, 1, N] chunk.
+    (voxel) maps come as the kernels take them, one [K, 1, N] chunk, with
+    ``flat`` set in kwargs.
     ``stem``: the call reads the batch's input features (or, in a bf16 net,
     their bf16 cast: the first call, of their shape), whose gradient no
     one needs."""
@@ -1897,6 +1979,7 @@ def conv_calls(model, feats, run):
             elif kwargs.get("up") is None and rev is None:
                 kind = "k4"
             if kind in ("conv", "k4") and args[1].dim() == 2:  # voxel: one chunk
+                kwargs["flat"] = True
                 args[1] = args[1][:, None]
                 if kwargs.get("up") is not None:
                     kwargs["up"] = tuple(None if u is None else u[None] for u in kwargs["up"])
@@ -2099,9 +2182,15 @@ def conv_checks(model, batch, calls=None):
             taps = [i for i in range(k) if i != center]
             ct = _masked_randn((nb, s_in, cout), valid, gen).to(dt)
             tag = f"{name} B{nb} S{s_in} {cin}->{cout}"
-            checks.append((f"gather_gemm{sfx}", f"K1 fwd {tag}", gemm,
-                           (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in,
-                            s_in - 1, kw.get("order"))))
+            if sfx and kw.get("flat"):  # the voxel bf16 forward: each tap rounded,
+                # the centre gathered in its place (sparse/ops.py, JAX's _conv_core)
+                checks.append((f"gather_gemm{sfx}", f"K1 fwd per tap {tag}", gemm,
+                               (f3, nbr, list(range(k)), 0, w.contiguous(), None, s_in,
+                                s_in - 1, kw.get("order"), True)))
+            else:
+                checks.append((f"gather_gemm{sfx}", f"K1 fwd {tag}", gemm,
+                               (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in,
+                                s_in - 1, kw.get("order"))))
             if not stem:
                 checks.append((f"gather_gemm{sfx}", f"K1 dF {tag}", gemm,
                                (ct, nbr, [rev[i] for i in taps], 0,
@@ -2116,9 +2205,11 @@ def conv_checks(model, batch, calls=None):
             s_out = down.shape[2]
             ct = _masked_randn((nb, s_out, cout), valid, gen).to(dt)
             tag = f"{name} B{nb} S{s_in}->S{s_out} {cin}->{cout}"
+            per_tap = (True,) if sfx and kw.get("flat") else ()  # the voxel bf16 forward
             checks += [
-                (f"gather_gemm{sfx}", f"K2 fwd {tag}", gemm,
-                 (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"))),
+                (f"gather_gemm{sfx}", f"K2 fwd {'per tap ' * bool(per_tap)}{tag}", gemm,
+                 (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"),
+                  *per_tap)),
                 (f"parent_gemm{sfx}", f"K2 dF {tag}", pgemm,
                  (ct, parent, off, wt.contiguous(), -1, up_order)),
                 (f"gather_wgrad{sfx}", f"K2 dW {tag}", wgrad,
@@ -2937,59 +3028,104 @@ def votenet_bf16_spread(seeds) -> int:
     return 0
 
 
-def scatter_blocks_sweep(multiples) -> int:
-    """scatter_gemm's device ms with ``SCATTER_BLOCKS`` (the blocks below
-    which it splits a tile's steps) at each of ``multiples`` times
-    ``GEMM_BLOCKS``: summed over the ResNet18 and ResNet50 K4 dF checks and
-    the CRF's flat dF (``conv_checks`` on the semseg and ResNet batches),
-    each held to its plain twin at every setting.  Two rounds, the list and
-    then the list reversed; one ``[sweep]`` line a setting, path and round,
-    and a JSON line of {path: {multiple: [device ms of each round]}}."""
+def _sweep_groups(constant, device):
+    """{path: [checks]} a blocks sweep times: SCATTER_BLOCKS, the ResNets'
+    K4 dF and the CRF's flat dF (scatter_gemm); WGRAD_BLOCKS, the
+    tensor-core gather_wgrad_bf16 checks (a bf16 G) of the pretrain, semseg
+    and VoteNet bf16 forwards."""
+    import torch
+
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    groups = {}
+    if constant == "SCATTER_BLOCKS":
+        scenes, batch = make_semseg_batch(device)
+        model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF)
+        groups["semseg crf"] = [c for c in conv_checks(model, batch)
+                                if c[1].startswith("flat dF")]
+        del model, batch
+        rbatch = W.resnet_batch(scenes).to(device)
+        for name in ("ResNet18", "ResNet50"):
+            model = W.resnet_model(seed=0, model=name)
+            groups[name.lower()] = [c for c in conv_checks(model, rbatch)
+                                    if c[1].startswith("K4 dF")]
+            del model
+        return groups
+    bf = torch.bfloat16
+
+    def mma(checks):
+        return [c for c in checks if c[0] == "gather_wgrad_bf16" and c[3][4].dtype == bf]
+
+    b = make_batches(device, n_batches=1)[0]
+    model = W.pretrain_model(seed=0, dtype=bf)
+    groups["pretrain bf16"] = mma(conv_checks(model, None, calls=conv_calls(
+        model, b.feats0, lambda m: m(b.feats0, b.pyramid0))))
+    _, batch = make_semseg_batch(device)
+    groups["semseg bf16"] = mma(conv_checks(W.semseg_model(seed=0, dtype=bf), batch))
+    vb = make_votenet_batches(device, "chunked")[0]
+    net = W.votenet_model(seed=0, dtype=bf).backbone_net.net
+    groups["votenet bf16"] = mma(conv_checks(None, None, calls=conv_calls(
+        net, vb.voxel_feats, lambda m: m(vb.voxel_feats, vb.voxel_pyramid))))
+    return groups
+
+
+def blocks_sweep(constant, multiples) -> int:
+    """A kernel's device ms with a block target of ``sparse.kernels`` at
+    each of ``multiples`` of its unit: ``SCATTER_BLOCKS`` (the blocks below
+    which scatter_gemm splits a tile's steps, in GEMM_BLOCKS) or
+    ``WGRAD_BLOCKS`` (the blocks gather_wgrad aims its row slices at, in
+    132 SMs; timed on the tensor-core gather_wgrad_bf16), summed over each
+    path's checks (``_sweep_groups``), each held at every setting to its
+    plain twin (scatter_gemm) or to its bound (gather_wgrad_bf16).  Two
+    rounds, the list and then the list reversed; one ``[sweep]`` line a
+    setting, path and round, and a JSON line of {path: {multiple: [device
+    ms of each round]}}."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
-    from pointcontrast_tpu_torch.tools import workload as W
 
     phase_device()
     phase_build()
     device = torch.device("cuda", 0)
-    scenes, batch = make_semseg_batch(device)
-    model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF)
-    groups = {"semseg crf": [c for c in conv_checks(model, batch)
-                             if c[1].startswith("flat dF")]}
-    del model, batch
-    rbatch = W.resnet_batch(scenes).to(device)
-    for name in ("ResNet18", "ResNet50"):
-        model = W.resnet_model(seed=0, model=name)
-        groups[name.lower()] = [c for c in conv_checks(model, rbatch)
-                                if c[1].startswith("K4 dF")]
-        del model
-    saved = K.SCATTER_BLOCKS
+    groups = _sweep_groups(constant, device)
+    unit = K.GEMM_BLOCKS if constant == "SCATTER_BLOCKS" else 132
+
+    def check(label, fn, args, m):
+        got = fn(*args)
+        if constant == "SCATTER_BLOCKS":
+            err, ref = _max_err(got, K.scatter_gemm_plain(*args))
+            ok, what = err <= ATOL + RTOL * ref, f"{err:.3e} of {ref:.3e}"
+        else:
+            ratio = K.bound_ratio(got, *K.gather_wgrad_bf16_bound(*args))
+            ok, what = ratio <= 1.0, f"bound ratio {ratio:.3e}"
+        if not ok:
+            raise AssertionError(f"{label} at {m}x: {what}")
+
+    saved = getattr(K, constant)
     table = {path: {m: [] for m in multiples} for path in groups}
     try:
         for order in (list(multiples), list(reversed(multiples))):
             for m in order:
-                K.SCATTER_BLOCKS = m * K.GEMM_BLOCKS
+                setattr(K, constant, m * unit)
                 for path, checks in groups.items():
                     total = 0.0
                     for _, label, fn, args in checks:
-                        err, ref = _max_err(fn(*args), K.scatter_gemm_plain(*args))
-                        if not err <= ATOL + RTOL * ref:
-                            raise AssertionError(f"{label} at {m}x: {err:.3e} of {ref:.3e}")
+                        check(label, fn, args, m)
                         total += _device_ms(fn, args)
                     table[path][m].append(total)
-                    say("sweep", path=repr(path), multiple=m, blocks=K.SCATTER_BLOCKS,
+                    say("sweep", path=repr(path), multiple=m, blocks=m * unit,
                         checks=len(checks), device_ms=f"{total:.4f}")
     finally:
-        K.SCATTER_BLOCKS = saved
-    print(json.dumps({"scatter_blocks": table}), flush=True)
+        setattr(K, constant, saved)
+    print(json.dumps({constant.lower(): table}), flush=True)
     return 0
 
 
 def main() -> int:
     sys.path.insert(0, ROOT)
-    if sys.argv[1:2] == ["--scatter-blocks"]:
-        return scatter_blocks_sweep([int(m) for m in sys.argv[2].split(",")])
+    sweeps = {"--scatter-blocks": "SCATTER_BLOCKS", "--wgrad-blocks": "WGRAD_BLOCKS"}
+    if sys.argv[1:2] and sys.argv[1] in sweeps:
+        return blocks_sweep(sweeps[sys.argv[1]], [int(m) for m in sys.argv[2].split(",")])
     if sys.argv[1:2] == ["--votenet-bf16-spread"]:
         return votenet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     t0 = time.perf_counter()
@@ -3007,6 +3143,7 @@ def main() -> int:
     for layout in ("chunked", "voxel", "brick:2"):
         pretrain_path(layout, device, card, paths)
     pretrain_path("chunked", device, card, paths, dtype=torch.bfloat16)
+    pretrain_path("voxel", device, card, paths, dtype=torch.bfloat16)
     clouds = votenet_path("chunked", device, card, paths, STEPS)
     res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
     paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes

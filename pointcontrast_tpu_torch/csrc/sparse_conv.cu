@@ -25,10 +25,11 @@
 // no live row while gather_wgrad compacts its live pairs and computes only
 // those; both stage rows and weights with cp.async in a 3-stage ring, one
 // barrier a step, and fit their tiles to the channels (their notes below
-// give the designs).  They stay f32 on the SIMT pipes: the port's twins,
-// CPU tests and step checks rest on f32 products, TF32 keeps ~3 digits and
-// 3xTF32 on mma.sync costs about what SIMT f32 does; the tensor-core route
-// (wgmma) comes with bf16 operands.  parent_gemm (c) runs the same
+// give the designs).  The f32 forms stay on the SIMT pipes: the port's
+// twins, CPU tests and step checks rest on f32 products, TF32 keeps ~3
+// digits and 3xTF32 on mma.sync costs about what SIMT f32 does; their bf16
+// forms run the same pipelines with the products on the tensor cores
+// (mma.sync bf16 -> f32, below).  parent_gemm (c) runs the same
 // pipeline over the fine rows in the pyramid's up order, one offset's
 // weights a step, and the brick layout's brick_gemm (i) and brick_wgrad
 // (j) run the two pipelines over a level's occupied slots, tiled in its
@@ -54,21 +55,26 @@
 // launch.
 //
 // bf16 forms (JAX's bf16 mode, pointcontrast_tpu/sparse/ops.py:376-414,
-// :650-684, :768-840: bf16 x bf16 products with f32 sums, one rounding):
-// gather_gemm, gather_wgrad, parent_gemm and scatter_parent are templated
-// on their element types, the f32 instances as they were.  A bf16 form
-// stages bf16 rows and weights through the same cp.async ring (16-byte
-// copies of 8 values where the width is a multiple of 8 and the table
-// aligned, plain 2-byte loads otherwise: the stem's Cin = 3 rows are only
-// 2-byte aligned), widens them in registers as it reads them (exact) and
-// runs the f32 FMAs on the SIMT pipes; an output is rounded to bf16 once,
-// after its f32 sum (split partials stay f32 in ws; the last block rounds
-// their sum).  gather_wgrad takes a bf16 A with a bf16 or an f32 G (K3's
-// dW against the f32 scatter dy) and writes f32; scatter_parent widens a
-// bf16 cotangent into the f32 dy.  What bounds them is what bounds the
-// f32 forms (f32 SIMT issue on the live pairs; scatter_parent HBM bytes);
-// against the bf16 tensor cores' 989 TFLOP/s they run at a few percent:
-// mma.sync / wgmma bf16 -> f32 is the next redesign.
+// :650-684, :768-840: bf16 x bf16 products with f32 sums, one rounding;
+// the flat _conv_core, :74-118, rounds each tap's product first):
+// gather_gemm_mma_kernel (gather_gemm's bf16 form, ROUND: each tap
+// rounded), and gather_wgrad, parent_gemm and scatter_parent templated on
+// their element types, the f32 instances as they were.  A bf16 form stages
+// bf16 rows and weights through the same cp.async ring (16-byte copies of
+// 8 values where the width is a multiple of 8 and the table aligned, plain
+// 2-byte loads otherwise: the stem's Cin = 3 rows are only 2-byte
+// aligned).  gather_gemm_bf16 and gather_wgrad with a bf16 A and G run
+// their products on the tensor cores (mma.sync.m16n8k16 bf16 -> f32 on
+// ldmatrix fragments of the same live-ordered tiles: their notes below);
+// parent_gemm's form and gather_wgrad with an f32 G (K3's dW against the
+// f32 scatter dy: tensor cores cannot take an f32 operand exactly) widen
+// the values in registers (exact) and run the f32 FMAs on the SIMT pipes.
+// An output is rounded to bf16 once, after its f32 sum (split partials
+// stay f32 in ws; the last block rounds their sum); gather_wgrad writes
+// f32; scatter_parent widens a bf16 cotangent into the f32 dy.  The SIMT
+// forms are bound as the f32 forms are (f32 issue on the live pairs;
+// scatter_parent HBM bytes); the tensor-core forms by the gathered rows'
+// bytes and the pipeline's latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -300,7 +306,7 @@ __device__ __forceinline__ int gg_swz(int k4, int sw) {
 // bf16 x bf16 products are exact in f32).  The zero-filled depth past a
 // ragged Cin is multiplied too, so the unrolled loop holds no branch.
 template <int Q, typename T = float>
-__device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const T* as,
+__device__ __forceinline__ void gg_fma(float4 (&acc)[gg::TM][Q], const T* as,
                                        const T* bs, int sw) {
   constexpr int BK = gg::BK, BN = 32 * Q;
 #pragma unroll
@@ -320,22 +326,36 @@ __device__ __forceinline__ void gg_mma(float4 (&acc)[gg::TM][Q], const T* as,
   }
 }
 
+// The 16-byte chunk that holds chunk c of row r in a bf16 tile of CPR
+// chunks a row (a multiple of 4) read by ldmatrix, whose 8 row addresses at
+// one chunk must land in 8 distinct 16-byte bank groups: rows of 8 chunks
+// or more (128 bytes: every row starts in bank group 0), c XOR r % 8; rows
+// of 4 or 12 chunks (rows r and r + 2 start in one bank group), c XOR
+// (r / 2) % 4.
+template <int CPR>
+__device__ __forceinline__ int mma_chunk(int r, int c) {
+  static_assert(CPR % 4 == 0, "whole 64-byte spans a row");
+  return CPR % 8 == 0 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
+}
+
 // Stage a step's row tile: row m of `as` [ROWS][BK] is Xb's row row(m) at
 // depth k0 (zero-filled where row(m) < 0 and past Cin), by 16-byte cp.async
 // (4-byte where Cin % 4 != 0 or Xb is unaligned), the 16-byte chunks of row
 // m at index XOR (m / 4) % 8.  scatter_gemm stages its W[j]^T tile this way
 // too, with ROWS = 32 Q rows of W[j].  bf16 rows: 16-byte cp.async of 8
 // values where Cin % 8 == 0 and Xb is aligned, the chunk at index XOR
-// (m / 4) % 4; else plain 2-byte loads and stores (a row of odd Cin, such
-// as the stem's Cin = 3, is only 2-byte aligned), finished before the
-// step's barrier like the copies.
-template <int ROWS = gg::BM, typename T, typename RowOf>
+// (m / 4) % 4 for the SIMT reads (gg_fma), mma_chunk<4> for ldmatrix
+// (MMA); else plain 2-byte loads and stores (a row of odd Cin, such as the
+// stem's Cin = 3, is only 2-byte aligned), finished before the step's
+// barrier like the copies.
+template <int ROWS = gg::BM, bool MMA = false, typename T, typename RowOf>
 __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int k0,
                                              int Cin, int vec_x, int tid) {
   constexpr int BM = ROWS, BK = gg::BK, THREADS = gg::THREADS;
   static_assert(BM * BK % ((is_bf16<T> ? 8 : 4) * THREADS) == 0,
                 "whole 16-byte chunks a thread");
   if constexpr (is_bf16<T>) {
+    auto chunk = [](int m, int c) { return MMA ? mma_chunk<BK / 8>(m, c) : c ^ ((m >> 2) & 3); };
     if (vec_x) {
 #pragma unroll
       for (int u = 0; u < BM * BK / 8 / THREADS; ++u) {
@@ -343,7 +363,7 @@ __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int 
         const int m = e >> 2, c = e & 3;
         const int r = row(m);
         const bool ok = r >= 0 && k0 + 8 * c < Cin;
-        cp_async16(as + m * BK + ((c ^ ((m >> 2) & 3)) << 3),
+        cp_async16(as + m * BK + (chunk(m, c) << 3),
                    ok ? Xb + (int64_t)r * Cin + k0 + 8 * c : Xb, ok);
       }
     } else {
@@ -353,7 +373,7 @@ __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int 
         const int m = e >> 5, k = e & 31;
         const int r = row(m);
         const bool ok = r >= 0 && k0 + k < Cin;
-        as[m * BK + (((k >> 3) ^ ((m >> 2) & 3)) << 3) + (k & 7)] =
+        as[m * BK + (chunk(m, k >> 3) << 3) + (k & 7)] =
             ok ? Xb[(int64_t)r * Cin + k0 + k] : bf16_zero();
       }
     }
@@ -384,18 +404,21 @@ __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int 
 
 // Stage a step's weight tile: `bs` [BK][32 Q] is Wt [Cin][Cout] at (k0, n0),
 // zero-filled past Cin and Cout, by 16-byte cp.async (4-byte unless vec_w;
-// bf16: 16-byte copies of 8 values where vec_w, else plain 2-byte loads).
-template <int Q, typename T = float>
+// bf16: 16-byte copies of 8 values where vec_w, else plain 2-byte loads;
+// MMA: row kk's chunks at mma_chunk, for ldmatrix).
+template <int Q, typename T = float, bool MMA = false>
 __device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
                                           int Cin, int Cout, int vec_w, int tid) {
   constexpr int BN = 32 * Q, THREADS = gg::THREADS;
   if constexpr (is_bf16<T>) {
+    auto chunk = [](int kk, int c) { return MMA ? mma_chunk<BN / 8>(kk, c) : c; };
     if (vec_w) {
       for (int e = tid; e < gg::BK * BN / 8; e += THREADS) {
         const int kk = e / (BN / 8), c = e % (BN / 8);
         const int n = n0 + 8 * c;
         const bool ok = k0 + kk < Cin && n < Cout;
-        cp_async16(bs + kk * BN + 8 * c, ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
+        cp_async16(bs + kk * BN + (chunk(kk, c) << 3),
+                   ok ? Wt + (int64_t)(k0 + kk) * Cout + n : Wt, ok);
       }
     } else {
 #pragma unroll 4
@@ -404,7 +427,8 @@ __device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
         const int kk = e / BN, c = e % BN;
         const int n = n0 + c;
         const bool ok = k0 + kk < Cin && n < Cout;
-        bs[kk * BN + c] = ok ? Wt[(int64_t)(k0 + kk) * Cout + n] : bf16_zero();
+        bs[kk * BN + (chunk(kk, c >> 3) << 3) + (c & 7)] =
+            ok ? Wt[(int64_t)(k0 + kk) * Cout + n] : bf16_zero();
       }
     }
     return;
@@ -430,19 +454,19 @@ __device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
   }
 }
 
-template <int Q, typename T>
+template <int Q>
 __global__ void __launch_bounds__(gg::THREADS, 2)
-gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
+gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
                    const __grid_constant__ TapList taps, int tap_stride, int G,
-                   const T* __restrict__ W, const T* __restrict__ Wc,
-                   const int* __restrict__ order, T* __restrict__ out,
+                   const float* __restrict__ W, const float* __restrict__ Wc,
+                   const int* __restrict__ order, float* __restrict__ out,
                    float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
                    int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
   constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
   constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
   extern __shared__ __align__(16) float smem[];
-  T* As = reinterpret_cast<T*>(smem);                 // [STAGES][BM][BK]
-  T* Bs = As + STAGES * BM * BK;                      // [STAGES][BK][BN]
+  float* As = smem;                                   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BK][BN]
   const int ntap = G + (Wc != nullptr ? 1 : 0);       // tap G: the centre
   const int per = (ntap + splits - 1) / splits;
   int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
@@ -455,7 +479,7 @@ gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
   const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
   const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
-  const T* Xb = X + (int64_t)b * S_in * Cin;
+  const float* Xb = X + (int64_t)b * S_in * Cin;
 
   // prologue: the tile's rows, every row of every tap of this split, and
   // which are live
@@ -496,7 +520,7 @@ gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
     const int* rt = rows + t * BM;
     gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin, vec_x, tid);
     const int j = t_lo + t;
-    gg_load_w<Q, T>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout, k0, n0, Cin,
+    gg_load_w<Q>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout, k0, n0, Cin,
                     Cout, vec_w, tid);
   };
 
@@ -523,43 +547,24 @@ gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
     const int t = live[1 + step / kchunks];
     if (((ball[t * BALLOTS + (warp >> 1)] >> (16 * (warp & 1))) & 0xffffu) == 0)
       continue;  // this warp's 16 rows gather nothing at this tap
-    gg_mma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+    gg_fma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
                  Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
 
-  // one split: the f32 sums (bf16: rounded once); several: f32 partials in ws
+  // one split: the sums; several: partials in ws
   const bool vec_o = Cout % 4 == 0;
-  if constexpr (is_bf16<T>) {
+  float* dst = splits == 1 ? out : ws + (int64_t)sp * B * S_out * Cout;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int s = srow[4 * ty + i];
-      if (s < 0) continue;
-      const int64_t off = ((int64_t)b * S_out + s) * Cout;
+  for (int i = 0; i < TM; ++i) {
+    const int s = srow[4 * ty + i];
+    if (s < 0) continue;
+    float* row = dst + ((int64_t)b * S_out + s) * Cout;
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        if (splits == 1) {
-          store4(out + off, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
-        } else {
-          store4(ws + (int64_t)sp * B * S_out * Cout + off, n0 + 4 * tx + 32 * q, Cout,
-                 vec_o, acc[i][q]);
-        }
-      }
-    }
-  } else {
-    float* dst = splits == 1 ? out : ws + (int64_t)sp * B * S_out * Cout;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int s = srow[4 * ty + i];
-      if (s < 0) continue;
-      float* row = dst + ((int64_t)b * S_out + s) * Cout;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
-    }
+    for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
   }
   if (splits == 1) return;
-  // the tile's last block adds the splits' partials in split order (f32)
-  // and rounds the sum once
+  // the tile's last block adds the splits' partials in split order
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -586,6 +591,296 @@ gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
   }
 }
 
+// gather_gemm_bf16 on the tensor cores (the bf16 form of (a)): the f32
+// kernel's prologue, live orders, 16-row fragment skip, 3-stage cp.async
+// ring and tap splits, with the products on mma.sync.m16n8k16 bf16 -> f32.
+// What bounds it: the bf16 tensor cores' 989 TFLOP/s lie far above what
+// the gathers feed them (a 32 x 32 conv does ~32 operations a byte of
+// gathered row, the card's balance point ~295), so the gathered rows'
+// bytes and the pipeline's latency set its pace.  The design:
+//  - warp w computes its 16-row fragment [16 w, 16 w + 16) x the block's
+//    Cout tile BN = 32 Q (Q = 1..4: registers hold BN / 2 f32 sums a
+//    thread, so the tile grows to 128 and wide layers gather each row
+//    fewer times; 64 under ROUND, which keeps a second set), two k16
+//    steps a 32-deep chunk, the second left out past Cin (the stem);
+//  - A fragments by ldmatrix.x4 from the row tile, B fragments by
+//    ldmatrix.x4.trans from the [BK][BN] weight tile, both staged with
+//    mma_chunk's swizzle (8 row addresses of one ldmatrix phase in 8 bank
+//    groups); the Cin = 3 stem's rows by 2-byte loads, as the SIMT form;
+//  - ROUND (the voxel layout's forward, JAX's flat _conv_core): at a live
+//    tap's last chunk each thread rounds its tap sums to bf16, widens them
+//    and adds them into the second set, the taps in list order, the
+//    centre last;
+//  - epilogue: one split rounds each sum once to bf16 and stages the tile
+//    in shared memory (rows padded by 16 bytes: the fragments' 4-byte
+//    stores hit 32 banks), so each output row leaves as 16-byte stores;
+//    several splits store f32 partials to ws, and the tile's last block (an
+//    integer ticket) adds them in split order and rounds once.
+namespace gm {
+constexpr int PAD = 8;  // bf16 a staged output row past its BN
+
+// Q of a Cout: the Cout tile 32 Q that pads Cout least, the larger on a
+// tie, up to 4 (ROUND: 2): 32 -> 1, 64 -> 2, 96 -> 3, 128, 256 -> 4.
+inline int q_for(int Cout, bool round) {
+  int best = 1;
+  for (int q = 2; q <= (round ? 2 : 4); ++q) {
+    const int pad = (Cout + 32 * q - 1) / (32 * q) * 32 * q;
+    if (pad <= (Cout + 32 * best - 1) / (32 * best) * 32 * best) best = q;
+  }
+  return best;
+}
+}  // namespace gm
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a . b: one m16n8k16 product, bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One step's products for warp w: its 16 rows of the row tile `as`
+// [BM][BK] times the weight tile `bs` [BK][BN], `depth` of the 32 depths
+// live (a k16 step wholly past Cin is left out), into acc[n]: the
+// m16n8 fragment of columns [8 n, 8 n + 8).
+template <int Q>
+__device__ __forceinline__ void gm_mma(float (&acc)[4 * Q][4], const bf16* as, const bf16* bs,
+                                       int warp, int lane, int depth) {
+  constexpr int BK = gg::BK, BN = 32 * Q;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if (16 * kk >= depth) break;
+    unsigned a[4];  // rows 16 w + lane % 16, depths 16 kk + 8 (lane / 16) ..
+    const int m = 16 * warp + (lane & 15);
+    ldsm_x4(a, as + m * BK + (mma_chunk<BK / 8>(m, 2 * kk + (lane >> 4)) << 3));
+    const int k = 16 * kk + (lane & 15);
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {  // columns [16 j, 16 j + 16): two fragments
+      unsigned b[4];
+      ldsm_x4_t(b, bs + k * BN + (mma_chunk<BN / 8>(k, 2 * j + (lane >> 4)) << 3));
+      mma_bf16(acc[2 * j], a, b[0], b[1]);
+      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// grid (ceil(S_out / BM), ceil(Cout / 32 Q), B * splits)
+template <int Q, bool ROUND>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
+                       const __grid_constant__ TapList taps, int tap_stride, int G,
+                       const bf16* __restrict__ W, const bf16* __restrict__ Wc,
+                       const int* __restrict__ order, bf16* __restrict__ out,
+                       float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
+                       int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int BALLOTS = gg::BALLOTS, BN = 32 * Q, NF = 4 * Q, LDC = BN + gm::PAD;
+  extern __shared__ __align__(16) float smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);           // [STAGES][BM][BK]
+  bf16* Bs = As + STAGES * BM * BK;                    // [STAGES][BK][BN]
+  const int ntap = G + (Wc != nullptr ? 1 : 0);        // tap G: the centre
+  const int per = (ntap + splits - 1) / splits;
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + per * BM);  // [per][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + per * BALLOTS);  // count, then taps
+  int* srow = live + per + 1;  // [BM] the tile's output rows, -1 past S_out
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
+  const bf16* Xb = X + (int64_t)b * S_in * Cin;
+
+  // prologue, a copy of gather_gemm_kernel's (so that the f32 kernel's
+  // code and registers stay as they were): the tile's rows, every row of
+  // every tap of this split, and which are live
+  if (tid < BM) {
+    const int s = s0 + tid;
+    srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
+  }
+  __syncthreads();
+  for (int e = tid; e < nt * BM; e += THREADS) {  // whole warps: nt * BM % 32 == 0
+    const int j = t_lo + e / BM, s = srow[e % BM];
+    int r = -1;
+    if (s >= 0) {
+      r = j == G ? s : row_of(map, taps, tap_stride, j, b, s, B, S_out);
+      if (r == skip || r < 0 || r >= S_in) r = -1;
+    }
+    rows[e] = r;
+    const unsigned bits = __ballot_sync(0xffffffffu, r >= 0);
+    if (lane == 0) ball[e >> 5] = bits;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int t = 0; t < nt; ++t) {
+      unsigned any = 0;
+#pragma unroll
+      for (int c = 0; c < BALLOTS; ++c) any |= ball[t * BALLOTS + c];
+      if (any) live[1 + n++] = t;
+    }
+    live[0] = n;
+  }
+  __syncthreads();
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = live[0] * kchunks;
+
+  auto load = [&](int step, int buf) {
+    const int t = live[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    const int* rt = rows + t * BM;
+    gg_load_rows<BM, true>(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin,
+                           vec_x, tid);
+    const int j = t_lo + t;
+    gg_load_w<Q, bf16, true>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout,
+                             k0, n0, Cin, Cout, vec_w, tid);
+  };
+
+  float acc[NF][4];  // fragment n: columns 8 n + 2 (lane % 4) + {0, 1}, rows lane / 4 + {0, 8}
+  float sum[ROUND ? NF : 1][4];  // ROUND: the rounded taps' sum
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  if constexpr (ROUND) {
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[n][i] = 0.f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    const int t = live[1 + step / kchunks];
+    if (((ball[t * BALLOTS + (warp >> 1)] >> (16 * (warp & 1))) & 0xffffu) == 0)
+      continue;  // this warp's 16 rows gather nothing at this tap
+    const int k0 = (step % kchunks) * BK;
+    gm_mma<Q>(acc, As + (step % STAGES) * BM * BK, Bs + (step % STAGES) * BK * BN, warp, lane,
+              Cin - k0);
+    if constexpr (ROUND) {
+      if (step % kchunks == kchunks - 1) {  // the tap's last chunk: round, widen, add
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            sum[n][i] += __bfloat162float(__float2bfloat16_rn(acc[n][i]));
+            acc[n][i] = 0.f;
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (ROUND) {
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = sum[n][i];
+  }
+
+  const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
+  if (splits == 1) {
+    // round once, stage the tile's rows in shared memory (the ring is free
+    // once every warp is past its last step), store 16 bytes at a time
+    bf16* Cs = As;  // [BM][LDC]
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(Cs + (16 * warp + g + 8 * h) * LDC + 8 * n + c2) =
+            __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+    __syncwarp();
+    const bool vec_o = Cout % 8 == 0;
+#pragma unroll
+    for (int u = 0; u < BN / 16; ++u) {  // the warp's 16 rows x BN / 8 chunks
+      const int e = lane + 32 * u;
+      const int m = 16 * warp + e / (BN / 8), c = e % (BN / 8);
+      const int s = srow[m], n = n0 + 8 * c;
+      if (s < 0 || n >= Cout) continue;
+      bf16* dst = out + ((int64_t)b * S_out + s) * Cout + n;
+      const bf16* src = Cs + m * LDC + 8 * c;
+      if (vec_o) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < 8 && n + i < Cout; ++i) dst[i] = src[i];
+      }
+    }
+    return;
+  }
+  // several splits: f32 partials in ws, the tile's last block adds them in
+  // split order and rounds once
+  const int64_t plane = (int64_t)B * S_out * Cout;
+  float* part = ws + sp * plane;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = srow[16 * warp + g + 8 * h];
+    if (s < 0) continue;
+    float* row = part + ((int64_t)b * S_out + s) * Cout;
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const int col = n0 + 8 * n + c2;
+      if (Cout % 2 == 0) {
+        if (col < Cout)
+          *reinterpret_cast<float2*>(row + col) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      } else {
+        if (col < Cout) row[col] = acc[n][2 * h];
+        if (col + 1 < Cout) row[col + 1] = acc[n][2 * h + 1];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    live[0] = atomicAdd(tickets + tile, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!live[0]) return;
+  __threadfence();
+  const bool vec4 = Cout % 4 == 0;
+  for (int e = tid; e < BM * BN / 4; e += THREADS) {
+    const int m = e / (BN / 4), n = n0 + 4 * (e % (BN / 4));
+    const int s = srow[m];
+    if (s < 0 || n >= Cout) continue;
+    const int64_t off = ((int64_t)b * S_out + s) * Cout;
+    float4 v = load4_cg(ws + off, n, Cout, vec4);
+#pragma unroll 4  // the splits' loads in flight together, added in split order
+    for (int p = 1; p < splits; ++p) add4(v, load4_cg(ws + p * plane + off, n, Cout, vec4));
+    store4(out + off, n, Cout, vec4, v);
+  }
+}
+
 // (b) gather_wgrad: dW[k] = sum over the rows r = (b, s) of the block's
 // slice of A[b, rowA(k,b,s)]^T . G[b, rowG(k,b,s)], every pair in which
 // rowA is `skip_a` or rowG is `skip_g` (or either lies outside its table)
@@ -607,7 +902,9 @@ gather_gemm_kernel(const T* __restrict__ X, const int* __restrict__ map,
 //    one wait + __syncthreads a stage;
 //  - 4 row groups of 64 threads each take every 4th pair of a stage; a
 //    thread keeps 4 QA x 4 QG outputs in registers, and at the end the
-//    groups' tiles are added in group order in shared memory;
+//    groups' tiles are added in group order in shared memory; the (bf16,
+//    bf16) form instead gives each warp its own m16n8 fragments of the
+//    tile and runs the pairs through mma.sync (gw_pairs_mma);
 //  - the slices of one (tap, tile) are combined by the tile's last block
 //    (integer tickets), which adds the partials the slices left in `ws`
 //    [slices, K, Ca, Cg] in slice order, so dW is the same from run to run
@@ -622,9 +919,32 @@ constexpr int GROUPS = 4;    // row groups of 64 threads (8 x 8 a tile)
 
 inline int q_for(int C) { return C <= 32 ? 1 : (C % 96 == 0 && C % 64 != 0) ? 3 : 2; }
 
+// The tensor-core form's q of a width: 32 q channels, q in 1..4 (a warp
+// holds 4 q_a q_g sums a thread), the one that pads C least, the larger on
+// a tie: 32 -> 1, 64 -> 2, 96 -> 3, 128, 256 -> 4.
+inline int mma_q_for(int C) {
+  int best = 1;
+  for (int q = 2; q <= 4; ++q) {
+    if ((C + 32 * q - 1) / (32 * q) * 32 * q <= (C + 32 * best - 1) / (32 * best) * 32 * best)
+      best = q;
+  }
+  return best;
+}
+
 // (QA, QG): each fitted to its width, their product at most 4 (the
-// registers of a thread's tile)
-inline void qs_for(int Ca, int Cg, int* qa, int* qg) {
+// registers of a thread's tile); the tensor-core form (mma): each up to 4,
+// so that one tile covers most layers' channels and a pair's rows are
+// compacted and gathered once, their product at most 9 (4 x 3 and 4 x 4
+// spilled past the 128 registers of two blocks an SM: a 4 halves to 2)
+inline void qs_for(int Ca, int Cg, int* qa, int* qg, bool mma = false) {
+  if (mma) {
+    *qa = mma_q_for(Ca);
+    *qg = mma_q_for(Cg);
+    if (*qa * *qg > 9) {
+      if (*qg == 4) *qg = 2; else *qa = 2;
+    }
+    return;
+  }
   *qa = q_for(Ca);
   *qg = q_for(Cg);
   if (*qa * *qg > 4) {
@@ -634,10 +954,13 @@ inline void qs_for(int Ca, int Cg, int* qa, int* qg) {
 
 // The bytes before the pair lists: the stage ring of A's and G's row tiles
 // (ea, eg: their element sizes, 4 for f32, 2 for bf16), which gw_finish
-// reuses for the row groups' tiles (a bf16 ring can be the smaller).
+// reuses for the row groups' tiles (a bf16 ring can be the smaller); the
+// tensor-core form (two bf16 operands) keeps its sums in registers: the
+// ring alone.
 __host__ __device__ constexpr size_t tile_bytes(int qa, int qg, int ea = 4, int eg = 4) {
   return (size_t)STAGES * ROWS * 32 * (qa * ea + qg * eg) >
-                 sizeof(float) * (GROUPS - 1) * 16 * qa * qg * 64
+                     sizeof(float) * (GROUPS - 1) * 16 * qa * qg * 64 ||
+                 (ea == 2 && eg == 2)
              ? (size_t)STAGES * ROWS * 32 * (qa * ea + qg * eg)
              : sizeof(float) * (GROUPS - 1) * 16 * qa * qg * 64;
 }
@@ -670,25 +993,24 @@ __device__ __forceinline__ int gw_append(bool ok, int ra, int rg, int* pa, int* 
   return all;
 }
 
-// The products of n compacted pairs: A's row pa[p] (channels a0 + [0, 32
-// QA)) times G's row pg[p] (g0 + [0, 32 QG)), added into each thread's
-// tile.  The rows arrive by cp.async in the 3-stage ring at `smem`, 32
-// pairs a stage; on return the ring and the pair list are free.
 // Stage pairs [st ROWS, st ROWS + ROWS) of a bf16 operand's rows: tile row
 // i is row p[st ROWS + i] of M at channels c0 + [0, TW), zero-filled past
 // n and C; 16-byte cp.async of 8 values where `vec` (C % 8 == 0, M
 // aligned), else plain 2-byte loads (odd C rows are only 2-byte aligned).
-template <int TW>
+// MMA: row i's chunks at mma_chunk, for ldmatrix.
+template <int TW, bool MMA = false>
 __device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, int n,
                                              const bf16* __restrict__ M, int C, int c0,
                                              int vec, int tid) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS;
+  auto chunk = [](int i, int c) { return MMA ? mma_chunk<TW / 8>(i, c) : c; };
   if (vec) {
     for (int e = tid; e < ROWS * TW / 8; e += THREADS) {
       const int i = e / (TW / 8), c = e % (TW / 8);
       const int q = st * ROWS + i;
       const bool ok = q < n && c0 + 8 * c < C;
-      cp_async16(tile + i * TW + 8 * c, ok ? M + (int64_t)p[q] * C + c0 + 8 * c : M, ok);
+      cp_async16(tile + i * TW + (chunk(i, c) << 3),
+                 ok ? M + (int64_t)p[q] * C + c0 + 8 * c : M, ok);
     }
   } else {
 #pragma unroll 4
@@ -697,28 +1019,34 @@ __device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, i
       const int i = e / TW, c = e % TW;
       const int q = st * ROWS + i;
       const bool ok = q < n && c0 + c < C;
-      tile[i * TW + c] = ok ? M[(int64_t)p[q] * C + c0 + c] : bf16_zero();
+      tile[i * TW + (chunk(i, c >> 3) << 3) + (c & 7)] =
+          ok ? M[(int64_t)p[q] * C + c0 + c] : bf16_zero();
     }
   }
 }
 
-template <int QA, int QG, typename TA_ = float, typename TG_ = float>
+// The products of n compacted pairs: A's row pa[p] (channels a0 + [0, 32
+// QA)) times G's row pg[p] (g0 + [0, 32 QG)), added into each thread's
+// tile (the SIMT forms: G f32, A f32 or bf16).  The rows arrive by
+// cp.async in the 3-stage ring at `smem`, 32 pairs a stage; on return the
+// ring and the pair list are free.
+template <int QA, int QG, typename TA_ = float>
 __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
                                          const int* pa, const int* pg, int n,
                                          const TA_* __restrict__ A, int Ca, int a0,
-                                         const TG_* __restrict__ Gm, int Cg, int g0,
+                                         const float* __restrict__ Gm, int Cg, int g0,
                                          int vec_a, int vec_g, int tid) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
   constexpr int GROUPS = gw::GROUPS;
   constexpr int TA = 32 * QA, TG = 32 * QG;
   TA_* As = reinterpret_cast<TA_*>(smem);                        // [STAGES][ROWS][TA]
-  TG_* Gs = reinterpret_cast<TG_*>(As + STAGES * ROWS * TA);     // [STAGES][ROWS][TG]
+  float* Gs = reinterpret_cast<float*>(As + STAGES * ROWS * TA); // [STAGES][ROWS][TG]
   const int grp = tid >> 6, gt = tid & 63;
   const int ta = gt >> 3, tg = gt & 7;
   const int nst = (n + ROWS - 1) / ROWS;
   auto load = [&](int st, int buf) {
     TA_* as = As + buf * ROWS * TA;
-    TG_* gs = Gs + buf * ROWS * TG;
+    float* gs = Gs + buf * ROWS * TG;
     if constexpr (is_bf16<TA_>) {
       gw_load_bf16<TA>(as, pa, st, n, A, Ca, a0, vec_a, tid);
     } else if (vec_a) {
@@ -740,9 +1068,7 @@ __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
         cp_async4(as + i * TA + c, ok ? A + (int64_t)pa[p] * Ca + a0 + c : A, ok);
       }
     }
-    if constexpr (is_bf16<TG_>) {
-      gw_load_bf16<TG>(gs, pg, st, n, Gm, Cg, g0, vec_g, tid);
-    } else if (vec_g) {
+    if (vec_g) {
 #pragma unroll
       for (int u = 0; u < QG; ++u) {
         const int e = tid + u * THREADS;
@@ -777,7 +1103,7 @@ __device__ __forceinline__ void gw_pairs(float4 (&acc)[QA][4][QG], float* smem,
     }
     const int here = min(ROWS, n - st * ROWS);
     const TA_* as = As + (st % STAGES) * ROWS * TA + 4 * ta;
-    const TG_* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
+    const float* gs = Gs + (st % STAGES) * ROWS * TG + 4 * tg;
 #pragma unroll
     for (int u = 0; u < ROWS / GROUPS; ++u) {
       const int i = grp + GROUPS * u;
@@ -879,6 +1205,143 @@ __device__ __forceinline__ void gw_finish(float4 (&acc)[QA][4][QG], float* smem,
   }
 }
 
+// The (bf16, bf16) form's products on the tensor cores: the dW tile
+// [32 QA][32 QG] is A^T G over the compacted pairs, the pairs the mma's K.
+// Warp w owns QA QG of the tile's 2 QA x 4 QG m16n8 fragments (w QA QG
+// on, row-major), so no warp's sums meet another's; a stage's 32 pairs
+// are two k16 steps (the second left out past n; zero-filled pairs add
+// nothing).  A^T's fragment comes by ldmatrix.x4.trans from the [pairs]
+// [32 QA] tile, G's by ldmatrix.x2.trans from the [pairs][32 QG] tile,
+// both staged with mma_chunk's swizzle.  Same ring, stages and pair
+// lists as gw_pairs.
+template <int QA, int QG>
+__device__ __forceinline__ void gw_pairs_mma(float (&acc)[QA * QG][4], float* smem,
+                                             const int* pa, const int* pg, int n,
+                                             const bf16* __restrict__ A, int Ca, int a0,
+                                             const bf16* __restrict__ Gm, int Cg, int g0,
+                                             int vec_a, int vec_g, int tid) {
+  constexpr int ROWS = gw::ROWS, STAGES = gw::STAGES;
+  constexpr int TA = 32 * QA, TG = 32 * QG, PT = QA * QG, NG = TG / 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][ROWS][TA]
+  bf16* Gs = As + STAGES * ROWS * TA;         // [STAGES][ROWS][TG]
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nst = (n + ROWS - 1) / ROWS;
+  auto load = [&](int st, int buf) {
+    gw_load_bf16<TA, true>(As + buf * ROWS * TA, pa, st, n, A, Ca, a0, vec_a, tid);
+    gw_load_bf16<TG, true>(Gs + buf * ROWS * TG, pg, st, n, Gm, Cg, g0, vec_g, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nst) load(st, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage st has landed; stage st - 1's buffer is free
+    {
+      const int next = st + STAGES - 1;
+      if (next < nst) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    const int here = min(ROWS, n - st * ROWS);
+    const bf16* as = As + (st % STAGES) * ROWS * TA;
+    const bf16* gs = Gs + (st % STAGES) * ROWS * TG;
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk) {
+      if (16 * kk >= here) break;
+      const int pa_ = 16 * kk + (lane & 7) + ((lane >> 4) << 3);  // A^T: pairs as columns
+      const int pg_ = 16 * kk + (lane & 15);
+      unsigned a[4];
+      int loaded = -1;  // the m16 rows of A^T in a
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        const int e = warp * PT + i, mt = e / NG, nt = e % NG;
+        if (mt != loaded) {  // a warp's fragments span one or two m16 rows
+          ldsm_x4_t(a, as + pa_ * TA + (mma_chunk<TA / 8>(pa_, 2 * mt + ((lane >> 3) & 1)) << 3));
+          loaded = mt;
+        }
+        unsigned b[2];
+        ldsm_x2_t(b, gs + pg_ * TG + (mma_chunk<TG / 8>(pg_, nt) << 3));
+        mma_bf16(acc[i], a, b[0], b[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and the pair list are rewritten by the next round
+}
+
+// gw_finish for gw_pairs_mma's fragments: each warp stores its own, dW[tap]
+// (one slice) or the slice's partial in ws, and the (tap, tile)'s last
+// block, by an integer ticket, adds the slices in slice order.
+template <int QA, int QG>
+__device__ __forceinline__ void gw_finish_mma(float (&acc)[QA * QG][4], int* flag,
+                                              float* __restrict__ dW, float* __restrict__ ws,
+                                              int* __restrict__ tickets, int Ca, int Cg,
+                                              int a0, int g0, int tid) {
+  constexpr int THREADS = gw::THREADS, TA = 32 * QA, TG = 32 * QG, PT = QA * QG, NG = TG / 8;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
+  const int k = blockIdx.y, slices = gridDim.z;
+  const int64_t tap_off = (int64_t)k * Ca * Cg;
+  float* dst = (slices == 1 ? dW : ws + (int64_t)blockIdx.z * gridDim.y * Ca * Cg) + tap_off;
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int e = warp * PT + i, mt = e / NG, nt = e % NG;
+    const int col = g0 + 8 * nt + c2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = a0 + 16 * mt + g + 8 * h;
+      if (m >= Ca) continue;
+      float* row = dst + (int64_t)m * Cg;
+      if (Cg % 2 == 0) {
+        if (col < Cg) *reinterpret_cast<float2*>(row + col) = make_float2(acc[i][2 * h],
+                                                                          acc[i][2 * h + 1]);
+      } else {
+        if (col < Cg) row[col] = acc[i][2 * h];
+        if (col + 1 < Cg) row[col + 1] = acc[i][2 * h + 1];
+      }
+    }
+  }
+  if (slices == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(tickets + k * gridDim.x + blockIdx.x, 1) == slices - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // the slices' partials, 8 loads in flight a thread, added in slice order
+  constexpr int BATCH = 8;
+  const int64_t plane = (int64_t)gridDim.y * Ca * Cg;
+  if (Cg % 4 == 0) {  // 16-byte loads of 4 columns
+    for (int e = tid; e < TA * TG / 4; e += THREADS) {
+      const int m = a0 + e / (TG / 4), nn = g0 + 4 * (e % (TG / 4));
+      if (m >= Ca || nn >= Cg) continue;
+      const float4* src = reinterpret_cast<const float4*>(ws + tap_off + (int64_t)m * Cg + nn);
+      const int64_t step = plane / 4;
+      float4 v = __ldcg(src);
+      int z = 1;
+      for (; z + BATCH <= slices; z += BATCH) {
+        float4 t[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) t[u] = __ldcg(src + (z + u) * step);
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) add4(v, t[u]);
+      }
+      for (; z < slices; ++z) add4(v, __ldcg(src + z * step));
+      *reinterpret_cast<float4*>(dW + tap_off + (int64_t)m * Cg + nn) = v;
+    }
+    return;
+  }
+  for (int e = tid; e < TA * TG; e += THREADS) {
+    const int m = a0 + e / TG, nn = g0 + e % TG;
+    if (m >= Ca || nn >= Cg) continue;
+    const int64_t off = tap_off + (int64_t)m * Cg + nn;
+    float v = __ldcg(ws + off);
+    for (int z = 1; z < slices; ++z) v += __ldcg(ws + z * plane + off);
+    dW[off] = v;
+  }
+}
+
 template <int QA, int QG, typename TA_, typename TG_>
 __global__ void __launch_bounds__(gw::THREADS, 2)
 gather_wgrad_kernel(const TA_* __restrict__ A, const int* __restrict__ a_map,
@@ -905,16 +1368,8 @@ gather_wgrad_kernel(const TA_* __restrict__ A, const int* __restrict__ a_map,
   const int r_begin = blockIdx.z * rows_per_block;
   const int r_end = min(r_begin + rows_per_block, total);
 
-  float4 acc[QA][4][QG];  // A channel ta*4 + 32p + c, G channels tg*4 + 32q + 0..3
-#pragma unroll
-  for (int p = 0; p < QA; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
-    // compaction of rows [c0, c0 + CHUNK): live pairs in row order
+  // compaction of rows [c0, c0 + CHUNK): live pairs in row order
+  auto compact = [&](int c0) {
     int n = 0;
 #pragma unroll 1
     for (int it = 0; it < CHUNK / THREADS; ++it) {
@@ -932,10 +1387,34 @@ gather_wgrad_kernel(const TA_* __restrict__ A, const int* __restrict__ a_map,
       n += gw_append(ok, ra, rg, pa, pg, wcount + 8 * (it & 1), n, lane, warp);
     }
     __syncthreads();
-    gw_pairs<QA, QG, TA_, TG_>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g,
-                               tid);
+    return n;
+  };
+
+  if constexpr (is_bf16<TA_> && is_bf16<TG_>) {  // the tensor cores
+    float acc[QA * QG][4];
+#pragma unroll
+    for (int i = 0; i < QA * QG; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
+      const int n = compact(c0);
+      gw_pairs_mma<QA, QG>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g, tid);
+    }
+    gw_finish_mma<QA, QG>(acc, wcount + 16, dW, ws, tickets, Ca, Cg, a0, g0, tid);
+  } else {
+    float4 acc[QA][4][QG];  // A channel ta*4 + 32p + c, G channels tg*4 + 32q + 0..3
+#pragma unroll
+    for (int p = 0; p < QA; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = r_begin; c0 < r_end; c0 += CHUNK) {
+      const int n = compact(c0);
+      gw_pairs<QA, QG, TA_>(acc, smem, pa, pg, n, A, Ca, a0, Gm, Cg, g0, vec_a, vec_g, tid);
+    }
+    gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Ca, Cg, a0, g0, tid);
   }
-  gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Ca, Cg, a0, g0, tid);
 }
 
 // (c) parent_gemm: out[b,i,:] = X[b, parent[b,i], :] . W[off[b,i]], zeros
@@ -966,7 +1445,7 @@ gather_wgrad_kernel(const TA_* __restrict__ A, const int* __restrict__ a_map,
 //    of that offset, the other rows zero-filled (their products add +-0,
 //    which changes no bit of a row's sum), swizzled as gather_gemm's; a
 //    warp whose fragment holds no row of the offset skips the step's FMAs
-//    (gg_mma), accumulators in registers;
+//    (gg_fma), accumulators in registers;
 //  - every row's sum runs over its own offset's Cin in order: the same
 //    bits from run to run, no atomics.
 namespace pg {
@@ -1071,7 +1550,7 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
       cp_async_commit();
     }
     if (!((mine >> offs[1 + step / kchunks]) & 1u)) continue;  // no row of this offset
-    gg_mma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+    gg_fma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
                  Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
@@ -1879,7 +2358,7 @@ __device__ __forceinline__ int occupied(const float* __restrict__ valid, int bri
 //    27 neighbour rows d and each tile row the neighbour brick with its
 //    8 occupancy bits (0 for an empty output row);
 //  - main loop over (tap, 32-deep Cin chunk) steps through gather_gemm's
-//    3-stage cp.async ring (gg_load_rows, gg_load_w, gg_mma): tile row m's
+//    3-stage cp.async ring (gg_load_rows, gg_load_w, gg_fma): tile row m's
 //    source at tap t comes from the table and the prologue's bricks,
 //    zero-filled and not read where its slot is empty; a warp whose 16 rows
 //    have no occupied source at the step's tap skips the step's FMAs.  The
@@ -1977,7 +2456,7 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int 
     // warp w's fragment: rows [16 w, 16 w + 16), lanes 16-31 repeat 0-15
     if (!__ballot_sync(0xffffffffu, source(step / kchunks, 16 * warp + (lane & 15)) >= 0))
       continue;  // no occupied source in this warp's 16 rows at this tap
-    gg_mma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+    gg_fma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
               Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
@@ -2109,11 +2588,14 @@ SegPlan seg_plan(const void* X, int N, int C, int blocks) {
 
 extern "C" {
 
+// bf16_: the tensor-core kernel on bf16 operands (round_: each tap's
+// product rounded, gather_gemm_mma_kernel's ROUND); else the f32 kernel
 int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
                    int G, const void* W, const void* Wc, const void* order, void* out, void* ws,
                    void* tickets, int splits, int B, int S_in, int S_out, int Cin,
-                   int Cout, int skip, int bf16_, void* stream) {
-  const int q = gg::q_for(Cout);
+                   int Cout, int skip, int bf16_, int round_, void* stream) {
+  if (round_ && !bf16_) return (int)cudaErrorInvalidValue;
+  const int q = bf16_ ? gm::q_for(Cout, round_) : gg::q_for(Cout);
   const int ntap = G + (Wc != nullptr ? 1 : 0);
   const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits, bf16_ ? 2 : 4);
   // 16-byte copies: 4 f32 or 8 bf16 a chunk
@@ -2121,12 +2603,12 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
   const int vec_x = Cin % vec == 0 && aligned16(X);
   const int vec_w = Cout % vec == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
   const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[8] = {};  // dynamic shared memory allowed so far, by Q and type
-  auto go = [&](auto kernel, auto t) {
+  static size_t granted[16] = {};  // dynamic shared memory allowed so far, by kernel
+  auto go = [&](auto kernel, auto t, int slot) {
     using T = decltype(t);
-    if (smem > 48 * 1024 && smem > granted[4 * bf16_ + q]) {
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[4 * bf16_ + q] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)X, (const int*)map, taps, tap_stride, G, (const T*)W,
@@ -2134,47 +2616,55 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
         B, S_in, S_out,
         Cin, Cout, skip, vec_x, vec_w);
   };
-  if (bf16_) {
+  if (!bf16_) {
     switch (q) {
-      case 1: go(gather_gemm_kernel<1, bf16>, bf16()); break;
-      case 2: go(gather_gemm_kernel<2, bf16>, bf16()); break;
-      default: go(gather_gemm_kernel<3, bf16>, bf16()); break;
+      case 1: go(gather_gemm_kernel<1>, 0.f, 1); break;
+      case 2: go(gather_gemm_kernel<2>, 0.f, 2); break;
+      default: go(gather_gemm_kernel<3>, 0.f, 3); break;
     }
+  } else if (round_) {
+    if (q == 1) go(gather_gemm_mma_kernel<1, true>, bf16(), 9);
+    else go(gather_gemm_mma_kernel<2, true>, bf16(), 10);
   } else {
     switch (q) {
-      case 1: go(gather_gemm_kernel<1, float>, 0.f); break;
-      case 2: go(gather_gemm_kernel<2, float>, 0.f); break;
-      default: go(gather_gemm_kernel<3, float>, 0.f); break;
+      case 1: go(gather_gemm_mma_kernel<1, false>, bf16(), 5); break;
+      case 2: go(gather_gemm_mma_kernel<2, false>, bf16(), 6); break;
+      case 3: go(gather_gemm_mma_kernel<3, false>, bf16(), 7); break;
+      default: go(gather_gemm_mma_kernel<4, false>, bf16(), 8); break;
     }
   }
   return (int)cudaGetLastError();
 }
 
-// gather_gemm's Cout tile for Cout channels (the wrapper sizes its split)
-int pc_gather_gemm_tile_n(int Cout) { return 32 * gg::q_for(Cout); }
+// gather_gemm's Cout tile for Cout channels (the wrapper sizes its split):
+// the f32 kernel's, or (bf16_) the tensor-core kernel's in its mode
+int pc_gather_gemm_tile_n(int Cout, int bf16_, int round_) {
+  return 32 * (bf16_ ? gm::q_for(Cout, round_) : gg::q_for(Cout));
+}
 
-// a_bf16 / g_bf16: the element type of A and of G (f32 / f32, bf16 / bf16,
-// or bf16 / f32: K3's dW, the features against the f32 scatter dy)
+// a_bf16 / g_bf16: the element type of A and of G (f32 / f32, bf16 / bf16:
+// the tensor cores, or bf16 / f32: K3's dW, the features against the f32
+// scatter dy)
 int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stride,
                     int Sa, int Ca, int skip_a, const void* Gm, const void* g_map,
                     TapList g_taps, int g_stride, int Sg, int Cg, int skip_g, void* dW,
                     void* ws, void* tickets, int K, int B, int S, int rows_per_block,
                     int a_bf16, int g_bf16, void* stream) {
-  int qa, qg;
-  gw::qs_for(Ca, Cg, &qa, &qg);
-  const int tiles = ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
-  const int slices = (int)(((int64_t)B * S + rows_per_block - 1) / rows_per_block);
   const int types = a_bf16 ? (g_bf16 ? 1 : 2) : 0;  // f32/f32, bf16/bf16, bf16/f32
   if (!a_bf16 && g_bf16) return (int)cudaErrorInvalidValue;
+  int qa, qg;
+  gw::qs_for(Ca, Cg, &qa, &qg, types == 1);
+  const int tiles = ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
+  const int slices = (int)(((int64_t)B * S + rows_per_block - 1) / rows_per_block);
   const size_t smem = gw::smem_bytes(qa, qg, a_bf16 ? 2 : 4, g_bf16 ? 2 : 4);
   const int vec_a = Ca % (a_bf16 ? 8 : 4) == 0 && aligned16(A);
   const int vec_g = Cg % (g_bf16 ? 8 : 4) == 0 && aligned16(Gm);
   const dim3 grid(tiles, K, slices);
-  static size_t granted[48] = {};  // by types, 4 qa + qg
+  static size_t granted[75] = {};  // by types, 5 qa + qg
   auto go = [&](auto kernel, auto ta, auto tg) {
     using TA = decltype(ta);
     using TG = decltype(tg);
-    const int slot = 16 * types + 4 * qa + qg;
+    const int slot = 25 * types + 5 * qa + qg;
     if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       granted[slot] = smem;
@@ -2196,10 +2686,28 @@ int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stri
       default: go(gather_wgrad_kernel<3, 1, TA, TG>, ta, tg); break;
     }
   };
+  auto by_mma_q = [&](auto qa_) {  // the tensor-core form: QA, QG in 1..4, QA QG <= 9
+    constexpr int QA = decltype(qa_)::value;
+    switch (qg) {
+      case 1: go(gather_wgrad_kernel<QA, 1, bf16, bf16>, bf16(), bf16()); break;
+      case 2: go(gather_wgrad_kernel<QA, 2, bf16, bf16>, bf16(), bf16()); break;
+      case 3:
+        if constexpr (QA <= 3) go(gather_wgrad_kernel<QA, 3, bf16, bf16>, bf16(), bf16());
+        break;
+      default:
+        if constexpr (QA <= 2) go(gather_wgrad_kernel<QA, 4, bf16, bf16>, bf16(), bf16());
+        break;
+    }
+  };
   if (types == 0) {
     by_q(0.f, 0.f);
   } else if (types == 1) {
-    by_q(bf16(), bf16());
+    switch (qa) {
+      case 1: by_mma_q(std::integral_constant<int, 1>()); break;
+      case 2: by_mma_q(std::integral_constant<int, 2>()); break;
+      case 3: by_mma_q(std::integral_constant<int, 3>()); break;
+      default: by_mma_q(std::integral_constant<int, 4>()); break;
+    }
   } else {
     by_q(bf16(), 0.f);
   }
@@ -2207,10 +2715,10 @@ int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stri
 }
 
 // gather_wgrad's output tiles for Ca x Cg channels (the wrapper sizes its
-// row slices)
-int pc_gather_wgrad_tiles(int Ca, int Cg) {
+// row slices): the SIMT forms', or (mma) the tensor-core form's
+int pc_gather_wgrad_tiles(int Ca, int Cg, int mma) {
   int qa, qg;
-  gw::qs_for(Ca, Cg, &qa, &qg);
+  gw::qs_for(Ca, Cg, &qa, &qg, mma != 0);
   return ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
 }
 

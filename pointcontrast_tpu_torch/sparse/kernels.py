@@ -14,9 +14,16 @@ bf16 forms (``<name>_bf16``, their twins and counters beside the f32
 ones): ``gather_gemm_bf16``, ``gather_wgrad_bf16``, ``parent_gemm_bf16``
 and ``scatter_parent_bf16`` take the bf16 operands of JAX's bf16 mode and
 keep its rounding points: bf16 x bf16 products summed in f32, each output
-rounded once to bf16 (``gather_wgrad_bf16`` writes f32 dW, A bf16 and G
-bf16 or f32; ``scatter_parent_bf16`` an f32 dy).  Their twins gather bf16,
-multiply in f32 and round once.  Every wrapper checks each operand's dtype
+rounded once to bf16 (``gather_gemm_bf16``'s ``round_each_tap``: each tap
+rounded first, JAX's flat ``_conv_core``; ``gather_wgrad_bf16`` writes f32
+dW, A bf16 and G bf16 or f32; ``scatter_parent_bf16`` an f32 dy).  Their
+twins gather bf16 and round as the kernels do, on exact (f64) sums for
+``gather_gemm_bf16`` and f32 ones for the others.  ``gather_gemm_bf16``
+and ``gather_wgrad_bf16`` on two bf16 operands run on the tensor cores
+(mma.sync), summing in another order than the SIMT forms:
+``gather_gemm_bf16_bound`` and ``gather_wgrad_bf16_bound`` give the
+distance from the exact sum their outputs are held to.  Every wrapper
+checks each operand's dtype
 and raises on another (no cast inside a wrapper); the kernels without a
 bf16 form raise ``NotImplementedError`` naming ROADMAP item 5b.
 
@@ -132,7 +139,8 @@ SCATTER_BLOCKS = 4 * GEMM_BLOCKS
 SEG_SMEM = 16
 SEG_BLOCKS = 264
 # gather_wgrad: blocks to aim at (eight waves of 132 SMs, for balance: a
-# block's work is its slice's live pairs)
+# block's work is its slice's live pairs; the fastest of 2, 4, 8 and 16
+# waves for the tensor-core form too: ``chip_smoke.py --wgrad-blocks``)
 WGRAD_BLOCKS = 8 * 132
 BF16 = torch.bfloat16
 # where the bf16 forms of the other kernels stand (the ops refuse bf16 there)
@@ -168,11 +176,11 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("sparse_conv", {
         "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, vp, vp, vp,
-                           ci, ci, ci, ci, ci, ci, ci, ci, vp],
-        "pc_gather_gemm_tile_n": [ci],
+                           ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
+        "pc_gather_gemm_tile_n": [ci, ci, ci],
         "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
                             ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
-        "pc_gather_wgrad_tiles": [ci, ci],
+        "pc_gather_wgrad_tiles": [ci, ci, ci],
         "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
@@ -252,37 +260,109 @@ def _wide(t):
     return t.float() if t is not None and t.dtype == BF16 else t
 
 
-def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
+                      round_each_tap=False):
     # ``order`` only orders the kernel's tiles: every row's sum is the same.
-    # bf16 operands: rows gathered in bf16, products and sums in f32, one
-    # rounding of each sum to bf16
+    # bf16 operands: rows gathered in bf16, their products summed exactly
+    # (f64) and each sum rounded once to bf16; ``round_each_tap`` (JAX's
+    # flat _conv_core): each tap's exact product rounded to bf16, the
+    # rounded taps (in list order, the centre last) summed exactly and the
+    # sum rounded again.  The kernel's f32 sums round the same way but
+    # where a rounding boundary lies within their error
+    # (``gather_gemm_bf16_bound``)
     b_, s_in, _ = x3.shape
-    if wc is None:
-        out = x3.new_zeros(b_, s_out, w.shape[-1],
-                           dtype=torch.float32 if x3.dtype == BF16 else x3.dtype)
-    else:
+    acc = torch.float64 if x3.dtype == BF16 else x3.dtype
+
+    def product(rows, wj):
+        p = rows.to(acc) @ wj.to(acc)
+        return p.to(x3.dtype).to(acc) if round_each_tap else p
+
+    centre = None
+    if wc is not None:
         xc = x3[:, :s_out]
         if 0 <= skip < s_out:
             xc = torch.where(_kept(torch.arange(s_out, device=x3.device), skip), xc, 0.0)
-        out = _wide(xc) @ _wide(wc)
+        centre = product(xc, wc)
+    if centre is None or round_each_tap:
+        out = x3.new_zeros(b_, s_out, w.shape[-1], dtype=acc)
+    else:
+        out = centre
     for j in range(w.shape[0]):
         idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
         rows = take_rows(x3, idx)
         if skip >= 0:
             rows = torch.where(_kept(idx, skip), rows, 0.0)
-        out = out + _wide(rows) @ _wide(w[j])
+        out = out + product(rows, w[j])
+    if centre is not None and round_each_tap:
+        out = out + centre
     return out.to(x3.dtype)
 
 
 gather_gemm_bf16_plain = gather_gemm_plain  # the twin takes both dtypes
 
+# How far an output of the bf16 gather GEMMs may lie from the exact (f64)
+# sum of its bf16 x bf16 products (exact in f32 and f64), whatever order
+# the kernel adds them in: each f32 add is off by at most one f32 ulp
+# (2^-23 relative: the tensor cores' adds may truncate), so a sum of n
+# terms is off by at most gamma(n) = n u / (1 - n u) of the sum of their
+# magnitudes (Higham, Accuracy and Stability of Numerical Algorithms,
+# eq. 4.4, any order of summation); a rounding to bf16 moves a value by at
+# most 2^-8 of it.  Derived, not fitted: the card's checks print each
+# output's largest ratio to it.
+F32_ADD_ULP = 2.0 ** -23
+BF16_HALF_ULP = 2.0 ** -8
 
-def _gemm_splits(b_, s_out, cout, ntap) -> int:
+
+def _gamma(n: int) -> float:
+    return n * F32_ADD_ULP / (1 - n * F32_ADD_ULP)
+
+
+def gather_gemm_bf16_bound(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
+                           round_each_tap=False):
+    """(ref, bound), f64 [B, s_out, Cout]: the exact sum of the products
+    ``gather_gemm_bf16`` computes, and how far from it an output may lie.
+    One rounding: an f32 sum of the T Cin products, rounded once, lies
+    within 2^-8 |ref| + (1 + 2^-8) gamma(T Cin) P, P the sum of |products|.
+    ``round_each_tap``: tap t's f32 sum rounds to within e_t = 2^-8 |T_t| +
+    (1 + 2^-8) gamma(Cin) P_t of its exact T_t, the f32 sum of the T
+    rounded taps to within E = sum_t e_t + gamma(T) sum_t (|T_t| + e_t) of
+    ref, and its rounding to within 2^-8 |ref| + (1 + 2^-8) E."""
+    b_, _, cin = x3.shape
+    f64 = torch.float64
+    ref = size = spread = None
+
+    def add(rows, wj):
+        nonlocal ref, size, spread
+        r, wj = rows.to(f64), wj.to(f64)
+        t, p = r @ wj, r.abs() @ wj.abs()
+        e = (BF16_HALF_ULP * t.abs() + (1 + BF16_HALF_ULP) * _gamma(cin) * p
+             if round_each_tap else p)
+        ref, size = (t, e) if ref is None else (ref + t, size + e)
+        if round_each_tap:  # sum_t (|T_t| + e_t)
+            spread = t.abs() + e if spread is None else spread + t.abs() + e
+
+    for j in range(w.shape[0]):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
+        rows = take_rows(x3, idx)
+        add(torch.where(_kept(idx, skip), rows, 0.0) if skip >= 0 else rows, w[j])
+    if wc is not None:
+        xc = x3[:, :s_out]
+        if 0 <= skip < s_out:
+            xc = torch.where(_kept(torch.arange(s_out, device=x3.device), skip), xc, 0.0)
+        add(xc, wc)
+    taps_n = w.shape[0] + (wc is not None)
+    err = (size + _gamma(taps_n) * spread if round_each_tap
+           else _gamma(taps_n * cin) * size)
+    return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
+
+
+def _gemm_splits(b_, s_out, cout, ntap, tile_n=None) -> int:
     """Blocks over which gather_gemm spreads one tile's taps: one, unless
-    its tiles (128 rows x the kernel's Cout tile, per chunk) come to fewer
-    than GEMM_BLOCKS; then enough to get there, with 3 taps a split at
-    least."""
-    blocks = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+    its tiles (128 rows x the kernel's Cout tile ``tile_n``, by default the
+    f32 kernel's, per chunk) come to fewer than GEMM_BLOCKS; then enough to
+    get there, with 3 taps a split at least."""
+    tile_n = _gemm_tile_n(cout) if tile_n is None else tile_n
+    blocks = -(-s_out // GEMM_ROWS) * -(-cout // tile_n) * b_
     if blocks >= GEMM_BLOCKS or ntap < 6:
         return 1
     return min(ntap // 3, -(-GEMM_BLOCKS // blocks))
@@ -301,7 +381,15 @@ def _scatter_splits(b_, s_out, cin, steps) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _gemm_tile_n(cout: int) -> int:
-    return _lib().pc_gather_gemm_tile_n(cout)
+    return _lib().pc_gather_gemm_tile_n(cout, 0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_tile_n_bf16(cout: int, round_each_tap: bool) -> int:
+    """gather_gemm_bf16's Cout tile (the tensor-core kernel's: up to 128,
+    64 under ``round_each_tap``, whose second accumulator set doubles the
+    registers)."""
+    return _lib().pc_gather_gemm_tile_n(cout, 1, int(round_each_tap))
 
 
 def _refuse_bf16(name, t, form):
@@ -332,9 +420,10 @@ def _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order):
 
 
 def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, order,
-                        dtype):
-    """The gather-GEMM kernel on ``dtype`` (f32 or bf16) operands -> (the
-    output in ``dtype``, launches: 0 or 1); split partials in f32."""
+                        dtype, round_each_tap=False):
+    """The gather-GEMM kernel on ``dtype`` (f32 or bf16: the tensor-core
+    kernel, ``round_each_tap`` its mode) operands -> (the output in
+    ``dtype``, launches: 0 or 1); split partials in f32."""
     b_, s_in, cin = x3.shape
     g, _, cout = w.shape
     _require(x3, "x3", dtype, 3)
@@ -348,16 +437,19 @@ def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, or
     if out.numel() == 0:
         return out, 0
     ntap = g + (wc is not None)
-    splits = _gemm_splits(b_, s_out, cout, ntap)
+    tile_n = (_gemm_tile_n_bf16(cout, round_each_tap) if dtype == BF16
+              else _gemm_tile_n(cout))
+    splits = _gemm_splits(b_, s_out, cout, ntap, tile_n)
     ws = tickets = None
     if splits > 1:
         ws = torch.empty(splits, b_, s_out, cout, device=x3.device, dtype=torch.float32)
-        tiles = -(-s_out // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+        tiles = -(-s_out // GEMM_ROWS) * -(-cout // tile_n) * b_
         tickets = torch.zeros(tiles, device=x3.device, dtype=torch.int32)
     rc = _lib().pc_gather_gemm(
         _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
         _ptr(wc), _ptr(order), _ptr(out), _ptr(ws), _ptr(tickets), splits, b_,
-        s_in, s_out, cin, cout, int(skip), int(dtype == BF16), _stream())
+        s_in, s_out, cin, cout, int(skip), int(dtype == BF16), int(round_each_tap),
+        _stream())
     _check(rc, name)
     return out, 1
 
@@ -389,18 +481,23 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
     return out
 
 
-def gather_gemm_bf16(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
+def gather_gemm_bf16(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
+                     round_each_tap=False):
     """``gather_gemm`` on bf16 operands (x3, w and wc bf16; JAX's bf16 conv
     products, ``preferred_element_type=f32``): each output row's products
     and their sum in f32, rounded once to bf16 -> [B, s_out, Cout] bf16.
-    Where the taps are split over blocks, the f32 partials are added in
-    split order and the sum rounded once: the same bits from run to run."""
+    ``round_each_tap``: JAX's flat ``_conv_core`` instead, each tap's f32
+    product rounded to bf16 before the f32 sum over the taps (in list
+    order, the centre last), and the sum rounded again.  Where the taps are
+    split over blocks, the f32 partials are added in split order and the
+    sum rounded once: the same bits from run to run."""
     _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order)
     _require_dtypes("gather_gemm_bf16", BF16, x3=x3, w=w, wc=wc)
     if _use_plain(x3):
-        return gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip)
+        return gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip,
+                                      round_each_tap=round_each_tap)
     out, n = _gather_gemm_launch("gather_gemm_bf16", x3, map_, taps, tap_stride, w, wc,
-                                 s_out, skip, order, BF16)
+                                 s_out, skip, order, BF16, round_each_tap)
     gather_gemm_bf16.launches += n
     return out
 
@@ -427,9 +524,43 @@ def gather_wgrad_plain(a3, a_map, a_taps, a_stride, g3, g_map, g_taps,
 gather_wgrad_bf16_plain = gather_wgrad_plain
 
 
+def bound_ratio(got, ref, bound) -> float:
+    """The largest |got - ref| / bound of an output against its bound
+    (``gather_gemm_bf16_bound``, ``gather_wgrad_bf16_bound``): at most 1
+    where it holds; an output off an exact zero bound counts as inf."""
+    err = (got.double() - ref).abs()
+    ratio = torch.where(bound > 0, err / bound.clamp(min=1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def gather_wgrad_bf16_bound(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
+                            k, s_rows, skip_a=-1, skip_g=-1):
+    """(ref, bound), f64 [k, Ca, Cg]: the exact sum of the products
+    ``gather_wgrad_bf16`` computes (its output is f32: no bf16 rounding),
+    and how far from it an f32 sum of tap j's n_j kept pairs may lie:
+    gamma(n_j) of the sum of |products| (``gather_gemm_bf16_bound``)."""
+    b_ = a3.shape[0]
+    f64 = torch.float64
+    ref, bound = [], []
+    for j in range(k):
+        ia = row_index(a_map, a_taps, a_stride, j, b_, s_rows, a3.device)
+        ig = row_index(g_map, g_taps, g_stride, j, b_, s_rows, a3.device)
+        kept = _kept(ia, skip_a) & _kept(ig, skip_g)
+        ra = torch.where(kept, take_rows(a3, ia), 0.0).to(f64)
+        rg = torch.where(kept, take_rows(g3, ig), 0.0).to(f64)
+        ref.append(torch.einsum("bsc,bsd->cd", ra, rg))
+        size = torch.einsum("bsc,bsd->cd", ra.abs(), rg.abs())
+        bound.append(_gamma(int(kept.sum())) * size)
+    return torch.stack(ref), torch.stack(bound)
+
+
 @functools.lru_cache(maxsize=None)
-def _wgrad_tiles(ca: int, cg: int) -> int:
-    return _lib().pc_gather_wgrad_tiles(ca, cg)
+def _wgrad_tiles(ca: int, cg: int, mma: bool = False) -> int:
+    """gather_wgrad's output tiles: the SIMT forms', or (``mma``) the
+    tensor-core form's, up to 128 channels a side (128 x 64 at most where
+    both sides take 128: csrc ``gw::qs_for``)."""
+    return _lib().pc_gather_wgrad_tiles(ca, cg, int(mma))
 
 
 def _wgrad_shapes(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows):
@@ -456,7 +587,7 @@ def _gather_wgrad_launch(name, a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g
     rows = b_ * s_rows
     if rows == 0 or k == 0:
         return torch.zeros(k, ca, cg, device=a3.device, dtype=torch.float32), 0
-    tiles = _wgrad_tiles(ca, cg)
+    tiles = _wgrad_tiles(ca, cg, a_dtype == BF16 and g_dtype == BF16)
     slices = max(1, min(-(-rows // 256), -(-WGRAD_BLOCKS // (tiles * k))))
     per_block = -(-rows // slices)
     slices = -(-rows // per_block)

@@ -46,17 +46,26 @@ Feature gradients at pad rows are garbage by design (they differ between
 forms) and every producer masks them.
 
 bf16 activations (JAX's mixed precision): K1-K3 take bf16 features and
-weights (the layers' bf16 casts) and run the kernels' bf16 forms, JAX's
-rounding points kept: every conv product is bf16 x bf16 with an f32 sum,
-rounded once to bf16 (forward and dF of K1 and K2, K3's forward); every dW
-is ``F.f32^T ct.f32`` in f32 (``gather_wgrad_bf16``), rounded to the
-weights' bf16 as JAX's ``dw.astype(weights.dtype)``; K3's backward
-scatters the bf16 cotangent into an f32 ``dy`` (``scatter_parent_bf16``),
-takes dF = dy W.f32 with the f32 ``gather_gemm`` and rounds it once, and
-dW against the f32 dy.  K4 (``scatter_gemm``) and the pools (``gather_sum``
-/ ``scatter_sum``) have no bf16 form yet (ROADMAP Queue 1 item 5b): they
-raise ``NotImplementedError`` on bf16 features, and never run in f32 in
-their place.
+weights (the layers' bf16 casts) and run the kernels' bf16 forms.  Every
+conv product is bf16 x bf16 with an f32 sum; every dW is ``F.f32^T
+ct.f32`` in f32 (``gather_wgrad_bf16``), rounded to the weights' bf16 as
+JAX's ``dw.astype(weights.dtype)``; K3's backward scatters the bf16
+cotangent into an f32 ``dy`` (``scatter_parent_bf16``), takes dF = dy W.f32
+with the f32 ``gather_gemm`` and rounds it once, and dW against the f32
+dy.  Where the sums are rounded to bf16 depends on the layout, as in JAX:
+  - chunked: JAX's rounding points, once per output (forward and dF of K1
+    and K2, K3's forward);
+  - voxel: the K1 and K2 forwards round each tap's product to bf16 before
+    the f32 sum and the sum again (JAX's flat ``_conv_core``; the
+    ``round_each_tap`` mode of ``gather_gemm_bf16``, the centre added in
+    its place among the taps); K3's forward and K1's dF round once, as
+    JAX's flat forms do.  K2's and K3's dF round once, where JAX's autodiff
+    of its scans rounds each tap's adjoint and adds them in bf16: a delta
+    kept on purpose (ROADMAP, "Deltas the port keeps on purpose").
+K4 (``scatter_gemm``) and the pools (``gather_sum`` / ``scatter_sum``) have
+no bf16 form yet (ROADMAP Queue 1 item 5b): they raise
+``NotImplementedError`` on bf16 features, and never run in f32 in their
+place.
 """
 from __future__ import annotations
 
@@ -128,14 +137,18 @@ class _ConvChunkFused(torch.autograd.Function):
     valid rows and pad features are zero, so dW takes all K taps gathered."""
 
     @staticmethod
-    def forward(ctx, features, nbr, weights, rev, order=None):
+    def forward(ctx, features, nbr, weights, rev, order=None, round_each_tap=False):
         k, b_, s = nbr.shape
         center = _center_of(rev)
         taps = [i for i in range(k) if i != center]
         f3 = features.reshape(b_, s, -1)
-        wc = None if center is None else weights[center]
         gemm = _forms(features, weights)[0]
-        out = gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
+        if round_each_tap:  # JAX's order: the centre gathered in its place
+            out = gemm(f3, nbr, list(range(k)), 0, weights, None, s, s - 1, order,
+                       round_each_tap=True)
+        else:
+            wc = None if center is None else weights[center]
+            out = gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
         ctx.save_for_backward(features, nbr, weights, order)
         ctx.rev, ctx.center, ctx.taps = rev, center, taps
         return out.reshape(b_ * s, -1)
@@ -158,7 +171,7 @@ class _ConvChunkFused(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             dw = wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s,
                        skip_g=s - 1).to(weights.dtype)
-        return df, None, dw, None, None
+        return df, None, dw, None, None, None
 
 
 class _ConvChunkDown2(torch.autograd.Function):
@@ -171,12 +184,13 @@ class _ConvChunkDown2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, down_nbr, up_parent, up_offset, weights, order=None,
-                up_order=None):
+                up_order=None, round_each_tap=False):
         k, b_, s_out = down_nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         gemm = _forms(features, weights)[0]
+        rounding = {"round_each_tap": True} if round_each_tap else {}
         out = gemm(f3, down_nbr, list(range(k)), 0, weights, None, s_out,
-                   f3.shape[1] - 1, order)
+                   f3.shape[1] - 1, order, **rounding)
         ctx.save_for_backward(features, down_nbr, up_parent, up_offset, weights, up_order)
         return out.reshape(b_ * s_out, -1)
 
@@ -195,7 +209,7 @@ class _ConvChunkDown2(torch.autograd.Function):
         if ctx.needs_input_grad[4]:
             dw = wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,
                        None, 0, k, s_out, skip_a=f3.shape[1] - 1).to(weights.dtype)
-        return df, None, None, None, dw, None, None
+        return df, None, None, None, dw, None, None, None
 
 
 class _ConvTrChunk(torch.autograd.Function):
@@ -320,6 +334,8 @@ def sparse_conv(
     features = features.contiguous()
     if up is not None and len(up) == 2:
         up = (*up, None)
+    # bf16 on a flat map: JAX's flat forward rounds each tap (_conv_core)
+    round_each_tap = nbr.dim() == 2 and features.dtype == BF16
     if nbr.dim() == 2:  # voxel layout: one batch-wide slice
         nbr = nbr[:, None]
         if up is not None:
@@ -330,9 +346,11 @@ def sparse_conv(
         raise ValueError(f"[K, B, S] or [K, N] maps only, got {tuple(nbr.shape)}")
     if (rev is not None and nbr.shape[1] * nbr.shape[2] == features.shape[0]
             and valid_out is not None):
-        out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev), order)
+        out = _ConvChunkFused.apply(features, nbr, weights, tuple(rev), order,
+                                    round_each_tap)
     elif up is not None:
-        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights, order, up[2])
+        out = _ConvChunkDown2.apply(features, nbr, up[0], up[1], weights, order, up[2],
+                                    round_each_tap)
     else:
         out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
                                         weights.contiguous(), order)

@@ -5,9 +5,15 @@ rounding (``tests/test_mixed_precision.py`` pins JAX's contract).  The
 same numpy inputs go to both packages (the fixtures of that file: one
 500-point pair, ``PadScheme(npad0=2048)``):
 
-  - K1, K2 and K3 alone, forward, dF and dW at valid rows, within
-    2^-7 max|JAX| (two bf16 ulps at the largest magnitude: the two sides
-    round the same f32 sums, added in other orders);
+  - K1, K2 and K3 alone, in the chunked and the voxel layout: forward, dF
+    and dW at valid rows within 2^-7 max|JAX| (two bf16 ulps at the
+    largest magnitude: the two sides round the same f32 sums, added in
+    other orders), and the K1 and K2 forwards equal to JAX's at every valid
+    row (the voxel ones round each tap's product, as JAX's flat
+    ``_conv_core``) but where a rounding lies at a boundary (``_boundary``);
+    the voxel K2 and K3 dF equal to their f64 sums rounded once to bf16,
+    but at a boundary (the delta the port keeps: JAX's autodiff rounds each
+    tap's adjoint there);
   - Res16UNet34C in bf16 with JAX's parameters loaded (params are f32 in
     both modes, so ``tools.from_jax`` carries them as they are): per-row
     cosine >= 0.999 at valid rows, pad rows exactly zero, every parameter
@@ -43,7 +49,7 @@ from pointcontrast_tpu_torch.data.collate import PadScheme, collate_pair
 from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
 from pointcontrast_tpu_torch.nn import layers
 from pointcontrast_tpu_torch.nn.registry import load_model
-from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.sparse import kernels, ops
 from pointcontrast_tpu_torch.tools.from_jax import load_jax_params
 from pointcontrast_tpu_torch.train import PretrainConfig, make_train_step, optim
 
@@ -58,14 +64,23 @@ def _samples():
     return [SyntheticPairDataset(num_pairs=1, points_per_frame=500, seed=0)[0]]
 
 
-@pytest.fixture(scope="module")
-def batches():
+def _collate(layout):
     """(JAX batch, the port's on the CPU) of the same pair: byte-identical."""
     j = j_collate_pair(_samples(), JPadScheme(npad0=2048), mode="nce", npos=64,
-                       rng=np.random.RandomState(0), fuse_frames=True, layout="chunked")
+                       rng=np.random.RandomState(0), fuse_frames=True, layout=layout)
     t = collate_pair(_samples(), PadScheme(npad0=2048), npos=64,
-                     rng=np.random.RandomState(0)).to("cpu")
+                     rng=np.random.RandomState(0), layout=layout).to("cpu")
     return j, t
+
+
+@pytest.fixture(scope="module")
+def batches():
+    return _collate("chunked")
+
+
+@pytest.fixture(scope="module")
+def voxel_batches():
+    return _collate("voxel")
 
 
 def _np(t):
@@ -90,13 +105,81 @@ def _close(got, want, what, rows=None):
     assert err <= OP_RTOL * ref, f"{what}: {err:.3e} of {ref:.3e}"
 
 
+# the f32 sums' error on the CPU (each add rounds to nearest: 2^-24
+# relative): gamma(n) = n u / (1 - n u) of the sum of |products| over n
+# terms, in any order of summation (Higham)
+U32 = 2.0 ** -24
+
+
+def _gamma(n):
+    return n * U32 / (1 - n * U32)
+
+
+def _ulp(x):
+    """The bf16 ulp at each |x| (f64): 2^(e-8) for |x| in [2^(e-1), 2^e)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+
+
+def _near_midpoint(exact, err):
+    """Where a bf16 rounding midpoint lies within ``err`` of ``exact`` (f64
+    tensors): an f32 sum within ``err`` of ``exact`` may round to either
+    neighbour there."""
+    ulp = _ulp(exact)
+    frac = exact.abs() / ulp
+    return (frac - frac.floor() - 0.5).abs() * ulp <= err
+
+
+def _boundary(f, maps, w, per_tap):
+    """[N_out, Cout] bool: the outputs of sum_t f[maps[t]] @ w[t] (f bf16
+    [B, S, Cin], maps [T, B, S_out], w [T, Cin, Cout]) where an f32 sum
+    may round to the other bf16 neighbour of the exact result: the whole
+    sum (one rounding of T Cin products) or, ``per_tap``, the sum of the
+    rounded taps, a tap whose own rounding sits at a boundary moving it by
+    that tap's ulp."""
+    from pointcontrast_tpu_torch.sparse.kernels import take_rows
+
+    f64, w64 = f.double(), w.double()
+    taps = [(take_rows(f64, m.long()) @ w64[t], take_rows(f64.abs(), m.long()) @ w64[t].abs())
+            for t, m in enumerate(maps)]
+    cin = f.shape[-1]
+    if not per_tap:
+        total, size = sum(t for t, _ in taps), sum(p for _, p in taps)
+        hit = _near_midpoint(total, _gamma(len(taps) * cin) * size)
+    else:
+        rounded = [t.to(BF).double() for t, _ in taps]
+        slack = _gamma(len(taps)) * sum(r.abs() for r in rounded)
+        for t, p in taps:
+            slack = slack + torch.where(_near_midpoint(t, _gamma(cin) * p), _ulp(t), 0.0)
+        hit = _near_midpoint(sum(rounded), slack)
+    return hit.reshape(-1, hit.shape[-1]).numpy()
+
+
+def _explained(got, want, edge):
+    """Outputs (bf16 values as f32 numpy) that differ, and those of them
+    that are not one bf16 ulp apart at a boundary (``_boundary``)."""
+    differ = got != want
+    gap = np.abs(got.astype(np.float64) - want)
+    one_ulp = gap <= _ulp(torch.from_numpy(np.maximum(np.abs(got), np.abs(want))
+                                           .astype(np.float64))).numpy()
+    return differ, differ & ~(edge & one_ulp)
+
+
+def _forward_maps(case, tb):
+    """(features' chunk count, the forward's gather maps [T, B, S_out] with
+    the centre gathered through its map): K1's nbr, K2's down_nbr."""
+    lv = tb.pyramid0.levels[0]
+    m = lv.nbr if case.startswith("K1") else lv.down_nbr
+    return (m if m.dim() == 3 else m[:, None]), lv
+
+
 def _op_case(case, tb, rng):
     """(JAX function of (features, weights), the port's, JAX inputs, the
     port's, cotangent pair, valid input rows, valid output rows)."""
     lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
     j = lambda a: jnp.asarray(_np(a))  # noqa: E731
-    if case.startswith("K1"):
-        cin, cout = (3, 32) if case == "K1 stem" else (32, 32)
+    op = case.split()[0]
+    if op == "K1":
+        cin, cout = (3, 32) if "stem" in case else (32, 32)
         rev = tuple(lv.rev)
         f, w = _pair(rng, (lv.valid.shape[0], cin), lv.valid), _pair(rng, (27, cin, cout))
         jf = lambda x, k: jops.sparse_conv(x, j(lv.nbr), k, valid_out=j(lv.valid),  # noqa
@@ -104,7 +187,7 @@ def _op_case(case, tb, rng):
         tf = lambda x, k: ops.sparse_conv(x, lv.nbr, k, valid_out=lv.valid, rev=rev,  # noqa
                                           order=lv.nbr_order)
         vin, vout = lv.valid, lv.valid
-    elif case == "K2":
+    elif op == "K2":
         f, w = _pair(rng, (lv.valid.shape[0], 32), lv.valid), _pair(rng, (8, 32, 64))
         jf = lambda x, k: jops.sparse_conv(x, j(lv.down_nbr), k,  # noqa: E731
                                            valid_out=j(lv1.valid),
@@ -124,11 +207,14 @@ def _op_case(case, tb, rng):
     return jf, tf, f, w, ct, _np(vin) > 0, _np(vout) > 0
 
 
-@pytest.mark.parametrize("case", ["K1 stem", "K1", "K2", "K3"])
-def test_conv_ops_match_jax_bf16(batches, case):
+@pytest.mark.parametrize("case", ["K1 stem", "K1", "K2", "K3", "K1 stem voxel", "K1 voxel",
+                                  "K2 voxel", "K3 voxel"])
+def test_conv_ops_match_jax_bf16(batches, voxel_batches, case):
     """Forward, dF and dW of each conv op in bf16, at valid rows: the
-    port's bf16 kernels' twins against JAX's custom VJPs."""
-    _, tb = batches
+    port's bf16 kernels' twins against JAX's custom VJPs (the voxel cases:
+    JAX's flat ops), and the K1 and K2 forwards equal to JAX's at every
+    valid row."""
+    _, tb = voxel_batches if case.endswith("voxel") else batches
     jf, tf, (fj, ft), (wj, wt), (ctj, ctt), vin, vout = _op_case(
         case, tb, np.random.RandomState(len(case)))
     out_j, vjp = jax.vjp(jf, fj, wj)
@@ -139,9 +225,51 @@ def test_conv_ops_match_jax_bf16(batches, case):
     assert out_t.dtype == BF and ft.grad.dtype == BF and wt.grad.dtype == BF
     assert out_j.dtype == JBF and df_j.dtype == JBF and dw_j.dtype == JBF
     _close(out_t, out_j, f"{case} forward", vout)
+    if case.split()[0] in ("K1", "K2"):
+        maps, _ = _forward_maps(case, tb)
+        f3 = ft.detach().reshape(maps.shape[1], -1, ft.shape[-1])
+        edge = _boundary(f3, maps, wt.detach(), case.endswith("voxel"))[vout]
+        differ, odd = _explained(out_t.detach().float().numpy()[vout],
+                                 np.asarray(jnp.asarray(out_j, jnp.float32))[vout], edge)
+        print(f"{case}: {differ.sum()} of {differ.size} differ, {edge.sum()} at a boundary")
+        assert not odd.any(), f"{case}: {odd.sum()} differ off a boundary"
     assert not out_t.detach()[~torch.from_numpy(vout)].float().any()
     _close(ft.grad, df_j, f"{case} dF", vin)
     _close(wt.grad, dw_j, f"{case} dW")
+
+
+@pytest.mark.parametrize("case", ["K2 voxel", "K3 voxel"])
+def test_voxel_dF_rounds_the_f64_sum_once(voxel_batches, case):
+    """The delta the port keeps on purpose: the voxel K2 and K3 dF are the
+    f64 sum of their bf16 x bf16 products rounded once to bf16 at every
+    valid input row (JAX's autodiff of its flat scans rounds each tap's
+    adjoint and adds them in bf16)."""
+    _, tb = voxel_batches
+    _, tf, (_, ft), (_, wt), (_, ctt), vin, _ = _op_case(
+        case, tb, np.random.RandomState(len(case)))
+    ft, wt = ft.requires_grad_(), wt.requires_grad_()
+    tf(ft, wt).backward(ctt)
+    lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
+    wt_t = wt.detach().transpose(1, 2)
+    if case == "K2 voxel":  # dF[i] = ct[parent[i]] W_off[i]^T: one map a offset
+        maps = torch.stack([torch.where(lv.up_offset == o, lv.up_parent, lv1.valid.shape[0] - 1)
+                            for o in range(8)])[:, None]
+        table = ctt
+    else:  # dF[c] = sum_k dy[k S_c + c] W_k^T, dy the f32 scatter of ct
+        s_c = lv1.valid.shape[0]
+        table = kernels.scatter_parent_plain(ctt.float()[None], lv.up_parent[None],
+                                             lv.up_offset[None], 8, s_c)[0].to(BF)
+        assert torch.equal(table.float(), kernels.scatter_parent_plain(
+            ctt.float()[None], lv.up_parent[None], lv.up_offset[None], 8, s_c)[0])
+        maps = (torch.arange(s_c)[None] + s_c * torch.arange(8)[:, None])[:, None]
+    want = sum(kernels.take_rows(table.double()[None], m.long()) @ wt_t[o].double()
+               for o, m in enumerate(maps))[0].to(BF)
+    edge = _boundary(table[None], maps, wt_t, False)
+    v = torch.from_numpy(vin)
+    differ, odd = _explained(ft.grad[v].float().numpy(), want[v].float().numpy(), edge[vin])
+    print(f"{case} dF: {differ.sum()} of {differ.size} differ, {edge[vin].sum()} at a "
+          "boundary")
+    assert not odd.any(), f"{odd.sum()} differ off a boundary"
 
 
 @pytest.fixture(scope="module")

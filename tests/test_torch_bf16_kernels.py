@@ -1,18 +1,24 @@
 """The bf16 forms of the sparse-conv kernels (``gather_gemm_bf16``,
 ``gather_wgrad_bf16``, ``parent_gemm_bf16``, ``scatter_parent_bf16``):
-here, on the CPU, their twins' rounding points (bf16 rows, f32 products
-and sums, one rounding) and every wrapper's dtype checks; on the card each
-form against its twin at the stem's Cin = 3, Cin % 8 != 0, ragged and
-unaligned rows, tap splits and large grids, with the same bits from two
-launches and exact +0 at rows that gather nothing.
+here, on the CPU, their twins' rounding points (bf16 rows, exact or f32
+sums, one rounding; ``round_each_tap`` against a numpy reference), the
+error bounds of the two tensor-core forms on the twins, and every
+wrapper's dtype checks; on the card each form against its twin at the
+stem's Cin = 3, Cin % 8 != 0, ragged and unaligned rows, tap splits and
+large grids, with the same bits from two launches and exact +0 at rows
+that gather nothing.
 
 Tolerances on the card: a bf16 output is the kernel's f32 sum and the
-twin's, each rounded once; the sums differ only in their order, so the
-two differ by at most one bf16 ulp of the element where a rounding
-boundary lies between them: |got - want| <= 2^-7 max|want| (BF16_RTOL).
-dW (f32 out) and dy (exact) keep the f32 kernels' checks.  Against the
-f32 kernels, which run the same tiles, splits and FMA order, each bf16
-form is exact: the f32 kernel on the widened operands, rounded once.
+twin's exact one, each rounded once (or, under ``round_each_tap``, each
+tap rounded first); they differ by at most one bf16 ulp of the element
+where a rounding boundary lies between them: |got - want| <= 2^-7
+max|want| (BF16_RTOL).  dW (f32 out) and dy (exact) keep the f32 kernels'
+checks.  ``gather_gemm_bf16`` and the (bf16, bf16) ``gather_wgrad_bf16``
+run on the tensor cores, whose sums run in another order than the f32
+kernels': each output lies within its derived bound of the exact sum
+(``kernels.gather_gemm_bf16_bound``, ``gather_wgrad_bf16_bound``).  The
+other forms run the f32 instances' tiles, splits and FMA order, so each
+equals its f32 kernel on the widened operands, rounded once.
 
 This file imports no JAX, so the card's machine runs its ``cuda`` tests:
     python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -93,7 +99,8 @@ def _big_map(gen, k, b_, s, dev, live=0.5):
 
 def test_twins_round_the_f32_sums_once(pyr):
     """Each bf16 twin is the f32 twin on the widened operands (bf16 -> f32
-    is exact), rounded once to bf16 (dW and dy stay f32)."""
+    is exact), rounded once to bf16 (dW and dy stay f32); gather_gemm's
+    sums exact, on operands widened to f64."""
     rng = np.random.RandomState(3)
     lv, lv1 = pyr.levels[0], pyr.levels[1]
     b_ = 3
@@ -104,9 +111,9 @@ def test_twins_round_the_f32_sums_once(pyr):
     g0 = torch.from_numpy(rng.randn(b_, s0, 7).astype(np.float32)).to(BF)
     nbr, upp, upo = _idx(lv.nbr), _idx(lv.up_parent), _idx(lv.up_offset)
     taps = [i for i in range(27) if i != 13]
-    f = torch.Tensor.float
+    f, d = torch.Tensor.float, torch.Tensor.double
     got = kernels.gather_gemm_bf16(x0, nbr, taps, 0, w[taps], w[13], s0, s0 - 1)
-    want = kernels.gather_gemm_plain(f(x0), nbr, taps, 0, f(w[taps]), f(w[13]), s0,
+    want = kernels.gather_gemm_plain(d(x0), nbr, taps, 0, d(w[taps]), d(w[13]), s0,
                                      s0 - 1).to(BF)
     assert got.dtype == BF and torch.equal(got, want)
     got = kernels.parent_gemm_bf16(x1, upp, upo, w[:8], s1 - 1)
@@ -122,6 +129,65 @@ def test_twins_round_the_f32_sums_once(pyr):
     got = kernels.scatter_parent_bf16(ct, upp, upo, 8, s1)
     assert got.dtype == torch.float32
     assert torch.equal(got, kernels.scatter_parent_plain(f(ct), upp, upo, 8, s1))
+
+
+def _bf16_round(x):
+    """float64 numpy values rounded to the nearest bf16, ties to even (8
+    significant bits; no overflow or subnormals at these magnitudes)."""
+    m, e = np.frexp(x)
+    return np.ldexp(np.rint(np.ldexp(m, 8)), e - 8)
+
+
+@pytest.mark.parametrize("centre", [False, True])
+def test_round_each_tap_twin_matches_numpy(pyr, centre):
+    """``round_each_tap``: each tap's product an f32 dot (the exact product
+    rounded to f32, as JAX's ``preferred_element_type``) rounded to bf16,
+    the rounded taps summed (list order, the centre last) and the sum
+    rounded to f32 and bf16 again, the skipped row left out: the twin
+    against numpy in f64, bit for bit, the centre tap given or not."""
+    rng = np.random.RandomState(7)
+    lv = pyr.levels[0]
+    b_, cin, cout = 3, 12, 20
+    s0 = lv.valid.shape[0] // b_
+    x = rng.randn(b_, s0, cin).astype(np.float32) * lv.valid.reshape(b_, s0, 1)
+    w = rng.randn(27, cin, cout).astype(np.float32)
+    x, w = (torch.from_numpy(a).to(BF) for a in (x, w))
+    taps = [i for i in range(27) if i != 13] if centre else list(range(27))
+    wc = w[13] if centre else None
+    got = kernels.gather_gemm_bf16(x, _idx(lv.nbr), taps, 0, w[taps], wc, s0, s0 - 1,
+                                   round_each_tap=True)
+    xs, ws = x.double().numpy(), w.double().numpy()
+    nbr = np.asarray(lv.nbr)
+    total = np.zeros((b_, s0, cout))
+    for t in taps + ([13] if centre else []):
+        rows = (np.arange(s0)[None].repeat(b_, 0) if centre and t == 13 else nbr[t])
+        gathered = np.take_along_axis(xs, rows[..., None], 1) * (rows != s0 - 1)[..., None]
+        total += _bf16_round((gathered @ ws[t]).astype(np.float32).astype(np.float64))
+    want = _bf16_round(total.astype(np.float32).astype(np.float64))
+    assert np.array_equal(got.double().numpy(), want)
+
+
+@pytest.mark.parametrize("round_each_tap", [False, True])
+def test_tensor_core_bounds_hold_for_the_twins(pyr, round_each_tap):
+    """The twins are exact sums rounded once (per tap and once more under
+    ``round_each_tap``), dW exact up to its f32 einsum: each output lies
+    within the bound the card's tensor-core forms are held to, and the
+    bound is not slack by orders of magnitude (the largest ratio > 1e-3)."""
+    rng = np.random.RandomState(11)
+    lv = pyr.levels[0]
+    b_, s0 = 3, lv.valid.shape[0] // 3
+    x = torch.from_numpy(rng.randn(b_, s0, 32).astype(np.float32)).to(BF)
+    w = torch.from_numpy(rng.randn(27, 32, 64).astype(np.float32)).to(BF)
+    g = torch.from_numpy(rng.randn(b_, s0, 64).astype(np.float32)).to(BF)
+    nbr = _idx(lv.nbr)
+    taps = [i for i in range(27) if i != 13]
+    args = (x, nbr, taps, 0, w[taps], w[13], s0, s0 - 1, None, round_each_tap)
+    ref, bound = kernels.gather_gemm_bf16_bound(*args)
+    ratio = kernels.bound_ratio(kernels.gather_gemm_bf16(*args), ref, bound)
+    assert 1e-3 < ratio <= 1.0, ratio
+    args = (x, None, None, 0, g, nbr, list(range(27)), 0, 27, s0, -1, s0 - 1)
+    assert kernels.bound_ratio(kernels.gather_wgrad_bf16(*args),
+                               *kernels.gather_wgrad_bf16_bound(*args)) <= 1.0
 
 
 @pytest.mark.parametrize("case", ["gemm f32 x3", "gemm f32 w", "gemm f32 wc",
@@ -212,12 +278,18 @@ def test_gather_gemm_bf16_matches_twin_on_card(pyr, card, cin, cout):
         (x0, down, list(range(8)), 0, w[:8].contiguous(), None, s1, s0 - 1, down_order),
         (stacked, None, None, s1, w[:8].contiguous(), None, s1, -1),
         (xb, big, taps, 0, w[taps].contiguous(), None, 20000, 19999),
+        # round_each_tap (the voxel forwards): K1 with its centre gathered,
+        # K2, and the large map
+        (x0, nbr, list(range(27)), 0, w, None, s0, s0 - 1, order0, True),
+        (x0, down, list(range(8)), 0, w[:8].contiguous(), None, s1, s0 - 1, down_order, True),
+        (xb, big, taps, 0, w[taps].contiguous(), w[13], 20000, 19999, None, True),
     ]
     kernels.reset_launches()
     for args in calls:
         got = kernels.gather_gemm_bf16(*args)
         _close_bf16(got, kernels.gather_gemm_bf16_plain(*args), f"{cin}->{cout}")
         assert torch.equal(got, kernels.gather_gemm_bf16(*args)), "not the same twice"
+        assert kernels.bound_ratio(got, *kernels.gather_gemm_bf16_bound(*args)) <= 1.0
     # K1's pad rows gather only the (skipped) pad row: +0, bit for bit
     got = kernels.gather_gemm_bf16(*calls[0])
     pad = torch.from_numpy(lv.valid).to(card).reshape(b_, s0) == 0
@@ -328,12 +400,16 @@ def _widened(args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout", [(3, 32), (12, 64), (32, 32), (37, 259), (96, 96)])
 def test_bf16_forms_equal_the_f32_kernels_on_widened_operands(pyr, card, cin, cout):
-    """The bf16 instances run the f32 instances' tiles, tap splits and FMA
-    order on operands widened exactly, so each equals its f32 kernel on the
-    widened operands with the output rounded once, bit for bit: a rounding
-    of a split's partial or of a tap's sum would not.  The small pyramid's
-    calls split their taps (asserted), the large map's do not; the stem's
-    Cin = 3 and a Cin % 8 != 0 among the widths."""
+    """parent_gemm_bf16, scatter_parent_bf16 and the (bf16, f32)
+    gather_wgrad_bf16 run the f32 instances' tiles, splits and FMA order on
+    operands widened exactly, so each equals its f32 kernel on the widened
+    operands with the output rounded once, bit for bit.  gather_gemm_bf16
+    and the (bf16, bf16) gather_wgrad_bf16 run on the tensor cores, in
+    another order: each output within one rounding of the exact sum of its
+    products, plus the f32 sums' derived error (``bound_ratio`` <= 1), as
+    a rounding of a split's partial or of a tap's sum would not be.  The
+    small pyramid's calls split their taps (asserted), the large map's do
+    not; the stem's Cin = 3 and a Cin % 8 != 0 among the widths."""
     gen = torch.Generator(device=card).manual_seed(cin * 7 + cout)
     lv, lv1 = pyr.levels[0], pyr.levels[1]
     b_ = 3
@@ -347,21 +423,26 @@ def test_bf16_forms_equal_the_f32_kernels_on_widened_operands(pyr, card, cin, co
     big = _big_map(gen, 27, 2, 20000, card)
     xb = torch.randn(2, 20000, cin, device=card, generator=gen).to(BF)
     g0 = torch.randn(b_, s0, cout, device=card, generator=gen).to(BF)
-    assert kernels._gemm_splits(b_, s0, cout, 27) > 1
-    assert kernels._gemm_splits(2, 20000, cout, 26) == 1
+    tile = kernels._gemm_tile_n_bf16(cout, False)
+    assert kernels._gemm_splits(b_, s0, cout, 27, tile) > 1
+    assert kernels._gemm_splits(2, 20000, cout, 26, tile) == 1
     assert kernels._parent_splits(b_, s0, cout) > 1
-    checks = [
-        (kernels.gather_gemm_bf16, kernels.gather_gemm,
+    bounded = [
+        (kernels.gather_gemm_bf16, kernels.gather_gemm_bf16_bound,
          (x0, nbr, taps, 0, w[taps].contiguous(), w[13], s0, s0 - 1,
           _idx(lv.nbr_order, card))),
-        (kernels.gather_gemm_bf16, kernels.gather_gemm,
+        (kernels.gather_gemm_bf16, kernels.gather_gemm_bf16_bound,
          (x0, down, list(range(8)), 0, w[:8].contiguous(), None, s1, s0 - 1)),
-        (kernels.gather_gemm_bf16, kernels.gather_gemm,
+        (kernels.gather_gemm_bf16, kernels.gather_gemm_bf16_bound,
          (xb, big, taps, 0, w[taps].contiguous(), None, 20000, 19999)),
+        (kernels.gather_wgrad_bf16, kernels.gather_wgrad_bf16_bound,
+         (x0, None, None, 0, g0, nbr, list(range(27)), 0, 27, s0, -1, s0 - 1)),
+    ]
+    for form, bound, args in bounded:
+        assert kernels.bound_ratio(form(*args), *bound(*args)) <= 1.0, form.__name__
+    checks = [
         (kernels.parent_gemm_bf16, kernels.parent_gemm,
          (x1, upp, upo, w[:8].contiguous(), s1 - 1, _idx(lv.up_order, card))),
-        (kernels.gather_wgrad_bf16, kernels.gather_wgrad,
-         (x0, None, None, 0, g0, nbr, list(range(27)), 0, 27, s0, -1, s0 - 1)),
         (kernels.gather_wgrad_bf16, kernels.gather_wgrad,
          (x0, None, None, 0, g0.float(), nbr, list(range(27)), 0, 27, s0, -1, s0 - 1)),
         (kernels.scatter_parent_bf16, kernels.scatter_parent,

@@ -12,6 +12,8 @@ card spends no products on it.  Here, on the CPU:
   (c) that net's forward and every parameter gradient, with the skips on,
       match the JAX package's (one compile), at the parity tolerance of
       ``tests/test_torch_model.py`` (f32, JAX matmuls at "highest")."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -227,20 +229,27 @@ def test_narrow_34c_with_skips_matches_jax(batches, jax_run):
 
 
 def _bf16_case(case, nbr, down, s, s_out, x3, w, rng):
-    """``_case`` on bf16 tables and weights, through the bf16 forms' twins."""
-    fn, args, key, at = _case(case, nbr, down, s, s_out, x3, w, rng)
+    """``_case`` on bf16 tables and weights, through the bf16 forms' twins
+    (a case ending in "per tap": gather_gemm_bf16's ``round_each_tap``)."""
+    per_tap = case.endswith(" per tap")
+    fn, args, key, at = _case(case.removesuffix(" per tap"), nbr, down, s, s_out, x3, w, rng)
     bf = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else a
                for a in args)
-    return getattr(kernels, fn.__name__.replace("_plain", "_bf16_plain")), bf, key, at
+    twin = getattr(kernels, fn.__name__.replace("_plain", "_bf16_plain"))
+    if per_tap:
+        twin = functools.partial(twin, round_each_tap=True)
+    return twin, bf, key, at
 
 
 @pytest.mark.parametrize("layout", ["chunked", "voxel"])
 @pytest.mark.parametrize("case", ["gemm", "gemm centre", "gemm down", "wgrad g",
-                                  "wgrad a"])
+                                  "wgrad a", "gemm per tap", "gemm centre per tap",
+                                  "gemm down per tap"])
 def test_bf16_twins_leave_out_the_skip_row(batches, layout, case):
-    """The same for the bf16 forms' twins on bf16 tables: with the skipped
-    row zero, skipping it changes no bit; with it non-zero, the gemm's
-    result changes exactly at the output rows that gather it."""
+    """The same for the bf16 forms' twins on bf16 tables, each tap's
+    product rounded or not: with the skipped row zero, skipping it changes
+    no bit; with it non-zero, the gemm's result changes exactly at the
+    output rows that gather it."""
     rng = np.random.RandomState(2)
     nbr, down, s, s_out = _level_maps(batches[layout], 0)
     skip = _gathered_row(nbr, down)
@@ -260,7 +269,7 @@ def test_bf16_twins_leave_out_the_skip_row(batches, layout, case):
         hits = torch.zeros(plain.shape[:2], dtype=torch.bool)
         for t in taps:
             hits |= m[t] == skip
-        if case == "gemm centre":
+        if case.startswith("gemm centre"):
             hits[:, skip] = True
         changed = (plain != skipped).any(-1)
         assert not (changed & ~hits).any()  # bf16 rounding may hide a change
@@ -271,16 +280,21 @@ def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypa
     """The bf16 net (the layers' bf16 casts, ``dtype=bfloat16``): every
     gather_gemm_bf16 / gather_wgrad_bf16 call of one train-mode forward and
     backward finds its skip rows exactly zero, and K3's f32 dF gather_gemm
-    passes none."""
+    passes none; the voxel layout's forwards round each tap, the chunked
+    layout's never."""
     seen = {"gemm": 0, "wgrad": 0, "k3 f32 dF": 0}
+    per_tap = []
 
     def zero_row(t3, row):
         return row < 0 or not t3[:, row].any()
 
-    def gemm(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
+    def gemm(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None,
+             round_each_tap=False):
         assert x3.dtype == torch.bfloat16 and zero_row(x3, skip)
         seen["gemm"] += skip >= 0
-        return kernels.gather_gemm_bf16(x3, map_, taps, stride, w, wc, s_out, skip, order)
+        per_tap.append(round_each_tap)
+        return kernels.gather_gemm_bf16(x3, map_, taps, stride, w, wc, s_out, skip, order,
+                                        round_each_tap=round_each_tap)
 
     def gemm_f32(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
         assert map_ is None and skip == -1  # K3's dF on the f32 scatter dy
@@ -304,3 +318,4 @@ def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypa
     proj = torch.from_numpy(np.random.RandomState(3).randn(OUT).astype(np.float32))
     (torch.sin(3.0 * out.float()) * proj).sum().backward()
     assert min(seen.values()) > 0, seen
+    assert any(per_tap) == (layout == "voxel") and not all(per_tap)
