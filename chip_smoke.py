@@ -5,9 +5,13 @@ NVIDIA GPU (written for the H100).
     python3 chip_smoke.py
     python3 chip_smoke.py --scatter-blocks 1,2,4,8,16
     python3 chip_smoke.py --wgrad-blocks 1,2,4,8
+    python3 chip_smoke.py --resnet-bf16-spread 0,1,2,3
 
 The other forms only time scatter_gemm at several SCATTER_BLOCKS, or the
-tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phases of the first, each printed on its own line:
+tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``);
+``--votenet-bf16-spread`` and ``--resnet-bf16-spread`` take the summation-
+order readings that BF16_VOTENET_LOSS_RTOL and BF16_RESNET_LIMITS are set
+from.  Phases of the first, each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
@@ -96,7 +100,9 @@ tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phase
   15. cli: apps.votenet.main on 8 synthetic scenes: one epoch (one step),
      one evaluation, a checkpoint, then a second call that resumes from it
      with nothing left to train; with net.backbone=pointnet2, then on the
-     shipped sparse-conv backbone with its ``net.dtype: bfloat16``;
+     shipped sparse-conv backbone with its ``net.dtype: bfloat16``, then
+     with ``net.backbone_model=MinkUNetHyper14INBN`` in bf16 (its unpools'
+     gather_sum_bf16 / scatter_sum_bf16);
   the semseg finetuning paths (tools/workload.py: the JAX benchmark's 6
   synthetic 2 cm scenes, ~250k voxels, random colours and 20 labels,
   PadScheme.scannet(npad0=262144), 6 chunks, f32; SGD lr 0.1, momentum 0.9,
@@ -118,7 +124,15 @@ tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phase
      The fourth path, ``semseg hyper`` (MinkUNetHyper14INBN 3 -> 20 at full
      width), also checks gather_sum and scatter_sum at its three average
      unpools (block5's output from level 2 to 1 and 1 to 0, block6's from
-     level 1 to 0);
+     level 1 to 0); ``semseg crf bf16`` and ``semseg hyper bf16`` are
+     ``semseg crf`` and ``semseg hyper`` in bf16: the filter's flat conv
+     in the bf16 forms (gather_gemm_bf16 rounding each tap,
+     scatter_gemm_bf16 over every tap, gather_wgrad_bf16), the unpools'
+     gather_sum_bf16 and scatter_sum_bf16 (through the levels' down maps),
+     held to their twins bit for bit, scatter_gemm_bf16 within
+     ``scatter_gemm_bf16_bound`` (``bound_ratio``, ``reversed_spread``: the
+     f32 twin's taps reversed, ``repeat_spread``: two launches' gap), with
+     the bf16 parity of 5b;
   17a. ``semseg voxel`` (Res16UNet34C in the BilateralCRF, flat backbone
      and filter, 5 counted steps) and ``semseg brick`` (Res16UNet34C on
      brick:2, 3 counted steps): the batch in the layout, every kernel at
@@ -129,8 +143,9 @@ tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phase
      then a second call that resumes with nothing left to train; then the
      same with the shipped ``net.dtype: bfloat16`` (Res16UNet34C, then
      ResUNet18INBN: the ResUNet family in bf16), with
-     net.model=MinkUNetHyper14INBN, with data.layout=voxel and with
-     data.layout=brick;
+     net.model=MinkUNetHyper14INBN (f32, then the shipped bf16), the
+     shipped bf16 with net.wrapper_type=BilateralCRF, with data.layout=voxel
+     and with data.layout=brick;
   the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
   chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
   random label per level-5 voxel):
@@ -145,7 +160,11 @@ tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``).  Phase
      of the plain twins alone between the same input twice and an input one
      ulp away, with the ReLU gates that flipped (a reading, not a check);
      3 SGD steps with the expected launch count of every kernel; the eval
-     logits;
+     logits; ``resnet18 bf16`` and ``resnet50 bf16``: the same nets in bf16
+     (K4's gather_gemm_bf16, scatter_gemm_bf16 and gather_wgrad_bf16, the
+     sum pool's gather_sum_bf16 and scatter_sum_bf16 against their twins,
+     one SGD step through the kernels against the plain twins as the bf16
+     parity of 5b, 3 counted steps);
   21. se: SEBasicBlock and SEBottleneck at level 1, 128 channels, kernels
      against plain twins (forward + backward);
   22. probes: gather_sum at the Pallas gather probes' shapes
@@ -237,8 +256,36 @@ BF16_LOSS_RTOL = 1e-2
 # limit is 1.8 times the largest.  Its backbone output and seed features are
 # held to BF16_COS_MIN
 BF16_VOTENET_LOSS_RTOL = 0.08
+# a bf16 library call (embedding_bag's f32 sum rounded once, index_add_'s
+# bf16 adds in any order) against the pools' twins, which round each add in
+# JAX's order: at most 8 adds (the pools' taps, the unpool's children),
+# each rounding off by at most one bf16 ulp of the largest magnitude
+BF16_LIBRARY_RTOL = 8 * 2.0 ** -7
 BF16_COS_MIN = 0.999
 BF16_NORM_TOL = 2.0 ** -7
+# the bf16 ResNet steps, kernels vs plain twins (loss rtol, logits' cosine
+# min): 1.8 times the largest gaps (1 - cosine) of the plain twins with
+# gather_gemm_bf16's taps reversed over seeds 0-3 (``--resnet-bf16-spread
+# 0,1,2,3``; NVIDIA H100 80GB HBM3, 700 W), as BF16_VOTENET_LOSS_RTOL:
+# ResNet18 5.45e-04 and 0.9999090, ResNet50 (305 level-5 rows, 50
+# train-mode BN layers deep: past BF16_COS_MIN) 6.544e-03 and 0.9915437.
+# The same run's lower-precision control ("pertap": every gather GEMM's
+# taps rounded and added in bf16) falls below both cosines at every seed
+BF16_RESNET_LIMITS = {"resnet18 bf16": (0.000981, 0.999836),
+                      "resnet50 bf16": (0.01178, 0.98478)}
+# the bf16 ResNets' input and parameter gradients from one forward of the
+# kernels, kernels vs plain twins (the worst tensor's max error over its
+# largest magnitude, the relative L2 distance of all of them): 1.8 times
+# the largest of the reversed twins (every bf16 GEMM's f32 sums in another
+# order) over seeds 0-3 in the same run: ResNet18 1.866e-02 and 5.482e-03,
+# ResNet50 3.221e-02 and 1.708e-02 (the worst tensors: BN biases and
+# weights, sums that cancel).  Controls read there: K4's dF without its
+# last tap ("drop_tap") 1.06-1.32 and 0.68-0.81, outside both; every dF
+# rounded per tap ("pertap_all") 0.024-0.054 and 0.012-0.023, outside
+# ResNet18's L2 limit only; K4's dF alone so ("pertap_dF") inside both: a
+# rounding rule is held by the kernel checks, not by the step
+BF16_GRAD_LIMITS = {"resnet18 bf16": (0.03358, 0.009868),
+                    "resnet50 bf16": (0.05797, 0.03075)}
 SPARSE_SRC = "pointcontrast_tpu_torch/csrc/sparse_conv.cu"
 DETECT_SRC = "pointcontrast_tpu_torch/csrc/detect_ops.cu"
 KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
@@ -268,17 +315,23 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "gather_wgrad_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:440"),
     "parent_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:768"),
     "scatter_parent_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:803"),
+    # K4's dF in bf16 (_conv_chunk_down_fused_bwd; the flat conv's too), the
+    # pools in bf16 and their autodiff
+    "scatter_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:578"),
+    "gather_sum_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
+    "scatter_sum_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:951"),
 }
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL and the tensor-core gather_wgrad instances (bf16, bf16)
 # fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_gemm_mma_kernel", "gather_wgrad_kernel",
                 "parent_gemm_kernel", "brick_gemm_kernel", "brick_wgrad_kernel",
-                "scatter_gemm_kernel", "segment_sum_kernel")
+                "scatter_gemm_kernel", "scatter_gemm_mma_kernel", "segment_sum_kernel")
 PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
 PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "fps_kernel",
                   "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
-                  "ball_query_kernel", "segment_sum_kernel", "three_nn_kernel")
+                  "scatter_gemm_mma_kernel", "ball_query_kernel", "segment_sum_kernel",
+                  "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
@@ -312,8 +365,10 @@ BF16_FLOP_PER_S = 989e12
 # that call's events time and device-only time (``_device_ms``)
 OPTIONAL_MS = ("library_ms", "library_device_ms")
 # kernels held to their twins bit for bit in every phase: scatter_parent
-# stores each kept row once (the pad slot left out, as its twin does)
-ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16")
+# stores each kept row once (the pad slot left out, as its twin does); the
+# pools' bf16 forms round every add in JAX's order, with no atomics
+ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16", "gather_sum_bf16",
+                "scatter_sum_bf16")
 # the bf16 forms that run their f32 instances' tiles, tap splits and FMA
 # order on operands widened exactly: each equals its f32 kernel on the
 # widened operands, its output rounded once to bf16, bit for bit (a rounding
@@ -327,7 +382,8 @@ BF16_FORMS = ("gather_wgrad_bf16", "parent_gemm_bf16", "scatter_parent_bf16")
 # ``round_each_tap``, plus gamma(n) of the sum of |products| for the f32
 # adds), ``bound_ratio`` <= 1
 BOUNDED = {"gather_gemm_bf16": "gather_gemm_bf16_bound",
-           "gather_wgrad_bf16": "gather_wgrad_bf16_bound"}
+           "gather_wgrad_bf16": "gather_wgrad_bf16_bound",
+           "scatter_gemm_bf16": "scatter_gemm_bf16_bound"}
 # radii tried, largest first, for the heavy-tail scatter-add check: the
 # first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
 # query's repeats of the first hit fill most of the group's rows
@@ -394,9 +450,10 @@ def phase_build():
 
 def sass_mma_check(library, cuobjdump):
     """The tensor-core forms' machine code: one ``[sass]`` line a gather
-    GEMM instance with its count of HMMA instructions (``cuobjdump
-    -sass``); fails unless every gather_gemm_mma_kernel and (bf16, bf16)
-    gather_wgrad_kernel instance issues them and no other instance does."""
+    or scatter GEMM instance with its count of HMMA instructions
+    (``cuobjdump -sass``); fails unless every gather_gemm_mma_kernel,
+    scatter_gemm_mma_kernel and (bf16, bf16) gather_wgrad_kernel instance
+    issues them and no other instance does."""
     import re
 
     text = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
@@ -411,9 +468,10 @@ def sass_mma_check(library, cuobjdump):
             counts[entry] += 1
     wrong = []
     for entry, n in sorted(counts.items()):
-        if not entry.startswith(("gather_gemm", "gather_wgrad")):
+        if not entry.startswith(("gather_gemm", "gather_wgrad", "scatter_gemm")):
             continue
-        tensor_cores = entry.startswith("gather_gemm_mma") or entry.endswith("bf16,bf16>")
+        tensor_cores = (entry.startswith(("gather_gemm_mma", "scatter_gemm_mma"))
+                        or entry.endswith("bf16,bf16>"))
         say("sass", kernel=entry, hmma=n)
         if (n > 0) != tensor_cores:
             wrong.append(entry)
@@ -646,19 +704,22 @@ def work(name, args, out) -> tuple:
         x, seg, n_seg = args
         return _nbytes(x, seg, *outs), int(((seg >= 0) & (seg < n_seg)).sum()) * x.shape[1]
     if name == "gather_sum":
-        x3, map_, taps, stride, s_out = args
+        x3, map_, taps, stride, s_out = args[:5]
         b_, s_in, c = x3.shape
         rows = _flat_rows(map_, taps, stride, b_, s_out, s_in, x3.device)
-        return (4 * c * rows.unique().numel() + 4 * rows.numel() + _nbytes(*outs),
-                rows.numel() * c)
+        return (x3.element_size() * c * rows.unique().numel() + 4 * rows.numel()
+                + _nbytes(*outs), rows.numel() * c)
     if name == "scatter_sum":
-        g3, map_, taps, stride, s_in, skip_from = args
+        # the function's bytes: the bf16 form's inverse (the unpool's down
+        # map), which only tells its kernel where the sources are, is left out
+        g3, map_, taps, stride, s_in, skip_from = args[:6]
         b_, s_g, c = g3.shape
         rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
         kept = _scatter_kept(rows, s_in, skip_from)
         # the cotangent rows with a destination kept, every index, the output
         needed = int(kept.any(0).sum())
-        return 4 * c * needed + 4 * rows.numel() + _nbytes(*outs), int(kept.sum()) * c
+        return (g3.element_size() * c * needed + 4 * rows.numel() + _nbytes(*outs),
+                int(kept.sum()) * c)
     if name in ("brick_gemm", "brick_wgrad"):
         # the (tap, output slot) pairs whose output slot is occupied and
         # whose source row is non-zero and occupied (brick_wgrad: whose
@@ -862,7 +923,8 @@ def library_call(name, args):
     as a closure (its operands built beforehand), or None where there is
     none: a row gather (``torch.gather``), a scatter-add (``scatter_add_``),
     a segment sum (``index_add_``), the gather-sum (``embedding_bag`` in sum
-    mode, ``index_select`` at one tap) and its adjoint (``index_add_``), the
+    mode, ``index_select`` at one tap) and its adjoint (``index_add_``; the
+    bf16 forms', the same calls in bf16), the
     interpolation and its backward as
     one sparse product (``torch.sparse.mm`` with the [B*N, B*M] weight matrix
     in CSR).  The convs (scatter_gemm too) are a gather or scatter and a
@@ -897,8 +959,8 @@ def library_call(name, args):
         rows = seg.long()
         buf = x.new_zeros(n_seg, x.shape[1])
         return lambda: buf.zero_().index_add_(0, rows, x)
-    if name == "gather_sum" and args[1] is not None:
-        x3, map_, taps, stride, s_out = args
+    if name in ("gather_sum", "gather_sum_bf16") and args[1] is not None:
+        x3, map_, taps, stride, s_out = args[:5]
         b_, s_in, c = x3.shape
         table = x3.reshape(b_ * s_in, c)
         rows = _flat_rows(map_, taps, stride, b_, s_out, s_in, x3.device)
@@ -906,8 +968,8 @@ def library_call(name, args):
             return lambda: torch.index_select(table, 0, rows[0])
         bags = rows.t().contiguous()  # [B * s_out, K]: one bag per output row
         return lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum")
-    if name == "scatter_sum" and args[1] is not None:
-        g3, map_, taps, stride, s_in, skip_from = args
+    if name in ("scatter_sum", "scatter_sum_bf16") and args[1] is not None:
+        g3, map_, taps, stride, s_in, skip_from = args[:6]
         b_, s_g, c = g3.shape
         rows = _flat_rows(map_, taps, stride, b_, s_g, s_in, g3.device)
         # only the entries the function adds: a skipped entry sent to a spare
@@ -949,6 +1011,17 @@ def _widened(a):
     import torch
 
     return a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+
+
+def _unchecked_scatter_sum(g3, map_, taps, stride, s_in, skip_from, inverse=None):
+    """scatter_sum_bf16's kernel without the check of its map: the launch
+    alone, for the check's cost."""
+    import torch
+
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    return K._scatter_sum_launch("scatter_sum_bf16", g3, map_, taps, stride, s_in, skip_from,
+                                 torch.bfloat16, inverse)[0]
 
 
 def bf16_splits(module, name, args):
@@ -1030,12 +1103,14 @@ def phase_kernels(checks, module, exact=()):
         lib_ms = lib_dev_ms = None
         if call is not None:
             lib_err, _ = _max_err(call().reshape(want.shape), want)
-            if lib_err > ATOL + RTOL * ref:
+            if lib_err > ATOL + (BF16_LIBRARY_RTOL if rtol == BF16_RTOL else RTOL) * ref:
                 raise AssertionError(f"{label}: the library call disagrees ({lib_err:.3e})")
             lib_ms = _time_ms(call, ())
             lib_dev_ms = _device_ms(call, ())
         dev_ms = _device_ms(fn, args)
         extra = {}
+        if name == "scatter_sum_bf16":  # device_ms holds the kernel's check of its map
+            extra["unchecked_device_ms"] = f"{_device_ms(_unchecked_scatter_sum, args):.4f}"
         shares = gather_shares(name, args)
         if shares is not None:
             extra = {"live_share": f"{shares['live']:.3f}",
@@ -1056,8 +1131,12 @@ def phase_kernels(checks, module, exact=()):
             if args[2] <= module.SEG_SMEM:
                 parts_ms = _device_ms(module._segment_sum_launch, (*args, False))
                 extra["combine_share"] = f"{1 - parts_ms / dev_ms:.3f}"
-        if name in ("gather_wgrad", "gather_wgrad_bf16", "gather_gemm_bf16", *REPEAT_EXACT):
-            extra["repeat_bit_equal"] = _equal(fn(*args), fn(*args))
+        if name in ("gather_wgrad", "gather_wgrad_bf16", "gather_gemm_bf16", "scatter_gemm_bf16",
+                    *REPEAT_EXACT):
+            first, again = fn(*args), fn(*args)
+            extra["repeat_bit_equal"] = _equal(first, again)
+            if name == "scatter_gemm_bf16":  # f32 atomics: a reading, no claim
+                extra["repeat_spread"] = f"{_max_err(first, again)[0]:.3e}"
             required = name in REPEAT_EXACT and not (  # the general path's atomics
                 name == "segment_sum" and args[2] > module.SEG_SMEM)
             ok = ok and (extra["repeat_bit_equal"] or not required)
@@ -1069,6 +1148,8 @@ def phase_kernels(checks, module, exact=()):
             ok = ok and ratio <= 1.0
             if name == "gather_gemm_bf16":  # the twin's own spread under another order
                 extra["reversed_spread"] = f"{_max_err(_reversed_gemm(*args), want)[0]:.3e}"
+            if name == "scatter_gemm_bf16":
+                extra["reversed_spread"] = f"{_max_err(_reversed_scatter(*args), want)[0]:.3e}"
         elif name in BF16_FORMS:
             f32 = getattr(module, name.removesuffix("_bf16"))(*map(_widened, args))
             extra["f32_instance_bit_equal"] = _equal(got, f32.to(got.dtype))
@@ -1111,8 +1192,8 @@ def expected_launches(model) -> dict:
     second conv, to which JAX passes no ``rev``) fwd + scatter_gemm dF + dW;
     the ResNets' k2s2 sum pool and each of MinkUNetHyper's average unpools
     a gather_sum and its scatter_sum; no flat conv and no global pooling.
-    A bf16 model (``model.dtype``) runs K1-K3 through the bf16 forms, but
-    for K3's dF: the f32 gather_gemm on the f32 scatter dy."""
+    A bf16 model (``model.dtype``) runs every one of them through its bf16
+    form, but for K3's dF: the f32 gather_gemm on the f32 scatter dy."""
     import torch
 
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
@@ -1131,15 +1212,16 @@ def expected_launches(model) -> dict:
     pools = (isinstance(model, ResNetBase)
              + HYPER_UNPOOLS * isinstance(model, MinkUNetHyper))
     n = dict.fromkeys((fn.__name__ for fn in K.KERNELS), 0)
-    sfx = "_bf16" if getattr(model, "dtype", None) == torch.bfloat16 else ""
+    net = getattr(model, "net", model)  # a CRF wrapper's backbone
+    sfx = "_bf16" if getattr(net, "dtype", None) == torch.bfloat16 else ""
     n.update({
         f"gather_gemm{sfx}": n_same + (n_same - 1) + n_down + len(k4),
         f"gather_wgrad{sfx}": n_same + n_down + n_tr + len(k4),
         f"parent_gemm{sfx}": n_tr + n_down,
         f"scatter_parent{sfx}": n_tr,
-        "scatter_gemm": len(k4),
-        "gather_sum": pools,
-        "scatter_sum": pools,
+        f"scatter_gemm{sfx}": len(k4),
+        f"gather_sum{sfx}": pools,
+        f"scatter_sum{sfx}": pools,
     })
     n["gather_gemm"] += n_tr  # K3's dF, f32 in both modes
     return n
@@ -1160,7 +1242,7 @@ def _agreement(a, b) -> dict:
 
 
 def _reversed_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
-                   round_each_tap=False):
+                   round_each_tap=False, f32_out=False):
     """gather_gemm_bf16's function with f32 sums, its taps added in reverse
     order (the centre first): the roundings of another f32 sum than the
     kernel's and the exact twin's (``_forward_agreement``'s spread, and
@@ -1185,44 +1267,146 @@ def _reversed_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None
         idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
         rows = torch.where((idx != skip)[..., None], take_rows(x3, idx), 0.0)
         out = out + product(rows, w[j])
-    return out.to(x3.dtype)
+    return out if f32_out else out.to(x3.dtype)
 
 
-def _forward_agreement(model, run, valid, device) -> tuple:
-    """(``_agreement`` over the ``valid`` rows of a train-mode forward
-    ``run(m)`` of a copy of ``model`` through the kernels against the same
-    through the plain twins, and the same for the plain twins with
-    gather_gemm_bf16's taps summed in reverse order: the spread that f32
-    summation order alone gives the bf16 net, a reading).  No grad; the
-    bf16 paths' parity."""
+def _reversed_scatter(g3, map_, taps, w, s_in, skip, order=None):
+    """scatter_gemm_bf16's function with f32 sums, its taps added in
+    reverse order, rounded once: the spread of another f32 order than the
+    kernel's and the exact twin's (each bf16 scatter check's
+    ``reversed_spread``)."""
+    from pointcontrast_tpu_torch.sparse.kernels import scatter_gemm_plain
+
+    taps = list(taps)[::-1]
+    return scatter_gemm_plain(g3.float(), map_, taps, w.float().flip(0), s_in,
+                              skip).to(g3.dtype)
+
+
+def _pertap_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
+                 round_each_tap=False, f32_out=False):
+    """A control for the bf16 forward's checks, lower in precision than
+    gather_gemm_bf16: each tap's product rounded to bf16 and the taps added
+    in bf16 (the centre first), every add rounded."""
     import torch
 
+    from pointcontrast_tpu_torch.sparse.kernels import row_index, take_rows
+
+    b_ = x3.shape[0]
+    out = x3.new_zeros(b_, s_out, w.shape[-1])
+    if wc is not None:
+        xc = x3[:, :s_out]
+        if 0 <= skip < s_out:
+            xc = torch.where((torch.arange(s_out, device=x3.device) != skip)[:, None], xc, 0.0)
+        out = out + (xc.float() @ wc.float()).to(x3.dtype)
+    for j in range(w.shape[0]):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_out, x3.device)
+        rows = torch.where((idx != skip)[..., None], take_rows(x3, idx), 0.0)
+        out = out + (rows.float() @ w[j].float()).to(x3.dtype)
+    return out.float() if f32_out else out
+
+
+def _pertap_scatter(g3, map_, taps, w, s_in, skip, order=None):
+    """A control for the bf16 gradients' check: scatter_gemm_bf16's dF with
+    each tap's scatter rounded to bf16 and the taps' tables added in bf16
+    (the flat K4's autodiff rule, applied where JAX rounds once)."""
+    from pointcontrast_tpu_torch.sparse.kernels import scatter_gemm_plain
+
+    out = None
+    for j, t in enumerate(taps):
+        part = scatter_gemm_plain(g3.float(), map_, [t], w[j:j + 1].float(), s_in,
+                                  skip).to(g3.dtype)
+        out = part if out is None else out + part
+    return out
+
+
+def _drop_tap_scatter(g3, map_, taps, w, s_in, skip, order=None):
+    """A wrong scatter_gemm_bf16 (a control): K4's dF with its last tap
+    left out."""
+    from pointcontrast_tpu_torch.sparse.kernels import scatter_gemm_bf16_plain
+
+    return scatter_gemm_bf16_plain(g3, map_, list(taps)[:-1], w[:-1], s_in, skip)
+
+
+def _exact_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_rows,
+                 skip_a=-1, skip_g=-1):
+    """gather_wgrad_bf16's function with f64 sums rounded to f32: another
+    order than the kernel's and the twin's f32 sums."""
+    from pointcontrast_tpu_torch.sparse.kernels import gather_wgrad_plain
+
+    return gather_wgrad_plain(a3.double(), a_map, a_taps, a_stride, g3.double(), g_map,
+                              g_taps, g_stride, k, s_rows, skip_a, skip_g).float()
+
+
+# what each mode of a bf16 comparison swaps into sparse.ops under the plain
+# twins ("kernels" runs the kernels): "reversed", the plain twins in other
+# f32 summation orders (the spread of summation order alone); the controls,
+# which the limits set from that spread are read against: "pertap", a
+# lower-precision forward (every gather GEMM's taps rounded and added in
+# bf16), "pertap_dF" K4's dF rounded per tap, "pertap_all" every conv's dF
+# so, "drop_tap" K4's dF without its last tap (wrong)
+MODE_SWAPS = {
+    "kernels": {}, "plain": {},
+    "reversed": {"gather_gemm_bf16": _reversed_gemm, "scatter_gemm_bf16": _reversed_scatter,
+                 "gather_wgrad_bf16": _exact_wgrad},
+    "pertap": {"gather_gemm_bf16": _pertap_gemm},
+    "pertap_dF": {"scatter_gemm_bf16": _pertap_scatter},
+    "pertap_all": {"gather_gemm_bf16": _pertap_gemm, "scatter_gemm_bf16": _pertap_scatter},
+    "drop_tap": {"scatter_gemm_bf16": _drop_tap_scatter},
+}
+
+
+@contextlib.contextmanager
+def _mode(mode):
+    """Run the block in one of MODE_SWAPS' modes."""
     from pointcontrast_tpu_torch.sparse import ops
     from pointcontrast_tpu_torch.tools.workload import plain_ops
 
+    with plain_ops() if mode != "kernels" else contextlib.nullcontext():
+        saved = {name: getattr(ops, name) for name in MODE_SWAPS[mode]}
+        try:
+            for name, fn in MODE_SWAPS[mode].items():
+                setattr(ops, name, fn)
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
+
+
+def _mode_outputs(model, run, device, modes=("plain", "kernels", "reversed")) -> dict:
+    """{mode: a train-mode forward ``run(m)`` of a copy of ``model``, f32}
+    in each of ``modes`` (MODE_SWAPS): through the kernels ("kernels"), the
+    plain twins ("plain") and the plain twins with gather_gemm_bf16's taps
+    summed in reverse order ("reversed": another f32 summation order than
+    both).  No grad."""
+    import torch
+
     outs = {}
-    for mode in ("plain", "kernels", "reversed"):
+    for mode in modes:
         m = copy.deepcopy(model).to(device).train()
-        with torch.no_grad(), plain_ops() if mode != "kernels" else contextlib.nullcontext():
-            saved = ops.gather_gemm_bf16
-            if mode == "reversed":
-                ops.gather_gemm_bf16 = _reversed_gemm
-            try:
-                outs[mode] = run(m).float()[valid]
-            finally:
-                ops.gather_gemm_bf16 = saved
+        with torch.no_grad(), _mode(mode):
+            outs[mode] = run(m).float()
         del m
-    return (_agreement(outs["kernels"], outs["plain"]),
-            _agreement(outs["reversed"], outs["plain"]))
+    return outs
 
 
-def _check_step_parity(app, losses, agree=None):
+def _forward_agreement(model, run, valid, device) -> tuple:
+    """(``_agreement`` over the ``valid`` rows of ``_mode_outputs``' kernels
+    forward against the plain twins', and the same for the reversed one:
+    the spread that f32 summation order alone gives the bf16 net, a
+    reading).  The bf16 paths' parity."""
+    outs = _mode_outputs(model, run, device)
+    return (_agreement(outs["kernels"][valid], outs["plain"][valid]),
+            _agreement(outs["reversed"][valid], outs["plain"][valid]))
+
+
+def _check_step_parity(app, losses, agree=None, rtol=None, cos_min=BF16_COS_MIN):
     """One step's loss through the kernels against the plain twins': f32
     paths to LOSS_RTOL; bf16 paths (``agree``: their forward's
-    ``_forward_agreement``) to BF16_LOSS_RTOL, the output's cosine to
-    BF16_COS_MIN, the rows and the summation-order spread as readings."""
+    ``_forward_agreement``) to BF16_LOSS_RTOL (or ``rtol``), the output's
+    cosine to ``cos_min``, the rows and the summation-order spread as
+    readings."""
     rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
-    rtol = LOSS_RTOL if agree is None else BF16_LOSS_RTOL
+    rtol = rtol or (LOSS_RTOL if agree is None else BF16_LOSS_RTOL)
     extra = {}
     if agree is not None:
         for tag, a in zip(("", "spread_"), agree):
@@ -1230,10 +1414,10 @@ def _check_step_parity(app, losses, agree=None):
                 f"{tag}cosine": f"{a['cosine']:.7f}",
                 f"{tag}row_cosine_min": f"{a['row_min']:.6f}",
                 f"{tag}rows_below_cos_min": f"{a['rows_below']:.2e}"})
-        extra["cos_min"] = BF16_COS_MIN
+        extra["cos_min"] = cos_min
     say("parity", app=app, loss_kernels=f"{losses['kernels']:.8f}",
         loss_plain=f"{losses['plain']:.8f}", rel=f"{rel:.2e}", rtol=rtol, **extra)
-    if not (rel <= rtol) or (agree is not None and not agree[0]["cosine"] >= BF16_COS_MIN):
+    if not (rel <= rtol) or (agree is not None and not agree[0]["cosine"] >= cos_min):
         raise AssertionError(f"{app}: the kernel step differs from the plain step")
 
 
@@ -1872,10 +2056,11 @@ def phase_boxnet(batches, device):
         raise AssertionError(f"bad BoxNet step: {metrics}")
 
 
-def phase_cli(sparse=False):
+def phase_cli(sparse=False, backbone_model=None):
     """``apps.votenet.main`` on the card with the shipped config and
     ``net.backbone=pointnet2`` (``sparse``: the shipped sparse-conv
-    backbone, chunked, ``net.dtype: bfloat16`` as written): one epoch of 8
+    backbone, chunked, ``net.dtype: bfloat16`` as written, its net
+    ``net.backbone_model=<backbone_model>`` when given): one epoch of 8
     synthetic scenes (one step), one evaluation, a checkpoint; a second
     call resumes from it and has nothing left to train."""
     import torch
@@ -1890,8 +2075,12 @@ def phase_cli(sparse=False):
     args = ([] if sparse else ["net.backbone=pointnet2"]) + [
         "data.dataset=synthetic", "data.num_scenes=8", "optimizer.max_epoch=1",
         "eval.eval_every=1", f"misc.out_dir={out}", "distributed.num_devices=1"]
-    needed = ([fn.__name__ for fn in K.KERNELS if fn.__name__.endswith("_bf16")]
-              + ["gather_gemm"] if sparse else [])
+    args += [f"net.backbone_model={backbone_model}"] if backbone_model else []
+    # K1-K3's bf16 forms, K3's f32 dF; a Hyper backbone's unpools
+    needed = ([f"{n}_bf16" for n in ("gather_gemm", "gather_wgrad", "parent_gemm",
+                                     "scatter_parent")] + ["gather_gemm"] if sparse else [])
+    if backbone_model == "MinkUNetHyper14INBN":
+        needed += ["gather_sum_bf16", "scatter_sum_bf16"]
     t0 = time.perf_counter()
     D.reset_launches()
     K.reset_launches()
@@ -1916,7 +2105,8 @@ def phase_cli(sparse=False):
     if (resumed.epoch != 1 or any(D.launch_counts().values())
             or any(K.launch_counts().values())):
         raise AssertionError("the resumed CLI run trained again")
-    say("cli", app="votenet", backbone="sparseconv bf16" if sparse else "pointnet2",
+    say("cli", app="votenet", backbone=(f"sparseconv {backbone_model or 'Res16UNet34C'} bf16"
+                                        if sparse else "pointnet2"),
         seconds=f"{seconds:.1f}", epoch=trainer.epoch,
         launches={**first, **{k: sparse_counts[k] for k in needed}},
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_epoch=resumed.epoch)
@@ -2020,8 +2210,8 @@ def expected_from_calls(calls) -> dict:
     stem) + brick_wgrad; a brick down conv's placement and a brick up
     conv's parent gather a gather_sum and its scatter_sum each, none at the
     hybrid boundary (the matmuls are torch.matmul).  The CRF's filter is
-    counted by ``expected_semseg_launches``.  bf16 features run K1-K3's
-    bf16 forms (K3's dF: the f32 gather_gemm on the f32 scatter dy)."""
+    counted by ``expected_semseg_launches``.  bf16 features run the bf16
+    forms (K3's dF: the f32 gather_gemm on the f32 scatter dy)."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
@@ -2041,11 +2231,11 @@ def expected_from_calls(calls) -> dict:
             for name in (f"parent_gemm{sfx}", f"scatter_parent{sfx}", "gather_gemm",
                          f"gather_wgrad{sfx}"):
                 n[name] += 1
-        elif kind == "k4":
+        elif kind == "k4":  # scatter_gemm_bf16 launches once a group too
             groups = len(ops._tap_groups(w.shape[0]))
-            n["gather_gemm"] += groups
-            n["scatter_gemm"] += groups * (not stem)
-            n["gather_wgrad"] += groups
+            n[f"gather_gemm{sfx}"] += groups
+            n[f"scatter_gemm{sfx}"] += groups * (not stem)
+            n[f"gather_wgrad{sfx}"] += groups
         elif kind == "brick":
             n["brick_gemm"] += 1 + (not stem)
             n["brick_wgrad"] += 1
@@ -2064,7 +2254,8 @@ def conv_checks(model, batch, calls=None):
     dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF, dW),
     K4 (a chunked map with neither ``rev`` nor ``up``: fwd, scatter_gemm
     dF, dW), the CRF filter's flat conv at B = 1 (fwd, scatter_gemm dF,
-    dW, per group of MAX_TAPS taps, on its first mean-field input), a
+    dW, per group of MAX_TAPS taps, on its first mean-field input; in bf16
+    the forward's taps rounded and dF one call over every tap), a
     brick conv (brick_gemm fwd, brick_gemm dF with W[rev]^T unless the
     stem, brick_wgrad dW), a brick down conv's placement gather and a brick
     up conv's parent gather (gather_sum at one tap, scatter_sum its
@@ -2096,8 +2287,27 @@ def conv_checks(model, batch, calls=None):
             x = ops.mask_rows(torch.softmax(unary, dim=1), valid)[None].contiguous()
             n = x.shape[1]
             m3 = nbr[:, None]
+            groups = ops._tap_groups(k)
+            if x.dtype == torch.bfloat16:  # the filter in the logits' bf16
+                w = w.to(x.dtype)
+                ct = _masked_randn((1, n, cout), valid, gen).to(x.dtype)
+                # dF: one call over every tap (a launch a group, one rounding);
+                # the forward's taps rounded, their sums f32 past one group
+                checks.append(("scatter_gemm_bf16", f"flat dF {name} {k} taps N{n} "
+                               f"{cin}->{cout}", K.scatter_gemm_bf16,
+                               (ct, m3, list(range(k)), w, n, n - 1, None)))
+                for taps in groups:
+                    wg = w[taps.start:taps.stop]
+                    tag = f"{name} taps {taps.start}-{taps.stop - 1} of {k} N{n} {cin}->{cout}"
+                    checks += [
+                        ("gather_gemm_bf16", f"flat fwd per tap {tag}", K.gather_gemm_bf16,
+                         (x, m3, taps, 0, wg, None, n, n - 1, None, True, len(groups) > 1)),
+                        ("gather_wgrad_bf16", f"flat dW {tag}", K.gather_wgrad_bf16,
+                         (x, m3, taps, 0, ct, None, None, 0, len(taps), n, n - 1, -1)),
+                    ]
+                continue
             ct = _masked_randn((1, n, cout), valid, gen)
-            for taps in ops._tap_groups(k):
+            for taps in groups:
                 wg = w[taps.start:taps.stop]
                 tag = f"{name} taps {taps.start}-{taps.stop - 1} of {k} N{n} {cin}->{cout}"
                 checks += [
@@ -2162,18 +2372,18 @@ def conv_checks(model, batch, calls=None):
         if sfx:
             w = w.to(dt)
             wt = w.transpose(1, 2)
-        if kind == "k4":
+        if kind == "k4":  # a chunked map (one group of taps: the ResNets' k3s2 and 1-tap)
             nbr, valid = args[1], args[2]
             s_out = nbr.shape[2]
-            ct = _masked_randn((nb, s_out, cout), valid, gen)
+            ct = _masked_randn((nb, s_out, cout), valid, gen).to(dt)
             taps = list(range(k))
             tag = f"{name} S{s_in}->S{s_out} {k} taps {cin}->{cout}"
             checks += [
-                ("gather_gemm", f"K4 fwd {tag}", K.gather_gemm,
+                (f"gather_gemm{sfx}", f"K4 fwd {tag}", gemm,
                  (f3, nbr, taps, 0, w.contiguous(), None, s_out, s_in - 1, kw.get("order"))),
-                ("scatter_gemm", f"K4 dF {tag}", K.scatter_gemm,
+                (f"scatter_gemm{sfx}", f"K4 dF {tag}", getattr(K, f"scatter_gemm{sfx}"),
                  (ct, nbr, taps, w.contiguous(), s_in, s_in - 1, kw.get("order"))),
-                ("gather_wgrad", f"K4 dW {tag}", K.gather_wgrad,
+                (f"gather_wgrad{sfx}", f"K4 dW {tag}", wgrad,
                  (f3, nbr, taps, 0, ct, None, None, 0, k, s_out, s_in - 1, -1)),
             ]
         elif kind == "conv" and kw.get("up") is None:  # K1
@@ -2308,6 +2518,8 @@ def expected_semseg_launches(model) -> tuple:
     backward) and two broadcasts (a row gather forward, a segment_sum
     backward); each mean-field iteration one flat conv per group of
     MAX_TAPS taps: gather_gemm, scatter_gemm and gather_wgrad."""
+    import torch
+
     from pointcontrast_tpu_torch.detect import kernels as D
     from pointcontrast_tpu_torch.nn.resnet_block import InstanceBatchNorm
     from pointcontrast_tpu_torch.semseg.crf import Wrapper
@@ -2320,10 +2532,11 @@ def expected_semseg_launches(model) -> tuple:
     n["segment_sum"] += 6 * inbn
     n["gather_rows"] += 4 * inbn
     crf = dict.fromkeys(n, 0)
-    if isinstance(model, Wrapper):
+    if isinstance(model, Wrapper):  # the filter in the net's dtype
         groups = len(ops._tap_groups(model.filter.weight.shape[0]))
+        sfx = "_bf16" if getattr(model.net, "dtype", None) == torch.bfloat16 else ""
         for name in ("gather_gemm", "scatter_gemm", "gather_wgrad"):
-            crf[name] = model.filter.meanfield_iterations * groups
+            crf[name + sfx] = model.filter.meanfield_iterations * groups
     return n, crf
 
 
@@ -2427,9 +2640,10 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
 
 
 def semseg_paths(device, card, paths):
-    """The five semseg main paths on one batch (``semseg bf16``: the
-    shipped YAML's dtype); adds each one's (kernel checks' numbers, launch
-    counts) to ``paths``.  Returns the scenes."""
+    """The seven semseg main paths on one batch (``semseg bf16``, ``semseg
+    crf bf16`` and ``semseg hyper bf16``: the shipped YAML's dtype); adds
+    each one's (kernel checks' numbers, launch counts) to ``paths``.
+    Returns the scenes."""
     import torch
 
     from pointcontrast_tpu_torch.detect import kernels as D
@@ -2444,9 +2658,9 @@ def semseg_paths(device, card, paths):
     del model
     # the shipped YAML's net.dtype: the same net in bf16 (the bf16 forms)
     model = W.semseg_model(seed=0, dtype=torch.bfloat16)
-    paths["semseg bf16"] = (phase_kernels(conv_checks(model, batch), K),
-                            phase_semseg("semseg bf16", model, batch, scenes, device,
-                                         card, None))
+    backbone_bf16 = phase_kernels(conv_checks(model, batch), K)
+    paths["semseg bf16"] = (backbone_bf16, phase_semseg("semseg bf16", model, batch, scenes,
+                                                         device, card, None))
     del model
     model = W.semseg_model(seed=0, model="ResUNet18INBN")
     res = phase_kernels(conv_checks(model, batch), K)
@@ -2469,6 +2683,18 @@ def semseg_paths(device, card, paths):
     paths["semseg crf"] = (res, phase_semseg("semseg crf", model, batch, scenes,
                                              device, card, W.SEMSEG_CRF))
     del model
+    # the shipped YAML's model in its BilateralCRF, bf16: the filter's flat
+    # conv in the bf16 forms (each tap rounded; dF scatter_gemm_bf16)
+    model = W.semseg_model(seed=0, crf=W.SEMSEG_CRF, dtype=torch.bfloat16)
+    res = {}
+    for name, r in backbone_bf16.items():  # the same bf16 net at the same shapes
+        add_numbers(res, name, r)
+    crf_checks = [c for c in conv_checks(model, batch) if c[1].startswith("flat")]
+    for name, r in phase_kernels(crf_checks, K).items():
+        add_numbers(res, name, r)
+    paths["semseg crf bf16"] = (res, phase_semseg("semseg crf bf16", model, batch, scenes,
+                                                  device, card, W.SEMSEG_CRF))
+    del model
     model = W.semseg_model(seed=0, model="MinkUNetHyper14INBN")
     res = phase_kernels(conv_checks(model, batch), K)
     sparse, detect = inbn_checks(model, batch)
@@ -2481,17 +2707,35 @@ def semseg_paths(device, card, paths):
     res.update(phase_kernels(detect, D, exact=("gather_rows",)))
     paths["semseg hyper"] = (res, phase_semseg("semseg hyper", model, batch, scenes,
                                                device, card, None))
+    del model
+    # in bf16: the unpools' gather_sum_bf16 and, through the levels' down
+    # maps, scatter_sum_bf16 (every add rounded, in ascending fine row)
+    model = W.semseg_model(seed=0, model="MinkUNetHyper14INBN", dtype=torch.bfloat16)
+    res = phase_kernels(conv_checks(model, batch), K)
+    sparse, detect = inbn_checks(model, batch)
+    sparse += pool_checks(batch.pyramid, [("unpool", 1, model.PLANES[4] * exp),
+                                          ("unpool", 0, model.PLANES[4] * exp),
+                                          ("unpool", 0, model.PLANES[5] * exp)],
+                          dtype=torch.bfloat16)
+    for name, r in phase_kernels(sparse, K).items():
+        add_numbers(res, name, r)
+    res.update(phase_kernels(detect, D, exact=("gather_rows",)))
+    paths["semseg hyper bf16"] = (res, phase_semseg("semseg hyper bf16", model, batch,
+                                                    scenes, device, card, None))
     return scenes
 
 
-def pool_checks(pyramid, specs):
+def pool_checks(pyramid, specs, dtype=None):
     """[(kernel, label, fn, args)]: gather_sum and its adjoint scatter_sum
     at each of ``specs``, (op, level, channels): "sum pool" is the k2s2 sum
     pool from ``level`` to ``level + 1`` through ``down_nbr`` (8 taps),
     "unpool" the average unpool from ``level + 1`` to ``level`` through
     ``up_parent`` (1 tap); random features and cotangents masked as the rows
     they stand for, the source's pad row left out of the scatter as the ops
-    leave it.  A flat (voxel) pyramid is one chunk, as the ops take it."""
+    leave it.  A flat (voxel) pyramid is one chunk, as the ops take it.
+    ``dtype=torch.bfloat16``: the bf16 forms as the ops call them (a chunked
+    sum rounding every add, a flat one once; the unpool's adjoint through
+    the level's down map)."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
@@ -2501,21 +2745,26 @@ def pool_checks(pyramid, specs):
     nb = 1 if flat else pyramid.num_batch
     gen = torch.Generator(device=lv[0].valid.device).manual_seed(5)
     s = [int(l.valid.shape[0]) // nb for l in lv]
+    bf16 = dtype == torch.bfloat16
     checks = []
     for op, l, c in specs:
+        down = lv[l].down_nbr[:, None] if flat else lv[l].down_nbr
+        extra, inverse = (), ()
         if op == "sum pool":
-            m = lv[l].down_nbr[:, None] if flat else lv[l].down_nbr
-            src, dst, taps = l, l + 1, list(range(8))
+            m, src, dst, taps = down, l, l + 1, list(range(8))
+            extra = (not flat,) if bf16 else ()
         else:
-            m = lv[l].up_parent.reshape(1, nb, -1)
-            src, dst, taps = l + 1, l, [0]
-        f = _masked_randn((nb, s[src], c), lv[src].valid, gen)
-        ct = _masked_randn((nb, s[dst], c), lv[dst].valid, gen)
+            m, src, dst, taps = lv[l].up_parent.reshape(1, nb, -1), l + 1, l, [0]
+            inverse = (down,) if bf16 else ()
+        f = _masked_randn((nb, s[src], c), lv[src].valid, gen).to(dtype)
+        ct = _masked_randn((nb, s[dst], c), lv[dst].valid, gen).to(dtype)
         tag = f"{op} L{src}->L{dst} S{s[src]}->S{s[dst]} C{c}"
+        sfx = "_bf16" if bf16 else ""
         checks += [
-            ("gather_sum", f"{tag} fwd", K.gather_sum, (f, m, taps, 0, s[dst])),
-            ("scatter_sum", f"{tag} bwd", K.scatter_sum,
-             (ct, m, taps, 0, s[src], s[src] - 1)),
+            (f"gather_sum{sfx}", f"{tag} fwd", getattr(K, f"gather_sum{sfx}"),
+             (f, m, taps, 0, s[dst], *extra)),
+            (f"scatter_sum{sfx}", f"{tag} bwd", getattr(K, f"scatter_sum{sfx}"),
+             (ct, m, taps, 0, s[src], s[src] - 1, *inverse)),
         ]
     return checks
 
@@ -2538,29 +2787,53 @@ def probe_checks(device):
     return checks
 
 
-def _compare_runs(app, got):
-    """Hold the kernel run's tensors to the plain run's: each one's max
-    error within RTOL of its largest magnitude.  Returns the worst ratio."""
-    worst, failures = 0.0, []
+def _worst_gap(got, mode="kernels", skip=()) -> tuple:
+    """(the worst ratio, [(tensor, error, reference)] by ratio, worst
+    first) of ``got[mode]``'s tensors against ``got["plain"]``'s: each one's
+    max error over its largest magnitude, the tensors in ``skip`` left
+    out."""
+    gaps = []
     for name, want in got["plain"].items():
-        err = float((got["kernels"][name] - want).abs().max())
-        ref = float(want.abs().max())
-        if not err <= RTOL * ref:
-            failures.append((name, err, ref))
-        worst = max(worst, err / ref if ref else 0.0)
+        if name in skip:
+            continue
+        err = float((got[mode][name].float() - want.float()).abs().max())
+        ref = float(want.float().abs().max())
+        gaps.append((err / ref if ref else 0.0, name, err, ref))
+    gaps.sort(reverse=True)
+    return (gaps[0][0] if gaps else 0.0), [g[1:] for g in gaps]
+
+
+def _l2_gap(got, mode="kernels", skip=()) -> float:
+    """The relative L2 distance of ``got[mode]``'s tensors, taken as one
+    vector, from ``got["plain"]``'s (those in ``skip`` left out), in f64."""
+    num = den = 0.0
+    for name, want in got["plain"].items():
+        if name not in skip:
+            num += float((got[mode][name].double() - want.double()).square().sum())
+            den += float(want.double().square().sum())
+    return math.sqrt(num / den) if den else 0.0
+
+
+def _compare_runs(app, got, rtol=RTOL, skip=()):
+    """Hold the kernel run's tensors to the plain run's: each one's max
+    error within ``rtol`` of its largest magnitude (those in ``skip`` left
+    out).  Returns the worst ratio."""
+    worst, gaps = _worst_gap(got, skip=skip)
+    failures = [(n, e, r) for n, e, r in gaps if not e <= rtol * r]
     if failures:
         raise AssertionError(f"{app}: kernels differ from the plain twins: "
                              f"{failures[:5]}")
     return worst
 
 
-def _kernels_vs_plain(model, x, ct, run, device):
-    """{"kernels": tensors, "plain": tensors} of ``run(model, x)`` in train
-    mode: the output (a forward through the kernels, and one through the
-    plain twins), and the gradients of the input and every parameter from
-    ``ct``, backpropagated twice through one forward of the kernels: once
-    through the kernels, once through the twins.  Both backward passes see
-    the same ReLU gates: two forwards that differ in the last bit open or
+def _kernels_vs_plain(model, x, ct, run, device, modes=("kernels", "plain")):
+    """{mode: tensors} of ``run(model, x)`` in train mode for each of
+    ``modes`` (MODE_SWAPS; "kernels" and "plain" first): the output (a
+    forward through the kernels, and one through the plain twins, under
+    "output" of those two), and the gradients of the input and every
+    parameter from ``ct`` (in the output's dtype), backpropagated once a
+    mode through one forward of the kernels.  Every backward pass sees the
+    same ReLU gates: two forwards that differ in the last bit open or
     shut the few gates whose inputs sit within rounding of zero, and each
     such gate moves the parameter gradients by ~1e-3 of their largest
     magnitude, whichever forward is right.  ``_ulp_spread`` reads that
@@ -2574,12 +2847,13 @@ def _kernels_vs_plain(model, x, ct, run, device):
     with plain_ops(), torch.no_grad():
         out_plain = run(m, x)
     out = run(m, x)
+    ct = ct.to(out.dtype)
     got = {}
-    for mode in ("kernels", "plain"):
+    for i, mode in enumerate(modes):
         m.zero_grad(set_to_none=True)
         x.grad = None
-        with plain_ops() if mode == "plain" else contextlib.nullcontext():
-            out.backward(ct, retain_graph=mode == "kernels")
+        with _mode(mode):
+            out.backward(ct, retain_graph=i < len(modes) - 1)
         torch.cuda.synchronize()
         got[mode] = {n: p.grad.clone() for n, p in m.named_parameters()}
         if x.grad is not None:
@@ -2640,13 +2914,33 @@ def _ulp_spread(model, x, ct, run, device):
     return spread
 
 
+def _resnet_ct(batch, device):
+    """The ResNet paths' seeded cotangent of the logits, zero at pad rows."""
+    import torch
+
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    valid = batch.pyramid.levels[-1].valid
+    gen = torch.Generator(device=device).manual_seed(6)
+    return torch.randn(valid.shape[0], W.SEMSEG_CLASSES, device=device,
+                       generator=gen) * valid[:, None]
+
+
 def phase_resnet(app, model, batch, device, card):
     """A ResNet main path on the ResNet workload: one forward + backward
     with a fixed seeded cotangent through the kernels against the plain
     twins (``_kernels_vs_plain``: the output and every parameter gradient
     within RTOL of its largest magnitude; scatter_gemm adds with atomics),
     then RESNET_STEPS SGD steps with finite losses and the expected launch
-    count of every kernel, and the eval logits."""
+    count of every kernel, and the eval logits.  A bf16 model
+    (``model.dtype``): one SGD step through the kernels against the plain
+    twins (the loss to BF16_LOSS_RTOL, the forward's logits to cosine
+    BF16_COS_MIN, or BF16_RESNET_LIMITS, beside the plain twins' spread
+    under reversed tap sums, as the bf16 semseg paths), and the input and
+    parameter gradients from one forward of the kernels, backpropagated
+    through the kernels and through the plain twins, within
+    BF16_GRAD_LIMITS (beside the reversed twins' spread), in place of the
+    f32 tolerances and the ulp spread."""
     import torch
 
     from pointcontrast_tpu_torch.detect import kernels as D
@@ -2659,24 +2953,50 @@ def phase_resnet(app, model, batch, device, card):
     say("model", app=app, name=type(model).__name__,
         params=sum(p.numel() for p in model.parameters()), per_step=expect)
     valid = batch.pyramid.levels[-1].valid
-    gen = torch.Generator(device=device).manual_seed(6)
-    ct = torch.randn(valid.shape[0], W.SEMSEG_CLASSES, device=device,
-                     generator=gen) * valid[:, None]
+    ct = _resnet_ct(batch, device)
 
     def run(m, x):
         return m(x, batch.pyramid)
 
-    got = _kernels_vs_plain(model, batch.feats, ct, run, device)
-    worst = _compare_runs(app, got)
-    say("parity", app=app, tensors=len(got["plain"]), worst_rel=f"{worst:.2e}",
-        rtol=RTOL)
-    del got
-    for key, (out_rel, grad_rel, flipped, gates) in _ulp_spread(
-            model, batch.feats, ct, run, device).items():
-        say("spread", app=app, input=key, output_rel=f"{out_rel:.2e}",
-            worst_grad_rel=f"{grad_rel:.2e}", relu_flipped=flipped, relu_gates=gates)
-
     cfg = SemsegConfig(lr=0.1, momentum=0.9, weight_decay=1e-4, max_iter=60000)
+    if getattr(model, "dtype", None) == torch.bfloat16:
+        losses = {}
+        for mode in ("plain", "kernels"):
+            m = copy.deepcopy(model).to(device)
+            opt = optim.make_optimizer(m, cfg)
+            sched = optim.make_scheduler(opt, cfg, cfg.scheduler)
+            with W.plain_ops() if mode == "plain" else contextlib.nullcontext():
+                losses[mode] = float(W.resnet_step(m, opt, sched, batch))
+            del m, opt, sched
+        rtol, cos_min = BF16_RESNET_LIMITS.get(app, (BF16_LOSS_RTOL, BF16_COS_MIN))
+        _check_step_parity(app, losses, _forward_agreement(
+            model, lambda m: run(m, batch.feats), valid > 0, device), rtol=rtol,
+            cos_min=cos_min)
+        # the gradients, backpropagated from one forward of the kernels
+        got = _kernels_vs_plain(model, batch.feats, ct, run, device,
+                                modes=("kernels", "plain", "reversed"))
+        worst_rtol, l2_rtol = BF16_GRAD_LIMITS[app]
+        spread, _ = _worst_gap(got, "reversed", skip=("output",))
+        l2, l2_spread = (_l2_gap(got, mode, skip=("output",)) for mode in ("kernels", "reversed"))
+        worst = _compare_runs(app, got, rtol=worst_rtol, skip=("output",))
+        say("parity", app=app, gradients=len(got["plain"]) - 1, worst_rel=f"{worst:.3e}",
+            spread_worst_rel=f"{spread:.3e}", rtol=worst_rtol, l2_rel=f"{l2:.3e}",
+            spread_l2_rel=f"{l2_spread:.3e}", l2_rtol=l2_rtol)
+        if not l2 <= l2_rtol:
+            raise AssertionError(f"{app}: the kernels' gradients differ from the plain twins' "
+                                 f"by {l2:.3e} (L2) > {l2_rtol}")
+        del got
+    else:
+        got = _kernels_vs_plain(model, batch.feats, ct, run, device)
+        worst = _compare_runs(app, got)
+        say("parity", app=app, tensors=len(got["plain"]), worst_rel=f"{worst:.2e}",
+            rtol=RTOL)
+        del got
+        for key, (out_rel, grad_rel, flipped, gates) in _ulp_spread(
+                model, batch.feats, ct, run, device).items():
+            say("spread", app=app, input=key, output_rel=f"{out_rel:.2e}",
+                worst_grad_rel=f"{grad_rel:.2e}", relu_flipped=flipped, relu_gates=gates)
+
     m = copy.deepcopy(model).to(device)
     opt = optim.make_optimizer(m, cfg)
     sched = optim.make_scheduler(opt, cfg, cfg.scheduler)
@@ -2744,8 +3064,11 @@ def phase_se_blocks(batch, device):
 
 def resnet_paths(device, card, paths, scenes):
     """The ResNet18 and ResNet50 main paths on the ResNet workload's batch
-    (the semseg workload's ``scenes``); adds each one's (kernel checks'
-    numbers, launch counts) to ``paths``; then the SE blocks."""
+    (the semseg workload's ``scenes``), in f32 and in bf16 (K4 and the sum
+    pool in their bf16 forms); adds each one's (kernel checks' numbers,
+    launch counts) to ``paths``; then the SE blocks."""
+    import torch
+
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools import workload as W
 
@@ -2759,25 +3082,26 @@ def resnet_paths(device, card, paths, scenes):
         valid_rows=[int(l.valid.sum()) for l in pyr.levels],
         truncated=host.truncated_voxels,
         labelled_rows=int((batch.labels != 255).sum()))
-    for name in ("ResNet18", "ResNet50"):
-        model = W.resnet_model(seed=0, model=name)
+    for name, dtype in itertools.product(("ResNet18", "ResNet50"), (None, torch.bfloat16)):
+        model = W.resnet_model(seed=0, model=name, dtype=dtype)
         res = phase_kernels(conv_checks(model, batch), K)
-        pools = pool_checks(pyr, [("sum pool", 0, model.INIT_DIM)])
+        pools = pool_checks(pyr, [("sum pool", 0, model.INIT_DIM)], dtype=dtype)
         for kernel, r in phase_kernels(pools, K, exact=("gather_sum",)).items():
             add_numbers(res, kernel, r)
-        paths[name.lower()] = (res, phase_resnet(name.lower(), model, batch, device,
-                                                 card))
+        app = name.lower() + ("" if dtype is None else " bf16")
+        paths[app] = (res, phase_resnet(app, model, batch, device, card))
         del model
     phase_se_blocks(batch, device)
 
 
-def phase_cli_semseg(model=None, layout=None, shipped_dtype=False):
+def phase_cli_semseg(model=None, layout=None, shipped_dtype=False, wrapper=None):
     """``apps.semseg.main`` on the card with the shipped config on
     ``SyntheticSemsegDataset`` and ``net.dtype=float32`` (the YAML's
     ``bfloat16`` with ``shipped_dtype``; and ``net.model=<model>``,
-    ``data.layout=<layout>`` when given): 3 steps, one whole-split
-    validation, a checkpoint; a second call resumes from it and has nothing
-    left to train."""
+    ``data.layout=<layout>``, ``net.wrapper_type=<wrapper>`` when given): 3
+    steps, one whole-split validation, a checkpoint; a second call resumes
+    from it and has nothing left to train.  (The CRF's coin skips the
+    filter in those 3 steps; the validation runs it: its forward.)"""
     import torch
 
     from pointcontrast_tpu_torch.apps import semseg as app
@@ -2791,12 +3115,13 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False):
             "train.save_freq=1000", f"train.out_dir={out}",
             "distributed.num_devices=1"] + ([f"net.model={model}"] if model else [])
     args += [f"data.layout={layout}"] if layout else []
+    args += [f"net.wrapper_type={wrapper}"] if wrapper else []
     args += [] if shipped_dtype else ["net.dtype=float32"]
     sfx = "_bf16" if shipped_dtype else ""
     needed = [f"gather_gemm{sfx}", f"gather_wgrad{sfx}", f"parent_gemm{sfx}",
               f"scatter_parent{sfx}"]
     if model == "MinkUNetHyper14INBN":
-        needed += ["gather_sum", "scatter_sum", "segment_sum"]
+        needed += [f"gather_sum{sfx}", f"scatter_sum{sfx}", "segment_sum"]
     if layout and layout.startswith("brick"):
         needed += ["brick_gemm", "brick_wgrad", "gather_sum", "scatter_sum"]
     t0 = time.perf_counter()
@@ -2810,11 +3135,13 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False):
             or trainer.device.type != "cuda" or not 0.0 <= trainer.best_miou <= 100.0):
         raise AssertionError("the semseg CLI run did not train, validate, save "
                              "and stay on the card")
-    if model and type(trainer.model).__name__ != model:
+    net = trainer.model.net if wrapper else trainer.model
+    if (model and type(net).__name__ != model) or (
+            wrapper and type(trainer.model).__name__ != wrapper):
         raise AssertionError(f"the semseg CLI trained {type(trainer.model).__name__}")
     if layout and trainer.layout != layout:
         raise AssertionError(f"the semseg CLI ran layout {trainer.layout}")
-    if shipped_dtype and trainer.model.dtype != torch.bfloat16:
+    if shipped_dtype and net.dtype != torch.bfloat16:
         raise AssertionError("the semseg CLI did not run the shipped bf16")
     if not all(first[k] for k in needed):
         raise AssertionError(f"the semseg CLI run missed a kernel: {first}")
@@ -2823,7 +3150,7 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False):
     if resumed.curr_iter != 3 or again or any(K.launch_counts().values()):
         raise AssertionError("the resumed semseg CLI run trained again")
     say("cli", app="semseg", model=type(trainer.model).__name__, layout=trainer.layout,
-        dtype=trainer.model.dtype,
+        dtype=net.dtype,
         seconds=f"{seconds:.1f}", iters=trainer.curr_iter,
         best_miou=f"{trainer.best_miou:.4f}", launches=first,
         checkpoint=os.path.relpath(ckpt, ROOT), resumed_iter=resumed.curr_iter)
@@ -3028,6 +3355,69 @@ def votenet_bf16_spread(seeds) -> int:
     return 0
 
 
+def resnet_bf16_spread(seeds) -> int:
+    """The bf16 ResNets under summation order alone, the readings
+    BF16_RESNET_LIMITS and BF16_GRAD_LIMITS are set from, and the controls
+    they must refuse: for each seed (the weights' and the scenes') and each
+    of ResNet18 and ResNet50 in bf16 on the ResNet workload's batch, the
+    train-mode logits and cross-entropy in the modes "kernels", "reversed"
+    and "pertap" (MODE_SWAPS) against "plain" (``_mode_outputs``), and the
+    input and parameter gradients from one forward of the kernels, in the
+    modes "kernels", "reversed", "pertap_dF", "pertap_all" and "drop_tap"
+    against "plain" (``_kernels_vs_plain``: the worst ratio of
+    ``_worst_gap`` and the relative L2 distance of ``_l2_gap``).  One
+    ``[spread]`` line a net and seed, then a JSON line of the worst
+    readings by net."""
+    import torch
+
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    card = phase_device()
+    phase_build()
+    device = torch.device("cuda", 0)
+    worst = {}
+    for seed in seeds:
+        batch = W.resnet_batch(W.SemsegScenes(seed=seed), seed=seed).to(device)
+        valid = batch.pyramid.levels[-1].valid > 0
+        ct = _resnet_ct(batch, device)
+
+        def run(m, x):
+            return m(x, batch.pyramid)
+
+        for name in ("ResNet18", "ResNet50"):
+            model = W.resnet_model(seed=seed, model=name, dtype=torch.bfloat16)
+            outs = _mode_outputs(model, lambda m: run(m, batch.feats), device,
+                                 modes=("plain", "kernels", "reversed", "pertap"))
+            loss = {k: float(cross_entropy_ignore(v, batch.labels, 255)) for k, v in outs.items()}
+            r = {}
+            for mode in ("kernels", "reversed", "pertap"):
+                r[f"{mode}_loss_rel"] = abs(loss[mode] - loss["plain"]) / abs(loss["plain"])
+                r[f"{mode}_cosine"] = _agreement(outs[mode][valid], outs["plain"][valid])["cosine"]
+            del outs
+            backward = ("kernels", "reversed", "pertap_dF", "pertap_all", "drop_tap")
+            got = _kernels_vs_plain(model, batch.feats, ct, run, device,
+                                    modes=("kernels", "plain", *backward[1:]))
+            worst_of = {}
+            for mode in backward:
+                r[f"{mode}_grad_rel"], gaps = _worst_gap(got, mode, skip=("output",))
+                r[f"{mode}_grad_l2"] = _l2_gap(got, mode, skip=("output",))
+                worst_of[mode] = gaps[0][0]
+            del got
+            top = worst.setdefault(name, {})
+            for key, v in r.items():
+                pick = min if key.endswith("cosine") else max
+                top[key] = pick(top.get(key, v), v)
+            say("spread", seed=seed, net=name, loss_plain=f"{loss['plain']:.8f}",
+                **{k: f"{v:.7f}" if k.endswith("cosine") else f"{v:.3e}" for k, v in r.items()},
+                worst_grad_of=worst_of, card=card)
+            del model
+    print(json.dumps({"resnet_bf16_worst": worst, "seeds": list(seeds),
+                      "limits": BF16_RESNET_LIMITS, "grad_limits": BF16_GRAD_LIMITS}),
+          flush=True)
+    return 0
+
+
 def _sweep_groups(constant, device):
     """{path: [checks]} a blocks sweep times: SCATTER_BLOCKS, the ResNets'
     K4 dF and the CRF's flat dF (scatter_gemm); WGRAD_BLOCKS, the
@@ -3128,6 +3518,8 @@ def main() -> int:
         return blocks_sweep(sweeps[sys.argv[1]], [int(m) for m in sys.argv[2].split(",")])
     if sys.argv[1:2] == ["--votenet-bf16-spread"]:
         return votenet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
+    if sys.argv[1:2] == ["--resnet-bf16-spread"]:
+        return resnet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     t0 = time.perf_counter()
     card = phase_device()
     import torch
@@ -3161,12 +3553,15 @@ def main() -> int:
     del pbatches
     phase_cli()
     phase_cli(sparse=True)
+    phase_cli(sparse=True, backbone_model="MinkUNetHyper14INBN")
     scenes = semseg_paths(device, card, paths)
     semseg_layout_paths(device, card, paths, scenes)
     phase_cli_semseg()
     phase_cli_semseg(shipped_dtype=True)
     phase_cli_semseg("ResUNet18INBN", shipped_dtype=True)
     phase_cli_semseg("MinkUNetHyper14INBN")
+    phase_cli_semseg("MinkUNetHyper14INBN", shipped_dtype=True)
+    phase_cli_semseg(shipped_dtype=True, wrapper="BilateralCRF")
     phase_cli_semseg(layout="voxel")
     phase_cli_semseg(layout="brick")
     resnet_paths(device, card, paths, scenes)

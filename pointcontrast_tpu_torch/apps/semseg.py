@@ -77,18 +77,12 @@ def check_supported(cfg, device: torch.device) -> None:
                          "semseg app's datasets are 3D — use BilateralCRF")
     if wrapper not in ("", "BilateralCRF"):
         raise ValueError(f"unknown net.wrapper_type {wrapper!r}")
-    if dtype == torch.bfloat16:
-        # the kernels these run on have no bf16 form yet; never f32 in their place
-        why = ("MinkUNetHyper's average unpools (gather_sum / scatter_sum)"
-               if issubclass(load_model(cfg.net.model), MinkUNetHyper)
-               else f"the {wrapper} filter's flat conv (scatter_gemm)" if wrapper
-               else "the brick layout's convs (brick_gemm / brick_wgrad)"
-               if kind == "brick" else None)
-        if why:
-            raise NotImplementedError(
-                f"net.dtype=bfloat16 with net.model={cfg.net.model} "
-                f"net.wrapper_type={wrapper!r} data.layout={layout}: {why} in bfloat16 "
-                f"is {ITEM_5B}; pass net.dtype=float32")
+    if dtype == torch.bfloat16 and kind == "brick":
+        # the brick convs have no bf16 form yet; never f32 in their place
+        raise NotImplementedError(
+            f"net.dtype=bfloat16 with net.model={cfg.net.model} data.layout={layout}: "
+            f"the brick layout's convs (brick_gemm / brick_wgrad) in bfloat16 are "
+            f"{ITEM_5B}; pass net.dtype=float32")
 
 
 def build_datasets(cfg):

@@ -85,17 +85,6 @@ def check_supported(cfg, device: torch.device) -> None:
             "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
             "distributed.num_devices=1")
     if cfg.net.backbone == "sparseconv":
-        from pointcontrast_tpu_torch.nn.registry import load_model
-        from pointcontrast_tpu_torch.nn.resnet import ResNetBase
-        from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
-        from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
-
-        name = cfg.net.get("backbone_model", "Res16UNet34C")
-        if (net_dtype(cfg) == torch.bfloat16
-                and issubclass(load_model(name), (ResNetBase, MinkUNetHyper))):
-            raise NotImplementedError(
-                f"net.dtype=bfloat16 with net.backbone_model={name}: its pools "
-                f"and k3s2 convs in bfloat16 are {ITEM_5B}; pass net.dtype=float32")
         layout = cfg.data.get("layout", "voxel")
         if layout not in ("chunked", "voxel"):
             raise NotImplementedError(

@@ -74,13 +74,20 @@
 // f32; scatter_parent widens a bf16 cotangent into the f32 dy.  The SIMT
 // forms are bound as the f32 forms are (f32 issue on the live pairs;
 // scatter_parent HBM bytes); the tensor-core forms by the gathered rows'
-// bytes and the pipeline's latency.
+// bytes and the pipeline's latency.  scatter_gemm's bf16 form
+// (scatter_gemm_mma_kernel, K4's and the flat conv's dF) runs its f32
+// kernel's pipeline with the products on the tensor cores and adds them
+// with f32 atomics into an f32 dF, rounded once by the wrapper.  The pools'
+// bf16 forms (gather_sum_bf16_kernel, scatter_store_bf16_kernel,
+// scatter_sum_inv_bf16_kernel) keep XLA's rounding after every bf16 add,
+// in its order, with no atomics (their notes below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 #include "row_groups.cuh"
@@ -454,35 +461,21 @@ __device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
   }
 }
 
-template <int Q>
-__global__ void __launch_bounds__(gg::THREADS, 2)
-gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
-                   const __grid_constant__ TapList taps, int tap_stride, int G,
-                   const float* __restrict__ W, const float* __restrict__ Wc,
-                   const int* __restrict__ order, float* __restrict__ out,
-                   float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
-                   int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
-  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
-  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                   // [STAGES][BM][BK]
-  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BK][BN]
-  const int ntap = G + (Wc != nullptr ? 1 : 0);       // tap G: the centre
-  const int per = (ntap + splits - 1) / splits;
-  int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
-  unsigned* ball = reinterpret_cast<unsigned*>(rows + per * BM);  // [per][BALLOTS]
-  int* live = reinterpret_cast<int*>(ball + per * BALLOTS);  // count, then taps
-  int* srow = live + per + 1;  // [BM] the tile's output rows, -1 past S_out
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 7, ty = tid >> 3;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
-  const float* Xb = X + (int64_t)b * S_in * Cin;
-
-  // prologue: the tile's rows, every row of every tap of this split, and
-  // which are live
+// The gather GEMMs' prologue (gather_gemm_kernel, gather_gemm_mma_kernel):
+// the tile's output rows `srow` [BM] (through `order` where given, -1 past
+// S_out), every row of taps t_lo .. t_lo + nt - 1 of this split `rows`
+// [nt][BM] (tap G: the centre, the row itself; -1 where skipped or out of
+// the table), a ballot a 32 rows of which are live `ball` [nt][BALLOTS],
+// and the taps with a live row `live` (their count, then their indices).
+// Ends with a __syncthreads.
+__device__ __forceinline__ void gg_prologue(int* srow, int* rows, unsigned* ball, int* live,
+                                            const int* __restrict__ map, const TapList& taps,
+                                            int tap_stride, int G,
+                                            const int* __restrict__ order, int b, int s0,
+                                            int t_lo, int nt, int B, int S_in, int S_out,
+                                            int skip) {
+  constexpr int BM = gg::BM, THREADS = gg::THREADS, BALLOTS = gg::BALLOTS;
+  const int tid = threadIdx.x, lane = tid & 31;
   if (tid < BM) {
     const int s = s0 + tid;
     srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
@@ -511,6 +504,37 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
     live[0] = n;
   }
   __syncthreads();
+}
+
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
+                   const __grid_constant__ TapList taps, int tap_stride, int G,
+                   const float* __restrict__ W, const float* __restrict__ Wc,
+                   const int* __restrict__ order, float* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
+                   int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BK][BN]
+  const int ntap = G + (Wc != nullptr ? 1 : 0);       // tap G: the centre
+  const int per = (ntap + splits - 1) / splits;
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [per][BM]
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + per * BM);  // [per][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + per * BALLOTS);  // count, then taps
+  int* srow = live + per + 1;  // [BM] the tile's output rows, -1 past S_out
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
+  const float* Xb = X + (int64_t)b * S_in * Cin;
+
+  gg_prologue(srow, rows, ball, live, map, taps, tap_stride, G, order, b, s0, t_lo, nt, B,
+              S_in, S_out, skip);
   const int kchunks = (Cin + BK - 1) / BK;
   const int nsteps = live[0] * kchunks;
 
@@ -615,7 +639,11 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
 //    in shared memory (rows padded by 16 bytes: the fragments' 4-byte
 //    stores hit 32 banks), so each output row leaves as 16-byte stores;
 //    several splits store f32 partials to ws, and the tile's last block (an
-//    integer ticket) adds them in split order and rounds once.
+//    integer ticket) adds them in split order and rounds once;
+//  - F32 (ROUND only: the flat conv's taps past the 32 a launch takes,
+//    sparse/ops.py): the same sums left in f32, unrounded, so that
+//    the caller adds its launches' sums in f32 and rounds once, as JAX's
+//    one f32 accumulator over every tap does.
 namespace gm {
 constexpr int PAD = 8;  // bf16 a staged output row past its BN
 
@@ -685,12 +713,13 @@ __device__ __forceinline__ void gm_mma(float (&acc)[4 * Q][4], const bf16* as, c
 }
 
 // grid (ceil(S_out / BM), ceil(Cout / 32 Q), B * splits)
-template <int Q, bool ROUND>
+template <int Q, bool ROUND, bool F32 = false>
 __global__ void __launch_bounds__(gg::THREADS, 2)
 gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
                        const __grid_constant__ TapList taps, int tap_stride, int G,
                        const bf16* __restrict__ W, const bf16* __restrict__ Wc,
-                       const int* __restrict__ order, bf16* __restrict__ out,
+                       const int* __restrict__ order,
+                       std::conditional_t<F32, float, bf16>* __restrict__ out,
                        float* __restrict__ ws, int* __restrict__ tickets, int splits, int B,
                        int S_in, int S_out, int Cin, int Cout, int skip, int vec_x, int vec_w) {
   constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
@@ -711,37 +740,8 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
   const int t_lo = sp * ntap / splits, nt = (sp + 1) * ntap / splits - t_lo;
   const bf16* Xb = X + (int64_t)b * S_in * Cin;
 
-  // prologue, a copy of gather_gemm_kernel's (so that the f32 kernel's
-  // code and registers stay as they were): the tile's rows, every row of
-  // every tap of this split, and which are live
-  if (tid < BM) {
-    const int s = s0 + tid;
-    srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
-  }
-  __syncthreads();
-  for (int e = tid; e < nt * BM; e += THREADS) {  // whole warps: nt * BM % 32 == 0
-    const int j = t_lo + e / BM, s = srow[e % BM];
-    int r = -1;
-    if (s >= 0) {
-      r = j == G ? s : row_of(map, taps, tap_stride, j, b, s, B, S_out);
-      if (r == skip || r < 0 || r >= S_in) r = -1;
-    }
-    rows[e] = r;
-    const unsigned bits = __ballot_sync(0xffffffffu, r >= 0);
-    if (lane == 0) ball[e >> 5] = bits;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int t = 0; t < nt; ++t) {
-      unsigned any = 0;
-#pragma unroll
-      for (int c = 0; c < BALLOTS; ++c) any |= ball[t * BALLOTS + c];
-      if (any) live[1 + n++] = t;
-    }
-    live[0] = n;
-  }
-  __syncthreads();
+  gg_prologue(srow, rows, ball, live, map, taps, tap_stride, G, order, b, s0, t_lo, nt, B,
+              S_in, S_out, skip);
   const int kchunks = (Cin + BK - 1) / BK;
   const int nsteps = live[0] * kchunks;
 
@@ -809,7 +809,9 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
   }
 
   const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
-  if (splits == 1) {
+  using TO = std::conditional_t<F32, float, bf16>;
+  static_assert(!F32 || ROUND, "f32 sums only for the per-tap form");
+  if (!F32 && splits == 1) {
     // round once, stage the tile's rows in shared memory (the ring is free
     // once every warp is past its last step), store 16 bytes at a time
     bf16* Cs = As;  // [BM][LDC]
@@ -828,20 +830,21 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
       const int m = 16 * warp + e / (BN / 8), c = e % (BN / 8);
       const int s = srow[m], n = n0 + 8 * c;
       if (s < 0 || n >= Cout) continue;
-      bf16* dst = out + ((int64_t)b * S_out + s) * Cout + n;
+      TO* dst = out + ((int64_t)b * S_out + s) * Cout + n;
       const bf16* src = Cs + m * LDC + 8 * c;
       if (vec_o) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
-        for (int i = 0; i < 8 && n + i < Cout; ++i) dst[i] = src[i];
+        for (int i = 0; i < 8 && n + i < Cout; ++i) dst[i] = TO(src[i]);
       }
     }
     return;
   }
   // several splits: f32 partials in ws, the tile's last block adds them in
-  // split order and rounds once
+  // split order and rounds once (F32: one split's sums go to out as they
+  // are, several splits' sum unrounded)
   const int64_t plane = (int64_t)B * S_out * Cout;
-  float* part = ws + sp * plane;
+  float* part = F32 && splits == 1 ? reinterpret_cast<float*>(out) : ws + sp * plane;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int s = srow[16 * warp + g + 8 * h];
@@ -858,6 +861,9 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
         if (col + 1 < Cout) row[col + 1] = acc[n][2 * h + 1];
       }
     }
+  }
+  if constexpr (F32) {
+    if (splits == 1) return;
   }
   __threadfence();
   __syncthreads();
@@ -1673,8 +1679,8 @@ namespace sg {
 // each tap's destinations and ballots, the live tap list (count, then
 // taps), each tap's live count, the tile's cotangent rows, and each tap's
 // compacted rows (one byte each)
-inline size_t smem_bytes(int Q, int T) {
-  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+inline size_t smem_bytes(int Q, int T, int esize = 4) {
+  return (size_t)esize * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
          sizeof(int) * (T * gg::BM + T * gg::BALLOTS + (T + 1) + T + gg::BM) +
          (size_t)T * gg::BM;
 }
@@ -1723,34 +1729,20 @@ __device__ __forceinline__ void atomic_add4(float* row, int n, int C, bool vec,
 }
 
 // grid (ceil(S_out / BM), ceil(Cin / 32 Q), B * splits)
-template <int Q>
-__global__ void __launch_bounds__(gg::THREADS, 2)
-scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
-                    const __grid_constant__ TapList taps, int T, const float* __restrict__ W,
-                    const int* __restrict__ order, float* __restrict__ dF, int splits, int B,
-                    int S_out, int S_in, int Cin, int Cout, int skip, int vec_g, int vec_w,
-                    int vec_o) {
-  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
-  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                   // [STAGES][BM][BK]
-  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BN][BK]: W[j] rows
-  int* rows = reinterpret_cast<int*>(Bs + STAGES * BN * BK);  // [T][BM] destinations
-  unsigned* ball = reinterpret_cast<unsigned*>(rows + T * BM);  // [T][BALLOTS]
-  int* live = reinterpret_cast<int*>(ball + T * BALLOTS);  // count, then taps
-  int* nlive = live + T + 1;  // [T] live rows a tap
-  int* srow = nlive + T;      // [BM] the tile's cotangent rows, -1 past S_out
-  unsigned char* crow = reinterpret_cast<unsigned char*>(srow + BM);  // [T][BM]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 7, ty = tid >> 3;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const float* Gb = G + (int64_t)b * S_out * Cout;
-  float* dFb = dF + (int64_t)b * S_in * Cin;
-
-  // prologue: the tile's rows, their destinations at every tap, which are
-  // live, and each tap's live rows compacted in row order
+// The scatter GEMMs' prologue (scatter_gemm_kernel, scatter_gemm_mma_kernel):
+// the tile's cotangent rows `srow` [BM] (through `order` where given, -1
+// past S_out), their destinations at each of the T taps `rows` [T][BM] (-1
+// where skipped or out of the table), a ballot a 32 rows of which are live
+// `ball` [T][BALLOTS], each tap's live rows compacted in row order `crow`
+// [T][BM] and counted `nlive` [T], and the taps with a live row `live`
+// (their count, then their indices).  Ends with a __syncthreads.
+__device__ __forceinline__ void sg_prologue(int* srow, int* rows, unsigned* ball, int* live,
+                                            int* nlive, unsigned char* crow,
+                                            const int* __restrict__ map, const TapList& taps,
+                                            int T, const int* __restrict__ order, int b, int s0,
+                                            int B, int S_in, int S_out, int skip) {
+  constexpr int BM = gg::BM, THREADS = gg::THREADS, BALLOTS = gg::BALLOTS;
+  const int tid = threadIdx.x, lane = tid & 31;
   if (tid < BM) {
     const int s = s0 + tid;
     srow[tid] = s >= S_out ? -1 : order != nullptr ? __ldg(order + (int64_t)b * S_out + s) : s;
@@ -1787,6 +1779,36 @@ scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
     live[0] = n;
   }
   __syncthreads();
+}
+
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
+                    const __grid_constant__ TapList taps, int T, const float* __restrict__ W,
+                    const int* __restrict__ order, float* __restrict__ dF, int splits, int B,
+                    int S_out, int S_in, int Cin, int Cout, int skip, int vec_g, int vec_w,
+                    int vec_o) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int TM = gg::TM, BALLOTS = gg::BALLOTS, BN = 32 * Q;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                   // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                  // [STAGES][BN][BK]: W[j] rows
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BN * BK);  // [T][BM] destinations
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + T * BM);  // [T][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + T * BALLOTS);  // count, then taps
+  int* nlive = live + T + 1;  // [T] live rows a tap
+  int* srow = nlive + T;      // [BM] the tile's cotangent rows, -1 past S_out
+  unsigned char* crow = reinterpret_cast<unsigned char*>(srow + BM);  // [T][BM]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const float* Gb = G + (int64_t)b * S_out * Cout;
+  float* dFb = dF + (int64_t)b * S_in * Cin;
+
+  sg_prologue(srow, rows, ball, live, nlive, crow, map, taps, T, order, b, s0, B, S_in,
+              S_out, skip);
   const int kchunks = (Cout + BK - 1) / BK;
   const int total = live[0] * kchunks;  // this split: steps [lo, hi) of the tile's list
   const int lo = sp * total / splits, nsteps = (sp + 1) * total / splits - lo;
@@ -1838,6 +1860,170 @@ scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
         if (r >= 0) atomic_add4(dFb + (int64_t)r * Cin, n0 + 4 * tx + 32 * q, Cin, vec_o, acc[i][q]);
         acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// scatter_gemm_bf16 on the tensor cores (the bf16 form of (e), JAX
+// _conv_chunk_down_fused_bwd's dF in bf16, pointcontrast_tpu/sparse/ops.py
+// :578-615, and the flat conv's): ct and W^T widened to f32 there, so each
+// product is bf16 x bf16, exact in f32, and the sums f32 in an f32 dF, one
+// rounding to the features' bf16 after the whole scatter (the wrapper's).
+// The f32 kernel's prologue (sg_prologue: each tap's live cotangent rows
+// compacted), live orders, 3-stage cp.async ring and step splits, with the
+// products on mma.sync.m16n8k16 bf16 -> f32:
+//  - warp w computes compacted rows [16 w, 16 w + 16) x the block's Cin
+//    tile BN = 32 Q (Q = 1..4, gm::q_for), two k16 steps a 32-deep Cout
+//    chunk, the second left out past Cout;
+//  - A fragments by ldmatrix.x4 from the compacted row tile; W[j]^T is
+//    staged as BN rows of W[j] (Cin rows of Cout depths, never transposed
+//    in memory), which is the m16n8k16 B operand's column-major form, so
+//    plain ldmatrix.x4 gives its fragments; both tiles in mma_chunk's
+//    swizzle;
+//  - after a tap's last Cout chunk (or the split's last step) each quad of
+//    lanes swaps its rows' column pairs (one __shfl_xor_sync), so that each
+//    lane holds 4 neighbouring columns of one row, and adds them into the
+//    f32 dF with one float4 atomic (scalar ones where Cin % 4 != 0 or dF is
+//    unaligned).  The atomics' order changes the sums' last bits from run
+//    to run: the checks hold dF to a bound of the exact sum
+//    (sparse/kernels.py scatter_gemm_bf16_bound), not to bits.
+// W[j]^T's tile for one step: `bs` [BN][BK], row n W[j]'s row n0 + n at
+// Cout depths k0.., zero-filled past Cin and Cout.
+template <int Q>
+__device__ __forceinline__ void sg_load_wt(bf16* bs, const bf16* Wj, int n0, int k0, int Cin,
+                                           int Cout, int vec_w, int tid) {
+  constexpr int BN = 32 * Q, BK = gg::BK, THREADS = gg::THREADS;
+  if (vec_w) {  // Cout % 8 == 0, W 16-byte aligned: 16-byte copies of 8 depths
+    for (int e = tid; e < BN * BK / 8; e += THREADS) {
+      const int n = e >> 2, c = e & 3;
+      const bool ok = n0 + n < Cin && k0 + 8 * c < Cout;
+      cp_async16(bs + n * BK + (mma_chunk<BK / 8>(n, c) << 3),
+                 ok ? Wj + (int64_t)(n0 + n) * Cout + k0 + 8 * c : Wj, ok);
+    }
+  } else {
+    for (int e = tid; e < BN * BK; e += THREADS) {
+      const int n = e >> 5, k = e & 31;
+      const bool ok = n0 + n < Cin && k0 + k < Cout;
+      bs[n * BK + (mma_chunk<BK / 8>(n, k >> 3) << 3) + (k & 7)] =
+          ok ? Wj[(int64_t)(n0 + n) * Cout + k0 + k] : bf16_zero();
+    }
+  }
+}
+
+// One step's products for warp w: its 16 compacted rows of `as` [BM][BK]
+// times W[j]^T, staged as `bs` [BN][BK] (row n: W[j]'s row n0 + n), `depth`
+// of the 32 Cout depths live, into acc[n]: the m16n8 fragment of Cin
+// columns [8 n, 8 n + 8).
+template <int Q>
+__device__ __forceinline__ void sg_mma_bf16(float (&acc)[4 * Q][4], const bf16* as,
+                                            const bf16* bs, int warp, int lane, int depth) {
+  constexpr int BK = gg::BK;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if (16 * kk >= depth) break;
+    unsigned a[4];  // rows 16 w + lane % 16, depths 16 kk + 8 (lane / 16) ..
+    const int m = 16 * warp + (lane & 15);
+    ldsm_x4(a, as + m * BK + (mma_chunk<BK / 8>(m, 2 * kk + (lane >> 4)) << 3));
+#pragma unroll
+    for (int j = 0; j < 2 * Q; ++j) {  // columns [16 j, 16 j + 16): two fragments
+      unsigned b[4];  // matrices (columns + 0 | + 8) x (depths + 0 | + 8)
+      const int n = 16 * j + (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(b, bs + n * BK + (mma_chunk<BK / 8>(n, 2 * kk + ((lane >> 3) & 1)) << 3));
+      mma_bf16(acc[2 * j], a, b[0], b[1]);
+      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// grid (ceil(S_out / BM), ceil(Cin / 32 Q), B * splits)
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+scatter_gemm_mma_kernel(const bf16* __restrict__ G, const int* __restrict__ map,
+                        const __grid_constant__ TapList taps, int T, const bf16* __restrict__ W,
+                        const int* __restrict__ order, float* __restrict__ dF, int splits, int B,
+                        int S_out, int S_in, int Cin, int Cout, int skip, int vec_g, int vec_w,
+                        int vec_o) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int BALLOTS = gg::BALLOTS, BN = 32 * Q, NF = 4 * Q;
+  extern __shared__ __align__(16) float smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);           // [STAGES][BM][BK]
+  bf16* Bs = As + STAGES * BM * BK;                    // [STAGES][BN][BK]: W[j] rows
+  int* rows = reinterpret_cast<int*>(Bs + STAGES * BN * BK);  // [T][BM] destinations
+  unsigned* ball = reinterpret_cast<unsigned*>(rows + T * BM);  // [T][BALLOTS]
+  int* live = reinterpret_cast<int*>(ball + T * BALLOTS);  // count, then taps
+  int* nlive = live + T + 1;  // [T] live rows a tap
+  int* srow = nlive + T;      // [BM] the tile's cotangent rows, -1 past S_out
+  unsigned char* crow = reinterpret_cast<unsigned char*>(srow + BM);  // [T][BM]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const bf16* Gb = G + (int64_t)b * S_out * Cout;
+  float* dFb = dF + (int64_t)b * S_in * Cin;
+
+  sg_prologue(srow, rows, ball, live, nlive, crow, map, taps, T, order, b, s0, B, S_in,
+              S_out, skip);
+  const int kchunks = (Cout + BK - 1) / BK;
+  const int total = live[0] * kchunks;  // this split: steps [lo, hi) of the tile's list
+  const int lo = sp * total / splits, nsteps = (sp + 1) * total / splits - lo;
+
+  auto load = [&](int step, int buf) {
+    const int t = live[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    const unsigned char* ct = crow + t * BM;
+    const int n = nlive[t];
+    gg_load_rows<BM, true>(As + buf * BM * BK, Gb,
+                           [&](int m) { return m < n ? srow[ct[m]] : -1; }, k0, Cout, vec_g,
+                           tid);
+    sg_load_wt<Q>(Bs + buf * BN * BK, W + (int64_t)t * Cin * Cout, n0, k0, Cin, Cout, vec_w,
+                  tid);
+  };
+
+  float acc[NF][4];  // fragment n: columns 8 n + 2 (lane % 4) + {0, 1}, rows lane / 4 + {0, 8}
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(lo + st, st);
+    cp_async_commit();
+  }
+  const int g = lane >> 2, odd = lane & 1;
+  // after the swap: this lane's row (g, or g + 8 on odd lanes) and its 4
+  // columns' offset in a fragment
+  const int half = odd ? 8 : 0, col4 = 2 * (lane & 3) - 2 * odd;
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(lo + next, next % STAGES);
+      cp_async_commit();
+    }
+    const int gstep = lo + step;
+    const int t = live[1 + gstep / kchunks];
+    if (16 * warp >= nlive[t]) continue;  // this warp's 16 compacted rows are past the tap's
+    const int k0 = (gstep % kchunks) * BK;
+    sg_mma_bf16<Q>(acc, As + (step % STAGES) * BM * BK, Bs + (step % STAGES) * BN * BK, warp,
+                   lane, Cout - k0);
+    if ((gstep + 1) % kchunks != 0 && step != nsteps - 1) continue;
+    // the tap's last chunk (of this split): add into the destinations
+    const int m = 16 * warp + g + half;
+    const int r = m < nlive[t] ? rows[t * BM + crow[t * BM + m]] : -1;
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      // even lanes keep row g's pair and take the partner's; odd lanes row g + 8's
+      const float s0v = odd ? acc[n][0] : acc[n][2], s1v = odd ? acc[n][1] : acc[n][3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0v, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, s1v, 1);
+      const float4 v = odd ? make_float4(r0, r1, acc[n][2], acc[n][3])
+                           : make_float4(acc[n][0], acc[n][1], r0, r1);
+      if (r >= 0) atomic_add4(dFb + (int64_t)r * Cin, n0 + 8 * n + col4, Cin, vec_o, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
     }
   }
   cp_async_wait<0>();
@@ -2308,6 +2494,242 @@ scatter_sum_kernel(const float* __restrict__ Gr, const int* __restrict__ map,
   }
 }
 
+// The bf16 forms of (g) and (h): JAX's bf16 pools and their autodiff
+// (pointcontrast_tpu/sparse/ops.py:906-964), whose rounding points XLA's CPU
+// code fixes, and the CPU tests pin bit for bit:
+//  - the chunked sum and average pools add the K gathered bf16 tables with
+//    Python's sum, each add a bf16 op: ((0 + x[r_0]) + x[r_1]) + ..., every
+//    add rounded, in tap order (EACH); the flat pools sum a [K, N, C] gather
+//    with jnp.sum, which adds in f32 and rounds once (EACH false);
+//  - the adjoint of a row gather is XLA's bf16 scatter-add, which adds each
+//    destination's contributions in ascending source-row order, every add
+//    rounded.  Through the pools' down maps every fine row below the pad
+//    rows is one (tap, coarse row)'s at most, so each value is a copy
+//    (scatter_store_bf16_kernel); the unpool's adjoint adds up to 8 children
+//    into each parent (scatter_sum_inv_bf16_kernel, destination-major over
+//    the children the level's down map names, sorted: no atomics).
+// Each value is widened to f32 (exact), added in f32 (the sum of two bf16
+// values is exact in f32 wherever a bf16 rounding of it could depend on
+// the bits past f32) and rounded to bf16 with __float2bfloat16_rn after each
+// add: bit-equal to the plain twins, the same bits from run to run.  Like
+// the f32 forms, HBM bytes bound them.
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void bf_round4(float4& v) {
+  v.x = bf_round(v.x);
+  v.y = bf_round(v.y);
+  v.z = bf_round(v.z);
+  v.w = bf_round(v.w);
+}
+
+// 4 bf16 values from global memory (8 bytes, read-only path), widened
+__device__ __forceinline__ float4 ldg4_bf16(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+}
+
+// (g) in bf16: out[b,s,:] = sum_j X[b, row(j,b,s), :] over the listed taps in
+// tap order, from zero, rounded to bf16 after every add (EACH) or once
+// after the f32 sum.  gather_sum_kernel's lane groups (VEC: 4 values a
+// lane a step, C % 4 == 0 and both tables 8-byte aligned).
+// grid (ceil(S_out / (256 / G)), B).
+template <int G, bool VEC, bool EACH>
+__global__ void __launch_bounds__(256)
+gather_sum_bf16_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
+                       const __grid_constant__ TapList taps, int tap_stride, int T,
+                       bf16* __restrict__ out, int B, int S_in, int S_out, int C) {
+  const int s = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (s >= S_out) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  unsigned kept = 0;  // bit j: tap j's row lies in [0, S_in)
+  int mine = -1;      // the row of tap `lane` (T <= G)
+  for (int j0 = 0; j0 < T; j0 += G) {
+    const int j = j0 + lane;
+    const int r = j < T ? row_of32(map, taps, tap_stride, j, b, s, B, S_out) : -1;
+    if (j0 == 0) mine = r;
+    kept |= row_groups::ballot<G>(r >= 0 && r < S_in) << j0;
+  }
+  const bf16* xb = X + b * S_in * C;
+  bf16* o = out + (b * S_out + s) * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u0 = 0; u0 < units; u0 += G) {  // the same trip count for every lane
+    const int u = u0 + lane;
+    const bool live = u < units;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = 0; j < T; ++j) {
+      int r = T <= G ? row_groups::shfl<G>(mine, j) : 0;  // every lane shuffles
+      if (!live || !((kept >> j) & 1u)) continue;
+      if (T > G) r = row_of32(map, taps, tap_stride, j, b, s, B, S_out);
+      if constexpr (VEC) {
+        add4(acc, ldg4_bf16(xb + r * C + 4 * u));
+        if constexpr (EACH) bf_round4(acc);
+      } else {
+        acc.x += __bfloat162float(xb[r * C + u]);
+        if constexpr (EACH) acc.x = bf_round(acc.x);
+      }
+    }
+    if (!live) continue;
+    if constexpr (VEC) {
+      store4(o, 4 * u, C, true, acc);  // rounds (exact under EACH)
+    } else {
+      o[u] = __float2bfloat16_rn(acc.x);
+    }
+  }
+}
+
+// (h) in bf16 where no destination below `limit` is named twice (the sum and
+// average pools' down maps: one (tap, coarse row) a fine row): each kept
+// destination row is stored once, 0 + the cotangent row rounded (a copy,
+// but for -0, which becomes +0 as in the scatter-add into zeros), no
+// atomic on the values; the rest of `out` stays the wrapper's zeros.  The
+// kernel checks its condition as it runs (given `check`): each kept (tap,
+// row) claims its destination in `check[1..]` (the wrapper's zeroed table
+// of B S_out counts, one atomicAdd each, a word a destination row), and
+// one that finds it claimed sets check[0], which the wrapper asserts is 0.
+// scatter_sum_kernel's lane groups.  grid (ceil(S_g / (256 / G)), B).
+template <int G, bool VEC>
+__global__ void __launch_bounds__(256)
+scatter_store_bf16_kernel(const bf16* __restrict__ Gr, const int* __restrict__ map,
+                          const __grid_constant__ TapList taps, int tap_stride, int T,
+                          bf16* __restrict__ out, int B, int S_g, int S_out, int C,
+                          int limit, unsigned* __restrict__ check) {
+  const int s = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (s >= S_g) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.y;
+  unsigned kept = 0;  // bit j: tap j's destination is stored
+  int mine = -1;      // the destination of tap `lane` (T <= G)
+  for (int j0 = 0; j0 < T; j0 += G) {
+    const int j = j0 + lane;
+    const int r = j < T ? row_of32(map, taps, tap_stride, j, b, s, B, S_g) : -1;
+    if (j0 == 0) mine = r;
+    const bool keep = r >= 0 && r < limit;
+    kept |= row_groups::ballot<G>(keep) << j0;
+    if (check != nullptr && keep) {  // claim it: a second claim breaks the condition
+      if (atomicAdd(check + 1 + b * S_out + r, 1u) != 0u) atomicOr(check, 1u);
+    }
+  }
+  if (kept == 0) return;
+  const bf16* g = Gr + (b * S_g + s) * C;
+  bf16* ob = out + b * S_out * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u0 = 0; u0 < units; u0 += G) {
+    const int u = u0 + lane;
+    const bool live = u < units;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) {
+      if constexpr (VEC) {
+        add4(v, ldg4_bf16(g + 4 * u));  // 0 + x: -0 -> +0
+      } else {
+        v.x = 0.f + __bfloat162float(g[u]);
+      }
+    }
+    for (unsigned k = kept; k != 0; k &= k - 1) {
+      const int j = __ffs(k) - 1;
+      const int r = T <= G ? row_groups::shfl<G>(mine, j)
+                           : row_of32(map, taps, tap_stride, j, b, s, B, S_g);
+      if (!live) continue;
+      if constexpr (VEC) {
+        store4(ob + r * C, 4 * u, C, true, v);
+      } else {
+        ob[r * C + u] = __float2bfloat16_rn(v.x);
+      }
+    }
+  }
+}
+
+// (h) in bf16 through the sources of each destination: out[b,d,:] = the
+// rows G[b,i,:] with map[tap][b][i] == d, added in ascending i from zero,
+// every add rounded, for each destination d below `limit` (the rest stays
+// the wrapper's zeros).  The unpool's adjoint: `map` is the level's parent
+// map [1, B, S_g] (fine rows -> coarse), `inv` [K, B, S_out] (K <= 8) the
+// level's k2s2 down map, which names each coarse row's children, missing
+// ones at the fine pad row.  A group of G lanes owns one destination: every
+// lane reads its K candidates, keeps those whose own parent is d (the pad
+// row's is the coarse pad row, which no kept d is), sorts them with a
+// fixed network in registers and adds them in order.  Where the down map is
+// exactly the parent map's inverse below the pad rows, this is the ordered
+// scatter-add bit for bit, with no atomics.  The kernel checks that
+// condition as it runs (given `check`): the grid's last `src_blocks`
+// x-blocks take a thread a source row, and a kept source that its
+// destination's K entries do not name exactly once sets check[0], which
+// the wrapper asserts is 0.  grid (ceil(S_out / (256 / G)) + src_blocks,
+// B), src_blocks = ceil(S_g / 256), or 0 without `check`.
+constexpr int INV_MAX = 8;
+
+__device__ __forceinline__ void cswap(int& a, int& b) {
+  const int lo = min(a, b), hi = max(a, b);
+  a = lo;
+  b = hi;
+}
+
+template <int G, bool VEC>
+__global__ void __launch_bounds__(256)
+scatter_sum_inv_bf16_kernel(const bf16* __restrict__ Gr, const int* __restrict__ map, int tap,
+                            const int* __restrict__ inv, int K, bf16* __restrict__ out,
+                            int B, int S_g, int S_out, int C, int limit,
+                            unsigned* __restrict__ check) {
+  const int b = blockIdx.y;
+  const int dst_blocks = (S_out + 256 / G - 1) / (256 / G);
+  if ((int)blockIdx.x >= dst_blocks) {  // the check: each kept source named once
+    const int i = (blockIdx.x - dst_blocks) * 256 + threadIdx.x;
+    if (i >= S_g) return;
+    const int p = __ldg(map + (tap * B + b) * S_g + i);
+    if (p < 0 || p >= limit || p >= S_out) return;
+    int named = 0;
+    for (int k = 0; k < K; ++k) named += __ldg(inv + (k * B + b) * S_out + p) == i;
+    if (named != 1) atomicOr(check, 1u);
+    return;
+  }
+  const int d = blockIdx.x * (256 / G) + threadIdx.x / G;
+  if (d >= S_out || d >= limit) return;  // the whole group leaves together
+  const int lane = threadIdx.x % G;
+  int c[INV_MAX];
+#pragma unroll
+  for (int k = 0; k < INV_MAX; ++k) {
+    int i = k < K ? __ldg(inv + (k * B + b) * S_out + d) : INT_MAX;
+    if (i != INT_MAX && (i < 0 || i >= S_g || __ldg(map + (tap * B + b) * S_g + i) != d))
+      i = INT_MAX;
+    c[k] = i;
+  }
+  // Batcher's odd-even merge sort of 8 keys (19 compare-swaps), unrolled
+  cswap(c[0], c[1]); cswap(c[2], c[3]); cswap(c[4], c[5]); cswap(c[6], c[7]);
+  cswap(c[0], c[2]); cswap(c[1], c[3]); cswap(c[4], c[6]); cswap(c[5], c[7]);
+  cswap(c[1], c[2]); cswap(c[5], c[6]);
+  cswap(c[0], c[4]); cswap(c[1], c[5]); cswap(c[2], c[6]); cswap(c[3], c[7]);
+  cswap(c[2], c[4]); cswap(c[3], c[5]);
+  cswap(c[1], c[2]); cswap(c[3], c[4]); cswap(c[5], c[6]);
+  const bf16* gb = Gr + b * S_g * C;
+  bf16* o = out + (b * S_out + d) * C;
+  constexpr int V = VEC ? 4 : 1;
+  const int units = C / V;
+  for (int u = lane; u < units; u += G) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < INV_MAX; ++k) {
+      // a child named twice is added once (the down map names each once)
+      if (c[k] == INT_MAX || (k > 0 && c[k] == c[k - 1])) continue;
+      if constexpr (VEC) {
+        add4(acc, ldg4_bf16(gb + c[k] * C + 4 * u));
+        bf_round4(acc);
+      } else {
+        acc.x = bf_round(acc.x + __bfloat162float(gb[c[k] * C + u]));
+      }
+    }
+    if constexpr (VEC) {
+      store4(o, 4 * u, C, true, acc);
+    } else {
+      o[u] = __float2bfloat16_rn(acc.x);
+    }
+  }
+}
+
 // The brick layout (pointcontrast_tpu/sparse/brick.py): a level's features
 // are [NB * 8, C] with voxel (brick b, slot s) at row b * 8 + s, slot id
 // s = s_x + 2 s_y + 4 s_z; empty slots and pad bricks hold zeros.  A
@@ -2589,12 +3011,13 @@ SegPlan seg_plan(const void* X, int N, int C, int blocks) {
 extern "C" {
 
 // bf16_: the tensor-core kernel on bf16 operands (round_: each tap's
-// product rounded, gather_gemm_mma_kernel's ROUND); else the f32 kernel
+// product rounded, gather_gemm_mma_kernel's ROUND; f32out_: its sums left in
+// f32, out an f32 table); else the f32 kernel
 int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
                    int G, const void* W, const void* Wc, const void* order, void* out, void* ws,
                    void* tickets, int splits, int B, int S_in, int S_out, int Cin,
-                   int Cout, int skip, int bf16_, int round_, void* stream) {
-  if (round_ && !bf16_) return (int)cudaErrorInvalidValue;
+                   int Cout, int skip, int bf16_, int round_, int f32out_, void* stream) {
+  if ((round_ && !bf16_) || (f32out_ && !round_)) return (int)cudaErrorInvalidValue;
   const int q = bf16_ ? gm::q_for(Cout, round_) : gg::q_for(Cout);
   const int ntap = G + (Wc != nullptr ? 1 : 0);
   const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits, bf16_ ? 2 : 4);
@@ -2604,33 +3027,37 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
   const int vec_w = Cout % vec == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
   const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
   static size_t granted[16] = {};  // dynamic shared memory allowed so far, by kernel
-  auto go = [&](auto kernel, auto t, int slot) {
+  auto go = [&](auto kernel, auto t, int slot, auto to) {
     using T = decltype(t);
+    using TO = decltype(to);
     if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       granted[slot] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)X, (const int*)map, taps, tap_stride, G, (const T*)W,
-        (const T*)Wc, (const int*)order, (T*)out, (float*)ws, (int*)tickets, splits,
+        (const T*)Wc, (const int*)order, (TO*)out, (float*)ws, (int*)tickets, splits,
         B, S_in, S_out,
         Cin, Cout, skip, vec_x, vec_w);
   };
   if (!bf16_) {
     switch (q) {
-      case 1: go(gather_gemm_kernel<1>, 0.f, 1); break;
-      case 2: go(gather_gemm_kernel<2>, 0.f, 2); break;
-      default: go(gather_gemm_kernel<3>, 0.f, 3); break;
+      case 1: go(gather_gemm_kernel<1>, 0.f, 1, 0.f); break;
+      case 2: go(gather_gemm_kernel<2>, 0.f, 2, 0.f); break;
+      default: go(gather_gemm_kernel<3>, 0.f, 3, 0.f); break;
     }
+  } else if (f32out_) {
+    if (q == 1) go(gather_gemm_mma_kernel<1, true, true>, bf16(), 11, 0.f);
+    else go(gather_gemm_mma_kernel<2, true, true>, bf16(), 12, 0.f);
   } else if (round_) {
-    if (q == 1) go(gather_gemm_mma_kernel<1, true>, bf16(), 9);
-    else go(gather_gemm_mma_kernel<2, true>, bf16(), 10);
+    if (q == 1) go(gather_gemm_mma_kernel<1, true>, bf16(), 9, bf16());
+    else go(gather_gemm_mma_kernel<2, true>, bf16(), 10, bf16());
   } else {
     switch (q) {
-      case 1: go(gather_gemm_mma_kernel<1, false>, bf16(), 5); break;
-      case 2: go(gather_gemm_mma_kernel<2, false>, bf16(), 6); break;
-      case 3: go(gather_gemm_mma_kernel<3, false>, bf16(), 7); break;
-      default: go(gather_gemm_mma_kernel<4, false>, bf16(), 8); break;
+      case 1: go(gather_gemm_mma_kernel<1, false>, bf16(), 5, bf16()); break;
+      case 2: go(gather_gemm_mma_kernel<2, false>, bf16(), 6, bf16()); break;
+      case 3: go(gather_gemm_mma_kernel<3, false>, bf16(), 7, bf16()); break;
+      default: go(gather_gemm_mma_kernel<4, false>, bf16(), 8, bf16()); break;
     }
   }
   return (int)cudaGetLastError();
@@ -2778,31 +3205,49 @@ int pc_scatter_parent(const void* ct, const void* parent, const void* off,
   return (int)cudaGetLastError();
 }
 
+// bf16_: the tensor-core kernel on bf16 G and W (dF f32 either way)
 int pc_scatter_gemm(const void* G, const void* map, TapList taps, int T,
                     const void* W, const void* order, void* dF, int splits, int B,
-                    int S_out, int S_in, int Cin, int Cout, int skip, void* stream) {
-  const int q = gg::q_for(Cin);
-  const size_t smem = sg::smem_bytes(q, T);
-  const int vec_g = Cout % 4 == 0 && aligned16(G);
-  const int vec_w = Cout % 4 == 0 && aligned16(W);
+                    int S_out, int S_in, int Cin, int Cout, int skip, int bf16_, void* stream) {
+  const int q = bf16_ ? gm::q_for(Cin, false) : gg::q_for(Cin);
+  const size_t smem = sg::smem_bytes(q, T, bf16_ ? 2 : 4);
+  const int vec = bf16_ ? 8 : 4;  // 16-byte copies: 4 f32 or 8 bf16 a chunk
+  const int vec_g = Cout % vec == 0 && aligned16(G);
+  const int vec_w = Cout % vec == 0 && aligned16(W);
   const int vec_o = Cin % 4 == 0 && aligned16(dF);
   const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cin + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[q]) {
+  static size_t granted[8] = {};  // dynamic shared memory allowed so far, by kernel
+  auto go = [&](auto kernel, auto t, int slot) {
+    using T_ = decltype(t);
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[q] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)G, (const int*)map, taps, T, (const float*)W, (const int*)order,
+        (const T_*)G, (const int*)map, taps, T, (const T_*)W, (const int*)order,
         (float*)dF, splits, B, S_out, S_in, Cin, Cout, skip, vec_g, vec_w, vec_o);
   };
-  switch (q) {
-    case 1: go(scatter_gemm_kernel<1>); break;
-    case 2: go(scatter_gemm_kernel<2>); break;
-    default: go(scatter_gemm_kernel<3>); break;
+  if (!bf16_) {
+    switch (q) {
+      case 1: go(scatter_gemm_kernel<1>, 0.f, 1); break;
+      case 2: go(scatter_gemm_kernel<2>, 0.f, 2); break;
+      default: go(scatter_gemm_kernel<3>, 0.f, 3); break;
+    }
+  } else {
+    switch (q) {
+      case 1: go(scatter_gemm_mma_kernel<1>, bf16(), 4); break;
+      case 2: go(scatter_gemm_mma_kernel<2>, bf16(), 5); break;
+      case 3: go(scatter_gemm_mma_kernel<3>, bf16(), 6); break;
+      default: go(scatter_gemm_mma_kernel<4>, bf16(), 7); break;
+    }
   }
   return (int)cudaGetLastError();
+}
+
+// scatter_gemm's Cin tile (the wrapper sizes its splits): the f32
+// kernel's, or (bf16_) the tensor-core kernel's
+int pc_scatter_gemm_tile_n(int Cin, int bf16_) {
+  return 32 * (bf16_ ? gm::q_for(Cin, false) : gg::q_for(Cin));
 }
 
 // plan: {G, tile, tiles, blocks a tile, span} of pc_segment_sum's launch.
@@ -2852,15 +3297,23 @@ int pc_segment_sum(const void* X, const void* ids, void* out, void* ws, long lon
   return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
+// bf16_: the bf16 form (each_: a rounding after every add, else one)
 int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,
-                  int T, void* out, int B, int S_in, int S_out, int C,
-                  void* stream) {
-  const bool vec = C % 4 == 0 && aligned16(X) && aligned16(out);
+                  int T, void* out, int B, int S_in, int S_out, int C, int bf16_,
+                  int each_, void* stream) {
+  const int align = bf16_ ? 7 : 15;  // a lane's 4 values: 8 or 16 bytes
+  const bool vec = C % 4 == 0 && ((uintptr_t)X & align) == 0 && ((uintptr_t)out & align) == 0;
   row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
     constexpr int G = decltype(G_)::value;
     constexpr bool VEC = decltype(VEC_)::value;
     const dim3 grid((S_out + 256 / G - 1) / (256 / G), B);
-    if (T == 1) {
+    if (bf16_) {
+      auto kernel = each_ ? gather_sum_bf16_kernel<G, VEC, true>
+                          : gather_sum_bf16_kernel<G, VEC, false>;
+      kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const bf16*)X, (const int*)map, taps, tap_stride, T, (bf16*)out, B, S_in, S_out,
+          C);
+    } else if (T == 1) {
       gather_one_kernel<G, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
           (const float*)X, (const int*)map, taps.idx[0], (float*)out, B, S_in, S_out, C);
     } else {
@@ -2872,18 +3325,39 @@ int pc_gather_sum(const void* X, const void* map, TapList taps, int tap_stride,
   return (int)cudaGetLastError();
 }
 
+// bf16_: the bf16 form into a zeroed bf16 out: without inv, stores (no
+// destination below the limit named twice); with inv [K, B, S_out] (K <=
+// INV_MAX, one tap), destination-major through it
 int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
                    int T, void* out, int B, int S_g, int S_out, int C,
-                   int skip_from, void* stream) {
+                   int skip_from, int bf16_, const void* inv, int K, void* check,
+                   void* stream) {
   const int limit = skip_from < 0 || skip_from > S_out ? S_out : skip_from;
-  const bool vec = C % 4 == 0 && aligned16(G) && aligned16(out);
+  if (inv != nullptr && (!bf16_ || T != 1 || K < 1 || K > INV_MAX || map == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int align = bf16_ ? 7 : 15;
+  const bool vec = C % 4 == 0 && ((uintptr_t)G & align) == 0 && ((uintptr_t)out & align) == 0;
   row_groups::dispatch(row_groups::size_for(C, vec), vec, [&](auto G_, auto VEC_) {
     constexpr int GS = decltype(G_)::value;
     constexpr bool VEC = decltype(VEC_)::value;
+    if (inv != nullptr) {
+      const int src_blocks = check != nullptr ? (S_g + 255) / 256 : 0;
+      const dim3 grid((S_out + 256 / GS - 1) / (256 / GS) + src_blocks, B);
+      scatter_sum_inv_bf16_kernel<GS, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const bf16*)G, (const int*)map, taps.idx[0], (const int*)inv, K, (bf16*)out, B,
+          S_g, S_out, C, limit, (unsigned*)check);
+      return;
+    }
     const dim3 grid((S_g + 256 / GS - 1) / (256 / GS), B);
-    scatter_sum_kernel<GS, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B, S_g,
-        S_out, C, limit);
+    if (bf16_) {
+      scatter_store_bf16_kernel<GS, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const bf16*)G, (const int*)map, taps, tap_stride, T, (bf16*)out, B, S_g, S_out, C,
+          limit, (unsigned*)check);
+    } else {
+      scatter_sum_kernel<GS, VEC><<<grid, 256, 0, (cudaStream_t)stream>>>(
+          (const float*)G, (const int*)map, taps, tap_stride, T, (float*)out, B, S_g,
+          S_out, C, limit);
+    }
   });
   return (int)cudaGetLastError();
 }

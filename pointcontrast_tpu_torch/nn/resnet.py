@@ -9,7 +9,9 @@ the k2s2 map (``down_nbr[0:1]``).  Both run through K4, as in JAX, and so
 does a BasicBlock-shaped strided block's second conv, to which JAX passes no
 ``rev``.  Needs a chunked pyramid of at least 6 levels built with
 ``build_down3=True``.  Submodules carry the flax names (``conv1``, ``bn1``,
-``layer1_0``, ``final``).
+``layer1_0``, ``final``).  ``dtype`` (None: the input features') is the
+activations' dtype, as in ``res16unet``: in bf16 the K4 convs and the sum
+pool run their bf16 forms.
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ from pointcontrast_tpu_torch.nn.layers import (
 )
 from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock, Bottleneck
 from pointcontrast_tpu_torch.sparse import ops
-from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
 NUM_LEVELS = 6  # strides 1, 2, 4, 8, 16, 32
 
@@ -89,11 +90,8 @@ class ResNetBase(nn.Module):
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
                  dimension: int = 3, generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None):
-        if dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{type(self).__name__} in bfloat16: its k3s2 convs (scatter_gemm) and "
-                f"sum pool (gather_sum / scatter_sum) are {ITEM_5B}; run it in float32")
         super().__init__()
+        self.dtype = dtype
         g = generator
         k3 = 3 ** dimension
         bottleneck = self.BLOCK is Bottleneck
@@ -118,6 +116,7 @@ class ResNetBase(nn.Module):
         if len(lv) < NUM_LEVELS or any(l.down_nbr3 is None for l in lv[1:5]):
             raise ValueError("ResNet needs a 6-level pyramid built with "
                              "build_down3=True")
+        features = features.to(self.dtype or features.dtype)
         nbr0, rev0, order0 = ((lv[0].nbr0, lv[0].rev0, lv[0].nbr0_order)
                               if lv[0].nbr0 is not None
                               else (lv[0].nbr, lv[0].rev, lv[0].nbr_order))

@@ -10,9 +10,9 @@ Submodules carry the flax names (``conv1p1s1``, ``bn1``, ``block1_0``,
 ``convtr4p8s2``, ``final_fc``, ``final_bn``, ``final``).  ``MinkUNetHyper``
 adds the hypercolumn: block5's and block6's outputs are average-unpooled
 to level 0 and concatenated after the last skip concat.  ``dtype`` (None:
-the input features') is the activations' dtype, as in ``res16unet``;
-MinkUNetHyper's unpools have no bf16 kernel yet (ROADMAP Queue 1 item 5b),
-so it refuses bf16.
+the input features') is the activations' dtype, as in ``res16unet``
+(MinkUNetHyper's unpools pass the level's down map, whose bf16 adjoint
+adds each parent's children in order through it).
 """
 from __future__ import annotations
 
@@ -33,7 +33,6 @@ from pointcontrast_tpu_torch.nn.resnet_block import (
 )
 from pointcontrast_tpu_torch.sparse import ops
 from pointcontrast_tpu_torch.sparse.brick import BrickMap
-from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
 NUM_LEVELS = 4  # strides 1, 2, 4, 8
 
@@ -198,13 +197,6 @@ class MinkUNetHyper(MinkUNetBase):
     are average-unpooled to level 0, one parent gather per level, and the
     head takes the concatenation [out, up(block6), up(block5)]."""
 
-    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
-        if dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{type(self).__name__} in bfloat16: its average unpools "
-                f"(gather_sum / scatter_sum) are {ITEM_5B}; run it in float32")
-        super().__init__(*args, dtype=dtype, **kwargs)
-
     def _head_extra(self) -> int:
         return (self.PLANES[4] + self.PLANES[5]) * self.BLOCK.expansion
 
@@ -219,7 +211,8 @@ class MinkUNetHyper(MinkUNetBase):
         hyper = []
         for x, lvl in zip(stages, (2, 1)):
             for l in range(lvl - 1, -1, -1):
-                x = ops.sparse_avg_unpool(x, lv[l].up_parent, lv[l].valid)
+                x = ops.sparse_avg_unpool(x, lv[l].up_parent, lv[l].valid,
+                                          lv[l].down_nbr)
             hyper.append(x)
         out = torch.cat([out] + hyper[::-1], dim=1)
         return self._head(out, lv[0].valid)

@@ -7,7 +7,7 @@ floor(xyz / sigma_s) (+) floor(rgb / sigma_c) (7-D with time); its
 neighbour map is built on the host with the pyramid's own hash join, so the
 filter is a flat-map ``sparse_conv`` (``ops._ConvChunkDownFused`` at
 B = 1: gather_gemm forward, scatter_gemm / gather_wgrad backward, any
-number of taps).
+number of taps; their bf16 forms on a bf16 backbone's logits).
 
 The reference skips the filter with p = 0.5 during training to keep the
 backbone filter-invariant; callers choose with ``apply_filter``.
@@ -78,10 +78,13 @@ class MeanFieldCRF(nn.Module):
         self.weight = nn.Parameter(w)
 
     def forward(self, unary, crf_nbr, valid):
+        # in the unary's dtype, as JAX's kernel.astype (bf16: the flat
+        # conv's bf16 forms; the parameter stays f32)
+        w = self.weight.to(unary.dtype)
         out = unary
         for _ in range(self.meanfield_iterations):
             out = ops.mask_rows(torch.softmax(out, dim=1), valid)
-            out = ops.sparse_conv(out, crf_nbr, self.weight, valid_out=valid)
+            out = ops.sparse_conv(out, crf_nbr, w, valid_out=valid)
             out = out + unary
         return out
 

@@ -22,10 +22,17 @@ twins gather bf16 and round as the kernels do, on exact (f64) sums for
 and ``gather_wgrad_bf16`` on two bf16 operands run on the tensor cores
 (mma.sync), summing in another order than the SIMT forms:
 ``gather_gemm_bf16_bound`` and ``gather_wgrad_bf16_bound`` give the
-distance from the exact sum their outputs are held to.  Every wrapper
-checks each operand's dtype
-and raises on another (no cast inside a wrapper); the kernels without a
-bf16 form raise ``NotImplementedError`` naming ROADMAP item 5b.
+distance from the exact sum their outputs are held to.
+``scatter_gemm_bf16`` (K4's dF in bf16, on the tensor cores) scatter-adds
+its products into one f32 table with f32 atomics and rounds it once
+(``scatter_gemm_bf16_bound``); ``gather_sum_bf16`` and ``scatter_sum_bf16``
+(the pools and their adjoints in bf16) round after every bf16 add in JAX's
+order (tap order; ascending source row), with no atomics, bit-equal to
+their twins.  Every wrapper checks each operand's dtype and raises on
+another (no cast inside a wrapper; ``scatter_gemm``, ``gather_sum`` and
+``scatter_sum`` route a bf16 operand to their bf16 forms); the brick
+kernels, which have no bf16 form, raise ``NotImplementedError`` naming
+ROADMAP item 5b.
 
 Operand convention (chunked layout): tables are [B, S, C] f32; a gathered
 operand names its rows either through a frame-local map [K, B, S_out] int32
@@ -57,6 +64,9 @@ ops in JAX's bf16 mode):
   scatter_sum    the pooling ops' backward, the adjoint of gather_sum (and
                  of ``jnp.take`` in the brick layout's placement and up
                  gathers, ``pointcontrast_tpu/sparse/brick.py:465``, ``:491``)
+  scatter_gemm_bf16, gather_sum_bf16, scatter_sum_bf16: K4's dF
+                 (``_conv_chunk_down_fused_bwd``, :578-615, and the flat
+                 conv's) and the pools (:906-964) in bf16
 The same kernels run the voxel (flat) layout at B = 1, a flat [K, N] map
 taken as [K, 1, N]: JAX ``_conv_sym`` (K1's three), the flat k2s2 down
 conv (K2's), the flat transposed conv (K3's) and the flat pooling ops
@@ -176,7 +186,7 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("sparse_conv", {
         "pc_gather_gemm": [vp, vp, TapList, ci, ci, vp, vp, vp, vp, vp, vp,
-                           ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
+                           ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_gather_gemm_tile_n": [ci, ci, ci],
         "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
                             ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
@@ -184,12 +194,14 @@ def _lib():
         "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                            ci, ci, vp],
+                            ci, ci, ci, vp],
+        "pc_scatter_gemm_tile_n": [ci, ci],
         "pc_segment_sum": [vp, vp, vp, vp, ctypes.c_longlong, vp, ci, ci, ci, ci, ci,
                            vp],
         "pc_segment_sum_plan": [vp, ci, ci, ci, vp],
-        "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, vp],
-        "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, vp],
+        "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp],
+        "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, ci,
+                           vp, vp],
         "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp],
         "pc_brick_wgrad": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                            vp],
@@ -261,15 +273,15 @@ def _wide(t):
 
 
 def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
-                      round_each_tap=False):
+                      round_each_tap=False, f32_out=False):
     # ``order`` only orders the kernel's tiles: every row's sum is the same.
     # bf16 operands: rows gathered in bf16, their products summed exactly
     # (f64) and each sum rounded once to bf16; ``round_each_tap`` (JAX's
     # flat _conv_core): each tap's exact product rounded to bf16, the
     # rounded taps (in list order, the centre last) summed exactly and the
-    # sum rounded again.  The kernel's f32 sums round the same way but
-    # where a rounding boundary lies within their error
-    # (``gather_gemm_bf16_bound``)
+    # sum rounded again (``f32_out``: to f32 instead).  The kernel's f32
+    # sums round the same way but where a rounding boundary lies within
+    # their error (``gather_gemm_bf16_bound``)
     b_, s_in, _ = x3.shape
     acc = torch.float64 if x3.dtype == BF16 else x3.dtype
 
@@ -295,7 +307,7 @@ def gather_gemm_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=N
         out = out + product(rows, w[j])
     if centre is not None and round_each_tap:
         out = out + centre
-    return out.to(x3.dtype)
+    return out.to(torch.float32 if f32_out else x3.dtype)
 
 
 gather_gemm_bf16_plain = gather_gemm_plain  # the twin takes both dtypes
@@ -318,7 +330,7 @@ def _gamma(n: int) -> float:
 
 
 def gather_gemm_bf16_bound(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
-                           round_each_tap=False):
+                           round_each_tap=False, f32_out=False):
     """(ref, bound), f64 [B, s_out, Cout]: the exact sum of the products
     ``gather_gemm_bf16`` computes, and how far from it an output may lie.
     One rounding: an f32 sum of the T Cin products, rounded once, lies
@@ -326,7 +338,8 @@ def gather_gemm_bf16_bound(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, or
     ``round_each_tap``: tap t's f32 sum rounds to within e_t = 2^-8 |T_t| +
     (1 + 2^-8) gamma(Cin) P_t of its exact T_t, the f32 sum of the T
     rounded taps to within E = sum_t e_t + gamma(T) sum_t (|T_t| + e_t) of
-    ref, and its rounding to within 2^-8 |ref| + (1 + 2^-8) E."""
+    ref, and its rounding to within 2^-8 |ref| + (1 + 2^-8) E (``f32_out``:
+    no last rounding, E itself)."""
     b_, _, cin = x3.shape
     f64 = torch.float64
     ref = size = spread = None
@@ -353,6 +366,8 @@ def gather_gemm_bf16_bound(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, or
     taps_n = w.shape[0] + (wc is not None)
     err = (size + _gamma(taps_n) * spread if round_each_tap
            else _gamma(taps_n * cin) * size)
+    if f32_out:
+        return ref, err
     return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
 
 
@@ -368,12 +383,14 @@ def _gemm_splits(b_, s_out, cout, ntap, tile_n=None) -> int:
     return min(ntap // 3, -(-GEMM_BLOCKS // blocks))
 
 
-def _scatter_splits(b_, s_out, cin, steps) -> int:
+def _scatter_splits(b_, s_out, cin, steps, tile_n=None) -> int:
     """Blocks over which scatter_gemm spreads one tile's ``steps`` (taps x
     32-deep Cout chunks): one, unless its tiles (128 rows x the kernel's
-    Cin tile, per chunk) come to fewer than SCATTER_BLOCKS, or it has fewer
-    than 6 steps; then enough to get there, with 3 steps a split at least."""
-    blocks = -(-s_out // GEMM_ROWS) * -(-cin // _gemm_tile_n(cin)) * b_
+    Cin tile ``tile_n``, by default the f32 kernel's, per chunk) come to
+    fewer than SCATTER_BLOCKS, or it has fewer than 6 steps; then enough to
+    get there, with 3 steps a split at least."""
+    tile_n = _gemm_tile_n(cin) if tile_n is None else tile_n
+    blocks = -(-s_out // GEMM_ROWS) * -(-cin // tile_n) * b_
     if blocks >= SCATTER_BLOCKS or steps < 6:
         return 1
     return min(steps // 3, -(-SCATTER_BLOCKS // blocks))
@@ -420,10 +437,11 @@ def _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order):
 
 
 def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, order,
-                        dtype, round_each_tap=False):
+                        dtype, round_each_tap=False, f32_out=False):
     """The gather-GEMM kernel on ``dtype`` (f32 or bf16: the tensor-core
-    kernel, ``round_each_tap`` its mode) operands -> (the output in
-    ``dtype``, launches: 0 or 1); split partials in f32."""
+    kernel, ``round_each_tap`` and ``f32_out`` its modes) operands -> (the
+    output in ``dtype``, f32 under ``f32_out``, launches: 0 or 1); split
+    partials in f32."""
     b_, s_in, cin = x3.shape
     g, _, cout = w.shape
     _require(x3, "x3", dtype, 3)
@@ -433,7 +451,8 @@ def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, or
     _require(map_, "map", torch.int32, 3)
     if g > MAX_TAPS:
         raise ValueError(f"{g} taps > {MAX_TAPS}")
-    out = torch.empty(b_, s_out, cout, device=x3.device, dtype=dtype)
+    out = torch.empty(b_, s_out, cout, device=x3.device,
+                      dtype=torch.float32 if f32_out else dtype)
     if out.numel() == 0:
         return out, 0
     ntap = g + (wc is not None)
@@ -449,7 +468,7 @@ def _gather_gemm_launch(name, x3, map_, taps, tap_stride, w, wc, s_out, skip, or
         _ptr(x3), _ptr(map_), _taps_struct(taps), tap_stride, g, _ptr(w),
         _ptr(wc), _ptr(order), _ptr(out), _ptr(ws), _ptr(tickets), splits, b_,
         s_in, s_out, cin, cout, int(skip), int(dtype == BF16), int(round_each_tap),
-        _stream())
+        int(f32_out), _stream())
     _check(rc, name)
     return out, 1
 
@@ -482,22 +501,26 @@ def gather_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None):
 
 
 def gather_gemm_bf16(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
-                     round_each_tap=False):
+                     round_each_tap=False, f32_out=False):
     """``gather_gemm`` on bf16 operands (x3, w and wc bf16; JAX's bf16 conv
     products, ``preferred_element_type=f32``): each output row's products
     and their sum in f32, rounded once to bf16 -> [B, s_out, Cout] bf16.
     ``round_each_tap``: JAX's flat ``_conv_core`` instead, each tap's f32
     product rounded to bf16 before the f32 sum over the taps (in list
-    order, the centre last), and the sum rounded again.  Where the taps are
-    split over blocks, the f32 partials are added in split order and the
-    sum rounded once: the same bits from run to run."""
+    order, the centre last), and the sum rounded again, or, ``f32_out``,
+    left in f32 (-> f32: a flat conv of more than MAX_TAPS taps adds its
+    launches' sums and rounds once, as JAX's one accumulator).  Where the
+    taps are split over blocks, the f32 partials are added in split order
+    and the sum rounded once: the same bits from run to run."""
     _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order)
     _require_dtypes("gather_gemm_bf16", BF16, x3=x3, w=w, wc=wc)
+    if f32_out and not round_each_tap:
+        raise ValueError("gather_gemm_bf16: f32_out is the round_each_tap form's")
     if _use_plain(x3):
         return gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip,
-                                      round_each_tap=round_each_tap)
+                                      round_each_tap=round_each_tap, f32_out=f32_out)
     out, n = _gather_gemm_launch("gather_gemm_bf16", x3, map_, taps, tap_stride, w, wc,
-                                 s_out, skip, order, BF16, round_each_tap)
+                                 s_out, skip, order, BF16, round_each_tap, f32_out)
     gather_gemm_bf16.launches += n
     return out
 
@@ -849,6 +872,70 @@ def scatter_gemm_plain(g3, map_, taps, w, s_in, skip, order=None):
     return out
 
 
+def scatter_gemm_bf16_plain(g3, map_, taps, w, s_in, skip, order=None):
+    # bf16 operands: the products exact (f64), their scatter-sums f64 and
+    # each destination rounded once to bf16, as JAX's f32 scatter of
+    # ct.f32 W^T.f32 rounded to the features' dtype up to the f32 adds'
+    # order (the kernel's atomics: ``scatter_gemm_bf16_bound``)
+    return scatter_gemm_plain(_wide(g3).double(), map_, taps, _wide(w).double(), s_in,
+                              skip).to(g3.dtype)
+
+
+def scatter_gemm_bf16_bound(g3, map_, taps, w, s_in, skip, order=None):
+    """(ref, bound), f64 [B, s_in, Cin]: the exact sum ``scatter_gemm_bf16``
+    rounds, and how far from it its output may lie.  A destination that n
+    kept (row, tap) pairs reach sums n Cout bf16 x bf16 products (exact in
+    f32) in f32, in any order (mma sums, then atomics): within gamma(n Cout)
+    P of the exact sum, P the sum of their |products|
+    (``gather_gemm_bf16_bound``), and the rounding to bf16 within 2^-8 of
+    it."""
+    f64 = torch.float64
+    g, w = _wide(g3).to(f64), _wide(w).to(f64)
+    ref = scatter_gemm_plain(g, map_, taps, w, s_in, skip)
+    size = scatter_gemm_plain(g.abs(), map_, taps, w.abs(), s_in, skip)
+    ones = torch.ones_like(g[..., :1])
+    pairs = scatter_gemm_plain(ones, map_, taps, ones.new_ones(len(taps), 1, 1), s_in, skip)
+    err = _gamma(pairs * g.shape[-1]) * size
+    return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
+
+
+def _scatter_shapes(name, g3, map_, taps, w, s_in, order):
+    b_, s_out, cout = g3.shape
+    g, cin, _ = w.shape
+    _check_shape("w", w, (g, cin, cout))
+    _check_rows(name, map_, taps, 0, g, b_, s_out, s_in)
+    _check_shape("order", order, (b_, s_out))
+    if order is not None and order.dtype != torch.int32:
+        raise TypeError(f"order must be torch.int32, got {order.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_tile_n(cin: int, bf16: bool) -> int:
+    """scatter_gemm's Cin tile: the f32 kernel's, or the tensor-core
+    kernel's (up to 128)."""
+    return _lib().pc_scatter_gemm_tile_n(cin, int(bf16))
+
+
+def _scatter_gemm_launch(g3, map_, taps, w, out, skip, order, dtype) -> None:
+    """One scatter-GEMM launch of at most MAX_TAPS taps, adding into the f32
+    ``out`` [B, s_in, Cin]: the f32 kernel, or the tensor-core one on bf16
+    g3 and w."""
+    b_, s_out, cout = g3.shape
+    g, cin, _ = w.shape
+    _require(g3, "g3", dtype, 3)
+    _require(w, "w", dtype, 3)
+    _require(map_, "map", torch.int32, 3)
+    _require(order, "order", torch.int32, 2)
+    if g > MAX_TAPS:
+        raise ValueError(f"{g} taps > {MAX_TAPS}")
+    bf16 = dtype == BF16
+    splits = _scatter_splits(b_, s_out, cin, g * -(-cout // 32), _scatter_tile_n(cin, bf16))
+    rc = _lib().pc_scatter_gemm(
+        _ptr(g3), _ptr(map_), _taps_struct(taps), g, _ptr(w), _ptr(order), _ptr(out),
+        splits, b_, s_out, out.shape[1], cin, cout, int(skip), int(bf16), _stream())
+    _check(rc, "scatter_gemm_bf16" if bf16 else "scatter_gemm")
+
+
 def scatter_gemm(g3, map_, taps, w, s_in, skip, order=None):
     """out[b, map[taps[j], b, s]] += g3[b, s] @ w[j]^T for every listed tap
     j and row s, except where the map names row ``skip`` (-1: none).
@@ -862,31 +949,39 @@ def scatter_gemm(g3, map_, taps, w, s_in, skip, order=None):
     sum.  Returns [B, s_in, Cin].  The map may name a row many
     times: the card adds the products with f32 atomics, in an order that
     differs from run to run; where its tiles come to few blocks it splits
-    each tile's (tap, Cout chunk) steps over several (``_scatter_splits``)."""
-    b_, s_out, cout = g3.shape
-    g, cin, _ = w.shape
-    _check_shape("w", w, (g, cin, cout))
-    _check_rows("scatter_gemm", map_, taps, 0, g, b_, s_out, s_in)
-    _check_shape("order", order, (b_, s_out))
-    refuse_bf16_5b("scatter_gemm", g3)
-    if order is not None and order.dtype != torch.int32:
-        raise TypeError(f"order must be torch.int32, got {order.dtype}")
+    each tile's (tap, Cout chunk) steps over several (``_scatter_splits``).
+    A bf16 g3 goes to ``scatter_gemm_bf16``."""
+    if g3.dtype == BF16:
+        return scatter_gemm_bf16(g3, map_, taps, w, s_in, skip, order)
+    _scatter_shapes("scatter_gemm", g3, map_, taps, w, s_in, order)
     if _use_plain(g3):
         return scatter_gemm_plain(g3, map_, taps, w, s_in, skip)
-    _require(g3, "g3", torch.float32, 3)
-    _require(w, "w", torch.float32, 3)
-    _require(map_, "map", torch.int32, 3)
-    _require(order, "order", torch.int32, 2)
-    if g > MAX_TAPS:
-        raise ValueError(f"{g} taps > {MAX_TAPS}")
-    out = torch.zeros(b_, s_in, cin, device=g3.device, dtype=torch.float32)
-    splits = _scatter_splits(b_, s_out, cin, g * -(-cout // 32))
-    rc = _lib().pc_scatter_gemm(
-        _ptr(g3), _ptr(map_), _taps_struct(taps), g, _ptr(w), _ptr(order), _ptr(out),
-        splits, b_, s_out, s_in, cin, cout, int(skip), _stream())
-    _check(rc, "scatter_gemm")
+    out = torch.zeros(g3.shape[0], s_in, w.shape[1], device=g3.device, dtype=torch.float32)
+    _scatter_gemm_launch(g3, map_, taps, w, out, skip, order, torch.float32)
     scatter_gemm.launches += 1
     return out
+
+
+def scatter_gemm_bf16(g3, map_, taps, w, s_in, skip, order=None):
+    """``scatter_gemm`` on a bf16 cotangent and bf16 weights (JAX K4's dF
+    in bf16, ``_conv_chunk_down_fused_bwd``, and the flat conv's): the
+    bf16 x bf16 products scatter-added in f32 into one f32 table, then
+    rounded once to bf16 -> [B, s_in, Cin] bf16.  Any number of taps: one
+    launch of the tensor-core kernel a MAX_TAPS of them, all adding into
+    the same f32 table.  The adds' order (f32 atomics) changes from run to
+    run, so the card's output is held to ``scatter_gemm_bf16_bound`` of
+    the exact sum, not to bits."""
+    _scatter_shapes("scatter_gemm_bf16", g3, map_, taps, w, s_in, order)
+    _require_dtypes("scatter_gemm_bf16", BF16, g3=g3, w=w)
+    if _use_plain(g3):
+        return scatter_gemm_bf16_plain(g3, map_, taps, w, s_in, skip)
+    out = torch.zeros(g3.shape[0], s_in, w.shape[1], device=g3.device, dtype=torch.float32)
+    taps = list(taps)
+    for lo in range(0, len(taps), MAX_TAPS):
+        _scatter_gemm_launch(g3, map_, taps[lo:lo + MAX_TAPS], w[lo:lo + MAX_TAPS], out, skip,
+                             order, BF16)
+        scatter_gemm_bf16.launches += 1
+    return out.to(BF16)
 
 
 # --------------------------------------------------------------------------
@@ -979,6 +1074,41 @@ def gather_sum_plain(x3, map_, taps, tap_stride, s_out):
     return out
 
 
+def gather_sum_bf16_plain(x3, map_, taps, tap_stride, s_out, round_each_add=True):
+    # bf16 rows added from zero in tap order: bf16 + bf16 in torch rounds
+    # every add (``round_each_add``, JAX's Python sum of the chunked
+    # gathers), or an f32 sum in tap order rounded once (jnp.sum of the
+    # flat gathers)
+    if round_each_add:
+        return gather_sum_plain(x3, map_, taps, tap_stride, s_out)
+    return gather_sum_plain(x3.float(), map_, taps, tap_stride, s_out).to(x3.dtype)
+
+
+def _gather_sum_shapes(name, x3, map_, taps, tap_stride, s_out):
+    b_, s_in, c = x3.shape
+    _check_rows(name, map_, taps, tap_stride, len(taps), b_, s_out, s_in)
+    check_index_space(name, x3=b_ * s_in * c, out=b_ * s_out * c,
+                      map=0 if map_ is None else map_.numel())
+
+
+def _gather_sum_launch(name, x3, map_, taps, tap_stride, s_out, dtype, each=False):
+    """The gather-sum kernel on a ``dtype`` table (bf16: the bf16 form,
+    ``each`` its rounding after every add) -> (out, launches: 0 or 1)."""
+    b_, s_in, c = x3.shape
+    _require(x3, "x3", dtype, 3)
+    _require(map_, "map", torch.int32, 3)
+    if not 0 < len(taps) <= MAX_TAPS:
+        raise ValueError(f"{len(taps)} taps: 1 to {MAX_TAPS}")
+    out = torch.empty(b_, s_out, c, device=x3.device, dtype=dtype)
+    if out.numel() == 0:
+        return out, 0
+    rc = _lib().pc_gather_sum(
+        x3.data_ptr(), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
+        out.data_ptr(), b_, s_in, s_out, c, int(dtype == BF16), int(each), _stream(x3))
+    _check(rc, name)
+    return out, 1
+
+
 def gather_sum(x3, map_, taps, tap_stride, s_out):
     """out[b,s] = sum_j x3[b, row(j,b,s)] over the listed taps, added in tap
     order from zero (as JAX's ``sum`` of row gathers; the card's result
@@ -987,26 +1117,33 @@ def gather_sum(x3, map_, taps, tap_stride, s_out):
     x3 [B, S_in, C]; map [K, B, s_out] read at ``taps`` (or, with no map,
     len(taps) stacked blocks of ``tap_stride`` rows); returns [B, s_out, C].
     One tap is a row gather.  B S_in C, B s_out C and the map's size must
-    stay below 2^31, on either device."""
-    b_, s_in, c = x3.shape
-    refuse_bf16_5b("gather_sum", x3)
-    _check_rows("gather_sum", map_, taps, tap_stride, len(taps), b_, s_out, s_in)
-    check_index_space("gather_sum", x3=b_ * s_in * c, out=b_ * s_out * c,
-                      map=0 if map_ is None else map_.numel())
+    stay below 2^31, on either device.  A bf16 x3 goes to
+    ``gather_sum_bf16`` (every add rounded)."""
+    if x3.dtype == BF16:
+        return gather_sum_bf16(x3, map_, taps, tap_stride, s_out)
+    _gather_sum_shapes("gather_sum", x3, map_, taps, tap_stride, s_out)
     if _use_plain(x3):
         return gather_sum_plain(x3, map_, taps, tap_stride, s_out)
-    _require(x3, "x3", torch.float32, 3)
-    _require(map_, "map", torch.int32, 3)
-    if not 0 < len(taps) <= MAX_TAPS:
-        raise ValueError(f"{len(taps)} taps: 1 to {MAX_TAPS}")
-    out = torch.empty(b_, s_out, c, device=x3.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    rc = _lib().pc_gather_sum(
-        x3.data_ptr(), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
-        out.data_ptr(), b_, s_in, s_out, c, _stream(x3))
-    _check(rc, "gather_sum")
-    gather_sum.launches += 1
+    out, n = _gather_sum_launch("gather_sum", x3, map_, taps, tap_stride, s_out,
+                                torch.float32)
+    gather_sum.launches += n
+    return out
+
+
+def gather_sum_bf16(x3, map_, taps, tap_stride, s_out, round_each_add=True):
+    """``gather_sum`` on a bf16 table -> bf16, JAX's bf16 pools' rounding:
+    every add rounded to bf16, in tap order from zero
+    (``round_each_add``: the chunked pools' Python ``sum`` of bf16 gathers),
+    or the f32 sum in tap order rounded once (the flat pools' ``jnp.sum``,
+    which sums bf16 in f32).  The card's result equals the twin's bit for
+    bit; one tap is a row copy either way."""
+    _gather_sum_shapes("gather_sum_bf16", x3, map_, taps, tap_stride, s_out)
+    _require_dtypes("gather_sum_bf16", BF16, x3=x3)
+    if _use_plain(x3):
+        return gather_sum_bf16_plain(x3, map_, taps, tap_stride, s_out, round_each_add)
+    out, n = _gather_sum_launch("gather_sum_bf16", x3, map_, taps, tap_stride, s_out, BF16,
+                                round_each_add)
+    gather_sum_bf16.launches += n
     return out
 
 
@@ -1024,6 +1161,52 @@ def scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip_from):
     return out
 
 
+def _ordered_scatter(g3, idx, keep, s_in):
+    """[B, s_in, C] in g3's dtype: for each destination, the rows
+    ``g3[b, i]`` (``keep[b, i]``) with ``idx[b, i]`` on it added from zero in
+    ascending i, every add in that dtype (bf16: rounded).  Each source's
+    rank among its destination's sources, then one ``index_add_`` a rank:
+    a destination takes one row a call, so the adds keep that order."""
+    b_, s_g, c = g3.shape
+    dest = (idx.long() + s_in * torch.arange(b_, device=g3.device)[:, None])[keep]
+    src = g3[keep]  # row-major: ascending (b, i)
+    out = g3.new_zeros(b_ * s_in, c)
+    if dest.numel():
+        sorted_dest, by_dest = torch.sort(dest, stable=True)
+        pos = torch.arange(dest.numel(), device=g3.device)
+        first = torch.ones_like(sorted_dest, dtype=torch.bool)
+        first[1:] = sorted_dest[1:] != sorted_dest[:-1]
+        start = torch.cummax(torch.where(first, pos, 0), 0).values
+        rank = torch.empty_like(pos)
+        rank[by_dest] = pos - start
+        for r in range(int(rank.max()) + 1):
+            at = rank == r
+            out.index_add_(0, dest[at], src[at])
+    return out.reshape(b_, s_in, c)
+
+
+def scatter_sum_bf16_plain(g3, map_, taps, tap_stride, s_in, skip_from, inverse=None):
+    # JAX's bf16 autodiff of the gathers: per tap, an XLA scatter-add into
+    # bf16 zeros, each destination's rows in ascending source row, every
+    # add rounded; the taps' tables then added in tap order (bf16).
+    # ``inverse`` only tells the kernel where the sources are
+    b_, s_g, _ = g3.shape
+    out = None
+    for j in range(len(taps)):
+        idx = row_index(map_, taps, tap_stride, j, b_, s_g, g3.device)
+        keep = (idx >= 0) & (idx < (s_in if skip_from < 0 else min(skip_from, s_in)))
+        part = _ordered_scatter(g3, idx, keep, s_in)
+        out = part if out is None else out + part
+    return out
+
+
+def _scatter_sum_shapes(name, g3, map_, taps, tap_stride, s_in):
+    b_, s_g, c = g3.shape
+    _check_rows(name, map_, taps, tap_stride, len(taps), b_, s_g, s_in)
+    check_index_space(name, g3=b_ * s_g * c, out=b_ * s_in * c,
+                      map=0 if map_ is None else map_.numel())
+
+
 def scatter_sum(g3, map_, taps, tap_stride, s_in, skip_from):
     """out[b, row(j,b,s)] += g3[b,s] for every listed tap, except where the
     row is ``skip_from`` or past it (-1: none): the adjoint of
@@ -1034,26 +1217,135 @@ def scatter_sum(g3, map_, taps, tap_stride, s_in, skip_from):
     named many times gets f32 atomics on the card, in an order that differs
     from run to run; where no kept row repeats, the card's result equals
     the twin's bit for bit.  B s_g C, B s_in C and the map's size must stay
-    below 2^31, on either device."""
-    b_, s_g, c = g3.shape
-    refuse_bf16_5b("scatter_sum", g3)
-    _check_rows("scatter_sum", map_, taps, tap_stride, len(taps), b_, s_g, s_in)
-    check_index_space("scatter_sum", g3=b_ * s_g * c, out=b_ * s_in * c,
-                      map=0 if map_ is None else map_.numel())
+    below 2^31, on either device.  A bf16 g3 goes to ``scatter_sum_bf16``,
+    which refuses a map that names a kept row twice (pass its ``inverse``
+    form for those)."""
+    if g3.dtype == BF16:
+        return scatter_sum_bf16(g3, map_, taps, tap_stride, s_in, skip_from)
+    _scatter_sum_shapes("scatter_sum", g3, map_, taps, tap_stride, s_in)
     if _use_plain(g3):
         return scatter_sum_plain(g3, map_, taps, tap_stride, s_in, skip_from)
-    _require(g3, "g3", torch.float32, 3)
+    out, n = _scatter_sum_launch("scatter_sum", g3, map_, taps, tap_stride, s_in, skip_from,
+                                 torch.float32)
+    scatter_sum.launches += n
+    return out
+
+
+def _scatter_sum_launch(name, g3, map_, taps, tap_stride, s_in, skip_from, dtype,
+                        inverse=None, check=None):
+    """The scatter-sum kernel on a ``dtype`` cotangent into a zeroed
+    ``dtype`` table (bf16: the bf16 form, through ``inverse`` when given;
+    given ``check``, zeroed int32 of 1 entry with an inverse, else 1 + B
+    s_in, it sets ``check[0]`` where the map breaks its form's condition)
+    -> (out, launches: 0 or 1)."""
+    b_, s_g, c = g3.shape
+    _require(g3, "g3", dtype, 3)
     _require(map_, "map", torch.int32, 3)
+    _require(inverse, "inverse", torch.int32, 3)
     if not 0 < len(taps) <= MAX_TAPS:
         raise ValueError(f"{len(taps)} taps: 1 to {MAX_TAPS}")
-    out = torch.zeros(b_, s_in, c, device=g3.device, dtype=torch.float32)
+    _require(check, "check", torch.int32, 1)
+    if check is not None:
+        need = 1 + (0 if inverse is not None else b_ * s_in)
+        if dtype != BF16 or check.numel() < need:
+            raise ValueError(f"{name}: a check takes the bf16 form and {need} entries, "
+                             f"got {dtype} and {check.numel()}")
+    out = torch.zeros(b_, s_in, c, device=g3.device, dtype=dtype)
     if g3.numel() == 0:
-        return out
+        return out, 0
     rc = _lib().pc_scatter_sum(
         g3.data_ptr(), _ptr(map_), _taps_struct(taps), tap_stride, len(taps),
-        out.data_ptr(), b_, s_g, s_in, c, int(skip_from), _stream(g3))
-    _check(rc, "scatter_sum")
-    scatter_sum.launches += 1
+        out.data_ptr(), b_, s_g, s_in, c, int(skip_from), int(dtype == BF16), _ptr(inverse),
+        0 if inverse is None else inverse.shape[0], _ptr(check), _stream(g3))
+    _check(rc, name)
+    return out, 1
+
+
+INVERSE_TAPS = 8  # sources a destination of scatter_sum_bf16's inverse form (csrc INV_MAX)
+
+
+BF16_SCATTER_REFUSAL = "scatter_sum_bf16: the map "
+
+
+def _scatter_sum_bf16_check(g3, map_, taps, tap_stride, s_in, skip_from, inverse=None):
+    """The condition under which ``scatter_sum_bf16``'s kernel computes its
+    function, asserted with tensor ops (the CPU's form; the kernel checks
+    it as it runs): with no ``inverse``, no destination below
+    ``skip_from`` is named twice over all the taps (the store form would
+    race); with one, each kept source is named once among the inverse's
+    entries at its destination (the inverse form would leave it out, or
+    add it twice).  Raises RuntimeError where it does not hold."""
+    b_, s_g, _ = g3.shape
+    if b_ * s_g == 0 or s_in == 0:
+        return
+    dev = g3.device
+    limit = s_in if skip_from < 0 else min(skip_from, s_in)
+    if inverse is None:
+        spare = b_ * s_in  # where the entries that are not kept are counted
+        named = torch.zeros(spare + 1, device=dev, dtype=torch.int32)
+        base = s_in * torch.arange(b_, device=dev)[:, None]
+        for j in range(len(taps)):
+            idx = row_index(map_, taps, tap_stride, j, b_, s_g, dev)
+            keep = (idx >= 0) & (idx < limit)
+            named.index_add_(0, torch.where(keep, idx + base, spare).reshape(-1),
+                             keep.reshape(-1).to(torch.int32))
+        ok = named[:spare].max() <= 1
+        what = "names a kept destination twice (pass the inverse form)"
+    else:
+        idx = row_index(map_, taps, tap_stride, 0, b_, s_g, dev)
+        keep = (idx >= 0) & (idx < limit)
+        cand = inverse[:, torch.arange(b_, device=dev)[:, None], idx.clamp(0, s_in - 1)]
+        named = (cand == torch.arange(s_g, device=dev, dtype=cand.dtype)).sum(0)
+        ok = ((named == 1) | ~keep).all()
+        what = "has a kept source that the inverse does not name once at its destination"
+    torch._assert_async(ok, f"{BF16_SCATTER_REFUSAL}{what}")
+
+
+def scatter_sum_bf16(g3, map_, taps, tap_stride, s_in, skip_from, inverse=None):
+    """``scatter_sum`` of a bf16 cotangent -> bf16, JAX's bf16 autodiff of
+    the gathers: each destination below ``skip_from`` gets its rows in
+    ascending source row (per tap; the taps' tables added in tap order),
+    every add rounded to bf16.  No atomics; on the card the same bits as
+    the twin, from run to run.  Two forms:
+
+      - no ``inverse``: no destination below ``skip_from`` may be named
+        twice (the sum and average pools' down maps: each fine row is one
+        (offset, coarse row)'s), so each kept row is stored once;
+      - ``inverse`` [K, B, s_in] int32, K <= 8, one tap: for each
+        destination, the source rows that may name it (the unpool's
+        adjoint: the level's k2s2 down map, each coarse row's children,
+        missing ones at the fine pad row); the kernel keeps those whose
+        ``map`` entry is the destination, sorts them and adds them in
+        order.  It must name every source of each kept destination, as the
+        down map does of the parent map.
+
+    Each call asserts its form's condition on the map: on the CPU with
+    tensor ops before the twin runs (``_scatter_sum_bf16_check``, a
+    RuntimeError), on the card from the flag the kernel sets as it runs
+    (``torch._assert_async``, no host sync: a map that breaks it fails the
+    next call that synchronises, with a device-side assert).  The twin
+    computes the function from ``map`` alone (``inverse`` only tells the
+    kernel where the sources are)."""
+    _scatter_sum_shapes("scatter_sum_bf16", g3, map_, taps, tap_stride, s_in)
+    _require_dtypes("scatter_sum_bf16", BF16, g3=g3)
+    b_ = g3.shape[0]
+    if inverse is not None:
+        if len(taps) != 1 or map_ is None:
+            raise ValueError("scatter_sum_bf16: an inverse goes with one mapped tap")
+        if inverse.dim() != 3 or inverse.shape[1:] != (b_, s_in) or not (
+                0 < inverse.shape[0] <= INVERSE_TAPS):
+            raise ValueError(f"scatter_sum_bf16: inverse of shape {tuple(inverse.shape)}, "
+                             f"expected [K <= {INVERSE_TAPS}, {b_}, {s_in}]")
+        check_index_space("scatter_sum_bf16", inverse=inverse.numel())
+    if _use_plain(g3):
+        _scatter_sum_bf16_check(g3, map_, taps, tap_stride, s_in, skip_from, inverse)
+        return scatter_sum_bf16_plain(g3, map_, taps, tap_stride, s_in, skip_from)
+    claims = 0 if inverse is not None else b_ * s_in  # the store form's, one a row
+    check = torch.zeros(1 + claims, device=g3.device, dtype=torch.int32)
+    out, n = _scatter_sum_launch("scatter_sum_bf16", g3, map_, taps, tap_stride, s_in,
+                                 skip_from, BF16, inverse, check)
+    torch._assert_async(check[0] == 0, f"{BF16_SCATTER_REFUSAL}breaks its form's condition")
+    scatter_sum_bf16.launches += n
     return out
 
 
@@ -1282,5 +1574,5 @@ def _brick_wgrad_slices(rows, tiles, taps) -> int:
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
            scatter_gemm, segment_sum, gather_sum, scatter_sum, brick_gemm,
            brick_wgrad, gather_gemm_bf16, gather_wgrad_bf16, parent_gemm_bf16,
-           scatter_parent_bf16)
+           scatter_parent_bf16, scatter_gemm_bf16, gather_sum_bf16, scatter_sum_bf16)
 reset_launches()

@@ -62,10 +62,20 @@ dy.  Where the sums are rounded to bf16 depends on the layout, as in JAX:
     JAX's flat forms do.  K2's and K3's dF round once, where JAX's autodiff
     of its scans rounds each tap's adjoint and adds them in bf16: a delta
     kept on purpose (ROADMAP, "Deltas the port keeps on purpose").
-K4 (``scatter_gemm``) and the pools (``gather_sum`` / ``scatter_sum``) have
-no bf16 form yet (ROADMAP Queue 1 item 5b): they raise
-``NotImplementedError`` on bf16 features, and never run in f32 in their
-place.
+K4 in bf16 (JAX ``_conv_chunk_down_fused`` and the flat ``_conv_core``):
+the forward is ``gather_gemm_bf16`` (chunked: one rounding; flat: each tap
+rounded, and past MAX_TAPS taps the launches' f32 sums added and rounded
+once), dW ``gather_wgrad_bf16`` rounded to the weights' dtype, dF
+``scatter_gemm_bf16``: ct W^T in f32 over every tap, rounded once (JAX's
+chunked rule; on flat maps JAX's autodiff of ``_conv_core`` rounds each
+tap's adjoint and adds them in bf16, the delta the port keeps, as for the
+voxel K2 / K3 dF).  The pools in bf16 keep JAX's roundings, which XLA's
+CPU code fixes: the chunked sum and average pools round after every add of
+their Python ``sum`` (``gather_sum_bf16``), the flat ones sum in f32 and
+round once (``jnp.sum``); the average divides by the count cast to bf16;
+the adjoints are XLA's bf16 scatter-adds, each destination's rows in
+ascending source row, every add rounded (``scatter_sum_bf16``; the unpool's
+through the level's down map, its inverse).
 """
 from __future__ import annotations
 
@@ -78,15 +88,17 @@ from pointcontrast_tpu_torch.sparse.kernels import (
     gather_gemm,
     gather_gemm_bf16,
     gather_sum,
+    gather_sum_bf16,
     gather_wgrad,
     gather_wgrad_bf16,
     parent_gemm,
     parent_gemm_bf16,
-    refuse_bf16_5b,
     scatter_gemm,
+    scatter_gemm_bf16,
     scatter_parent,
     scatter_parent_bf16,
     scatter_sum,
+    scatter_sum_bf16,
     segment_sum,
 )
 
@@ -274,19 +286,38 @@ class _ConvChunkDownFused(torch.autograd.Function):
     here (pad-row dF is garbage by design, every producer masks it).  The
     scatter tiles the cotangent rows in the forward's ``order``: the map is
     live at (s, k) exactly where the forward gathers a live row, so the
-    map's live order serves both."""
+    map's live order serves both.  In bf16 (``round_each_tap``: a flat
+    map's forward, each tap rounded) the bf16 forms, dF one f32 scatter
+    over every tap rounded once."""
 
     @staticmethod
-    def forward(ctx, features, nbr, weights, order=None):
-        refuse_bf16_5b("a conv on a map without rev or up (K4: scatter_gemm; the "
-                       "ResNets' k3s2 convs, the CRF's flat filter)", features)
+    def forward(ctx, features, nbr, weights, order=None, round_each_tap=False):
         k, b_, s_out = nbr.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
-        out = None
-        for taps in _tap_groups(k):
-            part = gather_gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop],
-                               None, s_out, f3.shape[1] - 1, order)
-            out = part if out is None else out + part
+        groups = _tap_groups(k)
+        skip = f3.shape[1] - 1
+        if features.dtype != BF16:
+            out = None
+            for taps in groups:
+                part = gather_gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop],
+                                   None, s_out, skip, order)
+                out = part if out is None else out + part
+        else:
+            gemm = _forms(features, weights)[0]
+            if len(groups) == 1:
+                out = gemm(f3, nbr, groups[0], 0, weights, None, s_out, skip, order,
+                           round_each_tap=round_each_tap)
+            elif round_each_tap:  # JAX's one f32 accumulator over every rounded tap
+                out = None
+                for taps in groups:
+                    part = gemm(f3, nbr, taps, 0, weights[taps.start:taps.stop], None,
+                                s_out, skip, order, round_each_tap=True, f32_out=True)
+                    out = part if out is None else out + part
+                out = out.to(BF16)
+            else:
+                raise NotImplementedError(
+                    f"a chunked bfloat16 conv of {k} taps (more than {MAX_TAPS}): no "
+                    "form of gather_gemm_bf16 keeps its f32 sum across launches")
         ctx.save_for_backward(features, nbr, weights, order)
         return out.reshape(b_ * s_out, -1)
 
@@ -298,18 +329,23 @@ class _ConvChunkDownFused(torch.autograd.Function):
         f3 = features.reshape(b_, s_in, -1)
         ct3 = ct.contiguous().reshape(b_, s_out, -1)
         groups = _tap_groups(k)
+        bf16 = features.dtype == BF16
+        wgrad = gather_wgrad_bf16 if bf16 else gather_wgrad
         df = dw = None
         if ctx.needs_input_grad[0]:
-            for taps in groups:
-                part = scatter_gemm(ct3, nbr, taps, weights[taps.start:taps.stop],
-                                    s_in, s_in - 1, order)
-                df = part if df is None else df + part
+            if bf16:  # every tap into one f32 table, rounded once
+                df = scatter_gemm_bf16(ct3, nbr, range(k), weights, s_in, s_in - 1, order)
+            else:
+                for taps in groups:
+                    part = scatter_gemm(ct3, nbr, taps, weights[taps.start:taps.stop],
+                                        s_in, s_in - 1, order)
+                    df = part if df is None else df + part
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
-            dw = torch.cat([gather_wgrad(f3, nbr, taps, 0, ct3, None, None, 0,
-                                         len(taps), s_out, skip_a=s_in - 1)
-                            for taps in groups])
-        return df, None, dw, None
+            dw = torch.cat([wgrad(f3, nbr, taps, 0, ct3, None, None, 0,
+                                  len(taps), s_out, skip_a=s_in - 1)
+                            for taps in groups]).to(weights.dtype)
+        return df, None, dw, None, None
 
 
 def sparse_conv(
@@ -353,7 +389,7 @@ def sparse_conv(
                                     round_each_tap)
     else:
         out = _ConvChunkDownFused.apply(features, nbr.contiguous(),
-                                        weights.contiguous(), order)
+                                        weights.contiguous(), order, round_each_tap)
     if bias is not None:  # in the activations' dtype, as JAX's b.astype(dtype)
         out = out + bias.to(out.dtype)
     if valid_out is not None:
@@ -396,32 +432,44 @@ class _GatherSum(torch.autograd.Function):
     no gradient).  Backward, the adjoint: scatter_sum of ct (/ divisor)
     through the same map, the source's pad rows left out: rows
     ``skip_from`` on, by default the last row S_in - 1, where missing
-    children point (pad-row gradients are garbage by design)."""
+    children point (pad-row gradients are garbage by design).  bf16
+    features run the bf16 forms: ``round_each_add`` the chunked pools'
+    rounding after every add (the flat pools': once), ``inverse`` the
+    sources of each destination for the unpool's adjoint
+    (``scatter_sum_bf16``); the division and ct / divisor in bf16, as
+    JAX's."""
 
     @staticmethod
-    def forward(ctx, features, map_, divisor, skip_from=None):
-        refuse_bf16_5b("the k2s2 pooling ops (gather_sum / scatter_sum)", features)
+    def forward(ctx, features, map_, divisor, skip_from=None, round_each_add=True,
+                inverse=None):
         k, b_, s_out = map_.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
-        out = gather_sum(f3, map_, range(k), 0, s_out).reshape(b_ * s_out, -1)
+        if features.dtype == BF16:
+            out = gather_sum_bf16(f3, map_, range(k), 0, s_out, round_each_add)
+        else:
+            out = gather_sum(f3, map_, range(k), 0, s_out)
+        out = out.reshape(b_ * s_out, -1)
         if divisor is not None:
             out = out / divisor
-        ctx.save_for_backward(map_, divisor)
+        ctx.save_for_backward(map_, divisor, inverse)
         ctx.s_in = f3.shape[1]
         ctx.skip_from = f3.shape[1] - 1 if skip_from is None else skip_from
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        map_, divisor = ctx.saved_tensors
+        map_, divisor, inverse = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None, None
         k, b_, s_out = map_.shape
         if divisor is not None:
             ct = ct / divisor
-        df = scatter_sum(ct.contiguous().reshape(b_, s_out, -1), map_, range(k),
-                         0, ctx.s_in, ctx.skip_from)
-        return df.reshape(b_ * ctx.s_in, -1), None, None, None
+        ct3 = ct.contiguous().reshape(b_, s_out, -1)
+        if ct3.dtype == BF16:
+            df = scatter_sum_bf16(ct3, map_, range(k), 0, ctx.s_in, ctx.skip_from, inverse)
+        else:
+            df = scatter_sum(ct3, map_, range(k), 0, ctx.s_in, ctx.skip_from)
+        return df.reshape(b_ * ctx.s_in, -1), None, None, None, None, None
 
 
 def _down_map(name, m):
@@ -439,9 +487,11 @@ def sparse_sum_pool(
     down_nbr: torch.Tensor,  # [K, B, S_out] children of each coarse row (flat [K, N_out])
     valid_out: torch.Tensor | None = None,  # [B*S_out] float mask
 ) -> torch.Tensor:
-    """Kernel-2 stride-2 sum pooling (ME.MinkowskiSumPooling)."""
+    """Kernel-2 stride-2 sum pooling (ME.MinkowskiSumPooling).  In bf16 a
+    chunked map rounds after every add, a flat one once (JAX's)."""
+    flat = down_nbr.dim() == 2
     down_nbr = _down_map("sparse_sum_pool", down_nbr)
-    out = _GatherSum.apply(features.contiguous(), down_nbr, None)
+    out = _GatherSum.apply(features.contiguous(), down_nbr, None, None, not flat)
     return out if valid_out is None else mask_rows(out, valid_out)
 
 
@@ -453,13 +503,16 @@ def sparse_avg_pool(
 ) -> torch.Tensor:
     """Kernel-2 stride-2 average pooling over the children present
     (ME.MinkowskiAvgPooling): the sum over max(count, 1), the count a
-    gather_sum of ``valid_in`` at C = 1."""
+    gather_sum of ``valid_in`` at C = 1 (in the features' dtype: exact up
+    to 8 in bf16, as JAX's count cast to it)."""
+    flat = down_nbr.dim() == 2
     down_nbr = _down_map("sparse_avg_pool", down_nbr)
     k, b_, s_out = down_nbr.shape
     with torch.no_grad():
         v3 = valid_in.to(features.dtype).reshape(b_, -1, 1).contiguous()
         count = gather_sum(v3, down_nbr, range(k), 0, s_out).reshape(-1, 1)
-    out = _GatherSum.apply(features.contiguous(), down_nbr, count.clamp(min=1.0))
+    out = _GatherSum.apply(features.contiguous(), down_nbr, count.clamp(min=1.0), None,
+                           not flat)
     return out if valid_out is None else mask_rows(out, valid_out)
 
 
@@ -467,15 +520,26 @@ def sparse_avg_unpool(
     features: torch.Tensor,  # [B*S_coarse, C]
     up_parent: torch.Tensor,  # [B, S_fine] frame-local coarse parent (flat [N_fine])
     valid_out: torch.Tensor | None = None,  # [B*S_fine] float mask
+    down_nbr: torch.Tensor | None = None,  # [8, B, S_coarse] (flat [8, N_coarse])
 ) -> torch.Tensor:
     """Kernel-2 stride-2 average unpooling: each fine row reads its parent
     (ME.MinkowskiAvgUnpooling onto the reused finer coords), a 1-tap
-    gather_sum; its backward adds up to 8 children into each parent."""
+    gather_sum; its backward adds up to 8 children into each parent.  In
+    bf16 that adjoint adds them in ascending fine row, every add rounded,
+    through ``down_nbr``, the same level's k2s2 down map (each coarse row's
+    children: the parent map's inverse), which bf16 features need."""
     if up_parent.dim() == 1:
         up_parent = up_parent[None]
     elif up_parent.dim() != 2:
         raise ValueError(f"sparse_avg_unpool: map of shape {tuple(up_parent.shape)}")
-    out = _GatherSum.apply(features.contiguous(), up_parent[None], None)
+    inverse = None
+    if features.dtype == BF16:
+        if down_nbr is None:
+            raise ValueError("sparse_avg_unpool in bfloat16 needs down_nbr, the level's "
+                             "k2s2 down map (its adjoint adds each parent's children "
+                             "in order)")
+        inverse = _down_map("sparse_avg_unpool", down_nbr)
+    out = _GatherSum.apply(features.contiguous(), up_parent[None], None, None, True, inverse)
     return out if valid_out is None else mask_rows(out, valid_out)
 
 

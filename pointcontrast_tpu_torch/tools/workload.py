@@ -263,14 +263,16 @@ def resnet_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
 
 def resnet_model(seed: int = 0, model: str = "ResNet18",
                  classes: int = SEMSEG_CLASSES,
-                 bn_momentum: float = 0.02) -> torch.nn.Module:
+                 bn_momentum: float = 0.02,
+                 dtype: torch.dtype | None = None) -> torch.nn.Module:
     """A registry ResNet 3 -> ``classes`` at the published widths, random
-    weights from ``seed``, on the CPU."""
+    weights from ``seed``, on the CPU; ``dtype``: its activations (bf16:
+    JAX's mixed precision; parameters stay f32)."""
     from pointcontrast_tpu_torch.nn.registry import load_model
 
     return load_model(model)(in_channels=3, out_channels=classes,
                              bn_momentum=bn_momentum,
-                             generator=torch.Generator().manual_seed(seed))
+                             generator=torch.Generator().manual_seed(seed), dtype=dtype)
 
 
 def resnet_step(model, opt, sched, batch) -> torch.Tensor:

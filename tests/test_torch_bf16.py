@@ -26,8 +26,12 @@ same numpy inputs go to both packages (the fixtures of that file: one
   - the sparse-conv VoteNet: bf16 backbone output, f32 seed features,
     finite losses and parameters that move;
   - the semseg and VoteNet CLIs on the shipped YAMLs' ``net.dtype:
-    bfloat16`` (synthetic data), and the combinations that have no bf16
-    kernel yet (ROADMAP Queue 1 item 5b), which raise."""
+    bfloat16`` (synthetic data; MinkUNetHyper14INBN and the BilateralCRF
+    too, and a Hyper VoteNet backbone), and the brick layout, which has no
+    bf16 kernel yet (ROADMAP Queue 1 item 5b) and raises;
+  - the flat K4's dF (the CRF filter's conv at 13 and 729 taps) one
+    rounding of the f64 sum, as the voxel K2 / K3 dF (the delta kept).
+The bf16 pools and K4 against JAX: ``tests/test_torch_bf16_pools.py``."""
 import copy
 import os
 
@@ -238,12 +242,55 @@ def test_conv_ops_match_jax_bf16(batches, voxel_batches, case):
     _close(wt.grad, dw_j, f"{case} dW")
 
 
-@pytest.mark.parametrize("case", ["K2 voxel", "K3 voxel"])
+def _k4_flat_dF(case):
+    """(the port's dF, the f64 sum rounded once, its boundary, valid rows)
+    of the flat K4 on a CRF bilateral map of 13 (hypercross) or 729
+    (hypercube: 23 launches of 32 taps) taps over scattered rows."""
+    from pointcontrast_tpu_torch.semseg.crf import build_bilateral_map
+
+    region = "hypercube" if case.endswith("729") else "hypercross"
+    rng = np.random.RandomState(3)
+    coords = np.concatenate([rng.randint(0, 2, (300, 1)), rng.randint(0, 5, (300, 3))],
+                            axis=1).astype(np.int32)
+    coords = coords[np.sort(np.unique(coords, axis=0, return_index=True)[1])]
+    colors = np.zeros((len(coords), 3), np.float32)
+    colors[:, 0] = rng.randint(0, 2, len(coords)) * 12.0
+    rows = np.sort(rng.choice(639, len(coords), replace=False))
+    m = torch.from_numpy(build_bilateral_map(coords, colors, 640, region=region, rows=rows))
+    valid = torch.zeros(640)
+    valid[rows] = 1.0
+    k = m.shape[0]
+    _, ft = _pair(rng, (640, 8), valid)
+    _, wt = _pair(rng, (k, 8, 8))
+    _, ctt = _pair(rng, (640, 8), valid)
+    ft, wt = ft.requires_grad_(), wt.requires_grad_()
+    ops.sparse_conv(ft, m, wt).backward(ctt)
+    f64 = torch.float64
+    args = (ctt[None].to(f64), m[:, None], range(k), wt.detach().to(f64), 640, 639)
+    exact = kernels.scatter_gemm_plain(*args)[0]
+    size = kernels.scatter_gemm_plain(args[0].abs(), *args[1:3], args[3].abs(), 640, 639)[0]
+    ones = torch.ones(1, 640, 1, dtype=f64)
+    pairs = kernels.scatter_gemm_plain(ones, m[:, None], range(k), ones.new_ones(k, 1, 1), 640,
+                                       639)[0]
+    edge = _near_midpoint(exact, _gamma(pairs * 8) * size)
+    return ft.grad, exact.to(BF), edge.numpy(), valid.numpy() > 0
+
+
+@pytest.mark.parametrize("case", ["K2 voxel", "K3 voxel", "K4 flat 13", "K4 flat 729"])
 def test_voxel_dF_rounds_the_f64_sum_once(voxel_batches, case):
-    """The delta the port keeps on purpose: the voxel K2 and K3 dF are the
+    """The delta the port keeps on purpose: the voxel K2 and K3 dF and the
+    flat K4's (the CRF filter's conv, one f32 table over every tap) are the
     f64 sum of their bf16 x bf16 products rounded once to bf16 at every
     valid input row (JAX's autodiff of its flat scans rounds each tap's
     adjoint and adds them in bf16)."""
+    if case.startswith("K4"):
+        got, want, edge, vin = _k4_flat_dF(case)
+        differ, odd = _explained(got[vin].float().numpy(), want[vin].float().numpy(),
+                                 edge[vin])
+        print(f"{case} dF: {differ.sum()} of {differ.size} differ, {edge[vin].sum()} at a "
+              "boundary")
+        assert not odd.any(), f"{odd.sum()} differ off a boundary"
+        return
     _, tb = voxel_batches
     _, tf, (_, ft), (_, wt), (_, ctt), vin, _ = _op_case(
         case, tb, np.random.RandomState(len(case)))
@@ -451,7 +498,7 @@ def _semseg_cli_trains_in_bf16(tmp_path, overrides):
 
     trainer, history = app.main(SEMSEG_CLI + overrides + [f"train.out_dir={tmp_path}"],
                                 device="cpu")
-    assert trainer.model.dtype == BF
+    assert getattr(trainer.model, "net", trainer.model).dtype == BF
     assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
     assert [i for i, _ in history] == [1, 2]
     assert all(np.isfinite(m["loss"]) for _, m in history)
@@ -471,49 +518,66 @@ def test_votenet_cli_runs_the_shipped_bf16(tmp_path):
 
 @pytest.mark.parametrize("override", [
     ["net.model=MinkUNetHyper14INBN"],
-    ["net.wrapper_type=BilateralCRF"],
+    ["net.wrapper_type=BilateralCRF", "net.wrapper_iterations=2"],
     ["data.layout=brick"],
 ])
 def test_semseg_cli_refuses_bf16_without_kernels(tmp_path, override):
-    """MinkUNetHyper, the CRF filter and the brick layout in bf16: item 5b,
-    before any work."""
+    """The brick layout in bf16 has no kernels yet: item 5b, before any
+    work.  MinkUNetHyper and the CRF filter, which did not either, now
+    train in the shipped bf16 (their pools' and flat conv's bf16 forms)."""
     from pointcontrast_tpu_torch.apps import semseg as app
 
+    if override != ["data.layout=brick"]:
+        _semseg_cli_trains_in_bf16(tmp_path, override)
+        return
     with pytest.raises(NotImplementedError, match="item 5b"):
         app.main(SEMSEG_CLI + override + [f"train.out_dir={tmp_path}"], device="cpu")
     assert not os.path.exists(tmp_path / "weights")
 
 
 def test_votenet_cli_refuses_a_bf16_hyper_backbone(tmp_path):
+    """A MinkUNetHyper14INBN backbone in the shipped bf16, which raised
+    item 5b before its unpools had bf16 forms: one epoch, an evaluation, a
+    checkpoint."""
     from pointcontrast_tpu_torch.apps import votenet as app
 
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        app.main(VOTENET_CLI + ["net.backbone_model=MinkUNetHyper14INBN",
-                                f"misc.out_dir={tmp_path / 'run'}"], device="cpu")
-    assert not os.path.exists(tmp_path / "run")
+    trainer = app.main(VOTENET_CLI + ["net.backbone_model=MinkUNetHyper14INBN",
+                                      f"misc.out_dir={tmp_path / 'run'}"], device="cpu")
+    net = trainer.model.backbone_net.net
+    assert type(net).__name__ == "MinkUNetHyper14INBN" and net.dtype == BF
+    assert trainer.epoch == 1 and (tmp_path / "run" / "weights" / "checkpoint_1.pth").exists()
 
 
 @pytest.mark.parametrize("what", ["k4", "sum pool", "avg unpool", "brick conv",
                                   "resnet", "hyper"])
 def test_ops_and_nets_refuse_bf16_without_kernels(batches, what):
-    """K4 (scatter_gemm), the k2s2 pools (gather_sum / scatter_sum), the
-    brick convs and the nets built on them raise NotImplementedError naming
-    item 5b on bf16: none of them runs its f32 kernel in place."""
+    """The brick convs raise NotImplementedError naming item 5b on bf16,
+    never running their f32 kernels in place.  K4, the k2s2 pools and the
+    nets built on them, which did too, now run their bf16 forms: bf16 out,
+    and the nets take ``dtype=bfloat16`` with f32 parameters."""
     _, tb = batches
     lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
-    f = torch.zeros(lv.valid.shape[0], 4, dtype=BF)
+    f = torch.ones(lv.valid.shape[0], 4, dtype=BF) * lv.valid[:, None].to(BF)
     calls = {
-        "k4": lambda: ops.sparse_conv(f, lv.nbr, torch.zeros(27, 4, 4, dtype=BF)),
+        "k4": lambda: ops.sparse_conv(f, lv.nbr, torch.ones(27, 4, 4, dtype=BF)),
         "sum pool": lambda: ops.sparse_sum_pool(f, lv.down_nbr),
-        "avg unpool": lambda: ops.sparse_avg_unpool(f[:lv1.valid.shape[0]], lv.up_parent),
+        "avg unpool": lambda: ops.sparse_avg_unpool(f[:lv1.valid.shape[0]], lv.up_parent,
+                                                    down_nbr=lv.down_nbr),
         "brick conv": lambda: layers.SparseConv(4, 4, 27).forward(
             f, _brick_map(), lv.valid, order=None),
         "resnet": lambda: load_model("ResNet18")(in_channels=3, out_channels=4, dtype=BF),
         "hyper": lambda: load_model("MinkUNetHyper14INBN")(in_channels=3, out_channels=4,
                                                            dtype=BF),
     }
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        calls[what]()
+    if what == "brick conv":
+        with pytest.raises(NotImplementedError, match="item 5b"):
+            calls[what]()
+        return
+    got = calls[what]()
+    if isinstance(got, torch.nn.Module):
+        assert got.dtype == BF and all(p.dtype == torch.float32 for p in got.parameters())
+    else:
+        assert got.dtype == BF and got.float().any()
 
 
 def _brick_map():

@@ -231,20 +231,32 @@ def test_wrappers_check_every_operand_dtype(pyr, case):
 @pytest.mark.parametrize("kernel", ["scatter_gemm", "gather_sum", "scatter_sum",
                                     "brick_gemm", "brick_wgrad"])
 def test_f32_only_kernels_refuse_bf16(kernel):
-    """The kernels without a bf16 form raise NotImplementedError naming
-    ROADMAP item 5b on a bf16 operand, on either device: never an f32
-    run in its place."""
-    x = torch.zeros(2, 16, 4, dtype=BF)
-    m = torch.zeros(1, 2, 16, dtype=torch.int32)
+    """The brick kernels have no bf16 form: they raise NotImplementedError
+    naming ROADMAP item 5b on a bf16 operand, on either device, never an
+    f32 run in its place.  ``scatter_gemm``, ``gather_sum`` and
+    ``scatter_sum`` route a bf16 operand to their bf16 forms: a bf16
+    result, the bf16 form's."""
+    x = torch.arange(2 * 16 * 4, dtype=torch.float32).reshape(2, 16, 4).to(BF)
+    m = torch.arange(2 * 16, dtype=torch.int32).reshape(1, 2, 16) % 16
+    w = torch.ones(1, 4, 4, dtype=BF)
     calls = {
-        "scatter_gemm": lambda: kernels.scatter_gemm(x, m, [0], torch.zeros(1, 4, 4), 16, -1),
-        "gather_sum": lambda: kernels.gather_sum(x, m, [0], 0, 16),
-        "scatter_sum": lambda: kernels.scatter_sum(x, m, [0], 0, 16, -1),
-        "brick_gemm": lambda: kernels.brick_gemm(x[0], m[0, :, :2], (), torch.zeros(1, 4, 4)),
-        "brick_wgrad": lambda: kernels.brick_wgrad(x[0], m[0, :, :2], (), x[0], 1),
+        "scatter_gemm": (lambda: kernels.scatter_gemm(x, m, [0], w, 16, -1),
+                         lambda: kernels.scatter_gemm_bf16(x, m, [0], w, 16, -1)),
+        "gather_sum": (lambda: kernels.gather_sum(x, m, [0], 0, 16),
+                       lambda: kernels.gather_sum_bf16(x, m, [0], 0, 16)),
+        "scatter_sum": (lambda: kernels.scatter_sum(x, m, [0], 0, 16, -1),
+                        lambda: kernels.scatter_sum_bf16(x, m, [0], 0, 16, -1)),
+        "brick_gemm": (lambda: kernels.brick_gemm(x[0], m[0, :, :2], (),
+                                                  torch.zeros(1, 4, 4)), None),
+        "brick_wgrad": (lambda: kernels.brick_wgrad(x[0], m[0, :, :2], (), x[0], 1), None),
     }
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        calls[kernel]()
+    call, form = calls[kernel]
+    if form is None:
+        with pytest.raises(NotImplementedError, match="item 5b"):
+            call()
+        return
+    got = call()
+    assert got.dtype == BF and torch.equal(got, form())
 
 
 # --------------------------------------------------------------------------

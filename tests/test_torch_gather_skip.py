@@ -11,7 +11,10 @@ card spends no products on it.  Here, on the CPU:
       Res16UNet34C-shaped net, K1's backward cotangents included;
   (c) that net's forward and every parameter gradient, with the skips on,
       match the JAX package's (one compile), at the parity tolerance of
-      ``tests/test_torch_model.py`` (f32, JAX matmuls at "highest")."""
+      ``tests/test_torch_model.py`` (f32, JAX matmuls at "highest");
+  (d) the bf16 forms the same way, K4's bf16 dF (``scatter_gemm_bf16``,
+      whose ``skip`` is a destination) among them, in a training pass of a
+      narrow bf16 ResNet."""
 import functools
 
 import jax
@@ -319,3 +322,76 @@ def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypa
     (torch.sin(3.0 * out.float()) * proj).sum().backward()
     assert min(seen.values()) > 0, seen
     assert any(per_tap) == (layout == "voxel") and not all(per_tap)
+
+
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+def test_bf16_scatter_twin_leaves_out_the_skip_row(batches, layout):
+    """K4's bf16 dF twin (``scatter_gemm_bf16``'s, the exact sum rounded
+    once) honours ``skip``, a destination: with it, that row gets nothing
+    (exact +0) and every other row the same bits; without it, the row takes
+    the products of the cotangent rows whose map entry names it."""
+    rng = np.random.RandomState(4)
+    nbr, down, s, s_out = _level_maps(batches[layout], 0)
+    skip = _gathered_row(nbr, down)
+    b_, k = nbr.shape[1], nbr.shape[0]
+    g3 = torch.from_numpy(rng.randn(b_, s, 6).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.randn(k, 4, 6).astype(np.float32)).to(torch.bfloat16)
+    fn = kernels.scatter_gemm_bf16_plain
+    with_skip, without = fn(g3, nbr, range(k), w, s, skip), fn(g3, nbr, range(k), w, s, -1)
+    assert with_skip.dtype == torch.bfloat16
+    assert not with_skip[:, skip].float().any() and without[:, skip].float().any()
+    rest = torch.ones(s, dtype=torch.bool)
+    rest[skip] = False
+    assert torch.equal(with_skip[:, rest], without[:, rest])
+
+
+def test_skipped_rows_are_zero_in_a_bf16_resnet_pass(monkeypatch):
+    """A narrow bf16 ResNet (K4 on the k3s2 and 1-tap maps, the bf16 sum
+    pool): every gather_gemm_bf16 / gather_wgrad_bf16 call of one
+    train-mode forward and backward finds its skip rows exactly zero, and
+    every scatter_gemm_bf16 call (K4's dF) skips the features' pad row,
+    which is exactly zero (the forward gathered nothing from it)."""
+    from pointcontrast_tpu_torch.nn import resnet as tresnet
+    from pointcontrast_tpu_torch.nn import resnet_block as tblocks
+    from pointcontrast_tpu_torch.tools.workload import SemsegScenes, resnet_batch
+
+    seen = {"gemm": 0, "wgrad": 0, "scatter": 0}
+    features = {}
+
+    def zero_row(t3, row):
+        return row < 0 or not t3[:, row].any()
+
+    def gemm(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None, **kw):
+        assert x3.dtype == torch.bfloat16 and zero_row(x3, skip)
+        seen["gemm"] += skip >= 0
+        if map_ is not None and wc is None:  # K4's forward: its features, by map
+            features[id(map_)] = x3
+        return kernels.gather_gemm_bf16(x3, map_, taps, stride, w, wc, s_out, skip, order,
+                                        **kw)
+
+    def wgrad(a3, a_map, a_taps, a_stride, g3, *args, skip_a=-1, skip_g=-1):
+        assert a3.dtype == torch.bfloat16 and zero_row(a3, skip_a) and zero_row(g3, skip_g)
+        seen["wgrad"] += skip_a >= 0 or skip_g >= 0
+        return kernels.gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, *args,
+                                         skip_a=skip_a, skip_g=skip_g)
+
+    def scatter(g3, map_, taps, w, s_in, skip, order=None):
+        f3 = features[id(map_)]
+        assert skip == s_in - 1 == f3.shape[1] - 1 and zero_row(f3, skip)
+        seen["scatter"] += 1
+        return kernels.scatter_gemm_bf16(g3, map_, taps, w, s_in, skip, order)
+
+    monkeypatch.setattr(ops, "gather_gemm_bf16", gemm)
+    monkeypatch.setattr(ops, "gather_wgrad_bf16", wgrad)
+    monkeypatch.setattr(ops, "scatter_gemm_bf16", scatter)
+    batch = resnet_batch(SemsegScenes(scenes=2, points=2500, room=2.4, voxel=0.05),
+                         npad0=4096).to("cpu")
+    net = type("TTiny", (tresnet.ResNetBase,),
+               dict(BLOCK=tblocks.BasicBlock, INIT_DIM=8, PLANES=(8, 16, 16, 16),
+                    LAYERS=(1, 2, 1, 1)))(in_channels=3, out_channels=OUT,
+                                          dtype=torch.bfloat16)
+    out = net.train()(batch.feats, batch.pyramid)
+    assert out.dtype == torch.bfloat16
+    proj = torch.from_numpy(np.random.RandomState(3).randn(OUT).astype(np.float32))
+    (torch.sin(3.0 * out.float()) * proj).sum().backward()
+    assert seen["scatter"] == 12 and min(seen.values()) > 0, seen

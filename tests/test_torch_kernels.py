@@ -81,6 +81,12 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
          (x1b, upp, upo, wb[:8])),
         (kernels.scatter_parent_bf16, kernels.scatter_parent_bf16_plain,
          (g3b, upp, upo, 8, s1)),
+        (kernels.scatter_gemm_bf16, kernels.scatter_gemm_bf16_plain,
+         (g3b, nbr, taps, wb, s, s - 1)),
+        (kernels.gather_sum_bf16, kernels.gather_sum_bf16_plain,
+         (x3b, _idx(lv.down_nbr), range(8), 0, s1)),
+        (kernels.scatter_sum_bf16, kernels.scatter_sum_bf16_plain,
+         (x3b, upp[None], [0], 0, s1, s1 - 1, _idx(lv.down_nbr))),
     ]
     kernels.reset_launches()
     for fn, plain, args in calls:
@@ -90,7 +96,8 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
         "scatter_parent": 0, "scatter_gemm": 0, "segment_sum": 0,
         "gather_sum": 0, "scatter_sum": 0, "brick_gemm": 0, "brick_wgrad": 0,
         "gather_gemm_bf16": 0, "gather_wgrad_bf16": 0, "parent_gemm_bf16": 0,
-        "scatter_parent_bf16": 0}
+        "scatter_parent_bf16": 0, "scatter_gemm_bf16": 0, "gather_sum_bf16": 0,
+        "scatter_sum_bf16": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",

@@ -50,16 +50,30 @@ def test_cli_trains_validates_saves_and_resumes(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
 
 
+CRF_BF16 = ["net.dtype=bfloat16", "net.wrapper_type=BilateralCRF"]
+
+
 @pytest.mark.parametrize("override,error", [
-    # the shipped YAML's bf16, with the CRF filter, whose flat conv has no
-    # bf16 kernel yet (ROADMAP item 5b)
-    (["net.dtype=bfloat16", "net.wrapper_type=BilateralCRF"], NotImplementedError),
+    # the shipped YAML's bf16 with the CRF filter: refused until its flat
+    # conv's bf16 forms (ROADMAP item 5b's first part); now it trains
+    (CRF_BF16, NotImplementedError),
     (["data.dataset=ScannetVoxelization2cmDataset"], NotImplementedError),
     (["net.model=MinkUNetHyper14INBN", "data.layout=brick"], ValueError),
     (["distributed.num_devices=2"], NotImplementedError),
     (["net.wrapper_type=TrilateralCRF"], ValueError),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override, error):
+    """What the port does not run raises before any work starts; the bf16
+    CRF filter, which it runs since its flat conv's bf16 forms, trains two
+    steps with a bf16 backbone and validates."""
+    if override is CRF_BF16:
+        trainer, history = app.main(CLI + override + ["net.wrapper_iterations=2",
+                                                      f"train.out_dir={tmp_path}"],
+                                    device="cpu")
+        assert trainer.model.net.dtype == torch.bfloat16
+        assert [i for i, _ in history] == [1, 2]
+        assert (tmp_path / "weights" / "checkpoint_2.pth").exists()
+        return
     with pytest.raises(error):
         app.main(CLI + override + [f"train.out_dir={tmp_path}"], device="cpu")
     assert not os.path.exists(tmp_path / "weights")

@@ -37,19 +37,32 @@ def test_cli_trains_evaluates_saves_and_resumes(tmp_path):
         torch.testing.assert_close(v, state[k], rtol=0, atol=0, msg=k)
 
 
+HYPER_BF16 = ["net.backbone=sparseconv", "net.backbone_model=MinkUNetHyper14INBN"]
+
+
 @pytest.mark.parametrize("override,match", [
-    # the shipped YAML's bf16 on a backbone whose unpools have no bf16 kernel
-    # yet (ROADMAP item 5b)
-    (["net.backbone=sparseconv", "net.backbone_model=MinkUNetHyper14INBN"],
-     "net.dtype=float32"),
+    # the shipped YAML's bf16 on a MinkUNetHyper backbone: refused (its
+    # unpools' "net.dtype=float32" advice) until their bf16 forms, ROADMAP
+    # item 5b's first part; now it passes the check
+    (HYPER_BF16, "net.dtype=float32"),
     (["data.dataset=sunrgbd"], "SUN RGB-D"),
     (["distributed.num_devices=2"], "item 7"),
     (["net.backbone=sparseconv", "net.dtype=float32", "data.layout=brick"], "chunked"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
+    """What the port does not run raises before any work starts; the bf16
+    Hyper backbone, which it runs since its pools' bf16 forms, passes
+    ``check_supported`` in the shipped bf16 (its training run:
+    ``tests/test_torch_bf16.py::test_votenet_cli_refuses_a_bf16_hyper_backbone``)."""
     from pointcontrast_tpu_torch.apps import votenet as app
+    from pointcontrast_tpu_torch.config import load_config, net_dtype
 
     args = [f"misc.out_dir={tmp_path / 'run'}"] + override
+    if override is HYPER_BF16:
+        cfg = load_config(app.DEFAULT_CONFIG, args)
+        assert net_dtype(cfg) == torch.bfloat16
+        app.check_supported(cfg, torch.device("cpu"))
+        return
     with pytest.raises(NotImplementedError, match=match):
         app.main(args, device="cpu")
     assert not os.path.exists(tmp_path / "run")
