@@ -6,11 +6,13 @@ NVIDIA GPU (written for the H100).
     python3 chip_smoke.py --scatter-blocks 1,2,4,8,16
     python3 chip_smoke.py --wgrad-blocks 1,2,4,8
     python3 chip_smoke.py --resnet-bf16-spread 0,1,2,3
+    python3 chip_smoke.py --brick-bf16-spread 0,1,2,3
 
 The other forms only time scatter_gemm at several SCATTER_BLOCKS, or the
 tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``);
-``--votenet-bf16-spread`` and ``--resnet-bf16-spread`` take the summation-
-order readings that BF16_VOTENET_LOSS_RTOL and BF16_RESNET_LIMITS are set
+``--votenet-bf16-spread``, ``--resnet-bf16-spread`` and
+``--brick-bf16-spread`` take the summation-order readings that
+BF16_VOTENET_LOSS_RTOL, BF16_STEP_LIMITS and BF16_GRAD_LIMITS are set
 from.  Phases of the first, each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
@@ -56,6 +58,15 @@ from.  Phases of the first, each printed on its own line:
   5c. ``pretrain voxel bf16``: 5b on the voxel batches, whose K1 and K2
      forwards round each tap (gather_gemm_bf16's ``round_each_tap``, JAX's
      flat ``_conv_core``);
+  5d. ``pretrain brick:2 bf16``: 5b on the brick:2 batches: brick_gemm_bf16
+     and brick_wgrad_bf16 (the tensor cores) within their bounds of the
+     exact sum (``bound_ratio``), bit-equal run to run, each check's device
+     ms beside the f32 kernel's at the same shapes (``f32_device_ms``),
+     the placement and up gathers' gather_sum_bf16 / scatter_sum_bf16 and
+     the flat levels' bf16 forms; the step's loss and output cosine to
+     BF16_STEP_LIMITS and its gradients from one forward of the kernels to
+     BF16_GRAD_LIMITS (``_bf16_parity``), beside the reversed twins'
+     spread; then ``brick k5 shapes bf16`` (launches 0);
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -134,18 +145,20 @@ from.  Phases of the first, each printed on its own line:
      f32 twin's taps reversed, ``repeat_spread``: two launches' gap), with
      the bf16 parity of 5b;
   17a. ``semseg voxel`` (Res16UNet34C in the BilateralCRF, flat backbone
-     and filter, 5 counted steps) and ``semseg brick`` (Res16UNet34C on
-     brick:2, 3 counted steps): the batch in the layout, every kernel at
-     one real forward's shapes, kernels-vs-plain step, evaluate_dataset in
-     the layout;
+     and filter, 5 counted steps), ``semseg brick`` (Res16UNet34C on
+     brick:2, 3 counted steps) and ``semseg brick bf16`` (the same in bf16,
+     the parity of 5d): the batch in the layout, every kernel at one real
+     forward's shapes, kernels-vs-plain step, evaluate_dataset in the
+     layout;
   18. cli semseg: apps.semseg.main on SyntheticSemsegDataset
      (net.dtype=float32): 3 steps, whole-split validation, a checkpoint,
      then a second call that resumes with nothing left to train; then the
      same with the shipped ``net.dtype: bfloat16`` (Res16UNet34C, then
      ResUNet18INBN: the ResUNet family in bf16), with
      net.model=MinkUNetHyper14INBN (f32, then the shipped bf16), the
-     shipped bf16 with net.wrapper_type=BilateralCRF, with data.layout=voxel
-     and with data.layout=brick;
+     shipped bf16 with net.wrapper_type=BilateralCRF, with data.layout=voxel,
+     with data.layout=brick, and with data.layout=brick on the shipped
+     bf16;
   the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
   chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
   random label per level-5 voxel):
@@ -198,9 +211,9 @@ same bits from two launches (segment_sum at up to SEG_SMEM segments);
 ``[ptxas]`` lines give the gather GEMMs', scatter_gemm's, parent_gemm's,
 the brick kernels', FPS's, ball query's, segment_sum's and three_nn's
 registers, stack and spills (any stack or spill fails the build phase, but
-for the f32 and SIMT bf16 gather GEMMs'); ``[sass]`` lines the gather GEMM
-instances' HMMA counts (only the tensor-core forms may, and must, have
-them).  Then
+for the f32 and SIMT bf16 gather GEMMs'); ``[sass]`` lines the gather,
+scatter and brick GEMM instances' HMMA counts (only the tensor-core forms
+may, and must, have them).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -212,6 +225,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -263,16 +277,21 @@ BF16_VOTENET_LOSS_RTOL = 0.08
 BF16_LIBRARY_RTOL = 8 * 2.0 ** -7
 BF16_COS_MIN = 0.999
 BF16_NORM_TOL = 2.0 ** -7
-# the bf16 ResNet steps, kernels vs plain twins (loss rtol, logits' cosine
-# min): 1.8 times the largest gaps (1 - cosine) of the plain twins with
-# gather_gemm_bf16's taps reversed over seeds 0-3 (``--resnet-bf16-spread
-# 0,1,2,3``; NVIDIA H100 80GB HBM3, 700 W), as BF16_VOTENET_LOSS_RTOL:
-# ResNet18 5.45e-04 and 0.9999090, ResNet50 (305 level-5 rows, 50
-# train-mode BN layers deep: past BF16_COS_MIN) 6.544e-03 and 0.9915437.
-# The same run's lower-precision control ("pertap": every gather GEMM's
-# taps rounded and added in bf16) falls below both cosines at every seed
-BF16_RESNET_LIMITS = {"resnet18 bf16": (0.000981, 0.999836),
-                      "resnet50 bf16": (0.01178, 0.98478)}
+# a bf16 step, kernels vs plain twins (loss rtol, the output's cosine min)
+# on the paths named: 1.8 times the largest gaps (1 - cosine) of the plain
+# twins with the bf16 GEMMs' f32 sums in reverse order over seeds 0-3 (NVIDIA
+# H100 80GB HBM3, 700 W), as BF16_VOTENET_LOSS_RTOL.  ``--resnet-bf16-spread
+# 0,1,2,3``: ResNet18 5.45e-04 and 0.9999090, ResNet50 (305 level-5 rows,
+# 50 train-mode BN layers deep: past BF16_COS_MIN) 6.544e-03 and 0.9915437;
+# the same run's lower-precision control ("pertap": every gather GEMM's
+# taps rounded and added in bf16) falls below both cosines at every seed.
+# ``--brick-bf16-spread 0,1,2,3``: pretrain brick:2 6.476e-05 and
+# 0.9996272, semseg brick 4.478e-05 and 0.9994607 (the kernels 5.98e-05,
+# 0.9995989 and 4.80e-05, 0.9994204)
+BF16_STEP_LIMITS = {"resnet18 bf16": (0.000981, 0.999836),
+                    "resnet50 bf16": (0.01178, 0.98478),
+                    "pretrain brick:2 bf16": (0.0001166, 0.999329),
+                    "semseg brick bf16": (0.0000806, 0.999029)}
 # the bf16 ResNets' input and parameter gradients from one forward of the
 # kernels, kernels vs plain twins (the worst tensor's max error over its
 # largest magnitude, the relative L2 distance of all of them): 1.8 times
@@ -283,9 +302,15 @@ BF16_RESNET_LIMITS = {"resnet18 bf16": (0.000981, 0.999836),
 # last tap ("drop_tap") 1.06-1.32 and 0.68-0.81, outside both; every dF
 # rounded per tap ("pertap_all") 0.024-0.054 and 0.012-0.023, outside
 # ResNet18's L2 limit only; K4's dF alone so ("pertap_dF") inside both: a
-# rounding rule is held by the kernel checks, not by the step
+# rounding rule is held by the kernel checks, not by the step.  The brick
+# paths the same way (``--brick-bf16-spread 0,1,2,3``): pretrain brick:2
+# 2.714e-02 and 1.433e-02, semseg brick 2.999e-02 and 1.424e-02 (the
+# kernels 3.029e-02, 1.460e-02 and 3.539e-02, 1.440e-02; BN weights and
+# biases worst)
 BF16_GRAD_LIMITS = {"resnet18 bf16": (0.03358, 0.009868),
-                    "resnet50 bf16": (0.05797, 0.03075)}
+                    "resnet50 bf16": (0.05797, 0.03075),
+                    "pretrain brick:2 bf16": (0.04884, 0.02579),
+                    "semseg brick bf16": (0.05398, 0.02564)}
 SPARSE_SRC = "pointcontrast_tpu_torch/csrc/sparse_conv.cu"
 DETECT_SRC = "pointcontrast_tpu_torch/csrc/detect_ops.cu"
 KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
@@ -320,16 +345,21 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
     "scatter_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:578"),
     "gather_sum_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:906"),
     "scatter_sum_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/ops.py:951"),
+    # the brick layout's same-level conv in bf16
+    "brick_gemm_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:400"),
+    "brick_wgrad_bf16": (SPARSE_SRC, "pointcontrast_tpu/sparse/brick.py:360"),
 }
 # the kernels whose ptxas report gets a ``[ptxas]`` line, by source; those of
 # PTXAS_NO_SPILL and the tensor-core gather_wgrad instances (bf16, bf16)
 # fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_gemm_mma_kernel", "gather_wgrad_kernel",
-                "parent_gemm_kernel", "brick_gemm_kernel", "brick_wgrad_kernel",
-                "scatter_gemm_kernel", "scatter_gemm_mma_kernel", "segment_sum_kernel")
+                "parent_gemm_kernel", "brick_gemm_kernel", "brick_gemm_mma_kernel",
+                "brick_wgrad_kernel", "scatter_gemm_kernel", "scatter_gemm_mma_kernel",
+                "segment_sum_kernel")
 PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
 PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "fps_kernel",
-                  "brick_gemm_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
+                  "brick_gemm_kernel", "brick_gemm_mma_kernel", "brick_wgrad_kernel",
+                  "scatter_gemm_kernel",
                   "scatter_gemm_mma_kernel", "ball_query_kernel", "segment_sum_kernel",
                   "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
@@ -341,7 +371,8 @@ FPS_FLOOR_PICKS = 512
 # partial sums added in a fixed order); segment_sum at up to SEG_SMEM
 # segments (its general path adds with f32 atomics)
 REPEAT_EXACT = ("parent_gemm", "furthest_point_sample", "brick_gemm", "brick_wgrad",
-                "ball_query", "segment_sum", "three_nn", "parent_gemm_bf16")
+                "ball_query", "segment_sum", "three_nn", "parent_gemm_bf16",
+                "brick_gemm_bf16", "brick_wgrad_bf16")
 # segment_sum's general-path check: random ids at this many segments (past
 # SEG_SMEM), over rows of the widest InstanceBatchNorm level's shape
 SEG_GENERAL = (40, 262144, 64)
@@ -383,7 +414,9 @@ BF16_FORMS = ("gather_wgrad_bf16", "parent_gemm_bf16", "scatter_parent_bf16")
 # adds), ``bound_ratio`` <= 1
 BOUNDED = {"gather_gemm_bf16": "gather_gemm_bf16_bound",
            "gather_wgrad_bf16": "gather_wgrad_bf16_bound",
-           "scatter_gemm_bf16": "scatter_gemm_bf16_bound"}
+           "scatter_gemm_bf16": "scatter_gemm_bf16_bound",
+           "brick_gemm_bf16": "brick_gemm_bf16_bound",
+           "brick_wgrad_bf16": "brick_wgrad_bf16_bound"}
 # radii tried, largest first, for the heavy-tail scatter-add check: the
 # first at which HEAVY_TAIL_SHARE of the balls hold 1 or 2 hits, so ball
 # query's repeats of the first hit fill most of the group's rows
@@ -449,11 +482,12 @@ def phase_build():
 
 
 def sass_mma_check(library, cuobjdump):
-    """The tensor-core forms' machine code: one ``[sass]`` line a gather
-    or scatter GEMM instance with its count of HMMA instructions
+    """The tensor-core forms' machine code: one ``[sass]`` line a gather,
+    scatter or brick GEMM instance with its count of HMMA instructions
     (``cuobjdump -sass``); fails unless every gather_gemm_mma_kernel,
-    scatter_gemm_mma_kernel and (bf16, bf16) gather_wgrad_kernel instance
-    issues them and no other instance does."""
+    scatter_gemm_mma_kernel, brick_gemm_mma_kernel, (bf16, bf16)
+    gather_wgrad_kernel and bf16 brick_wgrad_kernel instance issues them and
+    no other instance does."""
     import re
 
     text = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
@@ -468,10 +502,13 @@ def sass_mma_check(library, cuobjdump):
             counts[entry] += 1
     wrong = []
     for entry, n in sorted(counts.items()):
-        if not entry.startswith(("gather_gemm", "gather_wgrad", "scatter_gemm")):
+        if not entry.startswith(("gather_gemm", "gather_wgrad", "scatter_gemm", "brick_gemm",
+                                 "brick_wgrad")):
             continue
-        tensor_cores = (entry.startswith(("gather_gemm_mma", "scatter_gemm_mma"))
-                        or entry.endswith("bf16,bf16>"))
+        tensor_cores = (entry.startswith(("gather_gemm_mma", "scatter_gemm_mma",
+                                          "brick_gemm_mma"))
+                        or entry.endswith("bf16,bf16>")
+                        or (entry.startswith("brick_wgrad") and entry.endswith(",bf16>")))
         say("sass", kernel=entry, hmma=n)
         if (n > 0) != tensor_cores:
             wrong.append(entry)
@@ -733,15 +770,22 @@ def work(name, args, out) -> tuple:
     raise KeyError(name)
 
 
+def _bf16_operands(args) -> bool:
+    """Whether every floating operand of a check is bf16: its tables,
+    weights and cotangents (the brick kernels' ``valid``, an f32 [NB*8]
+    mask, is not multiplied)."""
+    import torch
+
+    return all(a.dtype == torch.bfloat16 for a in args
+               if torch.is_tensor(a) and a.is_floating_point() and a.dim() > 1)
+
+
 def flop_peak(name, args) -> float:
     """The peak the operations of a check are held to: a bf16 form whose
     floating operands are all bf16, the bf16 tensor cores'; any f32
     operand (the f32 kernels, and K3's dW against the f32 scatter dy,
     which bf16 tensor cores cannot take exactly), the f32 SIMT peak."""
-    import torch
-
-    floats = [a for a in args if torch.is_tensor(a) and a.is_floating_point()]
-    if name.endswith("_bf16") and all(a.dtype == torch.bfloat16 for a in floats):
+    if name.endswith("_bf16") and _bf16_operands(args):
         return BF16_FLOP_PER_S
     return F32_FLOP_PER_S
 
@@ -1140,16 +1184,15 @@ def phase_kernels(checks, module, exact=()):
             required = name in REPEAT_EXACT and not (  # the general path's atomics
                 name == "segment_sum" and args[2] > module.SEG_SMEM)
             ok = ok and (extra["repeat_bit_equal"] or not required)
-        tensor_cores = name in BOUNDED and all(
-            a.dtype == torch.bfloat16 for a in args if torch.is_tensor(a) and a.is_floating_point())
-        if tensor_cores:
+        if name in BOUNDED and _bf16_operands(args):  # the tensor-core forms
             ratio = module.bound_ratio(got, *getattr(module, BOUNDED[name])(*args))
             extra["bound_ratio"] = f"{ratio:.3e}"
             ok = ok and ratio <= 1.0
-            if name == "gather_gemm_bf16":  # the twin's own spread under another order
-                extra["reversed_spread"] = f"{_max_err(_reversed_gemm(*args), want)[0]:.3e}"
-            if name == "scatter_gemm_bf16":
-                extra["reversed_spread"] = f"{_max_err(_reversed_scatter(*args), want)[0]:.3e}"
+            if name in REVERSED:  # the twin's own spread under another order
+                extra["reversed_spread"] = f"{_max_err(REVERSED[name](*args), want)[0]:.3e}"
+            if name.startswith("brick"):  # the f32 kernel at the same shapes, in this call
+                f32 = getattr(module, name.removesuffix("_bf16"))
+                extra["f32_device_ms"] = f"{_device_ms(f32, tuple(map(_widened, args))):.4f}"
         elif name in BF16_FORMS:
             f32 = getattr(module, name.removesuffix("_bf16"))(*map(_widened, args))
             extra["f32_instance_bit_equal"] = _equal(got, f32.to(got.dtype))
@@ -1282,6 +1325,29 @@ def _reversed_scatter(g3, map_, taps, w, s_in, skip, order=None):
                               skip).to(g3.dtype)
 
 
+def _reversed_brick_gemm(x, nbr, steps, w, valid=None, order=None):
+    """brick_gemm_bf16's function with f32 sums, the plan's steps added in
+    reverse order, rounded once (each bf16 brick check's
+    ``reversed_spread``, and the "reversed" mode)."""
+    from pointcontrast_tpu_torch.sparse.kernels import brick_gemm_plain
+
+    return brick_gemm_plain(x.float(), nbr, steps[::-1], w.float(), valid).to(x.dtype)
+
+
+def _reversed_brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
+    """brick_wgrad_bf16's function the same way: f32 sums over the steps
+    in reverse order, rounded once."""
+    from pointcontrast_tpu_torch.sparse.kernels import brick_wgrad_plain
+
+    return brick_wgrad_plain(x.float(), nbr, steps[::-1], ct.float(), num_taps,
+                             valid).to(x.dtype)
+
+
+# the bf16 checks' summation-order readings (``reversed_spread``)
+REVERSED = {"gather_gemm_bf16": _reversed_gemm, "scatter_gemm_bf16": _reversed_scatter,
+            "brick_gemm_bf16": _reversed_brick_gemm, "brick_wgrad_bf16": _reversed_brick_wgrad}
+
+
 def _pertap_gemm(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=None,
                  round_each_tap=False, f32_out=False):
     """A control for the bf16 forward's checks, lower in precision than
@@ -1346,8 +1412,7 @@ def _exact_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride, k, s_
 # so, "drop_tap" K4's dF without its last tap (wrong)
 MODE_SWAPS = {
     "kernels": {}, "plain": {},
-    "reversed": {"gather_gemm_bf16": _reversed_gemm, "scatter_gemm_bf16": _reversed_scatter,
-                 "gather_wgrad_bf16": _exact_wgrad},
+    "reversed": {**REVERSED, "gather_wgrad_bf16": _exact_wgrad},
     "pertap": {"gather_gemm_bf16": _pertap_gemm},
     "pertap_dF": {"scatter_gemm_bf16": _pertap_scatter},
     "pertap_all": {"gather_gemm_bf16": _pertap_gemm, "scatter_gemm_bf16": _pertap_scatter},
@@ -1358,18 +1423,21 @@ MODE_SWAPS = {
 @contextlib.contextmanager
 def _mode(mode):
     """Run the block in one of MODE_SWAPS' modes."""
-    from pointcontrast_tpu_torch.sparse import ops
+    from pointcontrast_tpu_torch.sparse import kernels, ops
     from pointcontrast_tpu_torch.tools.workload import plain_ops
 
+    # sparse.ops imported its wrappers by name; sparse.brick calls the brick
+    # wrappers through the kernels module
+    home = {name: ops if hasattr(ops, name) else kernels for name in MODE_SWAPS[mode]}
     with plain_ops() if mode != "kernels" else contextlib.nullcontext():
-        saved = {name: getattr(ops, name) for name in MODE_SWAPS[mode]}
+        saved = {name: getattr(home[name], name) for name in MODE_SWAPS[mode]}
         try:
             for name, fn in MODE_SWAPS[mode].items():
-                setattr(ops, name, fn)
+                setattr(home[name], name, fn)
             yield
         finally:
             for name, fn in saved.items():
-                setattr(ops, name, fn)
+                setattr(home[name], name, fn)
 
 
 def _mode_outputs(model, run, device, modes=("plain", "kernels", "reversed")) -> dict:
@@ -1421,6 +1489,34 @@ def _check_step_parity(app, losses, agree=None, rtol=None, cos_min=BF16_COS_MIN)
         raise AssertionError(f"{app}: the kernel step differs from the plain step")
 
 
+def _bf16_parity(app, losses, model, run, x, ct, valid, device):
+    """A bf16 path's parity: one step's loss through the kernels against
+    the plain twins' and the forward's cosine (``_check_step_parity`` at
+    BF16_STEP_LIMITS[app], else BF16_LOSS_RTOL and BF16_COS_MIN, beside the
+    reversed twins' spread); for the paths of BF16_GRAD_LIMITS also the
+    input and parameter gradients from one forward ``run(m, x)`` of the
+    kernels, backpropagated from ``ct`` through the kernels and through the
+    plain twins: the worst tensor's error over its largest magnitude and
+    the relative L2 distance of all of them within their limits, beside
+    the reversed twins' spread."""
+    rtol, cos_min = BF16_STEP_LIMITS.get(app, (BF16_LOSS_RTOL, BF16_COS_MIN))
+    _check_step_parity(app, losses, _forward_agreement(model, lambda m: run(m, x), valid,
+                                                       device), rtol=rtol, cos_min=cos_min)
+    if app not in BF16_GRAD_LIMITS:
+        return
+    got = _kernels_vs_plain(model, x, ct, run, device, modes=("kernels", "plain", "reversed"))
+    worst_rtol, l2_rtol = BF16_GRAD_LIMITS[app]
+    spread, _ = _worst_gap(got, "reversed", skip=("output",))
+    l2, l2_spread = (_l2_gap(got, mode, skip=("output",)) for mode in ("kernels", "reversed"))
+    worst = _compare_runs(app, got, rtol=worst_rtol, skip=("output",))
+    say("parity", app=app, gradients=len(got["plain"]) - 1, worst_rel=f"{worst:.3e}",
+        spread_worst_rel=f"{spread:.3e}", rtol=worst_rtol, l2_rel=f"{l2:.3e}",
+        spread_l2_rel=f"{l2_spread:.3e}", l2_rtol=l2_rtol)
+    if not l2 <= l2_rtol:
+        raise AssertionError(f"{app}: the kernels' gradients differ from the plain twins' "
+                             f"by {l2:.3e} (L2) > {l2_rtol}")
+
+
 def phase_slice(batches, device, card, app, expect, dtype=None):
     """A pretraining main path: one step through the kernels against the
     plain twins, then STEPS PretrainTrainer steps with ``expect`` launches
@@ -1463,9 +1559,14 @@ def phase_slice(batches, device, card, app, expect, dtype=None):
             losses[mode] = float(step(m, opt, sched, batches[0])["loss"])
         del m, opt, sched
     b0 = batches[0]
-    _check_step_parity(app, losses, _forward_agreement(
-        model, lambda m: m(b0.feats0, b0.pyramid0), b0.pyramid0.levels[0].valid > 0,
-        device) if bf16 else None)
+    if bf16:
+        valid0 = b0.pyramid0.levels[0].valid
+        gen = torch.Generator(device=device).manual_seed(6)
+        ct = torch.randn(valid0.shape[0], 32, device=device, generator=gen) * valid0[:, None]
+        _bf16_parity(app, losses, model, lambda m, x: m(x, b0.pyramid0), b0.feats0, ct,
+                     valid0 > 0, device)
+    else:
+        _check_step_parity(app, losses)
 
     # the main path: PretrainTrainer, STEPS steps, counted launches
     trainer = PretrainTrainer(model, itertools.cycle(batches), cfg, device)
@@ -2237,12 +2338,12 @@ def expected_from_calls(calls) -> dict:
             n[f"scatter_gemm{sfx}"] += groups * (not stem)
             n[f"gather_wgrad{sfx}"] += groups
         elif kind == "brick":
-            n["brick_gemm"] += 1 + (not stem)
-            n["brick_wgrad"] += 1
+            n[f"brick_gemm{sfx}"] += 1 + (not stem)
+            n[f"brick_wgrad{sfx}"] += 1
         elif (kind == "bdown" and args[1].place is not None) or (
                 kind == "bup" and args[1] is not None):
-            n["gather_sum"] += 1
-            n["scatter_sum"] += 1
+            n[f"gather_sum{sfx}"] += 1
+            n[f"scatter_sum{sfx}"] += 1
     return n
 
 
@@ -2319,20 +2420,23 @@ def conv_checks(model, batch, calls=None):
                      (x, m3, taps, 0, ct, None, None, 0, len(taps), n, n - 1, -1)),
                 ]
             continue
-        if kind == "brick":
+        if kind == "brick":  # bf16 features: the bf16 forms, on the weights' bf16 cast
             bm, valid = args[1], args[2]
             steps = slot_steps(bm.plan)
             rev = _tap_reversal(bm.plan)
             f = args[0].contiguous()
-            ct = _masked_randn((1, f.shape[0], cout), valid, gen)[0]
+            sfx = "_bf16" if f.dtype == torch.bfloat16 else ""
+            gemm, wgrad = getattr(K, f"brick_gemm{sfx}"), getattr(K, f"brick_wgrad{sfx}")
+            w = w.to(f.dtype)
+            ct = _masked_randn((1, f.shape[0], cout), valid, gen)[0].to(f.dtype)
             tag = f"{name} NB{bm.nbr.shape[1]} {k} taps {cin}->{cout}"
-            checks.append(("brick_gemm", f"brick fwd {tag}", K.brick_gemm,
+            checks.append((f"brick_gemm{sfx}", f"brick fwd {tag}", gemm,
                            (f, bm.nbr, steps, w.contiguous(), valid, bm.order)))
             if not stem:
-                checks.append(("brick_gemm", f"brick dF {tag}", K.brick_gemm,
+                checks.append((f"brick_gemm{sfx}", f"brick dF {tag}", gemm,
                                (ct, bm.nbr, steps,
                                 w[list(rev)].transpose(1, 2).contiguous(), valid, bm.order)))
-            checks.append(("brick_wgrad", f"brick dW {tag}", K.brick_wgrad,
+            checks.append((f"brick_wgrad{sfx}", f"brick dW {tag}", wgrad,
                            (f, bm.nbr, steps, ct, k, valid, bm.order)))
             continue
         if kind in ("bdown", "bup"):
@@ -2352,12 +2456,15 @@ def conv_checks(model, batch, calls=None):
                 rows = args[1].reshape(1, 1, -1)
                 skip_from = src_rows - k
             n_out = rows.shape[2]
-            f = torch.randn(1, src_rows, c, device=dev, generator=gen)
-            ct = torch.randn(1, n_out, c, device=dev, generator=gen)
+            dt = args[0].dtype  # bf16: the bf16 forms (a copy, the store form)
+            sfx = "_bf16" if dt == torch.bfloat16 else ""
+            f = torch.randn(1, src_rows, c, device=dev, generator=gen).to(dt)
+            ct = torch.randn(1, n_out, c, device=dev, generator=gen).to(dt)
             tag = f"{name} {kind} {src_rows}->{n_out} C{c}"
             checks += [
-                ("gather_sum", f"{tag} fwd", K.gather_sum, (f, rows, [0], 0, n_out)),
-                ("scatter_sum", f"{tag} bwd", K.scatter_sum,
+                (f"gather_sum{sfx}", f"{tag} fwd", getattr(K, f"gather_sum{sfx}"),
+                 (f, rows, [0], 0, n_out)),
+                (f"scatter_sum{sfx}", f"{tag} bwd", getattr(K, f"scatter_sum{sfx}"),
                  (ct, rows, [0], 0, src_rows, skip_from)),
             ]
             continue
@@ -2583,10 +2690,16 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
         with W.plain_ops() if mode == "plain" else contextlib.nullcontext():
             losses[mode] = float(step(m, opt, sched, [batch])["loss"])
         del m, opt, sched
-    bf16 = getattr(net, "dtype", None) == torch.bfloat16
-    _check_step_parity(app, losses, _forward_agreement(
-        model, lambda m: forward(m, batch), batch.pyramid.levels[0].valid > 0,
-        device) if bf16 else None)
+    if getattr(net, "dtype", None) == torch.bfloat16:
+        valid0 = batch.pyramid.levels[0].valid
+        gen = torch.Generator(device=device).manual_seed(6)
+        ct = torch.randn(valid0.shape[0], W.SEMSEG_CLASSES, device=device,
+                         generator=gen) * valid0[:, None]
+        _bf16_parity(app, losses, model,
+                     lambda m, x: forward(m, dataclasses.replace(batch, feats=x)),
+                     batch.feats, ct, valid0 > 0, device)
+    else:
+        _check_step_parity(app, losses)
 
     # the main path: SemsegTrainer, counted launches
     trainer = SemsegTrainer(model, itertools.repeat(batch), None, cfg,
@@ -2935,12 +3048,12 @@ def phase_resnet(app, model, batch, device, card):
     count of every kernel, and the eval logits.  A bf16 model
     (``model.dtype``): one SGD step through the kernels against the plain
     twins (the loss to BF16_LOSS_RTOL, the forward's logits to cosine
-    BF16_COS_MIN, or BF16_RESNET_LIMITS, beside the plain twins' spread
+    BF16_COS_MIN, or BF16_STEP_LIMITS, beside the plain twins' spread
     under reversed tap sums, as the bf16 semseg paths), and the input and
     parameter gradients from one forward of the kernels, backpropagated
     through the kernels and through the plain twins, within
-    BF16_GRAD_LIMITS (beside the reversed twins' spread), in place of the
-    f32 tolerances and the ulp spread."""
+    BF16_GRAD_LIMITS (beside the reversed twins' spread; ``_bf16_parity``),
+    in place of the f32 tolerances and the ulp spread."""
     import torch
 
     from pointcontrast_tpu_torch.detect import kernels as D
@@ -2968,24 +3081,7 @@ def phase_resnet(app, model, batch, device, card):
             with W.plain_ops() if mode == "plain" else contextlib.nullcontext():
                 losses[mode] = float(W.resnet_step(m, opt, sched, batch))
             del m, opt, sched
-        rtol, cos_min = BF16_RESNET_LIMITS.get(app, (BF16_LOSS_RTOL, BF16_COS_MIN))
-        _check_step_parity(app, losses, _forward_agreement(
-            model, lambda m: run(m, batch.feats), valid > 0, device), rtol=rtol,
-            cos_min=cos_min)
-        # the gradients, backpropagated from one forward of the kernels
-        got = _kernels_vs_plain(model, batch.feats, ct, run, device,
-                                modes=("kernels", "plain", "reversed"))
-        worst_rtol, l2_rtol = BF16_GRAD_LIMITS[app]
-        spread, _ = _worst_gap(got, "reversed", skip=("output",))
-        l2, l2_spread = (_l2_gap(got, mode, skip=("output",)) for mode in ("kernels", "reversed"))
-        worst = _compare_runs(app, got, rtol=worst_rtol, skip=("output",))
-        say("parity", app=app, gradients=len(got["plain"]) - 1, worst_rel=f"{worst:.3e}",
-            spread_worst_rel=f"{spread:.3e}", rtol=worst_rtol, l2_rel=f"{l2:.3e}",
-            spread_l2_rel=f"{l2_spread:.3e}", l2_rtol=l2_rtol)
-        if not l2 <= l2_rtol:
-            raise AssertionError(f"{app}: the kernels' gradients differ from the plain twins' "
-                                 f"by {l2:.3e} (L2) > {l2_rtol}")
-        del got
+        _bf16_parity(app, losses, model, run, batch.feats, ct, valid > 0, device)
     else:
         got = _kernels_vs_plain(model, batch.feats, ct, run, device)
         worst = _compare_runs(app, got)
@@ -3123,7 +3219,8 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False, wrapper=None)
     if model == "MinkUNetHyper14INBN":
         needed += [f"gather_sum{sfx}", f"scatter_sum{sfx}", "segment_sum"]
     if layout and layout.startswith("brick"):
-        needed += ["brick_gemm", "brick_wgrad", "gather_sum", "scatter_sum"]
+        needed += [f"brick_gemm{sfx}", f"brick_wgrad{sfx}", f"gather_sum{sfx}",
+                   f"scatter_sum{sfx}"]
     t0 = time.perf_counter()
     K.reset_launches()
     trainer, history = app.main(args)
@@ -3157,11 +3254,13 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False, wrapper=None)
     shutil.rmtree(out, ignore_errors=True)
 
 
-def brick_k5_checks(pyramid, feats):
+def brick_k5_checks(pyramid, feats, dtype=None):
     """The brick conv with a k = 5 plan (125 taps, ``conv1_kernel_size=5``,
     which no counted path runs) on level 0 of a brick pyramid: brick_gemm
     on the batch's input features (Cin 3 -> 32) and, with W[rev]^T, on a
-    cotangent masked as the output, and brick_wgrad, random weights."""
+    cotangent masked as the output, and brick_wgrad, random weights;
+    ``dtype=bfloat16``: the bf16 forms on the bf16 casts (the stem's Cin =
+    3 zero-filled to the mma's k16)."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
@@ -3175,12 +3274,16 @@ def brick_k5_checks(pyramid, feats):
     w = torch.randn(plan.num_taps, cin, cout, device=feats.device, generator=gen)
     w *= (2.0 / (plan.num_taps * cin)) ** 0.5
     ct = _masked_randn((1, feats.shape[0], cout), valid, gen)[0]
+    sfx = "" if dtype is None else "_bf16"
+    if dtype is not None:
+        feats, w, ct = feats.to(dtype), w.to(dtype), ct.to(dtype)
+    gemm, wgrad = getattr(K, f"brick_gemm{sfx}"), getattr(K, f"brick_wgrad{sfx}")
     tag = f"NB{bm.nbr.shape[1]} {plan.num_taps} taps {cin}->{cout}"
-    return [("brick_gemm", f"brick k5 fwd {tag}", K.brick_gemm,
+    return [(f"brick_gemm{sfx}", f"brick k5 fwd {tag}", gemm,
              (feats, bm.nbr, steps, w, valid, bm.order)),
-            ("brick_gemm", f"brick k5 dF {tag}", K.brick_gemm,
+            (f"brick_gemm{sfx}", f"brick k5 dF {tag}", gemm,
              (ct, bm.nbr, steps, w[rev].transpose(1, 2).contiguous(), valid, bm.order)),
-            ("brick_wgrad", f"brick k5 dW {tag}", K.brick_wgrad,
+            (f"brick_wgrad{sfx}", f"brick k5 dW {tag}", wgrad,
              (feats, bm.nbr, steps, ct, plan.num_taps, valid, bm.order))]
 
 
@@ -3208,11 +3311,11 @@ def pretrain_path(layout, device, card, paths, dtype=None):
     exact = ("gather_sum", "scatter_sum") if layout.startswith("brick") else ("gather_sum",)
     res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=exact)
     del calls  # the forward's activations: out of the path's peak memory
-    if layout.startswith("brick"):  # no main path: the k = 5 stem's plan
-        paths["brick k5 shapes"] = (phase_kernels(brick_k5_checks(b.pyramid0, b.feats0), K),
-                                    {})
     app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
     app += "" if dtype is None else " bf16"
+    if layout.startswith("brick"):  # no main path: the k = 5 stem's plan
+        k5 = "brick k5 shapes" + app.removeprefix(f"pretrain {layout}")
+        paths[k5] = (phase_kernels(brick_k5_checks(b.pyramid0, b.feats0, dtype), K), {})
     paths[app] = (res, phase_slice(batches, device, card, app=app, expect=expect,
                                    dtype=dtype))
 
@@ -3221,18 +3324,22 @@ def semseg_layout_paths(device, card, paths, scenes):
     """The semseg main paths in the voxel layout (Res16UNet34C 3 -> 20 in
     the BilateralCRF wrapper: the backbone's flat K1-K3 and the filter's
     flat conv) and in the brick layout (Res16UNet34C on ``brick``: two
-    brick levels, then flat), on the workload's scenes: every kernel at
+    brick levels, then flat; ``semseg brick bf16``: the same net in bf16,
+    the shipped YAML's dtype), on the workload's scenes: every kernel at
     the shapes of one real forward (and, on voxel, the flat pools' at a
     sum pool and two unpools), the kernels-vs-plain step and counted
     steps (STEPS with the CRF, whose coin first applies the filter at the
     fifth; LAYOUT_STEPS without), evaluate_dataset in the layout."""
+    import torch
+
     from pointcontrast_tpu_torch.semseg.train import forward
     from pointcontrast_tpu_torch.sparse import kernels as K
     from pointcontrast_tpu_torch.tools import workload as W
 
-    for layout, crf in (("voxel", W.SEMSEG_CRF), ("brick", None)):
+    for layout, crf, dtype in (("voxel", W.SEMSEG_CRF, None), ("brick", None, None),
+                               ("brick", None, torch.bfloat16)):
         _, batch = make_semseg_batch(device, scenes, layout, crf=crf is not None)
-        model = W.semseg_model(seed=0, crf=crf)
+        model = W.semseg_model(seed=0, crf=crf, dtype=dtype)
         calls = conv_calls(model, batch.feats, lambda m: forward(m, batch))
         checks = conv_checks(model, batch, calls=calls)
         if layout == "voxel":  # the flat pools, which no counted path runs
@@ -3243,9 +3350,10 @@ def semseg_layout_paths(device, card, paths, scenes):
                                                                 if layout == "brick" else ()))
         base = None if crf else expected_from_calls(calls)
         del calls, checks
-        paths[f"semseg {layout}"] = (res, phase_semseg(
-            f"semseg {layout}", model, batch, scenes, device, card, crf,
-            steps=STEPS if crf else LAYOUT_STEPS, layout=layout, base=base))
+        app = f"semseg {layout}" + (" bf16" if dtype else "")
+        paths[app] = (res, phase_semseg(app, model, batch, scenes, device, card, crf,
+                                        steps=STEPS if crf else LAYOUT_STEPS, layout=layout,
+                                        base=base))
         del model, batch
 
 
@@ -3355,51 +3463,37 @@ def votenet_bf16_spread(seeds) -> int:
     return 0
 
 
-def resnet_bf16_spread(seeds) -> int:
-    """The bf16 ResNets under summation order alone, the readings
-    BF16_RESNET_LIMITS and BF16_GRAD_LIMITS are set from, and the controls
-    they must refuse: for each seed (the weights' and the scenes') and each
-    of ResNet18 and ResNet50 in bf16 on the ResNet workload's batch, the
-    train-mode logits and cross-entropy in the modes "kernels", "reversed"
-    and "pertap" (MODE_SWAPS) against "plain" (``_mode_outputs``), and the
-    input and parameter gradients from one forward of the kernels, in the
-    modes "kernels", "reversed", "pertap_dF", "pertap_all" and "drop_tap"
+def bf16_spread(label, cases, seeds, fwd_modes, bwd_modes) -> int:
+    """A bf16 path under summation order alone, the readings its
+    BF16_STEP_LIMITS and BF16_GRAD_LIMITS are set from, and the controls
+    they must refuse: for each seed and each case ``cases(seed, device)``
+    yields, (name, model, run, x, ct, valid, loss_of), the train-mode
+    output and its loss in each of ``fwd_modes`` (MODE_SWAPS) against
+    "plain" (``_mode_outputs``), and the input and parameter gradients from
+    one forward of the kernels in each of ``bwd_modes`` ("kernels" first)
     against "plain" (``_kernels_vs_plain``: the worst ratio of
     ``_worst_gap`` and the relative L2 distance of ``_l2_gap``).  One
-    ``[spread]`` line a net and seed, then a JSON line of the worst
-    readings by net."""
+    ``[spread]`` line a case and seed, then a JSON line of the worst
+    readings by case."""
     import torch
-
-    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
-    from pointcontrast_tpu_torch.tools import workload as W
 
     card = phase_device()
     phase_build()
     device = torch.device("cuda", 0)
     worst = {}
     for seed in seeds:
-        batch = W.resnet_batch(W.SemsegScenes(seed=seed), seed=seed).to(device)
-        valid = batch.pyramid.levels[-1].valid > 0
-        ct = _resnet_ct(batch, device)
-
-        def run(m, x):
-            return m(x, batch.pyramid)
-
-        for name in ("ResNet18", "ResNet50"):
-            model = W.resnet_model(seed=seed, model=name, dtype=torch.bfloat16)
-            outs = _mode_outputs(model, lambda m: run(m, batch.feats), device,
-                                 modes=("plain", "kernels", "reversed", "pertap"))
-            loss = {k: float(cross_entropy_ignore(v, batch.labels, 255)) for k, v in outs.items()}
+        for name, model, run, x, ct, valid, loss_of in cases(seed, device):
+            outs = _mode_outputs(model, lambda m: run(m, x), device, modes=("plain", *fwd_modes))
+            loss = {k: float(loss_of(v)) for k, v in outs.items()}
             r = {}
-            for mode in ("kernels", "reversed", "pertap"):
+            for mode in fwd_modes:
                 r[f"{mode}_loss_rel"] = abs(loss[mode] - loss["plain"]) / abs(loss["plain"])
                 r[f"{mode}_cosine"] = _agreement(outs[mode][valid], outs["plain"][valid])["cosine"]
             del outs
-            backward = ("kernels", "reversed", "pertap_dF", "pertap_all", "drop_tap")
-            got = _kernels_vs_plain(model, batch.feats, ct, run, device,
-                                    modes=("kernels", "plain", *backward[1:]))
+            got = _kernels_vs_plain(model, x, ct, run, device,
+                                    modes=("kernels", "plain", *bwd_modes[1:]))
             worst_of = {}
-            for mode in backward:
+            for mode in bwd_modes:
                 r[f"{mode}_grad_rel"], gaps = _worst_gap(got, mode, skip=("output",))
                 r[f"{mode}_grad_l2"] = _l2_gap(got, mode, skip=("output",))
                 worst_of[mode] = gaps[0][0]
@@ -3412,10 +3506,69 @@ def resnet_bf16_spread(seeds) -> int:
                 **{k: f"{v:.7f}" if k.endswith("cosine") else f"{v:.3e}" for k, v in r.items()},
                 worst_grad_of=worst_of, card=card)
             del model
-    print(json.dumps({"resnet_bf16_worst": worst, "seeds": list(seeds),
-                      "limits": BF16_RESNET_LIMITS, "grad_limits": BF16_GRAD_LIMITS}),
+    print(json.dumps({f"{label}_bf16_worst": worst, "seeds": list(seeds),
+                      "limits": BF16_STEP_LIMITS, "grad_limits": BF16_GRAD_LIMITS}),
           flush=True)
     return 0
+
+
+def resnet_bf16_spread(seeds) -> int:
+    """``bf16_spread`` of ResNet18 and ResNet50 in bf16 on the ResNet
+    workload's batch of each seed (the weights' and the scenes'): the
+    logits' cross-entropy in the modes "kernels", "reversed" and "pertap",
+    the gradients in "kernels", "reversed", "pertap_dF", "pertap_all" and
+    "drop_tap"."""
+    import torch
+
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    def cases(seed, device):
+        batch = W.resnet_batch(W.SemsegScenes(seed=seed), seed=seed).to(device)
+        for name in ("ResNet18", "ResNet50"):
+            yield (name, W.resnet_model(seed=seed, model=name, dtype=torch.bfloat16),
+                   lambda m, x: m(x, batch.pyramid), batch.feats, _resnet_ct(batch, device),
+                   batch.pyramid.levels[-1].valid > 0,
+                   lambda out: cross_entropy_ignore(out, batch.labels, 255))
+
+    return bf16_spread("resnet", cases, seeds, ("kernels", "reversed", "pertap"),
+                       ("kernels", "reversed", "pertap_dF", "pertap_all", "drop_tap"))
+
+
+def brick_bf16_spread(seeds) -> int:
+    """``bf16_spread`` of the two brick bf16 paths on each seed's data and
+    weights: ``pretrain brick:2 bf16`` (Res16UNet34C 3 -> 32 on the brick:2
+    pretraining batch, its NCE loss) and ``semseg brick bf16``
+    (Res16UNet34C 3 -> 20 on the semseg scenes in the brick layout, the
+    cross-entropy), in the modes "kernels" and "reversed" (the plain twins
+    with every bf16 GEMM's f32 sums in another order) against "plain",
+    from the cotangents the paths' parity uses."""
+    import torch
+
+    from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
+    from pointcontrast_tpu_torch.losses.semseg import cross_entropy_ignore
+    from pointcontrast_tpu_torch.tools import workload as W
+    from pointcontrast_tpu_torch.train import PretrainConfig
+
+    def ct_for(valid, c, device):
+        gen = torch.Generator(device=device).manual_seed(6)
+        return torch.randn(valid.shape[0], c, device=device, generator=gen) * valid[:, None]
+
+    def cases(seed, device):
+        b = make_batches(device, layout="brick:2", seed=seed)[0]
+        valid = b.pyramid0.levels[0].valid
+        yield ("pretrain brick:2 bf16", W.pretrain_model(seed=seed, dtype=torch.bfloat16),
+               lambda m, x: m(x, b.pyramid0), b.feats0, ct_for(valid, 32, device), valid > 0,
+               lambda out: point_info_nce_loss(out, out, b.q_idx, b.k_idx, b.pair_valid,
+                                               temperature=PretrainConfig().nce_t))
+        _, batch = make_semseg_batch(device, W.SemsegScenes(seed=seed), "brick", crf=False)
+        valid = batch.pyramid.levels[0].valid
+        yield ("semseg brick bf16", W.semseg_model(seed=seed, dtype=torch.bfloat16),
+               lambda m, x: m(x, batch.pyramid), batch.feats,
+               ct_for(valid, W.SEMSEG_CLASSES, device), valid > 0,
+               lambda out: cross_entropy_ignore(out, batch.labels, 255))
+
+    return bf16_spread("brick", cases, seeds, ("kernels", "reversed"), ("kernels", "reversed"))
 
 
 def _sweep_groups(constant, device):
@@ -3520,6 +3673,8 @@ def main() -> int:
         return votenet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     if sys.argv[1:2] == ["--resnet-bf16-spread"]:
         return resnet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
+    if sys.argv[1:2] == ["--brick-bf16-spread"]:
+        return brick_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     t0 = time.perf_counter()
     card = phase_device()
     import torch
@@ -3534,8 +3689,8 @@ def main() -> int:
     paths = {}  # main path -> (its kernel checks' numbers, its launch counts)
     for layout in ("chunked", "voxel", "brick:2"):
         pretrain_path(layout, device, card, paths)
-    pretrain_path("chunked", device, card, paths, dtype=torch.bfloat16)
-    pretrain_path("voxel", device, card, paths, dtype=torch.bfloat16)
+    for layout in ("chunked", "voxel", "brick:2"):
+        pretrain_path(layout, device, card, paths, dtype=torch.bfloat16)
     clouds = votenet_path("chunked", device, card, paths, STEPS)
     res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
     paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes
@@ -3564,6 +3719,7 @@ def main() -> int:
     phase_cli_semseg(shipped_dtype=True, wrapper="BilateralCRF")
     phase_cli_semseg(layout="voxel")
     phase_cli_semseg(layout="brick")
+    phase_cli_semseg(layout="brick", shipped_dtype=True)
     resnet_paths(device, card, paths, scenes)
     del scenes
     res = phase_kernels(probe_checks(device), K, exact=("gather_sum",))

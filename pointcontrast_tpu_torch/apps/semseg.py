@@ -45,7 +45,6 @@ def check_supported(cfg, device: torch.device) -> None:
     from pointcontrast_tpu_torch.nn.resnet import ResNetBase
     from pointcontrast_tpu_torch.nn.resunet import MinkUNetHyper
     from pointcontrast_tpu_torch.semseg.datasets import load_dataset
-    from pointcontrast_tpu_torch.sparse.kernels import ITEM_5B
 
     load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
     if issubclass(load_model(cfg.net.model), ResNetBase):
@@ -54,7 +53,7 @@ def check_supported(cfg, device: torch.device) -> None:
             "(stride 32), not at the labelled level-0 rows, so it cannot "
             "train semantic segmentation; pick a U-Net (Res16UNet*, ResUNet*, "
             "MinkUNetHyper14INBN)")
-    dtype = net_dtype(cfg)
+    net_dtype(cfg)  # an unknown net.dtype raises before any work
     requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
     if (requested or visible) > 1:
@@ -77,12 +76,6 @@ def check_supported(cfg, device: torch.device) -> None:
                          "semseg app's datasets are 3D — use BilateralCRF")
     if wrapper not in ("", "BilateralCRF"):
         raise ValueError(f"unknown net.wrapper_type {wrapper!r}")
-    if dtype == torch.bfloat16 and kind == "brick":
-        # the brick convs have no bf16 form yet; never f32 in their place
-        raise NotImplementedError(
-            f"net.dtype=bfloat16 with net.model={cfg.net.model} data.layout={layout}: "
-            f"the brick layout's convs (brick_gemm / brick_wgrad) in bfloat16 are "
-            f"{ITEM_5B}; pass net.dtype=float32")
 
 
 def build_datasets(cfg):

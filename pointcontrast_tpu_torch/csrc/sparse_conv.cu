@@ -80,7 +80,11 @@
 // with f32 atomics into an f32 dF, rounded once by the wrapper.  The pools'
 // bf16 forms (gather_sum_bf16_kernel, scatter_store_bf16_kernel,
 // scatter_sum_inv_bf16_kernel) keep XLA's rounding after every bf16 add,
-// in its order, with no atomics (their notes below).
+// in its order, with no atomics (their notes below).  The brick conv's bf16
+// forms (pointcontrast_tpu/sparse/brick.py:360-440 in bf16) run the brick
+// kernels' tiles on the tensor cores: brick_gemm_mma_kernel rounds each
+// output once, brick_wgrad_kernel's bf16 instances sum the compacted pairs
+// with gw_pairs_mma into an f32 dW that the wrapper rounds once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2745,8 +2749,9 @@ namespace bg {
 constexpr int NS = 8;          // slots of a brick (2^3)
 constexpr int MAX_NBRS = 27;   // rows of a brick map (3^3 neighbour bricks)
 
-inline size_t smem_bytes(int Q, int taps) {
-  return sizeof(float) * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
+// esize: the tiles' element size, 4 (f32) or 2 (brick_gemm_mma_kernel's bf16)
+inline size_t smem_bytes(int Q, int taps, int esize = 4) {
+  return (size_t)esize * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
          sizeof(int) * (MAX_NBRS * gg::BM + taps * NS + 2 * gg::BM);
 }
 
@@ -2760,6 +2765,61 @@ __device__ __forceinline__ int occupied(const float* __restrict__ valid, int bri
          (c.x != 0.f) << 4 | (c.y != 0.f) << 5 | (c.z != 0.f) << 6 | (c.w != 0.f) << 7;
 }
 }  // namespace bg
+
+// The brick GEMMs' prologue (brick_gemm_kernel, brick_gemm_mma_kernel): the
+// tile's output rows `srow` [BM] (entries blockIdx.x BM .. of `order`, -1
+// past the level) and whether each is occupied `live` [BM], the slot table
+// `tab` [taps][NS], and, where the tile holds an occupied row, for each of
+// the K3 neighbour rows d and each tile row the neighbour brick with its 8
+// occupancy bits `nbx` [K3][BM] (brick << 8 | bits; 0 for an empty output
+// row).  Returns whether the tile holds an occupied row; ends with a
+// barrier.
+__device__ __forceinline__ int bg_prologue(int* srow, int* live, int* tab, int* nbx,
+                                           const int* __restrict__ nbr, int K3,
+                                           const int* __restrict__ table, int taps,
+                                           int centre, const float* __restrict__ valid,
+                                           const int* __restrict__ order, int NB) {
+  constexpr int BM = gg::BM, THREADS = gg::THREADS, NS = bg::NS;
+  const int tid = threadIdx.x;
+  const int rows = NB * NS;
+  int any = 0;
+  if (tid < BM) {
+    const int e = blockIdx.x * BM + tid;
+    int r = -1, ok = 0;
+    if (e < rows) {
+      r = order != nullptr ? __ldg(order + e) : e;
+      ok = valid == nullptr || __ldg(valid + r) != 0.f;
+    }
+    srow[tid] = r;
+    live[tid] = ok;
+    any = ok;
+  }
+  for (int i = tid; i < taps * NS; i += THREADS) tab[i] = __ldg(table + i);
+  any = __syncthreads_or(any);
+  if (any) {
+    for (int e = tid; e < K3 * BM; e += THREADS) {
+      const int d = e / BM, m = e % BM;
+      int v = 0;
+      if (live[m]) {
+        const int b = srow[m] / NS;
+        const int nb = d == centre ? b : __ldg(nbr + (int64_t)d * NB + b);
+        v = nb << 8 | bg::occupied(valid, nb);
+      }
+      nbx[e] = v;
+    }
+    __syncthreads();
+  }
+  return any;
+}
+
+// Tile row m's source row at tap t (bg_prologue's tables), -1 where the
+// source slot or the output slot m is empty
+__device__ __forceinline__ int bg_source(const int* tab, const int* nbx, const int* srow,
+                                         int t, int m) {
+  const int ds = tab[t * bg::NS + (srow[m] & (bg::NS - 1))];
+  const int v = nbx[(ds >> 3) * gg::BM + m];
+  return (v >> (ds & 7)) & 1 ? (v >> 8) * bg::NS + (ds & 7) : -1;
+}
 
 // (i) brick_gemm: out[r, :] = sum_t X[src(t, r), :] . W[t] over the taps
 // whose source slot is occupied, for every occupied output slot r; exact
@@ -2796,7 +2856,7 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int 
                   const float* __restrict__ W, const float* __restrict__ valid,
                   const int* __restrict__ order, float* __restrict__ out, int NB,
                   int Cin, int Cout, int vec_x, int vec_w) {
-  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES, THREADS = gg::THREADS;
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
   constexpr int TM = gg::TM, BN = 32 * Q, NS = bg::NS;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;                                          // [STAGES][BM][BK]
@@ -2809,41 +2869,10 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid & 7, ty = tid >> 3;
   const int n0 = blockIdx.y * BN;
-  const int rows = NB * NS;
 
-  int any = 0;
-  if (tid < BM) {
-    const int e = blockIdx.x * BM + tid;
-    int r = -1, ok = 0;
-    if (e < rows) {
-      r = order != nullptr ? __ldg(order + e) : e;
-      ok = valid == nullptr || __ldg(valid + r) != 0.f;
-    }
-    srow[tid] = r;
-    live[tid] = ok;
-    any = ok;
-  }
-  for (int i = tid; i < taps * NS; i += THREADS) tab[i] = __ldg(table + i);
-  any = __syncthreads_or(any);
-  if (any) {
-    for (int e = tid; e < K3 * BM; e += THREADS) {
-      const int d = e / BM, m = e % BM;
-      int v = 0;
-      if (live[m]) {
-        const int b = srow[m] / NS;
-        const int nb = d == centre ? b : __ldg(nbr + (int64_t)d * NB + b);
-        v = nb << 8 | bg::occupied(valid, nb);
-      }
-      nbx[e] = v;
-    }
-    __syncthreads();
-  }
-  // tile row m's source row at tap t, -1 where the source or m is empty
-  auto source = [&](int t, int m) {
-    const int ds = tab[t * NS + (srow[m] & (NS - 1))];
-    const int v = nbx[(ds >> 3) * BM + m];
-    return (v >> (ds & 7)) & 1 ? (v >> 8) * NS + (ds & 7) : -1;
-  };
+  const int any = bg_prologue(srow, live, tab, nbx, nbr, K3, table, taps, centre, valid,
+                              order, NB);
+  auto source = [&](int t, int m) { return bg_source(tab, nbx, srow, t, m); };
   const int kchunks = (Cin + BK - 1) / BK;
   const int nsteps = any ? taps * kchunks : 0;
 
@@ -2900,6 +2929,123 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int 
   }
 }
 
+// brick_gemm_bf16 on the tensor cores (the bf16 form of (i): JAX's
+// _brick_core in bf16, pointcontrast_tpu/sparse/brick.py:400-440, and the
+// dF of _brick_sym_bwd, :366-370): bf16 rows and weights, every output the
+// f32 sum of its bf16 x bf16 products (exact in f32) rounded once to bf16,
+// as JAX's one f32 accumulator over the plan's steps.  What bounds it: as
+// gather_gemm_bf16, the bf16 tensor cores lie far above what the gathered
+// rows feed them, so the rows' bytes and the pipeline's latency set its
+// pace.  The design is brick_gemm_kernel's (bg_prologue, the tiles of the
+// slot order, the taps from the slot table, a warp's step skipped where its
+// 16 rows have no occupied source at the tap) with gather_gemm_mma_kernel's
+// products and epilogue:
+//  - warp w computes its 16 rows x the block's Cout tile BN = 32 Q (Q =
+//    1..4, gm::q_for) by mma.sync.m16n8k16 on ldmatrix fragments of the
+//    same cp.async ring (gm_mma, mma_chunk's swizzle); a k16 step wholly
+//    past Cin is left out, and the rest of a ragged chunk is zero-filled
+//    (the Cin = 3 stem: one k16 step, rows by 2-byte loads);
+//  - epilogue: each sum rounded once to bf16 and staged in shared memory,
+//    each output row stored 16 bytes at a time; exact zeros at the empty
+//    slots and pad bricks;
+//  - every row's sum runs over its taps in order, in one block: the same
+//    bits from run to run, no atomics.
+// grid (ceil(NB * 8 / BM), ceil(Cout / 32 Q))
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+brick_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ nbr, int K3,
+                      const int* __restrict__ table, int taps, int centre,
+                      const bf16* __restrict__ W, const float* __restrict__ valid,
+                      const int* __restrict__ order, bf16* __restrict__ out, int NB,
+                      int Cin, int Cout, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
+  constexpr int BN = 32 * Q, NF = 4 * Q, LDC = BN + gm::PAD, NS = bg::NS;
+  static_assert(BM * LDC <= STAGES * (BM * BK + BK * BN), "the staged tile fits the ring");
+  extern __shared__ __align__(16) float smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);                  // [STAGES][BM][BK]
+  bf16* Bs = As + STAGES * BM * BK;                          // [STAGES][BK][BN]
+  int* nbx = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [K3][BM] brick << 8 | bits
+  int* tab = nbx + bg::MAX_NBRS * BM;                        // [taps][NS] 8 d + s
+  int* srow = tab + taps * NS;                               // [BM] output row, -1 past
+  int* live = srow + BM;                                     // [BM] output slot occupied
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * BN;
+
+  const int any = bg_prologue(srow, live, tab, nbx, nbr, K3, table, taps, centre, valid,
+                              order, NB);
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = any ? taps * kchunks : 0;
+
+  auto load = [&](int step, int buf) {
+    const int t = step / kchunks, k0 = (step % kchunks) * BK;
+    gg_load_rows<BM, true>(As + buf * BM * BK, X,
+                           [&](int m) { return bg_source(tab, nbx, srow, t, m); }, k0, Cin,
+                           vec_x, tid);
+    gg_load_w<Q, bf16, true>(Bs + buf * BK * BN, W + (int64_t)t * Cin * Cout, k0, n0, Cin,
+                             Cout, vec_w, tid);
+  };
+
+  float acc[NF][4];  // fragment n: columns 8 n + 2 (lane % 4) + {0, 1}, rows lane / 4 + {0, 8}
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    // warp w's fragment: rows [16 w, 16 w + 16), lanes 16-31 repeat 0-15
+    if (!__ballot_sync(0xffffffffu,
+                       bg_source(tab, nbx, srow, step / kchunks, 16 * warp + (lane & 15)) >= 0))
+      continue;  // no occupied source in this warp's 16 rows at this tap
+    const int k0 = (step % kchunks) * BK;
+    gm_mma<Q>(acc, As + (step % STAGES) * BM * BK, Bs + (step % STAGES) * BK * BN, warp, lane,
+              Cin - k0);
+  }
+  cp_async_wait<0>();
+
+  // round once, stage the warp's 16 rows in shared memory (the ring is free
+  // once every warp is past its last step), store 16 bytes at a time
+  const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
+  bf16* Cs = As;  // [BM][LDC]
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(Cs + (16 * warp + g + 8 * h) * LDC + 8 * n + c2) =
+          __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+  __syncwarp();
+  const bool vec_o = Cout % 8 == 0;
+#pragma unroll
+  for (int u = 0; u < BN / 16; ++u) {  // the warp's 16 rows x BN / 8 chunks
+    const int e = lane + 32 * u;
+    const int m = 16 * warp + e / (BN / 8), c = e % (BN / 8);
+    const int r = srow[m], n = n0 + 8 * c;
+    if (r < 0 || n >= Cout) continue;
+    bf16* dst = out + (int64_t)r * Cout + n;
+    const bf16* src = Cs + m * LDC + 8 * c;
+    const bool ok = live[m];
+    if (vec_o) {
+      *reinterpret_cast<uint4*>(dst) =
+          ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int i = 0; i < 8 && n + i < Cout; ++i) dst[i] = ok ? src[i] : bf16_zero();
+    }
+  }
+}
+
 // (j) brick_wgrad: dW[t] = sum_r X[src(t, r), :]^T . G[r, :] over the
 // occupied output slots r whose source at tap t is occupied too (JAX
 // _brick_sym_bwd's gs^T @ cp blocks, at the pairs that are not zero).
@@ -2918,19 +3064,29 @@ brick_gemm_kernel(const float* __restrict__ X, const int* __restrict__ nbr, int 
 //  - the blocks of a (tap, tile) are combined by its last block (integer
 //    tickets, gw_finish) in block order: dW is the same from run to run,
 //    no f32 atomics.
+// T = bf16, brick_wgrad_bf16 (the dW of _brick_sym_bwd in bf16, :372-396):
+// bf16 X and G, the same compaction and slices, the pairs' products on the
+// tensor cores (gw_pairs_mma, the tile gw::qs_for's tensor-core form, up to
+// 128 x 128) and the slices added in block order (gw_finish_mma) into an
+// f32 dW, which the wrapper rounds once to bf16 (JAX's dw.astype(bf16) of
+// its f32 sum, :396).  Bound: the live pairs' rows' bytes, as the
+// (bf16, bf16) gather_wgrad.
 // grid (tiles, taps, slices)
-template <int QA, int QG>
+template <int QA, int QG, typename T = float>
 __global__ void __launch_bounds__(gw::THREADS, 2)
-brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
-                   const int* __restrict__ table, int centre, const float* __restrict__ Gm,
+brick_wgrad_kernel(const T* __restrict__ X, const int* __restrict__ nbr,
+                   const int* __restrict__ table, int centre, const T* __restrict__ Gm,
                    const float* __restrict__ valid, const int* __restrict__ order,
                    float* __restrict__ dW, float* __restrict__ ws, int* __restrict__ tickets,
                    int NB, int Cin, int Cout, int vec_a, int vec_g) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
   constexpr int CHUNK = gw::CHUNK, RUNS = CHUNK / THREADS;
   constexpr int TA = 32 * QA, TG = 32 * QG, NS = bg::NS;
+  // the pair lists follow the stage ring (bf16: gw::tile_bytes' ring)
+  constexpr size_t TILES = is_bf16<T> ? gw::tile_bytes(QA, QG, 2, 2)
+                                      : sizeof(float) * STAGES * ROWS * (TA + TG);
   extern __shared__ __align__(16) float smem[];
-  int* pa = reinterpret_cast<int*>(smem + STAGES * ROWS * (TA + TG));  // [CHUNK] X rows
+  int* pa = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) + TILES);  // X rows
   int* pg = pa + CHUNK;                                                // [CHUNK] G rows
   int* wcount = pg + CHUNK;                                            // [2][8], flag
 
@@ -2942,15 +3098,8 @@ brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
   const int runs = (rows + THREADS - 1) / THREADS;
   const int mine = runs > z ? (runs - z + slices - 1) / slices : 0;  // runs z, z + slices, ...
 
-  float4 acc[QA][4][QG];
-#pragma unroll
-  for (int p = 0; p < QA; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int u0 = 0; u0 < mine; u0 += RUNS) {
+  // the live pairs of runs u0 .. u0 + RUNS - 1 of this block's, in order
+  auto compact = [&](int u0) {
     int n = 0;
 #pragma unroll 1
     for (int it = 0; it < RUNS; ++it) {
@@ -2970,9 +3119,34 @@ brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
       n += gw_append(ok, ra, rg, pa, pg, wcount + 8 * (it & 1), n, lane, warp);
     }
     __syncthreads();
-    gw_pairs<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+    return n;
+  };
+
+  if constexpr (is_bf16<T>) {  // the tensor cores
+    float acc[QA * QG][4];
+#pragma unroll
+    for (int i = 0; i < QA * QG; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int u0 = 0; u0 < mine; u0 += RUNS) {
+      const int n = compact(u0);
+      gw_pairs_mma<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+    }
+    gw_finish_mma<QA, QG>(acc, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
+  } else {
+    float4 acc[QA][4][QG];
+#pragma unroll
+    for (int p = 0; p < QA; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int u0 = 0; u0 < mine; u0 += RUNS) {
+      const int n = compact(u0);
+      gw_pairs<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+    }
+    gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
   }
-  gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -3362,61 +3536,99 @@ int pc_scatter_sum(const void* G, const void* map, TapList taps, int tap_stride,
   return (int)cudaGetLastError();
 }
 
+// bf16_: the tensor-core kernel on bf16 X, W and out (brick_gemm_bf16)
 int pc_brick_gemm(const void* X, const void* nbr, int K3, const void* table, int taps,
                   int centre, const void* W, const void* valid, const void* order,
-                  void* out, int NB, int Cin, int Cout, void* stream) {
-  const int q = gg::q_for(Cout);
-  const size_t smem = bg::smem_bytes(q, taps);
-  const int vec_x = Cin % 4 == 0 && aligned16(X);
-  const int vec_w = Cout % 4 == 0 && aligned16(W);
+                  void* out, int NB, int Cin, int Cout, int bf16_, void* stream) {
+  const int q = bf16_ ? gm::q_for(Cout, false) : gg::q_for(Cout);
+  const size_t smem = bg::smem_bytes(q, taps, bf16_ ? 2 : 4);
+  const int vec = bf16_ ? 8 : 4;  // 16-byte copies: 4 f32 or 8 bf16 a chunk
+  const int vec_x = Cin % vec == 0 && aligned16(X);
+  const int vec_w = Cout % vec == 0 && aligned16(W);
   const dim3 grid((NB * bg::NS + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q));
-  static size_t granted[4] = {};  // dynamic shared memory allowed so far, by Q
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[q]) {
+  static size_t granted[9] = {};  // dynamic shared memory allowed so far: f32 q, bf16 4 + q
+  auto go = [&](auto kernel, auto t, int slot) {
+    using T = decltype(t);
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[q] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)nbr, K3, (const int*)table, taps, centre,
-        (const float*)W, (const float*)valid, (const int*)order, (float*)out, NB, Cin, Cout,
-        vec_x, vec_w);
+        (const T*)X, (const int*)nbr, K3, (const int*)table, taps, centre, (const T*)W,
+        (const float*)valid, (const int*)order, (T*)out, NB, Cin, Cout, vec_x, vec_w);
   };
-  switch (q) {
-    case 1: go(brick_gemm_kernel<1>); break;
-    case 2: go(brick_gemm_kernel<2>); break;
-    default: go(brick_gemm_kernel<3>); break;
+  if (!bf16_) {
+    switch (q) {
+      case 1: go(brick_gemm_kernel<1>, 0.f, 1); break;
+      case 2: go(brick_gemm_kernel<2>, 0.f, 2); break;
+      default: go(brick_gemm_kernel<3>, 0.f, 3); break;
+    }
+  } else {
+    switch (q) {
+      case 1: go(brick_gemm_mma_kernel<1>, bf16(), 5); break;
+      case 2: go(brick_gemm_mma_kernel<2>, bf16(), 6); break;
+      case 3: go(brick_gemm_mma_kernel<3>, bf16(), 7); break;
+      default: go(brick_gemm_mma_kernel<4>, bf16(), 8); break;
+    }
   }
   return (int)cudaGetLastError();
 }
 
+// bf16_: X and G bf16, the tensor-core form (dW f32 either way)
 int pc_brick_wgrad(const void* X, const void* nbr, const void* table, int taps, int centre,
                    const void* G, const void* valid, const void* order, void* dW, void* ws,
-                   void* tickets, int NB, int Cin, int Cout, int slices, void* stream) {
+                   void* tickets, int NB, int Cin, int Cout, int slices, int bf16_,
+                   void* stream) {
   int qa, qg;
-  gw::qs_for(Cin, Cout, &qa, &qg);
+  gw::qs_for(Cin, Cout, &qa, &qg, bf16_ != 0);
   const int tiles = ((Cin + 32 * qa - 1) / (32 * qa)) * ((Cout + 32 * qg - 1) / (32 * qg));
-  const size_t smem = gw::smem_bytes(qa, qg);
-  const int vec_a = Cin % 4 == 0 && aligned16(X);
-  const int vec_g = Cout % 4 == 0 && aligned16(G);
+  const size_t smem = bf16_ ? gw::smem_bytes(qa, qg, 2, 2) : gw::smem_bytes(qa, qg);
+  const int vec = bf16_ ? 8 : 4;
+  const int vec_a = Cin % vec == 0 && aligned16(X);
+  const int vec_g = Cout % vec == 0 && aligned16(G);
   const dim3 grid(tiles, taps, slices);
-  static size_t granted[16] = {};  // by 4 qa + qg
-  auto go = [&](auto kernel) {
-    if (smem > 48 * 1024 && smem > granted[4 * qa + qg]) {
+  static size_t granted[50] = {};  // by 25 bf16_ + 5 qa + qg
+  auto go = [&](auto kernel, auto t) {
+    using T = decltype(t);
+    const int slot = 25 * bf16_ + 5 * qa + qg;
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[4 * qa + qg] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)X, (const int*)nbr, (const int*)table, centre, (const float*)G,
+        (const T*)X, (const int*)nbr, (const int*)table, centre, (const T*)G,
         (const float*)valid, (const int*)order, (float*)dW, (float*)ws, (int*)tickets, NB,
         Cin, Cout, vec_a, vec_g);
   };
-  switch (4 * qa + qg) {
-    case 5: go(brick_wgrad_kernel<1, 1>); break;
-    case 6: go(brick_wgrad_kernel<1, 2>); break;
-    case 7: go(brick_wgrad_kernel<1, 3>); break;
-    case 9: go(brick_wgrad_kernel<2, 1>); break;
-    case 10: go(brick_wgrad_kernel<2, 2>); break;
-    default: go(brick_wgrad_kernel<3, 1>); break;
+  auto by_mma_q = [&](auto qa_) {  // the tensor-core form: QA, QG in 1..4, QA QG <= 9
+    constexpr int QA = decltype(qa_)::value;
+    switch (qg) {
+      case 1: go(brick_wgrad_kernel<QA, 1, bf16>, bf16()); break;
+      case 2: go(brick_wgrad_kernel<QA, 2, bf16>, bf16()); break;
+      case 3:
+        if constexpr (QA <= 3) go(brick_wgrad_kernel<QA, 3, bf16>, bf16());
+        break;
+      default:
+        if constexpr (QA <= 2) go(brick_wgrad_kernel<QA, 4, bf16>, bf16());
+        break;
+    }
+  };
+  if (!bf16_) {
+    switch (4 * qa + qg) {
+      case 5: go(brick_wgrad_kernel<1, 1>, 0.f); break;
+      case 6: go(brick_wgrad_kernel<1, 2>, 0.f); break;
+      case 7: go(brick_wgrad_kernel<1, 3>, 0.f); break;
+      case 9: go(brick_wgrad_kernel<2, 1>, 0.f); break;
+      case 10: go(brick_wgrad_kernel<2, 2>, 0.f); break;
+      default: go(brick_wgrad_kernel<3, 1>, 0.f); break;
+    }
+  } else {
+    switch (qa) {
+      case 1: by_mma_q(std::integral_constant<int, 1>()); break;
+      case 2: by_mma_q(std::integral_constant<int, 2>()); break;
+      case 3: by_mma_q(std::integral_constant<int, 3>()); break;
+      default: by_mma_q(std::integral_constant<int, 4>()); break;
+    }
   }
   return (int)cudaGetLastError();
 }

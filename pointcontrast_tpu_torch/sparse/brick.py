@@ -20,6 +20,15 @@ pyramid level):
   * the k2s2 transposed conv is a row gather of each fine brick's coarse
     parent and one ``[NB, Cin] @ [Cin, 8*Cout]`` matmul.
 
+bf16 features (JAX's bf16 mode) run the bf16 forms with JAX's rounding:
+every output, dF and dW the f32 sum of its bf16 x bf16 products rounded
+once to bf16 (``brick_gemm_bf16``, ``brick_wgrad_bf16``; the two dense
+products on the widened operands, whose f32 sums round once whatever
+``allow_tf32`` and ``allow_bf16_reduced_precision_reduction`` say: a bf16
+value is exact in TF32), the gathers ``gather_sum_bf16`` at one tap (a
+copy) and their adjoints ``scatter_sum_bf16``'s store form (the maps name
+each kept row once).
+
 Weights are shaped as the flat ops' ([K, Cin, Cout] in the same
 ``kernel_offsets`` order), so one checkpoint runs in either layout.
 """
@@ -267,9 +276,17 @@ class _BrickConv(torch.autograd.Function):
     leave out the empty slots, as the forward does."""
 
     @staticmethod
+    def _kernels(features):
+        """(gemm, wgrad) for the features' dtype, looked up when called (so
+        that ``tools.workload.plain_ops`` can swap in the twins)."""
+        if features.dtype == torch.bfloat16:
+            return kernels.brick_gemm_bf16, kernels.brick_wgrad_bf16
+        return kernels.brick_gemm, kernels.brick_wgrad
+
+    @staticmethod
     def forward(ctx, features, nbr, weights, plan, rev, valid, order):
         steps = slot_steps(plan)
-        out = kernels.brick_gemm(features, nbr, steps, weights, valid, order)
+        out = _BrickConv._kernels(features)[0](features, nbr, steps, weights, valid, order)
         ctx.save_for_backward(features, nbr, weights, valid, order)
         ctx.steps, ctx.rev = steps, rev
         return out
@@ -277,14 +294,14 @@ class _BrickConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         features, nbr, weights, valid, order = ctx.saved_tensors
+        gemm, wgrad = _BrickConv._kernels(features)
         ct = ct.contiguous()
         df = dw = None
         if ctx.needs_input_grad[0]:
             wrev = weights[list(ctx.rev)].transpose(1, 2).contiguous()
-            df = kernels.brick_gemm(ct, nbr, ctx.steps, wrev, valid, order)
+            df = gemm(ct, nbr, ctx.steps, wrev, valid, order)
         if ctx.needs_input_grad[2]:
-            dw = kernels.brick_wgrad(features, nbr, ctx.steps, ct, weights.shape[0],
-                                     valid, order)
+            dw = wgrad(features, nbr, ctx.steps, ct, weights.shape[0], valid, order)
         return df, None, dw, None, None, None, None
 
 
@@ -301,8 +318,8 @@ def brick_conv(features: torch.Tensor,  # [NB*2^D, Cin], empty slots zero
     ``_brick_core``, which no model of the port reaches.  The kernels
     compute the occupied slots (``valid_out``: the level's, which is also
     the source's) from the occupied slots only, tiled in ``order`` (the
-    ``BrickMap``'s ``slot_order``; None: the rows' own order)."""
-    kernels.refuse_bf16_5b("brick_conv", features)
+    ``BrickMap``'s ``slot_order``; None: the rows' own order).  bf16
+    features and weights: the bf16 kernels, bf16 out, dF and dW."""
     rev = _tap_reversal(plan)
     if rev is None or valid_out is None:
         raise NotImplementedError(
@@ -311,9 +328,19 @@ def brick_conv(features: torch.Tensor,  # [NB*2^D, Cin], empty slots zero
             "not ported, ROADMAP Queue 1 item 2b")
     out = _BrickConv.apply(features.contiguous(), nbr, weights.contiguous(), plan, rev,
                            valid_out, order)
-    if bias is not None:
-        out = out + bias
+    if bias is not None:  # in the activations' dtype, as JAX's b.astype(dtype)
+        out = out + bias.to(out.dtype)
     return mask_rows(out, valid_out)
+
+
+def _product(x, w):
+    """x @ w; bf16 operands: the product of the widened operands (each
+    bf16 x bf16 product exact in f32) rounded once, JAX's
+    ``dot(preferred_element_type=f32).astype(bf16)``.  Its autodiff rounds
+    dx and dw once each from their f32 sums too."""
+    if x.dtype == torch.bfloat16:
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
 
 
 def brick_down_conv(features: torch.Tensor,  # [NB*2^D, Cin] level-l brick rows
@@ -325,18 +352,18 @@ def brick_down_conv(features: torch.Tensor,  # [NB*2^D, Cin] level-l brick rows
     dense matmul (``torch.matmul``, as JAX leaves it to XLA); the
     placement gather re-lays its rows (level-(l+1) voxels) into level
     l+1's bricks, slot-major.  ``place=None``: the rows are the flat next
-    level's."""
-    kernels.refuse_bf16_5b("brick_down_conv", features)
+    level's.  In bf16 the product is rounded before the gather, which
+    copies it (JAX rounds after its ``take``: the same values)."""
     ns, cin, cout = weights.shape
     nb = features.shape[0] // ns
-    y = features.reshape(nb, ns * cin) @ weights.reshape(ns * cin, cout)
+    y = _product(features.reshape(nb, ns * cin), weights.reshape(ns * cin, cout))
     if place is None:
         out = y
     else:
         rows = place.transpose(0, 1).reshape(1, 1, -1)  # out row b*ns+s <- place[s, b]
         out = _GatherSum.apply(y, rows.contiguous(), None)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     return out if valid_out is None else mask_rows(out, valid_out)
 
 
@@ -352,7 +379,6 @@ def brick_up_conv(features: torch.Tensor,  # [NB_coarse*2^D, Cin] level-(l+1) ro
     coarse level is flat, and its rows already are the fine bricks'.  The
     gather's adjoint leaves out the coarse pad brick's 2^D slots: every
     pad source of the fine level points at its slot 0."""
-    kernels.refuse_bf16_5b("brick_up_conv", features)
     ns, cin, cout = weights.shape
     if up_gather is None:
         g = features
@@ -360,7 +386,7 @@ def brick_up_conv(features: torch.Tensor,  # [NB_coarse*2^D, Cin] level-(l+1) ro
         g = _GatherSum.apply(features.contiguous(), up_gather.reshape(1, 1, -1), None,
                              features.shape[0] - ns)
     nb = g.shape[0]
-    out = (g @ weights.transpose(0, 1).reshape(cin, ns * cout)).reshape(nb * ns, cout)
+    out = _product(g, weights.transpose(0, 1).reshape(cin, ns * cout)).reshape(nb * ns, cout)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     return out if valid_out is None else mask_rows(out, valid_out)

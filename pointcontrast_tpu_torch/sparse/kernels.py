@@ -28,11 +28,13 @@ its products into one f32 table with f32 atomics and rounds it once
 (``scatter_gemm_bf16_bound``); ``gather_sum_bf16`` and ``scatter_sum_bf16``
 (the pools and their adjoints in bf16) round after every bf16 add in JAX's
 order (tap order; ascending source row), with no atomics, bit-equal to
-their twins.  Every wrapper checks each operand's dtype and raises on
-another (no cast inside a wrapper; ``scatter_gemm``, ``gather_sum`` and
-``scatter_sum`` route a bf16 operand to their bf16 forms); the brick
-kernels, which have no bf16 form, raise ``NotImplementedError`` naming
-ROADMAP item 5b.
+their twins.  ``brick_gemm_bf16`` and ``brick_wgrad_bf16`` (the brick
+layout's conv in bf16, on the tensor cores) round each output once from
+its f32 sum, their twins from the exact (f64) one
+(``brick_gemm_bf16_bound``, ``brick_wgrad_bf16_bound``).  Every wrapper
+checks each operand's dtype and raises on another (no cast inside a
+wrapper; ``scatter_gemm``, ``gather_sum``, ``scatter_sum``, ``brick_gemm``
+and ``brick_wgrad`` route a bf16 operand to their bf16 forms).
 
 Operand convention (chunked layout): tables are [B, S, C] f32; a gathered
 operand names its rows either through a frame-local map [K, B, S_out] int32
@@ -76,6 +78,7 @@ layout's same-level conv (``pointcontrast_tpu/sparse/brick.py``):
   brick_gemm     ``_brick_core``: the forward of ``brick_conv`` and, with
                  W'[t] = W[rev[t]]^T, its dF (``_brick_sym_bwd``)
   brick_wgrad    ``_brick_sym_bwd``'s dW (the gs^T @ cp blocks)
+  brick_gemm_bf16, brick_wgrad_bf16: the same in JAX's bf16 mode
 What bounds them on an H100: the gather kernels read every gathered row once
 per tap at 4*Cin bytes and do 2*Cin*Cout flop per row and tap, so at the
 slice's widths (Cin, Cout >= 32) they are bound by f32 SIMT issue (67 TFLOP/s
@@ -153,15 +156,6 @@ SEG_BLOCKS = 264
 # waves for the tensor-core form too: ``chip_smoke.py --wgrad-blocks``)
 WGRAD_BLOCKS = 8 * 132
 BF16 = torch.bfloat16
-# where the bf16 forms of the other kernels stand (the ops refuse bf16 there)
-ITEM_5B = "ROADMAP Queue 1 item 5b"
-
-
-def refuse_bf16_5b(what: str, t) -> None:
-    """Raise NotImplementedError for a bf16 ``t``: ``what`` has no bf16 form
-    yet (ROADMAP Queue 1 item 5b), and never runs one in f32 in its place."""
-    if t is not None and t.dtype == BF16:
-        raise NotImplementedError(f"{what} in bfloat16 is {ITEM_5B}; run it in float32")
 
 
 class TapList(ctypes.Structure):
@@ -202,9 +196,9 @@ def _lib():
         "pc_gather_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, ci,
                            vp, vp],
-        "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, vp],
+        "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
         "pc_brick_wgrad": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                           vp],
+                           ci, vp],
     })
 
 
@@ -325,7 +319,8 @@ F32_ADD_ULP = 2.0 ** -23
 BF16_HALF_ULP = 2.0 ** -8
 
 
-def _gamma(n: int) -> float:
+def _gamma(n):
+    """gamma(n) of an int, or of a tensor of counts, elementwise."""
     return n * F32_ADD_ULP / (1 - n * F32_ADD_ULP)
 
 
@@ -1444,7 +1439,12 @@ def _brick_mask(t, valid):
 
 
 def brick_gemm_plain(x, nbr, steps, w, valid=None, order=None):
-    # ``order`` only orders the kernel's tiles: every row's sum is the same
+    # ``order`` only orders the kernel's tiles: every row's sum is the same.
+    # bf16 operands: the exact (f64) sum over the occupied sources, rounded
+    # once to bf16 (the kernel's f32 sum rounds the same way but where a
+    # rounding boundary lies within its error: ``brick_gemm_bf16_bound``)
+    if x.dtype == BF16:
+        return brick_gemm_plain(x.double(), nbr, steps, w.double(), valid).to(BF16)
     nb = nbr.shape[1]
     cin, cout = w.shape[1], w.shape[2]
     x3 = _brick_mask(x, valid).reshape(nb, BRICK_SLOTS, cin)
@@ -1458,10 +1458,28 @@ def brick_gemm_plain(x, nbr, steps, w, valid=None, order=None):
     return _brick_mask(out.reshape(nb * BRICK_SLOTS, cout), valid)
 
 
-def _require_brick(x, nbr, valid, order):
+brick_gemm_bf16_plain = brick_gemm_plain  # the twin takes both dtypes
+
+
+def brick_gemm_bf16_bound(x, nbr, steps, w, valid=None, order=None):
+    """(ref, bound), f64 [NB*8, Cout]: the exact sum ``brick_gemm_bf16``
+    rounds, and how far from it its output may lie: an output's f32 sum of
+    at most taps x Cin bf16 x bf16 products (exact in f32; the zero-filled
+    ones add nothing) lies within gamma(taps Cin) P of the exact sum, P the
+    sum of their |products|, in any order (``gather_gemm_bf16_bound``), and
+    its rounding to bf16 within 2^-8 of it."""
+    f64 = torch.float64
+    xw, ww = x.to(f64), w.to(f64)
+    ref = brick_gemm_plain(xw, nbr, steps, ww, valid)
+    size = brick_gemm_plain(xw.abs(), nbr, steps, ww.abs(), valid)
+    err = _gamma(w.shape[0] * w.shape[1]) * size
+    return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
+
+
+def _require_brick(x, nbr, valid, order, dtype):
     """The card's operands: what both brick kernels read besides the
-    weights or the cotangent."""
-    _require(x, "x", torch.float32, 2)
+    weights or the cotangent (``x`` of ``dtype``)."""
+    _require(x, "x", dtype, 2)
     _require(nbr, "nbr", torch.int32, 2)
     _require(valid, "valid", torch.float32, 1)
     _require(order, "order", torch.int32, 1)
@@ -1472,6 +1490,29 @@ def _require_brick(x, nbr, valid, order):
     if valid is not None and valid.data_ptr() % 16:
         raise ValueError("valid: the kernels read a brick's 8 slots as two float4s, "
                          "so its storage must be 16-byte aligned")
+
+
+def _brick_gemm_shapes(name, x, nbr, steps, w, valid, order):
+    _check_brick(name, x, nbr, steps, w.shape[0], valid, order)
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"{name}: {x.shape[1]} channels, weights take {w.shape[1]}")
+
+
+def _brick_gemm_launch(name, x, nbr, steps, w, valid, order, dtype):
+    """The brick-GEMM kernel on ``dtype`` (f32, or bf16: the tensor-core
+    kernel) x and w -> (out [NB*8, Cout] in ``dtype``, launches: 0 or 1)."""
+    _require_brick(x, nbr, valid, order, dtype)
+    _require(w, "w", dtype, 3)
+    nb, (taps, cin, cout) = nbr.shape[1], w.shape
+    table, centre = _slot_table_on(steps, taps, x.device)
+    out = torch.empty(nb * BRICK_SLOTS, cout, device=x.device, dtype=dtype)
+    if out.numel() == 0:
+        return out, 0
+    rc = _lib().pc_brick_gemm(_ptr(x), _ptr(nbr), nbr.shape[0], _ptr(table), taps, centre,
+                              _ptr(w), _ptr(valid), _ptr(order), _ptr(out), nb, cin, cout,
+                              int(dtype == BF16), _stream())
+    _check(rc, name)
+    return out, 1
 
 
 def brick_gemm(x, nbr, steps, w, valid=None, order=None):
@@ -1488,30 +1529,41 @@ def brick_gemm(x, nbr, steps, w, valid=None, order=None):
     same result, and a row it does not name is never written.
 
     On the card every output row is written once, by one block, in a
-    fixed order of products: the same bits from run to run."""
-    refuse_bf16_5b("brick_gemm", x)
-    _check_brick("brick_gemm", x, nbr, steps, w.shape[0], valid, order)
-    if x.shape[1] != w.shape[1]:
-        raise ValueError(f"brick_gemm: {x.shape[1]} channels, weights take {w.shape[1]}")
+    fixed order of products: the same bits from run to run.  A bf16 x goes
+    to ``brick_gemm_bf16``."""
+    if x.dtype == BF16:
+        return brick_gemm_bf16(x, nbr, steps, w, valid, order)
+    _brick_gemm_shapes("brick_gemm", x, nbr, steps, w, valid, order)
+    _refuse_bf16("brick_gemm", w, "brick_gemm_bf16")
     if _use_plain(x):
         return brick_gemm_plain(x, nbr, steps, w, valid, order)
-    _require_brick(x, nbr, valid, order)
-    _require(w, "w", torch.float32, 3)
-    nb, (taps, cin, cout) = nbr.shape[1], w.shape
-    table, centre = _slot_table_on(steps, taps, x.device)
-    out = torch.empty(nb * BRICK_SLOTS, cout, device=x.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    rc = _lib().pc_brick_gemm(_ptr(x), _ptr(nbr), nbr.shape[0], _ptr(table), taps, centre,
-                              _ptr(w), _ptr(valid), _ptr(order), _ptr(out), nb, cin, cout,
-                              _stream())
-    _check(rc, "brick_gemm")
-    brick_gemm.launches += 1
+    out, n = _brick_gemm_launch("brick_gemm", x, nbr, steps, w, valid, order, torch.float32)
+    brick_gemm.launches += n
+    return out
+
+
+def brick_gemm_bf16(x, nbr, steps, w, valid=None, order=None):
+    """``brick_gemm`` on bf16 x and w (JAX's ``_brick_core`` in bf16, its
+    ``preferred_element_type=f32`` accumulator over the plan's steps, and
+    so ``brick_conv``'s forward and dF): each output the f32 sum of its
+    bf16 x bf16 products, rounded once to bf16 -> [NB*8, Cout] bf16, exact
+    zeros at the empty slots.  On the card the tensor-core kernel, the
+    same bits from run to run, held to ``brick_gemm_bf16_bound``."""
+    _brick_gemm_shapes("brick_gemm_bf16", x, nbr, steps, w, valid, order)
+    _require_dtypes("brick_gemm_bf16", BF16, x=x, w=w)
+    if _use_plain(x):
+        return brick_gemm_bf16_plain(x, nbr, steps, w, valid, order)
+    out, n = _brick_gemm_launch("brick_gemm_bf16", x, nbr, steps, w, valid, order, BF16)
+    brick_gemm_bf16.launches += n
     return out
 
 
 def brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid=None, order=None):
-    # ``order`` only orders the kernel's pairs: every tap's sum is the same
+    # ``order`` only orders the kernel's pairs: every tap's sum is the same.
+    # bf16 operands: the exact (f64) sums rounded once to bf16
+    if x.dtype == BF16:
+        return brick_wgrad_plain(x.double(), nbr, steps, ct.double(), num_taps,
+                                 valid).to(BF16)
     nb = nbr.shape[1]
     cin, cout = x.shape[1], ct.shape[1]
     x3 = _brick_mask(x, valid).reshape(nb, BRICK_SLOTS, cin)
@@ -1527,28 +1579,42 @@ def brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid=None, order=None):
     return dw
 
 
-def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
-    """dW[t] = sum over the (d, s, p) with T_d[s][p] = t of
-    sum_b x[src_d(b)*8+s]^T @ ct[b*8+p] -> [num_taps, Cin, Cout] f32, with
-    ``valid`` over the pairs whose output slot b*8+p and source slot are
-    both occupied (without it over every pair).  ``order`` (the level's
-    ``slot_order``) only orders the pairs.  On the card each block reduces
-    the live pairs of one tap in its share of the rows, and the shares'
-    partial sums are added in a fixed order: dW is the same from run to
-    run."""
-    refuse_bf16_5b("brick_wgrad", x)
-    _check_brick("brick_wgrad", x, nbr, steps, num_taps, valid, order)
-    _check_brick("brick_wgrad ct", ct, nbr, steps)
-    if _use_plain(x):
-        return brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid, order)
-    _require_brick(x, nbr, valid, order)
-    _require(ct, "ct", torch.float32, 2)
+brick_wgrad_bf16_plain = brick_wgrad_plain  # the twin takes both dtypes
+
+
+def brick_wgrad_bf16_bound(x, nbr, steps, ct, num_taps, valid=None, order=None):
+    """(ref, bound), f64 [taps, Cin, Cout]: the exact sum
+    ``brick_wgrad_bf16`` rounds, and how far from it its output may lie:
+    tap t's f32 sum of its n_t kept (output slot, source) pairs' products
+    within gamma(n_t) of the sum of their |products|, in any order of the
+    slices and the mma (``gather_wgrad_bf16_bound``), and the rounding to
+    bf16 within 2^-8 of it."""
+    f64 = torch.float64
+    xw, cw = x.to(f64), ct.to(f64)
+    ref = brick_wgrad_plain(xw, nbr, steps, cw, num_taps, valid)
+    size = brick_wgrad_plain(xw.abs(), nbr, steps, cw.abs(), num_taps, valid)
+    ones = xw.new_ones(x.shape[0], 1)
+    pairs = brick_wgrad_plain(ones, nbr, steps, ones, num_taps, valid)  # [taps, 1, 1]
+    err = _gamma(pairs) * size
+    return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
+
+
+def _brick_wgrad_shapes(name, x, nbr, steps, ct, num_taps, valid, order):
+    _check_brick(name, x, nbr, steps, num_taps, valid, order)
+    _check_brick(f"{name} ct", ct, nbr, steps)
+
+
+def _brick_wgrad_launch(name, x, nbr, steps, ct, num_taps, valid, order, dtype):
+    """The brick-wgrad kernel on ``dtype`` (f32, or bf16: the tensor-core
+    form) x and ct -> (dW [taps, Cin, Cout] f32, launches: 0 or 1)."""
+    _require_brick(x, nbr, valid, order, dtype)
+    _require(ct, "ct", dtype, 2)
     nb, cin, cout = nbr.shape[1], x.shape[1], ct.shape[1]
     table, centre = _slot_table_on(steps, num_taps, x.device)
     rows = nb * BRICK_SLOTS
     if rows == 0 or num_taps == 0:
-        return torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32)
-    tiles = _wgrad_tiles(cin, cout)
+        return torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32), 0
+    tiles = _wgrad_tiles(cin, cout, dtype == BF16)
     slices = _brick_wgrad_slices(rows, tiles, num_taps)
     ws = tickets = None
     if slices > 1:
@@ -1557,10 +1623,46 @@ def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
     dw = torch.empty(num_taps, cin, cout, device=x.device, dtype=torch.float32)
     rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(table), num_taps, centre, _ptr(ct),
                                _ptr(valid), _ptr(order), _ptr(dw), _ptr(ws), _ptr(tickets),
-                               nb, cin, cout, slices, _stream())
-    _check(rc, "brick_wgrad")
-    brick_wgrad.launches += 1
+                               nb, cin, cout, slices, int(dtype == BF16), _stream())
+    _check(rc, name)
+    return dw, 1
+
+
+def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
+    """dW[t] = sum over the (d, s, p) with T_d[s][p] = t of
+    sum_b x[src_d(b)*8+s]^T @ ct[b*8+p] -> [num_taps, Cin, Cout] f32, with
+    ``valid`` over the pairs whose output slot b*8+p and source slot are
+    both occupied (without it over every pair).  ``order`` (the level's
+    ``slot_order``) only orders the pairs.  On the card each block reduces
+    the live pairs of one tap in its share of the rows, and the shares'
+    partial sums are added in a fixed order: dW is the same from run to
+    run.  A bf16 x goes to ``brick_wgrad_bf16``."""
+    if x.dtype == BF16:
+        return brick_wgrad_bf16(x, nbr, steps, ct, num_taps, valid, order)
+    _brick_wgrad_shapes("brick_wgrad", x, nbr, steps, ct, num_taps, valid, order)
+    _refuse_bf16("brick_wgrad", ct, "brick_wgrad_bf16")
+    if _use_plain(x):
+        return brick_wgrad_plain(x, nbr, steps, ct, num_taps, valid, order)
+    dw, n = _brick_wgrad_launch("brick_wgrad", x, nbr, steps, ct, num_taps, valid, order,
+                                torch.float32)
+    brick_wgrad.launches += n
     return dw
+
+
+def brick_wgrad_bf16(x, nbr, steps, ct, num_taps, valid=None, order=None):
+    """``brick_wgrad`` on bf16 x and ct (JAX ``_brick_sym_bwd``'s dW in
+    bf16: the blocks' f32 sums, rounded once to the weights' bf16) ->
+    [num_taps, Cin, Cout] bf16.  On the card the tensor-core kernel's f32
+    dW (its slices added in block order: the same bits from run to run),
+    rounded once here; held to ``brick_wgrad_bf16_bound``."""
+    _brick_wgrad_shapes("brick_wgrad_bf16", x, nbr, steps, ct, num_taps, valid, order)
+    _require_dtypes("brick_wgrad_bf16", BF16, x=x, ct=ct)
+    if _use_plain(x):
+        return brick_wgrad_bf16_plain(x, nbr, steps, ct, num_taps, valid, order)
+    dw, n = _brick_wgrad_launch("brick_wgrad_bf16", x, nbr, steps, ct, num_taps, valid,
+                                order, BF16)
+    brick_wgrad_bf16.launches += n
+    return dw.to(BF16)
 
 
 def _brick_wgrad_slices(rows, tiles, taps) -> int:
@@ -1574,5 +1676,6 @@ def _brick_wgrad_slices(rows, tiles, taps) -> int:
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,
            scatter_gemm, segment_sum, gather_sum, scatter_sum, brick_gemm,
            brick_wgrad, gather_gemm_bf16, gather_wgrad_bf16, parent_gemm_bf16,
-           scatter_parent_bf16, scatter_gemm_bf16, gather_sum_bf16, scatter_sum_bf16)
+           scatter_parent_bf16, scatter_gemm_bf16, gather_sum_bf16, scatter_sum_bf16,
+           brick_gemm_bf16, brick_wgrad_bf16)
 reset_launches()

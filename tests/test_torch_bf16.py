@@ -26,14 +26,12 @@ same numpy inputs go to both packages (the fixtures of that file: one
   - the sparse-conv VoteNet: bf16 backbone output, f32 seed features,
     finite losses and parameters that move;
   - the semseg and VoteNet CLIs on the shipped YAMLs' ``net.dtype:
-    bfloat16`` (synthetic data; MinkUNetHyper14INBN and the BilateralCRF
-    too, and a Hyper VoteNet backbone), and the brick layout, which has no
-    bf16 kernel yet (ROADMAP Queue 1 item 5b) and raises;
+    bfloat16`` (synthetic data; MinkUNetHyper14INBN, the BilateralCRF and
+    the brick layout too, and a Hyper VoteNet backbone);
   - the flat K4's dF (the CRF filter's conv at 13 and 729 taps) one
     rounding of the f64 sum, as the voxel K2 / K3 dF (the delta kept).
 The bf16 pools and K4 against JAX: ``tests/test_torch_bf16_pools.py``."""
 import copy
-import os
 
 import jax
 import jax.numpy as jnp
@@ -522,17 +520,11 @@ def test_votenet_cli_runs_the_shipped_bf16(tmp_path):
     ["data.layout=brick"],
 ])
 def test_semseg_cli_refuses_bf16_without_kernels(tmp_path, override):
-    """The brick layout in bf16 has no kernels yet: item 5b, before any
-    work.  MinkUNetHyper and the CRF filter, which did not either, now
-    train in the shipped bf16 (their pools' and flat conv's bf16 forms)."""
-    from pointcontrast_tpu_torch.apps import semseg as app
-
-    if override != ["data.layout=brick"]:
-        _semseg_cli_trains_in_bf16(tmp_path, override)
-        return
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        app.main(SEMSEG_CLI + override + [f"train.out_dir={tmp_path}"], device="cpu")
-    assert not os.path.exists(tmp_path / "weights")
+    """MinkUNetHyper, the CRF filter and the brick layout, which the CLI
+    refused in bf16 until their kernels had bf16 forms, train two steps in
+    the shipped bf16 (the pools', the flat conv's and the brick convs'
+    bf16 forms), validate and save."""
+    _semseg_cli_trains_in_bf16(tmp_path, override)
 
 
 def test_votenet_cli_refuses_a_bf16_hyper_backbone(tmp_path):
@@ -551,9 +543,8 @@ def test_votenet_cli_refuses_a_bf16_hyper_backbone(tmp_path):
 @pytest.mark.parametrize("what", ["k4", "sum pool", "avg unpool", "brick conv",
                                   "resnet", "hyper"])
 def test_ops_and_nets_refuse_bf16_without_kernels(batches, what):
-    """The brick convs raise NotImplementedError naming item 5b on bf16,
-    never running their f32 kernels in place.  K4, the k2s2 pools and the
-    nets built on them, which did too, now run their bf16 forms: bf16 out,
+    """K4, the k2s2 pools, the brick conv and the nets built on them, which
+    raised on bf16 until their kernels had bf16 forms, run them: bf16 out,
     and the nets take ``dtype=bfloat16`` with f32 parameters."""
     _, tb = batches
     lv, lv1 = tb.pyramid0.levels[0], tb.pyramid0.levels[1]
@@ -563,16 +554,13 @@ def test_ops_and_nets_refuse_bf16_without_kernels(batches, what):
         "sum pool": lambda: ops.sparse_sum_pool(f, lv.down_nbr),
         "avg unpool": lambda: ops.sparse_avg_unpool(f[:lv1.valid.shape[0]], lv.up_parent,
                                                     down_nbr=lv.down_nbr),
+        # one brick, every neighbour row itself, all 8 slots occupied
         "brick conv": lambda: layers.SparseConv(4, 4, 27).forward(
-            f, _brick_map(), lv.valid, order=None),
+            f[:8] + 1, _brick_map(), torch.ones(8), order=None),
         "resnet": lambda: load_model("ResNet18")(in_channels=3, out_channels=4, dtype=BF),
         "hyper": lambda: load_model("MinkUNetHyper14INBN")(in_channels=3, out_channels=4,
                                                            dtype=BF),
     }
-    if what == "brick conv":
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            calls[what]()
-        return
     got = calls[what]()
     if isinstance(got, torch.nn.Module):
         assert got.dtype == BF and all(p.dtype == torch.float32 for p in got.parameters())

@@ -231,14 +231,18 @@ def test_wrappers_check_every_operand_dtype(pyr, case):
 @pytest.mark.parametrize("kernel", ["scatter_gemm", "gather_sum", "scatter_sum",
                                     "brick_gemm", "brick_wgrad"])
 def test_f32_only_kernels_refuse_bf16(kernel):
-    """The brick kernels have no bf16 form: they raise NotImplementedError
-    naming ROADMAP item 5b on a bf16 operand, on either device, never an
-    f32 run in its place.  ``scatter_gemm``, ``gather_sum`` and
-    ``scatter_sum`` route a bf16 operand to their bf16 forms: a bf16
-    result, the bf16 form's."""
+    """``scatter_gemm``, ``gather_sum``, ``scatter_sum``, ``brick_gemm`` and
+    ``brick_wgrad``, which once took f32 only, route a bf16 operand to
+    their bf16 forms: a bf16 result, the bf16 form's, never an f32 run in
+    its place."""
+    from pointcontrast_tpu_torch.sparse.brick import build_plan, slot_steps
+
     x = torch.arange(2 * 16 * 4, dtype=torch.float32).reshape(2, 16, 4).to(BF)
     m = torch.arange(2 * 16, dtype=torch.int32).reshape(1, 2, 16) % 16
     w = torch.ones(1, 4, 4, dtype=BF)
+    # two bricks, every neighbour row the second
+    steps, nbr = slot_steps(build_plan(3)), torch.ones(27, 2, dtype=torch.int32)
+    w27 = torch.linspace(-1, 1, 27 * 16).reshape(27, 4, 4).to(BF)
     calls = {
         "scatter_gemm": (lambda: kernels.scatter_gemm(x, m, [0], w, 16, -1),
                          lambda: kernels.scatter_gemm_bf16(x, m, [0], w, 16, -1)),
@@ -246,15 +250,12 @@ def test_f32_only_kernels_refuse_bf16(kernel):
                        lambda: kernels.gather_sum_bf16(x, m, [0], 0, 16)),
         "scatter_sum": (lambda: kernels.scatter_sum(x, m, [0], 0, 16, -1),
                         lambda: kernels.scatter_sum_bf16(x, m, [0], 0, 16, -1)),
-        "brick_gemm": (lambda: kernels.brick_gemm(x[0], m[0, :, :2], (),
-                                                  torch.zeros(1, 4, 4)), None),
-        "brick_wgrad": (lambda: kernels.brick_wgrad(x[0], m[0, :, :2], (), x[0], 1), None),
+        "brick_gemm": (lambda: kernels.brick_gemm(x[0], nbr, steps, w27),
+                       lambda: kernels.brick_gemm_bf16(x[0], nbr, steps, w27)),
+        "brick_wgrad": (lambda: kernels.brick_wgrad(x[0], nbr, steps, x[1], 27),
+                        lambda: kernels.brick_wgrad_bf16(x[0], nbr, steps, x[1], 27)),
     }
     call, form = calls[kernel]
-    if form is None:
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call()
-        return
     got = call()
     assert got.dtype == BF and torch.equal(got, form())
 

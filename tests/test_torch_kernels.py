@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from pointcontrast_tpu_torch.sparse import kernels
+from pointcontrast_tpu_torch.sparse.brick import build_plan, slot_steps
 from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
 
 NPADS = [512, 512, 480, 96, 30]
@@ -88,6 +89,14 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
         (kernels.scatter_sum_bf16, kernels.scatter_sum_bf16_plain,
          (x3b, upp[None], [0], 0, s1, s1 - 1, _idx(lv.down_nbr))),
     ]
+    # the brick forms on two bricks, every neighbour row the first brick
+    steps = slot_steps(build_plan(3))
+    bnbr, xb = torch.zeros(27, 2, dtype=torch.int32), x3b.reshape(-1, 4)[:16]
+    calls += [
+        (kernels.brick_gemm_bf16, kernels.brick_gemm_bf16_plain, (xb, bnbr, steps, wb)),
+        (kernels.brick_wgrad_bf16, kernels.brick_wgrad_bf16_plain,
+         (xb, bnbr, steps, g3b.reshape(-1, 6)[:16], 27)),
+    ]
     kernels.reset_launches()
     for fn, plain, args in calls:
         torch.testing.assert_close(fn(*args), plain(*args), rtol=0, atol=0)
@@ -97,7 +106,7 @@ def test_cpu_wrappers_run_plain_twins_without_counting(pyr):
         "gather_sum": 0, "scatter_sum": 0, "brick_gemm": 0, "brick_wgrad": 0,
         "gather_gemm_bf16": 0, "gather_wgrad_bf16": 0, "parent_gemm_bf16": 0,
         "scatter_parent_bf16": 0, "scatter_gemm_bf16": 0, "gather_sum_bf16": 0,
-        "scatter_sum_bf16": 0}
+        "scatter_sum_bf16": 0, "brick_gemm_bf16": 0, "brick_wgrad_bf16": 0}
 
 
 @pytest.mark.parametrize("case", ["map_rows", "tap_range", "stacked_overrun",
