@@ -44,9 +44,9 @@ from.  Phases of the first, each printed on its own line:
      plan at level 0 (launches 0: no counted path runs it);
   5b. ``pretrain bf16``: the chunked batches through Res16UNet34C in bf16
      (the shipped YAMLs' ``net.dtype``): every bf16 form (gather_gemm_bf16,
-     gather_wgrad_bf16, parent_gemm_bf16, scatter_parent_bf16; K3's dF is
-     the f32 gather_gemm on the f32 scatter dy) at the shapes of one real
-     bf16 forward, the Cin = 3 stem's among them, against its bf16 twin to
+     gather_wgrad_bf16, parent_gemm_bf16; K3's dF and dW gather the bf16
+     cotangent through the down map) at the shapes of one real bf16
+     forward, the Cin = 3 stem's among them, against its bf16 twin to
      BF16_RTOL; the two tensor-core forms (``BOUNDED``) within their
      derived bound of the exact sum of their products (``bound_ratio`` <=
      1, gather_gemm_bf16's twin with its taps reversed a reading:
@@ -183,8 +183,14 @@ from.  Phases of the first, each printed on its own line:
   22. probes: gather_sum at the Pallas gather probes' shapes
      (experiments/pallas_gather_probe*.py: K 1 and 27 over a [65536, 32]
      table, K 27 over [65536, 16]), exact against its twin.
-Every path prints its peak device memory on its ``slice`` line.  Every
-kernel check also times the one PyTorch call computing the same
+Every path prints its peak device memory on its ``slice`` line, and every
+path with a transposed conv one ``[k3]`` line (``conv_phase``): the device
+ms of K3's backward through the down map (its dF and dW checks) against
+its parent design's on the same cotangents in the same call (the scatter
+into the stacked [8 S_c, Cout] table, dF and dW on it; checks labelled "K3
+parent", still held to their twins, under "<path> K3 parent design" in the
+JSON line, with no launches), their ratio and the down maps' live pairs.
+Every kernel check also times the one PyTorch call computing the same
 function where there is one, and the card's bound for the work (bytes over
 3.35 TB/s or operations over the peak of their type, whichever is larger:
 67 TFLOP/s f32, 989 TFLOP/s for a bf16 form's bf16 x bf16 products).  The
@@ -404,7 +410,7 @@ ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16", "gather_sum_bf16",
 # order on operands widened exactly: each equals its f32 kernel on the
 # widened operands, its output rounded once to bf16, bit for bit (a rounding
 # of each split's partial or of each tap's sum would not); gather_wgrad_bf16
-# with an f32 G (K3's dW) among them
+# with an f32 G (the dW of K3's parent design, on its f32 dy) among them
 BF16_FORMS = ("gather_wgrad_bf16", "parent_gemm_bf16", "scatter_parent_bf16")
 # the tensor-core forms (gather_wgrad_bf16 with a bf16 G): their sums run
 # in the mma's order, so each output is held to the exact (f64) sum of its
@@ -783,8 +789,9 @@ def _bf16_operands(args) -> bool:
 def flop_peak(name, args) -> float:
     """The peak the operations of a check are held to: a bf16 form whose
     floating operands are all bf16, the bf16 tensor cores'; any f32
-    operand (the f32 kernels, and K3's dW against the f32 scatter dy,
-    which bf16 tensor cores cannot take exactly), the f32 SIMT peak."""
+    operand (the f32 kernels, and the dW of K3's parent design against its
+    f32 dy, which bf16 tensor cores cannot take exactly), the f32 SIMT
+    peak."""
     if name.endswith("_bf16") and _bf16_operands(args):
         return BF16_FLOP_PER_S
     return F32_FLOP_PER_S
@@ -1105,7 +1112,7 @@ def add_numbers(into: dict, name: str, r: dict) -> None:
         q[k] = None if q[k] is None or r[k] is None else q[k] + r[k]
 
 
-def phase_kernels(checks, module, exact=()):
+def phase_kernels(checks, module, exact=(), by_label=None):
     """Each check's kernel vs its plain twin; kernels named in ``exact`` must
     equal it bit for bit, the others agree to ATOL + RTOL * max|ref|.  Also
     times the one PyTorch call computing the same function, where there is
@@ -1121,7 +1128,8 @@ def phase_kernels(checks, module, exact=()):
     Returns {kernel:
     {max_abs_err, ms, device_ms, plain_ms, bound_ms, bytes_ms, ops_ms,
     library_ms, library_device_ms}} summed over the kernel's checked
-    shapes (``add_numbers``)."""
+    shapes (``add_numbers``); ``by_label``, a dict, also gets each check's
+    own numbers under its label."""
     import torch
 
     results = {}
@@ -1205,10 +1213,13 @@ def phase_kernels(checks, module, exact=()):
             extra["cluster"] = fps_cluster_of(xyz)
             if PICK_FLOOR_MS:
                 extra["serial_bound_ms"] = f"{(npoint - 1) * min(PICK_FLOOR_MS.values()):.4f}"
-        add_numbers(results, name, {
+        numbers = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), "library_ms": lib_ms,
-            "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+        add_numbers(results, name, numbers)
+        if by_label is not None:
+            by_label[label] = numbers
         shape = tuple(tuple(g.shape) for g in got) if isinstance(got, tuple) else tuple(got.shape)
         say("kernel", name=name, check=repr(label), shape=shape,
             max_abs_err=f"{err:.3e}", max_abs_ref=f"{ref:.3e}",
@@ -1230,13 +1241,14 @@ def phase_kernels(checks, module, exact=()):
 def expected_launches(model) -> dict:
     """Sparse-kernel launches of one training step, from the model's conv
     layout: K1 fwd + dF (not for the stem, whose input needs no gradient) +
-    dW; K2 fwd + dF + dW; K3 fwd + scatter + dF + dW; K4 (a ResNet strided
-    block's k3s2 conv, its 1-tap downsample and, BasicBlock-shaped, its
-    second conv, to which JAX passes no ``rev``) fwd + scatter_gemm dF + dW;
+    dW; K2 fwd + dF + dW; K3 fwd + dF + dW (both gathered through the down
+    map); K4 (a ResNet strided block's k3s2 conv, its 1-tap downsample
+    and, BasicBlock-shaped, its second conv, to which JAX passes no
+    ``rev``) fwd + scatter_gemm dF + dW;
     the ResNets' k2s2 sum pool and each of MinkUNetHyper's average unpools
     a gather_sum and its scatter_sum; no flat conv and no global pooling.
     A bf16 model (``model.dtype``) runs every one of them through its bf16
-    form, but for K3's dF: the f32 gather_gemm on the f32 scatter dy."""
+    form; no path launches scatter_parent (K3's parent design)."""
     import torch
 
     from pointcontrast_tpu_torch.nn.layers import SparseConv, SparseConvTranspose
@@ -1258,15 +1270,13 @@ def expected_launches(model) -> dict:
     net = getattr(model, "net", model)  # a CRF wrapper's backbone
     sfx = "_bf16" if getattr(net, "dtype", None) == torch.bfloat16 else ""
     n.update({
-        f"gather_gemm{sfx}": n_same + (n_same - 1) + n_down + len(k4),
+        f"gather_gemm{sfx}": n_same + (n_same - 1) + n_down + n_tr + len(k4),
         f"gather_wgrad{sfx}": n_same + n_down + n_tr + len(k4),
         f"parent_gemm{sfx}": n_tr + n_down,
-        f"scatter_parent{sfx}": n_tr,
         f"scatter_gemm{sfx}": len(k4),
         f"gather_sum{sfx}": pools,
         f"scatter_sum{sfx}": pools,
     })
-    n["gather_gemm"] += n_tr  # K3's dF, f32 in both modes
     return n
 
 
@@ -2177,9 +2187,9 @@ def phase_cli(sparse=False, backbone_model=None):
         "data.dataset=synthetic", "data.num_scenes=8", "optimizer.max_epoch=1",
         "eval.eval_every=1", f"misc.out_dir={out}", "distributed.num_devices=1"]
     args += [f"net.backbone_model={backbone_model}"] if backbone_model else []
-    # K1-K3's bf16 forms, K3's f32 dF; a Hyper backbone's unpools
-    needed = ([f"{n}_bf16" for n in ("gather_gemm", "gather_wgrad", "parent_gemm",
-                                     "scatter_parent")] + ["gather_gemm"] if sparse else [])
+    # K1-K3's bf16 forms; a Hyper backbone's unpools
+    needed = ([f"{n}_bf16" for n in ("gather_gemm", "gather_wgrad", "parent_gemm")]
+              if sparse else [])
     if backbone_model == "MinkUNetHyper14INBN":
         needed += ["gather_sum_bf16", "scatter_sum_bf16"]
     t0 = time.perf_counter()
@@ -2283,6 +2293,9 @@ def conv_calls(model, feats, run):
                 args[1], args[2] = args[1][None], args[2][None]
                 if kwargs.get("up_order") is not None:
                     kwargs["up_order"] = kwargs["up_order"][None]
+                if kwargs.get("down") is not None:  # the flat down map and its order
+                    down, order = kwargs["down"]
+                    kwargs["down"] = (down[:, None], None if order is None else order[None])
         stem = args[0] is feats or (not calls and args[0].shape == feats.shape
                                     and args[0].dtype != feats.dtype)
         calls.append((kind, name, mod.weight.detach(), tuple(args), kwargs, stem))
@@ -2305,14 +2318,14 @@ def conv_calls(model, feats, run):
 
 def expected_from_calls(calls) -> dict:
     """Sparse-kernel launches of one training step from its conv calls:
-    K1 fwd + dF (not for the stem) + dW; K2 fwd + dF + dW; K3 fwd +
-    scatter + dF + dW; K4 per group of MAX_TAPS taps fwd + scatter_gemm dF
+    K1 fwd + dF (not for the stem) + dW; K2 fwd + dF + dW; K3 fwd + dF +
+    dW; K4 per group of MAX_TAPS taps fwd + scatter_gemm dF
     (not for the stem) + dW; a brick conv brick_gemm fwd + dF (not for the
     stem) + brick_wgrad; a brick down conv's placement and a brick up
     conv's parent gather a gather_sum and its scatter_sum each, none at the
     hybrid boundary (the matmuls are torch.matmul).  The CRF's filter is
     counted by ``expected_semseg_launches``.  bf16 features run the bf16
-    forms (K3's dF: the f32 gather_gemm on the f32 scatter dy)."""
+    forms."""
     import torch
 
     from pointcontrast_tpu_torch.sparse import kernels as K
@@ -2329,9 +2342,8 @@ def expected_from_calls(calls) -> dict:
             n[f"parent_gemm{sfx}"] += 1
             n[f"gather_wgrad{sfx}"] += 1
         elif kind == "tr":
-            for name in (f"parent_gemm{sfx}", f"scatter_parent{sfx}", "gather_gemm",
-                         f"gather_wgrad{sfx}"):
-                n[name] += 1
+            for name in ("parent_gemm", "gather_gemm", "gather_wgrad"):
+                n[name + sfx] += 1
         elif kind == "k4":  # scatter_gemm_bf16 launches once a group too
             groups = len(ops._tap_groups(w.shape[0]))
             n[f"gather_gemm{sfx}"] += groups
@@ -2352,7 +2364,10 @@ def conv_checks(model, batch, calls=None):
     forward on ``batch`` (or of ``calls``, from ``conv_calls``) of a
     distinct shape, on the forward's own
     input features and random cotangents masked as the outputs: K1 (fwd,
-    dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, scatter, dF, dW),
+    dF unless the stem, dW), K2 (fwd, dF, dW), K3 (fwd, and dF and dW
+    through the down map; then its parent design on the same cotangent,
+    labelled "K3 parent": the scatter into the stacked table, dF and dW on
+    it, which ``conv_phase`` times on their own),
     K4 (a chunked map with neither ``rev`` nor ``up``: fwd, scatter_gemm
     dF, dW), the CRF filter's flat conv at B = 1 (fwd, scatter_gemm dF,
     dW, per group of MAX_TAPS taps, on its first mean-field input; in bf16
@@ -2533,25 +2548,82 @@ def conv_checks(model, batch, calls=None):
                  (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out, s_in - 1,
                   -1)),
             ]
-        else:  # K3: dF on the f32 scatter dy in both modes (bf16 weights widened)
+        else:  # K3: dF and dW through the down map; its parent design beside them
             parent, off, valid = args[1], args[2], args[3]
             up_order = kw.get("up_order")
             s_f = parent.shape[1]
+            down, down_order = kw.get("down") or (ops.down_from_up(parent, off, k, s_in), None)
             ct = _masked_randn((nb, s_f, cout), valid, gen).to(dt)
-            scatter = getattr(K, f"scatter_parent{sfx}")
+            taps = list(range(k))
+            # the parent design: the f32 scatter dy, dF by the f32 gather_gemm
+            # on it against the widened weights (rounded once in bf16)
             dy = getattr(K, f"scatter_parent{sfx}_plain")(ct, parent, off, k, s_in)
             tag = f"{name} B{nb} S{s_in}->S{s_f} {cin}->{cout}"
             checks += [
                 (f"parent_gemm{sfx}", f"K3 fwd {tag}", pgemm,
                  (f3, parent, off, w, s_in - 1, up_order)),
-                (f"scatter_parent{sfx}", f"K3 bwd scatter {tag}", scatter,
-                 (ct, parent, off, k, s_in)),
-                ("gather_gemm", f"K3 dF {tag}", K.gather_gemm,
-                 (dy, None, None, s_in, wt.float().contiguous(), None, s_in, -1)),
+                (f"gather_gemm{sfx}", f"K3 dF {tag}", gemm,
+                 (ct, down, taps, 0, wt.contiguous(), None, s_in, s_f - 1, down_order)),
                 (f"gather_wgrad{sfx}", f"K3 dW {tag}", wgrad,
+                 (f3, None, None, 0, ct, down, taps, 0, k, s_in, s_in - 1, s_f - 1)),
+                (f"scatter_parent{sfx}", f"K3 parent scatter {tag}",
+                 getattr(K, f"scatter_parent{sfx}"), (ct, parent, off, k, s_in)),
+                ("gather_gemm", f"K3 parent dF {tag}", K.gather_gemm,
+                 (dy, None, None, s_in, wt.float().contiguous(), None, s_in, -1)),
+                (f"gather_wgrad{sfx}", f"K3 parent dW {tag}", wgrad,
                  (f3, None, None, 0, dy, None, None, s_in, k, s_in, -1, -1)),
             ]
     return checks
+
+
+def conv_phase(app, checks, paths, exact=()):
+    """``phase_kernels`` of a path's conv checks (``conv_checks``), but for
+    those of K3's parent design (labels "K3 parent"), which run on their
+    own: their numbers go into ``paths`` as "<app> K3 parent design", with
+    no launches (no path runs that design), and a ``[k3]`` line compares
+    them (``k3_line``).  Returns the other checks' numbers."""
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    parent = [c for c in checks if c[1].startswith("K3 parent ")]
+    new, old = {}, {}
+    res = phase_kernels([c for c in checks if not c[1].startswith("K3 parent ")], K, exact,
+                        by_label=new)
+    if parent:
+        paths[f"{app} K3 parent design"] = (phase_kernels(parent, K, by_label=old), {})
+        k3_line(app, checks, new, old)
+    return res
+
+
+def k3_line(app, checks, new, old):
+    """One ``[k3]`` line a path: the device ms of K3's backward through the
+    down map (its dF and dW checks, numbers ``new`` by label) against its
+    parent design's on the same cotangents (the scatter, the stacked dF and
+    dW: ``old``), their ratio beside the bar (0.5 in bf16, 0.7 in f32: a
+    reading, not a check), the bound of the new launches and the live
+    pairs: the down maps' (tap, coarse row) entries that name a fine row,
+    against every row of the stacked table the parent design reads."""
+    import torch
+
+    mine = [r for label, r in new.items() if label.startswith(("K3 dF ", "K3 dW "))]
+    device_ms = sum(r["device_ms"] for r in mine)
+    parent_ms = sum(r["device_ms"] for r in old.values())
+    bound_ms = sum(r["bound_ms"] for r in mine)
+    live = pairs = convs = 0
+    bf16 = False
+    for _, label, _, args in checks:
+        if label.startswith("K3 dF "):
+            down, skip = args[1], args[7]
+            live += int((down != skip).sum())
+            pairs += down.numel()
+            convs += 1
+            bf16 = args[0].dtype == torch.bfloat16
+    bar = 0.5 if bf16 else 0.7
+    ratio = device_ms / parent_ms
+    say("k3", app=app, shapes=convs, device_ms=f"{device_ms:.4f}",
+        parent_device_ms=f"{parent_ms:.4f}", ratio=f"{ratio:.3f}", bar=bar,
+        met=ratio <= bar, bound_ms=f"{bound_ms:.4f}",
+        share_of_bound=f"{bound_ms / device_ms:.3f}", live_pairs=live, pairs=pairs,
+        live_share=f"{live / pairs:.3f}")
 
 
 def inbn_checks(model, batch):
@@ -2765,18 +2837,18 @@ def semseg_paths(device, card, paths):
 
     scenes, batch = make_semseg_batch(device)
     model = W.semseg_model(seed=0)
-    backbone = phase_kernels(conv_checks(model, batch), K)
+    backbone = conv_phase("semseg", conv_checks(model, batch), paths)
     paths["semseg"] = (backbone, phase_semseg("semseg", model, batch, scenes, device,
                                               card, None))
     del model
     # the shipped YAML's net.dtype: the same net in bf16 (the bf16 forms)
     model = W.semseg_model(seed=0, dtype=torch.bfloat16)
-    backbone_bf16 = phase_kernels(conv_checks(model, batch), K)
+    backbone_bf16 = conv_phase("semseg bf16", conv_checks(model, batch), paths)
     paths["semseg bf16"] = (backbone_bf16, phase_semseg("semseg bf16", model, batch, scenes,
                                                          device, card, None))
     del model
     model = W.semseg_model(seed=0, model="ResUNet18INBN")
-    res = phase_kernels(conv_checks(model, batch), K)
+    res = conv_phase("semseg inbn", conv_checks(model, batch), paths)
     sparse, detect = inbn_checks(model, batch)
     for name, r in phase_kernels(sparse, K).items():
         add_numbers(res, name, r)
@@ -2809,7 +2881,7 @@ def semseg_paths(device, card, paths):
                                                   device, card, W.SEMSEG_CRF))
     del model
     model = W.semseg_model(seed=0, model="MinkUNetHyper14INBN")
-    res = phase_kernels(conv_checks(model, batch), K)
+    res = conv_phase("semseg hyper", conv_checks(model, batch), paths)
     sparse, detect = inbn_checks(model, batch)
     exp = model.BLOCK.expansion  # block5's output unpooled twice, block6's once
     sparse += pool_checks(batch.pyramid, [("unpool", 1, model.PLANES[4] * exp),
@@ -2824,7 +2896,7 @@ def semseg_paths(device, card, paths):
     # in bf16: the unpools' gather_sum_bf16 and, through the levels' down
     # maps, scatter_sum_bf16 (every add rounded, in ascending fine row)
     model = W.semseg_model(seed=0, model="MinkUNetHyper14INBN", dtype=torch.bfloat16)
-    res = phase_kernels(conv_checks(model, batch), K)
+    res = conv_phase("semseg hyper bf16", conv_checks(model, batch), paths)
     sparse, detect = inbn_checks(model, batch)
     sparse += pool_checks(batch.pyramid, [("unpool", 1, model.PLANES[4] * exp),
                                           ("unpool", 0, model.PLANES[4] * exp),
@@ -3214,8 +3286,7 @@ def phase_cli_semseg(model=None, layout=None, shipped_dtype=False, wrapper=None)
     args += [f"net.wrapper_type={wrapper}"] if wrapper else []
     args += [] if shipped_dtype else ["net.dtype=float32"]
     sfx = "_bf16" if shipped_dtype else ""
-    needed = [f"gather_gemm{sfx}", f"gather_wgrad{sfx}", f"parent_gemm{sfx}",
-              f"scatter_parent{sfx}"]
+    needed = [f"gather_gemm{sfx}", f"gather_wgrad{sfx}", f"parent_gemm{sfx}"]
     if model == "MinkUNetHyper14INBN":
         needed += [f"gather_sum{sfx}", f"scatter_sum{sfx}", "segment_sum"]
     if layout and layout.startswith("brick"):
@@ -3309,10 +3380,10 @@ def pretrain_path(layout, device, card, paths, dtype=None):
                              f"{expected_launches(model)}")
     # the brick adjoints name each kept row once: exact, as the gathers
     exact = ("gather_sum", "scatter_sum") if layout.startswith("brick") else ("gather_sum",)
-    res = phase_kernels(conv_checks(model, None, calls=calls), K, exact=exact)
-    del calls  # the forward's activations: out of the path's peak memory
     app = "pretrain" if layout == "chunked" else f"pretrain {layout}"
     app += "" if dtype is None else " bf16"
+    res = conv_phase(app, conv_checks(model, None, calls=calls), paths, exact=exact)
+    del calls  # the forward's activations: out of the path's peak memory
     if layout.startswith("brick"):  # no main path: the k = 5 stem's plan
         k5 = "brick k5 shapes" + app.removeprefix(f"pretrain {layout}")
         paths[k5] = (phase_kernels(brick_k5_checks(b.pyramid0, b.feats0, dtype), K), {})
@@ -3345,12 +3416,12 @@ def semseg_layout_paths(device, card, paths, scenes):
         if layout == "voxel":  # the flat pools, which no counted path runs
             checks += pool_checks(batch.pyramid, [("sum pool", 0, 64),
                                                   ("unpool", 1, 128), ("unpool", 0, 96)])
+        app = f"semseg {layout}" + (" bf16" if dtype else "")
         # the brick adjoints name each kept row once; the flat unpools' do not
-        res = phase_kernels(checks, K, exact=("gather_sum",) + (("scatter_sum",)
-                                                                if layout == "brick" else ()))
+        res = conv_phase(app, checks, paths, exact=("gather_sum",) + (
+            ("scatter_sum",) if layout == "brick" else ()))
         base = None if crf else expected_from_calls(calls)
         del calls, checks
-        app = f"semseg {layout}" + (" bf16" if dtype else "")
         paths[app] = (res, phase_semseg(app, model, batch, scenes, device, card, crf,
                                         steps=STEPS if crf else LAYOUT_STEPS, layout=layout,
                                         base=base))
@@ -3374,13 +3445,13 @@ def votenet_path(layout, device, card, paths, steps, dtype=None):
     b = vb[0]
     calls = conv_calls(model.backbone_net.net, b.voxel_feats,
                        lambda m: m(b.voxel_feats, b.voxel_pyramid))
-    res = phase_kernels(conv_checks(None, None, calls=calls), K)
+    app = "votenet" if layout == "chunked" else f"votenet {layout}"
+    app += "" if dtype is None else " bf16"
+    res = conv_phase(app, conv_checks(None, None, calls=calls), paths)
     del calls
     res.update(phase_kernels(
         detect_kernel_checks(b), D,
         exact=("furthest_point_sample", "ball_query", "gather_rows")))
-    app = "votenet" if layout == "chunked" else f"votenet {layout}"
-    app += "" if dtype is None else " bf16"
     paths[app] = (res, phase_votenet(vb, device, card, model, app, steps=steps))
     return b.point_clouds[..., 0:3].contiguous()
 

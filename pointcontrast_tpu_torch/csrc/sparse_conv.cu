@@ -48,8 +48,9 @@
 // source's pad rows, because each map sends its missing sources to one pad
 // row: on a brick table (slot 0 of the pad brick) 17k adds of a batch
 // landed on one row and ran one after another.  A new map kind must check
-// where its pad sources point.  scatter_parent, K3's backward scatter, is
-// a row store in the same lane groups: it leaves out the coarse pad slot,
+// where its pad sources point.  scatter_parent, JAX K3's backward scatter
+// (the port's K3 gathers through the down map; this is its parent design,
+// which no op runs), is a row store in the same lane groups: it leaves out the coarse pad slot,
 // the one destination many fine rows name, and stores every other row
 // once, with no atomic.  Each C entry returns cudaGetLastError() of its
 // launch.
@@ -66,8 +67,9 @@
 // aligned).  gather_gemm_bf16 and gather_wgrad with a bf16 A and G run
 // their products on the tensor cores (mma.sync.m16n8k16 bf16 -> f32 on
 // ldmatrix fragments of the same live-ordered tiles: their notes below);
-// parent_gemm's form and gather_wgrad with an f32 G (K3's dW against the
-// f32 scatter dy: tensor cores cannot take an f32 operand exactly) widen
+// parent_gemm's form and gather_wgrad with an f32 G (the dW of K3's parent
+// design, against its f32 scatter dy: tensor cores cannot take an f32
+// operand exactly) widen
 // the values in registers (exact) and run the f32 FMAs on the SIMT pipes.
 // An output is rounded to bf16 once, after its f32 sum (split partials
 // stay f32 in ws; the last block rounds their sum); gather_wgrad writes
@@ -233,8 +235,8 @@ __device__ __forceinline__ float4 load4_cg(const float* row, int n, int C, bool 
 // every product whose gathered row is `skip` (or outside [0, S_in)) left
 // out; the centre tap Wc reads row s.  JAX K1 _conv_chunk_fused (forward and
 // dF), K2 _conv_chunk_down2 and K4 _conv_chunk_down_fused (forward), K3
-// _conv_tr_chunk's dF (a stacked table), the flat _conv_core / _conv_sym at
-// B = 1.  What bounds it: 2 Cin Cout f32 operations per (row, tap) pair
+// _conv_tr_chunk's dF (through the level's down map), the flat _conv_core /
+// _conv_sym at B = 1.  What bounds it: 2 Cin Cout f32 operations per (row, tap) pair
 // whose gathered row is live (f32 SIMT: 67 TFLOP/s on an H100), so the
 // design spends FMAs on live pairs only, as far as tiles allow, and keeps
 // the FMA pipes fed:
@@ -1581,7 +1583,8 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
 
 // (d) dy[b, off[b,i] * S_c + parent[b,i], :] = ct[b, i, :] for every fine
 // row i whose parent is not the coarse pad row S_c - 1 (dy zero-filled by
-// the wrapper): the scatter in K3's backward (JAX _conv_tr_chunk_bwd).  The
+// the wrapper): the scatter in JAX K3's backward (_conv_tr_chunk_bwd), the
+// parent design of the port's down-map gathers.  The
 // (offset, parent) pairs of a chunk's valid fine voxels are distinct
 // (pointcontrast_tpu/sparse/topology.py:320-324); only the pad slot (0,
 // S_c - 1) is named many times, by every pad fine row and every fine voxel
@@ -3244,8 +3247,8 @@ int pc_gather_gemm_tile_n(int Cout, int bf16_, int round_) {
 }
 
 // a_bf16 / g_bf16: the element type of A and of G (f32 / f32, bf16 / bf16:
-// the tensor cores, or bf16 / f32: K3's dW, the features against the f32
-// scatter dy)
+// the tensor cores, or bf16 / f32: the dW of K3's parent design, the
+// features against its f32 scatter dy)
 int pc_gather_wgrad(const void* A, const void* a_map, TapList a_taps, int a_stride,
                     int Sa, int Ca, int skip_a, const void* Gm, const void* g_map,
                     TapList g_taps, int g_stride, int Sg, int Cg, int skip_g, void* dW,

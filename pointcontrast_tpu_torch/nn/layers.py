@@ -60,8 +60,19 @@ class SparseConv(nn.Module):
                                valid_out=valid_out, rev=rev, up=up, order=order)
 
 
+def down_of(level):
+    """(down_nbr, down_order) of a pyramid level, the map through which K3's
+    backward gathers onto it (``ops.sparse_conv_transpose``'s ``down``);
+    None on a brick level, whose down map is a ``BrickDownMap``."""
+    if not torch.is_tensor(level.down_nbr):
+        return None
+    return level.down_nbr, level.down_order
+
+
 class SparseConvTranspose(nn.Module):
-    """Stride-2 kernel-2 transposed conv onto the reused finer level."""
+    """Stride-2 kernel-2 transposed conv onto the reused finer level;
+    ``down``, that level's ``down_of``, is what its backward gathers
+    through (a brick level's up conv takes none)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_volume: int = 8, bias: bool = False,
@@ -72,14 +83,15 @@ class SparseConvTranspose(nn.Module):
                          generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
-    def forward(self, features, up_parent, up_offset, valid_out, up_order=None):
+    def forward(self, features, up_parent, up_offset, valid_out, up_order=None, down=None):
         w = self.weight.to(features.dtype)
         if up_offset is None:  # brick layout: up_parent is the up-gather
             return brick.brick_up_conv(features, up_parent, w,
                                        bias=self.bias, valid_out=valid_out)
         return ops.sparse_conv_transpose(features, up_parent, up_offset,
                                          w, bias=self.bias,
-                                         valid_out=valid_out, up_order=up_order)
+                                         valid_out=valid_out, up_order=up_order,
+                                         down=down)
 
 
 class SparseLinear(nn.Module):

@@ -21,6 +21,7 @@ from pointcontrast_tpu_torch.nn.layers import (
     SparseConv,
     SparseConvTranspose,
     SparseLinear,
+    down_of,
     l2_normalize_rows,
     relu,
 )
@@ -119,7 +120,7 @@ class Res16UNetBase(nn.Module):
             lvl = 3 - d  # producing level index
             out = getattr(self, f"convtr{4 + d}p{2 ** (4 - d)}s2")(
                 out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid,
-                up_order=lv[lvl].up_order)
+                up_order=lv[lvl].up_order, down=down_of(lv[lvl]))
             out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
             out = torch.cat([out, skips[lvl]], dim=1)
             out = self._stage(out, lv[lvl], f"block{5 + d}", self.LAYERS[4 + d], nb)

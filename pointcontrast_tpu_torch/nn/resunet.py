@@ -24,6 +24,7 @@ from pointcontrast_tpu_torch.nn.layers import (
     SparseConv,
     SparseConvTranspose,
     SparseLinear,
+    down_of,
     relu,
 )
 from pointcontrast_tpu_torch.nn.resnet_block import (
@@ -122,7 +123,7 @@ class MinkUNetBase(nn.Module):
             lvl = 2 - d
             out = getattr(self, f"convtr{4 + d}p{2 ** (3 - d)}s2")(
                 out, lv[lvl].up_parent, lv[lvl].up_offset, lv[lvl].valid,
-                up_order=lv[lvl].up_order)
+                up_order=lv[lvl].up_order, down=down_of(lv[lvl]))
             out = relu(getattr(self, f"bntr{4 + d}")(out, lv[lvl].valid))
             out = torch.cat([out, skips[lvl]], dim=1)
             if d < 2:

@@ -16,7 +16,8 @@ and ``scatter_parent_bf16`` take the bf16 operands of JAX's bf16 mode and
 keep its rounding points: bf16 x bf16 products summed in f32, each output
 rounded once to bf16 (``gather_gemm_bf16``'s ``round_each_tap``: each tap
 rounded first, JAX's flat ``_conv_core``; ``gather_wgrad_bf16`` writes f32
-dW, A bf16 and G bf16 or f32; ``scatter_parent_bf16`` an f32 dy).  Their
+dW, A bf16 and G bf16 or f32, the f32 G the stacked dy of K3's parent
+design; ``scatter_parent_bf16`` that f32 dy).  Their
 twins gather bf16 and round as the kernels do, on exact (f64) sums for
 ``gather_gemm_bf16`` and f32 ones for the others.  ``gather_gemm_bf16``
 and ``gather_wgrad_bf16`` on two bf16 operands run on the tensor cores
@@ -45,12 +46,17 @@ Which JAX op each kernel replaces (all in ``pointcontrast_tpu/sparse/ops.py``,
 custom-VJP XLA programs, except the Pallas probes; the bf16 forms the same
 ops in JAX's bf16 mode):
   gather_gemm    K1 ``_conv_chunk_fused`` fwd and dF, K2 ``_conv_chunk_down2``
-                 fwd, K3 ``_conv_tr_chunk`` dF (stacked table), K4
-                 ``_conv_chunk_down_fused`` fwd
-  gather_wgrad   K1/K2/K3/K4 dW
+                 fwd, K3 ``_conv_tr_chunk`` dF (the cotangent gathered
+                 through the level's down map, the parent map's inverse:
+                 each live slot of JAX's stacked ``dy`` is one cotangent
+                 row), K4 ``_conv_chunk_down_fused`` fwd
+  gather_wgrad   K1/K2/K3/K4 dW (K3's through the same down map)
   parent_gemm    K3 fwd, K2 dF (with W_k^T)
-  scatter_parent K3 bwd's scatter-add into the stacked [8*S_c, Cout] table,
-                 the coarse pad slot left out (a row store)
+  scatter_parent JAX K3 bwd's scatter-add into the stacked [8*S_c, Cout]
+                 table, the coarse pad slot left out (a row store): K3's
+                 parent design, which no op runs (``chip_smoke.py`` times it
+                 beside the down-map gathers; a stacked table is read by
+                 gather_gemm / gather_wgrad as ``j * tap_stride + s``)
   scatter_gemm   the flat-map conv ``_conv_core``'s dF (its autodiff: a
                  scatter of ct W_k^T at the map's rows; its forward is
                  gather_gemm and its dW gather_wgrad, at B = 1), and K4's dF
@@ -650,7 +656,7 @@ def gather_wgrad(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
 def gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
                       k, s_rows, skip_a=-1, skip_g=-1):
     """``gather_wgrad`` with a bf16 a3 (the features) and a bf16 or f32 g3
-    (the cotangent; K3's stacked scatter ``dy`` is f32): JAX's
+    (the cotangent; the stacked ``dy`` of K3's parent design is f32): JAX's
     ``F.f32^T @ ct.f32``, products and sums in f32 -> [k, Ca, Cg] f32.  The
     sparse ops round it to the weights' dtype, as JAX's ``dw.astype``.  The
     same bits from run to run (slices added in slice order)."""
@@ -821,8 +827,9 @@ def _scatter_parent_shapes(name, ct3, parent, off, k, s_c):
 def scatter_parent(ct3, parent, off, k, s_c):
     """dy[b, off[b,i] * s_c + parent[b,i]] = ct3[b, i] for every fine row i
     whose parent is not the coarse pad row ``s_c - 1`` -> [B, k * s_c, C],
-    zeros elsewhere: K3's backward scatter with the pad slot left out.
-    Pad fine rows and the fine voxels truncation orphaned all name that
+    zeros elsewhere: JAX K3's backward scatter with the pad slot left out
+    (the port's K3 gathers through the down map instead; this is its parent
+    design, kept for the comparison).  Pad fine rows and the fine voxels truncation orphaned all name that
     slot; its sum reached only dF's pad row (dW multiplies it by the zero
     pad features), and every other destination is named once, so the card
     stores rows and equals the twin bit for bit.  ct3 and dy f32 (a bf16

@@ -9,8 +9,9 @@ backward, built from the kernels in ``sparse.kernels``:
      scatter-free backward through the offset-reversal permutation;
   K2 ``_ConvChunkDown2`` (JAX ``_conv_chunk_down2``): k2s2 down conv whose
      dF is a gather through the functional child -> (parent, offset) map;
-  K3 ``_ConvTrChunk`` (JAX ``_conv_tr_chunk``): k2s2 transposed conv, one
-     scatter-add of the cotangent into the stacked [8*S_c, Cout] table;
+  K3 ``_ConvTrChunk`` (JAX ``_conv_tr_chunk``): k2s2 transposed conv whose
+     backward is K2's forward transposed: dF and dW gather the cotangent
+     through the level's down map, the parent map's inverse;
   K4 ``_ConvChunkDownFused`` (JAX ``_conv_chunk_down_fused``, and JAX
      ``_conv_core`` on a flat [K, N] map such as the CRF's bilateral grid,
      run as a [K, 1, N] map): any other map, gather-GEMM forward,
@@ -35,10 +36,12 @@ Zero-padding invariant: callers keep features of padded rows at exactly zero
 rows contribute exactly zero.  The gather kernels are told so: every
 forward gather, K2's and K4's dW pass the features' last row ``S_in - 1``
 as ``skip`` (``skip_a``), K1's dF and dW the cotangent's last row (zero: K1
-runs only with ``valid_out``, whose mask zeroes it), so the card spends no
-products on the pad row; K3's stacked ``dy`` passes -1 (no map).  K3's
-forward ``parent_gemm`` passes the coarse pad row ``S_c - 1`` (pad
-features are zero), K2's dF passes -1: its cotangent's coarse pad row is
+runs only with ``valid_out``, whose mask zeroes it), K3's dF and dW the
+cotangent's fine pad row ``S_f - 1`` (where the down map sends missing
+children; no valid coarse row reads another fine pad row) and K3's dW the
+features' coarse pad row too, so the card spends no products on the pad
+row.  K3's forward ``parent_gemm`` passes the coarse pad row ``S_c - 1``
+(pad features are zero), K2's dF passes -1: its cotangent's coarse pad row is
 zero only through the mask of the conv's output, and a fine voxel that
 truncation orphaned reads it (JAX gives that row ``ct[pad] W_0^T``).  Both
 tile the fine rows in the pyramid's up order (``topology.up_order``).
@@ -49,12 +52,14 @@ bf16 activations (JAX's mixed precision): K1-K3 take bf16 features and
 weights (the layers' bf16 casts) and run the kernels' bf16 forms.  Every
 conv product is bf16 x bf16 with an f32 sum; every dW is ``F.f32^T
 ct.f32`` in f32 (``gather_wgrad_bf16``), rounded to the weights' bf16 as
-JAX's ``dw.astype(weights.dtype)``; K3's backward scatters the bf16
-cotangent into an f32 ``dy`` (``scatter_parent_bf16``), takes dF = dy W.f32
-with the f32 ``gather_gemm`` and rounds it once, and dW against the f32
-dy.  Where the sums are rounded to bf16 depends on the layout, as in JAX:
-  - chunked: JAX's rounding points, once per output (forward and dF of K1
-    and K2, K3's forward);
+JAX's ``dw.astype(weights.dtype)``.  JAX's K3 backward scatters the bf16
+cotangent into an f32 ``dy`` and rounds ``dy W.f32`` once; each live slot
+of that table holds one cotangent row widened exactly, so the port's K3
+gathers the bf16 cotangent through the down map instead, with the same
+products, sums and roundings (``gather_gemm_bf16``'s one rounding; dW as
+above).  Where the sums are rounded to bf16 depends on the layout, as in JAX:
+  - chunked: JAX's rounding points, once per output (forward and dF of K1,
+    K2 and K3);
   - voxel: the K1 and K2 forwards round each tap's product to bf16 before
     the f32 sum and the sum again (JAX's flat ``_conv_core``; the
     ``round_each_tap`` mode of ``gather_gemm_bf16``, the centre added in
@@ -95,8 +100,6 @@ from pointcontrast_tpu_torch.sparse.kernels import (
     parent_gemm_bf16,
     scatter_gemm,
     scatter_gemm_bf16,
-    scatter_parent,
-    scatter_parent_bf16,
     scatter_sum,
     scatter_sum_bf16,
     segment_sum,
@@ -227,44 +230,72 @@ class _ConvChunkDown2(torch.autograd.Function):
 class _ConvTrChunk(torch.autograd.Function):
     """K3: out[b,i] = F[b, up_parent[b,i]] W_{up_offset[b,i]}.
 
-    Backward: dy = scatter of ct into the stacked [8*S_c, Cout] table (valid
-    (offset, parent) pairs are unique; pad rows and the fine voxels
-    truncation orphaned all name the coarse pad slot, which the scatter
-    leaves out: JAX's dy holds their sum there, which reaches only dF's pad
-    row), then dF = sum_k dy_k W_k^T and dW_k = F^T dy_k.  In bf16, JAX's
-    rounding points: dy is the f32 scatter of the bf16 cotangent, dF the
-    f32 product dy W.f32 rounded once, dW = F.f32^T dy in f32."""
+    Backward, K2's forward transposed: each valid (offset, parent) pair
+    names one fine row, so through the level's down map ``down`` [8, B,
+    S_c], the parent map's inverse (the fine pad row S_f - 1 where a
+    coarse row has no child), dF[b,p] = sum_k ct[b, down[k,b,p]] W_k^T
+    and dW_k = sum_p F[b,p]^T ct[b, down[k,b,p]], gathers that skip the
+    fine pad row (and, for dW, the coarse pad row, whose features are
+    zero).  Pad fine rows and the fine voxels truncation orphaned name the
+    coarse pad slot, which no valid coarse row's map entry names: JAX's
+    stacked ``dy`` holds their sum there, which reaches only dF's pad row
+    (the port's is zero).  In bf16, JAX's rounding points: its ``dy`` at a
+    live slot is the bf16 cotangent widened exactly, so dF is one rounding
+    of the f32 sum of bf16 x bf16 products (``gather_gemm_bf16``) and dW
+    their f32 sum (``gather_wgrad_bf16``) rounded to the weights' dtype."""
 
     @staticmethod
-    def forward(ctx, features, up_parent, up_offset, weights, up_order=None):
+    def forward(ctx, features, up_parent, up_offset, weights, up_order=None, down_nbr=None,
+                down_order=None):
         b_, s_f = up_parent.shape
         f3 = features.reshape(b_, features.shape[0] // b_, -1)
         # the coarse pad row's features are zero: its fine rows get zeros
         pgemm = _forms(features, weights)[2]
         out = pgemm(f3, up_parent, up_offset, weights, f3.shape[1] - 1, up_order)
-        ctx.save_for_backward(features, up_parent, up_offset, weights)
+        ctx.save_for_backward(features, up_parent, up_offset, weights, down_nbr, down_order)
         return out.reshape(b_ * s_f, -1)
 
     @staticmethod
     def backward(ctx, ct):
-        features, up_parent, up_offset, weights = ctx.saved_tensors
+        features, up_parent, up_offset, weights, down, order = ctx.saved_tensors
         k = weights.shape[0]
         b_, s_f = up_parent.shape
         s_c = features.shape[0] // b_
         f3 = features.reshape(b_, s_c, -1)
-        _, wgrad, _ = _forms(features, weights)
-        scatter = scatter_parent_bf16 if features.dtype == BF16 else scatter_parent
-        dy = scatter(ct.contiguous().reshape(b_, s_f, -1), up_parent, up_offset, k, s_c)
+        ct3 = ct.contiguous().reshape(b_, s_f, -1)
+        if down is None:
+            down = down_from_up(up_parent, up_offset, k, s_c)
+        gemm, wgrad, _ = _forms(features, weights)
+        taps = list(range(k))
         df = dw = None
         if ctx.needs_input_grad[0]:
-            # f32 dy against the weights widened to f32, rounded once
-            df = gather_gemm(dy, None, None, s_c,
-                             weights.float().transpose(1, 2).contiguous(), None, s_c, -1)
-            df = df.reshape(features.shape).to(features.dtype)
+            df = gemm(ct3, down, taps, 0, weights.transpose(1, 2).contiguous(), None, s_c,
+                      s_f - 1, order)
+            df = df.reshape(features.shape)
         if ctx.needs_input_grad[3]:
-            dw = wgrad(f3, None, None, 0, dy, None, None, s_c, k, s_c,
-                       skip_a=-1, skip_g=-1).to(weights.dtype)
-        return df, None, None, dw, None
+            dw = wgrad(f3, None, None, 0, ct3, down, taps, 0, k, s_c, skip_a=s_c - 1,
+                       skip_g=s_f - 1).to(weights.dtype)
+        return df, None, None, dw, None, None, None
+
+
+def down_from_up(up_parent: torch.Tensor, up_offset: torch.Tensor, k: int,
+                 s_c: int) -> torch.Tensor:
+    """[k, B, s_c] int32: the inverse of a parent map [B, S_f], each coarse
+    row's child at each offset, the fine pad row S_f - 1 where it has none,
+    as the pyramid's ``down_nbr``.  Fine rows whose parent is the coarse pad
+    row s_c - 1 (pad rows and the voxels truncation orphaned) name no
+    slot.  Plain index ops on the maps' device, no host sync: each kept
+    row's slot is unique, the others all go to one spare slot, dropped."""
+    b_, s_f = up_parent.shape
+    dev = up_parent.device
+    spare = k * b_ * s_c
+    slot = ((up_offset.long() * b_ + torch.arange(b_, device=dev)[:, None]) * s_c
+            + up_parent.long())
+    slot = torch.where(up_parent == s_c - 1, spare, slot)
+    rows = torch.arange(s_f, dtype=torch.int32, device=dev).expand(b_, s_f)
+    down = torch.full((spare + 1,), s_f - 1, dtype=torch.int32, device=dev)
+    down.scatter_(0, slot.reshape(-1), rows.reshape(-1))
+    return down[:spare].view(k, b_, s_c)
 
 
 def _tap_groups(k: int):
@@ -405,20 +436,34 @@ def sparse_conv_transpose(
     bias: torch.Tensor | None = None,
     valid_out: torch.Tensor | None = None,
     up_order: torch.Tensor | None = None,  # [B, S_fine] (or [N_fine]): the up order
+    down: tuple | None = None,  # (down_nbr [8, B, S_coarse], down_order [B, S_coarse])
 ) -> torch.Tensor:
     """k2s2 transposed conv onto the reused finer level (K3; a flat parent
     map at B = 1).  ``up_order``, the pyramid's up order
     (``topology.up_order``), changes only the order in which the kernel
     tiles the fine rows.  It must be a permutation of each chunk's rows, as
     ``check_pyramid_bounds`` checks of the pyramid's: a row that no entry
-    names is never written."""
+    names is never written.  ``down``: the down map of the level this conv
+    produces and its live order (flat: [8, N_coarse] and [N_coarse]), which
+    the backward gathers through; it must be the parent map's inverse below
+    the pad rows, as the pyramid builders make it.  Without it the backward
+    derives that inverse from the parent map (``down_from_up``), with no
+    order."""
+    down_nbr = down_order = None
+    if down is not None:
+        down_nbr, down_order = down
     if up_parent.dim() == 1:
         up_parent, up_offset = up_parent[None], up_offset[None]
         if up_order is not None:
             up_order = up_order[None]
+        if down_nbr is not None:
+            down_nbr = down_nbr[:, None]
+        if down_order is not None:
+            down_order = down_order[None]
     elif up_parent.dim() != 2:
         raise ValueError(f"[B, S] or [N] parent maps only, got {tuple(up_parent.shape)}")
-    out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights, up_order)
+    out = _ConvTrChunk.apply(features.contiguous(), up_parent, up_offset, weights, up_order,
+                             down_nbr, down_order)
     if bias is not None:
         out = out + bias.to(out.dtype)
     if valid_out is not None:

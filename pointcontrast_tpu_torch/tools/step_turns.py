@@ -20,11 +20,13 @@ side; the side that goes first alternates.  After the pairs each side runs
 one more turn with every kernel wrapper (a function with a ``launches``
 counter) timed on the host clock where the package's modules import it
 by name: the host ms a step spends in each wrapper, its checks and its
-launch included.
+launch included.  Each worker also reports its peak device memory over its
+turns (``torch.cuda.max_memory_allocated`` from the first turn on: the
+steps' own peak, the warm-up's left out).
 
 Prints one ``[turn]`` line a turn, one ``[wrapper]`` line a wrapper and
-side, then each side's median and quartiles, the pairs this checkout won
-(ties count for neither), and a verdict on "this checkout's step is no
+side, one ``[peak]`` line a side, then each side's median and quartiles,
+the pairs this checkout won (ties count for neither), and a verdict on "this checkout's step is no
 slower than the base's by more than ``BOUND``" (5%):
 
   met         its median is within the bound and the base's own quartile
@@ -115,6 +117,8 @@ def _worker(args) -> int:
     app = profile_step.APPS[args.app](**_app_kwargs(args))
     m, state = profile_step._warm(app)
     print(_TURN + json.dumps({"ready": True}), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     k = 0
     for line in sys.stdin:
         cmd = line.strip()
@@ -126,7 +130,8 @@ def _worker(args) -> int:
             app.step(m, state, app.batches[k % len(app.batches)])
             k += 1
         torch.cuda.synchronize()
-        reply = {"ms": 1e3 * (time.perf_counter() - t0) / args.steps}
+        reply = {"ms": 1e3 * (time.perf_counter() - t0) / args.steps,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         if tally is not None:
             restore()
             reply["wrappers"] = {name: [1e3 * sec / args.steps, calls / args.steps]
@@ -226,8 +231,11 @@ def main(argv=None) -> int:
                 ms[side].append(_turn(procs[side], "run")["ms"])
                 print(f"[turn] pair={i} side={side} ms_per_step={ms[side][-1]:.3f}",
                       flush=True)
-        wrappers = {side: _turn(proc, "wrappers")["wrappers"]
-                    for side, proc in procs.items()}
+        last = {side: _turn(proc, "wrappers") for side, proc in procs.items()}
+        wrappers = {side: reply["wrappers"] for side, reply in last.items()}
+        peak = {side: reply["peak_gib"] for side, reply in last.items()}
+        for side, gib in peak.items():
+            print(f"[peak] side={side} peak_mem_gib={gib:.4f}", flush=True)
         for side, tally in wrappers.items():
             for name, (host_ms, calls) in sorted(tally.items()):
                 print(f"[wrapper] side={side} {name} host_ms_per_step={host_ms:.3f} "
@@ -249,6 +257,7 @@ def main(argv=None) -> int:
                "backbone": args.backbone if args.app == "votenet" else None,
                "card": card, "steps_per_turn": args.steps, "bound": BOUND,
                "ms_per_step": _compare(ms["this"], ms["base"], BOUND),
+               "peak_mem_gib": peak,
                "wrapper_host_ms_per_step": wrappers}
     c = summary["ms_per_step"]
     print(f"[ms_per_step] this median {c['this']['median']:.3f} "

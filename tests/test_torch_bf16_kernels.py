@@ -119,7 +119,7 @@ def test_twins_round_the_f32_sums_once(pyr):
     got = kernels.parent_gemm_bf16(x1, upp, upo, w[:8], s1 - 1)
     want = kernels.parent_gemm_plain(f(x1), upp, upo, f(w[:8]), s1 - 1).to(BF)
     assert got.dtype == BF and torch.equal(got, want)
-    for g in (g0, f(g0)):  # K1's dW: bf16 cotangent; K3's: the f32 dy
+    for g in (g0, f(g0)):  # K1's dW: bf16 cotangent; an f32 G: K3's parent design's dy
         got = kernels.gather_wgrad_bf16(x0, None, None, 0, g, nbr, list(range(27)), 0,
                                         27, s0, skip_g=s0 - 1)
         want = kernels.gather_wgrad_plain(f(x0), None, None, 0, f(g), nbr,
@@ -334,8 +334,8 @@ def test_gather_gemm_bf16_reads_unaligned_tables(pyr, card, cin):
 @pytest.mark.parametrize("g_dtype", ["bf16", "f32"])
 def test_gather_wgrad_bf16_matches_twin_on_card(pyr, card, ca, cg, g_dtype):
     """K1's dW (the cotangent through the map), K2's (the features through
-    the down map), K3's (a stacked dy) and a large random map, with a bf16
-    or an f32 (K3's scatter dy) G: f32 sums within the f32 kernels'
+    the down map), K3's parent design's (a stacked dy) and a large random
+    map, with a bf16 or an f32 (that design's scatter dy) G: f32 sums within the f32 kernels'
     tolerance of the twin, the same dW twice."""
     gen = torch.Generator(device=card).manual_seed(ca * 1000 + cg)
     gt = BF if g_dtype == "bf16" else torch.float32

@@ -154,9 +154,9 @@ def test_wrappers_split_small_grids_only():
 @pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (64, 64), (96, 96), (128, 256),
                                       (20, 20), (37, 259)])
 def test_gather_gemm_matches_twin_on_card(pyr, card, cin, cout):
-    """K1 forward with its centre, K2's 8 taps, a stacked table (K3's dF),
-    each with the pad row skipped and the maps' live orders, on the small
-    pyramid (tap splits) and on a large random map (no split), with and
+    """K1 forward with its centre, K2's 8 taps, a stacked table (K3's
+    parent design's dF), each with the pad row skipped and the maps' live
+    orders, on the small pyramid (tap splits) and on a large random map (no split), with and
     without its order."""
     gen = torch.Generator(device=card).manual_seed(cin * 1000 + cout)
     lv = pyr.levels[0]

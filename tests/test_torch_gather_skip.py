@@ -14,7 +14,10 @@ card spends no products on it.  Here, on the CPU:
       ``tests/test_torch_model.py`` (f32, JAX matmuls at "highest");
   (d) the bf16 forms the same way, K4's bf16 dF (``scatter_gemm_bf16``,
       whose ``skip`` is a destination) among them, in a training pass of a
-      narrow bf16 ResNet."""
+      narrow bf16 ResNet;
+  (e) K3's backward, which gathers the cotangent through the down map and
+      skips its fine pad row: a cotangent that is not zero at the fine pad
+      rows moves no valid coarse row of dF and no entry of dW."""
 import functools
 
 import jax
@@ -282,10 +285,11 @@ def test_bf16_twins_leave_out_the_skip_row(batches, layout, case):
 def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypatch):
     """The bf16 net (the layers' bf16 casts, ``dtype=bfloat16``): every
     gather_gemm_bf16 / gather_wgrad_bf16 call of one train-mode forward and
-    backward finds its skip rows exactly zero, and K3's f32 dF gather_gemm
-    passes none; the voxel layout's forwards round each tap, the chunked
-    layout's never."""
-    seen = {"gemm": 0, "wgrad": 0, "k3 f32 dF": 0}
+    backward finds its skip rows exactly zero, on bf16 tables only: K3's
+    backward gathers its bf16 cotangent through the pyramid's down map (no
+    f32 gather_gemm, no f32 G); the voxel layout's forwards round each tap,
+    the chunked layout's never."""
+    seen = {"gemm": 0, "wgrad": 0, "k3 backward": 0}
     per_tap = []
 
     def zero_row(t3, row):
@@ -299,20 +303,28 @@ def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypa
         return kernels.gather_gemm_bf16(x3, map_, taps, stride, w, wc, s_out, skip, order,
                                         round_each_tap=round_each_tap)
 
-    def gemm_f32(x3, map_, taps, stride, w, wc, s_out, skip=-1, order=None):
-        assert map_ is None and skip == -1  # K3's dF on the f32 scatter dy
-        seen["k3 f32 dF"] += 1
-        return kernels.gather_gemm(x3, map_, taps, stride, w, wc, s_out, skip, order)
+    def gemm_f32(*args, **kwargs):
+        raise AssertionError("an f32 gather_gemm in a bf16 pass")
 
     def wgrad(a3, a_map, a_taps, a_stride, g3, *args, skip_a=-1, skip_g=-1):
-        assert a3.dtype == torch.bfloat16 and zero_row(a3, skip_a) and zero_row(g3, skip_g)
+        assert a3.dtype == g3.dtype == torch.bfloat16
+        assert zero_row(a3, skip_a) and zero_row(g3, skip_g)
         seen["wgrad"] += skip_a >= 0 or skip_g >= 0
         return kernels.gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, *args,
                                          skip_a=skip_a, skip_g=skip_g)
 
+    k3_backward = ops._ConvTrChunk.backward
+
+    def recorded(ctx, ct):
+        down, order = ctx.saved_tensors[4:6]
+        assert down is not None and order is not None, "the net passes the level's down map"
+        seen["k3 backward"] += 1
+        return k3_backward(ctx, ct)
+
     monkeypatch.setattr(ops, "gather_gemm_bf16", gemm)
     monkeypatch.setattr(ops, "gather_gemm", gemm_f32)
     monkeypatch.setattr(ops, "gather_wgrad_bf16", wgrad)
+    monkeypatch.setattr(ops._ConvTrChunk, "backward", staticmethod(recorded))
     batch = batches[layout]
     net = TNet(in_channels=3, out_channels=OUT, normalize_feature=True,
                generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16)
@@ -320,8 +332,39 @@ def test_skipped_rows_are_zero_in_a_bf16_training_pass(batches, layout, monkeypa
     assert out.dtype == torch.bfloat16
     proj = torch.from_numpy(np.random.RandomState(3).randn(OUT).astype(np.float32))
     (torch.sin(3.0 * out.float()) * proj).sum().backward()
-    assert min(seen.values()) > 0, seen
+    assert min(seen.values()) > 0 and seen["k3 backward"] == 4, seen
     assert any(per_tap) == (layout == "voxel") and not all(per_tap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+def test_k3_backward_leaves_out_the_fine_pad_rows(batches, layout, dtype):
+    """K3's backward (dF and dW gathered through the down map, whose missing
+    children name the fine pad row ``S_f - 1``, passed as ``skip``): a
+    cotangent that is not zero at the fine pad rows gives the same dF at
+    every valid coarse row, and the same dW, bit for bit, as one zeroed
+    there (JAX adds those rows into its stacked ``dy``'s pad slot, which
+    reaches only dF's pad row); with the pyramid's map and with the one
+    derived from the parent map, which are equal."""
+    rng = np.random.RandomState(5)
+    pyr = batches[layout].pyramid0
+    lv, lv1 = pyr.levels[1], pyr.levels[2]
+    valid_c, valid_f = lv1.valid > 0, lv.valid > 0
+    f = torch.from_numpy(rng.randn(valid_c.shape[0], 6).astype(np.float32))
+    f = (f * valid_c[:, None]).to(dtype)
+    w = torch.from_numpy((0.3 * rng.randn(8, 6, 5)).astype(np.float32)).to(dtype)
+    ct = torch.from_numpy(rng.randn(valid_f.shape[0], 5).astype(np.float32)).to(dtype)
+    assert ct[~valid_f].float().abs().min() > 0
+    grads = []
+    for down in ((lv.down_nbr, lv.down_order), None):
+        for c in (ct, ct * valid_f[:, None].to(dtype)):
+            ft, wt = f.clone().requires_grad_(), w.clone().requires_grad_()
+            ops.sparse_conv_transpose(ft, lv.up_parent, lv.up_offset, wt,
+                                      up_order=lv.up_order, down=down).backward(c)
+            grads.append((ft.grad[valid_c], wt.grad))
+    for df, dw in grads[1:]:
+        assert torch.equal(df, grads[0][0]) and torch.equal(dw, grads[0][1])
+    assert grads[0][0].float().abs().max() > 0 and grads[0][1].float().abs().max() > 0
 
 
 @pytest.mark.parametrize("layout", ["chunked", "voxel"])
