@@ -47,13 +47,15 @@ from.  Phases of the first, each printed on its own line:
      gather_wgrad_bf16, parent_gemm_bf16; K3's dF and dW gather the bf16
      cotangent through the down map) at the shapes of one real bf16
      forward, the Cin = 3 stem's among them, against its bf16 twin to
-     BF16_RTOL; the two tensor-core forms (``BOUNDED``) within their
+     BF16_RTOL; the three tensor-core forms (``BOUNDED``;
+     parent_gemm_bf16's K2 dF reads the untransposed W) within their
      derived bound of the exact sum of their products (``bound_ratio`` <=
      1, gather_gemm_bf16's twin with its taps reversed a reading:
-     ``reversed_spread``), the others bit for bit against their f32
-     kernels on the widened operands rounded once (``BF16_FORMS``; the tap
-     splits a reading); the kernels-vs-plain step (loss to BF16_LOSS_RTOL,
-     the valid output to cosine BF16_COS_MIN, its rows' cosines a reading);
+     ``reversed_spread``), the (bf16, f32) wgrad of K3's parent design bit
+     for bit against its f32 kernel on the widened operands
+     (``BF16_FORMS``; the tap and offset splits a reading); the
+     kernels-vs-plain step (loss to BF16_LOSS_RTOL, the valid output to
+     cosine BF16_COS_MIN, its rows' cosines a reading);
      5 counted steps; the L2-normalised bf16 rows to BF16_NORM_TOL;
   5c. ``pretrain voxel bf16``: 5b on the voxel batches, whose K1 and K2
      forwards round each tap (gather_gemm_bf16's ``round_each_tap``, JAX's
@@ -204,8 +206,9 @@ checks pass the pad row as ``skip`` and the live orders the step passes
 their lines give the live and the computed share of the (row, tap) pairs,
 with the order and without it (``unordered_share``); gather_wgrad's lines
 whether two launches on one input are bit-equal; parent_gemm's checks
-pass the up order and the ``skip`` of their path and give the share of
-rows computed; the brick kernels' lines the live and computed shares of
+pass the up order and the ``skip`` of their path (K2's dF the forward's
+W with ``trans_w``: the f32 form's time holds its transposed copy, as the
+step's does) and give the share of rows computed; the brick kernels' lines the live and computed shares of
 the (tap, output slot) pairs and the live pairs against the count before
 the kernels skipped empty slots; ball_query's lines the points scanned
 against a full scan of every cloud (``scanned_share``); segment_sum's
@@ -214,12 +217,12 @@ block, lane ``group``) and the share of its device time that the last
 block's combine takes (``combine_share``: 1 - the device time without the
 combine over the device time); the kernels of REPEAT_EXACT must give the
 same bits from two launches (segment_sum at up to SEG_SMEM segments);
-``[ptxas]`` lines give the gather GEMMs', scatter_gemm's, parent_gemm's,
-the brick kernels', FPS's, ball query's, segment_sum's and three_nn's
-registers, stack and spills (any stack or spill fails the build phase, but
-for the f32 and SIMT bf16 gather GEMMs'); ``[sass]`` lines the gather,
-scatter and brick GEMM instances' HMMA counts (only the tensor-core forms
-may, and must, have them).  Then
+``[ptxas]`` lines give the gather GEMMs', scatter_gemm's, parent_gemm's
+(both forms), the brick kernels', FPS's, ball query's, segment_sum's and
+three_nn's registers, stack and spills (any stack or spill fails the build
+phase, but for the f32 and SIMT bf16 gather GEMMs'); ``[sass]`` lines the
+gather, parent, scatter and brick GEMM instances' HMMA counts (only the
+tensor-core forms may, and must, have them).  Then
 one JSON line with the per-kernel results: under ``paths``, each main path's
 own launches and its checks' times, bounds and errors; at the top level,
 the launches of all paths and the numbers of all their checks together.  As
@@ -359,15 +362,14 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
 # PTXAS_NO_SPILL and the tensor-core gather_wgrad instances (bf16, bf16)
 # fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_gemm_mma_kernel", "gather_wgrad_kernel",
-                "parent_gemm_kernel", "brick_gemm_kernel", "brick_gemm_mma_kernel",
-                "brick_wgrad_kernel", "scatter_gemm_kernel", "scatter_gemm_mma_kernel",
-                "segment_sum_kernel")
+                "parent_gemm_kernel", "parent_gemm_mma_kernel", "brick_gemm_kernel",
+                "brick_gemm_mma_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
+                "scatter_gemm_mma_kernel", "segment_sum_kernel")
 PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
-PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "fps_kernel",
-                  "brick_gemm_kernel", "brick_gemm_mma_kernel", "brick_wgrad_kernel",
-                  "scatter_gemm_kernel",
-                  "scatter_gemm_mma_kernel", "ball_query_kernel", "segment_sum_kernel",
-                  "three_nn_kernel")
+PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "parent_gemm_mma_kernel",
+                  "fps_kernel", "brick_gemm_kernel", "brick_gemm_mma_kernel",
+                  "brick_wgrad_kernel", "scatter_gemm_kernel", "scatter_gemm_mma_kernel",
+                  "ball_query_kernel", "segment_sum_kernel", "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
 PICK_FLOOR_MS = {}
@@ -392,9 +394,9 @@ PROBES = {"probe 1 (4 kernels) K1 C32": (1, 65536, 32, 65536),
 HYPER_UNPOOLS = 3
 # the H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the
 # tensor cores (the f32 kernels' products), and the bf16 tensor cores'
-# dense FLOP/s (the bound of a bf16 x bf16 product with f32 sums, whatever
-# pipe the kernel uses: gather_gemm_bf16 and the (bf16, bf16)
-# gather_wgrad_bf16 run mma.sync, parent_gemm_bf16 SIMT FMAs)
+# dense FLOP/s (the bound of a bf16 x bf16 product with f32 sums:
+# gather_gemm_bf16, parent_gemm_bf16 and the (bf16, bf16) gather_wgrad_bf16
+# run mma.sync)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -406,19 +408,20 @@ OPTIONAL_MS = ("library_ms", "library_device_ms")
 # pools' bf16 forms round every add in JAX's order, with no atomics
 ALWAYS_EXACT = ("scatter_parent", "scatter_parent_bf16", "gather_sum_bf16",
                 "scatter_sum_bf16")
-# the bf16 forms that run their f32 instances' tiles, tap splits and FMA
-# order on operands widened exactly: each equals its f32 kernel on the
-# widened operands, its output rounded once to bf16, bit for bit (a rounding
-# of each split's partial or of each tap's sum would not); gather_wgrad_bf16
-# with an f32 G (the dW of K3's parent design, on its f32 dy) among them
-BF16_FORMS = ("gather_wgrad_bf16", "parent_gemm_bf16", "scatter_parent_bf16")
+# the bf16 forms that run their f32 instances' tiles and FMA order on
+# operands widened exactly: each equals its f32 kernel on the widened
+# operands, bit for bit; gather_wgrad_bf16 with an f32 G (the dW of K3's
+# parent design, on its f32 dy) and scatter_parent_bf16 (a row store)
+BF16_FORMS = ("gather_wgrad_bf16", "scatter_parent_bf16")
 # the tensor-core forms (gather_wgrad_bf16 with a bf16 G): their sums run
 # in the mma's order, so each output is held to the exact (f64) sum of its
 # products within the bound derived in sparse/kernels.py
 # (``gather_gemm_bf16_bound``: one bf16 rounding, or one a tap under
 # ``round_each_tap``, plus gamma(n) of the sum of |products| for the f32
-# adds), ``bound_ratio`` <= 1
+# adds; ``parent_gemm_bf16_bound`` the same at one offset a row),
+# ``bound_ratio`` <= 1
 BOUNDED = {"gather_gemm_bf16": "gather_gemm_bf16_bound",
+           "parent_gemm_bf16": "parent_gemm_bf16_bound",
            "gather_wgrad_bf16": "gather_wgrad_bf16_bound",
            "scatter_gemm_bf16": "scatter_gemm_bf16_bound",
            "brick_gemm_bf16": "brick_gemm_bf16_bound",
@@ -489,11 +492,11 @@ def phase_build():
 
 def sass_mma_check(library, cuobjdump):
     """The tensor-core forms' machine code: one ``[sass]`` line a gather,
-    scatter or brick GEMM instance with its count of HMMA instructions
-    (``cuobjdump -sass``); fails unless every gather_gemm_mma_kernel,
-    scatter_gemm_mma_kernel, brick_gemm_mma_kernel, (bf16, bf16)
-    gather_wgrad_kernel and bf16 brick_wgrad_kernel instance issues them and
-    no other instance does."""
+    scatter, parent or brick GEMM instance with its count of HMMA
+    instructions (``cuobjdump -sass``); fails unless every
+    gather_gemm_mma_kernel, parent_gemm_mma_kernel, scatter_gemm_mma_kernel,
+    brick_gemm_mma_kernel, (bf16, bf16) gather_wgrad_kernel and bf16
+    brick_wgrad_kernel instance issues them and no other instance does."""
     import re
 
     text = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
@@ -508,11 +511,11 @@ def sass_mma_check(library, cuobjdump):
             counts[entry] += 1
     wrong = []
     for entry, n in sorted(counts.items()):
-        if not entry.startswith(("gather_gemm", "gather_wgrad", "scatter_gemm", "brick_gemm",
-                                 "brick_wgrad")):
+        if not entry.startswith(("gather_gemm", "gather_wgrad", "parent_gemm", "scatter_gemm",
+                                 "brick_gemm", "brick_wgrad")):
             continue
-        tensor_cores = (entry.startswith(("gather_gemm_mma", "scatter_gemm_mma",
-                                          "brick_gemm_mma"))
+        tensor_cores = (entry.startswith(("gather_gemm_mma", "parent_gemm_mma",
+                                          "scatter_gemm_mma", "brick_gemm_mma"))
                         or entry.endswith("bf16,bf16>")
                         or (entry.startswith("brick_wgrad") and entry.endswith(",bf16>")))
         say("sass", kernel=entry, hmma=n)
@@ -940,7 +943,7 @@ def gather_shares(name, args) -> dict:
             kept += int(((ia != sk_a) & (ig != sk_g)).sum())
         return {"live": live / (k * b_ * s_rows), "computed": kept / (k * b_ * s_rows)}
     if name == "parent_gemm":
-        x3, parent, off, _, skip, order = args
+        x3, parent, off, _, skip, order = args[:6]
         b_, s_f = parent.shape
         live = torch.gather(_live_rows(x3), 1, parent.long())
         offs = torch.where(parent != skip, off.long(), 8)  # 8: no offset
@@ -1086,7 +1089,9 @@ def bf16_splits(module, name, args):
                                    w.shape[0] + (wc is not None), tile)
     if name == "parent_gemm_bf16":
         x3, parent, _, w = args[:4]
-        return module._parent_splits(x3.shape[0], parent.shape[1], w.shape[2])
+        cout = w.shape[1] if len(args) > 6 and args[6] else w.shape[2]  # trans_w
+        return module._parent_splits(x3.shape[0], parent.shape[1], cout,
+                                     module._gemm_tile_n_bf16(cout, False))
     return None
 
 
@@ -2542,8 +2547,8 @@ def conv_checks(model, batch, calls=None):
                 (f"gather_gemm{sfx}", f"K2 fwd {'per tap ' * bool(per_tap)}{tag}", gemm,
                  (f3, down, list(range(k)), 0, w, None, s_out, s_in - 1, kw.get("order"),
                   *per_tap)),
-                (f"parent_gemm{sfx}", f"K2 dF {tag}", pgemm,
-                 (ct, parent, off, wt.contiguous(), -1, up_order)),
+                (f"parent_gemm{sfx}", f"K2 dF {tag}", pgemm,  # on W^T (trans_w)
+                 (ct, parent, off, w, -1, up_order, True)),
                 (f"gather_wgrad{sfx}", f"K2 dW {tag}", wgrad,
                  (f3, down, list(range(k)), 0, ct, None, None, 0, k, s_out, s_in - 1,
                   -1)),

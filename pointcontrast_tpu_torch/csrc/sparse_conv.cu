@@ -29,9 +29,9 @@
 // twins, CPU tests and step checks rest on f32 products, TF32 keeps ~3
 // digits and 3xTF32 on mma.sync costs about what SIMT f32 does; their bf16
 // forms run the same pipelines with the products on the tensor cores
-// (mma.sync bf16 -> f32, below).  parent_gemm (c) runs the same
-// pipeline over the fine rows in the pyramid's up order, one offset's
-// weights a step, and the brick layout's brick_gemm (i) and brick_wgrad
+// (mma.sync bf16 -> f32, below).  parent_gemm (c) and its bf16 form run
+// the same pipelines over the fine rows in the pyramid's up order, one
+// offset's weights a step, and the brick layout's brick_gemm (i) and brick_wgrad
 // (j) run the two pipelines over a level's occupied slots, tiled in its
 // slot order (occupied first), their sources from the plan's slot table.
 // scatter_gemm (e), K4's and the flat conv's dF, runs gather_gemm's
@@ -59,18 +59,19 @@
 // :650-684, :768-840: bf16 x bf16 products with f32 sums, one rounding;
 // the flat _conv_core, :74-118, rounds each tap's product first):
 // gather_gemm_mma_kernel (gather_gemm's bf16 form, ROUND: each tap
-// rounded), and gather_wgrad, parent_gemm and scatter_parent templated on
+// rounded), parent_gemm_mma_kernel (parent_gemm's, TRANS_W: K2's dF on the
+// untransposed W), and gather_wgrad and scatter_parent templated on
 // their element types, the f32 instances as they were.  A bf16 form stages
 // bf16 rows and weights through the same cp.async ring (16-byte copies of
 // 8 values where the width is a multiple of 8 and the table aligned, plain
 // 2-byte loads otherwise: the stem's Cin = 3 rows are only 2-byte
-// aligned).  gather_gemm_bf16 and gather_wgrad with a bf16 A and G run
-// their products on the tensor cores (mma.sync.m16n8k16 bf16 -> f32 on
-// ldmatrix fragments of the same live-ordered tiles: their notes below);
-// parent_gemm's form and gather_wgrad with an f32 G (the dW of K3's parent
+// aligned).  gather_gemm_bf16, parent_gemm_bf16 and gather_wgrad with a
+// bf16 A and G run their products on the tensor cores (mma.sync.m16n8k16
+// bf16 -> f32 on ldmatrix fragments of the same live- or up-ordered tiles:
+// their notes below); gather_wgrad with an f32 G (the dW of K3's parent
 // design, against its f32 scatter dy: tensor cores cannot take an f32
-// operand exactly) widen
-// the values in registers (exact) and run the f32 FMAs on the SIMT pipes.
+// operand exactly) widens
+// the values in registers (exact) and runs the f32 FMAs on the SIMT pipes.
 // An output is rounded to bf16 once, after its f32 sum (split partials
 // stay f32 in ws; the last block rounds their sum); gather_wgrad writes
 // f32; scatter_parent widens a bf16 cotangent into the f32 dy.  The SIMT
@@ -291,42 +292,28 @@ inline int q_for(int Cout) {
   return best;
 }
 
-// element size: 4 (f32) or 2 (the bf16 forms: the tiles hold bf16, half
-// the bytes, and the FMAs run in f32 on values widened as they are read)
+// element size: 4 (f32) or 2 (the tensor-core forms: the tiles hold bf16,
+// half the bytes)
 inline size_t smem_bytes(int Q, int per, int esize = 4) {
   return (size_t)esize * STAGES * (BM * BK + BK * 32 * Q) +
          sizeof(int) * (per * BM + per * BALLOTS + per + 1 + BM);
 }
 }  // namespace gg
 
-// The offset (in elements) of the 4 depths 4 k4 .. 4 k4 + 3 of a tile row
-// whose swizzle is `sw`: f32 rows are 8 16-byte chunks, the chunk index
-// XOR sw; bf16 rows are 4 16-byte chunks of 8 values, the chunk XOR sw % 4
-// (a warp's 4 distinct rows then read 4 distinct 8-byte words of one
-// 64-byte span: no bank conflict).
-template <typename T>
-__device__ __forceinline__ int gg_swz(int k4, int sw) {
-  if constexpr (is_bf16<T>) {
-    return (((k4 >> 1) ^ (sw & 3)) << 3) + ((k4 & 1) << 2);
-  } else {
-    return (k4 ^ sw) << 2;
-  }
-}
-
 // One step's products: the thread's 4 rows (shared-memory row tile `as`,
-// 16-byte chunks swizzled by `sw`) times its 4Q columns of the weight tile
-// `bs`, over the 32-deep chunk, in f32 (bf16 tiles are widened as read:
-// bf16 x bf16 products are exact in f32).  The zero-filled depth past a
-// ragged Cin is multiplied too, so the unrolled loop holds no branch.
-template <int Q, typename T = float>
-__device__ __forceinline__ void gg_fma(float4 (&acc)[gg::TM][Q], const T* as,
-                                       const T* bs, int sw) {
+// whose rows are 8 16-byte chunks, chunk index XOR `sw`) times its 4Q
+// columns of the weight tile `bs`, over the 32-deep chunk, in f32.  The
+// zero-filled depth past a ragged Cin is multiplied too, so the unrolled
+// loop holds no branch.
+template <int Q>
+__device__ __forceinline__ void gg_fma(float4 (&acc)[gg::TM][Q], const float* as,
+                                       const float* bs, int sw) {
   constexpr int BK = gg::BK, BN = 32 * Q;
 #pragma unroll
   for (int k4 = 0; k4 < BK / 4; ++k4) {
     float4 a[gg::TM];
 #pragma unroll
-    for (int i = 0; i < gg::TM; ++i) a[i] = ld4(as + i * BK + gg_swz<T>(k4, sw));
+    for (int i = 0; i < gg::TM; ++i) a[i] = ld4(as + i * BK + ((k4 ^ sw) << 2));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -355,20 +342,19 @@ __device__ __forceinline__ int mma_chunk(int r, int c) {
 // depth k0 (zero-filled where row(m) < 0 and past Cin), by 16-byte cp.async
 // (4-byte where Cin % 4 != 0 or Xb is unaligned), the 16-byte chunks of row
 // m at index XOR (m / 4) % 8.  scatter_gemm stages its W[j]^T tile this way
-// too, with ROWS = 32 Q rows of W[j].  bf16 rows: 16-byte cp.async of 8
-// values where Cin % 8 == 0 and Xb is aligned, the chunk at index XOR
-// (m / 4) % 4 for the SIMT reads (gg_fma), mma_chunk<4> for ldmatrix
-// (MMA); else plain 2-byte loads and stores (a row of odd Cin, such as the
-// stem's Cin = 3, is only 2-byte aligned), finished before the step's
-// barrier like the copies.
-template <int ROWS = gg::BM, bool MMA = false, typename T, typename RowOf>
+// too, with ROWS = 32 Q rows of W[j].  bf16 rows (the tensor-core forms):
+// 16-byte cp.async of 8 values where Cin % 8 == 0 and Xb is aligned, the
+// chunk at mma_chunk<4> for ldmatrix; else plain 2-byte loads and stores
+// (a row of odd Cin, such as the stem's Cin = 3, is only 2-byte aligned),
+// finished before the step's barrier like the copies.
+template <int ROWS = gg::BM, typename T, typename RowOf>
 __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int k0,
                                              int Cin, int vec_x, int tid) {
   constexpr int BM = ROWS, BK = gg::BK, THREADS = gg::THREADS;
   static_assert(BM * BK % ((is_bf16<T> ? 8 : 4) * THREADS) == 0,
                 "whole 16-byte chunks a thread");
   if constexpr (is_bf16<T>) {
-    auto chunk = [](int m, int c) { return MMA ? mma_chunk<BK / 8>(m, c) : c ^ ((m >> 2) & 3); };
+    auto chunk = [](int m, int c) { return mma_chunk<BK / 8>(m, c); };
     if (vec_x) {
 #pragma unroll
       for (int u = 0; u < BM * BK / 8 / THREADS; ++u) {
@@ -417,14 +403,14 @@ __device__ __forceinline__ void gg_load_rows(T* as, const T* Xb, RowOf row, int 
 
 // Stage a step's weight tile: `bs` [BK][32 Q] is Wt [Cin][Cout] at (k0, n0),
 // zero-filled past Cin and Cout, by 16-byte cp.async (4-byte unless vec_w;
-// bf16: 16-byte copies of 8 values where vec_w, else plain 2-byte loads;
-// MMA: row kk's chunks at mma_chunk, for ldmatrix).
-template <int Q, typename T = float, bool MMA = false>
+// bf16, the tensor-core forms: 16-byte copies of 8 values where vec_w,
+// else plain 2-byte loads, row kk's chunks at mma_chunk, for ldmatrix).
+template <int Q, typename T = float>
 __device__ __forceinline__ void gg_load_w(T* bs, const T* Wt, int k0, int n0,
                                           int Cin, int Cout, int vec_w, int tid) {
   constexpr int BN = 32 * Q, THREADS = gg::THREADS;
   if constexpr (is_bf16<T>) {
-    auto chunk = [](int kk, int c) { return MMA ? mma_chunk<BN / 8>(kk, c) : c; };
+    auto chunk = [](int kk, int c) { return mma_chunk<BN / 8>(kk, c); };
     if (vec_w) {
       for (int e = tid; e < gg::BK * BN / 8; e += THREADS) {
         const int kk = e / (BN / 8), c = e % (BN / 8);
@@ -718,6 +704,56 @@ __device__ __forceinline__ void gm_mma(float (&acc)[4 * Q][4], const bf16* as, c
   }
 }
 
+// W[j]^T's tile for one step (scatter_gemm_mma_kernel; parent_gemm_mma_kernel
+// under TRANS_W): `bs` [BN][BK], row n W[j]'s row n0 + n at Cout depths
+// k0.., zero-filled past Cin and Cout.  W[j]^T is never transposed in
+// memory: its rows are the m16n8k16 B operand's column-major form.
+template <int Q>
+__device__ __forceinline__ void sg_load_wt(bf16* bs, const bf16* Wj, int n0, int k0, int Cin,
+                                           int Cout, int vec_w, int tid) {
+  constexpr int BN = 32 * Q, BK = gg::BK, THREADS = gg::THREADS;
+  if (vec_w) {  // Cout % 8 == 0, W 16-byte aligned: 16-byte copies of 8 depths
+    for (int e = tid; e < BN * BK / 8; e += THREADS) {
+      const int n = e >> 2, c = e & 3;
+      const bool ok = n0 + n < Cin && k0 + 8 * c < Cout;
+      cp_async16(bs + n * BK + (mma_chunk<BK / 8>(n, c) << 3),
+                 ok ? Wj + (int64_t)(n0 + n) * Cout + k0 + 8 * c : Wj, ok);
+    }
+  } else {
+    for (int e = tid; e < BN * BK; e += THREADS) {
+      const int n = e >> 5, k = e & 31;
+      const bool ok = n0 + n < Cin && k0 + k < Cout;
+      bs[n * BK + (mma_chunk<BK / 8>(n, k >> 3) << 3) + (k & 7)] =
+          ok ? Wj[(int64_t)(n0 + n) * Cout + k0 + k] : bf16_zero();
+    }
+  }
+}
+
+// One step's products for warp w: its 16 rows of `as` [BM][BK] (compacted
+// in scatter_gemm) times W[j]^T, staged as `bs` [BN][BK] (row n: W[j]'s row n0 + n), `depth`
+// of the 32 Cout depths live, into acc[n]: the m16n8 fragment of Cin
+// columns [8 n, 8 n + 8).
+template <int Q>
+__device__ __forceinline__ void sg_mma_bf16(float (&acc)[4 * Q][4], const bf16* as,
+                                            const bf16* bs, int warp, int lane, int depth) {
+  constexpr int BK = gg::BK;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if (16 * kk >= depth) break;
+    unsigned a[4];  // rows 16 w + lane % 16, depths 16 kk + 8 (lane / 16) ..
+    const int m = 16 * warp + (lane & 15);
+    ldsm_x4(a, as + m * BK + (mma_chunk<BK / 8>(m, 2 * kk + (lane >> 4)) << 3));
+#pragma unroll
+    for (int j = 0; j < 2 * Q; ++j) {  // columns [16 j, 16 j + 16): two fragments
+      unsigned b[4];  // matrices (columns + 0 | + 8) x (depths + 0 | + 8)
+      const int n = 16 * j + (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(b, bs + n * BK + (mma_chunk<BK / 8>(n, 2 * kk + ((lane >> 3) & 1)) << 3));
+      mma_bf16(acc[2 * j], a, b[0], b[1]);
+      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // grid (ceil(S_out / BM), ceil(Cout / 32 Q), B * splits)
 template <int Q, bool ROUND, bool F32 = false>
 __global__ void __launch_bounds__(gg::THREADS, 2)
@@ -755,10 +791,10 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
     const int t = live[1 + step / kchunks];
     const int k0 = (step % kchunks) * BK;
     const int* rt = rows + t * BM;
-    gg_load_rows<BM, true>(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin,
+    gg_load_rows<BM>(As + buf * BM * BK, Xb, [&](int m) { return rt[m]; }, k0, Cin,
                            vec_x, tid);
     const int j = t_lo + t;
-    gg_load_w<Q, bf16, true>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout,
+    gg_load_w<Q, bf16>(Bs + buf * BK * BN, j == G ? Wc : W + (int64_t)j * Cin * Cout,
                              k0, n0, Cin, Cout, vec_w, tid);
   };
 
@@ -1464,35 +1500,27 @@ namespace pg {
 constexpr int KO = 8;  // offsets of a k2s2 kernel (2^3)
 constexpr int FRAGS = gg::BM / 16;
 
+// element size: 4 (f32) or 2 (parent_gemm_mma_kernel's bf16 tiles)
 inline size_t smem_bytes(int Q, int esize = 4) {
   return (size_t)esize * gg::STAGES * (gg::BM * gg::BK + gg::BK * 32 * Q) +
          sizeof(int) * (3 * gg::BM + FRAGS + KO + 2);
 }
 }  // namespace pg
 
-template <int Q, typename T>
-__global__ void __launch_bounds__(gg::THREADS, 2)
-parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
-                   const int* __restrict__ off, const T* __restrict__ W,
-                   const int* __restrict__ order, T* __restrict__ out, int splits,
-                   int S_c, int S_f, int Cin, int Cout, int skip, int vec_x, int vec_w) {
-  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
-  constexpr int TM = gg::TM, BN = 32 * Q, KO = pg::KO, FRAGS = pg::FRAGS;
-  extern __shared__ __align__(16) float smem[];
-  T* As = reinterpret_cast<T*>(smem);                         // [STAGES][BM][BK]
-  T* Bs = As + STAGES * BM * BK;                              // [STAGES][BK][BN]
-  int* prow = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [BM] parent, -1: none
-  int* poff = prow + BM;                                      // [BM] offset
-  int* srow = poff + BM;                                      // [BM] output row, -1 past S_f
-  unsigned* fmask = reinterpret_cast<unsigned*>(srow + BM);   // [FRAGS] offsets present
-  int* offs = reinterpret_cast<int*>(fmask + FRAGS);  // count, the offsets, own mask
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 7, ty = tid >> 3;
-  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
-  const T* Xb = X + (int64_t)b * S_c * Cin;
-
+// The parent GEMMs' prologue (parent_gemm_kernel, parent_gemm_mma_kernel):
+// the tile's output rows `srow` [BM] (through `order` where given, -1 past
+// S_f), their parents `prow` (-1 where skipped or out of the table) and
+// offsets `poff`, per 16-row warp fragment the mask of its live rows'
+// offsets `fmask` [FRAGS], and this split's offsets `offs` (their count,
+// the offsets, then their mask at offs[1 + KO]).  Ends with a
+// __syncthreads.
+__device__ __forceinline__ void pg_prologue(int* srow, int* prow, int* poff, unsigned* fmask,
+                                            int* offs, const int* __restrict__ parent,
+                                            const int* __restrict__ off,
+                                            const int* __restrict__ order, int b, int s0,
+                                            int sp, int splits, int S_c, int S_f, int skip) {
+  constexpr int BM = gg::BM, KO = pg::KO, FRAGS = pg::FRAGS;
+  const int tid = threadIdx.x, lane = tid & 31;
   if (tid < BM) {  // whole warps
     const int e = s0 + tid;
     int s = -1, r = -1, o = 0;
@@ -1528,6 +1556,33 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
     offs[1 + KO] = (int)own;
   }
   __syncthreads();
+}
+
+template <int Q>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+parent_gemm_kernel(const float* __restrict__ X, const int* __restrict__ parent,
+                   const int* __restrict__ off, const float* __restrict__ W,
+                   const int* __restrict__ order, float* __restrict__ out, int splits,
+                   int S_c, int S_f, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
+  constexpr int TM = gg::TM, BN = 32 * Q, KO = pg::KO, FRAGS = pg::FRAGS;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                           // [STAGES][BM][BK]
+  float* Bs = As + STAGES * BM * BK;                          // [STAGES][BK][BN]
+  int* prow = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [BM] parent, -1: none
+  int* poff = prow + BM;                                      // [BM] offset
+  int* srow = poff + BM;                                      // [BM] output row, -1 past S_f
+  unsigned* fmask = reinterpret_cast<unsigned*>(srow + BM);   // [FRAGS] offsets present
+  int* offs = reinterpret_cast<int*>(fmask + FRAGS);  // count, the offsets, own mask
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tx = tid & 7, ty = tid >> 3;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const float* Xb = X + (int64_t)b * S_c * Cin;
+
+  pg_prologue(srow, prow, poff, fmask, offs, parent, off, order, b, s0, sp, splits, S_c, S_f,
+              skip);
   const int kchunks = (Cin + BK - 1) / BK;
   const int nsteps = offs[0] * kchunks;
 
@@ -1536,8 +1591,8 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
     const int k0 = (step % kchunks) * BK;
     gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return poff[m] == o ? prow[m] : -1; },
                  k0, Cin, vec_x, tid);
-    gg_load_w<Q, T>(Bs + buf * BK * BN, W + (int64_t)o * Cin * Cout, k0, n0, Cin, Cout,
-                    vec_w, tid);
+    gg_load_w<Q>(Bs + buf * BK * BN, W + (int64_t)o * Cin * Cout, k0, n0, Cin, Cout, vec_w,
+                 tid);
   };
 
   float4 acc[TM][Q];
@@ -1562,8 +1617,8 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
       cp_async_commit();
     }
     if (!((mine >> offs[1 + step / kchunks]) & 1u)) continue;  // no row of this offset
-    gg_fma<Q, T>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
-                 Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
+    gg_fma<Q>(acc, As + (step % STAGES) * BM * BK + 4 * ty * BK,
+              Bs + (step % STAGES) * BK * BN + 4 * tx, sw);
   }
   cp_async_wait<0>();
 
@@ -1575,9 +1630,141 @@ parent_gemm_kernel(const T* __restrict__ X, const int* __restrict__ parent,
     const int m = 4 * ty + i;
     const int s = srow[m];
     if (s < 0 || (prow[m] >= 0 ? !((own >> poff[m]) & 1u) : sp != 0)) continue;
-    T* row = out + ((int64_t)b * S_f + s) * Cout;
+    float* row = out + ((int64_t)b * S_f + s) * Cout;
 #pragma unroll
     for (int q = 0; q < Q; ++q) store4(row, n0 + 4 * tx + 32 * q, Cout, vec_o, acc[i][q]);
+  }
+}
+
+// parent_gemm_bf16 on the tensor cores (the bf16 form of (c): JAX K3's
+// forward and K2's dF in bf16, pointcontrast_tpu/sparse/ops.py:650-671,
+// :768-790): the f32 kernel's up-order tiles, prologue and offset splits
+// with gather_gemm_mma_kernel's products and epilogue.  What bounds it: a
+// live fine row costs 2 Cin Cout bf16 x bf16 operations, and each parent
+// row is read for up to 8 children, far under the tensor cores' 989
+// TFLOP/s at the card's balance point (~295 operations a byte), so the
+// parents' rows, the bf16 output and the pipeline's latency set its pace.
+// The design:
+//  - the f32 kernel's tiles (128 entries of the up order: one offset, or a
+//    few at a run boundary), prologue (pg_prologue: per 16-row fragment the
+//    mask of its live rows' offsets) and steps over (offset, 32-deep Cin
+//    chunk), the rows of the step's offset staged through the bf16 cp.async
+//    ring and the others zero-filled (gg_load_rows, mma_chunk's swizzle);
+//  - warp w runs gm_mma (ldmatrix + mma.sync.m16n8k16 bf16 -> f32) on its
+//    fragment x the Cout tile BN = 32 Q (gm::q_for: 32 -> 1, 64 -> 2, 96 ->
+//    3, 128 and 256 -> 4) where its fragment holds a row of the step's
+//    offset, and skips the step where it holds none; a zero-filled row adds
+//    +-0 to its sums, so each row's f32 sum runs over its own offset's
+//    products;
+//  - TRANS_W (K2's dF, out = ct W[o]^T): W is the forward's untransposed
+//    [8, Cout, Cin]; the tile stages BN rows of W[o] (sg_load_wt) and
+//    plain ldmatrix reads the B fragments (sg_mma_bf16), so the caller
+//    makes no transposed copy of W;
+//  - epilogue: each sum rounded once to bf16, the tile staged in shared
+//    memory (rows padded by gm::PAD) and stored as 16-byte rows; each row
+//    by the block of its offset's split (skipped rows, zeros, by split 0):
+//    no partial sums, no atomics, no workspace, the same bits run to run.
+// grid (ceil(S_f / BM), ceil(Cout / 32 Q), B * splits)
+template <int Q, bool TRANS_W>
+__global__ void __launch_bounds__(gg::THREADS, 2)
+parent_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ parent,
+                       const int* __restrict__ off, const bf16* __restrict__ W,
+                       const int* __restrict__ order, bf16* __restrict__ out, int splits,
+                       int S_c, int S_f, int Cin, int Cout, int skip, int vec_x, int vec_w) {
+  constexpr int BM = gg::BM, BK = gg::BK, STAGES = gg::STAGES;
+  constexpr int BN = 32 * Q, NF = 4 * Q, LDC = BN + gm::PAD, KO = pg::KO, FRAGS = pg::FRAGS;
+  extern __shared__ __align__(16) float smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);                   // [STAGES][BM][BK]
+  bf16* Bs = As + STAGES * BM * BK;  // [STAGES][BK][BN] (TRANS_W: [STAGES][BN][BK])
+  int* prow = reinterpret_cast<int*>(Bs + STAGES * BK * BN);  // [BM] parent, -1: none
+  int* poff = prow + BM;                                      // [BM] offset
+  int* srow = poff + BM;                                      // [BM] output row, -1 past S_f
+  unsigned* fmask = reinterpret_cast<unsigned*>(srow + BM);   // [FRAGS] offsets present
+  int* offs = reinterpret_cast<int*>(fmask + FRAGS);  // count, the offsets, own mask
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int b = blockIdx.z / splits, sp = blockIdx.z % splits;
+  const bf16* Xb = X + (int64_t)b * S_c * Cin;
+
+  pg_prologue(srow, prow, poff, fmask, offs, parent, off, order, b, s0, sp, splits, S_c, S_f,
+              skip);
+  const int kchunks = (Cin + BK - 1) / BK;
+  const int nsteps = offs[0] * kchunks;
+
+  auto load = [&](int step, int buf) {
+    const int o = offs[1 + step / kchunks];
+    const int k0 = (step % kchunks) * BK;
+    gg_load_rows(As + buf * BM * BK, Xb, [&](int m) { return poff[m] == o ? prow[m] : -1; },
+                 k0, Cin, vec_x, tid);
+    const bf16* Wo = W + (int64_t)o * Cin * Cout;
+    if constexpr (TRANS_W) {
+      sg_load_wt<Q>(Bs + buf * BK * BN, Wo, n0, k0, Cout, Cin, vec_w, tid);
+    } else {
+      gg_load_w<Q, bf16>(Bs + buf * BK * BN, Wo, k0, n0, Cin, Cout, vec_w, tid);
+    }
+  };
+
+  float acc[NF][4];  // fragment n: columns 8 n + 2 (lane % 4) + {0, 1}, rows lane / 4 + {0, 8}
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) load(st, st);
+    cp_async_commit();
+  }
+  const unsigned mine = fmask[warp];  // warp w's fragment: rows [16 w, 16 w + 16)
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's tiles have landed; step - 1's buffer is free
+    {
+      const int next = step + STAGES - 1;
+      if (next < nsteps) load(next, next % STAGES);
+      cp_async_commit();
+    }
+    if (!((mine >> offs[1 + step / kchunks]) & 1u)) continue;  // no row of this offset
+    const int k0 = (step % kchunks) * BK;
+    const bf16* as = As + (step % STAGES) * BM * BK;
+    const bf16* bs = Bs + (step % STAGES) * BK * BN;
+    if constexpr (TRANS_W) {
+      sg_mma_bf16<Q>(acc, as, bs, warp, lane, Cin - k0);
+    } else {
+      gm_mma<Q>(acc, as, bs, warp, lane, Cin - k0);
+    }
+  }
+  cp_async_wait<0>();
+
+  // round once, stage the tile's rows in shared memory (the ring is free
+  // once every warp is past its last step), store 16 bytes at a time; each
+  // row by the block that owns its offset, skipped rows (zeros) by split 0
+  const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
+  bf16* Cs = As;  // [BM][LDC]
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(Cs + (16 * warp + g + 8 * h) * LDC + 8 * n + c2) =
+          __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+  __syncwarp();
+  const unsigned own = (unsigned)offs[1 + KO];
+  const bool vec_o = Cout % 8 == 0;
+#pragma unroll
+  for (int u = 0; u < BN / 16; ++u) {  // the warp's 16 rows x BN / 8 chunks
+    const int e = lane + 32 * u;
+    const int m = 16 * warp + e / (BN / 8), c = e % (BN / 8);
+    const int s = srow[m], n = n0 + 8 * c;
+    if (s < 0 || n >= Cout || (prow[m] >= 0 ? !((own >> poff[m]) & 1u) : sp != 0)) continue;
+    bf16* dst = out + ((int64_t)b * S_f + s) * Cout + n;
+    const bf16* src = Cs + m * LDC + 8 * c;
+    if (vec_o) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int i = 0; i < 8 && n + i < Cout; ++i) dst[i] = src[i];
+    }
   }
 }
 
@@ -1895,54 +2082,6 @@ scatter_gemm_kernel(const float* __restrict__ G, const int* __restrict__ map,
 //    unaligned).  The atomics' order changes the sums' last bits from run
 //    to run: the checks hold dF to a bound of the exact sum
 //    (sparse/kernels.py scatter_gemm_bf16_bound), not to bits.
-// W[j]^T's tile for one step: `bs` [BN][BK], row n W[j]'s row n0 + n at
-// Cout depths k0.., zero-filled past Cin and Cout.
-template <int Q>
-__device__ __forceinline__ void sg_load_wt(bf16* bs, const bf16* Wj, int n0, int k0, int Cin,
-                                           int Cout, int vec_w, int tid) {
-  constexpr int BN = 32 * Q, BK = gg::BK, THREADS = gg::THREADS;
-  if (vec_w) {  // Cout % 8 == 0, W 16-byte aligned: 16-byte copies of 8 depths
-    for (int e = tid; e < BN * BK / 8; e += THREADS) {
-      const int n = e >> 2, c = e & 3;
-      const bool ok = n0 + n < Cin && k0 + 8 * c < Cout;
-      cp_async16(bs + n * BK + (mma_chunk<BK / 8>(n, c) << 3),
-                 ok ? Wj + (int64_t)(n0 + n) * Cout + k0 + 8 * c : Wj, ok);
-    }
-  } else {
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int n = e >> 5, k = e & 31;
-      const bool ok = n0 + n < Cin && k0 + k < Cout;
-      bs[n * BK + (mma_chunk<BK / 8>(n, k >> 3) << 3) + (k & 7)] =
-          ok ? Wj[(int64_t)(n0 + n) * Cout + k0 + k] : bf16_zero();
-    }
-  }
-}
-
-// One step's products for warp w: its 16 compacted rows of `as` [BM][BK]
-// times W[j]^T, staged as `bs` [BN][BK] (row n: W[j]'s row n0 + n), `depth`
-// of the 32 Cout depths live, into acc[n]: the m16n8 fragment of Cin
-// columns [8 n, 8 n + 8).
-template <int Q>
-__device__ __forceinline__ void sg_mma_bf16(float (&acc)[4 * Q][4], const bf16* as,
-                                            const bf16* bs, int warp, int lane, int depth) {
-  constexpr int BK = gg::BK;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    if (16 * kk >= depth) break;
-    unsigned a[4];  // rows 16 w + lane % 16, depths 16 kk + 8 (lane / 16) ..
-    const int m = 16 * warp + (lane & 15);
-    ldsm_x4(a, as + m * BK + (mma_chunk<BK / 8>(m, 2 * kk + (lane >> 4)) << 3));
-#pragma unroll
-    for (int j = 0; j < 2 * Q; ++j) {  // columns [16 j, 16 j + 16): two fragments
-      unsigned b[4];  // matrices (columns + 0 | + 8) x (depths + 0 | + 8)
-      const int n = 16 * j + (lane & 7) + ((lane >> 4) << 3);
-      ldsm_x4(b, bs + n * BK + (mma_chunk<BK / 8>(n, 2 * kk + ((lane >> 3) & 1)) << 3));
-      mma_bf16(acc[2 * j], a, b[0], b[1]);
-      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // grid (ceil(S_out / BM), ceil(Cin / 32 Q), B * splits)
 template <int Q>
 __global__ void __launch_bounds__(gg::THREADS, 2)
@@ -1980,7 +2119,7 @@ scatter_gemm_mma_kernel(const bf16* __restrict__ G, const int* __restrict__ map,
     const int k0 = (step % kchunks) * BK;
     const unsigned char* ct = crow + t * BM;
     const int n = nlive[t];
-    gg_load_rows<BM, true>(As + buf * BM * BK, Gb,
+    gg_load_rows<BM>(As + buf * BM * BK, Gb,
                            [&](int m) { return m < n ? srow[ct[m]] : -1; }, k0, Cout, vec_g,
                            tid);
     sg_load_wt<Q>(Bs + buf * BN * BK, W + (int64_t)t * Cin * Cout, n0, k0, Cin, Cout, vec_w,
@@ -2982,10 +3121,10 @@ brick_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ nbr, i
 
   auto load = [&](int step, int buf) {
     const int t = step / kchunks, k0 = (step % kchunks) * BK;
-    gg_load_rows<BM, true>(As + buf * BM * BK, X,
+    gg_load_rows<BM>(As + buf * BM * BK, X,
                            [&](int m) { return bg_source(tab, nbx, srow, t, m); }, k0, Cin,
                            vec_x, tid);
-    gg_load_w<Q, bf16, true>(Bs + buf * BK * BN, W + (int64_t)t * Cin * Cout, k0, n0, Cin,
+    gg_load_w<Q, bf16>(Bs + buf * BK * BN, W + (int64_t)t * Cin * Cout, k0, n0, Cin,
                              Cout, vec_w, tid);
   };
 
@@ -3326,37 +3465,48 @@ int pc_gather_wgrad_tiles(int Ca, int Cg, int mma) {
   return ((Ca + 32 * qa - 1) / (32 * qa)) * ((Cg + 32 * qg - 1) / (32 * qg));
 }
 
+// bf16_: parent_gemm_mma_kernel (the tensor cores); trans_w (bf16 only):
+// W is [8, Cout, Cin], read as W[o]^T (K2's dF on the forward's weights)
 int pc_parent_gemm(const void* X, const void* parent, const void* off, const void* W,
                    const void* order, void* out, int B, int S_c, int S_f, int Cin,
-                   int Cout, int skip, int splits, int bf16_, void* stream) {
-  const int q = gg::q_for(Cout);
+                   int Cout, int skip, int splits, int bf16_, int trans_w, void* stream) {
+  if (trans_w && !bf16_) return (int)cudaErrorInvalidValue;
+  const int q = bf16_ ? gm::q_for(Cout, false) : gg::q_for(Cout);
   const size_t smem = pg::smem_bytes(q, bf16_ ? 2 : 4);
   const int vec = bf16_ ? 8 : 4;
   const int vec_x = Cin % vec == 0 && aligned16(X);
-  const int vec_w = Cout % vec == 0 && aligned16(W);
+  const int vec_w = (trans_w ? Cin : Cout) % vec == 0 && aligned16(W);
   const dim3 grid((S_f + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[8] = {};  // dynamic shared memory allowed so far, by Q and type
-  auto go = [&](auto kernel, auto t) {
+  static size_t granted[16] = {};  // dynamic shared memory allowed so far, by kernel
+  auto go = [&](auto kernel, auto t, int slot) {
     using T = decltype(t);
-    if (smem > 48 * 1024 && smem > granted[4 * bf16_ + q]) {
+    if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      granted[4 * bf16_ + q] = smem;
+      granted[slot] = smem;
     }
     kernel<<<grid, gg::THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)X, (const int*)parent, (const int*)off, (const T*)W,
         (const int*)order, (T*)out, splits, S_c, S_f, Cin, Cout, skip, vec_x, vec_w);
   };
-  if (bf16_) {
+  if (!bf16_) {
     switch (q) {
-      case 1: go(parent_gemm_kernel<1, bf16>, bf16()); break;
-      case 2: go(parent_gemm_kernel<2, bf16>, bf16()); break;
-      default: go(parent_gemm_kernel<3, bf16>, bf16()); break;
+      case 1: go(parent_gemm_kernel<1>, 0.f, 1); break;
+      case 2: go(parent_gemm_kernel<2>, 0.f, 2); break;
+      default: go(parent_gemm_kernel<3>, 0.f, 3); break;
+    }
+  } else if (trans_w) {
+    switch (q) {
+      case 1: go(parent_gemm_mma_kernel<1, true>, bf16(), 9); break;
+      case 2: go(parent_gemm_mma_kernel<2, true>, bf16(), 10); break;
+      case 3: go(parent_gemm_mma_kernel<3, true>, bf16(), 11); break;
+      default: go(parent_gemm_mma_kernel<4, true>, bf16(), 12); break;
     }
   } else {
     switch (q) {
-      case 1: go(parent_gemm_kernel<1, float>, 0.f); break;
-      case 2: go(parent_gemm_kernel<2, float>, 0.f); break;
-      default: go(parent_gemm_kernel<3, float>, 0.f); break;
+      case 1: go(parent_gemm_mma_kernel<1, false>, bf16(), 5); break;
+      case 2: go(parent_gemm_mma_kernel<2, false>, bf16(), 6); break;
+      case 3: go(parent_gemm_mma_kernel<3, false>, bf16(), 7); break;
+      default: go(parent_gemm_mma_kernel<4, false>, bf16(), 8); break;
     }
   }
   return (int)cudaGetLastError();

@@ -19,11 +19,13 @@ rounded first, JAX's flat ``_conv_core``; ``gather_wgrad_bf16`` writes f32
 dW, A bf16 and G bf16 or f32, the f32 G the stacked dy of K3's parent
 design; ``scatter_parent_bf16`` that f32 dy).  Their
 twins gather bf16 and round as the kernels do, on exact (f64) sums for
-``gather_gemm_bf16`` and f32 ones for the others.  ``gather_gemm_bf16``
-and ``gather_wgrad_bf16`` on two bf16 operands run on the tensor cores
-(mma.sync), summing in another order than the SIMT forms:
-``gather_gemm_bf16_bound`` and ``gather_wgrad_bf16_bound`` give the
-distance from the exact sum their outputs are held to.
+``gather_gemm_bf16`` and f32 ones for the others.  ``gather_gemm_bf16``,
+``parent_gemm_bf16`` and ``gather_wgrad_bf16`` on two bf16 operands run
+on the tensor cores (mma.sync), summing in another order than the SIMT
+forms: ``gather_gemm_bf16_bound``, ``parent_gemm_bf16_bound`` and
+``gather_wgrad_bf16_bound`` give the distance from the exact sum their
+outputs are held to (``parent_gemm_bf16(..., trans_w=True)``: K2's dF on
+the forward's weights, read transposed in the kernel).
 ``scatter_gemm_bf16`` (K4's dF in bf16, on the tensor cores) scatter-adds
 its products into one f32 table with f32 atomics and rounds it once
 (``scatter_gemm_bf16_bound``); ``gather_sum_bf16`` and ``scatter_sum_bf16``
@@ -95,7 +97,8 @@ row, gather_wgrad compacts its live pairs, both pipeline their copies with
 cp.async (csrc/sparse_conv.cu spells out the designs).
 parent_gemm (2 Cin Cout operations a fine row) runs gather_gemm's pipeline
 over the fine rows in the pyramid's up order (``topology.up_order``), one
-offset's weights a step, the parent rows of the other offsets zero-filled.
+offset's weights a step, the parent rows of the other offsets zero-filled;
+its bf16 form the same tiles on the tensor cores.
 scatter_parent stores rows (HBM bytes bound it): its valid rows never
 collide, and the coarse pad slot, which pad and orphaned fine rows all
 name, is left out, so no atomic remains.
@@ -191,7 +194,7 @@ def _lib():
         "pc_gather_wgrad": [vp, vp, TapList, ci, ci, ci, ci, vp, vp, TapList,
                             ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
         "pc_gather_wgrad_tiles": [ci, ci, ci],
-        "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp],
+        "pc_parent_gemm": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "pc_scatter_parent": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "pc_scatter_gemm": [vp, vp, TapList, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                             ci, ci, ci, vp],
@@ -679,9 +682,12 @@ def gather_wgrad_bf16(a3, a_map, a_taps, a_stride, g3, g_map, g_taps, g_stride,
 # (c) parent_gemm
 
 
-def parent_gemm_plain(x3, parent, off, w, skip=-1, order=None):
+def parent_gemm_plain(x3, parent, off, w, skip=-1, order=None, trans_w=False):
     # ``order`` only orders the kernel's tiles: every row is the same.
-    # bf16 operands: products and sums in f32, each row rounded once
+    # bf16 operands: products and sums in f32, each row rounded once;
+    # ``trans_w``: on w[o]^T, a view
+    if trans_w:
+        w = w.transpose(1, 2)
     b_, s_c, _ = x3.shape
     k, _, cout = w.shape
     table = torch.einsum("bsc,kcd->bksd", _wide(x3), _wide(w)).reshape(b_, k * s_c, cout)
@@ -694,34 +700,60 @@ def parent_gemm_plain(x3, parent, off, w, skip=-1, order=None):
 parent_gemm_bf16_plain = parent_gemm_plain
 
 
-def _parent_splits(b_, s_f, cout) -> int:
+def parent_gemm_bf16_bound(x3, parent, off, w, skip=-1, order=None, trans_w=False):
+    """(ref, bound), f64 [B, S_f, Cout]: the exact sum of the products
+    ``parent_gemm_bf16`` computes (row i: x3[b, parent] @ w[off], zeros
+    where the parent is ``skip``), and how far from it an output may lie
+    whatever order its f32 sum of Cin products runs in:
+    2^-8 |ref| + (1 + 2^-8) gamma(Cin) P, P the sum of |products|
+    (``gather_gemm_bf16_bound`` at one tap)."""
+    f64 = torch.float64
+    w = (w.transpose(1, 2) if trans_w else w).to(f64)
+    rows = take_rows(x3.to(f64), parent.long())
+    kept = parent != skip  # skip -1: every row
+    ref = rows.new_zeros(*parent.shape, w.shape[2])
+    size = torch.zeros_like(ref)
+    for o in range(w.shape[0]):  # one offset's rows at a time
+        sel = kept & (off == o)
+        ref[sel] = rows[sel] @ w[o]
+        size[sel] = rows[sel].abs() @ w[o].abs()
+    err = _gamma(x3.shape[2]) * size
+    return ref, BF16_HALF_ULP * ref.abs() + (1 + BF16_HALF_ULP) * err
+
+
+def _parent_splits(b_, s_f, cout, tile_n=None) -> int:
     """Blocks over which parent_gemm spreads one tile's offsets: one,
-    unless its tiles (128 rows x the Cout tile, per chunk) come to fewer
-    than GEMM_BLOCKS; then enough to get there, at most 4 (a tile of the
-    up order spans a few offsets; a block with none of its own leaves at
-    once)."""
-    blocks = -(-s_f // GEMM_ROWS) * -(-cout // _gemm_tile_n(cout)) * b_
+    unless its tiles (128 rows x the kernel's Cout tile ``tile_n``, by
+    default the f32 kernel's, per chunk) come to fewer than GEMM_BLOCKS;
+    then enough to get there, at most 4 (a tile of the up order spans a few
+    offsets; a block with none of its own leaves at once)."""
+    tile_n = _gemm_tile_n(cout) if tile_n is None else tile_n
+    blocks = -(-s_f // GEMM_ROWS) * -(-cout // tile_n) * b_
     if blocks >= GEMM_BLOCKS:
         return 1
     return min(4, -(-GEMM_BLOCKS // blocks))
 
 
-def _parent_shapes(x3, parent, off, w, order):
+def _parent_shapes(x3, parent, off, w, order, trans_w=False):
+    """w is [8, Cin, Cout], or [8, Cout, Cin] under ``trans_w``."""
     b_, s_c, cin = x3.shape
-    k, _, cout = w.shape
+    k = w.shape[0]
+    cout = w.shape[1] if trans_w else w.shape[2]
     s_f = parent.shape[1]
-    _check_shape("w", w, (k, cin, cout))
+    _check_shape("w", w, (k, cout, cin) if trans_w else (k, cin, cout))
     _check_shape("parent", parent, (b_, s_f))
     _check_shape("off", off, (b_, s_f))
     _check_shape("order", order, (b_, s_f))
     check_index_space("parent_gemm", x3_rows=b_ * s_c, out_rows=b_ * s_f)
 
 
-def _parent_gemm_launch(name, x3, parent, off, w, skip, order, dtype):
-    """The parent-GEMM kernel on ``dtype`` operands -> (the output in
-    ``dtype``, launches: 0 or 1)."""
+def _parent_gemm_launch(name, x3, parent, off, w, skip, order, dtype, trans_w=False):
+    """The parent-GEMM kernel on ``dtype`` operands (bf16: the tensor-core
+    kernel, ``trans_w`` its form on w[o]^T) -> (the output in ``dtype``,
+    launches: 0 or 1)."""
     b_, s_c, cin = x3.shape
-    k, _, cout = w.shape
+    k = w.shape[0]
+    cout = w.shape[1] if trans_w else w.shape[2]
     s_f = parent.shape[1]
     _require(x3, "x3", dtype, 3)
     _require(w, "w", dtype, 3)
@@ -733,15 +765,16 @@ def _parent_gemm_launch(name, x3, parent, off, w, skip, order, dtype):
     out = torch.empty(b_, s_f, cout, device=x3.device, dtype=dtype)
     if out.numel() == 0:
         return out, 0
+    tile_n = _gemm_tile_n_bf16(cout, False) if dtype == BF16 else None
     rc = _lib().pc_parent_gemm(
         _ptr(x3), _ptr(parent), _ptr(off), _ptr(w), _ptr(order), _ptr(out), b_, s_c,
-        s_f, cin, cout, int(skip), _parent_splits(b_, s_f, cout), int(dtype == BF16),
-        _stream())
+        s_f, cin, cout, int(skip), _parent_splits(b_, s_f, cout, tile_n),
+        int(dtype == BF16), int(trans_w), _stream())
     _check(rc, name)
     return out, 1
 
 
-def parent_gemm(x3, parent, off, w, skip=-1, order=None):
+def parent_gemm(x3, parent, off, w, skip=-1, order=None, trans_w=False):
     """out[b,i] = x3[b, parent[b,i]] @ w[off[b,i]], zeros where parent[b,i]
     is ``skip`` (-1: none).  K3's forward passes the coarse pad row, whose
     features are zero by contract, so leaving it out changes nothing but
@@ -755,28 +788,39 @@ def parent_gemm(x3, parent, off, w, skip=-1, order=None):
     entries name, so a row that no entry names is never written.
 
     x3 [B, S_c, Cin]; parent/off [B, S_f]; w [8, Cin, Cout] -> [B, S_f, Cout],
-    f32 (bf16 operands go to ``parent_gemm_bf16``).  On the card every
-    output row is written once, by one block, in a fixed order of
-    products: the same bits from run to run."""
-    _parent_shapes(x3, parent, off, w, order)
+    f32 (bf16 operands go to ``parent_gemm_bf16``).  ``trans_w``: w is
+    [8, Cout, Cin] and row i is x3[b, parent] @ w[off]^T (K2's dF on the
+    forward's weights; this form makes the transposed copy, the bf16 form
+    reads W in place).  On the card every output row is written once, by
+    one block, in a fixed order of products: the same bits from run to
+    run."""
+    _parent_shapes(x3, parent, off, w, order, trans_w)
     _refuse_bf16("parent_gemm", x3, "parent_gemm_bf16")
     if _use_plain(x3):
-        return parent_gemm_plain(x3, parent, off, w, skip)
+        return parent_gemm_plain(x3, parent, off, w, skip, trans_w=trans_w)
+    if trans_w:
+        w = w.transpose(1, 2).contiguous()
     out, n = _parent_gemm_launch("parent_gemm", x3, parent, off, w, skip, order,
                                  torch.float32)
     parent_gemm.launches += n
     return out
 
 
-def parent_gemm_bf16(x3, parent, off, w, skip=-1, order=None):
+def parent_gemm_bf16(x3, parent, off, w, skip=-1, order=None, trans_w=False):
     """``parent_gemm`` on bf16 x3 and w (JAX K3's forward and K2's dF in
-    bf16: the product in f32, one rounding) -> [B, S_f, Cout] bf16; the
-    same bits from run to run."""
-    _parent_shapes(x3, parent, off, w, order)
+    bf16: bf16 x bf16 products summed in f32, each row rounded once) ->
+    [B, S_f, Cout] bf16.  ``trans_w``: w is [8, Cout, Cin] and row i is
+    x3[b, parent] @ w[off]^T (K2's dF on the forward's weights, with no
+    transposed copy).  On the card the products run on the tensor cores, in
+    another order of f32 adds than the twin's: an output lies within
+    ``parent_gemm_bf16_bound`` of the exact sum, and two launches give the
+    same bits (each row written once, by one block)."""
+    _parent_shapes(x3, parent, off, w, order, trans_w)
     _require_dtypes("parent_gemm_bf16", BF16, x3=x3, w=w)
     if _use_plain(x3):
-        return parent_gemm_bf16_plain(x3, parent, off, w, skip)
-    out, n = _parent_gemm_launch("parent_gemm_bf16", x3, parent, off, w, skip, order, BF16)
+        return parent_gemm_bf16_plain(x3, parent, off, w, skip, trans_w=trans_w)
+    out, n = _parent_gemm_launch("parent_gemm_bf16", x3, parent, off, w, skip, order, BF16,
+                                 trans_w)
     parent_gemm_bf16.launches += n
     return out
 

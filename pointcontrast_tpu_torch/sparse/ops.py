@@ -218,8 +218,7 @@ class _ConvChunkDown2(torch.autograd.Function):
         _, wgrad, pgemm = _forms(features, weights)
         df = dw = None
         if ctx.needs_input_grad[0]:
-            df = pgemm(ct3, up_parent, up_offset,
-                       weights.transpose(1, 2).contiguous(), -1, up_order)
+            df = pgemm(ct3, up_parent, up_offset, weights, -1, up_order, trans_w=True)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[4]:
             dw = wgrad(f3, down_nbr, list(range(k)), 0, ct3, None,

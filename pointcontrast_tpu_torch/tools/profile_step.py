@@ -29,7 +29,9 @@ and semseg batches in the chunked (default), voxel or brick[:N] layout.
      optimizer), host clock with a synchronise after each phase;
   3. one ``torch.profiler`` window over the kernel path: the device's busy
      time (union of its kernel and copy intervals) against the window's wall
-     time, and device time by kernel name.
+     time, device time by kernel name, and the launches a step: all of
+     them and those of PyTorch's copy kernels and memcpys (casts and
+     ``contiguous`` copies among them), by name.
 Prints one JSON summary as its last line.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -349,6 +351,16 @@ def main(argv=None) -> int:
     for name, (us, count) in ranked[:25]:
         print(f"[kernel] {us / steps / 1e3:9.3f} ms/step {100 * us / total:6.2f}% "
               f"launches/step={count / steps:g} {name[:110]}", flush=True)
+    # copies and casts (PyTorch's copy kernels, memcpys): their names differ
+    # past the first 110 characters, so each gets its head and tail
+    copies = {name: count for name, (_, count) in by_name.items()
+              if "copy" in name.lower() or name.startswith("Memcpy")}
+    for name, count in sorted(copies.items(), key=lambda kv: -kv[1]):
+        label = name if len(name) <= 150 else f"{name[:60]} ... {name[-90:]}"
+        print(f"[copy] launches/step={count / steps:g} {label}", flush=True)
+    launches = sum(count for _, count in by_name.values()) / steps
+    copy_launches = sum(copies.values()) / steps
+    print(f"[launches] per_step={launches:g} copies_per_step={copy_launches:g}", flush=True)
     summary = {
         "app": args.app,
         "backbone": args.backbone if args.app == "votenet" else None,
@@ -363,6 +375,8 @@ def main(argv=None) -> int:
         "phase_ms_per_step": phases,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "idle_share": 1 - busy_us / wall_us,
+        "launches_per_step": launches,
+        "copy_launches_per_step": copy_launches,
     }
     print(json.dumps(summary), flush=True)
     return 0

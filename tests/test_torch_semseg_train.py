@@ -83,18 +83,36 @@ def batches():
     return out
 
 
-def _jax_run(batches, crf: bool, iter_size: int, apply_filter: bool, steps: int):
+@pytest.fixture(scope="module")
+def jax_init(batches):
+    """``init(crf, tx)``: JAX's initial train state of the narrow net (the
+    CRF wrapper's with ``crf``) with optimizer ``tx``.  One
+    ``create_train_state`` (one traced init) a model, shared by the cases
+    that start from it: a case swaps in its own optimizer."""
+    jb = batches["j"]
+    states = {}
+
+    def init(crf, tx):
+        if crf not in states:
+            model = JTiny(in_channels=3, out_channels=CLASSES)
+            if crf:
+                model = jcrf.BilateralCRF(net=model, nchannels=CLASSES, kernel_volume=13,
+                                          meanfield_iterations=2)
+            inputs = (jb[0].feats, jb[0].pyramid) + ((jb[0].crf_nbr,) if crf else ())
+            states[crf] = create_train_state(jax.random.PRNGKey(0), model, tx, inputs)
+        state = states[crf]
+        return state.replace(tx=tx, opt_state=tx.init(state.params))
+
+    return init
+
+
+def _jax_run(batches, jax_init, crf: bool, iter_size: int, apply_filter: bool, steps: int):
     jax.config.update("jax_default_matmul_precision", "highest")
     jb = batches["j"]
-    model = JTiny(in_channels=3, out_channels=CLASSES)
-    if crf:
-        model = jcrf.BilateralCRF(net=model, nchannels=CLASSES, kernel_volume=13,
-                                  meanfield_iterations=2)
     cfg = JConfig(iter_size=iter_size, **CFG)
     tx = j_optim.make_optimizer("sgd", cfg.lr, j_optim.make_scheduler("polylr", cfg),
                                 cfg, param_lr_scales={"filter": 0.5} if crf else None)
-    inputs = (jb[0].feats, jb[0].pyramid) + ((jb[0].crf_nbr,) if crf else ())
-    state = create_train_state(jax.random.PRNGKey(0), model, tx, inputs)
+    state = jax_init(crf, tx)
     init = (jax.device_get(state.params), jax.device_get(state.batch_stats))
     step = jax.jit(lambda s, b: j_make_step(cfg, wrapper=crf,
                                             apply_filter=apply_filter)(s, b))
@@ -153,8 +171,8 @@ def _check(model, metrics, jrun):
     (True, 1, True, 1),
     (True, 1, False, 1),
 ])
-def test_train_steps_match_jax(batches, crf, iter_size, apply_filter, steps):
-    jrun = _jax_run(batches, crf, iter_size, apply_filter, steps)
+def test_train_steps_match_jax(batches, jax_init, crf, iter_size, apply_filter, steps):
+    jrun = _jax_run(batches, jax_init, crf, iter_size, apply_filter, steps)
     model, metrics = _torch_run(batches, jrun, crf, iter_size, apply_filter, steps)
     _check(model, metrics, jrun)
     if crf:
