@@ -69,6 +69,26 @@ from.  Phases of the first, each printed on its own line:
      BF16_STEP_LIMITS and its gradients from one forward of the kernels to
      BF16_GRAD_LIMITS (``_bf16_parity``), beside the reversed twins'
      spread; then ``brick k5 shapes bf16`` (launches 0);
+  5e. ``pretrain hardest`` and ``pretrain hardest bf16``: the shipped
+     trainer (configs/pretrain_default.yaml's HardestContrastiveLossTrainer)
+     on the chunked scenes of 3, collated with mode="hardest" (4096
+     positives and 1024 hard-negative candidates a frame), bounds-checked;
+     the kernels-vs-plain step, whose plain step replays the kernel step's
+     hardest negatives (the loss to LOSS_RTOL, in bf16 to BF16_LOSS_RTOL
+     with the output's cosine to BF16_COS_MIN), and a ``[picks]`` line of
+     readings: how many of the 2 x 4096 picks the plain step's own argmins
+     change, its loss from them, and the anchors the collision bitmaps
+     drop; STEPS counted PretrainTrainer steps (pos_loss and neg_loss
+     printed) whose launches must equal the NCE paths'
+     ``expected_launches``.  No kernel checks of their own: the networks
+     and shapes are those of 5 and 5b, whose checks these paths' entries
+     in the kernels line name (``checks_from``);
+  5f. ``cli pretrain``: apps.pretrain.main on configs/pretrain_default.yaml
+     as shipped (hardest, bf16, chunked) on synthetic pairs: 3 steps and a
+     checkpoint, then a second call to max_iter 5 that resumes from it,
+     each call's launches the bf16 model's expected ones a step; the
+     logged step_time and data_time of each step, and the host's seconds
+     a batch for the samples and for the collation alone;
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -588,7 +608,10 @@ def make_batches(device, **kw):
         rows=[int(l.valid.shape[0]) for l in lv],
         valid_rows=[int(l.valid.sum()) for l in lv],
         truncated=[float(b.truncated_voxels) for b in dev],
-        pairs=[int(b.pair_valid.sum()) for b in dev])
+        **({"pairs": [int(b.pair_valid.sum()) for b in dev]} if kw.get("mode") != "hardest"
+           else {"positives": [int(b.pos_valid.sum()) for b in dev],
+                 "candidates": [[int(b.cand0_valid.sum()), int(b.cand1_valid.sum())]
+                                for b in dev]}))
     return dev
 
 
@@ -1532,12 +1555,34 @@ def _bf16_parity(app, losses, model, run, x, ct, valid, device):
                              f"by {l2:.3e} (L2) > {l2_rtol}")
 
 
-def phase_slice(batches, device, card, app, expect, dtype=None):
+def _hardest_picks(app, losses, hardest, batch):
+    """The ``[picks]`` line of a hardest path's parity (readings, not
+    limits): of the 2 x P hardest negatives (anchor -> frame-1 candidate,
+    positive -> frame-0 candidate), how many the plain step's own argmins
+    pick differently from the kernel step's, with the plain step's loss
+    from its own picks beside the replayed one; and how many valid anchors
+    the collision bitmaps drop from each negative term."""
+    from pointcontrast_tpu_torch.losses.contrastive import _packed_bit
+
+    def dropped(picks):
+        return [int(((batch.pos_valid > 0) & _packed_bit(bits, i)).sum())
+                for bits, i in zip((batch.collide0, batch.collide1), picks)]
+
+    own, kern = hardest["plain unreplayed"], hardest["kernels"]
+    flips = sum(int((a != b).sum()) for a, b in zip(own, kern))
+    say("picks", app=app, picks=sum(a.numel() for a in kern), unreplayed_flips=flips,
+        dropped_kernels=dropped(kern), dropped_plain_unreplayed=dropped(own),
+        loss_plain_unreplayed=f"{losses['plain unreplayed']:.8f}",
+        rel_unreplayed=f"{abs(losses['plain unreplayed'] / losses['kernels'] - 1):.2e}")
+
+
+def phase_slice(batches, device, card, app, expect, dtype=None, mode="nce"):
     """A pretraining main path: one step through the kernels against the
     plain twins, then STEPS PretrainTrainer steps with ``expect`` launches
     of every kernel a step, and the output; ``dtype``: the model's
     activations (bf16: the step's parity also holds the forward's output to
-    cosine BF16_COS_MIN)."""
+    cosine BF16_COS_MIN); ``mode``: the loss ('hardest': the plain step
+    replays the kernel step's hardest negatives, ``_hardest_picks``)."""
     import torch
 
     from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
@@ -1559,20 +1604,28 @@ def phase_slice(batches, device, card, app, expect, dtype=None):
     n_params = sum(p.numel() for p in model.parameters())
     say("model", app=app, name="Res16UNet34C" + (" bf16" if bf16 else ""),
         params=n_params, per_step=expect)
-    cfg = PretrainConfig(lr=0.1, stat_freq=1, save_freq=10 ** 9,
+    cfg = PretrainConfig(mode=mode, lr=0.1, stat_freq=1, save_freq=10 ** 9,
                          checkpoint_dir=os.path.join(BUILD_DIR, "smoke_ckpt"))
     shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
 
     # one step through the kernels vs the plain twins, same weights + batch
-    losses = {}
-    for mode in ("plain", "kernels"):
+    # (hardest: the plain step takes the kernel step's hardest negatives)
+    losses, hardest = {}, {}
+    for run in ("kernels", "plain") + (("plain unreplayed",) if mode == "hardest" else ()):
         m = copy.deepcopy(model).to(device)
         opt = optim.make_optimizer(m, cfg)
         sched = optim.make_scheduler(opt, cfg)
         step = make_train_step(cfg)
-        with plain_ops() if mode == "plain" else contextlib.nullcontext():
-            losses[mode] = float(step(m, opt, sched, batches[0])["loss"])
+        replay = hardest.get("kernels") if run == "plain" else None
+        with plain_ops() if run.startswith("plain") else contextlib.nullcontext():
+            metrics = step(m, opt, sched, batches[0], hardest=replay,
+                           return_hardest=mode == "hardest")
+        losses[run] = float(metrics["loss"])
+        if mode == "hardest":
+            hardest[run] = metrics["hardest"]
         del m, opt, sched
+    if mode == "hardest":
+        _hardest_picks(app, losses, hardest, batches[0])
     b0 = batches[0]
     if bf16:
         valid0 = b0.pyramid0.levels[0].valid
@@ -1595,8 +1648,12 @@ def phase_slice(batches, device, card, app, expect, dtype=None):
     loss_list = [m["loss"] for _, m in history]
     step_ms = [1e3 * m["step_time"] for _, m in history]
     for i, (_, m) in enumerate(history):
-        say("step", app=app, iter=i + 1, loss=f"{m['loss']:.6f}", lr=m["lr"],
+        terms = {k: f"{m[k]:.6f}" for k in ("pos_loss", "neg_loss") if k in m}
+        say("step", app=app, iter=i + 1, loss=f"{m['loss']:.6f}", **terms, lr=m["lr"],
             step_ms=f"{1e3 * m['step_time']:.1f}")
+    if mode == "hardest" and not all(math.isfinite(m[k]) for _, m in history
+                                     for k in ("pos_loss", "neg_loss")):
+        raise AssertionError(f"{app}: non-finite loss terms")
     if len(loss_list) != STEPS or not all(map(math.isfinite, loss_list)):
         raise AssertionError(f"{app}: non-finite or missing losses: {loss_list}")
     want = {k: v * STEPS for k, v in expect.items()}
@@ -3396,6 +3453,110 @@ def pretrain_path(layout, device, card, paths, dtype=None):
                                    dtype=dtype))
 
 
+def pretrain_hardest_paths(device, card, paths):
+    """The shipped pretraining trainer (configs/pretrain_default.yaml's
+    HardestContrastiveLossTrainer) on the chunked layout: its batches (the
+    ``pretrain`` path's scenes collated with ``mode="hardest"``: 4096
+    positives and 1024 candidates a frame, bounds-checked), then ``pretrain
+    hardest`` (f32) and ``pretrain hardest bf16``: the kernels-vs-plain
+    step with the hardest negatives replayed and STEPS counted steps, whose
+    launches must equal the NCE paths' ``expected_launches``.  The
+    networks and shapes are those of ``pretrain`` and ``pretrain bf16``,
+    whose checks hold each kernel against its twin: in the kernels line
+    these paths name them (``checks_from``) beside their launches."""
+    import torch
+
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+
+    batches = make_batches(device, mode="hardest")
+    for dtype, nce in ((None, "pretrain"), (torch.bfloat16, "pretrain bf16")):
+        app = nce.replace("pretrain", "pretrain hardest")
+        expect = expected_launches(pretrain_model(seed=0, dtype=dtype))
+        paths[app] = (nce, phase_slice(batches, device, card, app, expect,
+                                       dtype=dtype, mode="hardest"))
+
+
+def phase_cli_pretrain(card):
+    """``apps.pretrain.main`` on the card with configs/pretrain_default.yaml
+    as shipped (HardestContrastiveLossTrainer, Res16UNet34C 3 -> 32 in
+    bf16, 4 pairs a batch, npad0 131072, chunked), overriding only
+    ``data.dataset=SyntheticPairDataset``, ``misc.out_dir``,
+    ``opt.max_iter`` and ``trainer.stat_freq``: 3 steps and a checkpoint,
+    then a second call with ``opt.max_iter=5`` that resumes from it and
+    takes 2 more; each call's launches must equal the bf16 model's
+    ``expected_launches`` a step.  Prints the logged ``step_time`` and
+    ``data_time`` of each step, and the host's seconds a batch for the
+    samples (``__getitem__``) and for ``collate_pair`` alone."""
+    import numpy as np
+    import torch
+
+    from pointcontrast_tpu_torch.apps import pretrain as app
+    from pointcontrast_tpu_torch.config import load_config
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.data.collate import PadScheme, collate_pair
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+
+    out = os.path.join(BUILD_DIR, "smoke_cli_pretrain")
+    shutil.rmtree(out, ignore_errors=True)
+    args = [app.DEFAULT_CONFIG, "data.dataset=SyntheticPairDataset", f"misc.out_dir={out}",
+            "trainer.stat_freq=1"]
+    expect = expected_launches(pretrain_model(seed=0, dtype=torch.bfloat16))
+    runs = []
+    for max_iter in (3, 5):
+        t0 = time.perf_counter()
+        K.reset_launches()
+        trainer, history = app.main(args + [f"opt.max_iter={max_iter}"])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        runs.append((trainer, history, counts, time.perf_counter() - t0))
+    (first, h1, c1, s1), (resumed, h2, c2, s2) = runs
+    ckpt = os.path.join(out, "weights", "checkpoint_3.pth")
+    if ([i for i, _ in h1] != [1, 2, 3] or [i for i, _ in h2] != [4, 5]
+            or not os.path.exists(ckpt) or first.device.type != "cuda"
+            or first.config.mode != "hardest" or first.model.dtype != torch.bfloat16):
+        raise AssertionError("the pretrain CLI did not train the shipped hardest bf16 "
+                             "trainer on the card, save and resume")
+    if c1 != {k: 3 * v for k, v in expect.items()} or c2 != {k: 2 * v for k, v in expect.items()}:
+        raise AssertionError(f"the pretrain CLI's launches {c1} / {c2} != 3 / 2 x {expect}")
+    losses = [m[k] for _, m in h1 + h2 for k in ("loss", "pos_loss", "neg_loss")]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the pretrain CLI's losses: {losses}")
+    for it, m in h1 + h2:
+        say("cli step", app="pretrain", iter=it, loss=f"{m['loss']:.6f}",
+            pos_loss=f"{m['pos_loss']:.6f}", neg_loss=f"{m['neg_loss']:.6f}",
+            step_s=f"{m['step_time']:.4f}", data_s=f"{m['data_time']:.4f}",
+            truncated=m["truncated_voxels"], card=repr(card))
+
+    # the host's cost of a batch, alone: the loader's samples, then collation
+    cfg = load_config(app.DEFAULT_CONFIG, args[1:])
+    ds = app.build_dataset(cfg)
+    scheme = PadScheme(npad0=cfg.data.npad0, level_ratios=tuple(cfg.data.pad_ratios))
+    rng = np.random.RandomState(0)
+    sample_s, collate_s = [], []
+    for b in range(3):
+        t0 = time.perf_counter()
+        samples = [ds.__getitem__(4 * b + i, rng=np.random.RandomState(b * 4 + i))
+                   for i in range(cfg.trainer.batch_size)]
+        t1 = time.perf_counter()
+        collate_pair(samples, scheme, mode="hardest", npos=cfg.misc.npos,
+                     num_pos=cfg.trainer.num_pos_per_batch * cfg.trainer.batch_size,
+                     num_hn=cfg.trainer.num_hn_samples_per_batch * cfg.trainer.batch_size,
+                     rng=rng, layout=cfg.data.layout)
+        sample_s.append(t1 - t0)
+        collate_s.append(time.perf_counter() - t1)
+    say("cli", app="pretrain", trainer=cfg.trainer.trainer, dtype=first.model.dtype,
+        layout=cfg.data.layout, seconds=f"{s1:.1f}", resumed_seconds=f"{s2:.1f}",
+        iters=first.curr_iter, resumed_iter=resumed.curr_iter, launches=c1,
+        checkpoint=os.path.relpath(ckpt, ROOT),
+        step_s_median=f"{statistics.median(m['step_time'] for _, m in h1[1:] + h2):.4f}",
+        data_s_median=f"{statistics.median(m['data_time'] for _, m in h1[1:] + h2):.4f}",
+        samples_s_per_batch=[f"{t:.3f}" for t in sample_s],
+        collate_s_per_batch=[f"{t:.3f}" for t in collate_s],
+        loader_workers=cfg.misc.num_workers, card=repr(card))
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def semseg_layout_paths(device, card, paths, scenes):
     """The semseg main paths in the voxel layout (Res16UNet34C 3 -> 20 in
     the BilateralCRF wrapper: the backbone's flat K1-K3 and the filter's
@@ -3465,8 +3626,11 @@ def kernels_line(paths: dict) -> list:
     """The kernels line's entries from {main path: (its kernel checks'
     numbers, its launch counts)}: each path's own launches and numbers
     under ``paths``; at the top level all paths' launches and all their
-    checks' numbers together.  A kernel launched on a path but not checked
-    at that path's shapes fails."""
+    checks' numbers together.  A path whose checks are another path's (the
+    hardest paths': the NCE paths' networks at the same shapes) names that
+    path in place of its numbers, and its entries carry ``checks_from``
+    and its launches only.  A kernel launched on a path but not checked at
+    that path's shapes fails."""
     def numbers(r):
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -3474,11 +3638,23 @@ def kernels_line(paths: dict) -> list:
                 "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                 **{k: r[k] for k in OPTIONAL_MS}}
 
+    def checks(path):
+        res = paths[path][0]
+        return paths[res][0] if isinstance(res, str) else res
+
+    def entry(path, name):
+        res, counts = paths[path]
+        if isinstance(res, str):
+            return {"launches": counts.get(name, 0), "checks_from": res}
+        return {"launches": counts.get(name, 0), **numbers(res[name])}
+
     total = {}
     for path, (res, counts) in paths.items():
-        unchecked = [n for n, c in counts.items() if c and n not in res]
+        unchecked = [n for n, c in counts.items() if c and n not in checks(path)]
         if unchecked:
             raise AssertionError(f"{path}: launched but not checked: {unchecked}")
+        if isinstance(res, str):
+            continue
         for name, r in res.items():
             add_numbers(total, name, r)
     return [
@@ -3486,8 +3662,7 @@ def kernels_line(paths: dict) -> list:
          "replaces": KERNEL_INFO[name][1],
          "launches": sum(counts.get(name, 0) for _, counts in paths.values()),
          **numbers(r),
-         "paths": {path: {"launches": counts.get(name, 0), **numbers(res[name])}
-                   for path, (res, counts) in paths.items() if name in res}}
+         "paths": {path: entry(path, name) for path in paths if name in checks(path)}}
         for name, r in total.items()
     ]
 
@@ -3767,6 +3942,8 @@ def main() -> int:
         pretrain_path(layout, device, card, paths)
     for layout in ("chunked", "voxel", "brick:2"):
         pretrain_path(layout, device, card, paths, dtype=torch.bfloat16)
+    pretrain_hardest_paths(device, card, paths)
+    phase_cli_pretrain(card)
     clouds = votenet_path("chunked", device, card, paths, STEPS)
     res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
     paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes

@@ -150,7 +150,7 @@ def main(argv: list[str] | None = None, device=None):
     if argv and "=" not in argv[0]:
         path = argv.pop(0)
     cfg = load_config(path, argv)
-    cfg = maybe_resume_config(cfg.misc.out_dir, cfg)
+    cfg = maybe_resume_config(cfg.misc.out_dir, cfg, argv)
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the votenet app runs on the GPU "

@@ -93,13 +93,44 @@ def save_config(cfg: Config, path: str):
         yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
 
 
-def maybe_resume_config(out_dir: str, cfg: Config) -> Config:
+# the settings a checkpoint was made with: a resumed run keeps the snapshot's
+FROZEN_ON_RESUME = ("net", "data")
+
+_MISSING = object()
+
+
+def _lookup(cfg: Config, dotted: str):
+    node = cfg
+    for p in dotted.split("."):
+        if not isinstance(node, Config) or p not in node:
+            return _MISSING
+        node = node[p]
+    return node.to_dict() if isinstance(node, Config) else node
+
+
+def maybe_resume_config(out_dir: str, cfg: Config,
+                        overrides: list[str] | None = None) -> Config:
     """If ``out_dir/config.yaml`` exists, load it instead (the reference
-    resumes the saved snapshot, ddp_train.py:44-51)."""
+    resumes the saved snapshot, ddp_train.py:44-51), with ``overrides``
+    (the command line's dotted ``k=v``) applied on top, so that a resumed
+    run can, say, train to a larger ``opt.max_iter``.  An override that
+    changes a ``net.*`` or ``data.*`` setting of the snapshot raises
+    ``ValueError`` naming it: the checkpoint was trained with the
+    snapshot's.  (The JAX package resumes the snapshot alone.)"""
     snap = os.path.join(out_dir, "config.yaml")
-    if os.path.exists(snap):
-        return load_config(snap)
-    return cfg
+    if not os.path.exists(snap):
+        return cfg
+    saved = load_config(snap)
+    resumed = load_config(snap, overrides)
+    for ov in overrides or []:
+        key = ov.partition("=")[0].strip()
+        if (key.split(".")[0] in FROZEN_ON_RESUME
+                and _lookup(saved, key) != _lookup(resumed, key)):
+            raise ValueError(
+                f"{ov!r} changes {key} of the run being resumed ({snap}): "
+                "net.* and data.* stay as the checkpoint was trained; "
+                "use another out_dir for another run")
+    return resumed
 
 
 def net_dtype(cfg: Config):

@@ -1,8 +1,9 @@
 """Fixed-shape pair collation (host side, numpy only) + the move to torch.
 
 Jax-free port of ``pointcontrast_tpu/data/collate.py`` for the pretraining
-path: ``collate_pair`` with fused frames, PointInfoNCE sampling and the
-three layouts (chunked, voxel, brick[:N]).  From the same samples and
+path: ``collate_pair`` with fused frames, PointInfoNCE or
+hardest-contrastive sampling and the three layouts (chunked, voxel,
+brick[:N]).  From the same samples and
 ``RandomState`` it gives the JAX package's arrays byte for byte.
 ``PairBatch`` is a plain dataclass whose ``to(device)`` checks every index
 against the table it reads (per chunk, per level, per brick level) before
@@ -291,42 +292,87 @@ def pyramid_to(pyr: Pyramid, device) -> Pyramid:
                    num_batch=pyr.num_batch)
 
 
+HARDEST_FIELDS = ("pos0_idx", "pos1_idx", "pos_valid", "cand0_idx", "cand0_valid",
+                  "cand1_idx", "cand1_valid", "collide0", "collide1")
+
+
 def check_bounds(batch: "PairBatch") -> None:
     """Bounds check of a host ``PairBatch``: its pyramid
-    (``check_pyramid_bounds``), the feature rows and the loss indices below
-    the row count.  Raises ``ValueError`` naming the first map out of range."""
+    (``check_pyramid_bounds``), the feature rows, and the loss indices of
+    its mode below the row count: NCE's ``q_idx`` / ``k_idx``, or the
+    hardest mode's positives and candidates, with each validity mask the
+    length of its indices and each collision bitmap [P, ceil(H / 8)]
+    uint8.  Raises ``ValueError`` naming the first map out of range."""
     rows = check_pyramid_bounds(batch.pyramid0)[0]
     if batch.feats0.shape[0] != rows:
         raise ValueError(f"feats0 has {batch.feats0.shape[0]} rows, expected {rows}")
-    _check_below("q_idx", batch.q_idx, rows)
-    _check_below("k_idx", batch.k_idx, rows)
+    if batch.pos0_idx is None:
+        _check_below("q_idx", batch.q_idx, rows)
+        _check_below("k_idx", batch.k_idx, rows)
+        return
+    p, h = len(batch.pos0_idx), len(batch.cand0_idx)
+    for name, n in (("pos0_idx", p), ("pos1_idx", p), ("pos_valid", p),
+                    ("cand0_idx", h), ("cand0_valid", h), ("cand1_idx", h),
+                    ("cand1_valid", h)):
+        if getattr(batch, name) is None:
+            raise ValueError(f"{name}: missing from a hardest-mode batch")
+        _check_shape(name, getattr(batch, name), (n,))
+        if name.endswith("_idx"):
+            _check_below(name, getattr(batch, name), rows)
+    for name in ("collide0", "collide1"):
+        bits = getattr(batch, name)
+        if bits is None:
+            raise ValueError(f"{name}: missing from a hardest-mode batch")
+        _check_shape(name, bits, (p, -(-h // 8)))
+        if bits.dtype != np.uint8:
+            raise ValueError(f"{name}: dtype {bits.dtype}, expected uint8")
+
+
+def _index_to(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
 
 
 @dataclasses.dataclass
 class PairBatch:
-    """One fused-frame batch: numpy on the host, torch after ``to``."""
+    """One fused-frame batch: numpy on the host, torch after ``to``.  NCE
+    batches carry ``q_idx`` / ``k_idx`` / ``pair_valid``, hardest-mode ones
+    the ``HARDEST_FIELDS``; the other mode's fields are None."""
 
     feats0: Any  # [B * S_0, C] padded rows zero (both frames fused)
     pyramid0: Any  # sparse.topology.Pyramid over all 2 * num_pairs frames
     q_idx: Optional[Any] = None  # [npos] anchor rows (frame 0)
     k_idx: Optional[Any] = None  # [npos] positive rows (frame 1)
     pair_valid: Optional[Any] = None  # [npos] float 1/0
+    pos0_idx: Optional[Any] = None  # [P] positive pairs' frame-0 rows
+    pos1_idx: Optional[Any] = None  # [P] ... frame-1 rows
+    pos_valid: Optional[Any] = None  # [P] float 1/0
+    cand0_idx: Optional[Any] = None  # [H] hard-negative candidates (frame 0)
+    cand0_valid: Optional[Any] = None  # [H]
+    cand1_idx: Optional[Any] = None  # [H] ... (frame 1)
+    cand1_valid: Optional[Any] = None  # [H]
+    collide0: Optional[Any] = None  # [P, ceil(H/8)] uint8 (bit-packed, LE)
+    collide1: Optional[Any] = None  # [P, ceil(H/8)] uint8
     # voxels dropped by graceful truncation (scalar)
     truncated_voxels: Optional[Any] = None
     num_pairs: int = 0
 
     def to(self, device) -> "PairBatch":
         """Bounds-check the host batch, then move it to ``device`` with the
-        maps widened to int32 and the loss indices to int64."""
+        maps widened to int32, the loss indices to int64 and the collision
+        bitmaps as uint8."""
         check_bounds(self)
+        moved = {}
+        for name in ("q_idx", "k_idx", "pair_valid") + HARDEST_FIELDS:
+            a = getattr(self, name)
+            if a is not None:
+                moved[name] = (_index_to(a, device) if name.endswith("_idx")
+                               else torch.from_numpy(np.ascontiguousarray(a)).to(device))
         return PairBatch(
             feats0=torch.from_numpy(self.feats0).to(device),
             pyramid0=pyramid_to(self.pyramid0, device),
-            q_idx=torch.from_numpy(self.q_idx.astype(np.int64)).to(device),
-            k_idx=torch.from_numpy(self.k_idx.astype(np.int64)).to(device),
-            pair_valid=torch.from_numpy(self.pair_valid).to(device),
             truncated_voxels=torch.as_tensor(self.truncated_voxels).to(device),
             num_pairs=self.num_pairs,
+            **moved,
         )
 
 
@@ -464,11 +510,103 @@ def sample_nce_pairs(
     return q_idx, k_idx, valid
 
 
+def sample_hardest_contrastive(
+    matches: np.ndarray,
+    n0: int,
+    n1: int,
+    num_pos: int,
+    num_hn: int,
+    rng: np.random.RandomState,
+):
+    """Positive pairs and hard-negative candidates, padded to ``num_pos``
+    and ``num_hn`` with validity masks, and the bit-packed collision
+    bitmaps against the full positive set.  Draws ``cand0``, ``cand1``
+    and then the positives from ``rng``, in that order."""
+    h0 = min(n0, num_hn)
+    h1 = min(n1, num_hn)
+    cand0 = np.zeros(num_hn, dtype=np.int32)
+    cand1 = np.zeros(num_hn, dtype=np.int32)
+    cand0[:h0] = rng.choice(n0, h0, replace=False)
+    cand1[:h1] = rng.choice(n1, h1, replace=False)
+    cand0_valid = (np.arange(num_hn) < h0).astype(np.float32)
+    cand1_valid = (np.arange(num_hn) < h1).astype(np.float32)
+
+    p = min(len(matches), num_pos)
+    pos0 = np.zeros(num_pos, dtype=np.int32)
+    pos1 = np.zeros(num_pos, dtype=np.int32)
+    if len(matches) > num_pos:
+        pick = rng.choice(len(matches), num_pos, replace=False)
+        sampled = matches[pick]
+    else:
+        sampled = matches
+    pos0[:p] = sampled[:, 0]
+    pos1[:p] = sampled[:, 1]
+    pos_valid = (np.arange(num_pos) < p).astype(np.float32)
+
+    # Collision bitmaps against the FULL positive set, bit-packed along the
+    # candidate axis (little-endian bit order): the loss gathers the byte
+    # of each anchor's argmin and shifts.
+    collide0 = np.packbits(
+        _collision_bitmap(matches[:, 0], matches[:, 1], pos0, cand1, h1, n1),
+        axis=1, bitorder="little",
+    )
+    collide1 = np.packbits(
+        _collision_bitmap(matches[:, 1], matches[:, 0], pos1, cand0, h0, n0),
+        axis=1, bitorder="little",
+    )
+    return dict(
+        pos0_idx=pos0,
+        pos1_idx=pos1,
+        pos_valid=pos_valid,
+        cand0_idx=cand0,
+        cand0_valid=cand0_valid,
+        cand1_idx=cand1,
+        cand1_valid=cand1_valid,
+        collide0=collide0,
+        collide1=collide1,
+    )
+
+
+def _collision_bitmap(
+    match_anchor: np.ndarray,  # [M] anchor column of the match list
+    match_other: np.ndarray,  # [M] other-frame column
+    anchors: np.ndarray,  # [P] sampled anchor indices
+    cands: np.ndarray,  # [H] sampled candidate indices (other frame)
+    num_valid_cands: int,
+    n_other: int,
+) -> np.ndarray:
+    """bitmap[i, j] = (anchors[i], cands[j]) is a true positive pair: each
+    anchor's few true matches are marked, not all P x H cells tested."""
+    p, h = len(anchors), len(cands)
+    out = np.zeros((p, h), dtype=bool)
+    if len(match_anchor) == 0 or num_valid_cands == 0:
+        return out
+    order = np.argsort(match_anchor, kind="stable")
+    sa, so = match_anchor[order], match_other[order]
+    starts = np.searchsorted(sa, anchors, side="left")
+    ends = np.searchsorted(sa, anchors, side="right")
+    counts = ends - starts
+    total = int(counts.sum())
+    if total == 0:
+        return out
+    anchor_rows = np.repeat(np.arange(p), counts)
+    flat = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+    targets = so[np.repeat(starts, counts) + flat]
+    inv = np.full(n_other, -1, dtype=np.int64)
+    inv[cands[:num_valid_cands]] = np.arange(num_valid_cands)
+    cols = inv[targets]
+    keep = cols >= 0
+    out[anchor_rows[keep], cols[keep]] = True
+    return out
+
+
 def collate_pair(
     samples: list,
     scheme: PadScheme,
     mode: str = "nce",
     npos: int = 4096,
+    num_pos: int = 4096,
+    num_hn: int = 1024,
     rng: np.random.RandomState | None = None,
     max_fit_attempts: int = 6,
     fuse_frames: bool = True,
@@ -479,15 +617,17 @@ def collate_pair(
 
     Frame 1's clouds become extra sparse-batch samples (ids B..2B-1) and ONE
     pyramid is built over all 2B frames, in ``layout`` ('chunked', 'voxel',
-    'brick' or 'brick:N'); the NCE indices point into that combined table
-    (remapped to the layout's rows, orphans of truncation invalidated and
-    counted).  The JAX package's other modes (hardest, separate frames) are
-    not ported yet and raise."""
+    'brick' or 'brick:N').  ``mode``: 'nce' (``npos`` PointInfoNCE pairs)
+    or 'hardest' (``num_pos`` positives, ``num_hn`` hard-negative
+    candidates per frame and their collision bitmaps).  The loss indices
+    point into that combined table (remapped to the layout's rows, orphans
+    of truncation invalidated and counted).  The JAX package's separate
+    frames (``fuse_frames=False``) are not ported yet and raise."""
     parse_layout(layout)  # unknown layouts raise
-    if mode != "nce" or not fuse_frames:
+    if mode not in ("nce", "hardest") or not fuse_frames:
         raise ValueError(
-            f"collate_pair supports mode='nce', fuse_frames=True "
-            f"(got {mode!r}, {fuse_frames})"
+            f"collate_pair supports mode='nce' or 'hardest' with "
+            f"fuse_frames=True (got {mode!r}, {fuse_frames})"
         )
     rng = rng or np.random.RandomState()
     _, _, coords0, coords1, feats0, feats1, matches, _ = zip(*samples)
@@ -531,22 +671,37 @@ def collate_pair(
     all_matches = _offset_matches(matches, len0, len1)
     truncated = sum(n for _, n in meta0.truncated)
     off1 = len(c0)  # frame-1 rows start here in the combined table
-    q, k, v = sample_nce_pairs(all_matches, npos, rng)
     feats = np.concatenate([f0, f1])
     if rows0 is None:  # voxel: input voxel i is row i
-        k = k + off1
         feats0 = _pad_feats(feats, scheme.npads[0])
     else:
         truncated += int(orph0.sum())
-        q, v = _remap_idx(q, v, rows0, orph0)
-        k, v = _remap_idx(k + off1, v, rows0, orph0)
         feats0 = _layout_feats(feats, rows0, orph0, pyr0.levels[0].valid.shape[0])
+    if mode == "nce":
+        q, k, v = sample_nce_pairs(all_matches, npos, rng)
+        if rows0 is None:
+            k = k + off1
+        else:
+            q, v = _remap_idx(q, v, rows0, orph0)
+            k, v = _remap_idx(k + off1, v, rows0, orph0)
+        loss = dict(q_idx=q, k_idx=k, pair_valid=v)
+    else:
+        loss = sample_hardest_contrastive(all_matches, len(c0), len(c1), num_pos,
+                                          num_hn, rng)
+        loss["pos1_idx"] = loss["pos1_idx"] + off1
+        loss["cand1_idx"] = loss["cand1_idx"] + off1
+        if rows0 is not None:
+            loss["pos0_idx"], v = _remap_idx(loss["pos0_idx"], loss["pos_valid"],
+                                             rows0, orph0)
+            loss["pos1_idx"], loss["pos_valid"] = _remap_idx(loss["pos1_idx"], v,
+                                                             rows0, orph0)
+            for c in ("cand0", "cand1"):
+                loss[f"{c}_idx"], loss[f"{c}_valid"] = _remap_idx(
+                    loss[f"{c}_idx"], loss[f"{c}_valid"], rows0, orph0)
     return PairBatch(
         feats0=feats0,
         pyramid0=pyr0,
-        q_idx=q,
-        k_idx=k,
-        pair_valid=v,
         truncated_voxels=np.asarray(truncated, np.float32),
         num_pairs=nb,
+        **loss,
     )

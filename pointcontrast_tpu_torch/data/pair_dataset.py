@@ -1,13 +1,16 @@
 """Frame-pair datasets for contrastive pretraining (host side, numpy only).
 
 Jax-free port of ``pointcontrast_tpu/data/pair_dataset.py``: the shared
-augment + voxelize + match logic and ``SyntheticPairDataset``, sample for
-sample identical to the JAX package's from the same seeds.  Random scale
-(p=0.95), independent random rotations about each frame's centroid,
-voxelization keeping the first point per voxel, positive correspondences
-within ``1.5 x voxel_size``, all-ones 3-d features.
+augment + voxelize + match logic, ``ScanNetMatchPairDataset`` and
+``SyntheticPairDataset``, sample for sample identical to the JAX package's
+from the same seeds.  Random scale (p=0.95), independent random rotations
+about each frame's centroid, voxelization keeping the first point per
+voxel, positive correspondences within ``1.5 x voxel_size``, all-ones 3-d
+features, then the optional (coords, feats) ``transform`` of each frame.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -54,6 +57,7 @@ class PairDatasetBase:
         random_scale: bool = False,
         min_scale: float = 0.8,
         max_scale: float = 1.2,
+        transform=None,
         seed: int | None = None,
     ):
         self.voxel_size = voxel_size
@@ -63,6 +67,7 @@ class PairDatasetBase:
         self.random_scale = random_scale
         self.min_scale = min_scale
         self.max_scale = max_scale
+        self.transform = transform
         self.rng = np.random.RandomState(seed)
 
     def _make_pair(self, xyz0: np.ndarray, xyz1: np.ndarray, rng=None):
@@ -95,6 +100,12 @@ class PairDatasetBase:
         coords0 = np.floor(xyz0 / self.voxel_size)
         coords1 = np.floor(xyz1 / self.voxel_size)
 
+        if self.transform is not None:
+            # the per-task rng: global np.random is neither reproducible nor
+            # thread-safe under the loader's pool
+            coords0, feats0 = self.transform(coords0, feats0, rng=rng)
+            coords1, feats1 = self.transform(coords1, feats1, rng=rng)
+
         return (
             xyz0.astype(np.float32),
             xyz1.astype(np.float32),
@@ -105,6 +116,31 @@ class PairDatasetBase:
             matches,
             trans.astype(np.float32),
         )
+
+
+class ScanNetMatchPairDataset(PairDatasetBase):
+    """Pairs listed in a ``path0 path1 [overlap]`` text file under ``root``,
+    one per line, each path an ``.npz`` whose ``pcd`` array holds the
+    frame's points (reference example_dataset/overlap-30-50p-subset.txt)."""
+
+    def __init__(self, root: str, pair_list_file: str, **kwargs):
+        super().__init__(**kwargs)
+        self.root = root
+        self.files: list[tuple[str, str]] = []
+        with open(os.path.join(root, pair_list_file)) as f:
+            for line in f:
+                parts = line.strip().split()
+                if len(parts) >= 2:
+                    self.files.append((parts[0], parts[1]))
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int, rng=None):
+        f0, f1 = self.files[idx]
+        xyz0 = np.load(os.path.join(self.root, f0))["pcd"]
+        xyz1 = np.load(os.path.join(self.root, f1))["pcd"]
+        return self._make_pair(xyz0, xyz1, rng)
 
 
 class SyntheticPairDataset(PairDatasetBase):

@@ -3,7 +3,9 @@
 Pretraining, as the JAX package's ``bench.py`` times it: Res16UNet34C, 4
 frame pairs per step fused into one sparse batch of 8 chunks,
 saturated-surface synthetic frames (~15.5k voxels each at 2.5 cm),
-``PadScheme.scannet(npad0=131072)``, 4096 PointInfoNCE pairs.
+``PadScheme.scannet(npad0=131072)``, 4096 PointInfoNCE pairs, or in the
+hardest mode (the shipped YAML's trainer) 4096 positives and 1024
+hard-negative candidates a frame.
 
 VoteNet, at the shipped ``configs/votenet_default.yaml``: 8 scenes x 40000
 points (no colour, no height), 256 proposals by vote FPS, over either
@@ -42,6 +44,10 @@ NPAD0 = PAIRS * 32768  # both frames fused: 8 chunks of 16384 rows
 POINTS_PER_FRAME = 45000  # saturates the visible surfaces at 2.5 cm
 ROOM_SIZE = 1.75
 NPOS = 4096
+# the hardest mode at configs/pretrain_default.yaml: num_pos_per_batch 1024
+# and num_hn_samples_per_batch 256, times the 4 pairs of a batch
+NUM_POS = 1024 * PAIRS
+NUM_HN = 256 * PAIRS
 
 VOTENET_SCENES = 8
 VOTENET_POINTS = 40000
@@ -64,9 +70,12 @@ SEMSEG_CRF = dict(kernel_size=3, region="hypercross", spatial_sigma=1.0,
 def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
                      npad0: int = NPAD0, points: int = POINTS_PER_FRAME,
                      room: float = ROOM_SIZE, npos: int = NPOS,
-                     seed: int = 0, layout: str = "chunked") -> list:
+                     seed: int = 0, layout: str = "chunked", mode: str = "nce",
+                     num_pos: int = NUM_POS, num_hn: int = NUM_HN) -> list:
     """``n_batches`` collated batches in ``layout`` moved (bounds-checked)
-    to ``device``."""
+    to ``device``; ``mode`` 'nce' (``npos`` pairs) or 'hardest'
+    (``num_pos`` positives and ``num_hn`` candidates a frame: the shipped
+    YAML's 1024 and 256 a pair, times ``pairs``)."""
     from pointcontrast_tpu_torch.data import (
         PadScheme,
         SyntheticPairDataset,
@@ -79,7 +88,8 @@ def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
     rng = np.random.RandomState(seed)
     return [
         collate_pair([ds[(b * pairs + i) % len(ds)] for i in range(pairs)],
-                     scheme, npos=npos, rng=rng, layout=layout).to(device)
+                     scheme, mode=mode, npos=npos, num_pos=num_pos, num_hn=num_hn,
+                     rng=rng, layout=layout).to(device)
         for b in range(n_batches)
     ]
 

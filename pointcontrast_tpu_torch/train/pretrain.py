@@ -1,9 +1,10 @@
-"""Contrastive pretraining: the train step + training loop (port of the NCE
-path of ``pointcontrast_tpu/train/pretrain.py``).
+"""Contrastive pretraining: the train step + training loop (port of
+``pointcontrast_tpu/train/pretrain.py``).
 
 One step runs a single forward over both fused frames, the PointInfoNCE
-loss over the collator's pre-sampled pairs, the backward through the
-hand-written sparse-conv kernels, then SGD and the stepped ExpLR."""
+or hardest-contrastive loss over the collator's pre-sampled indices, the
+backward through the hand-written sparse-conv kernels, then SGD and the
+stepped ExpLR."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,18 +18,30 @@ import numpy as np
 import torch
 
 from pointcontrast_tpu_torch.data.collate import PairBatch
-from pointcontrast_tpu_torch.losses.contrastive import point_info_nce_loss
+from pointcontrast_tpu_torch.losses.contrastive import (
+    hardest_contrastive_loss,
+    point_info_nce_loss,
+)
 from pointcontrast_tpu_torch.train import optim
+from pointcontrast_tpu_torch.utils.preemption import Preempted
 
 log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """The NCE trainer's and optimizer's settings (reference
-    pretrain/pointcontrast/config/defaults.yaml, nce_t from ddp_launch.sh)."""
+    """The trainers' and optimizer's settings (reference
+    pretrain/pointcontrast/config/defaults.yaml, nce_t from ddp_launch.sh).
+    ``mode``: 'nce' (PointNCELossTrainer) or 'hardest'
+    (HardestContrastiveLossTrainer).  How many pairs and candidates a batch
+    samples is the collator's (``collate_pair``'s ``npos``, ``num_pos`` and
+    ``num_hn``)."""
 
+    mode: str = "nce"
     nce_t: float = 0.4
+    pos_thresh: float = 0.1
+    neg_thresh: float = 1.4
+    optimizer: str = "sgd"
     lr: float = 0.1
     momentum: float = 0.8
     weight_decay: float = 1e-4
@@ -41,22 +54,44 @@ class PretrainConfig:
 
 
 def make_train_step(config: PretrainConfig):
-    """Build ``step(model, opt, sched, batch) -> metrics`` for a fused-frame
-    batch already on the model's device.  The returned tensors are not
-    synchronised."""
+    """Build ``step(model, opt, sched, batch, hardest=None,
+    return_hardest=False) -> metrics`` for a fused-frame batch already on
+    the model's device: ``loss`` (and in the hardest mode ``pos_loss`` and
+    ``neg_loss``) and ``truncated_voxels``.  ``hardest`` and
+    ``return_hardest`` go to ``hardest_contrastive_loss`` (hardest mode
+    only); with ``return_hardest`` the metrics also hold the hardest
+    negatives taken, ``"hardest": (i01, i10)``.  The returned tensors are
+    not synchronised."""
+    if config.mode not in ("nce", "hardest"):
+        raise ValueError(f"unknown pretraining mode {config.mode!r}")
 
-    def step(model, opt, sched, batch: PairBatch) -> dict:
+    def step(model, opt, sched, batch: PairBatch, hardest=None,
+             return_hardest: bool = False) -> dict:
         model.train()
         opt.zero_grad(set_to_none=True)
         # fused-frame batch: one forward over all 2B frames; the sampled
         # indices already point into the combined table.
         f = model(batch.feats0, batch.pyramid0)
-        loss = point_info_nce_loss(f, f, batch.q_idx, batch.k_idx,
-                                   batch.pair_valid, temperature=config.nce_t)
+        if config.mode == "nce":
+            loss = point_info_nce_loss(f, f, batch.q_idx, batch.k_idx,
+                                       batch.pair_valid, temperature=config.nce_t)
+            metrics = {"loss": loss}
+        else:
+            pos_loss, neg_loss, *picked = hardest_contrastive_loss(
+                f, f, batch.pos0_idx, batch.pos1_idx, batch.pos_valid,
+                batch.cand0_idx, batch.cand0_valid, batch.cand1_idx,
+                batch.cand1_valid, batch.collide0, batch.collide1,
+                pos_thresh=config.pos_thresh, neg_thresh=config.neg_thresh,
+                hardest=hardest, return_hardest=return_hardest)
+            loss = pos_loss + neg_loss
+            metrics = {"loss": loss, "pos_loss": pos_loss, "neg_loss": neg_loss}
         loss.backward()
         opt.step()
         sched.step()
-        return {"loss": loss.detach(), "truncated_voxels": batch.truncated_voxels}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if return_hardest:
+            metrics["hardest"] = picked[0]
+        return {**metrics, "truncated_voxels": batch.truncated_voxels}
 
     return step
 
@@ -75,11 +110,15 @@ class PretrainTrainer:
     ``config.checkpoint_dir``.
 
     ``batches`` is any iterable of ``PairBatch``es, on the host (moved with
-    ``to(device)``, which bounds-checks them) or already on ``device``."""
+    ``to(device)``, which bounds-checks them) or already on ``device``.
+    ``preemption_guard`` (``utils.preemption.PreemptionGuard``) is polled
+    after every step: once it is set, the trainer saves a checkpoint and
+    raises ``Preempted``."""
 
     def __init__(self, model: torch.nn.Module, batches, config: PretrainConfig,
-                 device):
+                 device, preemption_guard=None):
         self.config = config
+        self.preemption_guard = preemption_guard
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.batches = batches
@@ -156,4 +195,9 @@ class PretrainTrainer:
                                     scalars["truncated_voxels"])
                 if self.curr_iter % cfg.save_freq == 0 or self.curr_iter == target:
                     self.save()
+                if self.preemption_guard is not None and self.preemption_guard.preempted:
+                    self.save()
+                    log.warning("preempted at iter %d: checkpoint saved, requeue",
+                                self.curr_iter)
+                    raise Preempted(self.curr_iter)
         return history

@@ -128,17 +128,18 @@ def test_bounds_check_rejects_corrupt_map(what):
 def test_unsupported_collate_modes_raise():
     samples = _samples(SyntheticPairDataset)
     scheme = SCHEMES["fits"](PadScheme)
-    for kw in (dict(mode="hardest"), dict(fuse_frames=False),
-               dict(layout="voxl")):
+    for kw in (dict(fuse_frames=False), dict(mode="hardest", fuse_frames=False),
+               dict(mode="triplet"), dict(layout="voxl")):
         with pytest.raises(ValueError):
             collate_pair(samples, scheme, **kw)
 
 
 def test_imports_without_jax():
-    """The port, its host pipeline, the brick module, the votenet app and
-    its config, sampler, checkpoint and preemption modules import with
-    jax/flax/optax and the JAX package unavailable, and build a pretraining
-    batch in each layout and a detection batch in both of its own."""
+    """The port, its host pipeline, the brick module, the votenet and
+    pretrain apps and their configs, the loader, transforms, sampler,
+    checkpoint and preemption modules import with jax/flax/optax and the
+    JAX package unavailable, and build a pretraining batch in each layout
+    and mode and a detection batch in both of its own layouts."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'optax', 'pointcontrast_tpu'):\n"
@@ -157,14 +158,19 @@ def test_imports_without_jax():
         "import pointcontrast_tpu_torch.tools.profile_step\n"
         "import pointcontrast_tpu_torch.sparse.brick\n"
         "import pointcontrast_tpu_torch.semseg.dataset\n"
+        "import pointcontrast_tpu_torch.apps.pretrain as papp\n"
+        "import pointcontrast_tpu_torch.data.loader, pointcontrast_tpu_torch.data.transforms\n"
         "from pointcontrast_tpu_torch.config import load_config\n"
+        "assert load_config(papp.DEFAULT_CONFIG).trainer.trainer == 'HardestContrastiveLossTrainer'\n"
         "assert load_config(app.DEFAULT_CONFIG).net.num_proposal == 256\n"
         "from pointcontrast_tpu_torch.detect.datasets import (\n"
         "    SyntheticDetectionDataset, collate_detection)\n"
         "ds = SyntheticPairDataset(num_pairs=1, points_per_frame=200, seed=0)\n"
         "for layout in ('chunked', 'voxel', 'brick:2'):\n"
-        "    b = collate_pair([ds[0]], PadScheme(npad0=2048), npos=16,\n"
-        "                     rng=np.random.RandomState(0), layout=layout).to('cpu')\n"
+        "    for mode in ('nce', 'hardest'):\n"
+        "        b = collate_pair([ds[0]], PadScheme(npad0=2048), mode=mode, npos=16,\n"
+        "                         num_pos=16, num_hn=8, rng=np.random.RandomState(0),\n"
+        "                         layout=layout).to('cpu')\n"
         "dd = SyntheticDetectionDataset(num_scenes=1, num_points=1500, seed=0)\n"
         "for layout in ('voxel', 'chunked'):\n"
         "    d = collate_detection([dd[0]], voxel_size=0.05, layout=layout,\n"

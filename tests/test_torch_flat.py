@@ -294,7 +294,8 @@ def net(pyramids):
                                 train=True, mutable=["batch_stats"])
         return (jnp.sin(out * 3.0) * proj).sum(), out
 
-    (_, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    # compiled: op by op, this took ~90 s of CPU
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     return dict(tmodel=tmodel, batch=host.to("cpu"), proj=proj,
                 jout=np.asarray(jout), jgrads=jax.device_get(jgrads))
 
