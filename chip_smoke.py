@@ -7,13 +7,15 @@ NVIDIA GPU (written for the H100).
     python3 chip_smoke.py --wgrad-blocks 1,2,4,8
     python3 chip_smoke.py --resnet-bf16-spread 0,1,2,3
     python3 chip_smoke.py --brick-bf16-spread 0,1,2,3
+    python3 chip_smoke.py --ddp
 
 The other forms only time scatter_gemm at several SCATTER_BLOCKS, or the
 tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``);
 ``--votenet-bf16-spread``, ``--resnet-bf16-spread`` and
 ``--brick-bf16-spread`` take the summation-order readings that
 BF16_VOTENET_LOSS_RTOL, BF16_STEP_LIMITS and BF16_GRAD_LIMITS are set
-from.  Phases of the first, each printed on its own line:
+from; ``--ddp`` runs the build and phase 5g alone.  Phases of the first,
+each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
      csrc/detect_ops.cu, one nvcc each, in parallel) and the host kernel-map
@@ -89,6 +91,25 @@ from.  Phases of the first, each printed on its own line:
      each call's launches the bf16 model's expected ones a step; the
      logged step_time and data_time of each step, and the host's seconds
      a batch for the samples and for the collation alone;
+  5g. ``ddp``: data parallelism (``pointcontrast_tpu_torch/parallel``).
+     ``ddp pretrain``: two ranks (``parallel.launch.run``) share cuda:0
+     over gloo, named explicitly (NCCL refuses two ranks on one GPU), and
+     run the shipped trainer's step under DDP (hardest, chunked,
+     Res16UNet34C 3 -> 32, 4 pairs a rank, batch r on rank r) DDP_STEPS
+     times in bf16 and in f32: the ranks' parameters bit-equal after every
+     step, rank 0's bit-equal after every step to one process that runs
+     both batches and steps SGD on g0/2 + g1/2 (bound 0, derived: the
+     kernels repeat bit for bit and that sum is DDP's one rounding; a miss
+     prints the ops PyTorch names nondeterministic), each rank's launches
+     a step the ``pretrain hardest`` paths' (paths ``ddp pretrain bf16``
+     and ``ddp pretrain f32`` in the kernels line: both ranks' launches);
+     each rank's step ms, which is no scaling figure (two ranks, one
+     card).  On two or more cards the same over NCCL, a card a rank;
+     else a line says it did not run.  ``ddp cli``: apps.pretrain.main on
+     the shipped YAML under ``RANK=0 WORLD_SIZE=1`` (as ``torchrun``
+     sets them) over NCCL: 3 steps, rank 0's checkpoint (no ``module.``),
+     a resume to 5, launches as in 5f; then the DDP step's ms against the
+     unwrapped step's in turns under that world-1 NCCL group;
   the VoteNet detection path (configs/votenet_default.yaml, f32):
   6. data: two batches of 8 synthetic scenes x 40000 points, 2.5 cm voxels,
      npad0 262144 with the YAML's pad ratios, chunked, bounds-checked;
@@ -267,6 +288,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
+DDP_STEPS = 3  # counted steps of the ddp pretrain path
 RESNET_STEPS = 3
 LAYOUT_STEPS = 3  # counted steps of the semseg and VoteNet layout paths
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
@@ -3557,6 +3579,352 @@ def phase_cli_pretrain(card):
     shutil.rmtree(out, ignore_errors=True)
 
 
+DDP_RANKS = 2
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _ranks_bit_equal(model) -> bool:
+    """Whether every rank holds the same parameter bits: the MAX and the MIN
+    of their int32 views over the ranks agree everywhere."""
+    import torch
+    import torch.distributed as dist
+
+    bits = _flat_params(model).view(torch.int32)
+    hi, lo = bits.clone(), bits.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return torch.equal(hi, lo)
+
+
+class _NoStep:
+    """An optimizer and scheduler that only clear gradients: the averaged
+    one-process reference takes each rank's gradient from the train step
+    itself, then steps its real SGD once on their mean."""
+
+    def __init__(self, model):
+        self.params = list(model.parameters())
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+def _reference_steps(cfg, dtype, batches, device):
+    """One process: each step runs every rank's batch through the train
+    step for its gradient, sets the mean g0/2 + g1/2 (what DDP's all-reduce
+    of two ranks computes, with one rounding) and steps SGD and ExpLR once.
+    Yields the flat parameters after each step."""
+    import torch
+
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+    from pointcontrast_tpu_torch.train import make_train_step
+    from pointcontrast_tpu_torch.train import optim
+
+    model = pretrain_model(seed=0, dtype=dtype).to(device)
+    opt = optim.make_optimizer(model, cfg)
+    sched = optim.make_scheduler(opt, cfg)
+    step, noop = make_train_step(cfg), _NoStep(model)
+    while True:
+        grads = []
+        for b in batches:
+            step(model, noop, noop, b)
+            grads.append([p.grad for p in model.parameters()])
+        for p, *gs in zip(model.parameters(), *grads):
+            p.grad = gs[0] / 2 + gs[1] / 2
+        opt.step()
+        sched.step()
+        yield _flat_params(model)
+
+
+def _nondeterministic_ops(cfg, dtype, batch, device) -> list:
+    """The ops of one train step that PyTorch names as nondeterministic
+    (``use_deterministic_algorithms(warn_only=True)``'s warnings)."""
+    import warnings
+
+    import torch
+
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+    from pointcontrast_tpu_torch.train import make_train_step
+
+    model = pretrain_model(seed=0, dtype=dtype).to(device)
+    noop = _NoStep(model)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            make_train_step(cfg)(model, noop, noop, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def ddp_rank(spec):
+    """A rank of the ``ddp pretrain`` phase (``parallel.launch.run``): the
+    shipped trainer's step (hardest, chunked, Res16UNet34C 3 -> 32) under
+    DDP on this rank's batch, DDP_STEPS times per dtype, the ranks' bits
+    compared after each step; rank 0 then runs the averaged one-process
+    reference on both ranks' batches and compares each step's parameters
+    bit for bit.  Returns, gathered on rank 0, each rank's launches, step
+    times, losses and checks."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcontrast_tpu_torch.parallel import mesh, multihost
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+    from pointcontrast_tpu_torch.train import PretrainConfig, PretrainTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rank, world, device = multihost.initialize(spec["device"], backend=spec["backend"])
+    try:
+        batches = [b.to(device) for b in spec["batches"]]
+        out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "device": str(device)}
+        for label, dtype in spec["dtypes"]:
+            cfg = PretrainConfig(mode="hardest", lr=0.1, stat_freq=1,
+                                 checkpoint_dir=os.path.join(spec["dir"], label))
+            trainer = PretrainTrainer(pretrain_model(seed=0, dtype=dtype), [], cfg, device)
+            r = {"net": type(trainer.net).__name__, "ms": [], "loss": [], "equal": []}
+            snaps = []
+            torch.cuda.synchronize(device)
+            K.reset_launches()
+            for _ in range(DDP_STEPS):
+                t0 = time.perf_counter()
+                m = trainer._step(trainer.net, trainer.opt, trainer.sched, batches[rank])
+                torch.cuda.synchronize(device)
+                r["ms"].append(1e3 * (time.perf_counter() - t0))
+                r["loss"].append(float(mesh.mean_over_ranks({"loss": m["loss"]})["loss"]))
+                r["equal"].append(_ranks_bit_equal(trainer.model))
+                if rank == 0:
+                    snaps.append(_flat_params(trainer.model).clone())
+            r["launches"] = K.launch_counts()
+            del trainer, m
+            if rank == 0:
+                ref = _reference_steps(cfg, dtype, batches, device)
+                r["reference_equal"], r["max_abs_diff"] = [], []
+                for snap in snaps:
+                    got = next(ref)
+                    r["reference_equal"].append(torch.equal(got, snap))
+                    r["max_abs_diff"].append(float((got - snap).abs().max()))
+                del ref, snaps
+                if not all(r["reference_equal"]):
+                    r["nondeterministic_ops"] = _nondeterministic_ops(
+                        cfg, dtype, batches[0], device)
+            torch.cuda.empty_cache()
+            out[label] = r
+        got = [None] * world
+        dist.all_gather_object(got, out, group=multihost.host_group())
+        return got
+    finally:
+        multihost.shutdown()
+
+
+def phase_ddp_pretrain(card, paths, nccl=False):
+    """``ddp pretrain``: DDP_RANKS ranks (``parallel.launch.run``) run the
+    shipped trainer's step (hardest, chunked, Res16UNet34C 3 -> 32, 4 pairs
+    a rank: workload.pretrain_batches(mode="hardest"), batch r on rank r)
+    DDP_STEPS times in bf16 and in f32.  On one card the two ranks share
+    ``cuda:0`` over gloo (NCCL refuses two ranks on one GPU); ``nccl``: one
+    rank a card over NCCL.  Holds (a) the ranks' parameters bit-equal after
+    every step, (b) rank 0's parameters after every step bit-equal to one
+    process that averages the two batches' gradients before the same SGD
+    step (the bound is 0: the kernels repeat bit for bit, and DDP's g0/2 +
+    g1/2 of two ranks is the reference's one rounding; a miss prints the
+    ops PyTorch names nondeterministic), and (c) each rank's launches a
+    step equal to the model's ``expected_launches`` (those of ``pretrain
+    hardest`` / ``pretrain hardest bf16``).  Prints each rank's step ms:
+    on one card two ranks share it, so this is no scaling figure.  Adds
+    the bf16 and f32 runs' launches (both ranks) to ``paths``."""
+    import torch
+
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.parallel import launch
+    from pointcontrast_tpu_torch.tools.workload import pretrain_batches, pretrain_model
+
+    app = "ddp pretrain" + (" nccl" if nccl else "")
+    dtypes = (("bf16", torch.bfloat16), ("f32", None))
+    t0 = time.perf_counter()
+    spec = dict(batches=pretrain_batches(None, n_batches=DDP_RANKS, mode="hardest"),
+                dtypes=dtypes, dir=os.path.join(BUILD_DIR, "smoke_ddp"),
+                device="cuda" if nccl else "cuda:0", backend="nccl" if nccl else "gloo")
+    torch.cuda.empty_cache()
+    got = launch.run(DDP_RANKS, ddp_rank, (spec,), device="cuda")
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(spec["dir"], ignore_errors=True)
+    for label, dtype in dtypes:
+        expect = expected_launches(pretrain_model(seed=0, dtype=dtype))
+        hardest = paths.get("pretrain hardest" + (" bf16" if dtype else ""))
+        if hardest is not None and hardest[1] != {k: STEPS * v for k, v in expect.items()}:
+            raise AssertionError(f"{app} {label}: the pretrain hardest path's launches "
+                                 f"{hardest[1]} are not {STEPS} x {expect}")
+        want = {k: DDP_STEPS * v for k, v in expect.items()}
+        r0 = got[0][label]
+        for r in got:
+            rr = r[label]
+            if rr["net"] != "DistributedDataParallel" or r["backend"] != spec["backend"]:
+                raise AssertionError(f"{app} {label}: rank {r['rank']} ran {rr['net']} "
+                                     f"over {r['backend']}")
+            if rr["launches"] != want:
+                raise AssertionError(f"{app} {label}: rank {r['rank']}'s launches "
+                                     f"{rr['launches']} != {DDP_STEPS} x {expect}")
+            say("ddp step", app=app, dtype=label, rank=r["rank"], device=r["device"],
+                backend=r["backend"], step_ms=[f"{t:.1f}" for t in rr["ms"]],
+                loss=[f"{l:.6f}" for l in rr["loss"]], ranks_bit_equal=rr["equal"],
+                note=("two ranks on one card, gloo: not a scaling figure" if not nccl
+                      else "one rank a card, NCCL"), card=repr(card))
+        if not all(math.isfinite(l) for l in r0["loss"]):
+            raise AssertionError(f"{app} {label}: losses {r0['loss']}")
+        say("ddp check", app=app, dtype=label, steps=DDP_STEPS,
+            ranks_bit_equal=all(r[label]["equal"] == [True] * DDP_STEPS for r in got),
+            reference_bit_equal=r0["reference_equal"],
+            reference_max_abs_diff=r0["max_abs_diff"],
+            bound="0 (DDP's g0/2 + g1/2 of 2 ranks is the reference's one rounding; "
+                  "the kernels repeat bit for bit)",
+            launches_per_rank_step=expect,
+            nondeterministic_ops=r0.get("nondeterministic_ops", []))
+        if not all(r[label]["equal"] == [True] * DDP_STEPS for r in got):
+            raise AssertionError(f"{app} {label}: the ranks' parameters differ")
+        if r0["reference_equal"] != [True] * DDP_STEPS:
+            raise AssertionError(
+                f"{app} {label}: DDP's update is not the averaged one-process update "
+                f"(max abs diff {r0['max_abs_diff']}; ops PyTorch names "
+                f"nondeterministic: {r0.get('nondeterministic_ops')})")
+        paths[f"{app} {label}"] = ("pretrain bf16" if dtype else "pretrain", {
+            k: sum(r[label]["launches"][k] for r in got) for k in want})
+    say("ddp", app=app, ranks=DDP_RANKS, backend=spec["backend"],
+        seconds=f"{seconds:.1f}", card=repr(card))
+
+
+def ddp_phases(card, paths):
+    """The ``ddp`` phase: ``ddp pretrain`` (two ranks sharing cuda:0 over
+    gloo; over NCCL on two cards where there are two) and ``ddp cli``."""
+    import torch
+
+    phase_ddp_pretrain(card, paths)
+    if torch.cuda.device_count() >= 2:
+        phase_ddp_pretrain(card, paths, nccl=True)
+    else:
+        say("ddp pretrain nccl", run=False,
+            reason=f"{torch.cuda.device_count()} card visible: NCCL needs a card a rank")
+    phase_ddp_cli(card)
+
+
+def phase_ddp_cli(card):
+    """``ddp cli``: ``apps.pretrain.main`` on configs/pretrain_default.yaml
+    as shipped (hardest, bf16, chunked) under a world of one over NCCL, as
+    ``torchrun --nproc_per_node 1`` sets the environment (``RANK=0
+    WORLD_SIZE=1``): 3 steps and a rank-0 checkpoint (the module's names,
+    no ``module.``), then a resume to 5; launches as ``cli pretrain``'s.
+    Then the DDP step's ms against the unwrapped step's, in turns (DDP,
+    plain, plain, DDP; STEPS steps each) on one model and batch under the
+    same world-1 NCCL group."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from pointcontrast_tpu_torch.apps import pretrain as app
+    from pointcontrast_tpu_torch.cuda_build import BUILD_DIR
+    from pointcontrast_tpu_torch.parallel import launch, multihost
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools.workload import pretrain_model
+    from pointcontrast_tpu_torch.train import PretrainConfig, PretrainTrainer
+
+    out = os.path.join(BUILD_DIR, "smoke_ddp_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    args = [app.DEFAULT_CONFIG, "data.dataset=SyntheticPairDataset", f"misc.out_dir={out}",
+            "trainer.stat_freq=1"]
+    expect = expected_launches(pretrain_model(seed=0, dtype=torch.bfloat16))
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    os.environ.update(env, MASTER_PORT=str(launch.free_port()))
+    backends, initialize = [], multihost.initialize
+
+    def recording(*a, **kw):  # the backend each CLI call's group took
+        joined = initialize(*a, **kw)
+        backends.append(dist.get_backend())
+        return joined
+
+    multihost.initialize = recording
+    try:
+        runs = []
+        for max_iter in (3, 5):
+            K.reset_launches()
+            trainer, history = app.main(args + [f"opt.max_iter={max_iter}"])
+            torch.cuda.synchronize()
+            runs.append((trainer, history, K.launch_counts()))
+        multihost.initialize = initialize
+        (first, h1, c1), (resumed, h2, c2) = runs
+        if backends != ["nccl", "nccl"]:
+            raise AssertionError(f"the DDP CLI's process groups took {backends}, not NCCL")
+        ckpt = os.path.join(out, "weights", "checkpoint_3.pth")
+        state = torch.load(ckpt, map_location="cpu")["model"]
+        if ([i for i, _ in h1] != [1, 2, 3] or [i for i, _ in h2] != [4, 5]
+                or type(first.net).__name__ != "DistributedDataParallel"
+                or any(k.startswith("module.") for k in state)
+                or first.model.dtype != torch.bfloat16 or dist.is_initialized()):
+            raise AssertionError("the pretrain CLI did not train the shipped trainer under "
+                                 "DDP at world 1, save rank 0's module and resume")
+        if (c1 != {k: 3 * v for k, v in expect.items()}
+                or c2 != {k: 2 * v for k, v in expect.items()}):
+            raise AssertionError(f"the DDP CLI's launches {c1} / {c2} != 3 / 2 x {expect}")
+        losses = [m["loss"] for _, m in h1 + h2]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"the DDP CLI's losses: {losses}")
+        say("ddp cli", world=1, backend=backends[0], iters=[i for i, _ in h1 + h2],
+            loss=[f"{l:.6f}" for l in losses], checkpoint=os.path.relpath(ckpt, ROOT),
+            launches=c1, step_s=[f"{m['step_time']:.4f}" for _, m in h1 + h2],
+            card=repr(card))
+        del first, resumed, runs, state
+        shutil.rmtree(out, ignore_errors=True)
+
+        # the DDP step against the unwrapped one, in turns, world 1 over NCCL
+        os.environ["MASTER_PORT"] = str(launch.free_port())
+        _, _, device = multihost.initialize("cuda")
+        backend = dist.get_backend()
+        try:
+            batches = make_batches(device, mode="hardest")
+            cfg = PretrainConfig(mode="hardest", lr=0.1)
+            trainer = PretrainTrainer(pretrain_model(seed=0, dtype=torch.bfloat16), [],
+                                      cfg, device)
+            feed = itertools.cycle(batches)
+            ms = {"ddp": [], "plain": []}
+            for turn in ("ddp", "plain", "plain", "ddp"):
+                net = trainer.net if turn == "ddp" else trainer.model
+                for _ in range(STEPS):
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    trainer._step(net, trainer.opt, trainer.sched, next(feed))
+                    torch.cuda.synchronize(device)
+                    ms[turn].append(1e3 * (time.perf_counter() - t0))
+            # each turn's first step is a warm-up after the switch
+            med = {k: statistics.median(v[1:STEPS] + v[STEPS + 1:]) for k, v in ms.items()}
+            say("ddp step world1", backend=backend, dtype="bf16",
+                ddp_ms=f"{med['ddp']:.2f}", unwrapped_ms=f"{med['plain']:.2f}",
+                ratio=f"{med['ddp'] / med['plain']:.4f}",
+                ddp_share=f"{1 - med['plain'] / med['ddp']:.4f}",
+                ddp_ms_all=[f"{t:.1f}" for t in ms["ddp"]],
+                unwrapped_ms_all=[f"{t:.1f}" for t in ms["plain"]], card=repr(card))
+            del trainer, batches
+        finally:
+            multihost.shutdown()
+    finally:
+        multihost.initialize = initialize
+        for k in (*env, "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+
 def semseg_layout_paths(device, card, paths, scenes):
     """The semseg main paths in the voxel layout (Res16UNet34C 3 -> 20 in
     the BilateralCRF wrapper: the backbone's flat K1-K3 and the filter's
@@ -3926,6 +4294,11 @@ def main() -> int:
         return resnet_bf16_spread([int(m) for m in sys.argv[2].split(",")])
     if sys.argv[1:2] == ["--brick-bf16-spread"]:
         return brick_bf16_spread([int(m) for m in sys.argv[2].split(",")])
+    if sys.argv[1:2] == ["--ddp"]:  # the ddp phase alone, after the build
+        card = phase_device()
+        phase_build()
+        ddp_phases(card, {})
+        return 0
     t0 = time.perf_counter()
     card = phase_device()
     import torch
@@ -3944,6 +4317,7 @@ def main() -> int:
         pretrain_path(layout, device, card, paths, dtype=torch.bfloat16)
     pretrain_hardest_paths(device, card, paths)
     phase_cli_pretrain(card)
+    ddp_phases(card, paths)
     clouds = votenet_path("chunked", device, card, paths, STEPS)
     res = phase_kernels(fps_checks(clouds), D, exact=("furthest_point_sample",))
     paths["fps shapes"] = (res, {})  # no main path: the other cluster sizes

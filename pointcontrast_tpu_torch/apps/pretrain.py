@@ -21,6 +21,15 @@ device (the tests pass ``"cpu"``); a missing card is an error, never a
 fall-back.  What the port does not run yet raises ``NotImplementedError``
 naming its ROADMAP item, before any work starts.  ``main`` returns the
 trainer and its logged history.
+
+``distributed.num_devices``: 1 trains in this process; N > 1 (0: every
+visible card) spawns N ranks (``parallel/launch.py``; more cards than are
+visible raise ``ValueError`` first) and returns ``(None, rank 0's
+history)``; under ``torchrun --nproc_per_node N -m
+pointcontrast_tpu_torch.apps.pretrain ...`` each process is a rank.  A rank
+trains on its loader shard under DDP (NCCL on the card, gloo on the CPU);
+rank 0 writes the config snapshot, the checkpoints, the metrics and the
+requeue marker.
 """
 from __future__ import annotations
 
@@ -36,6 +45,8 @@ from pointcontrast_tpu_torch.config import (
     net_dtype,
     save_config,
 )
+from pointcontrast_tpu_torch.nn import registry
+from pointcontrast_tpu_torch.parallel import launch, mesh, multihost
 
 log = logging.getLogger(__name__)
 
@@ -64,13 +75,6 @@ def check_supported(cfg, device: torch.device) -> str:
     load_model(cfg.net.model)  # an unknown model raises
     net_dtype(cfg)  # an unknown net.dtype raises
     parse_layout(cfg.data.get("layout", "voxel"))  # an unknown layout raises
-    requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (requested or visible) > 1:
-        raise NotImplementedError(
-            f"distributed.num_devices={requested} ({visible} visible): data "
-            "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
-            "distributed.num_devices=1")
     if str(cfg.opt.scheduler).lower() != "explr":
         raise ValueError(f"opt.scheduler={cfg.opt.scheduler}: the pretraining trainers "
                          "step the reference's ExpLR (every trainer.lr_update_freq)")
@@ -113,8 +117,17 @@ def build_dataset(cfg):
     )
 
 
+def _rank_main(argv: list[str], device: str, models: dict):
+    """One spawned rank's run (``parallel.launch.run``): its history.
+    ``models``: the parent's model registry, so that a model registered at
+    run time (not at import) exists in the rank too."""
+    registry.MODELS.update(models)
+    return main(argv, device)[1]
+
+
 def main(argv: list[str] | None = None, device=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    command = list(argv)
     logging.basicConfig(level=logging.INFO)
     path = DEFAULT_CONFIG
     if argv and "=" not in argv[0]:
@@ -126,8 +139,19 @@ def main(argv: list[str] | None = None, device=None):
         raise RuntimeError("no CUDA device: the pretrain app runs on the GPU "
                            "(call main(argv, device='cpu') for the CPU)")
     mode = check_supported(cfg, device)
+    world = launch.resolve_world_size(launch.requested_devices(cfg), device)
+    if world > 1 and not multihost.launched():
+        return None, launch.run(world, _rank_main,
+                                (command, str(device), dict(registry.MODELS)), device)
+    with launch.process_group(device) as device:
+        return _train(cfg, mode, device)
+
+
+def _train(cfg, mode: str, device: torch.device):
+    """The run in this process: one device, or this rank's."""
     os.makedirs(cfg.misc.out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.misc.out_dir, "config.yaml"))
+    if mesh.is_main():
+        save_config(cfg, os.path.join(cfg.misc.out_dir, "config.yaml"))
 
     from pointcontrast_tpu_torch.data.collate import PadScheme
     from pointcontrast_tpu_torch.data.loader import PairLoader
@@ -163,6 +187,7 @@ def main(argv: list[str] | None = None, device=None):
         stat_freq=cfg.trainer.stat_freq,
         checkpoint_dir=os.path.join(cfg.misc.out_dir, "weights"),
     )
+    shard_id, num_shards = multihost.shard_info()
     loader = PairLoader(
         build_dataset(cfg),
         batch_size=cfg.trainer.batch_size,
@@ -175,13 +200,16 @@ def main(argv: list[str] | None = None, device=None):
         seed=cfg.misc.seed,
         conv0_kernel_size=cfg.net.conv1_kernel_size,
         layout=cfg.data.get("layout", "voxel"),
+        shard_id=shard_id,
+        num_shards=num_shards,
     )
     guard = preemption.PreemptionGuard()
     try:
         trainer = PretrainTrainer(model, loader, tcfg, device, preemption_guard=guard)
         history = trainer.train()
     except preemption.Preempted as p:
-        preemption.write_requeue_marker(cfg.misc.out_dir, p.step)
+        if mesh.is_main():
+            preemption.write_requeue_marker(cfg.misc.out_dir, p.step)
         log.warning("exiting requeueable (iter %d); restart resumes", p.step)
         sys.exit(preemption.REQUEUE_EXIT_CODE)
     finally:
@@ -189,7 +217,8 @@ def main(argv: list[str] | None = None, device=None):
         # a finished run must not keep swallowing SIGTERM / SIGUSR1 in a
         # long-lived host process (pytest, notebooks)
         guard.uninstall()
-    preemption.clear_requeue_marker(cfg.misc.out_dir)
+    if mesh.is_main():
+        preemption.clear_requeue_marker(cfg.misc.out_dir)
     return trainer, history
 
 

@@ -13,6 +13,12 @@ passes another device (the tests pass ``"cpu"``); a missing card is an
 error, never a fall-back.  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item, before any work starts.
 ``main`` returns the trainer and its logged history.
+
+``distributed.num_devices`` as in the pretrain CLI: N > 1 (0: every visible
+card) spawns N ranks, or ``torchrun`` starts them, and ``main`` returns
+``(None, rank 0's history)``.  Each rank trains on its shard of the train
+split under DDP; rank 0 validates the whole split with its replica and
+writes the snapshot, the checkpoints, the metrics and the requeue marker.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from pointcontrast_tpu_torch.config import (
     net_dtype,
     save_config,
 )
+from pointcontrast_tpu_torch.nn import registry
+from pointcontrast_tpu_torch.parallel import launch, mesh, multihost
 
 log = logging.getLogger(__name__)
 
@@ -54,13 +62,6 @@ def check_supported(cfg, device: torch.device) -> None:
             "train semantic segmentation; pick a U-Net (Res16UNet*, ResUNet*, "
             "MinkUNetHyper14INBN)")
     net_dtype(cfg)  # an unknown net.dtype raises before any work
-    requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (requested or visible) > 1:
-        raise NotImplementedError(
-            f"distributed.num_devices={requested} ({visible} visible): data "
-            "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
-            "distributed.num_devices=1")
     layout = cfg.data.get("layout", "voxel")
     kind, _ = parse_layout(layout)  # unknown layouts raise ValueError
     if kind == "brick" and issubclass(load_model(cfg.net.model), MinkUNetHyper):
@@ -111,8 +112,17 @@ def _pretrained(weights: str) -> dict:
     return torch.load(ckpt, map_location="cpu")["model"]
 
 
+def _rank_main(argv: list[str], device: str, models: dict):
+    """One spawned rank's run (``parallel.launch.run``): its history.
+    ``models``: the parent's model registry, so that a model registered at
+    run time (not at import) exists in the rank too."""
+    registry.MODELS.update(models)
+    return main(argv, device)[1]
+
+
 def main(argv: list[str] | None = None, device=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    command = list(argv)
     logging.basicConfig(level=logging.INFO)
     path = DEFAULT_CONFIG
     if argv and "=" not in argv[0]:
@@ -124,8 +134,19 @@ def main(argv: list[str] | None = None, device=None):
         raise RuntimeError("no CUDA device: the semseg app runs on the GPU "
                            "(call main(argv, device='cpu') for the CPU)")
     check_supported(cfg, device)
+    world = launch.resolve_world_size(launch.requested_devices(cfg), device)
+    if world > 1 and not multihost.launched():
+        return None, launch.run(world, _rank_main,
+                                (command, str(device), dict(registry.MODELS)), device)
+    with launch.process_group(device) as device:
+        return _train(cfg, device)
+
+
+def _train(cfg, device: torch.device):
+    """The run in this process: one device, or this rank's."""
     os.makedirs(cfg.train.out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.train.out_dir, "config.yaml"))
+    if mesh.is_main():
+        save_config(cfg, os.path.join(cfg.train.out_dir, "config.yaml"))
 
     from pointcontrast_tpu_torch.data.collate import PadScheme
     from pointcontrast_tpu_torch.nn.registry import load_model
@@ -149,11 +170,13 @@ def main(argv: list[str] | None = None, device=None):
             spatial_sigma=float(cfg.net.get("wrapper_spatial_sigma", 1.0)),
             chromatic_sigma=float(cfg.net.get("wrapper_chromatic_sigma", 12.0)),
         )
+    shard_id, num_shards = multihost.shard_info()
     train_loader = SemsegBatches(
         train_ds, cfg.data.batch_size, scheme,
         augment_shift=cfg.augmentation.shift_coords,
         limit_numpoints=cfg.data.limit_numpoints,
-        conv0_kernel_size=cfg.net.conv1_kernel_size, layout=layout, crf=crf)
+        conv0_kernel_size=cfg.net.conv1_kernel_size, layout=layout, crf=crf,
+        num_shards=num_shards, shard_id=shard_id)
 
     gen = torch.Generator().manual_seed(0)
     model = load_model(cfg.net.model)(
@@ -193,12 +216,14 @@ def main(argv: list[str] | None = None, device=None):
             crf=crf, preemption_guard=guard)
         history = trainer.train()
     except preemption.Preempted as p:
-        preemption.write_requeue_marker(cfg.train.out_dir, p.step)
+        if mesh.is_main():
+            preemption.write_requeue_marker(cfg.train.out_dir, p.step)
         log.warning("exiting requeueable (iter %d); restart resumes", p.step)
         sys.exit(preemption.REQUEUE_EXIT_CODE)
     finally:
         guard.uninstall()
-    preemption.clear_requeue_marker(cfg.train.out_dir)
+    if mesh.is_main():
+        preemption.clear_requeue_marker(cfg.train.out_dir)
     return trainer, history
 
 

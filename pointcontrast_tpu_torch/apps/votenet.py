@@ -12,6 +12,11 @@ preemption.  ``main(argv, device)`` runs on ``cuda`` unless the caller
 passes another device (the tests pass ``"cpu"``); a missing card is an
 error, never a fall-back.  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item, before any work starts.
+
+``distributed.num_devices`` as in the pretrain CLI: N > 1 (0: every visible
+card) spawns N ranks, or ``torchrun`` starts them, and ``main`` returns
+None.  Each rank trains on its shard under DDP; rank 0 evaluates with its
+replica and writes the snapshot, the checkpoints and the requeue marker.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from pointcontrast_tpu_torch.config import (
     net_dtype,
     save_config,
 )
+from pointcontrast_tpu_torch.nn import registry
+from pointcontrast_tpu_torch.parallel import launch, mesh, multihost
 
 log = logging.getLogger(__name__)
 
@@ -38,10 +45,12 @@ DEFAULT_CONFIG = os.path.join(
 
 class _BatchLoader:
     """Round-robin detection batches from an infinite sampler, collated on
-    the host (``DetectTrainer`` moves them to its device)."""
+    the host (``DetectTrainer`` moves them to its device).  A data-parallel
+    rank draws its own shard (``num_shards``, ``shard_id``), so the ranks'
+    batches hold distinct scenes, as JAX's stacked device batches do."""
 
     def __init__(self, dataset, batch_size, voxel_size=None, scheme=None,
-                 shuffle=True, seed=0, layout="voxel"):
+                 shuffle=True, seed=0, layout="voxel", num_shards=1, shard_id=0):
         from pointcontrast_tpu_torch.data.sampler import DistributedInfSampler
 
         self.dataset = dataset
@@ -49,9 +58,10 @@ class _BatchLoader:
         self.voxel_size = voxel_size
         self.scheme = scheme
         self.layout = layout
-        # one shard, as the JAX app: its order differs from InfSampler's
-        self.sampler = DistributedInfSampler(len(dataset), shuffle=shuffle,
-                                             seed=seed)
+        # DistributedInfSampler, as the JAX app: its order differs from
+        # InfSampler's
+        self.sampler = DistributedInfSampler(len(dataset), num_shards, shard_id,
+                                             shuffle=shuffle, seed=seed)
 
     def _collate(self, idxs):
         from pointcontrast_tpu_torch.detect.datasets import collate_detection
@@ -77,13 +87,6 @@ def check_supported(cfg, device: torch.device) -> None:
         raise NotImplementedError(
             "data.dataset=sunrgbd: the SUN RGB-D loader is not ported (no data "
             "in the repo; ROADMAP Queue 1 item 10)")
-    requested = int(cfg.distributed.num_devices) if cfg.get("distributed") else 0
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    if (requested or visible) > 1:
-        raise NotImplementedError(
-            f"distributed.num_devices={requested} ({visible} visible): data "
-            "parallelism is not ported (ROADMAP Queue 1 item 7); pass "
-            "distributed.num_devices=1")
     if cfg.net.backbone == "sparseconv":
         layout = cfg.data.get("layout", "voxel")
         if layout not in ("chunked", "voxel"):
@@ -143,8 +146,17 @@ def _transfer_backbone(trainer, weights: str) -> None:
              len(loaded), len(skipped))
 
 
+def _rank_main(argv: list[str], device: str, models: dict) -> None:
+    """One spawned rank's run (``parallel.launch.run``).  ``models``: the
+    parent's model registry, so that a model registered at run time (not at
+    import) exists in the rank too."""
+    registry.MODELS.update(models)
+    main(argv, device)
+
+
 def main(argv: list[str] | None = None, device=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    command = list(argv)
     logging.basicConfig(level=logging.INFO)
     path = DEFAULT_CONFIG
     if argv and "=" not in argv[0]:
@@ -156,8 +168,19 @@ def main(argv: list[str] | None = None, device=None):
         raise RuntimeError("no CUDA device: the votenet app runs on the GPU "
                            "(call main(argv, device='cpu') for the CPU)")
     check_supported(cfg, device)
+    world = launch.resolve_world_size(launch.requested_devices(cfg), device)
+    if world > 1 and not multihost.launched():
+        return launch.run(world, _rank_main, (command, str(device), dict(registry.MODELS)),
+                          device)
+    with launch.process_group(device) as device:
+        return _train(cfg, device)
+
+
+def _train(cfg, device: torch.device):
+    """The run in this process: one device, or this rank's."""
     os.makedirs(cfg.misc.out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.misc.out_dir, "config.yaml"))
+    if mesh.is_main():
+        save_config(cfg, os.path.join(cfg.misc.out_dir, "config.yaml"))
 
     from pointcontrast_tpu_torch.data.collate import PadScheme
     from pointcontrast_tpu_torch.detect.train import DetectConfig, DetectTrainer
@@ -173,8 +196,10 @@ def main(argv: list[str] | None = None, device=None):
                            level_ratios=tuple(cfg.data.pad_ratios)
                            if cfg.data.get("pad_ratios") else None)
         layout = cfg.data.get("layout", "voxel")
+    shard_id, num_shards = multihost.shard_info()
     train_loader = _BatchLoader(train_ds, cfg.data.batch_size, voxel_size,
-                                scheme, seed=cfg.misc.seed, layout=layout)
+                                scheme, seed=cfg.misc.seed, layout=layout,
+                                num_shards=num_shards, shard_id=shard_id)
     val_loader = _BatchLoader(val_ds, cfg.data.batch_size, voxel_size, scheme,
                               shuffle=False, seed=cfg.misc.seed, layout=layout)
 
@@ -216,21 +241,26 @@ def main(argv: list[str] | None = None, device=None):
             loss = trainer.train_epoch(train_loader, steps_per_epoch)
             log.info("epoch %d loss %.4f", epoch, loss)
             if (epoch + 1) % cfg.eval.eval_every == 0:
-                # a full deterministic validation pass: every scene once
-                metrics = trainer.evaluate(val_loader.epoch())
-                for t, m in metrics.items():
-                    log.info("epoch %d AP@%.2f mAP %.4f AR %.4f",
-                             epoch, t, m["mAP"], m["AR"])
-                # trainer.epoch is already epoch + 1, so a resume continues
-                # at the next epoch instead of re-training this one
-                trainer.save()
+                if mesh.is_main():
+                    # a full deterministic validation pass: every scene once,
+                    # rank 0's replica
+                    metrics = trainer.evaluate(val_loader.epoch())
+                    for t, m in metrics.items():
+                        log.info("epoch %d AP@%.2f mAP %.4f AR %.4f",
+                                 epoch, t, m["mAP"], m["AR"])
+                    # trainer.epoch is already epoch + 1, so a resume
+                    # continues at the next epoch instead of re-training it
+                    trainer.save()
+                mesh.host_barrier()
     except preemption.Preempted as p:
-        preemption.write_requeue_marker(cfg.misc.out_dir, p.step)
+        if mesh.is_main():
+            preemption.write_requeue_marker(cfg.misc.out_dir, p.step)
         log.warning("exiting requeueable (epoch %d); restart resumes", p.step)
         sys.exit(preemption.REQUEUE_EXIT_CODE)
     finally:
         guard.uninstall()
-    preemption.clear_requeue_marker(cfg.misc.out_dir)
+    if mesh.is_main():
+        preemption.clear_requeue_marker(cfg.misc.out_dir)
     return trainer
 
 

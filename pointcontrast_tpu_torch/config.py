@@ -88,9 +88,14 @@ def load_config(path: str, overrides: list[str] | None = None) -> Config:
 
 
 def save_config(cfg: Config, path: str):
+    """Write ``cfg`` to ``path`` whole or not at all (a temporary file,
+    then a rename): a data-parallel rank reading the snapshot while rank 0
+    writes it sees the old file or the new one."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
+    os.replace(tmp, path)
 
 
 # the settings a checkpoint was made with: a resumed run keeps the snapshot's

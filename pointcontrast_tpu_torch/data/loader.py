@@ -7,8 +7,12 @@ which releases the GIL inside its C kernels, so threads scale without a
 process fork.  The batches stay on the host: the trainer moves each one
 with ``PairBatch.to(device)``, which bounds-checks it.  From the same
 dataset and seed, the batches are byte-identical to the JAX package's
-``PairLoader``'s (fused frames, one shard).  Sharding the samples between
-devices comes with data parallelism (ROADMAP Queue 1 item 7).
+``PairLoader``'s (fused frames), shard by shard: shard r of N
+(``num_shards``, ``shard_id``; a data-parallel rank's, from
+``parallel.multihost.shard_info``) draws sampler shard r and seeds its rng
+``seed + rng_salt * r``, as JAX's does.  A rank feeds one device, so
+``num_device_batches`` stays 1: JAX stacks N device batches in one process,
+the port runs N processes.
 """
 from __future__ import annotations
 
@@ -42,18 +46,23 @@ class PrefetchLoaderBase:
         num_device_batches: int,
         shuffle: bool,
         seed: int,
+        num_shards: int,
+        shard_id: int,
         num_workers: int,
         prefetch: int,
+        rng_salt: int,
     ):
         if num_device_batches != 1:
-            raise NotImplementedError(
-                f"num_device_batches={num_device_batches}: data parallelism is "
-                "not ported (ROADMAP Queue 1 item 7); the loader feeds one device")
+            raise ValueError(
+                f"num_device_batches={num_device_batches}: a loader feeds one "
+                "device; for data parallelism run one process per device, each "
+                "with its shard (num_shards, shard_id)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_device_batches = num_device_batches
-        self.sampler = DistributedInfSampler(len(dataset), 1, 0, shuffle, seed)
-        self.rng = np.random.RandomState(seed)
+        self.sampler = DistributedInfSampler(len(dataset), num_shards, shard_id,
+                                             shuffle, seed)
+        self.rng = np.random.RandomState(seed + rng_salt * shard_id)
         self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
         self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -121,8 +130,9 @@ class PrefetchLoaderBase:
 
 class PairLoader(PrefetchLoaderBase):
     """Fused-frame pair batches (``collate_pair``) in ``mode`` 'nce' or
-    'hardest' and ``layout``, from ``dataset``; ``num_device_batches`` must
-    be 1 (one device)."""
+    'hardest' and ``layout``, from ``dataset``, shard ``shard_id`` of
+    ``num_shards`` (rng salt 13, as JAX's); ``num_device_batches`` must be
+    1 (one device)."""
 
     def __init__(
         self,
@@ -138,6 +148,8 @@ class PairLoader(PrefetchLoaderBase):
         prefetch: int = 2,
         shuffle: bool = True,
         seed: int = 0,
+        num_shards: int = 1,
+        shard_id: int = 0,
         conv0_kernel_size: int = 3,
         layout: str = "chunked",
     ):
@@ -150,7 +162,7 @@ class PairLoader(PrefetchLoaderBase):
         self.conv0_kernel_size = conv0_kernel_size
         self._start_pipeline(
             dataset, batch_size, num_device_batches, shuffle, seed,
-            num_workers, prefetch,
+            num_shards, shard_id, num_workers, prefetch, rng_salt=13,
         )
 
     def _collate(self, samples):

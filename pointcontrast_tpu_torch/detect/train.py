@@ -9,7 +9,11 @@ epoch milestones, the BN momentum decayed every ``bn_decay_step`` epochs
 and AP at IoU 0.25 / 0.5 from the host-numpy NMS and AP code.  BoxNet
 (``use_voting=False``) trains with ``get_loss_boxnet``, chosen from the
 model.  A ``PreemptionGuard`` set on the trainer is polled after every step:
-once it fires, the trainer saves and raises ``Preempted``.
+once it fires (on any rank), the trainer saves and raises ``Preempted``.
+Under a process group each rank steps on its shard with the model under
+``DistributedDataParallel`` (per-replica BN), the epoch's loss is the
+ranks' mean, and rank 0 saves (the module's ``state_dict``, no
+``module.`` prefix); the app evaluates on rank 0.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from pointcontrast_tpu_torch.detect.datasets import LABEL_FIELDS
 from pointcontrast_tpu_torch.detect.loss import get_loss, get_loss_boxnet
 from pointcontrast_tpu_torch.detect.modules import DenseBatchNorm
 from pointcontrast_tpu_torch.nn.layers import MaskedBatchNorm
+from pointcontrast_tpu_torch.parallel import mesh
+from pointcontrast_tpu_torch.train.checkpoint import load_module_state_dict
 from pointcontrast_tpu_torch.train.pretrain import latest_checkpoint
 from pointcontrast_tpu_torch.utils.preemption import Preempted
 
@@ -104,7 +110,7 @@ def make_detect_train_step(dataset_config):
         opt.zero_grad(set_to_none=True)
         end_points = model(batch_to_inputs(batch))
         end_points.update(batch_to_labels(batch))
-        loss, end_points = loss_of(model)(end_points, dataset_config)
+        loss, end_points = loss_of(mesh.unwrap(model))(end_points, dataset_config)
         loss.backward()
         opt.step()
         return {k: end_points[k].detach() for k in METRIC_KEYS}
@@ -116,7 +122,8 @@ class DetectTrainer:
     """One device.  ``batches`` given to ``train_epoch`` / ``evaluate`` are
     iterators of ``DetectionBatch``es, on the host (moved with ``to``, which
     bounds-checks them) or already on ``device``.  Resumes from the newest
-    checkpoint in ``config.checkpoint_dir``."""
+    checkpoint in ``config.checkpoint_dir``.  Under a process group the
+    step runs ``self.net`` (DDP); ``self.model`` is the module itself."""
 
     def __init__(self, model: torch.nn.Module, dataset_config,
                  config: DetectConfig, device):
@@ -133,10 +140,11 @@ class DetectTrainer:
         ckpt = latest_checkpoint(config.checkpoint_dir)
         if ckpt is not None:
             payload = torch.load(ckpt, map_location=self.device)
-            self.model.load_state_dict(payload["model"])
+            load_module_state_dict(self.model, payload["model"])
             self.opt.load_state_dict(payload["optimizer"])
             self.epoch = int(payload["curr_iter"])
             log.info("resumed from %s at epoch %d", ckpt, self.epoch)
+        self.net = mesh.data_parallel(self.model)
 
     def set_lr(self, lr: float):
         for group in self.opt.param_groups:
@@ -157,19 +165,20 @@ class DetectTrainer:
     def train_epoch(self, loader, num_batches: int) -> float:
         """``num_batches`` steps at this epoch's LR and BN momentum; the
         losses stay on the device until one host sync at the end.  Returns
-        the epoch's mean loss."""
+        the epoch's mean loss (over the ranks too)."""
         cfg = self.config
         self.set_lr(get_current_lr(self.epoch, cfg))
         self.set_bn_momentum(get_bn_momentum(self.epoch, cfg))
         losses = []
         for _ in range(num_batches):
             batch = self._on_device(next(loader))
-            losses.append(self._step(self.model, self.opt, batch)["loss"])
-            if self.preemption_guard is not None and self.preemption_guard.preempted:
+            losses.append(self._step(self.net, self.opt, batch)["loss"])
+            if self.preemption_guard is not None and self.preemption_guard.poll():
                 self.save(self.epoch)
+                mesh.host_barrier()  # every rank raises after rank 0 saved
                 raise Preempted(self.epoch)
         self.epoch += 1
-        return float(torch.stack(losses).mean())
+        return float(mesh.mean_over_ranks({"loss": torch.stack(losses).mean()})["loss"])
 
     @torch.no_grad()
     def evaluate(self, loader, num_batches: int | None = None) -> dict:
@@ -207,7 +216,11 @@ class DetectTrainer:
             self.model.train()
         return {t: c.compute_metrics() for t, c in calcs.items()}
 
-    def save(self, step: int | None = None) -> str:
+    def save(self, step: int | None = None) -> str | None:
+        """The checkpoint of ``step`` (default: the epoch), on rank 0; None
+        on the others."""
+        if not mesh.is_main():
+            return None
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
         step = step or self.epoch
         path = os.path.join(self.config.checkpoint_dir, f"checkpoint_{step}.pth")

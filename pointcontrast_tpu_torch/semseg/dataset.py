@@ -265,15 +265,17 @@ def collate_semseg(
 
 class SemsegBatches:
     """Host batches drawn as the JAX package's ``SemsegLoader`` draws them,
-    synchronously: sample ids from one shard of ``DistributedInfSampler``,
-    each sample's ``RandomState`` seeded from the loader's stream, the
-    collation (shift) from the same stream."""
+    synchronously: sample ids from shard ``shard_id`` of ``num_shards`` of
+    ``DistributedInfSampler`` (a data-parallel rank's), each sample's
+    ``RandomState`` seeded from the loader's stream (seed ``seed + 17 *
+    shard_id``, JAX's salt), the collation (shift) from the same stream."""
 
     def __init__(self, dataset, batch_size: int, scheme: PadScheme,
                  shuffle: bool = True, augment_shift: bool = False,
                  limit_numpoints: int = 0, seed: int = 0,
                  num_levels: int | None = None, conv0_kernel_size: int = 3,
-                 layout: str = "chunked", crf: dict | None = None):
+                 layout: str = "chunked", crf: dict | None = None,
+                 num_shards: int = 1, shard_id: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.scheme = scheme
@@ -283,8 +285,9 @@ class SemsegBatches:
         self.conv0_kernel_size = conv0_kernel_size
         self.layout = layout
         self.crf = crf
-        self.sampler = DistributedInfSampler(len(dataset), 1, 0, shuffle, seed)
-        self.rng = np.random.RandomState(seed)
+        self.sampler = DistributedInfSampler(len(dataset), num_shards, shard_id,
+                                             shuffle, seed)
+        self.rng = np.random.RandomState(seed + 17 * shard_id)
 
     def __iter__(self):
         return self

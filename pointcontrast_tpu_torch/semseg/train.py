@@ -10,9 +10,18 @@ lenient pretrain transfer and the preemption guard.  With a CRF wrapper the
 filter is skipped when ``RandomState(0).rand() >= 0.5``, one draw per step
 in JAX's order; a skipped filter's parameters get a zero gradient, so SGD's
 weight decay and momentum still move them as in JAX.
+
+Under a process group each rank runs the step on its shard with the model
+under ``DistributedDataParallel`` (``find_unused_parameters`` only with
+the CRF wrapper, whose filter sits out half the steps), the first
+``iter_size - 1`` sub-batches under ``no_sync`` (one all-reduce a step),
+and the same filter coin on every rank; metrics are the ranks' mean;
+validation, the best-mIoU checkpoint and every save run on rank 0 with its
+replica, as JAX evaluates and saves device 0's copy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -27,10 +36,11 @@ from pointcontrast_tpu_torch.losses.semseg import (
     fast_hist,
     per_class_iu,
 )
+from pointcontrast_tpu_torch.parallel import mesh
 from pointcontrast_tpu_torch.semseg.crf import Wrapper
 from pointcontrast_tpu_torch.semseg.dataset import collate_semseg
 from pointcontrast_tpu_torch.train import optim
-from pointcontrast_tpu_torch.train.checkpoint import lenient_filter
+from pointcontrast_tpu_torch.train.checkpoint import lenient_filter, load_module_state_dict
 from pointcontrast_tpu_torch.train.pretrain import latest_checkpoint
 from pointcontrast_tpu_torch.utils.preemption import Preempted
 
@@ -59,9 +69,9 @@ class SemsegConfig:
 
 
 def forward(model, batch, apply_filter: bool = True):
-    """Logits of ``model`` on ``batch``; a CRF ``Wrapper`` also takes the
-    batch's bilateral map."""
-    if isinstance(model, Wrapper):
+    """Logits of ``model`` (or of its DDP wrapper) on ``batch``; a CRF
+    ``Wrapper`` also takes the batch's bilateral map."""
+    if isinstance(mesh.unwrap(model), Wrapper):
         return model(batch.feats, batch.pyramid, batch.crf_nbr,
                      apply_filter=apply_filter)
     return model(batch.feats, batch.pyramid)
@@ -71,16 +81,22 @@ def make_semseg_train_step(config: SemsegConfig):
     """``step(model, opt, sched, batches, apply_filter=True) -> metrics``
     over a list of ``iter_size`` sub-batches already on the model's device:
     one forward and backward per sub-batch, then one SGD update.  The
-    metrics are the sub-batches' means and are not synchronised."""
+    metrics are the sub-batches' means and are not synchronised.  Under
+    DDP the gradients are all-reduced once, with the last sub-batch's
+    backward."""
 
     def step(model, opt, sched, batches, apply_filter: bool = True) -> dict:
         model.train()
         opt.zero_grad(set_to_none=True)
         sums: dict = {}
-        for sub in batches:
-            logits = forward(model, sub, apply_filter)
-            loss = cross_entropy_ignore(logits, sub.labels, config.ignore_label)
-            loss.backward()
+        wrapped = model is not mesh.unwrap(model)
+        for i, sub in enumerate(batches):
+            # under DDP only the last sub-batch's backward all-reduces
+            accumulate = wrapped and i < len(batches) - 1
+            with model.no_sync() if accumulate else contextlib.nullcontext():
+                logits = forward(model, sub, apply_filter)
+                loss = cross_entropy_ignore(logits, sub.labels, config.ignore_label)
+                loss.backward()
             with torch.no_grad():
                 valid = sub.labels != config.ignore_label
                 hit = (logits.argmax(-1) == sub.labels) & valid
@@ -179,7 +195,9 @@ class SemsegTrainer:
     or ``val_loader`` for sampled batches.  ``pretrained``: a state dict
     whose parameters are loaded where name and shape match (into the
     backbone of a CRF wrapper).  Resumes from the newest checkpoint in
-    ``config.checkpoint_dir``."""
+    ``config.checkpoint_dir``.  Under a process group the step runs
+    ``self.net`` (DDP) and ``self.model`` is the module itself, which rank 0
+    validates and saves (no ``module.`` prefix)."""
 
     def __init__(self, model, train_loader, val_loader, config: SemsegConfig,
                  num_classes: int, device, pretrained: dict | None = None,
@@ -219,12 +237,13 @@ class SemsegTrainer:
         ckpt = latest_checkpoint(config.checkpoint_dir)
         if ckpt is not None:
             payload = torch.load(ckpt, map_location=self.device)
-            self.model.load_state_dict(payload["model"])
+            load_module_state_dict(self.model, payload["model"])
             self.opt.load_state_dict(payload["optimizer"])
             self.sched.load_state_dict(payload["scheduler"])
             self.curr_iter = int(payload["curr_iter"])
             self._load_best_score()
             log.info("resumed from %s (best mIoU %.2f)", ckpt, self.best_miou)
+        self.net = mesh.data_parallel(self.model, find_unused_parameters=wrapper)
 
     def _transfer(self, source: dict) -> None:
         net = self.model.net if isinstance(self.model, Wrapper) else self.model
@@ -241,7 +260,10 @@ class SemsegTrainer:
                 "optimizer": self.opt.state_dict(),
                 "scheduler": self.sched.state_dict()}
 
-    def save(self) -> str:
+    def save(self) -> str | None:
+        """The checkpoint of this iteration (rank 0; None on the others)."""
+        if not mesh.is_main():
+            return None
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.config.checkpoint_dir,
                             f"checkpoint_{self.curr_iter}.pth")
@@ -294,11 +316,13 @@ class SemsegTrainer:
         if cfg.iter_size > 1:
             batch = None  # the single construction batch cannot seed a stacked step
         history = []
+        main = mesh.is_main()
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         validating = self.val_dataset is not None or self.val_loader is not None
         self._sync()
         win_t0, win_data, win_iters = time.perf_counter(), 0.0, 0
-        with open(os.path.join(cfg.checkpoint_dir, "metrics.jsonl"), "a") as writer:
+        log_path = os.path.join(cfg.checkpoint_dir, "metrics.jsonl")
+        with open(log_path, "a") if main else contextlib.nullcontext() as writer:
             while self.curr_iter < target:
                 t0 = time.perf_counter()
                 subs = [batch] if batch is not None else [
@@ -308,12 +332,13 @@ class SemsegTrainer:
                 win_data += time.perf_counter() - t0
                 apply_filter = self._coin is None or self._coin.rand() < 0.5
                 lr = self.sched.get_last_lr()[0]
-                metrics = self._step(self.model, self.opt, self.sched, subs,
+                metrics = self._step(self.net, self.opt, self.sched, subs,
                                      apply_filter)
                 self.curr_iter += 1
                 win_iters += 1
                 curr = self.curr_iter
                 if curr % cfg.stat_freq == 0 or curr == target:
+                    metrics = mesh.mean_over_ranks(metrics)
                     scalars = {k: float(v) for k, v in metrics.items()}
                     self._sync()
                     wall = time.perf_counter() - win_t0
@@ -321,26 +346,30 @@ class SemsegTrainer:
                                    step_time=(wall - win_data) / win_iters)
                     win_t0, win_data, win_iters = time.perf_counter(), 0.0, 0
                     history.append((curr, scalars))
-                    writer.write(json.dumps({"iter": curr, **scalars}) + "\n")
-                    writer.flush()
-                    log.info("iter %d loss %.4f acc %.3f (data %.3fs step %.3fs)",
-                             curr, scalars["loss"], scalars["acc"],
-                             scalars["data_time"], scalars["step_time"])
-                    if scalars.get("truncated_voxels", 0) > 0:
+                    if main:
+                        writer.write(json.dumps({"iter": curr, **scalars}) + "\n")
+                        writer.flush()
+                        log.info("iter %d loss %.4f acc %.3f (data %.3fs step %.3fs)",
+                                 curr, scalars["loss"], scalars["acc"],
+                                 scalars["data_time"], scalars["step_time"])
+                    if main and scalars.get("truncated_voxels", 0) > 0:
                         log.warning("iter %d: pyramid truncation dropped %.0f voxels",
                                     curr, scalars["truncated_voxels"])
                 if validating and (curr % cfg.val_freq == 0 or curr == target):
-                    miou, _, acc = self.validate(val_batches)
-                    log.info("val iter %d mIoU %.2f acc %.2f", curr, miou, acc)
-                    writer.write(json.dumps({"iter": curr, "val_miou": miou,
-                                             "val_acc": acc}) + "\n")
-                    if miou > self.best_miou:
-                        self.best_miou = miou
-                        self._save_best()
+                    if main:  # rank 0's replica over the whole split
+                        miou, _, acc = self.validate(val_batches)
+                        log.info("val iter %d mIoU %.2f acc %.2f", curr, miou, acc)
+                        writer.write(json.dumps({"iter": curr, "val_miou": miou,
+                                                 "val_acc": acc}) + "\n")
+                        if miou > self.best_miou:
+                            self.best_miou = miou
+                            self._save_best()
+                    mesh.host_barrier()
                 if curr % cfg.save_freq == 0 or curr == target:
                     self.save()
-                if self.preemption_guard is not None and self.preemption_guard.preempted:
+                if self.preemption_guard is not None and self.preemption_guard.poll():
                     self.save()
+                    mesh.host_barrier()  # every rank raises after rank 0 saved
                     log.warning("preempted at iter %d: checkpoint saved, requeue", curr)
                     raise Preempted(curr)
         return history

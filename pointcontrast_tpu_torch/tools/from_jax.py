@@ -18,7 +18,8 @@ VoteNet's
 ``pnet.vote_aggregation.mlp.layer0``/``bn0``, a CRF wrapper's ``net`` and
 ``filter``, the INBN norms' ``inorm``/``bnorm``, ...  The trees are nested
 dicts of numpy arrays (``jax.device_get`` of the flax variables); this
-module imports no JAX."""
+module imports no JAX.  A model under ``DistributedDataParallel`` is
+filled through its module, by the module's own names (no ``module.``)."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock
+from pointcontrast_tpu_torch.parallel.mesh import unwrap
 
 _PARAM_RENAME = {
     "kernel": "weight",
@@ -77,6 +79,7 @@ def _tensor(path: tuple, name: str, leaf, dtype, model) -> torch.Tensor:
 
 def jax_state_dict(params: Mapping, batch_stats: Mapping, dtype=np.float32,
                    model: torch.nn.Module | None = None) -> dict:
+    model = None if model is None else unwrap(model)
     out = {}
     for tree in (params, batch_stats):
         for path, leaf in _flatten(tree):
@@ -90,7 +93,7 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     """Fill ``model`` from the flax trees (strict: every tensor on both sides
     must match by name and shape).  ``dtype=np.float64`` keeps float64 trees
     exact in a model already cast with ``.double()``."""
-    model.load_state_dict(jax_state_dict(params, batch_stats, dtype, model),
+    unwrap(model).load_state_dict(jax_state_dict(params, batch_stats, dtype, model),
                           strict=True)
     return model
 
@@ -101,6 +104,7 @@ def load_optax_adam(opt: torch.optim.Adam, model: torch.nn.Module, mu: Mapping,
     (``mu``/``nu`` trees shaped like the params, ``count`` the update
     count), so a torch step and a JAX step start from the same state.
     Strict: every parameter needs both moments, of its shape."""
+    model = unwrap(model)
     params = dict(model.named_parameters())
     mus = jax_state_dict(mu, {}, dtype, model)
     nus = jax_state_dict(nu, {}, dtype, model)

@@ -73,9 +73,9 @@ def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
                      seed: int = 0, layout: str = "chunked", mode: str = "nce",
                      num_pos: int = NUM_POS, num_hn: int = NUM_HN) -> list:
     """``n_batches`` collated batches in ``layout`` moved (bounds-checked)
-    to ``device``; ``mode`` 'nce' (``npos`` pairs) or 'hardest'
-    (``num_pos`` positives and ``num_hn`` candidates a frame: the shipped
-    YAML's 1024 and 256 a pair, times ``pairs``)."""
+    to ``device`` (None: the host batches, numpy); ``mode`` 'nce' (``npos``
+    pairs) or 'hardest' (``num_pos`` positives and ``num_hn`` candidates a
+    frame: the shipped YAML's 1024 and 256 a pair, times ``pairs``)."""
     from pointcontrast_tpu_torch.data import (
         PadScheme,
         SyntheticPairDataset,
@@ -86,12 +86,13 @@ def pretrain_batches(device, n_batches: int = 2, pairs: int = PAIRS,
                               room_size=room, seed=seed)
     scheme = PadScheme.scannet(npad0=npad0)
     rng = np.random.RandomState(seed)
-    return [
+    host = [
         collate_pair([ds[(b * pairs + i) % len(ds)] for i in range(pairs)],
                      scheme, mode=mode, npos=npos, num_pos=num_pos, num_hn=num_hn,
-                     rng=rng, layout=layout).to(device)
+                     rng=rng, layout=layout)
         for b in range(n_batches)
     ]
+    return host if device is None else [b.to(device) for b in host]
 
 
 def votenet_batches(device, n_batches: int = 2, scenes: int = VOTENET_SCENES,

@@ -4,9 +4,14 @@
 One step runs a single forward over both fused frames, the PointInfoNCE
 or hardest-contrastive loss over the collator's pre-sampled indices, the
 backward through the hand-written sparse-conv kernels, then SGD and the
-stepped ExpLR."""
+stepped ExpLR.  Under a process group the trainer runs the same step in
+every rank with the model under ``DistributedDataParallel`` (per-replica
+BN), logs the ranks' mean metrics and saves on rank 0, as JAX's
+``data_parallel_step`` pmeans grads and metrics and checkpoints device 0's
+copy."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -22,7 +27,9 @@ from pointcontrast_tpu_torch.losses.contrastive import (
     hardest_contrastive_loss,
     point_info_nce_loss,
 )
+from pointcontrast_tpu_torch.parallel import mesh
 from pointcontrast_tpu_torch.train import optim
+from pointcontrast_tpu_torch.train.checkpoint import load_module_state_dict
 from pointcontrast_tpu_torch.utils.preemption import Preempted
 
 log = logging.getLogger(__name__)
@@ -112,8 +119,15 @@ class PretrainTrainer:
     ``batches`` is any iterable of ``PairBatch``es, on the host (moved with
     ``to(device)``, which bounds-checks them) or already on ``device``.
     ``preemption_guard`` (``utils.preemption.PreemptionGuard``) is polled
-    after every step: once it is set, the trainer saves a checkpoint and
-    raises ``Preempted``."""
+    after every step: once it is set (on any rank), the trainer saves a
+    checkpoint and raises ``Preempted``.
+
+    Under a process group (``parallel.multihost.initialize``) ``batches``
+    are this rank's shard and the step runs ``self.net``, the model under
+    DDP; ``self.model`` is the module itself.  Each rank resumes from the
+    same checkpoint; rank 0 alone writes checkpoints (the module's
+    ``state_dict``, no ``module.`` prefix: they resume under any world
+    size) and ``metrics.jsonl``."""
 
     def __init__(self, model: torch.nn.Module, batches, config: PretrainConfig,
                  device, preemption_guard=None):
@@ -129,13 +143,17 @@ class PretrainTrainer:
         ckpt = latest_checkpoint(config.checkpoint_dir)
         if ckpt is not None:
             payload = torch.load(ckpt, map_location=self.device)
-            self.model.load_state_dict(payload["model"])
+            load_module_state_dict(self.model, payload["model"])
             self.opt.load_state_dict(payload["optimizer"])
             self.sched.load_state_dict(payload["scheduler"])
             self.curr_iter = int(payload["curr_iter"])
             log.info("resumed from %s at iter %d", ckpt, self.curr_iter)
+        self.net = mesh.data_parallel(self.model)
 
-    def save(self) -> str:
+    def save(self) -> str | None:
+        """The checkpoint of this iteration (rank 0; None on the others)."""
+        if not mesh.is_main():
+            return None
         os.makedirs(self.config.checkpoint_dir, exist_ok=True)
         path = os.path.join(self.config.checkpoint_dir,
                             f"checkpoint_{self.curr_iter}.pth")
@@ -158,12 +176,13 @@ class PretrainTrainer:
         cfg = self.config
         target = min(cfg.max_iter, self.curr_iter + (num_iters or cfg.max_iter))
         history = []
+        main = mesh.is_main()
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         log_path = os.path.join(cfg.checkpoint_dir, "metrics.jsonl")
         feed = iter(self.batches)
         self._sync()
         win_t0, win_data, win_iters = time.perf_counter(), 0.0, 0
-        with open(log_path, "a") as writer:
+        with open(log_path, "a") if main else contextlib.nullcontext() as writer:
             while self.curr_iter < target:
                 t0 = time.perf_counter()
                 batch = next(feed, None)
@@ -173,10 +192,11 @@ class PretrainTrainer:
                     batch = batch.to(self.device)
                 win_data += time.perf_counter() - t0
                 lr = self.sched.get_last_lr()[0]
-                metrics = self._step(self.model, self.opt, self.sched, batch)
+                metrics = self._step(self.net, self.opt, self.sched, batch)
                 self.curr_iter += 1
                 win_iters += 1
                 if self.curr_iter % cfg.stat_freq == 0 or self.curr_iter == target:
+                    metrics = mesh.mean_over_ranks(metrics)
                     scalars = {k: float(v) for k, v in metrics.items()}
                     self._sync()
                     wall = time.perf_counter() - win_t0
@@ -184,19 +204,21 @@ class PretrainTrainer:
                                    step_time=(wall - win_data) / win_iters)
                     win_t0, win_data, win_iters = time.perf_counter(), 0.0, 0
                     history.append((self.curr_iter, scalars))
-                    writer.write(json.dumps({"iter": self.curr_iter, **scalars}) + "\n")
-                    writer.flush()
-                    log.info("iter %d loss %.4f (data %.3fs step %.3fs)",
-                             self.curr_iter, scalars["loss"],
-                             scalars["data_time"], scalars["step_time"])
-                    if scalars["truncated_voxels"] > 0:
+                    if main:
+                        writer.write(json.dumps({"iter": self.curr_iter, **scalars}) + "\n")
+                        writer.flush()
+                        log.info("iter %d loss %.4f (data %.3fs step %.3fs)",
+                                 self.curr_iter, scalars["loss"],
+                                 scalars["data_time"], scalars["step_time"])
+                    if main and scalars["truncated_voxels"] > 0:
                         log.warning("iter %d: pyramid truncation dropped %.0f "
                                     "voxels", self.curr_iter,
                                     scalars["truncated_voxels"])
                 if self.curr_iter % cfg.save_freq == 0 or self.curr_iter == target:
                     self.save()
-                if self.preemption_guard is not None and self.preemption_guard.preempted:
+                if self.preemption_guard is not None and self.preemption_guard.poll():
                     self.save()
+                    mesh.host_barrier()  # every rank raises after rank 0 saved
                     log.warning("preempted at iter %d: checkpoint saved, requeue",
                                 self.curr_iter)
                     raise Preempted(self.curr_iter)

@@ -7,8 +7,11 @@ latest checkpoint.  Here, scheduler-agnostic:
 
 - ``PreemptionGuard`` installs handlers for SIGTERM/SIGUSR1 (the signals
   cloud preemption and SLURM send) that set a flag.
-- Trainers poll ``guard.preempted`` once per step; when set they save a
-  checkpoint and raise ``Preempted``.
+- Trainers poll ``guard.poll()`` once per step; when set they save a
+  checkpoint and raise ``Preempted``.  Under data parallelism ``poll``
+  ORs the flag over the ranks (a MAX over the host-side gloo group), so a
+  signal that reaches one rank stops every rank at the same step; rank 0
+  saves and every rank raises after it.
 - Apps catch ``Preempted``, write ``<out_dir>/REQUEUE``, and exit with
   ``REQUEUE_EXIT_CODE`` so a wrapper loop or any scheduler restarts them;
   on restart the trainers' auto-resume picks up from the saved checkpoint.
@@ -90,6 +93,13 @@ class PreemptionGuard:
     @property
     def preempted(self) -> bool:
         return self._event.is_set()
+
+    def poll(self) -> bool:
+        """Whether any rank's flag is set (this process's without a process
+        group).  Every rank calls it once a step, at the same step."""
+        from pointcontrast_tpu_torch.parallel.mesh import any_rank
+
+        return any_rank(self.preempted)
 
 
 def write_requeue_marker(out_dir: str, step: int) -> str:

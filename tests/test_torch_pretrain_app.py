@@ -106,11 +106,16 @@ LOADER = dict(batch_size=2, mode="hardest", npos=16, num_pos=128, num_hn=64,
               num_workers=2, seed=3, layout="chunked")
 
 
-def test_pair_loader_batches_match_jax():
+@pytest.mark.parametrize("shard", [None, 0, 1])
+def test_pair_loader_batches_match_jax(shard):
+    """One loader, or shard ``shard`` of 2 (a data-parallel rank's: sampler
+    shard and rng salt 13, as JAX's)."""
     kw = dict(num_pairs=4, points_per_frame=300, seed=0)
-    tl = PairLoader(SyntheticPairDataset(**kw), scheme=PadScheme(npad0=2048), **LOADER)
+    shards = {} if shard is None else dict(num_shards=2, shard_id=shard)
+    tl = PairLoader(SyntheticPairDataset(**kw), scheme=PadScheme(npad0=2048), **LOADER,
+                    **shards)
     jl = JPairLoader(JDataset(**kw), scheme=JPadScheme(npad0=2048), fuse_frames=True,
-                     **LOADER)
+                     **LOADER, **shards)
     try:
         for _ in range(2):
             tb, jb = next(tl), next(jl)
@@ -147,7 +152,8 @@ def test_loader_reraises_and_keeps_producing():
     finally:
         loader.close()
     assert not loader._thread.is_alive()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a loader feeds one device: data parallelism runs a process per device
+    with pytest.raises(ValueError, match="one process per device"):
         PairLoader(_Flaky(num_pairs=2), 2, PadScheme(npad0=2048), num_device_batches=2)
 
 
@@ -201,7 +207,7 @@ def test_cli_trains_resumes_requeues_and_feeds_semseg(tmp_path, trainer, narrow_
 
 
 @pytest.mark.parametrize("override,error", [
-    ("distributed.num_devices=2", NotImplementedError),
+    ("distributed.num_devices=-1", ValueError),
     ("data.fuse_frames=false", NotImplementedError),
     ("trainer.trainer=ContrastiveLossTrainer", ValueError),
     ("data.dataset=ScanNetPairs", ValueError),

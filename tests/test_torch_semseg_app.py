@@ -59,13 +59,16 @@ CRF_BF16 = ["net.dtype=bfloat16", "net.wrapper_type=BilateralCRF"]
     (CRF_BF16, NotImplementedError),
     (["data.dataset=ScannetVoxelization2cmDataset"], NotImplementedError),
     (["net.model=MinkUNetHyper14INBN", "data.layout=brick"], ValueError),
-    (["distributed.num_devices=2"], NotImplementedError),
+    # more cards than are visible (one, below): before any work
+    (["distributed.num_devices=2"], ValueError),
     (["net.wrapper_type=TrilateralCRF"], ValueError),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, override, error):
+def test_cli_refuses_what_is_not_ported(tmp_path, override, error, monkeypatch):
     """What the port does not run raises before any work starts; the bf16
     CRF filter, which it runs since its flat conv's bf16 forms, trains two
-    steps with a bf16 backbone and validates."""
+    steps with a bf16 backbone and validates.  ``distributed.num_devices``
+    above the visible cards raises on the card (one visible, no card
+    touched)."""
     if override is CRF_BF16:
         trainer, history = app.main(CLI + override + ["net.wrapper_iterations=2",
                                                       f"train.out_dir={tmp_path}"],
@@ -74,8 +77,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, override, error):
         assert [i for i, _ in history] == [1, 2]
         assert (tmp_path / "weights" / "checkpoint_2.pth").exists()
         return
+    device = "cpu"
+    if override == ["distributed.num_devices=2"]:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        device = None  # the card
     with pytest.raises(error):
-        app.main(CLI + override + [f"train.out_dir={tmp_path}"], device="cpu")
+        app.main(CLI + override + [f"train.out_dir={tmp_path}"], device=device)
     assert not os.path.exists(tmp_path / "weights")
 
 

@@ -46,10 +46,11 @@ HYPER_BF16 = ["net.backbone=sparseconv", "net.backbone_model=MinkUNetHyper14INBN
     # item 5b's first part; now it passes the check
     (HYPER_BF16, "net.dtype=float32"),
     (["data.dataset=sunrgbd"], "SUN RGB-D"),
-    (["distributed.num_devices=2"], "item 7"),
+    # more cards than are visible (one, below): ValueError before any work
+    (["distributed.num_devices=2"], "2 but 1 CUDA device"),
     (["net.backbone=sparseconv", "net.dtype=float32", "data.layout=brick"], "chunked"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
+def test_cli_refuses_what_is_not_ported(tmp_path, override, match, monkeypatch):
     """What the port does not run raises before any work starts; the bf16
     Hyper backbone, which it runs since its pools' bf16 forms, passes
     ``check_supported`` in the shipped bf16 (its training run:
@@ -63,8 +64,14 @@ def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
         assert net_dtype(cfg) == torch.bfloat16
         app.check_supported(cfg, torch.device("cpu"))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        app.main(args, device="cpu")
+    if override == ["distributed.num_devices=2"]:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match=match):
+            app.main(args)  # on the card
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            app.main(args, device="cpu")
     assert not os.path.exists(tmp_path / "run")
 
 
