@@ -8,13 +8,15 @@ NVIDIA GPU (written for the H100).
     python3 chip_smoke.py --resnet-bf16-spread 0,1,2,3
     python3 chip_smoke.py --brick-bf16-spread 0,1,2,3
     python3 chip_smoke.py --ddp
+    python3 chip_smoke.py --st
 
 The other forms only time scatter_gemm at several SCATTER_BLOCKS, or the
 tensor-core gather_wgrad_bf16 at several WGRAD_BLOCKS (``blocks_sweep``);
 ``--votenet-bf16-spread``, ``--resnet-bf16-spread`` and
 ``--brick-bf16-spread`` take the summation-order readings that
 BF16_VOTENET_LOSS_RTOL, BF16_STEP_LIMITS and BF16_GRAD_LIMITS are set
-from; ``--ddp`` runs the build and phase 5g alone.  Phases of the first,
+from; ``--ddp`` runs the build and phase 5g alone, ``--st`` the build and
+phase 18a alone.  Phases of the first,
 each printed on its own line:
   1. device: requires CUDA; prints ``nvidia-smi`` name and power limit;
   2. build: compiles the sm_90a kernels (csrc/sparse_conv.cu and
@@ -202,6 +204,25 @@ each printed on its own line:
      shipped bf16 with net.wrapper_type=BilateralCRF, with data.layout=voxel,
      with data.layout=brick, and with data.layout=brick on the shipped
      bf16;
+  18a. st: the 4-D spatio-temporal nets (``st_paths``) on
+     ``tools/workload.st_semseg_batch`` (2 sequences x 3 frames of a
+     semseg room drifting ST_SHIFT voxels a frame, ~242k voxels, one flat
+     4-D pyramid; the voxels truncation drops printed, under 1% or it
+     fails): ``semseg st`` and ``semseg st bf16``, STRes16UNet34 3 -> 20
+     (29-tap hybrid K1 in one launch, the (3, 3, 3, 1) stem, 8-child
+     strided convs), every kernel at one real forward's shapes, the
+     kernels-vs-plain step (the loss to LOSS_RTOL; bf16 as 5b), ST_STEPS
+     counted SemsegTrainer steps with their launches, step ms, peak
+     memory; ``semseg st tesseract`` (f32 and bf16) and ``semseg st
+     resnet``: STResTesseract16UNet18A at one block a stage (81-tap stem
+     and blocks: K1 in three groups, the bf16 dF's f32 partials) and
+     STResNet14 (the 81-tap k3s2 K4 in three groups), every kernel against
+     its twin, in f32 one forward + backward against the plain twins
+     (RTOL), one counted forward + backward; ``semseg k5`` and ``semseg
+     k5 bf16``: the chunked Res16UNet34C with a k = 5 stem (125 taps: K1
+     in four groups; in bf16 the forward's f32 partials rounded once),
+     the stem's checks, the kernels-vs-plain step and LAYOUT_STEPS counted
+     steps;
   the ResNet paths (tools/workload.py: the semseg scenes through a 6-level
   chunked pyramid with the k3s2 maps, PadScheme.scannet(262144, 6), one
   random label per level-5 voxel):
@@ -291,6 +312,7 @@ STEPS = 5
 DDP_STEPS = 3  # counted steps of the ddp pretrain path
 RESNET_STEPS = 3
 LAYOUT_STEPS = 3  # counted steps of the semseg and VoteNet layout paths
+ST_STEPS = 3  # counted steps of the 4-D spatio-temporal semseg paths
 # kernel vs plain twin, f32 on both sides: |err| <= ATOL + RTOL * max|ref|
 # (the sums run in different orders; scatter_gemm adds with unordered f32
 # atomics)
@@ -1194,7 +1216,12 @@ def phase_kernels(checks, module, exact=(), by_label=None):
         err, ref = _max_err(got, want)
         bitwise = name in exact or name in ALWAYS_EXACT
         outs = got if isinstance(got, tuple) else (got,)
-        rtol = BF16_RTOL if any(g.dtype == torch.bfloat16 for g in outs) else RTOL
+        # an f32 sum of bf16-rounded taps (the per-tap form's f32 partials):
+        # a tap whose f32 sum sits at a rounding boundary moves by one bf16
+        # ulp of itself, as in a bf16 output
+        per_tap_f32 = name == "gather_gemm_bf16" and len(args) > 10 and args[9] and args[10]
+        rtol = (BF16_RTOL if per_tap_f32 or any(g.dtype == torch.bfloat16 for g in outs)
+                else RTOL)
         if bitwise:
             ok = _equal(got, want)
         else:
@@ -2402,8 +2429,10 @@ def conv_calls(model, feats, run):
 
 def expected_from_calls(calls) -> dict:
     """Sparse-kernel launches of one training step from its conv calls:
-    K1 fwd + dF (not for the stem) + dW; K2 fwd + dF + dW; K3 fwd + dF +
-    dW; K4 per group of MAX_TAPS taps fwd + scatter_gemm dF
+    K1 fwd + dF (not for the stem) + dW, each a launch a tap group
+    (``ops.k1_groups``: one at up to MAX_TAPS off-centre taps); K2 fwd +
+    dF + dW; K3 fwd + dF + dW; K4 per group of MAX_TAPS taps fwd +
+    scatter_gemm dF
     (not for the stem) + dW; a brick conv brick_gemm fwd + dF (not for the
     stem) + brick_wgrad; a brick down conv's placement and a brick up
     conv's parent gather a gather_sum and its scatter_sum each, none at the
@@ -2418,9 +2447,11 @@ def expected_from_calls(calls) -> dict:
     n = {fn.__name__: 0 for fn in K.KERNELS}
     for kind, _, w, args, kw, stem in calls:
         sfx = "_bf16" if args[0].dtype == torch.bfloat16 else ""
-        if kind == "conv" and kw.get("up") is None:
-            n[f"gather_gemm{sfx}"] += 1 + (not stem)
-            n[f"gather_wgrad{sfx}"] += 1
+        if kind == "conv" and kw.get("up") is None:  # a launch a tap group
+            rev = args[3] if len(args) > 3 else kw.get("rev")
+            fwd, df, dw = ops.k1_groups(w.shape[0], rev, bool(sfx and kw.get("flat")))
+            n[f"gather_gemm{sfx}"] += len(fwd) + len(df) * (not stem)
+            n[f"gather_wgrad{sfx}"] += len(dw)
         elif kind == "conv":
             n[f"gather_gemm{sfx}"] += 1
             n[f"parent_gemm{sfx}"] += 1
@@ -2578,43 +2609,71 @@ def conv_checks(model, batch, calls=None):
         if sfx:
             w = w.to(dt)
             wt = w.transpose(1, 2)
-        if kind == "k4":  # a chunked map (one group of taps: the ResNets' k3s2 and 1-tap)
+        if kind == "k4":  # the ResNets' k3s2 (81 taps in 4-D: groups) and 1-tap maps
             nbr, valid = args[1], args[2]
             s_out = nbr.shape[2]
             ct = _masked_randn((nb, s_out, cout), valid, gen).to(dt)
-            taps = list(range(k))
+            groups = ops._tap_groups(k)
+            # a flat bf16 forward rounds each tap; past one group the f32
+            # partials are added and rounded once (sparse/ops.py)
+            per_tap = (True, len(groups) > 1) if sfx and kw.get("flat") else ()
             tag = f"{name} S{s_in}->S{s_out} {k} taps {cin}->{cout}"
-            checks += [
-                (f"gather_gemm{sfx}", f"K4 fwd {tag}", gemm,
-                 (f3, nbr, taps, 0, w.contiguous(), None, s_out, s_in - 1, kw.get("order"))),
-                (f"scatter_gemm{sfx}", f"K4 dF {tag}", getattr(K, f"scatter_gemm{sfx}"),
-                 (ct, nbr, taps, w.contiguous(), s_in, s_in - 1, kw.get("order"))),
-                (f"gather_wgrad{sfx}", f"K4 dW {tag}", wgrad,
-                 (f3, nbr, taps, 0, ct, None, None, 0, k, s_out, s_in - 1, -1)),
-            ]
-        elif kind == "conv" and kw.get("up") is None:  # K1
+            order = kw.get("order")
+            if sfx:  # dF: one call over every tap (a launch a group, one f32 table)
+                checks.append((f"scatter_gemm{sfx}", f"K4 dF {tag}",
+                               getattr(K, f"scatter_gemm{sfx}"),
+                               (ct, nbr, list(range(k)), w.contiguous(), s_in, s_in - 1,
+                                order)))
+            for taps in groups:
+                wg = w[taps.start:taps.stop].contiguous()
+                gtag = tag if len(groups) == 1 else f"{tag} taps {taps.start}-{taps.stop - 1}"
+                checks += [
+                    (f"gather_gemm{sfx}", f"K4 fwd {'per tap ' * bool(per_tap)}{gtag}", gemm,
+                     (f3, nbr, list(taps), 0, wg, None, s_out, s_in - 1, order, *per_tap)),
+                    (f"gather_wgrad{sfx}", f"K4 dW {gtag}", wgrad,
+                     (f3, nbr, list(taps), 0, ct, None, None, 0, len(taps), s_out, s_in - 1,
+                      -1)),
+                ]
+                if not sfx:
+                    checks.append((f"scatter_gemm{sfx}", f"K4 dF {gtag}", K.scatter_gemm,
+                                   (ct, nbr, list(taps), wg, s_in, s_in - 1, order)))
+        elif kind == "conv" and kw.get("up") is None:  # K1, in its tap groups
             nbr, valid, rev = args[1], args[2], args[3] if len(args) > 3 else kw.get("rev")
             center = next(i for i, r in enumerate(rev) if r == i)
-            taps = [i for i in range(k) if i != center]
             ct = _masked_randn((nb, s_in, cout), valid, gen).to(dt)
-            tag = f"{name} B{nb} S{s_in} {cin}->{cout}"
-            if sfx and kw.get("flat"):  # the voxel bf16 forward: each tap rounded,
-                # the centre gathered in its place (sparse/ops.py, JAX's _conv_core)
-                checks.append((f"gather_gemm{sfx}", f"K1 fwd per tap {tag}", gemm,
-                               (f3, nbr, list(range(k)), 0, w.contiguous(), None, s_in,
-                                s_in - 1, kw.get("order"), True)))
-            else:
-                checks.append((f"gather_gemm{sfx}", f"K1 fwd {tag}", gemm,
-                               (f3, nbr, taps, 0, w[taps].contiguous(), w[center], s_in,
-                                s_in - 1, kw.get("order"))))
-            if not stem:
-                checks.append((f"gather_gemm{sfx}", f"K1 dF {tag}", gemm,
-                               (ct, nbr, [rev[i] for i in taps], 0,
-                                wt[taps].contiguous(), wt[center].contiguous(), s_in,
-                                s_in - 1, kw.get("order"))))
-            checks.append((f"gather_wgrad{sfx}", f"K1 dW {tag}", wgrad,
-                           (f3, None, None, 0, ct, nbr, list(rev), 0, k, s_in, -1,
-                            s_in - 1)))
+            order = kw.get("order")
+            # the voxel bf16 forward: each tap rounded, the centre gathered in
+            # its place (sparse/ops.py, JAX's _conv_core)
+            per_tap = bool(sfx and kw.get("flat"))
+            fwd, dfg, dwg = ops.k1_groups(k, rev, per_tap)
+            tag = f"{name} B{nb} S{s_in} {k} taps {cin}->{cout}"
+
+            def gtag(groups, i):
+                taps = groups[i]
+                return tag if len(groups) == 1 else f"{tag} taps {taps[0]}-{taps[-1]}"
+
+            # past one group: the bf16 partials' f32 sums (rounded once by the op)
+            f32_out = (True,) if sfx and len(fwd) > 1 else ()
+            for i, taps in enumerate(fwd):
+                if per_tap:
+                    checks.append((f"gather_gemm{sfx}", f"K1 fwd per tap {gtag(fwd, i)}", gemm,
+                                   (f3, nbr, taps, 0, w[taps].contiguous(), None, s_in,
+                                    s_in - 1, order, True, *f32_out)))
+                else:
+                    wc = w[center] if i == 0 else None
+                    checks.append((f"gather_gemm{sfx}", f"K1 fwd {gtag(fwd, i)}", gemm,
+                                   (f3, nbr, taps, 0, w[taps].contiguous(), wc, s_in,
+                                    s_in - 1, order, *((False,) + f32_out if f32_out else ()))))
+            f32_out = (False, True) if sfx and len(dfg) > 1 else ()
+            for i, taps in enumerate(dfg if not stem else ()):
+                wtc = wt[center].contiguous() if i == 0 else None
+                checks.append((f"gather_gemm{sfx}", f"K1 dF {gtag(dfg, i)}", gemm,
+                               (ct, nbr, [rev[j] for j in taps], 0, wt[taps].contiguous(),
+                                wtc, s_in, s_in - 1, order, *f32_out)))
+            for i, taps in enumerate(dwg):
+                checks.append((f"gather_wgrad{sfx}", f"K1 dW {gtag(dwg, i)}", wgrad,
+                               (f3, None, None, 0, ct, nbr, [rev[j] for j in taps], 0,
+                                len(taps), s_in, -1, s_in - 1)))
         elif kind == "conv":  # K2
             down, valid = args[1], args[2]
             parent, off, up_order = (*kw["up"], None)[:3]
@@ -2808,7 +2867,8 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
     """A semseg main path: the kernels-vs-plain step, ``steps`` counted
     SemsegTrainer steps (launches per step ``base``, by default
     ``expected_semseg_launches``), one evaluate_dataset pass in ``layout``
-    and the eval outputs."""
+    over ``scenes`` (none for ``scenes=None``: the 4-D batch, which no
+    3-D collation gives) and the eval outputs."""
     import numpy as np
     import torch
 
@@ -2888,14 +2948,16 @@ def phase_semseg(app, model, batch, scenes, device, card, crf, steps=STEPS,
         card=repr(card))
 
     t0 = time.perf_counter()
-    miou, ious, acc, n = evaluate_dataset(trainer.model, scenes, W.semseg_scheme(),
-                                          W.SEMSEG_CLASSES, device,
-                                          batch_size=len(scenes), crf=crf,
-                                          layout=layout)
-    say("eval", app=app, scenes=n, miou=f"{miou:.4f}", acc=f"{acc:.4f}",
-        seconds=f"{time.perf_counter() - t0:.1f}")
-    if n != len(scenes) or not 0.0 <= miou <= 100.0:
-        raise AssertionError(f"{app}: evaluate_dataset gave mIoU {miou} over {n} scenes")
+    if scenes is not None:
+        miou, ious, acc, n = evaluate_dataset(trainer.model, scenes, W.semseg_scheme(),
+                                              W.SEMSEG_CLASSES, device,
+                                              batch_size=len(scenes), crf=crf,
+                                              layout=layout)
+        say("eval", app=app, scenes=n, miou=f"{miou:.4f}", acc=f"{acc:.4f}",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        if n != len(scenes) or not 0.0 <= miou <= 100.0:
+            raise AssertionError(f"{app}: evaluate_dataset gave mIoU {miou} over {n} "
+                                 "scenes")
     trainer.model.eval()
     with torch.no_grad():
         out = forward(trainer.model, batch)
@@ -3962,6 +4024,177 @@ def semseg_layout_paths(device, card, paths, scenes):
         del model, batch
 
 
+def _counted_pass(model, batch, run, ct, device):
+    """{kernel: launches} of one train-mode forward ``run(m, feats)`` of a
+    copy of ``model`` and its backward from ``ct``; raises unless the
+    output and every parameter gradient are finite."""
+    import torch
+
+    from pointcontrast_tpu_torch.detect import kernels as D
+    from pointcontrast_tpu_torch.sparse import kernels as K
+
+    m = copy.deepcopy(model).to(device).train()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    D.reset_launches()
+    out = run(m, batch.feats)
+    out.backward(ct.to(out.dtype))
+    torch.cuda.synchronize()
+    counts = {**K.launch_counts(), **D.launch_counts()}
+    if not (bool(torch.isfinite(out).all())
+            and all(bool(torch.isfinite(p.grad).all()) for p in m.parameters())):
+        raise AssertionError(f"{type(model).__name__}: non-finite output or gradients")
+    return counts
+
+
+def st_reduced_path(app, model, batch, device, card, paths, ct_level):
+    """A 4-D net at reduced depth (``st`` phase): its kernels at the shapes
+    of one real forward (K1 and the flat K4 in their tap groups; the
+    ResNets' sum pool) against their twins; in f32 one forward + backward
+    through the kernels against the plain twins (output and every
+    parameter gradient within RTOL of its largest magnitude, from one
+    saved forward, ``_kernels_vs_plain``); then one counted forward +
+    backward whose launches must equal ``expected_from_calls`` (+ the sum
+    pool's two).  A seeded cotangent at level ``ct_level``'s rows."""
+    import torch
+
+    from pointcontrast_tpu_torch.nn.resnet import ResNetBase
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    valid = batch.pyramid.levels[ct_level].valid
+    gen = torch.Generator(device=device).manual_seed(6)
+    ct = torch.randn(valid.shape[0], W.SEMSEG_CLASSES, device=device,
+                     generator=gen) * valid[:, None]
+
+    def run(m, x):
+        return m(x, batch.pyramid)
+
+    calls = conv_calls(model, batch.feats, lambda m: run(m, batch.feats))
+    checks = [c for c in conv_checks(model, batch, calls=calls)
+              if not c[1].startswith("K3 parent ")]
+    pooled = isinstance(model, ResNetBase)
+    if pooled:
+        checks += pool_checks(batch.pyramid, [("sum pool", 0, model.INIT_DIM)],
+                              dtype=model.dtype)
+    say("model", app=app, name=type(model).__name__, layers=model.LAYERS,
+        params=sum(p.numel() for p in model.parameters()),
+        taps=sorted({int(p.shape[0]) for p in model.parameters() if p.dim() == 3}))
+    res = phase_kernels(checks, K, exact=("gather_sum",))
+    if model.dtype is None:
+        got = _kernels_vs_plain(model, batch.feats, ct, run, device)
+        worst = _compare_runs(app, got)
+        say("parity", app=app, tensors=len(got["plain"]), worst_rel=f"{worst:.2e}",
+            rtol=RTOL)
+        del got
+    want = dict.fromkeys((fn.__name__ for fn in K.KERNELS), 0)
+    want.update(expected_from_calls(calls))
+    if pooled:
+        sfx = "_bf16" if model.dtype == torch.bfloat16 else ""
+        want[f"gather_sum{sfx}"] += 1
+        want[f"scatter_sum{sfx}"] += 1
+    counts = _counted_pass(model, batch, run, ct, device)
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{app}: launch counts {got} != expected {want}")
+    say("slice", app=app, launches=got, card=repr(card))
+    paths[app] = (res, counts)
+
+
+def st_paths(device, card, paths, scenes=None):
+    """The 4-D spatio-temporal paths (the ``st`` phase) on the workload's
+    4-D batch (``tools.workload.st_semseg_batch``): ``semseg st`` and
+    ``semseg st bf16``, STRes16UNet34 3 -> 20 at full width (29-tap hybrid
+    block convs: K1 in one launch; the 27-tap (3, 3, 3, 1) stem; 8-child
+    strided convs), each kernel at one real forward's shapes against its
+    twin (not K3's parent design, which no path runs), the kernels-vs-plain
+    step, ST_STEPS counted SemsegTrainer steps
+    (no evaluate_dataset: the 3-D collation has no 4-D form); at reduced
+    depth ``semseg st tesseract`` (STResTesseract16UNet18A, one block a
+    stage: its 81-tap stem and block convs run K1 in three groups; f32 and
+    bf16) and ``semseg st resnet`` (STResNet14: the 81-tap k3s2 K4 in three
+    groups) forward and backward against the twins (``st_reduced_path``);
+    then the 3-D repair, ``semseg k5`` and ``semseg k5 bf16``: the chunked
+    Res16UNet34C with ``conv1_kernel_size=5`` on the semseg ``scenes`` (its
+    125-tap stem: K1 in four groups, the bf16 forward's f32 partials), the
+    stem's checks beside the ``semseg`` paths' (same net, same shapes; all
+    of its convs' when those paths did not run), the kernels-vs-plain step
+    and LAYOUT_STEPS counted steps (no ``scenes``: no k5 paths)."""
+    import torch
+
+    from pointcontrast_tpu_torch.nn.registry import load_model
+    from pointcontrast_tpu_torch.semseg.train import forward
+    from pointcontrast_tpu_torch.sparse import kernels as K
+    from pointcontrast_tpu_torch.tools import workload as W
+
+    def st_batch(model):
+        t0 = time.perf_counter()
+        host = W.st_semseg_batch(model=model)
+        batch = host.to(device)
+        lv0 = host.pyramid.levels[0]
+        n0, dropped = int(lv0.valid.sum()), float(host.truncated_voxels)
+        say("data", app="semseg st", model=model, seconds=f"{time.perf_counter() - t0:.1f}",
+            sequences=host.num_samples, frames=W.ST_FRAMES, shift=W.ST_SHIFT,
+            rows=[int(l.valid.shape[0]) for l in host.pyramid.levels],
+            valid_rows=[int(l.valid.sum()) for l in host.pyramid.levels],
+            truncated=dropped, truncated_share=f"{dropped / (n0 + dropped):.2e}",
+            taps={"block": lv0.nbr.shape[0],
+                  "stem": (lv0.nbr if lv0.nbr0 is None else lv0.nbr0).shape[0],
+                  "down": lv0.down_nbr.shape[0]})
+        if dropped >= 0.01 * (n0 + dropped):
+            raise AssertionError(f"the 4-D batch drops {dropped} voxels: 1% or more")
+        return batch
+
+    batch = st_batch("STRes16UNet34")
+    for dtype in (None, torch.bfloat16):
+        model = W.semseg_model(seed=0, model="STRes16UNet34", dtype=dtype)
+        calls = conv_calls(model, batch.feats, lambda m: forward(m, batch))
+        app = "semseg st" + (" bf16" if dtype else "")
+        res = phase_kernels([c for c in conv_checks(model, batch, calls=calls)
+                             if not c[1].startswith("K3 parent ")], K)
+        base = expected_from_calls(calls)
+        del calls
+        paths[app] = (res, phase_semseg(app, model, batch, None, device, card, None,
+                                        steps=ST_STEPS, base=base))
+        del model
+    del batch
+    batch = st_batch("STResTesseract16UNet18A")
+    tesseract = type("STResTesseract16UNet18A", (load_model("STResTesseract16UNet18A"),),
+                     {"LAYERS": (1,) * 8})
+    for dtype in (None, torch.bfloat16):
+        model = tesseract(3, W.SEMSEG_CLASSES, bn_momentum=0.02, dtype=dtype,
+                          generator=torch.Generator().manual_seed(0))
+        st_reduced_path("semseg st tesseract" + (" bf16" if dtype else ""), model, batch,
+                        device, card, paths, 0)
+    del batch, model
+    batch = st_batch("STResNet14")
+    st_reduced_path("semseg st resnet", W.semseg_model(seed=0, model="STResNet14"),
+                    batch, device, card, paths, -1)
+    del batch
+    if scenes is None:
+        return
+    t0 = time.perf_counter()
+    batch = W.semseg_batch(scenes, conv0_kernel_size=5).to(device)
+    say("data", app="semseg k5", seconds=f"{time.perf_counter() - t0:.1f}",
+        stem_taps=batch.pyramid.levels[0].nbr0.shape[0])
+    for dtype in (None, torch.bfloat16):
+        app = "semseg k5" + (" bf16" if dtype else "")
+        model = W.semseg_model(seed=0, dtype=dtype, conv1_kernel_size=5)
+        calls = conv_calls(model, batch.feats, lambda m: forward(m, batch))
+        checks = [c for c in conv_checks(model, batch, calls=calls)
+                  if not c[1].startswith("K3 parent ")]
+        shared = "semseg" + (" bf16" if dtype else "")
+        if shared in paths:  # the same net past the stem, at the same shapes
+            checks = [c for c in checks if "conv0p1s1" in c[1]]
+        res = phase_kernels(checks, K)
+        res = (shared, res) if shared in paths else res
+        base = expected_from_calls(calls)
+        del calls
+        paths[app] = (res, phase_semseg(app, model, batch, None, device, card, None,
+                                        steps=LAYOUT_STEPS, base=base))
+        del model
+
+
 def votenet_path(layout, device, card, paths, steps, dtype=None):
     """The sparse-conv VoteNet at the YAML's shapes on batches collated in
     ``layout`` ('chunked' or 'voxel'): the backbone's kernels at the shapes
@@ -3996,9 +4229,12 @@ def kernels_line(paths: dict) -> list:
     under ``paths``; at the top level all paths' launches and all their
     checks' numbers together.  A path whose checks are another path's (the
     hardest paths': the NCE paths' networks at the same shapes) names that
-    path in place of its numbers, and its entries carry ``checks_from``
-    and its launches only.  A kernel launched on a path but not checked at
-    that path's shapes fails."""
+    path in place of its numbers; a path that shares another's checks and
+    adds its own (``semseg k5``: ``semseg``'s net past the stem) gives
+    ``(that path, its own numbers)``.  Its entries carry ``checks_from``
+    and its own numbers only, and the top level adds each check once.  A
+    kernel launched on a path but not checked at that path's shapes
+    fails."""
     def numbers(r):
         return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
@@ -4006,24 +4242,30 @@ def kernels_line(paths: dict) -> list:
                 "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                 **{k: r[k] for k in OPTIONAL_MS}}
 
-    def checks(path):
+    def split(path):
+        """(the path whose checks it borrows or None, its own checks)."""
         res = paths[path][0]
-        return paths[res][0] if isinstance(res, str) else res
+        if isinstance(res, str):
+            return res, {}
+        return res if isinstance(res, tuple) else (None, res)
+
+    def checks(path):
+        borrowed, own = split(path)
+        return {**(paths[borrowed][0] if borrowed else {}), **own}
 
     def entry(path, name):
-        res, counts = paths[path]
-        if isinstance(res, str):
-            return {"launches": counts.get(name, 0), "checks_from": res}
-        return {"launches": counts.get(name, 0), **numbers(res[name])}
+        borrowed, own = split(path)
+        e = {"launches": paths[path][1].get(name, 0)}
+        if borrowed is not None and name in paths[borrowed][0]:
+            e["checks_from"] = borrowed
+        return {**e, **numbers(own[name])} if name in own else e
 
     total = {}
-    for path, (res, counts) in paths.items():
+    for path, (_, counts) in paths.items():
         unchecked = [n for n, c in counts.items() if c and n not in checks(path)]
         if unchecked:
             raise AssertionError(f"{path}: launched but not checked: {unchecked}")
-        if isinstance(res, str):
-            continue
-        for name, r in res.items():
+        for name, r in split(path)[1].items():
             add_numbers(total, name, r)
     return [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
@@ -4299,6 +4541,17 @@ def main() -> int:
         phase_build()
         ddp_phases(card, {})
         return 0
+    if sys.argv[1:2] == ["--st"]:  # the st phase alone, after the build
+        card = phase_device()
+        phase_build()
+        import torch
+
+        from pointcontrast_tpu_torch.tools.workload import SemsegScenes
+
+        paths = {}
+        st_paths(torch.device("cuda", 0), card, paths, SemsegScenes())
+        print(json.dumps({"kernels": kernels_line(paths)}), flush=True)
+        return 0
     t0 = time.perf_counter()
     card = phase_device()
     import torch
@@ -4347,6 +4600,7 @@ def main() -> int:
     phase_cli_semseg(layout="voxel")
     phase_cli_semseg(layout="brick")
     phase_cli_semseg(layout="brick", shipped_dtype=True)
+    st_paths(device, card, paths, scenes)
     resnet_paths(device, card, paths, scenes)
     del scenes
     res = phase_kernels(probe_checks(device), K, exact=("gather_sum",))

@@ -55,6 +55,15 @@ def check_supported(cfg, device: torch.device) -> None:
     from pointcontrast_tpu_torch.semseg.datasets import load_dataset
 
     load_dataset(cfg.data.dataset)  # the ScanNet / Stanford loaders raise
+    geometry = load_model(cfg.net.model).GEOMETRY
+    if geometry.dimension != 3:
+        # JAX's app builds a 3-D pyramid for an ST net and silently trains
+        # the 3-D base network under the ST name (ROADMAP Queue 3)
+        raise ValueError(
+            f"net.model={cfg.net.model} is a {geometry.dimension}-D spatio-temporal "
+            f"net: it needs {geometry.dimension}-D inputs (x, y, z, t), and the "
+            "semseg app's datasets are 3-D; pick a 3-D net (Res16UNet*, ResUNet*, "
+            "MinkUNetHyper14INBN)")
     if issubclass(load_model(cfg.net.model), ResNetBase):
         raise ValueError(
             f"net.model={cfg.net.model}: a ResNet's logits sit at level 5 "

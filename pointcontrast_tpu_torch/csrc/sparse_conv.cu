@@ -632,10 +632,11 @@ gather_gemm_kernel(const float* __restrict__ X, const int* __restrict__ map,
 //    stores hit 32 banks), so each output row leaves as 16-byte stores;
 //    several splits store f32 partials to ws, and the tile's last block (an
 //    integer ticket) adds them in split order and rounds once;
-//  - F32 (ROUND only: the flat conv's taps past the 32 a launch takes,
-//    sparse/ops.py): the same sums left in f32, unrounded, so that
-//    the caller adds its launches' sums in f32 and rounds once, as JAX's
-//    one f32 accumulator over every tap does.
+//  - F32 (a conv's taps past the 32 a launch takes, sparse/ops.py: K4's
+//    flat forward with ROUND, K1's forward and dF in either mode): the same
+//    sums left in f32, unrounded, so that the caller adds its launches'
+//    sums in f32 and rounds once, as JAX's one f32 accumulator over every
+//    tap does.
 namespace gm {
 constexpr int PAD = 8;  // bf16 a staged output row past its BN
 
@@ -852,7 +853,6 @@ gather_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ map,
 
   const int g = lane >> 2, c2 = 2 * (lane & 3);  // a fragment's row and column pair
   using TO = std::conditional_t<F32, float, bf16>;
-  static_assert(!F32 || ROUND, "f32 sums only for the per-tap form");
   if (!F32 && splits == 1) {
     // round once, stage the tile's rows in shared memory (the ring is free
     // once every warp is past its last step), store 16 bytes at a time
@@ -3328,12 +3328,14 @@ extern "C" {
 
 // bf16_: the tensor-core kernel on bf16 operands (round_: each tap's
 // product rounded, gather_gemm_mma_kernel's ROUND; f32out_: its sums left in
-// f32, out an f32 table); else the f32 kernel
+// f32, out an f32 table, in either mode: the partial sums of a conv of more
+// than MAX_TAPS taps, added and rounded once by the caller); else the f32
+// kernel
 int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
                    int G, const void* W, const void* Wc, const void* order, void* out, void* ws,
                    void* tickets, int splits, int B, int S_in, int S_out, int Cin,
                    int Cout, int skip, int bf16_, int round_, int f32out_, void* stream) {
-  if ((round_ && !bf16_) || (f32out_ && !round_)) return (int)cudaErrorInvalidValue;
+  if ((round_ || f32out_) && !bf16_) return (int)cudaErrorInvalidValue;
   const int q = bf16_ ? gm::q_for(Cout, round_) : gg::q_for(Cout);
   const int ntap = G + (Wc != nullptr ? 1 : 0);
   const size_t smem = gg::smem_bytes(q, (ntap + splits - 1) / splits, bf16_ ? 2 : 4);
@@ -3342,7 +3344,7 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
   const int vec_x = Cin % vec == 0 && aligned16(X);
   const int vec_w = Cout % vec == 0 && aligned16(W) && (Wc == nullptr || aligned16(Wc));
   const dim3 grid((S_out + gg::BM - 1) / gg::BM, (Cout + 32 * q - 1) / (32 * q), B * splits);
-  static size_t granted[16] = {};  // dynamic shared memory allowed so far, by kernel
+  static size_t granted[17] = {};  // dynamic shared memory allowed so far, by kernel
   auto go = [&](auto kernel, auto t, int slot, auto to) {
     using T = decltype(t);
     using TO = decltype(to);
@@ -3362,9 +3364,16 @@ int pc_gather_gemm(const void* X, const void* map, TapList taps, int tap_stride,
       case 2: go(gather_gemm_kernel<2>, 0.f, 2, 0.f); break;
       default: go(gather_gemm_kernel<3>, 0.f, 3, 0.f); break;
     }
-  } else if (f32out_) {
+  } else if (f32out_ && round_) {
     if (q == 1) go(gather_gemm_mma_kernel<1, true, true>, bf16(), 11, 0.f);
     else go(gather_gemm_mma_kernel<2, true, true>, bf16(), 12, 0.f);
+  } else if (f32out_) {
+    switch (q) {
+      case 1: go(gather_gemm_mma_kernel<1, false, true>, bf16(), 13, 0.f); break;
+      case 2: go(gather_gemm_mma_kernel<2, false, true>, bf16(), 14, 0.f); break;
+      case 3: go(gather_gemm_mma_kernel<3, false, true>, bf16(), 15, 0.f); break;
+      default: go(gather_gemm_mma_kernel<4, false, true>, bf16(), 16, 0.f); break;
+    }
   } else if (round_) {
     if (q == 1) go(gather_gemm_mma_kernel<1, true>, bf16(), 9, bf16());
     else go(gather_gemm_mma_kernel<2, true>, bf16(), 10, bf16());

@@ -233,7 +233,8 @@ def _check_brick_level(l: int, lv: LevelTopo, rows: list, kinds: list) -> None:
 def check_pyramid_bounds(pyr: Pyramid) -> list[int]:
     """Layout-aware bounds check of a host pyramid against the table each
     map indexes.  Chunked, per chunk: ``nbr < S_l``, ``down_nbr < S_l``
-    (and ``down_nbr3``), ``up_parent < S_{l+1}``, ``up_offset < 2^D``.
+    (and ``down_nbr3``), ``up_parent < S_{l+1}``, ``up_offset`` below the
+    down map's taps (2^D; 8 on the 4-D ST pyramids' (2, 2, 2, 1) levels).
     Voxel (flat), per level: the same against ``npad_l`` and
     ``npad_{l+1}``.  Brick levels: ``BrickMap.nbr < NB``, ``place < NB``,
     ``up_parent`` (the up-gather) below the next level's rows, the

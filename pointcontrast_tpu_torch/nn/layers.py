@@ -145,7 +145,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
-        out = (features.float() - mean) * inv * self.weight + self.bias
+        out = (ops.widen(features) - mean) * inv * self.weight + self.bias
         return ops.mask_rows(out.to(features.dtype), valid)
 
 

@@ -10,6 +10,15 @@ at construction, so the constructor tracks them the way the reference's
 ``inplanes`` does.  ``dtype`` (None: the input features') is the
 activations' dtype, as JAX's: the stem casts the features to it and every
 layer computes in it (bf16: mixed precision; parameters stay f32).
+
+Each conv's tap count comes from the class's ``GEOMETRY``
+(``sparse.topology.Geometry``), the same offsets its pyramid is built
+from, where JAX's flax modules read it off the map's shape.  The 4-D
+spatio-temporal classes (``STRes16UNet*``, JAX ``nn/res16unet.py:211-253``)
+carry ``HYBRID_4D`` (29-tap block convs, a (3, 3, 3, 1) stem, 8-child
+(2, 2, 2, 1) strided convs) and ``STResTesseract16UNet18A`` ``TESSERACT_4D``
+(81-tap block convs and stem): a pyramid for them is built with
+``GEOMETRY.pyramid_kwargs()``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from pointcontrast_tpu_torch.nn.layers import (
     relu,
 )
 from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock, Bottleneck
+from pointcontrast_tpu_torch.sparse.topology import HYBRID_4D, TESSERACT_4D, Geometry
 
 NUM_LEVELS = 5  # strides 1, 2, 4, 8, 16
 
@@ -37,24 +47,25 @@ class Res16UNetBase(nn.Module):
     PLANES = (32, 64, 128, 256, 256, 256, 256, 256)
     LAYERS = (2, 2, 2, 2, 2, 2, 2, 2)
     INIT_DIM = 32
+    GEOMETRY = Geometry()
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
-                 normalize_feature: bool = False, dimension: int = 3,
+                 normalize_feature: bool = False,
                  generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.normalize_feature = normalize_feature
         self.dtype = dtype
-        k3, k_up = 3 ** dimension, 2 ** dimension
+        vol = self.GEOMETRY.volumes(conv1_kernel_size)
+        k3, k_up = vol["block"], vol["down"]
         g = generator
 
         def bn(name, c):
             self.add_module(name, MaskedBatchNorm(c, bn_momentum))
 
-        # the stem reads the pyramid's nbr0 map when conv1_kernel_size != 3
-        self.conv0p1s1 = SparseConv(in_channels, self.INIT_DIM,
-                                    conv1_kernel_size ** dimension, generator=g)
+        # the stem reads the pyramid's nbr0 map when it has one
+        self.conv0p1s1 = SparseConv(in_channels, self.INIT_DIM, vol["stem"], generator=g)
         bn("bn0", self.INIT_DIM)
         c = self.INIT_DIM
         skip_channels = [c]
@@ -206,3 +217,49 @@ class Res16UNet34B(Res16UNet34):
 
 class Res16UNet34C(Res16UNet34):
     PLANES = (32, 64, 128, 256, 256, 128, 96, 96)
+
+
+# --- 4-D spatio-temporal variants (JAX nn/res16unet.py:211-253): hybrid
+#     kernels (cube over space, cross over time), space strided, time not ---
+
+
+class STRes16UNetBase(Res16UNetBase):
+    GEOMETRY = HYBRID_4D
+
+
+class STRes16UNet14(STRes16UNetBase, Res16UNet14):
+    pass
+
+
+class STRes16UNet14A(STRes16UNetBase, Res16UNet14A):
+    pass
+
+
+class STRes16UNet18(STRes16UNetBase, Res16UNet18):
+    pass
+
+
+class STRes16UNet34(STRes16UNetBase, Res16UNet34):
+    pass
+
+
+class STRes16UNet50(STRes16UNetBase, Res16UNet50):
+    pass
+
+
+class STRes16UNet101(STRes16UNetBase, Res16UNet101):
+    pass
+
+
+class STRes16UNet18A(STRes16UNet18):
+    PLANES = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class STResTesseract16UNetBase(STRes16UNetBase):
+    """Full 4-D hypercube kernels (81 taps)."""
+
+    GEOMETRY = TESSERACT_4D
+
+
+class STResTesseract16UNet18A(STRes16UNet18A, STResTesseract16UNetBase):
+    pass

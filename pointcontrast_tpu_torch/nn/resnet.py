@@ -11,7 +11,12 @@ does a BasicBlock-shaped strided block's second conv, to which JAX passes no
 ``build_down3=True``.  Submodules carry the flax names (``conv1``, ``bn1``,
 ``layer1_0``, ``final``).  ``dtype`` (None: the input features') is the
 activations' dtype, as in ``res16unet``: in bf16 the K4 convs and the sum
-pool run their bf16 forms.
+pool run their bf16 forms.  The tap counts come from the class's
+``GEOMETRY``, as in ``res16unet``: the 4-D ``STResNet*`` (``HYBRID_4D``)
+and ``STResTesseractNet*`` (``TESSERACT_4D``) classes of JAX
+``nn/resnet.py:171-222``, whose strided blocks read an 81-tap ``down_nbr3``
+(a (3, 3, 3, 3) window about the doubled spatial coords) through K4 in tap
+groups.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from pointcontrast_tpu_torch.nn.layers import (
 )
 from pointcontrast_tpu_torch.nn.resnet_block import BasicBlock, Bottleneck
 from pointcontrast_tpu_torch.sparse import ops
+from pointcontrast_tpu_torch.sparse.topology import HYBRID_4D, TESSERACT_4D, Geometry
 
 NUM_LEVELS = 6  # strides 1, 2, 4, 8, 16, 32
 
@@ -39,7 +45,9 @@ class _StridedBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, bottleneck: bool,
                  bn_momentum: float = 0.05, kernel_volume: int = 27,
-                 generator: torch.Generator | None = None):
+                 down_volume: int = 27, generator: torch.Generator | None = None):
+        """``kernel_volume``: the same-level map's taps; ``down_volume``:
+        ``down_nbr3``'s (27 in 3-D, 81 in 4-D)."""
         super().__init__()
         g = generator
         self.bottleneck = bottleneck
@@ -47,12 +55,12 @@ class _StridedBlock(nn.Module):
         if bottleneck:
             # 1x1 s1 (fine level) -> 3x3 s2 (down_nbr3) -> 1x1
             self.conv1 = SparseLinear(inplanes, planes, bias=False, generator=g)
-            self.conv2 = SparseConv(planes, planes, kernel_volume, generator=g)
+            self.conv2 = SparseConv(planes, planes, down_volume, generator=g)
             self.conv3 = SparseLinear(planes, out, bias=False, generator=g)
             self.norm3 = MaskedBatchNorm(out, bn_momentum)
         else:
             # 3x3 s2 -> 3x3 s1
-            self.conv1 = SparseConv(inplanes, planes, kernel_volume, generator=g)
+            self.conv1 = SparseConv(inplanes, planes, down_volume, generator=g)
             self.conv2 = SparseConv(planes, planes, kernel_volume, generator=g)
         self.norm1 = MaskedBatchNorm(planes, bn_momentum)
         self.norm2 = MaskedBatchNorm(planes, bn_momentum)
@@ -85,23 +93,24 @@ class ResNetBase(nn.Module):
     INIT_DIM = 64
     PLANES = (64, 128, 256, 512)
     OUT_PIXEL_DIST = 32
+    GEOMETRY = Geometry()
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
-                 dimension: int = 3, generator: torch.Generator | None = None,
+                 generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         g = generator
-        k3 = 3 ** dimension
+        vol = self.GEOMETRY.volumes(conv1_kernel_size)
+        k3 = vol["block"]
         bottleneck = self.BLOCK is Bottleneck
-        self.conv1 = SparseConv(in_channels, self.INIT_DIM,
-                                conv1_kernel_size ** dimension, generator=g)
+        self.conv1 = SparseConv(in_channels, self.INIT_DIM, vol["stem"], generator=g)
         self.bn1 = MaskedBatchNorm(self.INIT_DIM, bn_momentum)
         c = self.INIT_DIM
         for i, planes in enumerate(self.PLANES):
             self.add_module(f"layer{i + 1}_0", _StridedBlock(
-                c, planes, bottleneck, bn_momentum, k3, generator=g))
+                c, planes, bottleneck, bn_momentum, k3, vol["down3"], generator=g))
             c = planes * self.BLOCK.expansion
             for b in range(1, self.LAYERS[i]):
                 self.add_module(f"layer{i + 1}_{b}", self.BLOCK(
@@ -158,3 +167,56 @@ class ResNet50(ResNetBase):
 class ResNet101(ResNetBase):
     BLOCK = Bottleneck
     LAYERS = (3, 4, 23, 3)
+
+
+# --- 4-D spatio-temporal variants (JAX nn/resnet.py:171-222) ---
+
+
+class STResNetBase(ResNetBase):
+    GEOMETRY = HYBRID_4D
+
+
+class STResNet14(STResNetBase, ResNet14):
+    pass
+
+
+class STResNet18(STResNetBase, ResNet18):
+    pass
+
+
+class STResNet34(STResNetBase, ResNet34):
+    pass
+
+
+class STResNet50(STResNetBase, ResNet50):
+    pass
+
+
+class STResNet101(STResNetBase, ResNet101):
+    pass
+
+
+class STResTesseractNetBase(STResNetBase):
+    """Full 4-D hypercube kernels (81 taps)."""
+
+    GEOMETRY = TESSERACT_4D
+
+
+class STResTesseractNet14(STResTesseractNetBase, STResNet14):
+    pass
+
+
+class STResTesseractNet18(STResTesseractNetBase, STResNet18):
+    pass
+
+
+class STResTesseractNet34(STResTesseractNetBase, STResNet34):
+    pass
+
+
+class STResTesseractNet50(STResTesseractNetBase, STResNet50):
+    pass
+
+
+class STResTesseractNet101(STResTesseractNetBase, STResNet101):
+    pass

@@ -12,7 +12,10 @@ adds the hypercolumn: block5's and block6's outputs are average-unpooled
 to level 0 and concatenated after the last skip concat.  ``dtype`` (None:
 the input features') is the activations' dtype, as in ``res16unet``
 (MinkUNetHyper's unpools pass the level's down map, whose bf16 adjoint
-adds each parent's children in order through it).
+adds each parent's children in order through it).  The tap counts come from
+the class's ``GEOMETRY``, as in ``res16unet``: the 4-D ``STResUNet*``
+(``HYBRID_4D``) and ``STResTesseractUNet*`` (``TESSERACT_4D``) classes of
+JAX ``nn/resunet.py:270-317``.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from pointcontrast_tpu_torch.nn.resnet_block import (
 )
 from pointcontrast_tpu_torch.sparse import ops
 from pointcontrast_tpu_torch.sparse.brick import BrickMap
+from pointcontrast_tpu_torch.sparse.topology import HYBRID_4D, TESSERACT_4D, Geometry
 
 NUM_LEVELS = 4  # strides 1, 2, 4, 8
 
@@ -43,13 +47,15 @@ class MinkUNetBase(nn.Module):
     PLANES = (64, 128, 256, 512, 256, 128, 128)
     LAYERS = (2, 2, 2, 2, 2, 2)
     INIT_DIM = 64
+    GEOMETRY = Geometry()
 
     def __init__(self, in_channels: int, out_channels: int,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.05,
-                 dimension: int = 3, generator: torch.Generator | None = None,
+                 generator: torch.Generator | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
-        k3, k_up = 3 ** dimension, 2 ** dimension
+        vol = self.GEOMETRY.volumes(conv1_kernel_size)
+        k3, k_up = vol["block"], vol["down"]
         g = generator
         self.dtype = dtype
 
@@ -60,8 +66,7 @@ class MinkUNetBase(nn.Module):
                 inplanes = planes * self.BLOCK.expansion
             return inplanes
 
-        self.conv1p1s1 = SparseConv(in_channels, self.INIT_DIM,
-                                    conv1_kernel_size ** dimension, generator=g)
+        self.conv1p1s1 = SparseConv(in_channels, self.INIT_DIM, vol["stem"], generator=g)
         self.bn1 = MaskedBatchNorm(self.INIT_DIM, bn_momentum)
         c = stage("block1", self.INIT_DIM, self.PLANES[0], self.LAYERS[0])
         skip_channels = [c]
@@ -222,3 +227,56 @@ class MinkUNetHyper(MinkUNetBase):
 class MinkUNetHyper14INBN(MinkUNetHyper):
     BLOCK = BasicBlockINBN
     LAYERS = (1, 1, 1, 1, 1, 1)
+
+
+# --- 4-D spatio-temporal variants (JAX nn/resunet.py:270-317) ---
+
+
+class STMinkUNetBase(MinkUNetBase):
+    GEOMETRY = HYBRID_4D
+
+
+class STResUNet14(STMinkUNetBase, ResUNet14):
+    pass
+
+
+class STResUNet18(STMinkUNetBase, ResUNet18):
+    pass
+
+
+class STResUNet34(STMinkUNetBase, ResUNet34):
+    pass
+
+
+class STResUNet50(STMinkUNetBase, ResUNet50):
+    pass
+
+
+class STResUNet101(STMinkUNetBase, ResUNet101):
+    pass
+
+
+class STResTesseractUNetBase(STMinkUNetBase):
+    """Full 4-D hypercube kernels (81 taps)."""
+
+    GEOMETRY = TESSERACT_4D
+
+
+class STResTesseractUNet14(STResTesseractUNetBase, ResUNet14):
+    pass
+
+
+class STResTesseractUNet18(STResTesseractUNetBase, ResUNet18):
+    pass
+
+
+class STResTesseractUNet34(STResTesseractUNetBase, ResUNet34):
+    pass
+
+
+class STResTesseractUNet50(STResTesseractUNetBase, ResUNet50):
+    pass
+
+
+class STResTesseractUNet101(STResTesseractUNetBase, ResUNet101):
+    pass

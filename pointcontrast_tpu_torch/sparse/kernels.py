@@ -511,15 +511,14 @@ def gather_gemm_bf16(x3, map_, taps, tap_stride, w, wc, s_out, skip=-1, order=No
     and their sum in f32, rounded once to bf16 -> [B, s_out, Cout] bf16.
     ``round_each_tap``: JAX's flat ``_conv_core`` instead, each tap's f32
     product rounded to bf16 before the f32 sum over the taps (in list
-    order, the centre last), and the sum rounded again, or, ``f32_out``,
-    left in f32 (-> f32: a flat conv of more than MAX_TAPS taps adds its
-    launches' sums and rounds once, as JAX's one accumulator).  Where the
-    taps are split over blocks, the f32 partials are added in split order
-    and the sum rounded once: the same bits from run to run."""
+    order, the centre last), and the sum rounded again.  ``f32_out``, in
+    either mode: the sum left in f32 (-> f32: a conv of more than MAX_TAPS
+    taps adds its launches' sums and rounds once, as JAX's one
+    accumulator).  Where the taps are split over blocks, the f32 partials
+    are added in split order and the sum rounded once: the same bits from
+    run to run."""
     _gemm_shapes(x3, map_, taps, tap_stride, w, wc, s_out, order)
     _require_dtypes("gather_gemm_bf16", BF16, x3=x3, w=w, wc=wc)
-    if f32_out and not round_each_tap:
-        raise ValueError("gather_gemm_bf16: f32_out is the round_each_tap form's")
     if _use_plain(x3):
         return gather_gemm_bf16_plain(x3, map_, taps, tap_stride, w, wc, s_out, skip,
                                       round_each_tap=round_each_tap, f32_out=f32_out)

@@ -6,7 +6,8 @@ convolution is a ``torch.autograd.Function`` carrying the JAX op's
 backward, built from the kernels in ``sparse.kernels``:
 
   K1 ``_ConvChunkFused`` (JAX ``_conv_chunk_fused``): same-level conv,
-     scatter-free backward through the offset-reversal permutation;
+     scatter-free backward through the offset-reversal permutation, past
+     MAX_TAPS off-centre taps in tap groups (``k1_groups``);
   K2 ``_ConvChunkDown2`` (JAX ``_conv_chunk_down2``): k2s2 down conv whose
      dF is a gather through the functional child -> (parent, offset) map;
   K3 ``_ConvTrChunk`` (JAX ``_conv_tr_chunk``): k2s2 transposed conv whose
@@ -111,13 +112,19 @@ def mask_rows(features: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return features * valid[:, None].to(features.dtype)
 
 
+def widen(features: torch.Tensor) -> torch.Tensor:
+    """``features`` in float32, or in its own dtype where that is wider."""
+    return features.to(torch.promote_types(features.dtype, torch.float32))
+
+
 def masked_moments(features: torch.Tensor, valid: torch.Tensor):
     """Mean/variance over valid rows only (padding-aware BatchNorm stats).
 
-    Returns (mean[C], var[C] biased, n scalar tensor)."""
-    v = valid.float()[:, None]
+    Returns (mean[C], var[C] biased, n scalar tensor), in float32 or wider
+    (a float64 net keeps float64 statistics)."""
+    f = widen(features)
+    v = valid.to(f.dtype)[:, None]
     n = v.sum().clamp(min=1.0)
-    f = features.float()
     mean = (f * v).sum(dim=0) / n
     var = ((f - mean).square() * v).sum(dim=0) / n
     return mean, var, n
@@ -144,48 +151,98 @@ def _center_of(rev) -> int | None:
     return None
 
 
+def _chunks(taps) -> list:
+    """Consecutive runs of at most MAX_TAPS of ``taps`` (one launch each)."""
+    taps = list(taps)
+    return [taps[lo:lo + MAX_TAPS] for lo in range(0, len(taps), MAX_TAPS)]
+
+
+def k1_groups(k: int, rev, round_each_tap: bool = False) -> tuple:
+    """(forward, dF, dW) tap groups of a K1 conv of ``k`` taps, one launch a
+    group: the forward's and dF's off-centre taps (``round_each_tap``: the
+    forward's every tap, the centre in its place), dW's every tap, each in
+    consecutive runs of at most MAX_TAPS.  A conv of at most MAX_TAPS
+    off-centre taps (every 3-D block conv, the hybrid 4-D ones) is one
+    launch of each."""
+    center = _center_of(rev)
+    off = [i for i in range(k) if i != center]
+    return (_chunks(range(k) if round_each_tap else off), _chunks(off), _chunks(range(k)))
+
+
+def _modes(bf16: bool, groups: int, round_each_tap: bool = False) -> dict:
+    """``gather_gemm_bf16``'s modes for one of ``groups`` launches: past
+    one, each leaves its f32 sum unrounded (``f32_out``)."""
+    modes = {"round_each_tap": True} if round_each_tap else {}
+    if bf16 and groups > 1:
+        modes["f32_out"] = True
+    return modes
+
+
+def _sum_groups(parts, bf16: bool):
+    """The groups' partial sums added in group order (one group: its
+    output as it is); bf16: the f32 sum rounded once, JAX's one f32
+    accumulator over every tap."""
+    out = None
+    for part in parts:
+        out = part if out is None else out + part
+    return out.to(BF16) if bf16 else out
+
+
 class _ConvChunkFused(torch.autograd.Function):
     """K1: out[b,s] = F[b,s] W_c + sum_{k != c} F[b, nbr[k,b,s]] W_k.
 
     Backward (gather only): dF = ct W_c^T + sum_{k != c} ct[nbr[rev[k]]] W_k^T
     and dW_k = sum F^T ct[nbr[rev[k]]]; the centre's map is the identity on
-    valid rows and pad features are zero, so dW takes all K taps gathered."""
+    valid rows and pad features are zero, so dW takes all K taps gathered.
+
+    Past MAX_TAPS off-centre taps (the Tesseract nets' 81, a k = 5 stem's
+    125) each sum runs in tap groups (``k1_groups``), one launch a group:
+    the centre's W_c in the first, the groups' f32 partials added in group
+    order (bf16: ``f32_out`` partials, rounded once), dW the groups' taps
+    concatenated.  Against one launch only the association of the f32 sum
+    changes; a conv of one group launches as it always did."""
 
     @staticmethod
     def forward(ctx, features, nbr, weights, rev, order=None, round_each_tap=False):
         k, b_, s = nbr.shape
         center = _center_of(rev)
-        taps = [i for i in range(k) if i != center]
         f3 = features.reshape(b_, s, -1)
         gemm = _forms(features, weights)[0]
-        if round_each_tap:  # JAX's order: the centre gathered in its place
-            out = gemm(f3, nbr, list(range(k)), 0, weights, None, s, s - 1, order,
-                       round_each_tap=True)
-        else:
-            wc = None if center is None else weights[center]
-            out = gemm(f3, nbr, taps, 0, weights[taps], wc, s, s - 1, order)
+        groups = k1_groups(k, rev, round_each_tap)[0]
+        # round_each_tap: JAX's order, the centre gathered in its place
+        wc = None if center is None or round_each_tap else weights[center]
+        bf16 = features.dtype == BF16
+        modes = _modes(bf16, len(groups), round_each_tap)
+        out = _sum_groups((gemm(f3, nbr, taps, 0, weights[taps], wc if i == 0 else None,
+                                s, s - 1, order, **modes)
+                           for i, taps in enumerate(groups)), bf16)
         ctx.save_for_backward(features, nbr, weights, order)
-        ctx.rev, ctx.center, ctx.taps = rev, center, taps
+        ctx.rev, ctx.center = rev, center
         return out.reshape(b_ * s, -1)
 
     @staticmethod
     def backward(ctx, ct):
         features, nbr, weights, order = ctx.saved_tensors
-        rev, center, taps = ctx.rev, ctx.center, ctx.taps
+        rev, center = ctx.rev, ctx.center
         k, b_, s = nbr.shape
         f3 = features.reshape(b_, s, -1)
         ct3 = ct.contiguous().reshape(b_, s, -1)
         gemm, wgrad, _ = _forms(features, weights)
+        _, df_groups, dw_groups = k1_groups(k, rev)
+        bf16 = features.dtype == BF16
         df = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.transpose(1, 2)
             wtc = None if center is None else wt[center].contiguous()
-            df = gemm(ct3, nbr, [rev[i] for i in taps], 0,
-                      wt[taps].contiguous(), wtc, s, s - 1, order)
+            modes = _modes(bf16, len(df_groups))
+            df = _sum_groups((gemm(ct3, nbr, [rev[i] for i in taps], 0, wt[taps].contiguous(),
+                                   wtc if i == 0 else None, s, s - 1, order, **modes)
+                              for i, taps in enumerate(df_groups)), bf16)
             df = df.reshape(features.shape)
         if ctx.needs_input_grad[2]:
-            dw = wgrad(f3, None, None, 0, ct3, nbr, rev, 0, k, s,
-                       skip_g=s - 1).to(weights.dtype)
+            dw = torch.cat([wgrad(f3, None, None, 0, ct3, nbr, [rev[i] for i in taps], 0,
+                                  len(taps), s, skip_g=s - 1)
+                            for taps in dw_groups]).to(weights.dtype)
         return df, None, dw, None, None, None
 
 

@@ -1,12 +1,17 @@
 """Batch coordinate pyramid + kernel maps (host side, numpy only).
 
 Jax-free port of ``pointcontrast_tpu/sparse/topology.py``: ``LevelTopo`` and
-``Pyramid`` are plain dataclasses instead of ``flax.struct`` pytrees, and only
+``Pyramid`` are plain dataclasses instead of ``flax.struct`` pytrees, with
 what the voxel layout, ``chunk.build_chunked_pyramid`` and
-``brick.build_brick_pyramid`` need is kept (same-level ``nbr``, the stem's
+``brick.build_brick_pyramid`` need (same-level ``nbr``, the stem's
 ``nbr0``, the k2s2 ``down_nbr`` and ``up_parent``/``up_offset``, the
 ResNets' k3s2 ``down_nbr3``, ``valid``, ``batch`` and the brick layout's
-``first_nbr_level``).  The maps are byte-identical to the JAX package's.
+``first_nbr_level``) and the 4-D spatio-temporal pyramids of the ST nets
+(``region``, ``axis_types``, ``stride_axes``: space halved, time never).
+The maps are byte-identical to the JAX package's.  ``Geometry`` gives a
+net's kernel regions, and from them the tap count of every conv, from the
+same offsets ``build_pyramid`` builds its maps with, so that a model and
+its pyramid cannot disagree.
 
 Structural facts that make every map gather-only:
   - stride-1 conv: output coords == input coords; for each kernel offset an
@@ -60,12 +65,14 @@ def _ordered(m, npad_in: int, npad_out: int):
     return _shrink_idx(live_order(m, npad_in - 1), npad_out)
 
 
-def up_order(up_parent: np.ndarray, up_offset: np.ndarray, pad: int) -> np.ndarray:
+def up_order(up_parent: np.ndarray, up_offset: np.ndarray, pad: int,
+             num_offsets: int = 8) -> np.ndarray:
     """[N] int32: the fine rows of a parent map sorted, stably, by their
-    offset, the rows whose parent is the coarse pad row ``pad`` (pad fine
-    rows and the voxels truncation orphaned) last.  One stable sort of
-    9 small keys (numpy's radix sort on uint8)."""
-    key = np.where(up_parent == pad, 8, up_offset).astype(np.uint8)
+    offset (one of ``num_offsets``), the rows whose parent is the coarse pad
+    row ``pad`` (pad fine rows and the voxels truncation orphaned) last.
+    One stable sort of num_offsets + 1 small keys (numpy's radix sort on
+    uint8)."""
+    key = np.where(up_parent == pad, num_offsets, up_offset).astype(np.uint8)
     return np.argsort(key, kind="stable").astype(np.int32)
 
 
@@ -78,17 +85,71 @@ def bucket_size(n: int, base: int = _BUCKET_BASE) -> int:
     return b
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A net's kernel regions: ``dimension``, the same-level region
+    (``region``, with per-axis ``axis_types`` for 'hybrid') and the strided
+    axes (``stride_axes``, None: all).  The 3-D nets take the default; the
+    4-D ST nets ``HYBRID_4D`` (cube over space, cross over time: 29 taps)
+    and the Tesseract ones ``TESSERACT_4D`` (the 81-tap hypercube), both
+    halving space and never time.  ``pyramid_kwargs`` are
+    ``build_pyramid``'s arguments for it, ``volumes`` the tap count of each
+    of its convs."""
+
+    dimension: int = 3
+    region: str = "hypercube"
+    axis_types: Optional[tuple] = None
+    stride_axes: Optional[tuple] = None
+
+    def pyramid_kwargs(self) -> dict:
+        return dict(dimension=self.dimension, region=self.region,
+                    axis_types=self.axis_types, stride_axes=self.stride_axes)
+
+    def offsets(self, conv0_kernel_size: int = 3, block_kernel_size: int = 3) -> dict:
+        """{"block", "stem", "down", "down3"}: the offsets of the
+        same-level map ``nbr``, of the stem's ``nbr0`` (None where the stem
+        reads ``nbr``), of the k2s2 ``down_nbr`` (child offsets on the
+        strided axes, 0 on the others) and of the k3s2 ``down_nbr3``."""
+        sa = (np.ones(self.dimension, bool) if self.stride_axes is None
+              else np.asarray(self.stride_axes, bool))
+        block = kernel_offsets(block_kernel_size, self.dimension, self.region,
+                               axis_types=tuple(self.axis_types) if self.axis_types else None)
+        stem = None
+        if conv0_kernel_size != block_kernel_size or self.axis_types:
+            ks0 = (conv0_kernel_size if sa.all()
+                   else tuple(conv0_kernel_size if v else 1 for v in sa))
+            stem = kernel_offsets(ks0, self.dimension, "hypercube")
+        down = kernel_offsets(tuple(2 if v else 1 for v in sa), self.dimension, "hypercube")
+        down3 = kernel_offsets(3, self.dimension, "hypercube")
+        return {"block": block, "stem": stem, "down": down, "down3": down3}
+
+    def volumes(self, conv0_kernel_size: int = 3, block_kernel_size: int = 3) -> dict:
+        """{"block", "stem", "down", "down3"}: the taps of each conv (the
+        stem's those of the map it reads, the transposed conv's the down
+        map's)."""
+        offs = self.offsets(conv0_kernel_size, block_kernel_size)
+        if offs["stem"] is None:
+            offs["stem"] = offs["block"]
+        return {key: len(o) for key, o in offs.items()}
+
+
+HYBRID_4D = Geometry(4, "hybrid", ("hypercube",) * 3 + ("hypercross",),
+                     (True, True, True, False))
+TESSERACT_4D = Geometry(4, "hypercube", None, (True, True, True, False))
+
+
 @dataclasses.dataclass
 class LevelTopo:
     """Static-shaped per-level gather maps (numpy on the host, torch tensors
-    after ``PairBatch.to``)."""
+    after ``PairBatch.to``).  K_down, the k2s2 maps' offsets: 2^D, or 2 to
+    the number of strided axes (8 for the ST nets' (2, 2, 2, 1))."""
 
     nbr: Any = None  # [K, Npad] same-level map (chunked: [K, B, S])
     valid: Any = None  # [Npad] float32 mask
     batch: Any = None  # [Npad] int32 sample id
-    down_nbr: Optional[Any] = None  # [2^D, Npad_next]: level l -> l+1
+    down_nbr: Optional[Any] = None  # [K_down, Npad_next]: level l -> l+1
     up_parent: Optional[Any] = None  # [Npad]: idx into level l+1
-    up_offset: Optional[Any] = None  # [Npad]: kernel offset id in [0, 2^D)
+    up_offset: Optional[Any] = None  # [Npad]: kernel offset id in [0, K_down)
     nbr0: Optional[Any] = None  # level-0 only: stem map when k != 3
     down_nbr3: Optional[Any] = None  # [3^D, Npad_next]: k3s2, build_down3
     # static offset-reversal permutations for nbr/nbr0: enable the
@@ -178,14 +239,17 @@ def _same_level_map(coords: np.ndarray, offsets: np.ndarray,
     return out
 
 
-def _downsample(coords: np.ndarray):
-    """Unique floor(c/2) coarse coords + per-fine parent index & offset."""
+def _downsample(coords: np.ndarray, stride_axes: np.ndarray | None = None):
+    """Unique coarse coords (floor(c/2) on the strided axes, ``stride_axes``
+    a bool mask or None for all, c on the others) + per-fine parent index
+    & offset."""
     coarse_of_fine = coords.copy()
-    coarse_of_fine[:, 1:] = np.floor_divide(coords[:, 1:], 2)
+    scale = 2 if stride_axes is None else np.where(stride_axes, 2, 1)[None, :]
+    coarse_of_fine[:, 1:] = np.floor_divide(coords[:, 1:], scale)
     spec = HashSpec.from_coords(coarse_of_fine)
-    child_off = (coords[:, 1:] - 2 * coarse_of_fine[:, 1:]).astype(np.int32)
+    child_off = (coords[:, 1:] - scale * coarse_of_fine[:, 1:]).astype(np.int32)
 
-    if coords.shape[1] == 4:
+    if stride_axes is None and coords.shape[1] == 4:
         from pointcontrast_tpu_torch.sparse import native
 
         if native.get_lib() is not None:
@@ -215,6 +279,9 @@ def build_pyramid(
     allow_truncate: bool = True,
     build_down3: bool = False,
     first_nbr_level: int = 0,
+    region: str = "hypercube",
+    axis_types: tuple | None = None,
+    stride_axes: tuple | None = None,
 ):
     """Build the full coordinate pyramid for a sparse U-Net.
 
@@ -227,6 +294,13 @@ def build_pyramid(
     first_nbr_level: build no same-level maps below this level (the brick
       layout reads level l's conv geometry from level l+1's map, so it
       never needs level 0's, the largest).
+    region, axis_types: the same-level kernel region ('hybrid': per-axis
+      'hypercube' / 'hypercross', the 4-D ST nets' cube over space and
+      cross over time).
+    stride_axes: per-axis bool, False = never downsampled (the ST nets'
+      (2, 2, 2, 1)); the k2s2 maps then take the strided axes' children
+      only, and the stem map ``nbr0``, built whenever ``axis_types`` is
+      set, spans only those axes.  ``Geometry`` holds the three.
 
     Returns (Pyramid, PyramidMeta)."""
     coords = np.asarray(coords)
@@ -236,8 +310,11 @@ def build_pyramid(
     if num_batch is None:
         num_batch = int(coords[:, 0].max()) + 1 if len(coords) else 1
 
-    offs3 = kernel_offsets(block_kernel_size, dimension, "hypercube")
-    offs2 = kernel_offsets(2, dimension, "hypercube")
+    geometry = Geometry(dimension, region, axis_types, stride_axes)
+    offsets = geometry.offsets(conv0_kernel_size, block_kernel_size)
+    offs3, offs2 = offsets["block"], offsets["down"]
+    sa = np.asarray(stride_axes if stride_axes is not None else [True] * dimension, bool)
+    stride_vec = None if sa.all() else sa
 
     levels = []
     meta_coords, meta_counts, meta_npads, truncated = [], [], [], []
@@ -257,11 +334,9 @@ def build_pyramid(
 
         nbr0 = None
         rev0 = None
-        if (lvl == 0 and first_nbr_level == 0
-                and conv0_kernel_size != block_kernel_size):
-            offs0 = kernel_offsets(conv0_kernel_size, dimension, "hypercube")
-            nbr0 = _same_level_map(cur, offs0, npad)
-            rev0 = reversal_permutation(offs0)
+        if lvl == 0 and first_nbr_level == 0 and offsets["stem"] is not None:
+            nbr0 = _same_level_map(cur, offsets["stem"], npad)
+            rev0 = reversal_permutation(offsets["stem"])
 
         level = dict(
             nbr=_shrink_idx(nbr, npad), valid=valid, batch=batch,
@@ -276,7 +351,7 @@ def build_pyramid(
         meta_npads.append(npad)
 
         if lvl < num_levels - 1:
-            coarse, parent, child_off = _downsample(cur)
+            coarse, parent, child_off = _downsample(cur, stride_vec)
             nc = len(coarse)
             npad_next = npads[lvl + 1] if npads is not None else bucket_size(nc)
             if npad_next <= nc:
@@ -300,12 +375,13 @@ def build_pyramid(
             lut = np.full(1 << dimension, -1, dtype=np.int32)
             lut[offs2 @ pow2] = np.arange(len(offs2), dtype=np.int32)
             up_offset[:n] = lut[child_off @ pow2]
-            # down_nbr built from the coarse (output) side: child at 2c + off.
+            # down_nbr built from the coarse (output) side: the child at
+            # c * (2 on the strided axes, 1 on the others) + off.
             down_nbr = np.full((len(offs2), npad_next), npad - 1, dtype=np.int32)
             fine_spec = HashSpec.from_coords(cur, margin=2)
             fine_keys = fine_spec.encode(cur)
             doubled = coarse.astype(np.int64).copy()
-            doubled[:, 1:] *= 2
+            doubled[:, 1:] *= np.where(sa, 2, 1)[None, :]
             base = fine_spec.encode(doubled)  # [nc]
             off_keys = offs2.astype(np.int64) @ fine_spec.stride[1:]
             down_nbr[:, :nc] = _key_join(fine_keys, base, off_keys, npad - 1)
@@ -315,10 +391,11 @@ def build_pyramid(
                 up_parent=_shrink_idx(up_parent, npad_next),
                 up_offset=up_offset.astype(np.uint16),
                 down_order=_ordered(down_nbr, npad, npad_next),
-                up_order=_shrink_idx(up_order(up_parent, up_offset, npad_next - 1), npad),
+                up_order=_shrink_idx(up_order(up_parent, up_offset, npad_next - 1,
+                                              len(offs2)), npad),
             )
             if build_down3:
-                offs3s = kernel_offsets(3, dimension, "hypercube")
+                offs3s = offsets["down3"]
                 off3_keys = offs3s.astype(np.int64) @ fine_spec.stride[1:]
                 down_nbr3 = np.full((len(offs3s), npad_next), npad - 1, dtype=np.int32)
                 down_nbr3[:, :nc] = _key_join(fine_keys, base, off3_keys, npad - 1)

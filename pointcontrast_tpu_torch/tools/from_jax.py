@@ -91,10 +91,12 @@ def jax_state_dict(params: Mapping, batch_stats: Mapping, dtype=np.float32,
 def load_jax_params(model: torch.nn.Module, params: Mapping,
                     batch_stats: Mapping, dtype=np.float32) -> torch.nn.Module:
     """Fill ``model`` from the flax trees (strict: every tensor on both sides
-    must match by name and shape).  ``dtype=np.float64`` keeps float64 trees
-    exact in a model already cast with ``.double()``."""
+    must match by name and shape; torch's ``RuntimeError`` names each
+    parameter whose shape differs, as a 29-tap ST kernel's does in a
+    Tesseract net).  ``dtype=np.float64`` keeps float64 trees exact in a
+    model already cast with ``.double()``."""
     unwrap(model).load_state_dict(jax_state_dict(params, batch_stats, dtype, model),
-                          strict=True)
+                                  strict=True)
     return model
 
 

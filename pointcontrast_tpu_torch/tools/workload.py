@@ -24,6 +24,18 @@ layout with 6 chunks.  The frames' voxel coords are used: the JAX bench
 casts the frames' metric xyz to int (``ds[i][0]``), which leaves ~10
 distinct voxels per scene.
 
+Spatio-temporal semseg (the 4-D ST nets, ``STRes16UNet34`` 3 -> 20 by
+default): 2 sequences x 3 frames (T = 3, as JAX's dense ST oracle), each
+sequence one ``SemsegScenes`` room (2.4 m, 2 cm, 80000 points: ~120k voxels
+over its three frames) seen by a sensor that drifts ``ST_SHIFT`` voxels a
+frame, so frame t is the room shifted by t * ST_SHIFT; ``sparse_quantize``
+on the [b, x, y, z, t] coords; ~242k level-0 voxels in one flat 4-D
+pyramid of the net's ``GEOMETRY`` (hybrid: 29-tap block maps, a (3, 3, 3,
+1) stem, 8-child (2, 2, 2, 1) strided maps) at ``npad0`` 262144.  Time is
+never halved, so each level keeps the three frames apart: the measured
+level counts (1, 0.283, 0.067, 0.016, 0.0044 of level 0) set
+``ST_PAD_RATIOS`` with ~15-25% headroom.
+
 ResNet (ResNet14-101 at the published widths, 3 -> 20): the semseg
 workload's 6 scenes through a 6-level chunked pyramid with the k3s2 maps
 (``build_chunked_pyramid(num_levels=6, npads=PadScheme.scannet(262144,
@@ -34,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 from typing import Any
 
 import numpy as np
@@ -62,6 +75,13 @@ SEMSEG_ROOM = 2.4
 SEMSEG_VOXEL = 0.02
 SEMSEG_NPAD0 = 262144
 SEMSEG_CLASSES = 20
+# the spatio-temporal workload: sequences, frames, a room's points, the
+# sensor's drift in voxels a frame, and the pads' level ratios
+ST_SEQUENCES = 2
+ST_FRAMES = 3
+ST_POINTS = 80000
+ST_SHIFT = (3, 2, 0)
+ST_PAD_RATIOS = (1.0, 0.33, 0.08, 0.02, 0.0055)
 # the shipped BilateralCRF settings (configs/semseg_default.yaml)
 SEMSEG_CRF = dict(kernel_size=3, region="hypercross", spatial_sigma=1.0,
                   chromatic_sigma=12.0)
@@ -183,36 +203,85 @@ def semseg_scheme(npad0: int = SEMSEG_NPAD0):
 
 
 def semseg_batch(scenes: SemsegScenes, npad0: int = SEMSEG_NPAD0,
-                 crf: dict | None = None, layout: str = "chunked"):
+                 crf: dict | None = None, layout: str = "chunked",
+                 conv0_kernel_size: int = 3):
     """The one host batch of all ``scenes`` in ``layout`` (chunked: one
-    chunk a scene), with the CRF's bilateral map when ``crf`` is given."""
+    chunk a scene), with the CRF's bilateral map when ``crf`` is given and
+    the stem's ``nbr0`` map when ``conv0_kernel_size`` is not 3."""
     from pointcontrast_tpu_torch.semseg.dataset import collate_semseg
 
     return collate_semseg(list(scenes.samples), semseg_scheme(npad0),
                           ignore_label=255, shift_coords=False,
                           rng=np.random.RandomState(1), crf=crf,
-                          num_chunks=len(scenes), layout=layout)
+                          num_chunks=len(scenes), layout=layout,
+                          conv0_kernel_size=conv0_kernel_size)
 
 
 def semseg_model(seed: int = 0, model: str = "Res16UNet34C",
                  classes: int = SEMSEG_CLASSES, bn_momentum: float = 0.02,
                  crf: dict | None = None, iterations: int = 10,
-                 dtype: torch.dtype | None = None) -> torch.nn.Module:
+                 dtype: torch.dtype | None = None,
+                 conv1_kernel_size: int = 3) -> torch.nn.Module:
     """A registry net 3 -> ``classes`` (BN momentum 0.02, the YAML's), in a
     ``BilateralCRF`` of ``iterations`` mean-field steps when ``crf`` is
     given; random weights from ``seed``, on the CPU; ``dtype``: the net's
-    activations (bf16: the YAML's ``net.dtype``)."""
+    activations (bf16: the YAML's ``net.dtype``); ``conv1_kernel_size``:
+    its stem's (5: a 125-tap stem, the CLI's ``net.conv1_kernel_size``)."""
     from pointcontrast_tpu_torch.nn.registry import load_model
     from pointcontrast_tpu_torch.semseg.crf import BilateralCRF
     from pointcontrast_tpu_torch.sparse.kernel_map import kernel_offsets
 
     gen = torch.Generator().manual_seed(seed)
     net = load_model(model)(in_channels=3, out_channels=classes,
-                            bn_momentum=bn_momentum, generator=gen, dtype=dtype)
+                            bn_momentum=bn_momentum, generator=gen, dtype=dtype,
+                            conv1_kernel_size=conv1_kernel_size)
     if crf is None:
         return net
     kv = len(kernel_offsets(crf["kernel_size"], 6, crf["region"]))
     return BilateralCRF(net, classes, kv, iterations, generator=gen)
+
+
+def st_semseg_batch(scenes: SemsegScenes | None = None, npad0: int = SEMSEG_NPAD0,
+                    pad_ratios: tuple = ST_PAD_RATIOS, model: str = "STRes16UNet34"):
+    """The host 4-D semseg batch: sequence b is ``scenes``' room b (by
+    default ``ST_SEQUENCES`` rooms of ``ST_POINTS`` points), frame t <
+    ST_FRAMES that room shifted by t * ``ST_SHIFT`` voxels, its colours and
+    labels carried along; the [b, x, y, z, t] coords quantised, one flat
+    pyramid of ``model``'s geometry and levels (the ResNets' with their
+    k3s2 maps) at ``PadScheme(npad0, level_ratios=pad_ratios)``.  Voxels
+    that truncation drops are counted in ``truncated_voxels``."""
+    from pointcontrast_tpu_torch.data import PadScheme
+    from pointcontrast_tpu_torch.nn.registry import load_model
+    from pointcontrast_tpu_torch.semseg.dataset import SemsegBatch
+    from pointcontrast_tpu_torch.sparse.quantize import sparse_quantize
+    from pointcontrast_tpu_torch.sparse.topology import build_pyramid
+
+    scenes = scenes or SemsegScenes(scenes=ST_SEQUENCES, points=ST_POINTS)
+    cls = load_model(model)
+    num_levels = importlib.import_module(cls.__module__).NUM_LEVELS
+    coords, colours, labels = [], [], []
+    for b, (c, f, l) in enumerate(scenes.samples):
+        for t in range(ST_FRAMES):
+            n = len(c)
+            coords.append(np.concatenate([np.full((n, 1), b), c + np.asarray(ST_SHIFT) * t,
+                                          np.full((n, 1), t)], axis=1))
+            colours.append(f)
+            labels.append(l)
+    coords = np.concatenate(coords).astype(np.int32)
+    keep = sparse_quantize(coords, return_index=True)
+    coords = coords[keep]
+    npads = PadScheme(npad0, len(pad_ratios), level_ratios=tuple(pad_ratios)).npads_for(
+        num_levels)
+    pyr, meta = build_pyramid(coords, num_levels, npads=npads, num_batch=len(scenes),
+                              build_down3=num_levels > 5, **cls.GEOMETRY.pyramid_kwargs())
+    feats = np.zeros((npads[0], 3), np.float32)
+    feats[:len(coords)] = np.concatenate(colours)[keep] / 255.0 - 0.5
+    lpad = np.full(npads[0], 255, np.int32)
+    lpad[:len(coords)] = np.concatenate(labels)[keep]
+    return SemsegBatch(feats=feats, labels=lpad, pyramid=pyr,
+                       truncated_voxels=np.asarray(sum(n for _, n in meta.truncated),
+                                                   np.float32),
+                       num_samples=len(scenes))
 
 
 RESNET_LEVELS = 6

@@ -763,3 +763,27 @@ def test_gather_gemm_bf16_f32_out_on_card(card, cin, cout):
     got = kernels.gather_gemm_bf16(*args)
     assert got.dtype == torch.float32
     assert kernels.bound_ratio(got, *kernels.gather_gemm_bf16_bound(*args)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 8), (32, 32), (32, 128)])
+def test_gather_gemm_bf16_f32_out_one_rounding_on_card(card, cin, cout):
+    """``f32_out`` without ``round_each_tap`` (a K1 of more than 32 taps,
+    chunked or in dF, adds its tap groups' f32 sums and rounds once): the
+    first group's off-centre taps with the centre, within
+    ``gather_gemm_bf16_bound`` of the exact sum, and rounded to bf16 the
+    one-launch output within its own bound."""
+    lv = _dev_pyramid("flat", card).levels[0]
+    n = lv.valid.shape[0]
+    gen = torch.Generator(device=card).manual_seed(cin + cout)
+    x = _masked_bf16(gen, (1, n, cin), lv.valid, card)
+    w = (torch.randn(27, cin, cout, device=card, generator=gen) * 0.2).to(BF)
+    taps = [t for t in range(27) if t != 13]
+    args = (x, lv.nbr[:, None], taps, 0, w[taps].contiguous(), w[13], n, n - 1, None,
+            False, True)
+    got = kernels.gather_gemm_bf16(*args)
+    assert got.dtype == torch.float32
+    assert kernels.bound_ratio(got, *kernels.gather_gemm_bf16_bound(*args)) <= 1.0
+    one = kernels.gather_gemm_bf16(*args[:9])
+    assert one.dtype == BF
+    assert kernels.bound_ratio(one, *kernels.gather_gemm_bf16_bound(*args[:9])) <= 1.0

@@ -3,9 +3,10 @@ ops pass a chunk's pad row (the last), which is zero by contract, so the
 card spends no products on it.  Here, on the CPU:
 
   (a) the twins honour the argument: on chunked and flat pyramids from the
-      port's collate, with an arbitrary skipped row, the twin with ``skip``
-      equals the twin without it where that row is zero, and differs
-      exactly where it is gathered when it is not;
+      port's collate and on a 4-D ST net's flat hybrid pyramid (29-tap
+      block maps, 8-child down maps), with an arbitrary skipped row, the
+      twin with ``skip`` equals the twin without it where that row is zero,
+      and differs exactly where it is gathered when it is not;
   (b) the contract: every gather that passes a skip row sees that row at
       exactly zero in one forward and backward pass of a narrow
       Res16UNet34C-shaped net, K1's backward cotangents included;
@@ -19,6 +20,7 @@ card spends no products on it.  Here, on the CPU:
       skips its fine pad row: a cotangent that is not zero at the fine pad
       rows moves no valid coarse row of dF and no entry of dW."""
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from pointcontrast_tpu_torch.data.collate import PadScheme, collate_pair
 from pointcontrast_tpu_torch.nn import res16unet as tr16
 from pointcontrast_tpu_torch.sparse import kernels, ops
 from pointcontrast_tpu_torch.tools.from_jax import load_jax_params, torch_name
+from pointcontrast_tpu_torch.tools.workload import SemsegScenes, st_semseg_batch
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 OUT = 8
@@ -52,14 +55,20 @@ def _samples():
 
 @pytest.fixture(scope="module")
 def batches():
-    """{layout: the port's pair batch on the CPU}."""
-    return {layout: collate_pair(_samples(), PadScheme(npad0=4096), npos=64,
-                                 rng=np.random.RandomState(1), layout=layout).to("cpu")
-            for layout in ("chunked", "voxel")}
+    """{layout: the port's pair batch on the CPU; "hybrid": a 4-D ST
+    pyramid as ``pyramid0``}."""
+    out = {layout: collate_pair(_samples(), PadScheme(npad0=4096), npos=64,
+                                rng=np.random.RandomState(1), layout=layout).to("cpu")
+           for layout in ("chunked", "voxel")}
+    scenes = SemsegScenes(scenes=2, points=300, room=1.0, voxel=0.05)
+    st = st_semseg_batch(scenes, npad0=2048, pad_ratios=(1.0, 0.8, 0.6, 0.4, 0.2),
+                         model="STRes16UNet14")
+    out["hybrid"] = types.SimpleNamespace(pyramid0=st.to("cpu").pyramid)
+    return out
 
 
 def _level_maps(batch, level):
-    """(nbr [27, B, S], down_nbr [8, B, S_out], S, S_out) of a level, a
+    """(nbr [K, B, S], down_nbr [8, B, S_out], S, S_out) of a level, a
     flat pyramid's maps taken as one chunk, as the ops take them."""
     lv, nxt = batch.pyramid0.levels[level], batch.pyramid0.levels[level + 1]
     nb = batch.pyramid0.num_batch if lv.nbr.dim() == 3 else 1
@@ -84,10 +93,11 @@ def _case(case, nbr, down, s, s_out, x3, w, rng):
     k = nbr.shape[0]
     if case == "gemm":
         return (kernels.gather_gemm_plain, (x3, nbr, range(k), 0, w, None, s), "skip", 0)
-    if case == "gemm centre":
-        taps = [i for i in range(k) if i != k // 2]
+    if case == "gemm centre":  # the tap whose map is the identity
+        centre = int((nbr == torch.arange(s)).sum((1, 2)).argmax())
+        taps = [i for i in range(k) if i != centre]
         return (kernels.gather_gemm_plain,
-                (x3, nbr, taps, 0, w[taps], w[k // 2], s), "skip", 0)
+                (x3, nbr, taps, 0, w[taps], w[centre], s), "skip", 0)
     if case == "gemm down":
         return (kernels.gather_gemm_plain,
                 (x3, down, range(8), 0, w[:8], None, s_out), "skip", 0)
@@ -101,7 +111,7 @@ def _case(case, nbr, down, s, s_out, x3, w, rng):
             (x3, down, range(8), 0, g3, None, None, 0, 8, s_out), "skip_a", 0)
 
 
-@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+@pytest.mark.parametrize("layout", ["chunked", "voxel", "hybrid"])
 @pytest.mark.parametrize("case", ["gemm", "gemm centre", "gemm down", "wgrad g",
                                   "wgrad a"])
 def test_twins_leave_out_the_skip_row(batches, layout, case):
@@ -113,7 +123,7 @@ def test_twins_leave_out_the_skip_row(batches, layout, case):
     skip = _gathered_row(nbr, down)
     b_ = nbr.shape[1]
     x3 = torch.from_numpy(rng.randn(b_, s, 4).astype(np.float32))
-    w = torch.from_numpy(rng.randn(27, 4, 6).astype(np.float32))
+    w = torch.from_numpy(rng.randn(nbr.shape[0], 4, 6).astype(np.float32))
     fn, args, key, at = _case(case, nbr, down, s, s_out, x3, w, rng)
     zeroed = x3.clone()
     zeroed[:, skip] = 0.0
@@ -247,7 +257,7 @@ def _bf16_case(case, nbr, down, s, s_out, x3, w, rng):
     return twin, bf, key, at
 
 
-@pytest.mark.parametrize("layout", ["chunked", "voxel"])
+@pytest.mark.parametrize("layout", ["chunked", "voxel", "hybrid"])
 @pytest.mark.parametrize("case", ["gemm", "gemm centre", "gemm down", "wgrad g",
                                   "wgrad a", "gemm per tap", "gemm centre per tap",
                                   "gemm down per tap"])
@@ -261,7 +271,7 @@ def test_bf16_twins_leave_out_the_skip_row(batches, layout, case):
     skip = _gathered_row(nbr, down)
     b_ = nbr.shape[1]
     x3 = torch.from_numpy(rng.randn(b_, s, 4).astype(np.float32))
-    w = torch.from_numpy(rng.randn(27, 4, 6).astype(np.float32))
+    w = torch.from_numpy(rng.randn(nbr.shape[0], 4, 6).astype(np.float32))
     fn, args, key, at = _bf16_case(case, nbr, down, s, s_out, x3, w, rng)
     zeroed = args[at].clone()
     zeroed[:, skip] = 0.0

@@ -10,8 +10,10 @@ the down map is the exact inverse of the parent map (``up_parent``,
 ``up_offset``) below the pad rows.  Here:
 
   - the inverse property for every pyramid builder of the port (chunked and
-    flat, each with and without truncation, and the flat levels past the
-    brick ones of a ``brick:2`` pyramid), and the map ``ops.down_from_up``
+    flat, each with and without truncation, the flat levels past the
+    brick ones of a ``brick:2`` pyramid, and the 4-D ST nets' flat hybrid
+    pyramids, whose (2, 2, 2, 1) down maps have 8 children and never halve
+    time, with and without truncation), and the map ``ops.down_from_up``
     derives from the parent map (what ``sparse_conv_transpose`` gathers
     through when no ``down`` is passed) equal to the pyramid's;
   - dF and dW the same bit for bit through the pyramid's map and the
@@ -45,12 +47,15 @@ from pointcontrast_tpu_torch.data.pair_dataset import SyntheticPairDataset
 from pointcontrast_tpu_torch.sparse import kernels as sk
 from pointcontrast_tpu_torch.sparse import ops as tops
 from pointcontrast_tpu_torch.sparse.chunk import build_chunked_pyramid
-from pointcontrast_tpu_torch.sparse.topology import build_pyramid
+from pointcontrast_tpu_torch.sparse.topology import HYBRID_4D, build_pyramid
 
 NB = 3
 TRUNCATING = [660, 300, 120, 45]  # every level past 0 drops coarse voxels
 ROOMY = [1800, 1800, 1200, 600]
-KINDS = ["chunked", "chunked truncated", "flat", "flat truncated", "brick:2"]
+TRUNCATING_4D = [900, 500, 150, 40]  # every level past 0 drops coarse voxels
+ROOMY_4D = [1800, 1800, 1200, 600]
+KINDS = ["chunked", "chunked truncated", "flat", "flat truncated", "brick:2", "flat 4-D",
+         "flat 4-D truncated"]
 F32_RTOL = 1e-5
 BF16_RTOL = 2.0 ** -7
 BF = torch.bfloat16
@@ -66,6 +71,17 @@ def _coords(seed=0, n=(220, 150, 180), extent=20):
     return np.concatenate(out).astype(np.int32)
 
 
+def _coords4(seed=0, n=(320, 260, 300), extent=12, frames=3):
+    """NB samples of 4-D [b, x, y, z, t] points, t < ``frames``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for b, k in enumerate(n):
+        flat = rng.choice(extent ** 3 * frames, k, replace=False)
+        xyzt = np.stack(np.unravel_index(flat, (extent,) * 3 + (frames,)), axis=1)
+        out.append(np.concatenate([np.full((k, 1), b), xyzt], axis=1))
+    return np.concatenate(out).astype(np.int32)
+
+
 def _levels(kind):
     """[dict(parent, offset, up_order [B, S_f], down [8, B, S_c], down_order
     [B, S_c] int32 tensors, valid_f [B, S_f], valid_c [B, S_c] bool)], one a
@@ -73,6 +89,10 @@ def _levels(kind):
     if kind.startswith("chunked"):
         npads = TRUNCATING if kind.endswith("truncated") else ROOMY
         levels = build_chunked_pyramid(_coords(), 4, npads, num_batch=NB)[0].levels
+    elif kind.startswith("flat 4-D"):
+        npads = TRUNCATING_4D if kind.endswith("truncated") else ROOMY_4D
+        levels = build_pyramid(_coords4(), 4, npads=npads, num_batch=NB,
+                               **HYBRID_4D.pyramid_kwargs())[0].levels
     elif kind.startswith("flat"):
         npads = TRUNCATING if kind.endswith("truncated") else ROOMY
         levels = build_pyramid(_coords(), 4, npads=npads, num_batch=NB)[0].levels
