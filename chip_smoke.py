@@ -427,12 +427,13 @@ KERNEL_INFO = {  # source, and the JAX op each kernel replaces (XLA programs)
 # fail the build phase with any stack frame or spill
 PTXAS_SPARSE = ("gather_gemm_kernel", "gather_gemm_mma_kernel", "gather_wgrad_kernel",
                 "parent_gemm_kernel", "parent_gemm_mma_kernel", "brick_gemm_kernel",
-                "brick_gemm_mma_kernel", "brick_wgrad_kernel", "scatter_gemm_kernel",
-                "scatter_gemm_mma_kernel", "segment_sum_kernel")
+                "brick_gemm_mma_kernel", "brick_wgrad_kernel", "brick_wgrad_mma",
+                "scatter_gemm_kernel", "scatter_gemm_mma_kernel", "segment_sum_kernel")
 PTXAS_DETECT = ("fps_kernel", "ball_query_kernel", "three_nn_kernel")
 PTXAS_NO_SPILL = ("gather_gemm_mma_kernel", "parent_gemm_kernel", "parent_gemm_mma_kernel",
                   "fps_kernel", "brick_gemm_kernel", "brick_gemm_mma_kernel",
-                  "brick_wgrad_kernel", "scatter_gemm_kernel", "scatter_gemm_mma_kernel",
+                  "brick_wgrad_kernel", "brick_wgrad_mma", "scatter_gemm_kernel",
+                  "scatter_gemm_mma_kernel",
                   "ball_query_kernel", "segment_sum_kernel", "three_nn_kernel")
 # FPS: one pick's floor in ms by cluster size (``fps_pick_floor``), over
 # the picks of its clouds of one point a thread
@@ -557,10 +558,13 @@ def phase_build():
 def sass_mma_check(library, cuobjdump):
     """The tensor-core forms' machine code: one ``[sass]`` line a gather,
     scatter, parent or brick GEMM instance with its count of HMMA
-    instructions (``cuobjdump -sass``); fails unless every
-    gather_gemm_mma_kernel, parent_gemm_mma_kernel, scatter_gemm_mma_kernel,
-    brick_gemm_mma_kernel, (bf16, bf16) gather_wgrad_kernel and bf16
-    brick_wgrad_kernel instance issues them and no other instance does."""
+    instructions (``cuobjdump -sass``: mma.sync's instruction); fails
+    unless every gather_gemm_mma_kernel, parent_gemm_mma_kernel,
+    scatter_gemm_mma_kernel, brick_gemm_mma_kernel, (bf16, bf16)
+    gather_wgrad_kernel and brick_wgrad_mma_kernel /
+    brick_wgrad_mma_dense_kernel (the bf16 dW's pair and brick forms)
+    instance issues them and no other instance (the f32 brick_wgrad_kernel
+    among them) does."""
     import re
 
     text = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
@@ -579,9 +583,9 @@ def sass_mma_check(library, cuobjdump):
                                  "brick_gemm", "brick_wgrad")):
             continue
         tensor_cores = (entry.startswith(("gather_gemm_mma", "parent_gemm_mma",
-                                          "scatter_gemm_mma", "brick_gemm_mma"))
-                        or entry.endswith("bf16,bf16>")
-                        or (entry.startswith("brick_wgrad") and entry.endswith(",bf16>")))
+                                          "scatter_gemm_mma", "brick_gemm_mma",
+                                          "brick_wgrad_mma"))
+                        or entry.endswith("bf16,bf16>"))
         say("sass", kernel=entry, hmma=n)
         if (n > 0) != tensor_cores:
             wrong.append(entry)

@@ -84,10 +84,13 @@
 // bf16 forms (gather_sum_bf16_kernel, scatter_store_bf16_kernel,
 // scatter_sum_inv_bf16_kernel) keep XLA's rounding after every bf16 add,
 // in its order, with no atomics (their notes below).  The brick conv's bf16
-// forms (pointcontrast_tpu/sparse/brick.py:360-440 in bf16) run the brick
-// kernels' tiles on the tensor cores: brick_gemm_mma_kernel rounds each
-// output once, brick_wgrad_kernel's bf16 instances sum the compacted pairs
-// with gw_pairs_mma into an f32 dW that the wrapper rounds once.
+// forms (pointcontrast_tpu/sparse/brick.py:360-440 in bf16) run on the
+// tensor cores: brick_gemm_mma_kernel runs the f32 kernel's slot-row tiles
+// and rounds each output once; brick_wgrad_mma_kernel compacts each tap's
+// live pairs brick by brick, and at the stem's narrow Cin
+// brick_wgrad_mma_dense_kernel runs one dense product a neighbour row over
+// whole bricks (JAX's own block product); both sum into an f32 dW that the
+// wrapper rounds once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +103,9 @@
 #include "row_groups.cuh"
 
 #define MAX_TAPS 32
+// brick_wgrad_bf16 takes its brick form up to this Cin (8 Cin <= 64 rows of
+// a tensor-core tile; sparse/kernels.py BRICK_NARROW)
+#define BRICK_NARROW 8
 
 struct TapList {
   int idx[MAX_TAPS];
@@ -1045,11 +1051,15 @@ __device__ __forceinline__ int gw_append(bool ok, int ra, int rg, int* pa, int* 
 // i is row p[st ROWS + i] of M at channels c0 + [0, TW), zero-filled past
 // n and C; 16-byte cp.async of 8 values where `vec` (C % 8 == 0, M
 // aligned), else plain 2-byte loads (odd C rows are only 2-byte aligned).
-// MMA: row i's chunks at mma_chunk, for ldmatrix.
-template <int TW, bool MMA = false>
+// MMA: row i's chunks at mma_chunk, for ldmatrix.  BRICKS: M's rows are
+// whole bricks of 8 slots of sw channels (C = 8 sw) and p[q] = row << 8 |
+// the row's occupied slots: an empty slot's channels are staged as zeros
+// (a 16-byte chunk of empty slots zero-filled; one that holds both kinds
+// copied whole, and masked by gw_mask_bricks once it has landed).
+template <int TW, bool MMA = false, bool BRICKS = false>
 __device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, int n,
                                              const bf16* __restrict__ M, int C, int c0,
-                                             int vec, int tid) {
+                                             int vec, int tid, int sw = 0) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS;
   auto chunk = [](int i, int c) { return MMA ? mma_chunk<TW / 8>(i, c) : c; };
   if (vec) {
@@ -1057,8 +1067,15 @@ __device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, i
       const int i = e / (TW / 8), c = e % (TW / 8);
       const int q = st * ROWS + i;
       const bool ok = q < n && c0 + 8 * c < C;
-      cp_async16(tile + i * TW + (chunk(i, c) << 3),
-                 ok ? M + (int64_t)p[q] * C + c0 + 8 * c : M, ok);
+      bf16* dst = tile + i * TW + (chunk(i, c) << 3);
+      if constexpr (BRICKS) {
+        const int w = ok ? p[q] : 0, k0 = c0 + 8 * c;
+        // an occupied slot among those the chunk spans
+        const bool any = ok && (w & ((2u << ((k0 + 7) / sw)) - (1u << (k0 / sw))));
+        cp_async16(dst, any ? M + (int64_t)(w >> 8) * C + k0 : M, any);
+      } else {
+        cp_async16(dst, ok ? M + (int64_t)p[q] * C + c0 + 8 * c : M, ok);
+      }
     }
   } else {
 #pragma unroll 4
@@ -1066,10 +1083,38 @@ __device__ __forceinline__ void gw_load_bf16(bf16* tile, const int* p, int st, i
       const int e = tid + u * THREADS;
       const int i = e / TW, c = e % TW;
       const int q = st * ROWS + i;
-      const bool ok = q < n && c0 + c < C;
+      bool ok = q < n && c0 + c < C;
+      int row = ok ? p[q] : 0;
+      if constexpr (BRICKS) {
+        ok = ok && ((row >> ((c0 + c) / sw)) & 1);
+        row >>= 8;
+      }
       tile[i * TW + (chunk(i, c >> 3) << 3) + (c & 7)] =
-          ok ? M[(int64_t)p[q] * C + c0 + c] : bf16_zero();
+          ok ? M[(int64_t)row * C + c0 + c] : bf16_zero();
     }
+  }
+}
+
+// A BRICKS stage of gw_load_bf16 (vec) once this thread's copies of it have
+// landed: the chunks it staged that hold both occupied and empty slots get
+// zeros at the empty slots' channels (before the barrier that hands the
+// stage to the other warps)
+template <int TW>
+__device__ __forceinline__ void gw_mask_bricks(bf16* tile, const int* p, int st, int n, int C,
+                                               int c0, int sw, int tid) {
+  constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS;
+  for (int e = tid; e < ROWS * TW / 8; e += THREADS) {
+    const int i = e / (TW / 8), c = e % (TW / 8);
+    const int q = st * ROWS + i, k0 = c0 + 8 * c;
+    if (q >= n || k0 >= C) continue;
+    const int w = p[q];
+    const unsigned span = (2u << ((k0 + 7) / sw)) - (1u << (k0 / sw));
+    const unsigned have = (unsigned)w & span;
+    if (have == 0 || have == span) continue;
+    bf16* h = tile + i * TW + (mma_chunk<TW / 8>(i, c) << 3);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (!((w >> ((k0 + k) / sw)) & 1)) h[k] = bf16_zero();
   }
 }
 
@@ -1261,13 +1306,15 @@ __device__ __forceinline__ void gw_finish(float4 (&acc)[QA][4][QG], float* smem,
 // nothing).  A^T's fragment comes by ldmatrix.x4.trans from the [pairs]
 // [32 QA] tile, G's by ldmatrix.x2.trans from the [pairs][32 QG] tile,
 // both staged with mma_chunk's swizzle.  Same ring, stages and pair
-// lists as gw_pairs.
-template <int QA, int QG>
+// lists as gw_pairs.  BRICKS: the pairs name whole bricks with their
+// occupied slots, of sa and sg channels a slot (gw_load_bf16).
+template <int QA, int QG, bool BRICKS = false>
 __device__ __forceinline__ void gw_pairs_mma(float (&acc)[QA * QG][4], float* smem,
                                              const int* pa, const int* pg, int n,
                                              const bf16* __restrict__ A, int Ca, int a0,
                                              const bf16* __restrict__ Gm, int Cg, int g0,
-                                             int vec_a, int vec_g, int tid) {
+                                             int vec_a, int vec_g, int tid, int sa = 0,
+                                             int sg = 0) {
   constexpr int ROWS = gw::ROWS, STAGES = gw::STAGES;
   constexpr int TA = 32 * QA, TG = 32 * QG, PT = QA * QG, NG = TG / 8;
   bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][ROWS][TA]
@@ -1275,8 +1322,8 @@ __device__ __forceinline__ void gw_pairs_mma(float (&acc)[QA * QG][4], float* sm
   const int lane = tid & 31, warp = tid >> 5;
   const int nst = (n + ROWS - 1) / ROWS;
   auto load = [&](int st, int buf) {
-    gw_load_bf16<TA, true>(As + buf * ROWS * TA, pa, st, n, A, Ca, a0, vec_a, tid);
-    gw_load_bf16<TG, true>(Gs + buf * ROWS * TG, pg, st, n, Gm, Cg, g0, vec_g, tid);
+    gw_load_bf16<TA, true, BRICKS>(As + buf * ROWS * TA, pa, st, n, A, Ca, a0, vec_a, tid, sa);
+    gw_load_bf16<TG, true, BRICKS>(Gs + buf * ROWS * TG, pg, st, n, Gm, Cg, g0, vec_g, tid, sg);
   };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -1285,6 +1332,12 @@ __device__ __forceinline__ void gw_pairs_mma(float (&acc)[QA * QG][4], float* sm
   }
   for (int st = 0; st < nst; ++st) {
     cp_async_wait<STAGES - 2>();
+    if constexpr (BRICKS) {  // where a slot is whole 16-byte chunks, none straddles two
+      if (vec_a && sa % 8)
+        gw_mask_bricks<TA>(As + (st % STAGES) * ROWS * TA, pa, st, n, Ca, a0, sa, tid);
+      if (vec_g && sg % 8)
+        gw_mask_bricks<TG>(Gs + (st % STAGES) * ROWS * TG, pg, st, n, Cg, g0, sg, tid);
+    }
     __syncthreads();  // stage st has landed; stage st - 1's buffer is free
     {
       const int next = st + STAGES - 1;
@@ -2890,6 +2943,10 @@ scatter_sum_inv_bf16_kernel(const bf16* __restrict__ Gr, const int* __restrict__
 namespace bg {
 constexpr int NS = 8;          // slots of a brick (2^3)
 constexpr int MAX_NBRS = 27;   // rows of a brick map (3^3 neighbour bricks)
+// brick_wgrad_bf16's compaction issues the loads of this many runs together,
+// before their appends' barriers (4 spilled past the 128 registers of 2
+// blocks an SM)
+constexpr int HOIST = 2;
 
 // esize: the tiles' element size, 4 (f32) or 2 (brick_gemm_mma_kernel's bf16)
 inline size_t smem_bytes(int Q, int taps, int esize = 4) {
@@ -3206,27 +3263,18 @@ brick_gemm_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ nbr, i
 //  - the blocks of a (tap, tile) are combined by its last block (integer
 //    tickets, gw_finish) in block order: dW is the same from run to run,
 //    no f32 atomics.
-// T = bf16, brick_wgrad_bf16 (the dW of _brick_sym_bwd in bf16, :372-396):
-// bf16 X and G, the same compaction and slices, the pairs' products on the
-// tensor cores (gw_pairs_mma, the tile gw::qs_for's tensor-core form, up to
-// 128 x 128) and the slices added in block order (gw_finish_mma) into an
-// f32 dW, which the wrapper rounds once to bf16 (JAX's dw.astype(bf16) of
-// its f32 sum, :396).  Bound: the live pairs' rows' bytes, as the
-// (bf16, bf16) gather_wgrad.
 // grid (tiles, taps, slices)
-template <int QA, int QG, typename T = float>
+template <int QA, int QG>
 __global__ void __launch_bounds__(gw::THREADS, 2)
-brick_wgrad_kernel(const T* __restrict__ X, const int* __restrict__ nbr,
-                   const int* __restrict__ table, int centre, const T* __restrict__ Gm,
+brick_wgrad_kernel(const float* __restrict__ X, const int* __restrict__ nbr,
+                   const int* __restrict__ table, int centre, const float* __restrict__ Gm,
                    const float* __restrict__ valid, const int* __restrict__ order,
                    float* __restrict__ dW, float* __restrict__ ws, int* __restrict__ tickets,
                    int NB, int Cin, int Cout, int vec_a, int vec_g) {
   constexpr int THREADS = gw::THREADS, ROWS = gw::ROWS, STAGES = gw::STAGES;
   constexpr int CHUNK = gw::CHUNK, RUNS = CHUNK / THREADS;
   constexpr int TA = 32 * QA, TG = 32 * QG, NS = bg::NS;
-  // the pair lists follow the stage ring (bf16: gw::tile_bytes' ring)
-  constexpr size_t TILES = is_bf16<T> ? gw::tile_bytes(QA, QG, 2, 2)
-                                      : sizeof(float) * STAGES * ROWS * (TA + TG);
+  constexpr size_t TILES = sizeof(float) * STAGES * ROWS * (TA + TG);  // the pair lists follow
   extern __shared__ __align__(16) float smem[];
   int* pa = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) + TILES);  // X rows
   int* pg = pa + CHUNK;                                                // [CHUNK] G rows
@@ -3264,30 +3312,244 @@ brick_wgrad_kernel(const T* __restrict__ X, const int* __restrict__ nbr,
     return n;
   };
 
-  if constexpr (is_bf16<T>) {  // the tensor cores
-    float acc[QA * QG][4];
+  float4 acc[QA][4][QG];
 #pragma unroll
-    for (int i = 0; i < QA * QG; ++i)
+  for (int p = 0; p < QA; ++p)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-    for (int u0 = 0; u0 < mine; u0 += RUNS) {
-      const int n = compact(u0);
-      gw_pairs_mma<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int u0 = 0; u0 < mine; u0 += RUNS) {
+    const int n = compact(u0);
+    gw_pairs<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+  }
+  gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
+}
+
+// The level's occupied slots, one word a brick (bg::occupied): what
+// brick_wgrad_bf16's kernels read for a brick and each of its neighbours,
+// 4 bytes in place of the 32 of its valid entries
+__global__ void brick_occupancy_kernel(const float* __restrict__ valid, int* __restrict__ occ,
+                                       int NB) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < NB) occ[b] = bg::occupied(valid, b);
+}
+
+// brick_wgrad_bf16 on the tensor cores (the dW of _brick_sym_bwd in bf16,
+// pointcontrast_tpu/sparse/brick.py:372-396: f32 sums of the bf16 x bf16
+// products, which the wrapper rounds once to bf16, JAX's dw.astype(bf16)).
+// What bounds it: the bytes of the live pairs' rows and, at the stem's Cin
+// 3, the fixed cost of finding them.  Run on the tensor cores, the f32
+// kernel's slot-row compaction (the order, the valid mask twice, the slot
+// table and the brick map read per row and tap: 27 x 398,464 rows at level
+// 0 of pretrain brick:2) and, at Cin 3, 32-wide A tiles staged by plain
+// 2-byte loads were slower than the f32 kernel itself.  Two forms:
+//  - Cin > BRICK_NARROW (brick_wgrad_mma_kernel): a block owns one tap t, a
+//    tensor-core tile (gw::qs_for) and the runs z, z + slices, ... of 32
+//    bricks (the blocks' runs interleave, so the live bricks spread over
+//    them alike); a thread takes one (brick b,
+//    output slot p) of a run: p occupied and the source (d, s) =
+//    table[t][p] of brick nbr[d, b] occupied (the bricks' occupancy words,
+//    `occ`, made from `valid` by brick_occupancy_kernel first) make a
+//    live pair; the pairs are compacted (gw_append) and multiplied on the
+//    tensor cores (gw_pairs_mma), and the blocks of a (tap, tile) added in
+//    block order (gw_finish_mma);
+//  - Cin <= BRICK_NARROW (brick_wgrad_mma_dense_kernel): JAX's own block
+//    product.  X and ct read as [NB, 8 Cin] and [NB, 8 Cout] (a brick one
+//    row of 16 C aligned bytes, however odd C is), a block owns one
+//    neighbour row d of the brick map, a column tile of 8 Cout and runs of
+//    256 bricks: R_d = sum_b X[nbr[d, b]]^T ct[b] over the bricks and
+//    neighbours with an occupied slot, on the tensor cores (gw_pairs_mma,
+//    K running over bricks: 8 Cin <= 64 rows, so the stem's Cin 3 fills
+//    24 of 32 instead of 3), the empty slots' channels loaded as zeros
+//    (gw_load_bf16's BRICKS form, the bricks' occupied slots packed with
+//    their rows), partials in ws [slices][K3][8 Cin][8 Cout]; the last
+//    block of a (d, tile), by an integer ticket, adds the slices in order,
+//    and the last of those, by a second ticket, gathers dW[t] = sum over
+//    the output slots p of R_d at (s, p), (d, s) = table[t][p], in slot
+//    order;
+//  - either way every sum runs in a fixed order: the same bits from run
+//    to run, no f32 atomics.
+// grid (tiles, taps, slices)
+template <int QA, int QG>
+__global__ void __launch_bounds__(gw::THREADS, 2)
+brick_wgrad_mma_kernel(const bf16* __restrict__ X, const int* __restrict__ nbr,
+                       const int* __restrict__ table, int centre, const bf16* __restrict__ Gm,
+                       const int* __restrict__ occ, float* __restrict__ dW,
+                       float* __restrict__ ws, int* __restrict__ tickets, int NB, int Cin,
+                       int Cout, int vec_a, int vec_g) {
+  constexpr int THREADS = gw::THREADS, CHUNK = gw::CHUNK, RUNS = CHUNK / THREADS;
+  constexpr int TA = 32 * QA, TG = 32 * QG, NS = bg::NS, RUN = THREADS / NS;
+  constexpr size_t TILES = gw::tile_bytes(QA, QG, 2, 2);
+  extern __shared__ __align__(16) float smem[];
+  int* pa = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) + TILES);  // X rows
+  int* pg = pa + CHUNK;                                                // [CHUNK] G rows
+  int* wcount = pg + CHUNK;                                            // [2][8], flag
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_g = (Cout + TG - 1) / TG;
+  const int a0 = (blockIdx.x / tiles_g) * TA, g0 = (blockIdx.x % tiles_g) * TG;
+  const int t = blockIdx.y, z = blockIdx.z, slices = gridDim.z;
+  const int runs = (NB + RUN - 1) / RUN;
+  const int mine = runs > z ? (runs - z + slices - 1) / slices : 0;  // runs z, z + slices, ...
+  const int p = tid % NS, ds = __ldg(table + t * NS + p), d = ds >> 3, s = ds & (NS - 1);
+
+  // the live pairs of runs u0 .. u0 + RUNS - 1 of this block's, in order
+  auto compact = [&](int u0) {
+    int n = 0;
+#pragma unroll 1
+    for (int h = u0; h < u0 + RUNS; h += bg::HOIST) {
+      int src[bg::HOIST], own[bg::HOIST];
+#pragma unroll
+      for (int i = 0; i < bg::HOIST; ++i) {
+        const int e = (z + (h + i) * slices) * RUN + tid / NS;
+        const bool in = h + i < mine && e < NB;
+        src[i] = !in ? 0 : d == centre ? e : __ldg(nbr + (int64_t)d * NB + e);
+        own[i] = in ? __ldg(occ + e) : 0;
+      }
+      unsigned live = 0;  // bit i: run h + i's pair is live
+#pragma unroll
+      for (int i = 0; i < bg::HOIST; ++i)
+        if ((own[i] >> p) & 1) live |= ((__ldg(occ + src[i]) >> s) & 1u) << i;
+#pragma unroll
+      for (int i = 0; i < bg::HOIST; ++i) {
+        const int e = (z + (h + i) * slices) * RUN + tid / NS;
+        n += gw_append((live >> i) & 1, src[i] * NS + s, e * NS + p, pa, pg,
+                       wcount + 8 * (i & 1), n, lane, warp);
+      }
     }
-    gw_finish_mma<QA, QG>(acc, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
-  } else {
-    float4 acc[QA][4][QG];
+    __syncthreads();
+    return n;
+  };
+
+  float acc[QA * QG][4];
 #pragma unroll
-    for (int p = 0; p < QA; ++p)
+  for (int i = 0; i < QA * QG; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int u0 = 0; u0 < mine; u0 += RUNS) {
+    const int n = compact(u0);
+    gw_pairs_mma<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+  }
+  gw_finish_mma<QA, QG>(acc, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
+}
+
+// grid (tiles of 8 Cout, K3, slices); ws [slices][K3][8 Cin][8 Cout] f32,
+// tickets [K3 tiles + 1] zeroed
+template <int QA, int QG>
+__global__ void __launch_bounds__(gw::THREADS, 2)
+brick_wgrad_mma_dense_kernel(const bf16* __restrict__ X, const int* __restrict__ nbr,
+                             const int* __restrict__ table, int taps, int centre,
+                             const bf16* __restrict__ Gm, const int* __restrict__ occ,
+                             float* __restrict__ dW, float* __restrict__ ws,
+                             int* __restrict__ tickets, int NB, int Cin, int Cout, int vec_a,
+                             int vec_g) {
+  constexpr int THREADS = gw::THREADS, CHUNK = gw::CHUNK, RUNS = CHUNK / THREADS;
+  constexpr int TA = 32 * QA, TG = 32 * QG, PT = QA * QG, NG = TG / 8, NS = bg::NS;
+  constexpr size_t TILES = gw::tile_bytes(QA, QG, 2, 2);
+  extern __shared__ __align__(16) float smem[];
+  int* pa = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(smem) + TILES);  // X bricks
+  int* pg = pa + CHUNK;                                                // [CHUNK] ct bricks
+  int* wcount = pg + CHUNK;                                            // [2][8], flag
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ca = NS * Cin, Cg = NS * Cout;  // a brick as one row
+  const int g0 = blockIdx.x * TG, d = blockIdx.y, z = blockIdx.z, slices = gridDim.z;
+  const int runs = (NB + THREADS - 1) / THREADS;
+  const int mine = runs > z ? (runs - z + slices - 1) / slices : 0;
+
+  // the (neighbour, brick) pairs of runs u0 .. u0 + RUNS - 1 of this block's
+  // whose bricks both hold an occupied slot, in order, each a brick << 8 |
+  // its occupied slots (bricks fit 23 bits: the wrapper's BRICK_LIMIT)
+  auto compact = [&](int u0) {
+    int n = 0;
+#pragma unroll 1
+    for (int h = u0; h < u0 + RUNS; h += bg::HOIST) {
+      int src[bg::HOIST], own[bg::HOIST], bits[bg::HOIST];
 #pragma unroll
-        for (int q = 0; q < QG; ++q) acc[p][c][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int u0 = 0; u0 < mine; u0 += RUNS) {
-      const int n = compact(u0);
-      gw_pairs<QA, QG>(acc, smem, pa, pg, n, X, Cin, a0, Gm, Cout, g0, vec_a, vec_g, tid);
+      for (int i = 0; i < bg::HOIST; ++i) {
+        const int e = (z + (h + i) * slices) * THREADS + tid;
+        const bool in = h + i < mine && e < NB;
+        src[i] = !in ? 0 : d == centre ? e : __ldg(nbr + (int64_t)d * NB + e);
+        own[i] = in ? __ldg(occ + e) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < bg::HOIST; ++i) bits[i] = own[i] ? __ldg(occ + src[i]) : 0;
+#pragma unroll
+      for (int i = 0; i < bg::HOIST; ++i) {
+        const int e = (z + (h + i) * slices) * THREADS + tid;
+        n += gw_append(own[i] && bits[i], src[i] << 8 | bits[i], e << 8 | own[i], pa, pg,
+                       wcount + 8 * (i & 1), n, lane, warp);
+      }
     }
-    gw_finish<QA, QG>(acc, smem, wcount + 16, dW, ws, tickets, Cin, Cout, a0, g0, tid);
+    __syncthreads();
+    return n;
+  };
+
+  float acc[PT][4];
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int u0 = 0; u0 < mine; u0 += RUNS) {
+    const int n = compact(u0);
+    gw_pairs_mma<QA, QG, true>(acc, smem, pa, pg, n, X, Ca, 0, Gm, Cg, g0, vec_a, vec_g, tid,
+                               Cin, Cout);
+  }
+
+  // this block's part of R_d into its slice's plane
+  const int64_t plane = (int64_t)Ca * Cg, kplane = (int64_t)gridDim.y * plane;
+  float* part = ws + z * kplane + d * plane;
+  const int gq = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int e = warp * PT + i, mt = e / NG, nt = e % NG;
+    const int col = g0 + 8 * nt + c2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * mt + gq + 8 * h;
+      if (m >= Ca) continue;
+      if (col < Cg) part[(int64_t)m * Cg + col] = acc[i][2 * h];
+      if (col + 1 < Cg) part[(int64_t)m * Cg + col + 1] = acc[i][2 * h + 1];
+    }
+  }
+  int* flag = wcount + 16;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(tickets + d * gridDim.x + blockIdx.x, 1) == slices - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // the (d, tile)'s last block: the slices in order, into slice 0's plane
+  for (int e = tid; e < TA * TG; e += THREADS) {
+    const int m = e / TG, nn = g0 + e % TG;
+    if (m >= Ca || nn >= Cg) continue;
+    const int64_t off = d * plane + (int64_t)m * Cg + nn;
+    float v = __ldcg(ws + off);
+    for (int zz = 1; zz < slices; ++zz) v += __ldcg(ws + zz * kplane + off);
+    ws[off] = v;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int last = gridDim.x * gridDim.y;
+    *flag = atomicAdd(tickets + last, 1) == last - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  // the last of them: dW[t][c][co] = sum over the output slots p, in order,
+  // of R_d[s Cin + c][p Cout + co], (d, s) = table[t][p]
+  for (int e = tid; e < taps * Cin * Cout; e += THREADS) {
+    const int t = e / (Cin * Cout), c = (e / Cout) % Cin, co = e % Cout;
+    float v = 0.f;
+#pragma unroll
+    for (int p = 0; p < NS; ++p) {
+      const int ds = __ldg(table + t * NS + p);
+      v += __ldcg(ws + (ds >> 3) * plane + (int64_t)((ds & (NS - 1)) * Cin + c) * Cg +
+                  p * Cout + co);
+    }
+    dW[e] = v;
   }
 }
 
@@ -3736,61 +3998,117 @@ int pc_brick_gemm(const void* X, const void* nbr, int K3, const void* table, int
   return (int)cudaGetLastError();
 }
 
-// bf16_: X and G bf16, the tensor-core form (dW f32 either way)
+// brick_wgrad (f32)
 int pc_brick_wgrad(const void* X, const void* nbr, const void* table, int taps, int centre,
                    const void* G, const void* valid, const void* order, void* dW, void* ws,
-                   void* tickets, int NB, int Cin, int Cout, int slices, int bf16_,
-                   void* stream) {
+                   void* tickets, int NB, int Cin, int Cout, int slices, void* stream) {
   int qa, qg;
-  gw::qs_for(Cin, Cout, &qa, &qg, bf16_ != 0);
+  gw::qs_for(Cin, Cout, &qa, &qg);
   const int tiles = ((Cin + 32 * qa - 1) / (32 * qa)) * ((Cout + 32 * qg - 1) / (32 * qg));
-  const size_t smem = bf16_ ? gw::smem_bytes(qa, qg, 2, 2) : gw::smem_bytes(qa, qg);
-  const int vec = bf16_ ? 8 : 4;
-  const int vec_a = Cin % vec == 0 && aligned16(X);
-  const int vec_g = Cout % vec == 0 && aligned16(G);
+  const size_t smem = gw::smem_bytes(qa, qg);
+  const int vec_a = Cin % 4 == 0 && aligned16(X);
+  const int vec_g = Cout % 4 == 0 && aligned16(G);
   const dim3 grid(tiles, taps, slices);
-  static size_t granted[50] = {};  // by 25 bf16_ + 5 qa + qg
-  auto go = [&](auto kernel, auto t) {
-    using T = decltype(t);
-    const int slot = 25 * bf16_ + 5 * qa + qg;
+  static size_t granted[25] = {};  // by 5 qa + qg
+  auto go = [&](auto kernel) {
+    const int slot = 5 * qa + qg;
     if (smem > 48 * 1024 && smem > granted[slot]) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       granted[slot] = smem;
     }
     kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
-        (const T*)X, (const int*)nbr, (const int*)table, centre, (const T*)G,
+        (const float*)X, (const int*)nbr, (const int*)table, centre, (const float*)G,
         (const float*)valid, (const int*)order, (float*)dW, (float*)ws, (int*)tickets, NB,
         Cin, Cout, vec_a, vec_g);
   };
-  auto by_mma_q = [&](auto qa_) {  // the tensor-core form: QA, QG in 1..4, QA QG <= 9
+  switch (4 * qa + qg) {
+    case 5: go(brick_wgrad_kernel<1, 1>); break;
+    case 6: go(brick_wgrad_kernel<1, 2>); break;
+    case 7: go(brick_wgrad_kernel<1, 3>); break;
+    case 9: go(brick_wgrad_kernel<2, 1>); break;
+    case 10: go(brick_wgrad_kernel<2, 2>); break;
+    default: go(brick_wgrad_kernel<3, 1>); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// brick_wgrad_bf16's tensor-core tile (qa, qg) and column tiles: Cin <=
+// BRICK_NARROW, the brick form ([8 Cin] x [8 Cout] a neighbour row: tiles
+// of 32 qg of 8 Cout); else the pair form's gw::qs_for tiles
+static void brick_wgrad_tile(int Cin, int Cout, int* qa, int* qg, int* tiles) {
+  if (Cin <= BRICK_NARROW) {
+    *qa = (bg::NS * Cin + 31) / 32;
+    *qg = 4;
+    *tiles = (bg::NS * Cout + 127) / 128;
+    return;
+  }
+  gw::qs_for(Cin, Cout, qa, qg, true);
+  *tiles = ((Cin + 32 * *qa - 1) / (32 * *qa)) * ((Cout + 32 * *qg - 1) / (32 * *qg));
+}
+
+// brick_wgrad_bf16 into an f32 dW: Cin <= BRICK_NARROW, grid (tiles, K3,
+// slices), ws [slices][K3][8 Cin][8 Cout], tickets [K3 tiles + 1]; else
+// grid (tiles, taps, slices), ws [slices][taps][Cin][Cout] (slices > 1),
+// tickets [tiles taps]; table [taps][8] the slot table, nbr [K3, NB] the
+// brick map, valid [NB 8] the occupied slots (null: all), occ [NB] int32
+// workspace for their words; two launches: the words, then the products
+int pc_brick_wgrad_bf16(const void* X, const void* nbr, int K3, const void* table, int taps,
+                        int centre, const void* G, const void* valid, void* occ, void* dW,
+                        void* ws, void* tickets, int NB, int Cin, int Cout, int slices,
+                        void* stream) {
+  int qa, qg, tiles;
+  brick_wgrad_tile(Cin, Cout, &qa, &qg, &tiles);
+  const bool narrow = Cin <= BRICK_NARROW;
+  if (narrow && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = gw::smem_bytes(qa, qg, 2, 2);
+  const int vec_a = (narrow || Cin % 8 == 0) && aligned16(X);  // a brick row: 16 Cin bytes
+  const int vec_g = (narrow || Cout % 8 == 0) && aligned16(G);
+  const dim3 grid(tiles, narrow ? K3 : taps, slices);
+  brick_occupancy_kernel<<<(NB + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)valid, (int*)occ, NB);
+  static size_t granted[50] = {};  // by 25 narrow + 5 qa + qg
+  auto allow = [&](auto kernel) {
+    const int slot = 25 * narrow + 5 * qa + qg;
+    if (smem > 48 * 1024 && smem > granted[slot]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      granted[slot] = smem;
+    }
+  };
+  auto go = [&](auto kernel) {  // the pair form
+    allow(kernel);
+    kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
+        (const bf16*)X, (const int*)nbr, (const int*)table, centre, (const bf16*)G,
+        (const int*)occ, (float*)dW, (float*)ws, (int*)tickets, NB, Cin, Cout, vec_a, vec_g);
+  };
+  auto go_dense = [&](auto kernel) {  // the brick form
+    allow(kernel);
+    kernel<<<grid, gw::THREADS, smem, (cudaStream_t)stream>>>(
+        (const bf16*)X, (const int*)nbr, (const int*)table, taps, centre, (const bf16*)G,
+        (const int*)occ, (float*)dW, (float*)ws, (int*)tickets, NB, Cin, Cout, vec_a, vec_g);
+  };
+  if (narrow) {  // qa 1 (Cin <= 4) or 2, qg 4
+    if (qa == 1) go_dense(brick_wgrad_mma_dense_kernel<1, 4>);
+    else go_dense(brick_wgrad_mma_dense_kernel<2, 4>);
+    return (int)cudaGetLastError();
+  }
+  auto by_q = [&](auto qa_) {  // QA, QG in 1..4, QA QG <= 9
     constexpr int QA = decltype(qa_)::value;
     switch (qg) {
-      case 1: go(brick_wgrad_kernel<QA, 1, bf16>, bf16()); break;
-      case 2: go(brick_wgrad_kernel<QA, 2, bf16>, bf16()); break;
+      case 1: go(brick_wgrad_mma_kernel<QA, 1>); break;
+      case 2: go(brick_wgrad_mma_kernel<QA, 2>); break;
       case 3:
-        if constexpr (QA <= 3) go(brick_wgrad_kernel<QA, 3, bf16>, bf16());
+        if constexpr (QA <= 3) go(brick_wgrad_mma_kernel<QA, 3>);
         break;
       default:
-        if constexpr (QA <= 2) go(brick_wgrad_kernel<QA, 4, bf16>, bf16());
+        if constexpr (QA <= 2) go(brick_wgrad_mma_kernel<QA, 4>);
         break;
     }
   };
-  if (!bf16_) {
-    switch (4 * qa + qg) {
-      case 5: go(brick_wgrad_kernel<1, 1>, 0.f); break;
-      case 6: go(brick_wgrad_kernel<1, 2>, 0.f); break;
-      case 7: go(brick_wgrad_kernel<1, 3>, 0.f); break;
-      case 9: go(brick_wgrad_kernel<2, 1>, 0.f); break;
-      case 10: go(brick_wgrad_kernel<2, 2>, 0.f); break;
-      default: go(brick_wgrad_kernel<3, 1>, 0.f); break;
-    }
-  } else {
-    switch (qa) {
-      case 1: by_mma_q(std::integral_constant<int, 1>()); break;
-      case 2: by_mma_q(std::integral_constant<int, 2>()); break;
-      case 3: by_mma_q(std::integral_constant<int, 3>()); break;
-      default: by_mma_q(std::integral_constant<int, 4>()); break;
-    }
+  switch (qa) {
+    case 1: by_q(std::integral_constant<int, 1>()); break;
+    case 2: by_q(std::integral_constant<int, 2>()); break;
+    case 3: by_q(std::integral_constant<int, 3>()); break;
+    default: by_q(std::integral_constant<int, 4>()); break;
   }
   return (int)cudaGetLastError();
 }

@@ -99,11 +99,12 @@ def _report(out_dir, rank) -> dict:
         return {}
 
 
-def run(world_size: int, fn, args=(), device="cpu", timeout: float | None = None):
+def run(world_size: int, fn, args=(), device="cuda", timeout: float | None = None):
     """Run ``fn(*args)`` in ``world_size`` spawned ranks and return rank 0's
     result (``fn``, its arguments and its result are pickled by value: a
     rank's tensors never share memory with this process's or another
-    rank's).  ``device`` ``cuda``: build the CUDA kernels first.  ``timeout``: seconds for the
+    rank's).  ``device`` ``cuda`` (the default, as the CLIs'): build the
+    CUDA kernels first; ``cpu`` for ranks on the host.  ``timeout``: seconds for the
     whole group, after which every rank is ended and ``TimeoutError``
     raised.  A rank that fails ends the others at once and its traceback is
     raised as ``RuntimeError``; if every rank exits with

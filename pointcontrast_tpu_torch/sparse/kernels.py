@@ -126,7 +126,11 @@ are both occupied (f32 arithmetic bounds them); they take the level's
 gather_gemm's and gather_wgrad's pipelines over the occupied output slots,
 read a row's source at each tap from the plan's slot table
 (``brick_slot_table``) and skip the empty sources, and write exact zeros at
-the empty slots.
+the empty slots.  ``brick_gemm_bf16`` runs the same tiles on the tensor
+cores; ``brick_wgrad_bf16`` compacts each tap's live pairs brick by brick
+and, up to ``BRICK_NARROW`` input channels, multiplies whole bricks a
+neighbour row instead (JAX's block product; csrc/sparse_conv.cu spells out
+both).
 """
 from __future__ import annotations
 
@@ -206,8 +210,9 @@ def _lib():
         "pc_scatter_sum": [vp, vp, TapList, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, ci,
                            vp, vp],
         "pc_brick_gemm": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
-        "pc_brick_wgrad": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                           ci, vp],
+        "pc_brick_wgrad": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp],
+        "pc_brick_wgrad_bf16": [vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                ci, vp],
     })
 
 
@@ -1408,6 +1413,9 @@ def scatter_sum_bf16(g3, map_, taps, tap_stride, s_in, skip_from, inverse=None):
 BRICK_SLOTS = 8
 BRICK_NBRS = 27  # rows of a brick map (3^3 neighbour bricks)
 BRICK_LIMIT = 2 ** 23  # bricks a level: the kernels pack a brick id and its 8 slots' bits
+# brick_wgrad_bf16 runs its brick form (one product a neighbour row over
+# whole bricks) up to this Cin (csrc BRICK_NARROW)
+BRICK_NARROW = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -1656,7 +1664,8 @@ def _brick_wgrad_shapes(name, x, nbr, steps, ct, num_taps, valid, order):
 
 def _brick_wgrad_launch(name, x, nbr, steps, ct, num_taps, valid, order, dtype):
     """The brick-wgrad kernel on ``dtype`` (f32, or bf16: the tensor-core
-    form) x and ct -> (dW [taps, Cin, Cout] f32, launches: 0 or 1)."""
+    forms, which leave ``order``) x and ct -> (dW [taps, Cin, Cout] f32,
+    launches: 0 or 1)."""
     _require_brick(x, nbr, valid, order, dtype)
     _require(ct, "ct", dtype, 2)
     nb, cin, cout = nbr.shape[1], x.shape[1], ct.shape[1]
@@ -1664,16 +1673,32 @@ def _brick_wgrad_launch(name, x, nbr, steps, ct, num_taps, valid, order, dtype):
     rows = nb * BRICK_SLOTS
     if rows == 0 or num_taps == 0:
         return torch.zeros(num_taps, cin, cout, device=x.device, dtype=torch.float32), 0
-    tiles = _wgrad_tiles(cin, cout, dtype == BF16)
-    slices = _brick_wgrad_slices(rows, tiles, num_taps)
-    ws = tickets = None
-    if slices > 1:
-        ws = torch.empty(slices, num_taps, cin, cout, device=x.device, dtype=torch.float32)
-        tickets = torch.zeros(tiles * num_taps, device=x.device, dtype=torch.int32)
+    bf16, k3 = dtype == BF16, nbr.shape[0]
+    if bf16 and cin <= BRICK_NARROW:
+        # the brick form: a block a (column tile of 8 Cout, neighbour row),
+        # partials [slices, K3, 8 Cin, 8 Cout], tickets for both combines
+        tiles = -(-BRICK_SLOTS * cout // 128)
+        slices = _brick_wgrad_slices(nb, tiles, k3, whole=True)  # runs of 256 bricks
+        ws = torch.empty(slices, k3, BRICK_SLOTS * cin, BRICK_SLOTS * cout, device=x.device,
+                         dtype=torch.float32)
+        tickets = torch.zeros(k3 * tiles + 1, device=x.device, dtype=torch.int32)
+    else:
+        tiles = _wgrad_tiles(cin, cout, bf16)
+        slices = _brick_wgrad_slices(rows, tiles, num_taps, whole=bf16)
+        ws = tickets = None
+        if slices > 1:
+            ws = torch.empty(slices, num_taps, cin, cout, device=x.device, dtype=torch.float32)
+            tickets = torch.zeros(tiles * num_taps, device=x.device, dtype=torch.int32)
     dw = torch.empty(num_taps, cin, cout, device=x.device, dtype=torch.float32)
-    rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(table), num_taps, centre, _ptr(ct),
-                               _ptr(valid), _ptr(order), _ptr(dw), _ptr(ws), _ptr(tickets),
-                               nb, cin, cout, slices, int(dtype == BF16), _stream())
+    if bf16:
+        occ = torch.empty(nb, device=x.device, dtype=torch.int32)  # the bricks' slot words
+        rc = _lib().pc_brick_wgrad_bf16(_ptr(x), _ptr(nbr), k3, _ptr(table), num_taps, centre,
+                                        _ptr(ct), _ptr(valid), _ptr(occ), _ptr(dw), _ptr(ws),
+                                        _ptr(tickets), nb, cin, cout, slices, _stream())
+    else:
+        rc = _lib().pc_brick_wgrad(_ptr(x), _ptr(nbr), _ptr(table), num_taps, centre, _ptr(ct),
+                                   _ptr(valid), _ptr(order), _ptr(dw), _ptr(ws), _ptr(tickets),
+                                   nb, cin, cout, slices, _stream())
     _check(rc, name)
     return dw, 1
 
@@ -1702,9 +1727,12 @@ def brick_wgrad(x, nbr, steps, ct, num_taps, valid=None, order=None):
 def brick_wgrad_bf16(x, nbr, steps, ct, num_taps, valid=None, order=None):
     """``brick_wgrad`` on bf16 x and ct (JAX ``_brick_sym_bwd``'s dW in
     bf16: the blocks' f32 sums, rounded once to the weights' bf16) ->
-    [num_taps, Cin, Cout] bf16.  On the card the tensor-core kernel's f32
-    dW (its slices added in block order: the same bits from run to run),
-    rounded once here; held to ``brick_wgrad_bf16_bound``."""
+    [num_taps, Cin, Cout] bf16.  On the card the tensor-core kernels' f32
+    dW (partial sums added in a fixed order: the same bits from run to
+    run), rounded once here; held to ``brick_wgrad_bf16_bound``.  They
+    take the live pairs brick by brick (``order`` is left) and, up to
+    ``BRICK_NARROW`` input channels, one product a neighbour row over whole
+    bricks, whose empty slots they read as zeros."""
     _brick_wgrad_shapes("brick_wgrad_bf16", x, nbr, steps, ct, num_taps, valid, order)
     _require_dtypes("brick_wgrad_bf16", BF16, x=x, ct=ct)
     if _use_plain(x):
@@ -1715,12 +1743,16 @@ def brick_wgrad_bf16(x, nbr, steps, ct, num_taps, valid=None, order=None):
     return dw.to(BF16)
 
 
-def _brick_wgrad_slices(rows, tiles, taps) -> int:
+def _brick_wgrad_slices(rows, tiles, taps, whole=False) -> int:
     """Blocks a (tap, tile) of brick_wgrad spreads its rows over: about
     ``WGRAD_BLOCKS`` blocks in all, 256 rows a block at least.  A block
-    takes every slices-th run of 256 rows of the order, so the occupied
-    rows, which the slot order puts first, fall to every block alike."""
-    return max(1, min(-(-rows // 256), -(-WGRAD_BLOCKS // (tiles * taps))))
+    takes every slices-th run of 256 rows of the order (the bf16 forms:
+    32 or 256 bricks), so the occupied rows, which the orders put first,
+    fall to every block alike.  ``whole`` (the bf16 forms): at most
+    ``WGRAD_BLOCKS``, whole waves of 2 blocks an SM, so that no block runs
+    alone in a wave of its own."""
+    per = WGRAD_BLOCKS // (tiles * taps) if whole else -(-WGRAD_BLOCKS // (tiles * taps))
+    return max(1, min(-(-rows // 256), per))
 
 
 KERNELS = (gather_gemm, gather_wgrad, parent_gemm, scatter_parent,

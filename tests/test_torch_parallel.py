@@ -206,7 +206,8 @@ def runs(tmp_path_factory):
         mp.setitem(registry.MODELS, "TinyUNet", ranks.TinyUNet)
         spec["semseg"] = _semseg_spec(tmp)
         spec["votenet"] = _votenet_spec(tmp)
-    got = launch.run(2, ranks.all_ranks, (ranks.rank_checks, spec), timeout=JOIN_S)
+    got = launch.run(2, ranks.all_ranks, (ranks.rank_checks, spec), device="cpu",
+                     timeout=JOIN_S)
     return dict(jax=jax_runs, spec=spec, ranks=got, tmp=tmp)
 
 
@@ -362,7 +363,7 @@ def test_checkpoints_carry_no_ddp_prefix(runs):
 def test_launch_fails_with_the_rank_traceback():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose") as err:
-        launch.run(2, ranks.fail_on, (1,), timeout=JOIN_S)
+        launch.run(2, ranks.fail_on, (1,), device="cpu", timeout=JOIN_S)
     assert "rank 1 of 2 failed" in str(err.value) and "Traceback" in str(err.value)
     assert time.monotonic() - t0 < JOIN_S
     assert not multiprocessing.active_children()
